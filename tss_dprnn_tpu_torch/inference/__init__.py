@@ -1,0 +1,3 @@
+"""Inference of the port: masked, bucketed evaluation on the card."""
+
+from tss_dprnn_tpu_torch.inference.inferencer_spe import InferencerSpe  # noqa: F401

@@ -1,0 +1,158 @@
+"""JAX model variables -> the port's (reference-format) torch state_dict.
+
+The port's own copy of the DPRNN and Spe branches of the JAX package's
+exporter (``tss_dprnn_tpu/utils/torch_export.py:131-204``). ``variables``
+are the flax variables as nested dicts of numpy arrays (``params`` plus
+``batch_stats``); the result loads into
+:class:`tss_dprnn_tpu_torch.models.dprnn_spe.DPRNNSpeTasNet` with
+``strict=True``. Frozen tensors the reference carries (the 'att' average
+conv, BatchNorm's ``num_batches_tracked``) are synthesised: they are
+functions of the config, not learned state.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(x) -> np.ndarray:
+    return np.asarray(x).T.copy()
+
+
+def _conv1x1(kernel) -> np.ndarray:  # Dense kernel [I, O] -> Conv1d weight [O, I, 1]
+    return np.asarray(kernel).T[:, :, None].copy()
+
+
+def _copy(x) -> np.ndarray:
+    return np.asarray(x).copy()
+
+
+def _rnn_entries(out, prefix, tree):
+    for tag, sfx in (("f", ""), ("b", "_reverse")):
+        out[f"{prefix}.weight_ih_l0{sfx}"] = _t(tree[f"w_ih_{tag}"])
+        out[f"{prefix}.weight_hh_l0{sfx}"] = _t(tree[f"w_hh_{tag}"])
+        out[f"{prefix}.bias_ih_l0{sfx}"] = _copy(tree[f"b_ih_{tag}"])
+        out[f"{prefix}.bias_hh_l0{sfx}"] = _copy(tree[f"b_hh_{tag}"])
+
+
+def _norm_entries(out, prefix, tree, norm_type):
+    wname, bname = ("gamma", "beta") if norm_type == "gLN" else ("weight", "bias")
+    out[f"{prefix}.{wname}"] = _copy(tree["gamma"])
+    out[f"{prefix}.{bname}"] = _copy(tree["beta"])
+
+
+def _dense_entries(out, prefix, tree, conv: bool = False):
+    out[f"{prefix}.weight"] = _conv1x1(tree["kernel"]) if conv else _t(tree["kernel"])
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _copy(tree["bias"])
+
+
+def _bn_entries(out, prefix, params, stats):
+    out[f"{prefix}.weight"] = _copy(params["scale"])
+    out[f"{prefix}.bias"] = _copy(params["bias"])
+    out[f"{prefix}.running_mean"] = _copy(stats["mean"])
+    out[f"{prefix}.running_var"] = _copy(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _resblock_entries(out, prefix, p, s):
+    _dense_entries(out, f"{prefix}.conv1", p["conv1"], conv=True)
+    _bn_entries(out, f"{prefix}.batch_norm1", p["batch_norm1"], s["batch_norm1"])
+    out[f"{prefix}.prelu1.weight"] = _copy(p["prelu1"]["a"])
+    _dense_entries(out, f"{prefix}.conv2", p["conv2"], conv=True)
+    _bn_entries(out, f"{prefix}.batch_norm2", p["batch_norm2"], s["batch_norm2"])
+    out[f"{prefix}.prelu2.weight"] = _copy(p["prelu2"]["a"])
+    if "conv_downsample" in p:
+        _dense_entries(out, f"{prefix}.conv_downsample", p["conv_downsample"], conv=True)
+
+
+def state_dict_from_jax(variables: Mapping[str, Any], norm_type: str = "ln",
+                        kernel_size: int = 2, fusion_type: str = "att"
+                        ) -> Dict[str, torch.Tensor]:
+    """flax variables (params [+ batch_stats]) -> reference-format state_dict."""
+    params = variables["params"]
+    sep = params["separation"]
+    sep_stats = variables.get("batch_stats", {}).get("separation", {})
+    out: Dict[str, np.ndarray] = {}
+
+    out["encoder.conv1d.weight"] = _copy(params["encoder"]["w"])
+    out["decoder.weight"] = _copy(params["decoder"]["w"])
+    _norm_entries(out, "separation.bottleneck.0", sep["bottleneck_norm"], norm_type)
+    _dense_entries(out, "separation.bottleneck.1", sep["bottleneck_dense"], conv=True)
+
+    core = sep["core"]
+    i = 0
+    while f"blocks_{i}" in core:
+        blk = core[f"blocks_{i}"]
+        prefix = f"separation.dprnn_blocks.{i}"
+        for part in ("intra", "inter"):
+            _rnn_entries(out, f"{prefix}.{part}_rnn.rnn", blk[f"{part}_rnn"])
+            _dense_entries(out, f"{prefix}.{part}_linear", blk[f"{part}_linear"])
+            _norm_entries(out, f"{prefix}.{part}_norm", blk[f"{part}_norm"], norm_type)
+        i += 1
+    out["separation.prelu.weight"] = _copy(core["prelu"]["a"])
+    out["separation.conv2d.weight"] = np.asarray(core["mask_dense"]["kernel"]).T[:, :, None, None].copy()
+    out["separation.conv2d.bias"] = _copy(core["mask_dense"]["bias"])
+    _dense_entries(out, "separation.out.0", core["out_dense"], conv=True)
+    _dense_entries(out, "separation.gate.0", core["gate_dense"], conv=True)
+    out["separation.end_conv1x1.weight"] = _conv1x1(core["end_dense"]["kernel"])
+
+    if "fusion" in sep:
+        fz = sep["fusion"]
+        for name in ("fusion_linear", "fusion_linear_1", "fusion_linear_2"):
+            if name in fz:
+                _dense_entries(out, f"separation.{name}", fz[name])
+        if fusion_type == "att":
+            N = out["encoder.conv1d.weight"].shape[0]
+            out["separation.average.weight"] = (
+                np.ones((N, 1, kernel_size), np.float32) / kernel_size)
+            out["separation.average.bias"] = np.zeros(N, np.float32)
+
+    if "spk_encoder" in sep:
+        sk = sep["spk_encoder"]
+        sk_stats = sep_stats.get("spk_encoder", {})
+        out["separation.spk_encoder.0.weight"] = _copy(sk["norm"]["gamma"])
+        out["separation.spk_encoder.0.bias"] = _copy(sk["norm"]["beta"])
+        _dense_entries(out, "separation.spk_encoder.1", sk["conv_in"], conv=True)
+        for idx, res in (("2", "res1"), ("3", "res2"), ("4", "res3")):
+            _resblock_entries(out, f"separation.spk_encoder.{idx}", sk[res],
+                              sk_stats.get(res, {}))
+        _dense_entries(out, "separation.spk_encoder.5", sk["conv_out"], conv=True)
+    if "pred_linear" in sep:
+        _dense_entries(out, "separation.pred_linear", sep["pred_linear"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+@torch.no_grad()
+def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Random weights by torch's default rules, drawn from ``generator``:
+    U(+-1/sqrt(fan_in)) for linear, conv and LSTM tensors (fan_in = H for
+    the LSTM), norm scales 1 and shifts 0, PReLU slopes 0.25. Buffers (BN
+    running statistics, the frozen average) keep their constructed values."""
+    from tss_dprnn_tpu_torch.models.dprnn import Decoder, _Conv1dWeight
+    from tss_dprnn_tpu_torch.models.layers import (
+        BatchNorm, Dense, GlobalNorm, PReLU, _LSTMParams)
+
+    def uniform_(t: torch.Tensor, fan_in: int) -> None:
+        k = fan_in ** -0.5
+        t.copy_(torch.rand(t.shape, generator=generator) * (2 * k) - k)
+
+    for m in model.modules():
+        if isinstance(m, Dense):
+            for p in m.parameters(recurse=False):
+                uniform_(p, m.in_features)
+        elif isinstance(m, _LSTMParams):
+            for p in m.parameters(recurse=False):
+                uniform_(p, m.weight_hh_l0.shape[1])
+        elif isinstance(m, (_Conv1dWeight, Decoder)):
+            uniform_(m.weight, m.weight.shape[1] * m.weight.shape[2])
+        elif isinstance(m, (GlobalNorm, BatchNorm)):
+            scale, shift = list(m.parameters(recurse=False))
+            scale.fill_(1.0)
+            shift.zero_()
+        elif isinstance(m, PReLU):
+            m.weight.fill_(0.25)
+    return model
