@@ -23,6 +23,13 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
 )
 
 ATOL = 1e-5
+# the bf16 kernel against the bf16 plain version on the card: they sum a
+# gate in different orders, so a rounded h may differ by a bf16 ulp (2^-8 for
+# |h| in [0.5, 1)) and max |err| alone cannot tell a kernel that skips the
+# rounding of h (also 1 ulp off, but about 59 dB SNR on an H100 at this test's
+# shape, against about 80 dB for the kernel)
+BF16_ATOL = 2.0 ** -7
+BF16_SNR_DB = 70.0
 
 
 @pytest.fixture
@@ -110,15 +117,20 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
-def test_bilstm2_kernel_matches_reference_on_card(masked):
+def test_bilstm2_kernel_matches_reference_on_card(masked, dtype):
     """On the card (the machine there has no JAX: run with
-    ``python -m pytest --noconftest -m cuda tests/test_torch_port_bilstm2.py``)."""
+    ``python -m pytest --noconftest -m cuda tests/test_torch_port_bilstm2.py``).
+    fp32: 1e-4 absolute. bf16 streams: BF16_ATOL and BF16_SNR_DB against
+    the bf16 plain version, which rounds h to bf16 before every next step
+    as the kernel must."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    atol = 1e-4 if dtype == torch.float32 else BF16_ATOL
     rng = np.random.default_rng(0)
     R, T, F, H = 70, 33, 128, 128
-    x = torch.from_numpy(rng.standard_normal((R, T, F)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((R, T, F)).astype(np.float32)).cuda().to(dtype)
     w = [t.cuda() for t in _torch(*_weights(rng, F, H))]
     w = [w[0] * 0.3, w[1], w[2] * 0.3]
     lens = torch.from_numpy(rng.integers(1, T + 1, R).astype(np.int32)).cuda()
@@ -126,8 +138,28 @@ def test_bilstm2_kernel_matches_reference_on_card(masked):
         got = bilstm2_forward_masked(x, lens, *w)
         want = bilstm2_reference(x, *w, lens)
         valid = torch.arange(T, device="cuda")[None, :] < lens[:, None]
-        torch.testing.assert_close(got[0][valid], want[0][valid], atol=1e-4, rtol=0)
-        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+        got, want = ([o[0][valid], o[1]] for o in (got, want))
     else:
-        for a, b in zip(bilstm2_forward(x, *w), bilstm2_reference(x, *w)):
-            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+        got = bilstm2_forward(x, *w)
+        want = bilstm2_reference(x, *w)
+    assert all(o.dtype == dtype for o in got)
+    got, want = (torch.cat([o.float().flatten() for o in out]) for out in (got, want))
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    if dtype == torch.bfloat16:
+        snr = 10 * torch.log10(want.pow(2).sum() / (got - want).pow(2).sum().clamp_min(1e-30))
+        assert snr >= BF16_SNR_DB
+
+
+@pytest.mark.cuda
+def test_bilstm2_kernel_rejects_misaligned_input():
+    """The kernel copies and stores 16 bytes at a time: a view that does not
+    start on a 16-byte boundary is refused before the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    R, T, F, H = 3, 5, 16, 16
+    x = torch.zeros(R * T * F + 1, device="cuda")[1:].view(R, T, F)
+    w = [t.cuda() for t in _torch(*_weights(np.random.default_rng(0), F, H))]
+    before = launch_count()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bilstm2_forward(x, *w)
+    assert launch_count() == before

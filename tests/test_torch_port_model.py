@@ -15,7 +15,7 @@ import jax
 from tss_dprnn_tpu.models import DPRNNSpeTasNet as JaxDPRNNSpeTasNet
 from tss_dprnn_tpu.utils.torch_export import export_state_dict
 from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
-from tss_dprnn_tpu_torch.utils.weights import state_dict_from_jax
+from tss_dprnn_tpu_torch.utils.weights import init_weights_, state_dict_from_jax
 
 SMALL = dict(input_size=8, feature_size=16, hidden_size=16, chunk_length=8, kernel_size=2,
              hop_length=4, n_repeats=2, norm_type="ln", activation_type="sigmoid", O=8, P=12,
@@ -118,3 +118,18 @@ def test_masked_bucket_equals_exact_shape(batch, port_model):
             wav_e, logits_e = port_model(mix[b : b + 1, :n], ref[b : b + 1, :na], ref_len[b : b + 1])
             torch.testing.assert_close(logits_p[b], logits_e[0], atol=2e-4, rtol=1e-4)
             torch.testing.assert_close(wav_p[b, :n], wav_e[0], atol=2e-4, rtol=1e-4)
+
+
+def test_stacked_lstm_weights_follow_load_state_dict(batch, jax_model, port_model):
+    """Each RNNCore stacks its LSTM weights once; loading new weights after
+    a forward must rebuild the stack, not reuse the stale one."""
+    _, variables = jax_model
+    args = [torch.from_numpy(a) for a in batch]
+    model = init_weights_(DPRNNSpeTasNet(**SMALL).eval(), torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        model(*args)  # stacks the random weights
+        model.load_state_dict(state_dict_from_jax(variables, "ln", 2, "att"), strict=True)
+        got = model(*args)
+        want = port_model(*args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

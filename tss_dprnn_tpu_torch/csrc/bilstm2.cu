@@ -22,8 +22,9 @@
 // all four gates of each, so the cell update needs no exchange between threads.
 // W = [W_ih; W_hh] (fp32, (F + H) x 4H, 512 KB at the flagship width) does not
 // fit in a block's shared memory: it streams from L2 every step in chunks of
-// 16 k-rows, double-buffered with cp.async so the next chunk's copy overlaps
-// this chunk's FMAs. Every weight a block reads is reused across its 32 rows.
+// 16 k-rows (the first F / 16 from W_ih, the rest from W_hh), double-buffered
+// with cp.async so the next chunk's copy overlaps this chunk's FMAs. Every
+// weight a block reads is reused across its 32 rows.
 // Stream types: float and bf16 (x and outputs); the weights arrive as fp32
 // holding values already rounded to the stream type, so products are exact and
 // only the accumulation order differs from the TPU kernel.
@@ -95,14 +96,14 @@ __device__ __forceinline__ void mac_chunk(float (&acc)[4][4][4], const AT* a_row
 }
 
 // Grid (ceil(R / 32), 2): blockIdx.y is the direction. Threads: 2H (8 row
-// groups x H/4 unit groups). x and the outputs are [R, T, *] addressed by
-// (row stride, time stride) in elements, innermost axis contiguous.
+// groups x H/4 unit groups). x [R, T, F] and the outputs [R, T, H] are
+// contiguous.
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
+bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
+               const float* __restrict__ w_hh, const float* __restrict__ b,
                const int* __restrict__ lens, T* __restrict__ out0, T* __restrict__ out1, int R,
-               int Tn, int F, int H, long long x_sr, long long x_st, long long o_sr,
-               long long o_st) {
+               int Tn, int F, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
   const int K = F + H;
@@ -119,9 +120,11 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w, const float
   const int lane = tid & 31;
   const int rg = lane & 7;                                  // rows rg + 8r
   const int u4 = ((tid >> 5) * 4 + (lane >> 3)) * 4;        // first hidden unit
-  const float* wd = w + static_cast<long long>(d) * K * G;
   const float* bd = b + d * G;
   T* out = d == 0 ? out0 : out1;
+  // 64-bit row offset, 32-bit offset within the row: this form leaves
+  // ptxas no spills at the 128-register cap, both stream types
+  auto out_at = [&](int gr, int t) { return out + static_cast<long long>(gr) * (Tn * H) + t * H; };
 
   // per-row lengths (masked mode) and the tile's longest row
   int rlen[4];
@@ -151,7 +154,7 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w, const float
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int gr = row0 + rg + 8 * r;
-      if (gr < R) store4(out + gr * o_sr + t * o_st + u4, zeros);
+      if (gr < R) store4(out_at(gr, t) + u4, zeros);
     }
   }
   if (t_end == 0) return;
@@ -162,13 +165,16 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w, const float
       const int r = v / vec_per_row;
       const int e = (v - r * vec_per_row) * (16 / static_cast<int>(sizeof(T)));
       const int gr = row0 + r;
-      const T* src = gr < R ? x + gr * x_sr + t * x_st + e : x;
+      const T* src = gr < R ? x + static_cast<long long>(gr) * (Tn * F) + t * F + e : x;
       cp_async16(xs + r * xp + e, src, gr < R ? 16 : 0);
     }
   };
   const int chunk_vecs = kKChunk * G / 4;
+  // the chunk's source is worked out from the kernel's parameters at each
+  // copy: two hoisted direction pointers cost registers the loop needs
   auto load_w = [&](int chunk, int buf) {
-    const float* src = wd + static_cast<long long>(chunk) * kKChunk * G;
+    const int k = chunk * kKChunk;
+    const float* src = k < F ? w_ih + (d * F + k) * G : w_hh + (d * H + k - F) * G;
     float* dst = ws + buf * kKChunk * G;
     for (int v = tid; v < chunk_vecs; v += nthreads) cp_async16(dst + 4 * v, src + 4 * v, 16);
   };
@@ -229,16 +235,15 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w, const float
         hv[j] = update ? hn : hs[row * hp + u4 + j];
       }
       store4(hs + row * hp + u4, hv);
-      if (gr < R) store4(out + gr * o_sr + t * o_st + u4, hv);
+      if (gr < R) store4(out_at(gr, t) + u4, hv);
     }
   }
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const void* b, const void* lens, void* out0, void* out1,
-           int R, int Tn, int F, int H, long long x_sr, long long x_st, long long o_sr,
-           long long o_st, cudaStream_t stream) {
+int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, const void* lens,
+           void* out0, void* out1, int R, int Tn, int F, int H, cudaStream_t stream) {
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(bilstm2_kernel<T>,
@@ -247,9 +252,9 @@ int launch(const void* x, const void* w, const void* b, const void* lens, void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, 2);
   bilstm2_kernel<T><<<grid, 2 * H, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<const int*>(lens), static_cast<T*>(out0), static_cast<T*>(out1), R, Tn, F, H,
-      x_sr, x_st, o_sr, o_st);
+      static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
+      static_cast<const float*>(b), static_cast<const int*>(lens), static_cast<T*>(out0),
+      static_cast<T*>(out1), R, Tn, F, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,18 +262,18 @@ int launch(const void* x, const void* w, const void* b, const void* lens, void* 
 
 extern "C" {
 
-// dtype: 0 = float32 streams, 1 = bfloat16 streams. w: [2, F + H, 4H] fp32
-// ([W_ih; W_hh] per direction), b: [2, 4H] fp32, lens: [R] int32 or null
-// (unmasked). Returns a cudaError_t code (0 = launched).
-int bilstm2_forward(int dtype, const void* x, const void* w, const void* b, const void* lens,
-                    void* out0, void* out1, int R, int Tn, int F, int H, long long x_sr,
-                    long long x_st, long long o_sr, long long o_st, void* stream) {
+// dtype: 0 = float32 streams, 1 = bfloat16 streams. x: [R, T, F], out0 and
+// out1: [R, T, H], all contiguous in the stream type. w_ih: [2, F, 4H] and
+// w_hh: [2, H, 4H] fp32, b: [2, 4H] fp32, lens: [R] int32 or null (unmasked).
+// Every pointer but lens 16-byte aligned. Returns a cudaError_t code
+// (0 = launched).
+int bilstm2_forward(int dtype, const void* x, const void* w_ih, const void* w_hh, const void* b,
+                    const void* lens, void* out0, void* out1, int R, int Tn, int F, int H,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, w, b, lens, out0, out1, R, Tn, F, H, x_sr, x_st, o_sr, o_st, s);
+  if (dtype == 0) return launch<float>(x, w_ih, w_hh, b, lens, out0, out1, R, Tn, F, H, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, b, lens, out0, out1, R, Tn, F, H, x_sr, x_st, o_sr, o_st,
-                                 s);
+    return launch<__nv_bfloat16>(x, w_ih, w_hh, b, lens, out0, out1, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -79,11 +79,29 @@ class RNNCore(nn.Module):
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
         self.rnn = _LSTMParams(input_size, hidden_size)
+        self._stacked = None  # (the parameters it was built from, stacked weights)
+
+    def stacked_weights(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The pair in the kernel's layout (``rnn_ops.stack_directions``),
+        built once per set of parameter values: ``load_state_dict`` writes
+        the parameters in place (their version moves) and ``.to()`` gives
+        them new storage, and either rebuilds it. Inference only: the stack
+        carries no gradient."""
+        params = tuple(self.rnn.parameters())
+        if self._stacked is None or any(
+                p.data_ptr() != v.data_ptr() or p._version != n
+                for p, (v, n) in zip(params, self._stacked[0])):
+            with torch.no_grad():
+                stacked = rnn_ops.stack_directions(self.rnn.direction(""),
+                                                   self.rnn.direction("_reverse"))
+            # the detached views keep the old storages alive, so no new
+            # parameter can reuse their addresses
+            self._stacked = (tuple((p.detach(), p._version) for p in params), stacked)
+        return self._stacked[1]
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return rnn_ops.lstm_pair(x, self.rnn.direction(""), self.rnn.direction("_reverse"),
-                                 lengths)
+        return rnn_ops.lstm_pair(x, self.stacked_weights(), lengths)
 
 
 class GlobalNorm(nn.Module):

@@ -24,6 +24,7 @@ raises. Each entry counts its kernel launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -94,16 +95,25 @@ def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
             f"{tuple(w_ih2.shape)}, {tuple(w_hh2.shape)}, {tuple(b2.shape)}")
     if F % 16 or H % 16 or not 16 <= H <= 128:
         raise ValueError(f"bilstm2 kernel needs F, H multiples of 16 and H <= 128; F={F} H={H}")
+    if T * max(F, H) >= 2 ** 31:  # the kernel's offsets within a row are 32-bit
+        raise ValueError(f"bilstm2 kernel needs T * max(F, H) < 2^31; T={T}")
     tensors = [w_ih2, w_hh2, b2] + ([] if lens is None else [lens])
     if any(t.device != x.device for t in tensors):
         raise ValueError("bilstm2: x, weights and lens must be on one device")
     x = x.contiguous()
-    w = torch.cat([w_ih2, w_hh2], dim=1).to(x.dtype).float().contiguous()  # [2, F+H, 4H]
-    b = b2.float().contiguous()
+    # the kernel reads fp32 weights holding values of the stream type; for
+    # fp32 weights and streams these are no-ops
+    w_ih2 = w_ih2.to(x.dtype).float().contiguous()
+    w_hh2 = w_hh2.to(x.dtype).float().contiguous()
+    b2 = b2.float().contiguous()
     if lens is not None:
         if lens.shape != (B,):
             raise ValueError(f"lens must be [B]={B}, got {tuple(lens.shape)}")
         lens = lens.to(torch.int32).contiguous()
+    # 16-byte copies and stores: a view that starts mid-row would fault
+    for name, t in (("x", x), ("w_ih2", w_ih2), ("w_hh2", w_hh2), ("b2", b2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"bilstm2 kernel needs {name} 16-byte aligned; pass a copy")
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
     if B == 0 or T == 0:
@@ -112,9 +122,9 @@ def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.bilstm2_forward(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            None if lens is None else lens.data_ptr(), out0.data_ptr(), out1.data_ptr(),
-            B, T, F, H, T * F, F, T * H, H, stream)
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
+            b2.data_ptr(), None if lens is None else lens.data_ptr(), out0.data_ptr(),
+            out1.data_ptr(), B, T, F, H, stream)
     if rc != 0:
         raise RuntimeError(f"bilstm2 kernel launch failed: "
                            f"{lib.bilstm2_error_string(rc).decode()} ({rc})")
@@ -122,10 +132,13 @@ def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     return out0, out1
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's library, with its C
+    signatures set once."""
     lib = _build.load_library("bilstm2")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bilstm2_forward.argtypes = [i, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bilstm2_forward.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bilstm2_forward.restype = i
     lib.bilstm2_error_string.argtypes = [i]
     lib.bilstm2_error_string.restype = ctypes.c_char_p

@@ -27,15 +27,23 @@ class LSTMWeights(NamedTuple):
     b: torch.Tensor
 
 
-def lstm_pair(x: torch.Tensor, fwd: LSTMWeights, bwd: LSTMWeights,
+def stack_directions(fwd: LSTMWeights, bwd: LSTMWeights
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pair in the kernel's layout: (w_ih2 [2, F, 4H], b2 [2, 4H],
+    w_hh2 [2, H, 4H]), contiguous."""
+    return (torch.stack([fwd.w_ih, bwd.w_ih]), torch.stack([fwd.b, bwd.b]),
+            torch.stack([fwd.w_hh, bwd.w_hh]))
+
+
+def lstm_pair(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
               lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional LSTM over [B, T, F] -> (out_f, out_b), each [B, T, H],
-    zero initial state. With ``lengths`` the backward direction reads each
-    row reversed within its valid length; out_f past the length is
-    unspecified and masked downstream."""
-    w_ih2 = torch.stack([fwd.w_ih, bwd.w_ih])
-    b2 = torch.stack([fwd.b, bwd.b])
-    w_hh2 = torch.stack([fwd.w_hh, bwd.w_hh])
+    zero initial state. ``stacked`` is :func:`stack_directions` of the two
+    directions (the JAX op stacks them on every call; a model here stacks
+    them once). With ``lengths`` the backward direction reads each row
+    reversed within its valid length; out_f past the length is unspecified
+    and masked downstream."""
+    w_ih2, b2, w_hh2 = stacked
     if lengths is None:
         return bilstm2_forward(x, w_ih2, b2, w_hh2)
     return bilstm2_forward_masked(x, lengths, w_ih2, b2, w_hh2)
