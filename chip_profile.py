@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time and profile the port's serving path on one NVIDIA card.
+"""Time and profile the port's serving or training path on one NVIDIA card.
 
     python3 chip_profile.py [--batch 8] [--seconds 10] [--iters 5]
+    python3 chip_profile.py --train [--iters 5]
 
 One bucketed batch of ``--batch`` ragged requests (one of ``--seconds``,
 the others drawn from the seed between half that and the full length)
@@ -15,6 +16,14 @@ at full width and depth (random weights from a seed, fp32). Prints:
 
 Writes ``chiprun_out/chip_profile/summary.json`` and ``trace.json`` (Chrome
 trace) under the checkout.
+
+``--train`` times ``TrainerSpe.train_step`` instead, on one batch of 5 crops
+of 3 s (the reference's training batch) with the flagship model, fp32:
+steady-state ms/step (host clock around synchronised steps after two
+warm-up steps), and from the profiler over one step the device time of the
+residual forward kernel, the backward's kernels, the optimizer (gradient
+clipping and Adam) and the rest (glue), with the device's busy share.
+Writes ``summary_train.json`` and ``trace_train.json.gz``.
 """
 
 from __future__ import annotations
@@ -36,7 +45,10 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--train", action="store_true", help="profile a training step")
     args = ap.parse_args()
+    if args.train:
+        return profile_train(args.iters)
 
     import numpy as np
     import torch
@@ -115,6 +127,100 @@ def main() -> int:
     if bilstm2.launch_count() != 12 * (args.iters + 2):
         raise RuntimeError(f"expected 12 bilstm2 launches per forward, got "
                            f"{bilstm2.launch_count()} over {args.iters + 2} forwards")
+    return 0
+
+
+def train_kernel_class(name: str) -> str:
+    """The part of a training step a device kernel belongs to."""
+    if "bilstm2_kernel" in name:  # kResid = true: the training forward
+        return "resid forward" if ("true" in name or "Lb1E" in name) else "inference forward"
+    if "GemmArgs" in name or "scan_kernel" in name or "colsum_kernel" in name:
+        return "backward"
+    if "multi_tensor_apply" in name or "adam" in name.lower():
+        return "optimizer"
+    return "glue"
+
+
+def profile_train(iters: int) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from chip_smoke import (FLAGSHIP, SEED, TRAIN_BATCH, TRAIN_CONFIG, TRAIN_SECONDS, Crops)
+    from tss_dprnn_tpu_torch.data.loader import collate_spe
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.ops import bilstm2
+    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    model = init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(SEED))
+    # the trainer's checkpoint directory; this script saves nothing there
+    ckpt_dir = os.path.join(OUT_DIR, "train_ckpt_unused")
+    tr = TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=ckpt_dir))
+    os.rmdir(ckpt_dir)
+    batch = collate_spe(Crops(SEED, TRAIN_BATCH).items)
+    for _ in range(2):  # warm-up
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    bilstm2.reset_launch_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace_train.json.gz"))
+    launches = {"resid": bilstm2.bilstm2_forward_resid.launches,
+                "backward": bilstm2.bilstm2_backward.launches}
+
+    by_kernel = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] += e.time_range.end - e.time_range.start
+    device_us = sum(by_kernel.values())
+    by_class = defaultdict(float)
+    for k, v in by_kernel.items():
+        by_class[train_kernel_class(k)] += v
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    measured = bool(device_us)
+    summary = {
+        "card": smi, "batch": TRAIN_BATCH, "crop_s": TRAIN_SECONDS,
+        "ms_per_step": step_s * 1e3, "audio_s_per_s": TRAIN_BATCH * TRAIN_SECONDS / step_s,
+        "peak_memory_gb": peak_gb, "profiled_window_ms": window_us / 1e3,
+        "device_ms": device_us / 1e3 if measured else "not measured",
+        "device_busy_share": device_us / window_us if measured else "not measured",
+        "device_ms_by_part": ({k: v / 1e3 for k, v in sorted(by_class.items())} if measured
+                              else "not measured"),
+        "share_by_part": ({k: v / device_us for k, v in sorted(by_class.items())} if measured
+                          else "not measured"),
+        "launches_per_step": launches, "kernels_top": [[k[:120], v / 1e3] for k, v in top],
+    }
+    with open(os.path.join(OUT_DIR, "summary_train.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(f"{smi}: train step B={TRAIN_BATCH} x {TRAIN_SECONDS} s: {step_s * 1e3:.2f} ms/step, "
+          f"peak memory {peak_gb:.2f} GB")
+    for k, v in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {v / 1e3:9.3f} ms  {100 * v / max(device_us, 1):5.1f} %  {k}")
+    for k, v in top:
+        print(f"  {v / 1e3:9.3f} ms  {k[:110]}")
+    print(json.dumps({k: v for k, v in summary.items() if k != "kernels_top"}))
+    scans = 2 * FLAGSHIP["n_repeats"]
+    if launches != {"resid": scans, "backward": scans}:
+        raise RuntimeError(f"expected {scans} resid and backward launches per step: {launches}")
     return 0
 
 

@@ -5,8 +5,8 @@
 
 Phases, each of which fails the script (nonzero exit, no result line):
 1. set-up: the card's name and power limit, torch and CUDA versions, and
-   the nvcc build of the fused BiLSTM kernel from csrc/ (with ptxas's
-   register and spill report);
+   the nvcc builds of the kernels from csrc/, started together (with
+   ptxas's register and spill report);
 2. kernel vs plain: the bilstm2 kernel against its plain PyTorch version on
    the card, unmasked at the intra-chunk shape and masked at the
    inter-chunk shape of a batch of 8 x 10 s, in fp32 (max abs error
@@ -20,11 +20,26 @@ Phases, each of which fails the script (nonzero exit, no result line):
    the kernel must have been launched 12 times per batch (6 blocks x an
    intra and an inter scan), every SI-SDR finite;
 4. card vs CPU on one 2 s request (>= 50 dB SNR, fp32) and the request
-   bucketed with a longer one against the request run alone.
+   bucketed with a longer one against the request run alone;
+5. training kernels vs plain: the residual forward and the backward
+   (csrc/bilstm2_bwd.cu) against their plain versions at the training
+   batch's scan shapes (5 x 3 s: intra R=970 T=250, inter R=1250 T=194) and
+   masked at phase 2's inter shape (fp32; max abs error <= 1e-4, dW and db
+   within DW_REL_TOL of max |ref|, and the backward bit for bit the same on
+   a second call), timed beside the plain versions and cuDNN's LSTM forward,
+   backward and both (TF32 off, on a PackedSequence in masked mode);
+6. the training path: TrainerSpe.run for 2 epochs at full flagship width and
+   depth on in-memory crops from a seed (12 residual-forward and 12 backward
+   launches per train step, 12 inference launches per eval step, finite
+   losses, 2_last and a *_best written); the best checkpoint served through
+   InferencerSpe; 10 steps on one repeated batch lower the loss (steady-state
+   ms/step printed); one step card vs CPU at 1 x 1 s (loss within 1e-4
+   relative, concatenated gradients >= 40 dB SNR).
 
-The line before the last is {"kernels": [...]} with the kernel's numbers;
+The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
-chiprun_out/chip_smoke/ under the checkout.
+chiprun_out/chip_smoke/ under the checkout (summary.json holds every
+number).
 """
 
 from __future__ import annotations
@@ -59,6 +74,16 @@ PEAK_BYTES = 3.35e12
 # is the one that holds the rounding.
 BF16_ATOL = 2.0 ** -7
 BF16_SNR_DB = 70.0
+# the training batch of the reference's config (configs/train_tss.yaml):
+# 5 crops of 3 s
+TRAIN_BATCH = 5
+TRAIN_SECONDS = 3
+# backward kernel vs plain version, dW and db: each entry is an fp32 sum over
+# R * T ~ 2.4e5 row-steps (up to 6.4e5 masked), which the kernel cuts into
+# fixed partials and the plain version hands to cuBLAS in its own order.
+# Rounding grows about as sqrt(terms) * 2^-24 of the terms' scale, about 1e-5
+# of max|ref| here; a tile or split left out would be off by ~1/30 of it.
+DW_REL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -219,6 +244,196 @@ def phase_kernel(torch, dev):
     return entries
 
 
+def train_shapes():
+    """Scan shapes of one training batch: 5 crops of 3 s (24,000 samples,
+    23,999 encoder frames, S chunks), intra R = 5 S rows x T = K, inter
+    R = 5 K rows x T = S."""
+    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
+    L = TRAIN_SECONDS * SAMPLE_RATE - 1
+    S = (L + K) // hop + 1
+    return {"intra": (TRAIN_BATCH * S, K), "inter": (TRAIN_BATCH * K, S)}
+
+
+def bound_resid(rows_steps: int, R: int, T: int, F: int, H: int):
+    """The residual forward's least time: the inference forward's FLOPs and
+    bytes (fp32) plus its three H-wide fp32 streams per direction written."""
+    flops = 2 * rows_steps * 2 * (F + H) * 4 * H
+    nbytes = (rows_steps * F + 8 * R * T * H) * 4 + 2 * (F + H + 1) * 4 * H * 4
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_backward(rows_steps: int, R: int, T: int, F: int, H: int):
+    """The backward's least time: 3 x 2 (F + H) 4H FLOP per row-step and
+    direction (gates again, dh, dx, dW_ih, dW_hh) over the row-steps the data
+    needs, or x, the six residual streams and both cotangents read once,
+    the weights read once, and dx, dW and db written once, over the HBM
+    rate (fp32)."""
+    flops = 2 * rows_steps * 3 * 2 * (F + H) * 4 * H
+    nbytes = (rows_steps * (F + 8 * H) + R * T * F) * 4 + 2 * 2 * (F + H + 1) * 4 * H * 4
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_backward_kernels(torch, dev):
+    """Phase 5: the residual forward and the backward against their plain
+    versions at the training shapes (and masked at phase 2's inter shape),
+    timed beside the plain versions and cuDNN's LSTM forward and backward."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    F = H = 128
+    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    k = H ** -0.5
+    w_ih2, w_hh2, b2 = ((torch.rand(*s, generator=g) * 2 * k - k).to(dev)
+                        for s in ((2, F, 4 * H), (2, H, 4 * H), (2, 4 * H)))
+    w = (w_ih2, b2, w_hh2)
+    # masked: the chunk counts of 8 ragged utterances of 5-10 s, over K rows each
+    S10 = (10 * SAMPLE_RATE - 1 + K) // hop + 1
+    secs = torch.rand(8, generator=g) * 5 + 5
+    lens = ((((secs * SAMPLE_RATE).long() - 1 + K) // hop + 1).repeat_interleave(K)
+            .int().to(dev))
+    cases = [(name, R, T, None) for name, (R, T) in train_shapes().items()]
+    cases.append(("masked", 8 * K, S10, lens))
+    results = {}
+    for name, R, T, ln in cases:
+        x = torch.randn(R, T, F, generator=g).to(dev)
+        g0, g1 = (torch.randn(R, T, H, generator=g).to(dev) for _ in range(2))
+        valid = (torch.ones(R, T, dtype=torch.bool, device=dev) if ln is None
+                 else torch.arange(T, device=dev)[None, :] < ln[:, None])
+        if ln is not None:  # out0 past a row's length is unspecified: consumers mask it
+            g0 = g0 * valid[..., None]
+        rows_steps = R * T if ln is None else int(ln.sum())
+
+        def fwd(kernel=True, x=x, ln=ln):
+            if not kernel:
+                return B2.bilstm2_resid_reference(x, *w, ln)
+            if ln is None:
+                return B2.bilstm2_forward_resid(x, *w)
+            return B2.bilstm2_forward_resid_masked(x, ln, *w)
+
+        def bwd(resid, kernel=True, x=x, ln=ln, g0=g0, g1=g1):
+            if not kernel:
+                return B2.bilstm2_backward_reference(x, resid, g0, g1, *w, ln)
+            if ln is None:
+                return B2.bilstm2_backward(x, resid, g0, g1, *w)
+            return B2.bilstm2_backward_masked(x, resid, g0, g1, *w, ln)
+
+        # residual forward: outputs and the six streams on the contract's region
+        (o0, o1), resid = fwd()
+        (p0, p1), presid = fwd(kernel=False)
+        fwd_err = max(float((o1 - p1).abs().max()), float((o0 - p0)[valid].abs().max()),
+                      *(float((a - b)[valid].abs().max()) for a, b in zip(resid, presid)))
+        del o0, o1, presid
+        # backward, both from the kernel's residual streams
+        got = bwd(resid)
+        again = bwd(resid)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = bwd(resid, kernel=False)
+        dx_err = float((got[0] - want[0]).abs().max())
+        dw_err = max(float((a - b).abs().max()) for a, b in zip(got[1:], want[1:]))
+        dw_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                     for a, b in zip(got[1:], want[1:]))
+        dw_snr = min(snr_db(a, b) for a, b in zip(got[1:], want[1:]))
+        del got, want
+        log(f"[train-kernels] {name} R={R} T={T}: resid fwd max|err|={fwd_err:.3e}; backward "
+            f"dx max|err|={dx_err:.3e}, dW/db max|err|={dw_err:.3e}, /max|ref|={dw_rel:.3e} "
+            f"(SNR >= {dw_snr:.1f} dB), repeats bit for bit: {repeat}")
+        if not fwd_err <= 1e-4:
+            raise AssertionError(f"resid forward {name} disagrees with its plain version: {fwd_err}")
+        if not (dx_err <= 1e-4 and dw_rel <= DW_REL_TOL and repeat):
+            raise AssertionError(f"backward {name} disagrees with its plain version or does not "
+                                 f"repeat: dx {dx_err}, dW/db {dw_rel}, repeat {repeat}")
+
+        # cuDNN's LSTM on the same weights, TF32 off, training mode: the yardstick
+        lstm = cudnn_lstm(torch, w_ih2, b2, w_hh2, torch.float32)
+        xr = x.detach().clone().requires_grad_()
+        params = [xr, *lstm.parameters()]
+        cot = torch.cat([g0, g1], dim=-1)
+        pack = torch.nn.utils.rnn.pack_padded_sequence
+        unpack = torch.nn.utils.rnn.pad_packed_sequence
+
+        lens_cpu = None if ln is None else ln.cpu()
+
+        def library_fwd():
+            if ln is None:
+                return lstm(xr)[0]
+            packed = pack(xr, lens_cpu, batch_first=True, enforce_sorted=False)
+            return unpack(lstm(packed)[0], batch_first=True, total_length=T)[0]
+
+        out = library_fwd()
+        lib_err = max(float((out.detach()[..., H:] - p1).abs().max()),
+                      float((out.detach()[..., :H] - p0)[valid].abs().max()))
+        del p0, p1
+
+        def library_bwd():
+            torch.autograd.grad(out, params, cot, retain_graph=True)
+
+        def library_step():
+            torch.autograd.grad(library_fwd(), params, cot)
+
+        nums = {}
+        nums["fwd_ms"] = time_ms(fwd, 5)
+        nums["fwd_plain_ms"] = time_ms(lambda: fwd(kernel=False), 1)
+        nums["bwd_ms"] = time_ms(lambda: bwd(resid), 5)
+        nums["bwd_plain_ms"] = time_ms(lambda: bwd(resid, kernel=False), 1)
+        nums["cudnn_fwd_ms"] = time_ms(library_fwd, 3)
+        nums["cudnn_bwd_ms"] = time_ms(library_bwd, 3)
+        nums["cudnn_fwd_bwd_ms"] = time_ms(library_step, 3)
+        nums["fwd_bound_ms"], nums["fwd_bound_by"] = bound_resid(rows_steps, R, T, F, H)
+        nums["bwd_bound_ms"], nums["bwd_bound_by"] = bound_backward(rows_steps, R, T, F, H)
+        log(f"[train-kernels] {name}: resid fwd {nums['fwd_ms']:.3f} ms (plain "
+            f"{nums['fwd_plain_ms']:.1f}, bound {nums['fwd_bound_ms']:.3f}); backward "
+            f"{nums['bwd_ms']:.3f} ms (plain {nums['bwd_plain_ms']:.1f}, bound "
+            f"{nums['bwd_bound_ms']:.3f}); cuDNN fwd {nums['cudnn_fwd_ms']:.3f}, bwd "
+            f"{nums['cudnn_bwd_ms']:.3f}, fwd+bwd {nums['cudnn_fwd_bwd_ms']:.3f} ms "
+            f"(cuDNN vs plain out1 max|err| {lib_err:.3e})")
+        results[name] = dict(nums, R=R, T=T, rows_steps=rows_steps, resid_max_abs_err=fwd_err,
+                             dx_max_abs_err=dx_err, dw_max_abs_err=dw_err, dw_rel_err=dw_rel,
+                             dw_snr_db=dw_snr,
+                             bitwise_repeat=repeat, library_max_abs_err=lib_err)
+        del x, g0, g1, resid, lstm, xr, params, out, cot
+        torch.cuda.empty_cache()
+    return results
+
+
+def train_kernel_entries(results, launches):
+    """The kernels line's entries for the training kernels: the intra shape's
+    numbers at the top level, the inter and masked shapes nested."""
+    def numbers(r, which):
+        key = "fwd" if which == "resid" else "bwd"
+        return {"ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
+                "bound_ms": r[f"{key}_bound_ms"], "bound_by": r[f"{key}_bound_by"],
+                "library_ms": r["cudnn_fwd_ms"] if key == "fwd" else r["cudnn_bwd_ms"],
+                "cudnn_fwd_bwd_ms": r["cudnn_fwd_bwd_ms"],
+                "max_abs_err": (r["resid_max_abs_err"] if key == "fwd" else
+                                max(r["dx_max_abs_err"], r["dw_max_abs_err"])),
+                "shape": {"R": r["R"], "T": r["T"], "F": 128, "H": 128}}
+
+    entries = []
+    for which, name, source, replaces in (
+            ("resid", "bilstm2_forward_resid", "tss_dprnn_tpu_torch/csrc/bilstm2.cu",
+             "tss_dprnn_tpu/ops/pallas_lstm.py:698"),
+            ("backward", "bilstm2_backward", "tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu",
+             "tss_dprnn_tpu/ops/pallas_lstm.py:1224")):
+        e = {"name": name, "mode": f"{which}, intra", "dtype": "float32", "route": "cuda",
+             "source": source, "replaces": replaces, "launches": launches[which],
+             **numbers(results["intra"], which),
+             "inter": numbers(results["inter"], which),
+             "masked": dict(numbers(results["masked"], which), name=f"{name}_masked",
+                            launches=0)}
+        if which == "backward":
+            for shape in ("intra", "inter", "masked"):
+                sub = e if shape == "intra" else e[shape]
+                sub["dw_rel_err"] = results[shape]["dw_rel_err"]
+                sub["dx_max_abs_err"] = results[shape]["dx_max_abs_err"]
+            e["bitwise_repeat"] = all(results[s]["bitwise_repeat"] for s in results)
+        entries.append(e)
+    return entries
+
+
 class Requests:
     """In-memory requests: ds[i] -> (mix, target, reference, spk_idx)."""
 
@@ -327,6 +542,169 @@ def phase_card_vs_cpu(torch, inf_gpu, ckpt):
         raise AssertionError(f"bucketed row differs from the request alone: {err_bucket}")
 
 
+class Crops:
+    """In-memory training items from a seed: ds[i] -> (mix, target,
+    reference, spk_idx), fixed crops of ``seconds`` and references of 2-5 s."""
+
+    def __init__(self, seed: int, n: int, seconds: float = TRAIN_SECONDS):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        n_s = int(seconds * SAMPLE_RATE)
+        self.items = []
+        for _ in range(n):
+            target = 0.1 * rng.standard_normal(n_s).astype(np.float32)
+            mix = target + 0.1 * rng.standard_normal(n_s).astype(np.float32)
+            ref = 0.1 * rng.standard_normal(int(rng.uniform(2, 5) * SAMPLE_RATE))
+            self.items.append((mix, target, ref.astype(np.float32), int(rng.integers(0, 251))))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def lengths(self):
+        return [len(it[0]) for it in self.items]
+
+
+# the reference's training config (configs/train_tss.yaml), with a fresh
+# checkpoint directory; lstm_backend is accepted and ignored by the port
+TRAIN_CONFIG = {"optimizer": {"lr": 5e-4, "weight_decay": 1e-5}, "clip_norm": 5,
+                "ce_gamma": 0.5, "print_freq": 5, "n_checkpoints": 1000,
+                "lr_scheduler": {"patience": 2, "factor": 0.5}, "lstm_backend": "pallas",
+                "save_optimizer": True}
+
+
+def phase_training(torch, dev):
+    """Phase 6: TrainerSpe.run at full flagship width and depth, then the
+    best checkpoint served, 10 steps on one batch, and one step card vs CPU."""
+    import shutil
+
+    from tss_dprnn_tpu_torch.data.loader import TrainLoader, collate_spe
+    from tss_dprnn_tpu_torch.inference import InferencerSpe
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.ops import bilstm2
+    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    ckpt_dir = os.path.join(OUT_DIR, "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    start = init_weights_(DPRNNSpeTasNet(**FLAGSHIP),
+                          torch.Generator().manual_seed(SEED + 6)).state_dict()
+
+    def trainer(device, directory):
+        model = DPRNNSpeTasNet(**FLAGSHIP)
+        model.load_state_dict(start, strict=True)
+        return TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=directory),
+                          device=device)
+
+    # -- the main path: 2 epochs of 4 train steps and 2 eval steps
+    tr = trainer(dev, ckpt_dir)
+    train_loader = TrainLoader(Crops(SEED + 6, 20), TRAIN_BATCH, collate_spe, seed=SEED,
+                               prefetch=2)
+    eval_loader = TrainLoader(Crops(SEED + 7, 10), TRAIN_BATCH, collate_spe, shuffle=False,
+                              prefetch=0)
+    epoch_losses = []
+    for mode in ("train", "eval"):
+        def recorded(loader, fn=getattr(tr, mode), mode=mode):
+            loss = fn(loader)
+            epoch_losses.append((mode, loss))
+            return loss
+        setattr(tr, mode, recorded)
+    torch.cuda.reset_peak_memory_stats()
+    bilstm2.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(train_loader, eval_loader, n_epochs=2, early_stop=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_train, n_eval = 2 * len(train_loader), 2 * len(eval_loader)
+    launches = {"resid": bilstm2.bilstm2_forward_resid.launches,
+                "backward": bilstm2.bilstm2_backward.launches,
+                "inference": bilstm2.bilstm2_forward.launches,
+                "masked": (bilstm2.bilstm2_forward_masked.launches
+                           + bilstm2.bilstm2_forward_resid_masked.launches
+                           + bilstm2.bilstm2_backward_masked.launches)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] TrainerSpe.run: {n_train} train + {n_eval} eval steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SECONDS} s in {wall:.2f} s (first run, includes warm-up); epoch losses "
+        f"{epoch_losses}; launches {launches}; peak memory {peak_gb:.2f} GB")
+    scans = 2 * FLAGSHIP["n_repeats"]  # an intra and an inter scan per block: 12
+    want = {"resid": scans * n_train, "backward": scans * n_train,
+            "inference": scans * n_eval, "masked": 0}
+    if launches != want:
+        raise AssertionError(f"expected 12 resid + 12 backward launches per train step and 12 "
+                             f"inference launches per eval step: {launches} != {want}")
+    if len(epoch_losses) != 4 or not all(math.isfinite(v) for _, v in epoch_losses):
+        raise AssertionError(f"non-finite or missing epoch losses: {epoch_losses}")
+    files = sorted(os.listdir(ckpt_dir))
+    best = [f for f in files if f.endswith("_best")]
+    if "2_last" not in files or not best:
+        raise AssertionError(f"expected 2_last and a *_best checkpoint, found {files}")
+
+    # -- the best checkpoint serves a request
+    inf = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP),
+                        {"checkpoint_path": os.path.join(ckpt_dir, best[-1]),
+                         "test_savedir": os.path.join(OUT_DIR, "train_metrics")}, device=dev)
+    served = inf.run(Crops(SEED + 9, 1, seconds=4), batch_size=1, n_buckets=1)
+    log(f"[train] {best[-1]} served through InferencerSpe: {served}")
+    if not all(math.isfinite(v) for v in served.values()):
+        raise AssertionError(f"the trained checkpoint served non-finite metrics: {served}")
+    del inf
+
+    # -- 10 steps on one repeated batch; steps 3-10 are the steady state
+    batch = collate_spe(Crops(SEED + 10, TRAIN_BATCH).items)
+    losses = []
+    bilstm2.reset_launch_counts()
+    for step in range(10):
+        if step == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(tr.train_step(batch)[0])
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / 8 * 1e3
+    losses = [float(v) for v in losses]
+    repeated = {"resid": bilstm2.bilstm2_forward_resid.launches,
+                "backward": bilstm2.bilstm2_backward.launches}
+    log(f"[train] 10 steps on one batch: losses {[round(v, 4) for v in losses]}; steady state "
+        f"{ms_step:.2f} ms/step at {TRAIN_BATCH} x {TRAIN_SECONDS} s; launches {repeated}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"10 steps on one batch did not lower the loss: {losses}")
+    if repeated != {"resid": 10 * scans, "backward": 10 * scans}:
+        raise AssertionError(f"expected 12 + 12 launches per step over 10 steps: {repeated}")
+    del tr
+
+    # -- one step from the same weights, card vs CPU, at full width on 1 x 1 s
+    one = collate_spe(Crops(SEED + 11, 1, seconds=1).items)
+    results = {}
+    for device in (dev, "cpu"):
+        t = trainer(device, os.path.join(OUT_DIR, "train_ckpt_unused"))
+        t.model.train()
+        loss, _ = t._forward_loss(t._to_device(one), train=True)
+        loss.backward()
+        results[str(device)] = (loss.item(), {k: p.grad.detach().cpu()
+                                              for k, p in t.model.named_parameters()})
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results[str(dev)], results["cpu"]
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    cat = [torch.cat([g[k].flatten() for k in sorted(g)]) for g in (g_gpu, g_cpu)]
+    grad_snr = snr_db(*cat)
+    worst = min((snr_db(g_gpu[k], g_cpu[k]), k) for k in g_cpu if g_cpu[k].abs().max() > 0)
+    log(f"[train] one step card vs CPU (1 x 1 s): loss {loss_gpu:.6f} vs {loss_cpu:.6f} "
+        f"(rel {rel:.2e}); concatenated gradients {grad_snr:.2f} dB SNR; lowest tensor "
+        f"{worst[0]:.2f} dB ({worst[1]})")
+    if not (rel <= 1e-4 and grad_snr >= 40.0):
+        raise AssertionError(f"card vs CPU train step: loss rel {rel}, gradient SNR {grad_snr}")
+    # the checkpoints hold Adam's moments (~30 MB each): checked, then removed
+    # so that chiprun_out/ stays small
+    shutil.rmtree(ckpt_dir)
+    shutil.rmtree(os.path.join(OUT_DIR, "train_ckpt_unused"), ignore_errors=True)
+    return {"launches": launches, "checkpoints": files, "n_train_steps": n_train, "n_eval_steps": n_eval,
+            "run_wall_s": wall, "ms_per_step": ms_step, "peak_memory_gb": peak_gb,
+            "losses_10_steps": losses, "card_vs_cpu_grad_snr_db": grad_snr,
+            "card_vs_cpu_loss_rel": rel}
+
+
 def main() -> int:
     import torch
 
@@ -348,11 +726,14 @@ def main() -> int:
     log(f"[setup] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.load_library("bilstm2")
-    log(f"[setup] bilstm2 kernel built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get("bilstm2", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[setup] ptxas: {line.strip()}")
+    libraries = ("bilstm2", "bilstm2_bwd")
+    _build.load_libraries(libraries)  # one nvcc per source, started together
+    log(f"[setup] {' and '.join(libraries)} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in libraries:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[setup] ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
     entries = phase_kernel(torch, dev)
@@ -371,8 +752,22 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_card_vs_cpu(torch, inf, ckpt)
-    log(f"[check] phase done in {time.perf_counter() - t0:.1f} s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"[check] phase done in {time.perf_counter() - t0:.1f} s")
+    del inf
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train_kernels = phase_backward_kernels(torch, dev)
+    log(f"[train-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    train = phase_training(torch, dev)
+    log(f"[train] phase done in {time.perf_counter() - t0:.1f} s; "
+        f"{train['ms_per_step']:.2f} ms/step on {smi}; total {time.perf_counter() - t_start:.1f} s")
+    entries[0]["launches_per_training_run"] = train["launches"]["inference"]  # eval steps
+    entries += train_kernel_entries(train_kernels, train["launches"])
+    with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
+        json.dump({"card": smi, "kernels": entries, "training": train}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -1,18 +1,23 @@
-"""Length-bucketed evaluation batches
-(counterpart of ``tss_dprnn_tpu/data/loader.py:91-94, 315-437``).
+"""Training and evaluation batches
+(counterpart of ``tss_dprnn_tpu/data/loader.py:24-205, 315-437``).
 
-Utterances are grouped into a few length buckets; each batch is zero-padded
+Training: :class:`TrainLoader` yields fixed-shape shuffled batches (shuffle
+keyed on (seed, epoch), ``drop_last``), optionally built ahead by one
+prefetch thread whose exceptions reach the consumer. Evaluation:
+utterances are grouped into a few length buckets; each batch is zero-padded
 to its bucket size and carries the true ``lengths``, and the masked model
 forward then equals per-utterance exact evaluation on the valid region.
-Batches are dicts of numpy arrays. Single process, no prefetch thread.
+Batches are dicts of numpy arrays; one process.
 
-Dataset protocol: ``ds[i] -> (mix, target, reference, spk_idx)`` and
-``ds.lengths()`` (mixture sample counts).
+Dataset protocol: ``ds[i] -> (mix, target, reference, spk_idx)`` and, for
+the bucketed loader, ``ds.lengths()`` (mixture sample counts).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Sequence, Tuple
+import queue
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -23,6 +28,124 @@ def _pad_to(x: np.ndarray, T: int) -> np.ndarray:
     if x.shape[0] >= T:
         return x[:T]
     return np.pad(x, [(0, T - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+
+
+def collate_spe(items, resample_ref_to: Optional[int] = None) -> Batch:
+    """Training batch for target speech separation: fixed-length mixtures
+    and targets stacked, references zero-padded to the longest with their
+    true ``ref_len``. ``resample_ref_to`` (the RawNet family's 16 kHz
+    references) is not ported yet and raises."""
+    if resample_ref_to is not None:
+        raise NotImplementedError("resample_ref_to: the RawNet family is not ported yet")
+    mix = np.stack([it[0] for it in items]).astype(np.float32)
+    target = np.stack([it[1] for it in items]).astype(np.float32)
+    refs = [np.asarray(it[2], np.float32) for it in items]
+    ref_len = np.array([r.shape[0] for r in refs], np.float32)
+    T = max(r.shape[0] for r in refs)
+    ref = np.stack([_pad_to(r, T) for r in refs])
+    spk = np.array([it[3] for it in items], np.int32)
+    return {"mix": mix, "target": target, "reference": ref, "ref_len": ref_len, "spk_idx": spk}
+
+
+class _WorkerError:
+    """Carries a prefetch thread's exception to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def _prefetch_iter(make_items: Callable[[], Iterator[Batch]], prefetch: int) -> Iterator[Batch]:
+    """Yield ``make_items()``'s batches, built ahead by one thread. An
+    exception in the thread is raised here, never a silent early end; a
+    consumer that stops early releases the thread."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
+    stop = object()
+    cancel = threading.Event()
+
+    def put(item) -> bool:
+        while not cancel.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for batch in make_items():
+                if not put(batch):
+                    return
+        except BaseException as exc:  # raised on the consumer's side
+            put(_WorkerError(exc))
+            return
+        put(stop)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            if isinstance(item, _WorkerError):
+                raise item.exc
+            yield item
+    finally:
+        cancel.set()
+
+
+class TrainLoader:
+    """Shuffled fixed-shape batches, with an optional prefetch thread.
+
+    The shuffle is keyed on ``(seed, epoch)``, so a resumed run replays the
+    batch order of the uninterrupted one; the trainer calls ``set_epoch``,
+    and plain iteration without it advances an internal epoch counter.
+    ``collate_fn(items) -> batch``."""
+
+    def __init__(self, dataset, batch_size: int, collate_fn: Callable[[list], Batch],
+                 shuffle: bool = True, drop_last: bool = True, seed: int = 0,
+                 prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.prefetch = prefetch
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _index_batches(self) -> List[np.ndarray]:
+        """This epoch's dataset indices, batch by batch."""
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(idx)
+        return [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+
+    def peek(self) -> Batch:
+        """This epoch's first batch, without advancing the epoch or starting
+        the prefetch thread."""
+        return self.collate_fn([self.dataset[int(i)] for i in self._index_batches()[0]])
+
+    def __iter__(self) -> Iterator[Batch]:
+        batches = self._index_batches()
+        self._epoch += 1
+
+        def make_items():
+            for b in batches:
+                yield self.collate_fn([self.dataset[int(i)] for i in b])
+
+        if self.prefetch <= 0:
+            yield from make_items()
+        else:
+            yield from _prefetch_iter(make_items, self.prefetch)
 
 
 def bucket_boundaries(lengths: Sequence[int], n_buckets: int = 8,

@@ -1,7 +1,8 @@
 """Inferencer plumbing shared by the model families
 (counterpart of ``tss_dprnn_tpu/inference/inferencer.py``).
 
-Semantics kept from the JAX package: a checkpoint is mandatory; the model
+Semantics kept from the JAX package: a checkpoint is mandatory (a bare
+state_dict or a trainer's ``{"model": ...}`` file); the model
 runs in eval mode; bucketed batches run the masked forward; results land in
 ``all_metrics.csv`` and ``final_metrics.json`` with the ``{metric,
 metric_imp}`` schema. Metrics are computed on the device. SI-SDR is the
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.utils.checkpoint import load_model
 
 SUPPORTED_METRICS = ("si_sdr",)
 
@@ -44,8 +46,7 @@ class Inferencer:
         if checkpoint_path is None:
             raise ValueError("checkpoint_path is required for inference")
         self.logger.info("Testing for pretrained: %s.", checkpoint_path)
-        state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-        model.load_state_dict(state, strict=True)
+        load_model(checkpoint_path, model)  # a bare state_dict or a trainer's checkpoint
         self.model = model.to(self.device).eval()
 
     def _to_device(self, batch: Dict[str, np.ndarray], keys) -> Dict[str, torch.Tensor]:

@@ -34,7 +34,9 @@ def _pool3_cl(x: torch.Tensor) -> torch.Tensor:
 
 class ResBlock(nn.Module):
     """1x1 conv -> BN -> PReLU -> 1x1 conv -> BN -> (+skip) -> PReLU ->
-    maxpool3. [B, L, C_in] -> [B, floor(L/3), C_out]."""
+    maxpool3. [B, L, C_in] -> [B, floor(L/3), C_out]. The BatchNorms follow
+    ``module.training``: batch statistics in training, running ones in eval
+    (the JAX package's ``train`` flag, models/dprnn_spe.py:53-58, 85-96)."""
 
     def __init__(self, in_dims: int, out_dims: int):
         super().__init__()

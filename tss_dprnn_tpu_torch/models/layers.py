@@ -82,12 +82,16 @@ class RNNCore(nn.Module):
         self._stacked = None  # (the parameters it was built from, stacked weights)
 
     def stacked_weights(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The pair in the kernel's layout (``rnn_ops.stack_directions``),
-        built once per set of parameter values: ``load_state_dict`` writes
-        the parameters in place (their version moves) and ``.to()`` gives
-        them new storage, and either rebuilds it. Inference only: the stack
-        carries no gradient."""
+        """The pair in the kernel's layout (``rnn_ops.stack_directions``).
+        When autograd records, it is stacked on every call, so the gradient
+        reaches the parameters. Otherwise it is built once per set of
+        parameter values: ``load_state_dict`` and an optimizer step write the
+        parameters in place (their version moves) and ``.to()`` gives them
+        new storage, and either rebuilds it."""
         params = tuple(self.rnn.parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return rnn_ops.stack_directions(self.rnn.direction(""),
+                                            self.rnn.direction("_reverse"))
         if self._stacked is None or any(
                 p.data_ptr() != v.data_ptr() or p._version != n
                 for p, (v, n) in zip(params, self._stacked[0])):
@@ -135,12 +139,17 @@ class PReLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """torch BatchNorm1d over channels-last [..., C], inference only: it
-    normalises with the running statistics (the JAX package's eval mode)."""
+    """torch BatchNorm1d over channels-last [..., C]. In eval mode it
+    normalises with the running statistics. In training mode
+    (``module.train()``) it normalises with the batch statistics over every
+    axis but the channel (padded frames count, as in the JAX package) and
+    moves the running mean and the running unbiased variance by momentum
+    0.1 (``tss_dprnn_tpu/models/layers.py:214-247``)."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -148,5 +157,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.int64))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=axes)
+            var = (x - mean).square().mean(dim=axes)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+                self.num_batches_tracked += 1
+        inv = torch.rsqrt(var + self.eps)
+        return (x - mean) * inv * self.weight + self.bias

@@ -1,12 +1,17 @@
-"""Fused bidirectional LSTM scan: public entries, kernel wrapper and plain
-version (counterpart of the bilstm2 section of
-``tss_dprnn_tpu/ops/pallas_lstm.py:698-1063``).
+"""Fused bidirectional LSTM scan and its backward: public entries, kernel
+wrappers and plain versions (counterpart of the bilstm2 section of
+``tss_dprnn_tpu/ops/pallas_lstm.py:698-1063, 1224-1464``).
 
 Replaces the TPU kernel ``_bilstm2_kernel`` (pallas_lstm.py:698) in its
-unmasked and masked inference modes with ``csrc/bilstm2.cu``, CUDA C++ for
-``sm_90a``. Both directions run in one launch and both outputs come back in
-forward time. Layout and argument order are the JAX entries':
+unmasked and masked inference modes and its residual (training) mode with
+``csrc/bilstm2.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224) with
+``csrc/bilstm2_bwd.cu``, CUDA C++ for ``sm_90a``. Both directions run in one
+launch and both outputs come back in forward time. Layout and argument order
+are the JAX entries':
 ``bilstm2_forward(x [B, T, F], w_ih2 [2, F, 4H], b2 [2, 4H], w_hh2 [2, H, 4H])``.
+The residual streams are the port's own layout: a tuple
+``(hp0, cp0, tc0, hp1, cp1, tc1)`` of [B, T, H] fp32 tensors in forward time
+(h and c before each step, tanh(c) after it), with no time or row padding.
 
 What bounds the kernel on the H100: fp32 FMAs. A row-step costs
 2 (F + H) 4H FLOP per direction against a few hundred bytes of input and
@@ -16,9 +21,18 @@ per direction and 32-row tile, h in shared memory, c in registers, the
 weights streamed from L2 in double-buffered chunks and reused across the
 tile's rows) is the simple one; the source's header gives the details.
 
-On a CPU tensor each entry runs :func:`bilstm2_reference`, the plain PyTorch
-version with the same contract. On a CUDA tensor it launches the kernel or
-raises. Each entry counts its kernel launches in ``.launches``.
+The backward (fp32 only) splits the TPU kernel's work by what is
+sequential: a tiled product kernel recomputes every row-step's gates at
+once, a scan kernel runs the dh/dc recurrence and writes dpre, and the
+product kernel again gives dx and the per-split partials of dW (a column-sum
+kernel those of db), which are summed here. The source's header gives the
+details.
+
+On a CPU tensor each entry runs its plain PyTorch version
+(:func:`bilstm2_reference`, :func:`bilstm2_resid_reference`,
+:func:`bilstm2_backward_reference`) with the same contract. On a CUDA tensor
+it launches the kernel or raises. Each entry counts its launches in
+``.launches`` (one per call that launched its kernels).
 """
 
 from __future__ import annotations
@@ -34,6 +48,51 @@ from tss_dprnn_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+              torch.Tensor]
+
+
+def _gates(g: torch.Tensor, H: int):
+    """Pre-activations [..., 4H] -> (i, f, g, o) activations, torch order."""
+    i, f, gg, o = g.split(H, dim=-1)
+    return (1.0 / (1.0 + torch.exp(-i)), 1.0 / (1.0 + torch.exp(-f)), torch.tanh(gg),
+            1.0 / (1.0 + torch.exp(-o)))
+
+
+def _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid: bool):
+    B, T, _ = x.shape
+    H = w_hh2.shape[1]
+    dt = x.dtype
+    w_ih = w_ih2.to(dt).float()
+    w_hh = w_hh2.to(dt).float()
+    b = b2.float()
+    xf = x.float()
+    outs, resid = [], []
+    for d in (0, 1):
+        xp = xf @ w_ih[d]  # [B, T, 4H]: the per-step x_t @ W_ih, all steps at once
+        h = xf.new_zeros(B, H)
+        c = xf.new_zeros(B, H)
+        out = x.new_empty(B, T, H)
+        streams = [xf.new_empty(B, T, H) for _ in range(3)] if want_resid else None
+        for t in (range(T) if d == 0 else range(T - 1, -1, -1)):
+            i, f, gg, o = _gates(xp[:, t] + h @ w_hh[d] + b[d], H)
+            c_new = f * c + i * gg
+            tc = torch.tanh(c_new)
+            h_new = (o * tc).to(dt).float()
+            if want_resid:
+                streams[0][:, t], streams[1][:, t], streams[2][:, t] = h, c, tc
+            if lens is not None and d == 1:
+                valid = (t < lens)[:, None]
+                c = torch.where(valid, c_new, c)
+                h = torch.where(valid, h_new, h)
+            else:
+                c, h = c_new, h_new
+            out[:, t] = h.to(dt)
+        outs.append(out)
+        resid += streams or []
+    return (outs[0], outs[1]), tuple(resid)
+
+
 def bilstm2_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                       w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -43,46 +102,70 @@ def bilstm2_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     i, f, g, o, fp32 c, and h rounded to x's type before it feeds the next
     step. Weights are rounded to x's type first, as the TPU kernel consumes
     them. With ``lens`` direction 1 holds its zero state while t >= len."""
-    B, T, _ = x.shape
+    return _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid=False)[0]
+
+
+def bilstm2_resid_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                            w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None
+                            ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
+    """Plain version of the residual mode: :func:`bilstm2_reference`'s
+    outputs and, per direction, h and c before each step and tanh(c) after
+    it (fp32, [B, T, H], forward time). With ``lens`` direction 1's h and c
+    stay at the zero state on held steps."""
+    return _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid=True)
+
+
+def bilstm2_backward_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
+                               g1: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                               w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version of the backward: a Python loop over T per direction, in
+    the reverse of its scan, with the kernel's arithmetic (gates recomputed
+    from x_t and h_prev). Returns (dx, dw_ih2, db2, dw_hh2), fp32. With
+    ``lens`` the steps t >= len[row] of both directions give no dpre and pass
+    the carries through."""
+    B, T, F = x.shape
     H = w_hh2.shape[1]
-    dt = x.dtype
-    w_ih = w_ih2.to(dt).float()
-    w_hh = w_hh2.to(dt).float()
-    b = b2.float()
     xf = x.float()
-    outs = []
-    for d in (0, 1):
-        xp = xf @ w_ih[d]  # [B, T, 4H]: the per-step x_t @ W_ih, all steps at once
-        h = xf.new_zeros(B, H)
-        c = xf.new_zeros(B, H)
-        out = x.new_empty(B, T, H)
-        for t in (range(T) if d == 0 else range(T - 1, -1, -1)):
-            g = xp[:, t] + h @ w_hh[d] + b[d]
-            i, f, gg, o = g.split(H, dim=-1)
-            i = 1.0 / (1.0 + torch.exp(-i))
-            f = 1.0 / (1.0 + torch.exp(-f))
-            o = 1.0 / (1.0 + torch.exp(-o))
-            c_new = f * c + i * torch.tanh(gg)
-            h_new = (o * torch.tanh(c_new)).to(dt).float()
-            if lens is not None and d == 1:
-                valid = (t < lens)[:, None]
-                c = torch.where(valid, c_new, c)
-                h = torch.where(valid, h_new, h)
-            else:
-                c, h = c_new, h_new
-            out[:, t] = h.to(dt)
-        outs.append(out)
-    return outs[0], outs[1]
+    w_ih, w_hh, b = w_ih2.float(), w_hh2.float(), b2.float()
+    dx = xf.new_zeros(B, T, F)
+    dw_ih, dw_hh, db = [], [], []
+    for d, (hp, cp, tc, g) in enumerate(((*resid[:3], g0), (*resid[3:], g1))):
+        pre = xf @ w_ih[d] + hp @ w_hh[d] + b[d]  # [B, T, 4H], every step at once
+        dpre = xf.new_zeros(B, T, 4 * H)
+        dh = xf.new_zeros(B, H)
+        dc = xf.new_zeros(B, H)
+        for t in (range(T - 1, -1, -1) if d == 0 else range(T)):
+            i, f, gg, o = _gates(pre[:, t], H)
+            tct = tc[:, t]
+            dh_t = g[:, t].float() + dh
+            dc_t = dc + dh_t * (o * (1.0 - tct * tct))
+            p = torch.cat([dc_t * (gg * i * (1.0 - i)), dc_t * (cp[:, t] * f * (1.0 - f)),
+                           dc_t * (i * (1.0 - gg * gg)), dh_t * (tct * o * (1.0 - o))], -1)
+            dh_new, dc_new = p @ w_hh[d].T, dc_t * f
+            if lens is not None:
+                live = (t < lens)[:, None]
+                p = torch.where(live, p, 0.0)
+                dh_new = torch.where(live, dh_new, dh)
+                dc_new = torch.where(live, dc_new, dc)
+            dpre[:, t], dh, dc = p, dh_new, dc_new
+        dx += dpre @ w_ih[d].T
+        dw_ih.append(xf.reshape(-1, F).T @ dpre.reshape(-1, 4 * H))
+        dw_hh.append(hp.reshape(-1, H).T @ dpre.reshape(-1, 4 * H))
+        db.append(dpre.sum((0, 1)))
+    return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
 
 
-def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-            w_hh2: torch.Tensor, lens: Optional[torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check what the kernel takes, allocate the outputs and launch on the
-    current stream; a launch adds one to ``entry.launches``. Raises on
-    anything the kernel does not take."""
+def _checked(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
+             lens: Optional[torch.Tensor], fp32_only: bool = False):
+    """What every bilstm2 kernel takes: raises on anything else, and returns
+    (x, w_ih2, b2, w_hh2, lens) contiguous, the weights fp32 holding values
+    of x's type, lens int32."""
     if not x.is_cuda:
         raise ValueError(f"bilstm2 kernel needs a CUDA tensor, got {x.device}")
+    if fp32_only and x.dtype != torch.float32:
+        raise ValueError(f"the bilstm2 training kernels stream float32 only, got {x.dtype}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"bilstm2 kernel streams float32 or bfloat16, got {x.dtype}")
     if x.ndim != 3:
@@ -110,26 +193,140 @@ def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
         if lens.shape != (B,):
             raise ValueError(f"lens must be [B]={B}, got {tuple(lens.shape)}")
         lens = lens.to(torch.int32).contiguous()
+    _check_aligned(x=x, w_ih2=w_ih2, w_hh2=w_hh2, b2=b2)
+    return x, w_ih2, b2, w_hh2, lens
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
     # 16-byte copies and stores: a view that starts mid-row would fault
-    for name, t in (("x", x), ("w_ih2", w_ih2), ("w_hh2", w_hh2), ("b2", b2)):
+    for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"bilstm2 kernel needs {name} 16-byte aligned; pass a copy")
+
+
+def _ptr(t: Optional[torch.Tensor], offset: int = 0) -> Optional[int]:
+    """Device address of ``t`` plus ``offset`` elements (fp32 or int32)."""
+    return None if t is None else t.data_ptr() + 4 * offset
+
+
+def _raise_on(rc: int, what: str, lib: ctypes.CDLL, error_string: str) -> None:
+    if rc != 0:
+        msg = getattr(lib, error_string)(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+            w_hh2: torch.Tensor, lens: Optional[torch.Tensor], want_resid: bool = False):
+    """Check what the kernel takes, allocate the outputs and launch on the
+    current stream; a launch adds one to ``entry.launches``. Raises on
+    anything the kernel does not take. Returns (out0, out1), and with
+    ``want_resid`` ((out0, out1), resid)."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=want_resid)
+    B, T, F = x.shape
+    H = w_hh2.shape[1]
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
-    if B == 0 or T == 0:
-        return out0, out1
-    lib = _library()
+    resid = tuple(torch.empty_like(out0) for _ in range(6)) if want_resid else ()
+    if B and T:
+        lib = _library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if want_resid:
+                rc = lib.bilstm2_forward_resid(
+                    x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(), b2.data_ptr(), _ptr(lens),
+                    out0.data_ptr(), out1.data_ptr(), *(r.data_ptr() for r in resid),
+                    B, T, F, H, stream)
+            else:
+                rc = lib.bilstm2_forward(
+                    _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
+                    b2.data_ptr(), _ptr(lens), out0.data_ptr(), out1.data_ptr(), B, T, F, H,
+                    stream)
+        _raise_on(rc, "bilstm2 kernel", lib, "bilstm2_error_string")
+        entry.launches += 1
+    return ((out0, out1), resid) if want_resid else (out0, out1)
+
+
+# split-K of the dW products: about this many blocks, 4 per SM of an H100
+_SPLIT_BLOCKS = 528
+_BM = _BN = 128  # the product kernel's block tile
+_BK = 8          # ... and its k-depth
+
+
+def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.Tensor] = None,
+          out_off: int = 0, ldc: Optional[int] = None, bias: Optional[torch.Tensor] = None):
+    """One launch of the product kernel: C[M, N] = sum over ``parts`` of
+    A @ B (+ bias). ``parts``: up to two (a, a_off, lda, b, b_off, ldb, K),
+    offsets in elements. With ``out`` C is written there (no split);
+    without, the k-range is split into fixed partials, summed here."""
+    (a1, ao1, lda1, b1, bo1, ldb1, k1), *rest = parts
+    a2, ao2, lda2, b2, bo2, ldb2, k2 = rest[0] if rest else (None, 0, 0, None, 0, 0, 0)
+    K = k1 + k2
+    if out is not None:
+        splits, kps, partial, stride = 1, -(-K // _BK) * _BK, out, 0
+    else:
+        tiles = -(-M // _BM) * -(-N // _BN)
+        splits = max(1, min(-(-_SPLIT_BLOCKS // tiles), -(-K // _BK)))
+        kps = -(-K // (splits * _BK)) * _BK
+        splits = -(-K // kps)
+        partial = torch.empty(splits, M, N, dtype=torch.float32, device=a1.device)
+        ldc, stride = N, M * N
+    rc = lib.bilstm2_bwd_gemm(int(a_col), _ptr(a1, ao1), lda1, _ptr(b1, bo1), ldb1, k1,
+                              _ptr(a2, ao2), lda2, _ptr(b2, bo2), ldb2, k2, _ptr(bias),
+                              _ptr(partial, out_off), ldc, M, N, splits, kps, stride, stream)
+    _raise_on(rc, "bilstm2 backward product kernel", lib, "bilstm2_bwd_error_string")
+    return None if out is not None else partial.sum(0)
+
+
+def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
+                     w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
+                     lens: Optional[torch.Tensor]):
+    """The backward's launches (see the module docstring) on the current
+    stream; one call adds one to ``entry.launches``."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=True)
+    B, T, F = x.shape
+    H = w_hh2.shape[1]
+    G = 4 * H
+    M = B * T
+    streams = [t.contiguous() for t in (*resid, g0, g1)]
+    for t in streams:
+        if t.shape != (B, T, H) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"bilstm2 backward: residual streams and cotangents must be "
+                             f"[{B}, {T}, {H}] float32 on {x.device}; got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    _check_aligned(**dict(zip(("hp0", "cp0", "tc0", "hp1", "cp1", "tc1", "g0", "g1"), streams)))
+    hp0, cp0, tc0, hp1, cp1, tc1, g0, g1 = streams
+    dx = torch.empty(B, T, F, dtype=torch.float32, device=x.device)
+    if M == 0:
+        return dx, torch.zeros_like(w_ih2), torch.zeros_like(b2), torch.zeros_like(w_hh2)
+    gates = torch.empty(B, T, 2, G, dtype=torch.float32, device=x.device)  # then dpre
+    w_hh_t = w_hh2.transpose(1, 2).contiguous()                 # [2, 4H, H]
+    w_ih_t = w_ih2.transpose(1, 2).reshape(2 * G, F).contiguous()  # [8H, F]
+    lib = _library_bwd()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.bilstm2_forward(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
-            b2.data_ptr(), None if lens is None else lens.data_ptr(), out0.data_ptr(),
-            out1.data_ptr(), B, T, F, H, stream)
-    if rc != 0:
-        raise RuntimeError(f"bilstm2 kernel launch failed: "
-                           f"{lib.bilstm2_error_string(rc).decode()} ({rc})")
+        for d, hp in ((0, hp0), (1, hp1)):  # gates of every row-step
+            _gemm(lib, stream, False, [(x, 0, F, w_ih2, d * F * G, G, F),
+                                       (hp, 0, H, w_hh2, d * H * G, G, H)],
+                  M, G, out=gates, out_off=d * G, ldc=2 * G, bias=b2[d])
+        rc = lib.bilstm2_bwd_scan(gates.data_ptr(), cp0.data_ptr(), tc0.data_ptr(),
+                                  g0.data_ptr(), cp1.data_ptr(), tc1.data_ptr(), g1.data_ptr(),
+                                  w_hh_t.data_ptr(), _ptr(lens), B, T, H, stream)
+        _raise_on(rc, "bilstm2 backward scan kernel", lib, "bilstm2_bwd_error_string")
+        _gemm(lib, stream, False, [(gates, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F,
+              out=dx, ldc=F)
+        dw_ih = _gemm(lib, stream, True, [(x, 0, F, gates, 0, 2 * G, M)], F, 2 * G)
+        dw_hh = [_gemm(lib, stream, True, [(hp, 0, H, gates, d * G, 2 * G, M)], H, G)
+                 for d, hp in ((0, hp0), (1, hp1))]
+        splits = min(-(-M // 256), 256)
+        kps = -(-M // splits)
+        splits = -(-M // kps)
+        partial = torch.empty(splits, 2 * G, dtype=torch.float32, device=x.device)
+        rc = lib.bilstm2_bwd_colsum(gates.data_ptr(), 2 * G, M, 2 * G, partial.data_ptr(),
+                                    splits, kps, stream)
+        _raise_on(rc, "bilstm2 backward column-sum kernel", lib, "bilstm2_bwd_error_string")
     entry.launches += 1
-    return out0, out1
+    return (dx, dw_ih.reshape(F, 2, G).transpose(0, 1).contiguous(),
+            partial.sum(0).reshape(2, G), torch.stack(dw_hh))
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,8 +337,27 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bilstm2_forward.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bilstm2_forward.restype = i
+    lib.bilstm2_forward_resid.argtypes = [p] * 13 + [i, i, i, i, p]
+    lib.bilstm2_forward_resid.restype = i
     lib.bilstm2_error_string.argtypes = [i]
     lib.bilstm2_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bwd() -> ctypes.CDLL:
+    """Build (at first use) and load the backward's library."""
+    lib = _build.load_library("bilstm2_bwd")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bilstm2_bwd_gemm.argtypes = [i, p, ll, p, ll, i, p, ll, p, ll, i, p, p, ll, i, i, i, i,
+                                     ll, p]
+    lib.bilstm2_bwd_gemm.restype = i
+    lib.bilstm2_bwd_colsum.argtypes = [p, ll, i, i, p, i, i, p]
+    lib.bilstm2_bwd_colsum.restype = i
+    lib.bilstm2_bwd_scan.argtypes = [p] * 9 + [i, i, i, p]
+    lib.bilstm2_bwd_scan.restype = i
+    lib.bilstm2_bwd_error_string.argtypes = [i]
+    lib.bilstm2_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -166,15 +382,64 @@ def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Ten
     return _launch(bilstm2_forward_masked, x, w_ih2, b2, w_hh2, lens)
 
 
-bilstm2_forward.launches = 0
-bilstm2_forward_masked.launches = 0
+def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                          w_hh2: torch.Tensor
+                          ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
+    """Training forward (fp32): x [B, T, F] -> ((out0, out1), resid), the
+    outputs of :func:`bilstm2_forward` and the residual streams
+    ``(hp0, cp0, tc0, hp1, cp1, tc1)``, each [B, T, H]."""
+    if x.device.type == "cpu":
+        return bilstm2_resid_reference(x, w_ih2, b2, w_hh2)
+    return _launch(bilstm2_forward_resid, x, w_ih2, b2, w_hh2, None, want_resid=True)
+
+
+def bilstm2_forward_resid_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
+                                 b2: torch.Tensor, w_hh2: torch.Tensor
+                                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
+    """Mask-aware training forward (fp32): the outputs of
+    :func:`bilstm2_forward_masked` and the residual streams. Direction 1's h
+    and c stay at the zero state on held steps; every stream past a row's
+    length is unspecified (finite)."""
+    if x.device.type == "cpu":
+        return bilstm2_resid_reference(x, w_ih2, b2, w_hh2, lens)
+    return _launch(bilstm2_forward_resid_masked, x, w_ih2, b2, w_hh2, lens, want_resid=True)
+
+
+def bilstm2_backward(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
+                     w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`bilstm2_forward_resid` (fp32): the cotangents g0,
+    g1 [B, T, H] of the two outputs -> (dx [B, T, F], dw_ih2 [2, F, 4H],
+    db2 [2, 4H], dw_hh2 [2, H, 4H])."""
+    if x.device.type == "cpu":
+        return bilstm2_backward_reference(x, resid, g0, g1, w_ih2, b2, w_hh2)
+    return _launch_backward(bilstm2_backward, x, resid, g0, g1, w_ih2, b2, w_hh2, None)
+
+
+def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
+                            w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
+                            lens: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`bilstm2_forward_resid_masked`: steps t >= lens[row]
+    give nothing in either direction (direction 1 held its zero state there;
+    out0 is unspecified there, so its cotangent is discarded) and dx there
+    is 0."""
+    if x.device.type == "cpu":
+        return bilstm2_backward_reference(x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
+    return _launch_backward(bilstm2_backward_masked, x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
+
+
+ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_forward_resid,
+           bilstm2_forward_resid_masked, bilstm2_backward, bilstm2_backward_masked)
+for _entry in ENTRIES:
+    _entry.launches = 0
 
 
 def launch_count() -> int:
-    """Kernel launches of both entries since their counts were last zeroed."""
-    return bilstm2_forward.launches + bilstm2_forward_masked.launches
+    """Kernel launches of every entry since their counts were last zeroed."""
+    return sum(e.launches for e in ENTRIES)
 
 
 def reset_launch_counts() -> None:
-    bilstm2_forward.launches = 0
-    bilstm2_forward_masked.launches = 0
+    for e in ENTRIES:
+        e.launches = 0

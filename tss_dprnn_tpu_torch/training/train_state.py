@@ -1,0 +1,48 @@
+"""The training optimizer (counterpart of ``make_optimizer``,
+``tss_dprnn_tpu/training/train_state.py:60-79``).
+
+The reference's semantics: clip the gradients by their global norm, then
+torch ``Adam(lr, weight_decay)``, whose decay is added to the gradient
+before the moments (coupled, not AdamW) — the JAX package's optax chain
+``clip_by_global_norm -> add_decayed_weights -> scale_by_adam``. The
+learning rate is set between epochs by the host-side schedulers.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import torch
+
+
+class Optimizer:
+    """Clip + Adam (torch's defaults: betas 0.9, 0.999, eps 1e-8) over
+    ``params``; ``step()`` consumes their ``.grad``."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+                 weight_decay: float = 0.0, clip_norm: Optional[float] = None):
+        self.params = [p for p in params if p.requires_grad]
+        self.clip_norm = clip_norm
+        self.adam = torch.optim.Adam(self.params, lr=lr, weight_decay=weight_decay)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        if self.clip_norm:
+            torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+        self.adam.step()
+
+    @property
+    def learning_rate(self) -> float:
+        return float(self.adam.param_groups[0]["lr"])
+
+    def set_learning_rate(self, lr: float) -> None:
+        for group in self.adam.param_groups:
+            group["lr"] = float(lr)
+
+    def state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.adam.load_state_dict(sd)

@@ -1,0 +1,216 @@
+"""Epoch orchestration (counterpart of ``tss_dprnn_tpu/training/trainer.py``).
+
+As in the reference: best-loss tracking from the sentinel 100500,
+``{epoch}_best`` / ``{epoch}_last`` checkpoints with rolling retention, early
+stop after ``early_stop`` epochs without improvement, the scheduler stepped
+after eval, and step logs every ``print_freq`` steps with the ``-loss``
+convention. As in the JAX package: a checkpoint that does not load fails
+hard, the resume epoch comes from the checkpoint, and ``save_optimizer``
+resumes exactly (Adam state, scheduler, step and run counters, with the
+loader's epoch-keyed shuffle).
+
+The loss stays on the device and is read on the host only every
+``print_freq`` steps and at the end of an epoch. Training runs with
+``model.train()`` (BatchNorm on batch statistics; the LSTM scans through the
+residual and backward kernels); eval with ``model.eval()`` and no autograd
+(the inference kernel).
+
+Config knobs of the JAX trainer this port does not have yet raise
+``NotImplementedError``: ``accum_steps > 1``, ``lstm_save_every > 1``,
+``schedule_masks``, ``is_metrics``, batches that carry ``lengths``
+(variable-length training), a reporter and eval mixtures. ``lstm_backend``
+is accepted and ignored: the port always runs its kernels.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.training.schedulers import ExponentialDecay, ReduceLROnPlateau
+from tss_dprnn_tpu_torch.training.train_state import Optimizer
+from tss_dprnn_tpu_torch.utils.checkpoint import CheckpointManager, load_model
+
+BEST_LOSS_SENTINEL = 100500.0  # the reference's starting best loss
+
+
+def _unported(config: Dict[str, Any]) -> list:
+    knobs = []
+    if int(config.get("accum_steps", 1)) > 1:
+        knobs.append("accum_steps > 1")
+    if int(config.get("lstm_save_every", 1)) > 1:
+        knobs.append("lstm_save_every > 1")
+    for key in ("schedule_masks", "is_metrics"):
+        if config.get(key):
+            knobs.append(key)
+    return knobs
+
+
+class Trainer:
+    """Subclasses give ``_forward_loss(batch, train) -> (loss, aux)``, with
+    ``batch`` a dict of tensors on the device."""
+
+    def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
+                 device: Optional[Union[str, torch.device]] = None,
+                 logger: Optional[logging.Logger] = None, reporter=None,
+                 eval_mixtures: Optional[Dict] = None):
+        unported = _unported(config) + (["a reporter"] if reporter is not None else []) + (
+            ["eval mixtures"] if eval_mixtures else [])
+        if unported:
+            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.config = config
+        self.logger = logger or logging.getLogger(__name__)
+        self.cur_epoch = int(config.get("cur_epoch") or 0)
+        self.print_freq = int(config.get("print_freq", 5))
+
+        opt_cfg = config.get("optimizer", {})
+        self.base_lr = float(opt_cfg.get("lr", 1e-3))
+        self.optimizer = Optimizer(self.model.parameters(), self.base_lr,
+                                   float(opt_cfg.get("weight_decay", 0.0)),
+                                   float(config.get("clip_norm") or 0.0) or None)
+        sched = config.get("lr_scheduler", {}) or {}
+        if sched.get("decay_rate") is not None:
+            self.lr_scheduler = ExponentialDecay(self.base_lr, float(sched["decay_rate"]))
+            self.plateau = False
+        else:
+            self.lr_scheduler = ReduceLROnPlateau(
+                self.base_lr, float(sched.get("factor", 0.5)), int(sched.get("patience", 2)))
+            self.plateau = True
+        self.logger.info("lr_scheduler is %s.", type(self.lr_scheduler).__name__)
+
+        self.save_optimizer = bool(config.get("save_optimizer", False))
+        self.step = 0
+        self._run_counters = {"best_loss": BEST_LOSS_SENTINEL, "no_improve_cnt": 0}
+        self.ckpt = CheckpointManager(config.get("new_checkpoints_path", "./chkpts"),
+                                      int(config.get("n_checkpoints", 1000)))
+        checkpoint_path = config.get("checkpoint_path")
+        if checkpoint_path:
+            self._resume(checkpoint_path)
+        else:
+            self.logger.info("Starting new training run.")
+
+    def _resume(self, path: str) -> None:
+        self.logger.info("Continue training from checkpoint: %s.", path)
+        ckpt = load_model(path, self.model)
+        if not self.config.get("cur_epoch"):
+            self.cur_epoch = int(ckpt.get("epoch", 0))
+        if self.save_optimizer and "optimizer" in ckpt:
+            self.optimizer.load_state_dict(ckpt["optimizer"])
+            self.step = int(ckpt.get("step", 0))
+            if ckpt.get("scheduler"):
+                self.lr_scheduler.load_state_dict(ckpt["scheduler"])
+                self.optimizer.set_learning_rate(self.lr_scheduler.lr)
+            self._run_counters.update(ckpt.get("run") or {})
+            self.logger.info("Exact resume: optimizer/scheduler state restored.")
+
+    # ---------------------------------------------------------------- steps
+
+    def _forward_loss(self, batch: Dict[str, torch.Tensor], train: bool):
+        raise NotImplementedError("BSS training (DPRNN-TasNet) is not ported yet")
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if "lengths" in batch:
+            raise NotImplementedError("batches with lengths (variable-length training) "
+                                      "are not ported yet")
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def train_step(self, batch: Dict[str, np.ndarray]):
+        """One optimizer step; returns (loss, aux) on the device."""
+        self.model.train()
+        loss, aux = self._forward_loss(self._to_device(batch), train=True)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
+        self.model.eval()
+        return self._forward_loss(self._to_device(batch), train=False)[0]
+
+    # --------------------------------------------------------------- epochs
+
+    def train(self, dataloader) -> float:
+        self.logger.info("Set train mode...")
+        if hasattr(dataloader, "set_epoch"):
+            dataloader.set_epoch(self.cur_epoch)  # the epoch-keyed shuffle
+        start = time.time()
+        loss_sum = None
+        for step, batch in enumerate(dataloader):
+            loss, aux = self.train_step(batch)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            if step % self.print_freq == 0:
+                self._log_step(step, float(loss_sum), aux)
+        total = float(loss_sum) if loss_sum is not None else 0.0
+        return self._log_epoch(total, max(len(dataloader), 1), start, "train")
+
+    def eval(self, dataloader) -> float:
+        self.logger.info("Set eval mode...")
+        start = time.time()
+        loss_sum = None
+        for step, batch in enumerate(dataloader):
+            loss = self.eval_step(batch)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            if step % self.print_freq == 0:
+                self._log_step(step, float(loss_sum), {})
+        total = float(loss_sum) if loss_sum is not None else 0.0
+        return self._log_epoch(total, max(len(dataloader), 1), start, "eval")
+
+    def run(self, train_loader, eval_loader, n_epochs: int, early_stop: int) -> None:
+        best_loss = float(self._run_counters["best_loss"])
+        no_improve_cnt = int(self._run_counters["no_improve_cnt"])
+        while self.cur_epoch < n_epochs:
+            self.logger.info("Initiating epoch %d.", self.cur_epoch)
+            self.cur_epoch += 1
+            self.train(train_loader)
+            eval_loss = self.eval(eval_loader)
+            lr = self.lr_scheduler.step(eval_loss) if self.plateau else self.lr_scheduler.step()
+            self.optimizer.set_learning_rate(lr)
+            if eval_loss >= best_loss:
+                no_improve_cnt += 1
+                self._run_counters = {"best_loss": best_loss, "no_improve_cnt": no_improve_cnt}
+                self.logger.info("No improvement, Best Loss: %.4f.", -best_loss)
+            else:
+                best_loss, no_improve_cnt = eval_loss, 0
+                self._run_counters = {"best_loss": best_loss, "no_improve_cnt": no_improve_cnt}
+                self._save_checkpoint(best=True)
+                self.logger.info("Epoch: %d, Now Best Loss Change: %.4f.", self.cur_epoch,
+                                 -best_loss)
+            if no_improve_cnt == early_stop:
+                self.logger.info("Stop training cause no impr for %d epochs", no_improve_cnt)
+                break
+        self._save_checkpoint(best=False)
+        self.logger.info("Training for %d/%d epoches done!", self.cur_epoch, n_epochs)
+
+    # ----------------------------------------------------------------- logs
+
+    def _log_step(self, step: int, total_loss: float, aux: Dict[str, torch.Tensor]) -> None:
+        self.logger.info("<epoch:%d, iter:%d, lr:%.3e, loss:%.3f>.", self.cur_epoch, step,
+                         self.optimizer.learning_rate, -total_loss / (step + 1))
+
+    def _log_epoch(self, total_loss: float, num_steps: int, start: float, mode: str) -> float:
+        total_loss /= num_steps
+        self.logger.info("Finished *** <epoch:%d, iter:%d, loss:%.3f, Total time:%.3f min>.",
+                         self.cur_epoch, num_steps, -total_loss, (time.time() - start) / 60)
+        return total_loss
+
+    # ---------------------------------------------------------- checkpoints
+
+    def _save_checkpoint(self, best: bool = False) -> str:
+        payload = {"epoch": self.cur_epoch, "model": self.model.state_dict()}
+        if self.save_optimizer:
+            payload.update(optimizer=self.optimizer.state_dict(), step=self.step,
+                           scheduler=self.lr_scheduler.state_dict(),
+                           run=dict(self._run_counters))
+        path = self.ckpt.save(self.cur_epoch, payload, best=best)
+        self.logger.info("Saved checkpoint: %s", path)
+        return path

@@ -1,1 +1,1 @@
-"""Utilities of the port: weight conversion from the JAX package's variables."""
+"""Utilities of the port: weight conversion from the JAX package's variables and checkpoints."""

@@ -1,0 +1,48 @@
+"""Checkpoints as ``torch.save`` files (counterpart of
+``tss_dprnn_tpu/utils/checkpoint.py``).
+
+Files are named ``{epoch}_{best|last}`` under ``new_checkpoints_path``; the
+newest ``n_checkpoints`` are kept and older ones removed. A file holds the
+reference's ``.pt`` layout: ``{"epoch", "model"}`` plus, for exact resume,
+``"optimizer"``, ``"scheduler"``, ``"step"`` and ``"run"``. Loading fails
+hard when the weights do not match the model (the reference silently starts
+from random weights).
+"""
+
+from __future__ import annotations
+
+import os
+from collections import deque
+from typing import Any, Dict, Mapping
+
+import torch
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, n_checkpoints: int = 1000):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.queue: deque = deque(maxlen=n_checkpoints)
+
+    def save(self, epoch: int, payload: Mapping[str, Any], best: bool = False) -> str:
+        path = os.path.join(self.directory, f"{epoch}_{'best' if best else 'last'}")
+        tmp = path + ".tmp"
+        torch.save(dict(payload), tmp)
+        os.replace(tmp, path)
+        if self.queue.maxlen and len(self.queue) == self.queue.maxlen:
+            evicted = self.queue[0]
+            if evicted != path and os.path.exists(evicted):
+                os.remove(evicted)
+        self.queue.append(path)
+        return path
+
+
+def load_model(path: str, model: torch.nn.Module) -> Dict[str, Any]:
+    """Load a checkpoint's weights into ``model`` (strict: a mismatch
+    raises) and return the whole checkpoint as ``{"model": state_dict,
+    ...}``: the trainer's layout as it is, a bare state_dict wrapped."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict)):
+        ckpt = {"model": ckpt}
+    model.load_state_dict(ckpt["model"], strict=True)
+    return ckpt
