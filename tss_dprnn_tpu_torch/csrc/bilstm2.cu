@@ -252,7 +252,14 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       const int gr = row0 + row;
       // direction 1 holds its zero state until t drops below the row's length
       const bool update = d == 0 || t < rlen[r];
-      float hv[4], hpv[4], cpv[4], tcv[4];
+      if constexpr (kResid) {
+        if (gr < R) {  // h and c before the step
+          *reinterpret_cast<float4*>(resid_at(resid.hp0, resid.hp1, gr, t) + u4) =
+              *reinterpret_cast<const float4*>(hs + row * hp + u4);
+          store4(resid_at(resid.cp0, resid.cp1, gr, t) + u4, c[r]);
+        }
+      }
+      float hv[4], tcv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float ig = sigmoid_f(acc[0][r][j]);
@@ -262,18 +269,14 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         const float cn = fg * c[r][j] + ig * gg;
         const float tcn = tanhf(cn);
         const float hn = to_f(from_f<T>(og * tcn));
-        if constexpr (kResid) {
-          hpv[j] = hs[row * hp + u4 + j];
-          cpv[j] = c[r][j];
-          tcv[j] = tcn;
-        }
+        if constexpr (kResid) tcv[j] = tcn;
         if (update) c[r][j] = cn;
         hv[j] = update ? hn : hs[row * hp + u4 + j];
       }
       store4(hs + row * hp + u4, hv);
       if (gr < R) {
         store4(out_at(gr, t) + u4, hv);
-        if constexpr (kResid) store_resid(gr, t, hpv, cpv, tcv);
+        if constexpr (kResid) store4(resid_at(resid.tc0, resid.tc1, gr, t) + u4, tcv);
       }
     }
   }
