@@ -21,8 +21,9 @@ trace) under the checkout.
 of 3 s (the reference's training batch) with the flagship model, fp32:
 steady-state ms/step (host clock around synchronised steps after two
 warm-up steps), and from the profiler over one step the device time of the
-residual forward kernel, the backward's kernels, the optimizer (gradient
-clipping and Adam) and the rest (glue), with the device's busy share.
+bilstm2 autograd Function's forward and backward (their kernels, and apart
+the torch ops of their wrappers), the optimizer (gradient clipping and
+Adam) and the rest (glue), with the device's busy share.
 Writes ``summary_train.json`` and ``trace_train.json.gz``.
 """
 
@@ -130,13 +131,25 @@ def main() -> int:
     return 0
 
 
-def train_kernel_class(name: str) -> str:
-    """The part of a training step a device kernel belongs to."""
-    if "bilstm2_kernel" in name:  # kResid = true: the training forward
-        return "resid forward" if ("true" in name or "Lb1E" in name) else "inference forward"
-    if "GemmArgs" in name or "scan_kernel" in name or "colsum_kernel" in name:
-        return "backward"
-    if "multi_tensor_apply" in name or "adam" in name.lower():
+PORT_KERNELS = ("bilstm2_kernel", "gemm_kernel", "scan_kernel", "colsum_kernel")
+
+
+def train_part(op, kernel: str) -> str:
+    """The part of a training step a device kernel belongs to. A kernel
+    launched inside the bilstm2 autograd Function's forward or backward
+    belongs to it, the wrapper's torch ops (the backward's partial sums,
+    weight transposes and stack) under their own name; any other by its
+    name."""
+    own = any(k in kernel for k in PORT_KERNELS)
+    while op is not None:
+        if op.name in ("BiLSTM2", "BiLSTM2Masked"):
+            return "resid forward" if own else "resid forward (torch ops)"
+        if op.name in ("BiLSTM2Backward", "BiLSTM2MaskedBackward"):
+            return "backward" if own else "backward (torch ops)"
+        op = op.cpu_parent
+    if "bilstm2_kernel" in kernel:
+        return "inference forward"
+    if "multi_tensor_apply" in kernel or "adam" in kernel.lower():
         return "optimizer"
     return "glue"
 
@@ -192,9 +205,14 @@ def profile_train(iters: int) -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] += e.time_range.end - e.time_range.start
     device_us = sum(by_kernel.values())
+    # each kernel hangs off the innermost op around its launch
     by_class = defaultdict(float)
-    for k, v in by_kernel.items():
-        by_class[train_kernel_class(k)] += v
+    for e in prof.events():
+        for k in e.kernels:
+            by_class[train_part(e, k.name)] += k.duration
+    unattributed = device_us - sum(by_class.values())
+    if abs(unattributed) > 1e-3 * device_us:
+        by_class["not linked to an op"] = unattributed
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     measured = bool(device_us)
     summary = {

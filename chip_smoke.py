@@ -50,6 +50,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
@@ -727,7 +728,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     libraries = ("bilstm2", "bilstm2_bwd")
-    _build.load_libraries(libraries)  # one nvcc per source, started together
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
+        list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in libraries:

@@ -52,7 +52,7 @@ def _jax_streams(resid, R, T):
 def _cotangents(rng, R, T, H, lens=None):
     g0 = rng.standard_normal((R, T, H)).astype(np.float32)
     g1 = rng.standard_normal((R, T, H)).astype(np.float32)
-    if lens is not None:  # every consumer masks out0 past a row's length
+    if lens is not None:  # as the DPRNN block's masked norm makes it (tested below)
         g0[np.arange(T)[None, :] >= lens[:, None]] = 0
     return g0, g1
 
@@ -205,6 +205,61 @@ def test_lstm_pair_grad_matches_jax(rng, interpret, lens):
     for name, t, b in zip(("dx", "dw_ih2", "db2", "dw_hh2"), leaves, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(b), atol=ATOL_BWD, rtol=0,
                                    err_msg=name)
+
+
+def _block_state_dict(tree):
+    """A JAX DPRNNBlock's params (or their gradients) under the port's names."""
+    from tss_dprnn_tpu_torch.utils import weights
+
+    out = {}
+    for part in ("intra", "inter"):
+        weights._rnn_entries(out, f"{part}_rnn.rnn", tree[f"{part}_rnn"])
+        weights._dense_entries(out, f"{part}_linear", tree[f"{part}_linear"])
+        weights._norm_entries(out, f"{part}_norm", tree[f"{part}_norm"], "ln")
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def test_masked_block_grad_matches_jax(rng, interpret):
+    """Chunk lengths through a DPRNN block, the masked scan's consumer.
+
+    The port's masked backward gives nothing for steps past a row's length
+    in either direction, where the JAX kernel skips only direction 1's. The
+    two agree only if out0's cotangent is zero past the length. Here it
+    comes from the block's own masked norm, so the gradients of every
+    parameter and of x must match ``jax.grad`` of the JAX block (its Pallas
+    lane), within 1e-4 of each tensor's max |grad|."""
+    import jax
+    import jax.numpy as jnp
+
+    from tss_dprnn_tpu.models.dprnn import DPRNNBlock as JaxBlock
+    from tss_dprnn_tpu.ops import rnn as jax_rnn
+    from tss_dprnn_tpu_torch.models.dprnn import DPRNNBlock
+
+    B, S, K, N, H = 2, 7, 5, 16, 16
+    x = rng.standard_normal((B, S, K, N)).astype(np.float32)
+    cot = rng.standard_normal((B, S, K, N)).astype(np.float32)
+    chunk_lengths = np.array([7, 3], np.int32)
+    jblock = JaxBlock(N, H, norm_type="ln")
+    params = jblock.init(jax.random.PRNGKey(0), x, chunk_lengths)["params"]
+
+    def jax_loss(params, x):
+        with jax_rnn.lstm_backend("pallas"):
+            return jnp.sum(jblock.apply({"params": params}, x, chunk_lengths) * cot)
+
+    want_loss, (want_params, want_dx) = jax.value_and_grad(jax_loss, argnums=(0, 1))(params, x)
+    block = DPRNNBlock(N, H, "ln")
+    block.load_state_dict(_block_state_dict(params), strict=True)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = block(xt, torch.from_numpy(chunk_lengths))
+    assert out.grad_fn is not None
+    loss = (out * torch.from_numpy(cot)).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    want = dict(_block_state_dict(want_params), x=torch.from_numpy(np.array(want_dx)))
+    got = dict(((k, p.grad) for k, p in block.named_parameters()), x=xt.grad)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        torch.testing.assert_close(got[k], w, atol=1e-4 * float(w.abs().max()), rtol=0, msg=k)
 
 
 def test_lstm_pair_without_grad_takes_inference_entry(rng):

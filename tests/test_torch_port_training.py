@@ -240,8 +240,10 @@ def test_trainer_spe_step_matches_jax(tmp_path, interpret):
 
     # eagerly, op by op as the port runs: XLA's fused program of the same
     # step moves the speaker encoder's gradients upstream of its max pools
-    # by up to their own size (measured against eager JAX on this batch),
-    # so only the eager run is a reference at a tight bar
+    # by up to their own size (measured against eager JAX on this batch:
+    # the pools' ties in padded reference frames split their gradient
+    # another way, scripts/port/spk_grad_ties.py), so only the eager run is
+    # a reference at a tight bar
     (want_loss, new_bs), grads = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
     new_state = state.apply_gradients(grads)
 

@@ -18,6 +18,10 @@ from torch import nn
 from tss_dprnn_tpu_torch.ops import norms as norms_ops
 from tss_dprnn_tpu_torch.ops import rnn as rnn_ops
 
+# BatchNorm's running-statistics momentum, torch's default
+# (tss_dprnn_tpu/models/layers.py:224)
+_MOMENTUM = 0.1
+
 
 class Dense(nn.Module):
     """``x @ weight.T + bias`` over the last axis.
@@ -143,13 +147,12 @@ class BatchNorm(nn.Module):
     normalises with the running statistics. In training mode
     (``module.train()``) it normalises with the batch statistics over every
     axis but the channel (padded frames count, as in the JAX package) and
-    moves the running mean and the running unbiased variance by momentum
-    0.1 (``tss_dprnn_tpu/models/layers.py:214-247``)."""
+    moves the running mean and the running unbiased variance by
+    ``_MOMENTUM`` (``tss_dprnn_tpu/models/layers.py:214-247``)."""
 
-    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -165,7 +168,7 @@ class BatchNorm(nn.Module):
             var = (x - mean).square().mean(dim=axes)
             n = x.numel() // x.shape[-1]
             with torch.no_grad():
-                m = self.momentum
+                m = _MOMENTUM
                 unbiased = var * (n / max(n - 1, 1))
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var + m * unbiased)

@@ -15,9 +15,8 @@ import os
 import shutil
 import subprocess
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -66,9 +65,3 @@ def load_library(name: str, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     _loaded[so] = ctypes.CDLL(str(so))
     return _loaded[so]
 
-
-def load_libraries(names: Sequence[str], build_dir: Path = BUILD_DIR) -> List[ctypes.CDLL]:
-    """:func:`load_library` for each name, the nvcc builds all started
-    together (one process per source)."""
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return list(pool.map(lambda n: load_library(n, build_dir), names))

@@ -423,7 +423,9 @@ def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     """Backward of :func:`bilstm2_forward_resid_masked`: steps t >= lens[row]
     give nothing in either direction (direction 1 held its zero state there;
     out0 is unspecified there, so its cotangent is discarded) and dx there
-    is 0."""
+    is 0. The TPU kernel skips only direction 1's held steps, since its
+    forward runs direction 0 to the end; the two agree when out0's cotangent
+    is zero past the length, as the DPRNN block's masked norm makes it."""
     if x.device.type == "cpu":
         return bilstm2_backward_reference(x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
     return _launch_backward(bilstm2_backward_masked, x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
