@@ -36,6 +36,26 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ms/step printed); one step card vs CPU at 1 x 1 s (loss within 1e-4
    relative, concatenated gradients >= 40 dB SNR).
 
+7. stacked-direction kernels vs plain: lstm_forward (fp32 and bf16 streams),
+   lstm_forward_with_cs, lstm_forward_resid and lstm_backward (csrc/lstm.cu,
+   csrc/lstm_bwd.cu) against their plain versions at D = 1 and the
+   inter-chunk shapes of BSS serving (8 x 10 s: R=2000 T=642) and training
+   (5 x 3 s: R=1250 T=194), plus a small D = 2 case with different inputs per
+   direction (same tolerances as phases 2 and 5; the backward bit for bit the
+   same on a second call), timed with 16- and 32-row tiles beside the plain
+   versions and a unidirectional cuDNN LSTM (TF32 off);
+8. BSS serving: Inferencer.run with DPRNN-TasNet at the width and depth of
+   configs/train_bss.yaml and ``bidirectional: false`` over 12 two-speaker
+   mixtures (6 bilstm2_forward + 6 lstm_forward launches per batch and no
+   other kernel; a bucketed row equals the request alone; card vs CPU >= 50
+   dB), then ``bidirectional: true`` at 2 repeats (2 unmasked + 2 masked
+   bilstm2 launches per batch, card vs CPU >= 50 dB);
+9. BSS training: Trainer.run with ``bidirectional: false`` for 2 epochs (per
+   train step 6 bilstm2_forward_resid + 6 bilstm2_backward + 6
+   lstm_forward_resid + 6 lstm_backward launches, per eval step 6 + 6
+   inference launches), the best checkpoint served through the BSS
+   Inferencer, 10 steps on one batch (ms/step), one step card vs CPU.
+
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
 chiprun_out/chip_smoke/ under the checkout (summary.json holds every
@@ -61,6 +81,13 @@ FLAGSHIP = dict(
     kernel_size=2, hop_length=125, n_repeats=6, bidirectional=True,
     norm_type="ln", activation_type="sigmoid", dropout=0,
     O=128, P=256, embeddings_size=128, num_spks=251, fusion_type="att",
+)
+# DPRNN-TasNet as configs/train_bss.yaml:18-30 has it, with the causal
+# (unidirectional) inter-chunk scan
+BSS = dict(
+    input_size=64, feature_size=128, hidden_size=128, chunk_length=250,
+    kernel_size=2, hop_length=125, n_repeats=6, bidirectional=False,
+    norm_type="ln", activation_type="sigmoid", dropout=0,
 )
 SAMPLE_RATE = 8000
 SEED = 0
@@ -111,6 +138,29 @@ def snr_db(got, want) -> float:
     return float(10 * math.log10(want.pow(2).sum() / (got - want).pow(2).sum().clamp_min(1e-300)))
 
 
+def all_launches():
+    """Every kernel wrapper's launch count, by the wrapper's name."""
+    from tss_dprnn_tpu_torch.ops import bilstm2, lstm
+
+    return {e.__name__: e.launches for e in (*bilstm2.ENTRIES, *lstm.ENTRIES)}
+
+
+def reset_launches() -> None:
+    from tss_dprnn_tpu_torch.ops import bilstm2, lstm
+
+    bilstm2.reset_launch_counts()
+    lstm.reset_launch_counts()
+
+
+def expect_launches(got, per_step, steps: int, what: str) -> None:
+    """``got`` must be ``steps`` times ``per_step`` for the wrappers named
+    there and 0 for every other wrapper."""
+    want = {name: steps * per_step.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: expected {per_step} per step over {steps} steps and no "
+                             f"other kernel, counted {got}")
+
+
 def bound(rows_steps: int, R: int, T: int, F: int, H: int, itemsize: int, peak: float):
     """Least time for the work: the FLOPs the data needs (both directions over
     ``rows_steps`` row-steps) over the named peak, or each input read once
@@ -125,10 +175,10 @@ def bound(rows_steps: int, R: int, T: int, F: int, H: int, itemsize: int, peak: 
 def cudnn_lstm(torch, w_ih2, b2, w_hh2, dtype):
     """torch.nn.LSTM (cuDNN) holding the kernel's weights: the library
     yardstick, timed here and never called by the port."""
-    F, H = w_ih2.shape[1], w_hh2.shape[1]
-    lstm = torch.nn.LSTM(F, H, batch_first=True, bidirectional=True).to(w_ih2.device)
+    D, F, H = w_ih2.shape[0], w_ih2.shape[1], w_hh2.shape[1]
+    lstm = torch.nn.LSTM(F, H, batch_first=True, bidirectional=D == 2).to(w_ih2.device)
     with torch.no_grad():
-        for d, sfx in enumerate(("", "_reverse")):
+        for d, sfx in zip(range(D), ("", "_reverse")):
             getattr(lstm, f"weight_ih_l0{sfx}").copy_(w_ih2[d].T)
             getattr(lstm, f"weight_hh_l0{sfx}").copy_(w_hh2[d].T)
             getattr(lstm, f"bias_ih_l0{sfx}").copy_(b2[d])
@@ -420,7 +470,7 @@ def train_kernel_entries(results, launches):
             ("backward", "bilstm2_backward", "tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu",
              "tss_dprnn_tpu/ops/pallas_lstm.py:1224")):
         e = {"name": name, "mode": f"{which}, intra", "dtype": "float32", "route": "cuda",
-             "source": source, "replaces": replaces, "launches": launches[which],
+             "source": source, "replaces": replaces, "launches": launches[name],
              **numbers(results["intra"], which),
              "inter": numbers(results["inter"], which),
              "masked": dict(numbers(results["masked"], which), name=f"{name}_masked",
@@ -433,6 +483,224 @@ def train_kernel_entries(results, launches):
             e["bitwise_repeat"] = all(results[s]["bitwise_repeat"] for s in results)
         entries.append(e)
     return entries
+
+
+def bound_stack(kind: str, D: int, R: int, T: int, F: int, H: int, itemsize: int = 4,
+                peak: float = PEAK_FP32):
+    """Least time of a stacked-direction scan (``kind``: "forward",
+    "with_cs", "resid" or "backward"): 2 (F + H) 4H FLOP per row-step and
+    direction forward and three times that backward over the named peak, or
+    the bytes over the HBM rate: each direction's x read and h written once,
+    the extra fp32 streams written (one for with_cs, three for resid), the
+    weights read; backward x, the three streams and the cotangent read, dx,
+    dW and db written."""
+    steps = D * R * T
+    weights = D * (F + H + 1) * 4 * H * 4
+    if kind == "backward":
+        flops = 3 * steps * 2 * (F + H) * 4 * H
+        nbytes = steps * (2 * F + 4 * H) * 4 + 2 * weights
+    else:
+        flops = steps * 2 * (F + H) * 4 * H
+        extra = {"forward": 0, "with_cs": 1, "resid": 3}[kind]
+        nbytes = steps * ((F + H) * itemsize + extra * H * 4) + weights
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bss_shapes():
+    """The unidirectional inter-chunk scan's (D, R, T) in BSS serving (8 x
+    10 s) and training (5 x 3 s); a small two-direction case, R not a
+    multiple of 8, T not a multiple of 5; and a wide one (the intra-chunk
+    shape of 8 x 10 s as two stacked directions), where 32-row tiles already
+    give the card more blocks than it has SMs."""
+    K, hop = BSS["chunk_length"], BSS["hop_length"]
+    S10 = (10 * SAMPLE_RATE - 1 + K) // hop + 1
+    return {"serving": (1, 8 * K, S10), "training": (1,) + train_shapes()["inter"],
+            "small_d2": (2, 203, 33), "wide_d2": (2, 8 * S10, K)}
+
+
+def phase_lstm_kernels(torch, dev):
+    """Phase 7: the stacked-direction kernels against their plain versions,
+    timed beside them and a unidirectional cuDNN LSTM, with both tile heights."""
+    from tss_dprnn_tpu_torch.ops import lstm as L
+
+    F = H = 128
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    k = H ** -0.5
+    results = {}
+    for name, (D, R, T) in bss_shapes().items():
+        w_ih, w_hh, b = ((torch.rand(*s, generator=g) * 2 * k - k).to(dev)
+                         for s in ((D, F, 4 * H), (D, H, 4 * H), (D, 4 * H)))
+        w = (w_ih, b, w_hh)
+        x = torch.randn(D, R, T, F, generator=g).to(dev)
+        cot = torch.randn(D, R, T, H, generator=g).to(dev)
+        xb = x.bfloat16()
+
+        # the three forward modes and the bf16 streams
+        ref = L.lstm_reference(x, *w)
+        err = {"forward": float((L.lstm_forward(x, *w) - ref).abs().max())}
+        got_h, got_cs = L.lstm_forward_with_cs(x, *w)
+        ref_cs = L.lstm_cs_reference(x, *w)[1]
+        err["with_cs"] = max(float((got_h - ref).abs().max()),
+                             float((got_cs - ref_cs).abs().max()))
+        got_h, resid = L.lstm_forward_resid(x, *w)
+        ref_resid = L.lstm_resid_reference(x, *w)[1]
+        err["resid"] = max(float((got_h - ref).abs().max()),
+                           *(float((a - r).abs().max()) for a, r in zip(resid, ref_resid)))
+        del got_h, got_cs, ref_cs, ref_resid
+        got16 = L.lstm_forward(xb, *w).float()
+        ref16 = L.lstm_reference(xb, *w).float()
+        snr16, plain16_snr = snr_db(got16, ref), snr_db(got16, ref16)
+        plain16_err = float((got16 - ref16).abs().max())
+        del got16, ref16
+        # the backward from the kernel's residual streams, twice
+        got = L.lstm_backward(x, resid, cot, *w)
+        again = L.lstm_backward(x, resid, cot, *w)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, r) for a, r in zip(got, again))
+        del again
+        want = L.lstm_backward_reference(x, resid, cot, *w)
+        dx_err = float((got[0] - want[0]).abs().max())
+        dw_err = max(float((a - r).abs().max()) for a, r in zip(got[1:], want[1:]))
+        dw_rel = max(float((a - r).abs().max()) / float(r.abs().max())
+                     for a, r in zip(got[1:], want[1:]))
+        del got, want
+        log(f"[lstm-kernels] {name} D={D} R={R} T={T} ({L.tile_rows(x)}-row tiles): max|err| "
+            f"forward {err['forward']:.3e}, with_cs {err['with_cs']:.3e}, resid "
+            f"{err['resid']:.3e}; bf16 SNR {snr16:.2f} dB (vs bf16 plain max|err| "
+            f"{plain16_err:.3e}, SNR {plain16_snr:.2f} dB); backward dx {dx_err:.3e}, dW/db "
+            f"{dw_err:.3e}, /max|ref| {dw_rel:.3e}, repeats bit for bit: {repeat}")
+        if not max(err.values()) <= 1e-4:
+            raise AssertionError(f"lstm {name} fp32 disagrees with its plain version: {err}")
+        if not (snr16 >= 40.0 and plain16_err <= BF16_ATOL and plain16_snr >= BF16_SNR_DB):
+            raise AssertionError(f"lstm {name} bf16: SNR {snr16:.2f} dB vs fp32 (>= 40), "
+                                 f"max|err| {plain16_err} (<= {BF16_ATOL}) and SNR "
+                                 f"{plain16_snr:.2f} dB (>= {BF16_SNR_DB}) vs bf16 plain")
+        if not (dx_err <= 1e-4 and dw_rel <= DW_REL_TOL and repeat):
+            raise AssertionError(f"lstm backward {name} disagrees with its plain version or does "
+                                 f"not repeat: dx {dx_err}, dW/db {dw_rel}, repeat {repeat}")
+
+        # cuDNN's LSTM on the same weights, TF32 off: inference forward,
+        # training forward, backward by autograd.grad
+        lstms = {dt: cudnn_lstm(torch, w_ih, b, w_hh, dt) for dt in (torch.float32, torch.bfloat16)}
+        lstm = lstms[torch.float32]
+
+        nums = {"D": D, "R": R, "T": T, "tile_rows": L.tile_rows(x),
+                "blocks": {rows: D * -(-R // rows) for rows in (16, 32)},
+                "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
+                "bf16_plain_snr_db": plain16_snr, "dx_max_abs_err": dx_err,
+                "dw_max_abs_err": dw_err, "dw_rel_err": dw_rel, "bitwise_repeat": repeat}
+        if D == 1:
+            xr = x[0].detach().clone().requires_grad_()
+            params = [xr, *lstm.parameters()]
+            with torch.no_grad():
+                lib_err = float((lstm(x[0])[0] - ref[0]).abs().max())
+                nums["cudnn_ms"] = time_ms(lambda: lstm(x[0]), 3)
+                nums["cudnn_bf16_ms"] = time_ms(lambda: lstms[torch.bfloat16](xb[0]), 3)
+            out = lstm(xr)[0]
+            nums["cudnn_train_fwd_ms"] = time_ms(lambda: lstm(xr), 3)
+            nums["cudnn_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(out, params, cot[0], retain_graph=True), 3)
+            nums["cudnn_fwd_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(lstm(xr)[0], params, cot[0]), 3)
+            nums["library_max_abs_err"] = lib_err
+            del out, xr, params
+        del lstms, lstm, ref
+        for kind, fn, plain in (
+                ("forward", lambda: L.lstm_forward(x, *w), lambda: L.lstm_reference(x, *w)),
+                ("bf16", lambda: L.lstm_forward(xb, *w), lambda: L.lstm_reference(xb, *w)),
+                ("with_cs", lambda: L.lstm_forward_with_cs(x, *w),
+                 lambda: L.lstm_cs_reference(x, *w)),
+                ("resid", lambda: L.lstm_forward_resid(x, *w),
+                 lambda: L.lstm_resid_reference(x, *w)),
+                ("backward", lambda: L.lstm_backward(x, resid, cot, *w),
+                 lambda: L.lstm_backward_reference(x, resid, cot, *w))):
+            nums[f"{kind}_ms"] = time_ms(fn, 5)
+            nums[f"{kind}_plain_ms"] = time_ms(plain, 1)
+            if kind == "bf16":
+                nums["bf16_bound_ms"], nums["bf16_bound_by"] = bound_stack(
+                    "forward", D, R, T, F, H, 2, PEAK_BF16)
+            else:
+                nums[f"{kind}_bound_ms"], nums[f"{kind}_bound_by"] = bound_stack(kind, D, R, T, F, H)
+        # either tile height, same inputs: the blocks in flight against the time
+        for rows in (16, 32):
+            nums[f"forward_ms_rows{rows}"] = time_ms(
+                lambda: L._launch(L.lstm_forward, x, *w, L._MODE_H, rows=rows), 5)
+            nums[f"resid_ms_rows{rows}"] = time_ms(
+                lambda: L._launch(L.lstm_forward_resid, x, *w, L._MODE_RESID, rows=rows), 5)
+            nums[f"backward_ms_rows{rows}"] = time_ms(
+                lambda: L._launch_backward(L.lstm_backward, x, resid, cot, *w, rows=rows), 5)
+        log(f"[lstm-kernels] {name}: forward {nums['forward_ms']:.3f} ms (plain "
+            f"{nums['forward_plain_ms']:.1f}, bound {nums['forward_bound_ms']:.3f}; bf16 "
+            f"{nums['bf16_ms']:.3f}), with_cs {nums['with_cs_ms']:.3f}, resid "
+            f"{nums['resid_ms']:.3f} (plain {nums['resid_plain_ms']:.1f}, bound "
+            f"{nums['resid_bound_ms']:.3f}), backward {nums['backward_ms']:.3f} (plain "
+            f"{nums['backward_plain_ms']:.1f}, bound {nums['backward_bound_ms']:.3f}) | 16-row "
+            f"tiles ({nums['blocks'][16]} blocks) forward/resid/backward "
+            f"{nums['forward_ms_rows16']:.3f}/{nums['resid_ms_rows16']:.3f}/"
+            f"{nums['backward_ms_rows16']:.3f}, 32-row ({nums['blocks'][32]} blocks) "
+            f"{nums['forward_ms_rows32']:.3f}/{nums['resid_ms_rows32']:.3f}/"
+            f"{nums['backward_ms_rows32']:.3f}")
+        if D == 1:
+            log(f"[lstm-kernels] {name}: cuDNN forward {nums['cudnn_ms']:.3f} ms (bf16 "
+                f"{nums['cudnn_bf16_ms']:.3f}), training forward {nums['cudnn_train_fwd_ms']:.3f}, "
+                f"backward {nums['cudnn_bwd_ms']:.3f}, fwd+bwd {nums['cudnn_fwd_bwd_ms']:.3f} "
+                f"(cuDNN vs plain max|err| {nums['library_max_abs_err']:.3e})")
+        results[name] = nums
+        del x, xb, cot, resid
+        torch.cuda.empty_cache()
+    return results
+
+
+def lstm_kernel_entries(results, launches):
+    """The kernels line's entries for the stacked-direction kernels: each
+    at the shape its main path gives it (lstm_forward: BSS serving; the
+    training kernels: BSS training), the other shapes and modes nested."""
+    def numbers(r, kind, library):
+        out = {"ms": r[f"{kind}_ms"], "plain_ms": r[f"{kind}_plain_ms"],
+               "bound_ms": r[f"{kind}_bound_ms"], "bound_by": r[f"{kind}_bound_by"],
+               "library_ms": r.get(library),
+               "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128},
+               "tile_rows": r["tile_rows"], "blocks": r["blocks"][r["tile_rows"]]}
+        if kind in ("forward", "resid", "backward"):  # timed with either tile height
+            out.update({f"ms_rows{rows}": r[f"{kind}_ms_rows{rows}"] for rows in (16, 32)})
+        if kind == "backward":
+            out.update(max_abs_err=max(r["dx_max_abs_err"], r["dw_max_abs_err"]),
+                       dx_max_abs_err=r["dx_max_abs_err"], dw_rel_err=r["dw_rel_err"],
+                       cudnn_fwd_bwd_ms=r.get("cudnn_fwd_bwd_ms"))
+        elif kind == "bf16":
+            out.update(snr_db=r["bf16_snr_db"], plain_max_abs_err=r["bf16_plain_max_abs_err"],
+                       plain_snr_db=r["bf16_plain_snr_db"])
+        else:
+            out["max_abs_err"] = r["max_abs_err"][kind]
+        return out
+
+    serving, training, small, wide = (results[k] for k in ("serving", "training", "small_d2",
+                                                           "wide_d2"))
+    base = {"dtype": "float32", "route": "cuda"}
+    fwd = {"source": "tss_dprnn_tpu_torch/csrc/lstm.cu",
+           "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57"}
+    return [
+        dict(base, name="lstm_forward", mode="h only, BSS serving inter scan", **fwd,
+             launches=launches["lstm_forward"], **numbers(serving, "forward", "cudnn_ms"),
+             bf16=numbers(serving, "bf16", "cudnn_bf16_ms"),
+             with_cs=dict(numbers(serving, "with_cs", "cudnn_train_fwd_ms"),
+                          name="lstm_forward_with_cs", launches=0),
+             training_shape=numbers(training, "forward", "cudnn_ms"),
+             small_d2=numbers(small, "forward", None), wide_d2=numbers(wide, "forward", None)),
+        dict(base, name="lstm_forward_resid", mode="resid, BSS training inter scan", **fwd,
+             launches=launches["lstm_forward_resid"],
+             **numbers(training, "resid", "cudnn_train_fwd_ms"),
+             serving_shape=numbers(serving, "resid", "cudnn_train_fwd_ms"),
+             small_d2=numbers(small, "resid", None), wide_d2=numbers(wide, "resid", None)),
+        dict(base, name="lstm_backward", mode="BSS training inter scan",
+             source="tss_dprnn_tpu_torch/csrc/lstm_bwd.cu",
+             replaces="tss_dprnn_tpu/ops/pallas_lstm.py:498",
+             launches=launches["lstm_backward"], **numbers(training, "backward", "cudnn_bwd_ms"),
+             serving_shape=numbers(serving, "backward", "cudnn_bwd_ms"),
+             small_d2=numbers(small, "backward", None), wide_d2=numbers(wide, "backward", None),
+             bitwise_repeat=all(r["bitwise_repeat"] for r in results.values())),
+    ]
 
 
 class Requests:
@@ -569,43 +837,94 @@ class Crops:
         return [len(it[0]) for it in self.items]
 
 
+class Mixtures:
+    """In-memory two-speaker mixtures from a seed: ds[i] -> (mix [T], sources
+    [2, T]). With ``seconds`` fixed crops of that length; without, requests of
+    2-6 s and one of 10 s."""
+
+    def __init__(self, seed: int, n: int, seconds: float = None):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        secs = [seconds] * n if seconds else list(rng.uniform(2, 6, n - 1)) + [10.0]
+        self.items = []
+        for sec in secs:
+            sources = 0.1 * rng.standard_normal((2, int(sec * SAMPLE_RATE))).astype(np.float32)
+            self.items.append((sources.sum(0), sources))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def lengths(self):
+        return [len(it[0]) for it in self.items]
+
+
 # the reference's training config (configs/train_tss.yaml), with a fresh
 # checkpoint directory; lstm_backend is accepted and ignored by the port
 TRAIN_CONFIG = {"optimizer": {"lr": 5e-4, "weight_decay": 1e-5}, "clip_norm": 5,
                 "ce_gamma": 0.5, "print_freq": 5, "n_checkpoints": 1000,
                 "lr_scheduler": {"patience": 2, "factor": 0.5}, "lstm_backend": "pallas",
                 "save_optimizer": True}
+# ... and the BSS one (configs/train_bss.yaml)
+BSS_TRAIN_CONFIG = {"optimizer": {"lr": 1e-3, "weight_decay": 1e-5}, "clip_norm": 5,
+                    "print_freq": 5, "n_checkpoints": 1000,
+                    "lr_scheduler": {"patience": 2, "factor": 0.5}, "lstm_backend": "pallas",
+                    "save_optimizer": True}
 
 
-def phase_training(torch, dev):
-    """Phase 6: TrainerSpe.run at full flagship width and depth, then the
-    best checkpoint served, 10 steps on one batch, and one step card vs CPU."""
+def training_family(name: str):
+    """What phase_training drives for a model family: the model, its trainer,
+    inferencer, collate and dataset, and the kernel launches a step makes."""
+    from tss_dprnn_tpu_torch import inference, training
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
+
+    n = FLAGSHIP["n_repeats"]  # an intra and an inter scan per block
+    if name == "tss":
+        return dict(tag="train", model=lambda: DPRNNSpeTasNet(**FLAGSHIP), seed=SEED + 6,
+                    trainer=training.TrainerSpe, inferencer=inference.InferencerSpe,
+                    collate=loader.collate_spe, crops=Crops, config=TRAIN_CONFIG,
+                    per_train_step={"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n},
+                    per_eval_step={"bilstm2_forward": 2 * n})
+    n = BSS["n_repeats"]  # a fused bidirectional intra and a one-direction inter scan per block
+    return dict(tag="bss-train", model=lambda: DPRNNTasNet(**BSS), seed=SEED + 26,
+                trainer=training.Trainer, inferencer=inference.Inferencer,
+                collate=loader.collate_bss, crops=Mixtures, config=BSS_TRAIN_CONFIG,
+                per_train_step={"bilstm2_forward_resid": n, "bilstm2_backward": n,
+                                "lstm_forward_resid": n, "lstm_backward": n},
+                per_eval_step={"bilstm2_forward": n, "lstm_forward": n})
+
+
+def phase_training(torch, dev, fam):
+    """Phases 6 and 9: the family's ``Trainer.run`` at full width and depth,
+    then the best checkpoint served, 10 steps on one batch, and one step card
+    vs CPU."""
     import shutil
 
-    from tss_dprnn_tpu_torch.data.loader import TrainLoader, collate_spe
-    from tss_dprnn_tpu_torch.inference import InferencerSpe
-    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
-    from tss_dprnn_tpu_torch.ops import bilstm2
-    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from tss_dprnn_tpu_torch.data.loader import TrainLoader
     from tss_dprnn_tpu_torch.utils.weights import init_weights_
 
-    ckpt_dir = os.path.join(OUT_DIR, "train_ckpt")
+    tag, seed, collate = fam["tag"], fam["seed"], fam["collate"]
+    ckpt_dir = os.path.join(OUT_DIR, f"{tag}_ckpt")
+    unused_dir = os.path.join(OUT_DIR, f"{tag}_ckpt_unused")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    start = init_weights_(DPRNNSpeTasNet(**FLAGSHIP),
-                          torch.Generator().manual_seed(SEED + 6)).state_dict()
+    start = init_weights_(fam["model"](), torch.Generator().manual_seed(seed)).state_dict()
 
     def trainer(device, directory):
-        model = DPRNNSpeTasNet(**FLAGSHIP)
+        model = fam["model"]()
         model.load_state_dict(start, strict=True)
-        return TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=directory),
-                          device=device)
+        return fam["trainer"](model, dict(fam["config"], new_checkpoints_path=directory),
+                              device=device)
 
     # -- the main path: 2 epochs of 4 train steps and 2 eval steps
     tr = trainer(dev, ckpt_dir)
-    train_loader = TrainLoader(Crops(SEED + 6, 20), TRAIN_BATCH, collate_spe, seed=SEED,
-                               prefetch=2)
-    eval_loader = TrainLoader(Crops(SEED + 7, 10), TRAIN_BATCH, collate_spe, shuffle=False,
-                              prefetch=0)
+    train_loader = TrainLoader(fam["crops"](seed, 20, TRAIN_SECONDS), TRAIN_BATCH, collate,
+                               seed=SEED, prefetch=2)
+    eval_loader = TrainLoader(fam["crops"](seed + 1, 10, TRAIN_SECONDS), TRAIN_BATCH, collate,
+                              shuffle=False, prefetch=0)
     epoch_losses = []
     for mode in ("train", "eval"):
         def recorded(loader, fn=getattr(tr, mode), mode=mode):
@@ -614,29 +933,23 @@ def phase_training(torch, dev):
             return loss
         setattr(tr, mode, recorded)
     torch.cuda.reset_peak_memory_stats()
-    bilstm2.reset_launch_counts()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.run(train_loader, eval_loader, n_epochs=2, early_stop=10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = all_launches()
     n_train, n_eval = 2 * len(train_loader), 2 * len(eval_loader)
-    launches = {"resid": bilstm2.bilstm2_forward_resid.launches,
-                "backward": bilstm2.bilstm2_backward.launches,
-                "inference": bilstm2.bilstm2_forward.launches,
-                "masked": (bilstm2.bilstm2_forward_masked.launches
-                           + bilstm2.bilstm2_forward_resid_masked.launches
-                           + bilstm2.bilstm2_backward_masked.launches)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[train] TrainerSpe.run: {n_train} train + {n_eval} eval steps of {TRAIN_BATCH} x "
-        f"{TRAIN_SECONDS} s in {wall:.2f} s (first run, includes warm-up); epoch losses "
-        f"{epoch_losses}; launches {launches}; peak memory {peak_gb:.2f} GB")
-    scans = 2 * FLAGSHIP["n_repeats"]  # an intra and an inter scan per block: 12
-    want = {"resid": scans * n_train, "backward": scans * n_train,
-            "inference": scans * n_eval, "masked": 0}
-    if launches != want:
-        raise AssertionError(f"expected 12 resid + 12 backward launches per train step and 12 "
-                             f"inference launches per eval step: {launches} != {want}")
+    log(f"[{tag}] {fam['trainer'].__name__}.run: {n_train} train + {n_eval} eval steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SECONDS} s in {wall:.2f} s (first run, includes warm-up); epoch "
+        f"losses {epoch_losses}; launches {launches}; peak memory {peak_gb:.2f} GB")
+    per_run = {k: n_train * fam["per_train_step"].get(k, 0) + n_eval * fam["per_eval_step"].get(k, 0)
+               for k in launches}
+    expect_launches(launches, per_run, 1, f"{tag} run of {n_train} train and {n_eval} eval steps "
+                    f"({fam['per_train_step']} per train step, {fam['per_eval_step']} per eval "
+                    "step)")
     if len(epoch_losses) != 4 or not all(math.isfinite(v) for _, v in epoch_losses):
         raise AssertionError(f"non-finite or missing epoch losses: {epoch_losses}")
     files = sorted(os.listdir(ckpt_dir))
@@ -645,19 +958,19 @@ def phase_training(torch, dev):
         raise AssertionError(f"expected 2_last and a *_best checkpoint, found {files}")
 
     # -- the best checkpoint serves a request
-    inf = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP),
-                        {"checkpoint_path": os.path.join(ckpt_dir, best[-1]),
-                         "test_savedir": os.path.join(OUT_DIR, "train_metrics")}, device=dev)
-    served = inf.run(Crops(SEED + 9, 1, seconds=4), batch_size=1, n_buckets=1)
-    log(f"[train] {best[-1]} served through InferencerSpe: {served}")
+    inf = fam["inferencer"](fam["model"](), {"checkpoint_path": os.path.join(ckpt_dir, best[-1]),
+                                             "test_savedir": os.path.join(OUT_DIR, f"{tag}_metrics")},
+                            device=dev)
+    served = inf.run(fam["crops"](seed + 3, 1, 4), batch_size=1, n_buckets=1)
+    log(f"[{tag}] {best[-1]} served through {fam['inferencer'].__name__}: {served}")
     if not all(math.isfinite(v) for v in served.values()):
         raise AssertionError(f"the trained checkpoint served non-finite metrics: {served}")
     del inf
 
     # -- 10 steps on one repeated batch; steps 3-10 are the steady state
-    batch = collate_spe(Crops(SEED + 10, TRAIN_BATCH).items)
+    batch = collate(fam["crops"](seed + 4, TRAIN_BATCH, TRAIN_SECONDS).items)
     losses = []
-    bilstm2.reset_launch_counts()
+    reset_launches()
     for step in range(10):
         if step == 2:
             torch.cuda.synchronize()
@@ -666,21 +979,19 @@ def phase_training(torch, dev):
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / 8 * 1e3
     losses = [float(v) for v in losses]
-    repeated = {"resid": bilstm2.bilstm2_forward_resid.launches,
-                "backward": bilstm2.bilstm2_backward.launches}
-    log(f"[train] 10 steps on one batch: losses {[round(v, 4) for v in losses]}; steady state "
-        f"{ms_step:.2f} ms/step at {TRAIN_BATCH} x {TRAIN_SECONDS} s; launches {repeated}")
+    repeated = all_launches()
+    log(f"[{tag}] 10 steps on one batch: losses {[round(v, 4) for v in losses]}; steady state "
+        f"{ms_step:.2f} ms/step at {TRAIN_BATCH} x {TRAIN_SECONDS} s")
     if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"10 steps on one batch did not lower the loss: {losses}")
-    if repeated != {"resid": 10 * scans, "backward": 10 * scans}:
-        raise AssertionError(f"expected 12 + 12 launches per step over 10 steps: {repeated}")
+    expect_launches(repeated, fam["per_train_step"], 10, f"{tag} 10 train steps")
     del tr
 
     # -- one step from the same weights, card vs CPU, at full width on 1 x 1 s
-    one = collate_spe(Crops(SEED + 11, 1, seconds=1).items)
+    one = collate(fam["crops"](seed + 5, 1, 1).items)
     results = {}
     for device in (dev, "cpu"):
-        t = trainer(device, os.path.join(OUT_DIR, "train_ckpt_unused"))
+        t = trainer(device, unused_dir)
         t.model.train()
         loss, _ = t._forward_loss(t._to_device(one), train=True)
         loss.backward()
@@ -691,7 +1002,7 @@ def phase_training(torch, dev):
     cat = [torch.cat([g[k].flatten() for k in sorted(g)]) for g in (g_gpu, g_cpu)]
     grad_snr = snr_db(*cat)
     worst = min((snr_db(g_gpu[k], g_cpu[k]), k) for k in g_cpu if g_cpu[k].abs().max() > 0)
-    log(f"[train] one step card vs CPU (1 x 1 s): loss {loss_gpu:.6f} vs {loss_cpu:.6f} "
+    log(f"[{tag}] one step card vs CPU (1 x 1 s): loss {loss_gpu:.6f} vs {loss_cpu:.6f} "
         f"(rel {rel:.2e}); concatenated gradients {grad_snr:.2f} dB SNR; lowest tensor "
         f"{worst[0]:.2f} dB ({worst[1]})")
     if not (rel <= 1e-4 and grad_snr >= 40.0):
@@ -699,11 +1010,76 @@ def phase_training(torch, dev):
     # the checkpoints hold Adam's moments (~30 MB each): checked, then removed
     # so that chiprun_out/ stays small
     shutil.rmtree(ckpt_dir)
-    shutil.rmtree(os.path.join(OUT_DIR, "train_ckpt_unused"), ignore_errors=True)
+    shutil.rmtree(unused_dir, ignore_errors=True)
     return {"launches": launches, "checkpoints": files, "n_train_steps": n_train, "n_eval_steps": n_eval,
             "run_wall_s": wall, "ms_per_step": ms_step, "peak_memory_gb": peak_gb,
             "losses_10_steps": losses, "card_vs_cpu_grad_snr_db": grad_snr,
             "card_vs_cpu_loss_rel": rel}
+
+
+def phase_bss_serving(torch, dev, cfg, tag, per_batch):
+    """Phase 8: the BSS ``Inferencer.run`` over 12 mixtures with the DPRNN-
+    TasNet of ``cfg``, ``per_batch`` kernel launches per batch and no other;
+    then one 2 s request card vs CPU, and bucketed with a longer one against
+    the request alone."""
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.data.loader import BucketedEvalLoader, collate_bss_eval
+    from tss_dprnn_tpu_torch.inference import Inferencer
+    from tss_dprnn_tpu_torch.models import DPRNNTasNet
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    ckpt = os.path.join(OUT_DIR, f"{tag}_random.pt")
+    torch.save(init_weights_(DPRNNTasNet(**cfg),
+                             torch.Generator().manual_seed(SEED + 8)).state_dict(), ckpt)
+    ds = Mixtures(SEED + 8, 12)
+    batch_size, n_buckets = 4, 2
+    n_batches = len(BucketedEvalLoader(ds, batch_size, collate_bss_eval, ds.lengths(),
+                                       n_buckets=n_buckets))
+    savedir = os.path.join(OUT_DIR, f"{tag}_metrics")
+    inf = Inferencer(DPRNNTasNet(**cfg), {"checkpoint_path": ckpt, "test_savedir": savedir,
+                                          "metrics": ["si_sdr"]}, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    audio_s = sum(ds.lengths()) / SAMPLE_RATE
+    log(f"[{tag}] {len(ds)} mixtures, {n_batches} batches, {audio_s:.2f} audio-s in {wall:.3f} s "
+        f"= {audio_s / wall:.2f} audio-s/s (first run, includes warm-up); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; final {final}")
+    expect_launches(launches, per_batch, n_batches, f"{tag} serving")
+    with open(os.path.join(savedir, "all_metrics.csv")) as f:
+        rows = f.read().strip().splitlines()[1:]
+    si = [float(r.split(",")[1]) for r in rows]
+    if len(si) != len(ds) or not all(math.isfinite(v) for v in si):
+        raise AssertionError(f"non-finite or missing si_sdr rows: {si}")
+    if not os.path.exists(os.path.join(savedir, "final_metrics.json")):
+        raise AssertionError("final_metrics.json was not written")
+
+    # one 2 s request: card vs CPU at its exact shape, and bucketed with a 3 s one
+    rng = np.random.default_rng(SEED + 9)
+    n, n_long = 2 * SAMPLE_RATE, 3 * SAMPLE_RATE
+    mixes = [0.1 * rng.standard_normal(m).astype(np.float32) for m in (n, n_long)]
+    batch = collate_bss_eval([(m, np.stack([m, m])) for m in mixes], n_long)
+    batch["lengths"] = np.array([n, n_long], np.int32)
+    inf_cpu = Inferencer(DPRNNTasNet(**cfg), {"checkpoint_path": ckpt}, device="cpu")
+    with torch.inference_mode():
+        est_gpu, est_cpu = (i.model(torch.from_numpy(mixes[0]).to(i.device)[None])[0].cpu()
+                            for i in (inf, inf_cpu))
+        bucketed = inf.forward(batch)[0, :, :n].cpu()
+    s_cpu = snr_db(est_gpu, est_cpu)
+    err_bucket = float((bucketed - est_gpu).abs().max())
+    log(f"[{tag}] card vs CPU: {s_cpu:.2f} dB SNR; bucketed vs alone: "
+        f"{snr_db(bucketed, est_gpu):.2f} dB SNR, max|err|={err_bucket:.3e}")
+    if not s_cpu >= 50.0:
+        raise AssertionError(f"{tag}: card vs CPU SNR {s_cpu:.2f} dB < 50 dB")
+    if not torch.allclose(bucketed, est_gpu, atol=2e-4, rtol=1e-4):
+        raise AssertionError(f"{tag}: bucketed row differs from the request alone: {err_bucket}")
+    return {"launches": launches, "n_batches": n_batches, "audio_s_per_s": audio_s / wall,
+            "final": final, "card_vs_cpu_snr_db": s_cpu, "bucketed_max_abs_err": err_bucket}
 
 
 def main() -> int:
@@ -727,7 +1103,7 @@ def main() -> int:
     log(f"[setup] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = ("bilstm2", "bilstm2_bwd")
+    libraries = ("bilstm2", "bilstm2_bwd", "lstm", "lstm_bwd")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "
@@ -763,13 +1139,41 @@ def main() -> int:
     log(f"[train-kernels] phase done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    train = phase_training(torch, dev)
+    train = phase_training(torch, dev, training_family("tss"))
     log(f"[train] phase done in {time.perf_counter() - t0:.1f} s; "
-        f"{train['ms_per_step']:.2f} ms/step on {smi}; total {time.perf_counter() - t_start:.1f} s")
-    entries[0]["launches_per_training_run"] = train["launches"]["inference"]  # eval steps
+        f"{train['ms_per_step']:.2f} ms/step on {smi}")
+    entries[0]["launches_per_training_run"] = train["launches"]["bilstm2_forward"]  # eval steps
     entries += train_kernel_entries(train_kernels, train["launches"])
+
+    t0 = time.perf_counter()
+    lstm_kernels = phase_lstm_kernels(torch, dev)
+    log(f"[lstm-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    n = BSS["n_repeats"]
+    bss_serve = phase_bss_serving(torch, dev, BSS, "bss", {"bilstm2_forward": n, "lstm_forward": n})
+    bss_serve_bi = phase_bss_serving(torch, dev, dict(BSS, bidirectional=True, n_repeats=2),
+                                     "bss-bidirectional",
+                                     {"bilstm2_forward": 2, "bilstm2_forward_masked": 2})
+    log(f"[bss] phase done in {time.perf_counter() - t0:.1f} s; "
+        f"{bss_serve['audio_s_per_s']:.2f} audio-s/s on {smi}")
+
+    t0 = time.perf_counter()
+    bss_train = phase_training(torch, dev, training_family("bss"))
+    log(f"[bss-train] phase done in {time.perf_counter() - t0:.1f} s; "
+        f"{bss_train['ms_per_step']:.2f} ms/step on {smi}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    entries += lstm_kernel_entries(lstm_kernels, {**bss_train["launches"],
+                                                  "lstm_forward": bss_serve["launches"]["lstm_forward"]})
+    for e in entries:  # the BSS paths launch the fused bidirectional kernels too
+        if e["name"] in bss_train["launches"]:
+            e["launches_bss"] = {"serving": bss_serve["launches"][e["name"]]
+                                 + bss_serve_bi["launches"][e["name"]],
+                                 "training": bss_train["launches"][e["name"]]}
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
-        json.dump({"card": smi, "kernels": entries, "training": train}, f, indent=1)
+        json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
+                   "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
+                   "bss_training": bss_train}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -36,71 +36,15 @@
 // holding values already rounded to the stream type, so products are exact and
 // only the accumulation order differs from the TPU kernel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
+
+using namespace scan_common;
 
 constexpr int kRows = 32;      // rows per block
 constexpr int kKChunk = 16;    // k-rows of W per shared-memory chunk
 constexpr int kMaxThreads = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// 16-byte global -> shared copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = packed;
-}
-
-// acc[gate][r][j] += A[row_r][k0 + kk] * W[k0 + kk][gate * H + u4 + j] for one chunk.
-// a_row0 points at A[rg][k0]; the thread's rows are rg, rg + 8, rg + 16, rg + 24.
-template <typename AT>
-__device__ __forceinline__ void mac_chunk(float (&acc)[4][4][4], const AT* a_row0, int a_stride,
-                                          const float* wc, int G, int H, int u4) {
-#pragma unroll
-  for (int kk = 0; kk < kKChunk; ++kk) {
-    float a[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = to_f(a_row0[8 * r * a_stride + kk]);
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float4 w = *reinterpret_cast<const float4*>(wc + kk * G + g * H + u4);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[g][r][0] = fmaf(a[r], w.x, acc[g][r][0]);
-        acc[g][r][1] = fmaf(a[r], w.y, acc[g][r][1]);
-        acc[g][r][2] = fmaf(a[r], w.z, acc[g][r][2]);
-        acc[g][r][3] = fmaf(a[r], w.w, acc[g][r][3]);
-      }
-    }
-  }
-}
 
 // The residual streams of the training forward, each [R, T, H] fp32.
 struct Resid {
@@ -237,9 +181,9 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       const float* wc = ws + (q & 1) * kKChunk * G;
       const int k0 = chunk * kKChunk;
       if (k0 < F)
-        mac_chunk(acc, xs + rg * xp + k0, xp, wc, G, H, u4);
+        mac_chunk<kKChunk>(acc, xs + rg * xp + k0, xp, wc, G, H, u4);
       else
-        mac_chunk(acc, hs + rg * hp + (k0 - F), hp, wc, G, H, u4);
+        mac_chunk<kKChunk>(acc, hs + rg * hp + (k0 - F), hp, wc, G, H, u4);
     }
     __syncthreads();  // every thread is done reading x_t and h
     if (s + 1 < t_end) {

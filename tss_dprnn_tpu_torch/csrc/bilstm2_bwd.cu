@@ -34,10 +34,11 @@
 // bit for bit on one card. The TPU kernel's time and row padding is not
 // carried over.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
+
+using namespace scan_common;
 
 // ---- tiled fp32 product: C = A1 @ B1 + A2 @ B2 (+ bias) -------------------
 constexpr int kBM = 128;  // block tile rows
@@ -57,9 +58,6 @@ struct GemmArgs {
   long long lda1, ldb1, lda2, ldb2, ldc, split_stride;
   int k1, k2, M, N, kps;  // kps: k-range of one split, a multiple of kBK
 };
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 
 // Grid (ceil(N / 128), ceil(M / 128), splits), 256 threads, each owning 8 x 8
 // outputs (rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j).
@@ -175,19 +173,6 @@ __global__ void colsum_kernel(const float* __restrict__ a, long long lda, int K,
 // ---- the sequential reverse scan ------------------------------------------
 constexpr int kRows = 32;    // rows per block
 constexpr int kWChunk = 32;  // k-rows of W_hh^T per shared-memory chunk
-
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ float comp(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
 
 // Grid (ceil(R / 32), 2): blockIdx.y is the direction. Threads: 2H (8 row
 // groups x H/4 unit groups); each thread owns rows rg + 8r (r < 4) and hidden

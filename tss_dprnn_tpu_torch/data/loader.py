@@ -1,5 +1,6 @@
 """Training and evaluation batches
-(counterpart of ``tss_dprnn_tpu/data/loader.py:24-205, 315-437``).
+(counterpart of ``tss_dprnn_tpu/data/loader.py:24-205, 315-437``; the BSS
+collates are :97 and :327).
 
 Training: :class:`TrainLoader` yields fixed-shape shuffled batches (shuffle
 keyed on (seed, epoch), ``drop_last``), optionally built ahead by one
@@ -9,8 +10,10 @@ to its bucket size and carries the true ``lengths``, and the masked model
 forward then equals per-utterance exact evaluation on the valid region.
 Batches are dicts of numpy arrays; one process.
 
-Dataset protocol: ``ds[i] -> (mix, target, reference, spk_idx)`` and, for
-the bucketed loader, ``ds.lengths()`` (mixture sample counts).
+Dataset protocol: ``ds[i] -> (mix, target, reference, spk_idx)`` for target
+speech separation and ``ds[i] -> (mix, sources [n_src, T])`` for blind source
+separation; for the bucketed loader also ``ds.lengths()`` (mixture sample
+counts).
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ def _pad_to(x: np.ndarray, T: int) -> np.ndarray:
     if x.shape[0] >= T:
         return x[:T]
     return np.pad(x, [(0, T - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+
+
+def collate_bss(items) -> Batch:
+    """Training batch for blind source separation: fixed-length mixtures
+    [B, T] and their sources [B, n_src, T] stacked."""
+    mix = np.stack([it[0] for it in items]).astype(np.float32)
+    src = np.stack([it[1] for it in items]).astype(np.float32)
+    return {"mix": mix, "sources": src}
 
 
 def collate_spe(items, resample_ref_to: Optional[int] = None) -> Batch:
@@ -158,6 +169,15 @@ def bucket_boundaries(lengths: Sequence[int], n_buckets: int = 8,
     if bounds and bounds[-1] < ls[-1]:
         bounds[-1] = int(-(-int(ls[-1]) // multiple) * multiple)
     return bounds
+
+
+def collate_bss_eval(items, bucket_T: int) -> Batch:
+    """Eval collate for blind source separation: mixture and every source
+    zero-padded to the bucket."""
+    mix = np.stack([_pad_to(np.asarray(it[0], np.float32), bucket_T) for it in items])
+    src = np.stack([np.stack([_pad_to(np.asarray(s, np.float32), bucket_T) for s in it[1]])
+                    for it in items])
+    return {"mix": mix, "sources": src}
 
 
 def make_collate_spe_eval(ref_bucket_multiple: int = 2000) -> Callable[[list, int], Batch]:

@@ -1,12 +1,16 @@
-"""Inferencer plumbing shared by the model families
+"""The BSS inferencer, and the plumbing the other model families share
 (counterpart of ``tss_dprnn_tpu/inference/inferencer.py``).
 
 Semantics kept from the JAX package: a checkpoint is mandatory (a bare
 state_dict or a trainer's ``{"model": ...}`` file); the model
 runs in eval mode; bucketed batches run the masked forward; results land in
 ``all_metrics.csv`` and ``final_metrics.json`` with the ``{metric,
-metric_imp}`` schema. Metrics are computed on the device. SI-SDR is the
-only metric of the port so far: a config asking for another one raises.
+metric_imp}`` schema. Metrics are computed on the device, as in the JAX
+package's ``device_metrics`` lane (inferencer.py:125-142, 291-300): for blind
+source separation the estimates are reordered to the best permutation by
+PIT SI-SDR first, and a row's metric is the mean over its sources. SI-SDR
+is the only metric of the port so far: a config asking for another one
+raises.
 """
 
 from __future__ import annotations
@@ -21,16 +25,21 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from tss_dprnn_tpu_torch.data.loader import BucketedEvalLoader, collate_bss_eval
 from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.ops.losses import masked_si_sdr, pit_sisdr_loss
 from tss_dprnn_tpu_torch.utils.checkpoint import load_model
 
 SUPPORTED_METRICS = ("si_sdr",)
 
 
 class Inferencer:
-    """Subclasses provide ``_make_loader(test_set, batch_size, n_buckets,
-    multiple)`` and ``_batch_rows(batch) -> [{"index", metric, "input_" +
-    metric, ...}]``."""
+    """Blind source separation (mode ``bss``): ``model(mix, lengths=...) ->
+    [B, n_src, T]``. Subclasses for the other families override
+    ``_make_loader(test_set, batch_size, n_buckets, multiple)``, ``forward``
+    and ``_batch_rows(batch) -> [{"index", metric, "input_" + metric, ...}]``."""
+
+    mode = "bss"
 
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None):
@@ -51,6 +60,27 @@ class Inferencer:
 
     def _to_device(self, batch: Dict[str, np.ndarray], keys) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(batch[k]).to(self.device) for k in keys}
+
+    def _make_loader(self, test_set, batch_size: int, n_buckets: int, multiple: int):
+        return BucketedEvalLoader(test_set, batch_size, collate_bss_eval, test_set.lengths(),
+                                  n_buckets=n_buckets, multiple=multiple)
+
+    def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
+        """Masked forward of one bucketed batch -> estimates [B, n_src, T] on
+        the device, in the model's own source order."""
+        t = self._to_device(batch, ("mix", "lengths"))
+        return self.model(t["mix"], lengths=t["lengths"])
+
+    def _batch_rows(self, batch: Dict[str, np.ndarray]) -> List[Dict[str, Any]]:
+        t = self._to_device(batch, ("mix", "sources", "lengths"))
+        lens = t["lengths"]
+        _, est = pit_sisdr_loss(self.forward(batch), t["sources"], return_est=True, lengths=lens)
+        mix_n = t["mix"][:, None, :].expand_as(est)
+        si_sdr = masked_si_sdr(est, t["sources"], lens).mean(dim=1).cpu().numpy()
+        input_si_sdr = masked_si_sdr(mix_n, t["sources"], lens).mean(dim=1).cpu().numpy()
+        return [{"index": int(i), "si_sdr": float(si_sdr[b]),
+                 "input_si_sdr": float(input_si_sdr[b])}
+                for b, i in enumerate(batch["indices"])]
 
     def run(self, test_set, batch_size: int = 8, n_buckets: int = 8,
             bucket_multiple: int = 2000) -> Dict[str, Optional[float]]:

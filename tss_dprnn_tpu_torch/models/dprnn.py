@@ -1,10 +1,12 @@
 """DPRNN core, encoder and decoder
-(counterpart of ``tss_dprnn_tpu/models/dprnn.py:47-386``).
+and DPRNN-TasNet (counterpart of ``tss_dprnn_tpu/models/dprnn.py:47-449``).
 
 Channels-last inside the core ([B, L, N] and [B, S, K, N]); segmentation
 and overlap-add from ``ops/chunking.py``; every bidirectional LSTM goes
 through the fused kernel (``ops/bilstm2.py``), unmasked for the intra-chunk
-scan and masked by chunk counts for the inter-chunk scan. Module and
+scan and masked by chunk counts for the inter-chunk scan; with
+``bidirectional=False`` the inter-chunk scan is one forward direction
+through the stacked-direction kernel (``ops/lstm.py``). Module and
 parameter names follow the reference's torch model, which keeps the
 dual-path stack directly on its separation module; :class:`DPRNNCore`
 therefore carries those names and the separation modules subclass it.
@@ -21,21 +23,26 @@ from torch import nn
 from tss_dprnn_tpu_torch.models.layers import Dense, GlobalNorm, PReLU, RNNCore, SplitDense
 from tss_dprnn_tpu_torch.ops import chunking
 from tss_dprnn_tpu_torch.ops.conv import conv1d, conv_transpose1d
+from tss_dprnn_tpu_torch.ops.masking import length_mask
 
 
 class DPRNNBlock(nn.Module):
-    """One dual-path block: intra-chunk BiLSTM + inter-chunk BiLSTM, each
+    """One dual-path block: intra-chunk BiLSTM + inter-chunk (Bi)LSTM, each
     followed by Linear + global norm + residual. [B, S, K, N] -> same.
-    ``chunk_lengths`` ([B] true chunk counts) masks the padded-S region."""
+    ``chunk_lengths`` ([B] true chunk counts) masks the padded-S region.
+    With ``bidirectional=False`` the inter-chunk scan is one forward
+    direction feeding a Dense(H -> N); it does not use the chunk counts, and
+    the masked norm drops what it computes on padded chunks."""
 
-    def __init__(self, feature_size: int, hidden_size: int, norm_type: str = "gLN"):
+    def __init__(self, feature_size: int, hidden_size: int, norm_type: str = "gLN",
+                 bidirectional: bool = True, rnn_type: str = "LSTM"):
         super().__init__()
         N, H = feature_size, hidden_size
-        self.intra_rnn = RNNCore(N, H)
+        self.intra_rnn = RNNCore(N, H, True, rnn_type)
         self.intra_linear = SplitDense(2 * H, N)
         self.intra_norm = GlobalNorm(N, norm_type)
-        self.inter_rnn = RNNCore(N, H)
-        self.inter_linear = SplitDense(2 * H, N)
+        self.inter_rnn = RNNCore(N, H, bidirectional, rnn_type)
+        self.inter_linear = SplitDense(2 * H, N) if bidirectional else Dense(H, N)
         self.inter_norm = GlobalNorm(N, norm_type)
 
     def forward(self, x: torch.Tensor, chunk_lengths: Optional[torch.Tensor] = None
@@ -54,8 +61,8 @@ class DPRNNBlock(nn.Module):
         x = x + self.intra_norm(h.reshape(B, S, K, N), chunk_mask)
 
         # inter-chunk pass: sequences of length S over B*K rows
-        h = x.transpose(1, 2).reshape(B * K, S, N)
-        h = self.inter_linear(*self.inter_rnn(h, inter_lengths))
+        h = self.inter_rnn(x.transpose(1, 2).reshape(B * K, S, N), inter_lengths)
+        h = self.inter_linear(*h) if self.inter_rnn.bidirectional else self.inter_linear(h)
         h = h.reshape(B, K, S, N).transpose(1, 2)
         return x + self.inter_norm(h, chunk_mask)
 
@@ -66,7 +73,8 @@ class DPRNNCore(nn.Module):
 
     def __init__(self, input_size: int, feature_size: int, hidden_size: int,
                  chunk_length: int, hop_length: Optional[int], n_repeats: int,
-                 norm_type: str = "gLN", activation_type: str = "sigmoid"):
+                 norm_type: str = "gLN", activation_type: str = "sigmoid",
+                 bidirectional: bool = True, rnn_type: str = "LSTM"):
         super().__init__()
         if activation_type not in ("sigmoid", "relu"):
             raise ValueError(f"activation_type must be sigmoid/relu, got {activation_type}")
@@ -76,7 +84,8 @@ class DPRNNCore(nn.Module):
         self.activation_type = activation_type
         Fs = feature_size
         self.dprnn_blocks = nn.ModuleList(
-            DPRNNBlock(Fs, hidden_size, norm_type) for _ in range(n_repeats))
+            DPRNNBlock(Fs, hidden_size, norm_type, bidirectional, rnn_type)
+            for _ in range(n_repeats))
         self.prelu = PReLU()
         self.conv2d = Dense(Fs, 2 * Fs, conv_dims=2)
         self.out = nn.Sequential(Dense(Fs, Fs, conv_dims=1))
@@ -143,3 +152,62 @@ def _fit_length(wav: torch.Tensor, T: int) -> torch.Tensor:
     if Tp < T:
         return F.pad(wav, (0, T - Tp))
     return wav[:, :T]
+
+
+class DPRNN(DPRNNCore):
+    """Dual-path separation module: bottleneck (norm + 1x1 conv) and the
+    core. ``forward(features [B, L, N], lengths=None) -> masks [B, 2, L, N]``;
+    ``lengths`` are feature-frame counts."""
+
+    def __init__(self, input_size: int, feature_size: int = 128, hidden_size: int = 128,
+                 chunk_length: int = 200, hop_length: Optional[int] = None, n_repeats: int = 6,
+                 bidirectional: bool = True, rnn_type: str = "LSTM", norm_type: str = "gLN",
+                 activation_type: str = "sigmoid"):
+        super().__init__(input_size, feature_size, hidden_size, chunk_length, hop_length,
+                         n_repeats, norm_type, activation_type, bidirectional, rnn_type)
+        self.bottleneck = nn.Sequential(GlobalNorm(input_size, norm_type),
+                                        Dense(input_size, feature_size, conv_dims=1))
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        time_mask = chunk_lengths = None
+        if lengths is not None:
+            time_mask = length_mask(lengths, x.shape[1])[:, :, None]
+            chunk_lengths = (lengths + self.chunk_length) // self.hop_length + 1
+        norm, dense = self.bottleneck
+        return super().forward(dense(norm(x, time_mask)), time_mask, chunk_lengths)
+
+
+class DPRNNTasNet(nn.Module):
+    """DPRNN-TasNet blind source separation.
+
+    ``forward(mix [B, T], lengths=None) -> [B, 2, T]`` separated waveforms;
+    ``lengths`` are the mixtures' true sample counts."""
+
+    def __init__(self, input_size: int, feature_size: int = 128, hidden_size: int = 128,
+                 chunk_length: int = 200, kernel_size: int = 2,
+                 hop_length: Optional[int] = None, n_repeats: int = 6,
+                 bidirectional: bool = True, rnn_type: str = "LSTM", norm_type: str = "ln",
+                 activation_type: str = "sigmoid", dropout: float = 0.0,
+                 stride: Optional[int] = None):
+        super().__init__()
+        # dropout is accepted for config parity: a one-layer LSTM ignores it
+        self.kernel_size = kernel_size
+        self.stride = stride if stride is not None else kernel_size // 2
+        self.encoder = Encoder(kernel_size, input_size, self.stride)
+        self.separation = DPRNN(input_size, feature_size, hidden_size, chunk_length, hop_length,
+                                n_repeats, bidirectional, rnn_type, norm_type, activation_type)
+        self.decoder = Decoder(input_size, kernel_size, self.stride)
+
+    def feat_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
+        return (lengths - self.kernel_size) // self.stride + 1
+
+    def forward(self, mix: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, T = mix.shape
+        feats = self.encoder(mix)  # [B, L, N]
+        f_lengths = None if lengths is None else self.feat_lengths(lengths)
+        out = self.separation(feats, f_lengths) * feats[:, None]  # [B, 2, L, N]
+        L, N = out.shape[2:]
+        if f_lengths is not None:
+            # padded frames would smear into the last valid sample
+            out = out * length_mask(f_lengths, L, out.dtype)[:, None, :, None]
+        return _fit_length(self.decoder(out.reshape(B * 2, L, N)), T).reshape(B, 2, T)

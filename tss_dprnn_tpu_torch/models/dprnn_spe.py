@@ -109,11 +109,12 @@ class DPRNNSpe(DPRNNCore):
                  chunk_length: int = 200, hop_length: Optional[int] = None, n_repeats: int = 6,
                  norm_type: str = "gLN", activation_type: str = "sigmoid", O: int = 128,
                  P: int = 256, embeddings_size: int = 128, num_spks: int = 251,
-                 kernel_size: int = 2, fusion_type: str = "att"):
+                 kernel_size: int = 2, fusion_type: str = "att", bidirectional: bool = True,
+                 rnn_type: str = "LSTM"):
         if fusion_type != "att":
             raise NotImplementedError(f"fusion_type {fusion_type!r}: the port has 'att' only")
         super().__init__(input_size, feature_size, hidden_size, chunk_length, hop_length,
-                         n_repeats, norm_type, activation_type)
+                         n_repeats, norm_type, activation_type, bidirectional, rnn_type)
         N, E = input_size, embeddings_size
         self.kernel_size = kernel_size
         self.bottleneck = nn.Sequential(GlobalNorm(N, norm_type),
@@ -167,10 +168,9 @@ class DPRNNSpeTasNet(nn.Module):
                  bidirectional: bool = True, norm_type: str = "gLN",
                  activation_type: str = "sigmoid", dropout: float = 0.0,
                  stride: Optional[int] = None, O: int = 128, P: int = 256,
-                 embeddings_size: int = 128, num_spks: int = 251, fusion_type: str = "att"):
+                 embeddings_size: int = 128, num_spks: int = 251, fusion_type: str = "att",
+                 rnn_type: str = "LSTM"):
         super().__init__()
-        if not bidirectional:
-            raise NotImplementedError("the port has the bidirectional LSTM core only")
         # dropout is accepted for config parity: a one-layer LSTM ignores it
         self.kernel_size = kernel_size
         self.stride = stride if stride is not None else kernel_size // 2
@@ -178,7 +178,7 @@ class DPRNNSpeTasNet(nn.Module):
         self.separation = DPRNNSpe(
             input_size, feature_size, hidden_size, chunk_length, hop_length, n_repeats,
             norm_type, activation_type, O, P, embeddings_size, num_spks, kernel_size,
-            fusion_type)
+            fusion_type, bidirectional, rnn_type)
         self.decoder = Decoder(input_size, kernel_size, self.stride)
 
     def feat_lengths(self, lengths: torch.Tensor) -> torch.Tensor:

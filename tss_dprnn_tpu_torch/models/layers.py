@@ -10,7 +10,7 @@ come from a state_dict.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -56,13 +56,15 @@ class SplitDense(Dense):
 
 
 class _LSTMParams(nn.Module):
-    """The parameter set of a one-layer bidirectional torch ``nn.LSTM``,
-    under its names; the port never calls cuDNN's LSTM."""
+    """The parameter set of a one-layer torch ``nn.LSTM``, under its names
+    (the ``_reverse`` ones only when bidirectional); the port never calls
+    cuDNN's LSTM."""
 
-    def __init__(self, input_size: int, hidden_size: int):
+    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True):
         super().__init__()
         G = 4 * hidden_size
-        for sfx in ("", "_reverse"):
+        self.suffixes = ("", "_reverse") if bidirectional else ("",)
+        for sfx in self.suffixes:
             self.register_parameter(f"weight_ih_l0{sfx}", nn.Parameter(torch.empty(G, input_size)))
             self.register_parameter(f"weight_hh_l0{sfx}", nn.Parameter(torch.empty(G, hidden_size)))
             self.register_parameter(f"bias_ih_l0{sfx}", nn.Parameter(torch.empty(G)))
@@ -75,41 +77,53 @@ class _LSTMParams(nn.Module):
         return rnn_ops.LSTMWeights(p("weight_ih").T, p("weight_hh").T,
                                    p("bias_ih") + p("bias_hh"))
 
+    def stacked(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return rnn_ops.stack_directions(*(self.direction(sfx) for sfx in self.suffixes))
+
 
 class RNNCore(nn.Module):
-    """Bidirectional LSTM over [B, T, F] -> the pair (out_f, out_b), each
-    [B, T, H] — the reference SingleRNN (``rnn`` holds nn.LSTM's tensors)."""
+    """LSTM over [B, T, F], the reference SingleRNN (``rnn`` holds
+    nn.LSTM's tensors). Bidirectional: the pair (out_f, out_b), each
+    [B, T, H], unconcatenated for a :class:`SplitDense`; with ``lengths`` the
+    backward direction reads each row reversed within its length.
+    Unidirectional: [B, T, H]; ``lengths`` are not used (steps past a row's
+    length are unspecified and masked by the consumer). Only ``rnn_type``
+    'LSTM' is ported."""
 
-    def __init__(self, input_size: int, hidden_size: int):
+    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True,
+                 rnn_type: str = "LSTM"):
         super().__init__()
-        self.rnn = _LSTMParams(input_size, hidden_size)
+        if rnn_type != "LSTM":
+            raise NotImplementedError(f"rnn_type {rnn_type!r}: the port has 'LSTM' only")
+        self.bidirectional = bidirectional
+        self.rnn = _LSTMParams(input_size, hidden_size, bidirectional)
         self._stacked = None  # (the parameters it was built from, stacked weights)
 
     def stacked_weights(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The pair in the kernel's layout (``rnn_ops.stack_directions``).
-        When autograd records, it is stacked on every call, so the gradient
-        reaches the parameters. Otherwise it is built once per set of
+        """The directions in the kernels' layout (``rnn_ops.stack_directions``).
+        When autograd records, they are stacked on every call, so the gradient
+        reaches the parameters. Otherwise they are built once per set of
         parameter values: ``load_state_dict`` and an optimizer step write the
         parameters in place (their version moves) and ``.to()`` gives them
         new storage, and either rebuilds it."""
         params = tuple(self.rnn.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            return rnn_ops.stack_directions(self.rnn.direction(""),
-                                            self.rnn.direction("_reverse"))
+            return self.rnn.stacked()
         if self._stacked is None or any(
                 p.data_ptr() != v.data_ptr() or p._version != n
                 for p, (v, n) in zip(params, self._stacked[0])):
             with torch.no_grad():
-                stacked = rnn_ops.stack_directions(self.rnn.direction(""),
-                                                   self.rnn.direction("_reverse"))
+                stacked = self.rnn.stacked()
             # the detached views keep the old storages alive, so no new
             # parameter can reuse their addresses
             self._stacked = (tuple((p.detach(), p._version) for p in params), stacked)
         return self._stacked[1]
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return rnn_ops.lstm_pair(x, self.stacked_weights(), lengths)
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        if self.bidirectional:
+            return rnn_ops.lstm_pair(x, self.stacked_weights(), lengths)
+        return rnn_ops.lstm_stack(x[None], self.stacked_weights())[0]
 
 
 class GlobalNorm(nn.Module):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with nvcc for
 ``sm_90a`` into a shared library loaded with ctypes. The build happens at
 first use, from the sources in the checkout, into ``tss_dprnn_tpu_torch/_build/``
-(listed in .gitignore); the library's file name carries a hash of the source,
-so an edited kernel is rebuilt. Nothing here runs at import time.
+(listed in .gitignore); the library's file name carries a hash of the source
+and of the headers beside it (``csrc/*.cuh``), so an edited kernel is rebuilt.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def load_library(name: str, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and load it. Raises when nvcc is
     missing or the build fails; there is no fallback."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    sources = [src, *sorted(CSRC_DIR.glob("*.cuh"))]  # any source may include any header
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in sources)).hexdigest()[:16]
     so = Path(build_dir) / f"lib{name}-{digest}.so"
     if so in _loaded:
         return _loaded[so]

@@ -277,6 +277,19 @@ def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.T
     return None if out is not None else partial.sum(0)
 
 
+def _colsum(lib, stream, a: torch.Tensor, a_off: int, lda: int, K: int, N: int) -> torch.Tensor:
+    """One launch of the column-sum kernel: the sums over the K rows of
+    a[K, N] (``a_off`` in elements, row pitch ``lda``), as fixed partials
+    summed here."""
+    splits = min(-(-K // 256), 256)
+    kps = -(-K // splits)
+    splits = -(-K // kps)
+    partial = torch.empty(splits, N, dtype=torch.float32, device=a.device)
+    rc = lib.bilstm2_bwd_colsum(_ptr(a, a_off), lda, K, N, partial.data_ptr(), splits, kps, stream)
+    _raise_on(rc, "bilstm2 backward column-sum kernel", lib, "bilstm2_bwd_error_string")
+    return partial.sum(0)
+
+
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
                      w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
                      lens: Optional[torch.Tensor]):
@@ -317,16 +330,10 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
         dw_ih = _gemm(lib, stream, True, [(x, 0, F, gates, 0, 2 * G, M)], F, 2 * G)
         dw_hh = [_gemm(lib, stream, True, [(hp, 0, H, gates, d * G, 2 * G, M)], H, G)
                  for d, hp in ((0, hp0), (1, hp1))]
-        splits = min(-(-M // 256), 256)
-        kps = -(-M // splits)
-        splits = -(-M // kps)
-        partial = torch.empty(splits, 2 * G, dtype=torch.float32, device=x.device)
-        rc = lib.bilstm2_bwd_colsum(gates.data_ptr(), 2 * G, M, 2 * G, partial.data_ptr(),
-                                    splits, kps, stream)
-        _raise_on(rc, "bilstm2 backward column-sum kernel", lib, "bilstm2_bwd_error_string")
+        db = _colsum(lib, stream, gates, 0, 2 * G, M, 2 * G)
     entry.launches += 1
-    return (dx, dw_ih.reshape(F, 2, G).transpose(0, 1).contiguous(),
-            partial.sum(0).reshape(2, G), torch.stack(dw_hh))
+    return (dx, dw_ih.reshape(F, 2, G).transpose(0, 1).contiguous(), db.reshape(2, G),
+            torch.stack(dw_hh))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,12 +1,20 @@
-"""Bidirectional LSTM op layer
-(counterpart of ``tss_dprnn_tpu/ops/rnn.py:112-122, 374-481, 745-764``).
+"""LSTM op layer
+(counterpart of ``tss_dprnn_tpu/ops/rnn.py:112-122, 140-303, 374-481,
+693-764``).
 
-Every DPRNN scan is a bidirectional LSTM feeding a Dense(2H -> N), so the
-layer returns the per-direction pair and leaves the concatenation out.
-Without gradients the pair comes from the inference kernel; with them, from
+A bidirectional DPRNN scan feeds a Dense(2H -> N), so :func:`lstm_pair`
+returns the per-direction pair and leaves the concatenation out. Without
+gradients the pair comes from the fused inference kernel; with them, from
 :class:`BiLSTM2` / :class:`BiLSTM2Masked`, whose forward runs the residual
 mode and whose backward runs the backward kernel (the counterparts of
 ``_recurrence3`` and ``_recurrence3_masked``).
+
+A unidirectional scan (the inter-chunk scan of ``bidirectional: false``)
+goes through :func:`lstm_stack`, the counterpart of ``_recurrence`` at
+``lstm_save_every == 1``: the stacked-direction kernel of ``ops/lstm.py``
+without gradients, :class:`LSTMStack` over its residual mode and backward
+kernel with them. :func:`lstm` is the JAX package's functional entry over
+both.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     bilstm2_forward_resid,
     bilstm2_forward_resid_masked,
 )
+from tss_dprnn_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_resid
 
 
 class LSTMWeights(NamedTuple):
@@ -38,12 +47,16 @@ class LSTMWeights(NamedTuple):
     b: torch.Tensor
 
 
-def stack_directions(fwd: LSTMWeights, bwd: LSTMWeights
+def stack_directions(*directions: LSTMWeights
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The pair in the kernel's layout: (w_ih2 [2, F, 4H], b2 [2, 4H],
-    w_hh2 [2, H, 4H]), contiguous."""
-    return (torch.stack([fwd.w_ih, bwd.w_ih]), torch.stack([fwd.b, bwd.b]),
-            torch.stack([fwd.w_hh, bwd.w_hh]))
+    """The D directions in the kernels' layout: (w_ih [D, F, 4H], b [D, 4H],
+    w_hh [D, H, 4H]), contiguous."""
+    return (torch.stack([d.w_ih for d in directions]), torch.stack([d.b for d in directions]),
+            torch.stack([d.w_hh for d in directions]))
+
+
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class BiLSTM2(torch.autograd.Function):
@@ -89,10 +102,50 @@ def lstm_pair(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.
     and masked downstream. When autograd records (grad enabled and an input
     requires grad) the training kernels run; otherwise the inference one."""
     w_ih2, b2, w_hh2 = stacked
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_ih2, b2, w_hh2)):
+    if _records_grad(x, w_ih2, b2, w_hh2):
         if lengths is None:
             return BiLSTM2.apply(x, w_ih2, b2, w_hh2)
         return BiLSTM2Masked.apply(x, lengths, w_ih2, b2, w_hh2)
     if lengths is None:
         return bilstm2_forward(x, w_ih2, b2, w_hh2)
     return bilstm2_forward_masked(x, lengths, w_ih2, b2, w_hh2)
+
+
+class LSTMStack(torch.autograd.Function):
+    """(x [D, R, T, F], w_ih, b, w_hh) -> h [D, R, T, H], differentiable in
+    all four; on a CPU tensor both passes run the kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, b, w_hh):
+        out, resid = lstm_forward_resid(x, w_ih, b, w_hh)
+        ctx.save_for_backward(x, w_ih, b, w_hh, *resid)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_ih, b, w_hh, *resid = ctx.saved_tensors
+        return lstm_backward(x, tuple(resid), g, w_ih, b, w_hh)
+
+
+def lstm_stack(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+               ) -> torch.Tensor:
+    """LSTM over D stacked directions, x [D, R, T, F] -> [D, R, T, H], each
+    direction on its own input in forward time, zero initial state.
+    ``stacked`` is :func:`stack_directions` of the D directions. When
+    autograd records the training kernels run; otherwise the inference one."""
+    if _records_grad(x, *stacked):
+        return LSTMStack.apply(x, *stacked)
+    return lstm_forward(x, *stacked)
+
+
+def lstm(x: torch.Tensor, fwd: LSTMWeights, bwd: Optional[LSTMWeights] = None,
+         lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Bi)LSTM over [B, T, F] -> [B, T, H * ndir], zero initial state.
+
+    With ``bwd`` this is :func:`lstm_pair`, concatenated. Without, one
+    forward direction: ``lengths`` are not used, and outputs at padded steps
+    are unspecified by construction (the consumer masks them, as it masks the
+    bidirectional scan's forward direction)."""
+    if bwd is not None:
+        return torch.cat(lstm_pair(x, stack_directions(fwd, bwd), lengths), dim=-1)
+    return lstm_stack(x[None], stack_directions(fwd))[0]

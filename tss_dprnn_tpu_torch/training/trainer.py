@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.ops import losses
 from tss_dprnn_tpu_torch.training.schedulers import ExponentialDecay, ReduceLROnPlateau
 from tss_dprnn_tpu_torch.training.train_state import Optimizer
 from tss_dprnn_tpu_torch.utils.checkpoint import CheckpointManager, load_model
@@ -52,8 +53,12 @@ def _unported(config: Dict[str, Any]) -> list:
 
 
 class Trainer:
-    """Subclasses give ``_forward_loss(batch, train) -> (loss, aux)``, with
-    ``batch`` a dict of tensors on the device."""
+    """The BSS trainer (mode ``bss``): PIT SI-SDR of ``model(mix)`` against
+    the batch's ``sources`` on fixed crops. Subclasses override
+    ``_forward_loss(batch, train) -> (loss, aux)``, with ``batch`` a dict of
+    tensors on the device."""
+
+    mode = "bss"
 
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None,
@@ -113,7 +118,7 @@ class Trainer:
     # ---------------------------------------------------------------- steps
 
     def _forward_loss(self, batch: Dict[str, torch.Tensor], train: bool):
-        raise NotImplementedError("BSS training (DPRNN-TasNet) is not ported yet")
+        return losses.pit_sisdr_loss(self.model(batch["mix"]), batch["sources"]), {}
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if "lengths" in batch:

@@ -1,11 +1,12 @@
 """JAX model variables -> the port's (reference-format) torch state_dict.
 
-The port's own copy of the DPRNN and Spe branches of the JAX package's
-exporter (``tss_dprnn_tpu/utils/torch_export.py:131-204``). ``variables``
-are the flax variables as nested dicts of numpy arrays (``params`` plus
-``batch_stats``); the result loads into
+The port's own copy of the DPRNN (BSS) and Spe branches of the JAX package's
+exporter (``tss_dprnn_tpu/utils/torch_export.py:31-38, 131-204``).
+``variables`` are the flax variables as nested dicts of numpy arrays
+(``params`` plus ``batch_stats``); the result loads into
+:class:`tss_dprnn_tpu_torch.models.dprnn.DPRNNTasNet` or
 :class:`tss_dprnn_tpu_torch.models.dprnn_spe.DPRNNSpeTasNet` with
-``strict=True``. Frozen tensors the reference carries (the 'att' average
+``strict=True``, in either ``bidirectional`` setting. Frozen tensors the reference carries (the 'att' average
 conv, BatchNorm's ``num_batches_tracked``) are synthesised: they are
 functions of the config, not learned state.
 """
@@ -32,6 +33,8 @@ def _copy(x) -> np.ndarray:
 
 def _rnn_entries(out, prefix, tree):
     for tag, sfx in (("f", ""), ("b", "_reverse")):
+        if f"w_ih_{tag}" not in tree:  # a unidirectional RNN has no *_b parameters
+            continue
         out[f"{prefix}.weight_ih_l0{sfx}"] = _t(tree[f"w_ih_{tag}"])
         out[f"{prefix}.weight_hh_l0{sfx}"] = _t(tree[f"w_hh_{tag}"])
         out[f"{prefix}.bias_ih_l0{sfx}"] = _copy(tree[f"b_ih_{tag}"])
