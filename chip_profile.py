@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time and profile the port's serving or training path on one NVIDIA card.
 
-    python3 chip_profile.py [--batch 8] [--seconds 10] [--iters 5]
-    python3 chip_profile.py --train [--iters 5]
+    python3 chip_profile.py [--bss] [--batch 8] [--seconds 10] [--iters 5]
+    python3 chip_profile.py --train [--bss] [--iters 5]
 
 One bucketed batch of ``--batch`` ragged requests (one of ``--seconds``,
 the others drawn from the seed between half that and the full length)
@@ -25,6 +25,13 @@ bilstm2 autograd Function's forward and backward (their kernels, and apart
 the torch ops of their wrappers), the optimizer (gradient clipping and
 Adam) and the rest (glue), with the device's busy share.
 Writes ``summary_train.json`` and ``trace_train.json.gz``.
+
+``--bss`` profiles the blind-source-separation family instead: DPRNN-TasNet
+at the width and depth of configs/train_bss.yaml with ``bidirectional:
+false`` (``chip_smoke.BSS``), through the BSS ``Inferencer.forward`` or
+``Trainer.train_step``; the unidirectional inter-chunk scans then show under
+the stacked-direction kernels (``lstm_kernel`` and the ``LSTMStack``
+Function). Its files carry the suffix ``_bss``.
 """
 
 from __future__ import annotations
@@ -47,9 +54,10 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train", action="store_true", help="profile a training step")
+    ap.add_argument("--bss", action="store_true", help="the DPRNN-TasNet (BSS) family")
     args = ap.parse_args()
     if args.train:
-        return profile_train(args.iters)
+        return profile_train(args.iters, "bss" if args.bss else "tss")
 
     import numpy as np
     import torch
@@ -58,32 +66,38 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import FLAGSHIP, SAMPLE_RATE, SEED
-    from tss_dprnn_tpu_torch.data.loader import make_collate_spe_eval
-    from tss_dprnn_tpu_torch.inference import InferencerSpe
-    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
-    from tss_dprnn_tpu_torch.ops import bilstm2
+    from chip_smoke import BSS, FLAGSHIP, SAMPLE_RATE, SEED, all_launches, reset_launches
+    from tss_dprnn_tpu_torch.data.loader import collate_bss_eval, make_collate_spe_eval
+    from tss_dprnn_tpu_torch.inference import Inferencer, InferencerSpe
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
     from tss_dprnn_tpu_torch.utils.weights import init_weights_
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0]
     os.makedirs(OUT_DIR, exist_ok=True)
-    ckpt = os.path.join(OUT_DIR, "flagship_random.pt")
-    torch.save(init_weights_(DPRNNSpeTasNet(**FLAGSHIP),
-                             torch.Generator().manual_seed(SEED)).state_dict(), ckpt)
-    inf = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP), {"checkpoint_path": ckpt})
+    suffix = "_bss" if args.bss else ""
+    make_model = (lambda: DPRNNTasNet(**BSS)) if args.bss else (lambda: DPRNNSpeTasNet(**FLAGSHIP))
+    ckpt = os.path.join(OUT_DIR, f"random{suffix}.pt")
+    torch.save(init_weights_(make_model(), torch.Generator().manual_seed(SEED)).state_dict(), ckpt)
+    inf = (Inferencer if args.bss else InferencerSpe)(make_model(), {"checkpoint_path": ckpt})
 
     rng = np.random.default_rng(SEED)
     T = int(args.seconds * SAMPLE_RATE)
     lengths = [T] + [int(n) for n in rng.integers(T // 2, T + 1, args.batch - 1)]
-    items = [(0.1 * rng.standard_normal(n).astype(np.float32),) * 2
-             + (0.1 * rng.standard_normal(int(rng.uniform(2, 5) * SAMPLE_RATE))
-                .astype(np.float32), 0) for n in lengths]
-    batch = make_collate_spe_eval()(items, T)
+    if args.bss:
+        items = [(0.1 * rng.standard_normal(n).astype(np.float32),
+                  0.1 * rng.standard_normal((2, n)).astype(np.float32)) for n in lengths]
+        batch = collate_bss_eval(items, T)
+    else:
+        items = [(0.1 * rng.standard_normal(n).astype(np.float32),) * 2
+                 + (0.1 * rng.standard_normal(int(rng.uniform(2, 5) * SAMPLE_RATE))
+                    .astype(np.float32), 0) for n in lengths]
+        batch = make_collate_spe_eval()(items, T)
     batch["lengths"] = np.asarray(lengths, np.int32)
     audio_s = sum(lengths) / SAMPLE_RATE
 
+    reset_launches()
     with torch.inference_mode():
         inf.forward(batch)  # warm-up
         torch.cuda.synchronize()
@@ -99,7 +113,7 @@ def main() -> int:
             inf.forward(batch)
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace.json"))
+    prof.export_chrome_trace(os.path.join(OUT_DIR, f"trace{suffix}.json"))
 
     by_kernel = defaultdict(float)
     for e in prof.events():
@@ -107,6 +121,8 @@ def main() -> int:
             by_kernel[e.name] += e.time_range.end - e.time_range.start
     device_us = sum(by_kernel.values())
     lstm_us = sum(v for k, v in by_kernel.items() if "bilstm2_kernel" in k)
+    stack_us = sum(v for k, v in by_kernel.items() if "lstm_kernel" in k)  # ops/lstm.py's
+    launches = {k: v // (args.iters + 2) for k, v in all_launches().items() if v}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     summary = {
         "card": smi, "batch": args.batch, "bucket_s": args.seconds, "audio_s": audio_s,
@@ -116,68 +132,76 @@ def main() -> int:
         "device_busy_share": device_us / window_us if device_us else "not measured",
         "bilstm2_ms": lstm_us / 1e3 if device_us else "not measured",
         "bilstm2_share_of_device": lstm_us / device_us if device_us else "not measured",
-        "launches_per_forward": 12, "kernels_top": [[k[:120], v / 1e3] for k, v in top],
+        "lstm_ms": stack_us / 1e3 if device_us else "not measured",
+        "lstm_share_of_device": stack_us / device_us if device_us else "not measured",
+        "launches_per_forward": launches, "kernels_top": [[k[:120], v / 1e3] for k, v in top],
     }
-    with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"summary{suffix}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"{smi}: B={args.batch} bucket {args.seconds} s, {audio_s:.2f} audio-s: forward "
           f"{fwd_s * 1e3:.2f} ms = {audio_s / fwd_s:.2f} audio-s/s")
     for k, v in top:
         print(f"  {v / 1e3:9.3f} ms  {k[:110]}")
     print(json.dumps({k: v for k, v in summary.items() if k != "kernels_top"}))
-    if bilstm2.launch_count() != 12 * (args.iters + 2):
-        raise RuntimeError(f"expected 12 bilstm2 launches per forward, got "
-                           f"{bilstm2.launch_count()} over {args.iters + 2} forwards")
+    n = BSS["n_repeats"]
+    want = ({"bilstm2_forward": n, "lstm_forward": n} if args.bss
+            else {"bilstm2_forward": 6, "bilstm2_forward_masked": 6})
+    if launches != want:
+        raise RuntimeError(f"expected {want} launches per forward, counted {launches} per "
+                           f"forward over {args.iters + 2} forwards")
     return 0
 
 
-PORT_KERNELS = ("bilstm2_kernel", "gemm_kernel", "scan_kernel", "colsum_kernel")
+PORT_KERNELS = ("bilstm2_kernel", "lstm_kernel", "gemm_kernel", "scan_kernel", "colsum_kernel")
 
 
 def train_part(op, kernel: str) -> str:
     """The part of a training step a device kernel belongs to. A kernel
-    launched inside the bilstm2 autograd Function's forward or backward
-    belongs to it, the wrapper's torch ops (the backward's partial sums,
-    weight transposes and stack) under their own name; any other by its
-    name."""
+    launched inside the forward or backward of the bilstm2 autograd Function
+    (or of LSTMStack, the stacked-direction scan's) belongs to it, the
+    wrapper's torch ops (the backward's partial sums, weight transposes and
+    stack) under their own name; any other by its name."""
     own = any(k in kernel for k in PORT_KERNELS)
     while op is not None:
         if op.name in ("BiLSTM2", "BiLSTM2Masked"):
             return "resid forward" if own else "resid forward (torch ops)"
         if op.name in ("BiLSTM2Backward", "BiLSTM2MaskedBackward"):
             return "backward" if own else "backward (torch ops)"
+        if op.name == "LSTMStack":
+            return "lstm resid forward" if own else "lstm resid forward (torch ops)"
+        if op.name == "LSTMStackBackward":
+            return "lstm backward" if own else "lstm backward (torch ops)"
         op = op.cpu_parent
-    if "bilstm2_kernel" in kernel:
+    if "lstm_kernel" in kernel or "bilstm2_kernel" in kernel:
         return "inference forward"
     if "multi_tensor_apply" in kernel or "adam" in kernel.lower():
         return "optimizer"
     return "glue"
 
 
-def profile_train(iters: int) -> int:
+def profile_train(iters: int, family: str) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import (FLAGSHIP, SEED, TRAIN_BATCH, TRAIN_CONFIG, TRAIN_SECONDS, Crops)
-    from tss_dprnn_tpu_torch.data.loader import collate_spe
-    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
-    from tss_dprnn_tpu_torch.ops import bilstm2
-    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from chip_smoke import (SEED, TRAIN_BATCH, TRAIN_SECONDS, all_launches, expect_launches,
+                            reset_launches, training_family)
     from tss_dprnn_tpu_torch.utils.weights import init_weights_
 
+    fam = training_family(family)
+    suffix = "_bss" if family == "bss" else ""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0]
     os.makedirs(OUT_DIR, exist_ok=True)
-    model = init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(SEED))
+    model = init_weights_(fam["model"](), torch.Generator().manual_seed(SEED))
     # the trainer's checkpoint directory; this script saves nothing there
     ckpt_dir = os.path.join(OUT_DIR, "train_ckpt_unused")
-    tr = TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=ckpt_dir))
+    tr = fam["trainer"](model, dict(fam["config"], new_checkpoints_path=ckpt_dir))
     os.rmdir(ckpt_dir)
-    batch = collate_spe(Crops(SEED, TRAIN_BATCH).items)
+    batch = fam["collate"](fam["crops"](SEED, TRAIN_BATCH, TRAIN_SECONDS).items)
     for _ in range(2):  # warm-up
         tr.train_step(batch)
     torch.cuda.synchronize()
@@ -190,15 +214,14 @@ def profile_train(iters: int) -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    bilstm2.reset_launch_counts()
+    reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         tr.train_step(batch)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace_train.json.gz"))
-    launches = {"resid": bilstm2.bilstm2_forward_resid.launches,
-                "backward": bilstm2.bilstm2_backward.launches}
+    prof.export_chrome_trace(os.path.join(OUT_DIR, f"trace_train{suffix}.json.gz"))
+    launches = all_launches()
 
     by_kernel = defaultdict(float)
     for e in prof.events():
@@ -225,9 +248,10 @@ def profile_train(iters: int) -> int:
                               else "not measured"),
         "share_by_part": ({k: v / device_us for k, v in sorted(by_class.items())} if measured
                           else "not measured"),
-        "launches_per_step": launches, "kernels_top": [[k[:120], v / 1e3] for k, v in top],
+        "launches_per_step": {k: v for k, v in launches.items() if v},
+        "kernels_top": [[k[:120], v / 1e3] for k, v in top],
     }
-    with open(os.path.join(OUT_DIR, "summary_train.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"summary_train{suffix}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"{smi}: train step B={TRAIN_BATCH} x {TRAIN_SECONDS} s: {step_s * 1e3:.2f} ms/step, "
           f"peak memory {peak_gb:.2f} GB")
@@ -236,9 +260,7 @@ def profile_train(iters: int) -> int:
     for k, v in top:
         print(f"  {v / 1e3:9.3f} ms  {k[:110]}")
     print(json.dumps({k: v for k, v in summary.items() if k != "kernels_top"}))
-    scans = 2 * FLAGSHIP["n_repeats"]
-    if launches != {"resid": scans, "backward": scans}:
-        raise RuntimeError(f"expected {scans} resid and backward launches per step: {launches}")
+    expect_launches(launches, fam["per_train_step"], 1, f"{family} train step")
     return 0
 
 

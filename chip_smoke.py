@@ -41,9 +41,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    csrc/lstm_bwd.cu) against their plain versions at D = 1 and the
    inter-chunk shapes of BSS serving (8 x 10 s: R=2000 T=642) and training
    (5 x 3 s: R=1250 T=194), plus a small D = 2 case with different inputs per
-   direction (same tolerances as phases 2 and 5; the backward bit for bit the
-   same on a second call), timed with 16- and 32-row tiles beside the plain
-   versions and a unidirectional cuDNN LSTM (TF32 off);
+   direction and a wide one (same tolerances as phases 2 and 5; the backward
+   bit for bit the same on a second call), timed beside the plain versions
+   and a unidirectional cuDNN LSTM (TF32 off);
 8. BSS serving: Inferencer.run with DPRNN-TasNet at the width and depth of
    configs/train_bss.yaml and ``bidirectional: false`` over 12 two-speaker
    mixtures (6 bilstm2_forward + 6 lstm_forward launches per batch and no
@@ -511,8 +511,8 @@ def bss_shapes():
     """The unidirectional inter-chunk scan's (D, R, T) in BSS serving (8 x
     10 s) and training (5 x 3 s); a small two-direction case, R not a
     multiple of 8, T not a multiple of 5; and a wide one (the intra-chunk
-    shape of 8 x 10 s as two stacked directions), where 32-row tiles already
-    give the card more blocks than it has SMs."""
+    shape of 8 x 10 s as two stacked directions), whose blocks outnumber the
+    card's SMs several times."""
     K, hop = BSS["chunk_length"], BSS["hop_length"]
     S10 = (10 * SAMPLE_RATE - 1 + K) // hop + 1
     return {"serving": (1, 8 * K, S10), "training": (1,) + train_shapes()["inter"],
@@ -521,7 +521,7 @@ def bss_shapes():
 
 def phase_lstm_kernels(torch, dev):
     """Phase 7: the stacked-direction kernels against their plain versions,
-    timed beside them and a unidirectional cuDNN LSTM, with both tile heights."""
+    timed beside them and a unidirectional cuDNN LSTM."""
     from tss_dprnn_tpu_torch.ops import lstm as L
 
     F = H = 128
@@ -535,6 +535,7 @@ def phase_lstm_kernels(torch, dev):
         x = torch.randn(D, R, T, F, generator=g).to(dev)
         cot = torch.randn(D, R, T, H, generator=g).to(dev)
         xb = x.bfloat16()
+        blocks = D * -(-R // 16)  # one per direction and 16-row tile
 
         # the three forward modes and the bf16 streams
         ref = L.lstm_reference(x, *w)
@@ -565,7 +566,7 @@ def phase_lstm_kernels(torch, dev):
         dw_rel = max(float((a - r).abs().max()) / float(r.abs().max())
                      for a, r in zip(got[1:], want[1:]))
         del got, want
-        log(f"[lstm-kernels] {name} D={D} R={R} T={T} ({L.tile_rows(x)}-row tiles): max|err| "
+        log(f"[lstm-kernels] {name} D={D} R={R} T={T} ({blocks} blocks): max|err| "
             f"forward {err['forward']:.3e}, with_cs {err['with_cs']:.3e}, resid "
             f"{err['resid']:.3e}; bf16 SNR {snr16:.2f} dB (vs bf16 plain max|err| "
             f"{plain16_err:.3e}, SNR {plain16_snr:.2f} dB); backward dx {dx_err:.3e}, dW/db "
@@ -585,9 +586,7 @@ def phase_lstm_kernels(torch, dev):
         lstms = {dt: cudnn_lstm(torch, w_ih, b, w_hh, dt) for dt in (torch.float32, torch.bfloat16)}
         lstm = lstms[torch.float32]
 
-        nums = {"D": D, "R": R, "T": T, "tile_rows": L.tile_rows(x),
-                "blocks": {rows: D * -(-R // rows) for rows in (16, 32)},
-                "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
+        nums = {"D": D, "R": R, "T": T, "blocks": blocks, "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
                 "bf16_plain_snr_db": plain16_snr, "dx_max_abs_err": dx_err,
                 "dw_max_abs_err": dw_err, "dw_rel_err": dw_rel, "bitwise_repeat": repeat}
         if D == 1:
@@ -622,25 +621,12 @@ def phase_lstm_kernels(torch, dev):
                     "forward", D, R, T, F, H, 2, PEAK_BF16)
             else:
                 nums[f"{kind}_bound_ms"], nums[f"{kind}_bound_by"] = bound_stack(kind, D, R, T, F, H)
-        # either tile height, same inputs: the blocks in flight against the time
-        for rows in (16, 32):
-            nums[f"forward_ms_rows{rows}"] = time_ms(
-                lambda: L._launch(L.lstm_forward, x, *w, L._MODE_H, rows=rows), 5)
-            nums[f"resid_ms_rows{rows}"] = time_ms(
-                lambda: L._launch(L.lstm_forward_resid, x, *w, L._MODE_RESID, rows=rows), 5)
-            nums[f"backward_ms_rows{rows}"] = time_ms(
-                lambda: L._launch_backward(L.lstm_backward, x, resid, cot, *w, rows=rows), 5)
         log(f"[lstm-kernels] {name}: forward {nums['forward_ms']:.3f} ms (plain "
             f"{nums['forward_plain_ms']:.1f}, bound {nums['forward_bound_ms']:.3f}; bf16 "
             f"{nums['bf16_ms']:.3f}), with_cs {nums['with_cs_ms']:.3f}, resid "
             f"{nums['resid_ms']:.3f} (plain {nums['resid_plain_ms']:.1f}, bound "
             f"{nums['resid_bound_ms']:.3f}), backward {nums['backward_ms']:.3f} (plain "
-            f"{nums['backward_plain_ms']:.1f}, bound {nums['backward_bound_ms']:.3f}) | 16-row "
-            f"tiles ({nums['blocks'][16]} blocks) forward/resid/backward "
-            f"{nums['forward_ms_rows16']:.3f}/{nums['resid_ms_rows16']:.3f}/"
-            f"{nums['backward_ms_rows16']:.3f}, 32-row ({nums['blocks'][32]} blocks) "
-            f"{nums['forward_ms_rows32']:.3f}/{nums['resid_ms_rows32']:.3f}/"
-            f"{nums['backward_ms_rows32']:.3f}")
+            f"{nums['backward_plain_ms']:.1f}, bound {nums['backward_bound_ms']:.3f})")
         if D == 1:
             log(f"[lstm-kernels] {name}: cuDNN forward {nums['cudnn_ms']:.3f} ms (bf16 "
                 f"{nums['cudnn_bf16_ms']:.3f}), training forward {nums['cudnn_train_fwd_ms']:.3f}, "
@@ -661,9 +647,7 @@ def lstm_kernel_entries(results, launches):
                "bound_ms": r[f"{kind}_bound_ms"], "bound_by": r[f"{kind}_bound_by"],
                "library_ms": r.get(library),
                "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128},
-               "tile_rows": r["tile_rows"], "blocks": r["blocks"][r["tile_rows"]]}
-        if kind in ("forward", "resid", "backward"):  # timed with either tile height
-            out.update({f"ms_rows{rows}": r[f"{kind}_ms_rows{rows}"] for rows in (16, 32)})
+               "blocks": r["blocks"]}
         if kind == "backward":
             out.update(max_abs_err=max(r["dx_max_abs_err"], r["dw_max_abs_err"]),
                        dx_max_abs_err=r["dx_max_abs_err"], dw_rel_err=r["dw_rel_err"],

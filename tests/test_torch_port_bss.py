@@ -284,7 +284,6 @@ def test_bss_inferencer_matches_jax(tmp_path):
     out_dir = tmp_path / "metrics"
     inf = Inferencer(DPRNNTasNet(**cfg), {"checkpoint_path": str(path), "metrics": ["si_sdr"],
                                           "test_savedir": str(out_dir)}, device="cpu")
-    assert inf.mode == "bss"
     got = inf.run(ds, batch_size=2, n_buckets=2, bucket_multiple=100)
     assert set(got) == {"si_sdr", "si_sdr_imp"}
     for k in got:
@@ -370,7 +369,6 @@ def test_bss_trainer_step_matches_jax(tmp_path):
         return Trainer(model, dict(config, new_checkpoints_path=str(directory)), device="cpu")
 
     tr = fresh_trainer(tmp_path / "a")
-    assert tr.mode == "bss"
     tr.model.train()
     loss, aux = tr._forward_loss(tr._to_device(batch), train=True)
     loss.backward()

@@ -247,8 +247,8 @@ def _needs_card():
 
 
 def _card_case(D, R=70, T=33, F=128, H=128, seed=0):
-    """R not a multiple of 8 or of a tile, T not a multiple of 5, different
-    inputs per direction."""
+    """R not a multiple of 8 or of the 16-row tile, T not a multiple of 5,
+    different inputs per direction."""
     rng = np.random.default_rng(seed)
     x, (w_ih, b, w_hh) = _case(rng, D, R, T, F, H)
     g = rng.standard_normal((D, R, T, H)).astype(np.float32)
@@ -257,20 +257,19 @@ def _card_case(D, R=70, T=33, F=128, H=128, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [1, 2])
-def test_lstm_kernel_matches_reference_on_card(D, dtype, rows):
+def test_lstm_kernel_matches_reference_on_card(D, dtype):
     """On the card (the machine there has no JAX: run with
     ``python -m pytest --noconftest -m cuda tests/test_torch_port_lstm.py``).
     fp32: 1e-4 absolute. bf16 streams: 2^-7 and 70 dB against the bf16 plain
     version, which rounds h to bf16 before every next step as the kernel
-    must. Both tile heights."""
+    must."""
     _needs_card()
     x, w, _ = _card_case(D)
     x = x.to(dtype)
     before = port.lstm_forward.launches
-    got, _ = port._launch(port.lstm_forward, x, *w, port._MODE_H, rows=rows)
+    got = port.lstm_forward(x, *w)
     assert port.lstm_forward.launches == before + 1
     want = port.lstm_reference(x, *w)
     assert got.dtype == dtype
@@ -301,9 +300,8 @@ def test_lstm_training_forwards_match_reference_on_card(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [16, 32])
 @pytest.mark.parametrize("D", [1, 2])
-def test_lstm_backward_kernel_matches_reference_on_card(D, rows):
+def test_lstm_backward_kernel_matches_reference_on_card(D):
     """dx within 1e-4; dW and db within 1e-3 of the plain version, as sums
     over R * T = 2,310 row-steps in another order, and bit for bit the same
     on a second call (fixed summation order, no atomics)."""
@@ -311,8 +309,8 @@ def test_lstm_backward_kernel_matches_reference_on_card(D, rows):
     x, w, g = _card_case(D)
     _, resid = port.lstm_resid_reference(x, *w)
     before = port.lstm_backward.launches
-    got = port._launch_backward(port.lstm_backward, x, resid, g, *w, rows=rows)
-    again = port._launch_backward(port.lstm_backward, x, resid, g, *w, rows=rows)
+    got = port.lstm_backward(x, resid, g, *w)
+    again = port.lstm_backward(x, resid, g, *w)
     assert port.lstm_backward.launches == before + 2
     want = port.lstm_backward_reference(x, resid, g, *w)
     for name, a, b, again_ in zip(GRADS, got, want, again):

@@ -1,15 +1,21 @@
 """tss_dprnn_tpu_torch — the PyTorch and CUDA port of ``tss_dprnn_tpu``.
 
-Runs the DPRNN-Spe-TasNet serving path (masked, bucketed, full-length
-inference) and its training path (``training.TrainerSpe`` on fixed crops)
-on an NVIDIA Hopper card. Module paths mirror the JAX package's, so each
-port module sits under the same name as its counterpart; the JAX package
-stays the reference the port is tested against.
+Runs two model families on an NVIDIA Hopper card, each served (masked,
+bucketed, full-length inference) and trained (fixed crops): DPRNN-Spe-TasNet
+target speech separation (``inference.InferencerSpe``,
+``training.TrainerSpe``) and DPRNN-TasNet blind source separation
+(``inference.Inferencer``, ``training.Trainer``), both with a bidirectional
+or a one-direction (``bidirectional=False``) inter-chunk scan. Module paths
+mirror the JAX package's, so each port module sits under the same name as
+its counterpart; the JAX package stays the reference the port is tested
+against.
 
 The port imports torch, numpy and the standard library only. Its
-hand-written kernels, the fused bidirectional LSTM scan and its backward
-(``ops/bilstm2.py`` + ``csrc/bilstm2.cu``, ``csrc/bilstm2_bwd.cu``), are
-built with nvcc at first use.
+hand-written kernels are built with nvcc at first use: the fused
+bidirectional LSTM scan and its backward (``ops/bilstm2.py`` +
+``csrc/bilstm2.cu``, ``csrc/bilstm2_bwd.cu``) and the stacked-direction LSTM
+scan and its backward (``ops/lstm.py`` + ``csrc/lstm.cu``,
+``csrc/lstm_bwd.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see :func:`tss_dprnn_tpu_torch.device.resolve_device`).
 """

@@ -28,11 +28,12 @@
 // (direction, tile of rows) looping over T, the tile's h in shared memory, its
 // c in registers, x_t copied in with cp.async, and W = [W_ih; W_hh] (512 KB
 // fp32 at F = H = 128, over a block's shared memory) streamed from L2 every
-// step in double-buffered chunks of 16 k-rows. Each thread owns kNR rows x 4
-// hidden units with all four gates. The tile height is a template parameter,
-// 8 * kNR rows: 32 (kNR = 4) reuses every weight across more rows, 16
-// (kNR = 2) puts twice as many blocks in flight when the rows are few; the
-// wrapper picks from the grid size.
+// step in double-buffered chunks of 16 k-rows. Each thread owns 2 rows x 4
+// hidden units with all four gates, so a tile is 16 rows, half the fused
+// kernel's: with one direction the rows are the only source of blocks, and at
+// the inter-chunk shapes (1,250-2,000 rows) 32-row tiles leave most of the
+// card's 132 SMs without a block. On an H100 the 16-row tile was 1.6x faster
+// there and no slower at 10,000 rows (PERF.md).
 
 #include "scan_common.cuh"
 
@@ -40,6 +41,8 @@ namespace {
 
 using namespace scan_common;
 
+constexpr int kNR = 2;         // rows per thread
+constexpr int kRows = 8 * kNR;  // rows per block
 constexpr int kKChunk = 16;    // k-rows of W per shared-memory chunk
 constexpr int kMaxThreads = 256;
 
@@ -55,15 +58,14 @@ struct Streams {
   float* c;
 };
 
-// Grid (ceil(R / (8 kNR)), D): blockIdx.y is the direction. Threads: 2H (8 row
+// Grid (ceil(R / 16), D): blockIdx.y is the direction. Threads: 2H (8 row
 // groups x H/4 unit groups). x [D, R, T, F] and out [D, R, T, H] are
 // contiguous in the stream type.
-template <typename T, int kMode, int kNR>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
             const float* __restrict__ w_hh, const float* __restrict__ b, T* __restrict__ out,
             Streams st, int R, int Tn, int F, int H) {
-  constexpr int kRows = 8 * kNR;
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
   const int K = F + H;
@@ -178,29 +180,20 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
-template <typename T, int kMode, int kNR>
+template <typename T, int kMode>
 int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, void* out,
            Streams st, int D, int R, int Tn, int F, int H, cudaStream_t stream) {
-  constexpr int kRows = 8 * kNR;
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lstm_kernel<T, kMode, kNR>,
+  cudaError_t err = cudaFuncSetAttribute(lstm_kernel<T, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, D);
-  lstm_kernel<T, kMode, kNR><<<grid, 2 * H, smem, stream>>>(
+  lstm_kernel<T, kMode><<<grid, 2 * H, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
       static_cast<const float*>(b), static_cast<T*>(out), st, R, Tn, F, H);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int kMode>
-int launch_rows(int tile_rows, const void* x, const void* w_ih, const void* w_hh, const void* b,
-                void* out, Streams st, int D, int R, int Tn, int F, int H, cudaStream_t stream) {
-  if (tile_rows == 32) return launch<T, kMode, 4>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, stream);
-  if (tile_rows == 16) return launch<T, kMode, 2>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -209,25 +202,23 @@ extern "C" {
 
 // dtype: 0 = float32 streams, 1 = bfloat16 streams (mode 0 only). mode: 0 = h
 // only, 1 = + cell states (s0), 2 = + residual streams (s0 = h before, s1 = c
-// before, s2 = tanh(c) after). tile_rows: 16 or 32 rows per block. x:
-// [D, R, T, F] and out: [D, R, T, H], contiguous in the stream type; s0..s2:
-// [D, R, T, H] fp32 or null; w_ih: [D, F, 4H], w_hh: [D, H, 4H], b: [D, 4H],
-// fp32. Every pointer 16-byte aligned; F and H multiples of 16, H <= 128.
-// Returns a cudaError_t code (0 = launched).
-int lstm_forward(int dtype, int mode, int tile_rows, const void* x, const void* w_ih,
-                 const void* w_hh, const void* b, void* out, void* s0, void* s1, void* s2, int D,
-                 int R, int Tn, int F, int H, void* stream) {
+// before, s2 = tanh(c) after). x: [D, R, T, F] and out: [D, R, T, H],
+// contiguous in the stream type; s0..s2: [D, R, T, H] fp32 or null; w_ih:
+// [D, F, 4H], w_hh: [D, H, 4H], b: [D, 4H], fp32. Every pointer 16-byte
+// aligned; F and H multiples of 16, H <= 128. Returns a cudaError_t code
+// (0 = launched).
+int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const void* w_hh,
+                 const void* b, void* out, void* s0, void* s1, void* s2, int D, int R, int Tn,
+                 int F, int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Streams st = {static_cast<float*>(s0), static_cast<float*>(s1), static_cast<float*>(s2)};
   if (dtype == 1 && mode == kModeH)
-    return launch_rows<__nv_bfloat16, kModeH>(tile_rows, x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
+    return launch<__nv_bfloat16, kModeH>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == kModeH)
-    return launch_rows<float, kModeH>(tile_rows, x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
-  if (mode == kModeCs)
-    return launch_rows<float, kModeCs>(tile_rows, x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
+  if (mode == kModeH) return launch<float, kModeH>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
+  if (mode == kModeCs) return launch<float, kModeCs>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
   if (mode == kModeResid)
-    return launch_rows<float, kModeResid>(tile_rows, x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
+    return launch<float, kModeResid>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

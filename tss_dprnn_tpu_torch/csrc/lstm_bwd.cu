@@ -25,11 +25,11 @@
 // those of db (tss_dprnn_tpu_torch/ops/lstm.py launches them in that order).
 // No float atomics anywhere: a run repeats itself bit for bit on one card.
 //
-// The scan kernel: one block per (direction, tile of 8 kNR rows) looping over
-// T with dh and dc in registers; its only product, dpre @ W_hh^T, streams
-// W_hh^T (256 KB at H = 128) from L2 in double-buffered chunks. The tile height
-// is a template parameter as in csrc/lstm.cu: 32 rows, or 16 when the rows are
-// few and D = 1 leaves the card's SMs without blocks.
+// The scan kernel: one block per (direction, tile of 16 rows) looping over T
+// with dh and dc in registers; its only product, dpre @ W_hh^T, streams W_hh^T
+// (256 KB at H = 128) from L2 in double-buffered chunks. The tile is 16 rows
+// for the forward's reason (csrc/lstm.cu): with one direction and the
+// inter-chunk shapes' rows, 32-row tiles leave most SMs without a block.
 
 #include "scan_common.cuh"
 
@@ -37,18 +37,18 @@ namespace {
 
 using namespace scan_common;
 
-constexpr int kWChunk = 32;  // k-rows of W_hh^T per shared-memory chunk
+constexpr int kNR = 2;          // rows per thread
+constexpr int kRows = 8 * kNR;  // rows per block
+constexpr int kWChunk = 32;     // k-rows of W_hh^T per shared-memory chunk
 
-// Grid (ceil(R / (8 kNR)), D): blockIdx.y is the direction. Threads: 2H (8 row
+// Grid (ceil(R / 16), D): blockIdx.y is the direction. Threads: 2H (8 row
 // groups x H/4 unit groups); each thread owns rows rg + 8r (r < kNR) and hidden
 // units u4..u4+3 with all four gates of each, as in the forward kernel.
 // gd: [D, R, T, 4H], gate pre-activations in, dpre out. cp, tc, g:
 // [D, R, T, H]. wt: [D, 4H, H] = W_hh[d]^T.
-template <int kNR>
 __global__ void __launch_bounds__(256, 2)
 scan_kernel(float* __restrict__ gd, const float* __restrict__ cp, const float* __restrict__ tc,
             const float* __restrict__ g, const float* __restrict__ wt, int R, int Tn, int H) {
-  constexpr int kRows = 8 * kNR;
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
   const int dpp = G + 4;  // padded row pitch of the dpre tile
@@ -173,36 +173,25 @@ scan_kernel(float* __restrict__ gd, const float* __restrict__ cp, const float* _
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
-template <int kNR>
-int launch(void* gd, const void* cp, const void* tc, const void* g, const void* wt, int D, int R,
-           int Tn, int H, cudaStream_t stream) {
-  constexpr int kRows = 8 * kNR;
-  const size_t smem = (kRows * (4 * H + 4) + 2 * kWChunk * H) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scan_kernel<kNR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((R + kRows - 1) / kRows, D);
-  scan_kernel<kNR><<<grid, 2 * H, smem, stream>>>(
-      static_cast<float*>(gd), static_cast<const float*>(cp), static_cast<const float*>(tc),
-      static_cast<const float*>(g), static_cast<const float*>(wt), R, Tn, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 // The reverse scan: gd [D, R, T, 4H] holds the gate pre-activations and gets
-// dpre in place. cp, tc, g: [D, R, T, H]; wt: [D, 4H, H]. tile_rows: 16 or 32
-// rows per block. All fp32, contiguous, 16-byte aligned; H a multiple of 16,
-// <= 128. Returns a cudaError_t code (0 = launched).
-int lstm_bwd_scan(int tile_rows, void* gd, const void* cp, const void* tc, const void* g,
-                  const void* wt, int D, int R, int Tn, int H, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_rows == 32) return launch<4>(gd, cp, tc, g, wt, D, R, Tn, H, s);
-  if (tile_rows == 16) return launch<2>(gd, cp, tc, g, wt, D, R, Tn, H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// dpre in place. cp, tc, g: [D, R, T, H]; wt: [D, 4H, H]. All fp32,
+// contiguous, 16-byte aligned; H a multiple of 16, <= 128. Returns a
+// cudaError_t code (0 = launched).
+int lstm_bwd_scan(void* gd, const void* cp, const void* tc, const void* g, const void* wt, int D,
+                  int R, int Tn, int H, void* stream) {
+  const size_t smem = (kRows * (4 * H + 4) + 2 * kWChunk * H) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((R + kRows - 1) / kRows, D);
+  scan_kernel<<<grid, 2 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(gd), static_cast<const float*>(cp), static_cast<const float*>(tc),
+      static_cast<const float*>(g), static_cast<const float*>(wt), R, Tn, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lstm_bwd_error_string(int code) {

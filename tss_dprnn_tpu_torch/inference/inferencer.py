@@ -39,8 +39,6 @@ class Inferencer:
     ``_make_loader(test_set, batch_size, n_buckets, multiple)``, ``forward``
     and ``_batch_rows(batch) -> [{"index", metric, "input_" + metric, ...}]``."""
 
-    mode = "bss"
-
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)

@@ -31,8 +31,8 @@ kernel of ``csrc/lstm_bwd.cu`` runs the dh/dc recurrence and writes dpre, and
 the product and column-sum kernels give dx (per direction) and the fixed
 partials of dW and db, summed here in a fixed order (no atomics: a run repeats
 itself bit for bit). With few rows and D = 1 the 32-row tiles of the
-bidirectional kernels leave most SMs without a block, so both scan kernels
-also come with 16-row tiles and :func:`tile_rows` picks from the grid size.
+bidirectional kernels would leave most SMs without a block, so both scan
+kernels here use 16-row tiles.
 
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`lstm_reference`, :func:`lstm_cs_reference`,
@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -63,6 +63,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 _MODE_H, _MODE_CS, _MODE_RESID = 0, 1, 2
+_N_STREAMS = {_MODE_H: 0, _MODE_CS: 1, _MODE_RESID: 3}  # extra fp32 streams per mode
 
 
 def _scan_reference(x, w_ih, b, w_hh, mode: int):
@@ -77,7 +78,7 @@ def _scan_reference(x, w_ih, b, w_hh, mode: int):
     h = xf.new_zeros(D, R, H)
     c = xf.new_zeros(D, R, H)
     out = x.new_empty(D, R, T, H)
-    streams = [xf.new_empty(D, R, T, H) for _ in range({_MODE_H: 0, _MODE_CS: 1}.get(mode, 3))]
+    streams = [xf.new_empty(D, R, T, H) for _ in range(_N_STREAMS[mode])]
     for t in range(T):
         i, f, gg, o = _gates(xp[:, :, t] + torch.bmm(h, w_hh) + b[:, None], H)
         c_new = f * c + i * gg
@@ -182,32 +183,24 @@ def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.T
     return x, w_ih, b, w_hh
 
 
-def tile_rows(x: torch.Tensor) -> int:
-    """Rows per block for x [D, R, T, F]: 32, or 16 when 32-row tiles would
-    give the card fewer blocks than it has SMs."""
-    D, R = x.shape[:2]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return 32 if D * -(-R // 32) >= sms else 16
-
-
 def _launch(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
-            mode: int, rows: Optional[int] = None):
+            mode: int):
     """Check what the kernel takes, allocate the outputs and launch on the
-    current stream; a launch adds one to ``entry.launches``. ``rows``
-    overrides :func:`tile_rows` (for measuring). Returns (h, streams)."""
+    current stream; a launch adds one to ``entry.launches``. Returns
+    (h, streams)."""
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=mode != _MODE_H)
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
     streams = tuple(torch.empty(D, R, T, H, dtype=torch.float32, device=x.device)
-                    for _ in range({_MODE_H: 0, _MODE_CS: 1}.get(mode, 3)))
+                    for _ in range(_N_STREAMS[mode]))
     if D and R and T:
         lib = _library()
         ptrs = [s.data_ptr() for s in streams] + [None] * (3 - len(streams))
         with torch.cuda.device(x.device):
             rc = lib.lstm_forward(
-                _DTYPE_CODES[x.dtype], mode, rows or tile_rows(x), x.data_ptr(), w_ih.data_ptr(),
-                w_hh.data_ptr(), b.data_ptr(), out.data_ptr(), *ptrs, D, R, T, F, H,
+                _DTYPE_CODES[x.dtype], mode, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
+                b.data_ptr(), out.data_ptr(), *ptrs, D, R, T, F, H,
                 torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(rc, "lstm kernel", lib, "lstm_error_string")
         entry.launches += 1
@@ -215,7 +208,7 @@ def _launch(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: t
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
-                     b: torch.Tensor, w_hh: torch.Tensor, rows: Optional[int] = None):
+                     b: torch.Tensor, w_hh: torch.Tensor):
     """The backward's launches (see the module docstring) on the current
     stream; one call adds one to ``entry.launches``."""
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=True)
@@ -245,8 +238,8 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
             _gemm(products, stream, False, [(x, d * M * F, F, w_ih, d * F * G, G, F),
                                             (hp, d * M * H, H, w_hh, d * H * G, G, H)],
                   M, G, out=gates, out_off=d * M * G, ldc=G, bias=b[d])
-        rc = lib.lstm_bwd_scan(rows or tile_rows(x), gates.data_ptr(), cp.data_ptr(),
-                               tc.data_ptr(), g.data_ptr(), w_hh_t.data_ptr(), D, R, T, H, stream)
+        rc = lib.lstm_bwd_scan(gates.data_ptr(), cp.data_ptr(), tc.data_ptr(), g.data_ptr(),
+                               w_hh_t.data_ptr(), D, R, T, H, stream)
         _raise_on(rc, "lstm backward scan kernel", lib, "lstm_bwd_error_string")
         for d in range(D):
             _gemm(products, stream, False, [(gates, d * M * G, G, w_ih_t, d * G * F, F, G)], M, F,
@@ -266,7 +259,7 @@ def _library() -> ctypes.CDLL:
     signatures set once."""
     lib = _build.load_library("lstm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_forward.argtypes = [i, i, i] + [p] * 8 + [i] * 5 + [p]
+    lib.lstm_forward.argtypes = [i, i] + [p] * 8 + [i] * 5 + [p]
     lib.lstm_forward.restype = i
     lib.lstm_error_string.argtypes = [i]
     lib.lstm_error_string.restype = ctypes.c_char_p
@@ -278,7 +271,7 @@ def _library_scan() -> ctypes.CDLL:
     """Build (at first use) and load the backward scan's library."""
     lib = _build.load_library("lstm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bwd_scan.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
+    lib.lstm_bwd_scan.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.lstm_bwd_scan.restype = i
     lib.lstm_bwd_error_string.argtypes = [i]
     lib.lstm_bwd_error_string.restype = ctypes.c_char_p

@@ -58,8 +58,6 @@ class Trainer:
     ``_forward_loss(batch, train) -> (loss, aux)``, with ``batch`` a dict of
     tensors on the device."""
 
-    mode = "bss"
-
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None,
                  logger: Optional[logging.Logger] = None, reporter=None,
