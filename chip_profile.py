@@ -32,6 +32,18 @@ false`` (``chip_smoke.BSS``), through the BSS ``Inferencer.forward`` or
 ``Trainer.train_step``; the unidirectional inter-chunk scans then show under
 the stacked-direction kernels (``lstm_kernel`` and the ``LSTMStack``
 Function). Its files carry the suffix ``_bss``.
+
+The JAX package's opt-in switches apply as they do to any caller (ops/rnn.py
+reads them at each call):
+
+    TSS_FUSED_DENSE=1 python3 chip_profile.py --batch 8   # dense-mode intra scans
+    TSS_BM=1 python3 chip_profile.py --batch 8            # batch-major intra scans
+
+The launch check expects the switched kernel for the intra-chunk scans, the
+fused-scan time counts its kernel (``bilstm2_kernel`` in dense mode,
+``slab_kernel`` batch-major), and the summary records the switches;
+``--train`` under TSS_FUSED_DENSE=1 attributes the ``BiLSTM2Dense``
+Function's kernels as it does ``BiLSTM2``'s.
 """
 
 from __future__ import annotations
@@ -46,6 +58,16 @@ from collections import defaultdict
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_profile")
+
+
+def intra_kernel() -> str:
+    """The wrapper the unmasked intra-chunk scans launch under the switches
+    (TSS_FUSED_DENSE wins, as in ops/rnn.py)."""
+    if os.environ.get("TSS_FUSED_DENSE", "0") == "1":
+        return "bilstm2_dense_forward"
+    if os.environ.get("TSS_BM", "0") == "1":
+        return "bilstm2_forward_bm"
+    return "bilstm2_forward"
 
 
 def main() -> int:
@@ -66,7 +88,8 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import BSS, FLAGSHIP, SAMPLE_RATE, SEED, all_launches, reset_launches
+    from chip_smoke import (BSS, FLAGSHIP, SAMPLE_RATE, SEED, SWITCHES, all_launches,
+                            reset_launches)
     from tss_dprnn_tpu_torch.data.loader import collate_bss_eval, make_collate_spe_eval
     from tss_dprnn_tpu_torch.inference import Inferencer, InferencerSpe
     from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
@@ -120,12 +143,13 @@ def main() -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] += e.time_range.end - e.time_range.start
     device_us = sum(by_kernel.values())
-    lstm_us = sum(v for k, v in by_kernel.items() if "bilstm2_kernel" in k)
+    lstm_us = sum(v for k, v in by_kernel.items() if "bilstm2_kernel" in k or "slab_kernel" in k)
     stack_us = sum(v for k, v in by_kernel.items() if "lstm_kernel" in k)  # ops/lstm.py's
     launches = {k: v // (args.iters + 2) for k, v in all_launches().items() if v}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     summary = {
-        "card": smi, "batch": args.batch, "bucket_s": args.seconds, "audio_s": audio_s,
+        "card": smi, "switches": {k: os.environ.get(k, "0") for k in SWITCHES},
+        "batch": args.batch, "bucket_s": args.seconds, "audio_s": audio_s,
         "forward_ms": fwd_s * 1e3, "audio_s_per_s": audio_s / fwd_s,
         "profiled_window_ms": window_us / 1e3,
         "device_ms": device_us / 1e3 if device_us else "not measured",
@@ -144,8 +168,8 @@ def main() -> int:
         print(f"  {v / 1e3:9.3f} ms  {k[:110]}")
     print(json.dumps({k: v for k, v in summary.items() if k != "kernels_top"}))
     n = BSS["n_repeats"]
-    want = ({"bilstm2_forward": n, "lstm_forward": n} if args.bss
-            else {"bilstm2_forward": 6, "bilstm2_forward_masked": 6})
+    want = ({intra_kernel(): n, "lstm_forward": n} if args.bss
+            else {intra_kernel(): 6, "bilstm2_forward_masked": 6})
     if launches != want:
         raise RuntimeError(f"expected {want} launches per forward, counted {launches} per "
                            f"forward over {args.iters + 2} forwards")
@@ -163,9 +187,9 @@ def train_part(op, kernel: str) -> str:
     stack) under their own name; any other by its name."""
     own = any(k in kernel for k in PORT_KERNELS)
     while op is not None:
-        if op.name in ("BiLSTM2", "BiLSTM2Masked"):
+        if op.name in ("BiLSTM2", "BiLSTM2Masked", "BiLSTM2Dense"):
             return "resid forward" if own else "resid forward (torch ops)"
-        if op.name in ("BiLSTM2Backward", "BiLSTM2MaskedBackward"):
+        if op.name in ("BiLSTM2Backward", "BiLSTM2MaskedBackward", "BiLSTM2DenseBackward"):
             return "backward" if own else "backward (torch ops)"
         if op.name == "LSTMStack":
             return "lstm resid forward" if own else "lstm resid forward (torch ops)"
@@ -186,8 +210,8 @@ def profile_train(iters: int, family: str) -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import (SEED, TRAIN_BATCH, TRAIN_SECONDS, all_launches, expect_launches,
-                            reset_launches, training_family)
+    from chip_smoke import (SEED, SWITCHES, TRAIN_BATCH, TRAIN_SECONDS, all_launches,
+                            expect_launches, reset_launches, training_family)
     from tss_dprnn_tpu_torch.utils.weights import init_weights_
 
     fam = training_family(family)
@@ -239,7 +263,8 @@ def profile_train(iters: int, family: str) -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     measured = bool(device_us)
     summary = {
-        "card": smi, "batch": TRAIN_BATCH, "crop_s": TRAIN_SECONDS,
+        "card": smi, "switches": {k: os.environ.get(k, "0") for k in SWITCHES},
+        "batch": TRAIN_BATCH, "crop_s": TRAIN_SECONDS,
         "ms_per_step": step_s * 1e3, "audio_s_per_s": TRAIN_BATCH * TRAIN_SECONDS / step_s,
         "peak_memory_gb": peak_gb, "profiled_window_ms": window_us / 1e3,
         "device_ms": device_us / 1e3 if measured else "not measured",

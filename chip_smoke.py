@@ -54,7 +54,22 @@ Phases, each of which fails the script (nonzero exit, no result line):
    train step 6 bilstm2_forward_resid + 6 bilstm2_backward + 6
    lstm_forward_resid + 6 lstm_backward launches, per eval step 6 + 6
    inference launches), the best checkpoint served through the BSS
-   Inferencer, 10 steps on one batch (ms/step), one step card vs CPU.
+   Inferencer, 10 steps on one batch (ms/step), one step card vs CPU;
+10. the opt-in and test-only kernels vs plain: the dense mode of the fused
+   kernel (csrc/bilstm2.cu), the batch-major kernel (csrc/bilstm2_bm.cu), the
+   shared-input mode of csrc/lstm.cu (bilstm_fused) and the manual-DMA kernel
+   (csrc/lstm_v2.cu: bilstm_v2, lstm_scan_v2) at the intra-chunk shape of 8 x
+   10 s (lstm_scan_v2 at D = 1 R=2000 T=642), fp32 and bf16 (tolerances as
+   in phase 2), plus a ragged case each, timed beside the plain versions, the
+   bound and cuDNN (for the dense mode cuDNN plus two cuBLAS half-products);
+11. the opt-in paths: InferencerSpe.run over phase 3's requests with
+   TSS_FUSED_DENSE=1 (6 bilstm2_dense_forward + 6 masked launches per batch
+   and no other kernel) and with TSS_BM=1 (6 bilstm2_forward_bm + 6 masked),
+   each against the switch-off forward on a bucketed batch (>= 60 dB); a
+   TrainerSpe run of one epoch with TSS_FUSED_DENSE=1 (12 residual-forward +
+   12 backward launches per train step, 12 dense launches per eval step) and
+   one train step against the switch-off step (loss within 1e-5 relative,
+   gradients >= 60 dB). The environment is restored afterwards.
 
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
@@ -102,6 +117,17 @@ PEAK_BYTES = 3.35e12
 # is the one that holds the rounding.
 BF16_ATOL = 2.0 ** -7
 BF16_SNR_DB = 70.0
+# The manual-DMA kernel (csrc/lstm_v2.cu) rounds as the TPU source does in
+# bf16: the gates, each operation of the activations, i * g, tanh(c) and h,
+# six roundings per unit and step where the other kernels round once, so a
+# gate summed in another order flips many more roundings. Its plain version
+# against the same rounding with fp64 gate sums reads 62.44 dB at R=2000
+# T=642 and 65.14 dB at R=5136 T=250 (scripts/port/v2_bf16_floor.py, CPU);
+# two fp32 orders drift about 3 dB further. The h-only rounding of
+# lstm_reference scores 45.15 dB against it (measured again in phase 10).
+V2_BF16_SNR_DB = 55.0
+# the JAX package's opt-in scan switches, as ops/rnn.py reads them
+SWITCHES = ("TSS_FUSED_DENSE", "TSS_BM")
 # the training batch of the reference's config (configs/train_tss.yaml):
 # 5 crops of 3 s
 TRAIN_BATCH = 5
@@ -136,6 +162,19 @@ def time_ms(fn, reps: int) -> float:
 def snr_db(got, want) -> float:
     got, want = got.double(), want.double()
     return float(10 * math.log10(want.pow(2).sum() / (got - want).pow(2).sum().clamp_min(1e-300)))
+
+
+def bound_dense(rows_steps: int, R: int, T: int, F: int, H: int, Fo: int, itemsize: int,
+                peak: float):
+    """The dense mode's least time: the scan's FLOPs plus 2 H Fo per row-step
+    and direction for the product, over the named peak; or x read once, both
+    Fo-wide outputs written once and the weights (W, b, wo) read once, over
+    the HBM rate."""
+    flops = 2 * rows_steps * (2 * (F + H) * 4 * H + 2 * H * Fo)
+    nbytes = ((rows_steps * F + 2 * R * T * Fo) * itemsize
+              + 2 * ((F + H + 1) * 4 * H + H * Fo) * 4)
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def all_launches():
@@ -1066,6 +1105,313 @@ def phase_bss_serving(torch, dev, cfg, tag, per_batch):
             "final": final, "card_vs_cpu_snr_db": s_cpu, "bucketed_max_abs_err": err_bucket}
 
 
+def phase_optin_kernels(torch, dev):
+    """Phase 10: the opt-in and test-only kernels against their plain
+    versions, at the shapes of 8 x 10 s and a ragged one each, timed beside
+    the plain versions, their bounds and cuDNN."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+    from tss_dprnn_tpu_torch.ops import lstm as L
+
+    F = H = Fo = 128
+    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
+    S10 = (10 * SAMPLE_RATE - 1 + K) // hop + 1
+    g = torch.Generator(device="cpu").manual_seed(SEED + 10)
+    k = H ** -0.5
+
+    def uniform(*shape):
+        return (torch.rand(*shape, generator=g) * 2 * k - k).to(dev)
+
+    w_ih2, w_hh2, b2 = uniform(2, F, 4 * H), uniform(2, H, 4 * H), uniform(2, 4 * H)
+    wo2 = uniform(2, H, Fo)
+    w1 = (w_ih2[:1], w_hh2[:1], b2[:1])  # one direction, JAX argument order
+    lstms = {dt: cudnn_lstm(torch, w_ih2, b2, w_hh2, dt) for dt in (torch.float32, torch.bfloat16)}
+    lstms1 = {dt: cudnn_lstm(torch, w1[0], w1[2], w1[1], dt)
+              for dt in (torch.float32, torch.bfloat16)}
+
+    def dense_library(dt, x):  # cuDNN bidirectional, then the two cuBLAS half-products
+        out = lstms[dt](x)[0]
+        wo = wo2.to(dt)
+        return out[..., :H] @ wo[0], out[..., H:] @ wo[1]
+
+    # name -> (wrapper, plain version, library call, source, replaces, bound, input shape)
+    kernels = {
+        "bilstm2_dense_forward": (
+            lambda x: B2.bilstm2_dense_forward(x, w_ih2, b2, w_hh2, wo2),
+            lambda x: B2.bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2),
+            dense_library, "bilstm2.cu", "pallas_lstm.py:698 (dense mode, :969)",
+            lambda R, T, size, peak: bound_dense(R * T, R, T, F, H, Fo, size, peak), "rtf"),
+        "bilstm2_forward_bm": (
+            lambda x: B2.bilstm2_forward_bm(x, w_ih2, b2, w_hh2),
+            lambda x: B2.bilstm2_bm_reference(x, w_ih2, b2, w_hh2),
+            lambda dt, x: lstms[dt](x)[0].split(H, dim=-1), "bilstm2_bm.cu", "pallas_lstm.py:1088",
+            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf"),
+        "bilstm_fused": (
+            lambda x: L.bilstm_fused(x, w_ih2, w_hh2, b2),
+            lambda x: L.bilstm_fused_reference(x, w_ih2, w_hh2, b2),
+            lambda dt, x: lstms[dt](x)[0], "lstm.cu", "pallas_lstm.py:57 (reverse_dir1, :171)",
+            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf"),
+        "bilstm_v2": (
+            lambda x: L.bilstm_v2(x, w_ih2, w_hh2, b2),
+            lambda x: L.bilstm_v2_reference(x, w_ih2, w_hh2, b2),
+            lambda dt, x: lstms[dt](x)[0], "lstm_v2.cu", "pallas_lstm.py:275 (via :402)",
+            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf"),
+        "lstm_scan_v2": (
+            lambda x: L.lstm_scan_v2(x, *w1),
+            lambda x: L.lstm_v2_reference(x, *w1),
+            lambda dt, x: lstms1[dt](x[0])[0], "lstm_v2.cu", "pallas_lstm.py:275 (via :418)",
+            lambda R, T, size, peak: bound_stack("forward", 1, R, T, F, H, size, peak), "drtf"),
+    }
+    shapes = {"bilstm2_dense_forward": (8 * S10, K), "bilstm2_forward_bm": (8 * S10, K),
+              "bilstm_fused": (8 * S10, K), "bilstm_v2": (8 * S10, K),
+              "lstm_scan_v2": (8 * K, S10)}
+    ragged = (203, 33)  # R not a multiple of any tile, T not of the 4-step slabs
+    entries = []
+    for name, (fn, plain, library, source, replaces, least, layout) in kernels.items():
+        def make(R, T):
+            x = torch.randn(R, T, F, generator=g).to(dev)
+            return x[None] if layout == "drtf" else x
+
+        def flat(out):
+            return torch.cat([o.float().flatten() for o in (out if isinstance(out, tuple)
+                                                            else (out,))])
+
+        R, T = shapes[name]
+        x = make(R, T)
+        ref32 = flat(plain(x))
+        err32 = float((flat(fn(x)) - ref32).abs().max())
+        xb = x.bfloat16()
+        got16, ref16 = flat(fn(xb)), flat(plain(xb))
+        snr16, plain16_snr = snr_db(got16, ref32), snr_db(got16, ref16)
+        plain16_err = float((got16 - ref16).abs().max())
+        with torch.no_grad():
+            library_err = float((flat(library(torch.float32, x)) - ref32).abs().max())
+        xr = make(*ragged)
+        ragged_err = float((flat(fn(xr)) - flat(plain(xr))).abs().max())
+        torch.cuda.synchronize()
+        log(f"[optin-kernels] {name} R={R} T={T}: fp32 max|err|={err32:.3e} (ragged R={ragged[0]} "
+            f"T={ragged[1]}: {ragged_err:.3e}); bf16 SNR {snr16:.2f} dB, vs bf16 plain max|err|="
+            f"{plain16_err:.3e} SNR {plain16_snr:.2f} dB; library vs plain {library_err:.3e}")
+        if not max(err32, ragged_err) <= 1e-4:
+            raise AssertionError(f"{name} fp32 disagrees with its plain version: {err32}, "
+                                 f"ragged {ragged_err}")
+        snr_bar = V2_BF16_SNR_DB if name.endswith("v2") else BF16_SNR_DB
+        if name.endswith("v2"):  # what the bar must tell apart: the h-only rounding
+            h_only = flat(L.bilstm_fused_reference(xb, w_ih2, w_hh2, b2) if layout == "rtf"
+                          else L.lstm_reference(xb, w1[0], w1[2], w1[1]))
+            wrong_rounding_snr = snr_db(h_only, ref16)
+            log(f"[optin-kernels] {name}: the h-only bf16 rounding vs the v2 plain version "
+                f"{wrong_rounding_snr:.2f} dB (bar {snr_bar} dB)")
+            del h_only
+        if not (plain16_err <= BF16_ATOL and plain16_snr >= snr_bar):
+            raise AssertionError(f"{name} bf16 disagrees with its bf16 plain version: max|err| "
+                                 f"{plain16_err} (<= {BF16_ATOL}), SNR {plain16_snr:.2f} dB "
+                                 f"(>= {snr_bar})")
+        entry = {"name": name, "dtype": "float32", "route": "cuda",
+                 "source": f"tss_dprnn_tpu_torch/csrc/{source}",
+                 "replaces": f"tss_dprnn_tpu/ops/pallas_lstm.py:{replaces.split(':', 1)[1]}",
+                 "shape": {"D": 1, "R": R, "T": T, "F": F, "H": H} if layout == "drtf"
+                 else {"R": R, "T": T, "F": F, "H": H},
+                 "max_abs_err": err32, "ragged": {"R": ragged[0], "T": ragged[1],
+                                                  "max_abs_err": ragged_err},
+                 "library_max_abs_err": library_err,
+                 "library": ("cuDNN bidirectional LSTM + two cuBLAS half-products"
+                             if name == "bilstm2_dense_forward" else
+                             "cuDNN LSTM, " + ("unidirectional" if layout == "drtf"
+                                               else "bidirectional"))}
+        if name == "bilstm2_dense_forward":
+            entry["shape"]["Fo"] = Fo
+        for dt, key, peak, size in ((torch.float32, None, PEAK_FP32, 4),
+                                    (torch.bfloat16, "bf16", PEAK_BF16, 2)):
+            xx = x.to(dt)
+            ms = time_ms(lambda: fn(xx), 5)
+            plain_ms = time_ms(lambda: plain(xx), 1)
+            with torch.no_grad():
+                library_ms = time_ms(lambda: library(dt, xx), 3)
+            bound_ms, bound_by = least(R, T, size, peak)
+            nums = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms}
+            if key is None:
+                entry.update(nums)
+            else:
+                entry[key] = dict(nums, snr_db=snr16, plain_max_abs_err=plain16_err,
+                                  plain_snr_db=plain16_snr, plain_snr_bar_db=snr_bar)
+                if name.endswith("v2"):
+                    entry[key]["h_only_rounding_snr_db"] = wrong_rounding_snr
+            log(f"[optin-kernels] {name} {dt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        entries.append(entry)
+        del x, xb, xr
+        torch.cuda.empty_cache()
+    # lstm_scan, the JAX entry's argument order over lstm_forward's kernel
+    xr = torch.randn(2, *ragged, F, generator=g).to(dev)
+    scan_err = float((L.lstm_scan(xr, w_ih2, w_hh2, b2)
+                      - L.lstm_reference(xr, w_ih2, b2, w_hh2)).abs().max())
+    log(f"[optin-kernels] lstm_scan D=2 R={ragged[0]} T={ragged[1]}: max|err|={scan_err:.3e}")
+    if not scan_err <= 1e-4:
+        raise AssertionError(f"lstm_scan disagrees with its plain version: {scan_err}")
+    del lstms, lstms1
+    torch.cuda.empty_cache()
+    return entries
+
+
+def with_env(name, value):
+    """Set (or with ``value`` None, clear) an environment variable; returns
+    a function that restores it."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+    def restore():
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+    return restore
+
+
+def phase_optin_paths(torch, dev, ckpt):
+    """Phase 11: InferencerSpe.run under each switch, and a TrainerSpe run
+    and one train step under TSS_FUSED_DENSE=1; the switches are restored
+    afterwards, whatever happens."""
+    restores = [with_env(name, None) for name in SWITCHES]
+    try:
+        return _optin_paths(torch, dev, ckpt)
+    finally:
+        for restore in restores:
+            restore()
+
+
+def _optin_paths(torch, dev, ckpt):
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.data.loader import (BucketedEvalLoader, TrainLoader, collate_spe,
+                                                 make_collate_spe_eval)
+    from tss_dprnn_tpu_torch.inference import InferencerSpe
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    n = FLAGSHIP["n_repeats"]
+    results = {}
+    # -- serving: InferencerSpe.run over phase 3's requests under each switch
+    ds = Requests(SEED, 12)
+    batch_size, n_buckets = 4, 2
+    collate = make_collate_spe_eval()
+    loader = BucketedEvalLoader(ds, batch_size, collate, ds.lengths(), n_buckets=n_buckets)
+    n_batches = len(loader)
+    batch = next(iter(loader))  # a bucketed batch with lengths
+    audio_s = sum(ds.lengths()) / SAMPLE_RATE
+    outs = {}
+    for switch, kernel in ((None, None), ("TSS_FUSED_DENSE", "bilstm2_dense_forward"),
+                           ("TSS_BM", "bilstm2_forward_bm")):
+        restore = with_env(switch, "1") if switch else (lambda: None)
+        try:
+            savedir = os.path.join(OUT_DIR, f"metrics_{switch or 'default'}")
+            inf = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP),
+                                {"checkpoint_path": ckpt, "test_savedir": savedir,
+                                 "metrics": ["si_sdr"], "data": {"sample_rate": SAMPLE_RATE}},
+                                device=dev)
+            with torch.inference_mode():
+                outs[switch] = inf.forward(batch).cpu()
+            if switch is None:
+                continue
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = all_launches()
+        finally:
+            restore()
+        s = snr_db(outs[switch], outs[None])
+        log(f"[optin] {switch}=1: InferencerSpe.run {len(ds)} requests, {n_batches} batches in "
+            f"{wall:.3f} s = {audio_s / wall:.2f} audio-s/s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; final {final}; bucketed batch vs "
+            f"switch off {s:.2f} dB SNR")
+        expect_launches(launches, {kernel: n, "bilstm2_forward_masked": n}, n_batches,
+                        f"{switch}=1 serving")
+        with open(os.path.join(savedir, "all_metrics.csv")) as f:
+            si = [float(r.split(",")[1]) for r in f.read().strip().splitlines()[1:]]
+        if len(si) != len(ds) or not all(math.isfinite(v) for v in si):
+            raise AssertionError(f"{switch}=1: non-finite or missing si_sdr rows: {si}")
+        if not s >= 60.0:
+            raise AssertionError(f"{switch}=1 output vs switch off {s:.2f} dB < 60 dB")
+        results[switch] = {"launches": launches, "n_batches": n_batches, "audio_s_per_s":
+                           audio_s / wall, "final": final, "vs_switch_off_snr_db": s}
+        del inf
+    torch.cuda.empty_cache()
+
+    # -- training: one epoch under TSS_FUSED_DENSE=1, then one step on and off
+    import shutil
+
+    seed = SEED + 11
+    start = init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(seed)).state_dict()
+    ckpt_dir = os.path.join(OUT_DIR, "optin_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def trainer(device=dev, directory=ckpt_dir):
+        model = DPRNNSpeTasNet(**FLAGSHIP)
+        model.load_state_dict(start, strict=True)
+        return TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=directory), device=device)
+
+    restore = with_env("TSS_FUSED_DENSE", "1")
+    try:
+        tr = trainer()
+        train_loader = TrainLoader(Crops(seed, 2 * TRAIN_BATCH), TRAIN_BATCH, collate_spe,
+                                   seed=SEED, prefetch=0)
+        eval_loader = TrainLoader(Crops(seed + 1, TRAIN_BATCH), TRAIN_BATCH, collate_spe,
+                                  shuffle=False, prefetch=0)
+        reset_launches()
+        tr.run(train_loader, eval_loader, n_epochs=1, early_stop=10)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        del tr
+    finally:
+        restore()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_train, n_eval = len(train_loader), len(eval_loader)
+    per_run = {"bilstm2_forward_resid": 2 * n * n_train, "bilstm2_backward": 2 * n * n_train,
+               "bilstm2_dense_forward": 2 * n * n_eval}
+    log(f"[optin] TSS_FUSED_DENSE=1: TrainerSpe.run, {n_train} train + {n_eval} eval steps; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    expect_launches(launches, per_run, 1, f"TSS_FUSED_DENSE=1 training ({2 * n} residual + "
+                    f"{2 * n} backward per train step, {2 * n} dense per eval step)")
+    one = collate_spe(Crops(seed + 2, TRAIN_BATCH).items)
+    steps = {}
+    for switch in (None, "TSS_FUSED_DENSE"):
+        restore = with_env(switch, "1") if switch else (lambda: None)
+        try:
+            t = trainer(directory=os.path.join(OUT_DIR, "optin_ckpt_unused"))
+            t.model.train()
+            reset_launches()
+            loss, _ = t._forward_loss(t._to_device(one), train=True)
+            loss.backward()
+            torch.cuda.synchronize()
+            steps[switch] = (loss.item(), {k: p.grad.detach().cpu()
+                                           for k, p in t.model.named_parameters()},
+                             {k: v for k, v in all_launches().items() if v})
+            del t
+        finally:
+            restore()
+    shutil.rmtree(os.path.join(OUT_DIR, "optin_ckpt_unused"), ignore_errors=True)
+    (loss_on, g_on, l_on), (loss_off, g_off, l_off) = steps["TSS_FUSED_DENSE"], steps[None]
+    rel = abs(loss_on - loss_off) / abs(loss_off)
+    grad_snr = snr_db(*(torch.cat([g[k].flatten() for k in sorted(g)]) for g in (g_on, g_off)))
+    log(f"[optin] one train step TSS_FUSED_DENSE=1 vs off: loss {loss_on:.7f} vs {loss_off:.7f} "
+        f"(rel {rel:.2e}), gradients {grad_snr:.2f} dB SNR; launches {l_on} vs {l_off}")
+    if l_on != l_off:
+        raise AssertionError(f"a train step launched other kernels with the switch: {l_on} vs {l_off}")
+    if not (rel <= 1e-5 and grad_snr >= 60.0):
+        raise AssertionError(f"TSS_FUSED_DENSE=1 train step vs off: loss rel {rel}, gradient SNR "
+                             f"{grad_snr}")
+    results["training"] = {"launches": launches, "n_train_steps": n_train, "n_eval_steps": n_eval,
+                           "step_loss_rel": rel, "step_grad_snr_db": grad_snr}
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1087,7 +1433,7 @@ def main() -> int:
     log(f"[setup] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = ("bilstm2", "bilstm2_bwd", "lstm", "lstm_bwd")
+    libraries = ("bilstm2", "bilstm2_bwd", "lstm", "lstm_bwd", "bilstm2_bm", "lstm_v2")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "
@@ -1145,8 +1491,7 @@ def main() -> int:
     t0 = time.perf_counter()
     bss_train = phase_training(torch, dev, training_family("bss"))
     log(f"[bss-train] phase done in {time.perf_counter() - t0:.1f} s; "
-        f"{bss_train['ms_per_step']:.2f} ms/step on {smi}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{bss_train['ms_per_step']:.2f} ms/step on {smi}")
     entries += lstm_kernel_entries(lstm_kernels, {**bss_train["launches"],
                                                   "lstm_forward": bss_serve["launches"]["lstm_forward"]})
     for e in entries:  # the BSS paths launch the fused bidirectional kernels too
@@ -1154,10 +1499,33 @@ def main() -> int:
             e["launches_bss"] = {"serving": bss_serve["launches"][e["name"]]
                                  + bss_serve_bi["launches"][e["name"]],
                                  "training": bss_train["launches"][e["name"]]}
+
+    t0 = time.perf_counter()
+    optin_kernels = phase_optin_kernels(torch, dev)
+    log(f"[optin-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    optin = phase_optin_paths(torch, dev, ckpt)
+    log(f"[optin] phase done in {time.perf_counter() - t0:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    paths = {"bilstm2_dense_forward": ("TSS_FUSED_DENSE=1 serving (6 intra scans per batch)",
+                                       optin["TSS_FUSED_DENSE"]["launches"]),
+             "bilstm2_forward_bm": ("TSS_BM=1 serving (6 intra scans per batch)",
+                                    optin["TSS_BM"]["launches"])}
+    for e in optin_kernels:
+        path, launches = paths.get(e["name"], ("none: a test-only entry of the JAX package",
+                                               None))
+        e["path"] = path
+        e["launches"] = launches[e["name"]] if launches else 0
+        if e["name"] == "bilstm2_dense_forward":
+            e["launches_per_training_run"] = optin["training"]["launches"][e["name"]]
+    entries += optin_kernels
+    for e in entries:  # the dense Function's training steps run the residual and backward kernels
+        if e["name"] in ("bilstm2_forward_resid", "bilstm2_backward"):
+            e["launches_tss_fused_dense_training"] = optin["training"]["launches"][e["name"]]
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
-                   "bss_training": bss_train}, f, indent=1)
+                   "bss_training": bss_train, "optin": optin}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -1,8 +1,8 @@
-// Fused bidirectional LSTM scan for Hopper (sm_90a): inference modes and the
-// training forward's residual mode.
+// Fused bidirectional LSTM scan for Hopper (sm_90a): inference modes, the
+// training forward's residual mode and the dense (fused SplitDense) mode.
 //
 // Replaces the TPU kernel `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698)
-// in its unmasked, masked and residual (`want_resid`) modes. Per step and
+// in its unmasked, masked, residual (`want_resid`) and dense modes. Per step and
 // direction d:
 //   g = x_t @ W_ih[d] + h @ W_hh[d] + b[d]      (fp32 accumulator)
 //   i, f, o = sigmoid(g_i, g_f, g_o); gg = tanh(g_g)   (torch gate order i, f, g, o)
@@ -16,6 +16,13 @@
 // forward time t, for the backward (csrc/bilstm2_bwd.cu). That is three stores
 // per step and no extra arithmetic. Masked, direction 1's h and c stay at the
 // zero state on held steps; past a row's length every stream is unspecified.
+// Dense mode (unmasked, a compile-time flag; `bilstm2_dense_forward`
+// pallas_lstm.py:969): the SplitDense product y_d = h_d @ wo[d] (wo [2, H, Fo],
+// fp32 holding stream-type values, Fo <= H) runs in each step's epilogue, in
+// fp32, rounded to the stream type, and y_d [R, T, Fo] is written in place of
+// h_d, which never reaches memory. wo's k-rows stream through the same chunk
+// buffers as W: H / 16 more chunks per step, 2 H Fo more FLOP per row-step and
+// direction (12.5 % at F = H = Fo = 128).
 //
 // What bounds it: the arithmetic. At F = H = 128 a row-step costs
 // 2 * (F + H) * 4H = 262,144 FLOP per direction against 2 * (F + H) bytes of
@@ -58,13 +65,14 @@ struct Resid {
 
 // Grid (ceil(R / 32), 2): blockIdx.y is the direction. Threads: 2H (8 row
 // groups x H/4 unit groups). x [R, T, F] and the outputs [R, T, H] are
-// contiguous. kResid stores the residual streams as well.
-template <typename T, bool kResid>
+// contiguous. kResid stores the residual streams as well; kDense writes
+// out_d = h_d @ wo[d], [R, T, Fo], in place of h_d (lens must be null).
+template <typename T, bool kResid, bool kDense>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                const float* __restrict__ w_hh, const float* __restrict__ b,
                const int* __restrict__ lens, T* __restrict__ out0, T* __restrict__ out1,
-               Resid resid, int R, int Tn, int F, int H) {
+               Resid resid, const float* __restrict__ wo, int R, int Tn, int F, int H, int Fo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
   const int K = F + H;
@@ -121,7 +129,7 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   for (int i = tid; i < kRows * hp; i += nthreads) hs[i] = 0.f;
 
   const float zeros[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = t_end; t < Tn; ++t) {
+  for (int t = t_end; t < Tn && !kDense; ++t) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int gr = row0 + rg + 8 * r;
@@ -152,6 +160,13 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
     float* dst = ws + buf * kKChunk * G;
     for (int v = tid; v < chunk_vecs; v += nthreads) cp_async16(dst + 4 * v, src + 4 * v, 16);
   };
+  // dense mode: chunk j of wo[d], kKChunk k-rows of Fo, into the same buffers
+  const int n_wo = H / kKChunk;
+  auto load_wo = [&](int j, int buf) {
+    const float* src = wo + (d * H + j * kKChunk) * Fo;
+    float* dst = ws + buf * kKChunk * G;
+    for (int v = tid; v < kKChunk * Fo / 4; v += nthreads) cp_async16(dst + 4 * v, src + 4 * v, 16);
+  };
 
   const int n_chunks = K / kKChunk;
   int q = 0;  // chunks issued so far; chunk q % n_chunks sits in buffer q % 2
@@ -176,7 +191,14 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
     for (int chunk = 0; chunk < n_chunks; ++chunk, ++q) {
       cp_async_wait_all();
       __syncthreads();  // chunk q (and x_t) landed; buffer (q + 1) % 2 is free
-      load_w((chunk + 1) % n_chunks, (q + 1) & 1);
+      if constexpr (kDense) {  // after the last W chunk comes wo's first
+        if (chunk + 1 < n_chunks)
+          load_w(chunk + 1, (q + 1) & 1);
+        else
+          load_wo(0, (q + 1) & 1);
+      } else {
+        load_w((chunk + 1) % n_chunks, (q + 1) & 1);
+      }
       cp_async_commit();
       const float* wc = ws + (q & 1) * kKChunk * G;
       const int k0 = chunk * kKChunk;
@@ -218,30 +240,68 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         hv[j] = update ? hn : hs[row * hp + u4 + j];
       }
       store4(hs + row * hp + u4, hv);
-      if (gr < R) {
+      if (gr < R && !kDense) {
         store4(out_at(gr, t) + u4, hv);
         if constexpr (kResid) store4(resid_at(resid.tc0, resid.tc1, gr, t) + u4, tcv);
+      }
+    }
+    if constexpr (kDense) {
+      // y_t = h_t @ wo[d]: this thread's 4 rows x output columns u4..u4+3
+      float y[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[r][j] = 0.f;
+      for (int jc = 0; jc < n_wo; ++jc, ++q) {
+        cp_async_wait_all();
+        __syncthreads();  // wo chunk q landed; every row's h_t is in hs
+        if (jc + 1 < n_wo)
+          load_wo(jc + 1, (q + 1) & 1);
+        else
+          load_w(0, (q + 1) & 1);  // the next step's first chunk
+        cp_async_commit();
+        const float* wc = ws + (q & 1) * kKChunk * G;
+        if (u4 < Fo) {
+#pragma unroll
+          for (int kk = 0; kk < kKChunk; ++kk) {
+            const float4 w = ld4(wc + kk * Fo + u4);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float a = hs[(rg + 8 * r) * hp + jc * kKChunk + kk];
+              y[r][0] = fmaf(a, w.x, y[r][0]);
+              y[r][1] = fmaf(a, w.y, y[r][1]);
+              y[r][2] = fmaf(a, w.z, y[r][2]);
+              y[r][3] = fmaf(a, w.w, y[r][3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int gr = row0 + rg + 8 * r;
+        if (gr < R && u4 < Fo)
+          store4(out + static_cast<long long>(gr) * (Tn * Fo) + t * Fo + u4, y[r]);
       }
     }
   }
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
-template <typename T, bool kResid>
+template <typename T, bool kResid, bool kDense = false>
 int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, const void* lens,
            void* out0, void* out1, Resid resid, int R, int Tn, int F, int H,
-           cudaStream_t stream) {
+           cudaStream_t stream, const void* wo = nullptr, int Fo = 0) {
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bilstm2_kernel<T, kResid>,
+  cudaError_t err = cudaFuncSetAttribute(bilstm2_kernel<T, kResid, kDense>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, 2);
-  bilstm2_kernel<T, kResid><<<grid, 2 * H, smem, stream>>>(
+  bilstm2_kernel<T, kResid, kDense><<<grid, 2 * H, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
       static_cast<const float*>(b), static_cast<const int*>(lens), static_cast<T*>(out0),
-      static_cast<T*>(out1), resid, R, Tn, F, H);
+      static_cast<T*>(out1), resid, static_cast<const float*>(wo), R, Tn, F, H, Fo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,6 +337,23 @@ int bilstm2_forward_resid(const void* x, const void* w_ih, const void* w_hh, con
                        static_cast<float*>(cp1), static_cast<float*>(tc1)};
   return launch<float, true>(x, w_ih, w_hh, b, lens, out0, out1, resid, R, Tn, F, H,
                              static_cast<cudaStream_t>(stream));
+}
+
+// Dense mode, unmasked: y0, y1 [R, T, Fo] in the stream type (dtype as in
+// bilstm2_forward) = h_d @ wo[d], wo: [2, H, Fo] fp32; Fo a multiple of 4 and
+// at most H.
+int bilstm2_dense_forward(int dtype, const void* x, const void* w_ih, const void* w_hh,
+                          const void* b, const void* wo, void* y0, void* y1, int R, int Tn,
+                          int F, int H, int Fo, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Resid none = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (Fo % 4 || Fo > H || Fo <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch<float, false, true>(x, w_ih, w_hh, b, nullptr, y0, y1, none, R, Tn, F, H, s, wo, Fo);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, false, true>(x, w_ih, w_hh, b, nullptr, y0, y1, none, R, Tn, F, H,
+                                              s, wo, Fo);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* bilstm2_error_string(int code) {

@@ -1,9 +1,11 @@
 // LSTM scan over D stacked directions, one input each, for Hopper (sm_90a):
-// the inference mode and the two training forwards.
+// the inference mode, the two training forwards, and the bidirectional mode
+// on one shared input.
 //
 // Replaces the TPU kernel `_lstm_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:57,
-// launched by _pallas_core :231) in its h-only, `want_cs` and `want_resid`
-// modes. Per step and direction d, on that direction's own input x[d]:
+// launched by _pallas_core :231) in its h-only, `want_cs`, `want_resid` and
+// `reverse_dir1` modes. Per step and direction d, on that direction's own
+// input x[d]:
 //   g = x_t @ W_ih[d] + h @ W_hh[d] + b[d]      (fp32 accumulator)
 //   i, f, o = sigmoid(g_i, g_f, g_o); gg = tanh(g_g)   (torch gate order i, f, g, o)
 //   c = f * c + i * gg                          (fp32)
@@ -15,6 +17,11 @@
 //   kModeCs     + the fp32 cell state after every step (fp32 streams);
 //   kModeResid  + h and c before every step and tanh(c) after it, for the
 //               backward (csrc/lstm_bwd.cu) (fp32 streams).
+// kShared (h only, D = 2; `bilstm_pallas_fused` :171, the TPU kernel's
+// `reverse_dir1` with one input buffer): both directions read one x [R, T, F];
+// direction 1's step s reads x_{T-1-s} and writes its h at T-1-s, so both
+// outputs come back in forward time. The TPU kernel folds that reversal into
+// its index maps; here it is the step's time index.
 // There is no masked mode: steps past a row's length compute on whatever the
 // input holds there, and the consumer masks them.
 //
@@ -59,9 +66,9 @@ struct Streams {
 };
 
 // Grid (ceil(R / 16), D): blockIdx.y is the direction. Threads: 2H (8 row
-// groups x H/4 unit groups). x [D, R, T, F] and out [D, R, T, H] are
-// contiguous in the stream type.
-template <typename T, int kMode>
+// groups x H/4 unit groups). x [D, R, T, F] (kShared: [R, T, F]) and out
+// [D, R, T, H] are contiguous in the stream type.
+template <typename T, int kMode, bool kShared = false>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
             const float* __restrict__ w_hh, const float* __restrict__ b, T* __restrict__ out,
@@ -86,6 +93,8 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   // row gr of direction d: a 64-bit row offset, a 32-bit offset within the row
   const long long drow0 = static_cast<long long>(d) * R;
   auto at = [&](auto* p, int gr, int t) { return p + (drow0 + gr) * (Tn * H) + t * H; };
+  const long long xrow0 = kShared ? 0 : drow0;  // kShared: one input for both
+  const bool rev = kShared && d == 1;          // ... and direction 1 walks it backwards
 
   float c[kNR][4];
 #pragma unroll
@@ -100,7 +109,7 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       const int r = v / vec_per_row;
       const int e = (v - r * vec_per_row) * (16 / static_cast<int>(sizeof(T)));
       const int gr = row0 + r;
-      const T* src = gr < R ? x + (drow0 + gr) * (Tn * F) + t * F + e : x;
+      const T* src = gr < R ? x + (xrow0 + gr) * (Tn * F) + t * F + e : x;
       cp_async16(xs + r * xp + e, src, gr < R ? 16 : 0);
     }
   };
@@ -115,10 +124,11 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   const int n_chunks = K / kKChunk;
   int q = 0;  // chunks issued so far; chunk q % n_chunks sits in buffer q % 2
   load_w(0, 0);
-  load_x(0);
+  load_x(rev ? Tn - 1 : 0);
   cp_async_commit();
 
-  for (int t = 0; t < Tn; ++t) {
+  for (int s = 0; s < Tn; ++s) {
+    const int t = rev ? Tn - 1 - s : s;
     float acc[4][kNR][4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
@@ -144,8 +154,8 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         mac_chunk<kKChunk>(acc, hs + rg * hp + (k0 - F), hp, wc, G, H, u4);
     }
     __syncthreads();  // every thread is done reading x_t and h
-    if (t + 1 < Tn) {
-      load_x(t + 1);
+    if (s + 1 < Tn) {
+      load_x(rev ? t - 1 : t + 1);
       cp_async_commit();
     }
 #pragma unroll
@@ -180,17 +190,17 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, bool kShared = false>
 int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, void* out,
            Streams st, int D, int R, int Tn, int F, int H, cudaStream_t stream) {
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lstm_kernel<T, kMode>,
+  cudaError_t err = cudaFuncSetAttribute(lstm_kernel<T, kMode, kShared>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, D);
-  lstm_kernel<T, kMode><<<grid, 2 * H, smem, stream>>>(
+  lstm_kernel<T, kMode, kShared><<<grid, 2 * H, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
       static_cast<const float*>(b), static_cast<T*>(out), st, R, Tn, F, H);
   return static_cast<int>(cudaGetLastError());
@@ -219,6 +229,19 @@ int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const voi
   if (mode == kModeCs) return launch<float, kModeCs>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
   if (mode == kModeResid)
     return launch<float, kModeResid>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Both directions over one shared input (h only): x [R, T, F], out [2, R, T, H]
+// with direction 1 scanned from T-1 down to 0 and written in forward time;
+// w_ih: [2, F, 4H], w_hh: [2, H, 4H], b: [2, 4H]. Otherwise as lstm_forward.
+int lstm_bidir_forward(int dtype, const void* x, const void* w_ih, const void* w_hh,
+                       const void* b, void* out, int R, int Tn, int F, int H, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Streams none = {nullptr, nullptr, nullptr};
+  if (dtype == 0) return launch<float, kModeH, true>(x, w_ih, w_hh, b, out, none, 2, R, Tn, F, H, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kModeH, true>(x, w_ih, w_hh, b, out, none, 2, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,8 @@
 // Device helpers shared by the LSTM scan kernels (bilstm2.cu, bilstm2_bwd.cu,
-// lstm.cu, lstm_bwd.cu): stream-type conversion, the gate sigmoid, cp.async
-// copies, 16-byte loads and stores, and the forward kernels' chunk product.
+// lstm.cu, lstm_bwd.cu, and through slab_scan.cuh bilstm2_bm.cu and
+// lstm_v2.cu): stream-type conversion, the gate sigmoid, cp.async copies,
+// bulk copies with their mbarriers, 16-byte loads and stores, and the forward
+// kernels' chunk product.
 // Everything is force-inlined, so each kernel keeps its own register budget.
 
 #pragma once
@@ -48,6 +50,66 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   packed.x = *reinterpret_cast<uint32_t*>(&lo);
   packed.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = packed;
+}
+
+// Bulk copies (the TMA engine without a tensor map) and the mbarriers that
+// track them, for the time-blocked kernels (slab_scan.cuh). Addresses of
+// shared memory are 32-bit shared-window addresses; every copy moves a
+// multiple of 16 bytes between 16-byte aligned addresses.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival that also expects `bytes` from bulk copies before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// global -> shared, completion counted on `bar`
+__device__ __forceinline__ void bulk_g2s(void* smem, const void* gmem, unsigned bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// shared -> global in the issuing thread's current bulk group
+__device__ __forceinline__ void bulk_s2g(void* gmem, const void* smem, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
+               "r"(smem_addr(smem)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// the issuing thread's bulk groups but the newest N have finished reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... and have completed
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// order this thread's generic-proxy writes to shared memory before later bulk copies read them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // acc[gate][r][j] += A[row_r][k0 + kk] * W[k0 + kk][gate * H + u4 + j] for one

@@ -3,8 +3,10 @@ and DPRNN-TasNet (counterpart of ``tss_dprnn_tpu/models/dprnn.py:47-449``).
 
 Channels-last inside the core ([B, L, N] and [B, S, K, N]); segmentation
 and overlap-add from ``ops/chunking.py``; every bidirectional LSTM goes
-through the fused kernel (``ops/bilstm2.py``), unmasked for the intra-chunk
-scan and masked by chunk counts for the inter-chunk scan; with
+through the fused kernel (``ops/bilstm2.py``) together with its Dense
+(``ops/rnn.py`` ``lstm_split_dense``: the opt-in switches pick the kernel),
+unmasked for the intra-chunk scan and masked by chunk counts for the
+inter-chunk scan; with
 ``bidirectional=False`` the inter-chunk scan is one forward direction
 through the stacked-direction kernel (``ops/lstm.py``). Module and
 parameter names follow the reference's torch model, which keeps the
@@ -57,12 +59,17 @@ class DPRNNBlock(nn.Module):
 
         # intra-chunk pass: sequences of length K over B*S rows, unmasked
         # (padded chunks carry zeros; the norm's mask drops their outputs)
-        h = self.intra_linear(*self.intra_rnn(x.reshape(B * S, K, N)))
+        wo2, bias = self.intra_linear.halves()
+        h = self.intra_rnn(x.reshape(B * S, K, N), dense_kernel=wo2) + bias
         x = x + self.intra_norm(h.reshape(B, S, K, N), chunk_mask)
 
         # inter-chunk pass: sequences of length S over B*K rows
-        h = self.inter_rnn(x.transpose(1, 2).reshape(B * K, S, N), inter_lengths)
-        h = self.inter_linear(*h) if self.inter_rnn.bidirectional else self.inter_linear(h)
+        h = x.transpose(1, 2).reshape(B * K, S, N)
+        if self.inter_rnn.bidirectional:
+            wo2, bias = self.inter_linear.halves()
+            h = self.inter_rnn(h, inter_lengths, dense_kernel=wo2) + bias
+        else:
+            h = self.inter_linear(self.inter_rnn(h, inter_lengths))
         h = h.reshape(B, K, S, N).transpose(1, 2)
         return x + self.inter_norm(h, chunk_mask)
 

@@ -45,14 +45,17 @@ class Dense(nn.Module):
 
 
 class SplitDense(Dense):
-    """Dense(2H -> features) on an unconcatenated bidirectional pair:
-    ``o0 @ W[:, :H].T + o1 @ W[:, H:].T + bias`` (same parameters as the
-    Dense on the concatenation)."""
+    """Dense(2H -> features) that follows a bidirectional scan, applied per
+    direction: :meth:`halves` gives its weight as the two halves a scan's
+    pair contracts with (``rnn_ops.lstm_split_dense``), the counterpart of
+    the JAX module's ``promoted()``. Same parameters as the Dense on the
+    concatenation."""
 
-    def forward(self, o0: torch.Tensor, o1: torch.Tensor) -> torch.Tensor:
-        H = o0.shape[-1]
-        w = self.matrix()
-        return o0 @ w[:, :H].T + o1 @ w[:, H:].T + self.bias
+    def halves(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(wo2 [2, H, features], bias): wo2[d] = W[:, dH:(d+1)H].T, a view
+        of the weight."""
+        H = self.in_features // 2
+        return self.matrix().reshape(self.out_features, 2, H).permute(1, 2, 0), self.bias
 
 
 class _LSTMParams(nn.Module):
@@ -84,8 +87,10 @@ class _LSTMParams(nn.Module):
 class RNNCore(nn.Module):
     """LSTM over [B, T, F], the reference SingleRNN (``rnn`` holds
     nn.LSTM's tensors). Bidirectional: the pair (out_f, out_b), each
-    [B, T, H], unconcatenated for a :class:`SplitDense`; with ``lengths`` the
-    backward direction reads each row reversed within its length.
+    [B, T, H], unconcatenated; with ``dense_kernel`` (a :class:`SplitDense`'s
+    halves, [2, H, Fo]) the pair's product with it, [B, T, Fo], without the
+    bias (``rnn_ops.lstm_split_dense``). With ``lengths`` the backward
+    direction reads each row reversed within its length.
     Unidirectional: [B, T, H]; ``lengths`` are not used (steps past a row's
     length are unspecified and masked by the consumer). Only ``rnn_type``
     'LSTM' is ported."""
@@ -119,8 +124,13 @@ class RNNCore(nn.Module):
             self._stacked = (tuple((p.detach(), p._version) for p in params), stacked)
         return self._stacked[1]
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                dense_kernel: Optional[torch.Tensor] = None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        if dense_kernel is not None:
+            if not self.bidirectional:
+                raise ValueError("dense_kernel needs a bidirectional RNNCore")
+            return rnn_ops.lstm_split_dense(x, self.stacked_weights(), dense_kernel, lengths)
         if self.bidirectional:
             return rnn_ops.lstm_pair(x, self.stacked_weights(), lengths)
         return rnn_ops.lstm_stack(x[None], self.stacked_weights())[0]

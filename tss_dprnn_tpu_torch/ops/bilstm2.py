@@ -1,14 +1,21 @@
 """Fused bidirectional LSTM scan and its backward: public entries, kernel
 wrappers and plain versions (counterpart of the bilstm2 section of
-``tss_dprnn_tpu/ops/pallas_lstm.py:698-1063, 1224-1464``).
+``tss_dprnn_tpu/ops/pallas_lstm.py:698-1224, 1224-1464``).
 
 Replaces the TPU kernel ``_bilstm2_kernel`` (pallas_lstm.py:698) in its
-unmasked and masked inference modes and its residual (training) mode with
-``csrc/bilstm2.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224) with
-``csrc/bilstm2_bwd.cu``, CUDA C++ for ``sm_90a``. Both directions run in one
-launch and both outputs come back in forward time. Layout and argument order
-are the JAX entries':
+unmasked, masked, residual (training) and dense modes with
+``csrc/bilstm2.cu``, ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
+``csrc/bilstm2_bm.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224)
+with ``csrc/bilstm2_bwd.cu``, CUDA C++ for ``sm_90a``. Both directions run in
+one launch and both outputs come back in forward time. Layout and argument
+order are the JAX entries':
 ``bilstm2_forward(x [B, T, F], w_ih2 [2, F, 4H], b2 [2, 4H], w_hh2 [2, H, 4H])``.
+The dense mode (``bilstm2_dense_forward``, opt-in ``TSS_FUSED_DENSE=1`` in
+``ops/rnn.py``) adds the SplitDense product y_d = h_d @ wo2[d] to each step's
+epilogue and writes y_d [B, T, Fo] in place of h_d; the batch-major twin
+(``bilstm2_forward_bm``, opt-in ``TSS_BM=1``) computes the unmasked
+inference function over time-blocked slabs of x, brought in by bulk copies a
+slab ahead.
 The residual streams are the port's own layout: a tuple
 ``(hp0, cp0, tc0, hp1, cp1, tc1)`` of [B, T, H] fp32 tensors in forward time
 (h and c before each step, tanh(c) after it), with no time or row padding.
@@ -30,6 +37,7 @@ details.
 
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`bilstm2_reference`, :func:`bilstm2_resid_reference`,
+:func:`bilstm2_dense_reference`, :func:`bilstm2_bm_reference`,
 :func:`bilstm2_backward_reference`) with the same contract. On a CUDA tensor
 it launches the kernel or raises. Each entry counts its launches in
 ``.launches`` (one per call that launched its kernels).
@@ -113,6 +121,24 @@ def bilstm2_resid_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tens
     it (fp32, [B, T, H], forward time). With ``lens`` direction 1's h and c
     stay at the zero state on held steps."""
     return _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid=True)
+
+
+def bilstm2_dense_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                            w_hh2: torch.Tensor, wo2: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dense mode: :func:`bilstm2_reference`, then each
+    direction's h_d @ wo2[d] in fp32 (wo2 [2, H, Fo] rounded to x's type
+    first), cast to x's type."""
+    wo = wo2.to(x.dtype).float()
+    outs = bilstm2_reference(x, w_ih2, b2, w_hh2)
+    return tuple((o.float() @ wo[d]).to(x.dtype) for d, o in enumerate(outs))
+
+
+def bilstm2_bm_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                         w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the batch-major kernel: the unmasked
+    :func:`bilstm2_reference`, whose function it computes."""
+    return bilstm2_reference(x, w_ih2, b2, w_hh2)
 
 
 def bilstm2_backward_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
@@ -246,6 +272,55 @@ def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     return ((out0, out1), resid) if want_resid else (out0, out1)
 
 
+def _launch_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                  w_hh2: torch.Tensor, wo2: torch.Tensor):
+    """The dense mode's launch (see :func:`_launch`): returns (y0, y1), each
+    [B, T, Fo] in x's type."""
+    x, w_ih2, b2, w_hh2, _ = _checked(x, w_ih2, b2, w_hh2, None)
+    B, T, F = x.shape
+    H = w_hh2.shape[1]
+    Fo = wo2.shape[-1]
+    if wo2.shape != (2, H, Fo) or Fo % 4 or not 0 < Fo <= H:
+        raise ValueError(f"wo2 must be [2, H={H}, Fo] with Fo a multiple of 4 and at most H; "
+                         f"got {tuple(wo2.shape)}")
+    if wo2.device != x.device:
+        raise ValueError("bilstm2: x and wo2 must be on one device")
+    wo2 = wo2.to(x.dtype).float().contiguous()
+    _check_aligned(wo2=wo2)
+    y0 = torch.empty(B, T, Fo, dtype=x.dtype, device=x.device)
+    y1 = torch.empty_like(y0)
+    if B and T:
+        lib = _library()
+        with torch.cuda.device(x.device):
+            rc = lib.bilstm2_dense_forward(
+                _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
+                b2.data_ptr(), wo2.data_ptr(), y0.data_ptr(), y1.data_ptr(), B, T, F, H, Fo,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _raise_on(rc, "bilstm2 dense kernel", lib, "bilstm2_error_string")
+        entry.launches += 1
+    return y0, y1
+
+
+def _launch_bm(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+               w_hh2: torch.Tensor):
+    """The batch-major kernel's launch (see :func:`_launch`): both
+    directions' h in one [2, B, T, H] buffer, returned as its two halves."""
+    x, w_ih2, b2, w_hh2, _ = _checked(x, w_ih2, b2, w_hh2, None)
+    B, T, F = x.shape
+    H = w_hh2.shape[1]
+    out = torch.empty(2, B, T, H, dtype=x.dtype, device=x.device)
+    if B and T:
+        lib = _library_bm()
+        with torch.cuda.device(x.device):
+            rc = lib.bilstm2_bm_forward(
+                _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
+                b2.data_ptr(), out.data_ptr(), B, T, F, H,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _raise_on(rc, "bilstm2 batch-major kernel", lib, "bilstm2_bm_error_string")
+        entry.launches += 1
+    return out[0], out[1]
+
+
 # split-K of the dW products: about this many blocks, 4 per SM of an H100
 _SPLIT_BLOCKS = 528
 _BM = _BN = 128  # the product kernel's block tile
@@ -346,8 +421,22 @@ def _library() -> ctypes.CDLL:
     lib.bilstm2_forward.restype = i
     lib.bilstm2_forward_resid.argtypes = [p] * 13 + [i, i, i, i, p]
     lib.bilstm2_forward_resid.restype = i
+    lib.bilstm2_dense_forward.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
+    lib.bilstm2_dense_forward.restype = i
     lib.bilstm2_error_string.argtypes = [i]
     lib.bilstm2_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bm() -> ctypes.CDLL:
+    """Build (at first use) and load the batch-major kernel's library."""
+    lib = _build.load_library("bilstm2_bm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bilstm2_bm_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
+    lib.bilstm2_bm_forward.restype = i
+    lib.bilstm2_bm_error_string.argtypes = [i]
+    lib.bilstm2_bm_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -387,6 +476,30 @@ def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Ten
     if x.device.type == "cpu":
         return bilstm2_reference(x, w_ih2, b2, w_hh2, lens)
     return _launch(bilstm2_forward_masked, x, w_ih2, b2, w_hh2, lens)
+
+
+def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                          w_hh2: torch.Tensor, wo2: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference with the SplitDense product fused in: x [B, T, F], wo2
+    [2, H, Fo] -> (y0, y1), each [B, T, Fo] = h_d @ wo2[d] in x's type, both in
+    forward time; the H-wide scan outputs are never written. Unmasked only,
+    as the JAX core asserts (pallas_lstm.py:854); the kernel takes Fo a
+    multiple of 4 and at most H."""
+    if x.device.type == "cpu":
+        return bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2)
+    return _launch_dense(bilstm2_dense_forward, x, w_ih2, b2, w_hh2, wo2)
+
+
+def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                       w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference, batch-major time-blocked kernel: the contract of
+    :func:`bilstm2_forward` (x [B, T, F] -> (out0, out1), each [B, T, H],
+    both in forward time). out0 and out1 are the two halves of one
+    [2, B, T, H] buffer."""
+    if x.device.type == "cpu":
+        return bilstm2_bm_reference(x, w_ih2, b2, w_hh2)
+    return _launch_bm(bilstm2_forward_bm, x, w_ih2, b2, w_hh2)
 
 
 def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -438,8 +551,9 @@ def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     return _launch_backward(bilstm2_backward_masked, x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
 
 
-ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_forward_resid,
-           bilstm2_forward_resid_masked, bilstm2_backward, bilstm2_backward_masked)
+ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_dense_forward, bilstm2_forward_bm,
+           bilstm2_forward_resid, bilstm2_forward_resid_masked, bilstm2_backward,
+           bilstm2_backward_masked)
 for _entry in ENTRIES:
     _entry.launches = 0
 

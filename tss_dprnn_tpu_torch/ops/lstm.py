@@ -1,10 +1,11 @@
 """LSTM scan over stacked directions and its backward: public entries, kernel
-wrappers and plain versions (counterpart of the ``_lstm_kernel`` and
-``_lstm_bwd_kernel`` sections of ``tss_dprnn_tpu/ops/pallas_lstm.py:57-261,
-431-465, 498-669``).
+wrappers and plain versions (counterpart of the ``_lstm_kernel``,
+``_lstm_manual_kernel`` and ``_lstm_bwd_kernel`` sections of
+``tss_dprnn_tpu/ops/pallas_lstm.py:57-465, 498-669``).
 
 Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its h-only,
-``want_cs`` and ``want_resid`` modes with ``csrc/lstm.cu``, and
+``want_cs``, ``want_resid`` and ``reverse_dir1`` modes with ``csrc/lstm.cu``,
+``_lstm_manual_kernel`` (pallas_lstm.py:275) with ``csrc/lstm_v2.cu``, and
 ``_lstm_bwd_kernel`` (pallas_lstm.py:498) with ``csrc/lstm_bwd.cu``, CUDA C++
 for ``sm_90a``. D directions run in one launch, each on its own input and
 each in forward time: a caller that wants a reversed direction flips its
@@ -15,6 +16,15 @@ or row padding::
 
     lstm_forward(x [D, R, T, F], w_ih [D, F, 4H], b [D, 4H], w_hh [D, H, 4H])
         -> h [D, R, T, H]
+
+The JAX package's test-only entries keep their own argument order (x, w_ih,
+w_hh, b): :func:`lstm_scan` (``lstm_scan_pallas`` :148, the h-only mode
+again), :func:`bilstm_fused` (``bilstm_pallas_fused`` :171: two directions on
+one shared x [R, T, F], direction 1 reversed inside the kernel, outputs
+concatenated to [R, T, 2H]), and the manual-DMA kernel's two entries
+:func:`lstm_scan_v2` (:418, stacked) and :func:`bilstm_v2` (:402, shared and
+reversed), which compute the same function but, in a 16-bit stream type,
+round where that TPU kernel rounds (:func:`lstm_v2_reference`).
 
 The residual streams are a tuple ``(hp, cp, tc)`` of [D, R, T, H] fp32
 tensors: h and c before each step, tanh(c) after it. There are no lengths:
@@ -36,8 +46,9 @@ kernels here use 16-row tiles.
 
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`lstm_reference`, :func:`lstm_cs_reference`,
-:func:`lstm_resid_reference`, :func:`lstm_backward_reference`) with the same
-contract. On a CUDA tensor it launches the kernel or raises. Each entry
+:func:`lstm_resid_reference`, :func:`bilstm_fused_reference`,
+:func:`lstm_v2_reference`, :func:`bilstm_v2_reference`,
+:func:`lstm_backward_reference`) with the same contract. On a CUDA tensor it launches the kernel or raises. Each entry
 counts its launches in ``.launches`` (one per call that launched its kernels).
 """
 
@@ -118,6 +129,70 @@ def lstm_resid_reference(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     return _scan_reference(x, w_ih, b, w_hh, _MODE_RESID)
 
 
+def _bidirectional(scan, x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+                   b2: torch.Tensor) -> torch.Tensor:
+    """Two directions of ``scan`` on one x [R, T, F], direction 1 reading it
+    reversed: [R, T, 2H], both halves in forward time."""
+    out = scan(torch.stack([x, x.flip(1)]), w_ih2, b2, w_hh2)
+    return torch.cat([out[0], out[1].flip(1)], dim=-1)
+
+
+def bilstm_fused_reference(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+                           b2: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``reverse_dir1`` mode: :func:`lstm_reference` on
+    x and on x reversed in time, the second output reversed back, the two
+    concatenated."""
+    return _bidirectional(lstm_reference, x, w_ih2, w_hh2, b2)
+
+
+def _v2_scan(x, w_ih, b, w_hh):
+    """:func:`lstm_reference` with the manual-DMA kernel's rounding points."""
+    D, R, T, _ = x.shape
+    H = w_hh.shape[1]
+    dt = x.dtype
+
+    def rnd(v):  # to the stream type and back: a no-op for fp32
+        return v.to(dt).float()
+
+    w_ih = w_ih.to(dt).float()
+    w_hh = w_hh.to(dt).float()
+    xp = torch.einsum("drtf,dfg->drtg", x.float(), w_ih)
+    h = xp.new_zeros(D, R, H)
+    c = xp.new_zeros(D, R, H)
+    out = x.new_empty(D, R, T, H)
+    def sigmoid(v):  # 1 / (1 + exp(-v)), each operation in the stream type
+        return rnd(1.0 / rnd(1.0 + rnd(torch.exp(-v))))
+
+    for t in range(T):
+        g = rnd(xp[:, :, t] + torch.bmm(h, w_hh) + b.float()[:, None])
+        i, f, gg, o = g.split(H, dim=-1)
+        i, f, gg, o = sigmoid(i), sigmoid(f), rnd(torch.tanh(gg)), sigmoid(o)
+        c = f * c + rnd(i * gg)
+        h = rnd(o * rnd(torch.tanh(c)))
+        out[:, :, t] = h.to(dt)
+    return out
+
+
+def lstm_v2_reference(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+                      b2: torch.Tensor) -> torch.Tensor:
+    """Plain version of the manual-DMA kernel over stacked directions
+    (x2 [D, R, T, F] -> [D, R, T, H], each direction in forward time). In
+    fp32 it is :func:`lstm_reference`. In a 16-bit stream type it rounds
+    where the TPU kernel's source computes in that type (pallas_lstm.py:
+    334-340): the gates after the bias; each operation of the activations
+    (the sigmoid's exp, 1 + and 1 /, and tanh), each in fp32 from rounded
+    operands; i * g; tanh(c) before o *; and h. :func:`lstm_reference`
+    rounds only h."""
+    return _v2_scan(x2, w_ih2, b2, w_hh2)
+
+
+def bilstm_v2_reference(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+                        b2: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bilstm_v2`: :func:`lstm_v2_reference` on x and
+    on x reversed in time, concatenated in forward time ([R, T, 2H])."""
+    return _bidirectional(_v2_scan, x, w_ih2, w_hh2, b2)
+
+
 def lstm_backward_reference(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
                             b: torch.Tensor, w_hh: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -149,19 +224,20 @@ def lstm_backward_reference(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
 
 
 def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
-             fp32_only: bool = False):
+             fp32_only: bool = False, shared: bool = False):
     """What every kernel here takes: raises on anything else, and returns
     (x, w_ih, b, w_hh) contiguous, the weights fp32 holding values of x's
-    type."""
+    type. ``shared``: x is one [R, T, F] input for D = 2 directions."""
     if not x.is_cuda:
         raise ValueError(f"lstm kernel needs a CUDA tensor, got {x.device}")
     if fp32_only and x.dtype != torch.float32:
         raise ValueError(f"the lstm training kernels stream float32 only, got {x.dtype}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"lstm kernel streams float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 4:
-        raise ValueError(f"x must be [D, R, T, F], got {tuple(x.shape)}")
-    D, R, T, F = x.shape
+    if x.ndim != (3 if shared else 4):
+        raise ValueError(f"x must be {'[R, T, F]' if shared else '[D, R, T, F]'}, "
+                         f"got {tuple(x.shape)}")
+    D, R, T, F = (2, *x.shape) if shared else x.shape
     H = w_hh.shape[1]
     if w_ih.shape != (D, F, 4 * H) or w_hh.shape != (D, H, 4 * H) or b.shape != (D, 4 * H):
         raise ValueError(
@@ -205,6 +281,50 @@ def _launch(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: t
         _raise_on(rc, "lstm kernel", lib, "lstm_error_string")
         entry.launches += 1
     return out, streams
+
+
+def _launch_shared(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                   w_hh2: torch.Tensor, v2: bool) -> torch.Tensor:
+    """Two directions on one shared x [R, T, F], direction 1 reversed, through
+    ``csrc/lstm.cu``'s shared mode or (``v2``) ``csrc/lstm_v2.cu``; a launch
+    adds one to ``entry.launches``. Returns [R, T, 2H]."""
+    x, w_ih2, b2, w_hh2 = _checked(x, w_ih2, b2, w_hh2, shared=True)
+    R, T, F = x.shape
+    H = w_hh2.shape[1]
+    out = torch.empty(2, R, T, H, dtype=x.dtype, device=x.device)
+    if R and T:
+        args = (x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(), b2.data_ptr(), out.data_ptr())
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if v2:
+                lib, err = _library_v2(), "lstm_v2_error_string"
+                rc = lib.lstm_v2_forward(_DTYPE_CODES[x.dtype], 1, *args, 2, R, T, F, H, stream)
+            else:
+                lib, err = _library(), "lstm_error_string"
+                rc = lib.lstm_bidir_forward(_DTYPE_CODES[x.dtype], *args, R, T, F, H, stream)
+        _raise_on(rc, "lstm kernel", lib, err)
+        entry.launches += 1
+    return torch.cat([out[0], out[1]], dim=-1)
+
+
+def _launch_v2(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+               w_hh: torch.Tensor) -> torch.Tensor:
+    """``csrc/lstm_v2.cu`` over stacked directions x [D, R, T, F]; a launch
+    adds one to ``entry.launches``."""
+    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
+    D, R, T, F = x.shape
+    H = w_hh.shape[1]
+    out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
+    if D and R and T:
+        lib = _library_v2()
+        with torch.cuda.device(x.device):
+            rc = lib.lstm_v2_forward(
+                _DTYPE_CODES[x.dtype], 0, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
+                b.data_ptr(), out.data_ptr(), D, R, T, F, H,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _raise_on(rc, "lstm_v2 kernel", lib, "lstm_v2_error_string")
+        entry.launches += 1
+    return out
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
@@ -261,8 +381,22 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_forward.argtypes = [i, i] + [p] * 8 + [i] * 5 + [p]
     lib.lstm_forward.restype = i
+    lib.lstm_bidir_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
+    lib.lstm_bidir_forward.restype = i
     lib.lstm_error_string.argtypes = [i]
     lib.lstm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_v2() -> ctypes.CDLL:
+    """Build (at first use) and load the manual-DMA kernel's library."""
+    lib = _build.load_library("lstm_v2")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_v2_forward.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p]
+    lib.lstm_v2_forward.restype = i
+    lib.lstm_v2_error_string.argtypes = [i]
+    lib.lstm_v2_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -307,6 +441,46 @@ def lstm_forward_resid(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     return _launch(lstm_forward_resid, x, w_ih, b, w_hh, _MODE_RESID)
 
 
+def lstm_scan(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """``lstm_scan_pallas`` (pallas_lstm.py:148): :func:`lstm_forward` in the
+    JAX entry's argument order, x2 [D, R, T, F] -> [D, R, T, H]."""
+    if x2.device.type == "cpu":
+        return lstm_reference(x2, w_ih2, b2, w_hh2)
+    return _launch(lstm_scan, x2, w_ih2, b2, w_hh2, _MODE_H)[0]
+
+
+def bilstm_fused(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+                 b2: torch.Tensor) -> torch.Tensor:
+    """``bilstm_pallas_fused`` (pallas_lstm.py:171): both directions on one
+    x [R, T, F], direction 1 scanning it backwards inside the kernel, ->
+    [R, T, 2H] (forward ++ backward, both in forward time). float32 or
+    bfloat16 streams."""
+    if x.device.type == "cpu":
+        return bilstm_fused_reference(x, w_ih2, w_hh2, b2)
+    return _launch_shared(bilstm_fused, x, w_ih2, b2, w_hh2, v2=False)
+
+
+def lstm_scan_v2(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+                 b2: torch.Tensor) -> torch.Tensor:
+    """``lstm_scan_pallas_v2`` (pallas_lstm.py:418): the manual-DMA kernel
+    over stacked directions, x2 [D, R, T, F] -> [D, R, T, H], each direction
+    in forward time on its own input. float32 or bfloat16 streams, rounded
+    as :func:`lstm_v2_reference` says."""
+    if x2.device.type == "cpu":
+        return lstm_v2_reference(x2, w_ih2, w_hh2, b2)
+    return _launch_v2(lstm_scan_v2, x2, w_ih2, b2, w_hh2)
+
+
+def bilstm_v2(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """``bilstm_pallas_v2`` (pallas_lstm.py:402): the manual-DMA kernel on
+    one x [R, T, F], direction 1 walking it backwards, -> [R, T, 2H]."""
+    if x.device.type == "cpu":
+        return bilstm_v2_reference(x, w_ih2, w_hh2, b2)
+    return _launch_shared(bilstm_v2, x, w_ih2, b2, w_hh2, v2=True)
+
+
 def lstm_backward(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
                   b: torch.Tensor, w_hh: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -318,7 +492,8 @@ def lstm_backward(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Te
     return _launch_backward(lstm_backward, x, resid, g, w_ih, b, w_hh)
 
 
-ENTRIES = (lstm_forward, lstm_forward_with_cs, lstm_forward_resid, lstm_backward)
+ENTRIES = (lstm_forward, lstm_forward_with_cs, lstm_forward_resid, lstm_backward, lstm_scan,
+           bilstm_fused, lstm_scan_v2, bilstm_v2)
 for _entry in ENTRIES:
     _entry.launches = 0
 

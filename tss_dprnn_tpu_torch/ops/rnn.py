@@ -1,13 +1,24 @@
 """LSTM op layer
 (counterpart of ``tss_dprnn_tpu/ops/rnn.py:112-122, 140-303, 374-481,
-693-764``).
+574-652, 693-764``).
 
 A bidirectional DPRNN scan feeds a Dense(2H -> N), so :func:`lstm_pair`
 returns the per-direction pair and leaves the concatenation out. Without
 gradients the pair comes from the fused inference kernel; with them, from
 :class:`BiLSTM2` / :class:`BiLSTM2Masked`, whose forward runs the residual
 mode and whose backward runs the backward kernel (the counterparts of
-``_recurrence3`` and ``_recurrence3_masked``).
+``_recurrence3`` and ``_recurrence3_masked``). :func:`lstm_split_dense` is
+the scan and its Dense together (without the bias).
+
+Two switches of the JAX package, read from the environment at each call as
+JAX reads them when it traces: ``TSS_FUSED_DENSE=1`` sends every unmasked
+:func:`lstm_split_dense` through the fused kernel's dense mode
+(``bilstm2_dense_forward``; with gradients :class:`BiLSTM2Dense`, the
+counterpart of ``_recurrence3_dense``), and ``TSS_BM=1`` sends
+:func:`lstm_pair`'s unmasked inference through the batch-major kernel
+(``bilstm2_forward_bm``). With both on, the dense path wins for the scans it
+takes, as in JAX. Both default to off: the JAX package measured each as a
+net loss on the TPU.
 
 A unidirectional scan (the inter-chunk scan of ``bidirectional: false``)
 goes through :func:`lstm_stack`, the counterpart of ``_recurrence`` at
@@ -19,6 +30,7 @@ both.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -26,7 +38,9 @@ import torch
 from tss_dprnn_tpu_torch.ops.bilstm2 import (
     bilstm2_backward,
     bilstm2_backward_masked,
+    bilstm2_dense_forward,
     bilstm2_forward,
+    bilstm2_forward_bm,
     bilstm2_forward_masked,
     bilstm2_forward_resid,
     bilstm2_forward_resid_masked,
@@ -57,6 +71,12 @@ def stack_directions(*directions: LSTMWeights
 
 def _records_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _switch(name: str) -> bool:
+    """An opt-in switch of the JAX package (``TSS_FUSED_DENSE``, ``TSS_BM``):
+    on when the environment holds "1"."""
+    return os.environ.get(name, "0") == "1"
 
 
 class BiLSTM2(torch.autograd.Function):
@@ -93,6 +113,31 @@ class BiLSTM2Masked(torch.autograd.Function):
         return dx, None, dw_ih2, db2, dw_hh2
 
 
+class BiLSTM2Dense(torch.autograd.Function):
+    """(x, w_ih2, b2, w_hh2, wo2) -> (y0, y1), y_d = out_d @ wo2[d],
+    differentiable in all five (fp32). The counterpart of
+    ``_recurrence3_dense``'s VJP (JAX ``ops/rnn.py:579-615``): the forward
+    runs the residual kernel and the two products, the backward the two
+    products' transposes and the backward kernel. As in JAX, the products
+    are plain matrix products outside any kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih2, b2, w_hh2, wo2):
+        (o0, o1), resid = bilstm2_forward_resid(x, w_ih2, b2, w_hh2)
+        ctx.save_for_backward(x, w_ih2, b2, w_hh2, wo2, o0, o1, *resid)
+        return o0 @ wo2[0], o1 @ wo2[1]
+
+    @staticmethod
+    def backward(ctx, gy0, gy1):
+        x, w_ih2, b2, w_hh2, wo2, o0, o1, *resid = ctx.saved_tensors
+        H, Fo = wo2.shape[1:]
+        dwo2 = torch.stack([o.reshape(-1, H).T @ gy.reshape(-1, Fo)
+                            for o, gy in ((o0, gy0), (o1, gy1))])
+        dx, dw_ih2, db2, dw_hh2 = bilstm2_backward(x, tuple(resid), gy0 @ wo2[0].T,
+                                                   gy1 @ wo2[1].T, w_ih2, b2, w_hh2)
+        return dx, dw_ih2, db2, dw_hh2, dwo2
+
+
 def lstm_pair(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
               lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional LSTM over [B, T, F] -> (out_f, out_b), each [B, T, H],
@@ -100,15 +145,35 @@ def lstm_pair(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.
     directions. With ``lengths`` the backward direction reads each row
     reversed within its valid length; out_f past the length is unspecified
     and masked downstream. When autograd records (grad enabled and an input
-    requires grad) the training kernels run; otherwise the inference one."""
+    requires grad) the training kernels run; otherwise the inference one,
+    batch-major with ``TSS_BM=1`` when unmasked."""
     w_ih2, b2, w_hh2 = stacked
     if _records_grad(x, w_ih2, b2, w_hh2):
         if lengths is None:
             return BiLSTM2.apply(x, w_ih2, b2, w_hh2)
         return BiLSTM2Masked.apply(x, lengths, w_ih2, b2, w_hh2)
     if lengths is None:
+        if _switch("TSS_BM"):
+            return bilstm2_forward_bm(x, w_ih2, b2, w_hh2)
         return bilstm2_forward(x, w_ih2, b2, w_hh2)
     return bilstm2_forward_masked(x, lengths, w_ih2, b2, w_hh2)
+
+
+def lstm_split_dense(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                     wo2: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BiLSTM -> Dense(2H -> Fo) without its bias: ``out_f @ wo2[0] + out_b @
+    wo2[1]`` over [B, T, F] -> [B, T, Fo], wo2 [2, H, Fo] the Dense's two
+    halves. With ``TSS_FUSED_DENSE=1`` and no lengths the product runs in the
+    fused kernel's epilogue (:class:`BiLSTM2Dense` when autograd records);
+    otherwise :func:`lstm_pair` and the two half-products."""
+    if lengths is None and _switch("TSS_FUSED_DENSE"):
+        if _records_grad(x, wo2, *stacked):
+            y0, y1 = BiLSTM2Dense.apply(x, *stacked, wo2)
+        else:
+            y0, y1 = bilstm2_dense_forward(x, *stacked, wo2)
+        return y0 + y1
+    o0, o1 = lstm_pair(x, stacked, lengths)
+    return o0 @ wo2[0] + o1 @ wo2[1]
 
 
 class LSTMStack(torch.autograd.Function):
