@@ -176,6 +176,10 @@ def main() -> int:
     return 0
 
 
+# the port's kernels by name: "scan_kernel" matches the training pair's
+# resid_scan_kernel and bwd_scan_kernel and lstm_bwd.cu's scan_kernel;
+# gemm_kernel and colsum_kernel are csrc/products.cu's (the residual
+# forward's input product among them)
 PORT_KERNELS = ("bilstm2_kernel", "lstm_kernel", "gemm_kernel", "scan_kernel", "colsum_kernel")
 
 

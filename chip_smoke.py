@@ -21,13 +21,18 @@ Phases, each of which fails the script (nonzero exit, no result line):
    intra and an inter scan), every SI-SDR finite;
 4. card vs CPU on one 2 s request (>= 50 dB SNR, fp32) and the request
    bucketed with a longer one against the request run alone;
-5. training kernels vs plain: the residual forward and the backward
-   (csrc/bilstm2_bwd.cu) against their plain versions at the training
-   batch's scan shapes (5 x 3 s: intra R=970 T=250, inter R=1250 T=194) and
-   masked at phase 2's inter shape (fp32; max abs error <= 1e-4, dW and db
-   within DW_REL_TOL of max |ref|, and the backward bit for bit the same on
-   a second call), timed beside the plain versions and cuDNN's LSTM forward,
-   backward and both (TF32 off, on a PackedSequence in masked mode);
+5. training kernels vs plain: the residual forward (the input product of
+   csrc/products.cu, then the cluster scan of csrc/bilstm2_resid.cu) and the
+   backward (the cluster scan of csrc/bilstm2_bwd.cu, then the products)
+   against their plain versions at the training batch's scan shapes (5 x 3
+   s: intra R=970 T=250, inter R=1250 T=194) and masked at phase 2's inter
+   shape (fp32; max abs error <= 1e-4 on the outputs and all seven residual
+   streams, dx within 1e-4, dW and db within DW_REL_TOL of max |ref|, both
+   bit for bit the same on a second call), timed beside the plain versions
+   and cuDNN's LSTM forward, backward and both (TF32 off, on a PackedSequence
+   in masked mode); and each of the training pair's four products on its own
+   at the two unmasked shapes, against torch.matmul (within DW_REL_TOL of
+   max |ref|), timed beside it;
 6. the training path: TrainerSpe.run for 2 epochs at full flagship width and
    depth on in-memory crops from a seed (12 residual-forward and 12 backward
    launches per train step, 12 inference launches per eval step, finite
@@ -182,6 +187,14 @@ def all_launches():
     from tss_dprnn_tpu_torch.ops import bilstm2, lstm
 
     return {e.__name__: e.launches for e in (*bilstm2.ENTRIES, *lstm.ENTRIES)}
+
+
+def product_launches():
+    """The product and column-sum kernels' launch counts (csrc/products.cu),
+    launched inside the training entries."""
+    from tss_dprnn_tpu_torch.ops import bilstm2
+
+    return bilstm2.product_launch_counts()
 
 
 def reset_launches() -> None:
@@ -346,23 +359,95 @@ def train_shapes():
 
 def bound_resid(rows_steps: int, R: int, T: int, F: int, H: int):
     """The residual forward's least time: the inference forward's FLOPs and
-    bytes (fp32) plus its three H-wide fp32 streams per direction written."""
+    bytes (fp32) plus its three H-wide fp32 streams per direction and the
+    gate pre-activations (4H per direction) written."""
     flops = 2 * rows_steps * 2 * (F + H) * 4 * H
-    nbytes = (rows_steps * F + 8 * R * T * H) * 4 + 2 * (F + H + 1) * 4 * H * 4
+    nbytes = (rows_steps * F + 8 * R * T * H + 8 * R * T * H) * 4 + 2 * (F + H + 1) * 4 * H * 4
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def bound_backward(rows_steps: int, R: int, T: int, F: int, H: int):
-    """The backward's least time: 3 x 2 (F + H) 4H FLOP per row-step and
-    direction (gates again, dh, dx, dW_ih, dW_hh) over the row-steps the data
-    needs, or x, the six residual streams and both cotangents read once,
-    the weights read once, and dx, dW and db written once, over the HBM
-    rate (fp32)."""
-    flops = 2 * rows_steps * 3 * 2 * (F + H) * 4 * H
-    nbytes = (rows_steps * (F + 8 * H) + R * T * F) * 4 + 2 * 2 * (F + H + 1) * 4 * H * 4
+    """The backward's least time: 2 x 2 (F + H) 4H FLOP per row-step and
+    direction over the row-steps the data needs (dh = dpre @ W_hh^T and
+    dW_hh = h_prev^T dpre over the H-wide half, dx = dpre @ W_ih^T and
+    dW_ih = x^T dpre over the F-wide half; the forward saved the gate
+    pre-activations, so none is recomputed, as in cuDNN), or x, the six
+    residual streams, both cotangents and the saved pre-activations (8H per
+    row-step) read once, the weights read once, and dx, dW and db written
+    once, over the HBM rate (fp32)."""
+    flops = 2 * rows_steps * 2 * 2 * (F + H) * 4 * H
+    nbytes = ((rows_steps * (F + 16 * H) + R * T * F) * 4
+              + 2 * 2 * (F + H + 1) * 4 * H * 4)
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_products(torch, x, resid, w):
+    """The training pair's four products (csrc/products.cu) on their own at
+    one scan shape, each against torch.matmul on the same inputs (the plain
+    version, and the library call), bit for bit the same on a second call,
+    timed beside it. The inputs are the forward's: x, h_prev of direction 0
+    and the saved pre-activations standing in for dpre."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    w_ih2, b2, w_hh2 = w
+    R, T, F = x.shape
+    H = w_hh2.shape[1]
+    G, M = 4 * H, R * T
+    lib = B2._library_products()
+    stream = torch.cuda.current_stream().cuda_stream
+    pre, hp0 = resid[6], resid[0]
+    x2, pre2, hp2 = x.reshape(M, F), pre.reshape(M, 2 * G), hp0.reshape(M, H)
+    w_cat = w_ih2.transpose(0, 1).reshape(F, 2 * G).contiguous()
+    w_ih_t = w_ih2.transpose(1, 2).reshape(2 * G, F).contiguous()
+    bias = b2.reshape(-1)
+    out_p = torch.empty(M, 2 * G, device=x.device)
+    out_dx = torch.empty(M, F, device=x.device)
+
+    def into(out, *args, **kw):
+        B2._gemm(lib, stream, *args, out=out, **kw)
+        return out
+
+    # name: (kernel, plain, M, N, K, launches per training pair)
+    cases = {
+        "input": (lambda: into(out_p, False, [(x, 0, F, w_cat, 0, 2 * G, F)], M, 2 * G,
+                               ldc=2 * G, bias=bias),
+                  lambda: torch.addmm(bias, x2, w_cat), M, 2 * G, F, 1),
+        "dx": (lambda: into(out_dx, False, [(pre, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F, ldc=F),
+               lambda: pre2 @ w_ih_t, M, F, 2 * G, 1),
+        "dw_ih": (lambda: B2._gemm(lib, stream, True, [(x, 0, F, pre, 0, 2 * G, M)], F, 2 * G),
+                  lambda: x2.T @ pre2, F, 2 * G, M, 1),
+        "dw_hh": (lambda: B2._gemm(lib, stream, True, [(hp0, 0, H, pre, 0, 2 * G, M)], H, G),
+                  lambda: hp2.T @ pre2[:, :G], H, G, M, 2),
+    }
+    out = {}
+    for name, (kernel, plain, m, n, k, per_pair) in cases.items():
+        got = kernel().clone()
+        again = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        repeat = torch.equal(got, again)
+        del got, again, want
+        flops = 2 * m * n * k
+        t_ops, t_bytes = flops / PEAK_FP32, (m * k + k * n + m * n) * 4 / PEAK_BYTES
+        ms, plain_ms = time_ms(kernel, 5), time_ms(plain, 5)
+        out[name] = {"M": m, "N": n, "K": k, "launches_per_pair": per_pair, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": plain_ms,
+                     "bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "tflops": flops / ms / 1e9, "library_tflops": flops / plain_ms / 1e9,
+                     "rel_err": rel, "bitwise_repeat": repeat}
+        log(f"[train-kernels] product {name} M={m} N={n} K={k}: {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; torch.matmul {plain_ms:.3f} ms, "
+            f"{flops / plain_ms / 1e9:.1f} TFLOP/s; bound {out[name]['bound_ms']:.3f}), "
+            f"max|err|/max|ref| {rel:.3e}, repeats bit for bit: {repeat}")
+        if not (rel <= DW_REL_TOL and repeat):
+            raise AssertionError(f"product {name} disagrees with torch.matmul or does not "
+                                 f"repeat: {rel}, {repeat}")
+    del out_p, out_dx
+    return out
 
 
 def phase_backward_kernels(torch, dev):
@@ -394,6 +479,9 @@ def phase_backward_kernels(torch, dev):
         if ln is not None:  # out0 past a row's length is unspecified: consumers mask it
             g0 = g0 * valid[..., None]
         rows_steps = R * T if ln is None else int(ln.sum())
+        tiles = {which: B2._plan(which, R, H, x.device)._asdict() for which in ("resid", "bwd")}
+        for which, plan in tiles.items():
+            plan["max_clusters"] = B2._max_clusters(which, H, x.device.index)
 
         def fwd(kernel=True, x=x, ln=ln):
             if not kernel:
@@ -409,8 +497,12 @@ def phase_backward_kernels(torch, dev):
                 return B2.bilstm2_backward(x, resid, g0, g1, *w)
             return B2.bilstm2_backward_masked(x, resid, g0, g1, *w, ln)
 
-        # residual forward: outputs and the six streams on the contract's region
+        # residual forward: outputs and the seven streams on the contract's region
         (o0, o1), resid = fwd()
+        (a0, a1), again = fwd()
+        torch.cuda.synchronize()
+        fwd_repeat = all(torch.equal(a, b) for a, b in zip((o0, o1, *resid), (a0, a1, *again)))
+        del a0, a1, again
         (p0, p1), presid = fwd(kernel=False)
         fwd_err = max(float((o1 - p1).abs().max()), float((o0 - p0)[valid].abs().max()),
                       *(float((a - b)[valid].abs().max()) for a, b in zip(resid, presid)))
@@ -428,11 +520,14 @@ def phase_backward_kernels(torch, dev):
                      for a, b in zip(got[1:], want[1:]))
         dw_snr = min(snr_db(a, b) for a, b in zip(got[1:], want[1:]))
         del got, want
-        log(f"[train-kernels] {name} R={R} T={T}: resid fwd max|err|={fwd_err:.3e}; backward "
-            f"dx max|err|={dx_err:.3e}, dW/db max|err|={dw_err:.3e}, /max|ref|={dw_rel:.3e} "
-            f"(SNR >= {dw_snr:.1f} dB), repeats bit for bit: {repeat}")
-        if not fwd_err <= 1e-4:
-            raise AssertionError(f"resid forward {name} disagrees with its plain version: {fwd_err}")
+        products = check_products(torch, x, resid, w) if ln is None else None
+        log(f"[train-kernels] {name} R={R} T={T}: resid fwd max|err|={fwd_err:.3e} (repeats bit "
+            f"for bit: {fwd_repeat}); backward dx max|err|={dx_err:.3e}, dW/db max|err|="
+            f"{dw_err:.3e}, /max|ref|={dw_rel:.3e} (SNR >= {dw_snr:.1f} dB), repeats bit for "
+            f"bit: {repeat}; tile plan {tiles}")
+        if not (fwd_err <= 1e-4 and fwd_repeat):
+            raise AssertionError(f"resid forward {name} disagrees with its plain version or does "
+                                 f"not repeat: {fwd_err}, {fwd_repeat}")
         if not (dx_err <= 1e-4 and dw_rel <= DW_REL_TOL and repeat):
             raise AssertionError(f"backward {name} disagrees with its plain version or does not "
                                  f"repeat: dx {dx_err}, dW/db {dw_rel}, repeat {repeat}")
@@ -482,8 +577,9 @@ def phase_backward_kernels(torch, dev):
             f"(cuDNN vs plain out1 max|err| {lib_err:.3e})")
         results[name] = dict(nums, R=R, T=T, rows_steps=rows_steps, resid_max_abs_err=fwd_err,
                              dx_max_abs_err=dx_err, dw_max_abs_err=dw_err, dw_rel_err=dw_rel,
-                             dw_snr_db=dw_snr,
-                             bitwise_repeat=repeat, library_max_abs_err=lib_err)
+                             dw_snr_db=dw_snr, fwd_bitwise_repeat=fwd_repeat,
+                             bitwise_repeat=repeat, library_max_abs_err=lib_err,
+                             tile_plan=tiles, products=products)
         del x, g0, g1, resid, lstm, xr, params, out, cot
         torch.cuda.empty_cache()
     return results
@@ -504,12 +600,15 @@ def train_kernel_entries(results, launches):
 
     entries = []
     for which, name, source, replaces in (
-            ("resid", "bilstm2_forward_resid", "tss_dprnn_tpu_torch/csrc/bilstm2.cu",
+            ("resid", "bilstm2_forward_resid", "tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu",
              "tss_dprnn_tpu/ops/pallas_lstm.py:698"),
             ("backward", "bilstm2_backward", "tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu",
              "tss_dprnn_tpu/ops/pallas_lstm.py:1224")):
         e = {"name": name, "mode": f"{which}, intra", "dtype": "float32", "route": "cuda",
-             "source": source, "replaces": replaces, "launches": launches[name],
+             "source": source, "with": "tss_dprnn_tpu_torch/csrc/products.cu",
+             "cluster": "2 CTAs, W_hh resident in shared memory",
+             "tile_plan": {s: results[s]["tile_plan"] for s in ("intra", "inter", "masked")},
+             "launches": launches[name],
              **numbers(results["intra"], which),
              "inter": numbers(results["inter"], which),
              "masked": dict(numbers(results["masked"], which), name=f"{name}_masked",
@@ -520,7 +619,31 @@ def train_kernel_entries(results, launches):
                 sub["dw_rel_err"] = results[shape]["dw_rel_err"]
                 sub["dx_max_abs_err"] = results[shape]["dx_max_abs_err"]
             e["bitwise_repeat"] = all(results[s]["bitwise_repeat"] for s in results)
+        else:
+            e["bitwise_repeat"] = all(results[s]["fwd_bitwise_repeat"] for s in results)
         entries.append(e)
+
+    def product_numbers(shape):
+        prods = results[shape]["products"]
+        total = {k: sum(p[k] * p["launches_per_pair"] for p in prods.values())
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        return dict(total, bound_by="operations" if all(
+            p["bound_by"] == "operations" for p in prods.values()) else "bytes",
+                    max_abs_err=None, max_rel_err=max(p["rel_err"] for p in prods.values()),
+                    products=prods)
+
+    intra = product_numbers("intra")
+    intra["max_abs_err"] = intra.pop("max_rel_err")  # relative to max |ref|, as DW_REL_TOL
+    entries.append({
+        "name": "products_gemm", "mode": "the training pair's 5 products per scan, intra "
+        "(input 1, dx 1, dW_ih 1, dW_hh 2; ms summed)", "dtype": "float32", "route": "cuda",
+        "source": "tss_dprnn_tpu_torch/csrc/products.cu",
+        "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:1224",
+        "launches": launches["products_gemm"], **intra,
+        "max_abs_err_is": "max |err| / max |ref| (torch.matmul on the same inputs)",
+        "inter": product_numbers("inter"),
+        "bitwise_repeat": all(p["bitwise_repeat"] for s in ("intra", "inter")
+                              for p in results[s]["products"].values())})
     return entries
 
 
@@ -911,14 +1034,20 @@ def training_family(name: str):
                     trainer=training.TrainerSpe, inferencer=inference.InferencerSpe,
                     collate=loader.collate_spe, crops=Crops, config=TRAIN_CONFIG,
                     per_train_step={"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n},
-                    per_eval_step={"bilstm2_forward": 2 * n})
+                    per_eval_step={"bilstm2_forward": 2 * n},
+                    # 1 input product per residual forward, dx + dW_ih + 2 dW_hh per backward
+                    products_per_train_step={"products_gemm": 2 * n * 5,
+                                             "products_colsum": 2 * n})
     n = BSS["n_repeats"]  # a fused bidirectional intra and a one-direction inter scan per block
     return dict(tag="bss-train", model=lambda: DPRNNTasNet(**BSS), seed=SEED + 26,
                 trainer=training.Trainer, inferencer=inference.Inferencer,
                 collate=loader.collate_bss, crops=Mixtures, config=BSS_TRAIN_CONFIG,
                 per_train_step={"bilstm2_forward_resid": n, "bilstm2_backward": n,
                                 "lstm_forward_resid": n, "lstm_backward": n},
-                per_eval_step={"bilstm2_forward": n, "lstm_forward": n})
+                per_eval_step={"bilstm2_forward": n, "lstm_forward": n},
+                # the fused pair's 5, and lstm_backward's gates + dx + dW_ih + dW_hh at D = 1
+                products_per_train_step={"products_gemm": n * 5 + n * 4,
+                                         "products_colsum": 2 * n})
 
 
 def phase_training(torch, dev, fam):
@@ -963,6 +1092,7 @@ def phase_training(torch, dev, fam):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = all_launches()
+    products = product_launches()
     n_train, n_eval = 2 * len(train_loader), 2 * len(eval_loader)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[{tag}] {fam['trainer'].__name__}.run: {n_train} train + {n_eval} eval steps of "
@@ -973,6 +1103,9 @@ def phase_training(torch, dev, fam):
     expect_launches(launches, per_run, 1, f"{tag} run of {n_train} train and {n_eval} eval steps "
                     f"({fam['per_train_step']} per train step, {fam['per_eval_step']} per eval "
                     "step)")
+    expect_launches(products, fam["products_per_train_step"], n_train,
+                    f"{tag} run's products ({n_train} train steps)")
+    launches.update(products)
     if len(epoch_losses) != 4 or not all(math.isfinite(v) for _, v in epoch_losses):
         raise AssertionError(f"non-finite or missing epoch losses: {epoch_losses}")
     files = sorted(os.listdir(ckpt_dir))
@@ -1002,12 +1135,13 @@ def phase_training(torch, dev, fam):
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / 8 * 1e3
     losses = [float(v) for v in losses]
-    repeated = all_launches()
+    repeated = dict(all_launches(), **product_launches())
     log(f"[{tag}] 10 steps on one batch: losses {[round(v, 4) for v in losses]}; steady state "
         f"{ms_step:.2f} ms/step at {TRAIN_BATCH} x {TRAIN_SECONDS} s")
     if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"10 steps on one batch did not lower the loss: {losses}")
-    expect_launches(repeated, fam["per_train_step"], 10, f"{tag} 10 train steps")
+    expect_launches(repeated, dict(fam["per_train_step"], **fam["products_per_train_step"]), 10,
+                    f"{tag} 10 train steps")
     del tr
 
     # -- one step from the same weights, card vs CPU, at full width on 1 x 1 s
@@ -1433,7 +1567,8 @@ def main() -> int:
     log(f"[setup] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = ("bilstm2", "bilstm2_bwd", "lstm", "lstm_bwd", "bilstm2_bm", "lstm_v2")
+    libraries = ("bilstm2", "bilstm2_resid", "bilstm2_bwd", "products", "lstm", "lstm_bwd",
+                 "bilstm2_bm", "lstm_v2")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "
@@ -1496,8 +1631,8 @@ def main() -> int:
                                                   "lstm_forward": bss_serve["launches"]["lstm_forward"]})
     for e in entries:  # the BSS paths launch the fused bidirectional kernels too
         if e["name"] in bss_train["launches"]:
-            e["launches_bss"] = {"serving": bss_serve["launches"][e["name"]]
-                                 + bss_serve_bi["launches"][e["name"]],
+            e["launches_bss"] = {"serving": bss_serve["launches"].get(e["name"], 0)
+                                 + bss_serve_bi["launches"].get(e["name"], 0),
                                  "training": bss_train["launches"][e["name"]]}
 
     t0 = time.perf_counter()

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where the training scans' time goes: time the fused bidirectional LSTM's
+training pair with parts of its two cluster scans cut out.
+
+    python3 scripts/port/scan_probe.py [variant ...]
+
+Needs one CUDA card. Each variant is a copy of ``tss_dprnn_tpu_torch/csrc``
+with one edit made to ``bilstm2_resid.cu`` and ``bilstm2_bwd.cu``, written
+under ``chiprun_out/scan_probe/<variant>/`` and built and timed in a process
+of its own (``_build.CSRC_DIR`` pointed at the copy):
+
+- ``base``: the sources as they are;
+- ``no_fma``: the recurrent products (h @ W_hh forward, dpre @ W_hh^T
+  backward) skipped: what is left is each step's fixed cost (the staged
+  inputs, the cell or gate arithmetic, the stores, the exchange and the
+  cluster barrier);
+- ``no_cell``: the sigmoid and tanh of every gate replaced by the identity;
+- ``no_store``: the per-step stores to device memory skipped (pre and the
+  residual streams forward, dpre backward).
+
+Only ``base`` computes the function; the others are timing probes. Each
+prints one JSON line ``RESULT {...}`` with, at the training batch's intra
+(R=970 T=250) and inter (R=1250 T=194) shapes, the residual forward's and
+the backward's ms (CUDA events, mean of 5 after a warm-up) and the input
+product's ms on its own, so that the scan's share is forward minus input
+product. The variants run in turns, base first and last.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]
+OUT = HERE / "chiprun_out" / "scan_probe"
+SRC = HERE / "tss_dprnn_tpu_torch" / "csrc"
+
+# variant -> [(file, text, replacement, count)]
+EDITS = {
+    "base": [],
+    "no_fma": [("bilstm2_resid.cu", "for (int k = 0; k < H; k += 4) {",
+                "for (int k = 0; k < 0; k += 4) {", 1),
+               ("bilstm2_bwd.cu", "for (int k = 0; k < 2 * H; k += 4) {",
+                "for (int k = 0; k < 0; k += 4) {", 1)],
+    "no_cell": [("bilstm2_resid.cu", "sigmoid_f(", "(", 3), ("bilstm2_resid.cu", "tanhf(", "(", 2),
+                ("bilstm2_bwd.cu", "sigmoid_f(", "(", 3), ("bilstm2_bwd.cu", "tanhf(", "(", 1)],
+    "no_store": [("bilstm2_resid.cu", "      if (gr < R) {\n        float* pp = pre_at(gr, t);",
+                  "      if (gr < 0) {\n        float* pp = pre_at(gr, t);", 1),
+                 ("bilstm2_bwd.cu", "      if (gr < R) {\n        float* gp = dpre + gate_off(gr, t);",
+                  "      if (gr < 0) {\n        float* gp = dpre + gate_off(gr, t);", 1)],
+}
+
+
+def make_variant(name: str) -> Path:
+    """Copy the sources and apply the variant's edits (each must match
+    exactly the stated number of times)."""
+    dst = OUT / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(SRC, dst)
+    for fname, text, repl, count in EDITS[name]:
+        path = dst / fname
+        src = path.read_text()
+        if src.count(text) != count:
+            raise RuntimeError(f"{name}: {fname} holds {src.count(text)} of {text!r}, not {count}")
+        path.write_text(src.replace(text, repl))
+    return dst
+
+
+def measure(name: str) -> dict:
+    """Build the variant's kernels and time the training pair (in this
+    process, which must not have loaded any kernel yet)."""
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from tss_dprnn_tpu_torch.ops import _build
+
+    _build.CSRC_DIR = make_variant(name)
+    import chip_smoke
+    from tss_dprnn_tpu_torch.device import resolve_device
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    dev = resolve_device()
+    F = H = 128
+    g = torch.Generator().manual_seed(chip_smoke.SEED + 5)
+    k = H ** -0.5
+    w_ih2, b2, w_hh2 = ((torch.rand(*s, generator=g) * 2 * k - k).to(dev)
+                        for s in ((2, F, 4 * H), (2, 4 * H), (2, H, 4 * H)))
+    w = (w_ih2, b2, w_hh2)
+    lib = B2._library_products()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"variant": name, "card": torch.cuda.get_device_name(0)}
+    for shape, (R, T) in chip_smoke.train_shapes().items():
+        x = torch.randn(R, T, F, generator=g).to(dev)
+        g0, g1 = (torch.randn(R, T, H, generator=g).to(dev) for _ in range(2))
+        _, resid = B2.bilstm2_forward_resid(x, *w)
+        w_cat = w_ih2.transpose(0, 1).reshape(F, 8 * H).contiguous()
+        pre = torch.empty(R, T, 2, 4 * H, device=dev)
+        out[shape] = {
+            "R": R, "T": T,
+            "fwd_ms": chip_smoke.time_ms(lambda: B2.bilstm2_forward_resid(x, *w), 5),
+            "bwd_ms": chip_smoke.time_ms(lambda: B2.bilstm2_backward(x, resid, g0, g1, *w), 5),
+            "input_product_ms": chip_smoke.time_ms(
+                lambda: B2._gemm(lib, stream, False, [(x, 0, F, w_cat, 0, 8 * H, F)], R * T,
+                                 8 * H, out=pre, ldc=8 * H, bias=b2), 5)}
+        del x, g0, g1, resid, pre
+        torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        print("RESULT " + json.dumps(measure(sys.argv[2])), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("scan_probe: no CUDA device", file=sys.stderr)
+        return 2
+    names = sys.argv[1:] or [n for n in EDITS if n != "base"]
+    order = ["base", *names, "base"]
+    rc = 0
+    for name in order:
+        proc = subprocess.run([sys.executable, __file__, "--one", name], capture_output=True,
+                              text=True, timeout=600, env=dict(os.environ))
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode or not lines:
+            print(f"{name}: failed ({proc.returncode})\n{proc.stderr[-3000:]}", flush=True)
+            rc = 1
+            continue
+        print(lines[-1], flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

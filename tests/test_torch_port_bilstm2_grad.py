@@ -5,8 +5,9 @@ against the JAX package's Pallas entries in interpret mode on the CPU.
 
 On a CPU tensor each entry runs its plain PyTorch version, so these tests
 hold those versions' contract against the TPU kernels'. Tolerances: 1e-5
-absolute for the forward and its residual streams (fp32, sums in another
-order); 1e-4 absolute for the backward, whose dW and db are sums over all
+absolute for the forward and its residual streams, the saved gate
+pre-activations among them (fp32, sums in another order); 1e-4 absolute for
+the backward, whose dW and db are sums over all
 R * T row-steps. The plain backward is also held against torch.autograd
 through the plain forward, an oracle independent of the hand derivation.
 The CUDA kernels are compared with the plain versions on the card (the
@@ -103,6 +104,92 @@ def test_resid_forward_masked_matches_pallas(rng, interpret, R, T, lens):
     for r, n in enumerate(lens):
         np.testing.assert_allclose(got0.numpy()[r, :n], np.asarray(want0)[r, :n], atol=ATOL_FWD,
                                    rtol=0)
+
+
+def _pre_from_jax(x, w, jax_resid, R, T):
+    """x @ W_ih[d] + h_prev @ W_hh[d] + b[d] from the JAX entries' h_prev
+    streams, in float64: [R, T, 2, 4H]."""
+    w_ih2, b2, w_hh2 = (np.asarray(a, np.float64) for a in w)
+    hp = _jax_streams(jax_resid, R, T)
+    return np.stack([x.astype(np.float64) @ w_ih2[d] + hp[3 * d].astype(np.float64) @ w_hh2[d]
+                     + b2[d] for d in (0, 1)], axis=2)
+
+
+@pytest.mark.parametrize("R,T,lens", [(R, T, None) for R, T in SHAPES] + MASKED)
+def test_resid_pre_matches_jax_streams(rng, interpret, R, T, lens):
+    """The seventh residual stream: the gate pre-activations of every
+    row-step and direction, as the backward reads them, against the ones
+    built from the JAX entries' h_prev streams (on live steps when masked)."""
+    from tss_dprnn_tpu.ops import pallas_lstm
+
+    F, H = 16, 16
+    x = rng.standard_normal((R, T, F)).astype(np.float32)
+    w = _weights(rng, F, H)
+    if lens is None:
+        _, jax_resid = pallas_lstm.bilstm2_forward_resid(x, *w)
+        _, resid = port.bilstm2_forward_resid(*_torch(x, *w))
+        live = np.ones((R, T), bool)
+    else:
+        lens = np.asarray(lens, np.int32)
+        _, jax_resid = pallas_lstm.bilstm2_forward_resid_masked(x, lens, *w)
+        _, resid = port.bilstm2_forward_resid_masked(*_torch(x, lens, *w))
+        live = np.arange(T)[None, :] < lens[:, None]
+    assert len(resid) == 7
+    pre = resid[6]
+    assert pre.shape == (R, T, 2, 4 * H) and pre.dtype == torch.float32
+    np.testing.assert_allclose(pre.numpy()[live], _pre_from_jax(x, w, jax_resid, R, T)[live],
+                               atol=ATOL_FWD, rtol=0)
+
+
+def test_backward_reads_saved_pre(rng):
+    """The backward takes the gates from the saved pre-activations and
+    recomputes none: moving one saved gate moves that direction's dW_hh
+    and no other, and another forward's pre moves db."""
+    R, T, F, H = 4, 6, 16, 16
+    x = rng.standard_normal((R, T, F)).astype(np.float32)
+    w = _weights(rng, F, H)
+    g0, g1 = _cotangents(rng, R, T, H)
+    xt, *wt = _torch(x, *w)
+    gt = _torch(g0, g1)
+    _, resid = port.bilstm2_resid_reference(xt, *wt)
+    want = port.bilstm2_backward_reference(xt, resid, *gt, *wt)
+    moved = resid[6].clone()
+    moved[1, 2, 0, :H] += 0.5  # direction 0's input gate at one row-step
+    got = port.bilstm2_backward_reference(xt, (*resid[:6], moved), *gt, *wt)
+    assert not torch.equal(got[3][0], want[3][0])
+    torch.testing.assert_close(got[3][1], want[3][1], atol=0, rtol=0)  # direction 1 untouched
+    # x's own streams with another forward's gates: db follows the gates
+    x2 = torch.from_numpy(rng.standard_normal((R, T, F)).astype(np.float32))
+    _, resid2 = port.bilstm2_resid_reference(x2, *wt)
+    swapped = port.bilstm2_backward_reference(xt, (*resid[:6], resid2[6]), *gt, *wt)
+    assert not torch.allclose(swapped[2], want[2])
+
+
+@pytest.mark.parametrize("R", [1, 15, 970, 1250, 2000, 5136])
+@pytest.mark.parametrize("max_clusters", [1, 8, 62, 66, 132])
+def test_tile_planner(R, max_clusters):
+    """Every row in exactly one tile; one wave where a compiled height gives
+    one, and then the smallest such height."""
+    plan = port.plan_tiles(R, max_clusters)
+    assert plan.height in port.TILE_HEIGHTS
+    covered = np.zeros(R, int)
+    for tile in range(plan.tiles):  # tile i holds rows i * height .. (i + 1) * height - 1
+        first = tile * plan.height
+        assert first < R
+        covered[first:first + plan.height] += 1
+    assert np.all(covered == 1)
+    fits = [h for h in port.TILE_HEIGHTS if 2 * -(-R // h) <= max_clusters]
+    if fits:
+        assert plan.clusters <= max_clusters and plan.height == fits[0]
+    else:
+        waves = -(-plan.clusters // max_clusters)
+        assert all(waves * plan.height <= -(-2 * -(-R // h) // max_clusters) * h
+                   for h in port.TILE_HEIGHTS)
+
+
+def test_tile_planner_rejects_no_cluster():
+    with pytest.raises(ValueError, match="no cluster"):
+        port.plan_tiles(970, 0)
 
 
 @pytest.mark.parametrize("R,T", SHAPES)
@@ -276,13 +363,17 @@ def test_lstm_pair_without_grad_takes_inference_entry(rng):
 
 # ---------------------------------------------------------------- on the card
 
-def _card_case(masked, R=70, T=33, F=128, H=128, seed=0):
+def _card_case(masked, R=70, T=33, F=128, H=128, seed=0, edge_lens=False):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((R, T, F)).astype(np.float32)).cuda()
     w = [t.cuda() for t in _torch(*_weights(rng, F, H))]
     w = [w[0] * 0.3, w[1], w[2] * 0.3]
-    lens = (torch.from_numpy(rng.integers(1, T + 1, R).astype(np.int32)).cuda()
-            if masked else None)
+    lens = None
+    if masked:
+        ln = rng.integers(0 if edge_lens else 1, T + 1, R).astype(np.int32)
+        if edge_lens:  # rows of length 0 and T
+            ln[::3], ln[1::5] = 0, T
+        lens = torch.from_numpy(ln).cuda()
     g0, g1 = (torch.from_numpy(g).cuda()
               for g in _cotangents(rng, R, T, H, None if lens is None else lens.cpu().numpy()))
     return x, w, lens, g0, g1
@@ -298,7 +389,7 @@ def _needs_card():
 def test_resid_kernel_matches_reference_on_card(masked):
     """On the card (``python -m pytest --noconftest -m cuda
     tests/test_torch_port_bilstm2_grad.py``): 1e-4 absolute, fp32, on the
-    region the contract specifies."""
+    region the contract specifies, the saved pre-activations included."""
     _needs_card()
     x, w, lens, _, _ = _card_case(masked)
     before = port.bilstm2_forward_resid_masked.launches if masked else \
@@ -315,7 +406,7 @@ def test_resid_kernel_matches_reference_on_card(masked):
              else torch.arange(T, device="cuda")[None, :] < lens[:, None])
     torch.testing.assert_close(got[0][1], want[0][1], atol=1e-4, rtol=0)
     torch.testing.assert_close(got[0][0][valid], want[0][0][valid], atol=1e-4, rtol=0)
-    for name, a, b in zip(STREAMS, got[1], want[1]):
+    for name, a, b in zip(STREAMS + ("pre",), got[1], want[1]):
         torch.testing.assert_close(a[valid], b[valid], atol=1e-4, rtol=0, msg=name)
 
 
@@ -356,3 +447,85 @@ def test_training_kernels_reject_bf16():
     with pytest.raises(ValueError, match="float32 only"):
         port.bilstm2_backward(x.bfloat16(), resid, g0, g1, *w)
     assert port.launch_count() == before
+
+
+# ragged R that no tile height divides, T = 1, lengths of 0 and T
+RAGGED_CARD = [(37, 9, False), (1001, 17, False), (37, 1, False), (1001, 1, True),
+               (37, 21, True), (203, 13, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T,masked", RAGGED_CARD)
+def test_training_pair_ragged_on_card(R, T, masked):
+    """Both cluster scans and their products on shapes the tile planner
+    cannot tile evenly: the forward's outputs and seven streams within 1e-4
+    on the contract's region, the backward's dx within 1e-4 and dW/db within
+    1e-3, both bit for bit the same on a second call."""
+    _needs_card()
+    x, w, lens, g0, g1 = _card_case(masked, R=R, T=T, edge_lens=masked)
+
+    def fwd():
+        if masked:
+            return port.bilstm2_forward_resid_masked(x, lens, *w)
+        return port.bilstm2_forward_resid(x, *w)
+
+    got, again = fwd(), fwd()
+    want = port.bilstm2_resid_reference(x, *w, lens)
+    valid = (torch.ones(R, T, dtype=torch.bool, device="cuda") if lens is None
+             else torch.arange(T, device="cuda")[None, :] < lens[:, None])
+    torch.testing.assert_close(got[0][1], want[0][1], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[0][0][valid], want[0][0][valid], atol=1e-4, rtol=0)
+    for name, a, b, a2 in zip(STREAMS + ("pre",), got[1], want[1], again[1]):
+        torch.testing.assert_close(a[valid], b[valid], atol=1e-4, rtol=0, msg=name)
+        assert torch.equal(a, a2), name
+    resid = want[1]
+    if masked:
+        g0 = g0 * valid[..., None]
+        grads = [port.bilstm2_backward_masked(x, resid, g0, g1, *w, lens) for _ in range(2)]
+    else:
+        grads = [port.bilstm2_backward(x, resid, g0, g1, *w) for _ in range(2)]
+    ref = port.bilstm2_backward_reference(x, resid, g0, g1, *w, lens)
+    for name, a, b, a2 in zip(("dx", "dw_ih2", "db2", "dw_hh2"), grads[0], ref, grads[1]):
+        torch.testing.assert_close(a, b, atol=1e-4 if name == "dx" else 1e-3, rtol=0, msg=name)
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_col,two_parts,split,bias", [
+    (False, False, False, True), (False, True, False, False), (True, False, True, False),
+    (False, False, True, False), (True, True, True, False)])
+def test_product_kernel_on_card(a_col, two_parts, split, bias):
+    """csrc/products.cu against a float64 product: ragged M and N, one or two
+    parts, row or column layout of A, split-K partials; within 1e-4 of the
+    largest |C| and bit for bit the same on a second call."""
+    _needs_card()
+    g = torch.Generator().manual_seed(3)
+    # column layout takes M a multiple of 4
+    M, N, k1, k2 = 1004 if a_col else 1003, 196, 144, 128 if two_parts else 0
+    lib = port._library_products()
+    stream = torch.cuda.current_stream().cuda_stream
+    mats = [torch.randn(M, k1, generator=g), torch.randn(k1, N, generator=g),
+            torch.randn(M, k2, generator=g), torch.randn(k2, N, generator=g)]
+    want = mats[0].double() @ mats[1].double() + mats[2].double() @ mats[3].double()
+    b = torch.randn(N, generator=g)
+    if bias:
+        want += b.double()
+    a1, b1, a2, b2 = (t.cuda() for t in mats)
+    if a_col:  # A given as its transpose, element (m, k) at a[k * M + m]
+        a1, a2 = a1.T.contiguous(), a2.T.contiguous()
+    lda = (M, M) if a_col else (k1, k2)
+    parts = [(a1, 0, lda[0], b1, 0, N, k1)] + ([(a2, 0, lda[1], b2, 0, N, k2)] if two_parts else [])
+
+    def run():
+        if split:
+            return port._gemm(lib, stream, a_col, parts, M, N)
+        out = torch.empty(M, N, device="cuda")
+        port._gemm(lib, stream, a_col, parts, M, N, out=out, ldc=N,
+                   bias=b.cuda() if bias else None)
+        return out
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double().cpu(), want, atol=1e-4 * float(want.abs().max()),
+                               rtol=0)
+    assert torch.equal(got, again)

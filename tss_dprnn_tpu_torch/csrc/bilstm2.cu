@@ -1,9 +1,9 @@
-// Fused bidirectional LSTM scan for Hopper (sm_90a): inference modes, the
-// training forward's residual mode and the dense (fused SplitDense) mode.
+// Fused bidirectional LSTM scan for Hopper (sm_90a): inference modes and the
+// dense (fused SplitDense) mode.
 //
 // Replaces the TPU kernel `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698)
-// in its unmasked, masked, residual (`want_resid`) and dense modes. Per step and
-// direction d:
+// in its unmasked, masked and dense modes (its residual mode is the training
+// forward of csrc/bilstm2_resid.cu). Per step and direction d:
 //   g = x_t @ W_ih[d] + h @ W_hh[d] + b[d]      (fp32 accumulator)
 //   i, f, o = sigmoid(g_i, g_f, g_o); gg = tanh(g_g)   (torch gate order i, f, g, o)
 //   c = f * c + i * gg                          (fp32)
@@ -11,11 +11,6 @@
 // Direction 0 scans t = 0..T-1, direction 1 scans t = T-1..0; both write their
 // output at forward time t. Masked mode: direction 1 holds (h, c) at zero while
 // t >= len[row], so out1[t >= len] = 0; out0[t >= len] is unspecified (finite).
-// Residual mode (fp32, a compile-time flag): per step and direction it also
-// stores h and c before the update and tanh(c) after it, each [R, T, H] at
-// forward time t, for the backward (csrc/bilstm2_bwd.cu). That is three stores
-// per step and no extra arithmetic. Masked, direction 1's h and c stay at the
-// zero state on held steps; past a row's length every stream is unspecified.
 // Dense mode (unmasked, a compile-time flag; `bilstm2_dense_forward`
 // pallas_lstm.py:969): the SplitDense product y_d = h_d @ wo[d] (wo [2, H, Fo],
 // fp32 holding stream-type values, Fo <= H) runs in each step's epilogue, in
@@ -53,26 +48,16 @@ constexpr int kRows = 32;      // rows per block
 constexpr int kKChunk = 16;    // k-rows of W per shared-memory chunk
 constexpr int kMaxThreads = 256;
 
-// The residual streams of the training forward, each [R, T, H] fp32.
-struct Resid {
-  float* hp0;
-  float* cp0;
-  float* tc0;
-  float* hp1;
-  float* cp1;
-  float* tc1;
-};
-
 // Grid (ceil(R / 32), 2): blockIdx.y is the direction. Threads: 2H (8 row
 // groups x H/4 unit groups). x [R, T, F] and the outputs [R, T, H] are
-// contiguous. kResid stores the residual streams as well; kDense writes
-// out_d = h_d @ wo[d], [R, T, Fo], in place of h_d (lens must be null).
-template <typename T, bool kResid, bool kDense>
+// contiguous. kDense writes out_d = h_d @ wo[d], [R, T, Fo], in place of h_d
+// (lens must be null).
+template <typename T, bool kDense>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                const float* __restrict__ w_hh, const float* __restrict__ b,
                const int* __restrict__ lens, T* __restrict__ out0, T* __restrict__ out1,
-               Resid resid, const float* __restrict__ wo, int R, int Tn, int F, int H, int Fo) {
+               const float* __restrict__ wo, int R, int Tn, int F, int H, int Fo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
   const int K = F + H;
@@ -94,16 +79,6 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   // 64-bit row offset, 32-bit offset within the row: this form leaves
   // ptxas no spills at the 128-register cap, both stream types
   auto out_at = [&](int gr, int t) { return out + static_cast<long long>(gr) * (Tn * H) + t * H; };
-  // the residual streams share the outputs' offsets
-  auto resid_at = [&](float* p0, float* p1, int gr, int t) {
-    return (d == 0 ? p0 : p1) + static_cast<long long>(gr) * (Tn * H) + t * H;
-  };
-  auto store_resid = [&](int gr, int t, const float (&hpv)[4], const float (&cpv)[4],
-                         const float (&tcv)[4]) {
-    store4(resid_at(resid.hp0, resid.hp1, gr, t) + u4, hpv);
-    store4(resid_at(resid.cp0, resid.cp1, gr, t) + u4, cpv);
-    store4(resid_at(resid.tc0, resid.tc1, gr, t) + u4, tcv);
-  };
 
   // per-row lengths (masked mode) and the tile's longest row
   int rlen[4];
@@ -133,10 +108,7 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int gr = row0 + rg + 8 * r;
-      if (gr < R) {
-        store4(out_at(gr, t) + u4, zeros);
-        if constexpr (kResid) store_resid(gr, t, zeros, zeros, zeros);
-      }
+      if (gr < R) store4(out_at(gr, t) + u4, zeros);
     }
   }
   if (t_end == 0) return;
@@ -218,14 +190,7 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       const int gr = row0 + row;
       // direction 1 holds its zero state until t drops below the row's length
       const bool update = d == 0 || t < rlen[r];
-      if constexpr (kResid) {
-        if (gr < R) {  // h and c before the step
-          *reinterpret_cast<float4*>(resid_at(resid.hp0, resid.hp1, gr, t) + u4) =
-              *reinterpret_cast<const float4*>(hs + row * hp + u4);
-          store4(resid_at(resid.cp0, resid.cp1, gr, t) + u4, c[r]);
-        }
-      }
-      float hv[4], tcv[4];
+      float hv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float ig = sigmoid_f(acc[0][r][j]);
@@ -235,15 +200,11 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         const float cn = fg * c[r][j] + ig * gg;
         const float tcn = tanhf(cn);
         const float hn = to_f(from_f<T>(og * tcn));
-        if constexpr (kResid) tcv[j] = tcn;
         if (update) c[r][j] = cn;
         hv[j] = update ? hn : hs[row * hp + u4 + j];
       }
       store4(hs + row * hp + u4, hv);
-      if (gr < R && !kDense) {
-        store4(out_at(gr, t) + u4, hv);
-        if constexpr (kResid) store4(resid_at(resid.tc0, resid.tc1, gr, t) + u4, tcv);
-      }
+      if (gr < R && !kDense) store4(out_at(gr, t) + u4, hv);
     }
     if constexpr (kDense) {
       // y_t = h_t @ wo[d]: this thread's 4 rows x output columns u4..u4+3
@@ -287,21 +248,21 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
-template <typename T, bool kResid, bool kDense = false>
+template <typename T, bool kDense = false>
 int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, const void* lens,
-           void* out0, void* out1, Resid resid, int R, int Tn, int F, int H,
-           cudaStream_t stream, const void* wo = nullptr, int Fo = 0) {
+           void* out0, void* out1, int R, int Tn, int F, int H, cudaStream_t stream,
+           const void* wo = nullptr, int Fo = 0) {
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bilstm2_kernel<T, kResid, kDense>,
+  cudaError_t err = cudaFuncSetAttribute(bilstm2_kernel<T, kDense>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, 2);
-  bilstm2_kernel<T, kResid, kDense><<<grid, 2 * H, smem, stream>>>(
+  bilstm2_kernel<T, kDense><<<grid, 2 * H, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
       static_cast<const float*>(b), static_cast<const int*>(lens), static_cast<T*>(out0),
-      static_cast<T*>(out1), resid, static_cast<const float*>(wo), R, Tn, F, H, Fo);
+      static_cast<T*>(out1), static_cast<const float*>(wo), R, Tn, F, H, Fo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,25 +279,9 @@ int bilstm2_forward(int dtype, const void* x, const void* w_ih, const void* w_hh
                     const void* lens, void* out0, void* out1, int R, int Tn, int F, int H,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Resid none = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  if (dtype == 0) return launch<float, false>(x, w_ih, w_hh, b, lens, out0, out1, none, R, Tn, F, H, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, false>(x, w_ih, w_hh, b, lens, out0, out1, none, R, Tn, F, H, s);
+  if (dtype == 0) return launch<float>(x, w_ih, w_hh, b, lens, out0, out1, R, Tn, F, H, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w_ih, w_hh, b, lens, out0, out1, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The training forward, fp32 streams only: bilstm2_forward plus the residual
-// streams hp0, cp0, tc0, hp1, cp1, tc1, each [R, T, H] fp32, contiguous,
-// 16-byte aligned.
-int bilstm2_forward_resid(const void* x, const void* w_ih, const void* w_hh, const void* b,
-                          const void* lens, void* out0, void* out1, void* hp0, void* cp0,
-                          void* tc0, void* hp1, void* cp1, void* tc1, int R, int Tn, int F, int H,
-                          void* stream) {
-  const Resid resid = {static_cast<float*>(hp0), static_cast<float*>(cp0),
-                       static_cast<float*>(tc0), static_cast<float*>(hp1),
-                       static_cast<float*>(cp1), static_cast<float*>(tc1)};
-  return launch<float, true>(x, w_ih, w_hh, b, lens, out0, out1, resid, R, Tn, F, H,
-                             static_cast<cudaStream_t>(stream));
 }
 
 // Dense mode, unmasked: y0, y1 [R, T, Fo] in the stream type (dtype as in
@@ -346,13 +291,11 @@ int bilstm2_dense_forward(int dtype, const void* x, const void* w_ih, const void
                           const void* b, const void* wo, void* y0, void* y1, int R, int Tn,
                           int F, int H, int Fo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Resid none = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   if (Fo % 4 || Fo > H || Fo <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float, false, true>(x, w_ih, w_hh, b, nullptr, y0, y1, none, R, Tn, F, H, s, wo, Fo);
+    return launch<float, true>(x, w_ih, w_hh, b, nullptr, y0, y1, R, Tn, F, H, s, wo, Fo);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false, true>(x, w_ih, w_hh, b, nullptr, y0, y1, none, R, Tn, F, H,
-                                              s, wo, Fo);
+    return launch<__nv_bfloat16, true>(x, w_ih, w_hh, b, nullptr, y0, y1, R, Tn, F, H, s, wo, Fo);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

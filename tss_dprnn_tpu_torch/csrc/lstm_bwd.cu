@@ -17,12 +17,12 @@
 //
 // What bounds it: the arithmetic, 3 * 2 (F + H) 4H FLOP per row-step and
 // direction. Only the dh/dc recurrence is sequential, and one direction's dW
-// (512 KB fp32) does not fit on chip, so the work is split as the fused
-// bidirectional backward splits it (csrc/bilstm2_bwd.cu): that source's tiled
-// product kernel recomputes the gates of every row-step into a [D, R, T, 4H]
-// buffer, the scan kernel here turns them into dpre in place, and the product
-// kernel again gives dx and the fixed partials of dW, its column-sum kernel
-// those of db (tss_dprnn_tpu_torch/ops/lstm.py launches them in that order).
+// (512 KB fp32) does not fit on chip, so the work is split in three: the
+// tiled product kernel of csrc/products.cu recomputes the gates of every
+// row-step into a [D, R, T, 4H] buffer, the scan kernel here turns them into
+// dpre in place, and the product kernel again gives dx and the fixed partials
+// of dW, its column-sum kernel those of db (tss_dprnn_tpu_torch/ops/lstm.py
+// launches them in that order).
 // No float atomics anywhere: a run repeats itself bit for bit on one card.
 //
 // The scan kernel: one block per (direction, tile of 16 rows) looping over T

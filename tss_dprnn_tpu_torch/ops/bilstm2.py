@@ -3,12 +3,13 @@ wrappers and plain versions (counterpart of the bilstm2 section of
 ``tss_dprnn_tpu/ops/pallas_lstm.py:698-1224, 1224-1464``).
 
 Replaces the TPU kernel ``_bilstm2_kernel`` (pallas_lstm.py:698) in its
-unmasked, masked, residual (training) and dense modes with
-``csrc/bilstm2.cu``, ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
+unmasked, masked and dense modes with ``csrc/bilstm2.cu``, in its residual
+(training) mode with ``csrc/bilstm2_resid.cu`` after an input product of
+``csrc/products.cu``, ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
 ``csrc/bilstm2_bm.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224)
-with ``csrc/bilstm2_bwd.cu``, CUDA C++ for ``sm_90a``. Both directions run in
-one launch and both outputs come back in forward time. Layout and argument
-order are the JAX entries':
+with ``csrc/bilstm2_bwd.cu`` and the products of ``csrc/products.cu``, CUDA
+C++ for ``sm_90a``. Both directions run in one launch and both outputs come
+back in forward time. Layout and argument order are the JAX entries':
 ``bilstm2_forward(x [B, T, F], w_ih2 [2, F, 4H], b2 [2, 4H], w_hh2 [2, H, 4H])``.
 The dense mode (``bilstm2_dense_forward``, opt-in ``TSS_FUSED_DENSE=1`` in
 ``ops/rnn.py``) adds the SplitDense product y_d = h_d @ wo2[d] to each step's
@@ -17,23 +18,30 @@ epilogue and writes y_d [B, T, Fo] in place of h_d; the batch-major twin
 inference function over time-blocked slabs of x, brought in by bulk copies a
 slab ahead.
 The residual streams are the port's own layout: a tuple
-``(hp0, cp0, tc0, hp1, cp1, tc1)`` of [B, T, H] fp32 tensors in forward time
-(h and c before each step, tanh(c) after it), with no time or row padding.
+``(hp0, cp0, tc0, hp1, cp1, tc1, pre)``: per direction h and c before each
+step and tanh(c) after it, [B, T, H] fp32 in forward time, and the gate
+pre-activations ``x_t @ W_ih[d] + h_prev @ W_hh[d] + b[d]`` of every
+row-step and direction, [B, T, 2, 4H] fp32, with no time or row padding. The
+backward reads ``pre`` and recomputes no gate.
 
-What bounds the kernel on the H100: fp32 FMAs. A row-step costs
+What bounds the inference kernel on the H100: fp32 FMAs. A row-step costs
 2 (F + H) 4H FLOP per direction against a few hundred bytes of input and
 output, far above the card's bandwidth line; the time loop is sequential,
-so parallelism comes only from rows and directions. The design (one block
+so parallelism comes only from rows and directions. Its design (one block
 per direction and 32-row tile, h in shared memory, c in registers, the
 weights streamed from L2 in double-buffered chunks and reused across the
 tile's rows) is the simple one; the source's header gives the details.
 
-The backward (fp32 only) splits the TPU kernel's work by what is
-sequential: a tiled product kernel recomputes every row-step's gates at
-once, a scan kernel runs the dh/dc recurrence and writes dpre, and the
-product kernel again gives dx and the per-split partials of dW (a column-sum
-kernel those of db), which are summed here. The source's header gives the
-details.
+The training pair splits the work by what is sequential. Forward: the
+product kernel computes the input half of every gate at once into ``pre``,
+then the recurrent scan adds ``h @ W_hh`` step by step and writes the full
+pre-activations back. Backward: the reverse scan turns ``pre`` and the
+carried dh/dc into dpre, then the product kernel gives dx and the per-split
+partials of dW (a column-sum kernel those of db), which are summed here in
+a fixed order. Both scans run as 2-CTA thread-block clusters, one per
+(direction, row tile), each CTA holding half of W_hh in shared memory for
+the whole scan; :func:`plan_tiles` picks the tile height. The sources'
+headers give the details.
 
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`bilstm2_reference`, :func:`bilstm2_resid_reference`,
@@ -47,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,7 +65,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-              torch.Tensor]
+              torch.Tensor, torch.Tensor]
 
 
 def _gates(g: torch.Tensor, H: int):
@@ -76,6 +84,7 @@ def _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid: bool):
     b = b2.float()
     xf = x.float()
     outs, resid = [], []
+    pre = xf.new_empty(B, T, 2, 4 * H) if want_resid else None
     for d in (0, 1):
         xp = xf @ w_ih[d]  # [B, T, 4H]: the per-step x_t @ W_ih, all steps at once
         h = xf.new_zeros(B, H)
@@ -83,12 +92,14 @@ def _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid: bool):
         out = x.new_empty(B, T, H)
         streams = [xf.new_empty(B, T, H) for _ in range(3)] if want_resid else None
         for t in (range(T) if d == 0 else range(T - 1, -1, -1)):
-            i, f, gg, o = _gates(xp[:, t] + h @ w_hh[d] + b[d], H)
+            g = xp[:, t] + h @ w_hh[d] + b[d]
+            i, f, gg, o = _gates(g, H)
             c_new = f * c + i * gg
             tc = torch.tanh(c_new)
             h_new = (o * tc).to(dt).float()
             if want_resid:
                 streams[0][:, t], streams[1][:, t], streams[2][:, t] = h, c, tc
+                pre[:, t, d] = g
             if lens is not None and d == 1:
                 valid = (t < lens)[:, None]
                 c = torch.where(valid, c_new, c)
@@ -98,7 +109,7 @@ def _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid: bool):
             out[:, t] = h.to(dt)
         outs.append(out)
         resid += streams or []
-    return (outs[0], outs[1]), tuple(resid)
+    return (outs[0], outs[1]), tuple(resid) + ((pre,) if want_resid else ())
 
 
 def bilstm2_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -118,8 +129,9 @@ def bilstm2_resid_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tens
                             ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
     """Plain version of the residual mode: :func:`bilstm2_reference`'s
     outputs and, per direction, h and c before each step and tanh(c) after
-    it (fp32, [B, T, H], forward time). With ``lens`` direction 1's h and c
-    stay at the zero state on held steps."""
+    it (fp32, [B, T, H], forward time), then the gate pre-activations of
+    every step and direction (fp32, [B, T, 2, 4H]). With ``lens`` direction
+    1's h and c stay at the zero state on held steps."""
     return _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid=True)
 
 
@@ -147,18 +159,18 @@ def bilstm2_backward_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Plain version of the backward: a Python loop over T per direction, in
-    the reverse of its scan, with the kernel's arithmetic (gates recomputed
-    from x_t and h_prev). Returns (dx, dw_ih2, db2, dw_hh2), fp32. With
-    ``lens`` the steps t >= len[row] of both directions give no dpre and pass
-    the carries through."""
+    the reverse of its scan, with the kernel's arithmetic (the gates read
+    from the saved pre-activations ``resid[6]``, not recomputed). Returns
+    (dx, dw_ih2, db2, dw_hh2), fp32. With ``lens`` the steps t >= len[row]
+    of both directions give no dpre and pass the carries through."""
     B, T, F = x.shape
     H = w_hh2.shape[1]
     xf = x.float()
-    w_ih, w_hh, b = w_ih2.float(), w_hh2.float(), b2.float()
+    w_ih, w_hh = w_ih2.float(), w_hh2.float()  # b2's part is in the saved pre
     dx = xf.new_zeros(B, T, F)
     dw_ih, dw_hh, db = [], [], []
-    for d, (hp, cp, tc, g) in enumerate(((*resid[:3], g0), (*resid[3:], g1))):
-        pre = xf @ w_ih[d] + hp @ w_hh[d] + b[d]  # [B, T, 4H], every step at once
+    for d, (hp, cp, tc, g) in enumerate(((*resid[:3], g0), (*resid[3:6], g1))):
+        pre = resid[6][:, :, d]  # [B, T, 4H], saved by the forward
         dpre = xf.new_zeros(B, T, 4 * H)
         dh = xf.new_zeros(B, H)
         dc = xf.new_zeros(B, H)
@@ -242,34 +254,25 @@ def _raise_on(rc: int, what: str, lib: ctypes.CDLL, error_string: str) -> None:
 
 
 def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-            w_hh2: torch.Tensor, lens: Optional[torch.Tensor], want_resid: bool = False):
+            w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
     """Check what the kernel takes, allocate the outputs and launch on the
     current stream; a launch adds one to ``entry.launches``. Raises on
-    anything the kernel does not take. Returns (out0, out1), and with
-    ``want_resid`` ((out0, out1), resid)."""
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=want_resid)
+    anything the kernel does not take. Returns (out0, out1)."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
-    resid = tuple(torch.empty_like(out0) for _ in range(6)) if want_resid else ()
     if B and T:
         lib = _library()
         with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            if want_resid:
-                rc = lib.bilstm2_forward_resid(
-                    x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(), b2.data_ptr(), _ptr(lens),
-                    out0.data_ptr(), out1.data_ptr(), *(r.data_ptr() for r in resid),
-                    B, T, F, H, stream)
-            else:
-                rc = lib.bilstm2_forward(
-                    _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
-                    b2.data_ptr(), _ptr(lens), out0.data_ptr(), out1.data_ptr(), B, T, F, H,
-                    stream)
+            rc = lib.bilstm2_forward(
+                _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
+                b2.data_ptr(), _ptr(lens), out0.data_ptr(), out1.data_ptr(), B, T, F, H,
+                torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(rc, "bilstm2 kernel", lib, "bilstm2_error_string")
         entry.launches += 1
-    return ((out0, out1), resid) if want_resid else (out0, out1)
+    return out0, out1
 
 
 def _launch_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -321,18 +324,67 @@ def _launch_bm(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     return out[0], out[1]
 
 
-# split-K of the dW products: about this many blocks, 4 per SM of an H100
+# split-K of the dW products: about this many blocks, two waves of the product
+# kernel (2 blocks per SM of an H100)
 _SPLIT_BLOCKS = 528
 _BM = _BN = 128  # the product kernel's block tile
-_BK = 8          # ... and its k-depth
+_BK = 16         # ... and its k-depth
+
+# the training scans' compiled tile heights (csrc/bilstm2_resid.cu, bilstm2_bwd.cu)
+TILE_HEIGHTS = (16, 24, 32, 40, 48)
+
+
+class TilePlan(NamedTuple):
+    """Row tiles of a training scan: ``tiles`` tiles of ``height`` rows, one
+    2-CTA cluster per tile and direction."""
+
+    height: int
+    tiles: int
+
+    @property
+    def clusters(self) -> int:
+        return 2 * self.tiles
+
+
+def plan_tiles(R: int, max_clusters: int) -> TilePlan:
+    """The tile height of a training scan over R rows when the card runs
+    ``max_clusters`` clusters at once: the smallest height whose grid fits
+    one wave; where none does, the fewest waves times height (the time of
+    one step is about proportional to the height), then the fewer waves."""
+    if max_clusters < 1:
+        raise ValueError(f"the card runs no cluster of the training scans ({max_clusters})")
+    plans = [TilePlan(h, max(1, -(-R // h))) for h in TILE_HEIGHTS]
+    for plan in plans:
+        if plan.clusters <= max_clusters:
+            return plan
+    waves = [-(-p.clusters // max_clusters) for p in plans]
+    return min(zip(plans, waves), key=lambda pw: (pw[1] * pw[0].height, pw[1]))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(which: str, H: int, device: int) -> int:
+    """How many clusters of a training scan (``which``: "resid" or "bwd")
+    the card runs at once, from cudaOccupancyMaxActiveClusters. At H = 128
+    every tile height takes most of an SM's shared memory (one CTA per SM),
+    so the smallest height's answer serves all."""
+    lib = _library_resid() if which == "resid" else _library_bwd()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, f"bilstm2_{which}_max_clusters")(TILE_HEIGHTS[0], H, ctypes.byref(n))
+    _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, f"bilstm2_{which}_error_string")
+    return n.value
+
+
+def _plan(which: str, R: int, H: int, device: torch.device) -> TilePlan:
+    return plan_tiles(R, _max_clusters(which, H, device.index))
 
 
 def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.Tensor] = None,
           out_off: int = 0, ldc: Optional[int] = None, bias: Optional[torch.Tensor] = None):
-    """One launch of the product kernel: C[M, N] = sum over ``parts`` of
-    A @ B (+ bias). ``parts``: up to two (a, a_off, lda, b, b_off, ldb, K),
-    offsets in elements. With ``out`` C is written there (no split);
-    without, the k-range is split into fixed partials, summed here."""
+    """One launch of the product kernel (csrc/products.cu): C[M, N] = sum
+    over ``parts`` of A @ B (+ bias). ``parts``: up to two (a, a_off, lda, b,
+    b_off, ldb, K), offsets in elements. With ``out`` C is written there (no
+    split); without, the k-range is split into fixed partials, summed here."""
     (a1, ao1, lda1, b1, bo1, ldb1, k1), *rest = parts
     a2, ao2, lda2, b2, bo2, ldb2, k2 = rest[0] if rest else (None, 0, 0, None, 0, 0, 0)
     K = k1 + k2
@@ -345,10 +397,11 @@ def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.T
         splits = -(-K // kps)
         partial = torch.empty(splits, M, N, dtype=torch.float32, device=a1.device)
         ldc, stride = N, M * N
-    rc = lib.bilstm2_bwd_gemm(int(a_col), _ptr(a1, ao1), lda1, _ptr(b1, bo1), ldb1, k1,
-                              _ptr(a2, ao2), lda2, _ptr(b2, bo2), ldb2, k2, _ptr(bias),
-                              _ptr(partial, out_off), ldc, M, N, splits, kps, stride, stream)
-    _raise_on(rc, "bilstm2 backward product kernel", lib, "bilstm2_bwd_error_string")
+    rc = lib.products_gemm(int(a_col), _ptr(a1, ao1), lda1, _ptr(b1, bo1), ldb1, k1,
+                           _ptr(a2, ao2), lda2, _ptr(b2, bo2), ldb2, k2, _ptr(bias),
+                           _ptr(partial, out_off), ldc, M, N, splits, kps, stride, stream)
+    _raise_on(rc, "product kernel", lib, "products_error_string")
+    _gemm.launches += 1
     return None if out is not None else partial.sum(0)
 
 
@@ -360,9 +413,42 @@ def _colsum(lib, stream, a: torch.Tensor, a_off: int, lda: int, K: int, N: int) 
     kps = -(-K // splits)
     splits = -(-K // kps)
     partial = torch.empty(splits, N, dtype=torch.float32, device=a.device)
-    rc = lib.bilstm2_bwd_colsum(_ptr(a, a_off), lda, K, N, partial.data_ptr(), splits, kps, stream)
-    _raise_on(rc, "bilstm2 backward column-sum kernel", lib, "bilstm2_bwd_error_string")
+    rc = lib.products_colsum(_ptr(a, a_off), lda, K, N, partial.data_ptr(), splits, kps, stream)
+    _raise_on(rc, "column-sum kernel", lib, "products_error_string")
+    _colsum.launches += 1
     return partial.sum(0)
+
+
+def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                  w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
+    """The training forward's launches on the current stream: the input
+    product P = x @ [W_ih[0] | W_ih[1]] + b into ``pre``, then the recurrent
+    scan, which overwrites ``pre`` with the full gate pre-activations; one
+    call adds one to ``entry.launches``. Returns ((out0, out1), resid)."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=True)
+    B, T, F = x.shape
+    H = w_hh2.shape[1]
+    G = 4 * H
+    out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
+    out1 = torch.empty_like(out0)
+    streams = tuple(torch.empty_like(out0) for _ in range(6))
+    pre = torch.empty(B, T, 2, G, dtype=torch.float32, device=x.device)
+    if B and T:
+        w_cat = w_ih2.transpose(0, 1).reshape(F, 2 * G).contiguous()  # [F, 8H]
+        # CTA (d, c)'s slice of W_hh[d]: [H k, 4 gates, H/2 units of half c]
+        w_split = w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 1, 2, 4).contiguous()
+        plan = _plan("resid", B, H, x.device)
+        products, lib = _library_products(), _library_resid()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _gemm(products, stream, False, [(x, 0, F, w_cat, 0, 2 * G, F)], B * T, 2 * G,
+                  out=pre, ldc=2 * G, bias=b2)
+            rc = lib.bilstm2_resid_scan(plan.height, pre.data_ptr(), w_split.data_ptr(),
+                                        _ptr(lens), out0.data_ptr(), out1.data_ptr(),
+                                        *(t.data_ptr() for t in streams), B, T, H, stream)
+        _raise_on(rc, "bilstm2 resid scan kernel", lib, "bilstm2_resid_error_string")
+        entry.launches += 1
+    return (out0, out1), streams + (pre,)
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
@@ -375,37 +461,43 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     H = w_hh2.shape[1]
     G = 4 * H
     M = B * T
-    streams = [t.contiguous() for t in (*resid, g0, g1)]
+    if len(resid) != 7:
+        raise ValueError(f"bilstm2 backward: resid must be the forward's 7 streams, got "
+                         f"{len(resid)}")
+    pre = resid[6].contiguous()
+    streams = [t.contiguous() for t in (*resid[:6], g0, g1)]
     for t in streams:
         if t.shape != (B, T, H) or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"bilstm2 backward: residual streams and cotangents must be "
                              f"[{B}, {T}, {H}] float32 on {x.device}; got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
-    _check_aligned(**dict(zip(("hp0", "cp0", "tc0", "hp1", "cp1", "tc1", "g0", "g1"), streams)))
+    if pre.shape != (B, T, 2, G) or pre.dtype != torch.float32 or pre.device != x.device:
+        raise ValueError(f"bilstm2 backward: pre must be [{B}, {T}, 2, {G}] float32 on "
+                         f"{x.device}; got {tuple(pre.shape)} {pre.dtype} on {pre.device}")
+    _check_aligned(**dict(zip(("hp0", "cp0", "tc0", "hp1", "cp1", "tc1", "g0", "g1"), streams)),
+                   pre=pre)
     hp0, cp0, tc0, hp1, cp1, tc1, g0, g1 = streams
     dx = torch.empty(B, T, F, dtype=torch.float32, device=x.device)
     if M == 0:
         return dx, torch.zeros_like(w_ih2), torch.zeros_like(b2), torch.zeros_like(w_hh2)
-    gates = torch.empty(B, T, 2, G, dtype=torch.float32, device=x.device)  # then dpre
-    w_hh_t = w_hh2.transpose(1, 2).contiguous()                 # [2, 4H, H]
+    dpre = torch.empty_like(pre)  # pre stays as saved: a second backward gives the same
+    # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
+    w_split = w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
     w_ih_t = w_ih2.transpose(1, 2).reshape(2 * G, F).contiguous()  # [8H, F]
-    lib = _library_bwd()
+    plan = _plan("bwd", B, H, x.device)
+    products, lib = _library_products(), _library_bwd()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for d, hp in ((0, hp0), (1, hp1)):  # gates of every row-step
-            _gemm(lib, stream, False, [(x, 0, F, w_ih2, d * F * G, G, F),
-                                       (hp, 0, H, w_hh2, d * H * G, G, H)],
-                  M, G, out=gates, out_off=d * G, ldc=2 * G, bias=b2[d])
-        rc = lib.bilstm2_bwd_scan(gates.data_ptr(), cp0.data_ptr(), tc0.data_ptr(),
-                                  g0.data_ptr(), cp1.data_ptr(), tc1.data_ptr(), g1.data_ptr(),
-                                  w_hh_t.data_ptr(), _ptr(lens), B, T, H, stream)
+        rc = lib.bilstm2_bwd_scan(plan.height, pre.data_ptr(), dpre.data_ptr(), cp0.data_ptr(),
+                                  tc0.data_ptr(), g0.data_ptr(), cp1.data_ptr(), tc1.data_ptr(),
+                                  g1.data_ptr(), w_split.data_ptr(), _ptr(lens), B, T, H, stream)
         _raise_on(rc, "bilstm2 backward scan kernel", lib, "bilstm2_bwd_error_string")
-        _gemm(lib, stream, False, [(gates, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F,
+        _gemm(products, stream, False, [(dpre, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F,
               out=dx, ldc=F)
-        dw_ih = _gemm(lib, stream, True, [(x, 0, F, gates, 0, 2 * G, M)], F, 2 * G)
-        dw_hh = [_gemm(lib, stream, True, [(hp, 0, H, gates, d * G, 2 * G, M)], H, G)
+        dw_ih = _gemm(products, stream, True, [(x, 0, F, dpre, 0, 2 * G, M)], F, 2 * G)
+        dw_hh = [_gemm(products, stream, True, [(hp, 0, H, dpre, d * G, 2 * G, M)], H, G)
                  for d, hp in ((0, hp0), (1, hp1))]
-        db = _colsum(lib, stream, gates, 0, 2 * G, M, 2 * G)
+        db = _colsum(products, stream, dpre, 0, 2 * G, M, 2 * G)
     entry.launches += 1
     return (dx, dw_ih.reshape(F, 2, G).transpose(0, 1).contiguous(), db.reshape(2, G),
             torch.stack(dw_hh))
@@ -413,14 +505,12 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library, with its C
-    signatures set once."""
+    """Build (at first use) and load the inference kernel's library, with
+    its C signatures set once."""
     lib = _build.load_library("bilstm2")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bilstm2_forward.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.bilstm2_forward.restype = i
-    lib.bilstm2_forward_resid.argtypes = [p] * 13 + [i, i, i, i, p]
-    lib.bilstm2_forward_resid.restype = i
     lib.bilstm2_dense_forward.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
     lib.bilstm2_dense_forward.restype = i
     lib.bilstm2_error_string.argtypes = [i]
@@ -441,17 +531,42 @@ def _library_bm() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _library_bwd() -> ctypes.CDLL:
-    """Build (at first use) and load the backward's library."""
-    lib = _build.load_library("bilstm2_bwd")
+def _library_products() -> ctypes.CDLL:
+    """Build (at first use) and load the product and column-sum kernels."""
+    lib = _build.load_library("products")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bilstm2_bwd_gemm.argtypes = [i, p, ll, p, ll, i, p, ll, p, ll, i, p, p, ll, i, i, i, i,
-                                     ll, p]
-    lib.bilstm2_bwd_gemm.restype = i
-    lib.bilstm2_bwd_colsum.argtypes = [p, ll, i, i, p, i, i, p]
-    lib.bilstm2_bwd_colsum.restype = i
-    lib.bilstm2_bwd_scan.argtypes = [p] * 9 + [i, i, i, p]
+    lib.products_gemm.argtypes = [i, p, ll, p, ll, i, p, ll, p, ll, i, p, p, ll, i, i, i, i, ll, p]
+    lib.products_gemm.restype = i
+    lib.products_colsum.argtypes = [p, ll, i, i, p, i, i, p]
+    lib.products_colsum.restype = i
+    lib.products_error_string.argtypes = [i]
+    lib.products_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_resid() -> ctypes.CDLL:
+    """Build (at first use) and load the training forward's scan."""
+    lib = _build.load_library("bilstm2_resid")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bilstm2_resid_scan.argtypes = [i] + [p] * 11 + [i, i, i, p]
+    lib.bilstm2_resid_scan.restype = i
+    lib.bilstm2_resid_max_clusters.argtypes = [i, i, p]
+    lib.bilstm2_resid_max_clusters.restype = i
+    lib.bilstm2_resid_error_string.argtypes = [i]
+    lib.bilstm2_resid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_bwd() -> ctypes.CDLL:
+    """Build (at first use) and load the backward's scan."""
+    lib = _build.load_library("bilstm2_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bilstm2_bwd_scan.argtypes = [i] + [p] * 10 + [i, i, i, p]
     lib.bilstm2_bwd_scan.restype = i
+    lib.bilstm2_bwd_max_clusters.argtypes = [i, i, p]
+    lib.bilstm2_bwd_max_clusters.restype = i
     lib.bilstm2_bwd_error_string.argtypes = [i]
     lib.bilstm2_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -507,10 +622,11 @@ def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor
                           ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
     """Training forward (fp32): x [B, T, F] -> ((out0, out1), resid), the
     outputs of :func:`bilstm2_forward` and the residual streams
-    ``(hp0, cp0, tc0, hp1, cp1, tc1)``, each [B, T, H]."""
+    ``(hp0, cp0, tc0, hp1, cp1, tc1, pre)``: six [B, T, H] and the gate
+    pre-activations [B, T, 2, 4H]."""
     if x.device.type == "cpu":
         return bilstm2_resid_reference(x, w_ih2, b2, w_hh2)
-    return _launch(bilstm2_forward_resid, x, w_ih2, b2, w_hh2, None, want_resid=True)
+    return _launch_resid(bilstm2_forward_resid, x, w_ih2, b2, w_hh2, None)
 
 
 def bilstm2_forward_resid_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
@@ -522,7 +638,7 @@ def bilstm2_forward_resid_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: tor
     length is unspecified (finite)."""
     if x.device.type == "cpu":
         return bilstm2_resid_reference(x, w_ih2, b2, w_hh2, lens)
-    return _launch(bilstm2_forward_resid_masked, x, w_ih2, b2, w_hh2, lens, want_resid=True)
+    return _launch_resid(bilstm2_forward_resid_masked, x, w_ih2, b2, w_hh2, lens)
 
 
 def bilstm2_backward(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
@@ -554,7 +670,10 @@ def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
 ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_dense_forward, bilstm2_forward_bm,
            bilstm2_forward_resid, bilstm2_forward_resid_masked, bilstm2_backward,
            bilstm2_backward_masked)
-for _entry in ENTRIES:
+# the product and column-sum kernels, launched inside the training entries
+# (and ops/lstm.py's backward); counted apart from the entries
+PRODUCTS = {"products_gemm": _gemm, "products_colsum": _colsum}
+for _entry in (*ENTRIES, *PRODUCTS.values()):
     _entry.launches = 0
 
 
@@ -563,6 +682,11 @@ def launch_count() -> int:
     return sum(e.launches for e in ENTRIES)
 
 
+def product_launch_counts() -> dict:
+    """Launches of the product and column-sum kernels, by kernel."""
+    return {name: fn.launches for name, fn in PRODUCTS.items()}
+
+
 def reset_launch_counts() -> None:
-    for e in ENTRIES:
+    for e in (*ENTRIES, *PRODUCTS.values()):
         e.launches = 0

@@ -35,10 +35,10 @@ cotangent there keeps the backward exact).
 What bounds the kernels on the H100: fp32 FMAs, 2 (F + H) 4H FLOP per
 row-step and direction forward and three times that backward. The forward is
 the fused bidirectional kernel's design (``csrc/bilstm2.cu``) with a direction
-per grid row; the backward splits the work as ``csrc/bilstm2_bwd.cu`` does: that
-source's tiled product kernel recomputes every row-step's gates, the scan
-kernel of ``csrc/lstm_bwd.cu`` runs the dh/dc recurrence and writes dpre, and
-the product and column-sum kernels give dx (per direction) and the fixed
+per grid row; the backward splits the work in three: the tiled product kernel
+of ``csrc/products.cu`` recomputes every row-step's gates, the scan kernel of
+``csrc/lstm_bwd.cu`` runs the dh/dc recurrence and writes dpre, and the
+product and column-sum kernels give dx (per direction) and the fixed
 partials of dW and db, summed here in a fixed order (no atomics: a run repeats
 itself bit for bit). With few rows and D = 1 the 32-row tiles of the
 bidirectional kernels would leave most SMs without a block, so both scan
@@ -67,7 +67,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _colsum,
     _gates,
     _gemm,
-    _library_bwd,
+    _library_products,
     _raise_on,
 )
 
@@ -350,7 +350,7 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
     gates = torch.empty(D, R, T, G, dtype=torch.float32, device=x.device)  # then dpre
     w_hh_t = w_hh.transpose(1, 2).contiguous()  # [D, 4H, H]
     w_ih_t = w_ih.transpose(1, 2).contiguous()  # [D, 4H, F]
-    products, lib = _library_bwd(), _library_scan()
+    products, lib = _library_products(), _library_scan()
     dw_ih, dw_hh, db = [], [], []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
