@@ -103,7 +103,8 @@ def main() -> int:
     make_model = (lambda: DPRNNTasNet(**BSS)) if args.bss else (lambda: DPRNNSpeTasNet(**FLAGSHIP))
     ckpt = os.path.join(OUT_DIR, f"random{suffix}.pt")
     torch.save(init_weights_(make_model(), torch.Generator().manual_seed(SEED)).state_dict(), ckpt)
-    inf = (Inferencer if args.bss else InferencerSpe)(make_model(), {"checkpoint_path": ckpt})
+    inf = (Inferencer if args.bss else InferencerSpe)(make_model(), {"checkpoint_path": ckpt,
+                                                               "metrics": ["si_sdr"]})
 
     rng = np.random.default_rng(SEED)
     T = int(args.seconds * SAMPLE_RATE)
@@ -176,8 +177,9 @@ def main() -> int:
     return 0
 
 
-# the port's kernels by name: "scan_kernel" matches the training pair's
-# resid_scan_kernel and bwd_scan_kernel and lstm_bwd.cu's scan_kernel;
+# the port's kernels by name: "scan_kernel" matches the training scans'
+# resid_scan_kernel and bwd_scan_kernel (the fused pair's and, since both
+# backwards share it, lstm_bwd.cu's);
 # gemm_kernel and colsum_kernel are csrc/products.cu's (the residual
 # forward's input product among them)
 PORT_KERNELS = ("bilstm2_kernel", "lstm_kernel", "gemm_kernel", "scan_kernel", "colsum_kernel")

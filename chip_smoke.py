@@ -31,8 +31,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    bit for bit the same on a second call), timed beside the plain versions
    and cuDNN's LSTM forward, backward and both (TF32 off, on a PackedSequence
    in masked mode); and each of the training pair's four products on its own
-   at the two unmasked shapes, against torch.matmul (within DW_REL_TOL of
-   max |ref|), timed beside it;
+   at the two unmasked shapes (3xTF32 on the tensor cores), against
+   torch.matmul in fp32 (within DW_REL_TOL of max |ref|; the error against a
+   float64 product reported beside torch.matmul's), timed beside it and,
+   for reference only, beside torch.matmul in TF32;
 6. the training path: TrainerSpe.run for 2 epochs at full flagship width and
    depth on in-memory crops from a seed (12 residual-forward and 12 backward
    launches per train step, 12 inference launches per eval step, finite
@@ -42,8 +44,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    relative, concatenated gradients >= 40 dB SNR).
 
 7. stacked-direction kernels vs plain: lstm_forward (fp32 and bf16 streams),
-   lstm_forward_with_cs, lstm_forward_resid and lstm_backward (csrc/lstm.cu,
-   csrc/lstm_bwd.cu) against their plain versions at D = 1 and the
+   lstm_forward_with_cs, lstm_forward_resid (its four streams, the saved gate
+   pre-activations among them) and lstm_backward (csrc/lstm.cu; the cluster
+   scan of csrc/lstm_bwd.cu, which reads those pre-activations, then the
+   products) against their plain versions at D = 1 and the
    inter-chunk shapes of BSS serving (8 x 10 s: R=2000 T=642) and training
    (5 x 3 s: R=1250 T=194), plus a small D = 2 case with different inputs per
    direction and a wide one (same tolerances as phases 2 and 5; the backward
@@ -57,7 +61,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
    bilstm2 launches per batch, card vs CPU >= 50 dB);
 9. BSS training: Trainer.run with ``bidirectional: false`` for 2 epochs (per
    train step 6 bilstm2_forward_resid + 6 bilstm2_backward + 6
-   lstm_forward_resid + 6 lstm_backward launches, per eval step 6 + 6
+   lstm_forward_resid + 6 lstm_backward launches, with 48 product and 12
+   column-sum launches, per eval step 6 + 6
    inference launches), the best checkpoint served through the BSS
    Inferencer, 10 steps on one batch (ms/step), one step card vs CPU;
 10. the opt-in and test-only kernels vs plain: the dense mode of the fused
@@ -74,7 +79,12 @@ Phases, each of which fails the script (nonzero exit, no result line):
    TrainerSpe run of one epoch with TSS_FUSED_DENSE=1 (12 residual-forward +
    12 backward launches per train step, 12 dense launches per eval step) and
    one train step against the switch-off step (loss within 1e-5 relative,
-   gradients >= 60 dB). The environment is restored afterwards.
+   gradients >= 60 dB). The environment is restored afterwards;
+12. widths the kernels do not take natively: the verify skill's tiny TSS and
+   causal BSS models (feature 12, hidden 10; the wrappers zero-pad to
+   multiples of 16), one bucketed batch served and one train step each, card
+   vs CPU (>= 50 dB; loss within 1e-4 relative, gradients >= 40 dB), through
+   the expected kernels only.
 
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
@@ -109,10 +119,25 @@ BSS = dict(
     kernel_size=2, hop_length=125, n_repeats=6, bidirectional=False,
     norm_type="ln", activation_type="sigmoid", dropout=0,
 )
+# the verify skill's tiny drive models (feature 12, hidden 10): widths the
+# kernels take only through their wrappers' zero padding to multiples of 16
+TINY_BSS = dict(
+    input_size=8, feature_size=12, hidden_size=10, chunk_length=40, kernel_size=2,
+    hop_length=20, n_repeats=1, bidirectional=False, norm_type="ln",
+    activation_type="sigmoid", dropout=0,
+)
+TINY_SPE = dict(TINY_BSS, bidirectional=True, O=8, P=12, embeddings_size=8, num_spks=251,
+                fusion_type="att")
 SAMPLE_RATE = 8000
 SEED = 0
-# published H100 SXM peaks: fp32 outside the tensor cores, dense bf16, HBM3
-PEAK_FP32 = 67e12
+# published H100 SXM peaks: dense TF32 and bf16 on the tensor cores, HBM3.
+# fp32-accurate work needs at least three TF32 products per fp32 one (3xTF32,
+# as csrc/products.cu runs its products), so every fp32 row is bounded by
+# PEAK_TF32 / 3 = 165 TFLOP/s: the least time the card can take for it. (The
+# fp32 FMA pipe's 67 TFLOP/s is a looser floor that a kernel off the tensor
+# cores cannot beat.)
+PEAK_TF32 = 495e12
+PEAK_FP32 = PEAK_TF32 / 3
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 # bf16 kernel vs bf16 plain version. The two sum a gate in different orders,
@@ -384,11 +409,15 @@ def bound_backward(rows_steps: int, R: int, T: int, F: int, H: int):
 
 
 def check_products(torch, x, resid, w):
-    """The training pair's four products (csrc/products.cu) on their own at
-    one scan shape, each against torch.matmul on the same inputs (the plain
-    version, and the library call), bit for bit the same on a second call,
-    timed beside it. The inputs are the forward's: x, h_prev of direction 0
-    and the saved pre-activations standing in for dpre."""
+    """The training pair's four products (csrc/products.cu, 3xTF32 on the
+    tensor cores) on their own at one scan shape, each against torch.matmul
+    in fp32 (TF32 off: the plain version, and the library call) within
+    DW_REL_TOL of max |ref|, with its error against a float64 product
+    reported beside that of torch.matmul, bit for bit the same on a second
+    call, timed beside torch.matmul in fp32 (the yardstick) and, for
+    reference only, torch.matmul in TF32 (one pass, about 10 mantissa bits).
+    The inputs are the forward's: x, h_prev of direction 0 and the saved
+    pre-activations standing in for dpre."""
     from tss_dprnn_tpu_torch.ops import bilstm2 as B2
 
     w_ih2, b2, w_hh2 = w
@@ -421,32 +450,52 @@ def check_products(torch, x, resid, w):
         "dw_hh": (lambda: B2._gemm(lib, stream, True, [(hp0, 0, H, pre, 0, 2 * G, M)], H, G),
                   lambda: hp2.T @ pre2[:, :G], H, G, M, 2),
     }
+    # the same products of the same fp32 inputs in float64
+    x64, pre64, hp64 = x2.double(), pre2.double(), hp2.double()
+    exact = {"input": lambda: torch.addmm(bias.double(), x64, w_cat.double()),
+             "dx": lambda: pre64 @ w_ih_t.double(),
+             "dw_ih": lambda: x64.T @ pre64,
+             "dw_hh": lambda: hp64.T @ pre64[:, :G]}
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the yardstick is torch.matmul in fp32: TF32 must be off")
     out = {}
     for name, (kernel, plain, m, n, k, per_pair) in cases.items():
         got = kernel().clone()
         again = kernel()
         want = plain()
+        ref64 = exact[name]()
         torch.cuda.synchronize()
+        scale = float(ref64.abs().max())
         rel = float((got - want).abs().max()) / float(want.abs().max())
+        rel64 = float((got.double() - ref64).abs().max()) / scale
+        library_rel64 = float((want.double() - ref64).abs().max()) / scale
         repeat = torch.equal(got, again)
-        del got, again, want
+        del got, again, want, ref64
         flops = 2 * m * n * k
         t_ops, t_bytes = flops / PEAK_FP32, (m * k + k * n + m * n) * 4 / PEAK_BYTES
         ms, plain_ms = time_ms(kernel, 5), time_ms(plain, 5)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_ms = time_ms(plain, 5)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
         out[name] = {"M": m, "N": n, "K": k, "launches_per_pair": per_pair, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": plain_ms,
+                     "plain_ms": plain_ms, "library_ms": plain_ms, "tf32_matmul_ms": tf32_ms,
                      "bound_ms": 1e3 * max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "tflops": flops / ms / 1e9, "library_tflops": flops / plain_ms / 1e9,
-                     "rel_err": rel, "bitwise_repeat": repeat}
+                     "rel_err": rel, "rel_err_float64": rel64,
+                     "library_rel_err_float64": library_rel64, "bitwise_repeat": repeat}
         log(f"[train-kernels] product {name} M={m} N={n} K={k}: {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s; torch.matmul {plain_ms:.3f} ms, "
-            f"{flops / plain_ms / 1e9:.1f} TFLOP/s; bound {out[name]['bound_ms']:.3f}), "
-            f"max|err|/max|ref| {rel:.3e}, repeats bit for bit: {repeat}")
+            f"({flops / ms / 1e9:.1f} TFLOP/s; torch.matmul fp32 {plain_ms:.3f} ms, "
+            f"{flops / plain_ms / 1e9:.1f} TFLOP/s; TF32 for reference {tf32_ms:.3f} ms; bound "
+            f"{out[name]['bound_ms']:.3f}), max|err|/max|ref| {rel:.3e} vs torch.matmul, "
+            f"{rel64:.3e} vs float64 (torch.matmul fp32 {library_rel64:.3e}), repeats bit for "
+            f"bit: {repeat}")
         if not (rel <= DW_REL_TOL and repeat):
             raise AssertionError(f"product {name} disagrees with torch.matmul or does not "
                                  f"repeat: {rel}, {repeat}")
-    del out_p, out_dx
+    del out_p, out_dx, x64, pre64, hp64
     return out
 
 
@@ -626,17 +675,19 @@ def train_kernel_entries(results, launches):
     def product_numbers(shape):
         prods = results[shape]["products"]
         total = {k: sum(p[k] * p["launches_per_pair"] for p in prods.values())
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                 for k in ("ms", "plain_ms", "library_ms", "tf32_matmul_ms", "bound_ms")}
         return dict(total, bound_by="operations" if all(
             p["bound_by"] == "operations" for p in prods.values()) else "bytes",
                     max_abs_err=None, max_rel_err=max(p["rel_err"] for p in prods.values()),
+                    max_rel_err_float64=max(p["rel_err_float64"] for p in prods.values()),
                     products=prods)
 
     intra = product_numbers("intra")
     intra["max_abs_err"] = intra.pop("max_rel_err")  # relative to max |ref|, as DW_REL_TOL
     entries.append({
         "name": "products_gemm", "mode": "the training pair's 5 products per scan, intra "
-        "(input 1, dx 1, dW_ih 1, dW_hh 2; ms summed)", "dtype": "float32", "route": "cuda",
+        "(input 1, dx 1, dW_ih 1, dW_hh 2; ms summed), 3xTF32 on the tensor cores",
+        "dtype": "float32", "route": "cuda",
         "source": "tss_dprnn_tpu_torch/csrc/products.cu",
         "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:1224",
         "launches": launches["products_gemm"], **intra,
@@ -651,19 +702,21 @@ def bound_stack(kind: str, D: int, R: int, T: int, F: int, H: int, itemsize: int
                 peak: float = PEAK_FP32):
     """Least time of a stacked-direction scan (``kind``: "forward",
     "with_cs", "resid" or "backward"): 2 (F + H) 4H FLOP per row-step and
-    direction forward and three times that backward over the named peak, or
-    the bytes over the HBM rate: each direction's x read and h written once,
-    the extra fp32 streams written (one for with_cs, three for resid), the
-    weights read; backward x, the three streams and the cotangent read, dx,
-    dW and db written."""
+    direction forward and twice that backward (the forward saved the gate
+    pre-activations, so none is recomputed) over the named peak, or the bytes
+    over the HBM rate: each direction's x read and h written once, the extra
+    fp32 streams written (c for with_cs; h_prev, c_prev, tanh(c) and the 4H
+    pre-activations for resid), the weights read; backward x, the three
+    H-wide streams, the pre-activations and the cotangent read, dx, dW and db
+    written."""
     steps = D * R * T
     weights = D * (F + H + 1) * 4 * H * 4
     if kind == "backward":
-        flops = 3 * steps * 2 * (F + H) * 4 * H
-        nbytes = steps * (2 * F + 4 * H) * 4 + 2 * weights
+        flops = 2 * steps * 2 * (F + H) * 4 * H
+        nbytes = steps * (2 * F + 8 * H) * 4 + 2 * weights
     else:
         flops = steps * 2 * (F + H) * 4 * H
-        extra = {"forward": 0, "with_cs": 1, "resid": 3}[kind]
+        extra = {"forward": 0, "with_cs": 1, "resid": 7}[kind]
         nbytes = steps * ((F + H) * itemsize + extra * H * 4) + weights
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -710,6 +763,7 @@ def phase_lstm_kernels(torch, dev):
         ref_resid = L.lstm_resid_reference(x, *w)[1]
         err["resid"] = max(float((got_h - ref).abs().max()),
                            *(float((a - r).abs().max()) for a, r in zip(resid, ref_resid)))
+        err["pre"] = float((resid[3] - ref_resid[3]).abs().max())  # the saved gates
         del got_h, got_cs, ref_cs, ref_resid
         got16 = L.lstm_forward(xb, *w).float()
         ref16 = L.lstm_reference(xb, *w).float()
@@ -725,14 +779,17 @@ def phase_lstm_kernels(torch, dev):
         want = L.lstm_backward_reference(x, resid, cot, *w)
         dx_err = float((got[0] - want[0]).abs().max())
         dw_err = max(float((a - r).abs().max()) for a, r in zip(got[1:], want[1:]))
-        dw_rel = max(float((a - r).abs().max()) / float(r.abs().max())
-                     for a, r in zip(got[1:], want[1:]))
+        dw_rels = {n: float((a - r).abs().max()) / float(r.abs().max())
+                   for n, a, r in zip(("dw_ih", "db", "dw_hh"), got[1:], want[1:])}
+        dw_rel = max(dw_rels.values())
         del got, want
-        log(f"[lstm-kernels] {name} D={D} R={R} T={T} ({blocks} blocks): max|err| "
-            f"forward {err['forward']:.3e}, with_cs {err['with_cs']:.3e}, resid "
-            f"{err['resid']:.3e}; bf16 SNR {snr16:.2f} dB (vs bf16 plain max|err| "
-            f"{plain16_err:.3e}, SNR {plain16_snr:.2f} dB); backward dx {dx_err:.3e}, dW/db "
-            f"{dw_err:.3e}, /max|ref| {dw_rel:.3e}, repeats bit for bit: {repeat}")
+        backward_plan = L.plan_backward(D, R, H, x.device)._asdict()
+        log(f"[lstm-kernels] {name} D={D} R={R} T={T} ({blocks} blocks; backward tile plan "
+            f"{backward_plan}): max|err| forward {err['forward']:.3e}, with_cs "
+            f"{err['with_cs']:.3e}, resid {err['resid']:.3e} (pre {err['pre']:.3e}); bf16 SNR "
+            f"{snr16:.2f} dB (vs bf16 plain max|err| {plain16_err:.3e}, SNR {plain16_snr:.2f} "
+            f"dB); backward dx {dx_err:.3e}, dW/db "
+            f"{dw_err:.3e}, /max|ref| {dw_rels}, repeats bit for bit: {repeat}")
         if not max(err.values()) <= 1e-4:
             raise AssertionError(f"lstm {name} fp32 disagrees with its plain version: {err}")
         if not (snr16 >= 40.0 and plain16_err <= BF16_ATOL and plain16_snr >= BF16_SNR_DB):
@@ -748,7 +805,8 @@ def phase_lstm_kernels(torch, dev):
         lstms = {dt: cudnn_lstm(torch, w_ih, b, w_hh, dt) for dt in (torch.float32, torch.bfloat16)}
         lstm = lstms[torch.float32]
 
-        nums = {"D": D, "R": R, "T": T, "blocks": blocks, "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
+        nums = {"D": D, "R": R, "T": T, "blocks": blocks, "backward_tile_plan": backward_plan,
+                "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
                 "bf16_plain_snr_db": plain16_snr, "dx_max_abs_err": dx_err,
                 "dw_max_abs_err": dw_err, "dw_rel_err": dw_rel, "bitwise_repeat": repeat}
         if D == 1:
@@ -842,6 +900,9 @@ def lstm_kernel_entries(results, launches):
         dict(base, name="lstm_backward", mode="BSS training inter scan",
              source="tss_dprnn_tpu_torch/csrc/lstm_bwd.cu",
              replaces="tss_dprnn_tpu/ops/pallas_lstm.py:498",
+             **{"with": "tss_dprnn_tpu_torch/csrc/cluster_scan.cuh and products.cu"},
+             cluster="2 CTAs, W_hh^T resident in shared memory; the saved gates read",
+             tile_plan={k: results[k]["backward_tile_plan"] for k in results},
              launches=launches["lstm_backward"], **numbers(training, "backward", "cudnn_bwd_ms"),
              serving_shape=numbers(serving, "backward", "cudnn_bwd_ms"),
              small_d2=numbers(small, "backward", None), wide_d2=numbers(wide, "backward", None),
@@ -933,8 +994,8 @@ def phase_card_vs_cpu(torch, inf_gpu, ckpt):
         b["lengths"] = np.array([len(it[0]) for it in its], np.int32)
         return b
 
-    inf_cpu = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP), {"checkpoint_path": ckpt},
-                            device="cpu")
+    inf_cpu = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP), {"checkpoint_path": ckpt,
+                                                         "metrics": ["si_sdr"]}, device="cpu")
 
     def alone(inf):  # the request at its exact shape, no lengths
         mix, _, ref, _ = items[0]
@@ -1045,8 +1106,8 @@ def training_family(name: str):
                 per_train_step={"bilstm2_forward_resid": n, "bilstm2_backward": n,
                                 "lstm_forward_resid": n, "lstm_backward": n},
                 per_eval_step={"bilstm2_forward": n, "lstm_forward": n},
-                # the fused pair's 5, and lstm_backward's gates + dx + dW_ih + dW_hh at D = 1
-                products_per_train_step={"products_gemm": n * 5 + n * 4,
+                # the fused pair's 5, and lstm_backward's dx + dW_ih + dW_hh at D = 1
+                products_per_train_step={"products_gemm": n * 5 + n * 3,
                                          "products_colsum": 2 * n})
 
 
@@ -1114,9 +1175,9 @@ def phase_training(torch, dev, fam):
         raise AssertionError(f"expected 2_last and a *_best checkpoint, found {files}")
 
     # -- the best checkpoint serves a request
-    inf = fam["inferencer"](fam["model"](), {"checkpoint_path": os.path.join(ckpt_dir, best[-1]),
-                                             "test_savedir": os.path.join(OUT_DIR, f"{tag}_metrics")},
-                            device=dev)
+    config = {"checkpoint_path": os.path.join(ckpt_dir, best[-1]), "metrics": ["si_sdr"],
+              "test_savedir": os.path.join(OUT_DIR, f"{tag}_metrics")}
+    inf = fam["inferencer"](fam["model"](), config, device=dev)
     served = inf.run(fam["crops"](seed + 3, 1, 4), batch_size=1, n_buckets=1)
     log(f"[{tag}] {best[-1]} served through {fam['inferencer'].__name__}: {served}")
     if not all(math.isfinite(v) for v in served.values()):
@@ -1222,7 +1283,8 @@ def phase_bss_serving(torch, dev, cfg, tag, per_batch):
     mixes = [0.1 * rng.standard_normal(m).astype(np.float32) for m in (n, n_long)]
     batch = collate_bss_eval([(m, np.stack([m, m])) for m in mixes], n_long)
     batch["lengths"] = np.array([n, n_long], np.int32)
-    inf_cpu = Inferencer(DPRNNTasNet(**cfg), {"checkpoint_path": ckpt}, device="cpu")
+    inf_cpu = Inferencer(DPRNNTasNet(**cfg), {"checkpoint_path": ckpt, "metrics": ["si_sdr"]},
+                         device="cpu")
     with torch.inference_mode():
         est_gpu, est_cpu = (i.model(torch.from_numpy(mixes[0]).to(i.device)[None])[0].cpu()
                             for i in (inf, inf_cpu))
@@ -1386,6 +1448,94 @@ def phase_optin_kernels(torch, dev):
     del lstms, lstms1
     torch.cuda.empty_cache()
     return entries
+
+
+def phase_tiny_widths(torch, dev):
+    """Phase 12: the tiny drive models (F = 12, H = 10; TSS and causal BSS),
+    each with one bucketed batch served and one train step, card against
+    CPU: every wrapper zero-pads to the kernels' widths and cuts the pad off
+    again, so the card must agree with the plain versions at the model's own
+    widths (forward >= 50 dB; loss within 1e-4 relative, gradients >= 40 dB),
+    through the expected kernels and no other."""
+    from tss_dprnn_tpu_torch import inference, training
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    families = {
+        "tss": dict(model=lambda: DPRNNSpeTasNet(**TINY_SPE), inferencer=inference.InferencerSpe,
+                    trainer=training.TrainerSpe, config=TRAIN_CONFIG,
+                    requests=lambda: Requests(SEED + 12, 4),
+                    collate_eval=loader.make_collate_spe_eval(), collate=loader.collate_spe,
+                    crops=Crops, serve={"bilstm2_forward": 1, "bilstm2_forward_masked": 1},
+                    step={"bilstm2_forward_resid": 2, "bilstm2_backward": 2},
+                    products={"products_gemm": 10, "products_colsum": 2}),
+        "bss": dict(model=lambda: DPRNNTasNet(**TINY_BSS), inferencer=inference.Inferencer,
+                    trainer=training.Trainer, config=BSS_TRAIN_CONFIG,
+                    requests=lambda: Mixtures(SEED + 12, 4),
+                    collate_eval=loader.collate_bss_eval, collate=loader.collate_bss,
+                    crops=Mixtures, serve={"bilstm2_forward": 1, "lstm_forward": 1},
+                    step={"bilstm2_forward_resid": 1, "bilstm2_backward": 1,
+                          "lstm_forward_resid": 1, "lstm_backward": 1},
+                    products={"products_gemm": 8, "products_colsum": 2}),
+    }
+    results = {}
+    for tag, fam in families.items():
+        start = init_weights_(fam["model"](), torch.Generator().manual_seed(SEED + 12))
+        ckpt = os.path.join(OUT_DIR, f"tiny_{tag}.pt")
+        torch.save(start.state_dict(), ckpt)
+        ds = fam["requests"]()
+        batch = next(iter(loader.BucketedEvalLoader(ds, 2, fam["collate_eval"], ds.lengths(),
+                                                    n_buckets=2)))
+        outs = {}
+        for device in (dev, "cpu"):
+            inf = fam["inferencer"](fam["model"](), {"checkpoint_path": ckpt,
+                                                     "metrics": ["si_sdr"]}, device=device)
+            reset_launches()
+            with torch.inference_mode():
+                outs[str(device)] = inf.forward(batch).cpu()
+            if device == dev:
+                torch.cuda.synchronize()
+                served = all_launches()
+        expect_launches(served, fam["serve"], 1, f"tiny {tag} served batch")
+        serve_snr = snr_db(outs[str(dev)], outs["cpu"])
+
+        one = fam["collate"](fam["crops"](SEED + 13, 2, 1).items)
+        steps = {}
+        for device in (dev, "cpu"):
+            model = fam["model"]()
+            model.load_state_dict(start.state_dict(), strict=True)
+            t = fam["trainer"](model, dict(fam["config"], new_checkpoints_path=os.path.join(
+                OUT_DIR, "tiny_ckpt_unused")), device=device)
+            t.model.train()
+            reset_launches()
+            loss, _ = t._forward_loss(t._to_device(one), train=True)
+            loss.backward()
+            if device == dev:
+                torch.cuda.synchronize()
+                stepped = dict(all_launches(), **product_launches())
+            steps[str(device)] = (loss.item(), {k: p.grad.detach().cpu()
+                                                for k, p in t.model.named_parameters()})
+        expect_launches(stepped, dict(fam["step"], **fam["products"]), 1,
+                        f"tiny {tag} train step")
+        (loss_gpu, g_gpu), (loss_cpu, g_cpu) = steps[str(dev)], steps["cpu"]
+        rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        grad_snr = snr_db(*(torch.cat([g[k].flatten() for k in sorted(g)]) for g in (g_gpu, g_cpu)))
+        log(f"[tiny] {tag} F={TINY_BSS['feature_size']} H={TINY_BSS['hidden_size']}: served "
+            f"batch card vs CPU {serve_snr:.2f} dB SNR (launches "
+            f"{ {k: v for k, v in served.items() if v} }); train step loss {loss_gpu:.6f} vs "
+            f"{loss_cpu:.6f} (rel {rel:.2e}), gradients {grad_snr:.2f} dB SNR (launches "
+            f"{ {k: v for k, v in stepped.items() if v} })")
+        if not (serve_snr >= 50.0 and rel <= 1e-4 and grad_snr >= 40.0):
+            raise AssertionError(f"tiny {tag} card vs CPU: served {serve_snr:.2f} dB, loss rel "
+                                 f"{rel}, gradients {grad_snr:.2f} dB")
+        results[tag] = {"served_launches": served, "step_launches": stepped,
+                        "serve_snr_db": serve_snr, "step_loss_rel": rel,
+                        "step_grad_snr_db": grad_snr}
+    import shutil
+
+    shutil.rmtree(os.path.join(OUT_DIR, "tiny_ckpt_unused"), ignore_errors=True)
+    return results
 
 
 def with_env(name, value):
@@ -1654,13 +1804,17 @@ def main() -> int:
         if e["name"] == "bilstm2_dense_forward":
             e["launches_per_training_run"] = optin["training"]["launches"][e["name"]]
     entries += optin_kernels
+    t0 = time.perf_counter()
+    tiny = phase_tiny_widths(torch, dev)
+    log(f"[tiny] phase done in {time.perf_counter() - t0:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     for e in entries:  # the dense Function's training steps run the residual and backward kernels
         if e["name"] in ("bilstm2_forward_resid", "bilstm2_backward"):
             e["launches_tss_fused_dense_training"] = optin["training"]["launches"][e["name"]]
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
-                   "bss_training": bss_train, "optin": optin}, f, indent=1)
+                   "bss_training": bss_train, "optin": optin, "tiny_widths": tiny}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -314,7 +314,7 @@ def test_bss_inferencer_reorders_permuted_estimates(tmp_path):
     model = init_weights_(DPRNNTasNet(**TINY), torch.Generator().manual_seed(0))
     path = tmp_path / "model.pt"
     torch.save(model.state_dict(), path)
-    inf = Inferencer(DPRNNTasNet(**TINY), {"checkpoint_path": str(path),
+    inf = Inferencer(DPRNNTasNet(**TINY), {"checkpoint_path": str(path), "metrics": ["si_sdr"],
                                           "test_savedir": str(tmp_path / "m")}, device="cpu")
     batch = next(iter(inf._make_loader(ds, 2, 1, 100)))
     noise = 0.01 * np.random.default_rng(0).standard_normal(batch["sources"].shape)
@@ -330,6 +330,14 @@ def test_bss_inferencer_rejects_unported_metrics(tmp_path, metrics):
     with pytest.raises(NotImplementedError, match="not ported"):
         Inferencer(DPRNNTasNet(**TINY), {"checkpoint_path": str(tmp_path / "x"),
                                          "metrics": metrics}, device="cpu")
+
+
+def test_bss_inferencer_default_metrics_raise_until_ported(tmp_path):
+    path = tmp_path / "model.pt"
+    torch.save(init_weights_(DPRNNTasNet(**TINY), torch.Generator().manual_seed(0))
+               .state_dict(), path)
+    with pytest.raises(NotImplementedError, match=r"not ported.*stoi.*pesq"):
+        Inferencer(DPRNNTasNet(**TINY), {"checkpoint_path": str(path)}, device="cpu")
 
 
 # ------------------------------------------------------------------ trainer
@@ -416,11 +424,12 @@ def test_bss_trainer_run_and_checkpoint_serves(tmp_path, bidirectional):
     assert tr.step == 2 * len(train_loader)
     best = sorted(f for f in files if f.endswith("_best"))[-1]
     inf = Inferencer(DPRNNTasNet(**cfg), {"checkpoint_path": str(tmp_path / "ck" / best),
-                                         "test_savedir": str(tmp_path / "metrics")},
-                     device="cpu")
+                                         "test_savedir": str(tmp_path / "metrics"),
+                                         "metrics": ["si_sdr"]}, device="cpu")
     final = inf.run(_Mixtures(5, [300, 222, 260]), batch_size=2, n_buckets=1)
     assert all(math.isfinite(v) for v in final.values())
     # a checkpoint of the other setting does not load
     with pytest.raises(RuntimeError, match="state_dict"):
         Inferencer(DPRNNTasNet(**dict(cfg, bidirectional=not bidirectional)),
-                   {"checkpoint_path": str(tmp_path / "ck" / best)}, device="cpu")
+                   {"checkpoint_path": str(tmp_path / "ck" / best), "metrics": ["si_sdr"]},
+                   device="cpu")

@@ -100,11 +100,20 @@ def test_lstm_forward_resid_matches_pallas(rng, interpret, D, R, T):
     want_h, _, *want_streams = pallas_lstm.lstm_forward_resid(x, *w)
     got_h, got_streams = port.lstm_forward_resid(*_torch(x, *w))
     np.testing.assert_allclose(got_h.numpy(), _from_tm(want_h), **TOL_FWD)
+    assert len(got_streams) == 4
     for name, got, want in zip(("hp", "cp", "tc"), got_streams, want_streams):
         assert got.shape == (D, R, T, 16) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), _from_kernel_layout(want, R, T), **TOL_FWD,
                                    err_msg=name)
     assert torch.all(got_streams[0][:, :, 0] == 0) and torch.all(got_streams[1][:, :, 0] == 0)
+    # the saved gate pre-activations: x_t @ W_ih + h_prev @ W_hh + b from the
+    # JAX kernel's own h_prev stream
+    w_ih, b, w_hh = w
+    hp = _from_kernel_layout(want_streams[0], R, T)
+    want_pre = (np.einsum("drtf,dfg->drtg", x, w_ih) + np.einsum("drth,dhg->drtg", hp, w_hh)
+                + b[:, None, None])
+    assert got_streams[3].shape == (D, R, T, 64) and got_streams[3].dtype == torch.float32
+    np.testing.assert_allclose(got_streams[3].numpy(), want_pre, **TOL_FWD, err_msg="pre")
 
 
 @pytest.mark.parametrize("D,R,T", SHAPES)
@@ -214,6 +223,29 @@ def test_lstm_stack_grad_matches_jax(rng, interpret):
     _assert_grads_close([t.grad for t in leaves], want)
 
 
+def test_lstm_stack_saves_four_streams_and_backs_twice_alike(rng, interpret):
+    """LSTMStack's saved residual is the 4-tuple (hp, cp, tc, pre), pre
+    against the Pallas entry's streams; a second backward through the same
+    graph gives the same gradients (the backward writes dpre into its own
+    buffer, never into the saved pre)."""
+    from tss_dprnn_tpu.ops import pallas_lstm
+
+    D, R, T, H = 2, 3, 11, 16
+    x, w = _case(rng, D, R, T)
+    cot = torch.from_numpy(rng.standard_normal((D, R, T, H)).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in _torch(x, *w)]
+    out = port_rnn.lstm_stack(leaves[0], tuple(leaves[1:]))
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 8 and saved[7].shape == (D, R, T, 4 * H)
+    _, _, *want_streams = pallas_lstm.lstm_forward_resid(x, *w)
+    for got, want in zip(saved[4:7], want_streams):
+        np.testing.assert_allclose(got.numpy(), _from_kernel_layout(want, R, T), **TOL_FWD)
+    first = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    second = torch.autograd.grad(out, leaves, cot)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_lstm_without_grad_takes_inference_entry(rng):
     x, w = _case(rng, 1, 3, 5)
     xt, w_ih, b, w_hh = _torch(x[0], *w)
@@ -295,7 +327,7 @@ def test_lstm_training_forwards_match_reference_on_card(D):
     torch.testing.assert_close(h_cs, want_h, atol=1e-4, rtol=0)
     torch.testing.assert_close(h, want_h, atol=1e-4, rtol=0)
     torch.testing.assert_close(cs, want_cs, atol=1e-4, rtol=0)
-    for name, a, b in zip(("hp", "cp", "tc"), resid, want_resid):
+    for name, a, b in zip(("hp", "cp", "tc", "pre"), resid, want_resid, strict=True):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
 
 

@@ -228,7 +228,7 @@ int launch(void* pre, const void* wsplit, const void* lens, void* out0, void* ou
            void* cp0, void* tc0, void* hp1, void* cp1, void* tc1, int R, int Tn, int H,
            cudaStream_t s) {
   const int tiles = (R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(resid_scan_kernel<NR>, tiles, 4 * H / UW, smem_bytes(NR, H), s,
+  return launch_cluster(resid_scan_kernel<NR>, tiles, 2, 4 * H / UW, smem_bytes(NR, H), s,
                         static_cast<float*>(pre), static_cast<const float*>(wsplit),
                         static_cast<const int*>(lens), static_cast<float*>(out0),
                         static_cast<float*>(out1), static_cast<float*>(hp0),

@@ -15,8 +15,9 @@
 // the unidirectional inter-chunk scan of a causal DPRNN. Modes (compile-time):
 //   kModeH      h only, float or bf16 streams;
 //   kModeCs     + the fp32 cell state after every step (fp32 streams);
-//   kModeResid  + h and c before every step and tanh(c) after it, for the
-//               backward (csrc/lstm_bwd.cu) (fp32 streams).
+//   kModeResid  + h and c before every step, tanh(c) after it and the gate
+//               pre-activations g, for the backward (csrc/lstm_bwd.cu, which
+//               recomputes no gate) (fp32 streams).
 // kShared (h only, D = 2; `bilstm_pallas_fused` :171, the TPU kernel's
 // `reverse_dir1` with one input buffer): both directions read one x [R, T, F];
 // direction 1's step s reads x_{T-1-s} and writes its h at T-1-s, so both
@@ -57,12 +58,14 @@ constexpr int kModeH = 0;
 constexpr int kModeCs = 1;
 constexpr int kModeResid = 2;
 
-// The extra fp32 streams, each [D, R, T, H]: kModeCs writes a (c after the
-// step); kModeResid writes a (h before), b (c before) and c (tanh(c) after).
+// The extra fp32 streams, each [D, R, T, H] but d: kModeCs writes a (c after
+// the step); kModeResid writes a (h before), b (c before), c (tanh(c) after)
+// and d ([D, R, T, 4H], the gate pre-activations).
 struct Streams {
   float* a;
   float* b;
   float* c;
+  float* d;
 };
 
 // Grid (ceil(R / 16), D): blockIdx.y is the direction. Threads: 2H (8 row
@@ -163,9 +166,12 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       const int row = rg + 8 * r;
       const int gr = row0 + row;
       if constexpr (kMode == kModeResid) {
-        if (gr < R) {  // h and c before the step
+        if (gr < R) {  // h and c before the step, and its gate pre-activations
           st4(at(st.a, gr, t) + u4, ld4(hs + row * hp + u4));
           store4(at(st.b, gr, t) + u4, c[r]);
+          float* pg = st.d + ((drow0 + gr) * Tn + t) * G + u4;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) store4(pg + g * H, acc[g][r]);
         }
       }
       float hv[4], tcv[4];
@@ -212,16 +218,18 @@ extern "C" {
 
 // dtype: 0 = float32 streams, 1 = bfloat16 streams (mode 0 only). mode: 0 = h
 // only, 1 = + cell states (s0), 2 = + residual streams (s0 = h before, s1 = c
-// before, s2 = tanh(c) after). x: [D, R, T, F] and out: [D, R, T, H],
-// contiguous in the stream type; s0..s2: [D, R, T, H] fp32 or null; w_ih:
+// before, s2 = tanh(c) after, s3 = the gate pre-activations). x: [D, R, T, F]
+// and out: [D, R, T, H], contiguous in the stream type; s0..s2: [D, R, T, H]
+// and s3: [D, R, T, 4H] fp32, or null; w_ih:
 // [D, F, 4H], w_hh: [D, H, 4H], b: [D, 4H], fp32. Every pointer 16-byte
 // aligned; F and H multiples of 16, H <= 128. Returns a cudaError_t code
 // (0 = launched).
 int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const void* w_hh,
-                 const void* b, void* out, void* s0, void* s1, void* s2, int D, int R, int Tn,
-                 int F, int H, void* stream) {
+                 const void* b, void* out, void* s0, void* s1, void* s2, void* s3, int D, int R,
+                 int Tn, int F, int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Streams st = {static_cast<float*>(s0), static_cast<float*>(s1), static_cast<float*>(s2)};
+  const Streams st = {static_cast<float*>(s0), static_cast<float*>(s1), static_cast<float*>(s2),
+                      static_cast<float*>(s3)};
   if (dtype == 1 && mode == kModeH)
     return launch<__nv_bfloat16, kModeH>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -238,7 +246,7 @@ int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const voi
 int lstm_bidir_forward(int dtype, const void* x, const void* w_ih, const void* w_hh,
                        const void* b, void* out, int R, int Tn, int F, int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Streams none = {nullptr, nullptr, nullptr};
+  const Streams none = {nullptr, nullptr, nullptr, nullptr};
   if (dtype == 0) return launch<float, kModeH, true>(x, w_ih, w_hh, b, out, none, 2, R, Tn, F, H, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, kModeH, true>(x, w_ih, w_hh, b, out, none, 2, R, Tn, F, H, s);

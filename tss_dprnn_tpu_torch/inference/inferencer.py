@@ -8,9 +8,10 @@ runs in eval mode; bucketed batches run the masked forward; results land in
 metric_imp}`` schema. Metrics are computed on the device, as in the JAX
 package's ``device_metrics`` lane (inferencer.py:125-142, 291-300): for blind
 source separation the estimates are reordered to the best permutation by
-PIT SI-SDR first, and a row's metric is the mean over its sources. SI-SDR
-is the only metric of the port so far: a config asking for another one
-raises.
+PIT SI-SDR first, and a row's metric is the mean over its sources. A
+config without ``metrics`` asks for the JAX package's default,
+``["si_sdr", "stoi", "pesq"]``. SI-SDR is the only metric of the port so far:
+a config asking for another one, the default among them, raises.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from tss_dprnn_tpu_torch.ops.losses import masked_si_sdr, pit_sisdr_loss
 from tss_dprnn_tpu_torch.utils.checkpoint import load_model
 
 SUPPORTED_METRICS = ("si_sdr",)
+# what a config without ``metrics`` asks for, as in the JAX package
+DEFAULT_METRICS = ("si_sdr", "stoi", "pesq")
 
 
 class Inferencer:
@@ -43,11 +46,14 @@ class Inferencer:
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.logger = logging.getLogger(__name__)
-        self.metrics = list(config.get("metrics", list(SUPPORTED_METRICS)))
+        self.metrics = list(config.get("metrics", DEFAULT_METRICS))
         unsupported = [m for m in self.metrics if m not in SUPPORTED_METRICS]
         if unsupported:
-            raise NotImplementedError(
-                f"metrics {unsupported} are not ported yet; the port computes {SUPPORTED_METRICS}")
+            default = "" if "metrics" in config else (
+                f" (a config without `metrics` asks for the JAX default {list(DEFAULT_METRICS)}; "
+                f"name `metrics: [si_sdr]` for the port)")
+            raise NotImplementedError(f"metrics {unsupported} are not ported yet; the port "
+                                      f"computes {SUPPORTED_METRICS}{default}")
         self.test_savedir = config.get("test_savedir", ".")
         checkpoint_path = config.get("checkpoint_path")
         if checkpoint_path is None:

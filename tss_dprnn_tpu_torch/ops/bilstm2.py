@@ -43,6 +43,22 @@ a fixed order. Both scans run as 2-CTA thread-block clusters, one per
 the whole scan; :func:`plan_tiles` picks the tile height. The sources'
 headers give the details.
 
+The products run on the tensor cores in 3xTF32 (``csrc/products.cu``): each
+fp32 operand is split into two TF32 parts and three TF32 products are summed
+in fp32, which keeps about 22 of fp32's 24 mantissa bits.
+:func:`gemm_reference` is the kernel's plain version (fp32) and, with
+``tf32x3=True``, an emulation of that arithmetic (the TF32 rounding done on
+the bits).
+
+The kernels take F and H in multiples of 16 (H <= 128). The wrappers on the
+card zero-pad other widths up to the next multiple of 16 (:class:`Widths`):
+x and the rows of W_ih in F, and in H each gate block of W_ih, W_hh and b,
+the rows of W_hh and of the dense mode's wo. That is exact: a padded unit's
+pre-activations are 0, so its c stays 0.5 * 0 + 0.5 * tanh(0) = 0 and its h
+0.5 * tanh(0) = 0, and its zero rows of W_hh feed nothing; in the backward
+its dpre is 0. The pad is sliced off the outputs, the residual streams and
+the gradients, so callers see their own widths.
+
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`bilstm2_reference`, :func:`bilstm2_resid_reference`,
 :func:`bilstm2_dense_reference`, :func:`bilstm2_bm_reference`,
@@ -66,6 +82,185 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor, torch.Tensor]
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, n - t.shape[-1])) if n != t.shape[-1] else t
+
+
+class Widths(NamedTuple):
+    """A call's F and H and the kernels' widths Fp, Hp, each rounded up to a
+    multiple of 16; the wrappers pad with :meth:`feat`, :meth:`hid`,
+    :meth:`gates`, :meth:`w_ih`, :meth:`w_hh` and slice with the ``cut_``
+    methods (see the module docstring). With nothing to pad every method
+    returns its input."""
+
+    F: int
+    H: int
+    Fp: int
+    Hp: int
+
+    @classmethod
+    def of(cls, F: int, H: int) -> "Widths":
+        if not 0 < H <= 128:
+            raise ValueError(f"the LSTM kernels take 0 < H <= 128; H={H}")
+        return cls(F, H, _round16(F), _round16(H))
+
+    @property
+    def padded(self) -> bool:
+        return self.Fp != self.F or self.Hp != self.H
+
+    def feat(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., F] -> [..., Fp]"""
+        return _pad_last(t, self.Fp)
+
+    def hid(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., H] -> [..., Hp]"""
+        return _pad_last(t, self.Hp)
+
+    def gates(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., 4H] -> [..., 4Hp], each gate block padded"""
+        if self.Hp == self.H:
+            return t
+        return _pad_last(t.unflatten(-1, (4, self.H)), self.Hp).flatten(-2)
+
+    def w_ih(self, w: torch.Tensor) -> torch.Tensor:
+        """[..., F, 4H] -> [..., Fp, 4Hp]"""
+        return self.gates(_pad_last(w.transpose(-1, -2), self.Fp).transpose(-1, -2))
+
+    def w_hh(self, w: torch.Tensor) -> torch.Tensor:
+        """[..., H, 4H] -> [..., Hp, 4Hp]"""
+        return self.gates(_pad_last(w.transpose(-1, -2), self.Hp).transpose(-1, -2))
+
+    def pad(self, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor):
+        """A call's (x, w_ih, b, w_hh) at the kernels' widths."""
+        return self.feat(x), self.w_ih(w_ih), self.gates(b), self.w_hh(w_hh)
+
+    def widen(self, t: torch.Tensor) -> torch.Tensor:
+        """A saved stream or cotangent [..., H] or pre-activations [..., 4H]
+        -> the kernels' widths, zero in the pad (as the padded forward
+        leaves them)."""
+        return self.gates(t) if t.shape[-1] == 4 * self.H else self.hid(t)
+
+    def cut(self, out):
+        """What a scan returns at the kernels' widths (a tensor or nested
+        tuples) -> the call's widths: a tensor's last dimension is Hp (h, c,
+        tanh(c)), 2 Hp (two directions side by side) or 4 Hp (the gate
+        pre-activations)."""
+        if isinstance(out, tuple):
+            return tuple(self.cut(o) for o in out)
+        n, H, Hp = out.shape[-1], self.H, self.Hp
+        if n == 4 * Hp:
+            return out.unflatten(-1, (4, Hp))[..., :H].flatten(-2).contiguous()
+        if n == 2 * Hp:
+            return torch.cat([out[..., :H], out[..., Hp:Hp + H]], dim=-1)
+        return out[..., :H].contiguous()
+
+    def cut_grads(self, grads: Grads) -> Grads:
+        """(dx, dw_ih, db, dw_hh) at the kernels' widths -> the call's."""
+        dx, dw_ih, db, dw_hh = grads
+        return (dx[..., :self.F].contiguous(), self.cut(dw_ih[..., :self.F, :]), self.cut(db),
+                self.cut(dw_hh[..., :self.H, :]))
+
+
+def padded(run, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
+           *rest):
+    """``run(x, w_ih, b, w_hh, *rest)`` at the kernels' widths (x [..., F]);
+    what it returns cut back by :meth:`Widths.cut`."""
+    p = Widths.of(x.shape[-1], w_hh.shape[-2])
+    if not p.padded:
+        return run(x, w_ih, b, w_hh, *rest)
+    return p.cut(run(*p.pad(x, w_ih, b, w_hh), *rest))
+
+
+def padded_dense(run, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                 w_hh2: torch.Tensor, wo2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense mode at the kernels' widths: wo2 [2, H, Fo] gets zero rows
+    for the padded units; the outputs are Fo wide already."""
+    p = Widths.of(x.shape[-1], w_hh2.shape[1])
+    if not p.padded:
+        return run(x, w_ih2, b2, w_hh2, wo2)
+    wo2 = _pad_last(wo2.transpose(-1, -2), p.Hp).transpose(-1, -2)
+    return run(*p.pad(x, w_ih2, b2, w_hh2), wo2)
+
+
+def padded_backward(run, x: torch.Tensor, resid, cotangents, w_ih: torch.Tensor,
+                    b: torch.Tensor, w_hh: torch.Tensor, *lens) -> Grads:
+    """``run(x, resid, *cotangents, w_ih, b, w_hh, *lens)`` at the kernels'
+    widths (the saved streams and the cotangents widened by
+    :meth:`Widths.widen`), the gradients cut back."""
+    p = Widths.of(x.shape[-1], w_hh.shape[-2])
+    if not p.padded:
+        return run(x, resid, *cotangents, w_ih, b, w_hh, *lens)
+    xp, w_ihp, bp, w_hhp = p.pad(x, w_ih, b, w_hh)
+    return p.cut_grads(run(xp, tuple(map(p.widen, resid)), *map(p.widen, cotangents), w_ihp, bp,
+                           w_hhp, *lens))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 explicit mantissa bits), ties away
+    from zero, as the card's ``cvt.rna.tf32.f32`` rounds: on the bits, add
+    half the range of the 13 dropped bits to the magnitude and clear them
+    (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x = big + small + rest: big = tf32(x), small = tf32(x - big) (the
+    difference is exact in fp32), |rest| <= 2^-22 |x|."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
+    """a @ b with the product kernel's arithmetic (3xTF32): both operands
+    split by :func:`tf32_split`, then small @ big + big @ small + big @ big
+    summed in ``dtype`` (fp32, as the tensor cores accumulate; float64
+    leaves only the split's own error, the dropped small @ small and the
+    roundings of small, below 3 * 2^-22 of |a| @ |b|), returned as fp32."""
+    (ab, asm), (bb, bsm) = tf32_split(a), tf32_split(b)
+
+    def mm(u, v):
+        return torch.matmul(u.to(dtype), v.to(dtype))
+
+    return (mm(asm, bb) + mm(ab, bsm) + mm(ab, bb)).float()
+
+
+def gemm_reference(parts, bias: Optional[torch.Tensor] = None, kps: Optional[int] = None,
+                   tf32x3: bool = False) -> torch.Tensor:
+    """Plain version of the product kernel (``products_gemm``): C = the sum
+    over ``parts`` ((A, B) pairs, A [M, K_p], B [K_p, N]; a column-layout A
+    is the transpose of its [K_p, M] array) of A @ B, plus ``bias`` [N]. With
+    ``kps`` the concatenated k-range is cut into splits of kps and the
+    partials are summed in order, as the wrapper sums the kernel's. fp32
+    products, or with ``tf32x3`` :func:`tf32x3_matmul` (the kernel's
+    arithmetic)."""
+    a = torch.cat([p[0] for p in parts], dim=1).float()
+    b = torch.cat([p[1] for p in parts], dim=0).float()
+    mm = tf32x3_matmul if tf32x3 else torch.matmul
+    K = a.shape[1]
+    step = kps or max(K, 1)
+    out = None
+    for k0 in range(0, K, step):
+        part = mm(a[:, k0:k0 + step], b[k0:k0 + step])
+        out = part if out is None else out + part
+    if out is None:
+        out = a.new_zeros(a.shape[0], b.shape[1])
+    return out if bias is None else out + bias.float()
+
+
+def _row_sum(t: torch.Tensor) -> torch.Tensor:
+    """[M, N] -> [N], each column summed in row order: a sequential sum,
+    whose bits do not depend on N (a padded call gives the unpadded one's),
+    as the column-sum kernel sums a split's rows in order."""
+    return t.cumsum(0)[-1] if t.shape[0] else t.new_zeros(t.shape[1:])
 
 
 def _gates(g: torch.Tensor, H: int):
@@ -155,14 +350,15 @@ def bilstm2_bm_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 
 def bilstm2_backward_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
                                g1: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-                               w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None
-                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                          torch.Tensor]:
+                               w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None,
+                               matmul=torch.matmul) -> Grads:
     """Plain version of the backward: a Python loop over T per direction, in
     the reverse of its scan, with the kernel's arithmetic (the gates read
     from the saved pre-activations ``resid[6]``, not recomputed). Returns
     (dx, dw_ih2, db2, dw_hh2), fp32. With ``lens`` the steps t >= len[row]
-    of both directions give no dpre and pass the carries through."""
+    of both directions give no dpre and pass the carries through. dx, dW_ih
+    and dW_hh, which the card computes in the product kernel, go through
+    ``matmul`` (e.g. :func:`tf32x3_matmul`, that kernel's arithmetic)."""
     B, T, F = x.shape
     H = w_hh2.shape[1]
     xf = x.float()
@@ -188,10 +384,10 @@ def bilstm2_backward_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
                 dh_new = torch.where(live, dh_new, dh)
                 dc_new = torch.where(live, dc_new, dc)
             dpre[:, t], dh, dc = p, dh_new, dc_new
-        dx += dpre @ w_ih[d].T
-        dw_ih.append(xf.reshape(-1, F).T @ dpre.reshape(-1, 4 * H))
-        dw_hh.append(hp.reshape(-1, H).T @ dpre.reshape(-1, 4 * H))
-        db.append(dpre.sum((0, 1)))
+        dx += matmul(dpre, w_ih[d].T)
+        dw_ih.append(matmul(xf.reshape(-1, F).T, dpre.reshape(-1, 4 * H)))
+        dw_hh.append(matmul(hp.reshape(-1, H).T, dpre.reshape(-1, 4 * H)))
+        db.append(_row_sum(dpre.reshape(-1, 4 * H)))
     return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
 
 
@@ -214,7 +410,7 @@ def _checked(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torc
         raise ValueError(
             f"weights must be w_ih2 [2, {F}, 4H], w_hh2 [2, H, 4H], b2 [2, 4H]; got "
             f"{tuple(w_ih2.shape)}, {tuple(w_hh2.shape)}, {tuple(b2.shape)}")
-    if F % 16 or H % 16 or not 16 <= H <= 128:
+    if F % 16 or H % 16 or not 16 <= H <= 128:  # Widths pads them before this
         raise ValueError(f"bilstm2 kernel needs F, H multiples of 16 and H <= 128; F={F} H={H}")
     if T * max(F, H) >= 2 ** 31:  # the kernel's offsets within a row are 32-bit
         raise ValueError(f"bilstm2 kernel needs T * max(F, H) < 2^31; T={T}")
@@ -328,7 +524,7 @@ def _launch_bm(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 # kernel (2 blocks per SM of an H100)
 _SPLIT_BLOCKS = 528
 _BM = _BN = 128  # the product kernel's block tile
-_BK = 16         # ... and its k-depth
+_BK = 32         # ... and its k-depth
 
 # the training scans' compiled tile heights (csrc/bilstm2_resid.cu, bilstm2_bwd.cu)
 TILE_HEIGHTS = (16, 24, 32, 40, 48)
@@ -336,24 +532,26 @@ TILE_HEIGHTS = (16, 24, 32, 40, 48)
 
 class TilePlan(NamedTuple):
     """Row tiles of a training scan: ``tiles`` tiles of ``height`` rows, one
-    2-CTA cluster per tile and direction."""
+    2-CTA cluster per tile and direction (``dirs`` of them)."""
 
     height: int
     tiles: int
+    dirs: int = 2
 
     @property
     def clusters(self) -> int:
-        return 2 * self.tiles
+        return self.dirs * self.tiles
 
 
-def plan_tiles(R: int, max_clusters: int) -> TilePlan:
-    """The tile height of a training scan over R rows when the card runs
-    ``max_clusters`` clusters at once: the smallest height whose grid fits
-    one wave; where none does, the fewest waves times height (the time of
-    one step is about proportional to the height), then the fewer waves."""
+def plan_tiles(R: int, max_clusters: int, dirs: int = 2) -> TilePlan:
+    """The tile height of a training scan over R rows and ``dirs``
+    directions when the card runs ``max_clusters`` clusters at once: the
+    smallest height whose grid fits one wave; where none does, the fewest
+    waves times height (the time of one step is about proportional to the
+    height), then the fewer waves."""
     if max_clusters < 1:
         raise ValueError(f"the card runs no cluster of the training scans ({max_clusters})")
-    plans = [TilePlan(h, max(1, -(-R // h))) for h in TILE_HEIGHTS]
+    plans = [TilePlan(h, max(1, -(-R // h)), dirs) for h in TILE_HEIGHTS]
     for plan in plans:
         if plan.clusters <= max_clusters:
             return plan
@@ -388,6 +586,8 @@ def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.T
     (a1, ao1, lda1, b1, bo1, ldb1, k1), *rest = parts
     a2, ao2, lda2, b2, bo2, ldb2, k2 = rest[0] if rest else (None, 0, 0, None, 0, 0, 0)
     K = k1 + k2
+    if bias is not None and out is None:  # each split's partial would add it
+        raise ValueError("product kernel: a bias needs out= (one split)")
     if out is not None:
         splits, kps, partial, stride = 1, -(-K // _BK) * _BK, out, 0
     else:
@@ -578,7 +778,7 @@ def bilstm2_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     forward time."""
     if x.device.type == "cpu":
         return bilstm2_reference(x, w_ih2, b2, w_hh2)
-    return _launch(bilstm2_forward, x, w_ih2, b2, w_hh2, None)
+    return padded(functools.partial(_launch, bilstm2_forward), x, w_ih2, b2, w_hh2, None)
 
 
 def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
@@ -590,7 +790,7 @@ def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Ten
     out1[t >= len] = 0; out0[t >= len] is unspecified (finite)."""
     if x.device.type == "cpu":
         return bilstm2_reference(x, w_ih2, b2, w_hh2, lens)
-    return _launch(bilstm2_forward_masked, x, w_ih2, b2, w_hh2, lens)
+    return padded(functools.partial(_launch, bilstm2_forward_masked), x, w_ih2, b2, w_hh2, lens)
 
 
 def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -603,7 +803,8 @@ def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor
     multiple of 4 and at most H."""
     if x.device.type == "cpu":
         return bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2)
-    return _launch_dense(bilstm2_dense_forward, x, w_ih2, b2, w_hh2, wo2)
+    return padded_dense(functools.partial(_launch_dense, bilstm2_dense_forward), x, w_ih2, b2,
+                        w_hh2, wo2)
 
 
 def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -614,7 +815,7 @@ def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     [2, B, T, H] buffer."""
     if x.device.type == "cpu":
         return bilstm2_bm_reference(x, w_ih2, b2, w_hh2)
-    return _launch_bm(bilstm2_forward_bm, x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_bm, bilstm2_forward_bm), x, w_ih2, b2, w_hh2)
 
 
 def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -626,7 +827,8 @@ def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor
     pre-activations [B, T, 2, 4H]."""
     if x.device.type == "cpu":
         return bilstm2_resid_reference(x, w_ih2, b2, w_hh2)
-    return _launch_resid(bilstm2_forward_resid, x, w_ih2, b2, w_hh2, None)
+    return padded(functools.partial(_launch_resid, bilstm2_forward_resid), x, w_ih2, b2, w_hh2,
+                  None)
 
 
 def bilstm2_forward_resid_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
@@ -638,7 +840,8 @@ def bilstm2_forward_resid_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: tor
     length is unspecified (finite)."""
     if x.device.type == "cpu":
         return bilstm2_resid_reference(x, w_ih2, b2, w_hh2, lens)
-    return _launch_resid(bilstm2_forward_resid_masked, x, w_ih2, b2, w_hh2, lens)
+    return padded(functools.partial(_launch_resid, bilstm2_forward_resid_masked), x, w_ih2, b2,
+                  w_hh2, lens)
 
 
 def bilstm2_backward(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
@@ -649,7 +852,8 @@ def bilstm2_backward(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.
     db2 [2, 4H], dw_hh2 [2, H, 4H])."""
     if x.device.type == "cpu":
         return bilstm2_backward_reference(x, resid, g0, g1, w_ih2, b2, w_hh2)
-    return _launch_backward(bilstm2_backward, x, resid, g0, g1, w_ih2, b2, w_hh2, None)
+    return padded_backward(functools.partial(_launch_backward, bilstm2_backward), x, resid,
+                           (g0, g1), w_ih2, b2, w_hh2, None)
 
 
 def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
@@ -664,7 +868,8 @@ def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     is zero past the length, as the DPRNN block's masked norm makes it."""
     if x.device.type == "cpu":
         return bilstm2_backward_reference(x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
-    return _launch_backward(bilstm2_backward_masked, x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
+    return padded_backward(functools.partial(_launch_backward, bilstm2_backward_masked), x, resid,
+                           (g0, g1), w_ih2, b2, w_hh2, lens)
 
 
 ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_dense_forward, bilstm2_forward_bm,

@@ -26,23 +26,27 @@ concatenated to [R, T, 2H]), and the manual-DMA kernel's two entries
 reversed), which compute the same function but, in a 16-bit stream type,
 round where that TPU kernel rounds (:func:`lstm_v2_reference`).
 
-The residual streams are a tuple ``(hp, cp, tc)`` of [D, R, T, H] fp32
-tensors: h and c before each step, tanh(c) after it. There are no lengths:
+The residual streams are a tuple ``(hp, cp, tc, pre)``: h and c before each
+step and tanh(c) after it, [D, R, T, H] fp32, and the gate pre-activations
+``x_t @ W_ih + h_prev @ W_hh + b`` of every row-step, [D, R, T, 4H] fp32, so
+that the backward recomputes no gate. There are no lengths:
 steps past a row's valid length compute on whatever the input holds, and the
 consumer masks them (the DPRNN block's masked norm does, and its zero
 cotangent there keeps the backward exact).
 
-What bounds the kernels on the H100: fp32 FMAs, 2 (F + H) 4H FLOP per
-row-step and direction forward and three times that backward. The forward is
-the fused bidirectional kernel's design (``csrc/bilstm2.cu``) with a direction
-per grid row; the backward splits the work in three: the tiled product kernel
-of ``csrc/products.cu`` recomputes every row-step's gates, the scan kernel of
-``csrc/lstm_bwd.cu`` runs the dh/dc recurrence and writes dpre, and the
-product and column-sum kernels give dx (per direction) and the fixed
-partials of dW and db, summed here in a fixed order (no atomics: a run repeats
-itself bit for bit). With few rows and D = 1 the 32-row tiles of the
-bidirectional kernels would leave most SMs without a block, so both scan
-kernels here use 16-row tiles.
+What bounds the kernels on the H100: the arithmetic, 2 (F + H) 4H FLOP per
+row-step and direction forward and twice that backward. The forward is the
+fused bidirectional kernel's design (``csrc/bilstm2.cu``) with a direction
+per grid row and 16-row tiles (with few rows and D = 1, 32-row tiles would
+leave most SMs without a block). The backward splits the work in two: the
+scan of ``csrc/lstm_bwd.cu`` (2-CTA clusters holding W_hh^T in shared memory,
+the tile height from :func:`plan_tiles`) turns the saved pre-activations and
+the carried dh/dc into dpre, then the 3xTF32 product and column-sum kernels
+of ``csrc/products.cu`` give dx (per direction) and the fixed partials of dW
+and db, summed here in a fixed order (no atomics: a run repeats itself bit
+for bit). As in ``ops/bilstm2.py``, the wrappers zero-pad F and H to
+multiples of 16 (``bilstm2.padded``, ``bilstm2.padded_backward``) and cut
+the pad off what they return.
 
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`lstm_reference`, :func:`lstm_cs_reference`,
@@ -63,18 +67,26 @@ import torch
 from tss_dprnn_tpu_torch.ops import _build
 from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _DTYPE_CODES,
+    TILE_HEIGHTS,
+    Grads,
+    TilePlan,
     _check_aligned,
     _colsum,
     _gates,
     _gemm,
     _library_products,
     _raise_on,
+    _row_sum,
+    padded,
+    padded_backward,
+    plan_tiles,
 )
 
-Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 _MODE_H, _MODE_CS, _MODE_RESID = 0, 1, 2
-_N_STREAMS = {_MODE_H: 0, _MODE_CS: 1, _MODE_RESID: 3}  # extra fp32 streams per mode
+# extra fp32 streams per mode, by their width in units of H
+_STREAM_WIDTHS = {_MODE_H: (), _MODE_CS: (1,), _MODE_RESID: (1, 1, 1, 4)}
 
 
 def _scan_reference(x, w_ih, b, w_hh, mode: int):
@@ -89,13 +101,15 @@ def _scan_reference(x, w_ih, b, w_hh, mode: int):
     h = xf.new_zeros(D, R, H)
     c = xf.new_zeros(D, R, H)
     out = x.new_empty(D, R, T, H)
-    streams = [xf.new_empty(D, R, T, H) for _ in range(_N_STREAMS[mode])]
+    streams = [xf.new_empty(D, R, T, n * H) for n in _STREAM_WIDTHS[mode]]
     for t in range(T):
-        i, f, gg, o = _gates(xp[:, :, t] + torch.bmm(h, w_hh) + b[:, None], H)
+        g = xp[:, :, t] + torch.bmm(h, w_hh) + b[:, None]
+        i, f, gg, o = _gates(g, H)
         c_new = f * c + i * gg
         tc = torch.tanh(c_new)
         if mode == _MODE_RESID:
-            streams[0][:, :, t], streams[1][:, :, t], streams[2][:, :, t] = h, c, tc
+            for stream, v in zip(streams, (h, c, tc, g)):
+                stream[:, :, t] = v
         elif mode == _MODE_CS:
             streams[0][:, :, t] = c_new
         c, h = c_new, (o * tc).to(dt).float()
@@ -124,8 +138,8 @@ def lstm_cs_reference(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
 def lstm_resid_reference(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                          w_hh: torch.Tensor) -> Tuple[torch.Tensor, Resid]:
     """Plain version of the residual mode: :func:`lstm_reference`'s h and
-    ``(hp, cp, tc)``: h and c before each step and tanh(c) after it (fp32,
-    [D, R, T, H])."""
+    ``(hp, cp, tc, pre)``: h and c before each step and tanh(c) after it
+    (fp32, [D, R, T, H]) and the gate pre-activations (fp32, [D, R, T, 4H])."""
     return _scan_reference(x, w_ih, b, w_hh, _MODE_RESID)
 
 
@@ -194,19 +208,16 @@ def bilstm_v2_reference(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tenso
 
 
 def lstm_backward_reference(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
-                            b: torch.Tensor, w_hh: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+                            b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
     """Plain version of the backward: a Python loop over T from the last step
-    to the first, all directions at once, with the kernel's arithmetic (gates
-    recomputed from x_t and h_prev). Returns (dx [D, R, T, F], dw_ih, db,
-    dw_hh), fp32."""
+    to the first, all directions at once, with the kernel's arithmetic (the
+    gates read from the saved pre-activations ``resid[3]``, not recomputed).
+    Returns (dx [D, R, T, F], dw_ih, db, dw_hh), fp32."""
     D, R, T, F = x.shape
     H = w_hh.shape[1]
-    hp, cp, tc = resid
+    hp, cp, tc, pre = resid
     xf = x.float()
-    w_ih, w_hh, b = w_ih.float(), w_hh.float(), b.float()
-    pre = (torch.einsum("drtf,dfg->drtg", xf, w_ih) + torch.einsum("drth,dhg->drtg", hp, w_hh)
-           + b[:, None, None])  # every step at once
+    w_ih, w_hh = w_ih.float(), w_hh.float()  # b's part is in the saved pre
     dpre = xf.new_zeros(D, R, T, 4 * H)
     dh = xf.new_zeros(D, R, H)
     dc = xf.new_zeros(D, R, H)
@@ -220,7 +231,8 @@ def lstm_backward_reference(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
                        dc_t * (i * (1.0 - gg * gg)), dh_t * (tct * o * (1.0 - o))], -1)
         dpre[:, :, t], dh, dc = p, torch.bmm(p, w_hh_t), dc_t * f
     return (torch.einsum("drtg,dfg->drtf", dpre, w_ih), torch.einsum("drtf,drtg->dfg", xf, dpre),
-            dpre.sum((1, 2)), torch.einsum("drth,drtg->dhg", hp, dpre))
+            torch.stack([_row_sum(p.reshape(-1, 4 * H)) for p in dpre]),
+            torch.einsum("drth,drtg->dhg", hp, dpre))
 
 
 def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
@@ -259,8 +271,8 @@ def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.T
     return x, w_ih, b, w_hh
 
 
-def _launch(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
-            mode: int):
+def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+            w_hh: torch.Tensor):
     """Check what the kernel takes, allocate the outputs and launch on the
     current stream; a launch adds one to ``entry.launches``. Returns
     (h, streams)."""
@@ -268,11 +280,11 @@ def _launch(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: t
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
-    streams = tuple(torch.empty(D, R, T, H, dtype=torch.float32, device=x.device)
-                    for _ in range(_N_STREAMS[mode]))
+    streams = tuple(torch.empty(D, R, T, n * H, dtype=torch.float32, device=x.device)
+                    for n in _STREAM_WIDTHS[mode])
     if D and R and T:
         lib = _library()
-        ptrs = [s.data_ptr() for s in streams] + [None] * (3 - len(streams))
+        ptrs = [s.data_ptr() for s in streams] + [None] * (4 - len(streams))
         with torch.cuda.device(x.device):
             rc = lib.lstm_forward(
                 _DTYPE_CODES[x.dtype], mode, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
@@ -283,8 +295,8 @@ def _launch(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: t
     return out, streams
 
 
-def _launch_shared(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-                   w_hh2: torch.Tensor, v2: bool) -> torch.Tensor:
+def _launch_shared(entry, v2: bool, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                   w_hh2: torch.Tensor) -> torch.Tensor:
     """Two directions on one shared x [R, T, F], direction 1 reversed, through
     ``csrc/lstm.cu``'s shared mode or (``v2``) ``csrc/lstm_v2.cu``; a launch
     adds one to ``entry.launches``. Returns [R, T, 2H]."""
@@ -327,8 +339,26 @@ def _launch_v2(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _max_clusters(H: int, device: int) -> int:
+    """How many clusters of the backward scan the card runs at once
+    (cudaOccupancyMaxActiveClusters; at H = 128 every tile height takes most
+    of an SM's shared memory, so the smallest height's answer serves all)."""
+    lib = _library_scan()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.lstm_bwd_max_clusters(TILE_HEIGHTS[0], H, ctypes.byref(n))
+    _raise_on(rc, "lstm backward scan occupancy query", lib, "lstm_bwd_error_string")
+    return n.value
+
+
+def plan_backward(D: int, R: int, H: int, device: torch.device) -> TilePlan:
+    """The backward scan's row tiles on the card (:func:`plan_tiles`)."""
+    return plan_tiles(R, _max_clusters(H, device.index), dirs=D)
+
+
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
-                     b: torch.Tensor, w_hh: torch.Tensor):
+                     b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
     """The backward's launches (see the module docstring) on the current
     stream; one call adds one to ``entry.launches``."""
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=True)
@@ -336,39 +366,47 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
     H = w_hh.shape[1]
     G = 4 * H
     M = R * T
-    streams = [t.contiguous() for t in (*resid, g)]
+    if len(resid) != 4:
+        raise ValueError(f"lstm backward: resid must be the forward's 4 streams (hp, cp, tc, "
+                         f"pre), got {len(resid)}")
+    streams = [t.contiguous() for t in (*resid[:3], g)]
     for t in streams:
         if t.shape != (D, R, T, H) or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"lstm backward: residual streams and cotangent must be "
                              f"[{D}, {R}, {T}, {H}] float32 on {x.device}; got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
-    _check_aligned(**dict(zip(("hp", "cp", "tc", "g"), streams)))
+    pre = resid[3].contiguous()
+    if pre.shape != (D, R, T, G) or pre.dtype != torch.float32 or pre.device != x.device:
+        raise ValueError(f"lstm backward: pre must be [{D}, {R}, {T}, {G}] float32 on "
+                         f"{x.device}; got {tuple(pre.shape)} {pre.dtype} on {pre.device}")
+    _check_aligned(**dict(zip(("hp", "cp", "tc", "g"), streams)), pre=pre)
     hp, cp, tc, g = streams
     dx = torch.empty(D, R, T, F, dtype=torch.float32, device=x.device)
     if D * M == 0:
         return dx, torch.zeros_like(w_ih), torch.zeros_like(b), torch.zeros_like(w_hh)
-    gates = torch.empty(D, R, T, G, dtype=torch.float32, device=x.device)  # then dpre
-    w_hh_t = w_hh.transpose(1, 2).contiguous()  # [D, 4H, H]
+    if D > 2:
+        raise ValueError(f"lstm backward kernel takes D <= 2 directions, got {D}")
+    dpre = torch.empty_like(pre)  # pre stays as saved: a second backward gives the same
+    # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
+    w_split = w_hh.view(D, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
     w_ih_t = w_ih.transpose(1, 2).contiguous()  # [D, 4H, F]
+    tiles = plan_backward(D, R, H, x.device)
     products, lib = _library_products(), _library_scan()
     dw_ih, dw_hh, db = [], [], []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for d in range(D):  # gates of every row-step
-            _gemm(products, stream, False, [(x, d * M * F, F, w_ih, d * F * G, G, F),
-                                            (hp, d * M * H, H, w_hh, d * H * G, G, H)],
-                  M, G, out=gates, out_off=d * M * G, ldc=G, bias=b[d])
-        rc = lib.lstm_bwd_scan(gates.data_ptr(), cp.data_ptr(), tc.data_ptr(), g.data_ptr(),
-                               w_hh_t.data_ptr(), D, R, T, H, stream)
+        rc = lib.lstm_bwd_scan(tiles.height, pre.data_ptr(), dpre.data_ptr(), cp.data_ptr(),
+                               tc.data_ptr(), g.data_ptr(), w_split.data_ptr(), D, R, T, H,
+                               stream)
         _raise_on(rc, "lstm backward scan kernel", lib, "lstm_bwd_error_string")
         for d in range(D):
-            _gemm(products, stream, False, [(gates, d * M * G, G, w_ih_t, d * G * F, F, G)], M, F,
+            _gemm(products, stream, False, [(dpre, d * M * G, G, w_ih_t, d * G * F, F, G)], M, F,
                   out=dx, out_off=d * M * F, ldc=F)
-            dw_ih.append(_gemm(products, stream, True, [(x, d * M * F, F, gates, d * M * G, G, M)],
+            dw_ih.append(_gemm(products, stream, True, [(x, d * M * F, F, dpre, d * M * G, G, M)],
                                F, G))
-            dw_hh.append(_gemm(products, stream, True, [(hp, d * M * H, H, gates, d * M * G, G, M)],
+            dw_hh.append(_gemm(products, stream, True, [(hp, d * M * H, H, dpre, d * M * G, G, M)],
                                H, G))
-            db.append(_colsum(products, stream, gates, d * M * G, G, M, G))
+            db.append(_colsum(products, stream, dpre, d * M * G, G, M, G))
     entry.launches += 1
     return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
 
@@ -379,7 +417,7 @@ def _library() -> ctypes.CDLL:
     signatures set once."""
     lib = _build.load_library("lstm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_forward.argtypes = [i, i] + [p] * 8 + [i] * 5 + [p]
+    lib.lstm_forward.argtypes = [i, i] + [p] * 9 + [i] * 5 + [p]
     lib.lstm_forward.restype = i
     lib.lstm_bidir_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
     lib.lstm_bidir_forward.restype = i
@@ -405,8 +443,10 @@ def _library_scan() -> ctypes.CDLL:
     """Build (at first use) and load the backward scan's library."""
     lib = _build.load_library("lstm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bwd_scan.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.lstm_bwd_scan.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
     lib.lstm_bwd_scan.restype = i
+    lib.lstm_bwd_max_clusters.argtypes = [i, i, p]
+    lib.lstm_bwd_max_clusters.restype = i
     lib.lstm_bwd_error_string.argtypes = [i]
     lib.lstm_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -418,7 +458,7 @@ def lstm_forward(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     forward time on its own input. float32 or bfloat16 streams."""
     if x.device.type == "cpu":
         return lstm_reference(x, w_ih, b, w_hh)
-    return _launch(lstm_forward, x, w_ih, b, w_hh, _MODE_H)[0]
+    return padded(functools.partial(_launch, lstm_forward, _MODE_H), x, w_ih, b, w_hh)[0]
 
 
 def lstm_forward_with_cs(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
@@ -427,18 +467,20 @@ def lstm_forward_with_cs(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     x [D, R, T, F] -> (h, cs), cs the fp32 cell state after every step."""
     if x.device.type == "cpu":
         return lstm_cs_reference(x, w_ih, b, w_hh)
-    out, (cs,) = _launch(lstm_forward_with_cs, x, w_ih, b, w_hh, _MODE_CS)
+    out, (cs,) = padded(functools.partial(_launch, lstm_forward_with_cs, _MODE_CS),
+                             x, w_ih, b, w_hh)
     return out, cs
 
 
 def lstm_forward_resid(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                        w_hh: torch.Tensor) -> Tuple[torch.Tensor, Resid]:
-    """Training forward (fp32): x [D, R, T, F] -> (h, (hp, cp, tc)), the
-    output of :func:`lstm_forward` and the residual streams, each
-    [D, R, T, H]."""
+    """Training forward (fp32): x [D, R, T, F] -> (h, (hp, cp, tc, pre)), the
+    output of :func:`lstm_forward` and the residual streams, [D, R, T, H]
+    and the gate pre-activations [D, R, T, 4H]."""
     if x.device.type == "cpu":
         return lstm_resid_reference(x, w_ih, b, w_hh)
-    return _launch(lstm_forward_resid, x, w_ih, b, w_hh, _MODE_RESID)
+    return padded(functools.partial(_launch, lstm_forward_resid, _MODE_RESID),
+                       x, w_ih, b, w_hh)
 
 
 def lstm_scan(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
@@ -447,7 +489,7 @@ def lstm_scan(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     JAX entry's argument order, x2 [D, R, T, F] -> [D, R, T, H]."""
     if x2.device.type == "cpu":
         return lstm_reference(x2, w_ih2, b2, w_hh2)
-    return _launch(lstm_scan, x2, w_ih2, b2, w_hh2, _MODE_H)[0]
+    return padded(functools.partial(_launch, lstm_scan, _MODE_H), x2, w_ih2, b2, w_hh2)[0]
 
 
 def bilstm_fused(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
@@ -458,7 +500,7 @@ def bilstm_fused(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     bfloat16 streams."""
     if x.device.type == "cpu":
         return bilstm_fused_reference(x, w_ih2, w_hh2, b2)
-    return _launch_shared(bilstm_fused, x, w_ih2, b2, w_hh2, v2=False)
+    return padded(functools.partial(_launch_shared, bilstm_fused, False), x, w_ih2, b2, w_hh2)
 
 
 def lstm_scan_v2(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
@@ -469,7 +511,7 @@ def lstm_scan_v2(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     as :func:`lstm_v2_reference` says."""
     if x2.device.type == "cpu":
         return lstm_v2_reference(x2, w_ih2, w_hh2, b2)
-    return _launch_v2(lstm_scan_v2, x2, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_v2, lstm_scan_v2), x2, w_ih2, b2, w_hh2)
 
 
 def bilstm_v2(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
@@ -478,18 +520,18 @@ def bilstm_v2(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     one x [R, T, F], direction 1 walking it backwards, -> [R, T, 2H]."""
     if x.device.type == "cpu":
         return bilstm_v2_reference(x, w_ih2, w_hh2, b2)
-    return _launch_shared(bilstm_v2, x, w_ih2, b2, w_hh2, v2=True)
+    return padded(functools.partial(_launch_shared, bilstm_v2, True), x, w_ih2, b2, w_hh2)
 
 
 def lstm_backward(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
-                  b: torch.Tensor, w_hh: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+                  b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
     """Backward of :func:`lstm_forward_resid` (fp32): the cotangent g
     [D, R, T, H] of h -> (dx [D, R, T, F] per direction, dw_ih [D, F, 4H],
-    db [D, 4H], dw_hh [D, H, 4H])."""
+    db [D, 4H], dw_hh [D, H, 4H]). D <= 2 on the card."""
     if x.device.type == "cpu":
         return lstm_backward_reference(x, resid, g, w_ih, b, w_hh)
-    return _launch_backward(lstm_backward, x, resid, g, w_ih, b, w_hh)
+    return padded_backward(functools.partial(_launch_backward, lstm_backward), x, resid, (g,),
+                           w_ih, b, w_hh)
 
 
 ENTRIES = (lstm_forward, lstm_forward_with_cs, lstm_forward_resid, lstm_backward, lstm_scan,

@@ -178,7 +178,10 @@ def lstm_split_dense(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor,
 
 class LSTMStack(torch.autograd.Function):
     """(x [D, R, T, F], w_ih, b, w_hh) -> h [D, R, T, H], differentiable in
-    all four; on a CPU tensor both passes run the kernels' plain versions."""
+    all four; on a CPU tensor both passes run the kernels' plain versions.
+    The forward saves the residual mode's four streams (h and c before each
+    step, tanh(c), and the gate pre-activations), which the backward reads
+    without recomputing a gate."""
 
     @staticmethod
     def forward(ctx, x, w_ih, b, w_hh):
