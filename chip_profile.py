@@ -12,7 +12,11 @@ at full width and depth (random weights from a seed, fp32). Prints:
 - the steady-state forward time and audio-seconds per second: host clock
   around synchronised forwards, after one warm-up;
 - from ``torch.profiler`` over one forward: device time by kernel, the
-  bilstm2 kernel's share of it, and the device's busy share of the window.
+  fused bidirectional scans' share of it (fp32: the input products and the
+  serving cluster scans; under a switch its kernel), and the device's busy
+  share of the window;
+- the peak device memory of the steady-state forwards
+  (``torch.cuda.max_memory_allocated``).
 
 Writes ``chiprun_out/chip_profile/summary.json`` and ``trace.json`` (Chrome
 trace) under the checkout.
@@ -89,7 +93,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from chip_smoke import (BSS, FLAGSHIP, SAMPLE_RATE, SEED, SWITCHES, all_launches,
-                            reset_launches)
+                            product_launches, reset_launches, with_products)
     from tss_dprnn_tpu_torch.data.loader import collate_bss_eval, make_collate_spe_eval
     from tss_dprnn_tpu_torch.inference import Inferencer, InferencerSpe
     from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
@@ -125,11 +129,13 @@ def main() -> int:
     with torch.inference_mode():
         inf.forward(batch)  # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(args.iters):
             inf.forward(batch)
         torch.cuda.synchronize()
         fwd_s = (time.perf_counter() - t0) / args.iters
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -144,19 +150,25 @@ def main() -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] += e.time_range.end - e.time_range.start
     device_us = sum(by_kernel.values())
-    lstm_us = sum(v for k, v in by_kernel.items() if "bilstm2_kernel" in k or "slab_kernel" in k)
+    scan_us = sum(v for k, v in by_kernel.items()
+                  if any(n in k for n in ("bilstm2_kernel", "slab_kernel", "scan_kernel")))
+    product_us = sum(v for k, v in by_kernel.items() if "gemm_kernel" in k)
+    lstm_us = scan_us + product_us
     stack_us = sum(v for k, v in by_kernel.items() if "lstm_kernel" in k)  # ops/lstm.py's
-    launches = {k: v // (args.iters + 2) for k, v in all_launches().items() if v}
+    launches = {k: v // (args.iters + 2)
+                for k, v in dict(all_launches(), **product_launches()).items() if v}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     summary = {
         "card": smi, "switches": {k: os.environ.get(k, "0") for k in SWITCHES},
         "batch": args.batch, "bucket_s": args.seconds, "audio_s": audio_s,
         "forward_ms": fwd_s * 1e3, "audio_s_per_s": audio_s / fwd_s,
-        "profiled_window_ms": window_us / 1e3,
+        "peak_memory_gb": peak_gb, "profiled_window_ms": window_us / 1e3,
         "device_ms": device_us / 1e3 if device_us else "not measured",
         "device_busy_share": device_us / window_us if device_us else "not measured",
         "bilstm2_ms": lstm_us / 1e3 if device_us else "not measured",
         "bilstm2_share_of_device": lstm_us / device_us if device_us else "not measured",
+        "bilstm2_scan_ms": scan_us / 1e3 if device_us else "not measured",
+        "bilstm2_input_product_ms": product_us / 1e3 if device_us else "not measured",
         "lstm_ms": stack_us / 1e3 if device_us else "not measured",
         "lstm_share_of_device": stack_us / device_us if device_us else "not measured",
         "launches_per_forward": launches, "kernels_top": [[k[:120], v / 1e3] for k, v in top],
@@ -164,13 +176,13 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, f"summary{suffix}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"{smi}: B={args.batch} bucket {args.seconds} s, {audio_s:.2f} audio-s: forward "
-          f"{fwd_s * 1e3:.2f} ms = {audio_s / fwd_s:.2f} audio-s/s")
+          f"{fwd_s * 1e3:.2f} ms = {audio_s / fwd_s:.2f} audio-s/s, peak memory {peak_gb:.2f} GB")
     for k, v in top:
         print(f"  {v / 1e3:9.3f} ms  {k[:110]}")
     print(json.dumps({k: v for k, v in summary.items() if k != "kernels_top"}))
     n = BSS["n_repeats"]
-    want = ({intra_kernel(): n, "lstm_forward": n} if args.bss
-            else {intra_kernel(): 6, "bilstm2_forward_masked": 6})
+    want = with_products({intra_kernel(): n, "lstm_forward": n} if args.bss
+                         else {intra_kernel(): 6, "bilstm2_forward_masked": 6})
     if launches != want:
         raise RuntimeError(f"expected {want} launches per forward, counted {launches} per "
                            f"forward over {args.iters + 2} forwards")

@@ -156,6 +156,10 @@ BF16_SNR_DB = 70.0
 # two fp32 orders drift about 3 dB further. The h-only rounding of
 # lstm_reference scores 45.15 dB against it (measured again in phase 10).
 V2_BF16_SNR_DB = 55.0
+# the fp32 serving route of bilstm2_forward(_masked): the input product, then
+# the serving cluster scan
+SERVE_SOURCE = "tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu"
+SERVE_WITH = "tss_dprnn_tpu_torch/csrc/products.cu"
 # the JAX package's opt-in scan switches, as ops/rnn.py reads them
 SWITCHES = ("TSS_FUSED_DENSE", "TSS_BM")
 # the training batch of the reference's config (configs/train_tss.yaml):
@@ -238,6 +242,13 @@ def expect_launches(got, per_step, steps: int, what: str) -> None:
                              f"other kernel, counted {got}")
 
 
+def with_products(per_step):
+    """``per_step`` launches of the kernel wrappers, plus the input product
+    that each fp32 bilstm2 serving scan launches first."""
+    n = per_step.get("bilstm2_forward", 0) + per_step.get("bilstm2_forward_masked", 0)
+    return dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n)
+
+
 def bound(rows_steps: int, R: int, T: int, F: int, H: int, itemsize: int, peak: float):
     """Least time for the work: the FLOPs the data needs (both directions over
     ``rows_steps`` row-steps) over the named peak, or each input read once
@@ -267,6 +278,7 @@ def cudnn_lstm(torch, w_ih2, b2, w_hh2, dtype):
 
 def phase_kernel(torch, dev):
     """Phase 2: the kernel against its plain version at the main path's shapes."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
     from tss_dprnn_tpu_torch.ops.bilstm2 import (
         bilstm2_forward, bilstm2_forward_masked, bilstm2_reference)
 
@@ -317,6 +329,16 @@ def phase_kernel(torch, dev):
         got32 = region(run(x))
         torch.cuda.synchronize()
         err32 = float((got32 - ref32).abs().max())
+        bitwise = bool(torch.equal(region(run(x)), got32))  # no float atomics: a run repeats
+        plan = B2._plan("serve", R, H, x.device)
+        max_clusters = B2._max_clusters("serve", H, x.device.index)
+        p_bytes = R * T * 2 * 4 * H * 4  # the fp32 route's P buffer
+        log(f"[kernel] {mode} fp32 route: input product ({SERVE_WITH}) + serving scan "
+            f"({SERVE_SOURCE}), {plan.height}-row tiles, {plan.clusters} clusters of 2 CTAs, "
+            f"{-(-plan.clusters // max_clusters)} waves of {max_clusters}; P buffer "
+            f"{p_bytes} bytes ({p_bytes / 1e9:.2f} GB); second call bit for bit: {bitwise}")
+        if not bitwise:
+            raise AssertionError(f"bilstm2 {mode} fp32: a second call differs from the first")
         xb = x.bfloat16()
         got16 = region(run(xb))
         snr16 = snr_db(got16, ref32)
@@ -345,9 +367,12 @@ def phase_kernel(torch, dev):
             library_err = float((region(out.split(H, dim=-1)) - ref32).abs().max())
         log(f"[kernel] {mode} cuDNN fp32 vs plain max|err|={library_err:.3e}")
         entry = {"name": "bilstm2_forward" if lens is None else "bilstm2_forward_masked",
-                 "mode": mode, "dtype": "float32", "route": "cuda", "source": "tss_dprnn_tpu_torch/csrc/bilstm2.cu",
-                 "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:698",
+                 "mode": mode, "dtype": "float32", "route": "cuda", "source": SERVE_SOURCE,
+                 "with": SERVE_WITH, "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:698",
                  "shape": {"R": R, "T": T, "F": F, "H": H},
+                 "tile_plan": dict(plan._asdict(), max_clusters=max_clusters,
+                                   waves=-(-plan.clusters // max_clusters)),
+                 "p_buffer_bytes": p_bytes, "bitwise_repeat": bitwise,
                  "max_abs_err": err32, "library_max_abs_err": library_err}
         for dt, key, peak, size in ((torch.float32, None, PEAK_FP32, 4),
                                     (torch.bfloat16, "bf16", PEAK_BF16, 2)):
@@ -362,7 +387,8 @@ def phase_kernel(torch, dev):
             if key is None:
                 entry.update(nums)
             else:
-                entry[key] = dict(nums, snr_db=snr16, plain_max_abs_err=plain16_err,
+                entry[key] = dict(nums, source="tss_dprnn_tpu_torch/csrc/bilstm2.cu",
+                                  snr_db=snr16, plain_max_abs_err=plain16_err,
                                   plain_snr_db=plain16_snr)
             log(f"[kernel] {mode} {dt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                 f"cuDNN {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
@@ -958,12 +984,18 @@ def phase_main_path(torch, dev, ckpt):
     wall = time.perf_counter() - t0
     launches = {"unmasked": bilstm2.bilstm2_forward.launches,
                 "masked": bilstm2.bilstm2_forward_masked.launches}
+    products = bilstm2.product_launch_counts()
     audio_s = sum(ds.lengths()) / SAMPLE_RATE
     log(f"[main] {len(ds)} requests, {n_batches} batches, {audio_s:.2f} audio-s in {wall:.3f} s "
-        f"= {audio_s / wall:.2f} audio-s/s (first run, includes warm-up); launches {launches}; "
-        f"final {final}")
-    if launches != {"unmasked": 6 * n_batches, "masked": 6 * n_batches}:
-        raise AssertionError(f"expected 12 launches per batch over {n_batches} batches: {launches}")
+        f"= {audio_s / wall:.2f} audio-s/s (first run, includes warm-up); launches {launches}, "
+        f"products {products}; final {final}")
+    n = FLAGSHIP["n_repeats"]  # an intra and an inter scan per block
+    if launches != {"unmasked": n * n_batches, "masked": n * n_batches}:
+        raise AssertionError(f"expected {2 * n} launches per batch over {n_batches} batches: "
+                             f"{launches}")
+    # each fp32 serving scan runs its input product first
+    expect_launches(products, {"products_gemm": 2 * n}, n_batches, "main path's products")
+    launches["products_gemm"] = products["products_gemm"]
     with open(os.path.join(savedir, "all_metrics.csv")) as f:
         rows = f.read().strip().splitlines()[1:]
     si = [float(r.split(",")[1]) for r in rows]
@@ -1164,8 +1196,10 @@ def phase_training(torch, dev, fam):
     expect_launches(launches, per_run, 1, f"{tag} run of {n_train} train and {n_eval} eval steps "
                     f"({fam['per_train_step']} per train step, {fam['per_eval_step']} per eval "
                     "step)")
-    expect_launches(products, fam["products_per_train_step"], n_train,
-                    f"{tag} run's products ({n_train} train steps)")
+    per_run = {k: n_train * fam["products_per_train_step"].get(k, 0)
+               + n_eval * with_products(fam["per_eval_step"]).get(k, 0) for k in products}
+    expect_launches(products, per_run, 1, f"{tag} run's products ({n_train} train and "
+                    f"{n_eval} eval steps)")
     launches.update(products)
     if len(epoch_losses) != 4 or not all(math.isfinite(v) for _, v in epoch_losses):
         raise AssertionError(f"non-finite or missing epoch losses: {epoch_losses}")
@@ -1263,12 +1297,12 @@ def phase_bss_serving(torch, dev, cfg, tag, per_batch):
     final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = all_launches()
+    launches = dict(all_launches(), **product_launches())
     audio_s = sum(ds.lengths()) / SAMPLE_RATE
     log(f"[{tag}] {len(ds)} mixtures, {n_batches} batches, {audio_s:.2f} audio-s in {wall:.3f} s "
         f"= {audio_s / wall:.2f} audio-s/s (first run, includes warm-up); launches "
         f"{ {k: v for k, v in launches.items() if v} }; final {final}")
-    expect_launches(launches, per_batch, n_batches, f"{tag} serving")
+    expect_launches(launches, with_products(per_batch), n_batches, f"{tag} serving")
     with open(os.path.join(savedir, "all_metrics.csv")) as f:
         rows = f.read().strip().splitlines()[1:]
     si = [float(r.split(",")[1]) for r in rows]
@@ -1496,8 +1530,8 @@ def phase_tiny_widths(torch, dev):
                 outs[str(device)] = inf.forward(batch).cpu()
             if device == dev:
                 torch.cuda.synchronize()
-                served = all_launches()
-        expect_launches(served, fam["serve"], 1, f"tiny {tag} served batch")
+                served = dict(all_launches(), **product_launches())
+        expect_launches(served, with_products(fam["serve"]), 1, f"tiny {tag} served batch")
         serve_snr = snr_db(outs[str(dev)], outs["cpu"])
 
         one = fam["collate"](fam["crops"](SEED + 13, 2, 1).items)
@@ -1607,7 +1641,7 @@ def _optin_paths(torch, dev, ckpt):
             final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = all_launches()
+            launches = dict(all_launches(), **product_launches())
         finally:
             restore()
         s = snr_db(outs[switch], outs[None])
@@ -1615,8 +1649,8 @@ def _optin_paths(torch, dev, ckpt):
             f"{wall:.3f} s = {audio_s / wall:.2f} audio-s/s; launches "
             f"{ {k: v for k, v in launches.items() if v} }; final {final}; bucketed batch vs "
             f"switch off {s:.2f} dB SNR")
-        expect_launches(launches, {kernel: n, "bilstm2_forward_masked": n}, n_batches,
-                        f"{switch}=1 serving")
+        expect_launches(launches, with_products({kernel: n, "bilstm2_forward_masked": n}),
+                        n_batches, f"{switch}=1 serving")
         with open(os.path.join(savedir, "all_metrics.csv")) as f:
             si = [float(r.split(",")[1]) for r in f.read().strip().splitlines()[1:]]
         if len(si) != len(ds) or not all(math.isfinite(v) for v in si):
@@ -1759,6 +1793,9 @@ def main() -> int:
         f"{train['ms_per_step']:.2f} ms/step on {smi}")
     entries[0]["launches_per_training_run"] = train["launches"]["bilstm2_forward"]  # eval steps
     entries += train_kernel_entries(train_kernels, train["launches"])
+    for e in entries:  # the fp32 serving scans' input products, on the main path
+        if e["name"] == "products_gemm":
+            e["launches_main_path"] = launches["products_gemm"]
 
     t0 = time.perf_counter()
     lstm_kernels = phase_lstm_kernels(torch, dev)

@@ -2,8 +2,11 @@
 // dense (fused SplitDense) mode.
 //
 // Replaces the TPU kernel `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698)
-// in its unmasked, masked and dense modes (its residual mode is the training
-// forward of csrc/bilstm2_resid.cu). Per step and direction d:
+// in its unmasked and masked modes with bf16 streams, and in its dense mode
+// (fp32 and bf16 streams). Its residual mode is the training forward of
+// csrc/bilstm2_resid.cu; its fp32 unmasked and masked modes, which serving
+// runs, are the input product of csrc/products.cu and the serving scan of
+// csrc/bilstm2_serve.cu. Per step and direction d:
 //   g = x_t @ W_ih[d] + h @ W_hh[d] + b[d]      (fp32 accumulator)
 //   i, f, o = sigmoid(g_i, g_f, g_o); gg = tanh(g_g)   (torch gate order i, f, g, o)
 //   c = f * c + i * gg                          (fp32)
@@ -270,8 +273,9 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, con
 
 extern "C" {
 
-// dtype: 0 = float32 streams, 1 = bfloat16 streams. x: [R, T, F], out0 and
-// out1: [R, T, H], all contiguous in the stream type. w_ih: [2, F, 4H] and
+// dtype: 1 = bfloat16 streams (float32 streams, dtype 0, run the serving scan
+// of bilstm2_serve.cu and are refused here). x: [R, T, F], out0 and out1:
+// [R, T, H], all contiguous in the stream type. w_ih: [2, F, 4H] and
 // w_hh: [2, H, 4H] fp32, b: [2, 4H] fp32, lens: [R] int32 or null (unmasked).
 // Every pointer but lens 16-byte aligned. Returns a cudaError_t code
 // (0 = launched).
@@ -279,7 +283,6 @@ int bilstm2_forward(int dtype, const void* x, const void* w_ih, const void* w_hh
                     const void* lens, void* out0, void* out1, int R, int Tn, int F, int H,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w_ih, w_hh, b, lens, out0, out1, R, Tn, F, H, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, w_ih, w_hh, b, lens, out0, out1, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -453,7 +453,11 @@ def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
             w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
     """Check what the kernel takes, allocate the outputs and launch on the
     current stream; a launch adds one to ``entry.launches``. Raises on
-    anything the kernel does not take. Returns (out0, out1)."""
+    anything the kernel does not take. Returns (out0, out1). fp32 streams
+    run the serving route (:func:`_launch_serve`), bf16 streams
+    ``csrc/bilstm2.cu``."""
+    if x.dtype == torch.float32:
+        return _launch_serve(entry, x, w_ih2, b2, w_hh2, lens)
     x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
@@ -543,15 +547,16 @@ class TilePlan(NamedTuple):
         return self.dirs * self.tiles
 
 
-def plan_tiles(R: int, max_clusters: int, dirs: int = 2) -> TilePlan:
-    """The tile height of a training scan over R rows and ``dirs``
-    directions when the card runs ``max_clusters`` clusters at once: the
-    smallest height whose grid fits one wave; where none does, the fewest
-    waves times height (the time of one step is about proportional to the
-    height), then the fewer waves."""
+def plan_tiles(R: int, max_clusters: int, dirs: int = 2,
+               heights: Tuple[int, ...] = TILE_HEIGHTS) -> TilePlan:
+    """The tile height, one of ``heights``, of a cluster scan over R rows and
+    ``dirs`` directions when the card runs ``max_clusters`` clusters at once:
+    the smallest height whose grid fits one wave; where none does, the
+    fewest waves times height (the time of one step is about proportional
+    to the height), then the fewer waves."""
     if max_clusters < 1:
-        raise ValueError(f"the card runs no cluster of the training scans ({max_clusters})")
-    plans = [TilePlan(h, max(1, -(-R // h)), dirs) for h in TILE_HEIGHTS]
+        raise ValueError(f"the card runs no cluster of the scan ({max_clusters})")
+    plans = [TilePlan(h, max(1, -(-R // h)), dirs) for h in heights]
     for plan in plans:
         if plan.clusters <= max_clusters:
             return plan
@@ -561,15 +566,16 @@ def plan_tiles(R: int, max_clusters: int, dirs: int = 2) -> TilePlan:
 
 @functools.lru_cache(maxsize=None)
 def _max_clusters(which: str, H: int, device: int) -> int:
-    """How many clusters of a training scan (``which``: "resid" or "bwd")
-    the card runs at once, from cudaOccupancyMaxActiveClusters. At H = 128
-    every tile height takes most of an SM's shared memory (one CTA per SM),
-    so the smallest height's answer serves all."""
-    lib = _library_resid() if which == "resid" else _library_bwd()
+    """How many clusters of a cluster scan (``which``: "resid", "bwd" or
+    "serve") the card runs at once, from cudaOccupancyMaxActiveClusters. At
+    H = 128 every tile height takes most of an SM's shared memory (one CTA
+    per SM), so the smallest height's answer serves all."""
+    lib = {"resid": _library_resid, "bwd": _library_bwd, "serve": _library_resid}[which]()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         rc = getattr(lib, f"bilstm2_{which}_max_clusters")(TILE_HEIGHTS[0], H, ctypes.byref(n))
-    _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, f"bilstm2_{which}_error_string")
+    _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, "bilstm2_resid_error_string"
+              if which == "serve" else f"bilstm2_{which}_error_string")
     return n.value
 
 
@@ -619,6 +625,24 @@ def _colsum(lib, stream, a: torch.Tensor, a_off: int, lda: int, K: int, N: int) 
     return partial.sum(0)
 
 
+def resid_weight_layout(w_hh2: torch.Tensor) -> torch.Tensor:
+    """W_hh [2, H, 4H] as the training forward's scan reads it: [2 d, 2 c,
+    H k, 4 gates, H/2 units], CTA (d, c)'s slice (the gate columns of hidden
+    units [c H/2, (c + 1) H/2)) contiguous."""
+    H = w_hh2.shape[1]
+    return w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 1, 2, 4).contiguous()
+
+
+def _input_product(products, stream: int, x: torch.Tensor, w_ih2: torch.Tensor,
+                   b2: torch.Tensor, pre: torch.Tensor) -> None:
+    """One launch of the product kernel: pre [B, T, 2, 4H] = x @ [W_ih[0] |
+    W_ih[1]] + b, both directions' input halves of every gate at once."""
+    F, G = w_ih2.shape[1:]
+    w_cat = w_ih2.transpose(0, 1).reshape(F, 2 * G).contiguous()  # [F, 8H]
+    _gemm(products, stream, False, [(x, 0, F, w_cat, 0, 2 * G, F)], x.shape[0] * x.shape[1],
+          2 * G, out=pre, ldc=2 * G, bias=b2)
+
+
 def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                   w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
     """The training forward's launches on the current stream: the input
@@ -628,27 +652,51 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=True)
     B, T, F = x.shape
     H = w_hh2.shape[1]
-    G = 4 * H
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
     streams = tuple(torch.empty_like(out0) for _ in range(6))
-    pre = torch.empty(B, T, 2, G, dtype=torch.float32, device=x.device)
+    pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
     if B and T:
-        w_cat = w_ih2.transpose(0, 1).reshape(F, 2 * G).contiguous()  # [F, 8H]
-        # CTA (d, c)'s slice of W_hh[d]: [H k, 4 gates, H/2 units of half c]
-        w_split = w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 1, 2, 4).contiguous()
+        w_split = resid_weight_layout(w_hh2)
         plan = _plan("resid", B, H, x.device)
         products, lib = _library_products(), _library_resid()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _gemm(products, stream, False, [(x, 0, F, w_cat, 0, 2 * G, F)], B * T, 2 * G,
-                  out=pre, ldc=2 * G, bias=b2)
+            _input_product(products, stream, x, w_ih2, b2, pre)
             rc = lib.bilstm2_resid_scan(plan.height, pre.data_ptr(), w_split.data_ptr(),
                                         _ptr(lens), out0.data_ptr(), out1.data_ptr(),
                                         *(t.data_ptr() for t in streams), B, T, H, stream)
         _raise_on(rc, "bilstm2 resid scan kernel", lib, "bilstm2_resid_error_string")
         entry.launches += 1
     return (out0, out1), streams + (pre,)
+
+
+def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                  w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
+    """The fp32 serving route on the current stream: the input product P
+    into a [B, T, 2, 4H] buffer, then the serving cluster scan, which reads
+    P and writes only the two outputs; one call adds one to
+    ``entry.launches`` (and one to the product kernel's). Returns (out0,
+    out1)."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=True)
+    B, T, F = x.shape
+    H = w_hh2.shape[1]
+    out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
+    out1 = torch.empty_like(out0)
+    if B and T:
+        w_split = resid_weight_layout(w_hh2)
+        plan = _plan("serve", B, H, x.device)
+        products, lib = _library_products(), _library_resid()
+        pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _input_product(products, stream, x, w_ih2, b2, pre)
+            rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_split.data_ptr(),
+                                        _ptr(lens), out0.data_ptr(), out1.data_ptr(), B, T, H,
+                                        stream)
+        _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_resid_error_string")
+        entry.launches += 1
+    return out0, out1
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
@@ -753,6 +801,10 @@ def _library_resid() -> ctypes.CDLL:
     lib.bilstm2_resid_scan.restype = i
     lib.bilstm2_resid_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_resid_max_clusters.restype = i
+    lib.bilstm2_serve_scan.argtypes = [i] + [p] * 5 + [i, i, i, p]
+    lib.bilstm2_serve_scan.restype = i
+    lib.bilstm2_serve_max_clusters.argtypes = [i, i, p]
+    lib.bilstm2_serve_max_clusters.restype = i
     lib.bilstm2_resid_error_string.argtypes = [i]
     lib.bilstm2_resid_error_string.restype = ctypes.c_char_p
     return lib
