@@ -7,18 +7,21 @@ Phases, each of which fails the script (nonzero exit, no result line):
 1. set-up: the card's name and power limit, torch and CUDA versions, and
    the nvcc builds of the kernels from csrc/, started together (with
    ptxas's register and spill report);
-2. kernel vs plain: the bilstm2 kernel against its plain PyTorch version on
-   the card, unmasked at the intra-chunk shape and masked at the
-   inter-chunk shape of a batch of 8 x 10 s, in fp32 (max abs error
-   <= 1e-4) and bf16 (>= 40 dB SNR against the fp32 plain version, and
-   >= BF16_SNR_DB and within BF16_ATOL of the bf16 plain version), timed
-   beside the plain
+2. kernel vs plain: bilstm2_forward(_masked) against its plain PyTorch
+   version on the card, unmasked at the intra-chunk shape and masked at the
+   inter-chunk shape of a batch of 8 x 10 s, in fp32 (the serving route:
+   the input product of csrc/products.cu, then the serving cluster scan of
+   csrc/bilstm2_serve.cu; max abs error <= 1e-4, bit for bit on a second
+   call; its tile plan and P buffer printed) and bf16 (csrc/bilstm2.cu;
+   >= 40 dB SNR against the fp32 plain version, and >= BF16_SNR_DB and
+   within BF16_ATOL of the bf16 plain version), timed beside the plain
    version and cuDNN's LSTM on the same weights (on a PackedSequence in
    masked mode);
 3. the main path: InferencerSpe.run over 12 requests with the flagship
    DPRNN-Spe-TasNet at full width and depth (random weights from a seed);
    the kernel must have been launched 12 times per batch (6 blocks x an
-   intra and an inter scan), every SI-SDR finite;
+   intra and an inter scan), each after its input product (12 product
+   launches per batch), every SI-SDR finite;
 4. card vs CPU on one 2 s request (>= 50 dB SNR, fp32) and the request
    bucketed with a longer one against the request run alone;
 5. training kernels vs plain: the residual forward (the input product of
@@ -85,6 +88,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    multiples of 16), one bucketed batch served and one train step each, card
    vs CPU (>= 50 dB; loss within 1e-4 relative, gradients >= 40 dB), through
    the expected kernels only.
+
+Every serving count includes the input products: each fp32
+bilstm2_forward(_masked) launch runs one products_gemm launch first
+(``with_products``), and the phases check those counts too.
 
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
@@ -158,7 +165,7 @@ BF16_SNR_DB = 70.0
 V2_BF16_SNR_DB = 55.0
 # the fp32 serving route of bilstm2_forward(_masked): the input product, then
 # the serving cluster scan
-SERVE_SOURCE = "tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu"
+SERVE_SOURCE = "tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu"
 SERVE_WITH = "tss_dprnn_tpu_torch/csrc/products.cu"
 # the JAX package's opt-in scan switches, as ops/rnn.py reads them
 SWITCHES = ("TSS_FUSED_DENSE", "TSS_BM")
@@ -276,6 +283,21 @@ def cudnn_lstm(torch, w_ih2, b2, w_hh2, dtype):
     return lstm
 
 
+def serving_shapes(torch, g, dev):
+    """The fused scans of a batch of 8 x 10 s (ragged utterances of 5-10 s,
+    lengths drawn from ``g``): mode -> (R, T, lens)."""
+    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
+    B, L = 8, 10 * SAMPLE_RATE - 1            # 8 x 10 s, encoder frames
+    S = (L + K) // hop + 1
+    # chunk counts of ragged utterances (5-10 s), one per batch row, over K rows
+    secs = torch.rand(B, generator=g) * 5 + 5
+    utt_chunks = ((secs * SAMPLE_RATE).long() - 1 + K) // hop + 1
+    return {
+        "unmasked": (B * S, K, None),                                   # intra scan
+        "masked": (B * K, S, utt_chunks.repeat_interleave(K).int().to(dev)),  # inter scan
+    }
+
+
 def phase_kernel(torch, dev):
     """Phase 2: the kernel against its plain version at the main path's shapes."""
     from tss_dprnn_tpu_torch.ops import bilstm2 as B2
@@ -283,20 +305,11 @@ def phase_kernel(torch, dev):
         bilstm2_forward, bilstm2_forward_masked, bilstm2_reference)
 
     F = H = 128
-    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
-    B, L = 8, 10 * SAMPLE_RATE - 1            # 8 x 10 s, encoder frames
-    S = (L + K) // hop + 1
     g = torch.Generator(device="cpu").manual_seed(SEED)
     k = H ** -0.5
     w_ih2, w_hh2, b2 = ((torch.rand(*s, generator=g) * 2 * k - k).to(dev)
                         for s in ((2, F, 4 * H), (2, H, 4 * H), (2, 4 * H)))
-    # chunk counts of ragged utterances (5-10 s), one per batch row, over K rows
-    secs = torch.rand(B, generator=g) * 5 + 5
-    utt_chunks = ((secs * SAMPLE_RATE).long() - 1 + K) // hop + 1
-    shapes = {
-        "unmasked": (B * S, K, None),                                   # intra scan
-        "masked": (B * K, S, utt_chunks.repeat_interleave(K).int().to(dev)),  # inter scan
-    }
+    shapes = serving_shapes(torch, g, dev)
     entries = []
     for mode, (R, T, lens) in shapes.items():
         x = torch.randn(R, T, F, generator=g).to(dev)
@@ -1751,8 +1764,8 @@ def main() -> int:
     log(f"[setup] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = ("bilstm2", "bilstm2_resid", "bilstm2_bwd", "products", "lstm", "lstm_bwd",
-                 "bilstm2_bm", "lstm_v2")
+    libraries = ("bilstm2", "bilstm2_serve", "bilstm2_resid", "bilstm2_bwd", "products", "lstm",
+                 "lstm_bwd", "bilstm2_bm", "lstm_v2")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "

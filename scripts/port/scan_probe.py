@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
-"""Where the training scans' time goes: time the fused bidirectional LSTM's
-training pair with parts of its two cluster scans cut out.
+"""Where the cluster scans' time goes: time the fused bidirectional LSTM's
+training pair and its fp32 serving route with parts of their cluster scans
+cut out.
 
     python3 scripts/port/scan_probe.py [variant ...]
 
 Needs one CUDA card. Each variant is a copy of ``tss_dprnn_tpu_torch/csrc``
-with one edit made to ``bilstm2_resid.cu`` and ``bilstm2_bwd.cu``, written
-under ``chiprun_out/scan_probe/<variant>/`` and built and timed in a process
-of its own (``_build.CSRC_DIR`` pointed at the copy):
+with one edit made to ``bilstm2_resid.cu``, ``cluster_scan.cuh`` (the
+backward's scan) and ``bilstm2_serve.cu``, written under ``chiprun_out/scan_probe/<variant>/`` and
+built and timed in a process of its own (``_build.CSRC_DIR`` pointed at the
+copy):
 
 - ``base``: the sources as they are;
-- ``no_fma``: the recurrent products (h @ W_hh forward, dpre @ W_hh^T
-  backward) skipped: what is left is each step's fixed cost (the staged
-  inputs, the cell or gate arithmetic, the stores, the exchange and the
-  cluster barrier);
+- ``no_fma``: the recurrent products (h @ W_hh forward and serving, dpre @
+  W_hh^T backward) skipped: what is left is each step's fixed cost (the
+  staged inputs, the cell or gate arithmetic, the stores, the exchange and
+  the cluster barrier);
 - ``no_cell``: the sigmoid and tanh of every gate replaced by the identity;
 - ``no_store``: the per-step stores to device memory skipped (pre and the
-  residual streams forward, dpre backward).
+  residual streams forward, dpre backward, the outputs serving).
 
 Only ``base`` computes the function; the others are timing probes. Each
 prints one JSON line ``RESULT {...}`` with, at the training batch's intra
 (R=970 T=250) and inter (R=1250 T=194) shapes, the residual forward's and
 the backward's ms (CUDA events, mean of 5 after a warm-up) and the input
 product's ms on its own, so that the scan's share is forward minus input
-product. The variants run in turns, base first and last.
+product; and the same for the serving route (``bilstm2_forward`` unmasked at
+R=5136 T=250, ``bilstm2_forward_masked`` at R=2000 T=642 with ragged lengths
+drawn as chip_smoke.py phase 2 draws them), with the serving scan's tile
+plan, and the serving scan alone at each of its tile heights. The variants
+run in turns, base first and last.
 """
 
 from __future__ import annotations
@@ -44,14 +50,19 @@ EDITS = {
     "base": [],
     "no_fma": [("bilstm2_resid.cu", "for (int k = 0; k < H; k += 4) {",
                 "for (int k = 0; k < 0; k += 4) {", 1),
-               ("bilstm2_bwd.cu", "for (int k = 0; k < 2 * H; k += 4) {",
-                "for (int k = 0; k < 0; k += 4) {", 1)],
+               ("cluster_scan.cuh", "for (int k = 0; k < 2 * H; k += 4) {",
+                "for (int k = 0; k < 0; k += 4) {", 1),
+               ("bilstm2_serve.cu", "for (int ks = 0; ks < H / 8; ++ks) {",
+                "for (int ks = 0; ks < 0; ++ks) {", 1)],
     "no_cell": [("bilstm2_resid.cu", "sigmoid_f(", "(", 3), ("bilstm2_resid.cu", "tanhf(", "(", 2),
-                ("bilstm2_bwd.cu", "sigmoid_f(", "(", 3), ("bilstm2_bwd.cu", "tanhf(", "(", 1)],
+                ("cluster_scan.cuh", "sigmoid_f(", "(", 3), ("cluster_scan.cuh", "tanhf(", "(", 1),
+                ("bilstm2_serve.cu", "sigmoid_f(", "(", 3), ("bilstm2_serve.cu", "tanhf(", "(", 2)],
     "no_store": [("bilstm2_resid.cu", "      if (gr < R) {\n        float* pp = pre_at(gr, t);",
                   "      if (gr < 0) {\n        float* pp = pre_at(gr, t);", 1),
-                 ("bilstm2_bwd.cu", "      if (gr < R) {\n        float* gp = dpre + gate_off(gr, t);",
-                  "      if (gr < 0) {\n        float* gp = dpre + gate_off(gr, t);", 1)],
+                 ("cluster_scan.cuh", "      if (gr < R) {\n        float* gp = dpre + gate_off(gr, t);",
+                  "      if (gr < 0) {\n        float* gp = dpre + gate_off(gr, t);", 1),
+                 ("bilstm2_serve.cu", "if (gr < R) st2(out_at(gr, t), hv);",
+                  "if (gr < 0) st2(out_at(gr, t), hv);", 1)],
 }
 
 
@@ -107,6 +118,35 @@ def measure(name: str) -> dict:
                 lambda: B2._gemm(lib, stream, False, [(x, 0, F, w_cat, 0, 8 * H, F)], R * T,
                                  8 * H, out=pre, ldc=8 * H, bias=b2), 5)}
         del x, g0, g1, resid, pre
+        torch.cuda.empty_cache()
+    # the serving route at phase 2's shapes
+    for mode, (R, T, lens) in chip_smoke.serving_shapes(torch, g, dev).items():
+        x = torch.randn(R, T, F, generator=g).to(dev)
+        pre = torch.empty(R, T, 2, 4 * H, device=dev)
+        w_cat = w_ih2.transpose(0, 1).reshape(F, 8 * H).contiguous()
+        plan = B2._plan("serve", R, H, x.device)
+        out[f"serve_{mode}"] = {
+            "R": R, "T": T, "tile_plan": plan._asdict(),
+            "ms": chip_smoke.time_ms(lambda: B2.bilstm2_forward(x, *w) if lens is None
+                                     else B2.bilstm2_forward_masked(x, lens, *w), 5),
+            "input_product_ms": chip_smoke.time_ms(
+                lambda: B2._gemm(lib, stream, False, [(x, 0, F, w_cat, 0, 8 * H, F)], R * T,
+                                 8 * H, out=pre, ldc=8 * H, bias=b2), 5)}
+        # the scan alone on that P, at each tile height
+        serve, w_frag = B2._library_serve(), B2.serve_weight_layout(w_hh2)
+        o0, o1 = (torch.empty(R, T, H, device=dev) for _ in range(2))
+        max_clusters = B2._max_clusters("serve", H, x.device.index)
+
+        def scan(height):
+            rc = serve.bilstm2_serve_scan(height, pre.data_ptr(), w_frag.data_ptr(),
+                                          B2._ptr(lens), o0.data_ptr(), o1.data_ptr(), R, T, H,
+                                          stream)
+            B2._raise_on(rc, "serving scan", serve, "bilstm2_serve_error_string")
+
+        out[f"serve_{mode}"]["scan_ms_by_height"] = {
+            h: {"ms": chip_smoke.time_ms(lambda: scan(h), 5),
+                "waves": -(-2 * -(-R // h) // max_clusters)} for h in B2.SERVE_HEIGHTS}
+        del x, pre, o0, o1
         torch.cuda.empty_cache()
     return out
 

@@ -12,9 +12,10 @@ against.
 
 The port imports torch, numpy and the standard library only. Its
 hand-written kernels are built with nvcc at first use: the fused
-bidirectional LSTM scan, its training forward and its backward
-(``ops/bilstm2.py`` + ``csrc/bilstm2.cu``, ``csrc/bilstm2_resid.cu``,
-``csrc/bilstm2_bwd.cu``, with the products of ``csrc/products.cu``), the
+bidirectional LSTM scan, its serving scan, training forward and backward
+(``ops/bilstm2.py`` + ``csrc/bilstm2.cu``, ``csrc/bilstm2_serve.cu``,
+``csrc/bilstm2_resid.cu``, ``csrc/bilstm2_bwd.cu``, with the products of
+``csrc/products.cu``), the
 stacked-direction LSTM scan and its backward (``ops/lstm.py`` +
 ``csrc/lstm.cu``, ``csrc/lstm_bwd.cu``), and the opt-in and test-only
 scans (``csrc/bilstm2_bm.cu``, ``csrc/lstm_v2.cu``).

@@ -57,9 +57,8 @@ constexpr size_t smem_bytes(int nr, int H) {
 // Grid (2, tiles, 2) in clusters of (2, 1, 1); 2H threads, each owning NR
 // rows x UW = 2 units x 4 gates. pre: [R, T, 2, 4H], P in, gate pre-activations
 // out. wsplit: [2 d, 2 c, H, 4, H / 2], CTA (d, c)'s W slice contiguous.
-// Streams [R, T, H]. lens: [R] or null. !kResid (serving): pre is only read,
-// and only out0 and out1 are written (the stream pointers are unused).
-template <int NR, bool kResid>
+// Streams [R, T, H]. lens: [R] or null.
+template <int NR>
 __global__ void __launch_bounds__(256, 1)
 resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
                   const int* __restrict__ lens, float* __restrict__ out0, float* __restrict__ out1,
@@ -118,13 +117,11 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
       const int gr = row0 + rg + 8 * r;
       if (gr < R) {
         st2(at(out, gr, t), zeros);
-        if constexpr (kResid) {
-          st2(at(hpd, gr, t), zeros);
-          st2(at(cpd, gr, t), zeros);
-          st2(at(tcd, gr, t), zeros);
+        st2(at(hpd, gr, t), zeros);
+        st2(at(cpd, gr, t), zeros);
+        st2(at(tcd, gr, t), zeros);
 #pragma unroll
-          for (int g = 0; g < 4; ++g) st2(pre_at(gr, t) + g * H, zeros);
-        }
+        for (int g = 0; g < 4; ++g) st2(pre_at(gr, t) + g * H, zeros);
       }
     }
   }
@@ -212,15 +209,13 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
       st2(nb + row * hpitch + gu, hv);
       st2_cluster(remote + 4 * (row * hpitch + gu), hv);
       if (gr < R) {
-        st2(at(out, gr, t), hv);
-        if constexpr (kResid) {
-          float* pp = pre_at(gr, t);
+        float* pp = pre_at(gr, t);
 #pragma unroll
-          for (int g = 0; g < 4; ++g) st2(pp + g * H, acc[g][r]);
-          st2(at(hpd, gr, t), hold);
-          st2(at(cpd, gr, t), cb);
-          st2(at(tcd, gr, t), tcv);
-        }
+        for (int g = 0; g < 4; ++g) st2(pp + g * H, acc[g][r]);
+        st2(at(out, gr, t), hv);
+        st2(at(hpd, gr, t), hold);
+        st2(at(cpd, gr, t), cb);
+        st2(at(tcd, gr, t), tcv);
       }
     }
     cluster_sync();  // the next h is complete in both CTAs; this step's reads are done
@@ -228,12 +223,12 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
   cp_async_wait_all();
 }
 
-template <int NR, bool kResid>
+template <int NR>
 int launch(void* pre, const void* wsplit, const void* lens, void* out0, void* out1, void* hp0,
            void* cp0, void* tc0, void* hp1, void* cp1, void* tc1, int R, int Tn, int H,
            cudaStream_t s) {
   const int tiles = (R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(resid_scan_kernel<NR, kResid>, tiles, 2, 4 * H / UW, smem_bytes(NR, H), s,
+  return launch_cluster(resid_scan_kernel<NR>, tiles, 2, 4 * H / UW, smem_bytes(NR, H), s,
                         static_cast<float*>(pre), static_cast<const float*>(wsplit),
                         static_cast<const int*>(lens), static_cast<float*>(out0),
                         static_cast<float*>(out1), static_cast<float*>(hp0),
@@ -242,29 +237,27 @@ int launch(void* pre, const void* wsplit, const void* lens, void* out0, void* ou
                         static_cast<float*>(tc1), R, Tn, H);
 }
 
-template <bool kResid>
 int dispatch(int height, void* pre, const void* wsplit, const void* lens, void* out0, void* out1,
              void* hp0, void* cp0, void* tc0, void* hp1, void* cp1, void* tc1, int R, int Tn,
              int H, cudaStream_t s) {
   switch (height) {
-    case 16: return launch<2, kResid>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 24: return launch<3, kResid>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 32: return launch<4, kResid>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 40: return launch<5, kResid>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 48: return launch<6, kResid>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
+    case 16: return launch<2>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
+    case 24: return launch<3>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
+    case 32: return launch<4>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
+    case 40: return launch<5>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
+    case 48: return launch<6>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool kResid>
 int occupancy(int height, int H, int* clusters) {
   const int threads = 4 * H / UW;
   switch (height) {
-    case 16: return max_clusters(resid_scan_kernel<2, kResid>, threads, smem_bytes(2, H), clusters);
-    case 24: return max_clusters(resid_scan_kernel<3, kResid>, threads, smem_bytes(3, H), clusters);
-    case 32: return max_clusters(resid_scan_kernel<4, kResid>, threads, smem_bytes(4, H), clusters);
-    case 40: return max_clusters(resid_scan_kernel<5, kResid>, threads, smem_bytes(5, H), clusters);
-    case 48: return max_clusters(resid_scan_kernel<6, kResid>, threads, smem_bytes(6, H), clusters);
+    case 16: return max_clusters(resid_scan_kernel<2>, threads, smem_bytes(2, H), clusters);
+    case 24: return max_clusters(resid_scan_kernel<3>, threads, smem_bytes(3, H), clusters);
+    case 32: return max_clusters(resid_scan_kernel<4>, threads, smem_bytes(4, H), clusters);
+    case 40: return max_clusters(resid_scan_kernel<5>, threads, smem_bytes(5, H), clusters);
+    case 48: return max_clusters(resid_scan_kernel<6>, threads, smem_bytes(6, H), clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -284,27 +277,13 @@ int bilstm2_resid_scan(int height, void* pre, const void* wsplit, const void* le
                        void* out1, void* hp0, void* cp0, void* tc0, void* hp1, void* cp1,
                        void* tc1, int R, int Tn, int H, void* stream) {
   if (H % 16 || H > 128 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(height, pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R,
-                        Tn, H, static_cast<cudaStream_t>(stream));
+  return dispatch(height, pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of the scan at this tile height the card runs at once.
 int bilstm2_resid_max_clusters(int height, int H, int* clusters) {
-  return occupancy<true>(height, H, clusters);
-}
-
-// The serving scan: the same recurrence on P = pre (read only), writing only
-// out0 and out1 (arguments as bilstm2_resid_scan's).
-int bilstm2_serve_scan(int height, const void* pre, const void* wsplit, const void* lens,
-                       void* out0, void* out1, int R, int Tn, int H, void* stream) {
-  if (H % 16 || H > 128 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<false>(height, const_cast<void*>(pre), wsplit, lens, out0, out1, nullptr,
-                         nullptr, nullptr, nullptr, nullptr, nullptr, R, Tn, H,
-                         static_cast<cudaStream_t>(stream));
-}
-
-int bilstm2_serve_max_clusters(int height, int H, int* clusters) {
-  return occupancy<false>(height, H, clusters);
+  return occupancy(height, H, clusters);
 }
 
 const char* bilstm2_resid_error_string(int code) {

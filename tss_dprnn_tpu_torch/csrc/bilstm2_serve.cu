@@ -1,0 +1,306 @@
+// The fused bidirectional LSTM's serving scan for Hopper (sm_90a), fp32: the
+// recurrence with W_hh resident in the shared memory of a 2-CTA cluster and
+// h @ W_hh on the tensor cores in 3xTF32.
+//
+// Replaces the TPU kernel `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698)
+// in its unmasked and masked modes with fp32 streams (`bilstm2_forward` :935,
+// `bilstm2_forward_masked` :949), the modes every serving scan runs. As in the
+// training forward (bilstm2_resid.cu), the input product P = x @ [W_ih[0] |
+// W_ih[1]] + b of every row-step runs first, in one launch of
+// csrc/products.cu, into a buffer [R, T, 2, 4H]; this kernel then runs, per
+// direction d,
+//   gates = P[:, t, d] + h @ W_hh[d]            (torch gate order i, f, g, o)
+//   c = f * c + i * g;  h = o * tanh(c)
+// step by step and writes only out0 and out1 [R, T, H] (no residual stream,
+// nothing back into P). Direction 0 scans t = 0..T-1, direction 1
+// t = T-1..0. Masked: direction 1 holds its zero state while t >= len[row], so
+// out1 there is 0; out0 past a row's length is unspecified (finite), and steps
+// past the tile's longest row write zeros.
+//
+// What bounds it: the operations of h @ W_hh, 2 H 4H FLOP per row-step and
+// direction, three TF32 products per fp32 one, and the step-to-step
+// dependency: all parallelism comes from rows and directions, and every step
+// ends in a barrier.
+//
+// Design: one 2-CTA cluster per (direction, tile of 16 MT rows, MT = 1 or
+// 2); the wrapper picks MT from the card's occupancy so that the grid takes
+// the fewest waves (ops/bilstm2.plan_tiles). CTA c owns hidden units
+// [c H/2, (c + 1) H/2) and keeps the gate columns of its units,
+// W_hh[d][:, gate * H + unit] ([H][2H], 128 KB at H = 128), in shared memory
+// for the whole scan, loaded once by bulk copies on an mbarrier. h ([16 MT][H],
+// both halves) lives in shared memory, double buffered as in the training
+// forward: each CTA writes its half of the new h into buffer (s + 1) % 2 of
+// both CTAs (the partner's through distributed shared memory), and one
+// cluster barrier ends the step.
+//
+// The product runs on mma.sync m16n8k8 tf32 in 3xTF32 (tf32_mma.cuh, as
+// csrc/products.cu): each operand split into big + small TF32 values, and
+// each 8-deep k-step's small*big + big*small + big*big into a fresh partial
+// added to the sum in fp32 (round to nearest). A warp owns 8 hidden units of
+// its CTA's half, all four of their gates, and one 16-row m-tile: its four
+// n-tiles are gates i, f, g, o of those units, so a thread's accumulators
+// hold all four gates of its (row, unit) pairs and the cell update needs no
+// exchange; c stays in registers. A warp reads its own 32 columns of W each
+// step, not all of W, and its m-tile of h. W's split held in shared memory
+// would take 256 KB, which a 2-CTA cluster cannot hold, so the B fragments
+// are split as they are loaded; the host lays W out in fragment order
+// ([k-step][unit group][lane][gate][2]), so a lane's fragments of a k-step are
+// two 16-byte loads, free of bank conflicts. h is stored already split: the
+// cell update writes its big and small TF32 parts, and a warp loads each by
+// one ldmatrix. The four gates' chains of three mma are issued side by side.
+//
+// Registers and shared memory set the tile height. The accumulators of one
+// m-tile per warp fit the 128 registers of a 512-thread CTA; the step's P
+// slice comes into per-thread staging slots in shared memory by cp.async a
+// step ahead, not into registers (P and the accumulators of 64 or 80 rows in
+// registers spilled at 255 and left the mma chains latency-bound). Shared
+// memory takes 128 KB of W, 4 x 16 MT x (H + 4) x 4 B of h (two buffers of
+// two parts) and 16 MT x 2H x 4 B of P: 226 KB at 32 rows, within the 227 KB
+// a CTA may use; hence tiles of 16 or 32 rows.
+//
+// Accuracy: the 3xTF32 products keep about 22 mantissa bits (the product
+// kernel's error against float64 is 1.2e-7 to 5.1e-7 of max |ref|,
+// PERF.md), and the gate sums run in another order than the plain version's
+// fp32 matmul; both are orders of magnitude below the 1e-4 absolute bar on
+// h, which lies in (-1, 1). The summation order is fixed, with no atomics,
+// so a run repeats itself bit for bit.
+
+#include "cluster_scan.cuh"
+#include "tf32_mma.cuh"
+
+namespace {
+
+using namespace scan_common;
+using namespace cluster_scan;
+using namespace tf32_mma;
+
+// padded row pitch of the h tile: 4 mod 32 words puts the 8 rows x 16 bytes
+// of an ldmatrix phase on 32 banks
+__host__ __device__ constexpr int hs_pitch(int H) { return H + 4; }
+
+// shared memory of one CTA: W slice, two h buffers of two TF32 parts each,
+// the P staging (16 floats per thread, 2H x MT threads) and the mbarrier
+constexpr size_t smem_bytes(int mt, int H) {
+  return (static_cast<size_t>(H) * 2 * H + 4 * 16 * mt * hs_pitch(H) + 32 * mt * H) *
+             sizeof(float) + sizeof(uint64_t);
+}
+
+// Grid (2, tiles, 2) in clusters of (2, 1, 1); 2H x MT threads: warp w owns
+// the 8 units w % (H / 16) of its CTA's half and m-tile w / (H / 16) (rows
+// 16 mt .. 16 mt + 15 of the tile). P: [R, T, 2, 4H]. wfrag: [2 d, 2 c, H / 8
+// k-steps, H / 16 unit groups, 32 lanes, 4 gates, 2], CTA (d, c)'s slice
+// contiguous (see bilstm2_serve_scan). out0, out1: [R, T, H]. lens: [R] or
+// null.
+template <int MT>
+__global__ void __launch_bounds__(512, 1)
+serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag,
+                  const int* __restrict__ lens, float* __restrict__ out0,
+                  float* __restrict__ out1, int R, int Tn, int H) {
+  constexpr int RT = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = 4 * H, Hh = H / 2, ngroups = H / 16;
+  const int hpitch = hs_pitch(H);
+  float* ws = reinterpret_cast<float*>(smem);  // W slice in fragment order
+  float* hs = ws + H * 2 * H;                  // [2 buffers][big, small][RT][hpitch]
+  float* stg = hs + 4 * RT * hpitch;           // [8 slots][nthreads][2]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stg + 32 * MT * H);
+
+  const unsigned c = cluster_rank();
+  const int d = blockIdx.z;
+  const int row0 = blockIdx.y * RT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  const int ug = warp % ngroups, mt = warp / ngroups;  // the warp's units and m-tile
+  const int lg = lane >> 2, lt = lane & 3;  // the fragments' group and thread-in-group
+  const int gu = c * Hh + 8 * ug + 2 * lt;  // this thread's two units, of all H
+
+  load_resident(ws, wfrag + (d * 2 + c) * static_cast<long long>(H) * 2 * H,
+                static_cast<unsigned>(H * 2 * H * sizeof(float)), bar);
+
+  // this thread's rows 16 mt + lg + 8 hh: their lengths, and the tile's
+  // longest row (every thread reads them all)
+  int rlen[2];
+  int t_end = 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int gr = row0 + 16 * mt + lg + 8 * hh;
+    rlen[hh] = gr < R ? (lens != nullptr ? min(max(lens[gr], 0), Tn) : Tn) : 0;
+  }
+  for (int i = 0; i < RT && row0 + i < R; ++i)
+    t_end = max(t_end, lens != nullptr ? min(max(lens[row0 + i], 0), Tn) : Tn);
+
+  float* out = d == 0 ? out0 : out1;
+  auto out_at = [&](int gr, int t) {
+    return out + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
+  };
+  auto pre_at = [&](int gr, int t) {
+    return pre + (static_cast<long long>(gr) * Tn + t) * (2 * G) + d * G + gu;
+  };
+
+  const float zeros[2] = {0.f, 0.f};
+  for (int t = t_end; t < Tn; ++t) {  // past every row's length
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gr = row0 + 16 * mt + lg + 8 * hh;
+      if (gr < R) st2(out_at(gr, t), zeros);
+    }
+  }
+
+  // the step's P for this thread's (row, unit) pairs into its own staging
+  // slots (hh * 4 + gate) by cp.async, a step ahead (no barrier needed: a
+  // thread reads only what it copied)
+  auto slot = [&](int hh, int g) { return stg + ((hh * 4 + g) * nthreads + tid) * 2; };
+  auto stage = [&](int t) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gr = row0 + 16 * mt + lg + 8 * hh;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        cp_async8(slot(hh, g), gr < R ? pre_at(gr, t) + g * H : pre, gr < R);
+    }
+    cp_async_commit();
+  };
+  if (t_end > 0) stage(d == 0 ? 0 : t_end - 1);
+  for (int i = tid; i < 2 * RT * hpitch; i += nthreads) hs[i] = 0.f;  // h = 0 in buffer 0
+  float cst[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+
+  cluster_sync();     // both CTAs run, the mbarrier is initialised, h = 0 is in place
+  mbar_wait(bar, 0);  // the W slice landed
+
+  // this lane's B fragments of k-step ks: wl[ks * ngroups * 256 + 0..7]
+  const float* wl = ws + (ug * 32 + lane) * 8;
+  for (int s = 0; s < t_end; ++s) {
+    const int t = d == 0 ? s : t_end - 1 - s;
+    // acc[g] = h @ W_hh[d] for the warp's m-tile and gate g of its units
+    float acc[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[g][q] = 0.f;
+    // A fragments, split when h was written: rows 16 mt + (lane & 15), k
+    // 8 ks + 4 (lane >> 4), the small part RT rows further
+    const float* ap = hs + (s & 1) * 2 * RT * hpitch + (16 * mt + (lane & 15)) * hpitch +
+                      4 * (lane >> 4);
+#pragma unroll 2
+    for (int ks = 0; ks < H / 8; ++ks) {
+      // B fragment of gate g: (k = 8 ks + lt, 8 ks + lt + 4; unit lg of the warp's 8)
+      const float4 b01 = ld4(wl + ks * ngroups * 256);
+      const float4 b23 = ld4(wl + ks * ngroups * 256 + 4);
+      const float bv[4][2] = {{b01.x, b01.y}, {b01.z, b01.w}, {b23.x, b23.y}, {b23.z, b23.w}};
+      uint32_t bbig[4][2], bsmall[4][2];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) split_tf32(bv[g][j], bbig[g][j], bsmall[g][j]);
+      uint32_t abig[4], asmall[4];
+      float a[4];
+      ldmatrix_x4(a, ap + 8 * ks);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) abig[q] = __float_as_uint(a[q]);
+      ldmatrix_x4(a, ap + RT * hpitch + 8 * ks);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) asmall[q] = __float_as_uint(a[q]);
+      // per gate the small terms first, then big * big, into a fresh
+      // partial added to the sum in round-to-nearest; the four gates'
+      // chains are issued side by side
+      float part[4][4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) mma_tf32_first(part[g], asmall, bbig[g]);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) mma_tf32(part[g], abig, bsmall[g]);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) mma_tf32(part[g], abig, bbig[g]);
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[g][q] += part[g][q];
+    }
+    cp_async_wait_all();  // this step's P landed in the staging slots
+
+    // the cell update: fragment g holds rows lg (q = 0, 1) and lg + 8 (q = 2,
+    // 3), units 2 lt + (q & 1); the new h half, split into its TF32 parts,
+    // goes to both CTAs' next buffer
+    float* nb = hs + ((s + 1) & 1) * 2 * RT * hpitch;
+    const unsigned remote = map_rank(nb, c ^ 1u);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 16 * mt + lg + 8 * hh;
+      const int gr = row0 + row;
+      // direction 1 holds its zero state until t drops below the row's length
+      const bool update = d == 0 || t < rlen[hh];
+      float hv[2], hbig[2], hsmall[2], pv[4][2];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) ld2(slot(hh, g), pv[g]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float ig = sigmoid_f(pv[0][j] + acc[0][2 * hh + j]);
+        const float fg = sigmoid_f(pv[1][j] + acc[1][2 * hh + j]);
+        const float gg = tanhf(pv[2][j] + acc[2][2 * hh + j]);
+        const float og = sigmoid_f(pv[3][j] + acc[3][2 * hh + j]);
+        const float cn = fg * cst[hh][j] + ig * gg;
+        if (update) cst[hh][j] = cn;
+        hv[j] = update ? og * tanhf(cn) : 0.f;  // a held row is still at its zero state
+        uint32_t big, small;
+        split_tf32(hv[j], big, small);
+        hbig[j] = __uint_as_float(big);
+        hsmall[j] = __uint_as_float(small);
+      }
+      st2(nb + row * hpitch + gu, hbig);
+      st2(nb + (RT + row) * hpitch + gu, hsmall);
+      st2_cluster(remote + 4 * (row * hpitch + gu), hbig);
+      st2_cluster(remote + 4 * ((RT + row) * hpitch + gu), hsmall);
+      if (gr < R) st2(out_at(gr, t), hv);
+    }
+    if (s + 1 < t_end) stage(d == 0 ? t + 1 : t - 1);  // after this thread's reads of its slots
+    cluster_sync();  // the next h is complete in both CTAs; this step's reads are done
+  }
+  cp_async_wait_all();
+}
+
+template <int MT>
+int launch(const void* pre, const void* wfrag, const void* lens, void* out0, void* out1, int R,
+           int Tn, int H, cudaStream_t s) {
+  const int tiles = (R + 16 * MT - 1) / (16 * MT);
+  return launch_cluster(serve_scan_kernel<MT>, tiles, 2, 2 * H * MT, smem_bytes(MT, H), s,
+                        static_cast<const float*>(pre), static_cast<const float*>(wfrag),
+                        static_cast<const int*>(lens), static_cast<float*>(out0),
+                        static_cast<float*>(out1), R, Tn, H);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The serving scan. height: rows per tile, 16 or 32. pre:
+// [R, T, 2, 4H], P (the input product with the bias), read only. wfrag: W_hh in
+// fragment order, [2 d, 2 c, H / 8 ks, H / 16 w, 8 lg, 4 lt, 4 gate, 2 j],
+// element W_hh[d][8 ks + lt + 4 j][gate * H + c H / 2 + 8 w + lg] (unit group
+// w, lane 4 lg + lt). out0, out1: [R, T, H]. lens: [R] int32 or null. All
+// fp32, contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns
+// a cudaError_t code (0 = launched).
+int bilstm2_serve_scan(int height, const void* pre, const void* wfrag, const void* lens,
+                       void* out0, void* out1, int R, int Tn, int H, void* stream) {
+  if (H % 16 || H > 128 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (height) {
+    case 16: return launch<1>(pre, wfrag, lens, out0, out1, R, Tn, H, s);
+    case 32: return launch<2>(pre, wfrag, lens, out0, out1, R, Tn, H, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// How many clusters of the scan at this tile height the card runs at once.
+int bilstm2_serve_max_clusters(int height, int H, int* clusters) {
+  switch (height) {
+    case 16: return max_clusters(serve_scan_kernel<1>, 2 * H, smem_bytes(1, H), clusters);
+    case 32: return max_clusters(serve_scan_kernel<2>, 4 * H, smem_bytes(2, H), clusters);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* bilstm2_serve_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

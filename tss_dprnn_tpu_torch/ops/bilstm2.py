@@ -3,9 +3,12 @@ wrappers and plain versions (counterpart of the bilstm2 section of
 ``tss_dprnn_tpu/ops/pallas_lstm.py:698-1224, 1224-1464``).
 
 Replaces the TPU kernel ``_bilstm2_kernel`` (pallas_lstm.py:698) in its
-unmasked, masked and dense modes with ``csrc/bilstm2.cu``, in its residual
-(training) mode with ``csrc/bilstm2_resid.cu`` after an input product of
-``csrc/products.cu``, ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
+unmasked and masked modes with fp32 streams (the serving scans) with the
+input product of ``csrc/products.cu`` followed by the serving scan of
+``csrc/bilstm2_serve.cu``, in those modes with bf16 streams and in its dense
+mode with ``csrc/bilstm2.cu``, in its residual (training) mode with
+``csrc/bilstm2_resid.cu`` after the same input product,
+``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
 ``csrc/bilstm2_bm.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224)
 with ``csrc/bilstm2_bwd.cu`` and the products of ``csrc/products.cu``, CUDA
 C++ for ``sm_90a``. Both directions run in one launch and both outputs come
@@ -24,21 +27,25 @@ pre-activations ``x_t @ W_ih[d] + h_prev @ W_hh[d] + b[d]`` of every
 row-step and direction, [B, T, 2, 4H] fp32, with no time or row padding. The
 backward reads ``pre`` and recomputes no gate.
 
-What bounds the inference kernel on the H100: fp32 FMAs. A row-step costs
+What bounds the scans on the H100: the operations. A row-step costs
 2 (F + H) 4H FLOP per direction against a few hundred bytes of input and
 output, far above the card's bandwidth line; the time loop is sequential,
-so parallelism comes only from rows and directions. Its design (one block
-per direction and 32-row tile, h in shared memory, c in registers, the
-weights streamed from L2 in double-buffered chunks and reused across the
-tile's rows) is the simple one; the source's header gives the details.
+so parallelism comes only from rows and directions. ``csrc/bilstm2.cu``
+(bf16 streams, dense mode) is the simple design: one block per direction
+and 32-row tile, the weights streamed from L2 in double-buffered chunks on
+the fp32 pipe; the source's header gives the details.
 
-The training pair splits the work by what is sequential. Forward: the
-product kernel computes the input half of every gate at once into ``pre``,
-then the recurrent scan adds ``h @ W_hh`` step by step and writes the full
-pre-activations back. Backward: the reverse scan turns ``pre`` and the
-carried dh/dc into dpre, then the product kernel gives dx and the per-split
-partials of dW (a column-sum kernel those of db), which are summed here in
-a fixed order. Both scans run as 2-CTA thread-block clusters, one per
+The fp32 serving route and the training pair split the work by what is
+sequential: the product kernel computes the input half of every gate at
+once, P = x @ [W_ih[0] | W_ih[1]] + b into a [B, T, 2, 4H] buffer, then a
+recurrent scan adds ``h @ W_hh`` step by step. The serving scan reads P and
+writes only the two outputs, with ``h @ W_hh`` on the tensor cores in
+3xTF32 (:func:`serve_weight_layout` gives the fragment order it reads W_hh
+in). The training forward's scan writes the full pre-activations back into
+``pre``. Backward: the reverse scan turns ``pre`` and the carried dh/dc into
+dpre, then the product kernel gives dx and the per-split partials of dW (a
+column-sum kernel those of db), which are summed here in a fixed order. The
+three recurrent scans run as 2-CTA thread-block clusters, one per
 (direction, row tile), each CTA holding half of W_hh in shared memory for
 the whole scan; :func:`plan_tiles` picks the tile height. The sources'
 headers give the details.
@@ -532,6 +539,8 @@ _BK = 32         # ... and its k-depth
 
 # the training scans' compiled tile heights (csrc/bilstm2_resid.cu, bilstm2_bwd.cu)
 TILE_HEIGHTS = (16, 24, 32, 40, 48)
+# the serving scan's (csrc/bilstm2_serve.cu): multiples of its 16-row m-tile
+SERVE_HEIGHTS = (16, 32)
 
 
 class TilePlan(NamedTuple):
@@ -569,18 +578,21 @@ def _max_clusters(which: str, H: int, device: int) -> int:
     """How many clusters of a cluster scan (``which``: "resid", "bwd" or
     "serve") the card runs at once, from cudaOccupancyMaxActiveClusters. At
     H = 128 every tile height takes most of an SM's shared memory (one CTA
-    per SM), so the smallest height's answer serves all."""
-    lib = {"resid": _library_resid, "bwd": _library_bwd, "serve": _library_resid}[which]()
+    per SM), so one height's answer serves all: the training scans ask at
+    their smallest, the serving scan at its largest (at a small H a smaller
+    tile may fit more clusters; the plan then only overestimates waves)."""
+    lib = {"resid": _library_resid, "bwd": _library_bwd, "serve": _library_serve}[which]()
+    height = SERVE_HEIGHTS[-1] if which == "serve" else TILE_HEIGHTS[0]
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = getattr(lib, f"bilstm2_{which}_max_clusters")(TILE_HEIGHTS[0], H, ctypes.byref(n))
-    _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, "bilstm2_resid_error_string"
-              if which == "serve" else f"bilstm2_{which}_error_string")
+        rc = getattr(lib, f"bilstm2_{which}_max_clusters")(height, H, ctypes.byref(n))
+    _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, f"bilstm2_{which}_error_string")
     return n.value
 
 
 def _plan(which: str, R: int, H: int, device: torch.device) -> TilePlan:
-    return plan_tiles(R, _max_clusters(which, H, device.index))
+    return plan_tiles(R, _max_clusters(which, H, device.index),
+                      heights=SERVE_HEIGHTS if which == "serve" else TILE_HEIGHTS)
 
 
 def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.Tensor] = None,
@@ -631,6 +643,17 @@ def resid_weight_layout(w_hh2: torch.Tensor) -> torch.Tensor:
     units [c H/2, (c + 1) H/2)) contiguous."""
     H = w_hh2.shape[1]
     return w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 1, 2, 4).contiguous()
+
+
+def serve_weight_layout(w_hh2: torch.Tensor) -> torch.Tensor:
+    """W_hh [2, H, 4H] as the serving scan reads it, in mma fragment order:
+    [2 d, 2 c, H/8 k-steps, H/16 warps, 8 lg, 4 lt, 4 gates, 2 j], the
+    element W_hh[d][8 ks + lt + 4 j][gate * H + c H/2 + 8 w + lg] (CTA c's
+    warp w owns units c H/2 + 8 w .. + 8; lane 4 lg + lt's B fragment of gate
+    g at k-step ks is its two j values)."""
+    H = w_hh2.shape[1]
+    w = w_hh2.reshape(2, H // 8, 2, 4, 4, 2, H // 16, 8)  # d, ks, j, lt, gate, c, w, lg
+    return w.permute(0, 5, 1, 6, 7, 3, 4, 2).contiguous()
 
 
 def _input_product(products, stream: int, x: torch.Tensor, w_ih2: torch.Tensor,
@@ -684,17 +707,17 @@ def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
     if B and T:
-        w_split = resid_weight_layout(w_hh2)
+        w_frag = serve_weight_layout(w_hh2)
         plan = _plan("serve", B, H, x.device)
-        products, lib = _library_products(), _library_resid()
+        products, lib = _library_products(), _library_serve()
         pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _input_product(products, stream, x, w_ih2, b2, pre)
-            rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_split.data_ptr(),
+            rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_frag.data_ptr(),
                                         _ptr(lens), out0.data_ptr(), out1.data_ptr(), B, T, H,
                                         stream)
-        _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_resid_error_string")
+        _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_serve_error_string")
         entry.launches += 1
     return out0, out1
 
@@ -801,12 +824,22 @@ def _library_resid() -> ctypes.CDLL:
     lib.bilstm2_resid_scan.restype = i
     lib.bilstm2_resid_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_resid_max_clusters.restype = i
+    lib.bilstm2_resid_error_string.argtypes = [i]
+    lib.bilstm2_resid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_serve() -> ctypes.CDLL:
+    """Build (at first use) and load the serving scan."""
+    lib = _build.load_library("bilstm2_serve")
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.bilstm2_serve_scan.argtypes = [i] + [p] * 5 + [i, i, i, p]
     lib.bilstm2_serve_scan.restype = i
     lib.bilstm2_serve_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_serve_max_clusters.restype = i
-    lib.bilstm2_resid_error_string.argtypes = [i]
-    lib.bilstm2_resid_error_string.restype = ctypes.c_char_p
+    lib.bilstm2_serve_error_string.argtypes = [i]
+    lib.bilstm2_serve_error_string.restype = ctypes.c_char_p
     return lib
 
 
