@@ -647,10 +647,10 @@ def resid_weight_layout(w_hh2: torch.Tensor) -> torch.Tensor:
 
 def serve_weight_layout(w_hh2: torch.Tensor) -> torch.Tensor:
     """W_hh [2, H, 4H] as the serving scan reads it, in mma fragment order:
-    [2 d, 2 c, H/8 k-steps, H/16 warps, 8 lg, 4 lt, 4 gates, 2 j], the
+    [2 d, 2 c, H/8 k-steps, H/16 unit groups, 8 lg, 4 lt, 4 gates, 2 j], the
     element W_hh[d][8 ks + lt + 4 j][gate * H + c H/2 + 8 w + lg] (CTA c's
-    warp w owns units c H/2 + 8 w .. + 8; lane 4 lg + lt's B fragment of gate
-    g at k-step ks is its two j values)."""
+    unit group w is units c H/2 + 8 w .. + 8; lane 4 lg + lt's B fragment of
+    gate g at k-step ks is its two j values)."""
     H = w_hh2.shape[1]
     w = w_hh2.reshape(2, H // 8, 2, 4, 4, 2, H // 16, 8)  # d, ks, j, lt, gate, c, w, lg
     return w.permute(0, 5, 1, 6, 7, 3, 4, 2).contiguous()
@@ -701,7 +701,7 @@ def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     P and writes only the two outputs; one call adds one to
     ``entry.launches`` (and one to the product kernel's). Returns (out0,
     out1)."""
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=True)
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
