@@ -157,6 +157,21 @@ def test_serve_fragments_give_h_at_w(H, MT):
         torch.testing.assert_close(got, want, atol=1e-12, rtol=0)
 
 
+def test_fp32_streams_take_the_serving_route(monkeypatch):
+    """The kernel wrapper sends fp32 streams to the serving route (input
+    product + serving scan) and only bf16 streams to csrc/bilstm2.cu, whose
+    checks refuse a tensor that is not on the card."""
+    calls = []
+    monkeypatch.setattr(B, "_launch_serve", lambda *a: calls.append(a) or "serve")
+    w = [torch.zeros(2, 16, 64), torch.zeros(2, 64), torch.zeros(2, 16, 64)]
+    x = torch.zeros(3, 5, 16)
+    assert B._launch(B.bilstm2_forward, x, *w, None) == "serve"
+    assert len(calls) == 1 and calls[0][1] is x
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        B._launch(B.bilstm2_forward, x.bfloat16(), *w, None)
+    assert len(calls) == 1
+
+
 # (R, max clusters) -> (height, tiles): one wave where the card allows it
 # (the smallest such height), else the fewest waves x height, then fewer waves
 @pytest.mark.parametrize("R,max_clusters,want", [
