@@ -33,9 +33,13 @@ Writes ``summary_train.json`` and ``trace_train.json.gz``.
 ``--bss`` profiles the blind-source-separation family instead: DPRNN-TasNet
 at the width and depth of configs/train_bss.yaml with ``bidirectional:
 false`` (``chip_smoke.BSS``), through the BSS ``Inferencer.forward`` or
-``Trainer.train_step``; the unidirectional inter-chunk scans then show under
-the stacked-direction kernels (``lstm_kernel`` and the ``LSTMStack``
-Function). Its files carry the suffix ``_bss``.
+``Trainer.train_step``. The unidirectional inter-chunk scans run the same
+kernels as the fused pair (the input product and a cluster scan), so they
+are told apart by call site: in serving every kernel launched inside
+``lstm_forward`` (wrapped here in a profiler range of that name, as
+``ops/rnn.py`` calls it; a kernel counts when it ran inside the range's span
+on the device) counts as ``lstm_ms`` (the scan plus its input products),
+and in a train step every kernel inside the ``LSTMStack`` Function. Its files carry the suffix ``_bss``.
 
 The JAX package's opt-in switches apply as they do to any caller (ops/rnn.py
 reads them at each call):
@@ -97,6 +101,7 @@ def main() -> int:
     from tss_dprnn_tpu_torch.data.loader import collate_bss_eval, make_collate_spe_eval
     from tss_dprnn_tpu_torch.inference import Inferencer, InferencerSpe
     from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
+    from tss_dprnn_tpu_torch.ops import rnn as rnn_ops
     from tss_dprnn_tpu_torch.utils.weights import init_weights_
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -125,6 +130,14 @@ def main() -> int:
     batch["lengths"] = np.asarray(lengths, np.int32)
     audio_s = sum(lengths) / SAMPLE_RATE
 
+    # the stacked-direction scans' call site, for the attribution below
+    stack_forward = rnn_ops.lstm_forward
+
+    def lstm_forward_ranged(*args):
+        with torch.profiler.record_function(STACK_RANGE):
+            return stack_forward(*args)
+
+    rnn_ops.lstm_forward = lstm_forward_ranged
     reset_launches()
     with torch.inference_mode():
         inf.forward(batch)  # warm-up
@@ -145,16 +158,29 @@ def main() -> int:
             window_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(os.path.join(OUT_DIR, f"trace{suffix}.json"))
 
-    by_kernel = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name] += e.time_range.end - e.time_range.start
+    # the profiler range shows on the device as one span per call, from its
+    # first kernel's start to its last kernel's end: a kernel inside a span
+    # ran inside lstm_forward
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in device if e.name == STACK_RANGE]
+    by_kernel, in_stack = defaultdict(float), defaultdict(float)
+    for e in device:
+        if e.name == STACK_RANGE:
+            continue
+        by_kernel[e.name] += e.time_range.end - e.time_range.start
+        if any(a <= e.time_range.start and e.time_range.end <= b for a, b in spans):
+            in_stack[e.name] += e.time_range.end - e.time_range.start
     device_us = sum(by_kernel.values())
-    scan_us = sum(v for k, v in by_kernel.items()
-                  if any(n in k for n in ("bilstm2_kernel", "slab_kernel", "scan_kernel")))
-    product_us = sum(v for k, v in by_kernel.items() if "gemm_kernel" in k)
+
+    def pair_us(*names):  # the fused pair's kernels of these names, outside lstm_forward
+        return sum(v - in_stack.get(k, 0.0) for k, v in by_kernel.items()
+                   if any(n in k for n in names))
+
+    scan_us = pair_us("bilstm2_kernel", "slab_kernel", "scan_kernel")
+    product_us = pair_us("gemm_kernel")
     lstm_us = scan_us + product_us
-    stack_us = sum(v for k, v in by_kernel.items() if "lstm_kernel" in k)  # ops/lstm.py's
+    stack_us = sum(in_stack.values())  # the scans plus their input products
+    stack_product_us = sum(v for k, v in in_stack.items() if "gemm_kernel" in k)
     launches = {k: v // (args.iters + 2)
                 for k, v in dict(all_launches(), **product_launches()).items() if v}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
@@ -171,6 +197,9 @@ def main() -> int:
         "bilstm2_input_product_ms": product_us / 1e3 if device_us else "not measured",
         "lstm_ms": stack_us / 1e3 if device_us else "not measured",
         "lstm_share_of_device": stack_us / device_us if device_us else "not measured",
+        "lstm_input_product_ms": stack_product_us / 1e3 if device_us else "not measured",
+        "lstm_calls_profiled": len(spans),
+        "lstm_by_kernel_ms": {k[:120]: v / 1e3 for k, v in in_stack.items()},
         "launches_per_forward": launches, "kernels_top": [[k[:120], v / 1e3] for k, v in top],
     }
     with open(os.path.join(OUT_DIR, f"summary{suffix}.json"), "w") as f:
@@ -189,6 +218,9 @@ def main() -> int:
     return 0
 
 
+# the profiler range around each stacked-direction forward (ops/lstm.py's
+# lstm_forward, as ops/rnn.py calls it) in a serving profile
+STACK_RANGE = "lstm_forward"
 # the port's kernels by name: "scan_kernel" matches the training scans'
 # resid_scan_kernel and bwd_scan_kernel (the fused pair's and, since both
 # backwards share it, lstm_bwd.cu's);

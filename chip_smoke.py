@@ -46,16 +46,20 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ms/step printed); one step card vs CPU at 1 x 1 s (loss within 1e-4
    relative, concatenated gradients >= 40 dB SNR).
 
-7. stacked-direction kernels vs plain: lstm_forward (fp32 and bf16 streams),
-   lstm_forward_with_cs, lstm_forward_resid (its four streams, the saved gate
-   pre-activations among them) and lstm_backward (csrc/lstm.cu; the cluster
-   scan of csrc/lstm_bwd.cu, which reads those pre-activations, then the
-   products) against their plain versions at D = 1 and the
-   inter-chunk shapes of BSS serving (8 x 10 s: R=2000 T=642) and training
-   (5 x 3 s: R=1250 T=194), plus a small D = 2 case with different inputs per
-   direction and a wide one (same tolerances as phases 2 and 5; the backward
-   bit for bit the same on a second call), timed beside the plain versions
-   and a unidirectional cuDNN LSTM (TF32 off);
+7. stacked-direction kernels vs plain: lstm_forward (fp32: per direction
+   the input product of csrc/products.cu, then the serving cluster scan of
+   csrc/bilstm2_serve.cu; bf16 streams: csrc/lstm.cu), lstm_forward_with_cs
+   (csrc/lstm.cu), lstm_forward_resid (the input products, then the training
+   forward's cluster scan of csrc/bilstm2_resid.cu; its four streams, the
+   saved gate pre-activations among them) and lstm_backward (the cluster scan
+   of csrc/lstm_bwd.cu, which reads those pre-activations, then the
+   products, from the resid route's streams) against their plain versions
+   at D = 1 and the inter-chunk shapes of BSS serving (8 x 10 s: R=2000
+   T=642) and training (5 x 3 s: R=1250 T=194), plus a small D = 2 case with
+   different inputs per direction and a wide one (same tolerances as phases
+   2 and 5; the fp32 forwards and the backward bit for bit the same on a
+   second call; the cluster scans' tile plans printed), timed beside the
+   plain versions and a unidirectional cuDNN LSTM (TF32 off);
 8. BSS serving: Inferencer.run with DPRNN-TasNet at the width and depth of
    configs/train_bss.yaml and ``bidirectional: false`` over 12 two-speaker
    mixtures (6 bilstm2_forward + 6 lstm_forward launches per batch and no
@@ -64,7 +68,7 @@ Phases, each of which fails the script (nonzero exit, no result line):
    bilstm2 launches per batch, card vs CPU >= 50 dB);
 9. BSS training: Trainer.run with ``bidirectional: false`` for 2 epochs (per
    train step 6 bilstm2_forward_resid + 6 bilstm2_backward + 6
-   lstm_forward_resid + 6 lstm_backward launches, with 48 product and 12
+   lstm_forward_resid + 6 lstm_backward launches, with 54 product and 12
    column-sum launches, per eval step 6 + 6
    inference launches), the best checkpoint served through the BSS
    Inferencer, 10 steps on one batch (ms/step), one step card vs CPU;
@@ -90,8 +94,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    the expected kernels only.
 
 Every serving count includes the input products: each fp32
-bilstm2_forward(_masked) launch runs one products_gemm launch first
-(``with_products``), and the phases check those counts too.
+bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
+fp32 lstm_forward launch one per direction (one on every path: the causal
+inter scan has D = 1) (``with_products``), and the phases check those counts
+too.
 
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
@@ -251,8 +257,10 @@ def expect_launches(got, per_step, steps: int, what: str) -> None:
 
 def with_products(per_step):
     """``per_step`` launches of the kernel wrappers, plus the input product
-    that each fp32 bilstm2 serving scan launches first."""
-    n = per_step.get("bilstm2_forward", 0) + per_step.get("bilstm2_forward_masked", 0)
+    that each fp32 serving scan launches first: one per bilstm2 scan, and one
+    per direction of an lstm_forward scan, whose paths all run D = 1."""
+    n = sum(per_step.get(k, 0) for k in ("bilstm2_forward", "bilstm2_forward_masked",
+                                         "lstm_forward"))
     return dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n)
 
 
@@ -776,6 +784,7 @@ def bss_shapes():
 def phase_lstm_kernels(torch, dev):
     """Phase 7: the stacked-direction kernels against their plain versions,
     timed beside them and a unidirectional cuDNN LSTM."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
     from tss_dprnn_tpu_torch.ops import lstm as L
 
     F = H = 128
@@ -789,21 +798,35 @@ def phase_lstm_kernels(torch, dev):
         x = torch.randn(D, R, T, F, generator=g).to(dev)
         cot = torch.randn(D, R, T, H, generator=g).to(dev)
         xb = x.bfloat16()
-        blocks = D * -(-R // 16)  # one per direction and 16-row tile
+        blocks = D * -(-R // 16)  # csrc/lstm.cu: one per direction and 16-row tile
+        # the fp32 h-only and residual routes' cluster scans: one 2-CTA cluster
+        # per direction and row tile
+        plans = {which: dict(B2._plan(which, R, H, x.device, dirs=D)._asdict(),
+                             max_clusters=B2._max_clusters(which, H, x.device.index))
+                 for which in ("serve", "resid")}
+        for plan in plans.values():
+            plan["waves"] = -(-plan["tiles"] * D // plan["max_clusters"])
 
-        # the three forward modes and the bf16 streams
+        # the three forward modes and the bf16 streams; the fp32 routes twice
         ref = L.lstm_reference(x, *w)
-        err = {"forward": float((L.lstm_forward(x, *w) - ref).abs().max())}
+        got_h = L.lstm_forward(x, *w)
+        err = {"forward": float((got_h - ref).abs().max())}
+        repeat_fwd = bool(torch.equal(got_h, L.lstm_forward(x, *w)))
         got_h, got_cs = L.lstm_forward_with_cs(x, *w)
         ref_cs = L.lstm_cs_reference(x, *w)[1]
         err["with_cs"] = max(float((got_h - ref).abs().max()),
                              float((got_cs - ref_cs).abs().max()))
+        del got_cs, ref_cs
         got_h, resid = L.lstm_forward_resid(x, *w)
         ref_resid = L.lstm_resid_reference(x, *w)[1]
         err["resid"] = max(float((got_h - ref).abs().max()),
                            *(float((a - r).abs().max()) for a, r in zip(resid, ref_resid)))
         err["pre"] = float((resid[3] - ref_resid[3]).abs().max())  # the saved gates
-        del got_h, got_cs, ref_cs, ref_resid
+        del ref_resid
+        again_h, again = L.lstm_forward_resid(x, *w)
+        torch.cuda.synchronize()
+        repeat_resid = all(torch.equal(a, r) for a, r in zip((got_h, *resid), (again_h, *again)))
+        del got_h, again_h, again
         got16 = L.lstm_forward(xb, *w).float()
         ref16 = L.lstm_reference(xb, *w).float()
         snr16, plain16_snr = snr_db(got16, ref), snr_db(got16, ref16)
@@ -823,14 +846,21 @@ def phase_lstm_kernels(torch, dev):
         dw_rel = max(dw_rels.values())
         del got, want
         backward_plan = L.plan_backward(D, R, H, x.device)._asdict()
-        log(f"[lstm-kernels] {name} D={D} R={R} T={T} ({blocks} blocks; backward tile plan "
-            f"{backward_plan}): max|err| forward {err['forward']:.3e}, with_cs "
-            f"{err['with_cs']:.3e}, resid {err['resid']:.3e} (pre {err['pre']:.3e}); bf16 SNR "
+        log(f"[lstm-kernels] {name} D={D} R={R} T={T}: fp32 forward = {D} input product(s) + "
+            f"serving scan, tile plan {plans['serve']}; resid = {D} input product(s) + training "
+            f"scan, tile plan {plans['resid']}; bf16 and with_cs on csrc/lstm.cu ({blocks} "
+            f"blocks); backward tile plan {backward_plan}")
+        log(f"[lstm-kernels] {name}: max|err| forward {err['forward']:.3e} (repeats bit for bit: "
+            f"{repeat_fwd}), with_cs {err['with_cs']:.3e}, resid {err['resid']:.3e} (pre "
+            f"{err['pre']:.3e}; repeats bit for bit: {repeat_resid}); bf16 SNR "
             f"{snr16:.2f} dB (vs bf16 plain max|err| {plain16_err:.3e}, SNR {plain16_snr:.2f} "
-            f"dB); backward dx {dx_err:.3e}, dW/db "
+            f"dB); backward from the resid route's streams dx {dx_err:.3e}, dW/db "
             f"{dw_err:.3e}, /max|ref| {dw_rels}, repeats bit for bit: {repeat}")
         if not max(err.values()) <= 1e-4:
             raise AssertionError(f"lstm {name} fp32 disagrees with its plain version: {err}")
+        if not (repeat_fwd and repeat_resid):
+            raise AssertionError(f"lstm {name} fp32: a second call differs from the first "
+                                 f"(forward {repeat_fwd}, resid {repeat_resid})")
         if not (snr16 >= 40.0 and plain16_err <= BF16_ATOL and plain16_snr >= BF16_SNR_DB):
             raise AssertionError(f"lstm {name} bf16: SNR {snr16:.2f} dB vs fp32 (>= 40), "
                                  f"max|err| {plain16_err} (<= {BF16_ATOL}) and SNR "
@@ -844,10 +874,12 @@ def phase_lstm_kernels(torch, dev):
         lstms = {dt: cudnn_lstm(torch, w_ih, b, w_hh, dt) for dt in (torch.float32, torch.bfloat16)}
         lstm = lstms[torch.float32]
 
-        nums = {"D": D, "R": R, "T": T, "blocks": blocks, "backward_tile_plan": backward_plan,
+        nums = {"D": D, "R": R, "T": T, "blocks": blocks, "tile_plan": plans,
+                "backward_tile_plan": backward_plan,
                 "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
                 "bf16_plain_snr_db": plain16_snr, "dx_max_abs_err": dx_err,
-                "dw_max_abs_err": dw_err, "dw_rel_err": dw_rel, "bitwise_repeat": repeat}
+                "dw_max_abs_err": dw_err, "dw_rel_err": dw_rel, "bitwise_repeat": repeat,
+                "forward_bitwise_repeat": repeat_fwd, "resid_bitwise_repeat": repeat_resid}
         if D == 1:
             xr = x[0].detach().clone().requires_grad_()
             params = [xr, *lstm.parameters()]
@@ -905,8 +937,12 @@ def lstm_kernel_entries(results, launches):
         out = {"ms": r[f"{kind}_ms"], "plain_ms": r[f"{kind}_plain_ms"],
                "bound_ms": r[f"{kind}_bound_ms"], "bound_by": r[f"{kind}_bound_by"],
                "library_ms": r.get(library),
-               "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128},
-               "blocks": r["blocks"]}
+               "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128}}
+        if kind in ("forward", "resid"):  # the cluster scans
+            out["tile_plan"] = r["tile_plan"]["serve" if kind == "forward" else "resid"]
+            out["bitwise_repeat"] = r[f"{kind}_bitwise_repeat"]
+        elif kind != "backward":  # csrc/lstm.cu
+            out.update(blocks=r["blocks"], source="tss_dprnn_tpu_torch/csrc/lstm.cu")
         if kind == "backward":
             out.update(max_abs_err=max(r["dx_max_abs_err"], r["dw_max_abs_err"]),
                        dx_max_abs_err=r["dx_max_abs_err"], dw_rel_err=r["dw_rel_err"],
@@ -921,17 +957,21 @@ def lstm_kernel_entries(results, launches):
     serving, training, small, wide = (results[k] for k in ("serving", "training", "small_d2",
                                                            "wide_d2"))
     base = {"dtype": "float32", "route": "cuda"}
-    fwd = {"source": "tss_dprnn_tpu_torch/csrc/lstm.cu",
-           "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57"}
+    products = {"with": "tss_dprnn_tpu_torch/csrc/products.cu (the input product, one launch "
+                        "per direction)",
+                "cluster": "2 CTAs, W_hh resident in shared memory",
+                "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57"}
     return [
-        dict(base, name="lstm_forward", mode="h only, BSS serving inter scan", **fwd,
+        dict(base, name="lstm_forward", mode="h only, BSS serving inter scan",
+             source="tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu", **products,
              launches=launches["lstm_forward"], **numbers(serving, "forward", "cudnn_ms"),
              bf16=numbers(serving, "bf16", "cudnn_bf16_ms"),
              with_cs=dict(numbers(serving, "with_cs", "cudnn_train_fwd_ms"),
                           name="lstm_forward_with_cs", launches=0),
              training_shape=numbers(training, "forward", "cudnn_ms"),
              small_d2=numbers(small, "forward", None), wide_d2=numbers(wide, "forward", None)),
-        dict(base, name="lstm_forward_resid", mode="resid, BSS training inter scan", **fwd,
+        dict(base, name="lstm_forward_resid", mode="resid, BSS training inter scan",
+             source="tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu", **products,
              launches=launches["lstm_forward_resid"],
              **numbers(training, "resid", "cudnn_train_fwd_ms"),
              serving_shape=numbers(serving, "resid", "cudnn_train_fwd_ms"),
@@ -1151,8 +1191,9 @@ def training_family(name: str):
                 per_train_step={"bilstm2_forward_resid": n, "bilstm2_backward": n,
                                 "lstm_forward_resid": n, "lstm_backward": n},
                 per_eval_step={"bilstm2_forward": n, "lstm_forward": n},
-                # the fused pair's 5, and lstm_backward's dx + dW_ih + dW_hh at D = 1
-                products_per_train_step={"products_gemm": n * 5 + n * 3,
+                # the fused pair's 5, lstm_forward_resid's input product and
+                # lstm_backward's dx + dW_ih + dW_hh at D = 1
+                products_per_train_step={"products_gemm": n * 5 + n * 1 + n * 3,
                                          "products_colsum": 2 * n})
 
 
@@ -1524,7 +1565,7 @@ def phase_tiny_widths(torch, dev):
                     crops=Mixtures, serve={"bilstm2_forward": 1, "lstm_forward": 1},
                     step={"bilstm2_forward_resid": 1, "bilstm2_backward": 1,
                           "lstm_forward_resid": 1, "lstm_backward": 1},
-                    products={"products_gemm": 8, "products_colsum": 2}),
+                    products={"products_gemm": 9, "products_colsum": 2}),
     }
     results = {}
     for tag, fam in families.items():

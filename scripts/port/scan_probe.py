@@ -139,8 +139,8 @@ def measure(name: str) -> dict:
 
         def scan(height):
             rc = serve.bilstm2_serve_scan(height, pre.data_ptr(), w_frag.data_ptr(),
-                                          B2._ptr(lens), o0.data_ptr(), o1.data_ptr(), R, T, H,
-                                          stream)
+                                          B2._ptr(lens), o0.data_ptr(), o1.data_ptr(), 4 * H,
+                                          8 * H, 1, 2, R, T, H, stream)
             B2._raise_on(rc, "serving scan", serve, "bilstm2_serve_error_string")
 
         out[f"serve_{mode}"]["scan_ms_by_height"] = {

@@ -1,21 +1,28 @@
-// The fused bidirectional LSTM's training forward for Hopper (sm_90a), fp32:
-// the recurrent scan, with W_hh resident in the shared memory of a 2-CTA
-// cluster.
+// The LSTM training forward for Hopper (sm_90a), fp32: the recurrent scan,
+// with W_hh resident in the shared memory of a 2-CTA cluster.
 //
-// Replaces the TPU kernel `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698)
-// in its residual mode (`want_resid`, :982), unmasked and masked. The work is
-// split by what is sequential: the input product P = x @ [W_ih[0] | W_ih[1]]
-// + b of every row-step runs first, in one launch of csrc/products.cu, into
-// the gate buffer pre [R, T, 2, 4H]; this kernel then runs, per direction d,
-//   gates = P[:, t, d] + h @ W_hh[d]            (torch gate order i, f, g, o)
+// Replaces two TPU kernels in their residual (training) modes:
+// - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698, `want_resid`
+//   :982), unmasked and masked: the fused bidirectional pair;
+// - `_lstm_kernel` (:57, launched by _pallas_core :231, `want_resid`;
+//   `lstm_forward_resid`): D stacked directions, each on its own input in
+//   forward time.
+// The work is split by what is sequential: the input product P of every
+// row-step runs first, in csrc/products.cu, into the gate buffer pre (the
+// pair's x @ [W_ih[0] | W_ih[1]] + b into [R, T, 2, 4H] in one launch, the
+// stack's x[d] @ W_ih[d] + b[d] into [D, R, T, 4H], one launch a direction;
+// ScanArgs says where a direction's gates lie); this kernel then runs, per
+// direction d,
+//   gates = P[d][:, t] + h @ W_hh[d]            (torch gate order i, f, g, o)
 //   c = f * c + i * g;  h = o * tanh(c)
 // step by step, writes the gate pre-activations back into pre in place (the
-// backward reads them and recomputes nothing), the outputs out0/out1 and the
-// residual streams: h and c before each step and tanh(c) after it, each
-// [R, T, H] at forward time t. Direction 0 scans t = 0..T-1, direction 1
-// t = T-1..0. Masked: direction 1 holds its zero state while t >= len[row],
-// so out1 there is 0; out0 and every stream past a row's length is
-// unspecified (finite), and steps past the tile's longest row write zeros.
+// backward reads them and recomputes nothing), the outputs and the residual
+// streams: h and c before each step and tanh(c) after it, each [R, T, H] at
+// forward time t. Direction 0 scans t = 0..T-1; direction 1 the same, or
+// t = T-1..0 for the pair (`reverse1`). Masked (the pair only): the reversed
+// direction holds its zero state while t >= len[row], so its output there is
+// 0; the other's and every stream past a row's length is unspecified
+// (finite), and steps past the tile's longest row write zeros.
 //
 // What bounds it: the fp32 FMAs of h @ W_hh, 2 H 4H FLOP per row-step and
 // direction, and the step-to-step dependency: all parallelism comes from rows
@@ -54,20 +61,34 @@ constexpr size_t smem_bytes(int nr, int H) {
          sizeof(uint64_t);
 }
 
-// Grid (2, tiles, 2) in clusters of (2, 1, 1); 2H threads, each owning NR
-// rows x UW = 2 units x 4 gates. pre: [R, T, 2, 4H], P in, gate pre-activations
-// out. wsplit: [2 d, 2 c, H, 4, H / 2], CTA (d, c)'s W slice contiguous.
-// Streams [R, T, H]. lens: [R] or null.
+// Where the scan finds a direction's row-steps: gate column j of direction d
+// at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j] (P
+// in, the gate pre-activations out), unit u of its output and streams
+// out[d][(gr * Tn + t) * H + u] (hp, cp, tc likewise). Direction 1 runs
+// t = T-1..0 when `reverse1`, else t = 0..T-1 as direction 0 does.
+struct ScanArgs {
+  float* pre;
+  const float* wsplit;  // [dirs d, 2 c, H, 4, H / 2], CTA (d, c)'s W slice contiguous
+  const int* lens;      // [R] or null
+  float* out[2];
+  float* hp[2];
+  float* cp[2];
+  float* tc[2];
+  long long pre_dir;
+  int pre_step;
+  int reverse1;
+  int R, Tn, H;
+};
+
+// Grid (2, tiles, dirs) in clusters of (2, 1, 1); 2H threads, each owning NR
+// rows x UW = 2 units x 4 gates.
 template <int NR>
-__global__ void __launch_bounds__(256, 1)
-resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
-                  const int* __restrict__ lens, float* __restrict__ out0, float* __restrict__ out1,
-                  float* __restrict__ hp0, float* __restrict__ cp0, float* __restrict__ tc0,
-                  float* __restrict__ hp1, float* __restrict__ cp1, float* __restrict__ tc1, int R,
-                  int Tn, int H) {
+__global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
   constexpr int RT = 8 * NR;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = 4 * H, Hh = H / 2, G2 = 2 * H;
+  const int R = a.R, Tn = a.Tn, H = a.H;
+  const int* __restrict__ lens = a.lens;
+  const int Hh = H / 2, G2 = 2 * H;
   const int hpitch = hs_pitch(H);
   float* ws = reinterpret_cast<float*>(smem);  // [H][2H]: k, then gate-major own units
   float* hs = ws + H * G2;                     // [2][RT][hpitch]
@@ -76,6 +97,7 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
 
   const unsigned c = cluster_rank();
   const int d = blockIdx.z;
+  const bool rev = d == 1 && a.reverse1;  // this direction scans t = T-1..0
   const int row0 = blockIdx.y * RT;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -83,7 +105,7 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
   const int u0 = (tid >> 3) * UW;  // units u0..u0+UW-1 of this CTA's half
   const int gu = c * Hh + u0;      // ... of all H
 
-  load_resident(ws, wsplit + (d * 2 + c) * static_cast<long long>(H) * G2,
+  load_resident(ws, a.wsplit + (d * 2 + c) * static_cast<long long>(H) * G2,
                 static_cast<unsigned>(H * G2 * sizeof(float)), bar);
 
   // per-row lengths and the tile's longest row (every thread reads them all)
@@ -97,15 +119,18 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
   for (int i = 0; i < RT && row0 + i < R; ++i)
     t_end = max(t_end, lens != nullptr ? min(max(lens[row0 + i], 0), Tn) : Tn);
 
-  float* out = d == 0 ? out0 : out1;
-  float* hpd = d == 0 ? hp0 : hp1;
-  float* cpd = d == 0 ? cp0 : cp1;
-  float* tcd = d == 0 ? tc0 : tc1;
+  // selects, not a runtime index into the parameter arrays (which would copy
+  // them to local memory)
+  float* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
+  float* __restrict__ hpd = d == 0 ? a.hp[0] : a.hp[1];
+  float* __restrict__ cpd = d == 0 ? a.cp[0] : a.cp[1];
+  float* __restrict__ tcd = d == 0 ? a.tc[0] : a.tc[1];
+  float* __restrict__ pre = a.pre + d * a.pre_dir + gu;
   auto at = [&](float* p, int gr, int t) {
     return p + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
   };
   auto pre_at = [&](int gr, int t) {
-    return pre + (static_cast<long long>(gr) * Tn + t) * (2 * G) + d * G + gu;
+    return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
   };
 
   float zeros[UW];
@@ -139,7 +164,7 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
     }
     cp_async_commit();
   };
-  if (t_end > 0) stage(d == 0 ? 0 : t_end - 1);
+  if (t_end > 0) stage(rev ? t_end - 1 : 0);
   for (int i = tid; i < RT * hpitch; i += nthreads) hs[i] = 0.f;  // h = 0 in buffer 0
   float cst[NR][UW];
 #pragma unroll
@@ -151,14 +176,14 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
   mbar_wait(bar, 0);  // the W slice landed
 
   for (int s = 0; s < t_end; ++s) {
-    const int t = d == 0 ? s : t_end - 1 - s;
+    const int t = rev ? t_end - 1 - s : s;
     cp_async_wait_all();
     float acc[4][NR][UW];
 #pragma unroll
     for (int r = 0; r < NR; ++r)
 #pragma unroll
       for (int g = 0; g < 4; ++g) ld2(stg + ((r * 4 + g) * nthreads + tid) * UW, acc[g][r]);
-    if (s + 1 < t_end) stage(d == 0 ? t + 1 : t - 1);
+    if (s + 1 < t_end) stage(rev ? t - 1 : t + 1);
 
     // gates += h @ W_hh[d] for this thread's rows, units and gates
     const float* hb = hs + (s & 1) * RT * hpitch;
@@ -190,8 +215,9 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
     for (int r = 0; r < NR; ++r) {
       const int row = rg + 8 * r;
       const int gr = row0 + row;
-      // direction 1 holds its zero state until t drops below the row's length
-      const bool update = d == 0 || t < rlen[r];
+      // the reversed direction holds its zero state until t drops below the
+      // row's length
+      const bool update = !rev || t < rlen[r];
       float hold[UW], hv[UW], tcv[UW], cb[UW];
       ld2(hb + row * hpitch + gu, hold);
 #pragma unroll
@@ -224,28 +250,19 @@ resid_scan_kernel(float* __restrict__ pre, const float* __restrict__ wsplit,
 }
 
 template <int NR>
-int launch(void* pre, const void* wsplit, const void* lens, void* out0, void* out1, void* hp0,
-           void* cp0, void* tc0, void* hp1, void* cp1, void* tc1, int R, int Tn, int H,
-           cudaStream_t s) {
-  const int tiles = (R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(resid_scan_kernel<NR>, tiles, 2, 4 * H / UW, smem_bytes(NR, H), s,
-                        static_cast<float*>(pre), static_cast<const float*>(wsplit),
-                        static_cast<const int*>(lens), static_cast<float*>(out0),
-                        static_cast<float*>(out1), static_cast<float*>(hp0),
-                        static_cast<float*>(cp0), static_cast<float*>(tc0),
-                        static_cast<float*>(hp1), static_cast<float*>(cp1),
-                        static_cast<float*>(tc1), R, Tn, H);
+int launch(const ScanArgs& a, int dirs, cudaStream_t s) {
+  const int tiles = (a.R + 8 * NR - 1) / (8 * NR);
+  return launch_cluster(resid_scan_kernel<NR>, tiles, dirs, 4 * a.H / UW, smem_bytes(NR, a.H), s,
+                        a);
 }
 
-int dispatch(int height, void* pre, const void* wsplit, const void* lens, void* out0, void* out1,
-             void* hp0, void* cp0, void* tc0, void* hp1, void* cp1, void* tc1, int R, int Tn,
-             int H, cudaStream_t s) {
+int dispatch(int height, const ScanArgs& a, int dirs, cudaStream_t s) {
   switch (height) {
-    case 16: return launch<2>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 24: return launch<3>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 32: return launch<4>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 40: return launch<5>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
-    case 48: return launch<6>(pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H, s);
+    case 16: return launch<2>(a, dirs, s);
+    case 24: return launch<3>(a, dirs, s);
+    case 32: return launch<4>(a, dirs, s);
+    case 40: return launch<5>(a, dirs, s);
+    case 48: return launch<6>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -266,19 +283,42 @@ int occupancy(int height, int H, int* clusters) {
 
 extern "C" {
 
-// The recurrent scan of the training forward. height: rows per tile, one of
-// 16, 24, 32, 40, 48. pre: [R, T, 2, 4H] holding P (the input product with the
-// bias), overwritten with the gate pre-activations. wsplit: W_hh laid out
-// [2, 2, H, 4, H / 2] (direction, half, k, gate, unit). out0, out1 and the six
-// streams: [R, T, H]. lens: [R] int32 or null. All fp32, contiguous, 16-byte
-// aligned; H a multiple of 16, at most 128. Returns a cudaError_t code
-// (0 = launched).
+// The recurrent scan of the training forward over `dirs` (1 or 2)
+// directions. height: rows per tile, one of 16, 24, 32, 40, 48. pre: P (the
+// input product with the bias), overwritten with the gate pre-activations;
+// direction d's gate column j at row-step (r, t) is pre[d * pre_dir + (r * T +
+// t) * pre_step + j]: (4H, 8H) for the pair's [R, T, 2, 4H], (R T 4H, 4H) for
+// the stack's [D, R, T, 4H]. wsplit: W_hh laid out [dirs, 2, H, 4, H / 2]
+// (direction, half, k, gate, unit). out_d, hp_d, cp_d, tc_d: direction d's
+// [R, T, H] (direction 1's unused with one direction). reverse1: direction 1
+// scans t = T-1..0. lens: [R] int32 or null (only with reverse1). All fp32,
+// contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns a
+// cudaError_t code (0 = launched).
 int bilstm2_resid_scan(int height, void* pre, const void* wsplit, const void* lens, void* out0,
                        void* out1, void* hp0, void* cp0, void* tc0, void* hp1, void* cp1,
-                       void* tc1, int R, int Tn, int H, void* stream) {
-  if (H % 16 || H > 128 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(height, pre, wsplit, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, R, Tn, H,
-                  static_cast<cudaStream_t>(stream));
+                       void* tc1, long long pre_dir, int pre_step, int reverse1, int dirs, int R,
+                       int Tn, int H, void* stream) {
+  if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2 || (lens != nullptr && !reverse1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs a = {};
+  a.pre = static_cast<float*>(pre);
+  a.wsplit = static_cast<const float*>(wsplit);
+  a.lens = static_cast<const int*>(lens);
+  a.out[0] = static_cast<float*>(out0);
+  a.out[1] = static_cast<float*>(out1);
+  a.hp[0] = static_cast<float*>(hp0);
+  a.hp[1] = static_cast<float*>(hp1);
+  a.cp[0] = static_cast<float*>(cp0);
+  a.cp[1] = static_cast<float*>(cp1);
+  a.tc[0] = static_cast<float*>(tc0);
+  a.tc[1] = static_cast<float*>(tc1);
+  a.pre_dir = pre_dir;
+  a.pre_step = pre_step;
+  a.reverse1 = reverse1;
+  a.R = R;
+  a.Tn = Tn;
+  a.H = H;
+  return dispatch(height, a, dirs, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of the scan at this tile height the card runs at once.

@@ -1,21 +1,27 @@
-// The fused bidirectional LSTM's serving scan for Hopper (sm_90a), fp32: the
-// recurrence with W_hh resident in the shared memory of a 2-CTA cluster and
-// h @ W_hh on the tensor cores in 3xTF32.
+// The LSTM serving scan for Hopper (sm_90a), fp32: the recurrence with W_hh
+// resident in the shared memory of a 2-CTA cluster and h @ W_hh on the tensor
+// cores in 3xTF32.
 //
-// Replaces the TPU kernel `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698)
-// in its unmasked and masked modes with fp32 streams (`bilstm2_forward` :935,
-// `bilstm2_forward_masked` :949), the modes every serving scan runs. As in the
-// training forward (bilstm2_resid.cu), the input product P = x @ [W_ih[0] |
-// W_ih[1]] + b of every row-step runs first, in one launch of
-// csrc/products.cu, into a buffer [R, T, 2, 4H]; this kernel then runs, per
-// direction d,
-//   gates = P[:, t, d] + h @ W_hh[d]            (torch gate order i, f, g, o)
+// Replaces two TPU kernels in their fp32 inference modes:
+// - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698) unmasked and
+//   masked (`bilstm2_forward` :935, `bilstm2_forward_masked` :949), the modes
+//   every fused bidirectional serving scan runs;
+// - `_lstm_kernel` (:57, launched by _pallas_core :231) in its h-only mode
+//   (`lstm_forward`): D stacked directions, each on its own input in forward
+//   time, the causal DPRNN's inter-chunk scan.
+// As in the training forward (bilstm2_resid.cu), the input product P of every
+// row-step runs first, in csrc/products.cu: x @ [W_ih[0] | W_ih[1]] + b into
+// one buffer [R, T, 2, 4H] for the pair, x[d] @ W_ih[d] + b[d] into
+// [D, R, T, 4H] for the stack (ScanArgs says where a direction's gates lie).
+// This kernel then runs, per direction d,
+//   gates = P[d][:, t] + h @ W_hh[d]            (torch gate order i, f, g, o)
 //   c = f * c + i * g;  h = o * tanh(c)
-// step by step and writes only out0 and out1 [R, T, H] (no residual stream,
-// nothing back into P). Direction 0 scans t = 0..T-1, direction 1
-// t = T-1..0. Masked: direction 1 holds its zero state while t >= len[row], so
-// out1 there is 0; out0 past a row's length is unspecified (finite), and steps
-// past the tile's longest row write zeros.
+// step by step and writes only the outputs [R, T, H] (no residual stream,
+// nothing back into P). Direction 0 scans t = 0..T-1; direction 1 the same,
+// or t = T-1..0 for the pair (`reverse1`). Masked (the pair only): the
+// reversed direction holds its zero state while t >= len[row], so its output
+// there is 0; the other's past a row's length is unspecified (finite), and
+// steps past the tile's longest row write zeros.
 //
 // What bounds it: the operations of h @ W_hh, 2 H 4H FLOP per row-step and
 // direction, three TF32 products per fp32 one, and the step-to-step
@@ -85,20 +91,32 @@ constexpr size_t smem_bytes(int mt, int H) {
              sizeof(float) + sizeof(uint64_t);
 }
 
-// Grid (2, tiles, 2) in clusters of (2, 1, 1); 2H x MT threads: warp w owns
-// the 8 units w % (H / 16) of its CTA's half and m-tile w / (H / 16) (rows
-// 16 mt .. 16 mt + 15 of the tile). P: [R, T, 2, 4H]. wfrag: [2 d, 2 c, H / 8
-// k-steps, H / 16 unit groups, 32 lanes, 4 gates, 2], CTA (d, c)'s slice
-// contiguous (see bilstm2_serve_scan). out0, out1: [R, T, H]. lens: [R] or
-// null.
+// Where the scan finds a direction's row-steps: gate column j of direction d
+// at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j], unit
+// u of its output out[d][(gr * Tn + t) * H + u]. Direction 1 runs t = T-1..0
+// when `reverse1`, else t = 0..T-1 as direction 0 does.
+struct ScanArgs {
+  const float* pre;    // P, read only
+  const float* wfrag;  // [dirs, 2 c, H / 8 ks, H / 16 w, 32 lanes, 4 gates, 2]
+  const int* lens;     // [R] or null
+  float* out[2];
+  long long pre_dir;
+  int pre_step;
+  int reverse1;
+  int R, Tn, H;
+};
+
+// Grid (2, tiles, dirs) in clusters of (2, 1, 1); 2H x MT threads: warp w
+// owns the 8 units w % (H / 16) of its CTA's half and m-tile w / (H / 16)
+// (rows 16 mt .. 16 mt + 15 of the tile). CTA (d, c)'s slice of wfrag is
+// contiguous (see bilstm2_serve_scan).
 template <int MT>
-__global__ void __launch_bounds__(512, 1)
-serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag,
-                  const int* __restrict__ lens, float* __restrict__ out0,
-                  float* __restrict__ out1, int R, int Tn, int H) {
+__global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
   constexpr int RT = 16 * MT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = 4 * H, Hh = H / 2, ngroups = H / 16;
+  const int R = a.R, Tn = a.Tn, H = a.H;
+  const int* __restrict__ lens = a.lens;
+  const int Hh = H / 2, ngroups = H / 16;
   const int hpitch = hs_pitch(H);
   float* ws = reinterpret_cast<float*>(smem);  // W slice in fragment order
   float* hs = ws + H * 2 * H;                  // [2 buffers][big, small][RT][hpitch]
@@ -107,6 +125,7 @@ serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag
 
   const unsigned c = cluster_rank();
   const int d = blockIdx.z;
+  const bool rev = d == 1 && a.reverse1;  // this direction scans t = T-1..0
   const int row0 = blockIdx.y * RT;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -115,7 +134,7 @@ serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag
   const int lg = lane >> 2, lt = lane & 3;  // the fragments' group and thread-in-group
   const int gu = c * Hh + 8 * ug + 2 * lt;  // this thread's two units, of all H
 
-  load_resident(ws, wfrag + (d * 2 + c) * static_cast<long long>(H) * 2 * H,
+  load_resident(ws, a.wfrag + (d * 2 + c) * static_cast<long long>(H) * 2 * H,
                 static_cast<unsigned>(H * 2 * H * sizeof(float)), bar);
 
   // this thread's rows 16 mt + lg + 8 hh: their lengths, and the tile's
@@ -130,12 +149,15 @@ serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag
   for (int i = 0; i < RT && row0 + i < R; ++i)
     t_end = max(t_end, lens != nullptr ? min(max(lens[row0 + i], 0), Tn) : Tn);
 
-  float* out = d == 0 ? out0 : out1;
+  // selects, not a runtime index into the parameter array (which would copy
+  // it to local memory)
+  float* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
+  const float* __restrict__ pre = a.pre + d * a.pre_dir + gu;
   auto out_at = [&](int gr, int t) {
     return out + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
   };
   auto pre_at = [&](int gr, int t) {
-    return pre + (static_cast<long long>(gr) * Tn + t) * (2 * G) + d * G + gu;
+    return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
   };
 
   const float zeros[2] = {0.f, 0.f};
@@ -161,7 +183,7 @@ serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag
     }
     cp_async_commit();
   };
-  if (t_end > 0) stage(d == 0 ? 0 : t_end - 1);
+  if (t_end > 0) stage(rev ? t_end - 1 : 0);
   for (int i = tid; i < 2 * RT * hpitch; i += nthreads) hs[i] = 0.f;  // h = 0 in buffer 0
   float cst[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 
@@ -171,7 +193,7 @@ serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag
   // this lane's B fragments of k-step ks: wl[ks * ngroups * 256 + 0..7]
   const float* wl = ws + (ug * 32 + lane) * 8;
   for (int s = 0; s < t_end; ++s) {
-    const int t = d == 0 ? s : t_end - 1 - s;
+    const int t = rev ? t_end - 1 - s : s;
     // acc[g] = h @ W_hh[d] for the warp's m-tile and gate g of its units
     float acc[4][4];
 #pragma unroll
@@ -227,8 +249,9 @@ serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag
     for (int hh = 0; hh < 2; ++hh) {
       const int row = 16 * mt + lg + 8 * hh;
       const int gr = row0 + row;
-      // direction 1 holds its zero state until t drops below the row's length
-      const bool update = d == 0 || t < rlen[hh];
+      // the reversed direction holds its zero state until t drops below the
+      // row's length
+      const bool update = !rev || t < rlen[hh];
       float hv[2], hbig[2], hsmall[2], pv[4][2];
 #pragma unroll
       for (int g = 0; g < 4; ++g) ld2(slot(hh, g), pv[g]);
@@ -252,40 +275,55 @@ serve_scan_kernel(const float* __restrict__ pre, const float* __restrict__ wfrag
       st2_cluster(remote + 4 * ((RT + row) * hpitch + gu), hsmall);
       if (gr < R) st2(out_at(gr, t), hv);
     }
-    if (s + 1 < t_end) stage(d == 0 ? t + 1 : t - 1);  // after this thread's reads of its slots
+    if (s + 1 < t_end) stage(rev ? t - 1 : t + 1);  // after this thread's reads of its slots
     cluster_sync();  // the next h is complete in both CTAs; this step's reads are done
   }
   cp_async_wait_all();
 }
 
 template <int MT>
-int launch(const void* pre, const void* wfrag, const void* lens, void* out0, void* out1, int R,
-           int Tn, int H, cudaStream_t s) {
-  const int tiles = (R + 16 * MT - 1) / (16 * MT);
-  return launch_cluster(serve_scan_kernel<MT>, tiles, 2, 2 * H * MT, smem_bytes(MT, H), s,
-                        static_cast<const float*>(pre), static_cast<const float*>(wfrag),
-                        static_cast<const int*>(lens), static_cast<float*>(out0),
-                        static_cast<float*>(out1), R, Tn, H);
+int launch(const ScanArgs& a, int dirs, cudaStream_t s) {
+  const int tiles = (a.R + 16 * MT - 1) / (16 * MT);
+  return launch_cluster(serve_scan_kernel<MT>, tiles, dirs, 2 * a.H * MT, smem_bytes(MT, a.H), s,
+                        a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The serving scan. height: rows per tile, 16 or 32. pre:
-// [R, T, 2, 4H], P (the input product with the bias), read only. wfrag: W_hh in
-// fragment order, [2 d, 2 c, H / 8 ks, H / 16 w, 8 lg, 4 lt, 4 gate, 2 j],
-// element W_hh[d][8 ks + lt + 4 j][gate * H + c H / 2 + 8 w + lg] (unit group
-// w, lane 4 lg + lt). out0, out1: [R, T, H]. lens: [R] int32 or null. All
-// fp32, contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns
-// a cudaError_t code (0 = launched).
+// The serving scan over `dirs` (1 or 2) directions. height: rows per tile, 16
+// or 32. pre: P (the input product with the bias), read only; direction d's
+// gate column j at row-step (r, t) is pre[d * pre_dir + (r * T + t) * pre_step
+// + j]: (4H, 8H) for the pair's [R, T, 2, 4H], (R T 4H, 4H) for the stack's
+// [D, R, T, 4H]. wfrag: W_hh in fragment order, [dirs d, 2 c, H / 8 ks, H / 16
+// w, 8 lg, 4 lt, 4 gate, 2 j], element W_hh[d][8 ks + lt + 4 j][gate * H +
+// c H / 2 + 8 w + lg] (unit group w, lane 4 lg + lt). out0, out1: direction
+// 0's and 1's [R, T, H] (out1 unused with one direction). reverse1: direction
+// 1 scans t = T-1..0. lens: [R] int32 or null (only with reverse1). All fp32,
+// contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns a
+// cudaError_t code (0 = launched).
 int bilstm2_serve_scan(int height, const void* pre, const void* wfrag, const void* lens,
-                       void* out0, void* out1, int R, int Tn, int H, void* stream) {
-  if (H % 16 || H > 128 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                       void* out0, void* out1, long long pre_dir, int pre_step, int reverse1,
+                       int dirs, int R, int Tn, int H, void* stream) {
+  if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2 || (lens != nullptr && !reverse1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs a = {};
+  a.pre = static_cast<const float*>(pre);
+  a.wfrag = static_cast<const float*>(wfrag);
+  a.lens = static_cast<const int*>(lens);
+  a.out[0] = static_cast<float*>(out0);
+  a.out[1] = static_cast<float*>(out1);
+  a.pre_dir = pre_dir;
+  a.pre_step = pre_step;
+  a.reverse1 = reverse1;
+  a.R = R;
+  a.Tn = Tn;
+  a.H = H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (height) {
-    case 16: return launch<1>(pre, wfrag, lens, out0, out1, R, Tn, H, s);
-    case 32: return launch<2>(pre, wfrag, lens, out0, out1, R, Tn, H, s);
+    case 16: return launch<1>(a, dirs, s);
+    case 32: return launch<2>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,10 +1,13 @@
 // LSTM scan over D stacked directions, one input each, for Hopper (sm_90a):
-// the inference mode, the two training forwards, and the bidirectional mode
-// on one shared input.
+// the inference mode with bf16 streams, the cell-state training forward, and
+// the bidirectional mode on one shared input.
 //
 // Replaces the TPU kernel `_lstm_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:57,
-// launched by _pallas_core :231) in its h-only, `want_cs`, `want_resid` and
-// `reverse_dir1` modes. Per step and direction d, on that direction's own
+// launched by _pallas_core :231) in its h-only mode with bf16 streams, its
+// `want_cs` mode and its `reverse_dir1` mode. Its fp32 h-only and `want_resid`
+// modes, which BSS serving and training run, are the input product of
+// csrc/products.cu followed by the cluster scans of csrc/bilstm2_serve.cu and
+// csrc/bilstm2_resid.cu. Per step and direction d, on that direction's own
 // input x[d]:
 //   g = x_t @ W_ih[d] + h @ W_hh[d] + b[d]      (fp32 accumulator)
 //   i, f, o = sigmoid(g_i, g_f, g_o); gg = tanh(g_g)   (torch gate order i, f, g, o)
@@ -13,11 +16,8 @@
 // Every direction scans t = 0..T-1: a caller that wants a reversed direction
 // flips its input beforehand, as the TPU kernel's callers do. With D = 1 it is
 // the unidirectional inter-chunk scan of a causal DPRNN. Modes (compile-time):
-//   kModeH      h only, float or bf16 streams;
-//   kModeCs     + the fp32 cell state after every step (fp32 streams);
-//   kModeResid  + h and c before every step, tanh(c) after it and the gate
-//               pre-activations g, for the backward (csrc/lstm_bwd.cu, which
-//               recomputes no gate) (fp32 streams).
+//   kModeH      h only (bf16 streams; float with kShared);
+//   kModeCs     + the fp32 cell state after every step (fp32 streams).
 // kShared (h only, D = 2; `bilstm_pallas_fused` :171, the TPU kernel's
 // `reverse_dir1` with one input buffer): both directions read one x [R, T, F];
 // direction 1's step s reads x_{T-1-s} and writes its h at T-1-s, so both
@@ -56,26 +56,16 @@ constexpr int kMaxThreads = 256;
 
 constexpr int kModeH = 0;
 constexpr int kModeCs = 1;
-constexpr int kModeResid = 2;
-
-// The extra fp32 streams, each [D, R, T, H] but d: kModeCs writes a (c after
-// the step); kModeResid writes a (h before), b (c before), c (tanh(c) after)
-// and d ([D, R, T, 4H], the gate pre-activations).
-struct Streams {
-  float* a;
-  float* b;
-  float* c;
-  float* d;
-};
 
 // Grid (ceil(R / 16), D): blockIdx.y is the direction. Threads: 2H (8 row
 // groups x H/4 unit groups). x [D, R, T, F] (kShared: [R, T, F]) and out
-// [D, R, T, H] are contiguous in the stream type.
+// [D, R, T, H] are contiguous in the stream type; kModeCs writes the cell
+// state after every step to cs [D, R, T, H] (fp32).
 template <typename T, int kMode, bool kShared = false>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
             const float* __restrict__ w_hh, const float* __restrict__ b, T* __restrict__ out,
-            Streams st, int R, int Tn, int F, int H) {
+            float* __restrict__ cs, int R, int Tn, int F, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
   const int K = F + H;
@@ -165,16 +155,7 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
     for (int r = 0; r < kNR; ++r) {
       const int row = rg + 8 * r;
       const int gr = row0 + row;
-      if constexpr (kMode == kModeResid) {
-        if (gr < R) {  // h and c before the step, and its gate pre-activations
-          st4(at(st.a, gr, t) + u4, ld4(hs + row * hp + u4));
-          store4(at(st.b, gr, t) + u4, c[r]);
-          float* pg = st.d + ((drow0 + gr) * Tn + t) * G + u4;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) store4(pg + g * H, acc[g][r]);
-        }
-      }
-      float hv[4], tcv[4];
+      float hv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float ig = sigmoid_f(acc[0][r][j]);
@@ -182,14 +163,12 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         const float gg = tanhf(acc[2][r][j]);
         const float og = sigmoid_f(acc[3][r][j]);
         c[r][j] = fg * c[r][j] + ig * gg;
-        tcv[j] = tanhf(c[r][j]);
-        hv[j] = to_f(from_f<T>(og * tcv[j]));
+        hv[j] = to_f(from_f<T>(og * tanhf(c[r][j])));
       }
       store4(hs + row * hp + u4, hv);
       if (gr < R) {
         store4(at(out, gr, t) + u4, hv);
-        if constexpr (kMode == kModeCs) store4(at(st.a, gr, t) + u4, c[r]);
-        if constexpr (kMode == kModeResid) store4(at(st.c, gr, t) + u4, tcv);
+        if constexpr (kMode == kModeCs) store4(at(cs, gr, t) + u4, c[r]);
       }
     }
   }
@@ -198,7 +177,7 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
 
 template <typename T, int kMode, bool kShared = false>
 int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, void* out,
-           Streams st, int D, int R, int Tn, int F, int H, cudaStream_t stream) {
+           float* cs, int D, int R, int Tn, int F, int H, cudaStream_t stream) {
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(lstm_kernel<T, kMode, kShared>,
@@ -208,7 +187,7 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, voi
   dim3 grid((R + kRows - 1) / kRows, D);
   lstm_kernel<T, kMode, kShared><<<grid, 2 * H, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
-      static_cast<const float*>(b), static_cast<T*>(out), st, R, Tn, F, H);
+      static_cast<const float*>(b), static_cast<T*>(out), cs, R, Tn, F, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,27 +195,22 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, voi
 
 extern "C" {
 
-// dtype: 0 = float32 streams, 1 = bfloat16 streams (mode 0 only). mode: 0 = h
-// only, 1 = + cell states (s0), 2 = + residual streams (s0 = h before, s1 = c
-// before, s2 = tanh(c) after, s3 = the gate pre-activations). x: [D, R, T, F]
-// and out: [D, R, T, H], contiguous in the stream type; s0..s2: [D, R, T, H]
-// and s3: [D, R, T, 4H] fp32, or null; w_ih:
-// [D, F, 4H], w_hh: [D, H, 4H], b: [D, 4H], fp32. Every pointer 16-byte
-// aligned; F and H multiples of 16, H <= 128. Returns a cudaError_t code
-// (0 = launched).
+// dtype 1, mode 0: h only, bfloat16 streams. dtype 0 (float32 streams), mode
+// 1: h and the cell state after every step, cs [D, R, T, H] fp32 (null
+// otherwise). float32 h only and the residual mode run the cluster scans
+// (see the header) and are refused here. x: [D, R, T, F] and out:
+// [D, R, T, H], contiguous in the stream type; w_ih: [D, F, 4H], w_hh:
+// [D, H, 4H], b: [D, 4H], fp32. Every pointer 16-byte aligned; F and H
+// multiples of 16, H <= 128. Returns a cudaError_t code (0 = launched).
 int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const void* w_hh,
-                 const void* b, void* out, void* s0, void* s1, void* s2, void* s3, int D, int R,
-                 int Tn, int F, int H, void* stream) {
+                 const void* b, void* out, void* cs, int D, int R, int Tn, int F, int H,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Streams st = {static_cast<float*>(s0), static_cast<float*>(s1), static_cast<float*>(s2),
-                      static_cast<float*>(s3)};
   if (dtype == 1 && mode == kModeH)
-    return launch<__nv_bfloat16, kModeH>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == kModeH) return launch<float, kModeH>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
-  if (mode == kModeCs) return launch<float, kModeCs>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
-  if (mode == kModeResid)
-    return launch<float, kModeResid>(x, w_ih, w_hh, b, out, st, D, R, Tn, F, H, s);
+    return launch<__nv_bfloat16, kModeH>(x, w_ih, w_hh, b, out, nullptr, D, R, Tn, F, H, s);
+  if (dtype == 0 && mode == kModeCs)
+    return launch<float, kModeCs>(x, w_ih, w_hh, b, out, static_cast<float*>(cs), D, R, Tn, F,
+                                  H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -246,10 +220,10 @@ int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const voi
 int lstm_bidir_forward(int dtype, const void* x, const void* w_ih, const void* w_hh,
                        const void* b, void* out, int R, int Tn, int F, int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Streams none = {nullptr, nullptr, nullptr, nullptr};
-  if (dtype == 0) return launch<float, kModeH, true>(x, w_ih, w_hh, b, out, none, 2, R, Tn, F, H, s);
+  if (dtype == 0)
+    return launch<float, kModeH, true>(x, w_ih, w_hh, b, out, nullptr, 2, R, Tn, F, H, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kModeH, true>(x, w_ih, w_hh, b, out, none, 2, R, Tn, F, H, s);
+    return launch<__nv_bfloat16, kModeH, true>(x, w_ih, w_hh, b, out, nullptr, 2, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

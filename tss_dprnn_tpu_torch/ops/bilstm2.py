@@ -47,8 +47,11 @@ dpre, then the product kernel gives dx and the per-split partials of dW (a
 column-sum kernel those of db), which are summed here in a fixed order. The
 three recurrent scans run as 2-CTA thread-block clusters, one per
 (direction, row tile), each CTA holding half of W_hh in shared memory for
-the whole scan; :func:`plan_tiles` picks the tile height. The sources'
-headers give the details.
+the whole scan; :func:`plan_tiles` picks the tile height. The serving and
+training forward scans find a direction's gates in P through a stride pair
+and reverse direction 1 only when told, so ``ops/lstm.py`` runs its D
+stacked directions (each in forward time, P [D, R, T, 4H]) through the same
+two kernels. The sources' headers give the details.
 
 The products run on the tensor cores in 3xTF32 (``csrc/products.cu``): each
 fp32 operand is split into two TF32 parts and three TF32 products are summed
@@ -590,8 +593,8 @@ def _max_clusters(which: str, H: int, device: int) -> int:
     return n.value
 
 
-def _plan(which: str, R: int, H: int, device: torch.device) -> TilePlan:
-    return plan_tiles(R, _max_clusters(which, H, device.index),
+def _plan(which: str, R: int, H: int, device: torch.device, dirs: int = 2) -> TilePlan:
+    return plan_tiles(R, _max_clusters(which, H, device.index), dirs=dirs,
                       heights=SERVE_HEIGHTS if which == "serve" else TILE_HEIGHTS)
 
 
@@ -637,22 +640,23 @@ def _colsum(lib, stream, a: torch.Tensor, a_off: int, lda: int, K: int, N: int) 
     return partial.sum(0)
 
 
-def resid_weight_layout(w_hh2: torch.Tensor) -> torch.Tensor:
-    """W_hh [2, H, 4H] as the training forward's scan reads it: [2 d, 2 c,
-    H k, 4 gates, H/2 units], CTA (d, c)'s slice (the gate columns of hidden
-    units [c H/2, (c + 1) H/2)) contiguous."""
-    H = w_hh2.shape[1]
-    return w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 1, 2, 4).contiguous()
+def resid_weight_layout(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh [D, H, 4H] (the pair's D = 2, or D stacked directions) as the
+    training forward's scan reads it: [D d, 2 c, H k, 4 gates, H/2 units],
+    CTA (d, c)'s slice (the gate columns of hidden units [c H/2,
+    (c + 1) H/2)) contiguous."""
+    D, H = w_hh.shape[:2]
+    return w_hh.view(D, H, 4, 2, H // 2).permute(0, 3, 1, 2, 4).contiguous()
 
 
-def serve_weight_layout(w_hh2: torch.Tensor) -> torch.Tensor:
-    """W_hh [2, H, 4H] as the serving scan reads it, in mma fragment order:
-    [2 d, 2 c, H/8 k-steps, H/16 unit groups, 8 lg, 4 lt, 4 gates, 2 j], the
+def serve_weight_layout(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh [D, H, 4H] as the serving scan reads it, in mma fragment order:
+    [D d, 2 c, H/8 k-steps, H/16 unit groups, 8 lg, 4 lt, 4 gates, 2 j], the
     element W_hh[d][8 ks + lt + 4 j][gate * H + c H/2 + 8 w + lg] (CTA c's
     unit group w is units c H/2 + 8 w .. + 8; lane 4 lg + lt's B fragment of
     gate g at k-step ks is its two j values)."""
-    H = w_hh2.shape[1]
-    w = w_hh2.reshape(2, H // 8, 2, 4, 4, 2, H // 16, 8)  # d, ks, j, lt, gate, c, w, lg
+    D, H = w_hh.shape[:2]
+    w = w_hh.reshape(D, H // 8, 2, 4, 4, 2, H // 16, 8)  # d, ks, j, lt, gate, c, w, lg
     return w.permute(0, 5, 1, 6, 7, 3, 4, 2).contiguous()
 
 
@@ -686,9 +690,12 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _input_product(products, stream, x, w_ih2, b2, pre)
+            # [B, T, 2, 4H]: a direction's gates 4H on, a row-step's 8H on;
+            # direction 1 reversed
             rc = lib.bilstm2_resid_scan(plan.height, pre.data_ptr(), w_split.data_ptr(),
                                         _ptr(lens), out0.data_ptr(), out1.data_ptr(),
-                                        *(t.data_ptr() for t in streams), B, T, H, stream)
+                                        *(t.data_ptr() for t in streams), 4 * H, 8 * H, 1, 2,
+                                        B, T, H, stream)
         _raise_on(rc, "bilstm2 resid scan kernel", lib, "bilstm2_resid_error_string")
         entry.launches += 1
     return (out0, out1), streams + (pre,)
@@ -715,8 +722,8 @@ def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _input_product(products, stream, x, w_ih2, b2, pre)
             rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_frag.data_ptr(),
-                                        _ptr(lens), out0.data_ptr(), out1.data_ptr(), B, T, H,
-                                        stream)
+                                        _ptr(lens), out0.data_ptr(), out1.data_ptr(), 4 * H,
+                                        8 * H, 1, 2, B, T, H, stream)
         _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_serve_error_string")
         entry.launches += 1
     return out0, out1
@@ -820,7 +827,7 @@ def _library_resid() -> ctypes.CDLL:
     """Build (at first use) and load the training forward's scan."""
     lib = _build.load_library("bilstm2_resid")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_resid_scan.argtypes = [i] + [p] * 11 + [i, i, i, p]
+    lib.bilstm2_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.bilstm2_resid_scan.restype = i
     lib.bilstm2_resid_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_resid_max_clusters.restype = i
@@ -834,7 +841,7 @@ def _library_serve() -> ctypes.CDLL:
     """Build (at first use) and load the serving scan."""
     lib = _build.load_library("bilstm2_serve")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_serve_scan.argtypes = [i] + [p] * 5 + [i, i, i, p]
+    lib.bilstm2_serve_scan.argtypes = [i] + [p] * 5 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.bilstm2_serve_scan.restype = i
     lib.bilstm2_serve_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_serve_max_clusters.restype = i

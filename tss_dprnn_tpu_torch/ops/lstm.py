@@ -3,16 +3,20 @@ wrappers and plain versions (counterpart of the ``_lstm_kernel``,
 ``_lstm_manual_kernel`` and ``_lstm_bwd_kernel`` sections of
 ``tss_dprnn_tpu/ops/pallas_lstm.py:57-465, 498-669``).
 
-Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its h-only,
-``want_cs``, ``want_resid`` and ``reverse_dir1`` modes with ``csrc/lstm.cu``,
-``_lstm_manual_kernel`` (pallas_lstm.py:275) with ``csrc/lstm_v2.cu``, and
-``_lstm_bwd_kernel`` (pallas_lstm.py:498) with ``csrc/lstm_bwd.cu``, CUDA C++
-for ``sm_90a``. D directions run in one launch, each on its own input and
-each in forward time: a caller that wants a reversed direction flips its
-input, as the JAX entries' callers do. With D = 1 this is the unidirectional
-inter-chunk scan of a causal DPRNN (``bidirectional: false``). Argument order
-is the JAX entries'; the layout is the port's own, batch-major with no time
-or row padding::
+Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its fp32
+h-only and ``want_resid`` modes with the input product of
+``csrc/products.cu`` followed by the cluster scans of
+``csrc/bilstm2_serve.cu`` and ``csrc/bilstm2_resid.cu`` (the fused
+bidirectional LSTM's, which take D stacked directions too), in its h-only
+mode with bf16 streams and its ``want_cs`` and ``reverse_dir1`` modes with
+``csrc/lstm.cu``, ``_lstm_manual_kernel`` (pallas_lstm.py:275) with
+``csrc/lstm_v2.cu``, and ``_lstm_bwd_kernel`` (pallas_lstm.py:498) with
+``csrc/lstm_bwd.cu``, CUDA C++ for ``sm_90a``. D directions run in one
+launch, each on its own input and each in forward time: a caller that wants
+a reversed direction flips its input, as the JAX entries' callers do. With
+D = 1 this is the unidirectional inter-chunk scan of a causal DPRNN
+(``bidirectional: false``). Argument order is the JAX entries'; the layout
+is the port's own, batch-major with no time or row padding::
 
     lstm_forward(x [D, R, T, F], w_ih [D, F, 4H], b [D, 4H], w_hh [D, H, 4H])
         -> h [D, R, T, H]
@@ -35,17 +39,26 @@ consumer masks them (the DPRNN block's masked norm does, and its zero
 cotangent there keeps the backward exact).
 
 What bounds the kernels on the H100: the arithmetic, 2 (F + H) 4H FLOP per
-row-step and direction forward and twice that backward. The forward is the
-fused bidirectional kernel's design (``csrc/bilstm2.cu``) with a direction
-per grid row and 16-row tiles (with few rows and D = 1, 32-row tiles would
-leave most SMs without a block). The backward splits the work in two: the
-scan of ``csrc/lstm_bwd.cu`` (2-CTA clusters holding W_hh^T in shared memory,
-the tile height from :func:`plan_tiles`) turns the saved pre-activations and
-the carried dh/dc into dpre, then the 3xTF32 product and column-sum kernels
-of ``csrc/products.cu`` give dx (per direction) and the fixed partials of dW
-and db, summed here in a fixed order (no atomics: a run repeats itself bit
-for bit). As in ``ops/bilstm2.py``, the wrappers zero-pad F and H to
-multiples of 16 (``bilstm2.padded``, ``bilstm2.padded_backward``) and cut
+row-step and direction forward and twice that backward. The fp32 forwards
+split the work by what is sequential, as the fused pair's do
+(``ops/bilstm2.py``): per direction one launch of the 3xTF32 product kernel
+computes the input half of every gate at once, P[d] = x[d] @ W_ih[d] + b[d]
+into a [D, R, T, 4H] buffer, then one launch of a recurrent scan over all D
+directions (2-CTA clusters, each CTA holding half of W_hh[d] in shared
+memory for the whole scan, the tile height from :func:`plan_tiles`) adds
+h @ W_hh step by step: the serving scan (on the tensor cores in 3xTF32)
+reads P and writes only h; the training forward's scan writes the full gate
+pre-activations back into the buffer, which is the saved ``pre``, and the
+other residual streams. The bf16 and ``want_cs`` modes keep the first
+design (``csrc/lstm.cu``): 16-row tiles, W = [W_ih; W_hh] streamed from L2
+every step. The backward splits the work in two: the scan of
+``csrc/lstm_bwd.cu`` (2-CTA clusters holding W_hh^T in shared memory) turns
+the saved pre-activations and the carried dh/dc into dpre, then the 3xTF32
+product and column-sum kernels of ``csrc/products.cu`` give dx (per
+direction) and the fixed partials of dW and db, summed here in a fixed
+order (no atomics: a run repeats itself bit for bit). The cluster scans take
+D <= 2 on the card. As in ``ops/bilstm2.py``, the wrappers zero-pad F and H
+to multiples of 16 (``bilstm2.padded``, ``bilstm2.padded_backward``) and cut
 the pad off what they return.
 
 On a CPU tensor each entry runs its plain PyTorch version
@@ -75,11 +88,16 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _gates,
     _gemm,
     _library_products,
+    _library_resid,
+    _library_serve,
+    _plan,
     _raise_on,
     _row_sum,
     padded,
     padded_backward,
     plan_tiles,
+    resid_weight_layout,
+    serve_weight_layout,
 )
 
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -275,7 +293,11 @@ def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tens
             w_hh: torch.Tensor):
     """Check what the kernel takes, allocate the outputs and launch on the
     current stream; a launch adds one to ``entry.launches``. Returns
-    (h, streams)."""
+    (h, streams). fp32 streams in the h-only and residual modes run the
+    product and cluster scan (:func:`_launch_scan`); bf16 streams and the
+    cell-state mode ``csrc/lstm.cu``."""
+    if x.dtype == torch.float32 and mode != _MODE_CS:
+        return _launch_scan(entry, mode, x, w_ih, b, w_hh)
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=mode != _MODE_H)
     D, R, T, F = x.shape
     H = w_hh.shape[1]
@@ -284,15 +306,69 @@ def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tens
                     for n in _STREAM_WIDTHS[mode])
     if D and R and T:
         lib = _library()
-        ptrs = [s.data_ptr() for s in streams] + [None] * (4 - len(streams))
         with torch.cuda.device(x.device):
             rc = lib.lstm_forward(
                 _DTYPE_CODES[x.dtype], mode, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
-                b.data_ptr(), out.data_ptr(), *ptrs, D, R, T, F, H,
-                torch.cuda.current_stream(x.device).cuda_stream)
+                b.data_ptr(), out.data_ptr(), streams[0].data_ptr() if streams else None,
+                D, R, T, F, H, torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(rc, "lstm kernel", lib, "lstm_error_string")
         entry.launches += 1
     return out, streams
+
+
+def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+                 w_hh: torch.Tensor):
+    """The fp32 h-only and residual modes on the current stream: per
+    direction d one launch of the product kernel, P[d] = x[d] @ W_ih[d] + b[d]
+    into pre [D, R, T, 4H], then one launch of a cluster scan over the D
+    directions, each in forward time: the serving scan (h only: it reads P
+    and writes h) or the training forward's (it overwrites pre with the gate
+    pre-activations and writes h and the residual streams). One call adds
+    one to ``entry.launches`` (and D to the product kernel's). Returns
+    (h, streams) as :func:`_launch`."""
+    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=True)
+    D, R, T, F = x.shape
+    H = w_hh.shape[1]
+    G, M = 4 * H, R * T
+    resid = mode == _MODE_RESID
+    out = torch.empty(D, R, T, H, dtype=torch.float32, device=x.device)
+    hcs = tuple(torch.empty_like(out) for _ in range(3)) if resid else ()  # hp, cp, tc
+    pre = torch.empty(D, R, T, G, dtype=torch.float32, device=x.device)
+    if D * M == 0:
+        return out, hcs + (pre,) if resid else ()
+    if D > 2:
+        raise ValueError(f"lstm cluster scans take D <= 2 directions, got {D}")
+    # a direction's slices are passed as pointers: each must be 16-byte aligned
+    named = {"x": x, "w_ih": w_ih, "b": b, "pre": pre, "out": out,
+             **dict(zip(("hp", "cp", "tc"), hcs))}
+    _check_aligned(**{f"{n}[{d}]": t[d] for n, t in named.items() for d in range(D)})
+
+    def per_dir(t):  # direction 0's and 1's; with D = 1 the kernel reads only the first
+        return [t[min(d, D - 1)].data_ptr() for d in range(2)]
+
+    which = "resid" if resid else "serve"
+    plan = _plan(which, R, H, x.device, dirs=D)
+    w_res = resid_weight_layout(w_hh) if resid else serve_weight_layout(w_hh)
+    products = _library_products()
+    lib = _library_resid() if resid else _library_serve()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for d in range(D):
+            _gemm(products, stream, False, [(x, d * M * F, F, w_ih, d * F * G, G, F)], M, G,
+                  out=pre, out_off=d * M * G, ldc=G, bias=b[d])
+        # [D, R, T, 4H]: a direction's gates R T 4H on, a row-step's 4H on; no
+        # direction reversed, no lengths
+        layout = (M * G, G, 0, D, R, T, H, stream)
+        if resid:
+            streams = [t[min(d, D - 1)].data_ptr() for d in range(2) for t in hcs]
+            rc = lib.bilstm2_resid_scan(plan.height, pre.data_ptr(), w_res.data_ptr(), None,
+                                        *per_dir(out), *streams, *layout)
+        else:
+            rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_res.data_ptr(), None,
+                                        *per_dir(out), *layout)
+    _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{which}_error_string")
+    entry.launches += 1
+    return out, hcs + (pre,) if resid else ()
 
 
 def _launch_shared(entry, v2: bool, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -417,7 +493,7 @@ def _library() -> ctypes.CDLL:
     signatures set once."""
     lib = _build.load_library("lstm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_forward.argtypes = [i, i] + [p] * 9 + [i] * 5 + [p]
+    lib.lstm_forward.argtypes = [i, i] + [p] * 6 + [i] * 5 + [p]
     lib.lstm_forward.restype = i
     lib.lstm_bidir_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
     lib.lstm_bidir_forward.restype = i
