@@ -320,24 +320,32 @@ def test_bss_inferencer_reorders_permuted_estimates(tmp_path):
     noise = 0.01 * np.random.default_rng(0).standard_normal(batch["sources"].shape)
     swapped = torch.from_numpy((batch["sources"][:, ::-1] + noise).astype(np.float32))
     inf.forward = lambda b: swapped
-    rows = inf._batch_rows(batch)
+    rows, _ = inf._batch_rows(batch)
     assert [r["index"] for r in rows] == [0, 1]
     assert all(r["si_sdr"] > 30.0 and r["input_si_sdr"] < 5.0 for r in rows)
 
 
-@pytest.mark.parametrize("metrics", [["si_sdr", "stoi"], ["pesq"]])
+@pytest.mark.parametrize("metrics", [["si_sdr", "sisnr"], ["pesq"]])
 def test_bss_inferencer_rejects_unported_metrics(tmp_path, metrics):
+    """As the TSS test: an unknown metric, then PESQ on the device."""
+    config = {"checkpoint_path": str(tmp_path / "x"), "metrics": metrics,
+              "device_pesq": metrics == ["pesq"]}
     with pytest.raises(NotImplementedError, match="not ported"):
-        Inferencer(DPRNNTasNet(**TINY), {"checkpoint_path": str(tmp_path / "x"),
-                                         "metrics": metrics}, device="cpu")
+        Inferencer(DPRNNTasNet(**TINY), config, device="cpu")
 
 
 def test_bss_inferencer_default_metrics_raise_until_ported(tmp_path):
+    """Since STOI and PESQ are ported the JAX default runs: every row has
+    the three metrics and their inputs, each STOI in [0, 1]."""
     path = tmp_path / "model.pt"
     torch.save(init_weights_(DPRNNTasNet(**TINY), torch.Generator().manual_seed(0))
                .state_dict(), path)
-    with pytest.raises(NotImplementedError, match=r"not ported.*stoi.*pesq"):
-        Inferencer(DPRNNTasNet(**TINY), {"checkpoint_path": str(path)}, device="cpu")
+    inf = Inferencer(DPRNNTasNet(**TINY), {"checkpoint_path": str(path),
+                                           "test_savedir": str(tmp_path / "m")}, device="cpu")
+    final = inf.run(_Mixtures(3, [6000, 5000]), batch_size=2, n_buckets=1)
+    assert sorted(final) == ["pesq", "pesq_imp", "si_sdr", "si_sdr_imp", "stoi", "stoi_imp"]
+    assert all(np.isfinite(v) for v in final.values())
+    assert 0.0 <= final["stoi"] <= 1.0
 
 
 # ------------------------------------------------------------------ trainer

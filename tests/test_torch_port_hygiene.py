@@ -1,5 +1,7 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package, and no port source (nor chip_smoke.py) has such an import."""
+package, nor a package the card's machine lacks (pandas, yaml, wandb,
+orbax), and no port source (nor chip_smoke.py, chip_profile.py or the port's
+bench script) has such an import."""
 
 import ast
 import pathlib
@@ -10,11 +12,12 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "tss_dprnn_tpu_torch"
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "tss_dprnn_tpu")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "tss_dprnn_tpu", "orbax", "pandas", "yaml", "wandb")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
+                                         ROOT / "scripts" / "port" / "bench_serve.py"]
 
 
 def test_importing_the_port_loads_no_jax():

@@ -106,18 +106,23 @@ def test_inferencer_needs_card_unless_cpu_is_asked(checkpoint):
                                                 "metrics": ["si_sdr"]})
 
 
-@pytest.mark.parametrize("metrics", [["si_sdr", "stoi"], ["pesq"]])
+@pytest.mark.parametrize("metrics", [["si_sdr", "sisnr"], ["pesq"]])
 def test_inferencer_rejects_unported_metrics(checkpoint, metrics):
+    """A metric outside si_sdr / stoi / pesq raises; so does PESQ asked for
+    on the device (``device_pesq``, the second case)."""
+    config = {"checkpoint_path": str(checkpoint), "metrics": metrics,
+              "device_pesq": metrics == ["pesq"]}
     with pytest.raises(NotImplementedError, match="not ported"):
-        InferencerSpe(DPRNNSpeTasNet(**SMALL),
-                      {"checkpoint_path": str(checkpoint), "metrics": metrics}, device="cpu")
+        InferencerSpe(DPRNNSpeTasNet(**SMALL), config, device="cpu")
 
 
 def test_inferencer_default_metrics_raise_until_ported(checkpoint):
-    """A config without ``metrics`` asks for the JAX default, whose STOI and
-    PESQ the port has not ported yet: it raises and names both."""
-    with pytest.raises(NotImplementedError, match=r"not ported.*stoi.*pesq"):
-        InferencerSpe(DPRNNSpeTasNet(**SMALL), {"checkpoint_path": str(checkpoint)}, device="cpu")
+    """A config without ``metrics`` asks for the JAX default; since STOI and
+    PESQ are ported it no longer raises, and the two run on the host."""
+    inf = InferencerSpe(DPRNNSpeTasNet(**SMALL), {"checkpoint_path": str(checkpoint)},
+                        device="cpu")
+    assert inf.metrics == ["si_sdr", "stoi", "pesq"]
+    assert inf.host_metrics == ["stoi", "pesq"]
 
 
 def test_inferencer_default_metrics_equal_jax():

@@ -22,7 +22,11 @@ cell-state mode on ``csrc/lstm.cu``, the backward ``csrc/lstm_bwd.cu``),
 and the opt-in and test-only
 scans (``csrc/bilstm2_bm.cu``, ``csrc/lstm_v2.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``
-(see :func:`tss_dprnn_tpu_torch.device.resolve_device`).
+(see :func:`tss_dprnn_tpu_torch.device.resolve_device`). The command-line
+entry points (``cli.generate_manifests``, ``cli.train``, ``cli.test``, each
+with ``--device``) take the shipped YAML configs and LibriMix data
+(``data/``: WAV I/O, frozen manifests, the datasets) and score STOI and PESQ
+on the host (``ops/metrics.py``, ``ops/pesq.py``).
 """
 
 __version__ = "0.1.0"

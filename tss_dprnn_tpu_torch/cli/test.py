@@ -1,0 +1,79 @@
+"""Full-test-set evaluation entry point (counterpart of
+``tss_dprnn_tpu/cli/test.py``).
+
+    python -m tss_dprnn_tpu_torch.cli.test --config configs/test_tss.yaml \
+        --mode tss_spe [--set checkpoint_path=model.pt ...] [--device cpu]
+
+Runs on the card unless ``--device`` names another device. The checkpoint is
+a port or reference ``.pt`` file; the JAX package's orbax directories raise.
+Results go to the log, ``all_metrics.csv`` and ``final_metrics.json`` in
+``test_savedir`` (there is no reporter yet: ROADMAP §1 item 11).
+``--data-parallel`` other than 1 and ``--device-pesq`` raise until they are
+ported; ``--device-metrics`` is accepted (SI-SDR runs on the card already),
+and so is a config's ``lstm_backend`` (the port has one backend).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from tss_dprnn_tpu_torch.cli.common import (MODES, dataset_for, get_logger,
+                                            inference_components)
+from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.models.registry import build_model
+from tss_dprnn_tpu_torch.utils.config import load_config, model_config
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="tss_dprnn_tpu_torch evaluation")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--mode", default="bss", choices=MODES)
+    parser.add_argument("--set", action="extend", nargs="*", default=[])
+    parser.add_argument("--batch-size", type=int, default=None,
+                        help="eval batch size (default 8; 16 with --device-metrics, as in "
+                             "the JAX package)")
+    parser.add_argument("--n-buckets", type=int, default=8)
+    parser.add_argument("--data-parallel", type=int, default=1, metavar="N",
+                        help="only 1: data-parallel eval is not ported yet (ROADMAP §1 "
+                             "item 12)")
+    parser.add_argument("--device-metrics", action="store_true",
+                        help="accepted: SI-SDR and the PIT reorder run on the card always; "
+                             "STOI and PESQ run on the host")
+    parser.add_argument("--device-pesq", action="store_true",
+                        help="not ported yet (raises): PESQ runs on the host")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the current CUDA card; 'cpu' runs the "
+                             "kernels' plain versions)")
+    args = parser.parse_args(argv)
+    if args.data_parallel != 1:
+        raise NotImplementedError(f"--data-parallel {args.data_parallel}: data-parallel eval "
+                                  "is not ported yet (ROADMAP §1 item 12)")
+
+    logger = get_logger("test")
+    config = load_config(args.config, args.set)
+    config.setdefault("is_test", True)
+    if args.device_metrics:
+        config["device_metrics"] = True
+    if args.device_pesq:
+        config["device_pesq"] = True
+    if args.batch_size is None:
+        args.batch_size = 16 if config.get("device_metrics") else 8
+    if config.get("lstm_backend") is not None:
+        logger.info("lstm_backend %r ignored: the port runs its own kernels",
+                    config["lstm_backend"])
+    spe, InferencerClass = inference_components(args.mode)
+    device = resolve_device(args.device)
+
+    logger.info("Initializing test set....")
+    test_set = dataset_for(config, "test", spe)
+    logger.info("test set len: %d", len(test_set))
+
+    model = build_model(model_config(config))
+    inferencer = InferencerClass(model, config, device=device)
+    final = inferencer.run(test_set, batch_size=args.batch_size, n_buckets=args.n_buckets)
+    logger.info("FINAL: %s", final)
+    return final
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,76 @@
+"""Training entry point (counterpart of ``tss_dprnn_tpu/cli/train.py``).
+
+    python -m tss_dprnn_tpu_torch.cli.train --config configs/train_tss.yaml \
+        --mode tss_spe [--set data.batch_size=8 optimizer.lr=5e-4 ...] [--device cpu]
+
+Fixed crops through ``TrainLoader``, then ``Trainer`` / ``TrainerSpe.run``,
+on the card unless ``--device`` names another device. The model's weights
+are drawn from the config's ``seed``. Not ported yet, and raising:
+``data.variable_length`` (ROADMAP §1 item 9), the trainer knobs that
+``training/trainer.py`` refuses, and eval mixtures for the reporter
+(``logs.metadata.ids``; set it to ``[]``), since there is no reporter yet
+(ROADMAP §1 item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from tss_dprnn_tpu_torch.cli.common import (MODES, dataset_for, eval_mixtures_from, get_logger,
+                                            train_components)
+from tss_dprnn_tpu_torch.data.loader import TrainLoader
+from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.models.registry import build_model
+from tss_dprnn_tpu_torch.utils.config import load_config, model_config
+from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="tss_dprnn_tpu_torch training")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--mode", default="bss", choices=MODES)
+    parser.add_argument("--set", action="extend", nargs="*", default=[],
+                        help="dotted config overrides (repeatable)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the current CUDA card; 'cpu' runs the "
+                             "kernels' plain versions)")
+    args = parser.parse_args(argv)
+
+    logger = get_logger("train")
+    config = load_config(args.config, args.set)
+    spe, collate_fn, TrainerClass = train_components(args.mode)
+    data_cfg = config["data"]
+    if data_cfg.get("variable_length"):
+        raise NotImplementedError("data.variable_length: variable-length training is not "
+                                  "ported yet (ROADMAP §1 item 9)")
+    device = resolve_device(args.device)
+
+    logger.info("RUN %s", config.get("name"))
+    logger.info("Initializing Datasets and Dataloaders....")
+    train_set = dataset_for(config, "train", spe)
+    eval_set = dataset_for(config, "eval", spe)
+    batch_size, seed = data_cfg.get("batch_size", 5), data_cfg.get("seed", 0)
+    train_loader = TrainLoader(train_set, batch_size, collate_fn, shuffle=True,
+                               drop_last=True, seed=seed)
+    eval_loader = TrainLoader(eval_set, batch_size, collate_fn, shuffle=False,
+                              drop_last=True, seed=seed)
+    logger.info("train dataloader len: %d", len(train_loader))
+    logger.info("eval dataloader len: %d", len(eval_loader))
+    eval_mixtures = eval_mixtures_from(config, eval_set, spe, logger)
+
+    logger.info("Initializing model....")
+    model = init_weights_(build_model(model_config(config)),
+                          torch.Generator().manual_seed(int(config.get("seed", 0))))
+
+    logger.info("Initializing trainer....")
+    trainer = TrainerClass(model, config, device=device, logger=logger,
+                           eval_mixtures=eval_mixtures)
+    logger.info("Initiating trainer run...")
+    trainer.run(train_loader, eval_loader, config.get("epochs", 10), config.get("early_stop", 10))
+    logger.info("trainer run COMPLETED")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,8 @@ Batches are dicts of numpy arrays; one process.
 Dataset protocol: ``ds[i] -> (mix, target, reference, spk_idx)`` for target
 speech separation and ``ds[i] -> (mix, sources [n_src, T])`` for blind source
 separation; for the bucketed loader also ``ds.lengths()`` (mixture sample
-counts).
+counts). A dataset with ``items_batch(indices)`` (``data/librimix.py``)
+decodes a whole batch in one call, as in the JAX loader.
 """
 
 from __future__ import annotations
@@ -25,6 +26,16 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 Batch = Dict[str, np.ndarray]
+
+
+def _get_items(dataset, indices) -> List:
+    """A batch's items: one batched decode when the dataset has
+    ``items_batch`` (the LibriMix datasets, through the native decoder), else
+    ``dataset[i]`` item by item."""
+    get_batch = getattr(dataset, "items_batch", None)
+    if get_batch is not None:
+        return get_batch([int(i) for i in indices])
+    return [dataset[int(i)] for i in indices]
 
 
 def _pad_to(x: np.ndarray, T: int) -> np.ndarray:
@@ -143,7 +154,7 @@ class TrainLoader:
     def peek(self) -> Batch:
         """This epoch's first batch, without advancing the epoch or starting
         the prefetch thread."""
-        return self.collate_fn([self.dataset[int(i)] for i in self._index_batches()[0]])
+        return self.collate_fn(_get_items(self.dataset, self._index_batches()[0]))
 
     def __iter__(self) -> Iterator[Batch]:
         batches = self._index_batches()
@@ -151,7 +162,7 @@ class TrainLoader:
 
         def make_items():
             for b in batches:
-                yield self.collate_fn([self.dataset[int(i)] for i in b])
+                yield self.collate_fn(_get_items(self.dataset, b))
 
         if self.prefetch <= 0:
             yield from make_items()
@@ -232,7 +243,7 @@ class BucketedEvalLoader:
 
     def __iter__(self) -> Iterator[Batch]:
         for bucket_T, chunk in self.batch_plan():
-            batch = self.collate_fn([self.dataset[i] for i in chunk], bucket_T)
+            batch = self.collate_fn(_get_items(self.dataset, chunk), bucket_T)
             batch["lengths"] = self.lengths[chunk].astype(np.int32)
             batch["indices"] = np.asarray(chunk, np.int32)
             yield batch

@@ -1,12 +1,12 @@
 """Target-speech-separation inferencer
 (counterpart of ``tss_dprnn_tpu/inference/inferencer_spe.py``): the forward
 takes the reference waveform and its length; metrics are single-source
-(target vs estimate), computed on the device as in the JAX package's
-device-metrics lane (inferencer_spe.py:30-42)."""
+(target vs estimate): SI-SDR on the device as in the JAX package's
+device-metrics lane (inferencer_spe.py:30-42), STOI and PESQ on the host."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Dict
 
 import numpy as np
 import torch
@@ -27,11 +27,16 @@ class InferencerSpe(Inferencer):
         est, _ = self.model(t["mix"], t["reference"], t["ref_len"], lengths=t["lengths"])
         return est
 
-    def _batch_rows(self, batch: Dict[str, np.ndarray]) -> List[Dict[str, Any]]:
+    def _batch_rows(self, batch: Dict[str, np.ndarray]):
         est = self.forward(batch)
         t = self._to_device(batch, ("mix", "target", "lengths"))
-        si_sdr = masked_si_sdr(est, t["target"], t["lengths"]).cpu().numpy()
-        input_si_sdr = masked_si_sdr(t["mix"], t["target"], t["lengths"]).cpu().numpy()
-        return [{"index": int(i), "si_sdr": float(si_sdr[b]),
-                 "input_si_sdr": float(input_si_sdr[b])}
-                for b, i in enumerate(batch["indices"])]
+        rows = [{"index": int(i)} for i in batch["indices"]]
+        if "si_sdr" in self.metrics:
+            si_sdr = masked_si_sdr(est, t["target"], t["lengths"]).cpu().numpy()
+            input_si_sdr = masked_si_sdr(t["mix"], t["target"], t["lengths"]).cpu().numpy()
+            for b, row in enumerate(rows):
+                row.update(si_sdr=float(si_sdr[b]), input_si_sdr=float(input_si_sdr[b]))
+        return rows, (est.cpu().numpy() if self.host_metrics else None)
+
+    def _host_targets(self, batch: Dict[str, np.ndarray], b: int) -> np.ndarray:
+        return batch["target"][b]

@@ -40,7 +40,13 @@ class CheckpointManager:
 def load_model(path: str, model: torch.nn.Module) -> Dict[str, Any]:
     """Load a checkpoint's weights into ``model`` (strict: a mismatch
     raises) and return the whole checkpoint as ``{"model": state_dict,
-    ...}``: the trainer's layout as it is, a bare state_dict wrapped."""
+    ...}``: the trainer's layout as it is, a bare state_dict wrapped. A
+    directory (the JAX package's orbax checkpoints) raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package?): the port loads "
+            "torch .pt files; convert it on a machine with JAX with export_state_dict of the "
+            "JAX package's utils/torch_export.py and torch.save the state_dict")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict)):
         ckpt = {"model": ckpt}
