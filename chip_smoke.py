@@ -96,19 +96,40 @@ Phases, each of which fails the script (nonzero exit, no result line):
    and 10 eval mixtures of 3-5 s, 12 test mixtures of 2-10 s, written with
    the port's data/wav.py), its manifests frozen by cli.generate_manifests
    from YAML read by the port's reader; cli.train on configs/train_tss.yaml
-   as shipped (full flagship width) for 2 epochs (12 residual-forward + 12
-   backward launches per train step, 12 inference launches per eval step,
-   finite epoch losses, 2_last and a *_best); cli.test on
+   (full flagship width) for 2 epochs with in-range eval mixtures
+   (``logs.metadata.ids`` CLI_IDS; the shipped ids reach 2899, past the
+   synthetic eval split) and no other override of the logs section (12
+   residual-forward + 12 backward launches per train step, 12 inference
+   launches per eval step and per eval mixture after each new best
+   checkpoint, finite epoch losses, 2_last and a *_best, the reporter's
+   'train', 'eval' and 'inference_spe' lines); cli.test on
    configs/test_tss.yaml as shipped (metrics si_sdr, stoi, pesq) with that
-   checkpoint (6 unmasked + 6 masked launches per batch, each after its
-   input product, and no other kernel; final_metrics.json with the six keys,
-   finite), its rows against a direct InferencerSpe.run with the metric pool
-   off (CLI_ROW_TOL) and, on the 3 shortest mixtures, the host metrics
-   against the port's CPU run (CPU_ROW_TOL); the wall times of the test CLI
-   with the triple and with si_sdr alone, and the share the host metrics
-   add with the pool and without; cli.test --mode bss on
-   configs/test_bss.yaml as shipped, with a seeded DPRNN-TasNet (6 + 6
-   launches per batch, finite metrics).
+   checkpoint, on the host lane, with --device-metrics and with
+   --device-pesq (6 unmasked + 6 masked launches per batch, each after its
+   input product, and no other kernel; final_metrics.json with the six
+   keys, finite; the estimate copied to the host and the metric pool
+   started only for a host metric), the host lane's rows against a direct
+   InferencerSpe.run with the metric pool off (CLI_ROW_TOL) and, on the 3
+   shortest mixtures, against the port's CPU run (CPU_ROW_TOL), the device
+   lanes' rows against the host lane's (LANE_TOL); the wall times of the
+   test CLI with si_sdr alone and with each lane (each device lane twice:
+   its first run pays its one-time set-up), and the share the metrics add; cli.test --mode bss on configs/test_bss.yaml as shipped, with a
+   seeded DPRNN-TasNet, on the host lane and with --device-pesq (6 + 6
+   launches per batch, finite metrics, the device rows against the host
+   rows at LANE_TOL);
+14. the other families ([families]), fp32 at full width: DPRNN-Spe-TasNet
+   with each fusion of FUSIONS, InferencerSpe.run over phase 3's requests
+   with exactly the 'att' path's launches (6 + 6 per batch, each after its
+   input product), card vs CPU on a bucketed batch (>= 50 dB) and one
+   TrainerSpe train step card vs CPU (12 + 12 launches and their products;
+   loss within 1e-4 relative, gradients >= 40 dB); DPRNN-TasNet
+   (bidirectional) with each cell of CELLS, which launches no kernel: a
+   served batch and a train step card vs CPU at the same bars, a batch of 4
+   and a 5 x 3 s train step timed on the card; and the device metric lane
+   alone, stoi_batch and pesq_batch on 8 ragged rows of 10 s at most
+   stacked over their mixtures (16 rows), ms per batch on the card beside
+   the host lane's ms for the same rows, the card within LANE_TOL of the
+   host.
 
 Every serving count includes the input products: each fp32
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
@@ -1656,6 +1677,13 @@ CLI_ROW_TOL = {"si_sdr": 1e-4, "stoi": 1e-6, "pesq": 1e-4}
 # measured on the H100 (3 rows): STOI 3.2e-8, PESQ 1.8e-8
 CPU_ROW_TOL = {"stoi": 1e-6, "pesq": 1e-4}
 CLI_CPU_ROWS = 3  # the shortest test mixtures, run again on the CPU
+# the device metric lane (fp32 on the card) against the host lane (float64)
+# of the same checkpoint: the JAX package's bars, (max |delta|, median |delta|)
+# (tests/test_stoi_jax.py, tests/test_pesq_jax.py)
+LANE_TOL = {"stoi": (2e-3, 5e-4), "pesq": (0.05, 0.02)}
+# the demo mixtures of cli.train: in range of the synthetic eval split (the
+# shipped ids reach 2899)
+CLI_IDS = [0, 3, 7]
 
 
 def write_corpus(root: str, split: str, n: int, secs, seed: int) -> str:
@@ -1702,19 +1730,24 @@ def write_corpus(root: str, split: str, n: int, secs, seed: int) -> str:
 
 
 class recorded_training:
-    """Patches ``Trainer.train_step`` and ``Trainer._log_epoch`` while it is
-    entered, so that a run the CLI builds reports each train step's time
-    (between two synchronisations of the card) and each epoch's loss."""
+    """Patches ``Trainer.train_step``, ``Trainer._log_epoch`` and
+    ``Trainer._mixtures_inference`` while it is entered, so that a run the
+    CLI builds reports each train step's time (between two synchronisations
+    of the card), each epoch's loss and each pass over the eval mixtures; and
+    records every line the port's loggers write meanwhile."""
 
     def __init__(self, torch):
         from tss_dprnn_tpu_torch.training.trainer import Trainer
 
         self.torch, self.cls = torch, Trainer
-        self.step_ms, self.epochs = [], []
+        self.step_ms, self.epochs, self.mixture_passes = [], [], 0
+        self.lines = log_lines()
 
     def __enter__(self):
         torch, step, log_epoch = self.torch, self.cls.train_step, self.cls._log_epoch
-        self._saved = (step, log_epoch)
+        mixtures = self.cls._mixtures_inference
+        self._saved = (step, log_epoch, mixtures)
+        self.lines.__enter__()
 
         def train_step(trainer, batch):
             torch.cuda.synchronize()
@@ -1729,11 +1762,41 @@ class recorded_training:
             self.epochs.append((mode, loss))
             return loss
 
+        def _mixtures_inference(trainer):
+            self.mixture_passes += 1
+            return mixtures(trainer)
+
         self.cls.train_step, self.cls._log_epoch = train_step, _log_epoch
+        self.cls._mixtures_inference = _mixtures_inference
         return self
 
     def __exit__(self, *exc):
-        self.cls.train_step, self.cls._log_epoch = self._saved
+        self.cls.train_step, self.cls._log_epoch, self.cls._mixtures_inference = self._saved
+        self.lines.__exit__(*exc)
+
+
+class log_lines:
+    """Records the messages of the port's loggers while it is entered."""
+
+    def __init__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(handler, record):
+                self.messages.append(record.getMessage())
+
+        self.messages, self.handler = [], Handler()
+
+    def __enter__(self):
+        import logging
+
+        logging.getLogger("tss_dprnn_tpu_torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("tss_dprnn_tpu_torch").removeHandler(self.handler)
 
 
 def _csv_rows(path):
@@ -1760,12 +1823,37 @@ def _rows_within(got, want, tol, what):
     return worst
 
 
+def _lane_within(got, want, what):
+    """The device lane's rows against the host lane's at LANE_TOL (each
+    metric and its input); returns the worst and the median |delta|."""
+    import statistics
+
+    out = {}
+    for metric, (bar, median_bar) in LANE_TOL.items():
+        errs = []
+        for g, w in zip(got, want):
+            if g["index"] != w["index"]:
+                raise AssertionError(f"{what}: row order differs: {g['index']} vs {w['index']}")
+            errs += [abs(float(g[k]) - float(w[k])) for k in (metric, "input_" + metric)]
+        worst, median = max(errs), statistics.median(errs)
+        out[metric] = {"max": worst, "median": median}
+        if not (worst <= bar and median <= median_bar):
+            raise AssertionError(f"{what}: {metric} off the host lane by {worst} (median "
+                                 f"{median}; bars {bar}, {median_bar})")
+    return out
+
+
 def phase_cli(torch, dev):
     """Phase 13: the shipped entry points on a synthetic LibriMix corpus:
     cli.generate_manifests, cli.train on configs/train_tss.yaml (2 epochs at
-    full flagship width), cli.test on configs/test_tss.yaml with the metric
-    triple and on configs/test_bss.yaml, each checked for its kernel launches
-    and against a direct run (and the CPU) as the module docstring says."""
+    full flagship width, with in-range eval mixtures for the reporter),
+    cli.test on configs/test_tss.yaml with the metric triple on the host,
+    with --device-metrics and with --device-pesq, and on configs/test_bss.yaml
+    on the host and with --device-pesq, each checked for its kernel launches
+    and against a direct run, the host lane or the CPU, as the module
+    docstring says."""
+    from tss_dprnn_tpu_torch.inference.inferencer import host_counts
+
     import shutil
 
     from tss_dprnn_tpu_torch.cli import generate_manifests, test as test_cli, train as train_cli
@@ -1806,7 +1894,8 @@ def phase_cli(torch, dev):
     train_argv = ["--config", os.path.join(cfg_dir, "train_tss.yaml"), "--mode", "tss_spe",
                   "--set", f"data.use_generated_train={manifests['train']}",
                   f"data.use_generated_eval={manifests['eval']}", "epochs=2",
-                  "logs.metadata.ids=[]", f"new_checkpoints_path={ckpt_dir}", *device_args]
+                  f"logs.metadata.ids=[{', '.join(map(str, CLI_IDS))}]",
+                  f"new_checkpoints_path={ckpt_dir}", *device_args]
     train_cfg = load_config(train_argv[1])
     batch, n = train_cfg["data"]["batch_size"], train_cfg["model"]["n_repeats"]
     n_train = 2 * (len(entries["train"]) // batch)
@@ -1821,28 +1910,43 @@ def phase_cli(torch, dev):
     files = sorted(os.listdir(ckpt_dir))
     steady = sorted(rec.step_ms[1:])
     ms_step = steady[len(steady) // 2]
-    log(f"[cli] cli.train (configs/train_tss.yaml, 2 epochs): {n_train} train + {n_eval} eval "
-        f"steps of {batch} x 3 s in {train_wall:.2f} s; train steps {[round(v, 2) for v in rec.step_ms]} ms "
-        f"(median after the first {ms_step:.2f} ms); epoch losses {rec.epochs}; checkpoints "
-        f"{files}; launches { {k: v for k, v in launches.items() if v} }")
+    n_mix = rec.mixture_passes * len(CLI_IDS)  # one unmasked forward per eval mixture
+    log(f"[cli] cli.train (configs/train_tss.yaml, 2 epochs, logs.metadata.ids {CLI_IDS}): "
+        f"{n_train} train + {n_eval} eval steps of {batch} x 3 s and {rec.mixture_passes} passes "
+        f"over the eval mixtures in {train_wall:.2f} s; train steps "
+        f"{[round(v, 2) for v in rec.step_ms]} ms (median after the first {ms_step:.2f} ms); "
+        f"epoch losses {rec.epochs}; checkpoints {files}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
     per_train = {"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n,
                  "products_gemm": 2 * n * 5, "products_colsum": 2 * n}
     per_eval = with_products({"bilstm2_forward": 2 * n})
-    expect_launches(launches, {k: n_train * per_train.get(k, 0) + n_eval * per_eval.get(k, 0)
-                               for k in launches}, 1,
-                    f"cli.train ({n_train} train steps of {per_train}, {n_eval} eval steps of "
-                    f"{per_eval})")
+    expect_launches(launches, {k: n_train * per_train.get(k, 0)
+                               + (n_eval + n_mix) * per_eval.get(k, 0) for k in launches}, 1,
+                    f"cli.train ({n_train} train steps of {per_train}, {n_eval} eval steps and "
+                    f"{n_mix} eval mixtures of {per_eval})")
     if len(rec.step_ms) != n_train or len(rec.epochs) != 4 or \
             not all(math.isfinite(v) for _, v in rec.epochs):
         raise AssertionError(f"cli.train: {len(rec.step_ms)} train steps, epoch losses "
                              f"{rec.epochs}")
+    # the reporter's lines: each epoch's train and eval loss, each pass over
+    # the eval mixtures (after every new best checkpoint, the first included)
+    reported = {kind: sum(m.startswith(f"[{kind}] ") for m in rec.lines.messages)
+                for kind in ("train", "eval", "inference_spe")}
+    passes = sum(f"[inference_spe] {len(CLI_IDS)} demo mixtures at step" in m
+                 for m in rec.lines.messages)
+    log(f"[cli] the reporter's lines: {reported}")
+    if reported != {"train": 2, "eval": 2, "inference_spe": rec.mixture_passes} or \
+            not 1 <= passes == rec.mixture_passes:
+        raise AssertionError(f"cli.train's reporter logged {reported} ({passes} passes over "
+                             f"{len(CLI_IDS)} mixtures; {rec.mixture_passes} counted)")
     best = [f for f in files if f.endswith("_best")]
     if "2_last" not in files or not best:
         raise AssertionError(f"cli.train wrote {files}: expected 2_last and a *_best")
     best = os.path.join(ckpt_dir, "2_best" if "2_best" in files else best[-1])
     results["train"] = {"wall_s": train_wall, "n_train_steps": n_train, "n_eval_steps": n_eval,
                         "step_ms": rec.step_ms, "ms_per_step": ms_step, "epochs": rec.epochs,
-                        "checkpoints": files, "launches": launches}
+                        "checkpoints": files, "launches": launches, "eval_mixture_ids": CLI_IDS,
+                        "eval_mixture_passes": rec.mixture_passes, "reported": reported}
 
     # -- 4: cli.test on configs/test_tss.yaml as shipped, then si_sdr alone
     test_yaml = os.path.join(cfg_dir, "test_tss.yaml")
@@ -1854,23 +1958,40 @@ def phase_cli(torch, dev):
     n = load_config(test_yaml)["model"]["n_repeats"]
     per_batch = with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n})
     runs = {}
-    for tag, extra in (("si_sdr", ["metrics=[si_sdr]"]), ("triple", [])):
+    # each device lane runs twice: its first run pays the lane's one-time
+    # set-up (cuFFT plans per bucket length, lazily loaded kernels); its
+    # second is the wall a warm process sees
+    for tag, sets, flags, reps in (("si_sdr", ["metrics=[si_sdr]"], [], 1), ("triple", [], [], 1),
+                                   ("device_metrics", [], ["--device-metrics"], 2),
+                                   ("device_pesq", [], ["--device-pesq"], 2)):
         savedir = os.path.join(root, f"metrics_{tag}")
         argv = ["--config", test_yaml, "--mode", "tss_spe", "--batch-size", str(eval_batch),
                 "--n-buckets", str(n_buckets), "--set", *test_sets,
-                f"test_savedir={savedir}", *extra, *device_args]
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        final = test_cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(all_launches(), **product_launches())
-        log(f"[cli] cli.test (configs/test_tss.yaml, metrics {tag}): {len(test_set)} mixtures, "
-            f"{n_batches} batches in {wall:.3f} s; final {final}; launches "
-            f"{ {k: v for k, v in launches.items() if v} }")
-        expect_launches(launches, per_batch, n_batches, f"cli.test {tag}")
-        runs[tag] = {"wall_s": wall, "final": final, "launches": launches,
+                f"test_savedir={savedir}", *sets, *flags, *device_args]
+        walls = []
+        for _ in range(reps):
+            reset_launches()
+            counted = dict(host_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = test_cli.main(argv)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = dict(all_launches(), **product_launches())
+            moved = {k: host_counts[k] - counted[k] for k in counted}
+            log(f"[cli] cli.test (configs/test_tss.yaml, {tag}): {len(test_set)} mixtures, "
+                f"{n_batches} batches in {walls[-1]:.3f} s; final {final}; estimates to the "
+                f"host and metric pools {moved}; launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+            expect_launches(launches, per_batch, n_batches, f"cli.test {tag}")
+            # the estimate crosses only for a host metric, and the pool starts only then
+            want_moved = {"si_sdr": (0, 0), "triple": (n_batches, 1),
+                          "device_metrics": (n_batches, 1), "device_pesq": (0, 0)}[tag]
+            if (moved["estimates"], moved["pools"]) != want_moved:
+                raise AssertionError(f"cli.test {tag}: {moved} estimates to the host and pools, "
+                                     f"expected {want_moved}")
+        runs[tag] = {"wall_s": walls[-1], "walls_s": walls, "final": final,
+                     "launches": launches, "host_counts": moved,
                      "rows": _csv_rows(os.path.join(savedir, "all_metrics.csv"))}
     with open(os.path.join(root, "metrics_triple", "final_metrics.json")) as f:
         saved = json.load(f)
@@ -1910,20 +2031,33 @@ def phase_cli(torch, dev):
     card_rows = {r["index"]: r for r in runs["triple"]["rows"]}
     worst_cpu = _rows_within([card_rows[r["index"]] for r in cpu_rows], cpu_rows, CPU_ROW_TOL,
                              "card vs CPU host metrics")
+    lanes = {tag: _lane_within(runs[tag]["rows"], runs["triple"]["rows"], f"cli.test {tag}")
+             for tag in ("device_metrics", "device_pesq")}
     walls = {"si_sdr": runs["si_sdr"]["wall_s"], "triple_pool": runs["triple"]["wall_s"],
-             "triple_serial": serial_wall}
-    share = {k: (walls[k] - walls["si_sdr"]) / walls[k] for k in ("triple_pool", "triple_serial")}
+             "triple_serial": serial_wall, "device_metrics": runs["device_metrics"]["wall_s"],
+             "device_pesq": runs["device_pesq"]["wall_s"],
+             "device_metrics_first": runs["device_metrics"]["walls_s"][0],
+             "device_pesq_first": runs["device_pesq"]["walls_s"][0]}
+    share = {k: (walls[k] - walls["si_sdr"]) / walls[k] for k in walls if k != "si_sdr"}
     log(f"[cli] test CLI wall: si_sdr alone {walls['si_sdr']:.3f} s, the triple with the pool "
         f"{walls['triple_pool']:.3f} s (host metrics {100 * share['triple_pool']:.1f} %), "
         f"serial (direct run) {walls['triple_serial']:.3f} s (host metrics "
-        f"{100 * share['triple_serial']:.1f} %); rows vs the direct run, worst {worst_direct}; "
-        f"card vs CPU on {CLI_CPU_ROWS} mixtures ({cpu_wall:.1f} s on the CPU), worst {worst_cpu}")
+        f"{100 * share['triple_serial']:.1f} %), --device-metrics {walls['device_metrics']:.3f} s "
+        f"(metrics {100 * share['device_metrics']:.1f} %; first run "
+        f"{walls['device_metrics_first']:.3f} s), --device-pesq {walls['device_pesq']:.3f} s "
+        f"(metrics {100 * share['device_pesq']:.1f} %; first run "
+        f"{walls['device_pesq_first']:.3f} s); rows vs the "
+        f"direct run, worst {worst_direct}; card vs CPU on {CLI_CPU_ROWS} mixtures "
+        f"({cpu_wall:.1f} s on the CPU), worst {worst_cpu}; the device lanes against the host "
+        f"lane {lanes}")
     results["test_tss"] = {"n_mixtures": len(test_set), "n_batches": n_batches,
                            "audio_s": sum(test_set.lengths()) / SAMPLE_RATE, "walls_s": walls,
-                           "host_metric_share": share, "final": runs["triple"]["final"],
+                           "metric_share": share, "final": runs["triple"]["final"],
+                           "final_device_pesq": runs["device_pesq"]["final"],
                            "launches": runs["triple"]["launches"],
+                           "host_counts": {k: runs[k]["host_counts"] for k in runs},
                            "worst_vs_direct": worst_direct, "worst_card_vs_cpu": worst_cpu,
-                           "cpu_rows": order}
+                           "device_lanes_vs_host": lanes, "cpu_rows": order}
 
     # -- 5: cli.test --mode bss on configs/test_bss.yaml as shipped, on the CSV
     bss_yaml = os.path.join(cfg_dir, "test_bss.yaml")
@@ -1935,28 +2069,43 @@ def phase_cli(torch, dev):
     n_bss = len(BucketedEvalLoader(bss_set, eval_batch, collate_bss_eval, bss_set.lengths(),
                                    n_buckets=n_buckets))
     nb = bss_cfg["model"]["n_repeats"]
-    savedir = os.path.join(root, "metrics_bss")
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final = test_cli.main(["--config", bss_yaml, "--mode", "bss", "--batch-size", str(eval_batch),
-                           "--n-buckets", str(n_buckets), "--set",
-                           f"data.test_path={csvs['test']}", f"checkpoint_path={ckpt}",
-                           f"test_savedir={savedir}", *device_args])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(all_launches(), **product_launches())
-    log(f"[cli] cli.test --mode bss (configs/test_bss.yaml): {len(bss_set)} mixtures, {n_bss} "
-        f"batches in {wall:.3f} s; final {final}; launches "
-        f"{ {k: v for k, v in launches.items() if v} }")
-    expect_launches(launches, with_products({"bilstm2_forward": nb, "bilstm2_forward_masked": nb}),
-                    n_bss, "cli.test --mode bss")
-    rows = _csv_rows(os.path.join(savedir, "all_metrics.csv"))
-    if len(rows) != len(bss_set) or set(final) != keys or \
-            not all(v is not None and math.isfinite(v) for v in final.values()):
-        raise AssertionError(f"cli.test --mode bss: {len(rows)} rows, final {final}")
-    results["test_bss"] = {"wall_s": wall, "n_batches": n_bss, "final": final,
-                           "launches": launches}
+    bss = {}
+    for tag, flags in (("host", []), ("device_pesq", ["--device-pesq"])):
+        savedir = os.path.join(root, f"metrics_bss_{tag}")
+        reset_launches()
+        counted = dict(host_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = test_cli.main(["--config", bss_yaml, "--mode", "bss", "--batch-size",
+                               str(eval_batch), "--n-buckets", str(n_buckets), "--set",
+                               f"data.test_path={csvs['test']}", f"checkpoint_path={ckpt}",
+                               f"test_savedir={savedir}", *flags, *device_args])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(all_launches(), **product_launches())
+        moved = {k: host_counts[k] - counted[k] for k in counted}
+        log(f"[cli] cli.test --mode bss (configs/test_bss.yaml, {tag}): {len(bss_set)} mixtures, "
+            f"{n_bss} batches in {wall:.3f} s; final {final}; estimates to the host and metric "
+            f"pools {moved}; launches { {k: v for k, v in launches.items() if v} }")
+        expect_launches(launches, with_products({"bilstm2_forward": nb,
+                                                 "bilstm2_forward_masked": nb}),
+                        n_bss, f"cli.test --mode bss {tag}")
+        if (moved["estimates"], moved["pools"]) != ((n_bss, 1) if tag == "host" else (0, 0)):
+            raise AssertionError(f"cli.test --mode bss {tag}: {moved} estimates to the host and "
+                                 "pools")
+        rows = _csv_rows(os.path.join(savedir, "all_metrics.csv"))
+        if len(rows) != len(bss_set) or set(final) != keys or \
+                not all(v is not None and math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"cli.test --mode bss {tag}: {len(rows)} rows, final {final}")
+        bss[tag] = {"wall_s": wall, "n_batches": n_bss, "final": final, "launches": launches,
+                    "host_counts": moved, "rows": rows}
+    lane = _lane_within(bss["device_pesq"]["rows"], bss["host"]["rows"],
+                        "cli.test --mode bss --device-pesq")
+    log(f"[cli] cli.test --mode bss: host lane {bss['host']['wall_s']:.3f} s, --device-pesq "
+        f"{bss['device_pesq']['wall_s']:.3f} s; the device lane against the host lane {lane}")
+    for v in bss.values():
+        del v["rows"]
+    results["test_bss"] = dict(bss, device_pesq_vs_host=lane)
     # the WAVs and checkpoints (~90 MB): checked, then removed so that
     # chiprun_out/ stays small
     for name in ("corpus", "chkpts"):
@@ -2123,6 +2272,251 @@ def _optin_paths(torch, dev, ckpt):
     return results
 
 
+# ------------------------------------------------------------------ phase 14
+
+# the fusions of configs/train_tss.yaml:36 besides 'att', and the cells
+FUSIONS = ("add", "cat", "mul", "film")
+CELLS = ("GRU", "RNN")
+# the device metric lane alone: 8 rows of 10 s at most, ragged, the last one
+# too short to score (0.2 s)
+LANE_SECONDS = (10.0, 9.3, 8.0, 7.1, 6.0, 5.2, 4.0, 0.2)
+
+
+class ShortRequests(Requests):
+    """Two TSS requests of 1 s and 1.6 s, for card against CPU runs of the
+    full-width models."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.items = []
+        for s in (1.0, 1.6):
+            target = 0.1 * rng.standard_normal(int(s * SAMPLE_RATE)).astype(np.float32)
+            mix = target + 0.1 * rng.standard_normal(target.shape).astype(np.float32)
+            ref = 0.1 * rng.standard_normal(int(1.5 * SAMPLE_RATE)).astype(np.float32)
+            self.items.append((mix, target, ref, int(rng.integers(0, 251))))
+
+
+def _valid_snr(torch, got, want, lengths):
+    """SNR over every row's valid samples ([B, ..., T] outputs)."""
+    cut = [(g[..., :n].flatten(), w[..., :n].flatten())
+           for g, w, n in zip(got, want, lengths.tolist())]
+    return snr_db(torch.cat([g for g, _ in cut]), torch.cat([w for _, w in cut]))
+
+
+def _step_card_vs_cpu(torch, dev, make_model, start, trainer_cls, config, batch):
+    """One train step from the same weights on the card and on the CPU:
+    (loss rel, concatenated gradients' SNR, the card's launches, its ms)."""
+    steps = {}
+    for device in (dev, "cpu"):
+        model = make_model()
+        model.load_state_dict(start, strict=True)
+        t = trainer_cls(model, dict(config, new_checkpoints_path=os.path.join(
+            OUT_DIR, "families_ckpt_unused")), device=device)
+        t.model.train()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = t._forward_loss(t._to_device(batch), train=True)
+        loss.backward()
+        if device == dev:
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(all_launches(), **product_launches())
+        steps[str(device)] = (loss.item(), {k: p.grad.detach().cpu()
+                                            for k, p in t.model.named_parameters()})
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = steps[str(dev)], steps["cpu"]
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_snr = snr_db(*(torch.cat([g[k].flatten() for k in sorted(g)]) for g in (g_gpu, g_cpu)))
+    return rel, grad_snr, launches, ms
+
+
+def phase_families(torch, dev):
+    """Phase 14: the other fusions and cells at full width, fp32, and the
+    device metric lane alone, as the module docstring says."""
+    import numpy as np
+
+    from tss_dprnn_tpu_torch import inference, training
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
+    from tss_dprnn_tpu_torch.ops import metrics as metrics_mod
+    from tss_dprnn_tpu_torch.ops.pesq_device import pesq_batch
+    from tss_dprnn_tpu_torch.ops.stoi import stoi_batch
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    results = {}
+    n = FLAGSHIP["n_repeats"]
+    ds = Requests(SEED, 12)  # phase 3's requests
+    batch_size, n_buckets = 4, 2
+    n_batches = len(loader.BucketedEvalLoader(ds, batch_size, loader.make_collate_spe_eval(),
+                                              ds.lengths(), n_buckets=n_buckets))
+    short = ShortRequests(SEED + 40)
+    short_batch = next(iter(loader.BucketedEvalLoader(short, 2, loader.make_collate_spe_eval(),
+                                                      short.lengths(), n_buckets=1)))
+    one = loader.collate_spe(Crops(SEED + 42, 1, 1).items)
+    # the 'att' path's launches: phase 3 per serving batch, phase 6 per train step
+    per_batch = with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n})
+    per_step = {"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n,
+                "products_gemm": 2 * n * 5, "products_colsum": 2 * n}
+    for fusion in FUSIONS:
+        cfg = dict(FLAGSHIP, fusion_type=fusion)
+        start = init_weights_(DPRNNSpeTasNet(**cfg), torch.Generator().manual_seed(SEED + 41))
+        ckpt = os.path.join(OUT_DIR, f"family_{fusion}.pt")
+        torch.save(start.state_dict(), ckpt)
+        config = {"checkpoint_path": ckpt, "metrics": ["si_sdr"],
+                  "test_savedir": os.path.join(OUT_DIR, f"family_{fusion}_metrics"),
+                  "data": {"sample_rate": SAMPLE_RATE}}
+        inf = inference.InferencerSpe(DPRNNSpeTasNet(**cfg), config, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served = dict(all_launches(), **product_launches())
+        expect_launches(served, per_batch, n_batches, f"'{fusion}' InferencerSpe.run")
+        if not all(math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"'{fusion}' served non-finite metrics: {final}")
+        inf_cpu = inference.InferencerSpe(DPRNNSpeTasNet(**cfg), config, device="cpu")
+        with torch.inference_mode():
+            card = inf.forward(short_batch).cpu()
+            cpu = inf_cpu.forward(short_batch)
+        serve_snr = _valid_snr(torch, card, cpu, short_batch["lengths"])
+        del inf, inf_cpu
+        rel, grad_snr, stepped, step_ms = _step_card_vs_cpu(
+            torch, dev, lambda: DPRNNSpeTasNet(**cfg), start.state_dict(), training.TrainerSpe,
+            TRAIN_CONFIG, one)
+        expect_launches(stepped, per_step, 1, f"'{fusion}' train step")
+        log(f"[families] fusion '{fusion}': InferencerSpe.run over {len(ds)} requests, "
+            f"{n_batches} batches in {wall:.3f} s (launches "
+            f"{ {k: v for k, v in served.items() if v} }); card vs CPU {serve_snr:.2f} dB on a "
+            f"bucketed batch; train step (1 x 1 s) loss rel {rel:.2e}, gradients "
+            f"{grad_snr:.2f} dB")
+        if not (serve_snr >= 50.0 and rel <= 1e-4 and grad_snr >= 40.0):
+            raise AssertionError(f"'{fusion}' card vs CPU: served {serve_snr:.2f} dB, loss rel "
+                                 f"{rel}, gradients {grad_snr:.2f} dB")
+        results[fusion] = {"serve_wall_s": wall, "serve_launches": served, "final": final,
+                           "serve_snr_db": serve_snr, "step_loss_rel": rel,
+                           "step_grad_snr_db": grad_snr, "step_launches": stepped}
+        os.remove(ckpt)
+
+    mixtures = Mixtures(SEED + 43, 4)  # 2-6 s and one of 10 s
+    full = next(iter(loader.BucketedEvalLoader(mixtures, 4, loader.collate_bss_eval,
+                                               mixtures.lengths(), n_buckets=1)))
+    pair = next(iter(loader.BucketedEvalLoader(Mixtures(SEED + 44, 2, 1.3), 2,
+                                               loader.collate_bss_eval, [10400, 10400],
+                                               n_buckets=1)))
+    crops = loader.collate_bss(Mixtures(SEED + 45, 1, 1.0).items)
+    big = loader.collate_bss(Mixtures(SEED + 46, TRAIN_BATCH, TRAIN_SECONDS).items)
+    for cell in CELLS:
+        cfg = dict(BSS, bidirectional=True, rnn_type=cell)
+        start = init_weights_(DPRNNTasNet(**cfg), torch.Generator().manual_seed(SEED + 47))
+        ckpt = os.path.join(OUT_DIR, f"family_{cell}.pt")
+        torch.save(start.state_dict(), ckpt)
+        config = {"checkpoint_path": ckpt, "metrics": ["si_sdr"]}
+        outs, serve_ms = {}, None
+        for device in (dev, "cpu"):
+            inf = inference.Inferencer(DPRNNTasNet(**cfg), config, device=device)
+            reset_launches()
+            with torch.inference_mode():
+                outs[str(device)] = inf.forward(pair).cpu()
+                if device == dev:  # a full batch of 4 mixtures up to 10 s, timed
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    est = inf.forward(full)
+                    torch.cuda.synchronize()
+                    serve_ms = (time.perf_counter() - t0) * 1e3
+                    served = dict(all_launches(), **product_launches())
+                    if not torch.isfinite(est).all():
+                        raise AssertionError(f"{cell}: non-finite served batch")
+            del inf
+        expect_launches(served, {}, 1, f"{cell} serving")
+        serve_snr = _valid_snr(torch, outs[str(dev)], outs["cpu"], pair["lengths"])
+        rel, grad_snr, stepped, _ = _step_card_vs_cpu(
+            torch, dev, lambda: DPRNNTasNet(**cfg), start.state_dict(), training.Trainer,
+            BSS_TRAIN_CONFIG, crops)
+        expect_launches(stepped, {}, 1, f"{cell} train step")
+        # a train step at the shipped batch (5 x 3 s) on the card alone, timed
+        model = DPRNNTasNet(**cfg)
+        model.load_state_dict(start.state_dict(), strict=True)
+        t = training.Trainer(model, dict(BSS_TRAIN_CONFIG, new_checkpoints_path=os.path.join(
+            OUT_DIR, "families_ckpt_unused")), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        t.train_step(big)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(t.train_step(big)[0])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del t, model
+        torch.cuda.empty_cache()
+        audio_s = float(full["lengths"].sum()) / SAMPLE_RATE
+        log(f"[families] rnn_type {cell} (DPRNN-TasNet, bidirectional, full width): card vs CPU "
+            f"{serve_snr:.2f} dB on a bucketed batch; a batch of 4 ({audio_s:.2f} audio-s) in "
+            f"{serve_ms:.1f} ms; train step (1 x 1 s) loss rel {rel:.2e}, gradients "
+            f"{grad_snr:.2f} dB; {TRAIN_BATCH} x {TRAIN_SECONDS} s step {step_ms:.1f} ms (loss "
+            f"{loss:.4f}, peak {peak_gb:.2f} GB); no kernel launched")
+        if not (serve_snr >= 50.0 and rel <= 1e-4 and grad_snr >= 40.0 and math.isfinite(loss)):
+            raise AssertionError(f"{cell} card vs CPU: served {serve_snr:.2f} dB, loss rel {rel}, "
+                                 f"gradients {grad_snr:.2f} dB, step loss {loss}")
+        results[cell] = {"serve_snr_db": serve_snr, "serve_ms": serve_ms, "serve_audio_s": audio_s,
+                         "step_loss_rel": rel, "step_grad_snr_db": grad_snr,
+                         "step_ms_5x3s": step_ms, "step_peak_gb": peak_gb}
+        os.remove(ckpt)
+
+    # -- the device metric lane alone: 8 ragged rows, estimate over mixture
+    rng = np.random.default_rng(SEED + 48)
+    T = int(max(LANE_SECONDS) * SAMPLE_RATE)
+    lens = np.array([int(s * SAMPLE_RATE) for s in LANE_SECONDS], np.int32)
+    clean, est, mix = (np.zeros((len(lens), T), np.float32) for _ in range(3))
+    for b, m in enumerate(lens):
+        t = np.arange(m) / SAMPLE_RATE
+        f0 = rng.uniform(100, 250)
+        x = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6)) / k for k in range(1, 5))
+        clean[b, :m] = 0.3 * x * np.clip(np.sin(2 * np.pi * rng.uniform(1.5, 3) * t), 0, None)
+        est[b, :m] = clean[b, :m] + 0.02 * rng.standard_normal(m)
+        mix[b, :m] = clean[b, :m] + 0.2 * rng.standard_normal(m)
+    # the lane's stacked call: the estimate's rows over the mixture's
+    args = [torch.from_numpy(a).to(dev) for a in (np.concatenate([clean, clean]),
+                                                    np.concatenate([est, mix]),
+                                                    np.concatenate([lens, lens]))]
+    lane = {"stoi": lambda: stoi_batch(*args, SAMPLE_RATE),
+            "pesq": lambda: pesq_batch(*args, SAMPLE_RATE, "nb")}
+    host_fns = {"stoi": lambda c, d: metrics_mod.stoi(c, d, SAMPLE_RATE),
+                "pesq": lambda c, d: metrics_mod.pesq_score(c, d, SAMPLE_RATE)}
+    deg = np.concatenate([est, mix])
+    lens2 = np.concatenate([lens, lens])
+    metric_lane = {}
+    for name in ("stoi", "pesq"):
+        ms = time_ms(lane[name], 5)
+        card = lane[name]().cpu().numpy()
+        t0 = time.perf_counter()
+        host = np.array([np.nan if v is None else v for v in (
+            host_fns[name](np.concatenate([clean, clean])[b, :m], deg[b, :m])
+            for b, m in enumerate(lens2))], np.float64)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ok = ~np.isnan(host)
+        if not np.array_equal(np.isnan(card), np.isnan(host)):
+            raise AssertionError(f"{name}: NaN rows differ, card {card}, host {host}")
+        err = np.abs(card[ok] - host[ok])
+        bar, median_bar = LANE_TOL[name]
+        log(f"[families] device metric lane, {name}: {2 * len(lens)} rows ({len(lens)} x "
+            f"{max(LANE_SECONDS)} s at most, stacked) {ms:.2f} ms per batch on the card against "
+            f"{host_ms:.1f} ms on "
+            f"the host (float64, serial); |card - host| max {err.max():.2e}, median "
+            f"{float(np.median(err)):.2e}")
+        if not (err.max() <= bar and np.median(err) <= median_bar):
+            raise AssertionError(f"{name} on the card off the host by {err}")
+        metric_lane[name] = {"ms": ms, "host_ms": host_ms, "max_abs_err_vs_host": float(err.max()),
+                             "median_abs_err_vs_host": float(np.median(err)),
+                             "rows": 2 * len(lens)}
+    results["metric_lane"] = metric_lane
+    import shutil
+
+    shutil.rmtree(os.path.join(OUT_DIR, "families_ckpt_unused"), ignore_errors=True)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2247,11 +2641,17 @@ def main() -> int:
         f"{cli['train']['ms_per_step']:.2f} ms/step, test CLI "
         f"{cli['test_tss']['walls_s']['triple_pool']:.3f} s on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    families = phase_families(torch, dev)
+    log(f"[families] phase done in {time.perf_counter() - t0:.1f} s; device metric lane "
+        f"STOI {families['metric_lane']['stoi']['ms']:.2f} ms, PESQ "
+        f"{families['metric_lane']['pesq']['ms']:.2f} ms per batch on {smi}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
-                   "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli},
-                  f, indent=1)
+                   "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
+                   "families": families}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -51,6 +51,17 @@ TINY = dict(SMALL, n_repeats=1)
 SPE = dict(SMALL, O=8, P=12, embeddings_size=8, num_spks=5, fusion_type="att")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: in the suite's parallel workers
+    torch's idle pool threads spin against each other's and every small op
+    waits on the scheduler (test_torch_port_device_metrics.py measures it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     from jax.experimental import pallas as pl
@@ -142,12 +153,21 @@ def test_unidirectional_block_matches_jax_with_chunk_lengths(rng, interpret):
 
 
 def test_rnn_core_rejects_other_cells():
+    """An unknown cell raises; 'GRU' and 'RNN', refused until they were
+    ported, build with their torch gate widths (3H, H) and run no kernel."""
     from tss_dprnn_tpu_torch.models.layers import RNNCore
 
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        RNNCore(8, 8, True, "GRU")
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        DPRNNTasNet(**dict(TINY, rnn_type="RNN"))
+    with pytest.raises(ValueError, match="LSTM/GRU/RNN"):
+        RNNCore(8, 8, True, "LSTM2")
+    assert RNNCore(8, 8, True, "GRU").rnn.weight_ih_l0_reverse.shape == (24, 8)
+    model = init_weights_(DPRNNTasNet(**dict(TINY, rnn_type="RNN")),
+                          torch.Generator().manual_seed(0))
+    assert model.separation.dprnn_blocks[0].inter_rnn.rnn.weight_hh_l0.shape == (
+        TINY["hidden_size"],) * 2
+    before = (bilstm2.launch_count(), lstm_ops.launch_count())
+    with torch.inference_mode():
+        assert torch.isfinite(model(torch.ones(1, 160))).all()
+    assert (bilstm2.launch_count(), lstm_ops.launch_count()) == before
 
 
 # ------------------------------------------------------------------ models
@@ -327,9 +347,17 @@ def test_bss_inferencer_reorders_permuted_estimates(tmp_path):
 
 @pytest.mark.parametrize("metrics", [["si_sdr", "sisnr"], ["pesq"]])
 def test_bss_inferencer_rejects_unported_metrics(tmp_path, metrics):
-    """As the TSS test: an unknown metric, then PESQ on the device."""
-    config = {"checkpoint_path": str(tmp_path / "x"), "metrics": metrics,
+    """As the TSS test: an unknown metric raises; PESQ on the device, ported
+    since, is taken by the device lane."""
+    path = tmp_path / "model.pt"
+    torch.save(init_weights_(DPRNNTasNet(**TINY), torch.Generator().manual_seed(0)).state_dict(),
+               path)
+    config = {"checkpoint_path": str(path), "metrics": metrics,
               "device_pesq": metrics == ["pesq"]}
+    if metrics == ["pesq"]:
+        inf = Inferencer(DPRNNTasNet(**TINY), config, device="cpu")
+        assert inf.device_metrics and inf.device_lane == ["pesq"] and inf.host_metrics == []
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         Inferencer(DPRNNTasNet(**TINY), config, device="cpu")
 

@@ -108,10 +108,15 @@ def test_inferencer_needs_card_unless_cpu_is_asked(checkpoint):
 
 @pytest.mark.parametrize("metrics", [["si_sdr", "sisnr"], ["pesq"]])
 def test_inferencer_rejects_unported_metrics(checkpoint, metrics):
-    """A metric outside si_sdr / stoi / pesq raises; so does PESQ asked for
-    on the device (``device_pesq``, the second case)."""
+    """A metric outside si_sdr / stoi / pesq raises; PESQ asked for on the
+    device (``device_pesq``, the second case), refused until it was ported,
+    goes to the device lane and turns ``device_metrics`` on."""
     config = {"checkpoint_path": str(checkpoint), "metrics": metrics,
               "device_pesq": metrics == ["pesq"]}
+    if metrics == ["pesq"]:
+        inf = InferencerSpe(DPRNNSpeTasNet(**SMALL), config, device="cpu")
+        assert inf.device_metrics and inf.device_lane == ["pesq"] and inf.host_metrics == []
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         InferencerSpe(DPRNNSpeTasNet(**SMALL), config, device="cpu")
 

@@ -25,6 +25,17 @@ TINY = dict(input_size=8, feature_size=12, hidden_size=10, chunk_length=40, kern
 TINY_SPE = dict(TINY, O=8, P=12, embeddings_size=8, num_spks=8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: in the suite's parallel workers
+    torch's idle pool threads spin against each other's and every small op
+    waits on the scheduler (test_torch_port_device_metrics.py measures it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def first_party_jax_pesq(monkeypatch):
     """The JAX package prefers the ``pesq`` C extension where it is

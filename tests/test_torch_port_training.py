@@ -44,6 +44,17 @@ SMALL = dict(input_size=8, feature_size=16, hidden_size=16, chunk_length=8, kern
 TINY = dict(SMALL, n_repeats=1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: in the suite's parallel workers
+    torch's idle pool threads spin against each other's and every small op
+    waits on the scheduler (test_torch_port_device_metrics.py measures it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     from jax.experimental import pallas as pl

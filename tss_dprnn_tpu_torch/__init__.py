@@ -2,10 +2,11 @@
 
 Runs two model families on an NVIDIA Hopper card, each served (masked,
 bucketed, full-length inference) and trained (fixed crops): DPRNN-Spe-TasNet
-target speech separation (``inference.InferencerSpe``,
-``training.TrainerSpe``) and DPRNN-TasNet blind source separation
-(``inference.Inferencer``, ``training.Trainer``), both with a bidirectional
-or a one-direction (``bidirectional=False``) inter-chunk scan. Module paths
+target speech separation with any of its five fusions
+(``inference.InferencerSpe``, ``training.TrainerSpe``) and DPRNN-TasNet
+blind source separation (``inference.Inferencer``, ``training.Trainer``),
+both with a bidirectional or a one-direction (``bidirectional=False``)
+inter-chunk scan, and with LSTM, GRU or tanh-RNN cells. Module paths
 mirror the JAX package's, so each port module sits under the same name as
 its counterpart; the JAX package stays the reference the port is tested
 against.
@@ -25,8 +26,10 @@ Entry points run on the card unless the caller passes ``device="cpu"``
 (see :func:`tss_dprnn_tpu_torch.device.resolve_device`). The command-line
 entry points (``cli.generate_manifests``, ``cli.train``, ``cli.test``, each
 with ``--device``) take the shipped YAML configs and LibriMix data
-(``data/``: WAV I/O, frozen manifests, the datasets) and score STOI and PESQ
-on the host (``ops/metrics.py``, ``ops/pesq.py``).
+(``data/``: WAV I/O, frozen manifests, the datasets), log through the
+log-only ``reporters.Reporter``, and score STOI and PESQ on the host
+(``ops/metrics.py``, ``ops/pesq.py``) or, with ``device_metrics`` /
+``device_pesq``, on the card (``ops/stoi.py``, ``ops/pesq_device.py``).
 """
 
 __version__ = "0.1.0"

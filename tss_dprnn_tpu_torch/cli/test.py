@@ -6,11 +6,15 @@
 
 Runs on the card unless ``--device`` names another device. The checkpoint is
 a port or reference ``.pt`` file; the JAX package's orbax directories raise.
-Results go to the log, ``all_metrics.csv`` and ``final_metrics.json`` in
-``test_savedir`` (there is no reporter yet: ROADMAP §1 item 11).
-``--data-parallel`` other than 1 and ``--device-pesq`` raise until they are
-ported; ``--device-metrics`` is accepted (SI-SDR runs on the card already),
-and so is a config's ``lstm_backend`` (the port has one backend).
+Results go to ``all_metrics.csv`` and ``final_metrics.json`` in
+``test_savedir``, and each row to the log through the log-only
+``reporters.Reporter``. SI-SDR runs on the device; STOI and PESQ run on the
+host unless ``--device-metrics`` (STOI on the device) or ``--device-pesq``
+(STOI and PESQ on the device, so no estimate leaves it) moves them there.
+The batch size defaults to 16 on that device lane and to 8 otherwise, as in
+the JAX CLI, and the choice is logged. ``--data-parallel`` other than 1
+raises until it is ported; a config's ``lstm_backend`` is accepted (the port
+has one backend).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from tss_dprnn_tpu_torch.cli.common import (MODES, dataset_for, get_logger,
                                             inference_components)
 from tss_dprnn_tpu_torch.device import resolve_device
 from tss_dprnn_tpu_torch.models.registry import build_model
+from tss_dprnn_tpu_torch.reporters import Reporter
 from tss_dprnn_tpu_torch.utils.config import load_config, model_config
 
 
@@ -30,17 +35,18 @@ def main(argv=None):
     parser.add_argument("--mode", default="bss", choices=MODES)
     parser.add_argument("--set", action="extend", nargs="*", default=[])
     parser.add_argument("--batch-size", type=int, default=None,
-                        help="eval batch size (default 8; 16 with --device-metrics, as in "
-                             "the JAX package)")
+                        help="eval batch size (default 8; 16 with --device-metrics or "
+                             "--device-pesq, as in the JAX package)")
     parser.add_argument("--n-buckets", type=int, default=8)
     parser.add_argument("--data-parallel", type=int, default=1, metavar="N",
                         help="only 1: data-parallel eval is not ported yet (ROADMAP §1 "
                              "item 12)")
     parser.add_argument("--device-metrics", action="store_true",
-                        help="accepted: SI-SDR and the PIT reorder run on the card always; "
-                             "STOI and PESQ run on the host")
+                        help="STOI on the device too (SI-SDR and the PIT reorder always run "
+                             "there); PESQ stays on the host")
     parser.add_argument("--device-pesq", action="store_true",
-                        help="not ported yet (raises): PESQ runs on the host")
+                        help="STOI and PESQ on the device (implies --device-metrics): the "
+                             "separated audio never crosses to the host")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the current CUDA card; 'cpu' runs the "
                              "kernels' plain versions)")
@@ -57,7 +63,13 @@ def main(argv=None):
     if args.device_pesq:
         config["device_pesq"] = True
     if args.batch_size is None:
-        args.batch_size = 16 if config.get("device_metrics") else 8
+        device_lane = config.get("device_metrics") or config.get("device_pesq")
+        args.batch_size = 16 if device_lane else 8
+        logger.info("batch size %d: the default %s", args.batch_size,
+                    "of the device metric lane (device_metrics or device_pesq)" if device_lane
+                    else "without the device metric lane")
+    else:
+        logger.info("batch size %d: from --batch-size", args.batch_size)
     if config.get("lstm_backend") is not None:
         logger.info("lstm_backend %r ignored: the port runs its own kernels",
                     config["lstm_backend"])
@@ -68,10 +80,12 @@ def main(argv=None):
     test_set = dataset_for(config, "test", spe)
     logger.info("test set len: %d", len(test_set))
 
+    reporter = Reporter(config, logger)
     model = build_model(model_config(config))
-    inferencer = InferencerClass(model, config, device=device)
+    inferencer = InferencerClass(model, config, device=device, reporter=reporter)
     final = inferencer.run(test_set, batch_size=args.batch_size, n_buckets=args.n_buckets)
     logger.info("FINAL: %s", final)
+    reporter.wandb_finish()
     return final
 
 

@@ -5,11 +5,12 @@
 
 Fixed crops through ``TrainLoader``, then ``Trainer`` / ``TrainerSpe.run``,
 on the card unless ``--device`` names another device. The model's weights
-are drawn from the config's ``seed``. Not ported yet, and raising:
-``data.variable_length`` (ROADMAP §1 item 9), the trainer knobs that
-``training/trainer.py`` refuses, and eval mixtures for the reporter
-(``logs.metadata.ids``; set it to ``[]``), since there is no reporter yet
-(ROADMAP §1 item 11).
+are drawn from the config's ``seed``. Epoch losses and the separated demo
+mixtures of ``logs.metadata.ids`` (indices into the eval set, which must
+hold them) go to the log-only ``reporters.Reporter``, as the JAX CLI logs
+them without wandb. Not ported yet, and raising: ``data.variable_length``
+(ROADMAP §1 item 9) and the trainer knobs that ``training/trainer.py``
+refuses.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from tss_dprnn_tpu_torch.cli.common import (MODES, dataset_for, eval_mixtures_fr
 from tss_dprnn_tpu_torch.data.loader import TrainLoader
 from tss_dprnn_tpu_torch.device import resolve_device
 from tss_dprnn_tpu_torch.models.registry import build_model
+from tss_dprnn_tpu_torch.reporters import Reporter
 from tss_dprnn_tpu_torch.utils.config import load_config, model_config
 from tss_dprnn_tpu_torch.utils.weights import init_weights_
 
@@ -59,17 +61,20 @@ def main(argv=None):
     logger.info("train dataloader len: %d", len(train_loader))
     logger.info("eval dataloader len: %d", len(eval_loader))
     eval_mixtures = eval_mixtures_from(config, eval_set, spe, logger)
+    reporter = Reporter(config, logger) if spe or (config.get("logs") or {}) else None
 
     logger.info("Initializing model....")
     model = init_weights_(build_model(model_config(config)),
                           torch.Generator().manual_seed(int(config.get("seed", 0))))
 
     logger.info("Initializing trainer....")
-    trainer = TrainerClass(model, config, device=device, logger=logger,
+    trainer = TrainerClass(model, config, device=device, logger=logger, reporter=reporter,
                            eval_mixtures=eval_mixtures)
     logger.info("Initiating trainer run...")
     trainer.run(train_loader, eval_loader, config.get("epochs", 10), config.get("early_stop", 10))
     logger.info("trainer run COMPLETED")
+    if reporter:
+        reporter.wandb_finish()
 
 
 if __name__ == "__main__":

@@ -2,21 +2,31 @@
 (counterpart of ``tss_dprnn_tpu/inference/inferencer.py``).
 
 Semantics kept from the JAX package: a checkpoint is mandatory (a bare
-state_dict or a trainer's ``{"model": ...}`` file); the model
-runs in eval mode; bucketed batches run the masked forward; results land in
+state_dict or a trainer's ``{"model": ...}`` file); the model runs in eval
+mode; bucketed batches run the masked forward; results land in
 ``all_metrics.csv`` and ``final_metrics.json`` with the ``{metric,
-metric_imp}`` schema, a metric that a row could not score (None) left out of
-the means. The metric lanes are those of the JAX package's
-``device_metrics`` lane (inferencer.py:125-142, 279-300), with STOI on the
-host: for blind source separation the estimates are reordered to the best
-permutation by PIT SI-SDR on the device, SI-SDR is computed there, and a
-row's metric is the mean over its sources. STOI and PESQ run on the host in
-float64 (``ops/metrics.get_metrics``) on the device's reordered estimate,
-cut to each row's length; the audio crosses to the host only when one of
-them is asked for. A pool of threads computes them while the next batch's
-forward runs (``run(overlap_metrics=True)``). A config without ``metrics``
-asks for the JAX package's default, ``["si_sdr", "stoi", "pesq"]``.
-``device_pesq`` (PESQ on the device) is not ported yet and raises.
+metric_imp}`` schema, a metric that a row could not score (None or NaN) left
+out of the means. For blind source separation the estimates are reordered to
+the best permutation by PIT SI-SDR on the device, SI-SDR is computed there,
+and a row's metric is the mean over its sources. A config without
+``metrics`` asks for the JAX package's default, ``["si_sdr", "stoi",
+"pesq"]``.
+
+Two metric lanes, as in the JAX package (inferencer.py:71-81, 125-162):
+- the default: STOI and PESQ on the host in float64 (``ops/metrics``) on the
+  device's estimate, cut to each row's length, on a pool of threads that
+  scores earlier batches while the next batch's forward runs
+  (``run(overlap_metrics=True)``);
+- ``device_metrics``: STOI on the device (``ops/stoi.stoi_batch``), and with
+  ``device_pesq`` (which turns ``device_metrics`` on) PESQ too
+  (``ops/pesq_device.pesq_batch``), fp32, each one call per source on the
+  estimate's rows stacked over the mixture's (2B rows), the estimate zeroed
+  past each row's length first. PESQ without ``device_pesq`` stays on the
+  host.
+The estimate crosses to the host only for a host metric, and the pool starts
+only then: with ``device_pesq`` neither happens (``host_counts`` counts
+both). An optional reporter (``reporters.Reporter``) gets each TSS row's
+'test' record in batch order.
 """
 
 from __future__ import annotations
@@ -37,39 +47,49 @@ from tss_dprnn_tpu_torch.data.loader import BucketedEvalLoader, collate_bss_eval
 from tss_dprnn_tpu_torch.device import resolve_device
 from tss_dprnn_tpu_torch.ops import metrics as metrics_mod
 from tss_dprnn_tpu_torch.ops.losses import masked_si_sdr, pit_sisdr_loss
+from tss_dprnn_tpu_torch.ops.masking import length_mask
+from tss_dprnn_tpu_torch.ops.pesq_device import pesq_batch
+from tss_dprnn_tpu_torch.ops.stoi import stoi_batch
 from tss_dprnn_tpu_torch.utils.checkpoint import load_model
 
 SUPPORTED_METRICS = ("si_sdr", "stoi", "pesq")
-# computed on the host from the estimates (the rest on the device)
-HOST_METRICS = ("stoi", "pesq")
 # what a config without ``metrics`` asks for, as in the JAX package
 DEFAULT_METRICS = ("si_sdr", "stoi", "pesq")
+# batches whose estimate was copied to the host for its metrics, and metric
+# pools started, since the process began (or the caller last zeroed them)
+host_counts = {"estimates": 0, "pools": 0}
 
 
 class Inferencer:
     """Blind source separation (mode ``bss``): ``model(mix, lengths=...) ->
     [B, n_src, T]``. Subclasses for the other families override
     ``_make_loader(test_set, batch_size, n_buckets, multiple)``, ``forward``
-    and ``_batch_rows(batch) -> (rows, estimates)``, where each row is
-    ``{"index", metric, "input_" + metric, ...}`` for the device metrics and
-    the estimates are what the host metrics need (None when none is asked
-    for); ``_host_targets(batch, b)`` gives row ``b``'s reference signals."""
+    and ``_separate(batch) -> (estimates, targets, tensors)``, the estimates
+    and targets [B, n_src, T] on the device and ``tensors`` the batch's
+    ``mix`` and ``lengths`` there; ``_host_targets(batch, b)`` gives row
+    ``b``'s reference signals for the host metrics and ``_emit_rows`` hands
+    rows to the reporter."""
 
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, reporter=None):
         self.device = resolve_device(device)
         self.logger = logging.getLogger(__name__)
+        self.reporter = reporter
         self.metrics = list(config.get("metrics", DEFAULT_METRICS))
         unsupported = [m for m in self.metrics if m not in SUPPORTED_METRICS]
         if unsupported:
             raise NotImplementedError(f"metrics {unsupported} are not ported; the port "
                                       f"computes {SUPPORTED_METRICS}")
-        if config.get("device_pesq"):
-            raise NotImplementedError("device_pesq (PESQ on the device, ops/pesq_jax.py) is not "
-                                      "ported yet: ROADMAP §1 item 4; the port scores PESQ on "
-                                      "the host")
-        self.host_metrics = [m for m in self.metrics if m in HOST_METRICS]
+        self.device_pesq = bool(config.get("device_pesq", False))
+        self.device_metrics = bool(config.get("device_metrics", False)) or self.device_pesq
+        on_device = ("stoi", "pesq") if self.device_pesq else ("stoi",) if self.device_metrics \
+            else ()
+        self.device_lane = [m for m in self.metrics if m in on_device]
+        self.host_metrics = [m for m in self.metrics if m in ("stoi", "pesq")
+                             and m not in on_device]
         self.sample_rate = int((config.get("data") or {}).get("sample_rate", 8000))
+        # narrowband below 16 kHz, wideband from there, as the host lane picks
+        self._pesq_mode = "nb" if self.sample_rate < 16000 else "wb"
         self.test_savedir = config.get("test_savedir", ".")
         checkpoint_path = config.get("checkpoint_path")
         if checkpoint_path is None:
@@ -91,18 +111,45 @@ class Inferencer:
         t = self._to_device(batch, ("mix", "lengths"))
         return self.model(t["mix"], lengths=t["lengths"])
 
-    def _batch_rows(self, batch: Dict[str, np.ndarray]):
+    def _separate(self, batch: Dict[str, np.ndarray]):
         t = self._to_device(batch, ("mix", "sources", "lengths"))
-        lens = t["lengths"]
-        _, est = pit_sisdr_loss(self.forward(batch), t["sources"], return_est=True, lengths=lens)
-        rows = [{"index": int(i)} for i in batch["indices"]]
+        _, est = pit_sisdr_loss(self.forward(batch), t["sources"], return_est=True,
+                                lengths=t["lengths"])
+        return est, t["sources"], t
+
+    def _device_metric(self, name: str, clean: torch.Tensor, deg: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+        if name == "stoi":
+            return stoi_batch(clean, deg, lengths, self.sample_rate)
+        return pesq_batch(clean, deg, lengths, self.sample_rate, self._pesq_mode)
+
+    def _batch_rows(self, batch: Dict[str, np.ndarray]):
+        """A batch's rows with the device metrics, and its estimates on the
+        host when a host metric needs them (else None)."""
+        est, targets, t = self._separate(batch)
+        mix, lens = t["mix"], t["lengths"]
+        B, n_src, T = est.shape
+        dm = {}
         if "si_sdr" in self.metrics:
-            mix_n = t["mix"][:, None, :].expand_as(est)
-            si_sdr = masked_si_sdr(est, t["sources"], lens).mean(dim=1).cpu().numpy()
-            input_si_sdr = masked_si_sdr(mix_n, t["sources"], lens).mean(dim=1).cpu().numpy()
-            for b, row in enumerate(rows):
-                row.update(si_sdr=float(si_sdr[b]), input_si_sdr=float(input_si_sdr[b]))
-        return rows, (est.cpu().numpy() if self.host_metrics else None)
+            dm["si_sdr"] = masked_si_sdr(est, targets, lens).mean(dim=1)
+            dm["input_si_sdr"] = masked_si_sdr(mix[:, None, :].expand_as(est), targets,
+                                               lens).mean(dim=1)
+        if self.device_lane:
+            est = est * length_mask(lens, T, est.dtype)[:, None, :]  # padding is unspecified
+            lens2 = torch.cat([lens, lens])
+            for name in self.device_lane:
+                # per source one call: the estimate's rows over the mixture's
+                both = torch.stack([self._device_metric(
+                    name, torch.cat([targets[:, j], targets[:, j]]),
+                    torch.cat([est[:, j], mix]), lens2) for j in range(n_src)], dim=1)
+                dm[name], dm["input_" + name] = both[:B].mean(dim=1), both[B:].mean(dim=1)
+        host = {k: v.cpu().numpy() for k, v in dm.items()}
+        rows = [dict({k: float(v[b]) for k, v in host.items()}, index=int(i))
+                for b, i in enumerate(batch["indices"])]
+        if not self.host_metrics:
+            return rows, None
+        host_counts["estimates"] += 1
+        return rows, est.cpu().numpy()
 
     def _host_targets(self, batch: Dict[str, np.ndarray], b: int) -> np.ndarray:
         return batch["sources"][b]
@@ -123,6 +170,9 @@ class Inferencer:
                         **{k: row[k] for m in self.metrics for k in (m, "input_" + m)}})
         return out
 
+    def _emit_rows(self, batch: Dict[str, np.ndarray], rows: List[Dict[str, Any]]) -> None:
+        """Hand a batch's rows to the reporter; called in batch order."""
+
     def run(self, test_set, batch_size: int = 8, n_buckets: int = 8,
             bucket_multiple: int = 2000, overlap_metrics: bool = True,
             metrics_workers: Optional[int] = None) -> Dict[str, Optional[float]]:
@@ -132,25 +182,34 @@ class Inferencer:
         ``metrics_workers`` threads (default ``min(4, cpu_count)``; numpy's
         STOI and PESQ release the interpreter lock) scores earlier batches
         while the next batch runs on the device. The rows equal those of the
-        serial loop (``overlap_metrics=False``)."""
+        serial loop (``overlap_metrics=False``), and reach the reporter in
+        batch order either way."""
         rows: List[Dict[str, Any]] = []
         start = time.time()
         loader = self._make_loader(test_set, batch_size, n_buckets, bucket_multiple)
+
+        def consume(batch, batch_rows):
+            self._emit_rows(batch, batch_rows)
+            rows.extend(batch_rows)
+
         with torch.inference_mode():
             if self.host_metrics and overlap_metrics:
                 workers = metrics_workers or min(4, os.cpu_count() or 1)
+                host_counts["pools"] += 1
                 pending: deque = deque()
                 with ThreadPoolExecutor(max_workers=workers) as pool:
                     for batch in loader:
-                        pending.append(pool.submit(self._host_rows, batch,
-                                                   *self._batch_rows(batch)))
+                        pending.append((batch, pool.submit(self._host_rows, batch,
+                                                           *self._batch_rows(batch))))
                         while len(pending) > 2 + workers:  # bound the estimates held
-                            rows.extend(pending.popleft().result())
+                            batch, fut = pending.popleft()
+                            consume(batch, fut.result())
                     while pending:
-                        rows.extend(pending.popleft().result())
+                        batch, fut = pending.popleft()
+                        consume(batch, fut.result())
             else:
                 for batch in loader:
-                    rows.extend(self._host_rows(batch, *self._batch_rows(batch)))
+                    consume(batch, self._host_rows(batch, *self._batch_rows(batch)))
         self.logger.info("Finished *** <Total time:%.3f min>.", (time.time() - start) / 60)
         return self._save_result(rows)
 

@@ -1,19 +1,20 @@
 """Target-speech-separation inferencer
 (counterpart of ``tss_dprnn_tpu/inference/inferencer_spe.py``): the forward
 takes the reference waveform and its length; metrics are single-source
-(target vs estimate): SI-SDR on the device as in the JAX package's
-device-metrics lane (inferencer_spe.py:30-42), STOI and PESQ on the host."""
+(target vs estimate), in the lanes of :class:`Inferencer`. Each row goes to
+the reporter as a 'test' record, in batch order (``inferencer_spe.py:89-115``);
+the record holds the row's id and metrics, so the log-only reporter needs
+no audio from the device."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from tss_dprnn_tpu_torch.data.loader import BucketedEvalLoader, make_collate_spe_eval
 from tss_dprnn_tpu_torch.inference.inferencer import Inferencer
-from tss_dprnn_tpu_torch.ops.losses import masked_si_sdr
 
 
 class InferencerSpe(Inferencer):
@@ -27,16 +28,24 @@ class InferencerSpe(Inferencer):
         est, _ = self.model(t["mix"], t["reference"], t["ref_len"], lengths=t["lengths"])
         return est
 
-    def _batch_rows(self, batch: Dict[str, np.ndarray]):
+    def _separate(self, batch: Dict[str, np.ndarray]):
         est = self.forward(batch)
         t = self._to_device(batch, ("mix", "target", "lengths"))
-        rows = [{"index": int(i)} for i in batch["indices"]]
-        if "si_sdr" in self.metrics:
-            si_sdr = masked_si_sdr(est, t["target"], t["lengths"]).cpu().numpy()
-            input_si_sdr = masked_si_sdr(t["mix"], t["target"], t["lengths"]).cpu().numpy()
-            for b, row in enumerate(rows):
-                row.update(si_sdr=float(si_sdr[b]), input_si_sdr=float(input_si_sdr[b]))
-        return rows, (est.cpu().numpy() if self.host_metrics else None)
+        return est[:, None], t["target"][:, None], t
 
     def _host_targets(self, batch: Dict[str, np.ndarray], b: int) -> np.ndarray:
         return batch["target"][b]
+
+    def _emit_rows(self, batch: Dict[str, np.ndarray], rows: List[Dict[str, Any]]) -> None:
+        if self.reporter is None:
+            return
+
+        def imp(row, name):
+            a, ia = row.get(name), row.get("input_" + name)
+            return None if a is None or ia is None else a - ia
+
+        for row in rows:
+            self.reporter.add_and_report(
+                logs={"id": row["index"], **{m: row.get(m) for m in ("si_sdr", "stoi", "pesq")},
+                      **{f"{m}_imp": imp(row, m) for m in ("si_sdr", "stoi", "pesq")}},
+                mode="test")

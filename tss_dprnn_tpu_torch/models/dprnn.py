@@ -29,12 +29,14 @@ from tss_dprnn_tpu_torch.ops.masking import length_mask
 
 
 class DPRNNBlock(nn.Module):
-    """One dual-path block: intra-chunk BiLSTM + inter-chunk (Bi)LSTM, each
+    """One dual-path block: intra-chunk BiRNN + inter-chunk (Bi)RNN, each
     followed by Linear + global norm + residual. [B, S, K, N] -> same.
     ``chunk_lengths`` ([B] true chunk counts) masks the padded-S region.
     With ``bidirectional=False`` the inter-chunk scan is one forward
     direction feeding a Dense(H -> N); it does not use the chunk counts, and
-    the masked norm drops what it computes on padded chunks."""
+    the masked norm drops what it computes on padded chunks. A bidirectional
+    LSTM scan contracts with its Dense per direction; a GRU or RNN, as in the
+    JAX block, returns the concatenation and its Dense takes that."""
 
     def __init__(self, feature_size: int, hidden_size: int, norm_type: str = "gLN",
                  bidirectional: bool = True, rnn_type: str = "LSTM"):
@@ -57,15 +59,20 @@ class DPRNNBlock(nn.Module):
             chunk_mask = (s[None, :] < chunk_lengths[:, None]).to(x.dtype)[:, :, None, None]
             inter_lengths = chunk_lengths.repeat_interleave(K)
 
+        lstm = self.intra_rnn.rnn_type == "LSTM"
         # intra-chunk pass: sequences of length K over B*S rows, unmasked
         # (padded chunks carry zeros; the norm's mask drops their outputs)
-        wo2, bias = self.intra_linear.halves()
-        h = self.intra_rnn(x.reshape(B * S, K, N), dense_kernel=wo2) + bias
+        h = x.reshape(B * S, K, N)
+        if lstm:
+            wo2, bias = self.intra_linear.halves()
+            h = self.intra_rnn(h, dense_kernel=wo2) + bias
+        else:
+            h = self.intra_linear(self.intra_rnn(h))
         x = x + self.intra_norm(h.reshape(B, S, K, N), chunk_mask)
 
         # inter-chunk pass: sequences of length S over B*K rows
         h = x.transpose(1, 2).reshape(B * K, S, N)
-        if self.inter_rnn.bidirectional:
+        if lstm and self.inter_rnn.bidirectional:
             wo2, bias = self.inter_linear.halves()
             h = self.inter_rnn(h, inter_lengths, dense_kernel=wo2) + bias
         else:

@@ -1,15 +1,18 @@
 """DPRNN-Spe-TasNet: target speech separation with a SpEx+-style ResNet
-speaker encoder, 'att' fusion
-(counterpart of ``tss_dprnn_tpu/models/dprnn_spe.py:37-304``).
+speaker encoder and one of five fusions, 'cat', 'add', 'mul', 'film' or
+'att' (counterpart of ``tss_dprnn_tpu/models/dprnn_spe.py:37-304``).
 
 Reference quirks kept:
 - the aux_T mean-pool divisor is float floor-division arithmetic with stride
   ``kernel_size // 2`` whatever the configured stride;
 - the 'att' fusion's frozen depthwise average conv is a mean pool; its
   constant tensors stay registered as buffers (``separation.average.*``) so
-  reference-format state_dicts load strictly.
-The reference keeps the fusion's parameters on its separation module, so the
-fusion is a method of :class:`DPRNNSpe` rather than a child module.
+  reference-format state_dicts load strictly;
+- 'cat' widens the bottleneck 1x1 conv's input to N + E.
+The reference keeps the fusion's parameters on its separation module
+(``fusion_linear``; 'film' has ``fusion_linear_1`` and ``fusion_linear_2``,
+'cat' none), so the fusion is a method of :class:`DPRNNSpe` rather than a
+child module.
 """
 
 from __future__ import annotations
@@ -98,8 +101,11 @@ class _FrozenAverage(nn.Module):
         self.register_buffer("bias", torch.zeros(channels))
 
 
+FUSION_TYPES = ("cat", "add", "mul", "film", "att")
+
+
 class DPRNNSpe(DPRNNCore):
-    """Dual-path core + speaker branch + 'att' fusion.
+    """Dual-path core + speaker branch + fusion.
 
     ``forward(x [B, L, N], embeddings [B, La, N], aux_len [B], lengths=None)
     -> (masks [B, 2, L, N], logits [B, num_spks])``; ``aux_len`` holds the
@@ -111,17 +117,24 @@ class DPRNNSpe(DPRNNCore):
                  P: int = 256, embeddings_size: int = 128, num_spks: int = 251,
                  kernel_size: int = 2, fusion_type: str = "att", bidirectional: bool = True,
                  rnn_type: str = "LSTM"):
-        if fusion_type != "att":
-            raise NotImplementedError(f"fusion_type {fusion_type!r}: the port has 'att' only")
+        if fusion_type not in FUSION_TYPES:
+            raise ValueError(f"fusion_type must be one of {FUSION_TYPES}, got {fusion_type!r}")
         super().__init__(input_size, feature_size, hidden_size, chunk_length, hop_length,
                          n_repeats, norm_type, activation_type, bidirectional, rnn_type)
         N, E = input_size, embeddings_size
         self.kernel_size = kernel_size
+        self.fusion_type = fusion_type
+        fused = N + E if fusion_type == "cat" else N
         self.bottleneck = nn.Sequential(GlobalNorm(N, norm_type),
-                                        Dense(N, feature_size, conv_dims=1))
+                                        Dense(fused, feature_size, conv_dims=1))
         self.spk_encoder = SpeakerEncoder(N, O, P, E)
-        self.fusion_linear = Dense(E, N)
-        self.average = _FrozenAverage(N, kernel_size)
+        if fusion_type == "film":
+            self.fusion_linear_1 = Dense(E, N)
+            self.fusion_linear_2 = Dense(E, N)
+        elif fusion_type != "cat":
+            self.fusion_linear = Dense(E, N)
+        if fusion_type == "att":
+            self.average = _FrozenAverage(N, kernel_size)
         self.pred_linear = Dense(E, num_spks)
 
     def aux_feat_len(self, aux_len: torch.Tensor) -> torch.Tensor:
@@ -139,6 +152,17 @@ class DPRNNSpe(DPRNNCore):
 
     def fuse(self, aux: torch.Tensor, h: torch.Tensor,
              lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """aux [B, E], h [B, L, N] normalised -> [B, L, N] ([B, L, N + E] for
+        'cat'); only 'att' reads the lengths."""
+        ft = self.fusion_type
+        if ft == "cat":
+            return fusion_ops.concatenation(aux, h)
+        if ft == "add":
+            return fusion_ops.addition(self.fusion_linear(aux), h)
+        if ft == "mul":
+            return fusion_ops.multiplication(self.fusion_linear(aux), h)
+        if ft == "film":
+            return fusion_ops.film(self.fusion_linear_1(aux), self.fusion_linear_2(aux), h)
         return fusion_ops.attention(self.fusion_linear(aux), h, self.kernel_size, lengths)
 
     def forward(self, x: torch.Tensor, embeddings: torch.Tensor, aux_len: torch.Tensor,

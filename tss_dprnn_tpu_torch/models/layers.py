@@ -58,14 +58,19 @@ class SplitDense(Dense):
         return self.matrix().reshape(self.out_features, 2, H).permute(1, 2, 0), self.bias
 
 
-class _LSTMParams(nn.Module):
-    """The parameter set of a one-layer torch ``nn.LSTM``, under its names
-    (the ``_reverse`` ones only when bidirectional); the port never calls
-    cuDNN's LSTM."""
+# gate blocks per cell: i, f, g, o; r, z, n; one
+GATES = {"LSTM": 4, "GRU": 3, "RNN": 1}
 
-    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True):
+
+class _RNNParams(nn.Module):
+    """The parameter set of a one-layer torch ``nn.LSTM``, ``nn.GRU`` or
+    ``nn.RNN``, under its names (the ``_reverse`` ones only when
+    bidirectional); the port never calls cuDNN's cells."""
+
+    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True,
+                 rnn_type: str = "LSTM"):
         super().__init__()
-        G = 4 * hidden_size
+        G = GATES[rnn_type] * hidden_size
         self.suffixes = ("", "_reverse") if bidirectional else ("",)
         for sfx in self.suffixes:
             self.register_parameter(f"weight_ih_l0{sfx}", nn.Parameter(torch.empty(G, input_size)))
@@ -83,25 +88,35 @@ class _LSTMParams(nn.Module):
     def stacked(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return rnn_ops.stack_directions(*(self.direction(sfx) for sfx in self.suffixes))
 
+    def cell(self, sfx: str) -> rnn_ops.CellWeights:
+        """A GRU or RNN direction as (w_ih [F, G], w_hh [H, G], b_ih, b_hh)."""
+        def p(name):
+            return getattr(self, f"{name}_l0{sfx}")
+
+        return p("weight_ih").T, p("weight_hh").T, p("bias_ih"), p("bias_hh")
+
 
 class RNNCore(nn.Module):
-    """LSTM over [B, T, F], the reference SingleRNN (``rnn`` holds
-    nn.LSTM's tensors). Bidirectional: the pair (out_f, out_b), each
-    [B, T, H], unconcatenated; with ``dense_kernel`` (a :class:`SplitDense`'s
-    halves, [2, H, Fo]) the pair's product with it, [B, T, Fo], without the
-    bias (``rnn_ops.lstm_split_dense``). With ``lengths`` the backward
-    direction reads each row reversed within its length.
-    Unidirectional: [B, T, H]; ``lengths`` are not used (steps past a row's
-    length are unspecified and masked by the consumer). Only ``rnn_type``
-    'LSTM' is ported."""
+    """An RNN over [B, T, F], the reference SingleRNN (``rnn`` holds the
+    torch cell's tensors). With ``rnn_type`` 'LSTM' the port's kernels run.
+    Bidirectional: the pair (out_f, out_b), each [B, T, H], unconcatenated;
+    with ``dense_kernel`` (a :class:`SplitDense`'s halves, [2, H, Fo]) the
+    pair's product with it, [B, T, Fo], without the bias
+    (``rnn_ops.lstm_split_dense``). With ``lengths`` the backward direction
+    reads each row reversed within its length. Unidirectional: [B, T, H];
+    ``lengths`` are not used (steps past a row's length are unspecified and
+    masked by the consumer). 'GRU' and 'RNN' run ``rnn_ops.gru`` /
+    ``rnn_ops.vanilla_rnn`` (plain PyTorch, no kernel) and return the
+    directions concatenated, [B, T, H * ndir]."""
 
     def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True,
                  rnn_type: str = "LSTM"):
         super().__init__()
-        if rnn_type != "LSTM":
-            raise NotImplementedError(f"rnn_type {rnn_type!r}: the port has 'LSTM' only")
+        if rnn_type not in GATES:
+            raise ValueError(f"rnn_type must be LSTM/GRU/RNN, got {rnn_type!r}")
         self.bidirectional = bidirectional
-        self.rnn = _LSTMParams(input_size, hidden_size, bidirectional)
+        self.rnn_type = rnn_type
+        self.rnn = _RNNParams(input_size, hidden_size, bidirectional, rnn_type)
         self._stacked = None  # (the parameters it was built from, stacked weights)
 
     def stacked_weights(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -127,6 +142,12 @@ class RNNCore(nn.Module):
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 dense_kernel: Optional[torch.Tensor] = None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        if self.rnn_type != "LSTM":
+            if dense_kernel is not None:
+                raise ValueError("dense_kernel needs an LSTM")
+            cells = [self.rnn.cell(sfx) for sfx in self.rnn.suffixes]
+            fn = rnn_ops.gru if self.rnn_type == "GRU" else rnn_ops.vanilla_rnn
+            return fn(x, cells[0], cells[1] if self.bidirectional else None, lengths)
         if dense_kernel is not None:
             if not self.bidirectional:
                 raise ValueError("dense_kernel needs a bidirectional RNNCore")

@@ -3,8 +3,10 @@
 reference's fully qualified ``src.models.*`` targets, so reference YAML
 configs port unchanged.
 
-The families and options the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every fusion of DPRNN-Spe-TasNet and every ``rnn_type`` (LSTM, GRU, RNN)
+builds. The families and options the port does not have yet (IRA, RawNet,
+``dtype: bfloat16``) raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -48,8 +50,4 @@ def build_model(model_config: Dict[str, Any]):
     if dtype not in (None, "float32"):
         raise NotImplementedError(f"model dtype {dtype!r}: the port runs float32 until the "
                                   "bf16 lane, ROADMAP §1 item 10")
-    fusion = cfg.get("fusion_type", "att")
-    if cls is DPRNNSpeTasNet and fusion != "att":
-        raise NotImplementedError(f"fusion_type {fusion!r} is not ported yet: ROADMAP §1 item 5 "
-                                  "(the port has 'att')")
     return cls(**cfg)

@@ -1,7 +1,9 @@
-"""The 'att' speaker-embedding fusion, channels-last
-(counterpart of ``tss_dprnn_tpu/ops/fusion.py:44-142``).
+"""The five speaker-embedding fusions, channels-last
+(counterpart of ``tss_dprnn_tpu/ops/fusion.py``): 'cat', 'add', 'mul' and
+'film' broadcast the (projected) embedding over time; 'att' pools, scores
+and upsamples.
 
-Two reference quirks are kept exactly:
+Two reference quirks of 'att' are kept exactly:
 - the frozen depthwise "average" conv (stride = kernel, weights 1/kernel)
   is a non-overlapping mean pool;
 - ``nn.Upsample(mode='nearest')`` back to L, built per forward: with true
@@ -16,6 +18,27 @@ from typing import Optional
 import torch
 
 from tss_dprnn_tpu_torch.ops.masking import length_mask, masked_softmax
+
+
+def concatenation(aux: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """aux [B, E], out [B, L, N] -> [B, L, N + E]: the embedding appended to
+    every frame."""
+    B, L, _ = out.shape
+    return torch.cat([out, aux[:, None, :].expand(B, L, aux.shape[-1])], dim=-1)
+
+
+def addition(aux_proj: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """aux_proj [B, N] (fusion_linear(aux)), out [B, L, N]."""
+    return out + aux_proj[:, None, :]
+
+
+def multiplication(aux_proj: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    return out * aux_proj[:, None, :]
+
+
+def film(aux_mul: torch.Tensor, aux_add: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """FiLM: the multiplicative, then the additive modulation."""
+    return out * aux_mul[:, None, :] + aux_add[:, None, :]
 
 
 def mean_pool_time(x: torch.Tensor, k: int) -> torch.Tensor:

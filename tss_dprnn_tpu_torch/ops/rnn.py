@@ -1,6 +1,6 @@
-"""LSTM op layer
+"""Recurrent op layer
 (counterpart of ``tss_dprnn_tpu/ops/rnn.py:112-122, 140-303, 374-481,
-574-652, 693-764``).
+574-652, 693-764, 782-838``).
 
 A bidirectional DPRNN scan feeds a Dense(2H -> N), so :func:`lstm_pair`
 returns the per-direction pair and leaves the concatenation out. Without
@@ -46,6 +46,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     bilstm2_forward_resid_masked,
 )
 from tss_dprnn_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_resid
+from tss_dprnn_tpu_torch.ops.masking import masked_flip
 
 
 class LSTMWeights(NamedTuple):
@@ -217,3 +218,60 @@ def lstm(x: torch.Tensor, fwd: LSTMWeights, bwd: Optional[LSTMWeights] = None,
     if bwd is not None:
         return torch.cat(lstm_pair(x, stack_directions(fwd, bwd), lengths), dim=-1)
     return lstm_stack(x[None], stack_directions(fwd))[0]
+
+
+# (w_ih [F, G], w_hh [H, G], b_ih [G], b_hh [G]) of one direction of a GRU
+# (G = 3H, torch gate order r, z, n) or a tanh RNN (G = H)
+CellWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _scan(xs: torch.Tensor, w_hh: torch.Tensor, step) -> torch.Tensor:
+    """h_t = step(xp_t, h_(t-1)) from a zero state over xs [B, T, G] -> [B, T, H]."""
+    B, T, _ = xs.shape
+    h = xs.new_zeros(B, w_hh.shape[0])
+    outs = []
+    for t in range(T):
+        h = step(xs[:, t], h)
+        outs.append(h)
+    return torch.stack(outs, dim=1)
+
+
+def _both_directions(run, x: torch.Tensor, fwd: CellWeights, bwd: Optional[CellWeights],
+                     lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Direction 0 over x; direction 1 over each row reversed within its
+    length, its output reversed back; concatenated on the feature axis."""
+    out = run(x, *fwd)
+    if bwd is None:
+        return out
+    out_b = masked_flip(run(masked_flip(x, lengths), *bwd), lengths)
+    return torch.cat([out, out_b], dim=-1)
+
+
+def vanilla_rnn(x: torch.Tensor, fwd: CellWeights, bwd: Optional[CellWeights] = None,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Bi) tanh RNN over [B, T, F] (torch nn.RNN): h = tanh(x W_ih + b_ih +
+    b_hh + h W_hh) -> [B, T, H * ndir]."""
+    def run(xs, w_ih, w_hh, b_ih, b_hh):
+        return _scan(xs @ w_ih + b_ih + b_hh, w_hh,
+                     lambda xp_t, h: torch.tanh(xp_t + h @ w_hh))
+
+    return _both_directions(run, x, fwd, bwd, lengths)
+
+
+def gru(x: torch.Tensor, fwd: CellWeights, bwd: Optional[CellWeights] = None,
+        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Bi)GRU over [B, T, F] (torch nn.GRU: gate order r, z, n, separate
+    input and hidden biases) -> [B, T, H * ndir]."""
+    def run(xs, w_ih, w_hh, b_ih, b_hh):
+        H = w_hh.shape[0]
+
+        def step(xp_t, h):
+            hp = h @ w_hh + b_hh
+            r = torch.sigmoid(xp_t[:, :H] + hp[:, :H])
+            z = torch.sigmoid(xp_t[:, H:2 * H] + hp[:, H:2 * H])
+            n = torch.tanh(xp_t[:, 2 * H:] + r * hp[:, 2 * H:])
+            return (1 - z) * n + z * h
+
+        return _scan(xs @ w_ih + b_ih, w_hh, step)
+
+    return _both_directions(run, x, fwd, bwd, lengths)

@@ -15,11 +15,17 @@ The loss stays on the device and is read on the host only every
 residual and backward kernels); eval with ``model.eval()`` and no autograd
 (the inference kernel).
 
+Each epoch's loss goes to the ``reporter`` (``reporters.Reporter``) when
+there is one, and after each new best checkpoint the ``eval_mixtures`` (the
+demo mixtures of ``logs.metadata.ids``) are separated in eval mode and
+handed to it, as in the JAX trainers (``trainer.py:451-482``,
+``trainer_spe.py:56-69``).
+
 Config knobs of the JAX trainer this port does not have yet raise
 ``NotImplementedError``: ``accum_steps > 1``, ``lstm_save_every > 1``,
-``schedule_masks``, ``is_metrics``, batches that carry ``lengths``
-(variable-length training), a reporter and eval mixtures. ``lstm_backend``
-is accepted and ignored: the port always runs its kernels.
+``schedule_masks``, ``is_metrics`` and batches that carry ``lengths``
+(variable-length training). ``lstm_backend`` is accepted and ignored: the
+port always runs its kernels.
 """
 
 from __future__ import annotations
@@ -62,14 +68,15 @@ class Trainer:
                  device: Optional[Union[str, torch.device]] = None,
                  logger: Optional[logging.Logger] = None, reporter=None,
                  eval_mixtures: Optional[Dict] = None):
-        unported = _unported(config) + (["a reporter"] if reporter is not None else []) + (
-            ["eval mixtures"] if eval_mixtures else [])
+        unported = _unported(config)
         if unported:
             raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
         self.logger = logger or logging.getLogger(__name__)
+        self.reporter = reporter
+        self.eval_mixtures = eval_mixtures or {}
         self.cur_epoch = int(config.get("cur_epoch") or 0)
         self.print_freq = int(config.get("print_freq", 5))
 
@@ -117,6 +124,18 @@ class Trainer:
 
     def _forward_loss(self, batch: Dict[str, torch.Tensor], train: bool):
         return losses.pit_sisdr_loss(self.model(batch["mix"]), batch["sources"]), {}
+
+    # the reporter mode of the eval mixtures' estimates
+    mixtures_mode = "inference"
+
+    def _estimate_mixture(self, item: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """One demo mixture separated, its sources reordered by PIT."""
+        mix = torch.from_numpy(np.asarray(item["mix"], np.float32))[None].to(self.device)
+        sources = torch.from_numpy(np.stack([item["s1_target"], item["s2_target"]]).astype(
+            np.float32))[None].to(self.device)
+        _, est = losses.pit_sisdr_loss(self.model(mix), sources, return_est=True)
+        est = est[0].cpu().numpy()
+        return {"s1_estimated": est[0], "s2_estimated": est[1]}
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if "lengths" in batch:
@@ -188,6 +207,7 @@ class Trainer:
                 self._save_checkpoint(best=True)
                 self.logger.info("Epoch: %d, Now Best Loss Change: %.4f.", self.cur_epoch,
                                  -best_loss)
+                self._mixtures_inference()
             if no_improve_cnt == early_stop:
                 self.logger.info("Stop training cause no impr for %d epochs", no_improve_cnt)
                 break
@@ -202,9 +222,26 @@ class Trainer:
 
     def _log_epoch(self, total_loss: float, num_steps: int, start: float, mode: str) -> float:
         total_loss /= num_steps
+        if self.reporter is not None:
+            self.reporter.add_and_report(
+                logs={"step": self.cur_epoch, "loss": -total_loss, "metrics": None}, mode=mode)
         self.logger.info("Finished *** <epoch:%d, iter:%d, loss:%.3f, Total time:%.3f min>.",
                          self.cur_epoch, num_steps, -total_loss, (time.time() - start) / 60)
         return total_loss
+
+    @torch.no_grad()
+    def _mixtures_inference(self) -> None:
+        """The eval mixtures through the model in eval mode, their estimates
+        stored on each mixture and the lot handed to the reporter."""
+        if not self.eval_mixtures:
+            return
+        self.model.eval()
+        for item in self.eval_mixtures.values():
+            item.update(self._estimate_mixture(item))
+        if self.reporter is not None:
+            self.reporter.add_and_report(
+                logs={"step": self.cur_epoch, "mixtures": self.eval_mixtures},
+                mode=self.mixtures_mode)
 
     # ---------------------------------------------------------- checkpoints
 

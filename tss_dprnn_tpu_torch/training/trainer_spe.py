@@ -1,12 +1,14 @@
 """Target-speech-separation trainer (counterpart of
 ``tss_dprnn_tpu/training/trainer_spe.py``): loss = PIT SI-SDR(estimate,
 target as the single source) + ``ce_gamma`` * cross-entropy(speaker logits,
-speaker index) in training, SI-SDR alone in eval."""
+speaker index) in training, SI-SDR alone in eval. The eval mixtures'
+estimates go to the reporter as 'inference_spe'."""
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from tss_dprnn_tpu_torch.ops import losses
@@ -25,6 +27,15 @@ class TrainerSpe(Trainer):
             return sisdr, {}
         ce = losses.cross_entropy(logits, batch["spk_idx"])
         return sisdr + self.ce_gamma * ce, {"l": sisdr, "ce": ce}
+
+    mixtures_mode = "inference_spe"
+
+    def _estimate_mixture(self, item: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        mix, ref = (torch.from_numpy(np.asarray(item[k], np.float32))[None].to(self.device)
+                    for k in ("mix", "reference"))
+        ref_len = torch.tensor([float(ref.shape[1])], device=self.device)
+        est, _ = self.model(mix, ref, ref_len)
+        return {"estimated": est[0].cpu().numpy()}
 
     def _log_step(self, step, total_loss, aux):
         if aux:

@@ -6,7 +6,8 @@ exporter (``tss_dprnn_tpu/utils/torch_export.py:31-38, 131-204``).
 (``params`` plus ``batch_stats``); the result loads into
 :class:`tss_dprnn_tpu_torch.models.dprnn.DPRNNTasNet` or
 :class:`tss_dprnn_tpu_torch.models.dprnn_spe.DPRNNSpeTasNet` with
-``strict=True``, in either ``bidirectional`` setting. Frozen tensors the reference carries (the 'att' average
+``strict=True``, in either ``bidirectional`` setting, with every fusion and
+every ``rnn_type`` (the GRU's gates are 3H wide, the RNN's H). Frozen tensors the reference carries (the 'att' average
 conv, BatchNorm's ``num_batches_tracked``) are synthesised: they are
 functions of the config, not learned state.
 """
@@ -132,12 +133,12 @@ def state_dict_from_jax(variables: Mapping[str, Any], norm_type: str = "ln",
 @torch.no_grad()
 def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Random weights by torch's default rules, drawn from ``generator``:
-    U(+-1/sqrt(fan_in)) for linear, conv and LSTM tensors (fan_in = H for
-    the LSTM), norm scales 1 and shifts 0, PReLU slopes 0.25. Buffers (BN
+    U(+-1/sqrt(fan_in)) for linear, conv and recurrent tensors (fan_in = H
+    for an LSTM, GRU or RNN), norm scales 1 and shifts 0, PReLU slopes 0.25. Buffers (BN
     running statistics, the frozen average) keep their constructed values."""
     from tss_dprnn_tpu_torch.models.dprnn import Decoder, _Conv1dWeight
     from tss_dprnn_tpu_torch.models.layers import (
-        BatchNorm, Dense, GlobalNorm, PReLU, _LSTMParams)
+        BatchNorm, Dense, GlobalNorm, PReLU, _RNNParams)
 
     def uniform_(t: torch.Tensor, fan_in: int) -> None:
         k = fan_in ** -0.5
@@ -147,7 +148,7 @@ def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> torch.n
         if isinstance(m, Dense):
             for p in m.parameters(recurse=False):
                 uniform_(p, m.in_features)
-        elif isinstance(m, _LSTMParams):
+        elif isinstance(m, _RNNParams):
             for p in m.parameters(recurse=False):
                 uniform_(p, m.weight_hh_l0.shape[1])
         elif isinstance(m, (_Conv1dWeight, Decoder)):
