@@ -129,7 +129,29 @@ Phases, each of which fails the script (nonzero exit, no result line):
    alone, stoi_batch and pesq_batch on 8 ragged rows of 10 s at most
    stacked over their mixtures (16 rows), ms per batch on the card beside
    the host lane's ms for the same rows, the card within LANE_TOL of the
-   host.
+   host;
+15. the last two families ([ira-rawnet]), fp32 at full width:
+   DPRNN-Spe-IRA-TasNet at the flagship's widths (IRA) and
+   DPRNN-RawNet-TasNet at its defaults (RawNet3 C 1024, scale 8, E 256) over
+   the flagship core. Each is served over phase 3's requests (IRA: 12
+   unmasked + 12 masked launches per batch, 9 + 9 with share_blocks=3;
+   RawNet, through InferencerRawNet on 16 kHz references: 6 + 6; each after
+   its input product, and no other kernel), its serving rate timed on
+   chip_profile.py's batch of 8 beside the flagship's, card vs CPU on a
+   bucketed batch (>= 50 dB)
+   and a bucketed row against the request alone; one train step card vs
+   CPU at 1 x 1 s (loss within 1e-4 relative, gradients >= 40 dB; an IRA
+   step checkpoints pass 1, whose 6 blocks run their residual forwards again
+   in the backward: 36 residual forwards and 24 backwards); a 5 x 3 s train
+   step timed with its peak memory (IRA with pass 1 checkpointed and not:
+   the same loss bit for bit, gradients within 1e-6 of their max). Then
+   cli.train on configs/train_tss.yaml for one epoch with each family
+   (--mode tss_spe with model.target=dprnn_spe_ira_tasnet, --mode tss_rawnet
+   with model.target=dprnn_rawnet_tasnet and model.embeddings_size=256) on
+   phase 13's corpus with its eval mixtures, and cli.test on
+   configs/test_tss.yaml's metrics with each checkpoint (finite
+   final_metrics.json, the launches per batch); a share_blocks=3
+   checkpoint refused by cli.test under share_blocks=0.
 
 Every serving count includes the input products: each fp32
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
@@ -2106,11 +2128,11 @@ def phase_cli(torch, dev):
     for v in bss.values():
         del v["rows"]
     results["test_bss"] = dict(bss, device_pesq_vs_host=lane)
-    # the WAVs and checkpoints (~90 MB): checked, then removed so that
-    # chiprun_out/ stays small
-    for name in ("corpus", "chkpts"):
-        shutil.rmtree(os.path.join(root, name))
+    # the checkpoints (~90 MB): checked, then removed so that chiprun_out/
+    # stays small; phase 15 reads the corpus and removes it
+    shutil.rmtree(os.path.join(root, "chkpts"))
     os.remove(ckpt)
+    results["manifests"] = manifests
     return results
 
 
@@ -2324,7 +2346,8 @@ def _step_card_vs_cpu(torch, dev, make_model, start, trainer_cls, config, batch)
             ms = (time.perf_counter() - t0) * 1e3
             launches = dict(all_launches(), **product_launches())
         steps[str(device)] = (loss.item(), {k: p.grad.detach().cpu()
-                                            for k, p in t.model.named_parameters()})
+                                            for k, p in t.model.named_parameters()
+                                            if p.grad is not None})
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = steps[str(dev)], steps["cpu"]
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     grad_snr = snr_db(*(torch.cat([g[k].flatten() for k in sorted(g)]) for g in (g_gpu, g_cpu)))
@@ -2517,6 +2540,371 @@ def phase_families(torch, dev):
     return results
 
 
+# the last two families at full width: DPRNN-Spe-IRA-TasNet at the flagship's
+# widths, and DPRNN-RawNet-TasNet at its defaults (RawNet3 C 1024, scale 8,
+# sinc stride 10, 16 kHz references, E 256) over the flagship core
+IRA = dict(FLAGSHIP)
+RAWNET = dict(FLAGSHIP, embeddings_size=256)
+
+
+def serving_batch8(torch, collate):
+    """chip_profile.py's serving batch: 8 ragged requests of up to 10 s
+    from SEED, collated by ``collate``, with its audio-seconds."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    T = 10 * SAMPLE_RATE
+    lengths = [T] + [int(n) for n in rng.integers(T // 2, T + 1, 7)]
+    items = [(0.1 * rng.standard_normal(n).astype(np.float32),) * 2
+             + (0.1 * rng.standard_normal(int(rng.uniform(2, 5) * SAMPLE_RATE))
+                .astype(np.float32), 0) for n in lengths]
+    batch = collate(items, T)
+    batch["lengths"] = np.asarray(lengths, np.int32)
+    return batch, sum(lengths) / SAMPLE_RATE
+
+
+def ira_rawnet_family(name: str):
+    """What phase 15 drives for a model: its constructor, inferencer,
+    trainer, collates and the kernel launches it makes (n blocks of an
+    intra and an inter scan per pass). An IRA train step checkpoints its 6
+    pass-1 blocks: each runs its two residual forwards again in the
+    backward."""
+    import functools
+
+    from tss_dprnn_tpu_torch import inference, training
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.models import DPRNNRawNetTasNet, DPRNNSpeIRATasNet
+
+    n = FLAGSHIP["n_repeats"]
+    if name.startswith("ira"):
+        k = 3 if name == "ira_share3" else 0
+        blocks = 2 * n - k  # pass 1 and pass 2's blocks k..n-1
+        resid = {"bilstm2_forward_resid": 2 * blocks + 2 * n, "bilstm2_backward": 2 * blocks}
+        return dict(model=lambda **kw: DPRNNSpeIRATasNet(**IRA, share_blocks=k, **kw),
+                    inferencer=inference.InferencerSpe, trainer=training.TrainerSpe,
+                    collate=loader.collate_spe, eval_collate=loader.make_collate_spe_eval(),
+                    per_batch=with_products({"bilstm2_forward": blocks,
+                                             "bilstm2_forward_masked": blocks}),
+                    per_eval_step=with_products({"bilstm2_forward": 2 * blocks}),
+                    per_step=dict(resid, products_gemm=resid["bilstm2_forward_resid"]
+                                  + 4 * resid["bilstm2_backward"],
+                                  products_colsum=resid["bilstm2_backward"]),
+                    per_step_no_remat={"bilstm2_forward_resid": 2 * blocks,
+                                       "bilstm2_backward": 2 * blocks,
+                                       "products_gemm": 2 * blocks * 5,
+                                       "products_colsum": 2 * blocks},
+                    target="dprnn_spe_ira_tasnet", mode="tss_spe", sets=[])
+    return dict(model=lambda **kw: DPRNNRawNetTasNet(**RAWNET, **kw),
+                inferencer=inference.InferencerRawNet, trainer=training.TrainerRawNet,
+                collate=functools.partial(loader.collate_spe, resample_ref_to=16000),
+                eval_collate=loader.make_collate_spe_eval(16000, SAMPLE_RATE),
+                per_batch=with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n}),
+                per_eval_step=with_products({"bilstm2_forward": 2 * n}),
+                per_step={"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n,
+                          "products_gemm": 2 * n * 5, "products_colsum": 2 * n},
+                target="dprnn_rawnet_tasnet", mode="tss_rawnet",
+                sets=["model.embeddings_size=256"])
+
+
+def _alone(torch, inf, item, resample_to):
+    """The request at its exact shape, no lengths: its estimate on the CPU."""
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.data.resample import resample
+
+    mix, _, ref, _ = item
+    if resample_to:
+        ref = resample(ref, SAMPLE_RATE, resample_to)
+    ref = torch.from_numpy(np.ascontiguousarray(ref)).to(inf.device)[None]
+    ref_len = torch.tensor([float(ref.shape[1])], device=inf.device)
+    return inf.model(torch.from_numpy(mix).to(inf.device)[None], ref, ref_len)[0].cpu()
+
+
+def _timed_step(torch, dev, fam, start, batch, **kw):
+    """A 5 x 3 s train step on the card from ``start``: the first step's
+    loss, gradients (on the host) and launches, the second step's ms, and
+    the peak memory over both."""
+    model = fam["model"](**kw)
+    model.load_state_dict(start, strict=True)
+    t = fam["trainer"](model, dict(TRAIN_CONFIG, new_checkpoints_path=os.path.join(
+        OUT_DIR, "ira_rawnet_ckpt_unused")), device=dev)
+    t.model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss, _ = t._forward_loss(t._to_device(batch), train=True)
+    loss.backward()
+    launches = dict(all_launches(), **product_launches())
+    grads = torch.cat([p.grad.detach().flatten() for _, p in sorted(t.model.named_parameters())
+                       if p.grad is not None]).cpu()
+    loss = loss.detach().cpu()
+    t.optimizer.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_loss = float(t.train_step(batch)[0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del t, model
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grads": grads, "launches": launches, "ms": ms, "peak_gb": peak_gb,
+            "second_step_loss": step_loss}
+
+
+def phase_ira_rawnet(torch, dev, smi, manifests):
+    """Phase 15: DPRNN-Spe-IRA-TasNet and DPRNN-RawNet-TasNet at full width,
+    fp32, served and trained directly and through the CLIs, as the module
+    docstring says."""
+    import shutil
+
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.cli import test as test_cli, train as train_cli
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.data.librimix import LibrimixSpe
+    from tss_dprnn_tpu_torch.utils.config import load_config
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    results = {}
+    ds = Requests(SEED, 12)  # phase 3's requests
+    batch_size, n_buckets = 4, 2
+    n_batches = len(loader.BucketedEvalLoader(ds, batch_size, loader.make_collate_spe_eval(),
+                                              ds.lengths(), n_buckets=n_buckets))
+    short = ShortRequests(SEED + 40)
+    # the flagship on the same batch of 8, the yardstick of this run
+    from tss_dprnn_tpu_torch.inference import InferencerSpe
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+
+    ckpt = os.path.join(OUT_DIR, "flagship_batch8.pt")
+    torch.save(init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(SEED))
+               .state_dict(), ckpt)
+    inf = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP), {"checkpoint_path": ckpt}, device=dev)
+    batch8, audio8 = serving_batch8(torch, loader.make_collate_spe_eval())
+    with torch.inference_mode():
+        inf.forward(batch8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            inf.forward(batch8)
+        torch.cuda.synchronize()
+        fwd_s = (time.perf_counter() - t0) / 3
+    del inf
+    os.remove(ckpt)
+    results["flagship"] = {"batch8_forward_ms": fwd_s * 1e3,
+                           "audio_s_per_s_batch8": audio8 / fwd_s}
+    log(f"[ira-rawnet] flagship: batch of 8 ({audio8:.2f} audio-s) {fwd_s * 1e3:.1f} ms = "
+        f"{audio8 / fwd_s:.2f} audio-s/s on {smi}")
+    for name in ("ira", "ira_share3", "rawnet"):
+        fam = ira_rawnet_family(name)
+        start = init_weights_(fam["model"](), torch.Generator().manual_seed(SEED + 50))
+        start = start.state_dict()
+        ckpt = os.path.join(OUT_DIR, f"{name}.pt")
+        torch.save(start, ckpt)
+        config = {"checkpoint_path": ckpt, "metrics": ["si_sdr"],
+                  "test_savedir": os.path.join(OUT_DIR, f"{name}_metrics"),
+                  "data": {"sample_rate": SAMPLE_RATE}}
+        res = {}
+        # -- served over phase 3's requests, then the batch of 8 timed
+        inf = fam["inferencer"](fam["model"](), config, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served = dict(all_launches(), **product_launches())
+        expect_launches(served, fam["per_batch"], n_batches, f"{name} {type(inf).__name__}.run")
+        if not all(math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"{name} served non-finite metrics: {final}")
+        batch8, audio8 = serving_batch8(torch, fam["eval_collate"])
+        with torch.inference_mode():
+            inf.forward(batch8)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                est = inf.forward(batch8)
+            torch.cuda.synchronize()
+            fwd_s = (time.perf_counter() - t0) / 3
+            serve_peak = torch.cuda.max_memory_allocated() / 1e9
+            if not torch.isfinite(est).all():
+                raise AssertionError(f"{name}: non-finite estimates at batch 8")
+        res.update(serve_wall_s=wall, serve_launches=served, final=final,
+                   batch8_audio_s=audio8, batch8_forward_ms=fwd_s * 1e3,
+                   audio_s_per_s_batch8=audio8 / fwd_s, serve_peak_gb=serve_peak)
+        # -- card vs CPU on a bucketed batch, and a bucketed row vs the request alone
+        short_batch = fam["eval_collate"](short.items, max(short.lengths()))
+        short_batch["lengths"] = np.asarray(short.lengths(), np.int32)
+        inf_cpu = fam["inferencer"](fam["model"](), config, device="cpu")
+        resample_to = getattr(inf, "resample_ref_to", None)
+        with torch.inference_mode():
+            card = inf.forward(short_batch).cpu()
+            cpu = inf_cpu.forward(short_batch)
+            alone = _alone(torch, inf, short.items[0], resample_to)
+        serve_snr = _valid_snr(torch, card, cpu, short_batch["lengths"])
+        n0 = short.lengths()[0]
+        err_bucket = float((card[0, :n0] - alone).abs().max())
+        del inf, inf_cpu
+        torch.cuda.empty_cache()
+        log(f"[ira-rawnet] {name}: {fam['inferencer'].__name__}.run over {len(ds)} requests, "
+            f"{n_batches} batches in {wall:.3f} s (launches "
+            f"{ {k: v for k, v in served.items() if v} }); batch of 8 ({audio8:.2f} audio-s) "
+            f"{fwd_s * 1e3:.1f} ms = {audio8 / fwd_s:.2f} audio-s/s, peak {serve_peak:.2f} GB "
+            f"on {smi}; card vs CPU {serve_snr:.2f} dB on a bucketed batch; bucketed row vs "
+            f"alone max|err| {err_bucket:.3e}")
+        if not serve_snr >= 50.0:
+            raise AssertionError(f"{name} card vs CPU {serve_snr:.2f} dB < 50 dB")
+        if not torch.allclose(card[0, :n0], alone, atol=2e-4, rtol=1e-4):
+            raise AssertionError(f"{name}: bucketed row differs from the request alone: "
+                                 f"{err_bucket}")
+        res.update(serve_snr_db=serve_snr, bucketed_vs_alone_max_err=err_bucket)
+        if name == "ira_share3":  # serving only: its training is IRA's with fewer blocks
+            results[name] = res
+            os.remove(ckpt)
+            continue
+        # -- one train step card vs CPU at 1 x 1 s
+        one = fam["collate"](Crops(SEED + 42, 1, 1).items)
+        rel, grad_snr, stepped, _ = _step_card_vs_cpu(
+            torch, dev, fam["model"], start, fam["trainer"], TRAIN_CONFIG, one)
+        expect_launches(stepped, fam["per_step"], 1, f"{name} train step")
+        log(f"[ira-rawnet] {name}: train step (1 x 1 s) card vs CPU loss rel {rel:.2e}, "
+            f"gradients {grad_snr:.2f} dB")
+        if not (rel <= 1e-4 and grad_snr >= 40.0):
+            raise AssertionError(f"{name} card vs CPU train step: loss rel {rel}, gradients "
+                                 f"{grad_snr:.2f} dB")
+        res.update(step_loss_rel=rel, step_grad_snr_db=grad_snr, step_launches=stepped)
+        # -- 5 x 3 s steps timed (IRA with and without checkpointing pass 1)
+        big = fam["collate"](Crops(SEED + 51, TRAIN_BATCH, TRAIN_SECONDS).items)
+        runs = {"default": _timed_step(torch, dev, fam, start, big)}
+        if name == "ira":
+            runs["pass1_remat_0"] = _timed_step(torch, dev, fam, start, big, pass1_remat=0)
+            expect_launches(runs["pass1_remat_0"]["launches"], fam["per_step_no_remat"], 1,
+                            "ira 5 x 3 s step, pass 1 not checkpointed")
+        expect_launches(runs["default"]["launches"], fam["per_step"], 1,
+                        f"{name} 5 x 3 s step")
+        for tag, r in runs.items():
+            log(f"[ira-rawnet] {name} {tag}: {TRAIN_BATCH} x {TRAIN_SECONDS} s train step "
+                f"{r['ms']:.1f} ms, peak {r['peak_gb']:.2f} GB on {smi}; loss "
+                f"{float(r['loss']):.6f}; launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }")
+            if not (math.isfinite(float(r["loss"])) and math.isfinite(r["second_step_loss"])):
+                raise AssertionError(f"{name} {tag}: non-finite loss")
+        if name == "ira":
+            a, b = runs["default"], runs["pass1_remat_0"]
+            g_err = float((a["grads"] - b["grads"]).abs().max() / b["grads"].abs().max())
+            log(f"[ira-rawnet] ira with vs without pass-1 checkpointing: losses "
+                f"{float(a['loss'])!r} / {float(b['loss'])!r}, gradients max|diff| "
+                f"{g_err:.3e} of max|grad|")
+            if not (torch.equal(a["loss"], b["loss"]) and g_err <= 1e-6):
+                raise AssertionError(f"ira pass1_remat None vs 0: loss {a['loss']} vs "
+                                     f"{b['loss']}, gradients {g_err}")
+            res["remat_grad_max_rel_diff"] = g_err
+        res["steps_5x3s"] = {tag: {k: v for k, v in r.items() if k not in ("grads", "loss")}
+                             | {"loss": float(r["loss"])} for tag, r in runs.items()}
+        results[name] = res
+        os.remove(ckpt)
+
+    # -- a share_blocks=3 checkpoint refused under share_blocks=0
+    fam = ira_rawnet_family("ira_share3")
+    model = init_weights_(fam["model"](), torch.Generator().manual_seed(SEED + 52))
+    tr = fam["trainer"](model, dict(TRAIN_CONFIG, new_checkpoints_path=os.path.join(
+        OUT_DIR, "ira_share3_ckpt")), device=dev)
+    share3 = tr._save_checkpoint(best=False)
+    del tr, model
+
+    # -- both through the CLIs on phase 13's corpus
+    root = os.path.join(OUT_DIR, "cli")
+    test_yaml = os.path.join(HERE, "configs", "test_tss.yaml")
+    test_set = LibrimixSpe(manifest_path=manifests["test"])
+    eval_batch = 4
+    n_test = len(loader.BucketedEvalLoader(test_set, eval_batch, loader.make_collate_spe_eval(),
+                                           test_set.lengths(), n_buckets=n_buckets))
+    device_args = [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
+    cli = {}
+    for name in ("ira", "rawnet"):
+        fam = ira_rawnet_family(name)
+        ckpt_dir = os.path.join(root, f"{name}_chkpts")
+        argv = ["--config", os.path.join(HERE, "configs", "train_tss.yaml"), "--mode",
+                fam["mode"], "--set", f"data.use_generated_train={manifests['train']}",
+                f"data.use_generated_eval={manifests['eval']}", "epochs=1",
+                f"logs.metadata.ids=[{', '.join(map(str, CLI_IDS))}]",
+                f"model.target={fam['target']}", *fam["sets"],
+                f"new_checkpoints_path={ckpt_dir}", *device_args]
+        batch = load_config(argv[1])["data"]["batch_size"]
+        n_train = len(LibrimixSpe(manifest_path=manifests["train"])) // batch
+        n_eval = len(LibrimixSpe(manifest_path=manifests["eval"])) // batch
+        reset_launches()
+        with recorded_training(torch) as rec:
+            t0 = time.perf_counter()
+            train_cli.main(argv)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t0
+        launches = dict(all_launches(), **product_launches())
+        n_mix = rec.mixture_passes * len(CLI_IDS)
+        expect_launches(launches, {k: n_train * fam["per_step"].get(k, 0)
+                                   + (n_eval + n_mix) * fam["per_eval_step"].get(k, 0)
+                                   for k in launches}, 1,
+                        f"{name} cli.train ({n_train} train steps, {n_eval} eval steps, "
+                        f"{n_mix} eval mixtures)")
+        files = sorted(os.listdir(ckpt_dir))
+        if "1_best" not in files or len(rec.epochs) != 2 or \
+                not all(math.isfinite(v) for _, v in rec.epochs) or rec.mixture_passes != 1:
+            raise AssertionError(f"{name} cli.train: {files}, epochs {rec.epochs}, "
+                                 f"{rec.mixture_passes} passes over the eval mixtures")
+        steady = sorted(rec.step_ms[1:])
+        savedir = os.path.join(root, f"metrics_{name}")
+        reset_launches()
+        t0 = time.perf_counter()
+        final = test_cli.main(["--config", test_yaml, "--mode", fam["mode"], "--batch-size",
+                               str(eval_batch), "--n-buckets", str(n_buckets), "--set",
+                               f"data.use_generated_test={manifests['test']}",
+                               f"checkpoint_path={os.path.join(ckpt_dir, '1_best')}",
+                               f"model.target={fam['target']}", *fam["sets"],
+                               f"test_savedir={savedir}", *device_args])
+        torch.cuda.synchronize()
+        test_wall = time.perf_counter() - t0
+        tested = dict(all_launches(), **product_launches())
+        expect_launches(tested, fam["per_batch"], n_test, f"{name} cli.test")
+        with open(os.path.join(savedir, "final_metrics.json")) as f:
+            saved = json.load(f)
+        keys = {f"{m}{s}" for m in ("si_sdr", "stoi", "pesq") for s in ("", "_imp")}
+        if set(saved) != keys or not all(v is not None and math.isfinite(v)
+                                         for v in saved.values()):
+            raise AssertionError(f"{name} cli.test final_metrics.json: {saved}")
+        log(f"[ira-rawnet] {name} cli.train (configs/train_tss.yaml, --mode {fam['mode']}, "
+            f"model.target={fam['target']}, 1 epoch): {n_train} train + {n_eval} eval steps "
+            f"and {rec.mixture_passes} pass over {len(CLI_IDS)} eval mixtures in "
+            f"{train_wall:.2f} s, train steps {[round(v, 1) for v in rec.step_ms]} ms; "
+            f"epoch losses {rec.epochs}; cli.test (configs/test_tss.yaml, si_sdr stoi pesq) "
+            f"{len(test_set)} mixtures in {n_test} batches, {test_wall:.3f} s: {final}")
+        cli[name] = {"train_wall_s": train_wall, "step_ms": rec.step_ms,
+                     "ms_per_step": steady[len(steady) // 2], "epochs": rec.epochs,
+                     "train_launches": launches, "test_wall_s": test_wall, "final": final,
+                     "test_launches": tested}
+        shutil.rmtree(ckpt_dir)
+    # the share_blocks=3 checkpoint through cli.test with the default share_blocks=0
+    try:
+        test_cli.main(["--config", test_yaml, "--mode", "tss_spe", "--set",
+                       f"data.use_generated_test={manifests['test']}",
+                       f"checkpoint_path={share3}", "model.target=dprnn_spe_ira_tasnet",
+                       f"test_savedir={os.path.join(root, 'metrics_share3')}", *device_args])
+    except ValueError as exc:
+        if "share_blocks=3" not in str(exc):
+            raise
+        log(f"[ira-rawnet] a share_blocks=3 checkpoint under share_blocks=0: refused ({exc})")
+        cli["share_blocks_refused"] = str(exc)
+    else:
+        raise AssertionError("cli.test loaded a share_blocks=3 checkpoint under share_blocks=0")
+    results["cli"] = cli
+    # the corpus (~40 MB) and the rest: checked, then removed so that
+    # chiprun_out/ stays small
+    for path in (os.path.join(root, "corpus"), os.path.dirname(share3),
+                 os.path.join(OUT_DIR, "ira_rawnet_ckpt_unused"),
+                 os.path.join(OUT_DIR, "families_ckpt_unused")):
+        shutil.rmtree(path, ignore_errors=True)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2647,11 +3035,28 @@ def main() -> int:
         f"STOI {families['metric_lane']['stoi']['ms']:.2f} ms, PESQ "
         f"{families['metric_lane']['pesq']['ms']:.2f} ms per batch on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    ira_rawnet = phase_ira_rawnet(torch, dev, smi, cli["manifests"])
+    log(f"[ira-rawnet] phase done in {time.perf_counter() - t0:.1f} s; serving at batch 8: "
+        f"flagship {ira_rawnet['flagship']['audio_s_per_s_batch8']:.2f}, "
+        f"IRA {ira_rawnet['ira']['audio_s_per_s_batch8']:.2f}, IRA share_blocks=3 "
+        f"{ira_rawnet['ira_share3']['audio_s_per_s_batch8']:.2f}, RawNet "
+        f"{ira_rawnet['rawnet']['audio_s_per_s_batch8']:.2f} audio-s/s on {smi}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    for e in entries:  # the two families run the serving and the training pair
+        name = e["name"]
+        if name in ("bilstm2_forward", "bilstm2_forward_masked", "bilstm2_forward_resid",
+                    "bilstm2_backward"):
+            e["launches_ira_rawnet"] = {
+                fam: {"serving_run": r["serve_launches"].get(name, 0),
+                      "train_step_5x3s": {tag: st["launches"].get(name, 0)
+                                          for tag, st in r.get("steps_5x3s", {}).items()}}
+                for fam, r in ira_rawnet.items() if fam not in ("cli", "flagship")}
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
-                   "families": families}, f, indent=1)
+                   "families": families, "ira_rawnet": ira_rawnet}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -19,7 +19,8 @@ from tss_dprnn_tpu.cli import generate_manifests as jgen
 from tss_dprnn_tpu.cli import test as jtest_cli
 from tss_dprnn_tpu.utils import config as jconfig
 from tss_dprnn_tpu_torch.cli import generate_manifests, test as test_cli, train as train_cli
-from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
+from tss_dprnn_tpu_torch.models import (DPRNNRawNetTasNet, DPRNNSpeIRATasNet, DPRNNSpeTasNet,
+                                        DPRNNTasNet)
 from tss_dprnn_tpu_torch.models.registry import MODEL_REGISTRY, build_model
 from tss_dprnn_tpu_torch.utils import config
 from tss_dprnn_tpu_torch.utils.weights import init_weights_
@@ -138,18 +139,24 @@ def test_build_model_resolves_names(target, cls):
 
 
 @pytest.mark.parametrize("cfg,match", [
-    (dict(TINY, target="dprnn_spe_ira_tasnet"), "item 7"),
-    (dict(TINY, target="src.models.dprnn_rawnet.DPRNNRawNetTasNet"), "item 8"),
+    (dict(TINY_SPE, target="dprnn_spe_ira_tasnet", share_blocks=0), DPRNNSpeIRATasNet),
+    (dict(TINY_SPE, target="src.models.dprnn_rawnet.DPRNNRawNetTasNet", rawnet_C=32,
+          rawnet_scale=4), DPRNNRawNetTasNet),
     (dict(TINY_SPE, dtype="bfloat16"), "item 10"),
     (dict(TINY_SPE, fusion_type="cat"), None),
 ], ids=["ira", "rawnet", "bfloat16", "cat"])
 def test_build_model_raises_for_the_unported(cfg, match):
     """What is not ported raises naming its ROADMAP item; 'cat', refused
-    until the fusions were ported, builds with its widened bottleneck."""
+    until the fusions were ported, builds with its widened bottleneck, and
+    IRA and RawNet, refused until their families were ported, build their
+    classes."""
     if match is None:
         model = build_model(cfg)
         assert model.separation.bottleneck[1].in_features == cfg["input_size"] + cfg[
             "embeddings_size"]
+        return
+    if isinstance(match, type):
+        assert type(build_model(cfg)) is match
         return
     with pytest.raises(NotImplementedError, match=match):
         build_model(cfg)
@@ -257,11 +264,46 @@ def test_cli_bss_equals_jax_cli(flow):
                                   "rawnet"])
 def test_cli_test_refuses_what_is_not_ported(flow, case):
     """What is not ported raises; ``--device-pesq``, refused until PESQ ran
-    on the device, scores the triple there."""
+    on the device, scores the triple there, and ``--mode tss_rawnet``,
+    refused until the RawNet family was ported, serves a tiny RawNet
+    checkpoint on 16 kHz references."""
     ckpt = flow["tmp"] / "chkpts" / "2_best"
     cfg = dict(data=dict(use_generated_test=flow["manifests"]["port"]["test"]), model=TINY_SPE,
                checkpoint_path=str(ckpt), metrics=["si_sdr"],
                test_savedir=str(flow["tmp"] / f"refused_{case}"))
+    if case == "rawnet":
+        from tss_dprnn_tpu_torch.inference import InferencerRawNet
+
+        model_cfg = dict(TINY_SPE, target="dprnn_rawnet_tasnet", rawnet_C=32, rawnet_scale=4,
+                         rawnet_sinc_stride=16)
+        path = flow["tmp"] / "rawnet.pt"
+        torch.save(init_weights_(build_model(model_cfg), torch.Generator().manual_seed(6))
+                   .state_dict(), path)
+        seen = []
+        real = InferencerRawNet._make_loader
+
+        def loader(self, *args):  # the batches as the inferencer collates them
+            ld = real(self, *args)
+            seen.extend(ld)
+            return ld
+
+        InferencerRawNet._make_loader, restore = loader, real
+        try:
+            final = test_cli.main(["--config", _dump(flow["tmp"] / "rawnet.yaml", dict(
+                cfg, model=model_cfg, checkpoint_path=str(path))), "--mode", "tss_rawnet",
+                "--device", "cpu", "--batch-size", "4", "--n-buckets", "2"])
+        finally:
+            InferencerRawNet._make_loader = restore
+        assert set(final) == {"si_sdr", "si_sdr_imp"} and all(map(np.isfinite, final.values()))
+        rows = _rows(flow["tmp"] / f"refused_{case}" / "all_metrics.csv")
+        assert len(rows) == 8
+        from tss_dprnn_tpu_torch.data.librimix import LibrimixSpe
+
+        test_set = LibrimixSpe(manifest_path=flow["manifests"]["port"]["test"])
+        assert sorted(i for b in seen for i in b["indices"]) == list(range(len(test_set)))
+        for b in seen:  # every reference resampled to 16 kHz, its length counted there
+            assert b["ref_len"].tolist() == [2 * len(test_set[i][2]) for i in b["indices"]]
+        return
     if case == "device_pesq":
         from tss_dprnn_tpu_torch.inference.inferencer import host_counts
 
@@ -284,8 +326,6 @@ def test_cli_test_refuses_what_is_not_ported(flow, case):
         err, match = ValueError, "checkpoint_path is required"
     elif case == "data_parallel":
         argv += ["--data-parallel", "2"]
-    else:
-        argv[3] = "tss_rawnet"
     with pytest.raises(err, match=match):
         test_cli.main(argv)
 

@@ -207,8 +207,15 @@ def test_train_loader_prefetch_raises_worker_errors():
 
 
 def test_collate_spe_rejects_resampling():
-    with pytest.raises(NotImplementedError, match="RawNet"):
-        loader.collate_spe(_Crops(0, 2).items, resample_ref_to=16000)
+    """Refused until the RawNet family was ported: ``resample_ref_to``
+    resamples each reference on the host, as the JAX collate does."""
+    items = _Crops(0, 2).items
+    got = loader.collate_spe(items, resample_ref_to=16000)
+    want = jloader.collate_spe(items, resample_ref_to=16000)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["ref_len"].tolist() == [2 * len(it[2]) for it in items]
 
 
 # ---------------------------------------------------- one step against JAX

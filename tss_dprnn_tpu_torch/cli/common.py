@@ -5,13 +5,13 @@ from __future__ import annotations
 
 import logging
 import sys
+import functools
 from typing import Any, Dict
 
 from tss_dprnn_tpu_torch.data.librimix import Librimix, LibrimixSpe
 from tss_dprnn_tpu_torch.data.loader import collate_bss, collate_spe
 
 MODES = ("bss", "tss_spe", "tss_rawnet")
-RAWNET = "mode tss_rawnet: the RawNet family is not ported yet (ROADMAP §1 item 8)"
 
 
 class _StdoutHandler(logging.StreamHandler):
@@ -71,27 +71,27 @@ def dataset_for(config: Dict[str, Any], split: str, spe: bool):
 
 def train_components(mode: str):
     """(spe?, collate_fn, TrainerClass) for a mode."""
-    from tss_dprnn_tpu_torch.training import Trainer, TrainerSpe
+    from tss_dprnn_tpu_torch.training import Trainer, TrainerRawNet, TrainerSpe
 
     if mode == "bss":
         return False, collate_bss, Trainer
     if mode == "tss_spe":
         return True, collate_spe, TrainerSpe
     if mode == "tss_rawnet":
-        raise NotImplementedError(RAWNET)
+        return True, functools.partial(collate_spe, resample_ref_to=16000), TrainerRawNet
     raise ValueError(f"Invalid mode: {mode} (choose from {MODES})")
 
 
 def inference_components(mode: str):
     """(spe?, InferencerClass) for a mode."""
-    from tss_dprnn_tpu_torch.inference import Inferencer, InferencerSpe
+    from tss_dprnn_tpu_torch.inference import Inferencer, InferencerRawNet, InferencerSpe
 
     if mode == "bss":
         return False, Inferencer
     if mode == "tss_spe":
         return True, InferencerSpe
     if mode == "tss_rawnet":
-        raise NotImplementedError(RAWNET)
+        return True, InferencerRawNet
     raise ValueError(f"Invalid mode: {mode} (choose from {MODES})")
 
 

@@ -25,6 +25,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from tss_dprnn_tpu_torch.data.resample import resample
+
 Batch = Dict[str, np.ndarray]
 
 
@@ -52,19 +54,27 @@ def collate_bss(items) -> Batch:
     return {"mix": mix, "sources": src}
 
 
-def collate_spe(items, resample_ref_to: Optional[int] = None) -> Batch:
+def _references(items, resample_ref_to: Optional[int], sample_rate: int) -> List[np.ndarray]:
+    """The items' references, resampled on the host to ``resample_ref_to``
+    when it is given (the RawNet family's 16 kHz references)."""
+    refs = [np.asarray(it[2], np.float32) for it in items]
+    if resample_ref_to is not None:
+        refs = [resample(r, sample_rate, resample_ref_to) for r in refs]
+    return refs
+
+
+def collate_spe(items, resample_ref_to: Optional[int] = None, sample_rate: int = 8000) -> Batch:
     """Training batch for target speech separation: fixed-length mixtures
     and targets stacked, references zero-padded to the longest with their
-    true ``ref_len``. ``resample_ref_to`` (the RawNet family's 16 kHz
-    references) is not ported yet and raises."""
-    if resample_ref_to is not None:
-        raise NotImplementedError("resample_ref_to: the RawNet family is not ported yet")
+    true ``ref_len``; with ``resample_ref_to`` the references are first
+    resampled from ``sample_rate`` (the reference trainer's
+    ``trainer_rawnet.py:14-16,31``)."""
     mix = np.stack([it[0] for it in items]).astype(np.float32)
     target = np.stack([it[1] for it in items]).astype(np.float32)
-    refs = [np.asarray(it[2], np.float32) for it in items]
+    refs = _references(items, resample_ref_to, sample_rate)
     ref_len = np.array([r.shape[0] for r in refs], np.float32)
     T = max(r.shape[0] for r in refs)
-    ref = np.stack([_pad_to(r, T) for r in refs])
+    ref = np.stack([_pad_to(r, T) for r in refs]).astype(np.float32)
     spk = np.array([it[3] for it in items], np.int32)
     return {"mix": mix, "target": target, "reference": ref, "ref_len": ref_len, "spk_idx": spk}
 
@@ -191,15 +201,17 @@ def collate_bss_eval(items, bucket_T: int) -> Batch:
     return {"mix": mix, "sources": src}
 
 
-def make_collate_spe_eval(ref_bucket_multiple: int = 2000) -> Callable[[list, int], Batch]:
+def make_collate_spe_eval(resample_ref_to: Optional[int] = None, sample_rate: int = 8000,
+                          ref_bucket_multiple: int = 2000) -> Callable[[list, int], Batch]:
     """Eval collate for target speech separation: mixture and target padded
-    to the bucket, references to their rounded-up common length; the true
-    ``ref_len`` is kept for masking."""
+    to the bucket, references (resampled as :func:`collate_spe` does) to
+    their rounded-up common length; the true ``ref_len`` is kept for
+    masking."""
 
     def collate(items, bucket_T: int) -> Batch:
         mix = np.stack([_pad_to(np.asarray(it[0], np.float32), bucket_T) for it in items])
         target = np.stack([_pad_to(np.asarray(it[1], np.float32), bucket_T) for it in items])
-        refs = [np.asarray(it[2], np.float32) for it in items]
+        refs = _references(items, resample_ref_to, sample_rate)
         ref_len = np.array([r.shape[0] for r in refs], np.float32)
         Tr = max(r.shape[0] for r in refs)
         Tr = -(-Tr // ref_bucket_multiple) * ref_bucket_multiple

@@ -18,9 +18,13 @@ from tss_dprnn_tpu_torch.inference.inferencer import Inferencer
 
 
 class InferencerSpe(Inferencer):
+    # the rate the eval collate resamples references to (None: as read)
+    resample_ref_to = None
+
     def _make_loader(self, test_set, batch_size: int, n_buckets: int, multiple: int):
-        return BucketedEvalLoader(test_set, batch_size, make_collate_spe_eval(),
-                                  test_set.lengths(), n_buckets=n_buckets, multiple=multiple)
+        collate = make_collate_spe_eval(self.resample_ref_to, self.sample_rate)
+        return BucketedEvalLoader(test_set, batch_size, collate, test_set.lengths(),
+                                  n_buckets=n_buckets, multiple=multiple)
 
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """Masked forward of one bucketed batch -> estimates [B, T] on the device."""

@@ -16,10 +16,11 @@ therefore carries those names and the separation modules subclass it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tss_dprnn_tpu_torch.models.layers import Dense, GlobalNorm, PReLU, RNNCore, SplitDense
@@ -95,6 +96,7 @@ class DPRNNCore(nn.Module):
         self.input_size = input_size
         self.chunk_length = chunk_length
         self.hop_length = hop_length if hop_length is not None else chunk_length // 2
+        self.n_repeats = n_repeats
         self.activation_type = activation_type
         Fs = feature_size
         self.dprnn_blocks = nn.ModuleList(
@@ -107,13 +109,39 @@ class DPRNNCore(nn.Module):
         self.end_conv1x1 = Dense(Fs, input_size, bias=False, conv_dims=1)
 
     def forward(self, h: torch.Tensor, time_mask: Optional[torch.Tensor] = None,
-                chunk_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                chunk_lengths: Optional[torch.Tensor] = None, checkpoint_blocks: int = 0,
+                tap_block: Optional[int] = None,
+                resume: Optional[Tuple[int, torch.Tensor]] = None):
+        """``checkpoint_blocks`` k: under autograd the first k blocks run under
+        ``torch.utils.checkpoint`` (non-reentrant): they keep no activation
+        and run again in the backward, the JAX core's ``remat``; the values
+        are the same for any k.
+
+        ``tap_block`` k: also return the chunk-layout activation after block
+        k (k = 0: the segmented input), as ``(masks, tap)``. ``resume=(k,
+        tap)``: ``h`` is a delta, masked and segmented like an input, added
+        onto ``tap``, and only blocks k..n_repeats-1 run. Segmentation and
+        masking are linear, so ``resume=(0, tap)`` is exactly the call on the
+        tapped input plus the delta (``tss_dprnn_tpu/models/dprnn.py:204-212,
+        237-256``)."""
         B, L, Fs = h.shape
         if time_mask is not None:
             h = h * time_mask  # the padded tail is exactly zero before segmentation
         h = chunking.segment_cl(h, self.chunk_length, self.hop_length)  # [B, S, K, F]
-        for block in self.dprnn_blocks:
-            h = block(h, chunk_lengths)
+        start = 0
+        if resume is not None:
+            start, tap_in = resume
+            h = tap_in + h  # the first blocks' residuals of the tapped call ride in
+        tap = h if tap_block == 0 else None
+        for i in range(start, len(self.dprnn_blocks)):
+            block = self.dprnn_blocks[i]
+            if i < checkpoint_blocks and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(block, h, chunk_lengths,
+                                                      use_reentrant=False)
+            else:
+                h = block(h, chunk_lengths)
+            if tap_block is not None and i + 1 == tap_block:
+                tap = h
         h = self.conv2d(self.prelu(h))  # [B, S, K, 2F]
         S, K = h.shape[1], h.shape[2]
         # channel c = j*F + f belongs to source j (torch's reshape(B*2, F, K, S))
@@ -122,7 +150,8 @@ class DPRNNCore(nn.Module):
         h = torch.tanh(self.out(h)) * torch.sigmoid(self.gate(h))
         h = self.end_conv1x1(h)
         h = torch.sigmoid(h) if self.activation_type == "sigmoid" else torch.relu(h)
-        return h.reshape(B, 2, L, self.input_size)
+        masks = h.reshape(B, 2, L, self.input_size)
+        return masks if tap_block is None else (masks, tap)
 
 
 class _Conv1dWeight(nn.Module):

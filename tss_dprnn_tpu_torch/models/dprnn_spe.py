@@ -137,6 +137,11 @@ class DPRNNSpe(DPRNNCore):
             self.average = _FrozenAverage(N, kernel_size)
         self.pred_linear = Dense(E, num_spks)
 
+    def embed(self, embeddings: torch.Tensor, aux_len: torch.Tensor) -> torch.Tensor:
+        """The reference's speaker embedding [B, E] from its encoder
+        features [B, La, N] and its true waveform sample counts."""
+        return self.spk_encoder(embeddings, self.aux_feat_len(aux_len.long()), self.aux_T(aux_len))
+
     def aux_feat_len(self, aux_len: torch.Tensor) -> torch.Tensor:
         """Speaker-encoder input length in frames, stride kernel_size // 2."""
         stride = max(self.kernel_size // 2, 1)
@@ -165,15 +170,18 @@ class DPRNNSpe(DPRNNCore):
             return fusion_ops.film(self.fusion_linear_1(aux), self.fusion_linear_2(aux), h)
         return fusion_ops.attention(self.fusion_linear(aux), h, self.kernel_size, lengths)
 
+    def masks_for(self, lengths: Optional[torch.Tensor], L: int):
+        """(time mask [B, L, 1], chunk counts [B]) of feature-frame lengths,
+        or (None, None)."""
+        if lengths is None:
+            return None, None
+        return (length_mask(lengths, L)[:, :, None],
+                (lengths + self.chunk_length) // self.hop_length + 1)
+
     def forward(self, x: torch.Tensor, embeddings: torch.Tensor, aux_len: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        L = x.shape[1]
-        time_mask = chunk_lengths = None
-        if lengths is not None:
-            time_mask = length_mask(lengths, L)[:, :, None]
-            chunk_lengths = (lengths + self.chunk_length) // self.hop_length + 1
-        aux = self.spk_encoder(embeddings, self.aux_feat_len(aux_len.long()),
-                               self.aux_T(aux_len))  # [B, E]
+        time_mask, chunk_lengths = self.masks_for(lengths, x.shape[1])
+        aux = self.embed(embeddings, aux_len)  # [B, E]
         norm, dense = self.bottleneck
         h = dense(self.fuse(aux, norm(x, time_mask), lengths))
         return super().forward(h, time_mask, chunk_lengths), self.pred_linear(aux)
@@ -184,7 +192,11 @@ class DPRNNSpeTasNet(nn.Module):
     the target (mask 0) is decoded.
 
     ``forward(mix [B, T], aux [B, Ta], aux_len [B], lengths=None)
-    -> (target_wav [B, T], speaker_logits [B, num_spks])``."""
+    -> (target_wav [B, T], speaker_logits [B, num_spks])``. A subclass
+    names its separation module in ``separation_cls``; keyword arguments
+    beyond this class's go to it."""
+
+    separation_cls = DPRNNSpe
 
     def __init__(self, input_size: int, feature_size: int = 128, hidden_size: int = 128,
                  chunk_length: int = 200, kernel_size: int = 2,
@@ -193,27 +205,31 @@ class DPRNNSpeTasNet(nn.Module):
                  activation_type: str = "sigmoid", dropout: float = 0.0,
                  stride: Optional[int] = None, O: int = 128, P: int = 256,
                  embeddings_size: int = 128, num_spks: int = 251, fusion_type: str = "att",
-                 rnn_type: str = "LSTM"):
+                 rnn_type: str = "LSTM", **separation_kwargs):
         super().__init__()
         # dropout is accepted for config parity: a one-layer LSTM ignores it
         self.kernel_size = kernel_size
         self.stride = stride if stride is not None else kernel_size // 2
         self.encoder = Encoder(kernel_size, input_size, self.stride)
-        self.separation = DPRNNSpe(
+        self.separation = self.separation_cls(
             input_size, feature_size, hidden_size, chunk_length, hop_length, n_repeats,
             norm_type, activation_type, O, P, embeddings_size, num_spks, kernel_size,
-            fusion_type, bidirectional, rnn_type)
+            fusion_type, bidirectional, rnn_type, **separation_kwargs)
         self.decoder = Decoder(input_size, kernel_size, self.stride)
 
     def feat_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
         return (lengths - self.kernel_size) // self.stride + 1
+
+    def aux_input(self, aux: torch.Tensor) -> torch.Tensor:
+        """What the speaker branch reads: the reference's encoder features."""
+        return self.encoder(aux)
 
     def forward(self, mix: torch.Tensor, aux: torch.Tensor, aux_len: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         T = mix.shape[1]
         feats = self.encoder(mix)  # [B, L, N]
         f_lengths = None if lengths is None else self.feat_lengths(lengths)
-        masks, logits = self.separation(feats, self.encoder(aux), aux_len, f_lengths)
+        masks, logits = self.separation(feats, self.aux_input(aux), aux_len, f_lengths)
         target = masks[:, 0] * feats
         if f_lengths is not None:
             # padded frames would smear into the last valid sample

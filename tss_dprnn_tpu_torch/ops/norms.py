@@ -1,9 +1,13 @@
-"""Masked global layer norm, channels-last
-(counterpart of ``tss_dprnn_tpu/ops/norms.py:23-148``, fp32 lane).
+"""Masked global layer norms
+(counterpart of ``tss_dprnn_tpu/ops/norms.py``, fp32 lane).
 
 Mean and biased variance are taken over every axis but the batch axis, and
-only over unmasked positions; the affine is per channel (last axis). gLN
-adds 1e-8 inside the square root, torch's GroupNorm(1, C) ('ln') 1e-5.
+only over unmasked positions. gLN adds 1e-8 inside the square root, torch's
+GroupNorm(1, C) ('ln') 1e-5. The models run the channels-last form
+(:func:`global_channel_norm_cl`, affine on the last axis); the
+channels-first forms (:func:`global_channel_norm`, :func:`glob_ln`,
+:func:`chan_ln`, affine on axis 1) and :func:`z_norm` are the JAX package's
+plain ops, which no family calls.
 """
 
 from __future__ import annotations
@@ -14,6 +18,54 @@ import torch
 
 GLOBLN_EPS = 1e-8
 GROUPNORM_EPS = 1e-5
+
+
+def masked_mean_var(x: torch.Tensor, dims, mask: Optional[torch.Tensor] = None):
+    """Mean and biased variance over ``dims`` (kept), only over positions
+    where ``mask`` (broadcastable to x, {0,1}) is 1 when it is given."""
+    dims = tuple(dims)
+    if mask is None:
+        mean = x.mean(dim=dims, keepdim=True)
+        return mean, (x - mean).square().mean(dim=dims, keepdim=True)
+    m = torch.broadcast_to(mask, x.shape).to(x.dtype)
+    n = m.sum(dim=dims, keepdim=True).clamp_min(1.0)
+    mean = (x * m).sum(dim=dims, keepdim=True) / n
+    return mean, ((x - mean).square() * m).sum(dim=dims, keepdim=True) / n
+
+
+def z_norm(x: torch.Tensor, dims, eps: float = GLOBLN_EPS,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) over ``dims``; masked positions zero."""
+    mean, var = masked_mean_var(x, dims, mask)
+    out = (x - mean) / torch.sqrt(var + eps)
+    if mask is not None:
+        out = out * torch.broadcast_to(mask, x.shape).to(x.dtype)
+    return out
+
+
+def global_channel_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Channels-first global norm: x [B, C, *spatial], statistics over every
+    axis but the batch, gamma and beta [C] on axis 1; masked positions come
+    out exactly zero."""
+    out = z_norm(x, range(1, x.ndim), eps, mask)
+    shape = [1, x.shape[1]] + [1] * (x.ndim - 2)
+    out = gamma.reshape(shape).to(x.dtype) * out + beta.reshape(shape).to(x.dtype)
+    if mask is not None:
+        out = out * torch.broadcast_to(mask, x.shape).to(x.dtype)
+    return out
+
+
+def glob_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's GlobLN (eps 1e-8), channels first."""
+    return global_channel_norm(x, gamma, beta, GLOBLN_EPS, mask)
+
+
+def chan_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torch nn.GroupNorm(1, C) (eps 1e-5), channels first."""
+    return global_channel_norm(x, gamma, beta, GROUPNORM_EPS, mask)
 
 
 def global_channel_norm_cl(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -41,7 +41,7 @@ from tss_dprnn_tpu_torch.device import resolve_device
 from tss_dprnn_tpu_torch.ops import losses
 from tss_dprnn_tpu_torch.training.schedulers import ExponentialDecay, ReduceLROnPlateau
 from tss_dprnn_tpu_torch.training.train_state import Optimizer
-from tss_dprnn_tpu_torch.utils.checkpoint import CheckpointManager, load_model
+from tss_dprnn_tpu_torch.utils.checkpoint import CheckpointManager, load_model, share_blocks_of
 
 BEST_LOSS_SENTINEL = 100500.0  # the reference's starting best loss
 
@@ -247,6 +247,8 @@ class Trainer:
 
     def _save_checkpoint(self, best: bool = False) -> str:
         payload = {"epoch": self.cur_epoch, "model": self.model.state_dict()}
+        if share_blocks_of(self.model) is not None:
+            payload["share_blocks"] = share_blocks_of(self.model)
         if self.save_optimizer:
             payload.update(optimizer=self.optimizer.state_dict(), step=self.step,
                            scheduler=self.lr_scheduler.state_dict(),

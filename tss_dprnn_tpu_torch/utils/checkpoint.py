@@ -4,18 +4,28 @@
 Files are named ``{epoch}_{best|last}`` under ``new_checkpoints_path``; the
 newest ``n_checkpoints`` are kept and older ones removed. A file holds the
 reference's ``.pt`` layout: ``{"epoch", "model"}`` plus, for exact resume,
-``"optimizer"``, ``"scheduler"``, ``"step"`` and ``"run"``. Loading fails
-hard when the weights do not match the model (the reference silently starts
-from random weights).
+``"optimizer"``, ``"scheduler"``, ``"step"`` and ``"run"``, and for a
+DPRNN-Spe-IRA model its ``"share_blocks"``. Loading fails hard when the
+weights do not match the model (the reference silently starts from random
+weights), and when the recorded ``share_blocks`` differs from the model's:
+the setting adds no parameter, so its weights would load under any value.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from collections import deque
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+logger = logging.getLogger(__name__)
+
+
+def share_blocks_of(model: torch.nn.Module) -> Optional[int]:
+    """The IRA model's ``share_blocks``; None for every other family."""
+    return getattr(getattr(model, "separation", None), "share_blocks", None)
 
 
 class CheckpointManager:
@@ -50,5 +60,14 @@ def load_model(path: str, model: torch.nn.Module) -> Dict[str, Any]:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict)):
         ckpt = {"model": ckpt}
+    k = share_blocks_of(model)
+    if k is not None:
+        if "share_blocks" not in ckpt:
+            logger.info("%s records no share_blocks (a reference or exported state_dict): "
+                        "loaded under the model's share_blocks=%d", path, k)
+        elif int(ckpt["share_blocks"]) != k:
+            raise ValueError(f"{path} was trained with share_blocks={int(ckpt['share_blocks'])}"
+                             f", the model has share_blocks={k}: set model.share_blocks to "
+                             "the recorded value")
     model.load_state_dict(ckpt["model"], strict=True)
     return ckpt

@@ -1,15 +1,19 @@
 """JAX model variables -> the port's (reference-format) torch state_dict.
 
-The port's own copy of the DPRNN (BSS) and Spe branches of the JAX package's
-exporter (``tss_dprnn_tpu/utils/torch_export.py:31-38, 131-204``).
+The port's own copy of the JAX package's exporter
+(``tss_dprnn_tpu/utils/torch_export.py:31-128, 131-204``), every family:
 ``variables`` are the flax variables as nested dicts of numpy arrays
-(``params`` plus ``batch_stats``); the result loads into
-:class:`tss_dprnn_tpu_torch.models.dprnn.DPRNNTasNet` or
-:class:`tss_dprnn_tpu_torch.models.dprnn_spe.DPRNNSpeTasNet` with
-``strict=True``, in either ``bidirectional`` setting, with every fusion and
-every ``rnn_type`` (the GRU's gates are 3H wide, the RNN's H). Frozen tensors the reference carries (the 'att' average
-conv, BatchNorm's ``num_batches_tracked``) are synthesised: they are
-functions of the config, not learned state.
+(``params`` plus ``batch_stats``); the result loads with ``strict=True``
+into :class:`~tss_dprnn_tpu_torch.models.dprnn.DPRNNTasNet` (either
+``bidirectional`` setting, every ``rnn_type``: the GRU's gates are 3H wide,
+the RNN's H), :class:`~tss_dprnn_tpu_torch.models.dprnn_spe.DPRNNSpeTasNet`
+(every fusion), :class:`~tss_dprnn_tpu_torch.models.dprnn_spe_ira.DPRNNSpeIRATasNet`
+(``aux_linear``) and :class:`~tss_dprnn_tpu_torch.models.dprnn_rawnet.DPRNNRawNetTasNet`
+(the RawNet3 tree). Frozen tensors the reference carries are synthesised:
+they are functions of the config, not learned state (the 'att' average
+conv, BatchNorm's ``num_batches_tracked``, the pre-emphasis filter, the
+sinc filterbank's ``window_`` and ``n_``, and the defaults of the ``bn1``
+RawNet3 defines and never runs).
 """
 
 from __future__ import annotations
@@ -73,8 +77,60 @@ def _resblock_entries(out, prefix, p, s):
         _dense_entries(out, f"{prefix}.conv_downsample", p["conv_downsample"], conv=True)
 
 
+def _bn_default(out, prefix, channels: int):
+    """torch's default BatchNorm tensors, for the ``bn1`` RawNet3 defines
+    and never runs: its checkpoint values are untrained noise."""
+    out[f"{prefix}.weight"] = np.ones(channels, np.float32)
+    out[f"{prefix}.bias"] = np.zeros(channels, np.float32)
+    out[f"{prefix}.running_mean"] = np.zeros(channels, np.float32)
+    out[f"{prefix}.running_var"] = np.ones(channels, np.float32)
+    out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _rawnet_entries(out, prefix, sk, sk_stats, sinc_kernel: int, sample_rate: float):
+    """The RawNet3 tree (``torch_export.py:83-128`` of the JAX package)
+    under ``prefix`` ('separation.spk_encoder')."""
+    from tss_dprnn_tpu_torch.ops.sinc import sinc_buffers
+
+    out[f"{prefix}.preprocess.0.flipped_filter"] = np.array([[[-0.97, 1.0]]], np.float32)
+    out[f"{prefix}.preprocess.1.weight"] = _copy(sk["inorm_weight"])
+    out[f"{prefix}.preprocess.1.bias"] = _copy(sk["inorm_bias"])
+    low = np.asarray(sk["conv1"]["low_hz_"])
+    out[f"{prefix}.conv1.filterbank.low_hz_"] = low.copy()
+    out[f"{prefix}.conv1.filterbank.band_hz_"] = _copy(sk["conv1"]["band_hz_"])
+    window, n_ = sinc_buffers(sinc_kernel, sample_rate)
+    out[f"{prefix}.conv1.filterbank.window_"] = window.numpy()
+    out[f"{prefix}.conv1.filterbank.n_"] = n_.numpy()
+    _bn_default(out, f"{prefix}.bn1", 2 * low.shape[0])  # C // 4 filters of C // 8 bands
+    for name in ("layer1", "layer2", "layer3"):
+        lp, p, s = f"{prefix}.{name}", sk[name], sk_stats.get(name, {})
+        _dense_entries(out, f"{lp}.conv1", p["conv1"], conv=True)
+        _bn_entries(out, f"{lp}.bn1", p["bn1"], s["bn1"])
+        i = 0
+        while f"convs_{i}_w" in p:
+            out[f"{lp}.convs.{i}.weight"] = _copy(p[f"convs_{i}_w"])
+            out[f"{lp}.convs.{i}.bias"] = _copy(p[f"convs_{i}_b"])
+            _bn_entries(out, f"{lp}.bns.{i}", p[f"bns_{i}"], s[f"bns_{i}"])
+            i += 1
+        _dense_entries(out, f"{lp}.conv3", p["conv3"], conv=True)
+        _bn_entries(out, f"{lp}.bn3", p["bn3"], s["bn3"])
+        if "residual" in p:
+            out[f"{lp}.residual.0.weight"] = _conv1x1(p["residual"]["kernel"])
+        out[f"{lp}.afms.alpha"] = np.asarray(p["afms"]["alpha"]).reshape(-1, 1).copy()
+        _dense_entries(out, f"{lp}.afms.fc", p["afms"]["fc"])
+    _dense_entries(out, f"{prefix}.layer4", sk["layer4"], conv=True)
+    _dense_entries(out, f"{prefix}.attention.0", sk["att_conv1"], conv=True)
+    _bn_entries(out, f"{prefix}.attention.2", sk["att_bn"], sk_stats["att_bn"])
+    _dense_entries(out, f"{prefix}.attention.3", sk["att_conv2"], conv=True)
+    for bn in ("bn5", "bn6"):
+        if bn in sk:
+            _bn_entries(out, f"{prefix}.{bn}", sk[bn], sk_stats[bn])
+    _dense_entries(out, f"{prefix}.fc6", sk["fc6"])
+
+
 def state_dict_from_jax(variables: Mapping[str, Any], norm_type: str = "ln",
-                        kernel_size: int = 2, fusion_type: str = "att"
+                        kernel_size: int = 2, fusion_type: str = "att",
+                        sinc_kernel: int = 251, sinc_sample_rate: float = 16000.0
                         ) -> Dict[str, torch.Tensor]:
     """flax variables (params [+ batch_stats]) -> reference-format state_dict."""
     params = variables["params"]
@@ -118,15 +174,20 @@ def state_dict_from_jax(variables: Mapping[str, Any], norm_type: str = "ln",
     if "spk_encoder" in sep:
         sk = sep["spk_encoder"]
         sk_stats = sep_stats.get("spk_encoder", {})
-        out["separation.spk_encoder.0.weight"] = _copy(sk["norm"]["gamma"])
-        out["separation.spk_encoder.0.bias"] = _copy(sk["norm"]["beta"])
-        _dense_entries(out, "separation.spk_encoder.1", sk["conv_in"], conv=True)
-        for idx, res in (("2", "res1"), ("3", "res2"), ("4", "res3")):
-            _resblock_entries(out, f"separation.spk_encoder.{idx}", sk[res],
-                              sk_stats.get(res, {}))
-        _dense_entries(out, "separation.spk_encoder.5", sk["conv_out"], conv=True)
-    if "pred_linear" in sep:
-        _dense_entries(out, "separation.pred_linear", sep["pred_linear"])
+        if "norm" not in sk:  # RawNet3: no GroupNorm head
+            _rawnet_entries(out, "separation.spk_encoder", sk, sk_stats, sinc_kernel,
+                            sinc_sample_rate)
+        else:
+            out["separation.spk_encoder.0.weight"] = _copy(sk["norm"]["gamma"])
+            out["separation.spk_encoder.0.bias"] = _copy(sk["norm"]["beta"])
+            _dense_entries(out, "separation.spk_encoder.1", sk["conv_in"], conv=True)
+            for idx, res in (("2", "res1"), ("3", "res2"), ("4", "res3")):
+                _resblock_entries(out, f"separation.spk_encoder.{idx}", sk[res],
+                                  sk_stats.get(res, {}))
+            _dense_entries(out, "separation.spk_encoder.5", sk["conv_out"], conv=True)
+    for name in ("pred_linear", "aux_linear"):
+        if name in sep:
+            _dense_entries(out, f"separation.{name}", sep[name])
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
 
 
@@ -134,11 +195,15 @@ def state_dict_from_jax(variables: Mapping[str, Any], norm_type: str = "ln",
 def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Random weights by torch's default rules, drawn from ``generator``:
     U(+-1/sqrt(fan_in)) for linear, conv and recurrent tensors (fan_in = H
-    for an LSTM, GRU or RNN), norm scales 1 and shifts 0, PReLU slopes 0.25. Buffers (BN
-    running statistics, the frozen average) keep their constructed values."""
+    for an LSTM, GRU or RNN), norm scales 1 and shifts 0, PReLU slopes 0.25;
+    RawNet3's sinc bands mel-spaced, its AFMS alphas and instance-norm
+    scale 1. Buffers (BN running statistics, the frozen tensors) keep their
+    constructed values."""
     from tss_dprnn_tpu_torch.models.dprnn import Decoder, _Conv1dWeight
     from tss_dprnn_tpu_torch.models.layers import (
         BatchNorm, Dense, GlobalNorm, PReLU, _RNNParams)
+    from tss_dprnn_tpu_torch.models.rawnet import (
+        AFMS, Conv1d, ParamSincFB, _InstanceNormAffine)
 
     def uniform_(t: torch.Tensor, fan_in: int) -> None:
         k = fan_in ** -0.5
@@ -151,12 +216,17 @@ def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> torch.n
         elif isinstance(m, _RNNParams):
             for p in m.parameters(recurse=False):
                 uniform_(p, m.weight_hh_l0.shape[1])
-        elif isinstance(m, (_Conv1dWeight, Decoder)):
-            uniform_(m.weight, m.weight.shape[1] * m.weight.shape[2])
-        elif isinstance(m, (GlobalNorm, BatchNorm)):
+        elif isinstance(m, (_Conv1dWeight, Decoder, Conv1d)):
+            for p in m.parameters(recurse=False):
+                uniform_(p, m.weight.shape[1] * m.weight.shape[2])
+        elif isinstance(m, (GlobalNorm, BatchNorm, _InstanceNormAffine)):
             scale, shift = list(m.parameters(recurse=False))
             scale.fill_(1.0)
             shift.zero_()
+        elif isinstance(m, ParamSincFB):
+            m.init_bands_()
+        elif isinstance(m, AFMS):
+            m.alpha.fill_(1.0)
         elif isinstance(m, PReLU):
             m.weight.fill_(0.25)
     return model
