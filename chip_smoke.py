@@ -153,6 +153,31 @@ Phases, each of which fails the script (nonzero exit, no result line):
    final_metrics.json, the launches per batch); a share_blocks=3
    checkpoint refused by cli.test under share_blocks=0.
 
+16. variable-length training and the trainer's other knobs ([varlen]), fp32
+   at full flagship width: a synthetic corpus of whole utterances (20 train
+   and 10 eval mixtures of 2-8 s, phase 13's writer) with manifests frozen
+   with ``segment: null``; cli.train for one epoch with
+   ``data.variable_length=true data.max_segment=5 data.n_buckets=4`` and
+   in-range eval mixtures, on configs/train_tss.yaml (--mode tss_spe; per
+   train step 6 + 6 residual forwards, unmasked and masked, and 6 + 6 fused
+   backwards, with their 60 products and 12 column sums, and no
+   lstm_forward_with_cs), configs/train_bss.yaml with the causal inter scan
+   (--mode bss) and --mode tss_rawnet, ms per step by bucket and the run's
+   peak memory, a checkpoint each; one 2 x 1 s variable-length TSS step card
+   vs CPU (loss within 1e-4 relative, gradients >= 40 dB); the same step with
+   other garbage past the lengths (loss and every gradient within 1e-6 of
+   their size); accum_steps=5 against 1 at 5 x 3 s (BSS: loss 1e-4, gradients
+   40 dB; TSS: BatchNorm's running statistics those of the last micro-batch
+   alone); lstm_save_every=10 against 1 on the largest bucket (12
+   lstm_forward_with_cs launches and no training pair; loss 1e-4, gradients
+   40 dB); schedule_masks on a 5 x 3 s step (value neutral within 1e-4, the
+   unmasked pair's launches); each of these steps timed as a second step
+   of its trainer, with the peak memory of both; and the masked
+   residual forward and backward at the largest bucket's inter shape and the
+   want_cs forward at D = 2 over its intra shape against their plain
+   versions (1e-4; dW and db DW_REL_TOL), timed beside them, the bound and
+   cuDNN.
+
 Every serving count includes the input products: each fp32
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
 fp32 lstm_forward launch one per direction (one on every path: the causal
@@ -1752,23 +1777,25 @@ def write_corpus(root: str, split: str, n: int, secs, seed: int) -> str:
 
 
 class recorded_training:
-    """Patches ``Trainer.train_step``, ``Trainer._log_epoch`` and
-    ``Trainer._mixtures_inference`` while it is entered, so that a run the
-    CLI builds reports each train step's time (between two synchronisations
-    of the card), each epoch's loss and each pass over the eval mixtures; and
-    records every line the port's loggers write meanwhile."""
+    """Patches ``Trainer.train_step``, ``Trainer.eval_step``,
+    ``Trainer._log_epoch`` and ``Trainer._mixtures_inference`` while it is
+    entered, so that a run the CLI builds reports each train step's time
+    (between two synchronisations of the card) and batch width, its eval
+    steps, each epoch's loss and each pass over the eval mixtures; and records
+    every line the port's loggers write meanwhile."""
 
     def __init__(self, torch):
         from tss_dprnn_tpu_torch.training.trainer import Trainer
 
         self.torch, self.cls = torch, Trainer
-        self.step_ms, self.epochs, self.mixture_passes = [], [], 0
+        self.step_ms, self.widths, self.epochs, self.mixture_passes = [], [], [], 0
+        self.eval_steps = 0
         self.lines = log_lines()
 
     def __enter__(self):
         torch, step, log_epoch = self.torch, self.cls.train_step, self.cls._log_epoch
-        mixtures = self.cls._mixtures_inference
-        self._saved = (step, log_epoch, mixtures)
+        mixtures, eval_step = self.cls._mixtures_inference, self.cls.eval_step
+        self._saved = (step, log_epoch, mixtures, eval_step)
         self.lines.__enter__()
 
         def train_step(trainer, batch):
@@ -1777,7 +1804,12 @@ class recorded_training:
             out = step(trainer, batch)
             torch.cuda.synchronize()
             self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.widths.append(int(batch["mix"].shape[-1]))
             return out
+
+        def counted_eval_step(trainer, batch):
+            self.eval_steps += 1
+            return eval_step(trainer, batch)
 
         def _log_epoch(trainer, total_loss, num_steps, start, mode):
             loss = log_epoch(trainer, total_loss, num_steps, start, mode)
@@ -1789,11 +1821,12 @@ class recorded_training:
             return mixtures(trainer)
 
         self.cls.train_step, self.cls._log_epoch = train_step, _log_epoch
-        self.cls._mixtures_inference = _mixtures_inference
+        self.cls._mixtures_inference, self.cls.eval_step = _mixtures_inference, counted_eval_step
         return self
 
     def __exit__(self, *exc):
-        self.cls.train_step, self.cls._log_epoch, self.cls._mixtures_inference = self._saved
+        (self.cls.train_step, self.cls._log_epoch, self.cls._mixtures_inference,
+         self.cls.eval_step) = self._saved
         self.lines.__exit__(*exc)
 
 
@@ -2905,6 +2938,419 @@ def phase_ira_rawnet(torch, dev, smi, manifests):
     return results
 
 
+# variable-length training (phase 16): a corpus of whole utterances, rows
+# capped at VARLEN_MAX_SEGMENT s (5 x 5 s is the largest bucket: the masked
+# residual forward saves pre and six streams per scan, ~56 GB scaled from the
+# 5 x 3 s step's 33.76 GB), cut into VARLEN_BUCKETS length buckets
+VARLEN_SPLITS = {"train": (20, (2.0, 8.0)), "eval": (10, (2.0, 8.0))}
+VARLEN_MAX_SEGMENT = 5
+VARLEN_BUCKETS = 4
+VARLEN_IDS = [0, 3]
+SAVE_EVERY = 10
+# the training configs without clipping or decay, so that .grad after a
+# train step is the backward's own (phase 16's gradient comparisons)
+RAW_GRADS = {"clip_norm": 0, "optimizer": {"lr": 5e-4, "weight_decay": 0.0}}
+
+
+def varlen_launches(mode: str, n: int):
+    """Per train step, eval step and eval mixture of a variable-length run:
+    the TSS families' intra scans through the unmasked training pair and
+    their inter scans through the masked one; the causal BSS model's intra
+    pair unmasked and its one-direction inter scans, which take no lengths."""
+    if mode == "bss":
+        train = {"bilstm2_forward_resid": n, "bilstm2_backward": n, "lstm_forward_resid": n,
+                 "lstm_backward": n, "products_gemm": n * 5 + n * 1 + n * 3,
+                 "products_colsum": 2 * n}
+        serve = with_products({"bilstm2_forward": n, "lstm_forward": n})
+        return train, serve, serve
+    train = {"bilstm2_forward_resid": n, "bilstm2_forward_resid_masked": n,
+             "bilstm2_backward": n, "bilstm2_backward_masked": n, "products_gemm": 2 * n * 5,
+             "products_colsum": 2 * n}
+    return (train, with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n}),
+            with_products({"bilstm2_forward": 2 * n}))
+
+
+def _grad_snr(torch, got, want):
+    return snr_db(*(torch.cat([g[k].flatten() for k in sorted(want)]) for g in (got, want)))
+
+
+def _whole_step(torch, dev, make_model, start, trainer_cls, config, batch):
+    """One whole train_step on the card from ``start``: its loss, launches,
+    gradients and BatchNorm buffers (on the host; ``config`` without
+    clipping or decay leaves .grad as the backward made it); then the ms of
+    a second step (the first pays the trainer's set-up) and the peak GB of
+    both."""
+    model = make_model()
+    model.load_state_dict(start, strict=True)
+    t = trainer_cls(model, dict(config, new_checkpoints_path=os.path.join(
+        OUT_DIR, "varlen_ckpt_unused")), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss = float(t.train_step(batch)[0])
+    out = {"loss": loss, "launches": dict(all_launches(), **product_launches()),
+           "grads": {k: p.grad.detach().cpu() for k, p in t.model.named_parameters()
+                     if p.grad is not None},
+           "buffers": {k: v.to("cpu", copy=True) for k, v in t.model.state_dict().items()
+                       if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train_step(batch)
+    torch.cuda.synchronize()
+    out.update(ms=(time.perf_counter() - t0) * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del t, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _numbers(step):
+    """A step's record: loss, ms, peak GB and the kernels it launched."""
+    return dict({k: step[k] for k in ("loss", "ms", "peak_gb")},
+                launches={k: v for k, v in step["launches"].items() if v})
+
+
+def _varlen_kernels(torch, dev, bucket_T, lengths):
+    """Phase 16 (g): the masked training pair at the largest bucket's inter
+    shape (R = 5 K rows over its S chunks, each row's chunk count from the
+    bucket's lengths) and the want_cs forward at D = 2 over its intra shape
+    (R = 5 S, T = K), against their plain versions, timed beside them, the
+    bound and cuDNN (the pair; two directions on their own inputs are no
+    single cuDNN call)."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2, lstm as L
+
+    F = H = 128
+    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
+    S = (bucket_T - 1 + K) // hop + 1
+    chunks = (lengths.long() - 1 + K) // hop + 1
+    g = torch.Generator(device="cpu").manual_seed(SEED + 60)
+    k = H ** -0.5
+    w_ih2, w_hh2, b2 = ((torch.rand(*s, generator=g) * 2 * k - k).to(dev)
+                        for s in ((2, F, 4 * H), (2, H, 4 * H), (2, 4 * H)))
+    w = (w_ih2, b2, w_hh2)
+    R, T = len(lengths) * K, S
+    lens = chunks.repeat_interleave(K).int().to(dev)
+    x = torch.randn(R, T, F, generator=g).to(dev)
+    valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    g0, g1 = (torch.randn(R, T, H, generator=g).to(dev) for _ in range(2))
+    g0 = g0 * valid[..., None]  # out0 past a row's length is unspecified: consumers mask it
+    rows_steps = int(lens.sum())
+    (o0, o1), resid = B2.bilstm2_forward_resid_masked(x, lens, *w)
+    (p0, p1), presid = B2.bilstm2_resid_reference(x, *w, lens)
+    fwd_err = max(float((o1 - p1).abs().max()), float((o0 - p0)[valid].abs().max()),
+                  *(float((a - b)[valid].abs().max()) for a, b in zip(resid, presid)))
+    got = B2.bilstm2_backward_masked(x, resid, g0, g1, *w, lens)
+    want = B2.bilstm2_backward_reference(x, resid, g0, g1, *w, lens)
+    dx_err = float((got[0] - want[0]).abs().max())
+    dw_err = max(float((a - b).abs().max()) for a, b in zip(got[1:], want[1:]))
+    dw_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                 for a, b in zip(got[1:], want[1:]))
+    del presid, got, want
+    if not (fwd_err <= 1e-4 and dx_err <= 1e-4 and dw_rel <= DW_REL_TOL):
+        raise AssertionError(f"varlen masked pair at R={R} T={T}: resid {fwd_err}, dx {dx_err}, "
+                             f"dW/db {dw_rel}")
+    lstm = cudnn_lstm(torch, w_ih2, b2, w_hh2, torch.float32)
+    xr = x.detach().clone().requires_grad_()
+    params = [xr, *lstm.parameters()]
+    pack, unpack = torch.nn.utils.rnn.pack_padded_sequence, torch.nn.utils.rnn.pad_packed_sequence
+    lens_cpu = lens.cpu()
+
+    def library_fwd():
+        packed = pack(xr, lens_cpu, batch_first=True, enforce_sorted=False)
+        return unpack(lstm(packed)[0], batch_first=True, total_length=T)[0]
+
+    out = library_fwd()
+    cot = torch.cat([g0, g1], dim=-1)
+    masked = {
+        "fwd_ms": time_ms(lambda: B2.bilstm2_forward_resid_masked(x, lens, *w), 5),
+        "fwd_plain_ms": time_ms(lambda: B2.bilstm2_resid_reference(x, *w, lens), 1),
+        "bwd_ms": time_ms(lambda: B2.bilstm2_backward_masked(x, resid, g0, g1, *w, lens), 5),
+        "bwd_plain_ms": time_ms(lambda: B2.bilstm2_backward_reference(x, resid, g0, g1, *w,
+                                                                      lens), 1),
+        "cudnn_fwd_ms": time_ms(library_fwd, 3),
+        "cudnn_bwd_ms": time_ms(lambda: torch.autograd.grad(out, params, cot,
+                                                            retain_graph=True), 3)}
+    masked["fwd_bound_ms"], masked["fwd_bound_by"] = bound_resid(rows_steps, R, T, F, H)
+    masked["bwd_bound_ms"], masked["bwd_bound_by"] = bound_backward(rows_steps, R, T, F, H)
+    masked.update(R=R, T=T, rows_steps=rows_steps, resid_max_abs_err=fwd_err,
+                  dx_max_abs_err=dx_err, dw_max_abs_err=dw_err, dw_rel_err=dw_rel)
+    del x, g0, g1, resid, lstm, xr, params, out, cot, o0, o1, p0, p1
+    torch.cuda.empty_cache()
+
+    D, Rc = 2, len(lengths) * S
+    xs = torch.randn(D, Rc, K, F, generator=g).to(dev)
+    h, cs = L.lstm_forward_with_cs(xs, *w)
+    ph, pcs = L.lstm_cs_reference(xs, *w)
+    cs_err = max(float((h - ph).abs().max()), float((cs - pcs).abs().max()))
+    if not cs_err <= 1e-4:
+        raise AssertionError(f"lstm_forward_with_cs at D=2 R={Rc} T={K}: {cs_err}")
+    with_cs = {"ms": time_ms(lambda: L.lstm_forward_with_cs(xs, *w), 5),
+               "plain_ms": time_ms(lambda: L.lstm_cs_reference(xs, *w), 1),
+               "D": D, "R": Rc, "T": K, "max_abs_err": cs_err}
+    with_cs["bound_ms"], with_cs["bound_by"] = bound_stack("with_cs", D, Rc, K, F, H)
+    del xs, h, cs, ph, pcs
+    torch.cuda.empty_cache()
+    log(f"[varlen] masked pair at the largest bucket's inter shape R={R} T={T} "
+        f"({rows_steps} row-steps): resid fwd {masked['fwd_ms']:.3f} ms (plain "
+        f"{masked['fwd_plain_ms']:.1f}, bound {masked['fwd_bound_ms']:.3f}, cuDNN "
+        f"{masked['cudnn_fwd_ms']:.3f}; max|err| {fwd_err:.3e}); backward "
+        f"{masked['bwd_ms']:.3f} ms (plain {masked['bwd_plain_ms']:.1f}, bound "
+        f"{masked['bwd_bound_ms']:.3f}, cuDNN {masked['cudnn_bwd_ms']:.3f}; dx max|err| "
+        f"{dx_err:.3e}, dW/db /max|ref| {dw_rel:.3e}); want_cs D=2 R={Rc} T={K} "
+        f"{with_cs['ms']:.3f} ms (plain {with_cs['plain_ms']:.1f}, bound "
+        f"{with_cs['bound_ms']:.3f}; max|err| {cs_err:.3e})")
+    return {"masked": masked, "with_cs": with_cs}
+
+
+def phase_varlen(torch, dev, smi):
+    """Phase 16: variable-length training and the trainer's other knobs at
+    full flagship width, fp32, as the module docstring says."""
+    import shutil
+
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.cli import generate_manifests, train as train_cli
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.data.librimix import LibrimixSpe
+    from tss_dprnn_tpu_torch.data.manifest import load_manifest
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet, DPRNNTasNet
+    from tss_dprnn_tpu_torch.training import Trainer, TrainerSpe
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    root = os.path.join(OUT_DIR, "varlen")
+    shutil.rmtree(root, ignore_errors=True)
+    device_args = [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
+    n = FLAGSHIP["n_repeats"]
+    results = {}
+
+    # -- (a) the corpus, its manifests frozen with segment: null, and cli.train
+    csvs = {split: write_corpus(os.path.join(root, "corpus"), split, count, secs, SEED + 60 + k)
+            for k, (split, (count, secs)) in enumerate(VARLEN_SPLITS.items())}
+    manifests = {split: os.path.join(root, "manifests", f"{split}.json") for split in csvs}
+    gen_yaml = os.path.join(root, "generate_manifests.yaml")
+    with open(gen_yaml, "w") as f:
+        f.write("dataset_type: librimix_spe\nsample_rate: 8000\nn_src: 2\nsegment: null\n"
+                "seed: 0\n" + "".join(f"{s}_path: {csvs[s]}\n{s}_out: {manifests[s]}\n"
+                                      for s in csvs))
+    generate_manifests.main(["--config", gen_yaml])
+    lengths = {s: [e["length"] for e in load_manifest(p)["entries"]]
+               for s, p in manifests.items()}
+    log(f"[varlen] corpus of whole utterances, {[len(v) for v in lengths.values()]} mixtures "
+        f"of {min(min(v) for v in lengths.values()) / SAMPLE_RATE:.2f}-"
+        f"{max(max(v) for v in lengths.values()) / SAMPLE_RATE:.2f} s, manifests with segment "
+        f"null")
+    runs = (("tss_spe", "train_tss.yaml", []), ("bss", "train_bss.yaml",
+                                                ["model.bidirectional=false"]),
+            ("tss_rawnet", "train_tss.yaml", ["model.target=dprnn_rawnet_tasnet",
+                                              "model.embeddings_size=256"]))
+    for mode, config, extra in runs:
+        ckpt_dir = os.path.join(root, f"chkpts_{mode}")
+        argv = ["--config", os.path.join(HERE, "configs", config), "--mode", mode, "--set",
+                f"data.use_generated_train={manifests['train']}",
+                f"data.use_generated_eval={manifests['eval']}", "epochs=1",
+                "data.variable_length=true", f"data.max_segment={VARLEN_MAX_SEGMENT}",
+                f"data.n_buckets={VARLEN_BUCKETS}",
+                f"logs.metadata.ids=[{', '.join(map(str, VARLEN_IDS))}]",
+                f"new_checkpoints_path={ckpt_dir}", *extra, *device_args]
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_training(torch) as rec:
+            t0 = time.perf_counter()
+            train_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counted = dict(all_launches(), **product_launches())
+        launches = {k: v for k, v in counted.items() if v}
+        per_train, per_eval, per_mix = varlen_launches(mode, n)
+        n_train, n_mix = len(rec.step_ms), rec.mixture_passes * len(VARLEN_IDS)
+        want = {k: n_train * per_train.get(k, 0) + rec.eval_steps * per_eval.get(k, 0)
+                + n_mix * per_mix.get(k, 0) for k in {*per_train, *per_eval, *per_mix}}
+        expect_launches(counted, want, 1,
+                        f"cli.train --mode {mode} variable-length ({n_train} train steps of "
+                        f"{per_train}, {rec.eval_steps} eval steps of {per_eval}, {n_mix} eval "
+                        f"mixtures of {per_mix})")
+        files = sorted(os.listdir(ckpt_dir))
+        by_bucket = {}
+        for width, ms in zip(rec.widths, rec.step_ms):
+            by_bucket.setdefault(width, []).append(round(ms, 2))
+        log(f"[varlen] cli.train --mode {mode} ({config}, variable_length, max_segment "
+            f"{VARLEN_MAX_SEGMENT} s, {VARLEN_BUCKETS} buckets): {n_train} train + "
+            f"{rec.eval_steps} eval steps in {wall:.2f} s; train ms per step by bucket width "
+            f"{dict(sorted(by_bucket.items()))} (the first step of the run pays set-up); peak "
+            f"{peak_gb:.2f} GB (the largest bucket's step); epoch losses {rec.epochs}; "
+            f"checkpoints {files}; launches {launches}; per train step {per_train}")
+        if not n_train or "1_last" not in files or len(rec.epochs) != 2 or \
+                not all(math.isfinite(v) for _, v in rec.epochs):
+            raise AssertionError(f"cli.train --mode {mode}: {n_train} steps, {files}, "
+                                 f"{rec.epochs}")
+        results[f"cli_{mode}"] = {"wall_s": wall, "step_ms": rec.step_ms, "widths": rec.widths,
+                                  "ms_by_bucket": by_bucket, "peak_gb": peak_gb,
+                                  "n_eval_steps": rec.eval_steps, "epochs": rec.epochs,
+                                  "checkpoints": files, "launches": launches,
+                                  "per_train_step": per_train}
+
+    # the largest bucket's batch, as cli.train builds it for tss_spe
+    train_set = LibrimixSpe(manifest_path=manifests["train"])
+    eval_set = LibrimixSpe(manifest_path=manifests["eval"])
+    rmax = max(max(train_set.ref_lengths()), max(eval_set.ref_lengths()))
+    collate = loader.make_collate_spe_eval(ref_pad_to=-(-rmax // 2000) * 2000)
+    largest = loader.VarLenTrainLoader(train_set, TRAIN_BATCH, collate, train_set.lengths(),
+                                       n_buckets=VARLEN_BUCKETS,
+                                       max_len=VARLEN_MAX_SEGMENT * SAMPLE_RATE).peek()
+    tss = lambda: DPRNNSpeTasNet(**FLAGSHIP)  # noqa: E731
+    start = init_weights_(tss(), torch.Generator().manual_seed(SEED + 61)).state_dict()
+    config = dict(TRAIN_CONFIG, **RAW_GRADS)
+
+    # -- (b) card vs CPU: 2 rows at 1 s, lengths 8000 and 5300
+    crops = Crops(SEED + 62, 2, 1.0)
+    small = loader.make_collate_spe_eval(ref_pad_to=16000)(crops.items, SAMPLE_RATE)
+    small["lengths"] = np.array([8000, 5300], np.int32)
+    past = np.arange(SAMPLE_RATE)[None, :] >= small["lengths"][:, None]
+    clean = dict(small, mix=np.where(past, 0, small["mix"]).astype(np.float32),
+                 target=np.where(past, 0, small["target"]).astype(np.float32))
+    rel, gsnr, launches_b, ms_b = _step_card_vs_cpu(torch, dev, tss, start, TrainerSpe,
+                                                    TRAIN_CONFIG, clean)
+    log(f"[varlen] one 2 x 1 s variable-length TSS step (lengths 8000, 5300) card vs CPU: loss "
+        f"rel {rel:.3e}, gradients {gsnr:.2f} dB; launches "
+        f"{ {k: v for k, v in launches_b.items() if v} }")
+    per_train = varlen_launches("tss_spe", n)[0]
+    expect_launches(launches_b, per_train, 1, "a variable-length TSS step")
+    if not (rel <= 1e-4 and gsnr >= 40):
+        raise AssertionError(f"varlen step card vs CPU: loss rel {rel}, gradients {gsnr} dB")
+    results["card_vs_cpu"] = {"loss_rel": rel, "grad_snr_db": gsnr, "ms": ms_b}
+
+    # -- (c) padding: other garbage past the lengths, the same step
+    rng = np.random.default_rng(SEED + 63)
+    noisy = dict(clean, **{k: np.where(past, 37 * rng.standard_normal(past.shape), clean[k])
+                           .astype(np.float32) for k in ("mix", "target")})
+    a, b = (_whole_step(torch, dev, tss, start, TrainerSpe, config, bt) for bt in (clean, noisy))
+    loss_diff = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    grad_diff = max(float((a["grads"][k] - b["grads"][k]).abs().max())
+                    / float(a["grads"][k].abs().max()) for k in a["grads"])
+    log(f"[varlen] garbage past the lengths: loss moved {loss_diff:.3e} of itself, gradients "
+        f"at most {grad_diff:.3e} of their tensor's max")
+    if not (loss_diff <= 1e-6 and grad_diff <= 1e-6):
+        raise AssertionError(f"padding moved the step: loss {loss_diff}, gradients {grad_diff}")
+    results["padding"] = {"loss_rel": loss_diff, "grad_rel": grad_diff}
+
+    # -- (d) accum_steps=5 at 5 x 3 s, BSS and TSS
+    bss = lambda: DPRNNTasNet(**BSS)  # noqa: E731
+    bss_start = init_weights_(bss(), torch.Generator().manual_seed(SEED + 64)).state_dict()
+    bss_batch = loader.collate_bss(Mixtures(SEED + 65, TRAIN_BATCH, TRAIN_SECONDS).items)
+    bss_config = dict(BSS_TRAIN_CONFIG, **RAW_GRADS)
+    one, five = (_whole_step(torch, dev, bss, bss_start, Trainer, dict(bss_config, accum_steps=k),
+                             bss_batch) for k in (1, 5))
+    rel, gsnr = abs(five["loss"] - one["loss"]) / abs(one["loss"]), _grad_snr(
+        torch, five["grads"], one["grads"])
+    log(f"[varlen] BSS 5 x 3 s, accum_steps 5 against 1: loss rel {rel:.3e}, gradients "
+        f"{gsnr:.2f} dB; {five['ms']:.1f} ms / {five['peak_gb']:.2f} GB against "
+        f"{one['ms']:.1f} ms / {one['peak_gb']:.2f} GB")
+    if not (rel <= 1e-4 and gsnr >= 40):
+        raise AssertionError(f"BSS accum_steps: loss rel {rel}, gradients {gsnr} dB")
+    results["accum_bss"] = {"loss_rel": rel, "grad_snr_db": gsnr, "accum_1": _numbers(one),
+                            "accum_5": _numbers(five)}
+    tss_batch = loader.collate_spe(Crops(SEED + 66, TRAIN_BATCH, TRAIN_SECONDS).items)
+    one, five = (_whole_step(torch, dev, tss, start, TrainerSpe, dict(config, accum_steps=k),
+                             tss_batch) for k in (1, 5))
+    last = _whole_step(torch, dev, tss, start, TrainerSpe, config,
+                       {k: v[-1:] for k, v in tss_batch.items()})
+    stats_err = max(float((five["buffers"][k].double() - last["buffers"][k].double())
+                          .abs().max()) for k in last["buffers"])
+    log(f"[varlen] TSS 5 x 3 s, accum_steps 5: BatchNorm statistics against one step on the "
+        f"last row alone max|delta| {stats_err:.3e}; {five['ms']:.1f} ms / "
+        f"{five['peak_gb']:.2f} GB against accum_steps 1 {one['ms']:.1f} ms / "
+        f"{one['peak_gb']:.2f} GB")
+    if not stats_err <= 1e-6:
+        raise AssertionError(f"TSS accum_steps: running statistics off by {stats_err}")
+    results["accum_tss"] = {"running_stats_max_abs_delta": stats_err, "accum_1": _numbers(one),
+                            "accum_5": _numbers(five)}
+
+    # -- (e) lstm_save_every=10 on the largest bucket
+    one, ten = (_whole_step(torch, dev, tss, start, TrainerSpe,
+                            dict(config, lstm_save_every=q), largest) for q in (1, SAVE_EVERY))
+    rel, gsnr = abs(ten["loss"] - one["loss"]) / abs(one["loss"]), _grad_snr(
+        torch, ten["grads"], one["grads"])
+    log(f"[varlen] largest bucket {TRAIN_BATCH} x {largest['mix'].shape[1]} samples (lengths "
+        f"{largest['lengths'].tolist()}): lstm_save_every {SAVE_EVERY} against 1: loss rel "
+        f"{rel:.3e}, gradients {gsnr:.2f} dB; {ten['ms']:.1f} ms / {ten['peak_gb']:.2f} GB "
+        f"(launches {_numbers(ten)['launches']}) against {one['ms']:.1f} ms / "
+        f"{one['peak_gb']:.2f} GB (launches {_numbers(one)['launches']})")
+    expect_launches(ten["launches"], {"lstm_forward_with_cs": 2 * n}, 1,
+                    f"a lstm_save_every={SAVE_EVERY} step")
+    expect_launches(one["launches"], per_train, 1, "the largest bucket's step")
+    if not (rel <= 1e-4 and gsnr >= 40):
+        raise AssertionError(f"lstm_save_every: loss rel {rel}, gradients {gsnr} dB")
+    results["save_every"] = {"loss_rel": rel, "grad_snr_db": gsnr, "width": largest[
+        "mix"].shape[1], "lengths": largest["lengths"].tolist(), "save_every_1": _numbers(one),
+        f"save_every_{SAVE_EVERY}": _numbers(ten)}
+
+    # -- (f) schedule_masks on a 5 x 3 s step
+    on, off = (_whole_step(torch, dev, tss, start, TrainerSpe, dict(config, schedule_masks=v),
+                           tss_batch) for v in (True, False))
+    rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    log(f"[varlen] schedule_masks on a 5 x 3 s TSS step: {on['ms']:.1f} ms against "
+        f"{off['ms']:.1f} ms off; loss rel {rel:.3e}; launches {_numbers(on)['launches']}")
+    expect_launches(on["launches"], training_family("tss")["per_train_step"] | training_family(
+        "tss")["products_per_train_step"], 1, "a schedule_masks step")
+    if not rel <= 1e-4:
+        raise AssertionError(f"schedule_masks moved the loss by {rel}")
+    results["schedule_masks"] = {"loss_rel": rel, "on": _numbers(on), "off": _numbers(off)}
+
+    # -- (g) the kernels against their plain versions at this path's shapes
+    results["kernels"] = _varlen_kernels(torch, dev, largest["mix"].shape[1],
+                                         torch.from_numpy(largest["lengths"]))
+    shutil.rmtree(os.path.join(root, "corpus"), ignore_errors=True)
+    for mode, _, _ in runs:
+        shutil.rmtree(os.path.join(root, f"chkpts_{mode}"), ignore_errors=True)
+    return results
+
+
+def varlen_kernel_entries(results):
+    """The kernels line's entries for the modes that variable-length training
+    and lstm_save_every launch, at phase 16's shapes; their launches are the
+    tss_spe cli.train run's and the lstm_save_every step's."""
+    m, cs = results["kernels"]["masked"], results["kernels"]["with_cs"]
+    cli = results["cli_tss_spe"]["launches"]
+    base = {"dtype": "float32", "route": "cuda"}
+    shape = {"R": m["R"], "T": m["T"], "F": 128, "H": 128}
+    return [
+        dict(base, name="bilstm2_forward_resid_masked",
+             mode="masked residual forward, the largest bucket's inter scan",
+             source="tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu",
+             **{"with": "tss_dprnn_tpu_torch/csrc/products.cu"},
+             replaces="tss_dprnn_tpu/ops/pallas_lstm.py:698",
+             launches=cli.get("bilstm2_forward_resid_masked", 0),
+             max_abs_err=m["resid_max_abs_err"], ms=m["fwd_ms"], plain_ms=m["fwd_plain_ms"],
+             bound_ms=m["fwd_bound_ms"], bound_by=m["fwd_bound_by"],
+             library_ms=m["cudnn_fwd_ms"], shape=shape, rows_steps=m["rows_steps"]),
+        dict(base, name="bilstm2_backward_masked",
+             mode="masked fused backward, the largest bucket's inter scan",
+             source="tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu",
+             **{"with": "tss_dprnn_tpu_torch/csrc/cluster_scan.cuh and products.cu"},
+             replaces="tss_dprnn_tpu/ops/pallas_lstm.py:1224",
+             launches=cli.get("bilstm2_backward_masked", 0),
+             max_abs_err=max(m["dx_max_abs_err"], m["dw_max_abs_err"]),
+             dw_rel_err=m["dw_rel_err"], ms=m["bwd_ms"], plain_ms=m["bwd_plain_ms"],
+             bound_ms=m["bwd_bound_ms"], bound_by=m["bwd_bound_by"],
+             library_ms=m["cudnn_bwd_ms"], shape=shape, rows_steps=m["rows_steps"]),
+        dict(base, name="lstm_forward_with_cs",
+             mode=f"want_cs, D=2 over the largest bucket's intra shape (lstm_save_every "
+                  f"{SAVE_EVERY})",
+             source="tss_dprnn_tpu_torch/csrc/lstm.cu",
+             replaces="tss_dprnn_tpu/ops/pallas_lstm.py:57",
+             launches=results["save_every"][f"save_every_{SAVE_EVERY}"]["launches"].get(
+                 "lstm_forward_with_cs", 0),
+             launches_are="per lstm_save_every step (0 in the cli.train runs)",
+             max_abs_err=cs["max_abs_err"], ms=cs["ms"], plain_ms=cs["plain_ms"],
+             bound_ms=cs["bound_ms"], bound_by=cs["bound_by"], library_ms=None,
+             library="no single cuDNN call: two directions on their own inputs",
+             shape={"D": cs["D"], "R": cs["R"], "T": cs["T"], "F": 128, "H": 128}),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -3052,11 +3498,31 @@ def main() -> int:
                       "train_step_5x3s": {tag: st["launches"].get(name, 0)
                                           for tag, st in r.get("steps_5x3s", {}).items()}}
                 for fam, r in ira_rawnet.items() if fam not in ("cli", "flagship")}
+    t0 = time.perf_counter()
+    varlen = phase_varlen(torch, dev, smi)
+    tss_cli = varlen["cli_tss_spe"]
+    log(f"[varlen] phase done in {time.perf_counter() - t0:.1f} s; cli.train variable-length "
+        f"train ms by bucket width {tss_cli['ms_by_bucket']}, peak {tss_cli['peak_gb']:.2f} GB; "
+        f"lstm_save_every {SAVE_EVERY} on the largest bucket "
+        f"{varlen['save_every'][f'save_every_{SAVE_EVERY}']['ms']:.1f} ms / "
+        f"{varlen['save_every'][f'save_every_{SAVE_EVERY}']['peak_gb']:.2f} GB against "
+        f"{varlen['save_every']['save_every_1']['ms']:.1f} ms / "
+        f"{varlen['save_every']['save_every_1']['peak_gb']:.2f} GB on {smi}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    new_entries = varlen_kernel_entries(varlen)
+    by_name = {e["name"]: e for e in new_entries}
+    for e in entries:  # the nested rows of these modes are now on a path too
+        for key in ("masked", "with_cs"):
+            sub = e.get(key)
+            if isinstance(sub, dict) and sub.get("name") in by_name:
+                sub["launches"] = by_name[sub["name"]]["launches"]
+    entries += new_entries
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
-                   "families": families, "ira_rawnet": ira_rawnet}, f, indent=1)
+                   "families": families, "ira_rawnet": ira_rawnet, "varlen": varlen}, f,
+                  indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -12,7 +12,7 @@ runs) on the CPU, against the JAX package where it has a counterpart.
   and the BatchNorm running statistics within 1e-6.
 - Trainer.run: checkpoint names and retention, early stop, the plateau lr,
   exact resume (bit for bit on the CPU), a checkpoint that serves through
-  InferencerSpe, and the knobs that are not ported yet.
+  InferencerSpe, and the knobs refused until they were ported.
 """
 
 import functools
@@ -414,13 +414,22 @@ def test_warm_start_from_mismatched_checkpoint_fails(tmp_path):
     ({"is_metrics": True}, "is_metrics"),
 ])
 def test_trainer_rejects_unported_knobs(tmp_path, over, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _trainer(tmp_path, **over)
+    """Refused until they were ported; each knob now takes one step with a
+    finite loss (tests/test_torch_port_train_knobs.py holds them against
+    JAX)."""
+    tr = _trainer(tmp_path, **over)
+    assert getattr(tr, match) == over[match]
+    loss, aux = tr.train_step(_batch(_Crops(0, 2), [0, 1]))
+    assert math.isfinite(loss.item())
+    assert ("est" in aux) == (match == "is_metrics")
 
 
 def test_trainer_rejects_batches_with_lengths(tmp_path):
+    """Refused until variable-length training was ported: a batch with
+    lengths now takes one step with a finite loss
+    (tests/test_torch_port_varlen_training.py holds it against JAX)."""
     tr = _trainer(tmp_path, lstm_backend="pallas")  # accepted and ignored
     batch = _batch(_Crops(0, 2), [0, 1])
     batch["lengths"] = np.array([240, 200], np.int32)
-    with pytest.raises(NotImplementedError, match="variable-length"):
-        tr.train_step(batch)
+    loss, _ = tr.train_step(batch)
+    assert tr._varlen and math.isfinite(loss.item())

@@ -3,14 +3,19 @@
     python -m tss_dprnn_tpu_torch.cli.train --config configs/train_tss.yaml \
         --mode tss_spe [--set data.batch_size=8 optimizer.lr=5e-4 ...] [--device cpu]
 
-Fixed crops through ``TrainLoader``, then ``Trainer`` / ``TrainerSpe.run``,
-on the card unless ``--device`` names another device. The model's weights
-are drawn from the config's ``seed``. Epoch losses and the separated demo
-mixtures of ``logs.metadata.ids`` (indices into the eval set, which must
-hold them) go to the log-only ``reporters.Reporter``, as the JAX CLI logs
-them without wandb. Not ported yet, and raising: ``data.variable_length``
-(ROADMAP §1 item 9) and the trainer knobs that ``training/trainer.py``
-refuses.
+Fixed crops through ``TrainLoader``, or with ``data.variable_length`` whole
+utterances through ``VarLenTrainLoader`` (manifests frozen with ``segment:
+null``; ``data.n_buckets`` length buckets, default 4, rows capped at
+``data.max_segment`` seconds; TSS references padded to one length for the
+run, the largest rounded up to 2000 samples, at 16 kHz for ``tss_rawnet``),
+then ``Trainer`` / ``TrainerSpe`` / ``TrainerRawNet.run``, on the card
+unless ``--device`` names another device. The model's weights are drawn
+from the config's ``seed``. Epoch losses and the separated demo mixtures of
+``logs.metadata.ids`` (indices into the eval set, which must hold them) go
+to the log-only ``reporters.Reporter``, as the JAX CLI logs them without
+wandb. Every trainer knob of the JAX package runs (``training/trainer.py``)
+but ``is_metrics`` with ``accum_steps > 1``, which fails in JAX; the model
+dtype bfloat16 waits for ROADMAP §1 item 10.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import torch
 
 from tss_dprnn_tpu_torch.cli.common import (MODES, dataset_for, eval_mixtures_from, get_logger,
                                             train_components)
-from tss_dprnn_tpu_torch.data.loader import TrainLoader
+from tss_dprnn_tpu_torch.data.loader import (TrainLoader, VarLenTrainLoader, collate_bss_eval,
+                                             make_collate_spe_eval)
 from tss_dprnn_tpu_torch.device import resolve_device
 from tss_dprnn_tpu_torch.models.registry import build_model
 from tss_dprnn_tpu_torch.reporters import Reporter
@@ -44,9 +50,6 @@ def main(argv=None):
     config = load_config(args.config, args.set)
     spe, collate_fn, TrainerClass = train_components(args.mode)
     data_cfg = config["data"]
-    if data_cfg.get("variable_length"):
-        raise NotImplementedError("data.variable_length: variable-length training is not "
-                                  "ported yet (ROADMAP §1 item 9)")
     device = resolve_device(args.device)
 
     logger.info("RUN %s", config.get("name"))
@@ -54,10 +57,31 @@ def main(argv=None):
     train_set = dataset_for(config, "train", spe)
     eval_set = dataset_for(config, "eval", spe)
     batch_size, seed = data_cfg.get("batch_size", 5), data_cfg.get("seed", 0)
-    train_loader = TrainLoader(train_set, batch_size, collate_fn, shuffle=True,
-                               drop_last=True, seed=seed)
-    eval_loader = TrainLoader(eval_set, batch_size, collate_fn, shuffle=False,
-                              drop_last=True, seed=seed)
+    if data_cfg.get("variable_length"):
+        sr = data_cfg.get("sample_rate", 8000)
+        if spe:
+            # one reference length for the run (JAX: one compiled program per bucket)
+            rmax = max(max(train_set.ref_lengths()), max(eval_set.ref_lengths()))
+            resample_to = 16000 if args.mode == "tss_rawnet" else None
+            if resample_to:
+                rmax = -(-(rmax * resample_to) // sr)
+            vcollate = make_collate_spe_eval(resample_ref_to=resample_to, sample_rate=sr,
+                                             ref_pad_to=int(-(-rmax // 2000) * 2000))
+        else:
+            vcollate = collate_bss_eval
+        max_seg = data_cfg.get("max_segment")
+        vl_kw = dict(batch_size=batch_size, collate_fn=vcollate, seed=seed,
+                     n_buckets=int(data_cfg.get("n_buckets", 4)),
+                     max_len=int(max_seg * sr) if max_seg else None)
+        train_loader = VarLenTrainLoader(train_set, lengths=train_set.lengths(), shuffle=True,
+                                         **vl_kw)
+        eval_loader = VarLenTrainLoader(eval_set, lengths=eval_set.lengths(), shuffle=False,
+                                        **vl_kw)
+    else:
+        train_loader = TrainLoader(train_set, batch_size, collate_fn, shuffle=True,
+                                   drop_last=True, seed=seed)
+        eval_loader = TrainLoader(eval_set, batch_size, collate_fn, shuffle=False,
+                                  drop_last=True, seed=seed)
     logger.info("train dataloader len: %d", len(train_loader))
     logger.info("eval dataloader len: %d", len(eval_loader))
     eval_mixtures = eval_mixtures_from(config, eval_set, spe, logger)

@@ -4,7 +4,9 @@ collates are :97 and :327).
 
 Training: :class:`TrainLoader` yields fixed-shape shuffled batches (shuffle
 keyed on (seed, epoch), ``drop_last``), optionally built ahead by one
-prefetch thread whose exceptions reach the consumer. Evaluation:
+prefetch thread whose exceptions reach the consumer;
+:class:`VarLenTrainLoader` (JAX ``data/loader.py:208-312``) yields whole
+utterances in length buckets with their true ``lengths``. Evaluation:
 utterances are grouped into a few length buckets; each batch is zero-padded
 to its bucket size and carries the true ``lengths``, and the masked model
 forward then equals per-utterance exact evaluation on the valid region.
@@ -180,6 +182,86 @@ class TrainLoader:
             yield from _prefetch_iter(make_items, self.prefetch)
 
 
+class VarLenTrainLoader:
+    """Variable-length training batches: whole utterances, shuffled, grouped
+    in length buckets and zero-padded to their bucket, each batch with the
+    true per-row ``lengths`` (capped at ``max_len`` and at the bucket) that
+    the masked scans and the masked PIT loss read.
+
+    Every batch is ``[batch_size, bucket_T]`` for one of the ``n_buckets``
+    sizes of :func:`bucket_boundaries`. Batches are formed within buckets
+    from the ``(seed, epoch)``-keyed shuffle, each bucket's ragged tail is
+    dropped, and the batch order is shuffled across buckets.
+    ``collate_fn(items, bucket_T) -> batch`` (:func:`collate_bss_eval`,
+    :func:`make_collate_spe_eval`); an item longer than its bucket is cut
+    to it by the collate. One process: the JAX loader's per-process row
+    slicing (``process_index`` / ``process_count``) is not ported."""
+
+    def __init__(self, dataset, batch_size: int, collate_fn: Callable[[list, int], Batch],
+                 lengths: Sequence[int], shuffle: bool = True, seed: int = 0,
+                 n_buckets: int = 4, multiple: int = 2000, max_len: Optional[int] = None,
+                 prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        eff = np.asarray(lengths, np.int64)
+        if max_len is not None:
+            eff = np.minimum(eff, int(max_len))
+        self.lengths = eff
+        self.bounds = bucket_boundaries(eff, n_buckets, multiple)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.prefetch = prefetch
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def _bucket_of(self, length: int) -> int:
+        return next((b for b in self.bounds if length <= b), self.bounds[-1])
+
+    def batch_plan(self) -> List[Tuple[int, np.ndarray]]:
+        """This epoch's [(bucket_T, dataset indices)]."""
+        idx = np.arange(len(self.dataset))
+        rng = np.random.default_rng((self.seed, self._epoch))
+        if self.shuffle:
+            rng.shuffle(idx)
+        groups: Dict[int, List[int]] = {}
+        for i in idx:
+            groups.setdefault(self._bucket_of(int(self.lengths[i])), []).append(int(i))
+        plan = [(bucket_T, np.asarray(idxs[i0:i0 + self.batch_size]))
+                for bucket_T, idxs in sorted(groups.items())
+                for i0 in range(0, len(idxs) - self.batch_size + 1, self.batch_size)]
+        if self.shuffle:
+            rng.shuffle(plan)
+        return plan
+
+    def __len__(self) -> int:
+        return len(self.batch_plan())
+
+    def _materialize(self, bucket_T: int, chunk: np.ndarray) -> Batch:
+        batch = self.collate_fn(_get_items(self.dataset, chunk), bucket_T)
+        batch["lengths"] = np.minimum(self.lengths[chunk], bucket_T).astype(np.int32)
+        return batch
+
+    def peek(self) -> Batch:
+        """A batch of the largest bucket, without advancing the epoch."""
+        return self._materialize(*max(self.batch_plan(), key=lambda p: p[0]))
+
+    def __iter__(self) -> Iterator[Batch]:
+        plan = self.batch_plan()
+        self._epoch += 1
+
+        def make_items():
+            for bucket_T, chunk in plan:
+                yield self._materialize(bucket_T, chunk)
+
+        if self.prefetch <= 0:
+            yield from make_items()
+        else:
+            yield from _prefetch_iter(make_items, self.prefetch)
+
+
 def bucket_boundaries(lengths: Sequence[int], n_buckets: int = 8,
                       multiple: int = 2000) -> List[int]:
     """Length quantiles rounded up to ``multiple`` -> static bucket sizes."""
@@ -202,19 +284,26 @@ def collate_bss_eval(items, bucket_T: int) -> Batch:
 
 
 def make_collate_spe_eval(resample_ref_to: Optional[int] = None, sample_rate: int = 8000,
-                          ref_bucket_multiple: int = 2000) -> Callable[[list, int], Batch]:
+                          ref_bucket_multiple: int = 2000,
+                          ref_pad_to: Optional[int] = None) -> Callable[[list, int], Batch]:
     """Eval collate for target speech separation: mixture and target padded
     to the bucket, references (resampled as :func:`collate_spe` does) to
     their rounded-up common length; the true ``ref_len`` is kept for
-    masking."""
+    masking. ``ref_pad_to`` pins the reference axis to one length for the
+    whole run (variable-length training), cropping longer references and
+    capping ``ref_len`` there, as in JAX (``data/loader.py:335-362``)."""
 
     def collate(items, bucket_T: int) -> Batch:
         mix = np.stack([_pad_to(np.asarray(it[0], np.float32), bucket_T) for it in items])
         target = np.stack([_pad_to(np.asarray(it[1], np.float32), bucket_T) for it in items])
         refs = _references(items, resample_ref_to, sample_rate)
-        ref_len = np.array([r.shape[0] for r in refs], np.float32)
-        Tr = max(r.shape[0] for r in refs)
-        Tr = -(-Tr // ref_bucket_multiple) * ref_bucket_multiple
+        ref_len = np.array([min(r.shape[0], ref_pad_to) if ref_pad_to else r.shape[0]
+                            for r in refs], np.float32)
+        if ref_pad_to is not None:
+            Tr = ref_pad_to
+        else:
+            Tr = max(r.shape[0] for r in refs)
+            Tr = -(-Tr // ref_bucket_multiple) * ref_bucket_multiple
         ref = np.stack([_pad_to(r, Tr) for r in refs])
         spk = np.array([it[3] for it in items], np.int32)
         return {"mix": mix, "target": target, "reference": ref, "ref_len": ref_len,

@@ -26,16 +26,33 @@ goes through :func:`lstm_stack`, the counterpart of ``_recurrence`` at
 without gradients, :class:`LSTMStack` over its residual mode and backward
 kernel with them. :func:`lstm` is the JAX package's functional entry over
 both.
+
+Two context variables of the JAX package (``ops/rnn.py:33-86``), which the
+trainer sets around its own steps:
+
+- ``lstm_save_every(q)``: with q > 1, every LSTM scan that autograd records
+  keeps only the states entering each q-step segment
+  (:class:`LSTMSegments`: the ``want_cs`` forward of ``ops/lstm.py``, then a
+  segment-by-segment backward in plain PyTorch, as ``lax.scan`` in JAX).
+  The bidirectional entries then leave the fused pair and run the stacked
+  D = 2 scan over ``[x, masked_flip(x, lengths)]``, as JAX's ``lstm`` does.
+  Without autograd it changes nothing: it is a residual policy.
+- ``lstm_ignore_lengths(on)``: the LSTM entries treat ``lengths`` as None
+  (the ``schedule_masks`` pragma: every row is full-length, the rest of
+  the graph keeps its masks). The GRU and RNN cells do not read it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from tss_dprnn_tpu_torch.ops.bilstm2 import (
+    _gates,
     bilstm2_backward,
     bilstm2_backward_masked,
     bilstm2_dense_forward,
@@ -45,8 +62,41 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     bilstm2_forward_resid,
     bilstm2_forward_resid_masked,
 )
-from tss_dprnn_tpu_torch.ops.lstm import lstm_backward, lstm_forward, lstm_forward_resid
+from tss_dprnn_tpu_torch.ops.lstm import (
+    lstm_backward,
+    lstm_forward,
+    lstm_forward_resid,
+    lstm_forward_with_cs,
+)
 from tss_dprnn_tpu_torch.ops.masking import masked_flip
+
+_LSTM_SAVE_EVERY: contextvars.ContextVar = contextvars.ContextVar("lstm_save_every", default=1)
+_LSTM_IGNORE_LENGTHS: contextvars.ContextVar = contextvars.ContextVar(
+    "lstm_ignore_lengths", default=False)
+
+
+@contextlib.contextmanager
+def lstm_save_every(q: int):
+    """Segment-checkpointed LSTM residuals every ``q`` steps (1: every step)."""
+    token = _LSTM_SAVE_EVERY.set(max(1, int(q)))
+    try:
+        yield
+    finally:
+        _LSTM_SAVE_EVERY.reset(token)
+
+
+@contextlib.contextmanager
+def lstm_ignore_lengths(on: bool = True):
+    """The LSTM entries scan every row to its end, whatever ``lengths`` say."""
+    token = _LSTM_IGNORE_LENGTHS.set(bool(on))
+    try:
+        yield
+    finally:
+        _LSTM_IGNORE_LENGTHS.reset(token)
+
+
+def _read_lengths(lengths: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if _LSTM_IGNORE_LENGTHS.get() else lengths
 
 
 class LSTMWeights(NamedTuple):
@@ -146,10 +196,16 @@ def lstm_pair(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.
     directions. With ``lengths`` the backward direction reads each row
     reversed within its valid length; out_f past the length is unspecified
     and masked downstream. When autograd records (grad enabled and an input
-    requires grad) the training kernels run; otherwise the inference one,
+    requires grad) the training kernels run, or under ``lstm_save_every(q >
+    1)`` the segment-checkpointed stacked scan; otherwise the inference one,
     batch-major with ``TSS_BM=1`` when unmasked."""
+    lengths = _read_lengths(lengths)
     w_ih2, b2, w_hh2 = stacked
     if _records_grad(x, w_ih2, b2, w_hh2):
+        if _LSTM_SAVE_EVERY.get() > 1:
+            xr = masked_flip(x, lengths)
+            h = LSTMSegments.apply(_LSTM_SAVE_EVERY.get(), torch.stack([x, xr]), *stacked)
+            return h[0], masked_flip(h[1], lengths)
         if lengths is None:
             return BiLSTM2.apply(x, w_ih2, b2, w_hh2)
         return BiLSTM2Masked.apply(x, lengths, w_ih2, b2, w_hh2)
@@ -166,8 +222,10 @@ def lstm_split_dense(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor,
     wo2[1]`` over [B, T, F] -> [B, T, Fo], wo2 [2, H, Fo] the Dense's two
     halves. With ``TSS_FUSED_DENSE=1`` and no lengths the product runs in the
     fused kernel's epilogue (:class:`BiLSTM2Dense` when autograd records);
-    otherwise :func:`lstm_pair` and the two half-products."""
-    if lengths is None and _switch("TSS_FUSED_DENSE"):
+    otherwise (and always under ``lstm_save_every(q > 1)``) :func:`lstm_pair`
+    and the two half-products."""
+    lengths = _read_lengths(lengths)
+    if lengths is None and _LSTM_SAVE_EVERY.get() <= 1 and _switch("TSS_FUSED_DENSE"):
         if _records_grad(x, wo2, *stacked):
             y0, y1 = BiLSTM2Dense.apply(x, *stacked, wo2)
         else:
@@ -196,13 +254,94 @@ class LSTMStack(torch.autograd.Function):
         return lstm_backward(x, tuple(resid), g, w_ih, b, w_hh)
 
 
+class LSTMSegments(torch.autograd.Function):
+    """(q, x [D, R, T, F], w_ih, b, w_hh) -> h [D, R, T, H] with
+    segment-checkpointed residuals, the counterpart of ``_recurrence`` at
+    ``save_every = q > 1`` (JAX ``ops/rnn.py:198-372``).
+
+    The forward is one launch of ``lstm_forward_with_cs`` and keeps only the
+    states entering each of the S = ceil(T / q) segments: zeros for segment
+    0, h and c after step s q - 1 for segment s. The backward walks the
+    segments in reverse: each runs its q steps forward again from its
+    boundary state and then the reverse gate recursion on that segment
+    alone, in plain PyTorch (a ``lax.scan`` in JAX; the kernels start from a
+    zero state), so one segment's gates are alive at a time. A tail segment
+    that q does not fill is zero-padded: zero cotangents, zero gradients."""
+
+    @staticmethod
+    def forward(ctx, q, x, w_ih, b, w_hh):
+        h, cs = lstm_forward_with_cs(x, w_ih, b, w_hh)
+        T = x.shape[2]
+        ends = torch.arange(q - 1, T - 1, q, device=x.device)
+        bh = torch.cat([torch.zeros_like(h[:, :, :1]), h[:, :, ends]], dim=2)
+        bc = torch.cat([torch.zeros_like(cs[:, :, :1]), cs[:, :, ends]], dim=2)
+        ctx.q = q
+        ctx.save_for_backward(x, w_ih, b, w_hh, bh, bc)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_ih, b, w_hh, bh, bc = ctx.saved_tensors
+        q = ctx.q
+        D, R, T, F = x.shape
+        H = w_hh.shape[1]
+        S = bh.shape[2]
+        pad = S * q - T
+        xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        gp = torch.nn.functional.pad(g, (0, 0, 0, pad))
+        w_hh_t = w_hh.transpose(1, 2)
+        dx = torch.empty_like(xp)
+        dw_ih, db, dw_hh = torch.zeros_like(w_ih), torch.zeros_like(b), torch.zeros_like(w_hh)
+        dh = x.new_zeros(D, R, H)
+        dc = x.new_zeros(D, R, H)
+        for s in reversed(range(S)):
+            seg = slice(s * q, (s + 1) * q)
+            xs = xp[:, :, seg]
+            pre = torch.einsum("drtf,dfg->drtg", xs, w_ih) + b[:, None, None]
+            # the q steps again, from the boundary state
+            h, c = bh[:, :, s], bc[:, :, s]
+            h_prev, c_prev, acts, cs = [], [], [], []
+            for t in range(q):
+                i, f, gg, o = _gates(pre[:, :, t] + torch.bmm(h, w_hh), H)
+                h_prev.append(h)
+                c_prev.append(c)
+                c = f * c + i * gg
+                h = o * torch.tanh(c)
+                acts.append((i, f, gg, o))
+                cs.append(c)
+            # the reverse recursion; per-step factors first, all steps at once
+            i, f, gg, o = (torch.stack(a, dim=2) for a in zip(*acts))
+            tc = torch.tanh(torch.stack(cs, dim=2))
+            cp = torch.stack(c_prev, dim=2)
+            d_i, d_f, d_g = gg * i * (1 - i), cp * f * (1 - f), i * (1 - gg * gg)
+            d_o, dcdh = tc * o * (1 - o), o * (1 - tc * tc)
+            gs = gp[:, :, seg]
+            dpre = x.new_empty(D, R, q, 4 * H)
+            for t in reversed(range(q)):
+                dh = gs[:, :, t] + dh
+                dc = dc + dh * dcdh[:, :, t]
+                dpre_t = torch.cat([dc * d_i[:, :, t], dc * d_f[:, :, t], dc * d_g[:, :, t],
+                                    dh * d_o[:, :, t]], dim=-1)
+                dpre[:, :, t] = dpre_t
+                dh = torch.bmm(dpre_t, w_hh_t)
+                dc = dc * f[:, :, t]
+            dw_hh += torch.einsum("drth,drtg->dhg", torch.stack(h_prev, dim=2), dpre)
+            dw_ih += torch.einsum("drtf,drtg->dfg", xs, dpre)
+            db += dpre.sum(dim=(1, 2))
+            dx[:, :, seg] = torch.einsum("drtg,dfg->drtf", dpre, w_ih)
+        return None, dx[:, :, :T], dw_ih, db, dw_hh
+
+
 def lstm_stack(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
                ) -> torch.Tensor:
     """LSTM over D stacked directions, x [D, R, T, F] -> [D, R, T, H], each
     direction on its own input in forward time, zero initial state.
     ``stacked`` is :func:`stack_directions` of the D directions. When
-    autograd records the training kernels run; otherwise the inference one."""
+    autograd records the training kernels run (:class:`LSTMSegments` under
+    ``lstm_save_every(q > 1)``); otherwise the inference one."""
     if _records_grad(x, *stacked):
+        if _LSTM_SAVE_EVERY.get() > 1:
+            return LSTMSegments.apply(_LSTM_SAVE_EVERY.get(), x, *stacked)
         return LSTMStack.apply(x, *stacked)
     return lstm_forward(x, *stacked)
 

@@ -21,15 +21,34 @@ demo mixtures of ``logs.metadata.ids``) are separated in eval mode and
 handed to it, as in the JAX trainers (``trainer.py:451-482``,
 ``trainer_spe.py:56-69``).
 
-Config knobs of the JAX trainer this port does not have yet raise
-``NotImplementedError``: ``accum_steps > 1``, ``lstm_save_every > 1``,
-``schedule_masks``, ``is_metrics`` and batches that carry ``lengths``
-(variable-length training). ``lstm_backend`` is accepted and ignored: the
-port always runs its kernels.
+The JAX trainer's knobs (``training/trainer.py:70-97,132-178,258-320``):
+
+- Batches with ``lengths`` (``data.loader.VarLenTrainLoader``): the model
+  and the PIT loss read the true lengths, so the inter scans run the masked
+  training kernels.
+- ``accum_steps`` n: each batch is split into n equal row slices, each
+  backward takes its ``loss / n``, and one clip and one optimizer step
+  follow; the step's loss is the micro losses' mean and its ``aux`` the
+  last micro-batch's. BatchNorm keeps only the last micro-batch's
+  statistics, applied to the running statistics from before the step, as
+  JAX does (``trainer.py:302``).
+- ``lstm_save_every`` q: train steps run under ``ops.rnn.lstm_save_every``,
+  every recorded LSTM scan keeping its states every q steps only.
+- ``schedule_masks``: fixed-crop steps thread all-ones lengths through the
+  model while the scans ignore them (``ops.rnn.lstm_ignore_lengths``); off
+  for the run, with the JAX log line, once batches carry lengths.
+- ``is_metrics``: each train batch's estimates are scored on the host
+  (``ops.metrics.get_metrics`` over ``metrics``) and the epoch's means go
+  to the reporter, as in JAX. With ``accum_steps > 1`` it is refused: the
+  JAX trainer then scores the whole batch against the last micro-batch's
+  estimates and raises IndexError at the first row past them.
+
+``lstm_backend`` is accepted and ignored: the port always runs its kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Any, Dict, Optional, Union
@@ -38,24 +57,15 @@ import numpy as np
 import torch
 
 from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.models.layers import BatchNorm
 from tss_dprnn_tpu_torch.ops import losses
+from tss_dprnn_tpu_torch.ops import metrics as metrics_ops
+from tss_dprnn_tpu_torch.ops import rnn as rnn_ops
 from tss_dprnn_tpu_torch.training.schedulers import ExponentialDecay, ReduceLROnPlateau
 from tss_dprnn_tpu_torch.training.train_state import Optimizer
 from tss_dprnn_tpu_torch.utils.checkpoint import CheckpointManager, load_model, share_blocks_of
 
 BEST_LOSS_SENTINEL = 100500.0  # the reference's starting best loss
-
-
-def _unported(config: Dict[str, Any]) -> list:
-    knobs = []
-    if int(config.get("accum_steps", 1)) > 1:
-        knobs.append("accum_steps > 1")
-    if int(config.get("lstm_save_every", 1)) > 1:
-        knobs.append("lstm_save_every > 1")
-    for key in ("schedule_masks", "is_metrics"):
-        if config.get(key):
-            knobs.append(key)
-    return knobs
 
 
 class Trainer:
@@ -68,9 +78,18 @@ class Trainer:
                  device: Optional[Union[str, torch.device]] = None,
                  logger: Optional[logging.Logger] = None, reporter=None,
                  eval_mixtures: Optional[Dict] = None):
-        unported = _unported(config)
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+        self.accum_steps = int(config.get("accum_steps", 1))
+        self.lstm_save_every = int(config.get("lstm_save_every", 1))
+        self.schedule_masks = bool(config.get("schedule_masks", False))
+        self.is_metrics = bool(config.get("is_metrics", False))
+        self.metrics = list(config.get("metrics") or ["si_sdr", "pesq", "stoi"])
+        self.sample_rate = int((config.get("data") or {}).get("sample_rate", 8000))
+        if self.is_metrics and self.accum_steps > 1:
+            raise ValueError("is_metrics with accum_steps > 1: the JAX trainer scores the "
+                             "batch against the last micro-batch's estimates only and fails")
+        self._varlen: Optional[bool] = None  # whether batches carry lengths, from the first
+        self._metric_sums: Dict[str, float] = {}
+        self._metric_cnt = 0
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
@@ -122,8 +141,27 @@ class Trainer:
 
     # ---------------------------------------------------------------- steps
 
+    def _lengths_for(self, batch: Dict[str, torch.Tensor]):
+        """(model lengths, loss lengths): the batch's true lengths when it
+        carries them; else all-ones lengths for the model alone under
+        ``schedule_masks`` (fixed crops are full-length), or none."""
+        true = batch.get("lengths")
+        if true is not None:
+            return true, true
+        if not self.schedule_masks:
+            return None, None
+        mix = batch["mix"]
+        return torch.full((mix.shape[0],), mix.shape[1], dtype=torch.int32,
+                          device=mix.device), None
+
     def _forward_loss(self, batch: Dict[str, torch.Tensor], train: bool):
-        return losses.pit_sisdr_loss(self.model(batch["mix"]), batch["sources"]), {}
+        model_lengths, loss_lengths = self._lengths_for(batch)
+        out = self.model(batch["mix"], model_lengths)
+        if self.is_metrics:
+            loss, est = losses.pit_sisdr_loss(out, batch["sources"], return_est=True,
+                                              lengths=loss_lengths)
+            return loss, {"est": est}
+        return losses.pit_sisdr_loss(out, batch["sources"], lengths=loss_lengths), {}
 
     # the reporter mode of the eval mixtures' estimates
     mixtures_mode = "inference"
@@ -138,18 +176,59 @@ class Trainer:
         return {"s1_estimated": est[0], "s2_estimated": est[1]}
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        if "lengths" in batch:
-            raise NotImplementedError("batches with lengths (variable-length training) "
-                                      "are not ported yet")
+        if self._varlen is None:
+            self._varlen = "lengths" in batch
+            if self._varlen and self.schedule_masks:
+                self.logger.info("schedule_masks disabled: batches carry true lengths "
+                                 "(variable-length training needs masked scans)")
         return {k: torch.from_numpy(np.asarray(v)).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
+
+    def _scans(self, train: bool) -> contextlib.ExitStack:
+        """The LSTM context of a step: lengths ignored under
+        ``schedule_masks`` on fixed crops; train steps also under
+        ``lstm_save_every``."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(rnn_ops.lstm_ignore_lengths(self.schedule_masks
+                                                        and not self._varlen))
+        if train:
+            stack.enter_context(rnn_ops.lstm_save_every(self.lstm_save_every))
+        return stack
+
+    def _accumulated(self, batch: Dict[str, torch.Tensor]):
+        """``accum_steps`` micro-batches' backwards into one set of
+        gradients; (mean loss, last micro-batch's aux). Each micro-batch
+        starts from the running statistics of before the step, so BatchNorm
+        ends with the last one's update alone."""
+        n = self.accum_steps
+        B = batch["mix"].shape[0]
+        if B % n:
+            raise ValueError(f"batch size {B} does not divide by accum_steps {n}")
+        m = B // n
+        stats = [buf for mod in self.model.modules() if isinstance(mod, BatchNorm)
+                 for buf in mod.buffers()]
+        before = [buf.clone() for buf in stats]
+        total = None
+        for k in range(n):
+            for buf, old in zip(stats, before):
+                buf.copy_(old)
+            micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
+            loss, aux = self._forward_loss(micro, train=True)
+            (loss / n).backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        return total / n, aux
 
     def train_step(self, batch: Dict[str, np.ndarray]):
         """One optimizer step; returns (loss, aux) on the device."""
         self.model.train()
-        loss, aux = self._forward_loss(self._to_device(batch), train=True)
+        batch = self._to_device(batch)
         self.optimizer.zero_grad()
-        loss.backward()
+        with self._scans(train=True):
+            if self.accum_steps > 1:
+                loss, aux = self._accumulated(batch)
+            else:
+                loss, aux = self._forward_loss(batch, train=True)
+                loss.backward()
         self.optimizer.step()
         self.step += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
@@ -157,7 +236,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         self.model.eval()
-        return self._forward_loss(self._to_device(batch), train=False)[0]
+        batch = self._to_device(batch)
+        with self._scans(train=False):
+            return self._forward_loss(batch, train=False)[0]
 
     # --------------------------------------------------------------- epochs
 
@@ -166,10 +247,13 @@ class Trainer:
         if hasattr(dataloader, "set_epoch"):
             dataloader.set_epoch(self.cur_epoch)  # the epoch-keyed shuffle
         start = time.time()
+        self._metric_sums, self._metric_cnt = {}, 0
         loss_sum = None
         for step, batch in enumerate(dataloader):
             loss, aux = self.train_step(batch)
             loss_sum = loss if loss_sum is None else loss_sum + loss
+            if self.is_metrics:
+                self._accumulate_metrics(batch, aux)
             if step % self.print_freq == 0:
                 self._log_step(step, float(loss_sum), aux)
         total = float(loss_sum) if loss_sum is not None else 0.0
@@ -220,11 +304,34 @@ class Trainer:
         self.logger.info("<epoch:%d, iter:%d, lr:%.3e, loss:%.3f>.", self.cur_epoch, step,
                          self.optimizer.learning_rate, -total_loss / (step + 1))
 
+    def _accumulate_metrics(self, batch: Dict[str, np.ndarray],
+                            aux: Dict[str, torch.Tensor]) -> None:
+        """Host metrics of each row's estimate against its target (the
+        sources for BSS), summed over the epoch (JAX ``trainer.py:420-438``)."""
+        est = aux.get("est")
+        if est is None:
+            return
+        est = est.cpu().numpy()
+        target = np.asarray(batch.get("target", batch.get("sources")))
+        mix = np.asarray(batch["mix"])
+        for b in range(mix.shape[0]):
+            md = metrics_ops.get_metrics(mix[b], target[b], est[b], self.sample_rate,
+                                         self.metrics)
+            for k in self.metrics:
+                if md.get(k) is not None and np.isfinite(md[k]):
+                    self._metric_sums[k] = self._metric_sums.get(k, 0.0) + md[k]
+            self._metric_cnt += 1
+
     def _log_epoch(self, total_loss: float, num_steps: int, start: float, mode: str) -> float:
         total_loss /= num_steps
+        # as in JAX, an eval epoch reports the metrics of the train epoch before it
+        metric_dict = None
+        if self.is_metrics and self._metric_cnt > 0:
+            metric_dict = {k: v / self._metric_cnt for k, v in self._metric_sums.items()}
         if self.reporter is not None:
             self.reporter.add_and_report(
-                logs={"step": self.cur_epoch, "loss": -total_loss, "metrics": None}, mode=mode)
+                logs={"step": self.cur_epoch, "loss": -total_loss, "metrics": metric_dict},
+                mode=mode)
         self.logger.info("Finished *** <epoch:%d, iter:%d, loss:%.3f, Total time:%.3f min>.",
                          self.cur_epoch, num_steps, -total_loss, (time.time() - start) / 60)
         return total_loss

@@ -1,7 +1,9 @@
 """Target-speech-separation trainer (counterpart of
 ``tss_dprnn_tpu/training/trainer_spe.py``): loss = PIT SI-SDR(estimate,
 target as the single source) + ``ce_gamma`` * cross-entropy(speaker logits,
-speaker index) in training, SI-SDR alone in eval. The eval mixtures'
+speaker index) in training, SI-SDR alone in eval. The model and the SI-SDR
+term read the batch's lengths as :meth:`Trainer._lengths_for` gives them;
+with ``is_metrics`` the estimate goes into ``aux``. The eval mixtures'
 estimates go to the reporter as 'inference_spe'."""
 
 from __future__ import annotations
@@ -21,12 +23,16 @@ class TrainerSpe(Trainer):
         self.ce_gamma = float(config.get("ce_gamma", 0.5))
 
     def _forward_loss(self, batch: Dict[str, torch.Tensor], train: bool):
-        est, logits = self.model(batch["mix"], batch["reference"], batch["ref_len"])
-        sisdr = losses.pit_sisdr_loss(est[:, None], batch["target"][:, None])
+        model_lengths, loss_lengths = self._lengths_for(batch)
+        est, logits = self.model(batch["mix"], batch["reference"], batch["ref_len"],
+                                 lengths=model_lengths)
+        sisdr = losses.pit_sisdr_loss(est[:, None], batch["target"][:, None],
+                                      lengths=loss_lengths)
+        extra = {"est": est} if self.is_metrics else {}
         if not train:
-            return sisdr, {}
+            return sisdr, extra
         ce = losses.cross_entropy(logits, batch["spk_idx"])
-        return sisdr + self.ce_gamma * ce, {"l": sisdr, "ce": ce}
+        return sisdr + self.ce_gamma * ce, {"l": sisdr, "ce": ce, **extra}
 
     mixtures_mode = "inference_spe"
 
