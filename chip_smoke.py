@@ -178,6 +178,39 @@ Phases, each of which fails the script (nonzero exit, no result line):
    versions (1e-4; dW and db DW_REL_TOL), timed beside them, the bound and
    cuDNN.
 
+17. the bf16 lane ([bf16], ``model.dtype: bfloat16``) at full flagship width:
+   (a) the bf16 streams of the four training modes (the residual forward
+   of the fused pair at the training batch's intra and inter shapes and
+   masked at phase 2's inter shape, its backward on the kernel's own saved
+   streams, and the causal scan's residual forward and backward at D = 1)
+   against their plain versions: outputs and the saved h, c, tanh(c)
+   within BF16_ATOL (of max(1, |ref|) for c) at BF16_SNR_DB, dx within
+   BF16_ATOL, dx, dW and db at BF16_GRAD_SNR_DB, bit for bit on a second
+   call, timed beside the plain versions, the bound (bf16 peak) and cuDNN's
+   LSTM in bf16 (training mode); the serving modes' rows come from phases 2
+   and 7; (b) the flagship served in both lanes on the same weights at
+   batch 8 and 32 (chip_profile.py's and bench_serve.py's rows), the bf16
+   lane >= LANE_SNR_DB against the fp32 lane, 6 + 6 bf16 launches per
+   batch and no product; (c) the same at batch 8 for the causal and the
+   bidirectional DPRNN-TasNet, the 'add' fusion, IRA and RawNet; (d) a 5 x 3
+   s train step in both lanes for TSS, causal BSS, IRA and RawNet (ms of the
+   second step, peak memory, the bf16 launches per step: one more dx
+   product per fused backward, db from the scan's partial sums), and one 2 x
+   1 s bf16 TSS step card vs CPU (loss within BF16_STEP_LOSS_REL, gradients
+   >= BF16_STEP_GRAD_SNR_DB); (e) cli.train on configs/train_tss.yaml with
+   ``--set model.dtype=bfloat16`` for one epoch on phase 13's corpus and
+   cli.test with its checkpoint, and phase 13's fp32 checkpoint through
+   cli.test in both lanes, the mean SI-SDR gap printed; (f) the
+   variable-length cli.train run of phase 16 (--mode tss_spe) again with
+   ``model.dtype=bfloat16``, on phase 16's corpus: per train step 6 + 6 bf16
+   residual forwards and fused backwards, unmasked and masked (the masked
+   training modes' launches in the kernels line), ms per step by bucket
+   beside phase 16's fp32 run; (g) accum_steps=5 on a 5 x 3 s bf16 step, as
+   phase 16 holds the fp32 lane: causal BSS against accum_steps=1 (loss
+   within BF16_STEP_LOSS_REL, gradients >= BF16_STEP_GRAD_SNR_DB); TSS,
+   BatchNorm's running statistics those of the last micro-batch alone
+   (within 1e-6).
+
 Every serving count includes the input products: each fp32
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
 fp32 lstm_forward launch one per direction (one on every path: the causal
@@ -2162,10 +2195,15 @@ def phase_cli(torch, dev):
         del v["rows"]
     results["test_bss"] = dict(bss, device_pesq_vs_host=lane)
     # the checkpoints (~90 MB): checked, then removed so that chiprun_out/
-    # stays small; phase 15 reads the corpus and removes it
+    # stays small, but the best one, which phase 17 serves in both lanes;
+    # phases 15 and 17 read the corpus, and phase 17 removes it
+    kept = os.path.join(root, "phase13_best", os.path.basename(best))
+    os.makedirs(os.path.dirname(kept), exist_ok=True)
+    shutil.move(best, kept)
     shutil.rmtree(os.path.join(root, "chkpts"))
     os.remove(ckpt)
     results["manifests"] = manifests
+    results["best_checkpoint"] = kept
     return results
 
 
@@ -2580,14 +2618,15 @@ IRA = dict(FLAGSHIP)
 RAWNET = dict(FLAGSHIP, embeddings_size=256)
 
 
-def serving_batch8(torch, collate):
+def serving_batch8(torch, collate, n: int = 8):
     """chip_profile.py's serving batch: 8 ragged requests of up to 10 s
-    from SEED, collated by ``collate``, with its audio-seconds."""
+    from SEED (or ``n``: bench_serve's 32), collated by ``collate``, with its
+    audio-seconds."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
     T = 10 * SAMPLE_RATE
-    lengths = [T] + [int(n) for n in rng.integers(T // 2, T + 1, 7)]
+    lengths = [T] + [int(n) for n in rng.integers(T // 2, T + 1, n - 1)]
     items = [(0.1 * rng.standard_normal(n).astype(np.float32),) * 2
              + (0.1 * rng.standard_normal(int(rng.uniform(2, 5) * SAMPLE_RATE))
                 .astype(np.float32), 0) for n in lengths]
@@ -2929,9 +2968,9 @@ def phase_ira_rawnet(torch, dev, smi, manifests):
     else:
         raise AssertionError("cli.test loaded a share_blocks=3 checkpoint under share_blocks=0")
     results["cli"] = cli
-    # the corpus (~40 MB) and the rest: checked, then removed so that
-    # chiprun_out/ stays small
-    for path in (os.path.join(root, "corpus"), os.path.dirname(share3),
+    # the rest: checked, then removed so that chiprun_out/ stays small (phase
+    # 17 reads the corpus and removes it)
+    for path in (os.path.dirname(share3),
                  os.path.join(OUT_DIR, "ira_rawnet_ckpt_unused"),
                  os.path.join(OUT_DIR, "families_ckpt_unused")):
         shutil.rmtree(path, ignore_errors=True)
@@ -2952,11 +2991,21 @@ SAVE_EVERY = 10
 RAW_GRADS = {"clip_norm": 0, "optimizer": {"lr": 5e-4, "weight_decay": 0.0}}
 
 
-def varlen_launches(mode: str, n: int):
+def varlen_launches(mode: str, n: int, bf16: bool = False):
     """Per train step, eval step and eval mixture of a variable-length run:
     the TSS families' intra scans through the unmasked training pair and
     their inter scans through the masked one; the causal BSS model's intra
-    pair unmasked and its one-direction inter scans, which take no lengths."""
+    pair unmasked and its one-direction inter scans, which take no lengths.
+    ``bf16``: the TSS families in the bf16 lane, whose backward takes one
+    product more per scan (dx per direction) and whose serving scans
+    (csrc/bilstm2.cu) take no input product."""
+    if bf16:
+        if mode == "bss":
+            raise ValueError("the bf16 variable-length run is the TSS families'")
+        return ({"bilstm2_forward_resid": n, "bilstm2_forward_resid_masked": n,
+                 "bilstm2_backward": n, "bilstm2_backward_masked": n,
+                 "products_gemm": 2 * n * 6, "products_colsum": 2 * n},
+                {"bilstm2_forward": n, "bilstm2_forward_masked": n}, {"bilstm2_forward": 2 * n})
     if mode == "bss":
         train = {"bilstm2_forward_resid": n, "bilstm2_backward": n, "lstm_forward_resid": n,
                  "lstm_backward": n, "products_gemm": n * 5 + n * 1 + n * 3,
@@ -3103,6 +3152,65 @@ def _varlen_kernels(torch, dev, bucket_T, lengths):
     return {"masked": masked, "with_cs": with_cs}
 
 
+def _varlen_cli(torch, dev, root, manifests, mode, config, extra, bf16=False):
+    """One epoch of ``cli.train --mode mode`` with data.variable_length on
+    phase 16's corpus (``extra``: more --set items), its launches held to
+    varlen_launches per train step, eval step and eval mixture: its wall,
+    train ms per step by bucket width, peak GB, epochs and launches."""
+    import shutil
+
+    from tss_dprnn_tpu_torch.cli import train as train_cli
+
+    device_args = [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
+    lane = " bf16" if bf16 else ""
+    ckpt_dir = os.path.join(root, f"chkpts_{mode}{lane.strip()}")
+    argv = ["--config", os.path.join(HERE, "configs", config), "--mode", mode, "--set",
+            f"data.use_generated_train={manifests['train']}",
+            f"data.use_generated_eval={manifests['eval']}", "epochs=1",
+            "data.variable_length=true", f"data.max_segment={VARLEN_MAX_SEGMENT}",
+            f"data.n_buckets={VARLEN_BUCKETS}",
+            f"logs.metadata.ids=[{', '.join(map(str, VARLEN_IDS))}]",
+            f"new_checkpoints_path={ckpt_dir}", *extra, *device_args]
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_training(torch) as rec:
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counted = dict(all_launches(), **product_launches())
+    launches = {k: v for k, v in counted.items() if v}
+    per_train, per_eval, per_mix = varlen_launches(mode, FLAGSHIP["n_repeats"], bf16)
+    n_train, n_mix = len(rec.step_ms), rec.mixture_passes * len(VARLEN_IDS)
+    want = {k: n_train * per_train.get(k, 0) + rec.eval_steps * per_eval.get(k, 0)
+            + n_mix * per_mix.get(k, 0) for k in {*per_train, *per_eval, *per_mix}}
+    expect_launches(counted, want, 1,
+                    f"cli.train --mode {mode}{lane} variable-length ({n_train} train steps of "
+                    f"{per_train}, {rec.eval_steps} eval steps of {per_eval}, {n_mix} eval "
+                    f"mixtures of {per_mix})")
+    files = sorted(os.listdir(ckpt_dir))
+    by_bucket = {}
+    for width, ms in zip(rec.widths, rec.step_ms):
+        by_bucket.setdefault(width, []).append(round(ms, 2))
+    log(f"[{'bf16' if bf16 else 'varlen'}] cli.train --mode {mode}{lane} ({config}, "
+        f"variable_length, max_segment {VARLEN_MAX_SEGMENT} s, {VARLEN_BUCKETS} buckets): "
+        f"{n_train} train + {rec.eval_steps} eval steps in {wall:.2f} s; train ms per step by "
+        f"bucket width {dict(sorted(by_bucket.items()))} (the first step of the run pays "
+        f"set-up); peak {peak_gb:.2f} GB (the largest bucket's step); epoch losses "
+        f"{rec.epochs}; checkpoints {files}; launches {launches}; per train step {per_train}")
+    if not n_train or "1_last" not in files or len(rec.epochs) != 2 or \
+            not all(math.isfinite(v) for _, v in rec.epochs):
+        raise AssertionError(f"cli.train --mode {mode}{lane}: {n_train} steps, {files}, "
+                             f"{rec.epochs}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"wall_s": wall, "step_ms": rec.step_ms, "widths": rec.widths,
+            "ms_by_bucket": by_bucket, "peak_gb": peak_gb, "n_eval_steps": rec.eval_steps,
+            "epochs": rec.epochs, "checkpoints": files, "launches": launches,
+            "per_train_step": per_train}
+
+
 def phase_varlen(torch, dev, smi):
     """Phase 16: variable-length training and the trainer's other knobs at
     full flagship width, fp32, as the module docstring says."""
@@ -3110,7 +3218,7 @@ def phase_varlen(torch, dev, smi):
 
     import numpy as np
 
-    from tss_dprnn_tpu_torch.cli import generate_manifests, train as train_cli
+    from tss_dprnn_tpu_torch.cli import generate_manifests
     from tss_dprnn_tpu_torch.data import loader
     from tss_dprnn_tpu_torch.data.librimix import LibrimixSpe
     from tss_dprnn_tpu_torch.data.manifest import load_manifest
@@ -3120,7 +3228,6 @@ def phase_varlen(torch, dev, smi):
 
     root = os.path.join(OUT_DIR, "varlen")
     shutil.rmtree(root, ignore_errors=True)
-    device_args = [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
     n = FLAGSHIP["n_repeats"]
     results = {}
 
@@ -3145,52 +3252,7 @@ def phase_varlen(torch, dev, smi):
             ("tss_rawnet", "train_tss.yaml", ["model.target=dprnn_rawnet_tasnet",
                                               "model.embeddings_size=256"]))
     for mode, config, extra in runs:
-        ckpt_dir = os.path.join(root, f"chkpts_{mode}")
-        argv = ["--config", os.path.join(HERE, "configs", config), "--mode", mode, "--set",
-                f"data.use_generated_train={manifests['train']}",
-                f"data.use_generated_eval={manifests['eval']}", "epochs=1",
-                "data.variable_length=true", f"data.max_segment={VARLEN_MAX_SEGMENT}",
-                f"data.n_buckets={VARLEN_BUCKETS}",
-                f"logs.metadata.ids=[{', '.join(map(str, VARLEN_IDS))}]",
-                f"new_checkpoints_path={ckpt_dir}", *extra, *device_args]
-        reset_launches()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with recorded_training(torch) as rec:
-            t0 = time.perf_counter()
-            train_cli.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        counted = dict(all_launches(), **product_launches())
-        launches = {k: v for k, v in counted.items() if v}
-        per_train, per_eval, per_mix = varlen_launches(mode, n)
-        n_train, n_mix = len(rec.step_ms), rec.mixture_passes * len(VARLEN_IDS)
-        want = {k: n_train * per_train.get(k, 0) + rec.eval_steps * per_eval.get(k, 0)
-                + n_mix * per_mix.get(k, 0) for k in {*per_train, *per_eval, *per_mix}}
-        expect_launches(counted, want, 1,
-                        f"cli.train --mode {mode} variable-length ({n_train} train steps of "
-                        f"{per_train}, {rec.eval_steps} eval steps of {per_eval}, {n_mix} eval "
-                        f"mixtures of {per_mix})")
-        files = sorted(os.listdir(ckpt_dir))
-        by_bucket = {}
-        for width, ms in zip(rec.widths, rec.step_ms):
-            by_bucket.setdefault(width, []).append(round(ms, 2))
-        log(f"[varlen] cli.train --mode {mode} ({config}, variable_length, max_segment "
-            f"{VARLEN_MAX_SEGMENT} s, {VARLEN_BUCKETS} buckets): {n_train} train + "
-            f"{rec.eval_steps} eval steps in {wall:.2f} s; train ms per step by bucket width "
-            f"{dict(sorted(by_bucket.items()))} (the first step of the run pays set-up); peak "
-            f"{peak_gb:.2f} GB (the largest bucket's step); epoch losses {rec.epochs}; "
-            f"checkpoints {files}; launches {launches}; per train step {per_train}")
-        if not n_train or "1_last" not in files or len(rec.epochs) != 2 or \
-                not all(math.isfinite(v) for _, v in rec.epochs):
-            raise AssertionError(f"cli.train --mode {mode}: {n_train} steps, {files}, "
-                                 f"{rec.epochs}")
-        results[f"cli_{mode}"] = {"wall_s": wall, "step_ms": rec.step_ms, "widths": rec.widths,
-                                  "ms_by_bucket": by_bucket, "peak_gb": peak_gb,
-                                  "n_eval_steps": rec.eval_steps, "epochs": rec.epochs,
-                                  "checkpoints": files, "launches": launches,
-                                  "per_train_step": per_train}
+        results[f"cli_{mode}"] = _varlen_cli(torch, dev, root, manifests, mode, config, extra)
 
     # the largest bucket's batch, as cli.train builds it for tss_spe
     train_set = LibrimixSpe(manifest_path=manifests["train"])
@@ -3302,9 +3364,8 @@ def phase_varlen(torch, dev, smi):
     # -- (g) the kernels against their plain versions at this path's shapes
     results["kernels"] = _varlen_kernels(torch, dev, largest["mix"].shape[1],
                                          torch.from_numpy(largest["lengths"]))
-    shutil.rmtree(os.path.join(root, "corpus"), ignore_errors=True)
-    for mode, _, _ in runs:
-        shutil.rmtree(os.path.join(root, f"chkpts_{mode}"), ignore_errors=True)
+    # the corpus stays for phase 17's bf16 variable-length run, which removes it
+    results["manifests"] = manifests
     return results
 
 
@@ -3349,6 +3410,578 @@ def varlen_kernel_entries(results):
              library="no single cuDNN call: two directions on their own inputs",
              shape={"D": cs["D"], "R": cs["R"], "T": cs["T"], "F": 128, "H": 128}),
     ]
+
+
+# the bf16 lane (phase 17): the bf16 model against the fp32 model on the same
+# weights, >= 44 dB on the rows' valid region (PARITY.md:184, the JAX lane's
+# bar for its bf16 lane against its fp32 graph)
+LANE_SNR_DB = 44.0
+# bf16 backward kernel vs its plain version: dx, dW and db SNR. The bf16 mode
+# rounds dpre to bf16 before its products (as the TPU kernel does), so a gate
+# summed in another order can round a dpre to its neighbour; that moves dW by
+# more than DW_REL_TOL allows at small shapes. Over 12 seeds at the CPU tests'
+# shapes the port's plain backward reads at least 64.6 dB (dx) and 70.2 dB
+# (dW) against the TPU kernel's in interpret mode, the backward without that
+# rounding at most 52.7 and 56.7 dB (scripts/port/bf16_grad_floor.py, CPU);
+# the bar sits between them.
+BF16_GRAD_SNR_DB = 60.0
+# card vs CPU for a bf16 train step (2 x 1 s): both are the bf16 lane, but
+# each rounding the card takes in another order moves what follows by a bf16
+# ulp, so the bar is the bf16 lane's, not the fp32 lane's 40 dB
+BF16_STEP_GRAD_SNR_DB = 30.0
+BF16_STEP_LOSS_REL = 1e-3
+
+
+def _bf16_streams_close(torch, name, got, want, valid=None):
+    """(max |err|, SNR) of a bf16 output or saved stream against its plain
+    version on ``valid`` ([R, T] or None); the error of c is taken relative to
+    max(1, |ref|) (its ulp grows past 1). Raises past BF16_ATOL or
+    BF16_SNR_DB."""
+    got, want = got.float(), want.float()
+    if valid is not None:
+        got, want = got[valid], want[valid]
+    scale = want.abs().clamp_min(1.0) if name.startswith("cp") else 1.0
+    err = float(((got - want).abs() / scale).max()) if got.numel() else 0.0
+    snr = snr_db(got, want)
+    if not (err <= BF16_ATOL and snr >= BF16_SNR_DB):
+        raise AssertionError(f"bf16 {name} disagrees with its plain version: max|err| {err} "
+                             f"(<= {BF16_ATOL}), SNR {snr:.2f} dB (>= {BF16_SNR_DB})")
+    return err, snr
+
+
+def _bf16_grads_close(torch, got, want):
+    """dx within BF16_ATOL, every gradient at BF16_GRAD_SNR_DB: (dx max
+    |err|, the smallest SNR)."""
+    dx_err = float((got[0].float() - want[0].float()).abs().max())
+    snrs = [snr_db(a.float(), b.float()) for a, b in zip(got, want)]
+    if not (dx_err <= BF16_ATOL and min(snrs) >= BF16_GRAD_SNR_DB):
+        raise AssertionError(f"bf16 backward disagrees with its plain version: dx max|err| "
+                             f"{dx_err} (<= {BF16_ATOL}), SNR dx/dW_ih/db/dW_hh {snrs} "
+                             f"(>= {BF16_GRAD_SNR_DB} dB)")
+    return dx_err, min(snrs)
+
+
+def bound_bf16_training(kind: str, dirs: int, rows_steps: int, R: int, T: int, F: int, H: int):
+    """Least time of a bf16 training mode: 2 (F + H) 4H FLOP per row-step
+    and direction forward, twice that backward, over the bf16 peak; or the
+    bytes of the function itself: forward, x (bf16) read once and per
+    direction the output and the three saved streams written (bf16);
+    backward, x, the three saved streams and the cotangent per direction
+    read and dx written (bf16), dW and db written; the weights read (fp32).
+    The port's own saved gate pre-activations (fp32) are left out: the TPU
+    function saves no gates and its backward recomputes them."""
+    weights = dirs * (F + H + 1) * 4 * H * 4
+    steps = dirs * rows_steps
+    if kind == "backward":
+        flops = 2 * steps * 2 * (F + H) * 4 * H
+        nbytes = (rows_steps * F + dirs * R * T * 4 * H + R * T * F) * 2 + 2 * weights
+    else:
+        flops = steps * 2 * (F + H) * 4 * H
+        nbytes = (rows_steps * F + dirs * R * T * 4 * H) * 2 + weights
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bf16_training_kernels(torch, dev):
+    """Phase 17 (a): the four bf16 training modes against their plain
+    versions at the training shapes (5 x 3 s; the pair masked at phase 2's
+    inter shape), bit for bit on a second call, timed beside the plain
+    versions, the bound and cuDNN's LSTM in bf16 (training mode)."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+    from tss_dprnn_tpu_torch.ops import lstm as L
+
+    F = H = 128
+    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 17)
+    k = H ** -0.5
+    bf = torch.bfloat16
+    S10 = (10 * SAMPLE_RATE - 1 + K) // hop + 1
+    secs = torch.rand(8, generator=g) * 5 + 5
+    lens = ((((secs * SAMPLE_RATE).long() - 1 + K) // hop + 1).repeat_interleave(K)
+            .int().to(dev))
+    shapes = train_shapes()
+    cases = [("pair", name, 2, R, T, None) for name, (R, T) in shapes.items()]
+    cases.append(("pair", "masked", 2, 8 * K, S10, lens))
+    cases.append(("stack", "inter", 1, *shapes["inter"], None))
+    results = {}
+    for kind, name, D, R, T, ln in cases:
+        # the lane's weights: fp32 parameters cast to bf16 (the bias summed in bf16)
+        w = [((torch.rand(*s, generator=g) * 2 * k - k)).to(dev).to(bf)
+             for s in ((D, F, 4 * H), (D, 4 * H), (D, H, 4 * H))]
+        shape = (R, T) if kind == "pair" else (1, R, T)
+        x = torch.randn(*shape, F, generator=g).to(dev).to(bf)
+        cots = [torch.randn(*shape, H, generator=g).to(dev).to(bf) for _ in range(D)]
+        valid = (torch.ones(R, T, dtype=torch.bool, device=dev) if ln is None
+                 else torch.arange(T, device=dev)[None, :] < ln[:, None])
+        if ln is not None:  # out0 past a row's length is unspecified: consumers mask it
+            cots[0] = cots[0] * valid[..., None]
+        rows_steps = R * T if ln is None else int(ln.sum())
+
+        if kind == "pair":
+            def fwd(kernel=True, x=x, ln=ln, w=w):
+                if not kernel:
+                    return B2.bilstm2_resid_reference(x, *w, ln)
+                if ln is None:
+                    return B2.bilstm2_forward_resid(x, *w)
+                return B2.bilstm2_forward_resid_masked(x, ln, *w)
+
+            def bwd(resid, kernel=True, x=x, ln=ln, w=w, cots=cots):
+                if not kernel:
+                    return B2.bilstm2_backward_reference(x, resid, *cots, *w, ln)
+                if ln is None:
+                    return B2.bilstm2_backward(x, resid, *cots, *w)
+                return B2.bilstm2_backward_masked(x, resid, *cots, *w, ln)
+            names = ("hp0", "cp0", "tc0", "hp1", "cp1", "tc1")
+        else:
+            def fwd(kernel=True, x=x, w=w):
+                return (L.lstm_forward_resid if kernel else L.lstm_resid_reference)(x, *w)
+
+            def bwd(resid, kernel=True, x=x, w=w, cots=cots):
+                run = L.lstm_backward if kernel else L.lstm_backward_reference
+                return run(x, resid, cots[0], *w)
+            names = ("hp", "cp", "tc")
+
+        out, resid = fwd()
+        out2, again = fwd()
+        torch.cuda.synchronize()
+        outs = out if kind == "pair" else (out,)
+        fwd_repeat = all(torch.equal(a, b) for a, b in zip(
+            (*outs, *resid), (*(out2 if kind == "pair" else (out2,)), *again)))
+        del out2, again
+        pout, presid = fwd(kernel=False)
+        pouts = pout if kind == "pair" else (pout,)
+        vmask = None if kind == "stack" else valid
+        errs, snrs = [], []
+        for i, (a, b) in enumerate(zip(outs, pouts)):  # out1 of the pair everywhere
+            e, sn = _bf16_streams_close(torch, f"out{i}", a, b, vmask if i == 0 else None)
+            errs.append(e), snrs.append(sn)
+        for nm, a, b in zip(names, resid, presid):
+            e, sn = _bf16_streams_close(torch, nm, a, b, vmask)
+            errs.append(e), snrs.append(sn)
+        pre_snr = snr_db(resid[-1][valid] if kind == "pair" else resid[-1],
+                         presid[-1][valid] if kind == "pair" else presid[-1])
+        del pout, pouts, presid
+        got = bwd(resid)
+        again = bwd(resid)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = bwd(resid, kernel=False)
+        dx_err, grad_snr = _bf16_grads_close(torch, got, want)
+        dw_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                     for a, b in zip(got[1:], want[1:]))
+        del got, want
+        if not (fwd_repeat and repeat):
+            raise AssertionError(f"bf16 {kind} {name}: a second call differs (forward "
+                                 f"{fwd_repeat}, backward {repeat})")
+
+        # cuDNN's LSTM in bf16 on the same weights, training mode: the yardstick
+        lstm = cudnn_lstm(torch, *(t.float() for t in w), torch.bfloat16)
+        xr = (x if kind == "pair" else x[0]).detach().clone().requires_grad_()
+        params = [xr, *lstm.parameters()]
+        cot = torch.cat([c if kind == "pair" else c[0] for c in cots], dim=-1)
+        lens_cpu = None if ln is None else ln.cpu()
+        pack = torch.nn.utils.rnn.pack_padded_sequence
+        unpack = torch.nn.utils.rnn.pad_packed_sequence
+
+        def library_fwd():
+            if ln is None:
+                return lstm(xr)[0]
+            packed = pack(xr, lens_cpu, batch_first=True, enforce_sorted=False)
+            return unpack(lstm(packed)[0], batch_first=True, total_length=T)[0]
+
+        lib_out = library_fwd()
+
+        def library_bwd():
+            torch.autograd.grad(lib_out, params, cot, retain_graph=True)
+
+        nums = {"fwd_ms": time_ms(fwd, 5), "fwd_plain_ms": time_ms(lambda: fwd(kernel=False), 1),
+                "bwd_ms": time_ms(lambda: bwd(resid), 5),
+                "bwd_plain_ms": time_ms(lambda: bwd(resid, kernel=False), 1),
+                "cudnn_fwd_ms": time_ms(library_fwd, 3), "cudnn_bwd_ms": time_ms(library_bwd, 3)}
+        nums["fwd_bound_ms"], nums["fwd_bound_by"] = bound_bf16_training(
+            "forward", D, rows_steps, R, T, F, H)
+        nums["bwd_bound_ms"], nums["bwd_bound_by"] = bound_bf16_training(
+            "backward", D, rows_steps, R, T, F, H)
+        key = f"{kind}_{name}"
+        results[key] = dict(nums, kind=kind, shape=name, D=D, R=R, T=T, rows_steps=rows_steps,
+                            fwd_max_abs_err=max(errs), fwd_min_snr_db=min(snrs),
+                            pre_snr_db=pre_snr, dx_max_abs_err=dx_err, grad_min_snr_db=grad_snr,
+                            dw_rel_err=dw_rel, fwd_bitwise_repeat=fwd_repeat,
+                            bitwise_repeat=repeat)
+        log(f"[bf16] {key} D={D} R={R} T={T}: resid fwd {nums['fwd_ms']:.3f} ms (plain "
+            f"{nums['fwd_plain_ms']:.1f}, bound {nums['fwd_bound_ms']:.3f}, cuDNN bf16 "
+            f"{nums['cudnn_fwd_ms']:.3f}), streams max|err| {max(errs):.3e} SNR >= "
+            f"{min(snrs):.1f} dB, pre {pre_snr:.1f} dB; backward {nums['bwd_ms']:.3f} ms (plain "
+            f"{nums['bwd_plain_ms']:.1f}, bound {nums['bwd_bound_ms']:.3f}, cuDNN bf16 "
+            f"{nums['cudnn_bwd_ms']:.3f}), dx max|err| {dx_err:.3e}, gradients SNR >= "
+            f"{grad_snr:.1f} dB, dW/db max|err|/max|ref| {dw_rel:.2e}; repeats bit for bit")
+        del x, cots, resid, lstm, xr, params, cot, lib_out
+        torch.cuda.empty_cache()
+    return results
+
+
+def _bf16_batch(torch, target, n):
+    """A ragged serving batch of ``n`` rows of up to 10 s for ``target``'s
+    inferencer, with its audio-seconds (serving_batch8's rows)."""
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.data import loader
+
+    if target == "dprnn_tasnet":
+        def collate(items, T):
+            return loader.collate_bss_eval([(m, np.stack([t, t])) for m, t, _, _ in items], T)
+        return serving_batch8(torch, collate, n)
+    if target == "dprnn_rawnet_tasnet":
+        return serving_batch8(torch, loader.make_collate_spe_eval(16000, SAMPLE_RATE), n)
+    return serving_batch8(torch, loader.make_collate_spe_eval(), n)
+
+
+def phase_bf16(torch, dev, smi, cli_state, varlen_state):
+    """Phase 17: the bf16 lane at full flagship width, as the module
+    docstring says: (a) the bf16 training modes against their plain
+    versions; (b) the flagship served in both lanes at batch 8 and 32; (c)
+    every family served in both lanes at batch 8; (d) 5 x 3 s train steps in
+    both lanes and a 2 x 1 s bf16 step card vs CPU; (e) the CLIs with
+    model.dtype=bfloat16 on phase 13's corpus and checkpoint; (f)
+    variable-length bf16 training through cli.train on phase 16's corpus;
+    (g) accum_steps in the bf16 lane."""
+    import functools
+    import shutil
+
+    from tss_dprnn_tpu_torch import inference, training
+    from tss_dprnn_tpu_torch.cli import test as test_cli, train as train_cli
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.data.librimix import LibrimixSpe
+    from tss_dprnn_tpu_torch.models import (DPRNNRawNetTasNet, DPRNNSpeIRATasNet, DPRNNSpeTasNet,
+                                            DPRNNTasNet)
+    from tss_dprnn_tpu_torch.utils.config import load_config
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    bf = torch.bfloat16
+    n = FLAGSHIP["n_repeats"]
+    results = {"kernels": _bf16_training_kernels(torch, dev)}
+
+    # -- (b), (c): each family served in both lanes on the same weights
+    families = {
+        "flagship": ("dprnn_spe_tasnet", lambda **kw: DPRNNSpeTasNet(**FLAGSHIP, **kw),
+                     inference.InferencerSpe, {"bilstm2_forward": n, "bilstm2_forward_masked": n}),
+        "spe_add": ("dprnn_spe_tasnet",
+                    lambda **kw: DPRNNSpeTasNet(**dict(FLAGSHIP, fusion_type="add"), **kw),
+                    inference.InferencerSpe, {"bilstm2_forward": n, "bilstm2_forward_masked": n}),
+        "bss_causal": ("dprnn_tasnet", lambda **kw: DPRNNTasNet(**BSS, **kw),
+                       inference.Inferencer, {"bilstm2_forward": n, "lstm_forward": n}),
+        "bss_bidirectional": ("dprnn_tasnet",
+                              lambda **kw: DPRNNTasNet(**dict(BSS, bidirectional=True), **kw),
+                              inference.Inferencer,
+                              {"bilstm2_forward": n, "bilstm2_forward_masked": n}),
+        "ira": ("dprnn_spe_ira_tasnet", lambda **kw: DPRNNSpeIRATasNet(**IRA, **kw),
+                inference.InferencerSpe,
+                {"bilstm2_forward": 2 * n, "bilstm2_forward_masked": 2 * n}),
+        "rawnet": ("dprnn_rawnet_tasnet", lambda **kw: DPRNNRawNetTasNet(**RAWNET, **kw),
+                   inference.InferencerRawNet,
+                   {"bilstm2_forward": n, "bilstm2_forward_masked": n}),
+    }
+    served = {}
+    for fam, (target, make, inf_cls, per_batch) in families.items():
+        ckpt = os.path.join(OUT_DIR, f"bf16_{fam}.pt")
+        torch.save(init_weights_(make(), torch.Generator().manual_seed(SEED + 70)).state_dict(),
+                   ckpt)
+        config = {"checkpoint_path": ckpt, "metrics": ["si_sdr"],
+                  "data": {"sample_rate": SAMPLE_RATE}}
+        infs = {"fp32": inf_cls(make(), config, device=dev),
+                "bf16": inf_cls(make(dtype=bf), config, device=dev)}
+        res = {}
+        for size in ((8, 32) if fam == "flagship" else (8,)):
+            batch, audio = _bf16_batch(torch, target, size)
+            est, rate, launches = {}, {}, {}
+            for lane, inf in infs.items():
+                with torch.inference_mode():
+                    reset_launches()
+                    est[lane] = inf.forward(batch).float()
+                    launches[lane] = dict(all_launches(), **product_launches())
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        inf.forward(batch)
+                    torch.cuda.synchronize()
+                    rate[lane] = audio / ((time.perf_counter() - t0) / 3)
+                    res[f"peak_gb_{lane}_batch{size}"] = torch.cuda.max_memory_allocated() / 1e9
+            expect_launches(launches["bf16"], per_batch, 1, f"{fam} bf16 batch of {size}")
+            expect_launches(launches["fp32"], with_products(per_batch), 1,
+                            f"{fam} fp32 batch of {size}")
+            lengths = torch.from_numpy(batch["lengths"])
+            snr = _valid_snr(torch, est["bf16"].cpu(), est["fp32"].cpu(), lengths)
+            if not (snr >= LANE_SNR_DB and torch.isfinite(est["bf16"]).all()):
+                raise AssertionError(f"{fam} bf16 lane vs fp32 lane {snr:.2f} dB < {LANE_SNR_DB}")
+            res.update({f"snr_db_batch{size}": snr, f"launches_bf16_batch{size}": launches["bf16"],
+                        f"audio_s_per_s_bf16_batch{size}": rate["bf16"],
+                        f"audio_s_per_s_fp32_batch{size}": rate["fp32"],
+                        f"audio_s_batch{size}": audio})
+            log(f"[bf16] {fam} batch of {size} ({audio:.2f} audio-s): bf16 {rate['bf16']:.2f} "
+                f"audio-s/s against fp32 {rate['fp32']:.2f} on {smi}; bf16 vs fp32 lane "
+                f"{snr:.2f} dB; bf16 launches {({k: v for k, v in launches['bf16'].items() if v})}")
+            del batch, est
+        served[fam] = res
+        del infs
+        os.remove(ckpt)
+        torch.cuda.empty_cache()
+    results["serving"] = served
+
+    # -- (d): 5 x 3 s train steps in both lanes, and a 2 x 1 s bf16 step card vs CPU
+    tss_step = {"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n,
+                "products_gemm": 2 * n * 6, "products_colsum": 2 * n}
+    steps_fams = {
+        "tss": (dict(model=lambda **kw: DPRNNSpeTasNet(**FLAGSHIP, **kw),
+                     trainer=training.TrainerSpe), loader.collate_spe, Crops, tss_step),
+        "bss_causal": (dict(model=lambda **kw: DPRNNTasNet(**BSS, **kw), trainer=training.Trainer),
+                       loader.collate_bss, Mixtures,
+                       {"bilstm2_forward_resid": n, "bilstm2_backward": n,
+                        "lstm_forward_resid": n, "lstm_backward": n,
+                        "products_gemm": n * 6 + n * 4, "products_colsum": 2 * n}),
+        "ira": (dict(model=lambda **kw: DPRNNSpeIRATasNet(**IRA, **kw),
+                     trainer=training.TrainerSpe), loader.collate_spe, Crops,
+                {"bilstm2_forward_resid": 6 * n, "bilstm2_backward": 4 * n,
+                 "products_gemm": 6 * n + 4 * n * 5, "products_colsum": 4 * n}),
+        "rawnet": (dict(model=lambda **kw: DPRNNRawNetTasNet(**RAWNET, **kw),
+                        trainer=training.TrainerRawNet),
+                   functools.partial(loader.collate_spe, resample_ref_to=16000), Crops, tss_step),
+    }
+    steps = {}
+    for fam, (spec, collate, crops, per_step) in steps_fams.items():
+        start = init_weights_(spec["model"](), torch.Generator().manual_seed(SEED + 71))
+        start = start.state_dict()
+        batch = collate(crops(SEED + 72, TRAIN_BATCH, TRAIN_SECONDS).items)
+        runs = {"fp32": _timed_step(torch, dev, spec, start, batch),
+                "bf16": _timed_step(torch, dev, spec, start, batch, dtype=bf)}
+        expect_launches(runs["bf16"]["launches"], per_step, 1, f"{fam} bf16 5 x 3 s step")
+        grad_snr = snr_db(runs["bf16"]["grads"], runs["fp32"]["grads"])
+        if not all(math.isfinite(float(r["loss"])) and math.isfinite(r["second_step_loss"])
+                   for r in runs.values()):
+            raise AssertionError(f"{fam}: non-finite loss in a 5 x 3 s step")
+        steps[fam] = {lane: {"ms": r["ms"], "peak_gb": r["peak_gb"], "loss": float(r["loss"]),
+                             "launches": r["launches"]} for lane, r in runs.items()}
+        steps[fam]["bf16_vs_fp32_grad_snr_db"] = grad_snr
+        log(f"[bf16] {fam} {TRAIN_BATCH} x {TRAIN_SECONDS} s train step: bf16 "
+            f"{runs['bf16']['ms']:.1f} ms, {runs['bf16']['peak_gb']:.2f} GB against fp32 "
+            f"{runs['fp32']['ms']:.1f} ms, {runs['fp32']['peak_gb']:.2f} GB on {smi}; losses "
+            f"{float(runs['bf16']['loss']):.6f} / {float(runs['fp32']['loss']):.6f}, gradients "
+            f"bf16 vs fp32 {grad_snr:.2f} dB; bf16 launches "
+            f"{({k: v for k, v in runs['bf16']['launches'].items() if v})}")
+        del runs
+        torch.cuda.empty_cache()
+    spec, collate, crops, per_step = steps_fams["tss"]
+    start = init_weights_(spec["model"](), torch.Generator().manual_seed(SEED + 73)).state_dict()
+    rel, grad_snr, stepped, _ = _step_card_vs_cpu(
+        torch, dev, lambda: spec["model"](dtype=bf), start, spec["trainer"], TRAIN_CONFIG,
+        collate(Crops(SEED + 74, 2, 1).items))
+    expect_launches(stepped, per_step, 1, "bf16 2 x 1 s step")
+    log(f"[bf16] tss bf16 train step (2 x 1 s) card vs CPU: loss rel {rel:.2e}, gradients "
+        f"{grad_snr:.2f} dB")
+    if not (rel <= BF16_STEP_LOSS_REL and grad_snr >= BF16_STEP_GRAD_SNR_DB):
+        raise AssertionError(f"bf16 card vs CPU train step: loss rel {rel}, gradients "
+                             f"{grad_snr:.2f} dB")
+    steps["card_vs_cpu_2x1s"] = {"loss_rel": rel, "grad_snr_db": grad_snr}
+    results["steps"] = steps
+
+    # -- (e): the CLIs on phase 13's corpus and checkpoint
+    manifests, fp32_ckpt = cli_state["manifests"], cli_state["best_checkpoint"]
+    root = os.path.join(OUT_DIR, "cli")
+    device_args = [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
+    test_yaml = os.path.join(HERE, "configs", "test_tss.yaml")
+    ckpt_dir = os.path.join(root, "bf16_chkpts")
+    argv = ["--config", os.path.join(HERE, "configs", "train_tss.yaml"), "--mode", "tss_spe",
+            "--set", f"data.use_generated_train={manifests['train']}",
+            f"data.use_generated_eval={manifests['eval']}", "epochs=1",
+            f"logs.metadata.ids=[{', '.join(map(str, CLI_IDS))}]", "model.dtype=bfloat16",
+            f"new_checkpoints_path={ckpt_dir}", *device_args]
+    batch = load_config(argv[1])["data"]["batch_size"]
+    n_train = len(LibrimixSpe(manifest_path=manifests["train"])) // batch
+    n_eval = len(LibrimixSpe(manifest_path=manifests["eval"])) // batch
+    reset_launches()
+    with recorded_training(torch) as rec:
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+    launches = dict(all_launches(), **product_launches())
+    n_mix = rec.mixture_passes * len(CLI_IDS)
+    per_eval = {"bilstm2_forward": 2 * n}
+    expect_launches(launches, {k: n_train * tss_step.get(k, 0) + (n_eval + n_mix) *
+                               per_eval.get(k, 0) for k in launches}, 1,
+                    f"bf16 cli.train ({n_train} train steps, {n_eval} eval steps, {n_mix} eval "
+                    f"mixtures)")
+    files = sorted(os.listdir(ckpt_dir))
+    if "1_best" not in files or not all(math.isfinite(v) for _, v in rec.epochs):
+        raise AssertionError(f"bf16 cli.train: {files}, epochs {rec.epochs}")
+    test_set = LibrimixSpe(manifest_path=manifests["test"])
+    eval_batch, n_buckets = 4, 2
+    n_test = len(loader.BucketedEvalLoader(test_set, eval_batch, loader.make_collate_spe_eval(),
+                                           test_set.lengths(), n_buckets=n_buckets))
+
+    def run_test(ckpt, tag, *sets):
+        savedir = os.path.join(root, f"metrics_bf16_{tag}")
+        reset_launches()
+        t0 = time.perf_counter()
+        final = test_cli.main(["--config", test_yaml, "--mode", "tss_spe", "--batch-size",
+                               str(eval_batch), "--n-buckets", str(n_buckets), "--set",
+                               f"data.use_generated_test={manifests['test']}",
+                               f"checkpoint_path={ckpt}", f"test_savedir={savedir}", *sets,
+                               *device_args])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tested = dict(all_launches(), **product_launches())
+        if not all(v is not None and math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"bf16 cli.test {tag}: {final}")
+        rows = _csv_rows(os.path.join(savedir, "all_metrics.csv"))
+        return final, wall, tested, [float(r["si_sdr"]) for r in rows]
+
+    bf16_lane = {"bilstm2_forward": n, "bilstm2_forward_masked": n}
+    trained = run_test(os.path.join(ckpt_dir, "1_best"), "trained", "model.dtype=bfloat16")
+    expect_launches(trained[2], bf16_lane, n_test, "bf16 cli.test")
+    lanes = {"fp32": run_test(fp32_ckpt, "fp32", "metrics=[si_sdr]"),
+             "bf16": run_test(fp32_ckpt, "phase13_bf16", "metrics=[si_sdr]",
+                              "model.dtype=bfloat16")}
+    expect_launches(lanes["bf16"][2], bf16_lane, n_test, "bf16 cli.test on the fp32 checkpoint")
+    gap = [b - a for a, b in zip(lanes["fp32"][3], lanes["bf16"][3])]
+    mean_gap = sum(gap) / len(gap)
+    log(f"[bf16] cli.train --set model.dtype=bfloat16 (configs/train_tss.yaml, 1 epoch): "
+        f"{n_train} train + {n_eval} eval steps in {train_wall:.2f} s, train steps "
+        f"{[round(v, 1) for v in rec.step_ms]} ms, epoch losses {rec.epochs}; cli.test with it "
+        f"(configs/test_tss.yaml) {trained[1]:.3f} s: {trained[0]}; phase 13's fp32 checkpoint "
+        f"through cli.test: fp32 lane mean SI-SDR {lanes['fp32'][0]['si_sdr']:.4f} dB "
+        f"({lanes['fp32'][1]:.3f} s), bf16 lane {lanes['bf16'][0]['si_sdr']:.4f} dB "
+        f"({lanes['bf16'][1]:.3f} s), mean gap {mean_gap:+.5f} dB, worst row "
+        f"{max(map(abs, gap)):.5f} dB")
+    results["cli"] = {"train_wall_s": train_wall, "step_ms": rec.step_ms, "epochs": rec.epochs,
+                      "train_launches": launches, "test_trained": trained[0],
+                      "test_trained_wall_s": trained[1],
+                      "fp32_checkpoint": {lane: {"final": v[0], "wall_s": v[1]}
+                                          for lane, v in lanes.items()},
+                      "si_sdr_mean_gap_db": mean_gap, "si_sdr_worst_row_gap_db":
+                          max(map(abs, gap))}
+    # phase 13's corpus and checkpoint were kept for this phase
+    for path in (ckpt_dir, os.path.join(root, "corpus"), os.path.dirname(fp32_ckpt)):
+        shutil.rmtree(path, ignore_errors=True)
+
+    # -- (f): variable-length bf16 training through cli.train on phase 16's
+    # corpus: the masked bf16 training modes' path
+    fp32_run = varlen_state["cli_tss_spe"]
+    varlen_root = os.path.join(OUT_DIR, "varlen")
+    run = _varlen_cli(torch, dev, varlen_root, varlen_state["manifests"], "tss_spe",
+                      "train_tss.yaml", ["model.dtype=bfloat16"], bf16=True)
+    log(f"[bf16] variable-length cli.train, train ms per step by bucket width: bf16 "
+        f"{dict(sorted(run['ms_by_bucket'].items()))}, peak {run['peak_gb']:.2f} GB against fp32 "
+        f"(phase 16) {dict(sorted(fp32_run['ms_by_bucket'].items()))}, peak "
+        f"{fp32_run['peak_gb']:.2f} GB on {smi}")
+    results["varlen_cli"] = run
+    shutil.rmtree(os.path.join(varlen_root, "corpus"), ignore_errors=True)
+
+    # -- (g): accum_steps 5 against 1 on a 5 x 3 s bf16 step, as phase 16 (d)
+    # holds the fp32 lane: causal BSS, the loss and the gradients; TSS, whose
+    # speaker encoder's BatchNorm normalises each micro-batch by its own
+    # statistics (so its loss moves, in either lane), BatchNorm ending with
+    # the last micro-batch's update alone
+    accum = {}
+    for fam, cfg in (("bss_causal", dict(BSS_TRAIN_CONFIG, **RAW_GRADS)),
+                     ("tss", dict(TRAIN_CONFIG, **RAW_GRADS))):
+        spec, collate, crops, per_step = steps_fams[fam]
+        start = init_weights_(spec["model"](), torch.Generator().manual_seed(SEED + 75))
+        start = start.state_dict()
+        batch = collate(crops(SEED + 76, TRAIN_BATCH, TRAIN_SECONDS).items)
+        make = functools.partial(spec["model"], dtype=bf)
+        five = _whole_step(torch, dev, make, start, spec["trainer"], dict(cfg, accum_steps=5),
+                           batch)
+        expect_launches(five["launches"], per_step, 5, f"{fam} bf16 accum_steps 5 step")
+        if fam == "tss":
+            last = _whole_step(torch, dev, make, start, spec["trainer"], cfg,
+                               {k: v[-1:] for k, v in batch.items()})
+            err = max(float((five["buffers"][k].double() - last["buffers"][k].double())
+                            .abs().max()) for k in last["buffers"])
+            res = {"running_stats_max_abs_delta": err, "accum_5": _numbers(five)}
+            what = (f"BatchNorm statistics against one step on the last row alone max|delta| "
+                    f"{err:.3e}")
+            ok = err <= 1e-6
+        else:
+            one = _whole_step(torch, dev, make, start, spec["trainer"], cfg, batch)
+            rel = abs(five["loss"] - one["loss"]) / abs(one["loss"])
+            gsnr = _grad_snr(torch, five["grads"], one["grads"])
+            res = {"loss_rel": rel, "grad_snr_db": gsnr, "accum_1": _numbers(one),
+                   "accum_5": _numbers(five)}
+            what = (f"against accum_steps 1: loss rel {rel:.3e}, gradients {gsnr:.2f} dB; "
+                    f"accum_steps 1 {one['ms']:.1f} ms / {one['peak_gb']:.2f} GB")
+            ok = rel <= BF16_STEP_LOSS_REL and gsnr >= BF16_STEP_GRAD_SNR_DB
+        log(f"[bf16] {fam} {TRAIN_BATCH} x {TRAIN_SECONDS} s bf16, accum_steps 5: {what}; "
+            f"accum_steps 5 {five['ms']:.1f} ms / {five['peak_gb']:.2f} GB on {smi}")
+        if not ok:
+            raise AssertionError(f"{fam} bf16 accum_steps: {res}")
+        accum[fam] = res
+    results["accum"] = accum
+    return results
+
+
+def bf16_kernel_entries(entries, bf16, launches):
+    """The kernels line's rows for the bf16 modes that the bf16 lane runs:
+    the serving kernels' numbers from phases 2 and 7 (this run), the training
+    modes' from phase 17 (a); launches from the bf16 lane's runs
+    (``launches``: per served batch of 8, per 5 x 3 s train step, and the
+    masked training modes' over phase 17's variable-length cli.train run)."""
+    out = []
+    by = {(e["name"], e.get("mode")): e for e in entries}
+    for name, mode in (("bilstm2_forward", "unmasked"), ("bilstm2_forward_masked", "masked")):
+        sub = by[(name, mode)]["bf16"]
+        out.append({"name": name, "mode": f"bf16 streams, {mode} (serving)", "dtype": "bfloat16",
+                    "route": "cuda", "source": "tss_dprnn_tpu_torch/csrc/bilstm2.cu",
+                    "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:698",
+                    "launches": launches["serve"].get(name, 0),
+                    "max_abs_err": sub["plain_max_abs_err"],
+                    **{k: sub[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "snr_db", "plain_snr_db")},
+                    "shape": by[(name, mode)]["shape"]})
+    lf = next(e for e in entries if e["name"] == "lstm_forward")
+    out.append({"name": "lstm_forward", "mode": "bf16 streams, h only, D=1 (causal BSS serving)",
+                "dtype": "bfloat16", "route": "cuda", "source": "tss_dprnn_tpu_torch/csrc/lstm.cu",
+                "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57",
+                "launches": launches["bss_serve"].get("lstm_forward", 0),
+                "max_abs_err": lf["bf16"]["plain_max_abs_err"],
+                **{k: lf["bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "shape")}})
+    k = bf16["kernels"]
+
+    def numbers(r, which):
+        key = "fwd" if which == "forward" else "bwd"
+        return {"ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
+                "bound_ms": r[f"{key}_bound_ms"], "bound_by": r[f"{key}_bound_by"],
+                "library_ms": r[f"cudnn_{key}_ms"],
+                "max_abs_err": r["fwd_max_abs_err"] if key == "fwd" else r["dx_max_abs_err"],
+                "snr_db": r["fwd_min_snr_db"] if key == "fwd" else r["grad_min_snr_db"],
+                "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128}}
+
+    for name, which, source, replaces, kind, step in (
+            ("bilstm2_forward_resid", "forward", "tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu",
+             "tss_dprnn_tpu/ops/pallas_lstm.py:698", "pair", "tss"),
+            ("bilstm2_backward", "backward", "tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu",
+             "tss_dprnn_tpu/ops/pallas_lstm.py:1224", "pair", "tss"),
+            ("lstm_forward_resid", "forward", "tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu",
+             "tss_dprnn_tpu/ops/pallas_lstm.py:57", "stack", "bss_causal"),
+            ("lstm_backward", "backward", "tss_dprnn_tpu_torch/csrc/lstm_bwd.cu",
+             "tss_dprnn_tpu/ops/pallas_lstm.py:498", "stack", "bss_causal")):
+        first = f"{kind}_intra" if kind == "pair" else "stack_inter"
+        e = {"name": name, "mode": f"bf16 streams, {which} (training)", "dtype": "bfloat16",
+             "route": "cuda", "source": source, "replaces": replaces,
+             "with": "tss_dprnn_tpu_torch/csrc/products.cu (x upcast exactly)",
+             "launches": launches[step].get(name, 0), **numbers(k[first], which)}
+        if kind == "pair":
+            e["inter"] = numbers(k["pair_inter"], which)
+            e["masked"] = dict(numbers(k["pair_masked"], which), name=f"{name}_masked",
+                               launches=launches["varlen"].get(f"{name}_masked", 0))
+        if which == "backward":
+            e["dw_rel_err"] = max(r["dw_rel_err"] for r in k.values() if r["kind"] == kind)
+        e["bitwise_repeat"] = all(r["bitwise_repeat"] and r["fwd_bitwise_repeat"]
+                                  for r in k.values())
+        out.append(e)
+    return out
 
 
 def main() -> int:
@@ -3517,12 +4150,30 @@ def main() -> int:
             if isinstance(sub, dict) and sub.get("name") in by_name:
                 sub["launches"] = by_name[sub["name"]]["launches"]
     entries += new_entries
+    t0 = time.perf_counter()
+    bf16 = phase_bf16(torch, dev, smi, cli, varlen)
+    flag, steps = bf16["serving"]["flagship"], bf16["steps"]
+    log(f"[bf16] phase done in {time.perf_counter() - t0:.1f} s; flagship served at batch 8: "
+        f"bf16 {flag['audio_s_per_s_bf16_batch8']:.2f} against fp32 "
+        f"{flag['audio_s_per_s_fp32_batch8']:.2f} audio-s/s (batch 32: "
+        f"{flag['audio_s_per_s_bf16_batch32']:.2f} against "
+        f"{flag['audio_s_per_s_fp32_batch32']:.2f}), {flag['snr_db_batch8']:.2f} dB against the "
+        f"fp32 lane; 5 x 3 s TSS step bf16 {steps['tss']['bf16']['ms']:.1f} ms / "
+        f"{steps['tss']['bf16']['peak_gb']:.2f} GB against fp32 {steps['tss']['fp32']['ms']:.1f} "
+        f"ms / {steps['tss']['fp32']['peak_gb']:.2f} GB on {smi}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    entries += bf16_kernel_entries(entries, bf16, {
+        "serve": flag["launches_bf16_batch8"],
+        "bss_serve": bf16["serving"]["bss_causal"]["launches_bf16_batch8"],
+        "tss": steps["tss"]["bf16"]["launches"],
+        "bss_causal": steps["bss_causal"]["bf16"]["launches"],
+        "varlen": bf16["varlen_cli"]["launches"]})
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
-                   "families": families, "ira_rawnet": ira_rawnet, "varlen": varlen}, f,
-                  indent=1)
+                   "families": families, "ira_rawnet": ira_rawnet, "varlen": varlen,
+                   "bf16": bf16}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

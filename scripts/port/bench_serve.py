@@ -1,14 +1,15 @@
 """Serving benchmark of the PyTorch port: separated audio-seconds per
 wall-clock second on one card.
 
-    python scripts/port/bench_serve.py [--batch 32] [--secs 10]
+    python scripts/port/bench_serve.py [--batch 32] [--secs 10] [--dtype fp32|bf16]
 
 The flagship masked lane of ``bench.py`` (its lines 97-150) through the
 port: DPRNN-Spe-TasNet at the flagship widths (random weights from a seed),
 B utterances of 10 s at 8 kHz with their ``lengths`` passed in, so that the
-inter-chunk scans run masked as in bucketed evaluation, fp32 (the port's
-bf16 lane waits on ROADMAP §1 item 10). One warm-up forward, then 5 timed
-forwards between two synchronisations of the card.
+inter-chunk scans run masked as in bucketed evaluation; fp32 by default,
+``--dtype bf16`` the bf16 lane (``model.dtype: bfloat16``, bench.py's fast
+lane, batch-major where bench.py runs time-major). One warm-up forward,
+then 5 timed forwards between two synchronisations of the card.
 
 Prints the card's name and power limit on stderr and, as the last line of
 stdout, ``bench.py``'s JSON line: ``metric``, ``value``, ``unit``,
@@ -42,6 +43,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--secs", type=float, default=10.0)
+    parser.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_serve: no CUDA device; this benchmark runs on the card", file=sys.stderr)
@@ -57,7 +59,9 @@ def main(argv=None) -> int:
     print(f"# {card}", file=sys.stderr, flush=True)
     dev = resolve_device()
     B, T = args.batch, int(args.secs * SAMPLE_RATE)
-    model = init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(0))
+    dtype = torch.bfloat16 if args.dtype == "bf16" else None
+    model = init_weights_(DPRNNSpeTasNet(**FLAGSHIP, dtype=dtype),
+                          torch.Generator().manual_seed(0))
     model = model.to(dev).eval()
     g = torch.Generator().manual_seed(0)
     mix = torch.randn(B, T, generator=g).to(dev)
@@ -78,7 +82,8 @@ def main(argv=None) -> int:
     realtime = ITERS * B * args.secs / dt
     print(json.dumps({"metric": "separated_audio_sec_per_sec_per_chip",
                       "value": round(realtime, 2), "unit": "audio-sec/sec",
-                      "vs_baseline": round(realtime / 50.0, 3), "lane": "fp32"}))
+                      "vs_baseline": round(realtime / 50.0, 3),
+                      "lane": "bf16 masked" if dtype else "fp32"}))
     return 0
 
 

@@ -436,19 +436,6 @@ def test_backward_kernel_matches_reference_on_card(masked):
         assert torch.equal(a, again_), name
 
 
-@pytest.mark.cuda
-def test_training_kernels_reject_bf16():
-    _needs_card()
-    x, w, _, g0, g1 = _card_case(False, R=4, T=3, F=16, H=16)
-    before = port.launch_count()
-    with pytest.raises(ValueError, match="float32 only"):
-        port.bilstm2_forward_resid(x.bfloat16(), *w)
-    _, resid = port.bilstm2_resid_reference(x, *w)
-    with pytest.raises(ValueError, match="float32 only"):
-        port.bilstm2_backward(x.bfloat16(), resid, g0, g1, *w)
-    assert port.launch_count() == before
-
-
 # ragged R that no tile height divides, T = 1, lengths of 0 and T
 RAGGED_CARD = [(37, 9, False), (1001, 17, False), (37, 1, False), (1001, 1, True),
                (37, 21, True), (203, 13, True)]

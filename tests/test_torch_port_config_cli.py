@@ -142,14 +142,14 @@ def test_build_model_resolves_names(target, cls):
     (dict(TINY_SPE, target="dprnn_spe_ira_tasnet", share_blocks=0), DPRNNSpeIRATasNet),
     (dict(TINY_SPE, target="src.models.dprnn_rawnet.DPRNNRawNetTasNet", rawnet_C=32,
           rawnet_scale=4), DPRNNRawNetTasNet),
-    (dict(TINY_SPE, dtype="bfloat16"), "item 10"),
+    (dict(TINY_SPE, dtype="bfloat16"), DPRNNSpeTasNet),
     (dict(TINY_SPE, fusion_type="cat"), None),
 ], ids=["ira", "rawnet", "bfloat16", "cat"])
 def test_build_model_raises_for_the_unported(cfg, match):
     """What is not ported raises naming its ROADMAP item; 'cat', refused
     until the fusions were ported, builds with its widened bottleneck, and
-    IRA and RawNet, refused until their families were ported, build their
-    classes."""
+    IRA, RawNet and ``dtype: bfloat16``, refused until their families and
+    the bf16 lane were ported, build their classes."""
     if match is None:
         model = build_model(cfg)
         assert model.separation.bottleneck[1].in_features == cfg["input_size"] + cfg[

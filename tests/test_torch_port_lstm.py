@@ -351,14 +351,12 @@ def test_lstm_backward_kernel_matches_reference_on_card(D):
 
 
 @pytest.mark.cuda
-def test_lstm_training_kernels_reject_bf16():
+def test_lstm_want_cs_rejects_bf16():
+    """The want_cs mode streams fp32 only (the bf16 training modes are
+    tests/test_torch_port_bf16_training.py's)."""
     _needs_card()
     x, w, g = _card_case(1, R=4, T=3, F=16, H=16)
     before = port.launch_count()
-    for entry in (port.lstm_forward_with_cs, port.lstm_forward_resid):
-        with pytest.raises(ValueError, match="float32 only"):
-            entry(x.bfloat16(), *w)
-    _, resid = port.lstm_resid_reference(x, *w)
     with pytest.raises(ValueError, match="float32 only"):
-        port.lstm_backward(x.bfloat16(), resid, g, *w)
+        port.lstm_forward_with_cs(x.bfloat16(), *w)
     assert port.launch_count() == before

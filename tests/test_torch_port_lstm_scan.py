@@ -259,25 +259,27 @@ def test_stacked_tile_plan(R, heights, want):
 
 
 def test_fp32_stacked_modes_take_the_cluster_route(monkeypatch):
-    """The kernel wrapper sends fp32 streams in the h-only and residual modes
-    to the product + cluster scan route, and only bf16 streams and the
-    cell-state mode to csrc/lstm.cu, whose checks refuse a tensor that is not
-    on the card."""
+    """The kernel wrapper sends fp32 streams in the h-only mode and the
+    residual mode in either stream type to the product + cluster scan route,
+    and only bf16 streams in the h-only mode and the cell-state mode to
+    csrc/lstm.cu, whose checks refuse a tensor that is not on the card."""
     calls = []
     monkeypatch.setattr(L, "_launch_scan", lambda *a: calls.append(a) or "scan")
     w = [torch.zeros(1, 16, 64), torch.zeros(1, 64), torch.zeros(1, 16, 64)]
     x = torch.zeros(1, 3, 5, 16)
-    for entry, mode in ((L.lstm_forward, L._MODE_H), (L.lstm_forward_resid, L._MODE_RESID),
-                        (L.lstm_scan, L._MODE_H)):
-        assert L._launch(entry, mode, x, *w) == "scan"
-        assert calls[-1][:3] == (entry, mode, x)
-    assert len(calls) == 3
+    xb = x.bfloat16()
+    for entry, mode, xx in ((L.lstm_forward, L._MODE_H, x),
+                            (L.lstm_forward_resid, L._MODE_RESID, x),
+                            (L.lstm_scan, L._MODE_H, x),
+                            (L.lstm_forward_resid, L._MODE_RESID, xb)):
+        assert L._launch(entry, mode, xx, *w) == "scan"
+        assert calls[-1][:3] == (entry, mode, xx)
+    assert len(calls) == 4
     for entry, dtype, mode in ((L.lstm_forward, torch.bfloat16, L._MODE_H),
-                               (L.lstm_forward_with_cs, torch.float32, L._MODE_CS),
-                               (L.lstm_forward_resid, torch.bfloat16, L._MODE_RESID)):
+                               (L.lstm_forward_with_cs, torch.float32, L._MODE_CS)):
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
             L._launch(entry, mode, x.to(dtype), *w)
-    assert len(calls) == 3
+    assert len(calls) == 4
 
 
 def test_cluster_route_has_no_cpu_fallback():

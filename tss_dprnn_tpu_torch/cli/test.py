@@ -14,7 +14,9 @@ host unless ``--device-metrics`` (STOI on the device) or ``--device-pesq``
 The batch size defaults to 16 on that device lane and to 8 otherwise, as in
 the JAX CLI, and the choice is logged. ``--data-parallel`` other than 1
 raises until it is ported; a config's ``lstm_backend`` is accepted (the port
-has one backend).
+has one backend). ``model.dtype: bfloat16`` (or ``--set
+model.dtype=bfloat16``) serves the bf16 lane from the same checkpoint,
+batch-major where the JAX Inferencer turns the time-major layout on for it.
 """
 
 from __future__ import annotations

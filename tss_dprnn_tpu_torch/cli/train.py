@@ -14,8 +14,9 @@ from the config's ``seed``. Epoch losses and the separated demo mixtures of
 ``logs.metadata.ids`` (indices into the eval set, which must hold them) go
 to the log-only ``reporters.Reporter``, as the JAX CLI logs them without
 wandb. Every trainer knob of the JAX package runs (``training/trainer.py``)
-but ``is_metrics`` with ``accum_steps > 1``, which fails in JAX; the model
-dtype bfloat16 waits for ROADMAP §1 item 10.
+but ``is_metrics`` with ``accum_steps > 1``, which fails in JAX. ``--set
+model.dtype=bfloat16`` trains the bf16 lane (fp32 parameters and
+checkpoints; ``lstm_save_every`` > 1 takes fp32 only on the card).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-// Backward of the fused bidirectional LSTM scan for Hopper (sm_90a), fp32: the
-// reverse dh/dc scan, with W_hh^T resident in the shared memory of a 2-CTA
-// cluster.
+// Backward of the fused bidirectional LSTM scan for Hopper (sm_90a), fp32 or
+// bf16 streams: the reverse dh/dc scan, with W_hh^T resident in the shared
+// memory of a 2-CTA cluster.
 //
 // Replaces the TPU kernel `_bilstm2_bwd_kernel`
 // (tss_dprnn_tpu/ops/pallas_lstm.py:1224, launched by bilstm2_backward_tm :1429),
@@ -15,6 +15,9 @@
 // scan). Masked: steps with t >= len[row] give no dpre and pass the carries
 // through, in both directions (direction 1 held its zero state there; out0 past
 // the length is unspecified, so its cotangent there is discarded).
+// bf16 streams (the TPU kernel's bf16 mode): c_prev, tanh(c) and the
+// cotangents are bf16, dpre is rounded to bf16 where the TPU kernel rounds it
+// and db's unrounded partial sums go to dbpart (cluster_scan.cuh).
 //
 // What bounds it: the fp32 FMAs of dpre @ W_hh^T, 2 * 4H * H FLOP per
 // row-step and direction, and the step-to-step dependency.
@@ -25,33 +28,37 @@ using namespace cluster_scan;
 
 extern "C" {
 
-// The reverse scan. height: rows per tile, one of 16, 24, 32, 40, 48. pre:
-// [R, T, 2, 4H], the forward's gate pre-activations; dpre: [R, T, 2, 4H] out.
-// cp_d, tc_d, g_d: [R, T, H]; wsplit: W_hh^T laid out [2, 2, 4, H / 2, H]
-// (direction, half, gate, unit, k); lens: [R] int32 or null. All fp32,
-// contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns a
-// cudaError_t code (0 = launched).
-int bilstm2_bwd_scan(int height, const void* pre, void* dpre, const void* cp0, const void* tc0,
-                     const void* g0, const void* cp1, const void* tc1, const void* g1,
-                     const void* wsplit, const void* lens, int R, int Tn, int H, void* stream) {
+// The reverse scan. height: rows per tile, one of 16, 24, 32, 40, 48. dtype:
+// 0 = fp32 streams, 1 = bf16. pre: [R, T, 2, 4H], the forward's gate
+// pre-activations; dpre: [R, T, 2, 4H] out. cp_d, tc_d, g_d: [R, T, H] in the
+// stream type; wsplit: W_hh^T laid out [2, 2, 4, H / 2, H] (direction, half,
+// gate, unit, k); lens: [R] int32 or null; dbpart: [tiles * 8, 2, 4H] out
+// (bf16 only, else null). pre, dpre, wsplit and dbpart fp32; all contiguous,
+// 16-byte aligned; H a multiple of 16, at most 128. Returns a cudaError_t
+// code (0 = launched).
+int bilstm2_bwd_scan(int height, int dtype, const void* pre, void* dpre, const void* cp0,
+                     const void* tc0, const void* g0, const void* cp1, const void* tc1,
+                     const void* g1, const void* wsplit, const void* lens, void* dbpart, int R,
+                     int Tn, int H, void* stream) {
   BwdScanArgs a = {};
   a.pre = static_cast<const float*>(pre);
   a.dpre = static_cast<float*>(dpre);
-  a.cp[0] = static_cast<const float*>(cp0);
-  a.cp[1] = static_cast<const float*>(cp1);
-  a.tc[0] = static_cast<const float*>(tc0);
-  a.tc[1] = static_cast<const float*>(tc1);
-  a.g[0] = static_cast<const float*>(g0);
-  a.g[1] = static_cast<const float*>(g1);
+  a.cp[0] = cp0;
+  a.cp[1] = cp1;
+  a.tc[0] = tc0;
+  a.tc[1] = tc1;
+  a.g[0] = g0;
+  a.g[1] = g1;
   a.wsplit = static_cast<const float*>(wsplit);
   a.lens = static_cast<const int*>(lens);
+  a.dbpart = static_cast<float*>(dbpart);
   a.pre_dir = 4 * H;   // [R, T, 2, 4H]: the two directions side by side
   a.pre_step = 8 * H;
   a.down1 = 0;         // direction 1 scanned backwards: its backward runs forwards
   a.R = R;
   a.Tn = Tn;
   a.H = H;
-  return bwd_scan(height, a, 2, static_cast<cudaStream_t>(stream));
+  return bwd_scan(height, dtype, a, 2, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of the scan at this tile height the card runs at once.

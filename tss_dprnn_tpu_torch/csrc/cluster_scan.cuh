@@ -9,6 +9,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "scan_common.cuh"
 
 namespace cluster_scan {
@@ -57,6 +59,26 @@ __device__ __forceinline__ void cp_async8(float* smem, const float* gmem, bool o
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(smem)),
                "l"(gmem), "r"(ok ? 8 : 0));
 }
+
+// The H-wide streams of the training scans in the stream type S: fp32, or
+// bf16 (two consecutive values, 4-byte aligned). A bf16 store rounds to
+// nearest even; a load is exact.
+__device__ __forceinline__ void ld2(const __nv_bfloat16* p, float (&v)[2]) {
+  const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = t.x, v[1] = t.y;
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, const float (&v)[2]) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+}
+
+// v rounded to the stream type S and back (a no-op for fp32)
+template <typename S>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<S>(v));
+}
+
+template <typename S>
+constexpr bool kLowPrecision = !std::is_same<S, float>::value;
 
 // Thread 0 starts the bulk copy of `bytes` (a multiple of 16) from src into
 // dst, counted on `bar`. The barrier is initialised here: a CTA-wide barrier
@@ -126,6 +148,14 @@ int max_clusters(Kernel kernel, int threads, size_t smem, int* clusters) {
 // the same result). Masked (lens): steps with t >= len[row] give no dpre and
 // pass the carries through.
 //
+// bf16 streams (S = __nv_bfloat16; c_prev, tanh(c) and g are read in bf16),
+// as the TPU kernels' bf16 mode computes: dpre is rounded to bf16 before
+// dpre @ W_hh^T and before it is stored (the dx and dW products read the
+// rounded values), while db sums the unrounded dpre: each thread adds its
+// rows' unrounded dpre over every step into registers and writes them once,
+// as row rg of its tile, into dbpart [tiles * 8][dirs][4H] (the column-sum
+// kernel of csrc/products.cu sums its rows). The dc carry stays unrounded.
+//
 // What bounds it: the fp32 FMAs of dpre @ W_hh^T, 2 * 4H * H FLOP per
 // row-step and direction, and the step-to-step dependency.
 //
@@ -152,11 +182,12 @@ constexpr int kBwdUnits = 2;  // hidden units per thread (ld2, st2)
 struct BwdScanArgs {
   const float* pre;
   float* dpre;
-  const float* cp[2];
-  const float* tc[2];
-  const float* g[2];
+  const void* cp[2];    // H-wide streams in the stream type
+  const void* tc[2];
+  const void* g[2];
   const float* wsplit;  // [dirs, 2 c, 4, H / 2, H]: CTA (d, c)'s rows of W_hh[d]^T
   const int* lens;      // [R] or null
+  float* dbpart;        // [tiles * 8][dirs][4H] (bf16 streams only)
   long long pre_dir;
   int pre_step;
   int down1;
@@ -175,10 +206,11 @@ constexpr size_t bwd_smem_bytes(int nr, int H) {
 
 // Grid (2, tiles, dirs) in clusters of (2, 1, 1); 2H threads, each owning NR
 // rows x 2 units (x 4 gates for dpre, of both halves for the product).
-template <int NR>
+template <int NR, typename S>
 __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
   constexpr int UW = kBwdUnits;
   constexpr int RT = 8 * NR;
+  constexpr bool kLow = kLowPrecision<S>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = a.R, Tn = a.Tn, H = a.H;
   const float* __restrict__ pre = a.pre;
@@ -217,10 +249,10 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
 
   // selects, not a runtime index into the parameter arrays (which would
   // copy them to local memory)
-  const float* cpd = d == 0 ? a.cp[0] : a.cp[1];
-  const float* tcd = d == 0 ? a.tc[0] : a.tc[1];
-  const float* gd = d == 0 ? a.g[0] : a.g[1];
-  auto at = [&](const float* p, int gr, int t) {
+  const S* cpd = static_cast<const S*>(d == 0 ? a.cp[0] : a.cp[1]);
+  const S* tcd = static_cast<const S*>(d == 0 ? a.tc[0] : a.tc[1]);
+  const S* gd = static_cast<const S*>(d == 0 ? a.g[0] : a.g[1]);
+  auto at = [&](const S* p, int gr, int t) {
     return p + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
   };
   auto gate_off = [&](int gr, int t) {
@@ -269,6 +301,11 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
   for (int r = 0; r < NR; ++r)
 #pragma unroll
     for (int j = 0; j < UW; ++j) dh[r][j] = dc[r][j] = 0.f;
+  float dbacc[4][UW];  // bf16 streams: this thread's rows' unrounded dpre, summed
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int j = 0; j < UW; ++j) dbacc[g][j] = 0.f;
 
   cluster_sync();     // both CTAs run; the mbarrier is initialised
   mbar_wait(bar, 0);  // the W^T slice landed
@@ -295,6 +332,13 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
         v[2][j] = live ? dcv * (ig * (1.0f - ggv * ggv)) : 0.f;
         v[3][j] = live ? dhv * (tc * og * (1.0f - og)) : 0.f;
         if (live) dc[r][j] = dcv * fg;
+        if constexpr (kLow) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            dbacc[g][j] += v[g][j];
+            v[g][j] = round_to<S>(v[g][j]);
+          }
+        }
       }
       float* dp = dps + row * dpitch + u0;
 #pragma unroll
@@ -359,37 +403,53 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
       }
     }
   }
+  if constexpr (kLow) {  // row rg of this tile, direction d, this thread's 4 gates x 2 units
+    const int dirs = gridDim.z;
+    float* part = a.dbpart + (static_cast<long long>(blockIdx.y * 8 + rg) * dirs + d) * 4 * H + gu;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) st2(part + g * H, dbacc[g]);
+  }
 }
 
 // The scan at a tile height of 16, 24, 32, 40 or 48 rows over `dirs`
 // directions; H a multiple of 16, at most 128. Returns a cudaError_t code.
-template <int NR>
+template <int NR, typename S>
 int launch_bwd_scan(const BwdScanArgs& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(bwd_scan_kernel<NR>, tiles, dirs, 2 * a.H, bwd_smem_bytes(NR, a.H), s, a);
+  return launch_cluster(bwd_scan_kernel<NR, S>, tiles, dirs, 2 * a.H, bwd_smem_bytes(NR, a.H), s,
+                        a);
 }
 
-inline int bwd_scan(int height, const BwdScanArgs& a, int dirs, cudaStream_t s) {
-  if (a.H % 16 || a.H > 128 || a.H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+template <typename S>
+int bwd_scan_typed(int height, const BwdScanArgs& a, int dirs, cudaStream_t s) {
   switch (height) {
-    case 16: return launch_bwd_scan<2>(a, dirs, s);
-    case 24: return launch_bwd_scan<3>(a, dirs, s);
-    case 32: return launch_bwd_scan<4>(a, dirs, s);
-    case 40: return launch_bwd_scan<5>(a, dirs, s);
-    case 48: return launch_bwd_scan<6>(a, dirs, s);
+    case 16: return launch_bwd_scan<2, S>(a, dirs, s);
+    case 24: return launch_bwd_scan<3, S>(a, dirs, s);
+    case 32: return launch_bwd_scan<4, S>(a, dirs, s);
+    case 40: return launch_bwd_scan<5, S>(a, dirs, s);
+    case 48: return launch_bwd_scan<6, S>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// How many clusters of the scan at this tile height the card runs at once.
+// dtype: 0 = fp32 streams, 1 = bf16 streams (then dbpart is written).
+inline int bwd_scan(int height, int dtype, const BwdScanArgs& a, int dirs, cudaStream_t s) {
+  if (a.H % 16 || a.H > 128 || a.H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return bwd_scan_typed<float>(height, a, dirs, s);
+  if (dtype == 1 && a.dbpart != nullptr) return bwd_scan_typed<__nv_bfloat16>(height, a, dirs, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of the scan at this tile height the card runs at once
+// (either stream type: both take the same shared memory and threads).
 inline int bwd_scan_max_clusters(int height, int H, int* clusters) {
   const int threads = 2 * H;
   switch (height) {
-    case 16: return max_clusters(bwd_scan_kernel<2>, threads, bwd_smem_bytes(2, H), clusters);
-    case 24: return max_clusters(bwd_scan_kernel<3>, threads, bwd_smem_bytes(3, H), clusters);
-    case 32: return max_clusters(bwd_scan_kernel<4>, threads, bwd_smem_bytes(4, H), clusters);
-    case 40: return max_clusters(bwd_scan_kernel<5>, threads, bwd_smem_bytes(5, H), clusters);
-    case 48: return max_clusters(bwd_scan_kernel<6>, threads, bwd_smem_bytes(6, H), clusters);
+    case 16: return max_clusters(bwd_scan_kernel<2, float>, threads, bwd_smem_bytes(2, H), clusters);
+    case 24: return max_clusters(bwd_scan_kernel<3, float>, threads, bwd_smem_bytes(3, H), clusters);
+    case 32: return max_clusters(bwd_scan_kernel<4, float>, threads, bwd_smem_bytes(4, H), clusters);
+    case 40: return max_clusters(bwd_scan_kernel<5, float>, threads, bwd_smem_bytes(5, H), clusters);
+    case 48: return max_clusters(bwd_scan_kernel<6, float>, threads, bwd_smem_bytes(6, H), clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

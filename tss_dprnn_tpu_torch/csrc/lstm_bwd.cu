@@ -1,6 +1,6 @@
-// Backward of the stacked-direction LSTM scan for Hopper (sm_90a), fp32: the
-// reverse dh/dc scan, with W_hh^T resident in the shared memory of a 2-CTA
-// cluster.
+// Backward of the stacked-direction LSTM scan for Hopper (sm_90a), fp32 or
+// bf16 streams: the reverse dh/dc scan, with W_hh^T resident in the shared
+// memory of a 2-CTA cluster.
 //
 // Replaces the TPU kernel `_lstm_bwd_kernel`
 // (tss_dprnn_tpu/ops/pallas_lstm.py:498, launched by lstm_backward :632). Given,
@@ -10,7 +10,10 @@
 // csrc/cluster_scan.cuh (`bwd_scan_kernel`, whose header gives the arithmetic
 // and the design) turns them into dpre[d] [R, T, 4H], a separate buffer, so a
 // second backward on the same saved tensors gives the same result. Every
-// direction runs t = T-1..0 (the forward never reverses).
+// direction runs t = T-1..0 (the forward never reverses). bf16 streams (the
+// TPU kernel's bf16 mode): c_prev, tanh(c) and the cotangent are bf16, dpre
+// is rounded to bf16 where the TPU kernel rounds it and db's unrounded
+// partial sums go to dbpart (cluster_scan.cuh).
 // dx[d] = dpre @ W_ih[d]^T, dW_ih[d] = sum x^T dpre, dW_hh[d] = sum h_prev^T
 // dpre and db[d] = sum dpre are products over all row-steps at once: the
 // product and column-sum kernels of csrc/products.cu
@@ -30,32 +33,37 @@ using namespace cluster_scan;
 extern "C" {
 
 // The reverse scan over D stacked directions. height: rows per tile, one of
-// 16, 24, 32, 40, 48. pre, dpre: [D, R, T, 4H]; cp, tc, g: [D, R, T, H];
-// wsplit: W_hh^T laid out [D, 2, 4, H / 2, H] (direction, half, gate, unit,
-// k). All fp32, contiguous, 16-byte aligned; D 1 or 2; H a multiple of 16, at
+// 16, 24, 32, 40, 48. dtype: 0 = fp32 streams, 1 = bf16. pre, dpre:
+// [D, R, T, 4H]; cp, tc, g: [D, R, T, H] in the stream type; wsplit: W_hh^T
+// laid out [D, 2, 4, H / 2, H] (direction, half, gate, unit, k); dbpart:
+// [tiles * 8, D, 4H] out (bf16 only, else null). pre, dpre, wsplit and dbpart
+// fp32; all contiguous, 16-byte aligned; D 1 or 2; H a multiple of 16, at
 // most 128. Returns a cudaError_t code (0 = launched).
-int lstm_bwd_scan(int height, const void* pre, void* dpre, const void* cp, const void* tc,
-                  const void* g, const void* wsplit, int D, int R, int Tn, int H, void* stream) {
+int lstm_bwd_scan(int height, int dtype, const void* pre, void* dpre, const void* cp,
+                  const void* tc, const void* g, const void* wsplit, void* dbpart, int D, int R,
+                  int Tn, int H, void* stream) {
   if (D < 1 || D > 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long steps = static_cast<long long>(R) * Tn;  // row-steps of one direction
+  const long long size = dtype == 1 ? 2 : 4;                // bytes per stream element
   BwdScanArgs a = {};
   a.pre = static_cast<const float*>(pre);
   a.dpre = static_cast<float*>(dpre);
   for (int d = 0; d < 2; ++d) {
-    const long long off = (d < D ? d : 0) * steps * H;
-    a.cp[d] = static_cast<const float*>(cp) + off;
-    a.tc[d] = static_cast<const float*>(tc) + off;
-    a.g[d] = static_cast<const float*>(g) + off;
+    const long long off = (d < D ? d : 0) * steps * H * size;
+    a.cp[d] = static_cast<const char*>(cp) + off;
+    a.tc[d] = static_cast<const char*>(tc) + off;
+    a.g[d] = static_cast<const char*>(g) + off;
   }
   a.wsplit = static_cast<const float*>(wsplit);
   a.lens = nullptr;
+  a.dbpart = static_cast<float*>(dbpart);
   a.pre_dir = steps * 4 * H;
   a.pre_step = 4 * H;
   a.down1 = 1;
   a.R = R;
   a.Tn = Tn;
   a.H = H;
-  return bwd_scan(height, a, D, static_cast<cudaStream_t>(stream));
+  return bwd_scan(height, dtype, a, D, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of the scan at this tile height the card runs at once.

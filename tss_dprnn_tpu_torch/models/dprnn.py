@@ -12,6 +12,14 @@ through the stacked-direction kernel (``ops/lstm.py``). Module and
 parameter names follow the reference's torch model, which keeps the
 dual-path stack directly on its separation module; :class:`DPRNNCore`
 therefore carries those names and the separation modules subclass it.
+
+``dtype=torch.bfloat16`` (the bf16 lane, the JAX models' ``dtype``) runs
+the core in bf16: the bottleneck's output is masked, then cast, before
+segmentation; every block, the mask head and the overlap-add compute in
+bf16 (the scans stream bf16); the masks come out bf16 and the mask-times-
+features product promotes to fp32, so the encoder, decoder, bottleneck and
+speaker branches stay fp32. Parameters stay fp32 in either lane, so a
+checkpoint loads in both.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from torch import nn
 
 from tss_dprnn_tpu_torch.models.layers import Dense, GlobalNorm, PReLU, RNNCore, SplitDense
 from tss_dprnn_tpu_torch.ops import chunking
+from tss_dprnn_tpu_torch.ops import rnn as rnn_ops
 from tss_dprnn_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from tss_dprnn_tpu_torch.ops.masking import length_mask
 
@@ -40,14 +49,16 @@ class DPRNNBlock(nn.Module):
     JAX block, returns the concatenation and its Dense takes that."""
 
     def __init__(self, feature_size: int, hidden_size: int, norm_type: str = "gLN",
-                 bidirectional: bool = True, rnn_type: str = "LSTM"):
+                 bidirectional: bool = True, rnn_type: str = "LSTM",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         N, H = feature_size, hidden_size
-        self.intra_rnn = RNNCore(N, H, True, rnn_type)
-        self.intra_linear = SplitDense(2 * H, N)
+        self.intra_rnn = RNNCore(N, H, True, rnn_type, dtype)
+        self.intra_linear = SplitDense(2 * H, N, dtype=dtype)
         self.intra_norm = GlobalNorm(N, norm_type)
-        self.inter_rnn = RNNCore(N, H, bidirectional, rnn_type)
-        self.inter_linear = SplitDense(2 * H, N) if bidirectional else Dense(H, N)
+        self.inter_rnn = RNNCore(N, H, bidirectional, rnn_type, dtype)
+        self.inter_linear = (SplitDense(2 * H, N, dtype=dtype) if bidirectional
+                             else Dense(H, N, dtype=dtype))
         self.inter_norm = GlobalNorm(N, norm_type)
 
     def forward(self, x: torch.Tensor, chunk_lengths: Optional[torch.Tensor] = None
@@ -89,7 +100,8 @@ class DPRNNCore(nn.Module):
     def __init__(self, input_size: int, feature_size: int, hidden_size: int,
                  chunk_length: int, hop_length: Optional[int], n_repeats: int,
                  norm_type: str = "gLN", activation_type: str = "sigmoid",
-                 bidirectional: bool = True, rnn_type: str = "LSTM"):
+                 bidirectional: bool = True, rnn_type: str = "LSTM",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if activation_type not in ("sigmoid", "relu"):
             raise ValueError(f"activation_type must be sigmoid/relu, got {activation_type}")
@@ -98,15 +110,16 @@ class DPRNNCore(nn.Module):
         self.hop_length = hop_length if hop_length is not None else chunk_length // 2
         self.n_repeats = n_repeats
         self.activation_type = activation_type
+        self.dtype = dtype
         Fs = feature_size
         self.dprnn_blocks = nn.ModuleList(
-            DPRNNBlock(Fs, hidden_size, norm_type, bidirectional, rnn_type)
+            DPRNNBlock(Fs, hidden_size, norm_type, bidirectional, rnn_type, dtype)
             for _ in range(n_repeats))
         self.prelu = PReLU()
-        self.conv2d = Dense(Fs, 2 * Fs, conv_dims=2)
-        self.out = nn.Sequential(Dense(Fs, Fs, conv_dims=1))
-        self.gate = nn.Sequential(Dense(Fs, Fs, conv_dims=1))
-        self.end_conv1x1 = Dense(Fs, input_size, bias=False, conv_dims=1)
+        self.conv2d = Dense(Fs, 2 * Fs, conv_dims=2, dtype=dtype)
+        self.out = nn.Sequential(Dense(Fs, Fs, conv_dims=1, dtype=dtype))
+        self.gate = nn.Sequential(Dense(Fs, Fs, conv_dims=1, dtype=dtype))
+        self.end_conv1x1 = Dense(Fs, input_size, bias=False, conv_dims=1, dtype=dtype)
 
     def forward(self, h: torch.Tensor, time_mask: Optional[torch.Tensor] = None,
                 chunk_lengths: Optional[torch.Tensor] = None, checkpoint_blocks: int = 0,
@@ -127,6 +140,8 @@ class DPRNNCore(nn.Module):
         B, L, Fs = h.shape
         if time_mask is not None:
             h = h * time_mask  # the padded tail is exactly zero before segmentation
+        if self.dtype is not None:
+            h = h.to(self.dtype)  # before segmentation: the chunked tensor is in the lane's type
         h = chunking.segment_cl(h, self.chunk_length, self.hop_length)  # [B, S, K, F]
         start = 0
         if resume is not None:
@@ -147,9 +162,9 @@ class DPRNNCore(nn.Module):
         # channel c = j*F + f belongs to source j (torch's reshape(B*2, F, K, S))
         h = h.reshape(B, S, K, 2, Fs).permute(0, 3, 1, 2, 4).reshape(B * 2, S, K, Fs)
         h = chunking.overlap_add_cl(h, L, self.hop_length)  # [2B, L, F]
-        h = torch.tanh(self.out(h)) * torch.sigmoid(self.gate(h))
+        h = torch.tanh(self.out(h)) * rnn_ops.sigmoid(self.gate(h))
         h = self.end_conv1x1(h)
-        h = torch.sigmoid(h) if self.activation_type == "sigmoid" else torch.relu(h)
+        h = rnn_ops.sigmoid(h) if self.activation_type == "sigmoid" else torch.relu(h)
         masks = h.reshape(B, 2, L, self.input_size)
         return masks if tap_block is None else (masks, tap)
 
@@ -205,9 +220,9 @@ class DPRNN(DPRNNCore):
     def __init__(self, input_size: int, feature_size: int = 128, hidden_size: int = 128,
                  chunk_length: int = 200, hop_length: Optional[int] = None, n_repeats: int = 6,
                  bidirectional: bool = True, rnn_type: str = "LSTM", norm_type: str = "gLN",
-                 activation_type: str = "sigmoid"):
+                 activation_type: str = "sigmoid", dtype: Optional[torch.dtype] = None):
         super().__init__(input_size, feature_size, hidden_size, chunk_length, hop_length,
-                         n_repeats, norm_type, activation_type, bidirectional, rnn_type)
+                         n_repeats, norm_type, activation_type, bidirectional, rnn_type, dtype)
         self.bottleneck = nn.Sequential(GlobalNorm(input_size, norm_type),
                                         Dense(input_size, feature_size, conv_dims=1))
 
@@ -231,14 +246,15 @@ class DPRNNTasNet(nn.Module):
                  hop_length: Optional[int] = None, n_repeats: int = 6,
                  bidirectional: bool = True, rnn_type: str = "LSTM", norm_type: str = "ln",
                  activation_type: str = "sigmoid", dropout: float = 0.0,
-                 stride: Optional[int] = None):
+                 stride: Optional[int] = None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         # dropout is accepted for config parity: a one-layer LSTM ignores it
         self.kernel_size = kernel_size
         self.stride = stride if stride is not None else kernel_size // 2
         self.encoder = Encoder(kernel_size, input_size, self.stride)
         self.separation = DPRNN(input_size, feature_size, hidden_size, chunk_length, hop_length,
-                                n_repeats, bidirectional, rnn_type, norm_type, activation_type)
+                                n_repeats, bidirectional, rnn_type, norm_type, activation_type,
+                                dtype)
         self.decoder = Decoder(input_size, kernel_size, self.stride)
 
     def feat_lengths(self, lengths: torch.Tensor) -> torch.Tensor:

@@ -116,11 +116,11 @@ class DPRNNSpe(DPRNNCore):
                  norm_type: str = "gLN", activation_type: str = "sigmoid", O: int = 128,
                  P: int = 256, embeddings_size: int = 128, num_spks: int = 251,
                  kernel_size: int = 2, fusion_type: str = "att", bidirectional: bool = True,
-                 rnn_type: str = "LSTM"):
+                 rnn_type: str = "LSTM", dtype: Optional[torch.dtype] = None):
         if fusion_type not in FUSION_TYPES:
             raise ValueError(f"fusion_type must be one of {FUSION_TYPES}, got {fusion_type!r}")
         super().__init__(input_size, feature_size, hidden_size, chunk_length, hop_length,
-                         n_repeats, norm_type, activation_type, bidirectional, rnn_type)
+                         n_repeats, norm_type, activation_type, bidirectional, rnn_type, dtype)
         N, E = input_size, embeddings_size
         self.kernel_size = kernel_size
         self.fusion_type = fusion_type
@@ -194,7 +194,8 @@ class DPRNNSpeTasNet(nn.Module):
     ``forward(mix [B, T], aux [B, Ta], aux_len [B], lengths=None)
     -> (target_wav [B, T], speaker_logits [B, num_spks])``. A subclass
     names its separation module in ``separation_cls``; keyword arguments
-    beyond this class's go to it."""
+    beyond this class's go to it. ``dtype`` is the core's compute type (the
+    speaker branch, fusion and bottleneck stay fp32, as in JAX)."""
 
     separation_cls = DPRNNSpe
 
@@ -205,7 +206,8 @@ class DPRNNSpeTasNet(nn.Module):
                  activation_type: str = "sigmoid", dropout: float = 0.0,
                  stride: Optional[int] = None, O: int = 128, P: int = 256,
                  embeddings_size: int = 128, num_spks: int = 251, fusion_type: str = "att",
-                 rnn_type: str = "LSTM", **separation_kwargs):
+                 rnn_type: str = "LSTM", dtype: Optional[torch.dtype] = None,
+                 **separation_kwargs):
         super().__init__()
         # dropout is accepted for config parity: a one-layer LSTM ignores it
         self.kernel_size = kernel_size
@@ -214,7 +216,7 @@ class DPRNNSpeTasNet(nn.Module):
         self.separation = self.separation_cls(
             input_size, feature_size, hidden_size, chunk_length, hop_length, n_repeats,
             norm_type, activation_type, O, P, embeddings_size, num_spks, kernel_size,
-            fusion_type, bidirectional, rnn_type, **separation_kwargs)
+            fusion_type, bidirectional, rnn_type, dtype=dtype, **separation_kwargs)
         self.decoder = Decoder(input_size, kernel_size, self.stride)
 
     def feat_lengths(self, lengths: torch.Tensor) -> torch.Tensor:

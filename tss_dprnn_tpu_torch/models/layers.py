@@ -6,6 +6,11 @@ reference-format ``state_dict`` (``utils/weights.py``) loads with
 ``strict=True``. Inputs are channels-last ([B, ..., C]), as in the JAX
 package. Parameters start uninitialised (``torch.empty``): weights always
 come from a state_dict.
+
+Parameters are fp32 whatever the lane. A module built with ``dtype`` (the
+bf16 lane: ``torch.bfloat16``) casts its input and parameters to it and
+computes in it, as flax's ``promote_dtype`` does in the JAX modules; with
+``dtype=None`` it computes in fp32.
 """
 
 from __future__ import annotations
@@ -28,12 +33,14 @@ class Dense(nn.Module):
 
     ``weight`` keeps the reference module's shape: [out, in] for nn.Linear,
     [out, in, 1] for a 1x1 Conv1d (``conv_dims=1``), [out, in, 1, 1] for a
-    1x1 Conv2d (``conv_dims=2``)."""
+    1x1 Conv2d (``conv_dims=2``). With ``dtype`` the product and the bias add
+    run in it, each rounded there (the JAX module's ``x @ kernel + bias``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 conv_dims: int = 0):
+                 conv_dims: int = 0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features, *([1] * conv_dims)))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
@@ -41,7 +48,10 @@ class Dense(nn.Module):
         return self.weight.reshape(self.out_features, self.in_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(x, self.matrix(), self.bias)
+        if self.dtype is None:
+            return nn.functional.linear(x, self.matrix(), self.bias)
+        y = x.to(self.dtype) @ self.matrix().to(self.dtype).T
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class SplitDense(Dense):
@@ -53,9 +63,13 @@ class SplitDense(Dense):
 
     def halves(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(wo2 [2, H, features], bias): wo2[d] = W[:, dH:(d+1)H].T, a view
-        of the weight."""
+        of the weight; with ``dtype`` both cast to it (the JAX module's
+        ``promoted()``)."""
         H = self.in_features // 2
-        return self.matrix().reshape(self.out_features, 2, H).permute(1, 2, 0), self.bias
+        wo2 = self.matrix().reshape(self.out_features, 2, H).permute(1, 2, 0)
+        if self.dtype is None:
+            return wo2, self.bias
+        return wo2.to(self.dtype), self.bias.to(self.dtype)
 
 
 # gate blocks per cell: i, f, g, o; r, z, n; one
@@ -78,22 +92,24 @@ class _RNNParams(nn.Module):
             self.register_parameter(f"bias_ih_l0{sfx}", nn.Parameter(torch.empty(G)))
             self.register_parameter(f"bias_hh_l0{sfx}", nn.Parameter(torch.empty(G)))
 
-    def direction(self, sfx: str) -> rnn_ops.LSTMWeights:
+    def cell(self, sfx: str, dtype: Optional[torch.dtype] = None) -> rnn_ops.CellWeights:
+        """A direction as (w_ih [F, G], w_hh [H, G], b_ih, b_hh), each cast
+        to ``dtype`` when one is given."""
         def p(name):
-            return getattr(self, f"{name}_l0{sfx}")
-
-        return rnn_ops.LSTMWeights(p("weight_ih").T, p("weight_hh").T,
-                                   p("bias_ih") + p("bias_hh"))
-
-    def stacked(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return rnn_ops.stack_directions(*(self.direction(sfx) for sfx in self.suffixes))
-
-    def cell(self, sfx: str) -> rnn_ops.CellWeights:
-        """A GRU or RNN direction as (w_ih [F, G], w_hh [H, G], b_ih, b_hh)."""
-        def p(name):
-            return getattr(self, f"{name}_l0{sfx}")
+            t = getattr(self, f"{name}_l0{sfx}")
+            return t if dtype is None else t.to(dtype)
 
         return p("weight_ih").T, p("weight_hh").T, p("bias_ih"), p("bias_hh")
+
+    def direction(self, sfx: str, dtype: Optional[torch.dtype] = None) -> rnn_ops.LSTMWeights:
+        """An LSTM direction; b = b_ih + b_hh is summed in ``dtype`` (each
+        bias cast first, as the JAX RNNCore sums them)."""
+        w_ih, w_hh, b_ih, b_hh = self.cell(sfx, dtype)
+        return rnn_ops.LSTMWeights(w_ih, w_hh, b_ih + b_hh)
+
+    def stacked(self, dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return rnn_ops.stack_directions(*(self.direction(sfx, dtype) for sfx in self.suffixes))
 
 
 class RNNCore(nn.Module):
@@ -107,15 +123,18 @@ class RNNCore(nn.Module):
     ``lengths`` are not used (steps past a row's length are unspecified and
     masked by the consumer). 'GRU' and 'RNN' run ``rnn_ops.gru`` /
     ``rnn_ops.vanilla_rnn`` (plain PyTorch, no kernel) and return the
-    directions concatenated, [B, T, H * ndir]."""
+    directions concatenated, [B, T, H * ndir]. With ``dtype`` x and each
+    parameter are cast to it first (the LSTM's bias sum then rounds in it),
+    so the kernels stream that type."""
 
     def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True,
-                 rnn_type: str = "LSTM"):
+                 rnn_type: str = "LSTM", dtype: Optional[torch.dtype] = None):
         super().__init__()
         if rnn_type not in GATES:
             raise ValueError(f"rnn_type must be LSTM/GRU/RNN, got {rnn_type!r}")
         self.bidirectional = bidirectional
         self.rnn_type = rnn_type
+        self.dtype = dtype
         self.rnn = _RNNParams(input_size, hidden_size, bidirectional, rnn_type)
         self._stacked = None  # (the parameters it was built from, stacked weights)
 
@@ -128,12 +147,12 @@ class RNNCore(nn.Module):
         new storage, and either rebuilds it."""
         params = tuple(self.rnn.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            return self.rnn.stacked()
+            return self.rnn.stacked(self.dtype)
         if self._stacked is None or any(
                 p.data_ptr() != v.data_ptr() or p._version != n
                 for p, (v, n) in zip(params, self._stacked[0])):
             with torch.no_grad():
-                stacked = self.rnn.stacked()
+                stacked = self.rnn.stacked(self.dtype)
             # the detached views keep the old storages alive, so no new
             # parameter can reuse their addresses
             self._stacked = (tuple((p.detach(), p._version) for p in params), stacked)
@@ -142,10 +161,12 @@ class RNNCore(nn.Module):
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 dense_kernel: Optional[torch.Tensor] = None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if self.rnn_type != "LSTM":
             if dense_kernel is not None:
                 raise ValueError("dense_kernel needs an LSTM")
-            cells = [self.rnn.cell(sfx) for sfx in self.rnn.suffixes]
+            cells = [self.rnn.cell(sfx, self.dtype) for sfx in self.rnn.suffixes]
             fn = rnn_ops.gru if self.rnn_type == "GRU" else rnn_ops.vanilla_rnn
             return fn(x, cells[0], cells[1] if self.bidirectional else None, lengths)
         if dense_kernel is not None:
@@ -160,7 +181,8 @@ class RNNCore(nn.Module):
 class GlobalNorm(nn.Module):
     """Channels-last global layer norm: 'gLN' (GlobLN, eps 1e-8, parameters
     gamma/beta) or 'ln' (GroupNorm(1, C), eps 1e-5, parameters weight/bias).
-    Statistics are fp32."""
+    Statistics are fp32; the output has x's type (a bf16 input takes the
+    norm's bf16 route, ``norms_ops.global_channel_norm_cl``)."""
 
     def __init__(self, channels: int, norm_type: str = "gLN"):
         super().__init__()
@@ -184,7 +206,7 @@ class PReLU(nn.Module):
         self.weight = nn.Parameter(torch.empty(1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.clamp_min(0) + self.weight * x.clamp_max(0)
+        return x.clamp_min(0) + self.weight.to(x.dtype) * x.clamp_max(0)
 
 
 class BatchNorm(nn.Module):

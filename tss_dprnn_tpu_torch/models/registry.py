@@ -5,13 +5,17 @@ configs port unchanged.
 
 Every family builds: DPRNN-TasNet, DPRNN-Spe-TasNet with every fusion,
 DPRNN-Spe-IRA-TasNet and DPRNN-RawNet-TasNet, with every ``rnn_type``
-(LSTM, GRU, RNN). ``dtype: bfloat16`` raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+(LSTM, GRU, RNN), in either lane: ``dtype`` absent or float32, or
+bfloat16 (the bf16 lane: fp32 parameters, the dual-path core computing in
+bf16, as the JAX models built with ``dtype=jnp.bfloat16``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
 
 from tss_dprnn_tpu_torch.models.dprnn import DPRNNTasNet
 from tss_dprnn_tpu_torch.models.dprnn_rawnet import DPRNNRawNetTasNet
@@ -31,10 +35,29 @@ MODEL_REGISTRY = {
 }
 
 
+def model_dtype(dtype: Any) -> Optional[torch.dtype]:
+    """A config's ``dtype`` as the models take it: None (the fp32 lane) for
+    None, ``torch.float32`` or a float32 spelling numpy reads ('float32',
+    'f4', 'single', ...), ``torch.bfloat16`` for itself or 'bfloat16' (the
+    spellings the JAX registry's ``jnp.dtype`` reads as those two). Anything
+    else raises ValueError."""
+    if dtype is None or dtype is torch.float32:
+        return None
+    if dtype in (torch.bfloat16, "bfloat16"):
+        return torch.bfloat16
+    if isinstance(dtype, str):
+        try:
+            if np.dtype(dtype) == np.float32:
+                return None
+        except TypeError:
+            pass
+    raise ValueError(f"model dtype {dtype!r}: the port runs float32 or bfloat16")
+
+
 def build_model(model_config: Dict[str, Any]):
     """Instantiate a model from a config dict with a ``target`` (or Hydra
-    ``_target_``) key; remaining keys are constructor kwargs. ``dtype`` may
-    be absent or ``float32``; ``bfloat16`` raises until the bf16 lane."""
+    ``_target_``) key; remaining keys are constructor kwargs. ``dtype`` goes
+    through :func:`model_dtype`."""
     cfg = dict(model_config)
     target = cfg.pop("target", None) or cfg.pop("_target_", None)
     if target is None:
@@ -42,8 +65,5 @@ def build_model(model_config: Dict[str, Any]):
     if target not in MODEL_REGISTRY:
         raise ValueError(f"unknown model target {target!r}; known: {sorted(MODEL_REGISTRY)}")
     cls = MODEL_REGISTRY[target]
-    dtype = cfg.pop("dtype", None)
-    if dtype not in (None, "float32"):
-        raise NotImplementedError(f"model dtype {dtype!r}: the port runs float32 until the "
-                                  "bf16 lane, ROADMAP §1 item 10")
-    return cls(**cfg)
+    dtype = model_dtype(cfg.pop("dtype", None))
+    return cls(**cfg, dtype=dtype)

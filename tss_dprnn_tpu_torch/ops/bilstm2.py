@@ -6,11 +6,12 @@ Replaces the TPU kernel ``_bilstm2_kernel`` (pallas_lstm.py:698) in its
 unmasked and masked modes with fp32 streams (the serving scans) with the
 input product of ``csrc/products.cu`` followed by the serving scan of
 ``csrc/bilstm2_serve.cu``, in those modes with bf16 streams and in its dense
-mode with ``csrc/bilstm2.cu``, in its residual (training) mode with
-``csrc/bilstm2_resid.cu`` after the same input product,
+mode with ``csrc/bilstm2.cu``, in its residual (training) mode, fp32 and
+bf16 streams, with ``csrc/bilstm2_resid.cu`` after the same input product,
 ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
-``csrc/bilstm2_bm.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224)
-with ``csrc/bilstm2_bwd.cu`` and the products of ``csrc/products.cu``, CUDA
+``csrc/bilstm2_bm.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224,
+fp32 and bf16) with ``csrc/bilstm2_bwd.cu`` and the products of
+``csrc/products.cu``, CUDA
 C++ for ``sm_90a``. Both directions run in one launch and both outputs come
 back in forward time. Layout and argument order are the JAX entries':
 ``bilstm2_forward(x [B, T, F], w_ih2 [2, F, 4H], b2 [2, 4H], w_hh2 [2, H, 4H])``.
@@ -22,10 +23,13 @@ inference function over time-blocked slabs of x, brought in by bulk copies a
 slab ahead.
 The residual streams are the port's own layout: a tuple
 ``(hp0, cp0, tc0, hp1, cp1, tc1, pre)``: per direction h and c before each
-step and tanh(c) after it, [B, T, H] fp32 in forward time, and the gate
-pre-activations ``x_t @ W_ih[d] + h_prev @ W_hh[d] + b[d]`` of every
-row-step and direction, [B, T, 2, 4H] fp32, with no time or row padding. The
-backward reads ``pre`` and recomputes no gate.
+step and tanh(c) after it, [B, T, H] in the stream type in forward time, and
+the gate pre-activations ``x_t @ W_ih[d] + h_prev @ W_hh[d] + b[d]`` of
+every row-step and direction, [B, T, 2, 4H] fp32, with no time or row
+padding. The backward reads ``pre`` and recomputes no gate. The training
+pair takes fp32 and bf16 streams; bf16 rounds where the TPU kernels' bf16
+mode rounds (h, the saved c and tanh(c), dpre before its products, dx per
+direction; :func:`bilstm2_backward_reference` gives the list).
 
 What bounds the scans on the H100: the operations. A row-step costs
 2 (F + H) 4H FLOP per direction against a few hundred bytes of input and
@@ -295,7 +299,8 @@ def _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid: bool):
         h = xf.new_zeros(B, H)
         c = xf.new_zeros(B, H)
         out = x.new_empty(B, T, H)
-        streams = [xf.new_empty(B, T, H) for _ in range(3)] if want_resid else None
+        # h, c, tanh(c) in the stream type: a bf16 store rounds c and tanh(c)
+        streams = [x.new_empty(B, T, H) for _ in range(3)] if want_resid else None
         for t in (range(T) if d == 0 else range(T - 1, -1, -1)):
             g = xp[:, t] + h @ w_hh[d] + b[d]
             i, f, gg, o = _gates(g, H)
@@ -334,9 +339,11 @@ def bilstm2_resid_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tens
                             ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
     """Plain version of the residual mode: :func:`bilstm2_reference`'s
     outputs and, per direction, h and c before each step and tanh(c) after
-    it (fp32, [B, T, H], forward time), then the gate pre-activations of
-    every step and direction (fp32, [B, T, 2, 4H]). With ``lens`` direction
-    1's h and c stay at the zero state on held steps."""
+    it ([B, T, H] in x's type, forward time; in bf16 c and tanh(c) are
+    rounded there, as the TPU kernel stores them, while the scan carries c
+    in fp32), then the gate pre-activations of every step and direction
+    (fp32, [B, T, 2, 4H]). With ``lens`` direction 1's h and c stay at the
+    zero state on held steps."""
     return _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid=True)
 
 
@@ -365,51 +372,63 @@ def bilstm2_backward_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
     """Plain version of the backward: a Python loop over T per direction, in
     the reverse of its scan, with the kernel's arithmetic (the gates read
     from the saved pre-activations ``resid[6]``, not recomputed). Returns
-    (dx, dw_ih2, db2, dw_hh2), fp32. With ``lens`` the steps t >= len[row]
-    of both directions give no dpre and pass the carries through. dx, dW_ih
-    and dW_hh, which the card computes in the product kernel, go through
-    ``matmul`` (e.g. :func:`tf32x3_matmul`, that kernel's arithmetic)."""
+    (dx, dw_ih2, db2, dw_hh2): dx in x's type, the rest fp32. With ``lens``
+    the steps t >= len[row] of both directions give no dpre and pass the
+    carries through. dx, dW_ih and dW_hh, which the card computes in the
+    product kernel, go through ``matmul`` (e.g. :func:`tf32x3_matmul`, that
+    kernel's arithmetic).
+
+    bf16 streams (the TPU kernel's bf16 mode, pallas_lstm.py:1281-1313): the
+    saved streams and the cotangents are bf16; dpre is rounded to bf16
+    before dpre @ W_hh^T and before the dx and dW products, db sums the
+    unrounded dpre, and each direction's dx is rounded to bf16 before the
+    two are added in bf16."""
     B, T, F = x.shape
     H = w_hh2.shape[1]
+    dt = x.dtype
     xf = x.float()
-    w_ih, w_hh = w_ih2.float(), w_hh2.float()  # b2's part is in the saved pre
-    dx = xf.new_zeros(B, T, F)
+    # rounded to x's type, as the kernel consumes them; b2's part is in the saved pre
+    w_ih, w_hh = w_ih2.to(dt).float(), w_hh2.to(dt).float()
+    dx = None
     dw_ih, dw_hh, db = [], [], []
     for d, (hp, cp, tc, g) in enumerate(((*resid[:3], g0), (*resid[3:6], g1))):
         pre = resid[6][:, :, d]  # [B, T, 4H], saved by the forward
         dpre = xf.new_zeros(B, T, 4 * H)
+        dpre_db = dpre if dt == torch.float32 else xf.new_zeros(B, T, 4 * H)  # unrounded
         dh = xf.new_zeros(B, H)
         dc = xf.new_zeros(B, H)
         for t in (range(T - 1, -1, -1) if d == 0 else range(T)):
             i, f, gg, o = _gates(pre[:, t], H)
-            tct = tc[:, t]
+            tct = tc[:, t].float()
             dh_t = g[:, t].float() + dh
             dc_t = dc + dh_t * (o * (1.0 - tct * tct))
-            p = torch.cat([dc_t * (gg * i * (1.0 - i)), dc_t * (cp[:, t] * f * (1.0 - f)),
+            p = torch.cat([dc_t * (gg * i * (1.0 - i)), dc_t * (cp[:, t].float() * f * (1.0 - f)),
                            dc_t * (i * (1.0 - gg * gg)), dh_t * (tct * o * (1.0 - o))], -1)
+            if lens is not None:
+                p = torch.where((t < lens)[:, None], p, 0.0)
+            dpre_db[:, t] = p
+            p = p.to(dt).float()
             dh_new, dc_new = p @ w_hh[d].T, dc_t * f
             if lens is not None:
                 live = (t < lens)[:, None]
-                p = torch.where(live, p, 0.0)
                 dh_new = torch.where(live, dh_new, dh)
                 dc_new = torch.where(live, dc_new, dc)
             dpre[:, t], dh, dc = p, dh_new, dc_new
-        dx += matmul(dpre, w_ih[d].T)
+        dx_d = matmul(dpre, w_ih[d].T).to(dt)
+        dx = dx_d if dx is None else dx + dx_d
         dw_ih.append(matmul(xf.reshape(-1, F).T, dpre.reshape(-1, 4 * H)))
-        dw_hh.append(matmul(hp.reshape(-1, H).T, dpre.reshape(-1, 4 * H)))
-        db.append(_row_sum(dpre.reshape(-1, 4 * H)))
+        dw_hh.append(matmul(hp.float().reshape(-1, H).T, dpre.reshape(-1, 4 * H)))
+        db.append(_row_sum(dpre_db.reshape(-1, 4 * H)))
     return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
 
 
 def _checked(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
-             lens: Optional[torch.Tensor], fp32_only: bool = False):
+             lens: Optional[torch.Tensor]):
     """What every bilstm2 kernel takes: raises on anything else, and returns
     (x, w_ih2, b2, w_hh2, lens) contiguous, the weights fp32 holding values
     of x's type, lens int32."""
     if not x.is_cuda:
         raise ValueError(f"bilstm2 kernel needs a CUDA tensor, got {x.device}")
-    if fp32_only and x.dtype != torch.float32:
-        raise ValueError(f"the bilstm2 training kernels stream float32 only, got {x.dtype}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"bilstm2 kernel streams float32 or bfloat16, got {x.dtype}")
     if x.ndim != 3:
@@ -675,8 +694,11 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     """The training forward's launches on the current stream: the input
     product P = x @ [W_ih[0] | W_ih[1]] + b into ``pre``, then the recurrent
     scan, which overwrites ``pre`` with the full gate pre-activations; one
-    call adds one to ``entry.launches``. Returns ((out0, out1), resid)."""
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=True)
+    call adds one to ``entry.launches``. Returns ((out0, out1), resid), the
+    outputs and the six H-wide streams in x's type. bf16 x is upcast for the
+    product (exactly: a bf16 value is a TF32 value, so the 3xTF32 products of
+    bf16 values are exact) and the scan runs its bf16 mode."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
@@ -689,10 +711,11 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
         products, lib = _library_products(), _library_resid()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _input_product(products, stream, x, w_ih2, b2, pre)
+            _input_product(products, stream, x.float(), w_ih2, b2, pre)
             # [B, T, 2, 4H]: a direction's gates 4H on, a row-step's 8H on;
             # direction 1 reversed
-            rc = lib.bilstm2_resid_scan(plan.height, pre.data_ptr(), w_split.data_ptr(),
+            rc = lib.bilstm2_resid_scan(plan.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
+                                        w_split.data_ptr(),
                                         _ptr(lens), out0.data_ptr(), out1.data_ptr(),
                                         *(t.data_ptr() for t in streams), 4 * H, 8 * H, 1, 2,
                                         B, T, H, stream)
@@ -733,21 +756,26 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
                      w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
                      lens: Optional[torch.Tensor]):
     """The backward's launches (see the module docstring) on the current
-    stream; one call adds one to ``entry.launches``."""
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, fp32_only=True)
+    stream; one call adds one to ``entry.launches``. bf16 streams: the scan's
+    bf16 mode writes db's partial sums, which the column-sum kernel adds up;
+    dx is one product per direction, each rounded to bf16 before the two are
+    added in bf16 (as the TPU kernel's dx0 + dx1); x and hp are upcast,
+    exactly, for the products."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
     G = 4 * H
     M = B * T
+    low = x.dtype != torch.float32
     if len(resid) != 7:
         raise ValueError(f"bilstm2 backward: resid must be the forward's 7 streams, got "
                          f"{len(resid)}")
     pre = resid[6].contiguous()
     streams = [t.contiguous() for t in (*resid[:6], g0, g1)]
     for t in streams:
-        if t.shape != (B, T, H) or t.dtype != torch.float32 or t.device != x.device:
+        if t.shape != (B, T, H) or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"bilstm2 backward: residual streams and cotangents must be "
-                             f"[{B}, {T}, {H}] float32 on {x.device}; got {tuple(t.shape)} "
+                             f"[{B}, {T}, {H}] {x.dtype} on {x.device}; got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
     if pre.shape != (B, T, 2, G) or pre.dtype != torch.float32 or pre.device != x.device:
         raise ValueError(f"bilstm2 backward: pre must be [{B}, {T}, 2, {G}] float32 on "
@@ -755,27 +783,42 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     _check_aligned(**dict(zip(("hp0", "cp0", "tc0", "hp1", "cp1", "tc1", "g0", "g1"), streams)),
                    pre=pre)
     hp0, cp0, tc0, hp1, cp1, tc1, g0, g1 = streams
-    dx = torch.empty(B, T, F, dtype=torch.float32, device=x.device)
     if M == 0:
-        return dx, torch.zeros_like(w_ih2), torch.zeros_like(b2), torch.zeros_like(w_hh2)
+        return (torch.zeros(B, T, F, dtype=x.dtype, device=x.device), torch.zeros_like(w_ih2),
+                torch.zeros_like(b2), torch.zeros_like(w_hh2))
     dpre = torch.empty_like(pre)  # pre stays as saved: a second backward gives the same
     # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
     w_split = w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
     w_ih_t = w_ih2.transpose(1, 2).reshape(2 * G, F).contiguous()  # [8H, F]
     plan = _plan("bwd", B, H, x.device)
+    # bf16: db's partial sums, one row per (tile, row group), both directions
+    dbpart = torch.empty(plan.tiles * 8, 2 * G, device=x.device) if low else None
+    xf = x.float()
     products, lib = _library_products(), _library_bwd()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.bilstm2_bwd_scan(plan.height, pre.data_ptr(), dpre.data_ptr(), cp0.data_ptr(),
-                                  tc0.data_ptr(), g0.data_ptr(), cp1.data_ptr(), tc1.data_ptr(),
-                                  g1.data_ptr(), w_split.data_ptr(), _ptr(lens), B, T, H, stream)
+        rc = lib.bilstm2_bwd_scan(plan.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
+                                  dpre.data_ptr(), cp0.data_ptr(), tc0.data_ptr(), g0.data_ptr(),
+                                  cp1.data_ptr(), tc1.data_ptr(), g1.data_ptr(),
+                                  w_split.data_ptr(), _ptr(lens), _ptr(dbpart), B, T, H, stream)
         _raise_on(rc, "bilstm2 backward scan kernel", lib, "bilstm2_bwd_error_string")
-        _gemm(products, stream, False, [(dpre, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F,
-              out=dx, ldc=F)
-        dw_ih = _gemm(products, stream, True, [(x, 0, F, dpre, 0, 2 * G, M)], F, 2 * G)
-        dw_hh = [_gemm(products, stream, True, [(hp, 0, H, dpre, d * G, 2 * G, M)], H, G)
+        if low:
+            dxs = torch.empty(2, M, F, dtype=torch.float32, device=x.device)
+            for d in (0, 1):
+                _gemm(products, stream, False, [(dpre, d * G, 2 * G, w_ih_t, d * G * F, F, G)],
+                      M, F, out=dxs, out_off=d * M * F, ldc=F)
+            dx = (dxs[0].to(x.dtype) + dxs[1].to(x.dtype)).view(B, T, F)
+        else:
+            dx = torch.empty(B, T, F, dtype=torch.float32, device=x.device)
+            _gemm(products, stream, False, [(dpre, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F,
+                  out=dx, ldc=F)
+        dw_ih = _gemm(products, stream, True, [(xf, 0, F, dpre, 0, 2 * G, M)], F, 2 * G)
+        dw_hh = [_gemm(products, stream, True, [(hp.float(), 0, H, dpre, d * G, 2 * G, M)], H, G)
                  for d, hp in ((0, hp0), (1, hp1))]
-        db = _colsum(products, stream, dpre, 0, 2 * G, M, 2 * G)
+        if low:
+            db = _colsum(products, stream, dbpart, 0, 2 * G, dbpart.shape[0], 2 * G)
+        else:
+            db = _colsum(products, stream, dpre, 0, 2 * G, M, 2 * G)
     entry.launches += 1
     return (dx, dw_ih.reshape(F, 2, G).transpose(0, 1).contiguous(), db.reshape(2, G),
             torch.stack(dw_hh))
@@ -827,7 +870,7 @@ def _library_resid() -> ctypes.CDLL:
     """Build (at first use) and load the training forward's scan."""
     lib = _build.load_library("bilstm2_resid")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.bilstm2_resid_scan.argtypes = [i, i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.bilstm2_resid_scan.restype = i
     lib.bilstm2_resid_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_resid_max_clusters.restype = i
@@ -855,7 +898,7 @@ def _library_bwd() -> ctypes.CDLL:
     """Build (at first use) and load the backward's scan."""
     lib = _build.load_library("bilstm2_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_bwd_scan.argtypes = [i] + [p] * 10 + [i, i, i, p]
+    lib.bilstm2_bwd_scan.argtypes = [i, i] + [p] * 11 + [i, i, i, p]
     lib.bilstm2_bwd_scan.restype = i
     lib.bilstm2_bwd_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_bwd_max_clusters.restype = i
@@ -913,10 +956,10 @@ def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                           w_hh2: torch.Tensor
                           ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
-    """Training forward (fp32): x [B, T, F] -> ((out0, out1), resid), the
-    outputs of :func:`bilstm2_forward` and the residual streams
-    ``(hp0, cp0, tc0, hp1, cp1, tc1, pre)``: six [B, T, H] and the gate
-    pre-activations [B, T, 2, 4H]."""
+    """Training forward (fp32 or bf16 streams): x [B, T, F] -> ((out0,
+    out1), resid), the outputs of :func:`bilstm2_forward` and the residual
+    streams ``(hp0, cp0, tc0, hp1, cp1, tc1, pre)``: six [B, T, H] in x's
+    type and the gate pre-activations [B, T, 2, 4H] fp32."""
     if x.device.type == "cpu":
         return bilstm2_resid_reference(x, w_ih2, b2, w_hh2)
     return padded(functools.partial(_launch_resid, bilstm2_forward_resid), x, w_ih2, b2, w_hh2,
@@ -926,7 +969,7 @@ def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor
 def bilstm2_forward_resid_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
                                  b2: torch.Tensor, w_hh2: torch.Tensor
                                  ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
-    """Mask-aware training forward (fp32): the outputs of
+    """Mask-aware training forward (fp32 or bf16 streams): the outputs of
     :func:`bilstm2_forward_masked` and the residual streams. Direction 1's h
     and c stay at the zero state on held steps; every stream past a row's
     length is unspecified (finite)."""
@@ -939,9 +982,9 @@ def bilstm2_forward_resid_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: tor
 def bilstm2_backward(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
                      w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward of :func:`bilstm2_forward_resid` (fp32): the cotangents g0,
-    g1 [B, T, H] of the two outputs -> (dx [B, T, F], dw_ih2 [2, F, 4H],
-    db2 [2, 4H], dw_hh2 [2, H, 4H])."""
+    """Backward of :func:`bilstm2_forward_resid`: the cotangents g0, g1
+    [B, T, H] of the two outputs, in x's type -> (dx [B, T, F] in x's type,
+    dw_ih2 [2, F, 4H], db2 [2, 4H], dw_hh2 [2, H, 4H] fp32)."""
     if x.device.type == "cpu":
         return bilstm2_backward_reference(x, resid, g0, g1, w_ih2, b2, w_hh2)
     return padded_backward(functools.partial(_launch_backward, bilstm2_backward), x, resid,

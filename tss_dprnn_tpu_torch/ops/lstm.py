@@ -4,14 +4,15 @@ wrappers and plain versions (counterpart of the ``_lstm_kernel``,
 ``tss_dprnn_tpu/ops/pallas_lstm.py:57-465, 498-669``).
 
 Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its fp32
-h-only and ``want_resid`` modes with the input product of
+h-only mode and its ``want_resid`` mode (fp32 and bf16) with the input
+product of
 ``csrc/products.cu`` followed by the cluster scans of
 ``csrc/bilstm2_serve.cu`` and ``csrc/bilstm2_resid.cu`` (the fused
 bidirectional LSTM's, which take D stacked directions too), in its h-only
 mode with bf16 streams and its ``want_cs`` and ``reverse_dir1`` modes with
 ``csrc/lstm.cu``, ``_lstm_manual_kernel`` (pallas_lstm.py:275) with
-``csrc/lstm_v2.cu``, and ``_lstm_bwd_kernel`` (pallas_lstm.py:498) with
-``csrc/lstm_bwd.cu``, CUDA C++ for ``sm_90a``. D directions run in one
+``csrc/lstm_v2.cu``, and ``_lstm_bwd_kernel`` (pallas_lstm.py:498, fp32
+and bf16) with ``csrc/lstm_bwd.cu``, CUDA C++ for ``sm_90a``. D directions run in one
 launch, each on its own input and each in forward time: a caller that wants
 a reversed direction flips its input, as the JAX entries' callers do. With
 D = 1 this is the unidirectional inter-chunk scan of a causal DPRNN
@@ -31,7 +32,8 @@ reversed), which compute the same function but, in a 16-bit stream type,
 round where that TPU kernel rounds (:func:`lstm_v2_reference`).
 
 The residual streams are a tuple ``(hp, cp, tc, pre)``: h and c before each
-step and tanh(c) after it, [D, R, T, H] fp32, and the gate pre-activations
+step and tanh(c) after it, [D, R, T, H] in the stream type (fp32 or bf16,
+rounded where the TPU kernel's bf16 mode rounds), and the gate pre-activations
 ``x_t @ W_ih + h_prev @ W_hh + b`` of every row-step, [D, R, T, 4H] fp32, so
 that the backward recomputes no gate. There are no lengths:
 steps past a row's valid length compute on whatever the input holds, and the
@@ -119,7 +121,10 @@ def _scan_reference(x, w_ih, b, w_hh, mode: int):
     h = xf.new_zeros(D, R, H)
     c = xf.new_zeros(D, R, H)
     out = x.new_empty(D, R, T, H)
-    streams = [xf.new_empty(D, R, T, n * H) for n in _STREAM_WIDTHS[mode]]
+    # the residual mode's h, c and tanh(c) in the stream type (a bf16 store
+    # rounds c and tanh(c)); the cell states of want_cs and pre fp32
+    streams = [(x if mode == _MODE_RESID and n == 1 else xf).new_empty(D, R, T, n * H)
+               for n in _STREAM_WIDTHS[mode]]
     for t in range(T):
         g = xp[:, :, t] + torch.bmm(h, w_hh) + b[:, None]
         i, f, gg, o = _gates(g, H)
@@ -157,7 +162,9 @@ def lstm_resid_reference(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                          w_hh: torch.Tensor) -> Tuple[torch.Tensor, Resid]:
     """Plain version of the residual mode: :func:`lstm_reference`'s h and
     ``(hp, cp, tc, pre)``: h and c before each step and tanh(c) after it
-    (fp32, [D, R, T, H]) and the gate pre-activations (fp32, [D, R, T, 4H])."""
+    ([D, R, T, H] in x's type; in bf16 c and tanh(c) are rounded there, as
+    the TPU kernel stores them) and the gate pre-activations (fp32,
+    [D, R, T, 4H])."""
     return _scan_reference(x, w_ih, b, w_hh, _MODE_RESID)
 
 
@@ -230,38 +237,49 @@ def lstm_backward_reference(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
     """Plain version of the backward: a Python loop over T from the last step
     to the first, all directions at once, with the kernel's arithmetic (the
     gates read from the saved pre-activations ``resid[3]``, not recomputed).
-    Returns (dx [D, R, T, F], dw_ih, db, dw_hh), fp32."""
+    Returns (dx [D, R, T, F] in x's type, dw_ih, db, dw_hh fp32). bf16
+    streams (the TPU kernel's bf16 mode, pallas_lstm.py:559-578): the saved
+    streams and the cotangent are bf16; dpre is rounded to bf16 before
+    dpre @ W_hh^T and before the dx and dW products, db sums the unrounded
+    dpre, and dx is rounded to bf16."""
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     hp, cp, tc, pre = resid
+    dt = x.dtype
     xf = x.float()
-    w_ih, w_hh = w_ih.float(), w_hh.float()  # b's part is in the saved pre
+    # rounded to x's type, as the kernel consumes them; b's part is in the saved pre
+    w_ih, w_hh = w_ih.to(dt).float(), w_hh.to(dt).float()
     dpre = xf.new_zeros(D, R, T, 4 * H)
+    dpre_db = dpre if dt == torch.float32 else xf.new_zeros(D, R, T, 4 * H)  # unrounded
     dh = xf.new_zeros(D, R, H)
     dc = xf.new_zeros(D, R, H)
     w_hh_t = w_hh.transpose(1, 2)
     for t in range(T - 1, -1, -1):
         i, f, gg, o = _gates(pre[:, :, t], H)
-        tct = tc[:, :, t]
+        tct = tc[:, :, t].float()
         dh_t = g[:, :, t].float() + dh
         dc_t = dc + dh_t * (o * (1.0 - tct * tct))
-        p = torch.cat([dc_t * (gg * i * (1.0 - i)), dc_t * (cp[:, :, t] * f * (1.0 - f)),
+        p = torch.cat([dc_t * (gg * i * (1.0 - i)), dc_t * (cp[:, :, t].float() * f * (1.0 - f)),
                        dc_t * (i * (1.0 - gg * gg)), dh_t * (tct * o * (1.0 - o))], -1)
+        dpre_db[:, :, t] = p
+        p = p.to(dt).float()
         dpre[:, :, t], dh, dc = p, torch.bmm(p, w_hh_t), dc_t * f
-    return (torch.einsum("drtg,dfg->drtf", dpre, w_ih), torch.einsum("drtf,drtg->dfg", xf, dpre),
-            torch.stack([_row_sum(p.reshape(-1, 4 * H)) for p in dpre]),
-            torch.einsum("drth,drtg->dhg", hp, dpre))
+    return (torch.einsum("drtg,dfg->drtf", dpre, w_ih).to(dt),
+            torch.einsum("drtf,drtg->dfg", xf, dpre),
+            torch.stack([_row_sum(p.reshape(-1, 4 * H)) for p in dpre_db]),
+            torch.einsum("drth,drtg->dhg", hp.float(), dpre))
 
 
 def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
              fp32_only: bool = False, shared: bool = False):
     """What every kernel here takes: raises on anything else, and returns
     (x, w_ih, b, w_hh) contiguous, the weights fp32 holding values of x's
-    type. ``shared``: x is one [R, T, F] input for D = 2 directions."""
+    type. ``shared``: x is one [R, T, F] input for D = 2 directions;
+    ``fp32_only``: the ``want_cs`` mode, which streams fp32 only."""
     if not x.is_cuda:
         raise ValueError(f"lstm kernel needs a CUDA tensor, got {x.device}")
     if fp32_only and x.dtype != torch.float32:
-        raise ValueError(f"the lstm training kernels stream float32 only, got {x.dtype}")
+        raise ValueError(f"the lstm want_cs mode streams float32 only, got {x.dtype}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"lstm kernel streams float32 or bfloat16, got {x.dtype}")
     if x.ndim != (3 if shared else 4):
@@ -293,12 +311,12 @@ def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tens
             w_hh: torch.Tensor):
     """Check what the kernel takes, allocate the outputs and launch on the
     current stream; a launch adds one to ``entry.launches``. Returns
-    (h, streams). fp32 streams in the h-only and residual modes run the
-    product and cluster scan (:func:`_launch_scan`); bf16 streams and the
-    cell-state mode ``csrc/lstm.cu``."""
-    if x.dtype == torch.float32 and mode != _MODE_CS:
+    (h, streams). The residual mode and fp32 streams in the h-only mode run
+    the product and cluster scan (:func:`_launch_scan`); bf16 streams in the
+    h-only mode and the cell-state mode ``csrc/lstm.cu``."""
+    if mode == _MODE_RESID or (x.dtype == torch.float32 and mode == _MODE_H):
         return _launch_scan(entry, mode, x, w_ih, b, w_hh)
-    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=mode != _MODE_H)
+    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=mode == _MODE_CS)
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
@@ -318,26 +336,28 @@ def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tens
 
 def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                  w_hh: torch.Tensor):
-    """The fp32 h-only and residual modes on the current stream: per
+    """The fp32 h-only and the residual modes on the current stream: per
     direction d one launch of the product kernel, P[d] = x[d] @ W_ih[d] + b[d]
     into pre [D, R, T, 4H], then one launch of a cluster scan over the D
     directions, each in forward time: the serving scan (h only: it reads P
     and writes h) or the training forward's (it overwrites pre with the gate
-    pre-activations and writes h and the residual streams). One call adds
-    one to ``entry.launches`` (and D to the product kernel's). Returns
+    pre-activations and writes h and the residual streams; bf16 streams run
+    its bf16 mode after x is upcast, exactly, for the products). One call
+    adds one to ``entry.launches`` (and D to the product kernel's). Returns
     (h, streams) as :func:`_launch`."""
-    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=True)
+    resid = mode == _MODE_RESID
+    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=not resid)
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     G, M = 4 * H, R * T
-    resid = mode == _MODE_RESID
-    out = torch.empty(D, R, T, H, dtype=torch.float32, device=x.device)
+    out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
     hcs = tuple(torch.empty_like(out) for _ in range(3)) if resid else ()  # hp, cp, tc
     pre = torch.empty(D, R, T, G, dtype=torch.float32, device=x.device)
     if D * M == 0:
         return out, hcs + (pre,) if resid else ()
     if D > 2:
         raise ValueError(f"lstm cluster scans take D <= 2 directions, got {D}")
+    x = x.float()
     # a direction's slices are passed as pointers: each must be 16-byte aligned
     named = {"x": x, "w_ih": w_ih, "b": b, "pre": pre, "out": out,
              **dict(zip(("hp", "cp", "tc"), hcs))}
@@ -361,8 +381,8 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
         layout = (M * G, G, 0, D, R, T, H, stream)
         if resid:
             streams = [t[min(d, D - 1)].data_ptr() for d in range(2) for t in hcs]
-            rc = lib.bilstm2_resid_scan(plan.height, pre.data_ptr(), w_res.data_ptr(), None,
-                                        *per_dir(out), *streams, *layout)
+            rc = lib.bilstm2_resid_scan(plan.height, _DTYPE_CODES[out.dtype], pre.data_ptr(),
+                                        w_res.data_ptr(), None, *per_dir(out), *streams, *layout)
         else:
             rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_res.data_ptr(), None,
                                         *per_dir(out), *layout)
@@ -436,21 +456,25 @@ def plan_backward(D: int, R: int, H: int, device: torch.device) -> TilePlan:
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
                      b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
     """The backward's launches (see the module docstring) on the current
-    stream; one call adds one to ``entry.launches``."""
-    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=True)
+    stream; one call adds one to ``entry.launches``. bf16 streams: the scan's
+    bf16 mode writes db's partial sums, which the column-sum kernel adds up,
+    x and hp are upcast, exactly, for the products, and dx is rounded to
+    bf16."""
+    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     G = 4 * H
     M = R * T
+    low = x.dtype != torch.float32
     if len(resid) != 4:
         raise ValueError(f"lstm backward: resid must be the forward's 4 streams (hp, cp, tc, "
                          f"pre), got {len(resid)}")
     streams = [t.contiguous() for t in (*resid[:3], g)]
     for t in streams:
-        if t.shape != (D, R, T, H) or t.dtype != torch.float32 or t.device != x.device:
+        if t.shape != (D, R, T, H) or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"lstm backward: residual streams and cotangent must be "
-                             f"[{D}, {R}, {T}, {H}] float32 on {x.device}; got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
+                             f"[{D}, {R}, {T}, {H}] {x.dtype} on {x.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
     pre = resid[3].contiguous()
     if pre.shape != (D, R, T, G) or pre.dtype != torch.float32 or pre.device != x.device:
         raise ValueError(f"lstm backward: pre must be [{D}, {R}, {T}, {G}] float32 on "
@@ -459,7 +483,8 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
     hp, cp, tc, g = streams
     dx = torch.empty(D, R, T, F, dtype=torch.float32, device=x.device)
     if D * M == 0:
-        return dx, torch.zeros_like(w_ih), torch.zeros_like(b), torch.zeros_like(w_hh)
+        return (dx.to(x.dtype), torch.zeros_like(w_ih), torch.zeros_like(b),
+                torch.zeros_like(w_hh))
     if D > 2:
         raise ValueError(f"lstm backward kernel takes D <= 2 directions, got {D}")
     dpre = torch.empty_like(pre)  # pre stays as saved: a second backward gives the same
@@ -467,24 +492,31 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
     w_split = w_hh.view(D, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
     w_ih_t = w_ih.transpose(1, 2).contiguous()  # [D, 4H, F]
     tiles = plan_backward(D, R, H, x.device)
+    # bf16: db's partial sums, one row per (tile, row group), the D directions side by side
+    dbpart = torch.empty(tiles.tiles * 8, D * G, device=x.device) if low else None
+    xf, hpf = x.float(), hp.float()
     products, lib = _library_products(), _library_scan()
     dw_ih, dw_hh, db = [], [], []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lstm_bwd_scan(tiles.height, pre.data_ptr(), dpre.data_ptr(), cp.data_ptr(),
-                               tc.data_ptr(), g.data_ptr(), w_split.data_ptr(), D, R, T, H,
-                               stream)
+        rc = lib.lstm_bwd_scan(tiles.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
+                               dpre.data_ptr(), cp.data_ptr(), tc.data_ptr(), g.data_ptr(),
+                               w_split.data_ptr(), None if dbpart is None else dbpart.data_ptr(),
+                               D, R, T, H, stream)
         _raise_on(rc, "lstm backward scan kernel", lib, "lstm_bwd_error_string")
         for d in range(D):
             _gemm(products, stream, False, [(dpre, d * M * G, G, w_ih_t, d * G * F, F, G)], M, F,
                   out=dx, out_off=d * M * F, ldc=F)
-            dw_ih.append(_gemm(products, stream, True, [(x, d * M * F, F, dpre, d * M * G, G, M)],
+            dw_ih.append(_gemm(products, stream, True, [(xf, d * M * F, F, dpre, d * M * G, G, M)],
                                F, G))
-            dw_hh.append(_gemm(products, stream, True, [(hp, d * M * H, H, dpre, d * M * G, G, M)],
-                               H, G))
-            db.append(_colsum(products, stream, dpre, d * M * G, G, M, G))
+            dw_hh.append(_gemm(products, stream, True,
+                               [(hpf, d * M * H, H, dpre, d * M * G, G, M)], H, G))
+            if low:
+                db.append(_colsum(products, stream, dbpart, d * G, D * G, dbpart.shape[0], G))
+            else:
+                db.append(_colsum(products, stream, dpre, d * M * G, G, M, G))
     entry.launches += 1
-    return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
+    return dx.to(x.dtype), torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -519,7 +551,7 @@ def _library_scan() -> ctypes.CDLL:
     """Build (at first use) and load the backward scan's library."""
     lib = _build.load_library("lstm_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bwd_scan.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
+    lib.lstm_bwd_scan.argtypes = [i, i] + [p] * 7 + [i] * 4 + [p]
     lib.lstm_bwd_scan.restype = i
     lib.lstm_bwd_max_clusters.argtypes = [i, i, p]
     lib.lstm_bwd_max_clusters.restype = i
@@ -550,9 +582,10 @@ def lstm_forward_with_cs(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
 
 def lstm_forward_resid(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                        w_hh: torch.Tensor) -> Tuple[torch.Tensor, Resid]:
-    """Training forward (fp32): x [D, R, T, F] -> (h, (hp, cp, tc, pre)), the
-    output of :func:`lstm_forward` and the residual streams, [D, R, T, H]
-    and the gate pre-activations [D, R, T, 4H]."""
+    """Training forward (fp32 or bf16 streams): x [D, R, T, F] -> (h, (hp,
+    cp, tc, pre)), the output of :func:`lstm_forward` and the residual
+    streams, [D, R, T, H] in x's type, and the gate pre-activations
+    [D, R, T, 4H] fp32."""
     if x.device.type == "cpu":
         return lstm_resid_reference(x, w_ih, b, w_hh)
     return padded(functools.partial(_launch, lstm_forward_resid, _MODE_RESID),
@@ -601,9 +634,9 @@ def bilstm_v2(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
 
 def lstm_backward(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
                   b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
-    """Backward of :func:`lstm_forward_resid` (fp32): the cotangent g
-    [D, R, T, H] of h -> (dx [D, R, T, F] per direction, dw_ih [D, F, 4H],
-    db [D, 4H], dw_hh [D, H, 4H]). D <= 2 on the card."""
+    """Backward of :func:`lstm_forward_resid`: the cotangent g [D, R, T, H]
+    of h, in x's type -> (dx [D, R, T, F] per direction in x's type, dw_ih
+    [D, F, 4H], db [D, 4H], dw_hh [D, H, 4H] fp32). D <= 2 on the card."""
     if x.device.type == "cpu":
         return lstm_backward_reference(x, resid, g, w_ih, b, w_hh)
     return padded_backward(functools.partial(_launch_backward, lstm_backward), x, resid, (g,),

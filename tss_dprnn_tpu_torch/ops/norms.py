@@ -1,5 +1,5 @@
 """Masked global layer norms
-(counterpart of ``tss_dprnn_tpu/ops/norms.py``, fp32 lane).
+(counterpart of ``tss_dprnn_tpu/ops/norms.py``).
 
 Mean and biased variance are taken over every axis but the batch axis, and
 only over unmasked positions. gLN adds 1e-8 inside the square root, torch's
@@ -73,9 +73,16 @@ def global_channel_norm_cl(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Ten
     """x [B, *spatial, C]; mask broadcastable to x ({0,1}) or None.
 
     Statistics are computed in fp32 whatever x's type; the result has x's
-    type. Masked positions come out exactly zero.
+    type. Masked positions come out exactly zero. A bf16 x takes the JAX
+    package's bf16 route (``tss_dprnn_tpu/ops/norms.py:78-140``):
+    one-pass statistics with fp32 accumulation (E[x^2] - E[x]^2, clamped at
+    0; masked positions zeroed in bf16 first), gamma and beta folded into a
+    per-example fp32 scale and shift, both rounded to bf16, and
+    ``x * scale + shift`` in bf16.
     """
     dims = tuple(range(1, x.ndim))
+    if x.dtype == torch.bfloat16:
+        return _channel_norm_bf16(x, gamma, beta, eps, mask, dims)
     xf = x.float()
     if mask is None:
         mean = xf.mean(dim=dims, keepdim=True)
@@ -88,3 +95,18 @@ def global_channel_norm_cl(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Ten
     var = ((xf - mean).square() * m).sum(dim=dims, keepdim=True) / n
     out = (xf - mean) / torch.sqrt(var + eps) * m
     return ((gamma.float() * out + beta.float()) * m).to(x.dtype)
+
+
+def _channel_norm_bf16(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                       mask: Optional[torch.Tensor], dims) -> torch.Tensor:
+    m = None if mask is None else torch.broadcast_to(mask, x.shape)
+    xm = x if m is None else x * m.to(x.dtype)
+    n = (float(x[0].numel()) if m is None
+         else m.float().sum(dim=dims, keepdim=True).clamp_min(1.0))
+    xf = xm.float()
+    mean = xf.sum(dim=dims, keepdim=True) / n
+    var = (xf.square().sum(dim=dims, keepdim=True) / n - mean.square()).clamp_min(0.0)
+    scale = gamma.float() * torch.rsqrt(var + eps)
+    shift = beta.float() - mean * scale
+    out = x * scale.to(x.dtype) + shift.to(x.dtype)
+    return out if m is None else out * m.to(x.dtype)

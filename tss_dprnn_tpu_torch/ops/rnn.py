@@ -95,6 +95,16 @@ def lstm_ignore_lengths(on: bool = True):
         _LSTM_IGNORE_LENGTHS.reset(token)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the JAX package computes it: in fp32 one
+    rounding (``torch.sigmoid``); in bf16 XLA expands it to 1 / (1 +
+    exp(-x)) and rounds each of the three operations to bf16, so the port
+    does the same."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
 def _read_lengths(lengths: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if _LSTM_IGNORE_LENGTHS.get() else lengths
 
@@ -130,6 +140,13 @@ def _switch(name: str) -> bool:
     return os.environ.get(name, "0") == "1"
 
 
+def _as_inputs(grads, *inputs):
+    """Each gradient in its input's type, as ``_recurrence3_vjp_bwd`` casts
+    them (JAX ``ops/rnn.py:411-424``): in the bf16 lane the fp32 dW and db
+    reach the fp32 parameters through a bf16 cotangent."""
+    return tuple(g.to(t.dtype) for g, t in zip(grads, inputs))
+
+
 class BiLSTM2(torch.autograd.Function):
     """(x, w_ih2, b2, w_hh2) -> (out_f, out_b), differentiable in all four;
     on a CPU tensor both passes run the kernels' plain versions."""
@@ -143,7 +160,8 @@ class BiLSTM2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g0, g1):
         x, w_ih2, b2, w_hh2, *resid = ctx.saved_tensors
-        return bilstm2_backward(x, tuple(resid), g0, g1, w_ih2, b2, w_hh2)
+        return _as_inputs(bilstm2_backward(x, tuple(resid), g0, g1, w_ih2, b2, w_hh2),
+                          x, w_ih2, b2, w_hh2)
 
 
 class BiLSTM2Masked(torch.autograd.Function):
@@ -159,8 +177,9 @@ class BiLSTM2Masked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g0, g1):
         x, lens, w_ih2, b2, w_hh2, *resid = ctx.saved_tensors
-        dx, dw_ih2, db2, dw_hh2 = bilstm2_backward_masked(x, tuple(resid), g0, g1, w_ih2, b2,
-                                                          w_hh2, lens)
+        dx, dw_ih2, db2, dw_hh2 = _as_inputs(
+            bilstm2_backward_masked(x, tuple(resid), g0, g1, w_ih2, b2, w_hh2, lens),
+            x, w_ih2, b2, w_hh2)
         return dx, None, dw_ih2, db2, dw_hh2
 
 
@@ -184,9 +203,9 @@ class BiLSTM2Dense(torch.autograd.Function):
         H, Fo = wo2.shape[1:]
         dwo2 = torch.stack([o.reshape(-1, H).T @ gy.reshape(-1, Fo)
                             for o, gy in ((o0, gy0), (o1, gy1))])
-        dx, dw_ih2, db2, dw_hh2 = bilstm2_backward(x, tuple(resid), gy0 @ wo2[0].T,
-                                                   gy1 @ wo2[1].T, w_ih2, b2, w_hh2)
-        return dx, dw_ih2, db2, dw_hh2, dwo2
+        grads = bilstm2_backward(x, tuple(resid), gy0 @ wo2[0].T, gy1 @ wo2[1].T, w_ih2, b2,
+                                 w_hh2)
+        return (*_as_inputs(grads, x, w_ih2, b2, w_hh2), dwo2)
 
 
 def lstm_pair(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -251,7 +270,7 @@ class LSTMStack(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w_ih, b, w_hh, *resid = ctx.saved_tensors
-        return lstm_backward(x, tuple(resid), g, w_ih, b, w_hh)
+        return _as_inputs(lstm_backward(x, tuple(resid), g, w_ih, b, w_hh), x, w_ih, b, w_hh)
 
 
 class LSTMSegments(torch.autograd.Function):
@@ -406,8 +425,8 @@ def gru(x: torch.Tensor, fwd: CellWeights, bwd: Optional[CellWeights] = None,
 
         def step(xp_t, h):
             hp = h @ w_hh + b_hh
-            r = torch.sigmoid(xp_t[:, :H] + hp[:, :H])
-            z = torch.sigmoid(xp_t[:, H:2 * H] + hp[:, H:2 * H])
+            r = sigmoid(xp_t[:, :H] + hp[:, :H])
+            z = sigmoid(xp_t[:, H:2 * H] + hp[:, H:2 * H])
             n = torch.tanh(xp_t[:, 2 * H:] + r * hp[:, 2 * H:])
             return (1 - z) * n + z * h
 
