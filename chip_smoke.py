@@ -9,14 +9,15 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ptxas's register and spill report);
 2. kernel vs plain: bilstm2_forward(_masked) against its plain PyTorch
    version on the card, unmasked at the intra-chunk shape and masked at the
-   inter-chunk shape of a batch of 8 x 10 s, in fp32 (the serving route:
-   the input product of csrc/products.cu, then the serving cluster scan of
-   csrc/bilstm2_serve.cu; max abs error <= 1e-4, bit for bit on a second
-   call; its tile plan and P buffer printed) and bf16 (csrc/bilstm2.cu;
-   >= 40 dB SNR against the fp32 plain version, and >= BF16_SNR_DB and
-   within BF16_ATOL of the bf16 plain version), timed beside the plain
-   version and cuDNN's LSTM on the same weights (on a PackedSequence in
-   masked mode);
+   inter-chunk shape of a batch of 8 x 10 s, in fp32 and bf16 (the serving
+   route: the input product of csrc/products.cu, then the serving cluster
+   scan of csrc/bilstm2_serve.cu, in 3xTF32 or its bf16 mode; its tile plan
+   per stream type and the P buffer printed; both bit for bit on a second
+   call and direction 1 exactly 0 past each row's length): fp32 max abs
+   error <= 1e-4; bf16 >= 40 dB SNR against the fp32 plain version, and >=
+   BF16_SNR_DB and within BF16_ATOL of the bf16 plain version, timed beside
+   the plain version and cuDNN's LSTM on the same weights (on a
+   PackedSequence in masked mode);
 3. the main path: InferencerSpe.run over 12 requests with the flagship
    DPRNN-Spe-TasNet at full width and depth (random weights from a seed);
    the kernel must have been launched 12 times per batch (6 blocks x an
@@ -46,10 +47,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ms/step printed); one step card vs CPU at 1 x 1 s (loss within 1e-4
    relative, concatenated gradients >= 40 dB SNR).
 
-7. stacked-direction kernels vs plain: lstm_forward (fp32: per direction
-   the input product of csrc/products.cu, then the serving cluster scan of
-   csrc/bilstm2_serve.cu; bf16 streams: csrc/lstm.cu), lstm_forward_with_cs
-   (csrc/lstm.cu), lstm_forward_resid (the input products, then the training
+7. stacked-direction kernels vs plain: lstm_forward (fp32 and bf16: per
+   direction the input product of csrc/products.cu, then the serving cluster
+   scan of csrc/bilstm2_serve.cu), lstm_forward_with_cs (csrc/lstm.cu),
+   lstm_forward_resid (the input products, then the training
    forward's cluster scan of csrc/bilstm2_resid.cu; its four streams, the
    saved gate pre-activations among them) and lstm_backward (the cluster scan
    of csrc/lstm_bwd.cu, which reads those pre-activations, then the
@@ -190,8 +191,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    LSTM in bf16 (training mode); the serving modes' rows come from phases 2
    and 7; (b) the flagship served in both lanes on the same weights at
    batch 8 and 32 (chip_profile.py's and bench_serve.py's rows), the bf16
-   lane >= LANE_SNR_DB against the fp32 lane, 6 + 6 bf16 launches per
-   batch and no product; (c) the same at batch 8 for the causal and the
+   lane >= LANE_SNR_DB against the fp32 lane, 6 + 6 bf16 serving scans per
+   batch, each after its input product (12 products), and no other kernel
+   (csrc/bilstm2.cu none); (c) the same at batch 8 for the causal and the
    bidirectional DPRNN-TasNet, the 'add' fusion, IRA and RawNet; (d) a 5 x 3
    s train step in both lanes for TSS, causal BSS, IRA and RawNet (ms of the
    second step, peak memory, the bf16 launches per step: one more dx
@@ -209,13 +211,21 @@ Phases, each of which fails the script (nonzero exit, no result line):
    phase 16 holds the fp32 lane: causal BSS against accum_steps=1 (loss
    within BF16_STEP_LOSS_REL, gradients >= BF16_STEP_GRAD_SNR_DB); TSS,
    BatchNorm's running statistics those of the last micro-batch alone
-   (within 1e-6).
+   (within 1e-6); (h) lstm_save_every=10 in the bf16 lane: the bf16 want_cs
+   mode of csrc/lstm.cu against its plain version at D = 2 over the 5 x 3 s
+   step's intra shape (h within BF16_ATOL at BF16_SNR_DB, the fp32 cell
+   state within CS_FREE_RTOL of max(1, |ref|), and within CS_STEP_RTOL per
+   step from the kernel's own h and c), timed beside the plain version
+   and the bound; a 5 x 3 s TSS step with lstm_save_every=10 in both lanes
+   (12 lstm_forward_with_cs launches and no other kernel; ms of the second
+   step and peak memory), and the bf16 step card vs CPU (loss within
+   BF16_STEP_LOSS_REL, gradients >= BF16_STEP_GRAD_SNR_DB).
 
-Every serving count includes the input products: each fp32
+Every serving count includes the input products: each
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
-fp32 lstm_forward launch one per direction (one on every path: the causal
-inter scan has D = 1) (``with_products``), and the phases check those counts
-too.
+lstm_forward launch one per direction (one on every path: the causal inter
+scan has D = 1), in both lanes (``with_products``), and the phases check
+those counts too.
 
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
@@ -277,6 +287,12 @@ PEAK_BYTES = 3.35e12
 # that fed h back unrounded was also 1 ulp off but about 60 dB. The SNR bound
 # is the one that holds the rounding.
 BF16_ATOL = 2.0 ** -7
+# the bf16 want_cs mode's fp32 cell state against its plain version, relative
+# to max(1, |ref|): free-running (the two bf16 h sequences part where one
+# rounds the other way), and per step from the kernel's own h and c
+# (ops/lstm.lstm_cs_step_reference). A store rounded to bf16 reads up to 2^-9.
+CS_FREE_RTOL = 1e-3
+CS_STEP_RTOL = 1e-4
 BF16_SNR_DB = 70.0
 # The manual-DMA kernel (csrc/lstm_v2.cu) rounds as the TPU source does in
 # bf16: the gates, each operation of the activations, i * g, tanh(c) and h,
@@ -375,8 +391,9 @@ def expect_launches(got, per_step, steps: int, what: str) -> None:
 
 def with_products(per_step):
     """``per_step`` launches of the kernel wrappers, plus the input product
-    that each fp32 serving scan launches first: one per bilstm2 scan, and one
-    per direction of an lstm_forward scan, whose paths all run D = 1."""
+    that each serving scan (fp32 or bf16) launches first: one per bilstm2
+    scan, and one per direction of an lstm_forward scan, whose paths all run
+    D = 1."""
     n = sum(per_step.get(k, 0) for k in ("bilstm2_forward", "bilstm2_forward_masked",
                                          "lstm_forward"))
     return dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n)
@@ -465,12 +482,13 @@ def phase_kernel(torch, dev):
             return torch.cat([o0.flatten(), o1.float().flatten()])
 
         ref32 = region(run(x, kernel=False))
-        got32 = region(run(x))
+        out32 = run(x)
+        got32 = region(out32)
         torch.cuda.synchronize()
         err32 = float((got32 - ref32).abs().max())
         bitwise = bool(torch.equal(region(run(x)), got32))  # no float atomics: a run repeats
         plan = B2._plan("serve", R, H, x.device)
-        max_clusters = B2._max_clusters("serve", H, x.device.index)
+        max_clusters = B2._max_clusters("serve", H, x.device.index, plan.height, torch.float32)
         p_bytes = R * T * 2 * 4 * H * 4  # the fp32 route's P buffer
         log(f"[kernel] {mode} fp32 route: input product ({SERVE_WITH}) + serving scan "
             f"({SERVE_SOURCE}), {plan.height}-row tiles, {plan.clusters} clusters of 2 CTAs, "
@@ -479,11 +497,27 @@ def phase_kernel(torch, dev):
         if not bitwise:
             raise AssertionError(f"bilstm2 {mode} fp32: a second call differs from the first")
         xb = x.bfloat16()
-        got16 = region(run(xb))
+        out16 = run(xb)
+        got16 = region(out16)
+        bitwise16 = bool(torch.equal(region(run(xb)), got16))
+        # direction 1 holds its zero state past each row's length: exactly 0 there
+        held_zero = valid is None or all(bool((o[1][~valid] == 0).all()) for o in (out32, out16))
+        del out32, out16
         snr16 = snr_db(got16, ref32)
         ref16 = region(run(xb, kernel=False))
         plain16_err = float((got16 - ref16).abs().max())
         plain16_snr = snr_db(got16, ref16)
+        plan16 = B2._plan("serve", R, H, x.device, dtype=torch.bfloat16)
+        clusters16 = {h: B2._max_clusters("serve", H, x.device.index, h, torch.bfloat16)
+                      for h in B2.SERVE_HEIGHTS}
+        waves16 = -(-plan16.clusters // clusters16[plan16.height])
+        log(f"[kernel] {mode} bf16 route: input product + the serving scan's bf16 mode, "
+            f"{plan16.height}-row tiles, {plan16.clusters} clusters, {waves16} waves (the card "
+            f"runs {clusters16} clusters by tile height); second call bit for bit: {bitwise16}; "
+            f"direction 1 exactly 0 past the lengths (both lanes): {held_zero}")
+        if not (bitwise16 and held_zero):
+            raise AssertionError(f"bilstm2 {mode}: bf16 second call bit for bit {bitwise16}, "
+                                 f"direction 1 zero past the lengths {held_zero}")
         log(f"[kernel] {mode} R={R} T={T}: fp32 max|err|={err32:.3e}  bf16 SNR={snr16:.2f} dB "
             f"(bf16 kernel vs bf16 plain max|err|={plain16_err:.3e}, SNR {plain16_snr:.2f} dB)")
         if not err32 <= 1e-4:
@@ -526,9 +560,11 @@ def phase_kernel(torch, dev):
             if key is None:
                 entry.update(nums)
             else:
-                entry[key] = dict(nums, source="tss_dprnn_tpu_torch/csrc/bilstm2.cu",
-                                  snr_db=snr16, plain_max_abs_err=plain16_err,
-                                  plain_snr_db=plain16_snr)
+                entry[key] = dict(nums, source=SERVE_SOURCE, snr_db=snr16,
+                                  plain_max_abs_err=plain16_err, plain_snr_db=plain16_snr,
+                                  bitwise_repeat=bitwise16,
+                                  tile_plan=dict(plan16._asdict(), max_clusters=clusters16,
+                                                 waves=waves16))
             log(f"[kernel] {mode} {dt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                 f"cuDNN {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
         entries.append(entry)
@@ -695,7 +731,8 @@ def phase_backward_kernels(torch, dev):
         rows_steps = R * T if ln is None else int(ln.sum())
         tiles = {which: B2._plan(which, R, H, x.device)._asdict() for which in ("resid", "bwd")}
         for which, plan in tiles.items():
-            plan["max_clusters"] = B2._max_clusters(which, H, x.device.index)
+            plan["max_clusters"] = B2._max_clusters(which, H, x.device.index, plan["height"],
+                                                    torch.float32)
 
         def fwd(kernel=True, x=x, ln=ln):
             if not kernel:
@@ -819,7 +856,8 @@ def train_kernel_entries(results, launches):
             ("backward", "bilstm2_backward", "tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu",
              "tss_dprnn_tpu/ops/pallas_lstm.py:1224")):
         e = {"name": name, "mode": f"{which}, intra", "dtype": "float32", "route": "cuda",
-             "source": source, "with": "tss_dprnn_tpu_torch/csrc/products.cu",
+             "source": source, "replaces": replaces,
+             "with": "tss_dprnn_tpu_torch/csrc/products.cu",
              "cluster": "2 CTAs, W_hh resident in shared memory",
              "tile_plan": {s: results[s]["tile_plan"] for s in ("intra", "inter", "masked")},
              "launches": launches[name],
@@ -917,12 +955,14 @@ def phase_lstm_kernels(torch, dev):
         cot = torch.randn(D, R, T, H, generator=g).to(dev)
         xb = x.bfloat16()
         blocks = D * -(-R // 16)  # csrc/lstm.cu: one per direction and 16-row tile
-        # the fp32 h-only and residual routes' cluster scans: one 2-CTA cluster
-        # per direction and row tile
-        plans = {which: dict(B2._plan(which, R, H, x.device, dirs=D)._asdict(),
-                             max_clusters=B2._max_clusters(which, H, x.device.index))
-                 for which in ("serve", "resid")}
-        for plan in plans.values():
+        # the h-only and residual routes' cluster scans: one 2-CTA cluster per
+        # direction and row tile
+        plans = {}
+        for key, which, dt in (("serve", "serve", torch.float32),
+                               ("resid", "resid", torch.float32),
+                               ("serve_bf16", "serve", torch.bfloat16)):
+            plan = plans[key] = B2._plan(which, R, H, x.device, dirs=D, dtype=dt)._asdict()
+            plan["max_clusters"] = B2._max_clusters(which, H, x.device.index, plan["height"], dt)
             plan["waves"] = -(-plan["tiles"] * D // plan["max_clusters"])
 
         # the three forward modes and the bf16 streams; the fp32 routes twice
@@ -945,7 +985,9 @@ def phase_lstm_kernels(torch, dev):
         torch.cuda.synchronize()
         repeat_resid = all(torch.equal(a, r) for a, r in zip((got_h, *resid), (again_h, *again)))
         del got_h, again_h, again
-        got16 = L.lstm_forward(xb, *w).float()
+        got16 = L.lstm_forward(xb, *w)
+        repeat_bf16 = bool(torch.equal(got16, L.lstm_forward(xb, *w)))
+        got16 = got16.float()
         ref16 = L.lstm_reference(xb, *w).float()
         snr16, plain16_snr = snr_db(got16, ref), snr_db(got16, ref16)
         plain16_err = float((got16 - ref16).abs().max())
@@ -966,19 +1008,22 @@ def phase_lstm_kernels(torch, dev):
         backward_plan = L.plan_backward(D, R, H, x.device)._asdict()
         log(f"[lstm-kernels] {name} D={D} R={R} T={T}: fp32 forward = {D} input product(s) + "
             f"serving scan, tile plan {plans['serve']}; resid = {D} input product(s) + training "
-            f"scan, tile plan {plans['resid']}; bf16 and with_cs on csrc/lstm.cu ({blocks} "
-            f"blocks); backward tile plan {backward_plan}")
+            f"scan, tile plan {plans['resid']}; bf16 forward = the same with the serving "
+            f"scan's bf16 mode, tile plan {plans['serve_bf16']}; with_cs on csrc/lstm.cu "
+            f"({blocks} blocks); backward tile plan {backward_plan}")
         log(f"[lstm-kernels] {name}: max|err| forward {err['forward']:.3e} (repeats bit for bit: "
             f"{repeat_fwd}), with_cs {err['with_cs']:.3e}, resid {err['resid']:.3e} (pre "
             f"{err['pre']:.3e}; repeats bit for bit: {repeat_resid}); bf16 SNR "
             f"{snr16:.2f} dB (vs bf16 plain max|err| {plain16_err:.3e}, SNR {plain16_snr:.2f} "
-            f"dB); backward from the resid route's streams dx {dx_err:.3e}, dW/db "
-            f"{dw_err:.3e}, /max|ref| {dw_rels}, repeats bit for bit: {repeat}")
+            f"dB; repeats bit for bit: {repeat_bf16}); backward from the resid route's streams "
+            f"dx {dx_err:.3e}, dW/db {dw_err:.3e}, /max|ref| {dw_rels}, repeats bit for bit: "
+            f"{repeat}")
         if not max(err.values()) <= 1e-4:
             raise AssertionError(f"lstm {name} fp32 disagrees with its plain version: {err}")
-        if not (repeat_fwd and repeat_resid):
-            raise AssertionError(f"lstm {name} fp32: a second call differs from the first "
-                                 f"(forward {repeat_fwd}, resid {repeat_resid})")
+        if not (repeat_fwd and repeat_resid and repeat_bf16):
+            raise AssertionError(f"lstm {name}: a second call differs from the first (fp32 "
+                                 f"forward {repeat_fwd}, resid {repeat_resid}, bf16 forward "
+                                 f"{repeat_bf16})")
         if not (snr16 >= 40.0 and plain16_err <= BF16_ATOL and plain16_snr >= BF16_SNR_DB):
             raise AssertionError(f"lstm {name} bf16: SNR {snr16:.2f} dB vs fp32 (>= 40), "
                                  f"max|err| {plain16_err} (<= {BF16_ATOL}) and SNR "
@@ -997,7 +1042,8 @@ def phase_lstm_kernels(torch, dev):
                 "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
                 "bf16_plain_snr_db": plain16_snr, "dx_max_abs_err": dx_err,
                 "dw_max_abs_err": dw_err, "dw_rel_err": dw_rel, "bitwise_repeat": repeat,
-                "forward_bitwise_repeat": repeat_fwd, "resid_bitwise_repeat": repeat_resid}
+                "forward_bitwise_repeat": repeat_fwd, "resid_bitwise_repeat": repeat_resid,
+                "bf16_bitwise_repeat": repeat_bf16}
         if D == 1:
             xr = x[0].detach().clone().requires_grad_()
             params = [xr, *lstm.parameters()]
@@ -1056,8 +1102,9 @@ def lstm_kernel_entries(results, launches):
                "bound_ms": r[f"{kind}_bound_ms"], "bound_by": r[f"{kind}_bound_by"],
                "library_ms": r.get(library),
                "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128}}
-        if kind in ("forward", "resid"):  # the cluster scans
-            out["tile_plan"] = r["tile_plan"]["serve" if kind == "forward" else "resid"]
+        if kind in ("forward", "resid", "bf16"):  # the cluster scans
+            out["tile_plan"] = r["tile_plan"][{"forward": "serve", "resid": "resid",
+                                               "bf16": "serve_bf16"}[kind]]
             out["bitwise_repeat"] = r[f"{kind}_bitwise_repeat"]
         elif kind != "backward":  # csrc/lstm.cu
             out.update(blocks=r["blocks"], source="tss_dprnn_tpu_torch/csrc/lstm.cu")
@@ -2399,8 +2446,9 @@ def _valid_snr(torch, got, want, lengths):
 
 
 def _step_card_vs_cpu(torch, dev, make_model, start, trainer_cls, config, batch):
-    """One train step from the same weights on the card and on the CPU:
-    (loss rel, concatenated gradients' SNR, the card's launches, its ms)."""
+    """One train step from the same weights on the card and on the CPU, under
+    the trainer's scan settings (``lstm_save_every``): (loss rel, concatenated
+    gradients' SNR, the card's launches, its ms)."""
     steps = {}
     for device in (dev, "cpu"):
         model = make_model()
@@ -2410,8 +2458,10 @@ def _step_card_vs_cpu(torch, dev, make_model, start, trainer_cls, config, batch)
         t.model.train()
         reset_launches()
         t0 = time.perf_counter()
-        loss, _ = t._forward_loss(t._to_device(batch), train=True)
-        loss.backward()
+        on_device = t._to_device(batch)
+        with t._scans(train=True):
+            loss, _ = t._forward_loss(on_device, train=True)
+            loss.backward()
         if device == dev:
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
@@ -2997,15 +3047,15 @@ def varlen_launches(mode: str, n: int, bf16: bool = False):
     their inter scans through the masked one; the causal BSS model's intra
     pair unmasked and its one-direction inter scans, which take no lengths.
     ``bf16``: the TSS families in the bf16 lane, whose backward takes one
-    product more per scan (dx per direction) and whose serving scans
-    (csrc/bilstm2.cu) take no input product."""
+    product more per scan (dx per direction)."""
     if bf16:
         if mode == "bss":
             raise ValueError("the bf16 variable-length run is the TSS families'")
         return ({"bilstm2_forward_resid": n, "bilstm2_forward_resid_masked": n,
                  "bilstm2_backward": n, "bilstm2_backward_masked": n,
                  "products_gemm": 2 * n * 6, "products_colsum": 2 * n},
-                {"bilstm2_forward": n, "bilstm2_forward_masked": n}, {"bilstm2_forward": 2 * n})
+                with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n}),
+                with_products({"bilstm2_forward": 2 * n}))
     if mode == "bss":
         train = {"bilstm2_forward_resid": n, "bilstm2_backward": n, "lstm_forward_resid": n,
                  "lstm_backward": n, "products_gemm": n * 5 + n * 1 + n * 3,
@@ -3708,7 +3758,8 @@ def phase_bf16(torch, dev, smi, cli_state, varlen_state):
                     torch.cuda.synchronize()
                     rate[lane] = audio / ((time.perf_counter() - t0) / 3)
                     res[f"peak_gb_{lane}_batch{size}"] = torch.cuda.max_memory_allocated() / 1e9
-            expect_launches(launches["bf16"], per_batch, 1, f"{fam} bf16 batch of {size}")
+            expect_launches(launches["bf16"], with_products(per_batch), 1,
+                            f"{fam} bf16 batch of {size}")
             expect_launches(launches["fp32"], with_products(per_batch), 1,
                             f"{fam} fp32 batch of {size}")
             lengths = torch.from_numpy(batch["lengths"])
@@ -3807,7 +3858,7 @@ def phase_bf16(torch, dev, smi, cli_state, varlen_state):
         train_wall = time.perf_counter() - t0
     launches = dict(all_launches(), **product_launches())
     n_mix = rec.mixture_passes * len(CLI_IDS)
-    per_eval = {"bilstm2_forward": 2 * n}
+    per_eval = with_products({"bilstm2_forward": 2 * n})
     expect_launches(launches, {k: n_train * tss_step.get(k, 0) + (n_eval + n_mix) *
                                per_eval.get(k, 0) for k in launches}, 1,
                     f"bf16 cli.train ({n_train} train steps, {n_eval} eval steps, {n_mix} eval "
@@ -3837,7 +3888,7 @@ def phase_bf16(torch, dev, smi, cli_state, varlen_state):
         rows = _csv_rows(os.path.join(savedir, "all_metrics.csv"))
         return final, wall, tested, [float(r["si_sdr"]) for r in rows]
 
-    bf16_lane = {"bilstm2_forward": n, "bilstm2_forward_masked": n}
+    bf16_lane = with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n})
     trained = run_test(os.path.join(ckpt_dir, "1_best"), "trained", "model.dtype=bfloat16")
     expect_launches(trained[2], bf16_lane, n_test, "bf16 cli.test")
     lanes = {"fp32": run_test(fp32_ckpt, "fp32", "metrics=[si_sdr]"),
@@ -3918,35 +3969,137 @@ def phase_bf16(torch, dev, smi, cli_state, varlen_state):
             raise AssertionError(f"{fam} bf16 accum_steps: {res}")
         accum[fam] = res
     results["accum"] = accum
+    results["save_every"] = _bf16_save_every(torch, dev, smi, steps_fams["tss"],
+                                             varlen_state["save_every"])
     return results
+
+
+def _bf16_save_every(torch, dev, smi, tss, fp32_row):
+    """Phase 17 (h): lstm_save_every=SAVE_EVERY in the bf16 lane: the bf16
+    want_cs mode against its plain version at D = 2 over the 5 x 3 s step's
+    intra shape, timed beside it and the bound; a 5 x 3 s TSS step in both
+    lanes (ms of the second step, peak GB) beside phase 16's fp32 row
+    (``fp32_row``, the largest variable-length bucket); the bf16 step card vs
+    CPU."""
+    import functools
+
+    from tss_dprnn_tpu_torch.ops import lstm as L
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    F = H = 128
+    D, (R, T) = 2, train_shapes()["intra"]
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(SEED + 77)
+    k = H ** -0.5
+    w = [((torch.rand(*s, generator=g) * 2 * k - k)).to(dev).to(bf)
+         for s in ((D, F, 4 * H), (D, 4 * H), (D, H, 4 * H))]
+    x = torch.randn(D, R, T, F, generator=g).to(dev).to(bf)
+    h, cs = L.lstm_forward_with_cs(x, *w)
+    h2, cs2 = L.lstm_forward_with_cs(x, *w)
+    torch.cuda.synchronize()
+    repeat = bool(torch.equal(h, h2) and torch.equal(cs, cs2))
+    ph, pcs = L.lstm_cs_reference(x, *w)
+    h_err, h_snr = _bf16_streams_close(torch, "h", h, ph)
+
+    def rel(got, want):
+        return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+    cs_err, step_err = rel(cs, pcs), rel(cs, L.lstm_cs_step_reference(x, *w, h, cs))
+    if not (cs_err <= CS_FREE_RTOL and step_err <= CS_STEP_RTOL and repeat and h.dtype == bf
+            and cs.dtype == torch.float32):
+        raise AssertionError(f"bf16 want_cs at D={D} R={R} T={T}: cell state max|err| {cs_err} "
+                             f"(<= {CS_FREE_RTOL} of max(1, |ref|)), per step {step_err} "
+                             f"(<= {CS_STEP_RTOL}), repeats bit for bit {repeat}, "
+                             f"types {h.dtype} {cs.dtype}")
+    del h, cs, h2, cs2, ph, pcs
+    kernel = {"D": D, "R": R, "T": T, "max_abs_err": h_err, "snr_db": h_snr,
+              "cs_max_rel_err": cs_err, "cs_step_max_rel_err": step_err, "bitwise_repeat": repeat,
+              "ms": time_ms(lambda: L.lstm_forward_with_cs(x, *w), 5),
+              "plain_ms": time_ms(lambda: L.lstm_cs_reference(x, *w), 1)}
+    kernel["bound_ms"], kernel["bound_by"] = bound_stack("with_cs", D, R, T, F, H, 2, PEAK_BF16)
+    del x
+    torch.cuda.empty_cache()
+    log(f"[bf16] want_cs bf16 D={D} R={R} T={T} (csrc/lstm.cu): {kernel['ms']:.3f} ms (plain "
+        f"{kernel['plain_ms']:.1f}, bound {kernel['bound_ms']:.3f} ({kernel['bound_by']})); h "
+        f"max|err| {h_err:.3e} SNR {h_snr:.2f} dB, c max|err|/max(1,|ref|) {cs_err:.3e} "
+        f"(per step from its own state {step_err:.3e}); "
+        f"repeats bit for bit")
+
+    spec, collate, crops, _ = tss
+    start = init_weights_(spec["model"](), torch.Generator().manual_seed(SEED + 78)).state_dict()
+    batch = collate(crops(SEED + 79, TRAIN_BATCH, TRAIN_SECONDS).items)
+    config = dict(TRAIN_CONFIG, lstm_save_every=SAVE_EVERY)
+    per_step = {"lstm_forward_with_cs": 2 * FLAGSHIP["n_repeats"]}
+    steps = {}
+    for lane, kw in (("fp32", {}), ("bf16", {"dtype": bf})):
+        run = _whole_step(torch, dev, functools.partial(spec["model"], **kw), start,
+                          spec["trainer"], config, batch)
+        expect_launches(run["launches"], per_step, 1,
+                        f"a {lane} lstm_save_every={SAVE_EVERY} 5 x 3 s step")
+        steps[lane] = _numbers(run)
+    rel, gsnr, launches, _ = _step_card_vs_cpu(torch, dev, lambda: spec["model"](dtype=bf),
+                                               start, spec["trainer"], config, batch)
+    expect_launches(launches, per_step, 1, "the bf16 lstm_save_every step card vs CPU")
+    big = fp32_row[f"save_every_{SAVE_EVERY}"]
+    log(f"[bf16] TSS {TRAIN_BATCH} x {TRAIN_SECONDS} s, lstm_save_every {SAVE_EVERY}: bf16 "
+        f"{steps['bf16']['ms']:.1f} ms / {steps['bf16']['peak_gb']:.2f} GB against fp32 "
+        f"{steps['fp32']['ms']:.1f} ms / {steps['fp32']['peak_gb']:.2f} GB (phase 16's fp32 row, "
+        f"{TRAIN_BATCH} x {fp32_row['width']} samples: {big['ms']:.1f} ms / "
+        f"{big['peak_gb']:.2f} GB) on {smi}; bf16 card vs CPU: loss rel {rel:.3e}, gradients "
+        f"{gsnr:.2f} dB; launches {steps['bf16']['launches']}")
+    if not (rel <= BF16_STEP_LOSS_REL and gsnr >= BF16_STEP_GRAD_SNR_DB):
+        raise AssertionError(f"bf16 lstm_save_every step card vs CPU: loss rel {rel}, gradients "
+                             f"{gsnr:.2f} dB")
+    return {"kernel": kernel, "steps_5x3s": steps, "card_vs_cpu": {"loss_rel": rel,
+                                                                    "grad_snr_db": gsnr}}
 
 
 def bf16_kernel_entries(entries, bf16, launches):
     """The kernels line's rows for the bf16 modes that the bf16 lane runs:
-    the serving kernels' numbers from phases 2 and 7 (this run), the training
-    modes' from phase 17 (a); launches from the bf16 lane's runs
-    (``launches``: per served batch of 8, per 5 x 3 s train step, and the
-    masked training modes' over phase 17's variable-length cli.train run)."""
+    the serving scans' numbers from phases 2 and 7 (this run), the training
+    modes' from phase 17 (a), the want_cs mode's from phase 17 (h); launches
+    from the bf16 lane's runs (``launches``: per served batch of 8, each scan
+    after its input product, per 5 x 3 s train step, the masked training
+    modes' over phase 17's variable-length cli.train run, and per
+    lstm_save_every step)."""
     out = []
     by = {(e["name"], e.get("mode")): e for e in entries}
+    serve = {"route": "cuda", "source": SERVE_SOURCE, "dtype": "bfloat16",
+             "with": f"{SERVE_WITH} (the input product, x upcast exactly; one launch per "
+                     f"direction of an lstm_forward scan)",
+             "cluster": "2 CTAs, W_hh resident in shared memory in bf16; bf16 mma.sync"}
     for name, mode in (("bilstm2_forward", "unmasked"), ("bilstm2_forward_masked", "masked")):
         sub = by[(name, mode)]["bf16"]
-        out.append({"name": name, "mode": f"bf16 streams, {mode} (serving)", "dtype": "bfloat16",
-                    "route": "cuda", "source": "tss_dprnn_tpu_torch/csrc/bilstm2.cu",
+        out.append({"name": name, "mode": f"bf16 streams, {mode} (serving)", **serve,
                     "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:698",
                     "launches": launches["serve"].get(name, 0),
                     "max_abs_err": sub["plain_max_abs_err"],
                     **{k: sub[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms", "snr_db", "plain_snr_db")},
+                                           "library_ms", "snr_db", "plain_snr_db",
+                                           "tile_plan", "bitwise_repeat")},
                     "shape": by[(name, mode)]["shape"]})
     lf = next(e for e in entries if e["name"] == "lstm_forward")
     out.append({"name": "lstm_forward", "mode": "bf16 streams, h only, D=1 (causal BSS serving)",
-                "dtype": "bfloat16", "route": "cuda", "source": "tss_dprnn_tpu_torch/csrc/lstm.cu",
-                "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57",
+                **serve, "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57",
                 "launches": launches["bss_serve"].get("lstm_forward", 0),
                 "max_abs_err": lf["bf16"]["plain_max_abs_err"],
                 **{k: lf["bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms", "shape")}})
+                                              "library_ms", "shape", "snr_db", "plain_snr_db",
+                                              "tile_plan", "bitwise_repeat")}})
+    cs = bf16["save_every"]["kernel"]
+    out.append({"name": "lstm_forward_with_cs",
+                "mode": f"bf16 streams, want_cs, D=2 over the 5 x 3 s step's intra shape "
+                        f"(lstm_save_every {SAVE_EVERY})",
+                "dtype": "bfloat16", "route": "cuda", "source": "tss_dprnn_tpu_torch/csrc/lstm.cu",
+                "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57",
+                "launches": launches["save_every"].get("lstm_forward_with_cs", 0),
+                "launches_are": "per bf16 lstm_save_every step (5 x 3 s TSS)",
+                "library_ms": None,
+                "library": "no single cuDNN call: two directions on their own inputs",
+                **{key: cs[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "max_abs_err", "snr_db", "cs_max_rel_err",
+                                            "bitwise_repeat")},
+                "shape": {"D": cs["D"], "R": cs["R"], "T": cs["T"], "F": 128, "H": 128}})
     k = bf16["kernels"]
 
     def numbers(r, which):
@@ -4167,7 +4320,8 @@ def main() -> int:
         "bss_serve": bf16["serving"]["bss_causal"]["launches_bf16_batch8"],
         "tss": steps["tss"]["bf16"]["launches"],
         "bss_causal": steps["bss_causal"]["bf16"]["launches"],
-        "varlen": bf16["varlen_cli"]["launches"]})
+        "varlen": bf16["varlen_cli"]["launches"],
+        "save_every": bf16["save_every"]["steps_5x3s"]["bf16"]["launches"]})
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,

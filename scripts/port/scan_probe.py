@@ -28,7 +28,10 @@ product's ms on its own, so that the scan's share is forward minus input
 product; and the same for the serving route (``bilstm2_forward`` unmasked at
 R=5136 T=250, ``bilstm2_forward_masked`` at R=2000 T=642 with ragged lengths
 drawn as chip_smoke.py phase 2 draws them), with the serving scan's tile
-plan, and the serving scan alone at each of its tile heights. The variants
+plan, and the serving scan alone at each of its tile heights; and the bf16
+serving route at the same shapes taken apart: the whole call, the upcast of
+x to fp32, the input product on the upcast x, and the scan's bf16 mode alone
+at each tile height (its tile plan and the waves it takes). The variants
 run in turns, base first and last.
 """
 
@@ -53,6 +56,8 @@ EDITS = {
                ("cluster_scan.cuh", "for (int k = 0; k < 2 * H; k += 4) {",
                 "for (int k = 0; k < 0; k += 4) {", 1),
                ("bilstm2_serve.cu", "for (int ks = 0; ks < H / 8; ++ks) {",
+                "for (int ks = 0; ks < 0; ++ks) {", 1),
+               ("bilstm2_serve.cu", "for (int ks = 0; ks < H / 16; ++ks) {",
                 "for (int ks = 0; ks < 0; ++ks) {", 1)],
     "no_cell": [("bilstm2_resid.cu", "sigmoid_f(", "(", 3), ("bilstm2_resid.cu", "tanhf(", "(", 2),
                 ("cluster_scan.cuh", "sigmoid_f(", "(", 3), ("cluster_scan.cuh", "tanhf(", "(", 1),
@@ -132,21 +137,43 @@ def measure(name: str) -> dict:
             "input_product_ms": chip_smoke.time_ms(
                 lambda: B2._gemm(lib, stream, False, [(x, 0, F, w_cat, 0, 8 * H, F)], R * T,
                                  8 * H, out=pre, ldc=8 * H, bias=b2), 5)}
-        # the scan alone on that P, at each tile height
-        serve, w_frag = B2._library_serve(), B2.serve_weight_layout(w_hh2)
-        o0, o1 = (torch.empty(R, T, H, device=dev) for _ in range(2))
-        max_clusters = B2._max_clusters("serve", H, x.device.index)
+        serve = B2._library_serve()
 
-        def scan(height):
-            rc = serve.bilstm2_serve_scan(height, pre.data_ptr(), w_frag.data_ptr(),
-                                          B2._ptr(lens), o0.data_ptr(), o1.data_ptr(), 4 * H,
-                                          8 * H, 1, 2, R, T, H, stream)
-            B2._raise_on(rc, "serving scan", serve, "bilstm2_serve_error_string")
+        def scan_by_height(dtype, layout):
+            """The serving scan alone on ``pre`` in stream type ``dtype``, at
+            each tile height, with the waves its grid takes there."""
+            w_frag = layout(w_hh2)
+            o0, o1 = (torch.empty(R, T, H, dtype=dtype, device=dev) for _ in range(2))
+            code = B2._DTYPE_CODES[dtype]
 
-        out[f"serve_{mode}"]["scan_ms_by_height"] = {
-            h: {"ms": chip_smoke.time_ms(lambda: scan(h), 5),
-                "waves": -(-2 * -(-R // h) // max_clusters)} for h in B2.SERVE_HEIGHTS}
-        del x, pre, o0, o1
+            def scan(height):
+                rc = serve.bilstm2_serve_scan(height, code, pre.data_ptr(), w_frag.data_ptr(),
+                                              B2._ptr(lens), o0.data_ptr(), o1.data_ptr(), 4 * H,
+                                              8 * H, 1, 2, R, T, H, stream)
+                B2._raise_on(rc, "serving scan", serve, "bilstm2_serve_error_string")
+
+            res = {}
+            for h in B2.SERVE_HEIGHTS:
+                n = B2._max_clusters("serve", H, x.device.index, h, dtype)
+                res[h] = {"ms": chip_smoke.time_ms(lambda: scan(h), 5), "max_clusters": n,
+                          "waves": -(-2 * -(-R // h) // n)}
+            return res
+
+        out[f"serve_{mode}"]["scan_ms_by_height"] = scan_by_height(torch.float32,
+                                                                   B2.serve_weight_layout)
+        # the bf16 route taken apart: upcast, input product, scan
+        xb = x.bfloat16()
+        xu = xb.float()
+        out[f"serve_{mode}_bf16"] = {
+            "R": R, "T": T,
+            "tile_plan": B2._plan("serve", R, H, x.device, dtype=torch.bfloat16)._asdict(),
+            "ms": chip_smoke.time_ms(lambda: B2.bilstm2_forward(xb, *w) if lens is None
+                                     else B2.bilstm2_forward_masked(xb, lens, *w), 5),
+            "upcast_ms": chip_smoke.time_ms(lambda: xb.float(), 5),
+            "input_product_ms": chip_smoke.time_ms(
+                lambda: B2._input_product(lib, stream, xu, w_ih2, b2, pre), 5),
+            "scan_ms_by_height": scan_by_height(torch.bfloat16, B2.serve_weight_layout_bf16)}
+        del x, xb, xu, pre
         torch.cuda.empty_cache()
     return out
 

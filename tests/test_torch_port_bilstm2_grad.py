@@ -170,7 +170,7 @@ def test_backward_reads_saved_pre(rng):
 def test_tile_planner(R, max_clusters):
     """Every row in exactly one tile; one wave where a compiled height gives
     one, and then the smallest such height."""
-    plan = port.plan_tiles(R, max_clusters)
+    plan = port.plan_tiles(R, dict.fromkeys(port.TILE_HEIGHTS, max_clusters))
     assert plan.height in port.TILE_HEIGHTS
     covered = np.zeros(R, int)
     for tile in range(plan.tiles):  # tile i holds rows i * height .. (i + 1) * height - 1
@@ -189,7 +189,7 @@ def test_tile_planner(R, max_clusters):
 
 def test_tile_planner_rejects_no_cluster():
     with pytest.raises(ValueError, match="no cluster"):
-        port.plan_tiles(970, 0)
+        port.plan_tiles(970, dict.fromkeys(port.TILE_HEIGHTS, 0))
 
 
 @pytest.mark.parametrize("R,T", SHAPES)

@@ -351,12 +351,13 @@ def test_lstm_backward_kernel_matches_reference_on_card(D):
 
 
 @pytest.mark.cuda
-def test_lstm_want_cs_rejects_bf16():
-    """The want_cs mode streams fp32 only (the bf16 training modes are
-    tests/test_torch_port_bf16_training.py's)."""
+def test_lstm_want_cs_rejects_fp16():
+    """The want_cs mode streams fp32 or bf16 (its bf16 mode is
+    tests/test_torch_port_bf16_save_every.py's); fp16 raises before any
+    launch."""
     _needs_card()
     x, w, g = _card_case(1, R=4, T=3, F=16, H=16)
     before = port.launch_count()
-    with pytest.raises(ValueError, match="float32 only"):
-        port.lstm_forward_with_cs(x.bfloat16(), *w)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        port.lstm_forward_with_cs(x.half(), *w)
     assert port.launch_count() == before

@@ -252,17 +252,17 @@ def test_resid_weight_layout_maps_back_stacked(D, H):
     (2000, B.TILE_HEIGHTS, (32, 63)),
 ])
 def test_stacked_tile_plan(R, heights, want):
-    plan = B.plan_tiles(R, 66, dirs=1, heights=heights)
+    plan = B.plan_tiles(R, dict.fromkeys(heights, 66), dirs=1, heights=heights)
     assert (plan.height, plan.tiles, plan.dirs, plan.clusters) == (*want, 1, want[1])
     assert plan.clusters <= 66  # one wave
     assert all(-(-R // h) > 66 for h in heights if h < plan.height)  # the smallest that fits
 
 
 def test_fp32_stacked_modes_take_the_cluster_route(monkeypatch):
-    """The kernel wrapper sends fp32 streams in the h-only mode and the
-    residual mode in either stream type to the product + cluster scan route,
-    and only bf16 streams in the h-only mode and the cell-state mode to
-    csrc/lstm.cu, whose checks refuse a tensor that is not on the card."""
+    """The kernel wrapper sends the h-only and residual modes, fp32 and bf16
+    streams alike, to the product + cluster scan route, and only the
+    cell-state mode to csrc/lstm.cu, whose checks refuse a tensor that is not
+    on the card."""
     calls = []
     monkeypatch.setattr(L, "_launch_scan", lambda *a: calls.append(a) or "scan")
     w = [torch.zeros(1, 16, 64), torch.zeros(1, 64), torch.zeros(1, 16, 64)]
@@ -271,15 +271,16 @@ def test_fp32_stacked_modes_take_the_cluster_route(monkeypatch):
     for entry, mode, xx in ((L.lstm_forward, L._MODE_H, x),
                             (L.lstm_forward_resid, L._MODE_RESID, x),
                             (L.lstm_scan, L._MODE_H, x),
-                            (L.lstm_forward_resid, L._MODE_RESID, xb)):
+                            (L.lstm_forward_resid, L._MODE_RESID, xb),
+                            (L.lstm_forward, L._MODE_H, xb),
+                            (L.lstm_scan, L._MODE_H, xb)):
         assert L._launch(entry, mode, xx, *w) == "scan"
         assert calls[-1][:3] == (entry, mode, xx)
-    assert len(calls) == 4
-    for entry, dtype, mode in ((L.lstm_forward, torch.bfloat16, L._MODE_H),
-                               (L.lstm_forward_with_cs, torch.float32, L._MODE_CS)):
+    assert len(calls) == 6
+    for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
-            L._launch(entry, mode, x.to(dtype), *w)
-    assert len(calls) == 4
+            L._launch(L.lstm_forward_with_cs, L._MODE_CS, x.to(dtype), *w)
+    assert len(calls) == 6
 
 
 def test_cluster_route_has_no_cpu_fallback():

@@ -158,18 +158,24 @@ def test_serve_fragments_give_h_at_w(H, MT):
 
 
 def test_fp32_streams_take_the_serving_route(monkeypatch):
-    """The kernel wrapper sends fp32 streams to the serving route (input
-    product + serving scan) and only bf16 streams to csrc/bilstm2.cu, whose
+    """The entries send a tensor that is not on the CPU (here on the meta
+    device) to the serving route (input product + serving scan), fp32 and,
+    since bf16 serving left csrc/bilstm2.cu, bf16 streams alike; the route's
     checks refuse a tensor that is not on the card."""
     calls = []
-    monkeypatch.setattr(B, "_launch_serve", lambda *a: calls.append(a) or "serve")
+    real = B._launch_serve
+    monkeypatch.setattr(B, "_launch_serve", lambda *a: calls.append(a) or ("serve", "serve"))
     w = [torch.zeros(2, 16, 64), torch.zeros(2, 64), torch.zeros(2, 16, 64)]
-    x = torch.zeros(3, 5, 16)
-    assert B._launch(B.bilstm2_forward, x, *w, None) == "serve"
-    assert len(calls) == 1 and calls[0][1] is x
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(3, 5, 16, dtype=dtype, device="meta")
+        lens = torch.zeros(3, dtype=torch.int32, device="meta")
+        assert B.bilstm2_forward(x, *w) == ("serve", "serve")
+        assert B.bilstm2_forward_masked(x, lens, *w) == ("serve", "serve")
+        assert [c[0] for c in calls[-2:]] == [B.bilstm2_forward, B.bilstm2_forward_masked]
+        assert calls[-2][1] is x and calls[-2][5] is None and calls[-1][5] is lens
+    assert len(calls) == 4
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        B._launch(B.bilstm2_forward, x.bfloat16(), *w, None)
-    assert len(calls) == 1
+        real(B.bilstm2_forward, torch.zeros(3, 5, 16).bfloat16(), *w, None)
 
 
 # (R, max clusters) -> (height, tiles): one wave where the card allows it
@@ -183,7 +189,7 @@ def test_fp32_streams_take_the_serving_route(monkeypatch):
     (5136, 1, (16, 321)),     # one cluster at a time: 2 x 321 x 16 < 2 x 161 x 32
 ])
 def test_serving_tile_plan(R, max_clusters, want):
-    plan = B.plan_tiles(R, max_clusters, heights=B.SERVE_HEIGHTS)
+    plan = B.plan_tiles(R, dict.fromkeys(B.SERVE_HEIGHTS, max_clusters), heights=B.SERVE_HEIGHTS)
     assert (plan.height, plan.tiles, plan.dirs) == (*want, 2)
     assert plan.tiles * plan.height >= R > (plan.tiles - 1) * plan.height
     waves = -(-plan.clusters // max_clusters)
@@ -198,7 +204,7 @@ def test_serving_tile_plan(R, max_clusters, want):
 
 def test_serving_tile_plan_rejects_no_cluster():
     with pytest.raises(ValueError, match="no cluster"):
-        B.plan_tiles(10, 0, heights=B.SERVE_HEIGHTS)
+        B.plan_tiles(10, dict.fromkeys(B.SERVE_HEIGHTS, 0), heights=B.SERVE_HEIGHTS)
 
 
 # ---------------------------------------------------------------- on the card

@@ -16,7 +16,7 @@ to the log-only ``reporters.Reporter``, as the JAX CLI logs them without
 wandb. Every trainer knob of the JAX package runs (``training/trainer.py``)
 but ``is_metrics`` with ``accum_steps > 1``, which fails in JAX. ``--set
 model.dtype=bfloat16`` trains the bf16 lane (fp32 parameters and
-checkpoints; ``lstm_save_every`` > 1 takes fp32 only on the card).
+checkpoints), ``lstm_save_every`` > 1 included.
 """
 
 from __future__ import annotations

@@ -1,26 +1,22 @@
-// Fused bidirectional LSTM scan for Hopper (sm_90a): inference modes and the
-// dense (fused SplitDense) mode.
+// Fused bidirectional LSTM scan for Hopper (sm_90a) with the SplitDense
+// product fused in: the dense mode.
 //
 // Replaces the TPU kernel `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698)
-// in its unmasked and masked modes with bf16 streams, and in its dense mode
-// (fp32 and bf16 streams). Its residual mode is the training forward of
-// csrc/bilstm2_resid.cu; its fp32 unmasked and masked modes, which serving
-// runs, are the input product of csrc/products.cu and the serving scan of
-// csrc/bilstm2_serve.cu. Per step and direction d:
+// in its dense mode (`bilstm2_dense_forward` :969, fp32 and bf16 streams; the
+// opt-in `TSS_FUSED_DENSE=1`). Its unmasked and masked serving modes are the
+// input product of csrc/products.cu and the serving scan of
+// csrc/bilstm2_serve.cu, its residual mode the training forward of
+// csrc/bilstm2_resid.cu. Per step and direction d:
 //   g = x_t @ W_ih[d] + h @ W_hh[d] + b[d]      (fp32 accumulator)
 //   i, f, o = sigmoid(g_i, g_f, g_o); gg = tanh(g_g)   (torch gate order i, f, g, o)
 //   c = f * c + i * gg                          (fp32)
 //   h = round_to_stream_type(o * tanh(c))       (fed back rounded)
-// Direction 0 scans t = 0..T-1, direction 1 scans t = T-1..0; both write their
-// output at forward time t. Masked mode: direction 1 holds (h, c) at zero while
-// t >= len[row], so out1[t >= len] = 0; out0[t >= len] is unspecified (finite).
-// Dense mode (unmasked, a compile-time flag; `bilstm2_dense_forward`
-// pallas_lstm.py:969): the SplitDense product y_d = h_d @ wo[d] (wo [2, H, Fo],
-// fp32 holding stream-type values, Fo <= H) runs in each step's epilogue, in
-// fp32, rounded to the stream type, and y_d [R, T, Fo] is written in place of
-// h_d, which never reaches memory. wo's k-rows stream through the same chunk
-// buffers as W: H / 16 more chunks per step, 2 H Fo more FLOP per row-step and
-// direction (12.5 % at F = H = Fo = 128).
+//   y_d = round_to_stream_type(h @ wo[d])       (fp32 accumulator)
+// Direction 0 scans t = 0..T-1, direction 1 scans t = T-1..0; both write y_d
+// [R, T, Fo] at forward time t, and h never reaches memory. wo [2, H, Fo] is
+// fp32 holding stream-type values, Fo <= H; its k-rows stream through the
+// same chunk buffers as W: H / 16 more chunks per step, 2 H Fo more FLOP per
+// row-step and direction (12.5 % at F = H = Fo = 128).
 //
 // What bounds it: the arithmetic. At F = H = 128 a row-step costs
 // 2 * (F + H) * 4H = 262,144 FLOP per direction against 2 * (F + H) bytes of
@@ -28,15 +24,17 @@
 // memory-bandwidth line; the time loop is sequential, so all parallelism comes
 // from rows and directions.
 //
-// Design: one block per (direction, tile of 32 rows), looping over T. The
-// tile's h lives in shared memory, its c in registers; x_t is copied into
-// shared memory with cp.async. Each thread owns 4 rows x 4 hidden units and
-// all four gates of each, so the cell update needs no exchange between threads.
-// W = [W_ih; W_hh] (fp32, (F + H) x 4H, 512 KB at the flagship width) does not
-// fit in a block's shared memory: it streams from L2 every step in chunks of
-// 16 k-rows (the first F / 16 from W_ih, the rest from W_hh), double-buffered
-// with cp.async so the next chunk's copy overlaps this chunk's FMAs. Every
-// weight a block reads is reused across its 32 rows.
+// Design (the first, simple one; the serving and training scans were
+// redesigned as cluster scans, this opt-in mode was not): one block per
+// (direction, tile of 32 rows), looping over T. The tile's h lives in shared
+// memory, its c in registers; x_t is copied into shared memory with cp.async.
+// Each thread owns 4 rows x 4 hidden units and all four gates of each, so the
+// cell update needs no exchange between threads. W = [W_ih; W_hh] (fp32,
+// (F + H) x 4H, 512 KB at the flagship width) does not fit in a block's shared
+// memory: it streams from L2 every step in chunks of 16 k-rows (the first F /
+// 16 from W_ih, the rest from W_hh), double-buffered with cp.async so the next
+// chunk's copy overlaps this chunk's FMAs. Every weight a block reads is
+// reused across its 32 rows.
 // Stream types: float and bf16 (x and outputs); the weights arrive as fp32
 // holding values already rounded to the stream type, so products are exact and
 // only the accumulation order differs from the TPU kernel.
@@ -52,15 +50,14 @@ constexpr int kKChunk = 16;    // k-rows of W per shared-memory chunk
 constexpr int kMaxThreads = 256;
 
 // Grid (ceil(R / 32), 2): blockIdx.y is the direction. Threads: 2H (8 row
-// groups x H/4 unit groups). x [R, T, F] and the outputs [R, T, H] are
-// contiguous. kDense writes out_d = h_d @ wo[d], [R, T, Fo], in place of h_d
-// (lens must be null).
-template <typename T, bool kDense>
+// groups x H/4 unit groups). x [R, T, F] and the outputs y_d [R, T, Fo] are
+// contiguous.
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                const float* __restrict__ w_hh, const float* __restrict__ b,
-               const int* __restrict__ lens, T* __restrict__ out0, T* __restrict__ out1,
-               const float* __restrict__ wo, int R, int Tn, int F, int H, int Fo) {
+               T* __restrict__ out0, T* __restrict__ out1, const float* __restrict__ wo, int R,
+               int Tn, int F, int H, int Fo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = 4 * H;
   const int K = F + H;
@@ -79,25 +76,6 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   const int u4 = ((tid >> 5) * 4 + (lane >> 3)) * 4;        // first hidden unit
   const float* bd = b + d * G;
   T* out = d == 0 ? out0 : out1;
-  // 64-bit row offset, 32-bit offset within the row: this form leaves
-  // ptxas no spills at the 128-register cap, both stream types
-  auto out_at = [&](int gr, int t) { return out + static_cast<long long>(gr) * (Tn * H) + t * H; };
-
-  // per-row lengths (masked mode) and the tile's longest row
-  int rlen[4];
-  int tile_len = 0;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + rg + 8 * r;
-    rlen[r] = Tn;
-    if (lens != nullptr && gr < R) rlen[r] = min(max(lens[gr], 0), Tn);
-    if (gr < R) tile_len = max(tile_len, rlen[r]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    tile_len = max(tile_len, __shfl_xor_sync(0xffffffffu, tile_len, off));
-  // steps past every row's length compute nothing and write zeros
-  const int t_end = lens != nullptr ? tile_len : Tn;
 
   float c[4][4];
 #pragma unroll
@@ -105,16 +83,7 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
 #pragma unroll
     for (int j = 0; j < 4; ++j) c[r][j] = 0.f;
   for (int i = tid; i < kRows * hp; i += nthreads) hs[i] = 0.f;
-
-  const float zeros[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = t_end; t < Tn && !kDense; ++t) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int gr = row0 + rg + 8 * r;
-      if (gr < R) store4(out_at(gr, t) + u4, zeros);
-    }
-  }
-  if (t_end == 0) return;
+  if (Tn == 0) return;
 
   const int vec_per_row = F * static_cast<int>(sizeof(T)) / 16;
   auto load_x = [&](int t) {
@@ -135,7 +104,7 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
     float* dst = ws + buf * kKChunk * G;
     for (int v = tid; v < chunk_vecs; v += nthreads) cp_async16(dst + 4 * v, src + 4 * v, 16);
   };
-  // dense mode: chunk j of wo[d], kKChunk k-rows of Fo, into the same buffers
+  // chunk j of wo[d], kKChunk k-rows of Fo, into the same buffers
   const int n_wo = H / kKChunk;
   auto load_wo = [&](int j, int buf) {
     const float* src = wo + (d * H + j * kKChunk) * Fo;
@@ -146,11 +115,11 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   const int n_chunks = K / kKChunk;
   int q = 0;  // chunks issued so far; chunk q % n_chunks sits in buffer q % 2
   load_w(0, 0);
-  load_x(d == 0 ? 0 : t_end - 1);
+  load_x(d == 0 ? 0 : Tn - 1);
   cp_async_commit();
 
-  for (int s = 0; s < t_end; ++s) {
-    const int t = d == 0 ? s : t_end - 1 - s;
+  for (int s = 0; s < Tn; ++s) {
+    const int t = d == 0 ? s : Tn - 1 - s;
     float acc[4][4][4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
@@ -166,14 +135,10 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
     for (int chunk = 0; chunk < n_chunks; ++chunk, ++q) {
       cp_async_wait_all();
       __syncthreads();  // chunk q (and x_t) landed; buffer (q + 1) % 2 is free
-      if constexpr (kDense) {  // after the last W chunk comes wo's first
-        if (chunk + 1 < n_chunks)
-          load_w(chunk + 1, (q + 1) & 1);
-        else
-          load_wo(0, (q + 1) & 1);
-      } else {
-        load_w((chunk + 1) % n_chunks, (q + 1) & 1);
-      }
+      if (chunk + 1 < n_chunks)  // after the last W chunk comes wo's first
+        load_w(chunk + 1, (q + 1) & 1);
+      else
+        load_wo(0, (q + 1) & 1);
       cp_async_commit();
       const float* wc = ws + (q & 1) * kKChunk * G;
       const int k0 = chunk * kKChunk;
@@ -183,16 +148,13 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         mac_chunk<kKChunk>(acc, hs + rg * hp + (k0 - F), hp, wc, G, H, u4);
     }
     __syncthreads();  // every thread is done reading x_t and h
-    if (s + 1 < t_end) {
+    if (s + 1 < Tn) {
       load_x(d == 0 ? t + 1 : t - 1);
       cp_async_commit();
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = rg + 8 * r;
-      const int gr = row0 + row;
-      // direction 1 holds its zero state until t drops below the row's length
-      const bool update = d == 0 || t < rlen[r];
       float hv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -200,72 +162,65 @@ bilstm2_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         const float fg = sigmoid_f(acc[1][r][j]);
         const float gg = tanhf(acc[2][r][j]);
         const float og = sigmoid_f(acc[3][r][j]);
-        const float cn = fg * c[r][j] + ig * gg;
-        const float tcn = tanhf(cn);
-        const float hn = to_f(from_f<T>(og * tcn));
-        if (update) c[r][j] = cn;
-        hv[j] = update ? hn : hs[row * hp + u4 + j];
+        c[r][j] = fg * c[r][j] + ig * gg;
+        hv[j] = to_f(from_f<T>(og * tanhf(c[r][j])));
       }
       store4(hs + row * hp + u4, hv);
-      if (gr < R && !kDense) store4(out_at(gr, t) + u4, hv);
     }
-    if constexpr (kDense) {
-      // y_t = h_t @ wo[d]: this thread's 4 rows x output columns u4..u4+3
-      float y[4][4];
+    // y_t = h_t @ wo[d]: this thread's 4 rows x output columns u4..u4+3
+    float y[4][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) y[r][j] = 0.f;
-      for (int jc = 0; jc < n_wo; ++jc, ++q) {
-        cp_async_wait_all();
-        __syncthreads();  // wo chunk q landed; every row's h_t is in hs
-        if (jc + 1 < n_wo)
-          load_wo(jc + 1, (q + 1) & 1);
-        else
-          load_w(0, (q + 1) & 1);  // the next step's first chunk
-        cp_async_commit();
-        const float* wc = ws + (q & 1) * kKChunk * G;
-        if (u4 < Fo) {
+      for (int j = 0; j < 4; ++j) y[r][j] = 0.f;
+    for (int jc = 0; jc < n_wo; ++jc, ++q) {
+      cp_async_wait_all();
+      __syncthreads();  // wo chunk q landed; every row's h_t is in hs
+      if (jc + 1 < n_wo)
+        load_wo(jc + 1, (q + 1) & 1);
+      else
+        load_w(0, (q + 1) & 1);  // the next step's first chunk
+      cp_async_commit();
+      const float* wc = ws + (q & 1) * kKChunk * G;
+      if (u4 < Fo) {
 #pragma unroll
-          for (int kk = 0; kk < kKChunk; ++kk) {
-            const float4 w = ld4(wc + kk * Fo + u4);
+        for (int kk = 0; kk < kKChunk; ++kk) {
+          const float4 w = ld4(wc + kk * Fo + u4);
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float a = hs[(rg + 8 * r) * hp + jc * kKChunk + kk];
-              y[r][0] = fmaf(a, w.x, y[r][0]);
-              y[r][1] = fmaf(a, w.y, y[r][1]);
-              y[r][2] = fmaf(a, w.z, y[r][2]);
-              y[r][3] = fmaf(a, w.w, y[r][3]);
-            }
+          for (int r = 0; r < 4; ++r) {
+            const float a = hs[(rg + 8 * r) * hp + jc * kKChunk + kk];
+            y[r][0] = fmaf(a, w.x, y[r][0]);
+            y[r][1] = fmaf(a, w.y, y[r][1]);
+            y[r][2] = fmaf(a, w.z, y[r][2]);
+            y[r][3] = fmaf(a, w.w, y[r][3]);
           }
         }
       }
+    }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int gr = row0 + rg + 8 * r;
-        if (gr < R && u4 < Fo)
-          store4(out + static_cast<long long>(gr) * (Tn * Fo) + t * Fo + u4, y[r]);
-      }
+    for (int r = 0; r < 4; ++r) {
+      const int gr = row0 + rg + 8 * r;
+      if (gr < R && u4 < Fo)
+        store4(out + static_cast<long long>(gr) * (Tn * Fo) + t * Fo + u4, y[r]);
     }
   }
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
-template <typename T, bool kDense = false>
-int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, const void* lens,
-           void* out0, void* out1, int R, int Tn, int F, int H, cudaStream_t stream,
-           const void* wo = nullptr, int Fo = 0) {
+template <typename T>
+int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, const void* wo,
+           void* y0, void* y1, int R, int Tn, int F, int H, int Fo, cudaStream_t stream) {
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bilstm2_kernel<T, kDense>,
+  cudaError_t err = cudaFuncSetAttribute(bilstm2_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, 2);
-  bilstm2_kernel<T, kDense><<<grid, 2 * H, smem, stream>>>(
+  bilstm2_kernel<T><<<grid, 2 * H, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
-      static_cast<const float*>(b), static_cast<const int*>(lens), static_cast<T*>(out0),
-      static_cast<T*>(out1), static_cast<const float*>(wo), R, Tn, F, H, Fo);
+      static_cast<const float*>(b), static_cast<T*>(y0), static_cast<T*>(y1),
+      static_cast<const float*>(wo), R, Tn, F, H, Fo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -273,32 +228,19 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, con
 
 extern "C" {
 
-// dtype: 1 = bfloat16 streams (float32 streams, dtype 0, run the serving scan
-// of bilstm2_serve.cu and are refused here). x: [R, T, F], out0 and out1:
-// [R, T, H], all contiguous in the stream type. w_ih: [2, F, 4H] and
-// w_hh: [2, H, 4H] fp32, b: [2, 4H] fp32, lens: [R] int32 or null (unmasked).
-// Every pointer but lens 16-byte aligned. Returns a cudaError_t code
-// (0 = launched).
-int bilstm2_forward(int dtype, const void* x, const void* w_ih, const void* w_hh, const void* b,
-                    const void* lens, void* out0, void* out1, int R, int Tn, int F, int H,
-                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w_ih, w_hh, b, lens, out0, out1, R, Tn, F, H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Dense mode, unmasked: y0, y1 [R, T, Fo] in the stream type (dtype as in
-// bilstm2_forward) = h_d @ wo[d], wo: [2, H, Fo] fp32; Fo a multiple of 4 and
-// at most H.
+// dtype: 0 = float32, 1 = bfloat16 streams. x: [R, T, F] and y0, y1:
+// [R, T, Fo], contiguous in the stream type, y_d = h_d @ wo[d]. w_ih:
+// [2, F, 4H], w_hh: [2, H, 4H], b: [2, 4H], wo: [2, H, Fo], fp32 (holding
+// stream-type values); Fo a multiple of 4 and at most H. Every pointer
+// 16-byte aligned. Returns a cudaError_t code (0 = launched).
 int bilstm2_dense_forward(int dtype, const void* x, const void* w_ih, const void* w_hh,
                           const void* b, const void* wo, void* y0, void* y1, int R, int Tn,
                           int F, int H, int Fo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Fo % 4 || Fo > H || Fo <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch<float, true>(x, w_ih, w_hh, b, nullptr, y0, y1, R, Tn, F, H, s, wo, Fo);
+  if (dtype == 0) return launch<float>(x, w_ih, w_hh, b, wo, y0, y1, R, Tn, F, H, Fo, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(x, w_ih, w_hh, b, nullptr, y0, y1, R, Tn, F, H, s, wo, Fo);
+    return launch<__nv_bfloat16>(x, w_ih, w_hh, b, wo, y0, y1, R, Tn, F, H, Fo, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,8 +1,8 @@
-// The LSTM serving scan for Hopper (sm_90a), fp32: the recurrence with W_hh
-// resident in the shared memory of a 2-CTA cluster and h @ W_hh on the tensor
-// cores in 3xTF32.
+// The LSTM serving scan for Hopper (sm_90a), fp32 and bf16 streams: the
+// recurrence with W_hh resident in the shared memory of a 2-CTA cluster and
+// h @ W_hh on the tensor cores (fp32: 3xTF32; bf16: one bf16 mma).
 //
-// Replaces two TPU kernels in their fp32 inference modes:
+// Replaces two TPU kernels in their inference modes, both stream types:
 // - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698) unmasked and
 //   masked (`bilstm2_forward` :935, `bilstm2_forward_masked` :949), the modes
 //   every fused bidirectional serving scan runs;
@@ -13,63 +13,77 @@
 // row-step runs first, in csrc/products.cu: x @ [W_ih[0] | W_ih[1]] + b into
 // one buffer [R, T, 2, 4H] for the pair, x[d] @ W_ih[d] + b[d] into
 // [D, R, T, 4H] for the stack (ScanArgs says where a direction's gates lie).
-// This kernel then runs, per direction d,
+// P is fp32 in both stream types (bf16 x is exact in the 3xTF32 product, and
+// the TPU kernel never rounds x_t @ W_ih before adding h @ W_hh). This kernel
+// then runs, per direction d,
 //   gates = P[d][:, t] + h @ W_hh[d]            (torch gate order i, f, g, o)
-//   c = f * c + i * g;  h = o * tanh(c)
-// step by step and writes only the outputs [R, T, H] (no residual stream,
-// nothing back into P). Direction 0 scans t = 0..T-1; direction 1 the same,
-// or t = T-1..0 for the pair (`reverse1`). Masked (the pair only): the
+//   c = f * c + i * g;  h = round_to_stream_type(o * tanh(c))
+// step by step (c in fp32, h fed back rounded, as pallas_lstm.py:765, :806)
+// and writes only the outputs [R, T, H] in the stream type (no residual
+// stream, nothing back into P). Direction 0 scans t = 0..T-1; direction 1 the
+// same, or t = T-1..0 for the pair (`reverse1`). Masked (the pair only): the
 // reversed direction holds its zero state while t >= len[row], so its output
 // there is 0; the other's past a row's length is unspecified (finite), and
 // steps past the tile's longest row write zeros.
 //
 // What bounds it: the operations of h @ W_hh, 2 H 4H FLOP per row-step and
-// direction, three TF32 products per fp32 one, and the step-to-step
+// direction (fp32: three TF32 products per fp32 one), and the step-to-step
 // dependency: all parallelism comes from rows and directions, and every step
 // ends in a barrier.
 //
 // Design: one 2-CTA cluster per (direction, tile of 16 MT rows, MT = 1 or
-// 2); the wrapper picks MT from the card's occupancy so that the grid takes
-// the fewest waves (ops/bilstm2.plan_tiles). CTA c owns hidden units
-// [c H/2, (c + 1) H/2) and keeps the gate columns of its units,
-// W_hh[d][:, gate * H + unit] ([H][2H], 128 KB at H = 128), in shared memory
-// for the whole scan, loaded once by bulk copies on an mbarrier. h ([16 MT][H],
-// both halves) lives in shared memory, double buffered as in the training
-// forward: each CTA writes its half of the new h into buffer (s + 1) % 2 of
-// both CTAs (the partner's through distributed shared memory), and one
-// cluster barrier ends the step.
+// 2); the wrapper picks MT per stream type from the card's occupancy so that
+// the grid takes the fewest waves (ops/bilstm2.plan_tiles). CTA c owns hidden
+// units [c H/2, (c + 1) H/2) and keeps the gate columns of its units,
+// W_hh[d][:, gate * H + unit] ([H][2H]: 128 KB fp32, 64 KB bf16 at H = 128),
+// in shared memory for the whole scan, loaded once by bulk copies on an
+// mbarrier, in the order the lanes read their B fragments (laid out by the
+// host, ops/bilstm2.serve_weight_layout(_bf16)). h ([16 MT][H], both halves)
+// lives in shared memory, double buffered as in the training forward: each
+// CTA writes its half of the new h into buffer (s + 1) % 2 of both CTAs (the
+// partner's through distributed shared memory), and one cluster barrier ends
+// the step. A warp owns 8 hidden units of its CTA's half, all four of their
+// gates, and one 16-row m-tile: its four n-tiles are gates i, f, g, o of
+// those units, so a thread's accumulators hold all four gates of its (row,
+// unit) pairs and the cell update needs no exchange; c stays in registers. A
+// warp reads its own 32 columns of W each step, not all of W, and loads its
+// m-tile of h by ldmatrix.
 //
-// The product runs on mma.sync m16n8k8 tf32 in 3xTF32 (tf32_mma.cuh, as
-// csrc/products.cu): each operand split into big + small TF32 values, and
-// each 8-deep k-step's small*big + big*small + big*big into a fresh partial
-// added to the sum in fp32 (round to nearest). A warp owns 8 hidden units of
-// its CTA's half, all four of their gates, and one 16-row m-tile: its four
-// n-tiles are gates i, f, g, o of those units, so a thread's accumulators
-// hold all four gates of its (row, unit) pairs and the cell update needs no
-// exchange; c stays in registers. A warp reads its own 32 columns of W each
-// step, not all of W, and its m-tile of h. W's split held in shared memory
-// would take 256 KB, which a 2-CTA cluster cannot hold, so the B fragments
-// are split as they are loaded; the host lays W out in fragment order
-// ([k-step][unit group][lane][gate][2]), so a lane's fragments of a k-step are
-// two 16-byte loads, free of bank conflicts. h is stored already split: the
-// cell update writes its big and small TF32 parts, and a warp loads each by
-// one ldmatrix. The four gates' chains of three mma are issued side by side.
+// fp32: mma.sync m16n8k8 tf32 in 3xTF32 (tf32_mma.cuh, as csrc/products.cu):
+// each operand split into big + small TF32 values, and each 8-deep k-step's
+// small*big + big*small + big*big into a fresh partial added to the sum in
+// fp32 (round to nearest). W's split held in shared memory would take 256 KB,
+// which a 2-CTA cluster cannot hold, so the B fragments are split as they are
+// loaded ([k-step][unit group][lane][gate][2]: two 16-byte loads a lane); h is
+// stored already split, its big and small TF32 parts loaded by one ldmatrix
+// each. The four gates' chains of three mma are issued side by side.
+// bf16: mma.sync m16n8k16 bf16 with fp32 accumulation, one mma per gate and
+// 16-deep k-step. A bf16 product is exact in fp32, so this is what the TPU
+// kernel's jnp.dot(h.astype(bf16), W_hh, preferred_element_type=f32)
+// computes (pallas_lstm.py:754, :779) but for the order of the fp32 sums and
+// the tensor cores' truncating accumulation, both far below a bf16 ulp of h.
+// W in bf16 ([k-step][unit group][j][lane][gate][2]: a lane's fragments are
+// two 16-byte loads, a warp's 32 lanes 512 contiguous bytes each) and h in
+// bf16, one part, with no split of either.
 //
 // Registers and shared memory set the tile height. The accumulators of one
 // m-tile per warp fit the 128 registers of a 512-thread CTA; the step's P
 // slice comes into per-thread staging slots in shared memory by cp.async a
 // step ahead, not into registers (P and the accumulators of 64 or 80 rows in
-// registers spilled at 255 and left the mma chains latency-bound). Shared
-// memory takes 128 KB of W, 4 x 16 MT x (H + 4) x 4 B of h (two buffers of
+// registers spilled at 255 and left the mma chains latency-bound). fp32
+// shared memory: 128 KB of W, 4 x 16 MT x (H + 4) x 4 B of h (two buffers of
 // two parts) and 16 MT x 2H x 4 B of P: 226 KB at 32 rows, within the 227 KB
-// a CTA may use; hence tiles of 16 or 32 rows.
+// a CTA may use; hence tiles of 16 or 32 rows. bf16: 64 KB of W, 2 x 16 MT x
+// (H + 8) x 2 B of h, the same P slots: 88.5 KB at 16 rows, 113 KB at 32, so
+// the occupancy query may find two 16-row CTAs on an SM.
 //
 // Accuracy: the 3xTF32 products keep about 22 mantissa bits (the product
 // kernel's error against float64 is 1.2e-7 to 5.1e-7 of max |ref|,
 // PERF.md), and the gate sums run in another order than the plain version's
 // fp32 matmul; both are orders of magnitude below the 1e-4 absolute bar on
-// h, which lies in (-1, 1). The summation order is fixed, with no atomics,
-// so a run repeats itself bit for bit.
+// h, which lies in (-1, 1). bf16 is held to its plain version at 70 dB and a
+// bf16 ulp of h. The summation order is fixed, with no atomics, so a run
+// repeats itself bit for bit.
 
 #include "cluster_scan.cuh"
 #include "tf32_mma.cuh"
@@ -80,26 +94,69 @@ using namespace scan_common;
 using namespace cluster_scan;
 using namespace tf32_mma;
 
-// padded row pitch of the h tile: 4 mod 32 words puts the 8 rows x 16 bytes
-// of an ldmatrix phase on 32 banks
-__host__ __device__ constexpr int hs_pitch(int H) { return H + 4; }
+// h's parts in shared memory: fp32 its big and small TF32 values, bf16 one
+template <typename S>
+constexpr int kParts = kLowPrecision<S> ? 1 : 2;
 
-// shared memory of one CTA: W slice, two h buffers of two TF32 parts each,
-// the P staging (16 floats per thread, 2H x MT threads) and the mbarrier
+// padded row pitch of the h tile, in elements of the stream type: rows 16
+// bytes past a multiple of 128 put the 8 rows x 16 bytes of an ldmatrix phase
+// on 32 banks
+template <typename S>
+__host__ __device__ constexpr int hs_pitch(int H) {
+  return kLowPrecision<S> ? H + 8 : H + 4;
+}
+
+// shared memory of one CTA: W slice, two h buffers of kParts each, the P
+// staging (16 floats per thread, 2H x MT threads) and the mbarrier
+template <typename S>
 constexpr size_t smem_bytes(int mt, int H) {
-  return (static_cast<size_t>(H) * 2 * H + 4 * 16 * mt * hs_pitch(H) + 32 * mt * H) *
-             sizeof(float) + sizeof(uint64_t);
+  return static_cast<size_t>(H) * 2 * H * sizeof(S) +
+         static_cast<size_t>(2 * kParts<S> * 16 * mt * hs_pitch<S>(H)) * sizeof(S) +
+         static_cast<size_t>(32 * mt * H) * sizeof(float) + sizeof(uint64_t);
+}
+
+// d += a @ b on the tensor cores, bf16 operands: a 16 x 16 (row), b 16 x 8
+// (col; b0 holds k 2 lt, 2 lt + 1 and b1 k 2 lt + 8, 2 lt + 9 of column lg),
+// d 16 x 8 fp32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the A fragment of a 16 x 16 bf16 tile from its [m][k] rows: lane L gives
+// the address of row L % 16 at k 8 (L / 16); register q receives rows lane /
+// 4 + 8 (q & 1), k 2 (lane % 4) + 8 (q >> 1) and the k after it
+__device__ __forceinline__ void ldmatrix_x4_b16(uint32_t (&a)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(row)));
+}
+
+// two values rounded to bf16, as one 32-bit store into a cluster peer's
+// shared memory (4-byte aligned)
+__device__ __forceinline__ void st2_cluster_bf16(unsigned addr, const float (&v)[2]) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(v[0], v[1]);
+  asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(addr),
+               "r"(*reinterpret_cast<const uint32_t*>(&p))
+               : "memory");
 }
 
 // Where the scan finds a direction's row-steps: gate column j of direction d
 // at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j], unit
 // u of its output out[d][(gr * Tn + t) * H + u]. Direction 1 runs t = T-1..0
-// when `reverse1`, else t = 0..T-1 as direction 0 does.
+// when `reverse1`, else t = 0..T-1 as direction 0 does. S is the stream type
+// of W's fragments and the outputs.
+template <typename S>
 struct ScanArgs {
-  const float* pre;    // P, read only
-  const float* wfrag;  // [dirs, 2 c, H / 8 ks, H / 16 w, 32 lanes, 4 gates, 2]
-  const int* lens;     // [R] or null
-  float* out[2];
+  const float* pre;  // P, read only
+  // fp32: [dirs, 2 c, H / 8 ks, H / 16 w, 32 lanes, 4 gates, 2 j]
+  // bf16: [dirs, 2 c, H / 16 ks, H / 16 w, 2 j, 32 lanes, 4 gates, 2 e]
+  const S* wfrag;
+  const int* lens;  // [R] or null
+  S* out[2];
   long long pre_dir;
   int pre_step;
   int reverse1;
@@ -110,17 +167,19 @@ struct ScanArgs {
 // owns the 8 units w % (H / 16) of its CTA's half and m-tile w / (H / 16)
 // (rows 16 mt .. 16 mt + 15 of the tile). CTA (d, c)'s slice of wfrag is
 // contiguous (see bilstm2_serve_scan).
-template <int MT>
-__global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
+template <typename S, int MT>
+__global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a) {
   constexpr int RT = 16 * MT;
+  constexpr bool kLow = kLowPrecision<S>;
+  constexpr int kP = kParts<S>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = a.R, Tn = a.Tn, H = a.H;
   const int* __restrict__ lens = a.lens;
   const int Hh = H / 2, ngroups = H / 16;
-  const int hpitch = hs_pitch(H);
-  float* ws = reinterpret_cast<float*>(smem);  // W slice in fragment order
-  float* hs = ws + H * 2 * H;                  // [2 buffers][big, small][RT][hpitch]
-  float* stg = hs + 4 * RT * hpitch;           // [8 slots][nthreads][2]
+  const int hpitch = hs_pitch<S>(H);
+  S* ws = reinterpret_cast<S*>(smem);                                // W slice in fragment order
+  S* hs = ws + H * 2 * H;                                            // [2 buffers][kP][RT][hpitch]
+  float* stg = reinterpret_cast<float*>(hs + 2 * kP * RT * hpitch);  // [8 slots][nthreads][2]
   uint64_t* bar = reinterpret_cast<uint64_t*>(stg + 32 * MT * H);
 
   const unsigned c = cluster_rank();
@@ -134,8 +193,10 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
   const int lg = lane >> 2, lt = lane & 3;  // the fragments' group and thread-in-group
   const int gu = c * Hh + 8 * ug + 2 * lt;  // this thread's two units, of all H
 
-  load_resident(ws, a.wfrag + (d * 2 + c) * static_cast<long long>(H) * 2 * H,
-                static_cast<unsigned>(H * 2 * H * sizeof(float)), bar);
+  load_resident(reinterpret_cast<float*>(ws),
+                reinterpret_cast<const float*>(a.wfrag +
+                                               (d * 2 + c) * static_cast<long long>(H) * 2 * H),
+                static_cast<unsigned>(H * 2 * H * sizeof(S)), bar);
 
   // this thread's rows 16 mt + lg + 8 hh: their lengths, and the tile's
   // longest row (every thread reads them all)
@@ -151,7 +212,7 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
 
   // selects, not a runtime index into the parameter array (which would copy
   // it to local memory)
-  float* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
+  S* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
   const float* __restrict__ pre = a.pre + d * a.pre_dir + gu;
   auto out_at = [&](int gr, int t) {
     return out + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
@@ -184,14 +245,12 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
     cp_async_commit();
   };
   if (t_end > 0) stage(rev ? t_end - 1 : 0);
-  for (int i = tid; i < 2 * RT * hpitch; i += nthreads) hs[i] = 0.f;  // h = 0 in buffer 0
+  for (int i = tid; i < kP * RT * hpitch; i += nthreads) hs[i] = from_f<S>(0.f);  // h = 0
   float cst[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 
   cluster_sync();     // both CTAs run, the mbarrier is initialised, h = 0 is in place
   mbar_wait(bar, 0);  // the W slice landed
 
-  // this lane's B fragments of k-step ks: wl[ks * ngroups * 256 + 0..7]
-  const float* wl = ws + (ug * 32 + lane) * 8;
   for (int s = 0; s < t_end; ++s) {
     const int t = rev ? t_end - 1 - s : s;
     // acc[g] = h @ W_hh[d] for the warp's m-tile and gate g of its units
@@ -200,50 +259,71 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
     for (int g = 0; g < 4; ++g)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[g][q] = 0.f;
-    // A fragments, split when h was written: rows 16 mt + (lane & 15), k
-    // 8 ks + 4 (lane >> 4), the small part RT rows further
-    const float* ap = hs + (s & 1) * 2 * RT * hpitch + (16 * mt + (lane & 15)) * hpitch +
-                      4 * (lane >> 4);
+    const S* hb = hs + (s & 1) * kP * RT * hpitch;  // this step's h
+    if constexpr (kLow) {
+      // A fragments of k-step ks: rows 16 mt + (lane & 15), k 16 ks + 8 (lane >> 4)
+      const S* ap = hb + (16 * mt + (lane & 15)) * hpitch + 8 * (lane >> 4);
+      // this lane's B fragments of k-step ks: j = 0 at wl[ks * ngroups * 512
+      // + 0..7], j = 1 256 further, gates 0..3 as bf16 pairs
+      const S* wl = ws + ug * 512 + lane * 8;
 #pragma unroll 2
-    for (int ks = 0; ks < H / 8; ++ks) {
-      // B fragment of gate g: (k = 8 ks + lt, 8 ks + lt + 4; unit lg of the warp's 8)
-      const float4 b01 = ld4(wl + ks * ngroups * 256);
-      const float4 b23 = ld4(wl + ks * ngroups * 256 + 4);
-      const float bv[4][2] = {{b01.x, b01.y}, {b01.z, b01.w}, {b23.x, b23.y}, {b23.z, b23.w}};
-      uint32_t bbig[4][2], bsmall[4][2];
+      for (int ks = 0; ks < H / 16; ++ks) {
+        const uint4 b0 = *reinterpret_cast<const uint4*>(wl + ks * ngroups * 512);
+        const uint4 b1 = *reinterpret_cast<const uint4*>(wl + ks * ngroups * 512 + 256);
+        uint32_t af[4];
+        ldmatrix_x4_b16(af, ap + 16 * ks);
+        mma_bf16(acc[0], af, b0.x, b1.x);
+        mma_bf16(acc[1], af, b0.y, b1.y);
+        mma_bf16(acc[2], af, b0.z, b1.z);
+        mma_bf16(acc[3], af, b0.w, b1.w);
+      }
+    } else {
+      // this lane's B fragments of k-step ks: wl[ks * ngroups * 256 + 0..7]
+      const float* wl = ws + (ug * 32 + lane) * 8;
+      // A fragments, split when h was written: rows 16 mt + (lane & 15), k
+      // 8 ks + 4 (lane >> 4), the small part RT rows further
+      const float* ap = hb + (16 * mt + (lane & 15)) * hpitch + 4 * (lane >> 4);
+#pragma unroll 2
+      for (int ks = 0; ks < H / 8; ++ks) {
+        // B fragment of gate g: (k = 8 ks + lt, 8 ks + lt + 4; unit lg of the warp's 8)
+        const float4 b01 = ld4(wl + ks * ngroups * 256);
+        const float4 b23 = ld4(wl + ks * ngroups * 256 + 4);
+        const float bv[4][2] = {{b01.x, b01.y}, {b01.z, b01.w}, {b23.x, b23.y}, {b23.z, b23.w}};
+        uint32_t bbig[4][2], bsmall[4][2];
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
+        for (int g = 0; g < 4; ++g)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) split_tf32(bv[g][j], bbig[g][j], bsmall[g][j]);
-      uint32_t abig[4], asmall[4];
-      float a[4];
-      ldmatrix_x4(a, ap + 8 * ks);
+          for (int j = 0; j < 2; ++j) split_tf32(bv[g][j], bbig[g][j], bsmall[g][j]);
+        uint32_t abig[4], asmall[4];
+        float av[4];
+        ldmatrix_x4(av, ap + 8 * ks);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) abig[q] = __float_as_uint(a[q]);
-      ldmatrix_x4(a, ap + RT * hpitch + 8 * ks);
+        for (int q = 0; q < 4; ++q) abig[q] = __float_as_uint(av[q]);
+        ldmatrix_x4(av, ap + RT * hpitch + 8 * ks);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) asmall[q] = __float_as_uint(a[q]);
-      // per gate the small terms first, then big * big, into a fresh
-      // partial added to the sum in round-to-nearest; the four gates'
-      // chains are issued side by side
-      float part[4][4];
+        for (int q = 0; q < 4; ++q) asmall[q] = __float_as_uint(av[q]);
+        // per gate the small terms first, then big * big, into a fresh
+        // partial added to the sum in round-to-nearest; the four gates'
+        // chains are issued side by side
+        float part[4][4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) mma_tf32_first(part[g], asmall, bbig[g]);
+        for (int g = 0; g < 4; ++g) mma_tf32_first(part[g], asmall, bbig[g]);
 #pragma unroll
-      for (int g = 0; g < 4; ++g) mma_tf32(part[g], abig, bsmall[g]);
+        for (int g = 0; g < 4; ++g) mma_tf32(part[g], abig, bsmall[g]);
 #pragma unroll
-      for (int g = 0; g < 4; ++g) mma_tf32(part[g], abig, bbig[g]);
+        for (int g = 0; g < 4; ++g) mma_tf32(part[g], abig, bbig[g]);
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
+        for (int g = 0; g < 4; ++g)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[g][q] += part[g][q];
+          for (int q = 0; q < 4; ++q) acc[g][q] += part[g][q];
+      }
     }
     cp_async_wait_all();  // this step's P landed in the staging slots
 
     // the cell update: fragment g holds rows lg (q = 0, 1) and lg + 8 (q = 2,
-    // 3), units 2 lt + (q & 1); the new h half, split into its TF32 parts,
-    // goes to both CTAs' next buffer
-    float* nb = hs + ((s + 1) & 1) * 2 * RT * hpitch;
+    // 3), units 2 lt + (q & 1); the new h half goes to both CTAs' next buffer
+    // (fp32 split into its TF32 parts)
+    S* nb = hs + ((s + 1) & 1) * kP * RT * hpitch;
     const unsigned remote = map_rank(nb, c ^ 1u);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -252,7 +332,7 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
       // the reversed direction holds its zero state until t drops below the
       // row's length
       const bool update = !rev || t < rlen[hh];
-      float hv[2], hbig[2], hsmall[2], pv[4][2];
+      float hv[2], pv[4][2];
 #pragma unroll
       for (int g = 0; g < 4; ++g) ld2(slot(hh, g), pv[g]);
 #pragma unroll
@@ -263,16 +343,26 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
         const float og = sigmoid_f(pv[3][j] + acc[3][2 * hh + j]);
         const float cn = fg * cst[hh][j] + ig * gg;
         if (update) cst[hh][j] = cn;
-        hv[j] = update ? og * tanhf(cn) : 0.f;  // a held row is still at its zero state
-        uint32_t big, small;
-        split_tf32(hv[j], big, small);
-        hbig[j] = __uint_as_float(big);
-        hsmall[j] = __uint_as_float(small);
+        // a held row is still at its zero state; h is fed back rounded
+        hv[j] = update ? round_to<S>(og * tanhf(cn)) : 0.f;
       }
-      st2(nb + row * hpitch + gu, hbig);
-      st2(nb + (RT + row) * hpitch + gu, hsmall);
-      st2_cluster(remote + 4 * (row * hpitch + gu), hbig);
-      st2_cluster(remote + 4 * ((RT + row) * hpitch + gu), hsmall);
+      if constexpr (kLow) {
+        st2(nb + row * hpitch + gu, hv);
+        st2_cluster_bf16(remote + 2 * (row * hpitch + gu), hv);
+      } else {
+        float hbig[2], hsmall[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t big, small;
+          split_tf32(hv[j], big, small);
+          hbig[j] = __uint_as_float(big);
+          hsmall[j] = __uint_as_float(small);
+        }
+        st2(nb + row * hpitch + gu, hbig);
+        st2(nb + (RT + row) * hpitch + gu, hsmall);
+        st2_cluster(remote + 4 * (row * hpitch + gu), hbig);
+        st2_cluster(remote + 4 * ((RT + row) * hpitch + gu), hsmall);
+      }
       if (gr < R) st2(out_at(gr, t), hv);
     }
     if (s + 1 < t_end) stage(rev ? t - 1 : t + 1);  // after this thread's reads of its slots
@@ -281,11 +371,43 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs a) {
   cp_async_wait_all();
 }
 
-template <int MT>
-int launch(const ScanArgs& a, int dirs, cudaStream_t s) {
+template <typename S, int MT>
+int launch(const ScanArgs<S>& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 16 * MT - 1) / (16 * MT);
-  return launch_cluster(serve_scan_kernel<MT>, tiles, dirs, 2 * a.H * MT, smem_bytes(MT, a.H), s,
-                        a);
+  return launch_cluster(serve_scan_kernel<S, MT>, tiles, dirs, 2 * a.H * MT,
+                        smem_bytes<S>(MT, a.H), s, a);
+}
+
+template <typename S>
+int scan(int height, const void* pre, const void* wfrag, const void* lens, void* out0, void* out1,
+         long long pre_dir, int pre_step, int reverse1, int dirs, int R, int Tn, int H,
+         cudaStream_t s) {
+  ScanArgs<S> a = {};
+  a.pre = static_cast<const float*>(pre);
+  a.wfrag = static_cast<const S*>(wfrag);
+  a.lens = static_cast<const int*>(lens);
+  a.out[0] = static_cast<S*>(out0);
+  a.out[1] = static_cast<S*>(out1);
+  a.pre_dir = pre_dir;
+  a.pre_step = pre_step;
+  a.reverse1 = reverse1;
+  a.R = R;
+  a.Tn = Tn;
+  a.H = H;
+  switch (height) {
+    case 16: return launch<S, 1>(a, dirs, s);
+    case 32: return launch<S, 2>(a, dirs, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename S>
+int clusters(int height, int H, int* n) {
+  switch (height) {
+    case 16: return max_clusters(serve_scan_kernel<S, 1>, 2 * H, smem_bytes<S>(1, H), n);
+    case 32: return max_clusters(serve_scan_kernel<S, 2>, 4 * H, smem_bytes<S>(2, H), n);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -293,48 +415,40 @@ int launch(const ScanArgs& a, int dirs, cudaStream_t s) {
 extern "C" {
 
 // The serving scan over `dirs` (1 or 2) directions. height: rows per tile, 16
-// or 32. pre: P (the input product with the bias), read only; direction d's
-// gate column j at row-step (r, t) is pre[d * pre_dir + (r * T + t) * pre_step
-// + j]: (4H, 8H) for the pair's [R, T, 2, 4H], (R T 4H, 4H) for the stack's
-// [D, R, T, 4H]. wfrag: W_hh in fragment order, [dirs d, 2 c, H / 8 ks, H / 16
-// w, 8 lg, 4 lt, 4 gate, 2 j], element W_hh[d][8 ks + lt + 4 j][gate * H +
-// c H / 2 + 8 w + lg] (unit group w, lane 4 lg + lt). out0, out1: direction
-// 0's and 1's [R, T, H] (out1 unused with one direction). reverse1: direction
-// 1 scans t = T-1..0. lens: [R] int32 or null (only with reverse1). All fp32,
-// contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns a
-// cudaError_t code (0 = launched).
-int bilstm2_serve_scan(int height, const void* pre, const void* wfrag, const void* lens,
-                       void* out0, void* out1, long long pre_dir, int pre_step, int reverse1,
-                       int dirs, int R, int Tn, int H, void* stream) {
+// or 32. dtype: the stream type of wfrag and the outputs, 0 = float32, 1 =
+// bfloat16. pre: P (the input product with the bias, fp32), read only;
+// direction d's gate column j at row-step (r, t) is pre[d * pre_dir + (r * T
+// + t) * pre_step + j]: (4H, 8H) for the pair's [R, T, 2, 4H], (R T 4H, 4H)
+// for the stack's [D, R, T, 4H]. wfrag: W_hh in fragment order, float32
+// [dirs d, 2 c, H / 8 ks, H / 16 w, 8 lg, 4 lt, 4 gate, 2 j], element
+// W_hh[d][8 ks + lt + 4 j][gate * H + c H / 2 + 8 w + lg] (unit group w, lane
+// 4 lg + lt); bfloat16 [dirs d, 2 c, H / 16 ks, H / 16 w, 2 j, 8 lg, 4 lt,
+// 4 gate, 2 e], element W_hh[d][16 ks + 8 j + 2 lt + e][gate * H + c H / 2 +
+// 8 w + lg]. out0, out1: direction 0's and 1's [R, T, H] (out1 unused with
+// one direction). reverse1: direction 1 scans t = T-1..0. lens: [R] int32 or
+// null (only with reverse1). All contiguous, 16-byte aligned; H a multiple of
+// 16, at most 128. Returns a cudaError_t code (0 = launched).
+int bilstm2_serve_scan(int height, int dtype, const void* pre, const void* wfrag,
+                       const void* lens, void* out0, void* out1, long long pre_dir, int pre_step,
+                       int reverse1, int dirs, int R, int Tn, int H, void* stream) {
   if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2 || (lens != nullptr && !reverse1))
     return static_cast<int>(cudaErrorInvalidValue);
-  ScanArgs a = {};
-  a.pre = static_cast<const float*>(pre);
-  a.wfrag = static_cast<const float*>(wfrag);
-  a.lens = static_cast<const int*>(lens);
-  a.out[0] = static_cast<float*>(out0);
-  a.out[1] = static_cast<float*>(out1);
-  a.pre_dir = pre_dir;
-  a.pre_step = pre_step;
-  a.reverse1 = reverse1;
-  a.R = R;
-  a.Tn = Tn;
-  a.H = H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (height) {
-    case 16: return launch<1>(a, dirs, s);
-    case 32: return launch<2>(a, dirs, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == 0)
+    return scan<float>(height, pre, wfrag, lens, out0, out1, pre_dir, pre_step, reverse1, dirs,
+                       R, Tn, H, s);
+  if (dtype == 1)
+    return scan<__nv_bfloat16>(height, pre, wfrag, lens, out0, out1, pre_dir, pre_step, reverse1,
+                               dirs, R, Tn, H, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// How many clusters of the scan at this tile height the card runs at once.
-int bilstm2_serve_max_clusters(int height, int H, int* clusters) {
-  switch (height) {
-    case 16: return max_clusters(serve_scan_kernel<1>, 2 * H, smem_bytes(1, H), clusters);
-    case 32: return max_clusters(serve_scan_kernel<2>, 4 * H, smem_bytes(2, H), clusters);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// How many clusters of the scan at this tile height and stream type the card
+// runs at once.
+int bilstm2_serve_max_clusters(int height, int dtype, int H, int* n) {
+  if (dtype == 0) return clusters<float>(height, H, n);
+  if (dtype == 1) return clusters<__nv_bfloat16>(height, H, n);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* bilstm2_serve_error_string(int code) {

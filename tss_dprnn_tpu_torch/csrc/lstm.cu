@@ -1,11 +1,11 @@
 // LSTM scan over D stacked directions, one input each, for Hopper (sm_90a):
-// the inference mode with bf16 streams, the cell-state training forward, and
-// the bidirectional mode on one shared input.
+// the cell-state training forward and the bidirectional mode on one shared
+// input.
 //
 // Replaces the TPU kernel `_lstm_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:57,
-// launched by _pallas_core :231) in its h-only mode with bf16 streams, its
-// `want_cs` mode and its `reverse_dir1` mode. Its fp32 h-only and `want_resid`
-// modes, which BSS serving and training run, are the input product of
+// launched by _pallas_core :231) in its `want_cs` mode (fp32 and bf16
+// streams) and its `reverse_dir1` mode. Its h-only and `want_resid` modes,
+// which BSS serving and training run, are the input product of
 // csrc/products.cu followed by the cluster scans of csrc/bilstm2_serve.cu and
 // csrc/bilstm2_resid.cu. Per step and direction d, on that direction's own
 // input x[d]:
@@ -16,8 +16,11 @@
 // Every direction scans t = 0..T-1: a caller that wants a reversed direction
 // flips its input beforehand, as the TPU kernel's callers do. With D = 1 it is
 // the unidirectional inter-chunk scan of a causal DPRNN. Modes (compile-time):
-//   kModeH      h only (bf16 streams; float with kShared);
-//   kModeCs     + the fp32 cell state after every step (fp32 streams).
+//   kModeCs     h and the fp32 cell state after every step (pallas_lstm.py:114
+//               writes cs in fp32 whatever the stream type), fp32 or bf16
+//               streams: the forward of `lstm_save_every`'s segment-
+//               checkpointed recurrence;
+//   kModeH      h only, with kShared.
 // kShared (h only, D = 2; `bilstm_pallas_fused` :171, the TPU kernel's
 // `reverse_dir1` with one input buffer): both directions read one x [R, T, F];
 // direction 1's step s reads x_{T-1-s} and writes its h at T-1-s, so both
@@ -28,20 +31,22 @@
 //
 // What bounds it: the arithmetic, 2 * (F + H) * 4H = 262,144 FLOP per row-step
 // and direction at F = H = 128 against 2 * (F + H) bytes of fresh input and
-// output. The time loop is sequential, so all parallelism comes from rows and
-// directions, and with D = 1 there are half as many blocks as the fused
-// bidirectional kernel has at the same rows.
+// output (and 4H bytes of c in kModeCs). The time loop is sequential, so all
+// parallelism comes from rows and directions, and with D = 1 there are half
+// as many blocks as a bidirectional scan has at the same rows.
 //
-// Design: the fused bidirectional kernel's (csrc/bilstm2.cu): one block per
-// (direction, tile of rows) looping over T, the tile's h in shared memory, its
-// c in registers, x_t copied in with cp.async, and W = [W_ih; W_hh] (512 KB
-// fp32 at F = H = 128, over a block's shared memory) streamed from L2 every
-// step in double-buffered chunks of 16 k-rows. Each thread owns 2 rows x 4
-// hidden units with all four gates, so a tile is 16 rows, half the fused
-// kernel's: with one direction the rows are the only source of blocks, and at
-// the inter-chunk shapes (1,250-2,000 rows) 32-row tiles leave most of the
-// card's 132 SMs without a block. On an H100 the 16-row tile was 1.6x faster
-// there and no slower at 10,000 rows (PERF.md).
+// Design (the first, simple one; the serving and training scans were
+// redesigned as cluster scans, this one was not): one block per (direction,
+// tile of rows) looping over T, the tile's h in shared memory, its c in
+// registers, x_t copied in with cp.async, and W = [W_ih; W_hh] (512 KB fp32 at
+// F = H = 128, over a block's shared memory) streamed from L2 every step in
+// double-buffered chunks of 16 k-rows. Each thread owns 2 rows x 4 hidden
+// units with all four gates, so a tile is 16 rows: with one direction the
+// rows are the only source of blocks, and at the inter-chunk shapes
+// (1,250-2,000 rows) 32-row tiles leave most of the card's 132 SMs without a
+// block. On an H100 the 16-row tile was 1.6x faster there and no slower at
+// 10,000 rows (PERF.md). bf16 streams: x and h in bf16, the weights fp32
+// holding bf16 values (the wrapper rounds them), so every product is exact.
 
 #include "scan_common.cuh"
 
@@ -195,22 +200,22 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, voi
 
 extern "C" {
 
-// dtype 1, mode 0: h only, bfloat16 streams. dtype 0 (float32 streams), mode
-// 1: h and the cell state after every step, cs [D, R, T, H] fp32 (null
-// otherwise). float32 h only and the residual mode run the cluster scans
-// (see the header) and are refused here. x: [D, R, T, F] and out:
-// [D, R, T, H], contiguous in the stream type; w_ih: [D, F, 4H], w_hh:
-// [D, H, 4H], b: [D, 4H], fp32. Every pointer 16-byte aligned; F and H
-// multiples of 16, H <= 128. Returns a cudaError_t code (0 = launched).
+// mode 1: h and the cell state after every step, cs [D, R, T, H] fp32;
+// dtype 0 = float32 streams, 1 = bfloat16 streams (x and h). The h-only and
+// residual modes run the cluster scans (see the header) and are refused
+// here. x: [D, R, T, F] and out: [D, R, T, H], contiguous in the stream
+// type; w_ih: [D, F, 4H], w_hh: [D, H, 4H], b: [D, 4H], fp32 (holding
+// stream-type values). Every pointer 16-byte aligned; F and H multiples of
+// 16, H <= 128. Returns a cudaError_t code (0 = launched).
 int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const void* w_hh,
                  const void* b, void* out, void* cs, int D, int R, int Tn, int F, int H,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && mode == kModeH)
-    return launch<__nv_bfloat16, kModeH>(x, w_ih, w_hh, b, out, nullptr, D, R, Tn, F, H, s);
-  if (dtype == 0 && mode == kModeCs)
-    return launch<float, kModeCs>(x, w_ih, w_hh, b, out, static_cast<float*>(cs), D, R, Tn, F,
-                                  H, s);
+  if (mode != kModeCs) return static_cast<int>(cudaErrorInvalidValue);
+  float* c = static_cast<float*>(cs);
+  if (dtype == 0) return launch<float, kModeCs>(x, w_ih, w_hh, b, out, c, D, R, Tn, F, H, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kModeCs>(x, w_ih, w_hh, b, out, c, D, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

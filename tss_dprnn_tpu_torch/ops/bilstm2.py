@@ -3,11 +3,11 @@ wrappers and plain versions (counterpart of the bilstm2 section of
 ``tss_dprnn_tpu/ops/pallas_lstm.py:698-1224, 1224-1464``).
 
 Replaces the TPU kernel ``_bilstm2_kernel`` (pallas_lstm.py:698) in its
-unmasked and masked modes with fp32 streams (the serving scans) with the
-input product of ``csrc/products.cu`` followed by the serving scan of
-``csrc/bilstm2_serve.cu``, in those modes with bf16 streams and in its dense
-mode with ``csrc/bilstm2.cu``, in its residual (training) mode, fp32 and
-bf16 streams, with ``csrc/bilstm2_resid.cu`` after the same input product,
+unmasked and masked modes, fp32 and bf16 streams (the serving scans), with
+the input product of ``csrc/products.cu`` followed by the serving scan of
+``csrc/bilstm2_serve.cu``, in its dense mode with ``csrc/bilstm2.cu``, in
+its residual (training) mode, fp32 and bf16 streams, with
+``csrc/bilstm2_resid.cu`` after the same input product,
 ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
 ``csrc/bilstm2_bm.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224,
 fp32 and bf16) with ``csrc/bilstm2_bwd.cu`` and the products of
@@ -35,16 +35,18 @@ What bounds the scans on the H100: the operations. A row-step costs
 2 (F + H) 4H FLOP per direction against a few hundred bytes of input and
 output, far above the card's bandwidth line; the time loop is sequential,
 so parallelism comes only from rows and directions. ``csrc/bilstm2.cu``
-(bf16 streams, dense mode) is the simple design: one block per direction
-and 32-row tile, the weights streamed from L2 in double-buffered chunks on
-the fp32 pipe; the source's header gives the details.
+(the dense mode) is the simple design: one block per direction and 32-row
+tile, the weights streamed from L2 in double-buffered chunks on the fp32
+pipe; the source's header gives the details.
 
-The fp32 serving route and the training pair split the work by what is
+The serving route and the training pair split the work by what is
 sequential: the product kernel computes the input half of every gate at
-once, P = x @ [W_ih[0] | W_ih[1]] + b into a [B, T, 2, 4H] buffer, then a
-recurrent scan adds ``h @ W_hh`` step by step. The serving scan reads P and
-writes only the two outputs, with ``h @ W_hh`` on the tensor cores in
-3xTF32 (:func:`serve_weight_layout` gives the fragment order it reads W_hh
+once, P = x @ [W_ih[0] | W_ih[1]] + b into a [B, T, 2, 4H] fp32 buffer (bf16
+x upcast, exactly), then a recurrent scan adds ``h @ W_hh`` step by step.
+The serving scan reads P and writes only the two outputs in the stream
+type, with ``h @ W_hh`` on the tensor cores: in 3xTF32 for fp32 streams, in
+one bf16 product for bf16 streams (:func:`serve_weight_layout` and
+:func:`serve_weight_layout_bf16` give the fragment orders it reads W_hh
 in). The training forward's scan writes the full pre-activations back into
 ``pre``. Backward: the reverse scan turns ``pre`` and the carried dh/dc into
 dpre, then the product kernel gives dx and the per-split partials of dW (a
@@ -85,7 +87,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -478,36 +480,10 @@ def _raise_on(rc: int, what: str, lib: ctypes.CDLL, error_string: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
-def _launch(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-            w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
-    """Check what the kernel takes, allocate the outputs and launch on the
-    current stream; a launch adds one to ``entry.launches``. Raises on
-    anything the kernel does not take. Returns (out0, out1). fp32 streams
-    run the serving route (:func:`_launch_serve`), bf16 streams
-    ``csrc/bilstm2.cu``."""
-    if x.dtype == torch.float32:
-        return _launch_serve(entry, x, w_ih2, b2, w_hh2, lens)
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
-    B, T, F = x.shape
-    H = w_hh2.shape[1]
-    out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
-    out1 = torch.empty_like(out0)
-    if B and T:
-        lib = _library()
-        with torch.cuda.device(x.device):
-            rc = lib.bilstm2_forward(
-                _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
-                b2.data_ptr(), _ptr(lens), out0.data_ptr(), out1.data_ptr(), B, T, F, H,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(rc, "bilstm2 kernel", lib, "bilstm2_error_string")
-        entry.launches += 1
-    return out0, out1
-
-
 def _launch_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                   w_hh2: torch.Tensor, wo2: torch.Tensor):
-    """The dense mode's launch (see :func:`_launch`): returns (y0, y1), each
-    [B, T, Fo] in x's type."""
+    """The dense mode's launch on the current stream (one call adds one to
+    ``entry.launches``): returns (y0, y1), each [B, T, Fo] in x's type."""
     x, w_ih2, b2, w_hh2, _ = _checked(x, w_ih2, b2, w_hh2, None)
     B, T, F = x.shape
     H = w_hh2.shape[1]
@@ -535,7 +511,7 @@ def _launch_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 
 def _launch_bm(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                w_hh2: torch.Tensor):
-    """The batch-major kernel's launch (see :func:`_launch`): both
+    """The batch-major kernel's launch (see :func:`_launch_dense`): both
     directions' h in one [2, B, T, H] buffer, returned as its two halves."""
     x, w_ih2, b2, w_hh2, _ = _checked(x, w_ih2, b2, w_hh2, None)
     B, T, F = x.shape
@@ -578,43 +554,53 @@ class TilePlan(NamedTuple):
         return self.dirs * self.tiles
 
 
-def plan_tiles(R: int, max_clusters: int, dirs: int = 2,
+def plan_tiles(R: int, max_clusters: Mapping[int, int], dirs: int = 2,
                heights: Tuple[int, ...] = TILE_HEIGHTS) -> TilePlan:
     """The tile height, one of ``heights``, of a cluster scan over R rows and
-    ``dirs`` directions when the card runs ``max_clusters`` clusters at once:
-    the smallest height whose grid fits one wave; where none does, the
-    fewest waves times height (the time of one step is about proportional
-    to the height), then the fewer waves."""
-    if max_clusters < 1:
+    ``dirs`` directions when the card runs ``max_clusters[height]`` clusters
+    at once (a height of which it runs none is left out): the smallest
+    height whose grid fits one wave; where none does, the fewest waves times
+    height (the time of one step is about proportional to the height), then
+    the fewer waves."""
+    heights = tuple(h for h in heights if max_clusters[h] >= 1)
+    if not heights:
         raise ValueError(f"the card runs no cluster of the scan ({max_clusters})")
     plans = [TilePlan(h, max(1, -(-R // h)), dirs) for h in heights]
     for plan in plans:
-        if plan.clusters <= max_clusters:
+        if plan.clusters <= max_clusters[plan.height]:
             return plan
-    waves = [-(-p.clusters // max_clusters) for p in plans]
+    waves = [-(-p.clusters // max_clusters[p.height]) for p in plans]
     return min(zip(plans, waves), key=lambda pw: (pw[1] * pw[0].height, pw[1]))[0]
 
 
 @functools.lru_cache(maxsize=None)
-def _max_clusters(which: str, H: int, device: int) -> int:
+def _max_clusters(which: str, H: int, device: int, height: int, dtype: torch.dtype) -> int:
     """How many clusters of a cluster scan (``which``: "resid", "bwd" or
-    "serve") the card runs at once, from cudaOccupancyMaxActiveClusters. At
-    H = 128 every tile height takes most of an SM's shared memory (one CTA
-    per SM), so one height's answer serves all: the training scans ask at
-    their smallest, the serving scan at its largest (at a small H a smaller
-    tile may fit more clusters; the plan then only overestimates waves)."""
+    "serve") at tile ``height`` the card runs at once, from
+    cudaOccupancyMaxActiveClusters. The serving scan is asked per stream
+    type (``dtype``): its bf16 W slice is half the fp32 one, so a short bf16
+    tile may fit two CTAs on an SM. The training scans' occupancy does not
+    depend on ``dtype``."""
     lib = {"resid": _library_resid, "bwd": _library_bwd, "serve": _library_serve}[which]()
-    height = SERVE_HEIGHTS[-1] if which == "serve" else TILE_HEIGHTS[0]
+    args = (height, _DTYPE_CODES[dtype]) if which == "serve" else (height,)
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = getattr(lib, f"bilstm2_{which}_max_clusters")(height, H, ctypes.byref(n))
+        rc = getattr(lib, f"bilstm2_{which}_max_clusters")(*args, H, ctypes.byref(n))
     _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, f"bilstm2_{which}_error_string")
     return n.value
 
 
-def _plan(which: str, R: int, H: int, device: torch.device, dirs: int = 2) -> TilePlan:
-    return plan_tiles(R, _max_clusters(which, H, device.index), dirs=dirs,
-                      heights=SERVE_HEIGHTS if which == "serve" else TILE_HEIGHTS)
+def _plan(which: str, R: int, H: int, device: torch.device, dirs: int = 2,
+          dtype: torch.dtype = torch.float32) -> TilePlan:
+    """A cluster scan's tile plan on ``device``. The serving scan's from its
+    occupancy at each height in the stream type ``dtype``; the training
+    scans' from their smallest height's (at H = 128 every height takes most
+    of an SM's shared memory, one CTA per SM, so one answer serves all)."""
+    if which == "serve":
+        counts = {h: _max_clusters(which, H, device.index, h, dtype) for h in SERVE_HEIGHTS}
+        return plan_tiles(R, counts, dirs=dirs, heights=SERVE_HEIGHTS)
+    n = _max_clusters(which, H, device.index, TILE_HEIGHTS[0], dtype)
+    return plan_tiles(R, dict.fromkeys(TILE_HEIGHTS, n), dirs=dirs, heights=TILE_HEIGHTS)
 
 
 def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.Tensor] = None,
@@ -679,6 +665,18 @@ def serve_weight_layout(w_hh: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 5, 1, 6, 7, 3, 4, 2).contiguous()
 
 
+def serve_weight_layout_bf16(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh [D, H, 4H] (holding bf16 values) as the serving scan's bf16 mode
+    reads it, in the fragment order of mma m16n8k16: [D d, 2 c, H/16
+    k-steps, H/16 unit groups, 2 j, 8 lg, 4 lt, 4 gates, 2 e] in bf16, the
+    element W_hh[d][16 ks + 8 j + 2 lt + e][gate * H + c H/2 + 8 w + lg]
+    (lane 4 lg + lt's B fragment register j of gate g at k-step ks is its two
+    e values; its four gates' registers j are 16 contiguous bytes)."""
+    D, H = w_hh.shape[:2]
+    w = w_hh.reshape(D, H // 16, 2, 4, 2, 4, 2, H // 16, 8)  # d, ks, j, lt, e, gate, c, w, lg
+    return w.permute(0, 6, 1, 7, 2, 8, 3, 5, 4).to(torch.bfloat16).contiguous()
+
+
 def _input_product(products, stream: int, x: torch.Tensor, w_ih2: torch.Tensor,
                    b2: torch.Tensor, pre: torch.Tensor) -> None:
     """One launch of the product kernel: pre [B, T, 2, 4H] = x @ [W_ih[0] |
@@ -726,27 +724,29 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 
 def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                   w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
-    """The fp32 serving route on the current stream: the input product P
-    into a [B, T, 2, 4H] buffer, then the serving cluster scan, which reads
-    P and writes only the two outputs; one call adds one to
-    ``entry.launches`` (and one to the product kernel's). Returns (out0,
-    out1)."""
+    """The serving route (unmasked and masked, fp32 or bf16 streams) on the
+    current stream: the input product P into a [B, T, 2, 4H] fp32 buffer
+    (bf16 x upcast, exactly), then the serving cluster scan in the stream
+    type, which reads P and writes only the two outputs; one call adds one to
+    ``entry.launches`` (and one to the product kernel's). Raises on anything
+    the kernels do not take. Returns (out0, out1)."""
     x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
     if B and T:
-        w_frag = serve_weight_layout(w_hh2)
-        plan = _plan("serve", B, H, x.device)
+        low = x.dtype != torch.float32
+        w_frag = (serve_weight_layout_bf16 if low else serve_weight_layout)(w_hh2)
+        plan = _plan("serve", B, H, x.device, dtype=x.dtype)
         products, lib = _library_products(), _library_serve()
         pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _input_product(products, stream, x, w_ih2, b2, pre)
-            rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_frag.data_ptr(),
-                                        _ptr(lens), out0.data_ptr(), out1.data_ptr(), 4 * H,
-                                        8 * H, 1, 2, B, T, H, stream)
+            _input_product(products, stream, x.float(), w_ih2, b2, pre)
+            rc = lib.bilstm2_serve_scan(plan.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
+                                        w_frag.data_ptr(), _ptr(lens), out0.data_ptr(),
+                                        out1.data_ptr(), 4 * H, 8 * H, 1, 2, B, T, H, stream)
         _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_serve_error_string")
         entry.launches += 1
     return out0, out1
@@ -826,12 +826,10 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the inference kernel's library, with
-    its C signatures set once."""
+    """Build (at first use) and load the dense mode's library, with its C
+    signatures set once."""
     lib = _build.load_library("bilstm2")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_forward.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.bilstm2_forward.restype = i
     lib.bilstm2_dense_forward.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
     lib.bilstm2_dense_forward.restype = i
     lib.bilstm2_error_string.argtypes = [i]
@@ -884,9 +882,9 @@ def _library_serve() -> ctypes.CDLL:
     """Build (at first use) and load the serving scan."""
     lib = _build.load_library("bilstm2_serve")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_serve_scan.argtypes = [i] + [p] * 5 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.bilstm2_serve_scan.argtypes = [i, i] + [p] * 5 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.bilstm2_serve_scan.restype = i
-    lib.bilstm2_serve_max_clusters.argtypes = [i, i, p]
+    lib.bilstm2_serve_max_clusters.argtypes = [i, i, i, p]
     lib.bilstm2_serve_max_clusters.restype = i
     lib.bilstm2_serve_error_string.argtypes = [i]
     lib.bilstm2_serve_error_string.restype = ctypes.c_char_p
@@ -913,7 +911,7 @@ def bilstm2_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     forward time."""
     if x.device.type == "cpu":
         return bilstm2_reference(x, w_ih2, b2, w_hh2)
-    return padded(functools.partial(_launch, bilstm2_forward), x, w_ih2, b2, w_hh2, None)
+    return padded(functools.partial(_launch_serve, bilstm2_forward), x, w_ih2, b2, w_hh2, None)
 
 
 def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
@@ -925,7 +923,8 @@ def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Ten
     out1[t >= len] = 0; out0[t >= len] is unspecified (finite)."""
     if x.device.type == "cpu":
         return bilstm2_reference(x, w_ih2, b2, w_hh2, lens)
-    return padded(functools.partial(_launch, bilstm2_forward_masked), x, w_ih2, b2, w_hh2, lens)
+    return padded(functools.partial(_launch_serve, bilstm2_forward_masked), x, w_ih2, b2, w_hh2,
+                  lens)
 
 
 def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,

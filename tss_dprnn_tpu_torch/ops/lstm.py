@@ -3,13 +3,12 @@ wrappers and plain versions (counterpart of the ``_lstm_kernel``,
 ``_lstm_manual_kernel`` and ``_lstm_bwd_kernel`` sections of
 ``tss_dprnn_tpu/ops/pallas_lstm.py:57-465, 498-669``).
 
-Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its fp32
-h-only mode and its ``want_resid`` mode (fp32 and bf16) with the input
-product of
+Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its h-only
+and ``want_resid`` modes (fp32 and bf16 streams) with the input product of
 ``csrc/products.cu`` followed by the cluster scans of
 ``csrc/bilstm2_serve.cu`` and ``csrc/bilstm2_resid.cu`` (the fused
-bidirectional LSTM's, which take D stacked directions too), in its h-only
-mode with bf16 streams and its ``want_cs`` and ``reverse_dir1`` modes with
+bidirectional LSTM's, which take D stacked directions too), in its
+``want_cs`` mode (fp32 and bf16) and ``reverse_dir1`` mode with
 ``csrc/lstm.cu``, ``_lstm_manual_kernel`` (pallas_lstm.py:275) with
 ``csrc/lstm_v2.cu``, and ``_lstm_bwd_kernel`` (pallas_lstm.py:498, fp32
 and bf16) with ``csrc/lstm_bwd.cu``, CUDA C++ for ``sm_90a``. D directions run in one
@@ -41,19 +40,19 @@ consumer masks them (the DPRNN block's masked norm does, and its zero
 cotangent there keeps the backward exact).
 
 What bounds the kernels on the H100: the arithmetic, 2 (F + H) 4H FLOP per
-row-step and direction forward and twice that backward. The fp32 forwards
-split the work by what is sequential, as the fused pair's do
+row-step and direction forward and twice that backward. The h-only and
+residual forwards split the work by what is sequential, as the fused pair's do
 (``ops/bilstm2.py``): per direction one launch of the 3xTF32 product kernel
 computes the input half of every gate at once, P[d] = x[d] @ W_ih[d] + b[d]
-into a [D, R, T, 4H] buffer, then one launch of a recurrent scan over all D
-directions (2-CTA clusters, each CTA holding half of W_hh[d] in shared
-memory for the whole scan, the tile height from :func:`plan_tiles`) adds
-h @ W_hh step by step: the serving scan (on the tensor cores in 3xTF32)
-reads P and writes only h; the training forward's scan writes the full gate
-pre-activations back into the buffer, which is the saved ``pre``, and the
-other residual streams. The bf16 and ``want_cs`` modes keep the first
-design (``csrc/lstm.cu``): 16-row tiles, W = [W_ih; W_hh] streamed from L2
-every step. The backward splits the work in two: the scan of
+into a [D, R, T, 4H] fp32 buffer (bf16 x upcast, exactly), then one launch
+of a recurrent scan over all D directions (2-CTA clusters, each CTA holding
+half of W_hh[d] in shared memory for the whole scan, the tile height from
+:func:`plan_tiles`) adds h @ W_hh step by step: the serving scan (on the
+tensor cores, 3xTF32 or one bf16 product) reads P and writes only h; the
+training forward's scan writes the full gate pre-activations back into the
+buffer, which is the saved ``pre``, and the other residual streams. The
+``want_cs`` mode keeps the first design (``csrc/lstm.cu``): 16-row tiles,
+W = [W_ih; W_hh] streamed from L2 every step. The backward splits the work in two: the scan of
 ``csrc/lstm_bwd.cu`` (2-CTA clusters holding W_hh^T in shared memory) turns
 the saved pre-activations and the carried dh/dc into dpre, then the 3xTF32
 product and column-sum kernels of ``csrc/products.cu`` give dx (per
@@ -100,6 +99,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     plan_tiles,
     resid_weight_layout,
     serve_weight_layout,
+    serve_weight_layout_bf16,
 )
 
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -156,6 +156,24 @@ def lstm_cs_reference(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     the fp32 cell state after every step, [D, R, T, H]."""
     out, (cs,) = _scan_reference(x, w_ih, b, w_hh, _MODE_CS)
     return out, cs
+
+
+def lstm_cs_step_reference(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+                           w_hh: torch.Tensor, h: torch.Tensor, cs: torch.Tensor
+                           ) -> torch.Tensor:
+    """The ``want_cs`` mode's cell state recomputed one step at a time from a
+    launch's own outputs: ``c_t = f * c_(t-1) + i * g`` with the gates of x_t
+    and h_(t-1), where h_(t-1) and c_(t-1) are read from ``h`` and ``cs``
+    (zeros before step 0); [D, R, T, H] fp32. It holds every cell-state store
+    at fp32 rounding, where :func:`lstm_cs_reference`'s own state drifts from
+    the kernel's once a bf16 h rounds the other way."""
+    dt = x.dtype
+    hp = torch.cat([torch.zeros_like(h[:, :, :1]), h[:, :, :-1]], dim=2).float()
+    cp = torch.cat([torch.zeros_like(cs[:, :, :1]), cs[:, :, :-1]], dim=2)
+    g = (torch.einsum("drtf,dfg->drtg", x.float(), w_ih.to(dt).float())
+         + torch.einsum("drth,dhg->drtg", hp, w_hh.to(dt).float()) + b.float()[:, None, None])
+    i, f, gg, _ = _gates(g, w_hh.shape[1])
+    return f * cp + i * gg
 
 
 def lstm_resid_reference(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
@@ -271,15 +289,12 @@ def lstm_backward_reference(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
 
 
 def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
-             fp32_only: bool = False, shared: bool = False):
+             shared: bool = False):
     """What every kernel here takes: raises on anything else, and returns
     (x, w_ih, b, w_hh) contiguous, the weights fp32 holding values of x's
-    type. ``shared``: x is one [R, T, F] input for D = 2 directions;
-    ``fp32_only``: the ``want_cs`` mode, which streams fp32 only."""
+    type. ``shared``: x is one [R, T, F] input for D = 2 directions."""
     if not x.is_cuda:
         raise ValueError(f"lstm kernel needs a CUDA tensor, got {x.device}")
-    if fp32_only and x.dtype != torch.float32:
-        raise ValueError(f"the lstm want_cs mode streams float32 only, got {x.dtype}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"lstm kernel streams float32 or bfloat16, got {x.dtype}")
     if x.ndim != (3 if shared else 4):
@@ -311,12 +326,12 @@ def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tens
             w_hh: torch.Tensor):
     """Check what the kernel takes, allocate the outputs and launch on the
     current stream; a launch adds one to ``entry.launches``. Returns
-    (h, streams). The residual mode and fp32 streams in the h-only mode run
-    the product and cluster scan (:func:`_launch_scan`); bf16 streams in the
-    h-only mode and the cell-state mode ``csrc/lstm.cu``."""
-    if mode == _MODE_RESID or (x.dtype == torch.float32 and mode == _MODE_H):
+    (h, streams). The h-only and residual modes run the product and cluster
+    scan (:func:`_launch_scan`), the cell-state mode ``csrc/lstm.cu``; each
+    takes fp32 and bf16 streams."""
+    if mode != _MODE_CS:
         return _launch_scan(entry, mode, x, w_ih, b, w_hh)
-    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=mode == _MODE_CS)
+    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
@@ -336,17 +351,18 @@ def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tens
 
 def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                  w_hh: torch.Tensor):
-    """The fp32 h-only and the residual modes on the current stream: per
+    """The h-only and the residual modes on the current stream: per
     direction d one launch of the product kernel, P[d] = x[d] @ W_ih[d] + b[d]
-    into pre [D, R, T, 4H], then one launch of a cluster scan over the D
+    into pre [D, R, T, 4H] fp32, then one launch of a cluster scan over the D
     directions, each in forward time: the serving scan (h only: it reads P
     and writes h) or the training forward's (it overwrites pre with the gate
-    pre-activations and writes h and the residual streams; bf16 streams run
-    its bf16 mode after x is upcast, exactly, for the products). One call
-    adds one to ``entry.launches`` (and D to the product kernel's). Returns
-    (h, streams) as :func:`_launch`."""
+    pre-activations and writes h and the residual streams). bf16 streams run
+    the scans' bf16 modes after x is upcast, exactly, for the products. One
+    call adds one to ``entry.launches`` (and D to the product kernel's).
+    Returns (h, streams) as :func:`_launch`."""
     resid = mode == _MODE_RESID
-    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh, fp32_only=not resid)
+    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
+    dt = x.dtype
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     G, M = 4 * H, R * T
@@ -367,8 +383,11 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
         return [t[min(d, D - 1)].data_ptr() for d in range(2)]
 
     which = "resid" if resid else "serve"
-    plan = _plan(which, R, H, x.device, dirs=D)
-    w_res = resid_weight_layout(w_hh) if resid else serve_weight_layout(w_hh)
+    plan = _plan(which, R, H, x.device, dirs=D, dtype=dt)
+    if resid:
+        w_res = resid_weight_layout(w_hh)
+    else:
+        w_res = (serve_weight_layout if dt == torch.float32 else serve_weight_layout_bf16)(w_hh)
     products = _library_products()
     lib = _library_resid() if resid else _library_serve()
     with torch.cuda.device(x.device):
@@ -381,11 +400,11 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
         layout = (M * G, G, 0, D, R, T, H, stream)
         if resid:
             streams = [t[min(d, D - 1)].data_ptr() for d in range(2) for t in hcs]
-            rc = lib.bilstm2_resid_scan(plan.height, _DTYPE_CODES[out.dtype], pre.data_ptr(),
+            rc = lib.bilstm2_resid_scan(plan.height, _DTYPE_CODES[dt], pre.data_ptr(),
                                         w_res.data_ptr(), None, *per_dir(out), *streams, *layout)
         else:
-            rc = lib.bilstm2_serve_scan(plan.height, pre.data_ptr(), w_res.data_ptr(), None,
-                                        *per_dir(out), *layout)
+            rc = lib.bilstm2_serve_scan(plan.height, _DTYPE_CODES[dt], pre.data_ptr(),
+                                        w_res.data_ptr(), None, *per_dir(out), *layout)
     _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{which}_error_string")
     entry.launches += 1
     return out, hcs + (pre,) if resid else ()
@@ -450,7 +469,7 @@ def _max_clusters(H: int, device: int) -> int:
 
 def plan_backward(D: int, R: int, H: int, device: torch.device) -> TilePlan:
     """The backward scan's row tiles on the card (:func:`plan_tiles`)."""
-    return plan_tiles(R, _max_clusters(H, device.index), dirs=D)
+    return plan_tiles(R, dict.fromkeys(TILE_HEIGHTS, _max_clusters(H, device.index)), dirs=D)
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
@@ -571,8 +590,9 @@ def lstm_forward(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
 
 def lstm_forward_with_cs(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                          w_hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward for a segment-checkpointed backward (fp32):
-    x [D, R, T, F] -> (h, cs), cs the fp32 cell state after every step."""
+    """Training forward for a segment-checkpointed backward (fp32 or bf16
+    streams): x [D, R, T, F] -> (h, cs), h in x's type and cs the fp32 cell
+    state after every step, [D, R, T, H]."""
     if x.device.type == "cpu":
         return lstm_cs_reference(x, w_ih, b, w_hh)
     out, (cs,) = padded(functools.partial(_launch, lstm_forward_with_cs, _MODE_CS),

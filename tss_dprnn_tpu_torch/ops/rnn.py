@@ -52,7 +52,6 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from tss_dprnn_tpu_torch.ops.bilstm2 import (
-    _gates,
     bilstm2_backward,
     bilstm2_backward_masked,
     bilstm2_dense_forward,
@@ -285,7 +284,24 @@ class LSTMSegments(torch.autograd.Function):
     boundary state and then the reverse gate recursion on that segment
     alone, in plain PyTorch (a ``lax.scan`` in JAX; the kernels start from a
     zero state), so one segment's gates are alive at a time. A tail segment
-    that q does not fill is zero-padded: zero cotangents, zero gradients."""
+    that q does not fill is zero-padded: zero cotangents, zero gradients.
+
+    In x's type ``cdt`` (fp32, or bf16 in the bf16 lane) it rounds where the
+    JAX backward rounds when XLA compiles it: XLA keeps a bf16 op's result
+    in fp32 for a use that casts it to fp32 (``xla_allow_excess_precision``),
+    so such a use skips the op's last rounding. The input projection and its
+    bias add are rounded; the re-forward (``_recurrence_fwd_scan``) rounds h
+    @ W_hh, the gate pre-activations, i (its sigmoid's three operations,
+    :func:`sigmoid`), g and h, and takes f, o (their sigmoids' last operation
+    unrounded) and i * g in fp32, with c in fp32; ``_bwd_steps`` rounds the
+    activations and the per-step factors (stored as bf16 arrays) and each
+    gate block of dpre, carries dh and dc in fp32 and multiplies dc by the
+    unrounded f. The weight gradients sum fp32 casts over the segments, in
+    segment order, and are cast to the weights' type at the end; dx is
+    rounded to x's type. In fp32 every rounding is a no-op and every sigmoid
+    is ``torch.sigmoid``, the forward kernel's; the weight gradients then
+    differ from a running sum only in the order of the fp32 additions
+    (ulp-level)."""
 
     @staticmethod
     def forward(ctx, q, x, w_ih, b, w_hh):
@@ -302,53 +318,72 @@ class LSTMSegments(torch.autograd.Function):
     def backward(ctx, g):
         x, w_ih, b, w_hh, bh, bc = ctx.saved_tensors
         q = ctx.q
+        cdt = x.dtype
         D, R, T, F = x.shape
         H = w_hh.shape[1]
         S = bh.shape[2]
         pad = S * q - T
         xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
         gp = torch.nn.functional.pad(g, (0, 0, 0, pad))
-        w_hh_t = w_hh.transpose(1, 2)
+        w_ih32, w_hh_c = w_ih.float(), w_hh.to(cdt)
+        w_hh_t = w_hh.float().transpose(1, 2)
+
+        def sigmoid_f32(v):  # XLA's sigmoid in cdt but for its last rounding
+            if cdt == torch.float32:
+                return torch.sigmoid(v)
+            return 1 / (1 + torch.exp(-v)).float()
+
         dx = torch.empty_like(xp)
-        dw_ih, db, dw_hh = torch.zeros_like(w_ih), torch.zeros_like(b), torch.zeros_like(w_hh)
-        dh = x.new_zeros(D, R, H)
-        dc = x.new_zeros(D, R, H)
+        parts = []  # each segment's (dw_ih, db, dw_hh), fp32
+        dh = x.new_zeros(D, R, H, dtype=torch.float32)
+        dc = torch.zeros_like(dh)
         for s in reversed(range(S)):
             seg = slice(s * q, (s + 1) * q)
             xs = xp[:, :, seg]
-            pre = torch.einsum("drtf,dfg->drtg", xs, w_ih) + b[:, None, None]
-            # the q steps again, from the boundary state
+            # the input projection in fp32, rounded, then its bias added in cdt
+            pre = torch.einsum("drtf,dfg->drtg", xs.float(), w_ih32).to(cdt) + b[:, None, None]
+            # the q steps again, from the boundary state (h in cdt, c fp32); a
+            # product in cdt accumulates in fp32 and rounds once, as XLA's
             h, c = bh[:, :, s], bc[:, :, s]
-            h_prev, c_prev, acts, cs = [], [], [], []
+            h_prev, c_prev, gates, cs = [], [], [], []
             for t in range(q):
-                i, f, gg, o = _gates(pre[:, :, t] + torch.bmm(h, w_hh), H)
+                gt = pre[:, :, t] + torch.bmm(h, w_hh_c)
+                si, sf = sigmoid_f32(gt[..., :2 * H]).split(H, dim=-1)
+                so = sigmoid_f32(gt[..., 3 * H:])
                 h_prev.append(h)
                 c_prev.append(c)
-                c = f * c + i * gg
-                h = o * torch.tanh(c)
-                acts.append((i, f, gg, o))
+                c = sf * c + si.to(cdt) * torch.tanh(gt[..., 2 * H:3 * H]).float()
+                h = (so * torch.tanh(c)).to(cdt)
+                gates.append(gt)
                 cs.append(c)
-            # the reverse recursion; per-step factors first, all steps at once
-            i, f, gg, o = (torch.stack(a, dim=2) for a in zip(*acts))
-            tc = torch.tanh(torch.stack(cs, dim=2))
-            cp = torch.stack(c_prev, dim=2)
+            # the reverse recursion; per-step factors first, all steps at once, in cdt
+            gi, gf, gg, go = torch.stack(gates, dim=2).split(H, dim=-1)
+            fg = sigmoid_f32(gf)  # dc's factor: f as an fp32 use reads it
+            i, f, o = (sigmoid(v) for v in (gi, gf, go))
+            gg = torch.tanh(gg)
+            tc = torch.tanh(torch.stack(cs, dim=2)).to(cdt)
+            cp = torch.stack(c_prev, dim=2).to(cdt)
             d_i, d_f, d_g = gg * i * (1 - i), cp * f * (1 - f), i * (1 - gg * gg)
             d_o, dcdh = tc * o * (1 - o), o * (1 - tc * tc)
+            d_i, d_f, d_g, d_o, dcdh = (v.float() for v in (d_i, d_f, d_g, d_o, dcdh))
             gs = gp[:, :, seg]
             dpre = x.new_empty(D, R, q, 4 * H)
             for t in reversed(range(q)):
-                dh = gs[:, :, t] + dh
+                dh = gs[:, :, t].float() + dh
                 dc = dc + dh * dcdh[:, :, t]
                 dpre_t = torch.cat([dc * d_i[:, :, t], dc * d_f[:, :, t], dc * d_g[:, :, t],
-                                    dh * d_o[:, :, t]], dim=-1)
+                                    dh * d_o[:, :, t]], dim=-1).to(cdt)
                 dpre[:, :, t] = dpre_t
-                dh = torch.bmm(dpre_t, w_hh_t)
-                dc = dc * f[:, :, t]
-            dw_hh += torch.einsum("drth,drtg->dhg", torch.stack(h_prev, dim=2), dpre)
-            dw_ih += torch.einsum("drtf,drtg->dfg", xs, dpre)
-            db += dpre.sum(dim=(1, 2))
-            dx[:, :, seg] = torch.einsum("drtg,dfg->drtf", dpre, w_ih)
-        return None, dx[:, :, :T], dw_ih, db, dw_hh
+                dh = torch.bmm(dpre_t.float(), w_hh_t)
+                dc = dc * fg[:, :, t]
+            dpre32 = dpre.float()
+            hp32 = torch.stack(h_prev, dim=2).float()
+            parts.append((torch.einsum("drtf,drtg->dfg", xs.float(), dpre32),
+                          dpre32.sum(dim=(1, 2)), torch.einsum("drth,drtg->dhg", hp32, dpre32)))
+            dx[:, :, seg] = torch.einsum("drtg,dfg->drtf", dpre32, w_ih32).to(cdt)
+        dw_ih, db, dw_hh = (torch.stack(p[::-1]).sum(0) for p in zip(*parts))
+        return (None, dx[:, :, :T], dw_ih.to(w_ih.dtype), db.to(b.dtype),
+                dw_hh.to(w_hh.dtype))
 
 
 def lstm_stack(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
