@@ -48,8 +48,9 @@ reads them at each call):
     TSS_BM=1 python3 chip_profile.py --batch 8            # batch-major intra scans
 
 The launch check expects the switched kernel for the intra-chunk scans, the
-fused-scan time counts its kernel (``bilstm2_kernel`` in dense mode,
-``slab_kernel`` batch-major), and the summary records the switches;
+fused-scan time counts its kernel (``bilstm2_kernel`` in dense mode; the
+batch-major entry runs the serving route's ``gemm_kernel`` and
+``serve_scan_kernel``), and the summary records the switches;
 ``--train`` under TSS_FUSED_DENSE=1 attributes the ``BiLSTM2Dense``
 Function's kernels as it does ``BiLSTM2``'s.
 """
@@ -176,7 +177,7 @@ def main() -> int:
         return sum(v - in_stack.get(k, 0.0) for k, v in by_kernel.items()
                    if any(n in k for n in names))
 
-    scan_us = pair_us("bilstm2_kernel", "slab_kernel", "scan_kernel")
+    scan_us = pair_us("bilstm2_kernel", "scan_kernel")
     product_us = pair_us("gemm_kernel")
     lstm_us = scan_us + product_us
     stack_us = sum(in_stack.values())  # the scans plus their input products
@@ -224,8 +225,8 @@ STACK_RANGE = "lstm_forward"
 # the port's kernels by name: "scan_kernel" matches the training scans'
 # resid_scan_kernel and bwd_scan_kernel (the fused pair's and, since both
 # backwards share it, lstm_bwd.cu's);
-# gemm_kernel and colsum_kernel are csrc/products.cu's (the residual
-# forward's input product among them)
+# gemm_kernel (bf16_gemm_kernel too) and colsum_kernel are
+# csrc/products.cu's (the residual forward's input product among them)
 PORT_KERNELS = ("bilstm2_kernel", "lstm_kernel", "gemm_kernel", "scan_kernel", "colsum_kernel")
 
 

@@ -6,7 +6,8 @@
 Phases, each of which fails the script (nonzero exit, no result line):
 1. set-up: the card's name and power limit, torch and CUDA versions, and
    the nvcc builds of the kernels from csrc/, started together (with
-   ptxas's register and spill report);
+   ptxas's register and spill report, and a summary of every instantiation
+   of the serving scan and of the bf16-operand product);
 2. kernel vs plain: bilstm2_forward(_masked) against its plain PyTorch
    version on the card, unmasked at the intra-chunk shape and masked at the
    inter-chunk shape of a batch of 8 x 10 s, in fp32 and bf16 (the serving
@@ -74,16 +75,28 @@ Phases, each of which fails the script (nonzero exit, no result line):
    inference launches), the best checkpoint served through the BSS
    Inferencer, 10 steps on one batch (ms/step), one step card vs CPU;
 10. the opt-in and test-only kernels vs plain: the dense mode of the fused
-   kernel (csrc/bilstm2.cu), the batch-major kernel (csrc/bilstm2_bm.cu), the
-   shared-input mode of csrc/lstm.cu (bilstm_fused) and the manual-DMA kernel
-   (csrc/lstm_v2.cu: bilstm_v2, lstm_scan_v2) at the intra-chunk shape of 8 x
-   10 s (lstm_scan_v2 at D = 1 R=2000 T=642), fp32 and bf16 (tolerances as
-   in phase 2), plus a ragged case each, timed beside the plain versions, the
-   bound and cuDNN (for the dense mode cuDNN plus two cuBLAS half-products);
+   kernel (csrc/bilstm2.cu), the shared-input mode of csrc/lstm.cu
+   (bilstm_fused), and the batch-major and manual-DMA kernels' entries
+   (bilstm2_forward_bm; bilstm_v2, lstm_scan_v2), which run the serving route
+   (the input product of csrc/products.cu, then the serving scan, dtype 2 for
+   the manual-DMA kernel's bf16 rounding; bf16 x through the bf16-operand
+   product), at the intra-chunk shape of 8 x 10 s (lstm_scan_v2 at D = 1
+   R=2000 T=642) and a ragged case each, fp32 and bf16 (tolerances as in
+   phase 2; bf16 55 dB for the manual-DMA kernel's rounding), the route's fp32
+   outputs bit for bit the default route's, one fp32 and one bf16 call
+   launching the entry twice and, for the route, one product of each kind;
+   timed beside the plain versions, the bound and cuDNN (for the dense mode
+   cuDNN plus two cuBLAS half-products), the bf16 product alone with its
+   TFLOP/s and share of the call; the bf16 product on its own at the pair's
+   shape against its plain version and float64 (BF16_PRODUCT_REL_TOL), timed
+   beside its bound and an fp32 torch.addmm;
 11. the opt-in paths: InferencerSpe.run over phase 3's requests with
    TSS_FUSED_DENSE=1 (6 bilstm2_dense_forward + 6 masked launches per batch
-   and no other kernel) and with TSS_BM=1 (6 bilstm2_forward_bm + 6 masked),
-   each against the switch-off forward on a bucketed batch (>= 60 dB); a
+   and no other kernel) and with TSS_BM=1 (6 bilstm2_forward_bm + 6 masked,
+   each after its input product), each against the switch-off forward on a
+   bucketed batch (>= 60 dB); TSS_BM=1 in the bf16 lane (6 + 6 a batch, the
+   intra scans' products the bf16-operand kernel's) against the fp32 lane
+   (>= LANE_SNR_DB) and beside the default bf16 lane; a
    TrainerSpe run of one epoch with TSS_FUSED_DENSE=1 (12 residual-forward +
    12 backward launches per train step, 12 dense launches per eval step) and
    one train step against the switch-off step (loss within 1e-5 relative,
@@ -294,15 +307,20 @@ BF16_ATOL = 2.0 ** -7
 CS_FREE_RTOL = 1e-3
 CS_STEP_RTOL = 1e-4
 BF16_SNR_DB = 70.0
-# The manual-DMA kernel (csrc/lstm_v2.cu) rounds as the TPU source does in
-# bf16: the gates, each operation of the activations, i * g, tanh(c) and h,
-# six roundings per unit and step where the other kernels round once, so a
-# gate summed in another order flips many more roundings. Its plain version
+# The manual-DMA kernel's entries (the serving scan's dtype 2) round as the
+# TPU source does in bf16: the gates, each operation of the activations, i *
+# g, tanh(c) and h, six roundings per unit and step where the other kernels
+# round once, so a gate summed in another order flips many more roundings. Its plain version
 # against the same rounding with fp64 gate sums reads 62.44 dB at R=2000
 # T=642 and 65.14 dB at R=5136 T=250 (scripts/port/v2_bf16_floor.py, CPU);
 # two fp32 orders drift about 3 dB further. The h-only rounding of
 # lstm_reference scores 45.15 dB against it (measured again in phase 10).
 V2_BF16_SNR_DB = 55.0
+# The bf16-operand input product against float64, relative to max |ref|: its
+# fp32 accumulation truncates, but a K = 128 chain of 8 mma stays within a
+# few fp32 ulps; 2^-16 is 256 times below half a bf16 ulp, where the gates
+# that read it are rounded (or h is).
+BF16_PRODUCT_REL_TOL = 2.0 ** -16
 # the fp32 serving route of bilstm2_forward(_masked): the input product, then
 # the serving cluster scan
 SERVE_SOURCE = "tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu"
@@ -389,14 +407,19 @@ def expect_launches(got, per_step, steps: int, what: str) -> None:
                              f"other kernel, counted {got}")
 
 
-def with_products(per_step):
+def with_products(per_step, bf16: bool = False):
     """``per_step`` launches of the kernel wrappers, plus the input product
     that each serving scan (fp32 or bf16) launches first: one per bilstm2
     scan, and one per direction of an lstm_forward scan, whose paths all run
-    D = 1."""
+    D = 1. The batch-major entry's is the 3xTF32 product in fp32 and, in
+    the bf16 lane (``bf16``), the bf16-operand one."""
     n = sum(per_step.get(k, 0) for k in ("bilstm2_forward", "bilstm2_forward_masked",
                                          "lstm_forward"))
-    return dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n)
+    bm = per_step.get("bilstm2_forward_bm", 0)
+    out = dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n + (0 if bf16 else bm))
+    if bf16 and bm:
+        out["products_gemm_bf16"] = per_step.get("products_gemm_bf16", 0) + bm
+    return out
 
 
 def bound(rows_steps: int, R: int, T: int, F: int, H: int, itemsize: int, peak: float):
@@ -1554,10 +1577,23 @@ def phase_bss_serving(torch, dev, cfg, tag, per_batch):
             "final": final, "card_vs_cpu_snr_db": s_cpu, "bucketed_max_abs_err": err_bucket}
 
 
+def bound_gemm_bf16(M: int, N: int, K: int):
+    """The bf16-operand product's least time: 2 M N K FLOP over the bf16
+    peak, or x and W (bf16) and the bias read once and P (fp32) written once
+    over the HBM rate."""
+    t_ops = 2 * M * N * K / PEAK_BF16
+    t_bytes = (2 * (M * K + K * N) + 4 * N + 4 * M * N) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_optin_kernels(torch, dev):
     """Phase 10: the opt-in and test-only kernels against their plain
     versions, at the shapes of 8 x 10 s and a ragged one each, timed beside
-    the plain versions, their bounds and cuDNN."""
+    the plain versions, their bounds and cuDNN. The batch-major and
+    manual-DMA kernels' entries run the serving route: in fp32 bit for bit
+    the default route's outputs, in bf16 through the bf16-operand product,
+    which is held and timed on its own too. Returns (entries, the bf16
+    product's entry)."""
     from tss_dprnn_tpu_torch.ops import bilstm2 as B2
     from tss_dprnn_tpu_torch.ops import lstm as L
 
@@ -1582,67 +1618,105 @@ def phase_optin_kernels(torch, dev):
         wo = wo2.to(dt)
         return out[..., :H] @ wo[0], out[..., H:] @ wo[1]
 
-    # name -> (wrapper, plain version, library call, source, replaces, bound, input shape)
+    route = f"{SERVE_WITH} + {SERVE_SOURCE}"
+    # name -> (wrapper, plain version, library call, source, replaces, bound,
+    # input layout, the default route's call (fp32 bit for bit) or None,
+    # product launches per direction and call)
     kernels = {
         "bilstm2_dense_forward": (
             lambda x: B2.bilstm2_dense_forward(x, w_ih2, b2, w_hh2, wo2),
             lambda x: B2.bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2),
-            dense_library, "bilstm2.cu", "pallas_lstm.py:698 (dense mode, :969)",
-            lambda R, T, size, peak: bound_dense(R * T, R, T, F, H, Fo, size, peak), "rtf"),
+            dense_library, "tss_dprnn_tpu_torch/csrc/bilstm2.cu",
+            "pallas_lstm.py:698 (dense mode, :969)",
+            lambda R, T, size, peak: bound_dense(R * T, R, T, F, H, Fo, size, peak), "rtf", None,
+            False),
         "bilstm2_forward_bm": (
             lambda x: B2.bilstm2_forward_bm(x, w_ih2, b2, w_hh2),
             lambda x: B2.bilstm2_bm_reference(x, w_ih2, b2, w_hh2),
-            lambda dt, x: lstms[dt](x)[0].split(H, dim=-1), "bilstm2_bm.cu", "pallas_lstm.py:1088",
-            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf"),
+            lambda dt, x: lstms[dt](x)[0].split(H, dim=-1), route, "pallas_lstm.py:1088",
+            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf",
+            lambda x: B2.bilstm2_forward(x, w_ih2, b2, w_hh2), True),
         "bilstm_fused": (
             lambda x: L.bilstm_fused(x, w_ih2, w_hh2, b2),
             lambda x: L.bilstm_fused_reference(x, w_ih2, w_hh2, b2),
-            lambda dt, x: lstms[dt](x)[0], "lstm.cu", "pallas_lstm.py:57 (reverse_dir1, :171)",
-            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf"),
+            lambda dt, x: lstms[dt](x)[0], "tss_dprnn_tpu_torch/csrc/lstm.cu",
+            "pallas_lstm.py:57 (reverse_dir1, :171)",
+            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf", None, False),
         "bilstm_v2": (
             lambda x: L.bilstm_v2(x, w_ih2, w_hh2, b2),
             lambda x: L.bilstm_v2_reference(x, w_ih2, w_hh2, b2),
-            lambda dt, x: lstms[dt](x)[0], "lstm_v2.cu", "pallas_lstm.py:275 (via :402)",
-            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf"),
+            lambda dt, x: lstms[dt](x)[0], route, "pallas_lstm.py:275 (via :402)",
+            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf",
+            lambda x: torch.cat(B2.bilstm2_forward(x, w_ih2, b2, w_hh2), dim=-1), True),
         "lstm_scan_v2": (
             lambda x: L.lstm_scan_v2(x, *w1),
             lambda x: L.lstm_v2_reference(x, *w1),
-            lambda dt, x: lstms1[dt](x[0])[0], "lstm_v2.cu", "pallas_lstm.py:275 (via :418)",
-            lambda R, T, size, peak: bound_stack("forward", 1, R, T, F, H, size, peak), "drtf"),
+            lambda dt, x: lstms1[dt](x[0])[0], route, "pallas_lstm.py:275 (via :418)",
+            lambda R, T, size, peak: bound_stack("forward", 1, R, T, F, H, size, peak), "drtf",
+            lambda x: L.lstm_forward(x, w1[0], w1[2], w1[1]), True),
     }
     shapes = {"bilstm2_dense_forward": (8 * S10, K), "bilstm2_forward_bm": (8 * S10, K),
               "bilstm_fused": (8 * S10, K), "bilstm_v2": (8 * S10, K),
               "lstm_scan_v2": (8 * K, S10)}
-    ragged = (203, 33)  # R not a multiple of any tile, T not of the 4-step slabs
+    ragged = (203, 33)  # R not a multiple of any tile, T of no block of steps
     entries = []
-    for name, (fn, plain, library, source, replaces, least, layout) in kernels.items():
+
+    def flat(out):
+        return torch.cat([o.float().flatten() for o in (out if isinstance(out, tuple)
+                                                        else (out,))])
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a if isinstance(a, tuple) else (a,),
+                                                      b if isinstance(b, tuple) else (b,)))
+
+    for name, (fn, plain, library, source, replaces, least, layout, default,
+               product) in kernels.items():
         def make(R, T):
             x = torch.randn(R, T, F, generator=g).to(dev)
             return x[None] if layout == "drtf" else x
 
-        def flat(out):
-            return torch.cat([o.float().flatten() for o in (out if isinstance(out, tuple)
-                                                            else (out,))])
-
         R, T = shapes[name]
         x = make(R, T)
-        ref32 = flat(plain(x))
-        err32 = float((flat(fn(x)) - ref32).abs().max())
         xb = x.bfloat16()
-        got16, ref16 = flat(fn(xb)), flat(plain(xb))
+        xr = make(*ragged)
+        xrb = xr.bfloat16()
+        # the launches of one fp32 and one bf16 call of the public entry
+        reset_launches()
+        got32, got16 = fn(x), fn(xb)
+        torch.cuda.synchronize()
+        per_call = {k2: v for k2, v in dict(all_launches(), **product_launches()).items() if v}
+        want_calls = {name: 2, **({"products_gemm": 1, "products_gemm_bf16": 1} if product
+                                  else {})}
+        log(f"[optin-kernels] {name}: one fp32 and one bf16 call launched {per_call}")
+        if per_call != want_calls:
+            raise AssertionError(f"{name}: one fp32 and one bf16 call should launch {want_calls}, "
+                                 f"counted {per_call}")
+        ref32 = flat(plain(x))
+        err32 = float((flat(got32) - ref32).abs().max())
+        ref16 = flat(plain(xb))
+        got16 = flat(got16)
         snr16, plain16_snr = snr_db(got16, ref32), snr_db(got16, ref16)
         plain16_err = float((got16 - ref16).abs().max())
         with torch.no_grad():
             library_err = float((flat(library(torch.float32, x)) - ref32).abs().max())
-        xr = make(*ragged)
         ragged_err = float((flat(fn(xr)) - flat(plain(xr))).abs().max())
+        got16r, ref16r = flat(fn(xrb)), flat(plain(xrb))
+        ragged16_err = float((got16r - ref16r).abs().max())
+        ragged16_snr = snr_db(got16r, ref16r)
+        # the default route's own launches, fp32: the same outputs bit for bit
+        bitwise = None if default is None else (same(got32, default(x))
+                                                and same(fn(xr), default(xr)))
         torch.cuda.synchronize()
         log(f"[optin-kernels] {name} R={R} T={T}: fp32 max|err|={err32:.3e} (ragged R={ragged[0]} "
             f"T={ragged[1]}: {ragged_err:.3e}); bf16 SNR {snr16:.2f} dB, vs bf16 plain max|err|="
-            f"{plain16_err:.3e} SNR {plain16_snr:.2f} dB; library vs plain {library_err:.3e}")
+            f"{plain16_err:.3e} SNR {plain16_snr:.2f} dB (ragged {ragged16_err:.3e}, "
+            f"{ragged16_snr:.2f} dB); library vs plain {library_err:.3e}"
+            + ("" if bitwise is None else f"; fp32 bit for bit the default route's: {bitwise}"))
         if not max(err32, ragged_err) <= 1e-4:
             raise AssertionError(f"{name} fp32 disagrees with its plain version: {err32}, "
                                  f"ragged {ragged_err}")
+        if bitwise is False:
+            raise AssertionError(f"{name} fp32 differs from the default route's outputs")
         snr_bar = V2_BF16_SNR_DB if name.endswith("v2") else BF16_SNR_DB
         if name.endswith("v2"):  # what the bar must tell apart: the h-only rounding
             h_only = flat(L.bilstm_fused_reference(xb, w_ih2, w_hh2, b2) if layout == "rtf"
@@ -1651,22 +1725,28 @@ def phase_optin_kernels(torch, dev):
             log(f"[optin-kernels] {name}: the h-only bf16 rounding vs the v2 plain version "
                 f"{wrong_rounding_snr:.2f} dB (bar {snr_bar} dB)")
             del h_only
-        if not (plain16_err <= BF16_ATOL and plain16_snr >= snr_bar):
+        if not (max(plain16_err, ragged16_err) <= BF16_ATOL
+                and min(plain16_snr, ragged16_snr) >= snr_bar):
             raise AssertionError(f"{name} bf16 disagrees with its bf16 plain version: max|err| "
-                                 f"{plain16_err} (<= {BF16_ATOL}), SNR {plain16_snr:.2f} dB "
+                                 f"{plain16_err} / ragged {ragged16_err} (<= {BF16_ATOL}), SNR "
+                                 f"{plain16_snr:.2f} / ragged {ragged16_snr:.2f} dB "
                                  f"(>= {snr_bar})")
-        entry = {"name": name, "dtype": "float32", "route": "cuda",
-                 "source": f"tss_dprnn_tpu_torch/csrc/{source}",
+        entry = {"name": name, "dtype": "float32", "route": "cuda", "source": source,
                  "replaces": f"tss_dprnn_tpu/ops/pallas_lstm.py:{replaces.split(':', 1)[1]}",
                  "shape": {"D": 1, "R": R, "T": T, "F": F, "H": H} if layout == "drtf"
                  else {"R": R, "T": T, "F": F, "H": H},
                  "max_abs_err": err32, "ragged": {"R": ragged[0], "T": ragged[1],
-                                                  "max_abs_err": ragged_err},
+                                                  "max_abs_err": ragged_err,
+                                                  "bf16_max_abs_err": ragged16_err,
+                                                  "bf16_snr_db": ragged16_snr},
+                 "launches_per_fp32_and_bf16_call": per_call,
                  "library_max_abs_err": library_err,
                  "library": ("cuDNN bidirectional LSTM + two cuBLAS half-products"
                              if name == "bilstm2_dense_forward" else
                              "cuDNN LSTM, " + ("unidirectional" if layout == "drtf"
                                                else "bidirectional"))}
+        if bitwise is not None:
+            entry["fp32_bit_for_bit_default_route"] = bitwise
         if name == "bilstm2_dense_forward":
             entry["shape"]["Fo"] = Fo
         for dt, key, peak, size in ((torch.float32, None, PEAK_FP32, 4),
@@ -1688,8 +1768,25 @@ def phase_optin_kernels(torch, dev):
                     entry[key]["h_only_rounding_snr_db"] = wrong_rounding_snr
             log(f"[optin-kernels] {name} {dt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                 f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        if product:  # the bf16-operand input product alone, and its share of a bf16 call
+            N = (4 if layout == "drtf" else 8) * H
+            w_cat = (w1[0][0] if layout == "drtf"
+                     else w_ih2.transpose(0, 1).reshape(F, N)).bfloat16().contiguous()
+            bias = (b2[0] if layout == "drtf" else b2.flatten()).contiguous()
+            pre = torch.empty(R * T, N, device=dev)
+            lib = B2._library_products()
+            stream = torch.cuda.current_stream().cuda_stream
+            x2 = xb.reshape(R * T, F)
+            p_ms = time_ms(lambda: B2._gemm_bf16(lib, stream, x2, 0, w_cat, R * T, N, bias, pre, 0,
+                                                 N), 5)
+            entry["bf16"]["product"] = {"ms": p_ms, "tflops": 2 * R * T * N * F / p_ms / 1e9,
+                                        "share_of_call": p_ms / entry["bf16"]["ms"]}
+            log(f"[optin-kernels] {name} bf16 product alone (M={R * T} N={N} K={F}): {p_ms:.3f} "
+                f"ms, {2 * R * T * N * F / p_ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * p_ms / entry['bf16']['ms']:.1f} % of the bf16 call")
+            del pre
         entries.append(entry)
-        del x, xb, xr
+        del x, xb, xr, xrb, got32, got16, ref32, ref16
         torch.cuda.empty_cache()
     # lstm_scan, the JAX entry's argument order over lstm_forward's kernel
     xr = torch.randn(2, *ragged, F, generator=g).to(dev)
@@ -1700,7 +1797,62 @@ def phase_optin_kernels(torch, dev):
         raise AssertionError(f"lstm_scan disagrees with its plain version: {scan_err}")
     del lstms, lstms1
     torch.cuda.empty_cache()
-    return entries
+    return entries, _bf16_product_entry(torch, dev, g, shapes["bilstm2_forward_bm"], F, H)
+
+
+def _bf16_product_entry(torch, dev, g, shape, F, H):
+    """The bf16-operand product (csrc/products.cu, products_gemm_bf16) at the
+    batch-major pair's shape: against its plain version and float64 (beside
+    torch.matmul fp32's error against float64), timed beside the plain
+    version, the bound and one fp32 torch.addmm of the upcast operands."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    R, T = shape
+    M, N, K = R * T, 8 * H, F
+    k = H ** -0.5
+    x = torch.randn(M, K, generator=g).bfloat16().to(dev)
+    w = ((torch.rand(K, N, generator=g) * 2 - 1) * k).bfloat16().to(dev)
+    bias = ((torch.rand(N, generator=g) * 2 - 1) * k).to(dev)
+    out = torch.empty(M, N, device=dev)
+    lib = B2._library_products()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        B2._gemm_bf16(lib, stream, x, 0, w, M, N, bias, out, 0, N)
+
+    run()
+    plain = B2.gemm_bf16_reference(x, w, bias)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    rows = slice(0, 65536)  # float64 on a slice: the full product would take 1.3 GB x 2
+    ref64 = x[rows].double() @ w.double() + bias.double()
+    scale = float(ref64.abs().max())
+    err64 = float((out[rows].double() - ref64).abs().max()) / scale
+    torch_err64 = float((plain[rows].double() - ref64).abs().max()) / scale
+    del plain, ref64
+    xf, wf = x.float(), w.float()
+    ms = time_ms(run, 10)
+    plain_ms = time_ms(lambda: B2.gemm_bf16_reference(x, w, bias), 3)
+    library_ms = time_ms(lambda: torch.addmm(bias, xf, wf), 5)
+    bound_ms, bound_by = bound_gemm_bf16(M, N, K)
+    log(f"[optin-kernels] products_gemm_bf16 M={M} N={N} K={K}: max|err| vs plain {err:.3e}; "
+        f"vs float64 {err64:.3e} of max|ref| (torch.matmul fp32 {torch_err64:.3e}); "
+        f"{ms:.3f} ms ({2 * M * N * K / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+        f"torch.addmm fp32 {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    if not (err64 <= BF16_PRODUCT_REL_TOL and err <= 1e-4):
+        raise AssertionError(f"the bf16 product is {err64:.3e} of max|ref| off float64 (bar "
+                             f"{BF16_PRODUCT_REL_TOL:.3e}), {err:.3e} off its plain version")
+    del out, xf, wf
+    torch.cuda.empty_cache()
+    return {"name": "products_gemm_bf16", "route": "cuda",
+            "source": "tss_dprnn_tpu_torch/csrc/products.cu",
+            "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:1088 (x @ W_ih of the bf16 streams; "
+                        "with :275 the same in lstm_scan_v2 and bilstm_v2)",
+            "shape": {"M": M, "N": N, "K": K}, "max_abs_err": err, "rel_err_float64": err64,
+            "torch_fp32_rel_err_float64": torch_err64, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library": "torch.addmm fp32 on the upcast operands (TF32 off)",
+            "tflops": 2 * M * N * K / ms / 1e9}
 
 
 def phase_tiny_widths(torch, dev):
@@ -2342,6 +2494,49 @@ def _optin_paths(torch, dev, ckpt):
         results[switch] = {"launches": launches, "n_batches": n_batches, "audio_s_per_s":
                            audio_s / wall, "final": final, "vs_switch_off_snr_db": s}
         del inf
+    torch.cuda.empty_cache()
+
+    # -- the bf16 lane (model.dtype bfloat16) with TSS_BM=1: its intra scans
+    # through the batch-major entry's bf16-operand product, against the fp32
+    # lane (switch off) and the default bf16 lane on the same bucketed batch
+    lengths = torch.from_numpy(batch["lengths"])
+    lanes = {}
+    for switch in (None, "TSS_BM"):
+        restore = with_env(switch, "1") if switch else (lambda: None)
+        try:
+            savedir = os.path.join(OUT_DIR, f"metrics_bf16_{switch or 'default'}")
+            inf = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP, dtype=torch.bfloat16),
+                                {"checkpoint_path": ckpt, "test_savedir": savedir,
+                                 "metrics": ["si_sdr"], "data": {"sample_rate": SAMPLE_RATE}},
+                                device=dev)
+            with torch.inference_mode():
+                lanes[switch] = inf.forward(batch).float().cpu()
+            if switch is None:
+                continue
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(all_launches(), **product_launches())
+        finally:
+            restore()
+        del inf
+    vs_fp32 = _valid_snr(torch, lanes["TSS_BM"], outs[None], lengths)
+    vs_bf16 = _valid_snr(torch, lanes["TSS_BM"], lanes[None], lengths)
+    log(f"[optin] TSS_BM=1 bf16 lane: InferencerSpe.run {len(ds)} requests, {n_batches} batches "
+        f"in {wall:.3f} s = {audio_s / wall:.2f} audio-s/s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; final {final}; bucketed batch vs the fp32 "
+        f"lane {vs_fp32:.2f} dB, vs the default bf16 lane {vs_bf16:.2f} dB SNR")
+    expect_launches(launches, with_products({"bilstm2_forward_bm": n, "bilstm2_forward_masked": n},
+                                            bf16=True), n_batches, "TSS_BM=1 bf16 serving")
+    if not (vs_fp32 >= LANE_SNR_DB and torch.isfinite(lanes["TSS_BM"]).all()):
+        raise AssertionError(f"TSS_BM=1 bf16 lane vs the fp32 lane {vs_fp32:.2f} dB < "
+                             f"{LANE_SNR_DB}")
+    results["TSS_BM_bf16"] = {"launches": launches, "n_batches": n_batches,
+                              "audio_s_per_s": audio_s / wall, "final": final,
+                              "vs_fp32_lane_snr_db": vs_fp32, "vs_default_bf16_lane_snr_db": vs_bf16}
     torch.cuda.empty_cache()
 
     # -- training: one epoch under TSS_FUSED_DENSE=1, then one step on and off
@@ -4137,6 +4332,31 @@ def bf16_kernel_entries(entries, bf16, launches):
     return out
 
 
+def ptxas_report(logs, kernels):
+    """ptxas's registers and spills of each compiled entry whose mangled name
+    holds one of ``kernels``, from nvcc's -Xptxas -v output by library."""
+    import re
+
+    out, entry = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1) if any(k in m.group(1) for k in kernels) else None
+                if entry:
+                    out[entry] = {"registers": None, "spill_stores": None, "spill_loads": None}
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[entry]["spill_stores"], out[entry]["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[entry]["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4159,7 +4379,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     libraries = ("bilstm2", "bilstm2_serve", "bilstm2_resid", "bilstm2_bwd", "products", "lstm",
-                 "lstm_bwd", "bilstm2_bm", "lstm_v2")
+                 "lstm_bwd")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "
@@ -4168,6 +4388,10 @@ def main() -> int:
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
+    ptxas = ptxas_report(_build.build_logs, ("serve_scan_kernel", "bf16_gemm_kernel"))
+    for kernel, rep in ptxas.items():
+        log(f"[setup] ptxas {kernel}: {rep['registers']} registers, {rep['spill_stores']} B spill "
+            f"stores, {rep['spill_loads']} B spill loads")
 
     t0 = time.perf_counter()
     entries = phase_kernel(torch, dev)
@@ -4230,7 +4454,7 @@ def main() -> int:
                                  "training": bss_train["launches"][e["name"]]}
 
     t0 = time.perf_counter()
-    optin_kernels = phase_optin_kernels(torch, dev)
+    optin_kernels, bf16_product = phase_optin_kernels(torch, dev)
     log(f"[optin-kernels] phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     optin = phase_optin_paths(torch, dev, ckpt)
@@ -4241,13 +4465,20 @@ def main() -> int:
              "bilstm2_forward_bm": ("TSS_BM=1 serving (6 intra scans per batch)",
                                     optin["TSS_BM"]["launches"])}
     for e in optin_kernels:
-        path, launches = paths.get(e["name"], ("none: a test-only entry of the JAX package",
-                                               None))
-        e["path"] = path
-        e["launches"] = launches[e["name"]] if launches else 0
+        if e["name"] in paths:
+            e["path"], launches = paths[e["name"]]
+            e["launches"] = launches[e["name"]]
+        else:  # on no model path: phase 10's own call of the public entry
+            e["path"] = ("a test-only entry of the JAX package, on no model path: one fp32 and "
+                         "one bf16 call of the public entry (phase 10)")
+            e["launches"] = e["launches_per_fp32_and_bf16_call"][e["name"]]
         if e["name"] == "bilstm2_dense_forward":
             e["launches_per_training_run"] = optin["training"]["launches"][e["name"]]
-    entries += optin_kernels
+        if e["name"] == "bilstm2_forward_bm":
+            e["launches_bf16_lane"] = optin["TSS_BM_bf16"]["launches"][e["name"]]
+    bf16_product["path"] = "TSS_BM=1 serving in the bf16 lane (6 intra scans per batch)"
+    bf16_product["launches"] = optin["TSS_BM_bf16"]["launches"]["products_gemm_bf16"]
+    entries += optin_kernels + [bf16_product]
     t0 = time.perf_counter()
     tiny = phase_tiny_widths(torch, dev)
     log(f"[tiny] phase done in {time.perf_counter() - t0:.1f} s; total "
@@ -4323,7 +4554,7 @@ def main() -> int:
         "varlen": bf16["varlen_cli"]["launches"],
         "save_every": bf16["save_every"]["steps_5x3s"]["bf16"]["launches"]})
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
-        json.dump({"card": smi, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
+        json.dump({"card": smi, "ptxas": ptxas, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
                    "families": families, "ira_rawnet": ira_rawnet, "varlen": varlen,

@@ -61,7 +61,7 @@ EDITS = {
                 "for (int ks = 0; ks < 0; ++ks) {", 1)],
     "no_cell": [("bilstm2_resid.cu", "sigmoid_f(", "(", 3), ("bilstm2_resid.cu", "tanhf(", "(", 2),
                 ("cluster_scan.cuh", "sigmoid_f(", "(", 3), ("cluster_scan.cuh", "tanhf(", "(", 1),
-                ("bilstm2_serve.cu", "sigmoid_f(", "(", 3), ("bilstm2_serve.cu", "tanhf(", "(", 2)],
+                ("bilstm2_serve.cu", "sigmoid_f(", "(", 3), ("bilstm2_serve.cu", "tanhf(", "(", 4)],
     "no_store": [("bilstm2_resid.cu", "      if (gr < R) {\n        float* pp = pre_at(gr, t);",
                   "      if (gr < 0) {\n        float* pp = pre_at(gr, t);", 1),
                  ("cluster_scan.cuh", "      if (gr < R) {\n        float* gp = dpre + gate_off(gr, t);",
@@ -149,7 +149,7 @@ def measure(name: str) -> dict:
             def scan(height):
                 rc = serve.bilstm2_serve_scan(height, code, pre.data_ptr(), w_frag.data_ptr(),
                                               B2._ptr(lens), o0.data_ptr(), o1.data_ptr(), 4 * H,
-                                              8 * H, 1, 2, R, T, H, stream)
+                                              8 * H, H, 1, 2, R, T, H, stream)
                 B2._raise_on(rc, "serving scan", serve, "bilstm2_serve_error_string")
 
             res = {}

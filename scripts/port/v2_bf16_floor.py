@@ -3,14 +3,16 @@
 
     python scripts/port/v2_bf16_floor.py [--rows 2000] [--steps 642] [--seed 0]
 
-``csrc/lstm_v2.cu`` rounds as the source of the TPU kernel it replaces
-(``_lstm_manual_kernel``) computes in bf16: the gates, each operation of the
-activations, i * g, tanh(c) and h, six roundings per unit and step where the
-port's other scan kernels round h alone. A gate summed in another order then
-lands on the other side of a bf16 rounding more often, and the flip lives on
-in c, so the kernel cannot match its plain version as closely as the other
-kernels match theirs. At one direction, F = H = 128, weights at PyTorch's LSTM
-scale and x ~ N(0, 1) in bf16, this script prints:
+The bf16 streams of ``lstm_scan_v2`` and ``bilstm_v2`` (the serving cluster
+scan's dtype 2 in ``csrc/bilstm2_serve.cu``) round as the source of the TPU
+kernel they replace (``_lstm_manual_kernel``) computes in bf16: the gates,
+each operation of the activations, i * g, tanh(c) and h, six roundings per
+unit and step where the port's other scan kernels round h alone. A gate
+summed in another order then lands on the other side of a bf16 rounding more
+often, and the flip lives on in c, so the kernel cannot match its plain
+version as closely as the other kernels match theirs. At one direction, F =
+H = 128, weights at PyTorch's LSTM scale and x ~ N(0, 1) in bf16, this script
+prints:
 
 - the plain version (``lstm_v2_reference``, fp32 gate sums) against the same
   rounding with the gates summed in fp64: the drift of one valid summation

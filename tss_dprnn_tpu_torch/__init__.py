@@ -17,11 +17,13 @@ bidirectional LSTM scan, its serving scan, training forward and backward
 (``ops/bilstm2.py`` + ``csrc/bilstm2.cu``, ``csrc/bilstm2_serve.cu``,
 ``csrc/bilstm2_resid.cu``, ``csrc/bilstm2_bwd.cu``, with the products of
 ``csrc/products.cu``), the
-stacked-direction LSTM scan and its backward (``ops/lstm.py``: fp32
-forwards on the same products and serving or training scans, bf16 and the
-cell-state mode on ``csrc/lstm.cu``, the backward ``csrc/lstm_bwd.cu``),
-and the opt-in and test-only
-scans (``csrc/bilstm2_bm.cu``, ``csrc/lstm_v2.cu``).
+stacked-direction LSTM scan and its backward (``ops/lstm.py``: forwards on
+the same products and serving or training scans, the cell-state and
+shared-input modes on ``csrc/lstm.cu``, the backward ``csrc/lstm_bwd.cu``),
+and the opt-in and test-only scans: the dense mode (``csrc/bilstm2.cu``),
+and the batch-major and manual-DMA kernels' entries on the serving route
+(their bf16 streams through the bf16-operand product of
+``csrc/products.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see :func:`tss_dprnn_tpu_torch.device.resolve_device`). The command-line
 entry points (``cli.generate_manifests``, ``cli.train``, ``cli.test``, each

@@ -2,20 +2,30 @@
 // recurrence with W_hh resident in the shared memory of a 2-CTA cluster and
 // h @ W_hh on the tensor cores (fp32: 3xTF32; bf16: one bf16 mma).
 //
-// Replaces two TPU kernels in their inference modes, both stream types:
+// Replaces four TPU kernels in their inference modes, both stream types:
 // - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698) unmasked and
 //   masked (`bilstm2_forward` :935, `bilstm2_forward_masked` :949), the modes
 //   every fused bidirectional serving scan runs;
 // - `_lstm_kernel` (:57, launched by _pallas_core :231) in its h-only mode
 //   (`lstm_forward`): D stacked directions, each on its own input in forward
-//   time, the causal DPRNN's inter-chunk scan.
+//   time, the causal DPRNN's inter-chunk scan;
+// - `_bilstm2_bm_kernel` (:1088, launched by bilstm2_forward_bm :1193): the
+//   pair's unmasked function in the batch-major layout, which the port uses
+//   throughout (ops/bilstm2.bilstm2_forward_bm); the TPU entry pads T to its
+//   8-step blocks and holds direction 1 on the pad steps, the same function
+//   as a scan from T-1;
+// - `_lstm_manual_kernel` (:275, launched by _pallas_core_v2 :373): the
+//   stack (`lstm_scan_pallas_v2` :418) and the pair on one shared x with its
+//   outputs side by side (`bilstm_pallas_v2` :402, out_step 2H), with the
+//   cell update of dtype 2 in bf16 (below).
 // As in the training forward (bilstm2_resid.cu), the input product P of every
 // row-step runs first, in csrc/products.cu: x @ [W_ih[0] | W_ih[1]] + b into
 // one buffer [R, T, 2, 4H] for the pair, x[d] @ W_ih[d] + b[d] into
 // [D, R, T, 4H] for the stack (ScanArgs says where a direction's gates lie).
-// P is fp32 in both stream types (bf16 x is exact in the 3xTF32 product, and
-// the TPU kernel never rounds x_t @ W_ih before adding h @ W_hh). This kernel
-// then runs, per direction d,
+// P is fp32 in both stream types (bf16 x is exact in the 3xTF32 product and
+// in the bf16-operand product that the last two kernels' bf16 streams take,
+// and the TPU kernels never round x_t @ W_ih before adding h @ W_hh). This
+// kernel then runs, per direction d,
 //   gates = P[d][:, t] + h @ W_hh[d]            (torch gate order i, f, g, o)
 //   c = f * c + i * g;  h = round_to_stream_type(o * tanh(c))
 // step by step (c in fp32, h fed back rounded, as pallas_lstm.py:765, :806)
@@ -77,13 +87,28 @@
 // (H + 8) x 2 B of h, the same P slots: 88.5 KB at 16 rows, 113 KB at 32, so
 // the occupancy query may find two 16-row CTAs on an SM.
 //
+// Modes (kMode), compiled apart so that the default route's kernels stay as
+// they were: 0, the outputs [R, T, H] each and h the only rounded value (every
+// default serving scan); 1 (fp32), the outputs at a row-step stride out_step
+// (`bilstm_pallas_v2`'s two side by side); 2 (bf16 streams, dtype 2), that
+// stride and the manual-DMA kernel's rounding: its source computes in the
+// stream type (pallas_lstm.py:334-340), so the cell update rounds to bf16 the
+// gates round(P + h @ W_hh), each operation of the activations (the sigmoid's
+// exp, 1 + and 1 /, each from rounded operands; tanh), i * g, tanh(c) and h,
+// with c carried in fp32. fp32 streams round nowhere, so the manual-DMA
+// kernel's fp32 entries run mode 0 or 1. Modes 1 and 2 take the shared memory
+// and threads of mode 0, with registers capped at 128 by the launch bounds:
+// the same occupancy.
+//
 // Accuracy: the 3xTF32 products keep about 22 mantissa bits (the product
 // kernel's error against float64 is 1.2e-7 to 5.1e-7 of max |ref|,
 // PERF.md), and the gate sums run in another order than the plain version's
 // fp32 matmul; both are orders of magnitude below the 1e-4 absolute bar on
 // h, which lies in (-1, 1). bf16 is held to its plain version at 70 dB and a
-// bf16 ulp of h. The summation order is fixed, with no atomics, so a run
-// repeats itself bit for bit.
+// bf16 ulp of h; dtype 2 at 55 dB, since its six roundings per unit and step
+// flip wherever a gate summed in another order lands on the other side of a
+// bf16 boundary (scripts/port/v2_bf16_floor.py). The summation order is
+// fixed, with no atomics, so a run repeats itself bit for bit.
 
 #include "cluster_scan.cuh"
 #include "tf32_mma.cuh"
@@ -115,26 +140,6 @@ constexpr size_t smem_bytes(int mt, int H) {
          static_cast<size_t>(32 * mt * H) * sizeof(float) + sizeof(uint64_t);
 }
 
-// d += a @ b on the tensor cores, bf16 operands: a 16 x 16 (row), b 16 x 8
-// (col; b0 holds k 2 lt, 2 lt + 1 and b1 k 2 lt + 8, 2 lt + 9 of column lg),
-// d 16 x 8 fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment of a 16 x 16 bf16 tile from its [m][k] rows: lane L gives
-// the address of row L % 16 at k 8 (L / 16); register q receives rows lane /
-// 4 + 8 (q & 1), k 2 (lane % 4) + 8 (q >> 1) and the k after it
-__device__ __forceinline__ void ldmatrix_x4_b16(uint32_t (&a)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr(row)));
-}
-
 // two values rounded to bf16, as one 32-bit store into a cluster peer's
 // shared memory (4-byte aligned)
 __device__ __forceinline__ void st2_cluster_bf16(unsigned addr, const float (&v)[2]) {
@@ -146,9 +151,9 @@ __device__ __forceinline__ void st2_cluster_bf16(unsigned addr, const float (&v)
 
 // Where the scan finds a direction's row-steps: gate column j of direction d
 // at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j], unit
-// u of its output out[d][(gr * Tn + t) * H + u]. Direction 1 runs t = T-1..0
-// when `reverse1`, else t = 0..T-1 as direction 0 does. S is the stream type
-// of W's fragments and the outputs.
+// u of its output out[d][(gr * Tn + t) * out_step + u]. Direction 1 runs t =
+// T-1..0 when `reverse1`, else t = 0..T-1 as direction 0 does. S is the
+// stream type of W's fragments and the outputs.
 template <typename S>
 struct ScanArgs {
   const float* pre;  // P, read only
@@ -159,6 +164,7 @@ struct ScanArgs {
   S* out[2];
   long long pre_dir;
   int pre_step;
+  int out_step;  // elements between two row-steps of an output: H, or 2H side by side
   int reverse1;
   int R, Tn, H;
 };
@@ -167,8 +173,12 @@ struct ScanArgs {
 // owns the 8 units w % (H / 16) of its CTA's half and m-tile w / (H / 16)
 // (rows 16 mt .. 16 mt + 15 of the tile). CTA (d, c)'s slice of wfrag is
 // contiguous (see bilstm2_serve_scan).
-template <typename S, int MT>
+// kMode (see the header): 0 outputs H apart, 1 out_step apart, 2 out_step
+// apart with the manual-DMA TPU kernel's bf16 roundings.
+template <typename S, int MT, int kMode>
 __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a) {
+  static_assert(kMode != 2 || kLowPrecision<S>, "fp32 streams round nowhere: no mode 2");
+  constexpr bool kV2 = kMode == 2;
   constexpr int RT = 16 * MT;
   constexpr bool kLow = kLowPrecision<S>;
   constexpr int kP = kParts<S>;
@@ -214,8 +224,9 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
   // it to local memory)
   S* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
   const float* __restrict__ pre = a.pre + d * a.pre_dir + gu;
+  const int ostep = kMode == 0 ? H : a.out_step;
   auto out_at = [&](int gr, int t) {
-    return out + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
+    return out + static_cast<long long>(gr) * (Tn * ostep) + t * ostep + gu;
   };
   auto pre_at = [&](int gr, int t) {
     return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
@@ -337,14 +348,24 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
       for (int g = 0; g < 4; ++g) ld2(slot(hh, g), pv[g]);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float ig = sigmoid_f(pv[0][j] + acc[0][2 * hh + j]);
-        const float fg = sigmoid_f(pv[1][j] + acc[1][2 * hh + j]);
-        const float gg = tanhf(pv[2][j] + acc[2][2 * hh + j]);
-        const float og = sigmoid_f(pv[3][j] + acc[3][2 * hh + j]);
-        const float cn = fg * cst[hh][j] + ig * gg;
-        if (update) cst[hh][j] = cn;
-        // a held row is still at its zero state; h is fed back rounded
-        hv[j] = update ? round_to<S>(og * tanhf(cn)) : 0.f;
+        if constexpr (kV2) {
+          const float ig = sigmoid_rounded<S>(round_to<S>(pv[0][j] + acc[0][2 * hh + j]));
+          const float fg = sigmoid_rounded<S>(round_to<S>(pv[1][j] + acc[1][2 * hh + j]));
+          const float gg = round_to<S>(tanhf(round_to<S>(pv[2][j] + acc[2][2 * hh + j])));
+          const float og = sigmoid_rounded<S>(round_to<S>(pv[3][j] + acc[3][2 * hh + j]));
+          const float cn = fg * cst[hh][j] + round_to<S>(ig * gg);
+          if (update) cst[hh][j] = cn;
+          hv[j] = update ? round_to<S>(og * round_to<S>(tanhf(cn))) : 0.f;
+        } else {
+          const float ig = sigmoid_f(pv[0][j] + acc[0][2 * hh + j]);
+          const float fg = sigmoid_f(pv[1][j] + acc[1][2 * hh + j]);
+          const float gg = tanhf(pv[2][j] + acc[2][2 * hh + j]);
+          const float og = sigmoid_f(pv[3][j] + acc[3][2 * hh + j]);
+          const float cn = fg * cst[hh][j] + ig * gg;
+          if (update) cst[hh][j] = cn;
+          // a held row is still at its zero state; h is fed back rounded
+          hv[j] = update ? round_to<S>(og * tanhf(cn)) : 0.f;
+        }
       }
       if constexpr (kLow) {
         st2(nb + row * hpitch + gu, hv);
@@ -371,17 +392,17 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
   cp_async_wait_all();
 }
 
-template <typename S, int MT>
+template <typename S, int MT, int kMode>
 int launch(const ScanArgs<S>& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 16 * MT - 1) / (16 * MT);
-  return launch_cluster(serve_scan_kernel<S, MT>, tiles, dirs, 2 * a.H * MT,
+  return launch_cluster(serve_scan_kernel<S, MT, kMode>, tiles, dirs, 2 * a.H * MT,
                         smem_bytes<S>(MT, a.H), s, a);
 }
 
-template <typename S>
+template <typename S, int kMode>
 int scan(int height, const void* pre, const void* wfrag, const void* lens, void* out0, void* out1,
-         long long pre_dir, int pre_step, int reverse1, int dirs, int R, int Tn, int H,
-         cudaStream_t s) {
+         long long pre_dir, int pre_step, int out_step, int reverse1, int dirs, int R, int Tn,
+         int H, cudaStream_t s) {
   ScanArgs<S> a = {};
   a.pre = static_cast<const float*>(pre);
   a.wfrag = static_cast<const S*>(wfrag);
@@ -390,22 +411,23 @@ int scan(int height, const void* pre, const void* wfrag, const void* lens, void*
   a.out[1] = static_cast<S*>(out1);
   a.pre_dir = pre_dir;
   a.pre_step = pre_step;
+  a.out_step = out_step;
   a.reverse1 = reverse1;
   a.R = R;
   a.Tn = Tn;
   a.H = H;
   switch (height) {
-    case 16: return launch<S, 1>(a, dirs, s);
-    case 32: return launch<S, 2>(a, dirs, s);
+    case 16: return launch<S, 1, kMode>(a, dirs, s);
+    case 32: return launch<S, 2, kMode>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename S>
+template <typename S, int kMode>
 int clusters(int height, int H, int* n) {
   switch (height) {
-    case 16: return max_clusters(serve_scan_kernel<S, 1>, 2 * H, smem_bytes<S>(1, H), n);
-    case 32: return max_clusters(serve_scan_kernel<S, 2>, 4 * H, smem_bytes<S>(2, H), n);
+    case 16: return max_clusters(serve_scan_kernel<S, 1, kMode>, 2 * H, smem_bytes<S>(1, H), n);
+    case 32: return max_clusters(serve_scan_kernel<S, 2, kMode>, 4 * H, smem_bytes<S>(2, H), n);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -416,7 +438,9 @@ extern "C" {
 
 // The serving scan over `dirs` (1 or 2) directions. height: rows per tile, 16
 // or 32. dtype: the stream type of wfrag and the outputs, 0 = float32, 1 =
-// bfloat16. pre: P (the input product with the bias, fp32), read only;
+// bfloat16, 2 = bfloat16 with the cell update rounded as the manual-DMA TPU
+// kernel rounds (the gates, each operation of the activations, i * g, tanh(c)
+// and h). pre: P (the input product with the bias, fp32), read only;
 // direction d's gate column j at row-step (r, t) is pre[d * pre_dir + (r * T
 // + t) * pre_step + j]: (4H, 8H) for the pair's [R, T, 2, 4H], (R T 4H, 4H)
 // for the stack's [D, R, T, 4H]. wfrag: W_hh in fragment order, float32
@@ -424,31 +448,43 @@ extern "C" {
 // W_hh[d][8 ks + lt + 4 j][gate * H + c H / 2 + 8 w + lg] (unit group w, lane
 // 4 lg + lt); bfloat16 [dirs d, 2 c, H / 16 ks, H / 16 w, 2 j, 8 lg, 4 lt,
 // 4 gate, 2 e], element W_hh[d][16 ks + 8 j + 2 lt + e][gate * H + c H / 2 +
-// 8 w + lg]. out0, out1: direction 0's and 1's [R, T, H] (out1 unused with
-// one direction). reverse1: direction 1 scans t = T-1..0. lens: [R] int32 or
-// null (only with reverse1). All contiguous, 16-byte aligned; H a multiple of
-// 16, at most 128. Returns a cudaError_t code (0 = launched).
+// 8 w + lg]. out0, out1: direction 0's and 1's outputs, unit u of row-step (r,
+// t) at (r * T + t) * out_step + u: out_step = H for [R, T, H] each, 2H for
+// the two side by side in one [R, T, 2H] (out1 = out0 + H; dtype 0 or 2);
+// out1 unused with one direction. reverse1: direction 1 scans t = T-1..0.
+// lens: [R] int32 or null (only with reverse1). Every pointer 16-byte
+// aligned, out_step and H multiples of 16, H at most 128. Returns a
+// cudaError_t code (0 = launched).
 int bilstm2_serve_scan(int height, int dtype, const void* pre, const void* wfrag,
                        const void* lens, void* out0, void* out1, long long pre_dir, int pre_step,
-                       int reverse1, int dirs, int R, int Tn, int H, void* stream) {
-  if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2 || (lens != nullptr && !reverse1))
+                       int out_step, int reverse1, int dirs, int R, int Tn, int H, void* stream) {
+  if (H % 16 || H > 128 || H <= 0 || out_step % 16 || out_step < H || dirs < 1 || dirs > 2 ||
+      (lens != nullptr && !reverse1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return scan<float>(height, pre, wfrag, lens, out0, out1, pre_dir, pre_step, reverse1, dirs,
-                       R, Tn, H, s);
-  if (dtype == 1)
-    return scan<__nv_bfloat16>(height, pre, wfrag, lens, out0, out1, pre_dir, pre_step, reverse1,
-                               dirs, R, Tn, H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const auto args = [&](auto run) {
+    return run(height, pre, wfrag, lens, out0, out1, pre_dir, pre_step, out_step, reverse1, dirs,
+               R, Tn, H, s);
+  };
+  switch (dtype) {
+    case 0: return out_step == H ? args(scan<float, 0>) : args(scan<float, 1>);
+    case 1:  // no bf16 instantiation takes outputs side by side with h-only rounding
+      return out_step == H ? args(scan<__nv_bfloat16, 0>)
+                           : static_cast<int>(cudaErrorInvalidValue);
+    case 2: return args(scan<__nv_bfloat16, 2>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// How many clusters of the scan at this tile height and stream type the card
-// runs at once.
+// How many clusters of the scan at this tile height and dtype (as above) the
+// card runs at once.
 int bilstm2_serve_max_clusters(int height, int dtype, int H, int* n) {
-  if (dtype == 0) return clusters<float>(height, H, n);
-  if (dtype == 1) return clusters<__nv_bfloat16>(height, H, n);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0: return clusters<float, 0>(height, H, n);
+    case 1: return clusters<__nv_bfloat16, 0>(height, H, n);
+    case 2: return clusters<__nv_bfloat16, 2>(height, H, n);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* bilstm2_serve_error_string(int code) {

@@ -71,12 +71,6 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, const float (&v)[2]) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
 }
 
-// v rounded to the stream type S and back (a no-op for fp32)
-template <typename S>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<S>(v));
-}
-
 template <typename S>
 constexpr bool kLowPrecision = !std::is_same<S, float>::value;
 

@@ -1,16 +1,19 @@
-// The fp32-accurate product kernel (3xTF32 on the tensor cores) and the
-// column-sum kernel of the LSTM training kernels, for Hopper (sm_90a).
+// The product kernels of the LSTM kernels, for Hopper (sm_90a): the
+// fp32-accurate one (3xTF32 on the tensor cores), the bf16-operand one, and
+// the column-sum kernel.
 //
-// Every product of the training pair outside its sequential scans runs here:
-// the fused bidirectional forward's input product P = x @ [W_ih[0] | W_ih[1]]
-// + b (ops/bilstm2.py), its backward's dx, dW_ih and dW_hh, and the
-// stacked-direction backward's dx, dW_ih and dW_hh (ops/lstm.py). The
-// TPU kernels compute these products inside their own bodies
-// (`_bilstm2_kernel`, `_bilstm2_bwd_kernel`, `_lstm_bwd_kernel` in
+// Every product of the LSTM scans outside their sequential recurrences runs
+// here: the input products P = x @ W_ih + b of the serving and training
+// forwards (ops/bilstm2.py, ops/lstm.py), the fused backward's dx, dW_ih and
+// dW_hh, and the stacked-direction backward's. The TPU kernels compute these
+// products inside their own bodies (`_bilstm2_kernel`, `_bilstm2_bwd_kernel`,
+// `_lstm_kernel`, `_lstm_bwd_kernel`, and the input half of the gates of
+// `_lstm_manual_kernel` :275 and `_bilstm2_bm_kernel` :1088 in
 // tss_dprnn_tpu/ops/pallas_lstm.py); on the card they are products over all
-// row-steps at once.
+// row-steps at once, each followed by a scan of csrc/bilstm2_serve.cu,
+// bilstm2_resid.cu, bilstm2_bwd.cu or lstm_bwd.cu.
 //
-// What bounds it: the arithmetic. At the training shapes every product is far
+// What bounds the 3xTF32 kernel: the arithmetic. At the training shapes every product is far
 // above the card's bandwidth line (K >= 128 on both sides of every tile): the
 // input product (M = 242,500, N = 1,024, K = 128) is 6.36e10 FLOP against
 // 1.12 GB, 0.33 ms of bytes at 3.35 TB/s but 0.95 ms of FMAs at the fp32
@@ -28,7 +31,7 @@
 // go into a fresh partial, added to the running sum with an ordinary fp32
 // add (round to nearest), and the kernel's error stays below SGEMM's.
 //
-// Design: C = A1 @ B1 + A2 @ B2 (+ bias) with 128 x 128 block tiles and
+// Its design: C = A1 @ B1 + A2 @ B2 (+ bias) with 128 x 128 block tiles and
 // 32-deep k-tiles, 256 threads in 8 warps of 32 x 64 outputs each. A ring of
 // kStages k-tiles in shared memory is filled by cp.async a few tiles ahead,
 // one barrier per k-tile. A in row layout (k contiguous) is kept as it
@@ -44,6 +47,25 @@
 // per SM (128 registers, no spill). A split over k writes fixed partials
 // that the wrapper sums in a fixed order: no float atomics, so a run repeats
 // itself bit for bit.
+//
+// The bf16-operand product (bf16_gemm_kernel, products_gemm_bf16) serves the
+// bf16 streams of `_lstm_manual_kernel`'s and `_bilstm2_bm_kernel`'s
+// counterparts (ops/lstm.lstm_scan_v2, bilstm_v2; ops/bilstm2.
+// bilstm2_forward_bm): x and W_ih hold bf16 values, so mma.sync m16n8k16 bf16
+// forms the same exact products as an fp32 product of them, and the 3xTF32
+// split would multiply zeros (a bf16 value is a TF32 value: its small part is
+// 0). What bounds it is the store: P is fp32, 4H (8H for the pair) floats per
+// row-step against F bf16 of x, 16 times x's bytes; at 8 x 10 s (1.284 M
+// row-steps, F = H = 128) 5.26 GB of P is 1.57 ms at 3.35 TB/s, while its
+// 336 GFLOP take about 0.5 ms at mma.sync rates. So the design is built
+// around the store (C staged in shared memory, written in whole rows by
+// 16-byte streaming stores) and not around wgmma, whose higher rate would
+// shorten the smaller term. Its accumulation chains the K / 16 mma of a tile
+// (8 at K = 128) into one fp32 accumulator, which truncates each add: at K =
+// 128 that stays within a few fp32 ulps of the sum, far inside the bf16
+// streams' needs (the gates are rounded to bf16, or h is), and chip_smoke.py
+// phase 10 reports its error against float64 beside torch.matmul's fp32 one
+// (PERF.md).
 
 #include "tf32_mma.cuh"
 
@@ -215,6 +237,140 @@ __global__ void __launch_bounds__(256, 2) gemm_kernel(GemmArgs p) {
   }
 }
 
+// ---- bf16 operands: C = A @ B + bias, fp32 accumulation ----------------------
+//
+// The input product of the manual-DMA and batch-major kernels' bf16 streams
+// (see the header): A is x, bf16 [M, K] in row layout, B is W_ih, bf16
+// [K, N]. Block tiles of 128 x 128 outputs, 256 threads in 8 warps of 32 x 64;
+// a ring of kHStages 32-deep k-tiles of A ([m][k]) and B ([k][n]) filled by
+// cp.async a few tiles ahead; per 16-deep k-step a warp loads its two A
+// fragments by ldmatrix and its B fragments, two n-tiles at a time, by
+// ldmatrix.trans, and issues 16 mma.sync m16n8k16, each chained into its
+// accumulator. Then the tile goes through shared memory (the ring's space,
+// reused): each warp stores its fragments plus the bias there, and whole
+// 512-byte rows of C leave in 16-byte stores, a warp's 32 lanes on one row.
+constexpr int kHBM = 128, kHBN = 128, kHBK = 32, kHStages = 3;
+// [m][k] A tile: 80-byte rows put the 8 rows x 16 bytes of an ldmatrix phase
+// on 32 banks; [k][n] B tile: 272-byte rows, the same for ldmatrix.trans
+constexpr int kHPitchA = kHBK + 8;
+constexpr int kHPitchB = kHBN + 8;
+// [m][n] fp32 C tile: a pitch of 8 mod 32 words puts a half-warp's float2
+// fragment stores (4 rows x 4 lanes) on 32 banks
+constexpr int kHPitchC = kHBN + 8;
+constexpr int kHATile = kHBM * kHPitchA;  // bf16 elements
+constexpr int kHBTile = kHBK * kHPitchB;
+constexpr int kHRingBytes = kHStages * (kHATile + kHBTile) * 2;
+constexpr int kHCBytes = kHBM * kHPitchC * 4;
+constexpr int kHSmemBytes = kHRingBytes > kHCBytes ? kHRingBytes : kHCBytes;
+
+struct GemmBf16Args {
+  const __nv_bfloat16* a;  // [M, K]: element (m, k) at a[m * lda + k]
+  const __nv_bfloat16* b;  // [K, N]: element (k, n) at b[k * ldb + n]
+  const float* bias;       // [N] or null
+  float* c;                // element (m, n) at c[m * ldc + n]
+  long long lda, ldb, ldc;
+  int M, N, K;
+};
+
+__global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args p) {
+  extern __shared__ __align__(16) float smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // kHStages x kHATile
+  __nv_bfloat16* Bs = As + kHStages * kHATile;                  // kHStages x kHBTile
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;  // the warp's 32 x 64 outputs
+  const int lg = lane >> 2, lt = lane & 3;  // the fragments' group and thread-in-group
+  const int m0 = blockIdx.y * kHBM, n0 = blockIdx.x * kHBN;
+  const int ntiles = (p.K + kHBK - 1) / kHBK;
+
+  // copy k-tile `it` into ring slot `slot` in 16-byte pieces (8 bf16 of k for
+  // A, of n for B); out-of-range pieces are zero-filled
+  auto load = [&](int it, int slot) {
+    const int k0 = it * kHBK;
+    __nv_bfloat16* as = As + slot * kHATile;
+    __nv_bfloat16* bs = Bs + slot * kHBTile;
+#pragma unroll
+    for (int v = tid; v < kHBM * kHBK / 8; v += 256) {  // 128 m x 4 pieces of k
+      const int m = v / (kHBK / 8), k = v % (kHBK / 8) * 8;
+      const bool ok = m0 + m < p.M && k0 + k < p.K;
+      cp_async16(as + m * kHPitchA + k, ok ? p.a + (m0 + m) * p.lda + k0 + k : p.a, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int v = tid; v < kHBK * kHBN / 8; v += 256) {  // 32 k x 16 pieces of n
+      const int k = v / (kHBN / 8), n = v % (kHBN / 8) * 8;
+      const bool ok = k0 + k < p.K && n0 + n < p.N;
+      cp_async16(bs + k * kHPitchB + n, ok ? p.b + (k0 + k) * p.ldb + n0 + n : p.b, ok ? 16 : 0);
+    }
+  };
+
+  float acc[2][8][4];  // [16-row m-tile][8-column n-tile][fragment]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kHStages - 1; ++s) {
+    if (s < ntiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<kHStages - 2>();
+    __syncthreads();  // tile `it` landed; every thread is done with tile it - 1's slot
+    if (it + kHStages - 1 < ntiles) load(it + kHStages - 1, (it + kHStages - 1) % kHStages);
+    cp_async_commit();
+    const __nv_bfloat16* as = As + (it % kHStages) * kHATile;
+    const __nv_bfloat16* bs = Bs + (it % kHStages) * kHBTile;
+#pragma unroll
+    for (int ks = 0; ks < kHBK; ks += 16) {
+      // A fragments of the warp's two m-tiles: rows wm + 16 mt + (lane & 15),
+      // k ks + 8 (lane >> 4)
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4_b16(af[mt], as + (wm + 16 * mt + (lane & 15)) * kHPitchA + ks + 8 * (lane >> 4));
+      // B fragments of n-tiles 2 np and 2 np + 1: k-rows ks + (lane & 7) + 8
+      // ((lane >> 3) & 1), columns wn + 16 np + 8 (lane >> 4)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans_b16(bf, bs + (ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * kHPitchB + wn +
+                                      16 * np + 8 * (lane >> 4));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the last commits were empty
+  __syncthreads();     // every warp is done with the ring: it becomes the C tile
+
+  // fragment (mt, nt) holds rows lg and lg + 8, columns 2 lt and 2 lt + 1
+  float* cs = smem;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int n = wn + nt * 8 + 2 * lt;
+    float2 bb = make_float2(0.f, 0.f);
+    if (p.bias != nullptr && n0 + n < p.N) bb = *reinterpret_cast<const float2*>(p.bias + n0 + n);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(cs + (wm + 16 * mt + lg + 8 * h) * kHPitchC + n) =
+            make_float2(acc[mt][nt][2 * h] + bb.x, acc[mt][nt][2 * h + 1] + bb.y);
+  }
+  __syncthreads();
+  const int n = n0 + 4 * lane;  // a warp's 32 lanes write one row's 128 columns
+  for (int r = warp; r < kHBM && m0 + r < p.M; r += 8)
+    if (n < p.N)  // N is a multiple of 8: the whole float4 is in range
+      __stcs(reinterpret_cast<float4*>(p.c + (m0 + r) * p.ldc + n),
+             *reinterpret_cast<const float4*>(cs + r * kHPitchC + 4 * lane));
+}
+
 // ---- column sums: partial[s][n] = sum over rows of split s of a[k][n] -------
 __global__ void colsum_kernel(const float* __restrict__ a, long long lda, int K, int N,
                               float* __restrict__ partial, int kps) {
@@ -282,6 +438,34 @@ int products_colsum(const void* a, long long lda, int K, int N, void* partial, i
   dim3 grid((N + 255) / 256, splits);
   colsum_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), lda, K, N, static_cast<float*>(partial), kps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C = A @ B + bias on bf16 operands with fp32 accumulation (see
+// bf16_gemm_kernel): a [M, K] bf16 (row lda), b [K, N] bf16 (row ldb), bias
+// [N] fp32 or null, c fp32 (row ldc). K, N, lda and ldb multiples of 8, ldc
+// of 4; every pointer 16-byte aligned. Returns a cudaError_t code (0 =
+// launched).
+int products_gemm_bf16(const void* a, long long lda, const void* b, long long ldb, int K,
+                       const void* bias, void* c, long long ldc, int M, int N, void* stream) {
+  if (K % 8 || N % 8 || lda % 8 || ldb % 8 || ldc % 4 || M < 0 || K < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmBf16Args p;
+  p.a = static_cast<const __nv_bfloat16*>(a);
+  p.b = static_cast<const __nv_bfloat16*>(b);
+  p.bias = static_cast<const float*>(bias);
+  p.c = static_cast<float*>(c);
+  p.lda = lda;
+  p.ldb = ldb;
+  p.ldc = ldc;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  cudaError_t err = cudaFuncSetAttribute(bf16_gemm_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kHSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + kHBN - 1) / kHBN, (M + kHBM - 1) / kHBM);
+  bf16_gemm_kernel<<<grid, 256, kHSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

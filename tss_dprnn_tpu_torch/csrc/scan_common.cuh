@@ -1,7 +1,8 @@
-// Device helpers shared by the LSTM scan kernels (bilstm2.cu, bilstm2_bwd.cu,
-// lstm.cu, lstm_bwd.cu, and through slab_scan.cuh bilstm2_bm.cu and
-// lstm_v2.cu): stream-type conversion, the gate sigmoid, cp.async copies,
-// bulk copies with their mbarriers, 16-byte loads and stores, and the forward
+// Device helpers shared by the LSTM kernels (bilstm2.cu, the cluster scans of
+// bilstm2_serve.cu, bilstm2_resid.cu, bilstm2_bwd.cu and lstm_bwd.cu, lstm.cu)
+// and products.cu: stream-type conversion and rounding, the gate sigmoid
+// (and its bf16-rounded form), cp.async copies, bulk copies into shared
+// memory with their mbarriers, 16-byte loads and stores, and the forward
 // kernels' chunk product.
 // Everything is force-inlined, so each kernel keeps its own register budget.
 
@@ -22,7 +23,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
+// v rounded to the stream type S and back (a no-op for fp32)
+template <typename S>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<S>(v));
+}
+
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
+// 1 / (1 + exp(-v)) with each operation rounded to the stream type S, as the
+// manual-DMA TPU kernel's source computes it in a 16-bit type
+// (tss_dprnn_tpu/ops/pallas_lstm.py:334-340)
+template <typename S>
+__device__ __forceinline__ float sigmoid_rounded(float v) {
+  return round_to<S>(1.0f / round_to<S>(1.0f + round_to<S>(expf(-v))));
+}
 
 // 16-byte global -> shared copy; src_bytes = 0 zero-fills the destination.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes = 16) {
@@ -39,7 +53,6 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
@@ -57,10 +70,11 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = packed;
 }
 
-// Bulk copies (the TMA engine without a tensor map) and the mbarriers that
-// track them, for the time-blocked kernels (slab_scan.cuh). Addresses of
-// shared memory are 32-bit shared-window addresses; every copy moves a
-// multiple of 16 bytes between 16-byte aligned addresses.
+// Bulk copies into shared memory (the TMA engine without a tensor map) and
+// the mbarriers that track them, for the resident weight slices of the
+// cluster scans (cluster_scan.cuh). Addresses of shared memory are 32-bit
+// shared-window addresses; every copy moves a multiple of 16 bytes between
+// 16-byte aligned addresses.
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -98,25 +112,6 @@ __device__ __forceinline__ void bulk_g2s(void* smem, const void* gmem, unsigned 
       "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
-// shared -> global in the issuing thread's current bulk group
-__device__ __forceinline__ void bulk_s2g(void* gmem, const void* smem, unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
-               "r"(smem_addr(smem)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-// the issuing thread's bulk groups but the newest N have finished reading shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-// ... and have completed
-__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-// order this thread's generic-proxy writes to shared memory before later bulk copies read them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // acc[gate][r][j] += A[row_r][k0 + kk] * W[k0 + kk][gate * H + u4 + j] for one
 // chunk of kKChunk k-rows. a_row0 points at A[rg][k0]; the thread's NR rows
 // are rg, rg + 8, ..., rg + 8 (NR - 1).

@@ -8,19 +8,18 @@ the input product of ``csrc/products.cu`` followed by the serving scan of
 ``csrc/bilstm2_serve.cu``, in its dense mode with ``csrc/bilstm2.cu``, in
 its residual (training) mode, fp32 and bf16 streams, with
 ``csrc/bilstm2_resid.cu`` after the same input product,
-``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with
-``csrc/bilstm2_bm.cu``, and ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224,
-fp32 and bf16) with ``csrc/bilstm2_bwd.cu`` and the products of
-``csrc/products.cu``, CUDA
-C++ for ``sm_90a``. Both directions run in one launch and both outputs come
+``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with the same serving route
+(its bf16 streams through the bf16-operand input product), and
+``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224, fp32 and bf16) with
+``csrc/bilstm2_bwd.cu`` and the products of ``csrc/products.cu``, CUDA C++
+for ``sm_90a``. Both directions run in one launch and both outputs come
 back in forward time. Layout and argument order are the JAX entries':
 ``bilstm2_forward(x [B, T, F], w_ih2 [2, F, 4H], b2 [2, 4H], w_hh2 [2, H, 4H])``.
 The dense mode (``bilstm2_dense_forward``, opt-in ``TSS_FUSED_DENSE=1`` in
 ``ops/rnn.py``) adds the SplitDense product y_d = h_d @ wo2[d] to each step's
 epilogue and writes y_d [B, T, Fo] in place of h_d; the batch-major twin
 (``bilstm2_forward_bm``, opt-in ``TSS_BM=1``) computes the unmasked
-inference function over time-blocked slabs of x, brought in by bulk copies a
-slab ahead.
+inference function, which the serving route computes batch-major already.
 The residual streams are the port's own layout: a tuple
 ``(hp0, cp0, tc0, hp1, cp1, tc1, pre)``: per direction h and c before each
 step and tanh(c) after it, [B, T, H] in the stream type in forward time, and
@@ -42,7 +41,9 @@ pipe; the source's header gives the details.
 The serving route and the training pair split the work by what is
 sequential: the product kernel computes the input half of every gate at
 once, P = x @ [W_ih[0] | W_ih[1]] + b into a [B, T, 2, 4H] fp32 buffer (bf16
-x upcast, exactly), then a recurrent scan adds ``h @ W_hh`` step by step.
+x upcast, exactly; the batch-major entry's bf16 x goes to the bf16-operand
+product kernel as it is, :func:`gemm_bf16_reference`), then a recurrent
+scan adds ``h @ W_hh`` step by step.
 The serving scan reads P and writes only the two outputs in the stream
 type, with ``h @ W_hh`` on the tensor cores: in 3xTF32 for fp32 streams, in
 one bf16 product for bf16 streams (:func:`serve_weight_layout` and
@@ -94,6 +95,8 @@ import torch
 from tss_dprnn_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the serving scan's bf16 streams rounded as the manual-DMA TPU kernel rounds
+_V2_CODE = 2
 
 
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -269,6 +272,16 @@ def gemm_reference(parts, bias: Optional[torch.Tensor] = None, kps: Optional[int
         out = part if out is None else out + part
     if out is None:
         out = a.new_zeros(a.shape[0], b.shape[1])
+    return out if bias is None else out + bias.float()
+
+
+def gemm_bf16_reference(a: torch.Tensor, b: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the bf16-operand product kernel
+    (``products_gemm_bf16``): C = a @ b (+ bias) in fp32, a [M, K] and b
+    [K, N] holding bf16 values (products of two are exact in fp32; the
+    kernel sums them in another order)."""
+    out = a.float() @ b.float()
     return out if bias is None else out + bias.float()
 
 
@@ -509,26 +522,6 @@ def _launch_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     return y0, y1
 
 
-def _launch_bm(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-               w_hh2: torch.Tensor):
-    """The batch-major kernel's launch (see :func:`_launch_dense`): both
-    directions' h in one [2, B, T, H] buffer, returned as its two halves."""
-    x, w_ih2, b2, w_hh2, _ = _checked(x, w_ih2, b2, w_hh2, None)
-    B, T, F = x.shape
-    H = w_hh2.shape[1]
-    out = torch.empty(2, B, T, H, dtype=x.dtype, device=x.device)
-    if B and T:
-        lib = _library_bm()
-        with torch.cuda.device(x.device):
-            rc = lib.bilstm2_bm_forward(
-                _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
-                b2.data_ptr(), out.data_ptr(), B, T, F, H,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(rc, "bilstm2 batch-major kernel", lib, "bilstm2_bm_error_string")
-        entry.launches += 1
-    return out[0], out[1]
-
-
 # split-K of the dW products: about this many blocks, two waves of the product
 # kernel (2 blocks per SM of an H100)
 _SPLIT_BLOCKS = 528
@@ -631,6 +624,18 @@ def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.T
     return None if out is not None else partial.sum(0)
 
 
+def _gemm_bf16(lib, stream, a: torch.Tensor, a_off: int, b: torch.Tensor, M: int, N: int,
+               bias: Optional[torch.Tensor], out: torch.Tensor, out_off: int, ldc: int) -> None:
+    """One launch of the bf16-operand product kernel (csrc/products.cu):
+    out[M, N] (at ``out_off`` elements, row pitch ``ldc``) = a[M, K] @ b[K,
+    N] + bias, a and b bf16 with contiguous rows (``a_off`` in elements)."""
+    K = b.shape[0]
+    rc = lib.products_gemm_bf16(a.data_ptr() + 2 * a_off, K, b.data_ptr(), N, K, _ptr(bias),
+                                _ptr(out, out_off), ldc, M, N, stream)
+    _raise_on(rc, "bf16 product kernel", lib, "products_error_string")
+    _gemm_bf16.launches += 1
+
+
 def _colsum(lib, stream, a: torch.Tensor, a_off: int, lda: int, K: int, N: int) -> torch.Tensor:
     """One launch of the column-sum kernel: the sums over the K rows of
     a[K, N] (``a_off`` in elements, row pitch ``lda``), as fixed partials
@@ -678,13 +683,20 @@ def serve_weight_layout_bf16(w_hh: torch.Tensor) -> torch.Tensor:
 
 
 def _input_product(products, stream: int, x: torch.Tensor, w_ih2: torch.Tensor,
-                   b2: torch.Tensor, pre: torch.Tensor) -> None:
-    """One launch of the product kernel: pre [B, T, 2, 4H] = x @ [W_ih[0] |
-    W_ih[1]] + b, both directions' input halves of every gate at once."""
+                   b2: torch.Tensor, pre: torch.Tensor, bf16: bool = False) -> None:
+    """One launch of a product kernel: pre [B, T, 2, 4H] = x @ [W_ih[0] |
+    W_ih[1]] + b, both directions' input halves of every gate at once. x
+    fp32 through the 3xTF32 kernel, or with ``bf16`` bf16 x through the
+    bf16-operand one."""
     F, G = w_ih2.shape[1:]
-    w_cat = w_ih2.transpose(0, 1).reshape(F, 2 * G).contiguous()  # [F, 8H]
-    _gemm(products, stream, False, [(x, 0, F, w_cat, 0, 2 * G, F)], x.shape[0] * x.shape[1],
-          2 * G, out=pre, ldc=2 * G, bias=b2)
+    w_cat = w_ih2.transpose(0, 1).reshape(F, 2 * G)  # [F, 8H]
+    M = x.shape[0] * x.shape[1]
+    if bf16:
+        _gemm_bf16(products, stream, x, 0, w_cat.bfloat16().contiguous(), M, 2 * G, b2, pre, 0,
+                   2 * G)
+    else:
+        _gemm(products, stream, False, [(x, 0, F, w_cat.contiguous(), 0, 2 * G, F)], M, 2 * G,
+              out=pre, ldc=2 * G, bias=b2)
 
 
 def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -723,33 +735,46 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 
 
 def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-                  w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
+                  w_hh2: torch.Tensor, lens: Optional[torch.Tensor], bf16_product: bool = False,
+                  v2: bool = False):
     """The serving route (unmasked and masked, fp32 or bf16 streams) on the
     current stream: the input product P into a [B, T, 2, 4H] fp32 buffer
-    (bf16 x upcast, exactly), then the serving cluster scan in the stream
-    type, which reads P and writes only the two outputs; one call adds one to
-    ``entry.launches`` (and one to the product kernel's). Raises on anything
-    the kernels do not take. Returns (out0, out1)."""
+    (bf16 x upcast, exactly, for the 3xTF32 kernel; with ``bf16_product``
+    bf16 x goes as it is to the bf16-operand kernel), then the serving
+    cluster scan in the stream type, which reads P and writes only the two
+    outputs; one call adds one to ``entry.launches`` (and one to its product
+    kernel's). With ``v2`` the bf16 scan rounds as the manual-DMA TPU kernel
+    does (fp32 rounds nowhere: the same scan) and the two outputs go side by
+    side into one [B, T, 2H] (unmasked only). Raises on anything the kernels
+    do not take. Returns (out0, out1), or with ``v2`` the [B, T, 2H]."""
     x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
-    out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
-    out1 = torch.empty_like(out0)
+    low = x.dtype != torch.float32
+    if v2:  # side by side: direction 1's units H elements on, a row-step 2H on
+        out = torch.empty(B, T, 2 * H, dtype=x.dtype, device=x.device)
+        ptrs = (out.data_ptr(), out.data_ptr() + H * out.element_size())
+    else:
+        out = tuple(torch.empty(B, T, H, dtype=x.dtype, device=x.device) for _ in range(2))
+        ptrs = tuple(o.data_ptr() for o in out)
     if B and T:
-        low = x.dtype != torch.float32
         w_frag = (serve_weight_layout_bf16 if low else serve_weight_layout)(w_hh2)
         plan = _plan("serve", B, H, x.device, dtype=x.dtype)
         products, lib = _library_products(), _library_serve()
         pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
+        code = _V2_CODE if v2 and low else _DTYPE_CODES[x.dtype]
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _input_product(products, stream, x.float(), w_ih2, b2, pre)
-            rc = lib.bilstm2_serve_scan(plan.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
-                                        w_frag.data_ptr(), _ptr(lens), out0.data_ptr(),
-                                        out1.data_ptr(), 4 * H, 8 * H, 1, 2, B, T, H, stream)
+            if bf16_product and low:
+                _input_product(products, stream, x, w_ih2, b2, pre, bf16=True)
+            else:
+                _input_product(products, stream, x.float(), w_ih2, b2, pre)
+            rc = lib.bilstm2_serve_scan(plan.height, code, pre.data_ptr(), w_frag.data_ptr(),
+                                        _ptr(lens), *ptrs, 4 * H, 8 * H, 2 * H if v2 else H, 1,
+                                        2, B, T, H, stream)
         _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_serve_error_string")
         entry.launches += 1
-    return out0, out1
+    return out
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
@@ -838,24 +863,14 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _library_bm() -> ctypes.CDLL:
-    """Build (at first use) and load the batch-major kernel's library."""
-    lib = _build.load_library("bilstm2_bm")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_bm_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
-    lib.bilstm2_bm_forward.restype = i
-    lib.bilstm2_bm_error_string.argtypes = [i]
-    lib.bilstm2_bm_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _library_products() -> ctypes.CDLL:
     """Build (at first use) and load the product and column-sum kernels."""
     lib = _build.load_library("products")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.products_gemm.argtypes = [i, p, ll, p, ll, i, p, ll, p, ll, i, p, p, ll, i, i, i, i, ll, p]
     lib.products_gemm.restype = i
+    lib.products_gemm_bf16.argtypes = [p, ll, p, ll, i, p, p, ll, i, i, p]
+    lib.products_gemm_bf16.restype = i
     lib.products_colsum.argtypes = [p, ll, i, i, p, i, i, p]
     lib.products_colsum.restype = i
     lib.products_error_string.argtypes = [i]
@@ -882,7 +897,7 @@ def _library_serve() -> ctypes.CDLL:
     """Build (at first use) and load the serving scan."""
     lib = _build.load_library("bilstm2_serve")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_serve_scan.argtypes = [i, i] + [p] * 5 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.bilstm2_serve_scan.argtypes = [i, i] + [p] * 5 + [ctypes.c_longlong] + [i] * 7 + [p]
     lib.bilstm2_serve_scan.restype = i
     lib.bilstm2_serve_max_clusters.argtypes = [i, i, i, p]
     lib.bilstm2_serve_max_clusters.restype = i
@@ -943,13 +958,15 @@ def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor
 
 def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                        w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference, batch-major time-blocked kernel: the contract of
+    """Inference, the batch-major kernel's entry: the contract of
     :func:`bilstm2_forward` (x [B, T, F] -> (out0, out1), each [B, T, H],
-    both in forward time). out0 and out1 are the two halves of one
-    [2, B, T, H] buffer."""
+    both in forward time), on its route. fp32 streams run its launches as
+    they are (the same outputs bit for bit); bf16 x goes to the
+    bf16-operand input product without an upcast."""
     if x.device.type == "cpu":
         return bilstm2_bm_reference(x, w_ih2, b2, w_hh2)
-    return padded(functools.partial(_launch_bm, bilstm2_forward_bm), x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_serve, bilstm2_forward_bm, bf16_product=True), x,
+                  w_ih2, b2, w_hh2, None)
 
 
 def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -1009,9 +1026,9 @@ def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
 ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_dense_forward, bilstm2_forward_bm,
            bilstm2_forward_resid, bilstm2_forward_resid_masked, bilstm2_backward,
            bilstm2_backward_masked)
-# the product and column-sum kernels, launched inside the training entries
-# (and ops/lstm.py's backward); counted apart from the entries
-PRODUCTS = {"products_gemm": _gemm, "products_colsum": _colsum}
+# the product and column-sum kernels, launched inside the entries (and
+# ops/lstm.py's); counted apart from the entries
+PRODUCTS = {"products_gemm": _gemm, "products_gemm_bf16": _gemm_bf16, "products_colsum": _colsum}
 for _entry in (*ENTRIES, *PRODUCTS.values()):
     _entry.launches = 0
 

@@ -9,9 +9,11 @@ and ``want_resid`` modes (fp32 and bf16 streams) with the input product of
 ``csrc/bilstm2_serve.cu`` and ``csrc/bilstm2_resid.cu`` (the fused
 bidirectional LSTM's, which take D stacked directions too), in its
 ``want_cs`` mode (fp32 and bf16) and ``reverse_dir1`` mode with
-``csrc/lstm.cu``, ``_lstm_manual_kernel`` (pallas_lstm.py:275) with
-``csrc/lstm_v2.cu``, and ``_lstm_bwd_kernel`` (pallas_lstm.py:498, fp32
-and bf16) with ``csrc/lstm_bwd.cu``, CUDA C++ for ``sm_90a``. D directions run in one
+``csrc/lstm.cu``, ``_lstm_manual_kernel`` (pallas_lstm.py:275) with the
+h-only route (its bf16 streams through the bf16-operand input product and
+the serving scan's rounding of that kernel), and ``_lstm_bwd_kernel``
+(pallas_lstm.py:498, fp32 and bf16) with ``csrc/lstm_bwd.cu``, CUDA C++ for
+``sm_90a``. D directions run in one
 launch, each on its own input and each in forward time: a caller that wants
 a reversed direction flips its input, as the JAX entries' callers do. With
 D = 1 this is the unidirectional inter-chunk scan of a causal DPRNN
@@ -28,7 +30,11 @@ one shared x [R, T, F], direction 1 reversed inside the kernel, outputs
 concatenated to [R, T, 2H]), and the manual-DMA kernel's two entries
 :func:`lstm_scan_v2` (:418, stacked) and :func:`bilstm_v2` (:402, shared and
 reversed), which compute the same function but, in a 16-bit stream type,
-round where that TPU kernel rounds (:func:`lstm_v2_reference`).
+round where that TPU kernel rounds (:func:`lstm_v2_reference`). On the card
+both run the h-only route (:func:`bilstm_v2` the fused pair's, with its two
+outputs written side by side): fp32 streams its launches as they are, bf16
+x through the bf16-operand input product and the serving scan's rounding
+of the manual-DMA kernel.
 
 The residual streams are a tuple ``(hp, cp, tc, pre)``: h and c before each
 step and tanh(c) after it, [D, R, T, H] in the stream type (fp32 or bf16,
@@ -81,6 +87,7 @@ import torch
 from tss_dprnn_tpu_torch.ops import _build
 from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _DTYPE_CODES,
+    _V2_CODE,
     TILE_HEIGHTS,
     Grads,
     TilePlan,
@@ -88,6 +95,8 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _colsum,
     _gates,
     _gemm,
+    _gemm_bf16,
+    _launch_serve,
     _library_products,
     _library_resid,
     _library_serve,
@@ -350,19 +359,22 @@ def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tens
 
 
 def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
-                 w_hh: torch.Tensor):
+                 w_hh: torch.Tensor, v2: bool = False):
     """The h-only and the residual modes on the current stream: per
     direction d one launch of the product kernel, P[d] = x[d] @ W_ih[d] + b[d]
     into pre [D, R, T, 4H] fp32, then one launch of a cluster scan over the D
     directions, each in forward time: the serving scan (h only: it reads P
     and writes h) or the training forward's (it overwrites pre with the gate
     pre-activations and writes h and the residual streams). bf16 streams run
-    the scans' bf16 modes after x is upcast, exactly, for the products. One
-    call adds one to ``entry.launches`` (and D to the product kernel's).
-    Returns (h, streams) as :func:`_launch`."""
+    the scans' bf16 modes after x is upcast, exactly, for the products. With
+    ``v2`` (h only) bf16 x goes as it is to the bf16-operand product kernel
+    and the serving scan rounds as the manual-DMA TPU kernel does; fp32 is
+    unchanged. One call adds one to ``entry.launches`` (and D to its product
+    kernel's). Returns (h, streams) as :func:`_launch`."""
     resid = mode == _MODE_RESID
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
     dt = x.dtype
+    v2 = v2 and dt != torch.float32
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     G, M = 4 * H, R * T
@@ -373,7 +385,8 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
         return out, hcs + (pre,) if resid else ()
     if D > 2:
         raise ValueError(f"lstm cluster scans take D <= 2 directions, got {D}")
-    x = x.float()
+    if not v2:
+        x = x.float()
     # a direction's slices are passed as pointers: each must be 16-byte aligned
     named = {"x": x, "w_ih": w_ih, "b": b, "pre": pre, "out": out,
              **dict(zip(("hp", "cp", "tc"), hcs))}
@@ -392,66 +405,49 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
     lib = _library_resid() if resid else _library_serve()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        w_bf16 = w_ih.bfloat16() if v2 else None
         for d in range(D):
-            _gemm(products, stream, False, [(x, d * M * F, F, w_ih, d * F * G, G, F)], M, G,
-                  out=pre, out_off=d * M * G, ldc=G, bias=b[d])
-        # [D, R, T, 4H]: a direction's gates R T 4H on, a row-step's 4H on; no
-        # direction reversed, no lengths
-        layout = (M * G, G, 0, D, R, T, H, stream)
+            if v2:
+                _gemm_bf16(products, stream, x, d * M * F, w_bf16[d], M, G, b[d], pre, d * M * G,
+                           G)
+            else:
+                _gemm(products, stream, False, [(x, d * M * F, F, w_ih, d * F * G, G, F)], M, G,
+                      out=pre, out_off=d * M * G, ldc=G, bias=b[d])
+        # [D, R, T, 4H]: a direction's gates R T 4H on, a row-step's 4H on
+        pre_layout = (M * G, G)
+        scan = (0, D, R, T, H, stream)  # no direction reversed, no lengths
         if resid:
             streams = [t[min(d, D - 1)].data_ptr() for d in range(2) for t in hcs]
             rc = lib.bilstm2_resid_scan(plan.height, _DTYPE_CODES[dt], pre.data_ptr(),
-                                        w_res.data_ptr(), None, *per_dir(out), *streams, *layout)
-        else:
-            rc = lib.bilstm2_serve_scan(plan.height, _DTYPE_CODES[dt], pre.data_ptr(),
-                                        w_res.data_ptr(), None, *per_dir(out), *layout)
+                                        w_res.data_ptr(), None, *per_dir(out), *streams,
+                                        *pre_layout, *scan)
+        else:  # outputs [D, R, T, H]: a row-step H on
+            rc = lib.bilstm2_serve_scan(plan.height, _V2_CODE if v2 else _DTYPE_CODES[dt],
+                                        pre.data_ptr(), w_res.data_ptr(), None, *per_dir(out),
+                                        *pre_layout, H, *scan)
     _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{which}_error_string")
     entry.launches += 1
     return out, hcs + (pre,) if resid else ()
 
 
-def _launch_shared(entry, v2: bool, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+def _launch_shared(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                    w_hh2: torch.Tensor) -> torch.Tensor:
     """Two directions on one shared x [R, T, F], direction 1 reversed, through
-    ``csrc/lstm.cu``'s shared mode or (``v2``) ``csrc/lstm_v2.cu``; a launch
-    adds one to ``entry.launches``. Returns [R, T, 2H]."""
+    ``csrc/lstm.cu``'s shared mode; a launch adds one to ``entry.launches``.
+    Returns [R, T, 2H]."""
     x, w_ih2, b2, w_hh2 = _checked(x, w_ih2, b2, w_hh2, shared=True)
     R, T, F = x.shape
     H = w_hh2.shape[1]
     out = torch.empty(2, R, T, H, dtype=x.dtype, device=x.device)
     if R and T:
-        args = (x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(), b2.data_ptr(), out.data_ptr())
+        lib = _library()
         with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            if v2:
-                lib, err = _library_v2(), "lstm_v2_error_string"
-                rc = lib.lstm_v2_forward(_DTYPE_CODES[x.dtype], 1, *args, 2, R, T, F, H, stream)
-            else:
-                lib, err = _library(), "lstm_error_string"
-                rc = lib.lstm_bidir_forward(_DTYPE_CODES[x.dtype], *args, R, T, F, H, stream)
-        _raise_on(rc, "lstm kernel", lib, err)
+            rc = lib.lstm_bidir_forward(_DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(),
+                                        w_hh2.data_ptr(), b2.data_ptr(), out.data_ptr(), R, T, F,
+                                        H, torch.cuda.current_stream(x.device).cuda_stream)
+        _raise_on(rc, "lstm kernel", lib, "lstm_error_string")
         entry.launches += 1
     return torch.cat([out[0], out[1]], dim=-1)
-
-
-def _launch_v2(entry, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
-               w_hh: torch.Tensor) -> torch.Tensor:
-    """``csrc/lstm_v2.cu`` over stacked directions x [D, R, T, F]; a launch
-    adds one to ``entry.launches``."""
-    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
-    D, R, T, F = x.shape
-    H = w_hh.shape[1]
-    out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
-    if D and R and T:
-        lib = _library_v2()
-        with torch.cuda.device(x.device):
-            rc = lib.lstm_v2_forward(
-                _DTYPE_CODES[x.dtype], 0, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
-                b.data_ptr(), out.data_ptr(), D, R, T, F, H,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(rc, "lstm_v2 kernel", lib, "lstm_v2_error_string")
-        entry.launches += 1
-    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -554,18 +550,6 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _library_v2() -> ctypes.CDLL:
-    """Build (at first use) and load the manual-DMA kernel's library."""
-    lib = _build.load_library("lstm_v2")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_v2_forward.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p]
-    lib.lstm_v2_forward.restype = i
-    lib.lstm_v2_error_string.argtypes = [i]
-    lib.lstm_v2_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _library_scan() -> ctypes.CDLL:
     """Build (at first use) and load the backward scan's library."""
     lib = _build.load_library("lstm_bwd")
@@ -629,7 +613,7 @@ def bilstm_fused(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     bfloat16 streams."""
     if x.device.type == "cpu":
         return bilstm_fused_reference(x, w_ih2, w_hh2, b2)
-    return padded(functools.partial(_launch_shared, bilstm_fused, False), x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_shared, bilstm_fused), x, w_ih2, b2, w_hh2)
 
 
 def lstm_scan_v2(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
@@ -637,19 +621,22 @@ def lstm_scan_v2(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     """``lstm_scan_pallas_v2`` (pallas_lstm.py:418): the manual-DMA kernel
     over stacked directions, x2 [D, R, T, F] -> [D, R, T, H], each direction
     in forward time on its own input. float32 or bfloat16 streams, rounded
-    as :func:`lstm_v2_reference` says."""
+    as :func:`lstm_v2_reference` says; fp32 equals :func:`lstm_forward`."""
     if x2.device.type == "cpu":
         return lstm_v2_reference(x2, w_ih2, w_hh2, b2)
-    return padded(functools.partial(_launch_v2, lstm_scan_v2), x2, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_scan, lstm_scan_v2, _MODE_H, v2=True), x2, w_ih2,
+                  b2, w_hh2)[0]
 
 
 def bilstm_v2(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """``bilstm_pallas_v2`` (pallas_lstm.py:402): the manual-DMA kernel on
-    one x [R, T, F], direction 1 walking it backwards, -> [R, T, 2H]."""
+    one x [R, T, F], direction 1 walking it backwards, -> [R, T, 2H]; fp32
+    equals :func:`bilstm2_forward`'s two outputs side by side."""
     if x.device.type == "cpu":
         return bilstm_v2_reference(x, w_ih2, w_hh2, b2)
-    return padded(functools.partial(_launch_shared, bilstm_v2, True), x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_serve, bilstm_v2, bf16_product=True, v2=True), x,
+                  w_ih2, b2, w_hh2, None)
 
 
 def lstm_backward(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
