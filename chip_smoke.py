@@ -7,7 +7,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
 1. set-up: the card's name and power limit, torch and CUDA versions, and
    the nvcc builds of the kernels from csrc/, started together (with
    ptxas's register and spill report, and a summary of every instantiation
-   of the serving scan and of the bf16-operand product);
+   of the serving scan, of the bf16-operand product (fp32 and bf16 C) and of
+   the cell-state scan);
 2. kernel vs plain: bilstm2_forward(_masked) against its plain PyTorch
    version on the card, unmasked at the intra-chunk shape and masked at the
    inter-chunk shape of a batch of 8 x 10 s, in fp32 and bf16 (the serving
@@ -74,29 +75,34 @@ Phases, each of which fails the script (nonzero exit, no result line):
    column-sum launches, per eval step 6 + 6
    inference launches), the best checkpoint served through the BSS
    Inferencer, 10 steps on one batch (ms/step), one step card vs CPU;
-10. the opt-in and test-only kernels vs plain: the dense mode of the fused
-   kernel (csrc/bilstm2.cu), the shared-input mode of csrc/lstm.cu
-   (bilstm_fused), and the batch-major and manual-DMA kernels' entries
-   (bilstm2_forward_bm; bilstm_v2, lstm_scan_v2), which run the serving route
-   (the input product of csrc/products.cu, then the serving scan, dtype 2 for
-   the manual-DMA kernel's bf16 rounding; bf16 x through the bf16-operand
-   product), at the intra-chunk shape of 8 x 10 s (lstm_scan_v2 at D = 1
+10. the opt-in and test-only kernels vs plain, all on the serving route (the
+   input product of csrc/products.cu, then the serving scan; bf16 x through
+   the bf16-operand product): the dense mode of the fused kernel (the scan's
+   outputs side by side into a scratch, then its two SplitDense products in
+   csrc/products.cu, a bf16 output for bf16 streams), the shared-input mode
+   of _lstm_kernel (bilstm_fused: the pair's outputs side by side), and the
+   batch-major and manual-DMA kernels' entries (bilstm2_forward_bm;
+   bilstm_v2, lstm_scan_v2, dtype 2 for the manual-DMA kernel's bf16
+   rounding), at the intra-chunk shape of 8 x 10 s (lstm_scan_v2 at D = 1
    R=2000 T=642) and a ragged case each, fp32 and bf16 (tolerances as in
    phase 2; bf16 55 dB for the manual-DMA kernel's rounding), the route's fp32
-   outputs bit for bit the default route's, one fp32 and one bf16 call
-   launching the entry twice and, for the route, one product of each kind;
-   timed beside the plain versions, the bound and cuDNN (for the dense mode
-   cuDNN plus two cuBLAS half-products), the bf16 product alone with its
-   TFLOP/s and share of the call; the bf16 product on its own at the pair's
-   shape against its plain version and float64 (BF16_PRODUCT_REL_TOL), timed
-   beside its bound and an fp32 torch.addmm;
+   outputs bit for bit the default route's (bilstm_fused's bf16 outputs bit
+   for bit the batch-major entry's), one fp32 and one bf16 call launching the
+   entry twice and one product of each kind (the dense mode three); timed
+   beside the plain versions, the bound and cuDNN (for the dense mode cuDNN
+   plus two cuBLAS half-products), the bf16 input product alone with its
+   TFLOP/s and share of the call (and the dense mode's two output products
+   alone, both lanes); the bf16 product on its own at the pair's shape
+   against its plain version and float64 (BF16_PRODUCT_REL_TOL), timed beside
+   its bound and an fp32 torch.addmm;
 11. the opt-in paths: InferencerSpe.run over phase 3's requests with
-   TSS_FUSED_DENSE=1 (6 bilstm2_dense_forward + 6 masked launches per batch
-   and no other kernel) and with TSS_BM=1 (6 bilstm2_forward_bm + 6 masked,
-   each after its input product), each against the switch-off forward on a
-   bucketed batch (>= 60 dB); TSS_BM=1 in the bf16 lane (6 + 6 a batch, the
-   intra scans' products the bf16-operand kernel's) against the fp32 lane
-   (>= LANE_SNR_DB) and beside the default bf16 lane; a
+   TSS_FUSED_DENSE=1 (6 bilstm2_dense_forward + 6 masked launches per batch,
+   each dense call with its input and two output products, and no other
+   kernel) and with TSS_BM=1 (6 bilstm2_forward_bm + 6 masked, each after its
+   input product), each against the switch-off forward on a bucketed batch
+   (>= 60 dB); both switches in the bf16 lane (6 + 6 a batch, the intra
+   scans' products the bf16-operand kernel's) against the fp32 lane (>=
+   LANE_SNR_DB) and beside the default bf16 lane; a
    TrainerSpe run of one epoch with TSS_FUSED_DENSE=1 (12 residual-forward +
    12 backward launches per train step, 12 dense launches per eval step) and
    one train step against the switch-off step (loss within 1e-5 relative,
@@ -205,8 +211,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
    and 7; (b) the flagship served in both lanes on the same weights at
    batch 8 and 32 (chip_profile.py's and bench_serve.py's rows), the bf16
    lane >= LANE_SNR_DB against the fp32 lane, 6 + 6 bf16 serving scans per
-   batch, each after its input product (12 products), and no other kernel
-   (csrc/bilstm2.cu none); (c) the same at batch 8 for the causal and the
+   batch, each after its input product (12 products), and no other kernel;
+   (c) the same at batch 8 for the causal and the
    bidirectional DPRNN-TasNet, the 'add' fusion, IRA and RawNet; (d) a 5 x 3
    s train step in both lanes for TSS, causal BSS, IRA and RawNet (ms of the
    second step, peak memory, the bf16 launches per step: one more dx
@@ -237,8 +243,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
 Every serving count includes the input products: each
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
 lstm_forward launch one per direction (one on every path: the causal inter
-scan has D = 1), in both lanes (``with_products``), and the phases check
-those counts too.
+scan has D = 1), each bilstm2_forward_bm launch one and each
+bilstm2_dense_forward launch three (its input product and two output
+products), in both lanes (``with_products``), and the phases check those
+counts too.
 
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
@@ -411,14 +419,15 @@ def with_products(per_step, bf16: bool = False):
     """``per_step`` launches of the kernel wrappers, plus the input product
     that each serving scan (fp32 or bf16) launches first: one per bilstm2
     scan, and one per direction of an lstm_forward scan, whose paths all run
-    D = 1. The batch-major entry's is the 3xTF32 product in fp32 and, in
-    the bf16 lane (``bf16``), the bf16-operand one."""
+    D = 1; a dense-mode call adds its two output products. The batch-major
+    and dense entries' products are the 3xTF32 kernel's in fp32 and, in the
+    bf16 lane (``bf16``), the bf16-operand kernel's."""
     n = sum(per_step.get(k, 0) for k in ("bilstm2_forward", "bilstm2_forward_masked",
                                          "lstm_forward"))
-    bm = per_step.get("bilstm2_forward_bm", 0)
-    out = dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n + (0 if bf16 else bm))
-    if bf16 and bm:
-        out["products_gemm_bf16"] = per_step.get("products_gemm_bf16", 0) + bm
+    own = per_step.get("bilstm2_forward_bm", 0) + 3 * per_step.get("bilstm2_dense_forward", 0)
+    out = dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n + (0 if bf16 else own))
+    if bf16 and own:
+        out["products_gemm_bf16"] = per_step.get("products_gemm_bf16", 0) + own
     return out
 
 
@@ -1589,11 +1598,11 @@ def bound_gemm_bf16(M: int, N: int, K: int):
 def phase_optin_kernels(torch, dev):
     """Phase 10: the opt-in and test-only kernels against their plain
     versions, at the shapes of 8 x 10 s and a ragged one each, timed beside
-    the plain versions, their bounds and cuDNN. The batch-major and
-    manual-DMA kernels' entries run the serving route: in fp32 bit for bit
-    the default route's outputs, in bf16 through the bf16-operand product,
-    which is held and timed on its own too. Returns (entries, the bf16
-    product's entry)."""
+    the plain versions, their bounds and cuDNN. Every entry runs the serving
+    route: in fp32 bit for bit the default route's outputs where it computes
+    the same function, in bf16 through the bf16-operand product, which is
+    held and timed on its own too (the dense mode's output products alone as
+    well). Returns (entries, the bf16 product's entry)."""
     from tss_dprnn_tpu_torch.ops import bilstm2 as B2
     from tss_dprnn_tpu_torch.ops import lstm as L
 
@@ -1621,39 +1630,40 @@ def phase_optin_kernels(torch, dev):
     route = f"{SERVE_WITH} + {SERVE_SOURCE}"
     # name -> (wrapper, plain version, library call, source, replaces, bound,
     # input layout, the default route's call (fp32 bit for bit) or None,
-    # product launches per direction and call)
+    # product launches per call, the batch-major route's call (bf16 bit for
+    # bit) or None)
     kernels = {
         "bilstm2_dense_forward": (
             lambda x: B2.bilstm2_dense_forward(x, w_ih2, b2, w_hh2, wo2),
             lambda x: B2.bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2),
-            dense_library, "tss_dprnn_tpu_torch/csrc/bilstm2.cu",
-            "pallas_lstm.py:698 (dense mode, :969)",
+            dense_library, route, "pallas_lstm.py:698 (dense mode, :969)",
             lambda R, T, size, peak: bound_dense(R * T, R, T, F, H, Fo, size, peak), "rtf", None,
-            False),
+            3, None),
         "bilstm2_forward_bm": (
             lambda x: B2.bilstm2_forward_bm(x, w_ih2, b2, w_hh2),
             lambda x: B2.bilstm2_bm_reference(x, w_ih2, b2, w_hh2),
             lambda dt, x: lstms[dt](x)[0].split(H, dim=-1), route, "pallas_lstm.py:1088",
             lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf",
-            lambda x: B2.bilstm2_forward(x, w_ih2, b2, w_hh2), True),
+            lambda x: B2.bilstm2_forward(x, w_ih2, b2, w_hh2), 1, None),
         "bilstm_fused": (
             lambda x: L.bilstm_fused(x, w_ih2, w_hh2, b2),
             lambda x: L.bilstm_fused_reference(x, w_ih2, w_hh2, b2),
-            lambda dt, x: lstms[dt](x)[0], "tss_dprnn_tpu_torch/csrc/lstm.cu",
-            "pallas_lstm.py:57 (reverse_dir1, :171)",
-            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf", None, False),
+            lambda dt, x: lstms[dt](x)[0], route, "pallas_lstm.py:57 (reverse_dir1, :171)",
+            lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf",
+            lambda x: torch.cat(B2.bilstm2_forward(x, w_ih2, b2, w_hh2), dim=-1), 1,
+            lambda x: torch.cat(B2.bilstm2_forward_bm(x, w_ih2, b2, w_hh2), dim=-1)),
         "bilstm_v2": (
             lambda x: L.bilstm_v2(x, w_ih2, w_hh2, b2),
             lambda x: L.bilstm_v2_reference(x, w_ih2, w_hh2, b2),
             lambda dt, x: lstms[dt](x)[0], route, "pallas_lstm.py:275 (via :402)",
             lambda R, T, size, peak: bound(R * T, R, T, F, H, size, peak), "rtf",
-            lambda x: torch.cat(B2.bilstm2_forward(x, w_ih2, b2, w_hh2), dim=-1), True),
+            lambda x: torch.cat(B2.bilstm2_forward(x, w_ih2, b2, w_hh2), dim=-1), 1, None),
         "lstm_scan_v2": (
             lambda x: L.lstm_scan_v2(x, *w1),
             lambda x: L.lstm_v2_reference(x, *w1),
             lambda dt, x: lstms1[dt](x[0])[0], route, "pallas_lstm.py:275 (via :418)",
             lambda R, T, size, peak: bound_stack("forward", 1, R, T, F, H, size, peak), "drtf",
-            lambda x: L.lstm_forward(x, w1[0], w1[2], w1[1]), True),
+            lambda x: L.lstm_forward(x, w1[0], w1[2], w1[1]), 1, None),
     }
     shapes = {"bilstm2_dense_forward": (8 * S10, K), "bilstm2_forward_bm": (8 * S10, K),
               "bilstm_fused": (8 * S10, K), "bilstm_v2": (8 * S10, K),
@@ -1669,8 +1679,8 @@ def phase_optin_kernels(torch, dev):
         return all(torch.equal(u, v) for u, v in zip(a if isinstance(a, tuple) else (a,),
                                                       b if isinstance(b, tuple) else (b,)))
 
-    for name, (fn, plain, library, source, replaces, least, layout, default,
-               product) in kernels.items():
+    for name, (fn, plain, library, source, replaces, least, layout, default, products,
+               default16) in kernels.items():
         def make(R, T):
             x = torch.randn(R, T, F, generator=g).to(dev)
             return x[None] if layout == "drtf" else x
@@ -1685,12 +1695,14 @@ def phase_optin_kernels(torch, dev):
         got32, got16 = fn(x), fn(xb)
         torch.cuda.synchronize()
         per_call = {k2: v for k2, v in dict(all_launches(), **product_launches()).items() if v}
-        want_calls = {name: 2, **({"products_gemm": 1, "products_gemm_bf16": 1} if product
-                                  else {})}
+        want_calls = {name: 2, "products_gemm": products, "products_gemm_bf16": products}
         log(f"[optin-kernels] {name}: one fp32 and one bf16 call launched {per_call}")
         if per_call != want_calls:
             raise AssertionError(f"{name}: one fp32 and one bf16 call should launch {want_calls}, "
                                  f"counted {per_call}")
+        # the batch-major route's own launches, bf16: the same outputs bit for bit
+        bitwise16 = None if default16 is None else (same(got16, default16(xb))
+                                                    and same(fn(xrb), default16(xrb)))
         ref32 = flat(plain(x))
         err32 = float((flat(got32) - ref32).abs().max())
         ref16 = flat(plain(xb))
@@ -1711,12 +1723,16 @@ def phase_optin_kernels(torch, dev):
             f"T={ragged[1]}: {ragged_err:.3e}); bf16 SNR {snr16:.2f} dB, vs bf16 plain max|err|="
             f"{plain16_err:.3e} SNR {plain16_snr:.2f} dB (ragged {ragged16_err:.3e}, "
             f"{ragged16_snr:.2f} dB); library vs plain {library_err:.3e}"
-            + ("" if bitwise is None else f"; fp32 bit for bit the default route's: {bitwise}"))
+            + ("" if bitwise is None else f"; fp32 bit for bit the default route's: {bitwise}")
+            + ("" if bitwise16 is None else f"; bf16 bit for bit the batch-major route's: "
+               f"{bitwise16}"))
         if not max(err32, ragged_err) <= 1e-4:
             raise AssertionError(f"{name} fp32 disagrees with its plain version: {err32}, "
                                  f"ragged {ragged_err}")
         if bitwise is False:
             raise AssertionError(f"{name} fp32 differs from the default route's outputs")
+        if bitwise16 is False:
+            raise AssertionError(f"{name} bf16 differs from the batch-major route's outputs")
         snr_bar = V2_BF16_SNR_DB if name.endswith("v2") else BF16_SNR_DB
         if name.endswith("v2"):  # what the bar must tell apart: the h-only rounding
             h_only = flat(L.bilstm_fused_reference(xb, w_ih2, w_hh2, b2) if layout == "rtf"
@@ -1747,6 +1763,8 @@ def phase_optin_kernels(torch, dev):
                                                else "bidirectional"))}
         if bitwise is not None:
             entry["fp32_bit_for_bit_default_route"] = bitwise
+        if bitwise16 is not None:
+            entry["bf16_bit_for_bit_batch_major_route"] = bitwise16
         if name == "bilstm2_dense_forward":
             entry["shape"]["Fo"] = Fo
         for dt, key, peak, size in ((torch.float32, None, PEAK_FP32, 4),
@@ -1768,7 +1786,7 @@ def phase_optin_kernels(torch, dev):
                     entry[key]["h_only_rounding_snr_db"] = wrong_rounding_snr
             log(f"[optin-kernels] {name} {dt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                 f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
-        if product:  # the bf16-operand input product alone, and its share of a bf16 call
+        if products:  # the bf16-operand input product alone, and its share of a bf16 call
             N = (4 if layout == "drtf" else 8) * H
             w_cat = (w1[0][0] if layout == "drtf"
                      else w_ih2.transpose(0, 1).reshape(F, N)).bfloat16().contiguous()
@@ -1785,6 +1803,8 @@ def phase_optin_kernels(torch, dev):
                 f"ms, {2 * R * T * N * F / p_ms / 1e9:.1f} TFLOP/s, "
                 f"{100 * p_ms / entry['bf16']['ms']:.1f} % of the bf16 call")
             del pre
+        if name == "bilstm2_dense_forward":  # the two output products alone, both lanes
+            _dense_output_products(torch, dev, g, entry, R * T, H, wo2)
         entries.append(entry)
         del x, xb, xr, xrb, got32, got16, ref32, ref16
         torch.cuda.empty_cache()
@@ -1798,6 +1818,41 @@ def phase_optin_kernels(torch, dev):
     del lstms, lstms1
     torch.cuda.empty_cache()
     return entries, _bf16_product_entry(torch, dev, g, shapes["bilstm2_forward_bm"], F, H)
+
+
+def _dense_output_products(torch, dev, g, entry, M, H, wo2):
+    """The dense mode's two SplitDense products alone (y_d = h_d @ wo2[d] over
+    M row-steps, h_d read from a [M, 2H] scratch as the route reads it), per
+    lane: their ms, TFLOP/s and share of the entry's call, into ``entry``."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    Fo = wo2.shape[-1]
+    h = torch.rand(M, 2 * H, generator=g).to(dev) * 2 - 1
+    lib = B2._library_products()
+    stream = torch.cuda.current_stream().cuda_stream
+    for key, dt in ((None, torch.float32), ("bf16", torch.bfloat16)):
+        hh, wo = h.to(dt), wo2.to(dt).contiguous()
+        ys = [torch.empty(M, Fo, dtype=dt, device=dev) for _ in range(2)]
+
+        def run():
+            for d, y in enumerate(ys):
+                if dt == torch.bfloat16:
+                    B2._gemm_bf16(lib, stream, hh, d * H, wo[d], M, Fo, None, y, 0, Fo, lda=2 * H)
+                else:
+                    B2._gemm(lib, stream, False, [(hh, d * H, 2 * H, wo, d * H * Fo, Fo, H)], M, Fo,
+                             out=y, ldc=Fo)
+
+        ms = time_ms(run, 5)
+        nums = {"ms": ms, "tflops": 2 * 2 * M * H * Fo / ms / 1e9}
+        sub = entry if key is None else entry[key]
+        nums["share_of_call"] = ms / sub["ms"]
+        sub["output_products"] = nums
+        log(f"[optin-kernels] bilstm2_dense_forward {dt} output products alone (2 x M={M} N={Fo} "
+            f"K={H}): {ms:.3f} ms, {nums['tflops']:.1f} TFLOP/s, "
+            f"{100 * nums['share_of_call']:.1f} % of the call")
+        del hh, ys
+    del h
+    torch.cuda.empty_cache()
 
 
 def _bf16_product_entry(torch, dev, g, shape, F, H):
@@ -2496,12 +2551,14 @@ def _optin_paths(torch, dev, ckpt):
         del inf
     torch.cuda.empty_cache()
 
-    # -- the bf16 lane (model.dtype bfloat16) with TSS_BM=1: its intra scans
-    # through the batch-major entry's bf16-operand product, against the fp32
-    # lane (switch off) and the default bf16 lane on the same bucketed batch
+    # -- the bf16 lane (model.dtype bfloat16) under each switch: its intra
+    # scans through the batch-major or the dense entry, each on the
+    # bf16-operand products, against the fp32 lane (switch off) and the
+    # default bf16 lane on the same bucketed batch
     lengths = torch.from_numpy(batch["lengths"])
-    lanes = {}
-    for switch in (None, "TSS_BM"):
+    lanes, runs = {}, {}
+    for switch, kernel in ((None, None), ("TSS_BM", "bilstm2_forward_bm"),
+                           ("TSS_FUSED_DENSE", "bilstm2_dense_forward")):
         restore = with_env(switch, "1") if switch else (lambda: None)
         try:
             savedir = os.path.join(OUT_DIR, f"metrics_bf16_{switch or 'default'}")
@@ -2518,25 +2575,27 @@ def _optin_paths(torch, dev, ckpt):
             t0 = time.perf_counter()
             final = inf.run(ds, batch_size=batch_size, n_buckets=n_buckets)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(all_launches(), **product_launches())
+            runs[switch] = (kernel, time.perf_counter() - t0, final,
+                            dict(all_launches(), **product_launches()))
         finally:
             restore()
         del inf
-    vs_fp32 = _valid_snr(torch, lanes["TSS_BM"], outs[None], lengths)
-    vs_bf16 = _valid_snr(torch, lanes["TSS_BM"], lanes[None], lengths)
-    log(f"[optin] TSS_BM=1 bf16 lane: InferencerSpe.run {len(ds)} requests, {n_batches} batches "
-        f"in {wall:.3f} s = {audio_s / wall:.2f} audio-s/s; launches "
-        f"{ {k: v for k, v in launches.items() if v} }; final {final}; bucketed batch vs the fp32 "
-        f"lane {vs_fp32:.2f} dB, vs the default bf16 lane {vs_bf16:.2f} dB SNR")
-    expect_launches(launches, with_products({"bilstm2_forward_bm": n, "bilstm2_forward_masked": n},
-                                            bf16=True), n_batches, "TSS_BM=1 bf16 serving")
-    if not (vs_fp32 >= LANE_SNR_DB and torch.isfinite(lanes["TSS_BM"]).all()):
-        raise AssertionError(f"TSS_BM=1 bf16 lane vs the fp32 lane {vs_fp32:.2f} dB < "
-                             f"{LANE_SNR_DB}")
-    results["TSS_BM_bf16"] = {"launches": launches, "n_batches": n_batches,
-                              "audio_s_per_s": audio_s / wall, "final": final,
-                              "vs_fp32_lane_snr_db": vs_fp32, "vs_default_bf16_lane_snr_db": vs_bf16}
+    for switch, (kernel, wall, final, launches) in runs.items():
+        vs_fp32 = _valid_snr(torch, lanes[switch], outs[None], lengths)
+        vs_bf16 = _valid_snr(torch, lanes[switch], lanes[None], lengths)
+        log(f"[optin] {switch}=1 bf16 lane: InferencerSpe.run {len(ds)} requests, {n_batches} "
+            f"batches in {wall:.3f} s = {audio_s / wall:.2f} audio-s/s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; final {final}; bucketed batch vs the "
+            f"fp32 lane {vs_fp32:.2f} dB, vs the default bf16 lane {vs_bf16:.2f} dB SNR")
+        expect_launches(launches, with_products({kernel: n, "bilstm2_forward_masked": n},
+                                                bf16=True), n_batches, f"{switch}=1 bf16 serving")
+        if not (vs_fp32 >= LANE_SNR_DB and torch.isfinite(lanes[switch]).all()):
+            raise AssertionError(f"{switch}=1 bf16 lane vs the fp32 lane {vs_fp32:.2f} dB < "
+                                 f"{LANE_SNR_DB}")
+        results[f"{switch}_bf16"] = {"launches": launches, "n_batches": n_batches,
+                                     "audio_s_per_s": audio_s / wall, "final": final,
+                                     "vs_fp32_lane_snr_db": vs_fp32,
+                                     "vs_default_bf16_lane_snr_db": vs_bf16}
     torch.cuda.empty_cache()
 
     # -- training: one epoch under TSS_FUSED_DENSE=1, then one step on and off
@@ -4378,8 +4437,7 @@ def main() -> int:
     log(f"[setup] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = ("bilstm2", "bilstm2_serve", "bilstm2_resid", "bilstm2_bwd", "products", "lstm",
-                 "lstm_bwd")
+    libraries = ("bilstm2_serve", "bilstm2_resid", "bilstm2_bwd", "products", "lstm", "lstm_bwd")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "
@@ -4388,7 +4446,8 @@ def main() -> int:
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
-    ptxas = ptxas_report(_build.build_logs, ("serve_scan_kernel", "bf16_gemm_kernel"))
+    ptxas = ptxas_report(_build.build_logs, ("serve_scan_kernel", "bf16_gemm_kernel",
+                                             "lstm_kernel"))
     for kernel, rep in ptxas.items():
         log(f"[setup] ptxas {kernel}: {rep['registers']} registers, {rep['spill_stores']} B spill "
             f"stores, {rep['spill_loads']} B spill loads")
@@ -4474,10 +4533,14 @@ def main() -> int:
             e["launches"] = e["launches_per_fp32_and_bf16_call"][e["name"]]
         if e["name"] == "bilstm2_dense_forward":
             e["launches_per_training_run"] = optin["training"]["launches"][e["name"]]
-        if e["name"] == "bilstm2_forward_bm":
-            e["launches_bf16_lane"] = optin["TSS_BM_bf16"]["launches"][e["name"]]
+        for switch, kernel in (("TSS_BM", "bilstm2_forward_bm"),
+                               ("TSS_FUSED_DENSE", "bilstm2_dense_forward")):
+            if e["name"] == kernel:  # the bf16 lane's run under the switch
+                e["launches_bf16_lane"] = optin[f"{switch}_bf16"]["launches"][kernel]
     bf16_product["path"] = "TSS_BM=1 serving in the bf16 lane (6 intra scans per batch)"
     bf16_product["launches"] = optin["TSS_BM_bf16"]["launches"]["products_gemm_bf16"]
+    bf16_product["launches_tss_fused_dense_bf16_lane"] = (
+        optin["TSS_FUSED_DENSE_bf16"]["launches"]["products_gemm_bf16"])
     entries += optin_kernels + [bf16_product]
     t0 = time.perf_counter()
     tiny = phase_tiny_widths(torch, dev)

@@ -14,8 +14,10 @@ warm-up) at chip_smoke.py's shapes of 8 x 10 s of
   ``bilstm2_forward_masked`` (R=2000 T=642, ragged lengths), fp32 and bf16,
   and ``lstm_forward`` D=1 (R=2000 T=642), fp32 and bf16;
 - the batch-major and manual-DMA kernels' entries, ``bilstm2_forward_bm`` and
-  ``bilstm_v2`` (R=5136 T=250) and ``lstm_scan_v2`` D=1 (R=2000 T=642), fp32
-  and bf16, whichever kernels the tree runs them on.
+  ``bilstm_v2`` (R=5136 T=250) and ``lstm_scan_v2`` D=1 (R=2000 T=642), the
+  dense mode ``bilstm2_dense_forward`` (R=5136 T=250, Fo=128) and the
+  shared-input pair ``bilstm_fused`` (R=5136 T=250), fp32 and bf16,
+  whichever kernels the tree runs them on.
 
 Run it on two trees in turns in one call (parent, change, change, parent)
 to compare them on one card; each process starts with nothing loaded, and a
@@ -58,12 +60,12 @@ def main() -> int:
     if not os.path.dirname(B.__file__).startswith(tree):
         raise RuntimeError(f"imported {B.__file__}, not from {tree}")
     csrc = os.path.join(tree, "tss_dprnn_tpu_torch", "csrc")
-    libs = [n for n in ("bilstm2_serve", "products", "bilstm2_bm", "lstm_v2")
+    libs = [n for n in ("bilstm2_serve", "products", "bilstm2", "lstm")
             if os.path.exists(os.path.join(csrc, f"{n}.cu"))]
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(_build.load_library, libs))
     ptxas = cs.ptxas_report(_build.build_logs, ("serve_scan_kernel", "gemm_kernel",
-                                                "slab_kernel"))
+                                                "bilstm2_kernel", "lstm_kernel"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
@@ -78,6 +80,7 @@ def main() -> int:
     (Ru, Tu, _), (Rm, Tm, lens) = shapes["unmasked"], shapes["masked"]
     xu = torch.randn(Ru, Tu, F, generator=g).to(dev)
     xm = torch.randn(Rm, Tm, F, generator=g).to(dev)
+    wo2 = (torch.rand(2, H, 128, generator=g) * 2 * k - k).to(dev)
     calls = {
         "bilstm2_forward": lambda x: B.bilstm2_forward(x, w_ih2, b2, w_hh2),
         "bilstm2_forward_masked": lambda x: B.bilstm2_forward_masked(x, lens, w_ih2, b2, w_hh2),
@@ -85,9 +88,12 @@ def main() -> int:
         "bilstm2_forward_bm": lambda x: B.bilstm2_forward_bm(x, w_ih2, b2, w_hh2),
         "bilstm_v2": lambda x: L.bilstm_v2(x, w_ih2, w_hh2, b2),
         "lstm_scan_v2": lambda x: L.lstm_scan_v2(x[None], w1[0], w1[2], w1[1]),
+        "bilstm2_dense_forward": lambda x: B.bilstm2_dense_forward(x, w_ih2, b2, w_hh2, wo2),
+        "bilstm_fused": lambda x: L.bilstm_fused(x, w_ih2, w_hh2, b2),
     }
     inputs = {"bilstm2_forward": xu, "bilstm2_forward_masked": xm, "lstm_forward": xm,
-              "bilstm2_forward_bm": xu, "bilstm_v2": xu, "lstm_scan_v2": xm}
+              "bilstm2_forward_bm": xu, "bilstm_v2": xu, "lstm_scan_v2": xm,
+              "bilstm2_dense_forward": xu, "bilstm_fused": xu}
     rows = {}
     for name, fn in calls.items():
         for dt, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):

@@ -9,8 +9,8 @@ maps back to W_hh, and the fragments its lanes read give h @ W_hh in an
 emulation of ldmatrix and mma.m16n8k16 (float64, exact on bf16 values); the
 route on a stand-in card (``torch.Tensor.is_cuda`` patched true, the
 libraries replaced by recorders) reaches the product and the serving scan
-with the stream type's code and layout, never csrc/bilstm2.cu nor
-csrc/lstm.cu's h-only mode, and fp16 raises before any launch.
+with the stream type's code and layout, never csrc/lstm.cu (which keeps only
+the cell-state mode), and fp16 raises before any launch.
 
 On the card (``cuda`` tests, run there with ``python -m pytest --noconftest
 -m cuda tests/test_torch_port_bf16_serve.py``) the route is held against the
@@ -128,8 +128,10 @@ class _Recorder:
 @pytest.fixture
 def stand_in_card(monkeypatch):
     """CPU tensors pass for CUDA ones and the libraries record their calls;
-    csrc/bilstm2.cu must not be built or launched. The card runs 132
-    clusters of 16-row bf16 tiles at once and 66 of everything else."""
+    ops/bilstm2 loads no library of its own besides the product and scan
+    kernels' (csrc/bilstm2.cu, the dense mode's first design, is gone). The
+    card runs 132 clusters of 16-row bf16 tiles at once and 66 of
+    everything else."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -139,11 +141,7 @@ def stand_in_card(monkeypatch):
         monkeypatch.setattr(mod, "_library_products", lambda: libs["products"])
         monkeypatch.setattr(mod, "_library_serve", lambda: libs["serve"])
     monkeypatch.setattr(L, "_library", lambda: libs["lstm"])
-
-    def no_bilstm2_cu():
-        raise AssertionError("csrc/bilstm2.cu reached")
-
-    monkeypatch.setattr(B, "_library", no_bilstm2_cu)
+    assert not hasattr(B, "_library")
 
     def max_clusters(which, H, device, height, dtype):
         return 132 if (which, height, dtype) == ("serve", 16, torch.bfloat16) else 66

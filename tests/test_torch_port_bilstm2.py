@@ -113,7 +113,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "CUDA_ROOTS", ())
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load_library("bilstm2", build_dir=tmp_path)
+        _build.load_library("bilstm2_serve", build_dir=tmp_path)
 
 
 @pytest.mark.cuda

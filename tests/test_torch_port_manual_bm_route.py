@@ -186,7 +186,7 @@ def test_entries_take_the_serving_route(monkeypatch):
         L.lstm_scan_v2(x[None], *w1)
     assert [(c[0], c[1][0], c[2]) for c in calls[:3]] == [
         ("serve", B.bilstm2_forward_bm, {"bf16_product": True}),
-        ("serve", L.bilstm_v2, {"bf16_product": True, "v2": True}),
+        ("serve", L.bilstm_v2, {"bf16_product": True, "side_by_side": True, "v2": True}),
         ("scan", L.lstm_scan_v2, {"v2": True})]
     assert calls[2][1][1] == L._MODE_H and len(calls) == 6
     before = B.launch_count(), L.launch_count(), dict(B.product_launch_counts())
@@ -248,13 +248,12 @@ def test_pair_entries_route_arguments(stand_in_card, entry, dtype):
     fn = getattr(L if v2 else B, entry)
     low = dtype == torch.bfloat16
     before = fn.launches, dict(B.product_launch_counts())
-    out = B._launch_serve(fn, x, w_ih, b, w_hh, None, bf16_product=True, v2=v2)
+    out = B._launch_serve(fn, x, w_ih, b, w_hh, None, bf16_product=True, side_by_side=v2, v2=v2)
     (gemm, gargs), = libs["products"].calls
     if low:
-        # (a, lda, b, ldb, K, bias, c, ldc, M, N, stream)
+        # (a, lda, b, ldb, K, bias, c, ldc, M, N, c_bf16, stream)
         assert gemm == "products_gemm_bf16" and gargs[0] == x.data_ptr()
-        assert (gargs[1], gargs[3], gargs[4], gargs[7], gargs[8], gargs[9], gargs[10]) == (
-            F, 8 * H, F, 8 * H, R * T, 8 * H, 7)
+        assert gargs[1:2] + gargs[3:5] + gargs[7:] == (F, 8 * H, F, 8 * H, R * T, 8 * H, 0, 7)
     else:
         assert gemm == "products_gemm" and gargs[0] == 0 and gargs[-6:-4] == (R * T, 8 * H)
     pre = gargs[6] if low else gargs[12]

@@ -393,13 +393,26 @@ def test_dense_kernel_matches_reference_on_card(dtype, Fo):
 
 
 @pytest.mark.cuda
-def test_dense_kernel_rejects_what_it_does_not_take():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernel_rejects_what_it_does_not_take(dtype):
+    """The dense mode takes every Fo >= 1, as the JAX entry does: Fo wider
+    than H (130) and no multiple of the product kernel's 4 or 8 (6) match the
+    plain version. A wo2 that is not [2, H, Fo] is still refused before any
+    launch."""
     _needs_card()
-    x, w_ih, b, w_hh = _card_case(R=4, T=3)
-    before = port2.launch_count()
+    x, w_ih, b, w_hh = _card_case(R=40, T=21)
+    x = x[0].to(dtype)
     for Fo in (130, 6):  # wider than H; not a multiple of 4
-        with pytest.raises(ValueError, match="wo2 must be"):
-            port2.bilstm2_dense_forward(x[0], w_ih, b, w_hh, torch.zeros(2, 128, Fo, device="cuda"))
+        wo2 = torch.rand(2, 128, Fo, device="cuda") * 0.2 - 0.1
+        before = port2.bilstm2_dense_forward.launches
+        got = port2.bilstm2_dense_forward(x, w_ih, b, w_hh, wo2)
+        assert port2.bilstm2_dense_forward.launches == before + 1
+        for g, r in zip(got, port2.bilstm2_dense_reference(x, w_ih, b, w_hh, wo2)):
+            assert g.shape == (40, 21, Fo)
+            _assert_kernel_close(g, r, dtype)
+    before = port2.launch_count()
+    with pytest.raises(ValueError, match="wo2 must be"):
+        port2.bilstm2_dense_forward(x, w_ih, b, w_hh, torch.zeros(2, 64, 8, device="cuda"))
     assert port2.launch_count() == before
 
 

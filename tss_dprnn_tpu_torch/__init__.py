@@ -14,16 +14,15 @@ against.
 The port imports torch, numpy and the standard library only. Its
 hand-written kernels are built with nvcc at first use: the fused
 bidirectional LSTM scan, its serving scan, training forward and backward
-(``ops/bilstm2.py`` + ``csrc/bilstm2.cu``, ``csrc/bilstm2_serve.cu``,
-``csrc/bilstm2_resid.cu``, ``csrc/bilstm2_bwd.cu``, with the products of
-``csrc/products.cu``), the
+(``ops/bilstm2.py`` + ``csrc/bilstm2_serve.cu``, ``csrc/bilstm2_resid.cu``,
+``csrc/bilstm2_bwd.cu``, with the products of ``csrc/products.cu``), the
 stacked-direction LSTM scan and its backward (``ops/lstm.py``: forwards on
-the same products and serving or training scans, the cell-state and
-shared-input modes on ``csrc/lstm.cu``, the backward ``csrc/lstm_bwd.cu``),
-and the opt-in and test-only scans: the dense mode (``csrc/bilstm2.cu``),
-and the batch-major and manual-DMA kernels' entries on the serving route
-(their bf16 streams through the bf16-operand product of
-``csrc/products.cu``).
+the same products and serving or training scans, the cell-state mode on
+``csrc/lstm.cu``, the backward ``csrc/lstm_bwd.cu``), and the opt-in and
+test-only scans, all on the serving route: the dense mode (its SplitDense
+products on ``csrc/products.cu`` after the scan), the shared-input pair and
+the batch-major and manual-DMA kernels' entries (their bf16 streams through
+the bf16-operand product of ``csrc/products.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see :func:`tss_dprnn_tpu_torch.device.resolve_device`). The command-line
 entry points (``cli.generate_manifests``, ``cli.train``, ``cli.test``, each

@@ -5,10 +5,15 @@
 // Replaces four TPU kernels in their inference modes, both stream types:
 // - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698) unmasked and
 //   masked (`bilstm2_forward` :935, `bilstm2_forward_masked` :949), the modes
-//   every fused bidirectional serving scan runs;
+//   every fused bidirectional serving scan runs, and the scan of its dense
+//   mode (`bilstm2_dense_forward` :969): the outputs side by side into a
+//   scratch that the SplitDense products of csrc/products.cu read
+//   (ops/bilstm2.py), where the TPU kernel runs h @ wo in its epilogue;
 // - `_lstm_kernel` (:57, launched by _pallas_core :231) in its h-only mode
 //   (`lstm_forward`): D stacked directions, each on its own input in forward
-//   time, the causal DPRNN's inter-chunk scan;
+//   time, the causal DPRNN's inter-chunk scan; and in its `reverse_dir1`
+//   mode (`bilstm_pallas_fused` :171): the pair on one shared x, direction 1
+//   reversed, the outputs side by side (out_step 2H);
 // - `_bilstm2_bm_kernel` (:1088, launched by bilstm2_forward_bm :1193): the
 //   pair's unmasked function in the batch-major layout, which the port uses
 //   throughout (ops/bilstm2.bilstm2_forward_bm); the TPU entry pads T to its
@@ -89,8 +94,10 @@
 //
 // Modes (kMode), compiled apart so that the default route's kernels stay as
 // they were: 0, the outputs [R, T, H] each and h the only rounded value (every
-// default serving scan); 1 (fp32), the outputs at a row-step stride out_step
-// (`bilstm_pallas_v2`'s two side by side); 2 (bf16 streams, dtype 2), that
+// default serving scan); 1, the outputs at a row-step stride out_step with
+// h-only rounding (the two side by side: fp32 `bilstm_pallas_v2`, and both
+// stream types of `bilstm_pallas_fused` and of the dense mode's scan); 2
+// (bf16 streams, dtype 2), that
 // stride and the manual-DMA kernel's rounding: its source computes in the
 // stream type (pallas_lstm.py:334-340), so the cell update rounds to bf16 the
 // gates round(P + h @ W_hh), each operation of the activations (the sigmoid's
@@ -98,7 +105,8 @@
 // with c carried in fp32. fp32 streams round nowhere, so the manual-DMA
 // kernel's fp32 entries run mode 0 or 1. Modes 1 and 2 take the shared memory
 // and threads of mode 0, with registers capped at 128 by the launch bounds:
-// the same occupancy.
+// the same occupancy (the bf16 query asks modes 0 and 1 and answers the
+// smaller count, so one tile plan serves both).
 //
 // Accuracy: the 3xTF32 products keep about 22 mantissa bits (the product
 // kernel's error against float64 is 1.2e-7 to 5.1e-7 of max |ref|,
@@ -450,7 +458,7 @@ extern "C" {
 // 4 gate, 2 e], element W_hh[d][16 ks + 8 j + 2 lt + e][gate * H + c H / 2 +
 // 8 w + lg]. out0, out1: direction 0's and 1's outputs, unit u of row-step (r,
 // t) at (r * T + t) * out_step + u: out_step = H for [R, T, H] each, 2H for
-// the two side by side in one [R, T, 2H] (out1 = out0 + H; dtype 0 or 2);
+// the two side by side in one [R, T, 2H] (out1 = out0 + H; any dtype);
 // out1 unused with one direction. reverse1: direction 1 scans t = T-1..0.
 // lens: [R] int32 or null (only with reverse1). Every pointer 16-byte
 // aligned, out_step and H multiples of 16, H at most 128. Returns a
@@ -468,20 +476,26 @@ int bilstm2_serve_scan(int height, int dtype, const void* pre, const void* wfrag
   };
   switch (dtype) {
     case 0: return out_step == H ? args(scan<float, 0>) : args(scan<float, 1>);
-    case 1:  // no bf16 instantiation takes outputs side by side with h-only rounding
-      return out_step == H ? args(scan<__nv_bfloat16, 0>)
-                           : static_cast<int>(cudaErrorInvalidValue);
+    case 1: return out_step == H ? args(scan<__nv_bfloat16, 0>) : args(scan<__nv_bfloat16, 1>);
     case 2: return args(scan<__nv_bfloat16, 2>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // How many clusters of the scan at this tile height and dtype (as above) the
-// card runs at once.
+// card runs at once. dtype 1 answers the smaller count of its two
+// instantiations (outputs H apart, and side by side), which take the same
+// threads and shared memory: one tile plan serves both.
 int bilstm2_serve_max_clusters(int height, int dtype, int H, int* n) {
   switch (dtype) {
     case 0: return clusters<float, 0>(height, H, n);
-    case 1: return clusters<__nv_bfloat16, 0>(height, H, n);
+    case 1: {
+      int apart = 0, side = 0;
+      int rc = clusters<__nv_bfloat16, 0>(height, H, &apart);
+      if (rc == 0) rc = clusters<__nv_bfloat16, 1>(height, H, &side);
+      *n = apart < side ? apart : side;
+      return rc;
+    }
     case 2: return clusters<__nv_bfloat16, 2>(height, H, n);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

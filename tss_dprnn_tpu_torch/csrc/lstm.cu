@@ -1,39 +1,31 @@
 // LSTM scan over D stacked directions, one input each, for Hopper (sm_90a):
-// the cell-state training forward and the bidirectional mode on one shared
-// input.
+// the cell-state training forward.
 //
 // Replaces the TPU kernel `_lstm_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:57,
 // launched by _pallas_core :231) in its `want_cs` mode (fp32 and bf16
-// streams) and its `reverse_dir1` mode. Its h-only and `want_resid` modes,
-// which BSS serving and training run, are the input product of
-// csrc/products.cu followed by the cluster scans of csrc/bilstm2_serve.cu and
-// csrc/bilstm2_resid.cu. Per step and direction d, on that direction's own
-// input x[d]:
+// streams). Its h-only and `want_resid` modes, which BSS serving and training
+// run, and its `reverse_dir1` mode (`bilstm_pallas_fused` :171) are the input
+// product of csrc/products.cu followed by the cluster scans of
+// csrc/bilstm2_serve.cu and csrc/bilstm2_resid.cu. Per step and direction d,
+// on that direction's own input x[d]:
 //   g = x_t @ W_ih[d] + h @ W_hh[d] + b[d]      (fp32 accumulator)
 //   i, f, o = sigmoid(g_i, g_f, g_o); gg = tanh(g_g)   (torch gate order i, f, g, o)
 //   c = f * c + i * gg                          (fp32)
 //   h = round_to_stream_type(o * tanh(c))       (fed back rounded)
-// Every direction scans t = 0..T-1: a caller that wants a reversed direction
-// flips its input beforehand, as the TPU kernel's callers do. With D = 1 it is
-// the unidirectional inter-chunk scan of a causal DPRNN. Modes (compile-time):
-//   kModeCs     h and the fp32 cell state after every step (pallas_lstm.py:114
-//               writes cs in fp32 whatever the stream type), fp32 or bf16
-//               streams: the forward of `lstm_save_every`'s segment-
-//               checkpointed recurrence;
-//   kModeH      h only, with kShared.
-// kShared (h only, D = 2; `bilstm_pallas_fused` :171, the TPU kernel's
-// `reverse_dir1` with one input buffer): both directions read one x [R, T, F];
-// direction 1's step s reads x_{T-1-s} and writes its h at T-1-s, so both
-// outputs come back in forward time. The TPU kernel folds that reversal into
-// its index maps; here it is the step's time index.
-// There is no masked mode: steps past a row's length compute on whatever the
-// input holds there, and the consumer masks them.
+// and writes h and the fp32 cell state after every step (pallas_lstm.py:114
+// writes cs in fp32 whatever the stream type): the forward of
+// `lstm_save_every`'s segment-checkpointed recurrence. Every direction scans
+// t = 0..T-1: a caller that wants a reversed direction flips its input
+// beforehand, as the TPU kernel's callers do. With D = 1 it is the
+// unidirectional inter-chunk scan of a causal DPRNN. There is no masked mode:
+// steps past a row's length compute on whatever the input holds there, and
+// the consumer masks them.
 //
 // What bounds it: the arithmetic, 2 * (F + H) * 4H = 262,144 FLOP per row-step
 // and direction at F = H = 128 against 2 * (F + H) bytes of fresh input and
-// output (and 4H bytes of c in kModeCs). The time loop is sequential, so all
-// parallelism comes from rows and directions, and with D = 1 there are half
-// as many blocks as a bidirectional scan has at the same rows.
+// output and 4H bytes of c. The time loop is sequential, so all parallelism
+// comes from rows and directions, and with D = 1 there are half as many
+// blocks as a bidirectional scan has at the same rows.
 //
 // Design (the first, simple one; the serving and training scans were
 // redesigned as cluster scans, this one was not): one block per (direction,
@@ -59,14 +51,13 @@ constexpr int kRows = 8 * kNR;  // rows per block
 constexpr int kKChunk = 16;    // k-rows of W per shared-memory chunk
 constexpr int kMaxThreads = 256;
 
-constexpr int kModeH = 0;
-constexpr int kModeCs = 1;
+constexpr int kModeCs = 1;  // the C interface's mode number (ops/lstm.py _MODE_CS)
 
 // Grid (ceil(R / 16), D): blockIdx.y is the direction. Threads: 2H (8 row
-// groups x H/4 unit groups). x [D, R, T, F] (kShared: [R, T, F]) and out
-// [D, R, T, H] are contiguous in the stream type; kModeCs writes the cell
-// state after every step to cs [D, R, T, H] (fp32).
-template <typename T, int kMode, bool kShared = false>
+// groups x H/4 unit groups). x [D, R, T, F] and out [D, R, T, H] are
+// contiguous in the stream type; the cell state after every step goes to cs
+// [D, R, T, H] (fp32).
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
             const float* __restrict__ w_hh, const float* __restrict__ b, T* __restrict__ out,
@@ -91,8 +82,6 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   // row gr of direction d: a 64-bit row offset, a 32-bit offset within the row
   const long long drow0 = static_cast<long long>(d) * R;
   auto at = [&](auto* p, int gr, int t) { return p + (drow0 + gr) * (Tn * H) + t * H; };
-  const long long xrow0 = kShared ? 0 : drow0;  // kShared: one input for both
-  const bool rev = kShared && d == 1;          // ... and direction 1 walks it backwards
 
   float c[kNR][4];
 #pragma unroll
@@ -107,7 +96,7 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       const int r = v / vec_per_row;
       const int e = (v - r * vec_per_row) * (16 / static_cast<int>(sizeof(T)));
       const int gr = row0 + r;
-      const T* src = gr < R ? x + (xrow0 + gr) * (Tn * F) + t * F + e : x;
+      const T* src = gr < R ? x + (drow0 + gr) * (Tn * F) + t * F + e : x;
       cp_async16(xs + r * xp + e, src, gr < R ? 16 : 0);
     }
   };
@@ -122,11 +111,10 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
   const int n_chunks = K / kKChunk;
   int q = 0;  // chunks issued so far; chunk q % n_chunks sits in buffer q % 2
   load_w(0, 0);
-  load_x(rev ? Tn - 1 : 0);
+  load_x(0);
   cp_async_commit();
 
-  for (int s = 0; s < Tn; ++s) {
-    const int t = rev ? Tn - 1 - s : s;
+  for (int t = 0; t < Tn; ++t) {
     float acc[4][kNR][4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
@@ -152,8 +140,8 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
         mac_chunk<kKChunk>(acc, hs + rg * hp + (k0 - F), hp, wc, G, H, u4);
     }
     __syncthreads();  // every thread is done reading x_t and h
-    if (s + 1 < Tn) {
-      load_x(rev ? t - 1 : t + 1);
+    if (t + 1 < Tn) {
+      load_x(t + 1);
       cp_async_commit();
     }
 #pragma unroll
@@ -173,24 +161,24 @@ lstm_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
       store4(hs + row * hp + u4, hv);
       if (gr < R) {
         store4(at(out, gr, t) + u4, hv);
-        if constexpr (kMode == kModeCs) store4(at(cs, gr, t) + u4, c[r]);
+        store4(at(cs, gr, t) + u4, c[r]);
       }
     }
   }
   cp_async_wait_all();  // the last step prefetched a chunk nobody reads
 }
 
-template <typename T, int kMode, bool kShared = false>
+template <typename T>
 int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, void* out,
            float* cs, int D, int R, int Tn, int F, int H, cudaStream_t stream) {
   const size_t smem = kRows * (F + 16 / sizeof(T)) * sizeof(T) + kRows * (H + 4) * sizeof(float) +
                       2 * kKChunk * 4 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lstm_kernel<T, kMode, kShared>,
+  cudaError_t err = cudaFuncSetAttribute(lstm_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, D);
-  lstm_kernel<T, kMode, kShared><<<grid, 2 * H, smem, stream>>>(
+  lstm_kernel<T><<<grid, 2 * H, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w_ih), static_cast<const float*>(w_hh),
       static_cast<const float*>(b), static_cast<T*>(out), cs, R, Tn, F, H);
   return static_cast<int>(cudaGetLastError());
@@ -201,34 +189,20 @@ int launch(const void* x, const void* w_ih, const void* w_hh, const void* b, voi
 extern "C" {
 
 // mode 1: h and the cell state after every step, cs [D, R, T, H] fp32;
-// dtype 0 = float32 streams, 1 = bfloat16 streams (x and h). The h-only and
-// residual modes run the cluster scans (see the header) and are refused
-// here. x: [D, R, T, F] and out: [D, R, T, H], contiguous in the stream
-// type; w_ih: [D, F, 4H], w_hh: [D, H, 4H], b: [D, 4H], fp32 (holding
-// stream-type values). Every pointer 16-byte aligned; F and H multiples of
-// 16, H <= 128. Returns a cudaError_t code (0 = launched).
+// dtype 0 = float32 streams, 1 = bfloat16 streams (x and h). The other modes
+// run the cluster scans (see the header) and are refused here. x: [D, R, T,
+// F] and out: [D, R, T, H], contiguous in the stream type; w_ih: [D, F, 4H],
+// w_hh: [D, H, 4H], b: [D, 4H], fp32 (holding stream-type values). Every
+// pointer 16-byte aligned; F and H multiples of 16, H <= 128. Returns a
+// cudaError_t code (0 = launched).
 int lstm_forward(int dtype, int mode, const void* x, const void* w_ih, const void* w_hh,
                  const void* b, void* out, void* cs, int D, int R, int Tn, int F, int H,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode != kModeCs) return static_cast<int>(cudaErrorInvalidValue);
   float* c = static_cast<float*>(cs);
-  if (dtype == 0) return launch<float, kModeCs>(x, w_ih, w_hh, b, out, c, D, R, Tn, F, H, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kModeCs>(x, w_ih, w_hh, b, out, c, D, R, Tn, F, H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Both directions over one shared input (h only): x [R, T, F], out [2, R, T, H]
-// with direction 1 scanned from T-1 down to 0 and written in forward time;
-// w_ih: [2, F, 4H], w_hh: [2, H, 4H], b: [2, 4H]. Otherwise as lstm_forward.
-int lstm_bidir_forward(int dtype, const void* x, const void* w_ih, const void* w_hh,
-                       const void* b, void* out, int R, int Tn, int F, int H, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, kModeH, true>(x, w_ih, w_hh, b, out, nullptr, 2, R, Tn, F, H, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kModeH, true>(x, w_ih, w_hh, b, out, nullptr, 2, R, Tn, F, H, s);
+  if (dtype == 0) return launch<float>(x, w_ih, w_hh, b, out, c, D, R, Tn, F, H, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w_ih, w_hh, b, out, c, D, R, Tn, F, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -49,9 +49,14 @@
 // itself bit for bit.
 //
 // The bf16-operand product (bf16_gemm_kernel, products_gemm_bf16) serves the
-// bf16 streams of `_lstm_manual_kernel`'s and `_bilstm2_bm_kernel`'s
-// counterparts (ops/lstm.lstm_scan_v2, bilstm_v2; ops/bilstm2.
-// bilstm2_forward_bm): x and W_ih hold bf16 values, so mma.sync m16n8k16 bf16
+// bf16 streams of `_lstm_manual_kernel`'s, `_bilstm2_bm_kernel`'s and
+// `_lstm_kernel`'s `reverse_dir1` counterparts (ops/lstm.lstm_scan_v2,
+// bilstm_v2, bilstm_fused; ops/bilstm2.bilstm2_forward_bm) and of the dense
+// mode (ops/bilstm2.bilstm2_dense_forward), which runs it twice more for the
+// SplitDense products y_d = h_d @ wo[d] of `_bilstm2_kernel`'s epilogue
+// (pallas_lstm.py:766-769, :813-816) with a bf16 C, rounded once from the
+// fp32 sum as the TPU kernel's jnp.dot(h, wo, preferred_element_type=f32)
+// .astype(bf16) rounds. x and W_ih hold bf16 values, so mma.sync m16n8k16 bf16
 // forms the same exact products as an fp32 product of them, and the 3xTF32
 // split would multiply zeros (a bf16 value is a TF32 value: its small part is
 // 0). What bounds it is the store: P is fp32, 4H (8H for the pair) floats per
@@ -63,9 +68,11 @@
 // shorten the smaller term. Its accumulation chains the K / 16 mma of a tile
 // (8 at K = 128) into one fp32 accumulator, which truncates each add: at K =
 // 128 that stays within a few fp32 ulps of the sum, far inside the bf16
-// streams' needs (the gates are rounded to bf16, or h is), and chip_smoke.py
-// phase 10 reports its error against float64 beside torch.matmul's fp32 one
-// (PERF.md).
+// streams' needs (the gates are rounded to bf16, or h is, or C itself), and
+// chip_smoke.py phase 10 reports its error against float64 beside
+// torch.matmul's fp32 one (PERF.md). The output type is a template
+// parameter: fp32 C for P, bf16 C for the dense mode's outputs (half the
+// bytes of the store that bounds it).
 
 #include "tf32_mma.cuh"
 
@@ -239,16 +246,19 @@ __global__ void __launch_bounds__(256, 2) gemm_kernel(GemmArgs p) {
 
 // ---- bf16 operands: C = A @ B + bias, fp32 accumulation ----------------------
 //
-// The input product of the manual-DMA and batch-major kernels' bf16 streams
-// (see the header): A is x, bf16 [M, K] in row layout, B is W_ih, bf16
-// [K, N]. Block tiles of 128 x 128 outputs, 256 threads in 8 warps of 32 x 64;
+// The bf16 streams' input product (see the header): A is x, bf16 [M, K] in
+// row layout, B is W_ih, bf16 [K, N]; or the dense mode's output product, A
+// a direction's h (row pitch 2H), B its wo. OutT is C's type, fp32 or bf16
+// (rounded once from the fp32 sum plus the bias). Block tiles of 128 x 128
+// outputs, 256 threads in 8 warps of 32 x 64;
 // a ring of kHStages 32-deep k-tiles of A ([m][k]) and B ([k][n]) filled by
 // cp.async a few tiles ahead; per 16-deep k-step a warp loads its two A
 // fragments by ldmatrix and its B fragments, two n-tiles at a time, by
 // ldmatrix.trans, and issues 16 mma.sync m16n8k16, each chained into its
 // accumulator. Then the tile goes through shared memory (the ring's space,
 // reused): each warp stores its fragments plus the bias there, and whole
-// 512-byte rows of C leave in 16-byte stores, a warp's 32 lanes on one row.
+// rows of C leave, a warp's 32 lanes on one row: 16-byte stores of four fp32,
+// or 8-byte stores of four bf16.
 constexpr int kHBM = 128, kHBN = 128, kHBK = 32, kHStages = 3;
 // [m][k] A tile: 80-byte rows put the 8 rows x 16 bytes of an ldmatrix phase
 // on 32 banks; [k][n] B tile: 272-byte rows, the same for ldmatrix.trans
@@ -263,16 +273,31 @@ constexpr int kHRingBytes = kHStages * (kHATile + kHBTile) * 2;
 constexpr int kHCBytes = kHBM * kHPitchC * 4;
 constexpr int kHSmemBytes = kHRingBytes > kHCBytes ? kHRingBytes : kHCBytes;
 
+template <typename OutT>
 struct GemmBf16Args {
   const __nv_bfloat16* a;  // [M, K]: element (m, k) at a[m * lda + k]
   const __nv_bfloat16* b;  // [K, N]: element (k, n) at b[k * ldb + n]
   const float* bias;       // [N] or null
-  float* c;                // element (m, n) at c[m * ldc + n]
+  OutT* c;                 // element (m, n) at c[m * ldc + n]
   long long lda, ldb, ldc;
   int M, N, K;
 };
 
-__global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args p) {
+// four fp32 values of C's row as one streaming store: 16 bytes fp32, 8 bf16
+__device__ __forceinline__ void store_c4(float* p, const float4& v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void store_c4(__nv_bfloat16* p, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(p), packed);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args<OutT> p) {
   extern __shared__ __align__(16) float smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // kHStages x kHATile
   __nv_bfloat16* Bs = As + kHStages * kHATile;                  // kHStages x kHBTile
@@ -366,9 +391,36 @@ __global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args p)
   __syncthreads();
   const int n = n0 + 4 * lane;  // a warp's 32 lanes write one row's 128 columns
   for (int r = warp; r < kHBM && m0 + r < p.M; r += 8)
-    if (n < p.N)  // N is a multiple of 8: the whole float4 is in range
-      __stcs(reinterpret_cast<float4*>(p.c + (m0 + r) * p.ldc + n),
-             *reinterpret_cast<const float4*>(cs + r * kHPitchC + 4 * lane));
+    if (n < p.N)  // N is a multiple of 8: all four columns are in range
+      store_c4(p.c + (m0 + r) * p.ldc + n,
+               *reinterpret_cast<const float4*>(cs + r * kHPitchC + 4 * lane));
+}
+
+template <typename OutT>
+int launch_gemm_bf16(const GemmBf16Args<OutT>& p, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(bf16_gemm_kernel<OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kHSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.N + kHBN - 1) / kHBN, (p.M + kHBM - 1) / kHBM);
+  bf16_gemm_kernel<OutT><<<grid, 256, kHSmemBytes, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int gemm_bf16(const void* a, long long lda, const void* b, long long ldb, int K, const void* bias,
+              void* c, long long ldc, int M, int N, cudaStream_t s) {
+  GemmBf16Args<OutT> p;
+  p.a = static_cast<const __nv_bfloat16*>(a);
+  p.b = static_cast<const __nv_bfloat16*>(b);
+  p.bias = static_cast<const float*>(bias);
+  p.c = static_cast<OutT*>(c);
+  p.lda = lda;
+  p.ldb = ldb;
+  p.ldc = ldc;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  return launch_gemm_bf16(p, s);
 }
 
 // ---- column sums: partial[s][n] = sum over rows of split s of a[k][n] -------
@@ -443,30 +495,17 @@ int products_colsum(const void* a, long long lda, int K, int N, void* partial, i
 
 // C = A @ B + bias on bf16 operands with fp32 accumulation (see
 // bf16_gemm_kernel): a [M, K] bf16 (row lda), b [K, N] bf16 (row ldb), bias
-// [N] fp32 or null, c fp32 (row ldc). K, N, lda and ldb multiples of 8, ldc
-// of 4; every pointer 16-byte aligned. Returns a cudaError_t code (0 =
-// launched).
+// [N] fp32 or null, c (row ldc) fp32, or with c_bf16 bf16 rounded once from
+// the fp32 sum. K, N, lda and ldb multiples of 8, ldc of 4; every pointer
+// 16-byte aligned. Returns a cudaError_t code (0 = launched).
 int products_gemm_bf16(const void* a, long long lda, const void* b, long long ldb, int K,
-                       const void* bias, void* c, long long ldc, int M, int N, void* stream) {
+                       const void* bias, void* c, long long ldc, int M, int N, int c_bf16,
+                       void* stream) {
   if (K % 8 || N % 8 || lda % 8 || ldb % 8 || ldc % 4 || M < 0 || K < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  GemmBf16Args p;
-  p.a = static_cast<const __nv_bfloat16*>(a);
-  p.b = static_cast<const __nv_bfloat16*>(b);
-  p.bias = static_cast<const float*>(bias);
-  p.c = static_cast<float*>(c);
-  p.lda = lda;
-  p.ldb = ldb;
-  p.ldc = ldc;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  cudaError_t err = cudaFuncSetAttribute(bf16_gemm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kHSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + kHBN - 1) / kHBN, (M + kHBM - 1) / kHBM);
-  bf16_gemm_kernel<<<grid, 256, kHSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return c_bf16 ? gemm_bf16<__nv_bfloat16>(a, lda, b, ldb, K, bias, c, ldc, M, N, s)
+                : gemm_bf16<float>(a, lda, b, ldb, K, bias, c, ldc, M, N, s);
 }
 
 const char* products_error_string(int code) {

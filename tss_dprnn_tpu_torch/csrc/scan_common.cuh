@@ -1,9 +1,9 @@
-// Device helpers shared by the LSTM kernels (bilstm2.cu, the cluster scans of
-// bilstm2_serve.cu, bilstm2_resid.cu, bilstm2_bwd.cu and lstm_bwd.cu, lstm.cu)
-// and products.cu: stream-type conversion and rounding, the gate sigmoid
-// (and its bf16-rounded form), cp.async copies, bulk copies into shared
-// memory with their mbarriers, 16-byte loads and stores, and the forward
-// kernels' chunk product.
+// Device helpers shared by the LSTM kernels (the cluster scans of
+// bilstm2_serve.cu, bilstm2_resid.cu, bilstm2_bwd.cu and lstm_bwd.cu, and
+// lstm.cu) and products.cu: stream-type conversion and rounding, the gate
+// sigmoid (and its bf16-rounded form), cp.async copies, bulk copies into
+// shared memory with their mbarriers, 16-byte loads and stores, and the
+// cell-state forward's chunk product (lstm.cu).
 // Everything is force-inlined, so each kernel keeps its own register budget.
 
 #pragma once

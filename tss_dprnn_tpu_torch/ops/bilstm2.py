@@ -3,11 +3,12 @@ wrappers and plain versions (counterpart of the bilstm2 section of
 ``tss_dprnn_tpu/ops/pallas_lstm.py:698-1224, 1224-1464``).
 
 Replaces the TPU kernel ``_bilstm2_kernel`` (pallas_lstm.py:698) in its
-unmasked and masked modes, fp32 and bf16 streams (the serving scans), with
-the input product of ``csrc/products.cu`` followed by the serving scan of
-``csrc/bilstm2_serve.cu``, in its dense mode with ``csrc/bilstm2.cu``, in
-its residual (training) mode, fp32 and bf16 streams, with
-``csrc/bilstm2_resid.cu`` after the same input product,
+unmasked, masked and dense modes, fp32 and bf16 streams (the serving scans),
+with the input product of ``csrc/products.cu`` followed by the serving scan
+of ``csrc/bilstm2_serve.cu`` (the dense mode's then followed by its two
+SplitDense products, ``csrc/products.cu`` again), in its residual (training)
+mode, fp32 and bf16 streams, with ``csrc/bilstm2_resid.cu`` after the same
+input product,
 ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with the same serving route
 (its bf16 streams through the bf16-operand input product), and
 ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224, fp32 and bf16) with
@@ -16,9 +17,11 @@ for ``sm_90a``. Both directions run in one launch and both outputs come
 back in forward time. Layout and argument order are the JAX entries':
 ``bilstm2_forward(x [B, T, F], w_ih2 [2, F, 4H], b2 [2, 4H], w_hh2 [2, H, 4H])``.
 The dense mode (``bilstm2_dense_forward``, opt-in ``TSS_FUSED_DENSE=1`` in
-``ops/rnn.py``) adds the SplitDense product y_d = h_d @ wo2[d] to each step's
-epilogue and writes y_d [B, T, Fo] in place of h_d; the batch-major twin
-(``bilstm2_forward_bm``, opt-in ``TSS_BM=1``) computes the unmasked
+``ops/rnn.py``) returns the SplitDense products y_d = h_d @ wo2[d], [B, T,
+Fo] in place of h_d: the TPU kernel runs them in each step's epilogue, the
+card after the scan, over all row-steps at once, from an H-wide scratch of
+the two outputs side by side (:func:`_launch_serve_dense`); the batch-major
+twin (``bilstm2_forward_bm``, opt-in ``TSS_BM=1``) computes the unmasked
 inference function, which the serving route computes batch-major already.
 The residual streams are the port's own layout: a tuple
 ``(hp0, cp0, tc0, hp1, cp1, tc1, pre)``: per direction h and c before each
@@ -33,10 +36,7 @@ direction; :func:`bilstm2_backward_reference` gives the list).
 What bounds the scans on the H100: the operations. A row-step costs
 2 (F + H) 4H FLOP per direction against a few hundred bytes of input and
 output, far above the card's bandwidth line; the time loop is sequential,
-so parallelism comes only from rows and directions. ``csrc/bilstm2.cu``
-(the dense mode) is the simple design: one block per direction and 32-row
-tile, the weights streamed from L2 in double-buffered chunks on the fp32
-pipe; the source's header gives the details.
+so parallelism comes only from rows and directions.
 
 The serving route and the training pair split the work by what is
 sequential: the product kernel computes the input half of every gate at
@@ -65,16 +65,20 @@ fp32 operand is split into two TF32 parts and three TF32 products are summed
 in fp32, which keeps about 22 of fp32's 24 mantissa bits.
 :func:`gemm_reference` is the kernel's plain version (fp32) and, with
 ``tf32x3=True``, an emulation of that arithmetic (the TF32 rounding done on
-the bits).
+the bits). bf16 x (and the dense mode's bf16 h) goes to the bf16-operand
+product kernel instead, whose products of bf16 values are exact in fp32
+(:func:`gemm_bf16_reference`; a bf16 output is rounded once from the fp32
+sum).
 
 The kernels take F and H in multiples of 16 (H <= 128). The wrappers on the
 card zero-pad other widths up to the next multiple of 16 (:class:`Widths`):
 x and the rows of W_ih in F, and in H each gate block of W_ih, W_hh and b,
-the rows of W_hh and of the dense mode's wo. That is exact: a padded unit's
-pre-activations are 0, so its c stays 0.5 * 0 + 0.5 * tanh(0) = 0 and its h
-0.5 * tanh(0) = 0, and its zero rows of W_hh feed nothing; in the backward
-its dpre is 0. The pad is sliced off the outputs, the residual streams and
-the gradients, so callers see their own widths.
+the rows of W_hh and of the dense mode's wo (whose columns the dense route
+pads to the product kernel's multiple and cuts off again). That is exact: a
+padded unit's pre-activations are 0, so its c stays 0.5 * 0 + 0.5 * tanh(0)
+= 0 and its h 0.5 * tanh(0) = 0, and its zero rows of W_hh feed nothing; in
+the backward its dpre is 0. The pad is sliced off the outputs, the residual
+streams and the gradients, so callers see their own widths.
 
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`bilstm2_reference`, :func:`bilstm2_resid_reference`,
@@ -275,14 +279,16 @@ def gemm_reference(parts, bias: Optional[torch.Tensor] = None, kps: Optional[int
     return out if bias is None else out + bias.float()
 
 
-def gemm_bf16_reference(a: torch.Tensor, b: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def gemm_bf16_reference(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of the bf16-operand product kernel
     (``products_gemm_bf16``): C = a @ b (+ bias) in fp32, a [M, K] and b
     [K, N] holding bf16 values (products of two are exact in fp32; the
-    kernel sums them in another order)."""
+    kernel sums them in another order), returned in ``out_dtype``: fp32, or
+    bf16 rounded once from the fp32 sum."""
     out = a.float() @ b.float()
-    return out if bias is None else out + bias.float()
+    out = out if bias is None else out + bias.float()
+    return out.to(out_dtype)
 
 
 def _row_sum(t: torch.Tensor) -> torch.Tensor:
@@ -493,35 +499,6 @@ def _raise_on(rc: int, what: str, lib: ctypes.CDLL, error_string: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
-def _launch_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-                  w_hh2: torch.Tensor, wo2: torch.Tensor):
-    """The dense mode's launch on the current stream (one call adds one to
-    ``entry.launches``): returns (y0, y1), each [B, T, Fo] in x's type."""
-    x, w_ih2, b2, w_hh2, _ = _checked(x, w_ih2, b2, w_hh2, None)
-    B, T, F = x.shape
-    H = w_hh2.shape[1]
-    Fo = wo2.shape[-1]
-    if wo2.shape != (2, H, Fo) or Fo % 4 or not 0 < Fo <= H:
-        raise ValueError(f"wo2 must be [2, H={H}, Fo] with Fo a multiple of 4 and at most H; "
-                         f"got {tuple(wo2.shape)}")
-    if wo2.device != x.device:
-        raise ValueError("bilstm2: x and wo2 must be on one device")
-    wo2 = wo2.to(x.dtype).float().contiguous()
-    _check_aligned(wo2=wo2)
-    y0 = torch.empty(B, T, Fo, dtype=x.dtype, device=x.device)
-    y1 = torch.empty_like(y0)
-    if B and T:
-        lib = _library()
-        with torch.cuda.device(x.device):
-            rc = lib.bilstm2_dense_forward(
-                _DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
-                b2.data_ptr(), wo2.data_ptr(), y0.data_ptr(), y1.data_ptr(), B, T, F, H, Fo,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(rc, "bilstm2 dense kernel", lib, "bilstm2_error_string")
-        entry.launches += 1
-    return y0, y1
-
-
 # split-K of the dW products: about this many blocks, two waves of the product
 # kernel (2 blocks per SM of an H100)
 _SPLIT_BLOCKS = 528
@@ -625,13 +602,18 @@ def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.T
 
 
 def _gemm_bf16(lib, stream, a: torch.Tensor, a_off: int, b: torch.Tensor, M: int, N: int,
-               bias: Optional[torch.Tensor], out: torch.Tensor, out_off: int, ldc: int) -> None:
+               bias: Optional[torch.Tensor], out: torch.Tensor, out_off: int, ldc: int,
+               lda: Optional[int] = None) -> None:
     """One launch of the bf16-operand product kernel (csrc/products.cu):
     out[M, N] (at ``out_off`` elements, row pitch ``ldc``) = a[M, K] @ b[K,
-    N] + bias, a and b bf16 with contiguous rows (``a_off`` in elements)."""
+    N] + bias, a (``a_off`` in elements, row pitch ``lda``, K by default)
+    and b (contiguous rows) bf16; out fp32, or bf16 rounded once from the
+    fp32 sum."""
     K = b.shape[0]
-    rc = lib.products_gemm_bf16(a.data_ptr() + 2 * a_off, K, b.data_ptr(), N, K, _ptr(bias),
-                                _ptr(out, out_off), ldc, M, N, stream)
+    rc = lib.products_gemm_bf16(a.data_ptr() + a.element_size() * a_off, K if lda is None else lda,
+                                b.data_ptr(), N, K, _ptr(bias),
+                                out.data_ptr() + out.element_size() * out_off, ldc, M, N,
+                                int(out.dtype == torch.bfloat16), stream)
     _raise_on(rc, "bf16 product kernel", lib, "products_error_string")
     _gemm_bf16.launches += 1
 
@@ -736,22 +718,23 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 
 def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                   w_hh2: torch.Tensor, lens: Optional[torch.Tensor], bf16_product: bool = False,
-                  v2: bool = False):
+                  side_by_side: bool = False, v2: bool = False):
     """The serving route (unmasked and masked, fp32 or bf16 streams) on the
     current stream: the input product P into a [B, T, 2, 4H] fp32 buffer
     (bf16 x upcast, exactly, for the 3xTF32 kernel; with ``bf16_product``
     bf16 x goes as it is to the bf16-operand kernel), then the serving
     cluster scan in the stream type, which reads P and writes only the two
     outputs; one call adds one to ``entry.launches`` (and one to its product
-    kernel's). With ``v2`` the bf16 scan rounds as the manual-DMA TPU kernel
-    does (fp32 rounds nowhere: the same scan) and the two outputs go side by
-    side into one [B, T, 2H] (unmasked only). Raises on anything the kernels
-    do not take. Returns (out0, out1), or with ``v2`` the [B, T, 2H]."""
+    kernel's). With ``side_by_side`` the two outputs go into one [B, T, 2H]
+    (unmasked only). With ``v2`` the bf16 scan rounds as the manual-DMA TPU
+    kernel does (fp32 rounds nowhere: the same scan). Raises on anything the
+    kernels do not take. Returns (out0, out1), or with ``side_by_side`` the
+    [B, T, 2H]."""
     x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
     low = x.dtype != torch.float32
-    if v2:  # side by side: direction 1's units H elements on, a row-step 2H on
+    if side_by_side:  # direction 1's units H elements on, a row-step 2H on
         out = torch.empty(B, T, 2 * H, dtype=x.dtype, device=x.device)
         ptrs = (out.data_ptr(), out.data_ptr() + H * out.element_size())
     else:
@@ -770,11 +753,56 @@ def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
             else:
                 _input_product(products, stream, x.float(), w_ih2, b2, pre)
             rc = lib.bilstm2_serve_scan(plan.height, code, pre.data_ptr(), w_frag.data_ptr(),
-                                        _ptr(lens), *ptrs, 4 * H, 8 * H, 2 * H if v2 else H, 1,
-                                        2, B, T, H, stream)
+                                        _ptr(lens), *ptrs, 4 * H, 8 * H,
+                                        2 * H if side_by_side else H, 1, 2, B, T, H, stream)
         _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_serve_error_string")
         entry.launches += 1
     return out
+
+
+def _launch_serve_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                        w_hh2: torch.Tensor, wo2: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense mode on the serving route (current stream): the pair's
+    serving launches (:func:`_launch_serve`, bf16 x through the bf16-operand
+    input product) with the two outputs side by side in a scratch h [B, T,
+    2H] in x's type, then per direction the SplitDense product y_d = h_d @
+    wo2[d] over all row-steps on the tensor cores: fp32 in 3xTF32
+    (``products_gemm``), bf16 through the bf16-operand kernel with a bf16
+    output, rounded once from its fp32 sum as the TPU kernel rounds
+    (pallas_lstm.py:766-769). wo2 [2, H, Fo] takes any Fo >= 1: its columns
+    are zero-padded to the product kernel's multiple (4 fp32, 8 bf16) and the
+    outputs cut back. One call adds one to ``entry.launches`` and three to
+    its product kernel's. Returns (y0, y1), each [B, T, Fo] in x's type."""
+    B, T = x.shape[:2]
+    H = w_hh2.shape[1]
+    if wo2.ndim != 3 or wo2.shape[:2] != (2, H) or wo2.shape[2] < 1:
+        raise ValueError(f"wo2 must be [2, H={H}, Fo >= 1], got {tuple(wo2.shape)}")
+    if wo2.device != x.device:
+        raise ValueError("bilstm2: x and wo2 must be on one device")
+    h = _launch_serve(entry, x, w_ih2, b2, w_hh2, None, bf16_product=True, side_by_side=True)
+    Fo = wo2.shape[2]
+    low = x.dtype != torch.float32
+    n = -(-Fo // 8) * 8 if low else -(-Fo // 4) * 4
+    ys = [torch.empty(B, T, n, dtype=x.dtype, device=x.device) for _ in range(2)]
+    if B and T:
+        # wo2 as the kernels consume it: the stream type's values, columns padded
+        wo = _pad_last(wo2.to(x.dtype), n).contiguous()
+        products = _library_products()
+        M = B * T
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            for d, y in enumerate(ys):  # h_d: H columns at d H of the 2H-wide rows
+                if low:
+                    _gemm_bf16(products, stream, h, d * H, wo[d], M, n, None, y, 0, n,
+                               lda=2 * H)
+                else:
+                    _gemm(products, stream, False, [(h, d * H, 2 * H, wo, d * H * n, n, H)], M,
+                          n, out=y, ldc=n)
+    del h  # the scratch goes back to the allocator once the products are queued
+    if n != Fo:
+        ys = [y[..., :Fo].contiguous() for y in ys]
+    return ys[0], ys[1]
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
@@ -850,26 +878,13 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the dense mode's library, with its C
-    signatures set once."""
-    lib = _build.load_library("bilstm2")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_dense_forward.argtypes = [i] + [p] * 7 + [i] * 5 + [p]
-    lib.bilstm2_dense_forward.restype = i
-    lib.bilstm2_error_string.argtypes = [i]
-    lib.bilstm2_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _library_products() -> ctypes.CDLL:
     """Build (at first use) and load the product and column-sum kernels."""
     lib = _build.load_library("products")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.products_gemm.argtypes = [i, p, ll, p, ll, i, p, ll, p, ll, i, p, p, ll, i, i, i, i, ll, p]
     lib.products_gemm.restype = i
-    lib.products_gemm_bf16.argtypes = [p, ll, p, ll, i, p, p, ll, i, i, p]
+    lib.products_gemm_bf16.argtypes = [p, ll, p, ll, i, p, p, ll, i, i, i, p]
     lib.products_gemm_bf16.restype = i
     lib.products_colsum.argtypes = [p, ll, i, i, p, i, i, p]
     lib.products_colsum.restype = i
@@ -945,15 +960,15 @@ def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Ten
 def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                           w_hh2: torch.Tensor, wo2: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference with the SplitDense product fused in: x [B, T, F], wo2
-    [2, H, Fo] -> (y0, y1), each [B, T, Fo] = h_d @ wo2[d] in x's type, both in
-    forward time; the H-wide scan outputs are never written. Unmasked only,
-    as the JAX core asserts (pallas_lstm.py:854); the kernel takes Fo a
-    multiple of 4 and at most H."""
+    """Inference with the SplitDense product: x [B, T, F], wo2 [2, H, Fo]
+    (any Fo >= 1) -> (y0, y1), each [B, T, Fo] = h_d @ wo2[d] in x's type,
+    both in forward time. Unmasked only, as the JAX core asserts
+    (pallas_lstm.py:854). On the card the serving route with its outputs in
+    an H-wide scratch, then the two products (:func:`_launch_serve_dense`)."""
     if x.device.type == "cpu":
         return bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2)
-    return padded_dense(functools.partial(_launch_dense, bilstm2_dense_forward), x, w_ih2, b2,
-                        w_hh2, wo2)
+    return padded_dense(functools.partial(_launch_serve_dense, bilstm2_dense_forward), x, w_ih2,
+                        b2, w_hh2, wo2)
 
 
 def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,

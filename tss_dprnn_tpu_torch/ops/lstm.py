@@ -8,11 +8,12 @@ and ``want_resid`` modes (fp32 and bf16 streams) with the input product of
 ``csrc/products.cu`` followed by the cluster scans of
 ``csrc/bilstm2_serve.cu`` and ``csrc/bilstm2_resid.cu`` (the fused
 bidirectional LSTM's, which take D stacked directions too), in its
-``want_cs`` mode (fp32 and bf16) and ``reverse_dir1`` mode with
-``csrc/lstm.cu``, ``_lstm_manual_kernel`` (pallas_lstm.py:275) with the
-h-only route (its bf16 streams through the bf16-operand input product and
-the serving scan's rounding of that kernel), and ``_lstm_bwd_kernel``
-(pallas_lstm.py:498, fp32 and bf16) with ``csrc/lstm_bwd.cu``, CUDA C++ for
+``reverse_dir1`` mode with the fused pair's serving route (its outputs side
+by side), in its ``want_cs`` mode (fp32 and bf16) with ``csrc/lstm.cu``,
+``_lstm_manual_kernel`` (pallas_lstm.py:275) with the h-only route (its
+bf16 streams through the bf16-operand input product and the serving scan's
+rounding of that kernel), and ``_lstm_bwd_kernel`` (pallas_lstm.py:498,
+fp32 and bf16) with ``csrc/lstm_bwd.cu``, CUDA C++ for
 ``sm_90a``. D directions run in one
 launch, each on its own input and each in forward time: a caller that wants
 a reversed direction flips its input, as the JAX entries' callers do. With
@@ -31,10 +32,14 @@ concatenated to [R, T, 2H]), and the manual-DMA kernel's two entries
 :func:`lstm_scan_v2` (:418, stacked) and :func:`bilstm_v2` (:402, shared and
 reversed), which compute the same function but, in a 16-bit stream type,
 round where that TPU kernel rounds (:func:`lstm_v2_reference`). On the card
-both run the h-only route (:func:`bilstm_v2` the fused pair's, with its two
-outputs written side by side): fp32 streams its launches as they are, bf16
-x through the bf16-operand input product and the serving scan's rounding
-of the manual-DMA kernel.
+all but :func:`lstm_scan` take bf16 x as it is to the bf16-operand input
+product. :func:`bilstm_fused` and :func:`bilstm_v2` run the fused pair's
+serving route with its two outputs written side by side: ``bilstm_fused``
+is ``bilstm2_forward`` (fp32) or ``bilstm2_forward_bm`` (bf16) with that
+output stride, bit for bit, since ``_lstm_kernel`` rounds as
+``_bilstm2_kernel`` does; ``bilstm_v2`` in bf16 with the serving scan's
+rounding of the manual-DMA kernel. :func:`lstm_scan_v2` runs the stack's
+h-only route with that rounding.
 
 The residual streams are a tuple ``(hp, cp, tc, pre)``: h and c before each
 step and tanh(c) after it, [D, R, T, H] in the stream type (fp32 or bf16,
@@ -297,19 +302,17 @@ def lstm_backward_reference(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
             torch.einsum("drth,drtg->dhg", hp.float(), dpre))
 
 
-def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
-             shared: bool = False):
+def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor):
     """What every kernel here takes: raises on anything else, and returns
     (x, w_ih, b, w_hh) contiguous, the weights fp32 holding values of x's
-    type. ``shared``: x is one [R, T, F] input for D = 2 directions."""
+    type."""
     if not x.is_cuda:
         raise ValueError(f"lstm kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"lstm kernel streams float32 or bfloat16, got {x.dtype}")
-    if x.ndim != (3 if shared else 4):
-        raise ValueError(f"x must be {'[R, T, F]' if shared else '[D, R, T, F]'}, "
-                         f"got {tuple(x.shape)}")
-    D, R, T, F = (2, *x.shape) if shared else x.shape
+    if x.ndim != 4:
+        raise ValueError(f"x must be [D, R, T, F], got {tuple(x.shape)}")
+    D, R, T, F = x.shape
     H = w_hh.shape[1]
     if w_ih.shape != (D, F, 4 * H) or w_hh.shape != (D, H, 4 * H) or b.shape != (D, 4 * H):
         raise ValueError(
@@ -430,26 +433,6 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
     return out, hcs + (pre,) if resid else ()
 
 
-def _launch_shared(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-                   w_hh2: torch.Tensor) -> torch.Tensor:
-    """Two directions on one shared x [R, T, F], direction 1 reversed, through
-    ``csrc/lstm.cu``'s shared mode; a launch adds one to ``entry.launches``.
-    Returns [R, T, 2H]."""
-    x, w_ih2, b2, w_hh2 = _checked(x, w_ih2, b2, w_hh2, shared=True)
-    R, T, F = x.shape
-    H = w_hh2.shape[1]
-    out = torch.empty(2, R, T, H, dtype=x.dtype, device=x.device)
-    if R and T:
-        lib = _library()
-        with torch.cuda.device(x.device):
-            rc = lib.lstm_bidir_forward(_DTYPE_CODES[x.dtype], x.data_ptr(), w_ih2.data_ptr(),
-                                        w_hh2.data_ptr(), b2.data_ptr(), out.data_ptr(), R, T, F,
-                                        H, torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(rc, "lstm kernel", lib, "lstm_error_string")
-        entry.launches += 1
-    return torch.cat([out[0], out[1]], dim=-1)
-
-
 @functools.lru_cache(maxsize=None)
 def _max_clusters(H: int, device: int) -> int:
     """How many clusters of the backward scan the card runs at once
@@ -542,8 +525,6 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_forward.argtypes = [i, i] + [p] * 6 + [i] * 5 + [p]
     lib.lstm_forward.restype = i
-    lib.lstm_bidir_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
-    lib.lstm_bidir_forward.restype = i
     lib.lstm_error_string.argtypes = [i]
     lib.lstm_error_string.restype = ctypes.c_char_p
     return lib
@@ -610,10 +591,12 @@ def bilstm_fused(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     """``bilstm_pallas_fused`` (pallas_lstm.py:171): both directions on one
     x [R, T, F], direction 1 scanning it backwards inside the kernel, ->
     [R, T, 2H] (forward ++ backward, both in forward time). float32 or
-    bfloat16 streams."""
+    bfloat16 streams; on the card the fused pair's serving route with its
+    outputs side by side, bf16 x through the bf16-operand input product."""
     if x.device.type == "cpu":
         return bilstm_fused_reference(x, w_ih2, w_hh2, b2)
-    return padded(functools.partial(_launch_shared, bilstm_fused), x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_serve, bilstm_fused, bf16_product=True,
+                                    side_by_side=True), x, w_ih2, b2, w_hh2, None)
 
 
 def lstm_scan_v2(x2: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
@@ -635,8 +618,8 @@ def bilstm_v2(x: torch.Tensor, w_ih2: torch.Tensor, w_hh2: torch.Tensor,
     equals :func:`bilstm2_forward`'s two outputs side by side."""
     if x.device.type == "cpu":
         return bilstm_v2_reference(x, w_ih2, w_hh2, b2)
-    return padded(functools.partial(_launch_serve, bilstm_v2, bf16_product=True, v2=True), x,
-                  w_ih2, b2, w_hh2, None)
+    return padded(functools.partial(_launch_serve, bilstm_v2, bf16_product=True,
+                                    side_by_side=True, v2=True), x, w_ih2, b2, w_hh2, None)
 
 
 def lstm_backward(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
