@@ -415,19 +415,41 @@ def expect_launches(got, per_step, steps: int, what: str) -> None:
                              f"other kernel, counted {got}")
 
 
+# the bf16 training modes' products per call (csrc/products.cu): the
+# forward's bf16-operand input product; the backward's dx per direction
+# (bf16-operand, bf16 output), dW_ih and dW_hh per direction (column layout)
+# and db's column sum; the stack's paths run D = 1
+BF16_TRAIN_PRODUCTS = {
+    "bilstm2_forward_resid": {"products_gemm_bf16": 1},
+    "bilstm2_forward_resid_masked": {"products_gemm_bf16": 1},
+    "lstm_forward_resid": {"products_gemm_bf16": 1},
+    "bilstm2_backward": {"products_gemm_bf16": 2, "products_gemm_bf16_col": 3,
+                         "products_colsum": 1},
+    "bilstm2_backward_masked": {"products_gemm_bf16": 2, "products_gemm_bf16_col": 3,
+                                "products_colsum": 1},
+    "lstm_backward": {"products_gemm_bf16": 1, "products_gemm_bf16_col": 2, "products_colsum": 1},
+}
+
+
 def with_products(per_step, bf16: bool = False):
     """``per_step`` launches of the kernel wrappers, plus the input product
     that each serving scan (fp32 or bf16) launches first: one per bilstm2
     scan, and one per direction of an lstm_forward scan, whose paths all run
     D = 1; a dense-mode call adds its two output products. The batch-major
     and dense entries' products are the 3xTF32 kernel's in fp32 and, in the
-    bf16 lane (``bf16``), the bf16-operand kernel's."""
+    bf16 lane (``bf16``), the bf16-operand kernel's. In the bf16 lane the
+    training modes' products too (BF16_TRAIN_PRODUCTS); fp32 training
+    products are given in ``per_step``."""
     n = sum(per_step.get(k, 0) for k in ("bilstm2_forward", "bilstm2_forward_masked",
                                          "lstm_forward"))
     own = per_step.get("bilstm2_forward_bm", 0) + 3 * per_step.get("bilstm2_dense_forward", 0)
     out = dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n + (0 if bf16 else own))
     if bf16 and own:
         out["products_gemm_bf16"] = per_step.get("products_gemm_bf16", 0) + own
+    if bf16:
+        for entry, products in BF16_TRAIN_PRODUCTS.items():
+            for kernel, k in products.items():
+                out[kernel] = out.get(kernel, 0) + k * per_step.get(entry, 0)
     return out
 
 
@@ -3300,14 +3322,13 @@ def varlen_launches(mode: str, n: int, bf16: bool = False):
     the TSS families' intra scans through the unmasked training pair and
     their inter scans through the masked one; the causal BSS model's intra
     pair unmasked and its one-direction inter scans, which take no lengths.
-    ``bf16``: the TSS families in the bf16 lane, whose backward takes one
-    product more per scan (dx per direction)."""
+    ``bf16``: the TSS families in the bf16 lane, whose training modes take
+    the bf16 products (BF16_TRAIN_PRODUCTS)."""
     if bf16:
         if mode == "bss":
             raise ValueError("the bf16 variable-length run is the TSS families'")
-        return ({"bilstm2_forward_resid": n, "bilstm2_forward_resid_masked": n,
-                 "bilstm2_backward": n, "bilstm2_backward_masked": n,
-                 "products_gemm": 2 * n * 6, "products_colsum": 2 * n},
+        return (with_products({"bilstm2_forward_resid": n, "bilstm2_forward_resid_masked": n,
+                               "bilstm2_backward": n, "bilstm2_backward_masked": n}, bf16=True),
                 with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n}),
                 with_products({"bilstm2_forward": 2 * n}))
     if mode == "bss":
@@ -3789,8 +3810,10 @@ def bound_bf16_training(kind: str, dirs: int, rows_steps: int, R: int, T: int, F
 def _bf16_training_kernels(torch, dev):
     """Phase 17 (a): the four bf16 training modes against their plain
     versions at the training shapes (5 x 3 s; the pair masked at phase 2's
-    inter shape), bit for bit on a second call, timed beside the plain
-    versions, the bound and cuDNN's LSTM in bf16 (training mode)."""
+    inter shape, ragged), bit for bit on a second call, timed beside the
+    plain versions, the bound and cuDNN's LSTM in bf16 (training mode). Each
+    call's launches are its wrapper's one and its bf16 products
+    (BF16_TRAIN_PRODUCTS), and no other kernel."""
     from tss_dprnn_tpu_torch.ops import bilstm2 as B2
     from tss_dprnn_tpu_torch.ops import lstm as L
 
@@ -3844,8 +3867,15 @@ def _bf16_training_kernels(torch, dev):
                 run = L.lstm_backward if kernel else L.lstm_backward_reference
                 return run(x, resid, cots[0], *w)
             names = ("hp", "cp", "tc")
+        masked = "_masked" if ln is not None else ""
+        fname, bname = ((f"bilstm2_forward_resid{masked}", f"bilstm2_backward{masked}")
+                        if kind == "pair" else ("lstm_forward_resid", "lstm_backward"))
 
+        reset_launches()
         out, resid = fwd()
+        torch.cuda.synchronize()
+        expect_launches(dict(all_launches(), **product_launches()),
+                        with_products({fname: 1}, bf16=True), 1, f"bf16 {kind} {name} forward")
         out2, again = fwd()
         torch.cuda.synchronize()
         outs = out if kind == "pair" else (out,)
@@ -3865,7 +3895,11 @@ def _bf16_training_kernels(torch, dev):
         pre_snr = snr_db(resid[-1][valid] if kind == "pair" else resid[-1],
                          presid[-1][valid] if kind == "pair" else presid[-1])
         del pout, pouts, presid
+        reset_launches()
         got = bwd(resid)
+        torch.cuda.synchronize()
+        expect_launches(dict(all_launches(), **product_launches()),
+                        with_products({bname: 1}, bf16=True), 1, f"bf16 {kind} {name} backward")
         again = bwd(resid)
         torch.cuda.synchronize()
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -3925,6 +3959,79 @@ def _bf16_training_kernels(torch, dev):
     return results
 
 
+# The column-layout bf16 product (dW = x^T dpre over every row-step) against
+# float64, relative to max |ref|: a reduction over 1.3 M row-steps in fp32
+# fixed splits (each 32-deep k-tile into a fresh partial, the partials and
+# splits added in round-to-nearest) drifts as sqrt(terms) fp32 ulps of the
+# partial sums; 2^-14 sits 32 times below half a bf16 ulp and 1,000 times
+# below the 60 dB gradient bar.
+BF16_COL_PRODUCT_REL_TOL = 2.0 ** -14
+
+
+def _bf16_col_product_entry(torch, dev):
+    """Phase 17 (a): the column-layout bf16-operand product (csrc/products.cu,
+    products_gemm_bf16_col) at the masked bf16 backward's dW_ih = x^T dpre
+    (8 x 10 s: K = 1.284 M row-steps, M = F = 128, N = 8H = 1024) against its
+    plain version (its fixed splits in fp32) and float64 on 128 columns
+    (beside torch.matmul fp32's error there), timed beside the plain
+    version, the bound and one fp32 torch.mm of the upcast operands."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 18)
+    K_chunks = FLAGSHIP["chunk_length"]
+    K = 8 * K_chunks * ((10 * SAMPLE_RATE - 1 + K_chunks) // FLAGSHIP["hop_length"] + 1)
+    M, N = 128, 1024
+    a = torch.randn(K, M, generator=g).bfloat16().to(dev)
+    b = (torch.randn(K, N, generator=g) * 0.05).bfloat16().to(dev)
+    lib = B2._library_products()
+    stream = torch.cuda.current_stream().cuda_stream
+    before = B2.product_launch_counts()["products_gemm_bf16_col"]
+    out = B2._gemm_bf16_col(lib, stream, a, 0, M, b, 0, N, K, M, N)
+    again = B2._gemm_bf16_col(lib, stream, a, 0, M, b, 0, N, K, M, N)
+    plain = B2.gemm_bf16_col_reference(a, b)
+    torch.cuda.synchronize()
+    if B2.product_launch_counts()["products_gemm_bf16_col"] != before + 2:
+        raise AssertionError("the column-layout bf16 product did not count its launches")
+    err = float((out - plain).abs().max())
+    cols = slice(0, 128)  # float64 on 128 columns: all of b would take 10.5 GB
+    ref64 = a.double().T @ b[:, cols].double()
+    scale = float(ref64.abs().max())
+    err64 = float((out[:, cols].double() - ref64).abs().max()) / scale
+    torch_err64 = float((a.float().T @ b[:, cols].float()).double().sub(ref64).abs().max()) / scale
+    del ref64
+    af, bf = a.float(), b.float()
+    splits, kps = B2.split_plan(M, N, K)
+    ms = time_ms(lambda: B2._gemm_bf16_col(lib, stream, a, 0, M, b, 0, N, K, M, N), 10)
+    plain_ms = time_ms(lambda: B2.gemm_bf16_col_reference(a, b), 3)
+    library_ms = time_ms(lambda: torch.mm(af.T, bf), 5)
+    t_ops = 2 * M * N * K / PEAK_BF16
+    t_bytes = (2 * K * (M + N) + 4 * M * N) / PEAK_BYTES
+    bound_ms, bound_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    repeat = torch.equal(out, again)
+    log(f"[bf16] products_gemm_bf16_col K={K} M={M} N={N} ({splits} splits of {kps}): max|err| "
+        f"vs plain {err:.3e}; vs float64 {err64:.3e} of max|ref| (torch.matmul fp32 "
+        f"{torch_err64:.3e}); {ms:.3f} ms ({2 * M * N * K / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, torch.mm fp32 {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by}); repeats bit for bit {repeat}")
+    if not (err64 <= BF16_COL_PRODUCT_REL_TOL and repeat):
+        raise AssertionError(f"the column-layout bf16 product is {err64:.3e} of max|ref| off "
+                             f"float64 (bar {BF16_COL_PRODUCT_REL_TOL:.3e}), bit for bit on a "
+                             f"second call: {repeat}")
+    del a, b, af, bf, out, again, plain
+    torch.cuda.empty_cache()
+    return {"name": "products_gemm_bf16_col", "route": "cuda",
+            "source": "tss_dprnn_tpu_torch/csrc/products.cu",
+            "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:1304-1309 (dW_ih += x_t^T dpre_s, "
+                        "dW_hh += h_prev^T dpre_s of _bilstm2_bwd_kernel's bf16 mode; the same "
+                        "in _lstm_bwd_kernel :498)",
+            "shape": {"M": M, "N": N, "K": K, "splits": splits, "kps": kps},
+            "max_abs_err": err, "rel_err_float64": err64, "torch_fp32_rel_err_float64":
+            torch_err64, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "torch.mm fp32 on the upcast operands (TF32 off)",
+            "tflops": 2 * M * N * K / ms / 1e9, "bitwise_repeat": repeat}
+
+
 def _bf16_batch(torch, target, n):
     """A ragged serving batch of ``n`` rows of up to 10 s for ``target``'s
     inferencer, with its audio-seconds (serving_batch8's rows)."""
@@ -3964,7 +4071,8 @@ def phase_bf16(torch, dev, smi, cli_state, varlen_state):
 
     bf = torch.bfloat16
     n = FLAGSHIP["n_repeats"]
-    results = {"kernels": _bf16_training_kernels(torch, dev)}
+    results = {"kernels": _bf16_training_kernels(torch, dev),
+               "col_product": _bf16_col_product_entry(torch, dev)}
 
     # -- (b), (c): each family served in both lanes on the same weights
     families = {
@@ -4035,20 +4143,19 @@ def phase_bf16(torch, dev, smi, cli_state, varlen_state):
     results["serving"] = served
 
     # -- (d): 5 x 3 s train steps in both lanes, and a 2 x 1 s bf16 step card vs CPU
-    tss_step = {"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n,
-                "products_gemm": 2 * n * 6, "products_colsum": 2 * n}
+    tss_step = with_products({"bilstm2_forward_resid": 2 * n, "bilstm2_backward": 2 * n},
+                             bf16=True)
     steps_fams = {
         "tss": (dict(model=lambda **kw: DPRNNSpeTasNet(**FLAGSHIP, **kw),
                      trainer=training.TrainerSpe), loader.collate_spe, Crops, tss_step),
         "bss_causal": (dict(model=lambda **kw: DPRNNTasNet(**BSS, **kw), trainer=training.Trainer),
                        loader.collate_bss, Mixtures,
-                       {"bilstm2_forward_resid": n, "bilstm2_backward": n,
-                        "lstm_forward_resid": n, "lstm_backward": n,
-                        "products_gemm": n * 6 + n * 4, "products_colsum": 2 * n}),
+                       with_products({"bilstm2_forward_resid": n, "bilstm2_backward": n,
+                                      "lstm_forward_resid": n, "lstm_backward": n}, bf16=True)),
         "ira": (dict(model=lambda **kw: DPRNNSpeIRATasNet(**IRA, **kw),
                      trainer=training.TrainerSpe), loader.collate_spe, Crops,
-                {"bilstm2_forward_resid": 6 * n, "bilstm2_backward": 4 * n,
-                 "products_gemm": 6 * n + 4 * n * 5, "products_colsum": 4 * n}),
+                with_products({"bilstm2_forward_resid": 6 * n, "bilstm2_backward": 4 * n},
+                              bf16=True)),
         "rawnet": (dict(model=lambda **kw: DPRNNRawNetTasNet(**RAWNET, **kw),
                         trainer=training.TrainerRawNet),
                    functools.partial(loader.collate_spe, resample_ref_to=16000), Crops, tss_step),
@@ -4365,19 +4472,27 @@ def bf16_kernel_entries(entries, bf16, launches):
                 "snr_db": r["fwd_min_snr_db"] if key == "fwd" else r["grad_min_snr_db"],
                 "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128}}
 
+    withs = {"forward": "tss_dprnn_tpu_torch/csrc/products.cu (the bf16-operand input "
+                        "product on x as it is)",
+             "backward": "tss_dprnn_tpu_torch/csrc/products.cu (dx per direction bf16-operand "
+                         "with a bf16 output; dW_ih, dW_hh column-layout bf16 split-K; db's "
+                         "column sum)"}
     for name, which, source, replaces, kind, step in (
-            ("bilstm2_forward_resid", "forward", "tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu",
+            ("bilstm2_forward_resid", "forward",
+             "tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu (mode 3)",
              "tss_dprnn_tpu/ops/pallas_lstm.py:698", "pair", "tss"),
-            ("bilstm2_backward", "backward", "tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu",
+            ("bilstm2_backward", "backward",
+             "tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu (scan in cluster_scan.cuh, bf16 mma.sync)",
              "tss_dprnn_tpu/ops/pallas_lstm.py:1224", "pair", "tss"),
-            ("lstm_forward_resid", "forward", "tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu",
+            ("lstm_forward_resid", "forward",
+             "tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu (mode 3)",
              "tss_dprnn_tpu/ops/pallas_lstm.py:57", "stack", "bss_causal"),
-            ("lstm_backward", "backward", "tss_dprnn_tpu_torch/csrc/lstm_bwd.cu",
+            ("lstm_backward", "backward",
+             "tss_dprnn_tpu_torch/csrc/lstm_bwd.cu (scan in cluster_scan.cuh, bf16 mma.sync)",
              "tss_dprnn_tpu/ops/pallas_lstm.py:498", "stack", "bss_causal")):
         first = f"{kind}_intra" if kind == "pair" else "stack_inter"
         e = {"name": name, "mode": f"bf16 streams, {which} (training)", "dtype": "bfloat16",
-             "route": "cuda", "source": source, "replaces": replaces,
-             "with": "tss_dprnn_tpu_torch/csrc/products.cu (x upcast exactly)",
+             "route": "cuda", "source": source, "replaces": replaces, "with": withs[which],
              "launches": launches[step].get(name, 0), **numbers(k[first], which)}
         if kind == "pair":
             e["inter"] = numbers(k["pair_inter"], which)
@@ -4388,6 +4503,10 @@ def bf16_kernel_entries(entries, bf16, launches):
         e["bitwise_repeat"] = all(r["bitwise_repeat"] and r["fwd_bitwise_repeat"]
                                   for r in k.values())
         out.append(e)
+    col = dict(bf16["col_product"], path="the bf16 training backward's dW_ih and dW_hh (5 x 3 s "
+               "TSS step)", launches=launches["tss"].get("products_gemm_bf16_col", 0),
+               launches_bss_causal=launches["bss_causal"].get("products_gemm_bf16_col", 0))
+    out.append(col)
     return out
 
 
@@ -4447,7 +4566,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
     ptxas = ptxas_report(_build.build_logs, ("serve_scan_kernel", "bf16_gemm_kernel",
-                                             "lstm_kernel"))
+                                             "lstm_kernel", "bwd_scan_kernel"))
     for kernel, rep in ptxas.items():
         log(f"[setup] ptxas {kernel}: {rep['registers']} registers, {rep['spill_stores']} B spill "
             f"stores, {rep['spill_loads']} B spill loads")

@@ -64,10 +64,10 @@ EDITS = {
                 ("bilstm2_serve.cu", "sigmoid_f(", "(", 3), ("bilstm2_serve.cu", "tanhf(", "(", 4)],
     "no_store": [("bilstm2_resid.cu", "      if (gr < R) {\n        float* pp = pre_at(gr, t);",
                   "      if (gr < 0) {\n        float* pp = pre_at(gr, t);", 1),
-                 ("cluster_scan.cuh", "      if (gr < R) {\n        float* gp = dpre + gate_off(gr, t);",
-                  "      if (gr < 0) {\n        float* gp = dpre + gate_off(gr, t);", 1),
-                 ("bilstm2_serve.cu", "if (gr < R) st2(out_at(gr, t), hv);",
-                  "if (gr < 0) st2(out_at(gr, t), hv);", 1)],
+                 ("cluster_scan.cuh", "      if (gr < R) {\n        S* gp = dpre + gate_off(gr, t);",
+                  "      if (gr < 0) {\n        S* gp = dpre + gate_off(gr, t);", 1),
+                 ("bilstm2_serve.cu", "if (gr < R) st2(out_at(out, gr, t), hv);",
+                  "if (gr < 0) st2(out_at(out, gr, t), hv);", 1)],
 }
 
 

@@ -589,20 +589,52 @@ def _card_grads_close(got, want):
         assert db >= BF16_GRAD_SNR_DB, (name, db)
 
 
+def _product_delta(before):
+    """The product kernels launched since ``before`` (bilstm2.product_launch_counts)."""
+    return {k: v - before[k] for k, v in B2.product_launch_counts().items() if v != before[k]}
+
+
+# the bf16 training route's products per call: the forward's bf16-operand
+# input product (one per direction of the stack); the backward's dx per
+# direction (bf16 output), dW_ih and dW_hh per direction (column layout) and
+# db's column sum; no 3xTF32 product
+BF16_FWD_PRODUCTS = {"products_gemm_bf16": 1}
+BF16_PAIR_BWD_PRODUCTS = {"products_gemm_bf16": 2, "products_gemm_bf16_col": 3,
+                          "products_colsum": 1}
+
+
+def _ragged_lens(R, T):
+    g = torch.Generator().manual_seed(R + T)
+    lens = torch.randint(0, T + 1, (R,), generator=g)
+    lens[:3] = torch.tensor([0, T, 1])
+    return lens.tolist()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,T,masked", [(37, 9, False), (203, 13, True), (970, 25, False)])
+@pytest.mark.parametrize("R,T,masked", [(37, 9, False), (203, 13, True), (970, 25, False),
+                                        (1250, 40, "ragged")])
 def test_pair_bf16_training_kernels_on_card(R, T, masked):
     """The bf16 residual forward and backward of the fused pair against
-    their plain versions on the card, bit for bit on a second call."""
+    their plain versions on the card, bit for bit on a second call; each
+    call's launches are its wrapper's one and its bf16 products."""
     _needs_card()
-    x, w, lens, (g0, g1) = _card_pair(R, T, (lambda r: (r * 7) % (T + 1)) if masked else None)
+    lens_fn = None
+    if masked == "ragged":
+        lens_fn = _ragged_lens(R, T).__getitem__
+    elif masked:
+        lens_fn = (lambda r: (r * 7) % (T + 1))
+    x, w, lens, (g0, g1) = _card_pair(R, T, lens_fn)
+    masked = lens is not None
     before = B2.bilstm2_forward_resid_masked.launches if masked else (
         B2.bilstm2_forward_resid.launches)
+    products = dict(B2.product_launch_counts())
     if masked:
         (o0, o1), resid = B2.bilstm2_forward_resid_masked(x, lens, *w)
+        assert _product_delta(products) == BF16_FWD_PRODUCTS
         (p0, p1), presid = B2.bilstm2_resid_reference(x.cpu(), *(t.cpu() for t in w), lens.cpu())
     else:
         (o0, o1), resid = B2.bilstm2_forward_resid(x, *w)
+        assert _product_delta(products) == BF16_FWD_PRODUCTS
         (p0, p1), presid = B2.bilstm2_resid_reference(x.cpu(), *(t.cpu() for t in w))
     after = B2.bilstm2_forward_resid_masked.launches if masked else (
         B2.bilstm2_forward_resid.launches)
@@ -617,7 +649,9 @@ def test_pair_bf16_training_kernels_on_card(R, T, masked):
     # the backward on the card's own saved streams, against the plain one on the same
     args = (x, resid, g0, g1, *w) + ((lens,) if masked else ())
     run = B2.bilstm2_backward_masked if masked else B2.bilstm2_backward
+    products = dict(B2.product_launch_counts())
     got = run(*args)
+    assert _product_delta(products) == BF16_PAIR_BWD_PRODUCTS
     again = run(*args)
     want = run(*(a.cpu() if isinstance(a, torch.Tensor) else tuple(t.cpu() for t in a)
                  for a in args))
@@ -638,13 +672,18 @@ def test_stack_bf16_training_kernels_on_card(D, R, T):
          for s in ((D, F, 4 * H), (D, 4 * H), (D, H, 4 * H))]
     cot = torch.randn(D, R, T, H, generator=g).bfloat16().cuda()
     before = L.lstm_forward_resid.launches
+    products = dict(B2.product_launch_counts())
     h, resid = L.lstm_forward_resid(x, *w)
     assert L.lstm_forward_resid.launches == before + 1
+    assert _product_delta(products) == {"products_gemm_bf16": D}
     ph, presid = L.lstm_resid_reference(x.cpu(), *(t.cpu() for t in w))
     _assert_stream("h", h.cpu(), ph.float().numpy())
     for name, a, b in zip(("hp", "cp", "tc"), resid[:3], presid[:3]):
         _assert_stream(name, a.cpu(), b.float().numpy())
+    products = dict(B2.product_launch_counts())
     got = L.lstm_backward(x, resid, cot, *w)
+    assert _product_delta(products) == {"products_gemm_bf16": D, "products_gemm_bf16_col": 2 * D,
+                                        "products_colsum": D}
     again = L.lstm_backward(x, resid, cot, *w)
     want = L.lstm_backward(x.cpu(), tuple(t.cpu() for t in resid), cot.cpu(),
                            *(t.cpu() for t in w))

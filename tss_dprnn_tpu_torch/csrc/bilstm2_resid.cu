@@ -1,5 +1,7 @@
-// The LSTM training forward for Hopper (sm_90a), fp32 or bf16 streams: the
-// recurrent scan, with W_hh resident in the shared memory of a 2-CTA cluster.
+// The LSTM training forward for Hopper (sm_90a), fp32 streams: the recurrent
+// scan, with W_hh resident in the shared memory of a 2-CTA cluster. (bf16
+// streams train on the serving scan's mode 3, csrc/bilstm2_serve.cu: h @ W_hh
+// as bf16 mma.sync on a bf16 W slice.)
 //
 // Replaces two TPU kernels in their residual (training) modes:
 // - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698, `want_resid`
@@ -23,14 +25,6 @@
 // direction holds its zero state while t >= len[row], so its output there is
 // 0; the other's and every stream past a row's length is unspecified
 // (finite), and steps past the tile's longest row write zeros.
-//
-// bf16 streams (the TPU kernels' bf16 mode; the wrapper upcasts x for the
-// input product, exactly, and passes fp32 weights holding bf16 values): h is
-// rounded to bf16 before it feeds the next step's h @ W_hh and before it is
-// stored, c is carried in fp32, and the outputs and the h, c and tanh(c)
-// streams are stored in bf16 (c and tanh(c) rounded there), so the backward
-// reads the rounded cell states as the TPU kernel's does. The gate
-// pre-activations stay fp32.
 //
 // What bounds it: the fp32 FMAs of h @ W_hh, 2 H 4H FLOP per row-step and
 // direction, and the step-to-step dependency: all parallelism comes from rows
@@ -78,10 +72,10 @@ struct ScanArgs {
   float* pre;
   const float* wsplit;  // [dirs d, 2 c, H, 4, H / 2], CTA (d, c)'s W slice contiguous
   const int* lens;      // [R] or null
-  void* out[2];         // the H-wide outputs and streams, in the stream type
-  void* hp[2];
-  void* cp[2];
-  void* tc[2];
+  float* out[2];        // the H-wide outputs and streams
+  float* hp[2];
+  float* cp[2];
+  float* tc[2];
   long long pre_dir;
   int pre_step;
   int reverse1;
@@ -90,7 +84,7 @@ struct ScanArgs {
 
 // Grid (2, tiles, dirs) in clusters of (2, 1, 1); 2H threads, each owning NR
 // rows x UW = 2 units x 4 gates.
-template <int NR, typename S>
+template <int NR>
 __global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
   constexpr int RT = 8 * NR;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -129,12 +123,12 @@ __global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
 
   // selects, not a runtime index into the parameter arrays (which would copy
   // them to local memory)
-  S* __restrict__ out = static_cast<S*>(d == 0 ? a.out[0] : a.out[1]);
-  S* __restrict__ hpd = static_cast<S*>(d == 0 ? a.hp[0] : a.hp[1]);
-  S* __restrict__ cpd = static_cast<S*>(d == 0 ? a.cp[0] : a.cp[1]);
-  S* __restrict__ tcd = static_cast<S*>(d == 0 ? a.tc[0] : a.tc[1]);
+  float* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
+  float* __restrict__ hpd = d == 0 ? a.hp[0] : a.hp[1];
+  float* __restrict__ cpd = d == 0 ? a.cp[0] : a.cp[1];
+  float* __restrict__ tcd = d == 0 ? a.tc[0] : a.tc[1];
   float* __restrict__ pre = a.pre + d * a.pre_dir + gu;
-  auto at = [&](S* p, int gr, int t) {
+  auto at = [&](float* p, int gr, int t) {
     return p + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
   };
   auto pre_at = [&](int gr, int t) {
@@ -238,7 +232,7 @@ __global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
         tcv[j] = tanhf(cn);
         cb[j] = cst[r][j];
         if (update) cst[r][j] = cn;
-        hv[j] = update ? round_to<S>(og * tcv[j]) : hold[j];  // hold is rounded already
+        hv[j] = update ? og * tcv[j] : hold[j];
       }
       st2(nb + row * hpitch + gu, hv);
       st2_cluster(remote + 4 * (row * hpitch + gu), hv);
@@ -257,34 +251,32 @@ __global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
   cp_async_wait_all();
 }
 
-template <int NR, typename S>
+template <int NR>
 int launch(const ScanArgs& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(resid_scan_kernel<NR, S>, tiles, dirs, 4 * a.H / UW, smem_bytes(NR, a.H),
-                        s, a);
+  return launch_cluster(resid_scan_kernel<NR>, tiles, dirs, 4 * a.H / UW, smem_bytes(NR, a.H), s,
+                        a);
 }
 
-template <typename S>
 int dispatch(int height, const ScanArgs& a, int dirs, cudaStream_t s) {
   switch (height) {
-    case 16: return launch<2, S>(a, dirs, s);
-    case 24: return launch<3, S>(a, dirs, s);
-    case 32: return launch<4, S>(a, dirs, s);
-    case 40: return launch<5, S>(a, dirs, s);
-    case 48: return launch<6, S>(a, dirs, s);
+    case 16: return launch<2>(a, dirs, s);
+    case 24: return launch<3>(a, dirs, s);
+    case 32: return launch<4>(a, dirs, s);
+    case 40: return launch<5>(a, dirs, s);
+    case 48: return launch<6>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// either stream type: both take the same shared memory and threads
 int occupancy(int height, int H, int* clusters) {
   const int threads = 4 * H / UW;
   switch (height) {
-    case 16: return max_clusters(resid_scan_kernel<2, float>, threads, smem_bytes(2, H), clusters);
-    case 24: return max_clusters(resid_scan_kernel<3, float>, threads, smem_bytes(3, H), clusters);
-    case 32: return max_clusters(resid_scan_kernel<4, float>, threads, smem_bytes(4, H), clusters);
-    case 40: return max_clusters(resid_scan_kernel<5, float>, threads, smem_bytes(5, H), clusters);
-    case 48: return max_clusters(resid_scan_kernel<6, float>, threads, smem_bytes(6, H), clusters);
+    case 16: return max_clusters(resid_scan_kernel<2>, threads, smem_bytes(2, H), clusters);
+    case 24: return max_clusters(resid_scan_kernel<3>, threads, smem_bytes(3, H), clusters);
+    case 32: return max_clusters(resid_scan_kernel<4>, threads, smem_bytes(4, H), clusters);
+    case 40: return max_clusters(resid_scan_kernel<5>, threads, smem_bytes(5, H), clusters);
+    case 48: return max_clusters(resid_scan_kernel<6>, threads, smem_bytes(6, H), clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -294,18 +286,18 @@ int occupancy(int height, int H, int* clusters) {
 extern "C" {
 
 // The recurrent scan of the training forward over `dirs` (1 or 2)
-// directions. height: rows per tile, one of 16, 24, 32, 40, 48. dtype: 0 =
-// fp32 streams, 1 = bf16 (out_d, hp_d, cp_d, tc_d in bf16). pre: P (the
-// input product with the bias), overwritten with the gate pre-activations;
+// directions, fp32 streams. height: rows per tile, one of 16, 24, 32, 40,
+// 48. pre: P (the input product with the bias), overwritten with the gate
+// pre-activations;
 // direction d's gate column j at row-step (r, t) is pre[d * pre_dir + (r * T +
 // t) * pre_step + j]: (4H, 8H) for the pair's [R, T, 2, 4H], (R T 4H, 4H) for
 // the stack's [D, R, T, 4H]. wsplit: W_hh laid out [dirs, 2, H, 4, H / 2]
 // (direction, half, k, gate, unit). out_d, hp_d, cp_d, tc_d: direction d's
-// [R, T, H] in the stream type (direction 1's unused with one direction).
-// reverse1: direction 1 scans t = T-1..0. lens: [R] int32 or null (only with
-// reverse1). pre and wsplit fp32; all contiguous, 16-byte aligned; H a
-// multiple of 16, at most 128. Returns a cudaError_t code (0 = launched).
-int bilstm2_resid_scan(int height, int dtype, void* pre, const void* wsplit, const void* lens,
+// [R, T, H] (direction 1's unused with one direction). reverse1: direction 1
+// scans t = T-1..0. lens: [R] int32 or null (only with reverse1). All fp32,
+// contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns a
+// cudaError_t code (0 = launched).
+int bilstm2_resid_scan(int height, void* pre, const void* wsplit, const void* lens,
                        void* out0, void* out1, void* hp0, void* cp0, void* tc0, void* hp1,
                        void* cp1, void* tc1, long long pre_dir, int pre_step, int reverse1,
                        int dirs, int R, int Tn, int H, void* stream) {
@@ -315,24 +307,17 @@ int bilstm2_resid_scan(int height, int dtype, void* pre, const void* wsplit, con
   a.pre = static_cast<float*>(pre);
   a.wsplit = static_cast<const float*>(wsplit);
   a.lens = static_cast<const int*>(lens);
-  a.out[0] = out0;
-  a.out[1] = out1;
-  a.hp[0] = hp0;
-  a.hp[1] = hp1;
-  a.cp[0] = cp0;
-  a.cp[1] = cp1;
-  a.tc[0] = tc0;
-  a.tc[1] = tc1;
+  void* streams[4][2] = {{out0, out1}, {hp0, hp1}, {cp0, cp1}, {tc0, tc1}};
+  float** fields[4] = {a.out, a.hp, a.cp, a.tc};
+  for (int i = 0; i < 4; ++i)
+    for (int d = 0; d < 2; ++d) fields[i][d] = static_cast<float*>(streams[i][d]);
   a.pre_dir = pre_dir;
   a.pre_step = pre_step;
   a.reverse1 = reverse1;
   a.R = R;
   a.Tn = Tn;
   a.H = H;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(height, a, dirs, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(height, a, dirs, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(height, a, dirs, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of the scan at this tile height the card runs at once.

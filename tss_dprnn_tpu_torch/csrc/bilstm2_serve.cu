@@ -1,6 +1,7 @@
 // The LSTM serving scan for Hopper (sm_90a), fp32 and bf16 streams: the
 // recurrence with W_hh resident in the shared memory of a 2-CTA cluster and
-// h @ W_hh on the tensor cores (fp32: 3xTF32; bf16: one bf16 mma).
+// h @ W_hh on the tensor cores (fp32: 3xTF32; bf16: one bf16 mma). Its mode 3
+// is the bf16 training forward (below).
 //
 // Replaces four TPU kernels in their inference modes, both stream types:
 // - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698) unmasked and
@@ -106,7 +107,21 @@
 // kernel's fp32 entries run mode 0 or 1. Modes 1 and 2 take the shared memory
 // and threads of mode 0, with registers capped at 128 by the launch bounds:
 // the same occupancy (the bf16 query asks modes 0 and 1 and answers the
-// smaller count, so one tile plan serves both).
+// smaller count, so one tile plan serves both). 3 (bf16 streams only,
+// `bilstm2_serve_resid_scan`): the training forward's residual mode of
+// `_bilstm2_kernel` (`want_resid` :982) and of `_lstm_kernel` (`want_resid`,
+// `lstm_forward_resid`), which csrc/bilstm2_resid.cu runs in fp32: mode 0's
+// arithmetic and rounding (h rounded to bf16 before it feeds the next step,
+// c carried in fp32), and besides the outputs it writes the gate
+// pre-activations P + h @ W_hh back into P in place (fp32; the backward
+// reads its gates from them) and the residual streams, each [R, T, H] in
+// bf16 at forward time t: h before the step (the bf16 h the step read), c
+// before it and tanh(c) after it, both rounded there, so the backward reads
+// the rounded cell states as the TPU kernel's does. Held steps of the
+// masked reversed direction store h = c = 0 and the tanh(c) and gates that
+// step computed (the backward skips them); steps past the tile's longest
+// row write zeros into every stream and P. Mode 3 takes mode 0's shared
+// memory and threads.
 //
 // Accuracy: the 3xTF32 products keep about 22 mantissa bits (the product
 // kernel's error against float64 is 1.2e-7 to 5.1e-7 of max |ref|,
@@ -161,15 +176,19 @@ __device__ __forceinline__ void st2_cluster_bf16(unsigned addr, const float (&v)
 // at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j], unit
 // u of its output out[d][(gr * Tn + t) * out_step + u]. Direction 1 runs t =
 // T-1..0 when `reverse1`, else t = 0..T-1 as direction 0 does. S is the
-// stream type of W's fragments and the outputs.
+// stream type of W's fragments and the outputs. Mode 3's streams lie as the
+// outputs do (out_step H).
 template <typename S>
 struct ScanArgs {
-  const float* pre;  // P, read only
+  float* pre;  // P, read only; mode 3 overwrites it with the gate pre-activations
   // fp32: [dirs, 2 c, H / 8 ks, H / 16 w, 32 lanes, 4 gates, 2 j]
   // bf16: [dirs, 2 c, H / 16 ks, H / 16 w, 2 j, 32 lanes, 4 gates, 2 e]
   const S* wfrag;
   const int* lens;  // [R] or null
   S* out[2];
+  S* hp[2];  // mode 3: h and c before each step, tanh(c) after it
+  S* cp[2];
+  S* tc[2];
   long long pre_dir;
   int pre_step;
   int out_step;  // elements between two row-steps of an output: H, or 2H side by side
@@ -182,11 +201,14 @@ struct ScanArgs {
 // (rows 16 mt .. 16 mt + 15 of the tile). CTA (d, c)'s slice of wfrag is
 // contiguous (see bilstm2_serve_scan).
 // kMode (see the header): 0 outputs H apart, 1 out_step apart, 2 out_step
-// apart with the manual-DMA TPU kernel's bf16 roundings.
+// apart with the manual-DMA TPU kernel's bf16 roundings, 3 mode 0 and the
+// training forward's residual streams.
 template <typename S, int MT, int kMode>
 __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a) {
   static_assert(kMode != 2 || kLowPrecision<S>, "fp32 streams round nowhere: no mode 2");
+  static_assert(kMode != 3 || kLowPrecision<S>, "fp32 streams train on bilstm2_resid.cu");
   constexpr bool kV2 = kMode == 2;
+  constexpr bool kResid = kMode == 3;
   constexpr int RT = 16 * MT;
   constexpr bool kLow = kLowPrecision<S>;
   constexpr int kP = kParts<S>;
@@ -231,11 +253,15 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
   // selects, not a runtime index into the parameter array (which would copy
   // it to local memory)
   S* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
-  const float* __restrict__ pre = a.pre + d * a.pre_dir + gu;
-  const int ostep = kMode == 0 ? H : a.out_step;
-  auto out_at = [&](int gr, int t) {
-    return out + static_cast<long long>(gr) * (Tn * ostep) + t * ostep + gu;
+  using PreT = std::conditional_t<kResid, float, const float>;  // written in mode 3 only
+  PreT* __restrict__ pre = a.pre + d * a.pre_dir + gu;
+  const int ostep = kMode == 0 || kResid ? H : a.out_step;
+  auto out_at = [&](S* base, int gr, int t) {
+    return base + static_cast<long long>(gr) * (Tn * ostep) + t * ostep + gu;
   };
+  S* __restrict__ hpd = kResid ? (d == 0 ? a.hp[0] : a.hp[1]) : nullptr;
+  S* __restrict__ cpd = kResid ? (d == 0 ? a.cp[0] : a.cp[1]) : nullptr;
+  S* __restrict__ tcd = kResid ? (d == 0 ? a.tc[0] : a.tc[1]) : nullptr;
   auto pre_at = [&](int gr, int t) {
     return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
   };
@@ -245,7 +271,16 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int gr = row0 + 16 * mt + lg + 8 * hh;
-      if (gr < R) st2(out_at(gr, t), zeros);
+      if (gr < R) {
+        st2(out_at(out, gr, t), zeros);
+        if constexpr (kResid) {
+          st2(out_at(hpd, gr, t), zeros);
+          st2(out_at(cpd, gr, t), zeros);
+          st2(out_at(tcd, gr, t), zeros);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) st2(pre_at(gr, t) + g * H, zeros);
+        }
+      }
     }
   }
 
@@ -351,7 +386,7 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
       // the reversed direction holds its zero state until t drops below the
       // row's length
       const bool update = !rev || t < rlen[hh];
-      float hv[2], pv[4][2];
+      float hv[2], pv[4][2], tcv[2], cb[2];
 #pragma unroll
       for (int g = 0; g < 4; ++g) ld2(slot(hh, g), pv[g]);
 #pragma unroll
@@ -365,14 +400,19 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
           if (update) cst[hh][j] = cn;
           hv[j] = update ? round_to<S>(og * round_to<S>(tanhf(cn))) : 0.f;
         } else {
-          const float ig = sigmoid_f(pv[0][j] + acc[0][2 * hh + j]);
-          const float fg = sigmoid_f(pv[1][j] + acc[1][2 * hh + j]);
-          const float gg = tanhf(pv[2][j] + acc[2][2 * hh + j]);
-          const float og = sigmoid_f(pv[3][j] + acc[3][2 * hh + j]);
+          // the gate pre-activations (mode 3 stores them in place of P)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) pv[g][j] += acc[g][2 * hh + j];
+          const float ig = sigmoid_f(pv[0][j]);
+          const float fg = sigmoid_f(pv[1][j]);
+          const float gg = tanhf(pv[2][j]);
+          const float og = sigmoid_f(pv[3][j]);
           const float cn = fg * cst[hh][j] + ig * gg;
+          tcv[j] = tanhf(cn);
+          cb[j] = cst[hh][j];
           if (update) cst[hh][j] = cn;
           // a held row is still at its zero state; h is fed back rounded
-          hv[j] = update ? round_to<S>(og * tanhf(cn)) : 0.f;
+          hv[j] = update ? round_to<S>(og * tcv[j]) : 0.f;
         }
       }
       if constexpr (kLow) {
@@ -392,7 +432,19 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
         st2_cluster(remote + 4 * (row * hpitch + gu), hbig);
         st2_cluster(remote + 4 * ((RT + row) * hpitch + gu), hsmall);
       }
-      if (gr < R) st2(out_at(gr, t), hv);
+      if (gr < R) st2(out_at(out, gr, t), hv);
+      if constexpr (kResid) {
+        if (gr < R) {
+          float hold[2];  // the h this step read, bf16 already
+          ld2(hb + row * hpitch + gu, hold);
+          float* pp = pre_at(gr, t);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) st2(pp + g * H, pv[g]);
+          st2(out_at(hpd, gr, t), hold);
+          st2(out_at(cpd, gr, t), cb);
+          st2(out_at(tcd, gr, t), tcv);
+        }
+      }
     }
     if (s + 1 < t_end) stage(rev ? t - 1 : t + 1);  // after this thread's reads of its slots
     cluster_sync();  // the next h is complete in both CTAs; this step's reads are done
@@ -407,12 +459,12 @@ int launch(const ScanArgs<S>& a, int dirs, cudaStream_t s) {
                         smem_bytes<S>(MT, a.H), s, a);
 }
 
-template <typename S, int kMode>
-int scan(int height, const void* pre, const void* wfrag, const void* lens, void* out0, void* out1,
-         long long pre_dir, int pre_step, int out_step, int reverse1, int dirs, int R, int Tn,
-         int H, cudaStream_t s) {
+template <typename S>
+ScanArgs<S> make_args(const void* pre, const void* wfrag, const void* lens, void* out0,
+                      void* out1, long long pre_dir, int pre_step, int out_step, int reverse1,
+                      int R, int Tn, int H) {
   ScanArgs<S> a = {};
-  a.pre = static_cast<const float*>(pre);
+  a.pre = static_cast<float*>(const_cast<void*>(pre));
   a.wfrag = static_cast<const S*>(wfrag);
   a.lens = static_cast<const int*>(lens);
   a.out[0] = static_cast<S*>(out0);
@@ -424,6 +476,11 @@ int scan(int height, const void* pre, const void* wfrag, const void* lens, void*
   a.R = R;
   a.Tn = Tn;
   a.H = H;
+  return a;
+}
+
+template <typename S, int kMode>
+int scan(int height, const ScanArgs<S>& a, int dirs, cudaStream_t s) {
   switch (height) {
     case 16: return launch<S, 1, kMode>(a, dirs, s);
     case 32: return launch<S, 2, kMode>(a, dirs, s);
@@ -469,23 +526,50 @@ int bilstm2_serve_scan(int height, int dtype, const void* pre, const void* wfrag
   if (H % 16 || H > 128 || H <= 0 || out_step % 16 || out_step < H || dirs < 1 || dirs > 2 ||
       (lens != nullptr && !reverse1))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto args = [&](auto run) {
-    return run(height, pre, wfrag, lens, out0, out1, pre_dir, pre_step, out_step, reverse1, dirs,
-               R, Tn, H, s);
-  };
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto fp = make_args<float>(pre, wfrag, lens, out0, out1, pre_dir, pre_step, out_step,
+                                   reverse1, R, Tn, H);
+  const auto bf = make_args<__nv_bfloat16>(pre, wfrag, lens, out0, out1, pre_dir, pre_step,
+                                           out_step, reverse1, R, Tn, H);
   switch (dtype) {
-    case 0: return out_step == H ? args(scan<float, 0>) : args(scan<float, 1>);
-    case 1: return out_step == H ? args(scan<__nv_bfloat16, 0>) : args(scan<__nv_bfloat16, 1>);
-    case 2: return args(scan<__nv_bfloat16, 2>);
+    case 0: return out_step == H ? scan<float, 0>(height, fp, dirs, s)
+                                 : scan<float, 1>(height, fp, dirs, s);
+    case 1: return out_step == H ? scan<__nv_bfloat16, 0>(height, bf, dirs, s)
+                                 : scan<__nv_bfloat16, 1>(height, bf, dirs, s);
+    case 2: return scan<__nv_bfloat16, 2>(height, bf, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// How many clusters of the scan at this tile height and dtype (as above) the
-// card runs at once. dtype 1 answers the smaller count of its two
-// instantiations (outputs H apart, and side by side), which take the same
-// threads and shared memory: one tile plan serves both.
+// The bf16 training forward (mode 3, see the header) over `dirs` (1 or 2)
+// directions: bilstm2_serve_scan's arguments at dtype 1 with the outputs H
+// apart, and the residual streams. pre: P in, overwritten with the gate
+// pre-activations (fp32, the same layout). hp_d, cp_d, tc_d: direction d's h
+// and c before each step and tanh(c) after it, [R, T, H] bf16 (direction 1's
+// unused with one direction). wfrag: bilstm2_serve_scan's bf16 fragment
+// order. Returns a cudaError_t code (0 = launched).
+int bilstm2_serve_resid_scan(int height, void* pre, const void* wfrag, const void* lens,
+                             void* out0, void* out1, void* hp0, void* cp0, void* tc0, void* hp1,
+                             void* cp1, void* tc1, long long pre_dir, int pre_step, int reverse1,
+                             int dirs, int R, int Tn, int H, void* stream) {
+  if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2 || (lens != nullptr && !reverse1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto a = make_args<__nv_bfloat16>(pre, wfrag, lens, out0, out1, pre_dir, pre_step, H, reverse1,
+                                    R, Tn, H);
+  void* streams[3][2] = {{hp0, hp1}, {cp0, cp1}, {tc0, tc1}};
+  for (int d = 0; d < 2; ++d) {
+    a.hp[d] = static_cast<__nv_bfloat16*>(streams[0][d]);
+    a.cp[d] = static_cast<__nv_bfloat16*>(streams[1][d]);
+    a.tc[d] = static_cast<__nv_bfloat16*>(streams[2][d]);
+  }
+  return scan<__nv_bfloat16, 3>(height, a, dirs, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of the scan at this tile height and dtype (as above; 3:
+// the bf16 training forward) the card runs at once. dtype 1 answers the
+// smaller count of its two instantiations (outputs H apart, and side by
+// side), which take the same threads and shared memory: one tile plan serves
+// both.
 int bilstm2_serve_max_clusters(int height, int dtype, int H, int* n) {
   switch (dtype) {
     case 0: return clusters<float, 0>(height, H, n);
@@ -497,6 +581,7 @@ int bilstm2_serve_max_clusters(int height, int dtype, int H, int* n) {
       return rc;
     }
     case 2: return clusters<__nv_bfloat16, 2>(height, H, n);
+    case 3: return clusters<__nv_bfloat16, 3>(height, H, n);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,6 +12,7 @@
 #include <type_traits>
 
 #include "scan_common.cuh"
+#include "tf32_mma.cuh"
 
 namespace cluster_scan {
 
@@ -139,32 +140,52 @@ int max_clusters(Kernel kernel, int threads, size_t smem, int* clusters) {
 //   dpre = [dc*gg*i(1-i), dc*c_prev*f(1-f), dc*i(1-gg^2), dh*tc*o(1-o)]
 //   dh_carry = dpre @ W_hh^T;  dc_carry = dc * f
 // into a separate buffer dpre (pre stays as saved, so a second backward gives
-// the same result). Masked (lens): steps with t >= len[row] give no dpre and
-// pass the carries through.
+// the same result). Masked (lens): steps with t >= len[row] give no dpre (it
+// is written 0) and pass the carries through.
+//
+// fp32 streams: dpre @ W_hh^T in fp32 FMAs, dpre stored fp32.
 //
 // bf16 streams (S = __nv_bfloat16; c_prev, tanh(c) and g are read in bf16),
-// as the TPU kernels' bf16 mode computes: dpre is rounded to bf16 before
-// dpre @ W_hh^T and before it is stored (the dx and dW products read the
-// rounded values), while db sums the unrounded dpre: each thread adds its
-// rows' unrounded dpre over every step into registers and writes them once,
-// as row rg of its tile, into dbpart [tiles * 8][dirs][4H] (the column-sum
-// kernel of csrc/products.cu sums its rows). The dc carry stays unrounded.
+// as the TPU kernels' bf16 mode computes (pallas_lstm.py:1287-1310): dpre is
+// formed in fp32 and rounded to bf16 (dpre_s = dpre.astype(bf16)); dh_carry =
+// dpre_s @ W_hh^T runs on the tensor cores, mma.sync m16n8k16 bf16 with fp32
+// accumulation (a product of two bf16 values is exact in fp32, so only the
+// order of the sums differs from the TPU kernel's jnp.dot with
+// preferred_element_type=f32); dpre_s is stored in a bf16 buffer (the dx and
+// dW products of csrc/products.cu read it as it is), while db sums the
+// unrounded dpre: each thread adds its rows' unrounded dpre over every step
+// into registers and writes them once, as row rg of its tile, into dbpart
+// [tiles * 8][dirs][4H] (the column-sum kernel of csrc/products.cu sums its
+// rows). The dc carry stays unrounded.
 //
-// What bounds it: the fp32 FMAs of dpre @ W_hh^T, 2 * 4H * H FLOP per
-// row-step and direction, and the step-to-step dependency.
+// What bounds it: dpre @ W_hh^T, 2 * 4H * H FLOP per row-step and direction
+// (fp32 on the FMA pipe, bf16 on the tensor cores), and the step-to-step
+// dependency.
 //
 // Design: one 2-CTA cluster per (direction, tile of 8 NR rows). CTA c owns
 // hidden units [c H/2, (c + 1) H/2): it forms dpre for its units' four gates
-// (2H columns) and keeps the matching 2H rows of W_hh^T ([2H][H], 128 KB at
-// H = 128) in shared memory for the whole scan, loaded once by bulk copies on
-// an mbarrier. Its product gives a partial dh over all H units; it keeps the
-// half it owns in registers and sends the partner the other half through
-// distributed shared memory into exchange buffer (s + 1) % 2, then one
-// cluster barrier ends the step. Each unit's dh is its two partials summed
-// once, in a fixed order (fp32 addition of two terms is commutative), so a
-// run repeats itself bit for bit; no float atomics. The next step's inputs
-// are loaded into registers while the product runs. 2 hidden units per
-// thread: 2H threads.
+// (2H columns, 2 units x NR rows x 4 gates a thread) and keeps the matching
+// 2H rows of W_hh^T in shared memory for the whole scan, loaded once by bulk
+// copies on an mbarrier. Its product gives a partial dh over all H units;
+// the two partials of each unit meet in the owner CTA's shared memory through
+// distributed shared memory, in exchange buffer (s + 1) % 2, and one cluster
+// barrier ends the step. Each unit's dh is its two partials summed once, in a
+// fixed order (fp32 addition of two terms is commutative), so a run repeats
+// itself bit for bit; no float atomics. The next step's inputs are loaded
+// into registers while the product runs. 2 hidden units per thread: 2H
+// threads.
+// fp32: W_hh^T's slice [2H][H] fp32 (128 KB at H = 128); each thread sums
+// its rows' partial dh over both halves' units u0, u0 + 1 in FMAs, keeps its
+// own half's in registers and sends the partner the other half.
+// bf16: the slice in bf16 in the order of the mma's B fragments (64 KB at H =
+// 128, laid out by the host, ops/bilstm2.bwd_weight_layout_bf16), the dpre
+// tile [8 NR][2H] in bf16; warp w computes units 16 w .. 16 w + 15 of the
+// partial dh (two n-tiles) for every 16-row m-tile of the tile (NR even: tiles
+// of 16, 32 or 48 rows), its A fragments by ldmatrix, and stores each n-tile
+// into the exchange buffer of the CTA that owns its units, slot c (the
+// sender): the owner sums slot 0 + slot 1. Two CTAs of 16 rows fit an SM in
+// shared memory (89 KB each at H = 128); the occupancy query says whether
+// their registers do.
 
 constexpr int kBwdUnits = 2;  // hidden units per thread (ld2, st2)
 
@@ -175,11 +196,13 @@ constexpr int kBwdUnits = 2;  // hidden units per thread (ld2, st2)
 // `down1`, else t = 0..T-1 (the fused pair's reversed direction).
 struct BwdScanArgs {
   const float* pre;
-  float* dpre;
+  void* dpre;           // in the stream type
   const void* cp[2];    // H-wide streams in the stream type
   const void* tc[2];
   const void* g[2];
-  const float* wsplit;  // [dirs, 2 c, 4, H / 2, H]: CTA (d, c)'s rows of W_hh[d]^T
+  // fp32: [dirs, 2 c, 4, H / 2, H], CTA (d, c)'s rows of W_hh[d]^T;
+  // bf16: [dirs, 2 c, H / 8 ks, H / 16 w, 8 lg, 4 lt, 2 nt, 2 j, 2 e]
+  const void* wsplit;
   const int* lens;      // [R] or null
   float* dbpart;        // [tiles * 8][dirs][4H] (bf16 streams only)
   long long pre_dir;
@@ -188,36 +211,47 @@ struct BwdScanArgs {
   int R, Tn, H;
 };
 
-__host__ __device__ constexpr int bwd_dps_pitch(int H) { return 2 * H + 4; }
+// pitches of the dpre tile (in its element type) and of the exchange buffers
+template <typename S>
+__host__ __device__ constexpr int bwd_dps_pitch(int H) {
+  return kLowPrecision<S> ? 2 * H + 8 : 2 * H + 4;
+}
 __host__ __device__ constexpr int bwd_xb_pitch(int H) { return H / 2 + 4; }
 
 // shared memory of one CTA: W^T slice, the dpre tile, two exchange buffers
-// and the mbarrier
+// (bf16: of two slots each) and the mbarrier
+template <typename S>
 constexpr size_t bwd_smem_bytes(int nr, int H) {
-  return (static_cast<size_t>(2 * H) * H + 8 * nr * bwd_dps_pitch(H) +
-          2 * 8 * nr * bwd_xb_pitch(H)) * sizeof(float) + sizeof(uint64_t);
+  constexpr int kSlots = kLowPrecision<S> ? 2 : 1;
+  return (static_cast<size_t>(2 * H) * H + 8 * nr * bwd_dps_pitch<S>(H)) * sizeof(S) +
+         static_cast<size_t>(2 * kSlots * 8 * nr * bwd_xb_pitch(H)) * sizeof(float) +
+         sizeof(uint64_t);
 }
 
 // Grid (2, tiles, dirs) in clusters of (2, 1, 1); 2H threads, each owning NR
-// rows x 2 units (x 4 gates for dpre, of both halves for the product).
+// rows x 2 units (x 4 gates for dpre; fp32: of both halves for the product).
+// bf16 16-row tiles may run two CTAs on an SM (128 registers).
 template <int NR, typename S>
-__global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
+__global__ void __launch_bounds__(256, kLowPrecision<S> && NR == 2 ? 2 : 1)
+    bwd_scan_kernel(const BwdScanArgs a) {
   constexpr int UW = kBwdUnits;
   constexpr int RT = 8 * NR;
   constexpr bool kLow = kLowPrecision<S>;
+  static_assert(!kLow || NR % 2 == 0, "bf16: whole 16-row m-tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = a.R, Tn = a.Tn, H = a.H;
   const float* __restrict__ pre = a.pre;
-  float* __restrict__ dpre = a.dpre;
+  S* __restrict__ dpre = static_cast<S*>(a.dpre);
   const int* __restrict__ lens = a.lens;
   const long long pre_dir = a.pre_dir;
   const int pre_step = a.pre_step;
   const int Hh = H / 2;
-  const int dpitch = bwd_dps_pitch(H), xpitch = bwd_xb_pitch(H);
-  float* ws = reinterpret_cast<float*>(smem);  // [2H][H]: own gate column, then unit
-  float* dps = ws + 2 * H * H;                 // [RT][dpitch]
-  float* xb = dps + RT * dpitch;               // [2][RT][xpitch]
-  uint64_t* bar = reinterpret_cast<uint64_t*>(xb + 2 * RT * xpitch);
+  const int dpitch = bwd_dps_pitch<S>(H), xpitch = bwd_xb_pitch(H);
+  S* ws = reinterpret_cast<S*>(smem);  // fp32 [2H][H]: own gate column, then unit; bf16 fragments
+  S* dps = ws + 2 * H * H;             // [RT][dpitch]
+  float* xb = reinterpret_cast<float*>(dps + RT * dpitch);  // [2][kLow ? 2 : 1][RT][xpitch]
+  constexpr int kSlots = kLow ? 2 : 1;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xb + 2 * kSlots * RT * xpitch);
 
   const unsigned c = cluster_rank();
   const int d = blockIdx.z;
@@ -228,8 +262,10 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
   const int gu = c * Hh + u0;      // this thread's own units of all H
   const bool down = d == 0 || a.down1;
 
-  load_resident(ws, a.wsplit + (d * 2 + c) * static_cast<long long>(2 * H) * H,
-                static_cast<unsigned>(2 * H * H * sizeof(float)), bar);
+  load_resident(reinterpret_cast<float*>(ws),
+                static_cast<const float*>(a.wsplit) +
+                    (d * 2 + c) * static_cast<long long>(2 * H) * H * sizeof(S) / 4,
+                static_cast<unsigned>(2 * H * H * sizeof(S)), bar);
 
   int rlen[NR];
   int t_end = 0;
@@ -328,17 +364,15 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
         if (live) dc[r][j] = dcv * fg;
         if constexpr (kLow) {
 #pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            dbacc[g][j] += v[g][j];
-            v[g][j] = round_to<S>(v[g][j]);
-          }
+          for (int g = 0; g < 4; ++g) dbacc[g][j] += v[g][j];
         }
       }
-      float* dp = dps + row * dpitch + u0;
+      // stored in the stream type: bf16 rounds dpre here, once
+      S* dp = dps + row * dpitch + u0;
 #pragma unroll
       for (int g = 0; g < 4; ++g) st2(dp + g * Hh, v[g]);
       if (gr < R) {
-        float* gp = dpre + gate_off(gr, t);
+        S* gp = dpre + gate_off(gr, t);
 #pragma unroll
         for (int g = 0; g < 4; ++g) st2(gp + g * H, v[g]);
       }
@@ -346,54 +380,115 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
     if (s + 1 < t_end) fetch(down ? t - 1 : t + 1);
     __syncthreads();  // the dpre tile is complete
 
-    // partial dh over all H units from this CTA's 2H gate columns: units
-    // u0.. of half 0 (acc[.][0][.]) and of half 1 (acc[.][1][.])
-    float acc[NR][2][UW];
+    float* xn = xb + ((s + 1) & 1) * kSlots * RT * xpitch;
+    if constexpr (kLow) {
+      // partial dh = dpre_s @ W^T slice for units 16 w .. 16 w + 15 of all H
+      // (n-tiles 2 w and 2 w + 1) and every m-tile: A rows 16 mt + (lane &
+      // 15), k 16 ks + 8 (lane >> 4) by ldmatrix; B from the fragment-ordered
+      // slice, a lane's two n-tiles' registers one 16-byte load
+      constexpr int MT = NR / 2;
+      const int lane = tid & 31, w = tid >> 5;
+      const int lg = lane >> 2, lt = lane & 3;
+      const int ngroups = H / 16;
+      float acc[MT][2][4];
 #pragma unroll
-    for (int r = 0; r < NR; ++r)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < UW; ++j) acc[r][0][j] = acc[r][1][j] = 0.f;
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+      const S* ap = dps + (lane & 15) * dpitch + 8 * (lane >> 4);
+      const S* wl = ws + (w * 32 + lane) * 8;
 #pragma unroll 2
-    for (int k = 0; k < 2 * H; k += 4) {
-      float4 av4[NR];
+      for (int ks = 0; ks < H / 8; ++ks) {
+        const uint4 b = *reinterpret_cast<const uint4*>(wl + ks * ngroups * 256);
 #pragma unroll
-      for (int r = 0; r < NR; ++r) av4[r] = ld4(dps + (rg + 8 * r) * dpitch + k);
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t af[4];
+          tf32_mma::ldmatrix_x4_b16(af, ap + 16 * mt * dpitch + 16 * ks);
+          tf32_mma::mma_bf16(acc[mt][0], af, b.x, b.y);
+          tf32_mma::mma_bf16(acc[mt][1], af, b.z, b.w);
+        }
+      }
+      // fragment (mt, nt) holds rows 16 mt + lg (q = 0, 1) and + 8 (q = 2,
+      // 3), units 16 w + 8 nt + 2 lt + (q & 1): into slot c of the exchange
+      // buffer of the CTA that owns them (H / 2 is a multiple of 8, so an
+      // n-tile's units lie in one half)
+      const unsigned to0 = map_rank(xn + c * RT * xpitch, 0u);
+      const unsigned to1 = map_rank(xn + c * RT * xpitch, 1u);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float w0[UW], w1[UW];
-        ld2(ws + (k + kk) * H + u0, w0);
-        ld2(ws + (k + kk) * H + Hh + u0, w1);
+      for (int nt = 0; nt < 2; ++nt) {
+        const int u = 16 * w + 8 * nt + 2 * lt;
+        const bool second = u >= Hh;
+        const unsigned base = (second ? to1 : to0) + 4 * (second ? u - Hh : u);
 #pragma unroll
-        for (int r = 0; r < NR; ++r) {
-          const float av = comp(av4[r], kk);
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int j = 0; j < UW; ++j) {
-            acc[r][0][j] = fmaf(av, w0[j], acc[r][0][j]);
-            acc[r][1][j] = fmaf(av, w1[j], acc[r][1][j]);
+          for (int hh = 0; hh < 2; ++hh) {
+            const float send[UW] = {acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]};
+            st2_cluster(base + 4 * (16 * mt + lg + 8 * hh) * xpitch, send);
+          }
+      }
+      cluster_sync();  // the partials arrived; this step's reads of the dpre tile are done
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        float p0[UW], p1[UW];
+        ld2(xn + (rg + 8 * r) * xpitch + u0, p0);
+        ld2(xn + (RT + rg + 8 * r) * xpitch + u0, p1);
+        if (t < rlen[r]) {
+#pragma unroll
+          for (int j = 0; j < UW; ++j) dh[r][j] = p0[j] + p1[j];
+        }
+      }
+    } else {
+      // partial dh over all H units from this CTA's 2H gate columns: units
+      // u0.. of half 0 (acc[.][0][.]) and of half 1 (acc[.][1][.])
+      float acc[NR][2][UW];
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int j = 0; j < UW; ++j) acc[r][0][j] = acc[r][1][j] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < 2 * H; k += 4) {
+        float4 av4[NR];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) av4[r] = ld4(dps + (rg + 8 * r) * dpitch + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float w0[UW], w1[UW];
+          ld2(ws + (k + kk) * H + u0, w0);
+          ld2(ws + (k + kk) * H + Hh + u0, w1);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+            const float av = comp(av4[r], kk);
+#pragma unroll
+            for (int j = 0; j < UW; ++j) {
+              acc[r][0][j] = fmaf(av, w0[j], acc[r][0][j]);
+              acc[r][1][j] = fmaf(av, w1[j], acc[r][1][j]);
+            }
           }
         }
       }
-    }
-    // the partner's half goes to its exchange buffer (s + 1) % 2 (selects
-    // with constant indices: a runtime index would put acc in local memory)
-    float* xn = xb + ((s + 1) & 1) * RT * xpitch;
-    const unsigned remote = map_rank(xn, c ^ 1u);
-    const bool first = c == 0;
+      // the partner's half goes to its exchange buffer (s + 1) % 2 (selects
+      // with constant indices: a runtime index would put acc in local memory)
+      const unsigned remote = map_rank(xn, c ^ 1u);
+      const bool first = c == 0;
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      float send[UW];
+      for (int r = 0; r < NR; ++r) {
+        float send[UW];
 #pragma unroll
-      for (int j = 0; j < UW; ++j) send[j] = first ? acc[r][1][j] : acc[r][0][j];
-      st2_cluster(remote + 4 * ((rg + 8 * r) * xpitch + u0), send);
-    }
-    cluster_sync();  // the partials arrived; this step's reads of the dpre tile are done
+        for (int j = 0; j < UW; ++j) send[j] = first ? acc[r][1][j] : acc[r][0][j];
+        st2_cluster(remote + 4 * ((rg + 8 * r) * xpitch + u0), send);
+      }
+      cluster_sync();  // the partials arrived; this step's reads of the dpre tile are done
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      float recv[UW];
-      ld2(xn + (rg + 8 * r) * xpitch + u0, recv);
-      if (t < rlen[r]) {
+      for (int r = 0; r < NR; ++r) {
+        float recv[UW];
+        ld2(xn + (rg + 8 * r) * xpitch + u0, recv);
+        if (t < rlen[r]) {
 #pragma unroll
-        for (int j = 0; j < UW; ++j) dh[r][j] = (first ? acc[r][0][j] : acc[r][1][j]) + recv[j];
+          for (int j = 0; j < UW; ++j) dh[r][j] = (first ? acc[r][0][j] : acc[r][1][j]) + recv[j];
+        }
       }
     }
   }
@@ -405,47 +500,61 @@ __global__ void __launch_bounds__(256, 1) bwd_scan_kernel(const BwdScanArgs a) {
   }
 }
 
-// The scan at a tile height of 16, 24, 32, 40 or 48 rows over `dirs`
-// directions; H a multiple of 16, at most 128. Returns a cudaError_t code.
+// The scan at a tile height of 16, 24, 32, 40 or 48 rows (bf16: 16, 32 or 48)
+// over `dirs` directions; H a multiple of 16, at most 128. Returns a
+// cudaError_t code.
 template <int NR, typename S>
 int launch_bwd_scan(const BwdScanArgs& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(bwd_scan_kernel<NR, S>, tiles, dirs, 2 * a.H, bwd_smem_bytes(NR, a.H), s,
-                        a);
-}
-
-template <typename S>
-int bwd_scan_typed(int height, const BwdScanArgs& a, int dirs, cudaStream_t s) {
-  switch (height) {
-    case 16: return launch_bwd_scan<2, S>(a, dirs, s);
-    case 24: return launch_bwd_scan<3, S>(a, dirs, s);
-    case 32: return launch_bwd_scan<4, S>(a, dirs, s);
-    case 40: return launch_bwd_scan<5, S>(a, dirs, s);
-    case 48: return launch_bwd_scan<6, S>(a, dirs, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_cluster(bwd_scan_kernel<NR, S>, tiles, dirs, 2 * a.H, bwd_smem_bytes<S>(NR, a.H),
+                        s, a);
 }
 
 // dtype: 0 = fp32 streams, 1 = bf16 streams (then dbpart is written).
 inline int bwd_scan(int height, int dtype, const BwdScanArgs& a, int dirs, cudaStream_t s) {
   if (a.H % 16 || a.H > 128 || a.H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return bwd_scan_typed<float>(height, a, dirs, s);
-  if (dtype == 1 && a.dbpart != nullptr) return bwd_scan_typed<__nv_bfloat16>(height, a, dirs, s);
+  if (dtype == 0) {
+    switch (height) {
+      case 16: return launch_bwd_scan<2, float>(a, dirs, s);
+      case 24: return launch_bwd_scan<3, float>(a, dirs, s);
+      case 32: return launch_bwd_scan<4, float>(a, dirs, s);
+      case 40: return launch_bwd_scan<5, float>(a, dirs, s);
+      case 48: return launch_bwd_scan<6, float>(a, dirs, s);
+    }
+  } else if (dtype == 1 && a.dbpart != nullptr) {
+    switch (height) {
+      case 16: return launch_bwd_scan<2, __nv_bfloat16>(a, dirs, s);
+      case 32: return launch_bwd_scan<4, __nv_bfloat16>(a, dirs, s);
+      case 48: return launch_bwd_scan<6, __nv_bfloat16>(a, dirs, s);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// How many clusters of the scan at this tile height the card runs at once
-// (either stream type: both take the same shared memory and threads).
-inline int bwd_scan_max_clusters(int height, int H, int* clusters) {
-  const int threads = 2 * H;
-  switch (height) {
-    case 16: return max_clusters(bwd_scan_kernel<2, float>, threads, bwd_smem_bytes(2, H), clusters);
-    case 24: return max_clusters(bwd_scan_kernel<3, float>, threads, bwd_smem_bytes(3, H), clusters);
-    case 32: return max_clusters(bwd_scan_kernel<4, float>, threads, bwd_smem_bytes(4, H), clusters);
-    case 40: return max_clusters(bwd_scan_kernel<5, float>, threads, bwd_smem_bytes(5, H), clusters);
-    case 48: return max_clusters(bwd_scan_kernel<6, float>, threads, bwd_smem_bytes(6, H), clusters);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// How many clusters of the scan at this tile height and dtype the card runs
+// at once.
+template <int NR, typename S>
+int bwd_clusters(int H, int* clusters) {
+  return max_clusters(bwd_scan_kernel<NR, S>, 2 * H, bwd_smem_bytes<S>(NR, H), clusters);
+}
+
+inline int bwd_scan_max_clusters(int height, int dtype, int H, int* clusters) {
+  if (dtype == 0) {
+    switch (height) {
+      case 16: return bwd_clusters<2, float>(H, clusters);
+      case 24: return bwd_clusters<3, float>(H, clusters);
+      case 32: return bwd_clusters<4, float>(H, clusters);
+      case 40: return bwd_clusters<5, float>(H, clusters);
+      case 48: return bwd_clusters<6, float>(H, clusters);
+    }
+  } else if (dtype == 1) {
+    switch (height) {
+      case 16: return bwd_clusters<2, __nv_bfloat16>(H, clusters);
+      case 32: return bwd_clusters<4, __nv_bfloat16>(H, clusters);
+      case 48: return bwd_clusters<6, __nv_bfloat16>(H, clusters);
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace cluster_scan

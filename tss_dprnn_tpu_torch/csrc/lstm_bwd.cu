@@ -12,8 +12,9 @@
 // second backward on the same saved tensors gives the same result. Every
 // direction runs t = T-1..0 (the forward never reverses). bf16 streams (the
 // TPU kernel's bf16 mode): c_prev, tanh(c) and the cotangent are bf16, dpre
-// is rounded to bf16 where the TPU kernel rounds it and db's unrounded
-// partial sums go to dbpart (cluster_scan.cuh).
+// is rounded to bf16 where the TPU kernel rounds it, dpre @ W_hh^T runs as
+// bf16 mma.sync, dpre is stored bf16 and db's unrounded partial sums go to
+// dbpart (cluster_scan.cuh).
 // dx[d] = dpre @ W_ih[d]^T, dW_ih[d] = sum x^T dpre, dW_hh[d] = sum h_prev^T
 // dpre and db[d] = sum dpre are products over all row-steps at once: the
 // product and column-sum kernels of csrc/products.cu
@@ -33,12 +34,14 @@ using namespace cluster_scan;
 extern "C" {
 
 // The reverse scan over D stacked directions. height: rows per tile, one of
-// 16, 24, 32, 40, 48. dtype: 0 = fp32 streams, 1 = bf16. pre, dpre:
-// [D, R, T, 4H]; cp, tc, g: [D, R, T, H] in the stream type; wsplit: W_hh^T
-// laid out [D, 2, 4, H / 2, H] (direction, half, gate, unit, k); dbpart:
-// [tiles * 8, D, 4H] out (bf16 only, else null). pre, dpre, wsplit and dbpart
-// fp32; all contiguous, 16-byte aligned; D 1 or 2; H a multiple of 16, at
-// most 128. Returns a cudaError_t code (0 = launched).
+// 16, 24, 32, 40, 48 (bf16: 16, 32, 48). dtype: 0 = fp32 streams, 1 = bf16.
+// pre: [D, R, T, 4H] fp32; dpre: [D, R, T, 4H] out in the stream type; cp,
+// tc, g: [D, R, T, H] in the stream type; wsplit: fp32 W_hh^T laid out
+// [D, 2, 4, H / 2, H] (direction, half, gate, unit, k), bf16 in the fragment
+// order of ops/bilstm2.bwd_weight_layout_bf16; dbpart: [tiles * 8, D, 4H]
+// fp32 out (bf16 only, else null). All contiguous, 16-byte aligned; D 1 or
+// 2; H a multiple of 16, at most 128. Returns a cudaError_t code (0 =
+// launched).
 int lstm_bwd_scan(int height, int dtype, const void* pre, void* dpre, const void* cp,
                   const void* tc, const void* g, const void* wsplit, void* dbpart, int D, int R,
                   int Tn, int H, void* stream) {
@@ -47,14 +50,14 @@ int lstm_bwd_scan(int height, int dtype, const void* pre, void* dpre, const void
   const long long size = dtype == 1 ? 2 : 4;                // bytes per stream element
   BwdScanArgs a = {};
   a.pre = static_cast<const float*>(pre);
-  a.dpre = static_cast<float*>(dpre);
+  a.dpre = dpre;
   for (int d = 0; d < 2; ++d) {
     const long long off = (d < D ? d : 0) * steps * H * size;
     a.cp[d] = static_cast<const char*>(cp) + off;
     a.tc[d] = static_cast<const char*>(tc) + off;
     a.g[d] = static_cast<const char*>(g) + off;
   }
-  a.wsplit = static_cast<const float*>(wsplit);
+  a.wsplit = wsplit;
   a.lens = nullptr;
   a.dbpart = static_cast<float*>(dbpart);
   a.pre_dir = steps * 4 * H;
@@ -66,9 +69,10 @@ int lstm_bwd_scan(int height, int dtype, const void* pre, void* dpre, const void
   return bwd_scan(height, dtype, a, D, static_cast<cudaStream_t>(stream));
 }
 
-// How many clusters of the scan at this tile height the card runs at once.
-int lstm_bwd_max_clusters(int height, int H, int* clusters) {
-  return bwd_scan_max_clusters(height, H, clusters);
+// How many clusters of the scan at this tile height and dtype (as above) the
+// card runs at once.
+int lstm_bwd_max_clusters(int height, int dtype, int H, int* clusters) {
+  return bwd_scan_max_clusters(height, dtype, H, clusters);
 }
 
 const char* lstm_bwd_error_string(int code) {

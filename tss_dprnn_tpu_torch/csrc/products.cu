@@ -73,6 +73,25 @@
 // torch.matmul's fp32 one (PERF.md). The output type is a template
 // parameter: fp32 C for P, bf16 C for the dense mode's outputs (half the
 // bytes of the store that bounds it).
+//
+// The bf16 training pair (ops/bilstm2.py, ops/lstm.py: `_bilstm2_kernel`'s
+// and `_lstm_kernel`'s bf16 `want_resid`, `_bilstm2_bwd_kernel` and
+// `_lstm_bwd_kernel` in bf16) takes the same kernel for its input product
+// and, with a bf16 C, for the backward's dx_d = dpre_d @ W_ih[d]^T, rounded
+// once from the fp32 sum as the TPU kernel's .astype(dx_ref.dtype)
+// (pallas_lstm.py:1302-1303). Its dW_ih = x^T dpre and dW_hh = h_prev^T dpre
+// are reductions over every row-step (K up to 1.3 M at 8 x 10 s) into a
+// small C ([F, 8H], [H, 4H]): the column-layout instantiation
+// (products_gemm_bf16_col) reads x, h_prev and the bf16 dpre in place, A
+// held [k][m] in shared memory and its fragments loaded by
+// ldmatrix.trans, and cuts the k-range into fixed splits on blockIdx.z, each
+// writing an fp32 partial that the wrapper sums in a fixed order (no float
+// atomics: the splits' count and order come from the shapes alone, so a run
+// repeats itself bit for bit). A split's k-range is long (about 20,000
+// row-steps), so the truncating accumulation of a chain of mma would drift
+// as it does for the 3xTF32 kernel: each 32-deep k-tile's two mma go into a
+// fresh partial that is added to the sum in round-to-nearest. What bounds it
+// is reading dpre (2.6 GB at 8 x 10 s, 0.8 ms at 3.35 TB/s).
 
 #include "tf32_mma.cuh"
 
@@ -261,9 +280,11 @@ __global__ void __launch_bounds__(256, 2) gemm_kernel(GemmArgs p) {
 // or 8-byte stores of four bf16.
 constexpr int kHBM = 128, kHBN = 128, kHBK = 32, kHStages = 3;
 // [m][k] A tile: 80-byte rows put the 8 rows x 16 bytes of an ldmatrix phase
-// on 32 banks; [k][n] B tile: 272-byte rows, the same for ldmatrix.trans
+// on 32 banks; [k][n] B tile (and the column layout's [k][m] A tile):
+// 272-byte rows, the same for ldmatrix.trans
 constexpr int kHPitchA = kHBK + 8;
 constexpr int kHPitchB = kHBN + 8;
+static_assert(kHBM * kHPitchA >= kHBK * kHPitchB, "a [k][m] A tile fits an A slot");
 // [m][n] fp32 C tile: a pitch of 8 mod 32 words puts a half-warp's float2
 // fragment stores (4 rows x 4 lanes) on 32 banks
 constexpr int kHPitchC = kHBN + 8;
@@ -275,12 +296,14 @@ constexpr int kHSmemBytes = kHRingBytes > kHCBytes ? kHRingBytes : kHCBytes;
 
 template <typename OutT>
 struct GemmBf16Args {
-  const __nv_bfloat16* a;  // [M, K]: element (m, k) at a[m * lda + k]
+  // [M, K]: element (m, k) at a[m * lda + k] (row layout) or a[k * lda + m]
+  // (column layout)
+  const __nv_bfloat16* a;
   const __nv_bfloat16* b;  // [K, N]: element (k, n) at b[k * ldb + n]
   const float* bias;       // [N] or null
-  OutT* c;                 // element (m, n) at c[m * ldc + n]
-  long long lda, ldb, ldc;
-  int M, N, K;
+  OutT* c;                 // split s's element (m, n) at c[s * split_stride + m * ldc + n]
+  long long lda, ldb, ldc, split_stride;
+  int M, N, K, kps;        // kps: k-range of one split (blockIdx.z), a multiple of kHBK
 };
 
 // four fp32 values of C's row as one streaming store: 16 bytes fp32, 8 bf16
@@ -296,7 +319,7 @@ __device__ __forceinline__ void store_c4(__nv_bfloat16* p, const float4& v) {
   __stcs(reinterpret_cast<uint2*>(p), packed);
 }
 
-template <typename OutT>
+template <typename OutT, bool kACol>
 __global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args<OutT> p) {
   extern __shared__ __align__(16) float smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // kHStages x kHATile
@@ -306,24 +329,38 @@ __global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args<Ou
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;  // the warp's 32 x 64 outputs
   const int lg = lane >> 2, lt = lane & 3;  // the fragments' group and thread-in-group
   const int m0 = blockIdx.y * kHBM, n0 = blockIdx.x * kHBN;
-  const int ntiles = (p.K + kHBK - 1) / kHBK;
+  const int kb = blockIdx.z * p.kps;        // this split's k-range [kb, ke)
+  const int ke = min(p.K, kb + p.kps);
+  const int ntiles = (ke - kb + kHBK - 1) / kHBK;
 
   // copy k-tile `it` into ring slot `slot` in 16-byte pieces (8 bf16 of k for
-  // A, of n for B); out-of-range pieces are zero-filled
+  // a row-layout A, of m for a column-layout A, of n for B); out-of-range
+  // pieces are zero-filled
   auto load = [&](int it, int slot) {
-    const int k0 = it * kHBK;
+    const int k0 = kb + it * kHBK;
     __nv_bfloat16* as = As + slot * kHATile;
     __nv_bfloat16* bs = Bs + slot * kHBTile;
+    if constexpr (kACol) {
 #pragma unroll
-    for (int v = tid; v < kHBM * kHBK / 8; v += 256) {  // 128 m x 4 pieces of k
-      const int m = v / (kHBK / 8), k = v % (kHBK / 8) * 8;
-      const bool ok = m0 + m < p.M && k0 + k < p.K;
-      cp_async16(as + m * kHPitchA + k, ok ? p.a + (m0 + m) * p.lda + k0 + k : p.a, ok ? 16 : 0);
+      for (int v = tid; v < kHBK * kHBM / 8; v += 256) {  // 32 k x 16 pieces of m
+        const int k = v / (kHBM / 8), m = v % (kHBM / 8) * 8;
+        const bool ok = k0 + k < ke && m0 + m < p.M;
+        cp_async16(as + k * kHPitchB + m, ok ? p.a + (k0 + k) * p.lda + m0 + m : p.a,
+                   ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int v = tid; v < kHBM * kHBK / 8; v += 256) {  // 128 m x 4 pieces of k
+        const int m = v / (kHBK / 8), k = v % (kHBK / 8) * 8;
+        const bool ok = m0 + m < p.M && k0 + k < ke;
+        cp_async16(as + m * kHPitchA + k, ok ? p.a + (m0 + m) * p.lda + k0 + k : p.a,
+                   ok ? 16 : 0);
+      }
     }
 #pragma unroll
     for (int v = tid; v < kHBK * kHBN / 8; v += 256) {  // 32 k x 16 pieces of n
       const int k = v / (kHBN / 8), n = v % (kHBN / 8) * 8;
-      const bool ok = k0 + k < p.K && n0 + n < p.N;
+      const bool ok = k0 + k < ke && n0 + n < p.N;
       cp_async16(bs + k * kHPitchB + n, ok ? p.b + (k0 + k) * p.ldb + n0 + n : p.b, ok ? 16 : 0);
     }
   };
@@ -348,25 +385,60 @@ __global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args<Ou
     cp_async_commit();
     const __nv_bfloat16* as = As + (it % kHStages) * kHATile;
     const __nv_bfloat16* bs = Bs + (it % kHStages) * kHBTile;
+    if constexpr (kACol) {
+      // A fragments of both 16-deep k-steps of the tile from the [k][m] tile,
+      // transposed on the way: lane L addresses k-row ks + (L & 7) + 8 (L >>
+      // 4) at m wm + 16 mt + 8 ((L >> 3) & 1)
+      uint32_t af[2][2][4];  // [k-step][m-tile]
 #pragma unroll
-    for (int ks = 0; ks < kHBK; ks += 16) {
-      // A fragments of the warp's two m-tiles: rows wm + 16 mt + (lane & 15),
-      // k ks + 8 (lane >> 4)
-      uint32_t af[2][4];
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4_b16(af[mt], as + (wm + 16 * mt + (lane & 15)) * kHPitchA + ks + 8 * (lane >> 4));
-      // B fragments of n-tiles 2 np and 2 np + 1: k-rows ks + (lane & 7) + 8
-      // ((lane >> 3) & 1), columns wn + 16 np + 8 (lane >> 4)
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4_trans_b16(af[h][mt], as + (16 * h + (lane & 7) + 8 * (lane >> 4)) *
+                                                    kHPitchB + wm + 16 * mt +
+                                                    8 * ((lane >> 3) & 1));
+      // the tile's two k-steps chained into a fresh partial, added to the sum
+      // in fp32 round-to-nearest (a split's k-range is long: see the header)
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans_b16(bf, bs + (ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * kHPitchB + wn +
-                                      16 * np + 8 * (lane >> 4));
+        uint32_t bf[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        for (int h = 0; h < 2; ++h)
+          ldmatrix_x4_trans_b16(bf[h], bs + (16 * h + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                                kHPitchB + wn + 16 * np + 8 * (lane >> 4));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float part[4];
+            mma_bf16_first(part, af[0][mt], bf[0][2 * e], bf[0][2 * e + 1]);
+            mma_bf16(part, af[1][mt], bf[1][2 * e], bf[1][2 * e + 1]);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][2 * np + e][q] += part[q];
+          }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kHBK; ks += 16) {
+        // A fragments of the warp's two m-tiles: rows wm + 16 mt + (lane & 15),
+        // k ks + 8 (lane >> 4)
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4_b16(af[mt],
+                          as + (wm + 16 * mt + (lane & 15)) * kHPitchA + ks + 8 * (lane >> 4));
+        // B fragments of n-tiles 2 np and 2 np + 1: k-rows ks + (lane & 7) + 8
+        // ((lane >> 3) & 1), columns wn + 16 np + 8 (lane >> 4)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans_b16(bf, bs + (ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * kHPitchB +
+                                        wn + 16 * np + 8 * (lane >> 4));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+            mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+          }
         }
       }
     }
@@ -389,26 +461,27 @@ __global__ void __launch_bounds__(256, 2) bf16_gemm_kernel(const GemmBf16Args<Ou
             make_float2(acc[mt][nt][2 * h] + bb.x, acc[mt][nt][2 * h + 1] + bb.y);
   }
   __syncthreads();
+  OutT* c = p.c + blockIdx.z * p.split_stride;
   const int n = n0 + 4 * lane;  // a warp's 32 lanes write one row's 128 columns
   for (int r = warp; r < kHBM && m0 + r < p.M; r += 8)
     if (n < p.N)  // N is a multiple of 8: all four columns are in range
-      store_c4(p.c + (m0 + r) * p.ldc + n,
+      store_c4(c + (m0 + r) * p.ldc + n,
                *reinterpret_cast<const float4*>(cs + r * kHPitchC + 4 * lane));
 }
 
-template <typename OutT>
-int launch_gemm_bf16(const GemmBf16Args<OutT>& p, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(bf16_gemm_kernel<OutT>,
+template <typename OutT, bool kACol>
+int launch_gemm_bf16(const GemmBf16Args<OutT>& p, int splits, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(bf16_gemm_kernel<OutT, kACol>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kHSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.N + kHBN - 1) / kHBN, (p.M + kHBM - 1) / kHBM);
-  bf16_gemm_kernel<OutT><<<grid, 256, kHSmemBytes, s>>>(p);
+  dim3 grid((p.N + kHBN - 1) / kHBN, (p.M + kHBM - 1) / kHBM, splits);
+  bf16_gemm_kernel<OutT, kACol><<<grid, 256, kHSmemBytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
-int gemm_bf16(const void* a, long long lda, const void* b, long long ldb, int K, const void* bias,
-              void* c, long long ldc, int M, int N, cudaStream_t s) {
+GemmBf16Args<OutT> bf16_args(const void* a, long long lda, const void* b, long long ldb, int K,
+                             const void* bias, void* c, long long ldc, int M, int N) {
   GemmBf16Args<OutT> p;
   p.a = static_cast<const __nv_bfloat16*>(a);
   p.b = static_cast<const __nv_bfloat16*>(b);
@@ -417,10 +490,12 @@ int gemm_bf16(const void* a, long long lda, const void* b, long long ldb, int K,
   p.lda = lda;
   p.ldb = ldb;
   p.ldc = ldc;
+  p.split_stride = 0;
   p.M = M;
   p.N = N;
   p.K = K;
-  return launch_gemm_bf16(p, s);
+  p.kps = K;
+  return p;
 }
 
 // ---- column sums: partial[s][n] = sum over rows of split s of a[k][n] -------
@@ -504,8 +579,29 @@ int products_gemm_bf16(const void* a, long long lda, const void* b, long long ld
   if (K % 8 || N % 8 || lda % 8 || ldb % 8 || ldc % 4 || M < 0 || K < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return c_bf16 ? gemm_bf16<__nv_bfloat16>(a, lda, b, ldb, K, bias, c, ldc, M, N, s)
-                : gemm_bf16<float>(a, lda, b, ldb, K, bias, c, ldc, M, N, s);
+  return c_bf16 ? launch_gemm_bf16<__nv_bfloat16, false>(
+                      bf16_args<__nv_bfloat16>(a, lda, b, ldb, K, bias, c, ldc, M, N), 1, s)
+                : launch_gemm_bf16<float, false>(
+                      bf16_args<float>(a, lda, b, ldb, K, bias, c, ldc, M, N), 1, s);
+}
+
+// C = A @ B on bf16 operands with A in column layout: a is [K, M] (row lda),
+// so C[m][n] = sum over k of a[k][m] b[k][n], the reduction over all
+// row-steps of the bf16 backward's dW_ih = x^T dpre and dW_hh = h_prev^T dpre;
+// b [K, N] bf16 (row ldb). The k-range is cut into splits of kps (a multiple
+// of 32) and split s writes its fp32 partial [M][N] to c + s * split_stride
+// (row pitch N), which the caller sums in a fixed order: no atomics. M, N,
+// lda and ldb multiples of 8; every pointer 16-byte aligned. Returns a
+// cudaError_t code (0 = launched).
+int products_gemm_bf16_col(const void* a, long long lda, const void* b, long long ldb, int K,
+                           void* c, long long split_stride, int M, int N, int splits, int kps,
+                           void* stream) {
+  if (M % 8 || N % 8 || lda % 8 || ldb % 8 || kps % kHBK || kps <= 0 || splits < 1 || K < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmBf16Args<float> p = bf16_args<float>(a, lda, b, ldb, K, nullptr, c, N, M, N);
+  p.split_stride = split_stride;
+  p.kps = kps;
+  return launch_gemm_bf16<float, true>(p, splits, static_cast<cudaStream_t>(stream));
 }
 
 const char* products_error_string(int code) {

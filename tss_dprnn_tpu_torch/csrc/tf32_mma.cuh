@@ -64,6 +64,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a @ b (no accumulator: C is zero), bf16 operands as mma_bf16
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
 // the A fragment of a 16 x 16 bf16 tile from its [m][k] rows: lane L gives
 // the address of row L % 16 at k 8 (L / 16); register q receives rows lane /
 // 4 + 8 (q & 1), k 2 (lane % 4) + 8 (q >> 1) and the k after it
@@ -76,7 +85,11 @@ __device__ __forceinline__ void ldmatrix_x4_b16(uint32_t (&a)[4], const void* ro
 // the B fragments of two 8-column n-tiles of a 16-deep bf16 k-step from a
 // [k][n] tile (n contiguous), transposed on the way: lane L gives the address
 // of k-row L % 8 + 8 ((L / 8) % 2) at column 8 (L / 16); b[0], b[1] are the
-// first n-tile's b0, b1 of mma_bf16 and b[2], b[3] the second's
+// first n-tile's b0, b1 of mma_bf16 and b[2], b[3] the second's. Also the A
+// fragment of a 16 x 16 tile held [k][m] (m contiguous): lane L gives the
+// address of k-row L % 8 + 8 (L / 16) at m 8 ((L / 8) % 2), and register q
+// receives rows lane / 4 + 8 (q & 1), k 2 (lane % 4) + 8 (q >> 1) and the k
+// after it, as ldmatrix_x4_b16 gives them from [m][k].
 __device__ __forceinline__ void ldmatrix_x4_trans_b16(uint32_t (&b)[4], const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])

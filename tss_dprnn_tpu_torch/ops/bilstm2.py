@@ -7,14 +7,16 @@ unmasked, masked and dense modes, fp32 and bf16 streams (the serving scans),
 with the input product of ``csrc/products.cu`` followed by the serving scan
 of ``csrc/bilstm2_serve.cu`` (the dense mode's then followed by its two
 SplitDense products, ``csrc/products.cu`` again), in its residual (training)
-mode, fp32 and bf16 streams, with ``csrc/bilstm2_resid.cu`` after the same
-input product,
+mode with ``csrc/bilstm2_resid.cu`` after the same input product (fp32
+streams) or, for bf16 streams, the bf16-operand input product and the
+serving scan's bf16 training mode,
 ``_bilstm2_bm_kernel`` (pallas_lstm.py:1088) with the same serving route
 (its bf16 streams through the bf16-operand input product), and
 ``_bilstm2_bwd_kernel`` (pallas_lstm.py:1224, fp32 and bf16) with
-``csrc/bilstm2_bwd.cu`` and the products of ``csrc/products.cu``, CUDA C++
-for ``sm_90a``. Both directions run in one launch and both outputs come
-back in forward time. Layout and argument order are the JAX entries':
+``csrc/bilstm2_bwd.cu`` and the products of ``csrc/products.cu`` (bf16:
+its bf16-operand and column-layout products), CUDA C++ for ``sm_90a``.
+Both directions run in one launch and both outputs come back in forward
+time. Layout and argument order are the JAX entries':
 ``bilstm2_forward(x [B, T, F], w_ih2 [2, F, 4H], b2 [2, 4H], w_hh2 [2, H, 4H])``.
 The dense mode (``bilstm2_dense_forward``, opt-in ``TSS_FUSED_DENSE=1`` in
 ``ops/rnn.py``) returns the SplitDense products y_d = h_d @ wo2[d], [B, T,
@@ -41,20 +43,27 @@ so parallelism comes only from rows and directions.
 The serving route and the training pair split the work by what is
 sequential: the product kernel computes the input half of every gate at
 once, P = x @ [W_ih[0] | W_ih[1]] + b into a [B, T, 2, 4H] fp32 buffer (bf16
-x upcast, exactly; the batch-major entry's bf16 x goes to the bf16-operand
-product kernel as it is, :func:`gemm_bf16_reference`), then a recurrent
-scan adds ``h @ W_hh`` step by step.
+x upcast, exactly, for the default serving route; the batch-major entry's
+and the training pair's bf16 x goes to the bf16-operand product kernel as
+it is, :func:`gemm_bf16_reference`), then a recurrent scan adds ``h @
+W_hh`` step by step.
 The serving scan reads P and writes only the two outputs in the stream
 type, with ``h @ W_hh`` on the tensor cores: in 3xTF32 for fp32 streams, in
 one bf16 product for bf16 streams (:func:`serve_weight_layout` and
 :func:`serve_weight_layout_bf16` give the fragment orders it reads W_hh
 in). The training forward's scan writes the full pre-activations back into
-``pre``. Backward: the reverse scan turns ``pre`` and the carried dh/dc into
-dpre, then the product kernel gives dx and the per-split partials of dW (a
-column-sum kernel those of db), which are summed here in a fixed order. The
-three recurrent scans run as 2-CTA thread-block clusters, one per
-(direction, row tile), each CTA holding half of W_hh in shared memory for
-the whole scan; :func:`plan_tiles` picks the tile height. The serving and
+``pre``: in fp32 ``csrc/bilstm2_resid.cu`` (FMAs), in bf16 the serving
+scan's training mode (one bf16 mma per gate and k-step, as its serving
+mode). Backward: the reverse scan turns ``pre`` and the carried dh/dc into
+dpre (bf16: its dpre @ W_hh^T in bf16 mma.sync, W_hh^T in
+:func:`bwd_weight_layout_bf16`'s order, dpre stored bf16), then the product
+kernel gives dx and the per-split partials of dW (a column-sum kernel those
+of db), which are summed here in a fixed order; bf16 reads x, h_prev and
+dpre as they are, dx through the bf16-operand product with a bf16 output
+and dW through the column-layout one (:func:`gemm_bf16_col_reference`,
+:func:`split_plan`). The three recurrent scans run as 2-CTA thread-block
+clusters, one per (direction, row tile), each CTA holding half of W_hh in
+shared memory for the whole scan; :func:`plan_tiles` picks the tile height. The serving and
 training forward scans find a direction's gates in P through a stride pair
 and reverse direction 1 only when told, so ``ops/lstm.py`` runs its D
 stacked directions (each in forward time, P [D, R, T, 4H]) through the same
@@ -101,6 +110,8 @@ from tss_dprnn_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the serving scan's bf16 streams rounded as the manual-DMA TPU kernel rounds
 _V2_CODE = 2
+# ... and its bf16 training forward (the residual streams besides the outputs)
+_RESID_CODE = 3
 
 
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -289,6 +300,23 @@ def gemm_bf16_reference(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.T
     out = a.float() @ b.float()
     out = out if bias is None else out + bias.float()
     return out.to(out_dtype)
+
+
+def gemm_bf16_col_reference(a: torch.Tensor, b: torch.Tensor,
+                            kps: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the column-layout bf16-operand product kernel
+    (``products_gemm_bf16_col``): C = a^T @ b in fp32, a [K, M] and b [K, N]
+    holding bf16 values (products of two are exact in fp32; the kernel sums
+    them in another order), the k-range cut into splits of ``kps`` (default
+    :func:`split_plan`'s) whose fp32 partials are summed in order, as the
+    wrapper sums the kernel's."""
+    K, M = a.shape
+    kps = kps or split_plan(M, b.shape[1], K)[1]
+    a, b = a.float(), b.float()
+    out = a.new_zeros(M, b.shape[1])
+    for k0 in range(0, K, kps):
+        out = out + a[k0:k0 + kps].T @ b[k0:k0 + kps]
+    return out
 
 
 def _row_sum(t: torch.Tensor) -> torch.Tensor:
@@ -507,8 +535,11 @@ _BK = 32         # ... and its k-depth
 
 # the training scans' compiled tile heights (csrc/bilstm2_resid.cu, bilstm2_bwd.cu)
 TILE_HEIGHTS = (16, 24, 32, 40, 48)
-# the serving scan's (csrc/bilstm2_serve.cu): multiples of its 16-row m-tile
+# the serving scan's (csrc/bilstm2_serve.cu, and its bf16 training forward):
+# multiples of its 16-row m-tile
 SERVE_HEIGHTS = (16, 32)
+# the backward scan's in bf16: whole 16-row m-tiles of its dpre @ W_hh^T
+BWD_BF16_HEIGHTS = (16, 32, 48)
 
 
 class TilePlan(NamedTuple):
@@ -545,32 +576,51 @@ def plan_tiles(R: int, max_clusters: Mapping[int, int], dirs: int = 2,
 
 @functools.lru_cache(maxsize=None)
 def _max_clusters(which: str, H: int, device: int, height: int, dtype: torch.dtype) -> int:
-    """How many clusters of a cluster scan (``which``: "resid", "bwd" or
-    "serve") at tile ``height`` the card runs at once, from
-    cudaOccupancyMaxActiveClusters. The serving scan is asked per stream
-    type (``dtype``): its bf16 W slice is half the fp32 one, so a short bf16
-    tile may fit two CTAs on an SM. The training scans' occupancy does not
-    depend on ``dtype``."""
-    lib = {"resid": _library_resid, "bwd": _library_bwd, "serve": _library_serve}[which]()
-    args = (height, _DTYPE_CODES[dtype]) if which == "serve" else (height,)
+    """How many clusters of a cluster scan (``which``: "resid", the fp32
+    training forward; "serve_resid", the bf16 one; "bwd" or "serve") at tile
+    ``height`` the card runs at once, from cudaOccupancyMaxActiveClusters.
+    The serving and backward scans are asked per stream type (``dtype``):
+    their bf16 W slices are half the fp32 ones, so a short bf16 tile may fit
+    two CTAs on an SM. The fp32 training forward takes fp32 only."""
+    lib = _library_resid() if which == "resid" else (
+        _library_bwd() if which == "bwd" else _library_serve())
+    code = _RESID_CODE if which == "serve_resid" else _DTYPE_CODES[dtype]
+    args = (height,) if which == "resid" else (height, code)
+    name = "serve" if which == "serve_resid" else which
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = getattr(lib, f"bilstm2_{which}_max_clusters")(*args, H, ctypes.byref(n))
-    _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, f"bilstm2_{which}_error_string")
+        rc = getattr(lib, f"bilstm2_{name}_max_clusters")(*args, H, ctypes.byref(n))
+    _raise_on(rc, f"bilstm2 {which} scan occupancy query", lib, f"bilstm2_{name}_error_string")
     return n.value
 
 
 def _plan(which: str, R: int, H: int, device: torch.device, dirs: int = 2,
           dtype: torch.dtype = torch.float32) -> TilePlan:
-    """A cluster scan's tile plan on ``device``. The serving scan's from its
-    occupancy at each height in the stream type ``dtype``; the training
-    scans' from their smallest height's (at H = 128 every height takes most
-    of an SM's shared memory, one CTA per SM, so one answer serves all)."""
-    if which == "serve":
-        counts = {h: _max_clusters(which, H, device.index, h, dtype) for h in SERVE_HEIGHTS}
-        return plan_tiles(R, counts, dirs=dirs, heights=SERVE_HEIGHTS)
+    """A cluster scan's tile plan on ``device``. The serving scan's (and its
+    bf16 training forward's, ``which`` "serve_resid") and the bf16
+    backward's from their occupancy at each of their heights in the stream
+    type ``dtype``; the fp32 training scans' from their smallest height's (at
+    H = 128 every height takes most of an SM's shared memory, one CTA per SM,
+    so one answer serves all)."""
+    heights = (SERVE_HEIGHTS if which in ("serve", "serve_resid") else
+               BWD_BF16_HEIGHTS if which == "bwd" and dtype != torch.float32 else None)
+    if heights is not None:
+        counts = {h: _max_clusters(which, H, device.index, h, dtype) for h in heights}
+        return plan_tiles(R, counts, dirs=dirs, heights=heights)
     n = _max_clusters(which, H, device.index, TILE_HEIGHTS[0], dtype)
     return plan_tiles(R, dict.fromkeys(TILE_HEIGHTS, n), dirs=dirs, heights=TILE_HEIGHTS)
+
+
+def split_plan(M: int, N: int, K: int) -> Tuple[int, int]:
+    """(splits, kps) of a product over a long k-range into a small C[M, N]:
+    about _SPLIT_BLOCKS blocks of the product kernel's 128 x 128 tiles, each
+    split kps deep (a multiple of its 32-deep k-tile). It depends on the
+    shapes alone, so the partials and the order they are summed in repeat
+    from run to run."""
+    tiles = -(-M // _BM) * -(-N // _BN)
+    splits = max(1, min(-(-_SPLIT_BLOCKS // tiles), -(-K // _BK)))
+    kps = max(-(-K // (splits * _BK)) * _BK, _BK)
+    return max(1, -(-K // kps)), kps
 
 
 def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.Tensor] = None,
@@ -587,10 +637,7 @@ def _gemm(lib, stream, a_col: bool, parts, M: int, N: int, out: Optional[torch.T
     if out is not None:
         splits, kps, partial, stride = 1, -(-K // _BK) * _BK, out, 0
     else:
-        tiles = -(-M // _BM) * -(-N // _BN)
-        splits = max(1, min(-(-_SPLIT_BLOCKS // tiles), -(-K // _BK)))
-        kps = -(-K // (splits * _BK)) * _BK
-        splits = -(-K // kps)
+        splits, kps = split_plan(M, N, K)
         partial = torch.empty(splits, M, N, dtype=torch.float32, device=a1.device)
         ldc, stride = N, M * N
     rc = lib.products_gemm(int(a_col), _ptr(a1, ao1), lda1, _ptr(b1, bo1), ldb1, k1,
@@ -616,6 +663,23 @@ def _gemm_bf16(lib, stream, a: torch.Tensor, a_off: int, b: torch.Tensor, M: int
                                 int(out.dtype == torch.bfloat16), stream)
     _raise_on(rc, "bf16 product kernel", lib, "products_error_string")
     _gemm_bf16.launches += 1
+
+
+def _gemm_bf16_col(lib, stream, a: torch.Tensor, a_off: int, lda: int, b: torch.Tensor,
+                   b_off: int, ldb: int, K: int, M: int, N: int) -> torch.Tensor:
+    """One launch of the column-layout bf16-operand product kernel
+    (csrc/products.cu): C[M, N] = sum over k < K of a[k, m] b[k, n], a and b
+    bf16 (``a_off``, ``b_off`` in elements, row pitches ``lda``, ``ldb``). The
+    k-range is split (:func:`split_plan`) into fixed fp32 partials, summed
+    here in order; returns C fp32."""
+    splits, kps = split_plan(M, N, K)
+    partial = torch.empty(splits, M, N, dtype=torch.float32, device=a.device)
+    rc = lib.products_gemm_bf16_col(a.data_ptr() + a.element_size() * a_off, lda,
+                                    b.data_ptr() + b.element_size() * b_off, ldb, K,
+                                    partial.data_ptr(), M * N, M, N, splits, kps, stream)
+    _raise_on(rc, "column-layout bf16 product kernel", lib, "products_error_string")
+    _gemm_bf16_col.launches += 1
+    return partial.sum(0)
 
 
 def _colsum(lib, stream, a: torch.Tensor, a_off: int, lda: int, K: int, N: int) -> torch.Tensor:
@@ -664,6 +728,21 @@ def serve_weight_layout_bf16(w_hh: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 6, 1, 7, 2, 8, 3, 5, 4).to(torch.bfloat16).contiguous()
 
 
+def bwd_weight_layout_bf16(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh [D, H, 4H] (holding bf16 values) as the backward scan's bf16 mode
+    reads it: CTA (d, c)'s rows of W_hh[d]^T, WT_c[k][u] = W_hh[d][u][gate H
+    + c H/2 + j] for k = gate H/2 + j (its dpre tile's columns), in the
+    fragment order of mma m16n8k16's B: [D d, 2 c, H/8 k-steps, H/16 warps,
+    8 lg, 4 lt, 2 nt, 2 j, 2 e] in bf16, the element WT_c[16 ks + 8 j + 2 lt
+    + e][16 w + 8 nt + lg] (warp w's n-tile nt is units 16 w + 8 nt .. + 8;
+    lane 4 lg + lt's registers of both its n-tiles are 16 contiguous
+    bytes)."""
+    D, H = w_hh.shape[:2]
+    wt = w_hh.view(D, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1)  # d, c, gate, j, u: [D, 2, 2H, H]
+    w = wt.reshape(D, 2, H // 8, 2, 4, 2, H // 16, 2, 8)  # d, c, ks, j, lt, e, w, nt, lg
+    return w.permute(0, 1, 2, 6, 8, 4, 7, 3, 5).to(torch.bfloat16).contiguous()
+
+
 def _input_product(products, stream: int, x: torch.Tensor, w_ih2: torch.Tensor,
                    b2: torch.Tensor, pre: torch.Tensor, bf16: bool = False) -> None:
     """One launch of a product kernel: pre [B, T, 2, 4H] = x @ [W_ih[0] |
@@ -686,32 +765,35 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     """The training forward's launches on the current stream: the input
     product P = x @ [W_ih[0] | W_ih[1]] + b into ``pre``, then the recurrent
     scan, which overwrites ``pre`` with the full gate pre-activations; one
-    call adds one to ``entry.launches``. Returns ((out0, out1), resid), the
-    outputs and the six H-wide streams in x's type. bf16 x is upcast for the
-    product (exactly: a bf16 value is a TF32 value, so the 3xTF32 products of
-    bf16 values are exact) and the scan runs its bf16 mode."""
+    call adds one to ``entry.launches`` (and one to its product kernel's).
+    Returns ((out0, out1), resid), the outputs and the six H-wide streams in
+    x's type. fp32: the 3xTF32 product and csrc/bilstm2_resid.cu's scan.
+    bf16: x as it is through the bf16-operand product, then the serving
+    scan's bf16 training mode (csrc/bilstm2_serve.cu, mode 3: h @ W_hh in
+    bf16 mma.sync on W_hh in :func:`serve_weight_layout_bf16`'s order)."""
     x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
+    low = x.dtype != torch.float32
     out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
     streams = tuple(torch.empty_like(out0) for _ in range(6))
     pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
     if B and T:
-        w_split = resid_weight_layout(w_hh2)
-        plan = _plan("resid", B, H, x.device)
-        products, lib = _library_products(), _library_resid()
+        w_res = (serve_weight_layout_bf16 if low else resid_weight_layout)(w_hh2)
+        plan = _plan("serve_resid" if low else "resid", B, H, x.device, dtype=x.dtype)
+        products, lib = _library_products(), _library_serve() if low else _library_resid()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _input_product(products, stream, x.float(), w_ih2, b2, pre)
+            _input_product(products, stream, x if low else x.float(), w_ih2, b2, pre, bf16=low)
             # [B, T, 2, 4H]: a direction's gates 4H on, a row-step's 8H on;
             # direction 1 reversed
-            rc = lib.bilstm2_resid_scan(plan.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
-                                        w_split.data_ptr(),
-                                        _ptr(lens), out0.data_ptr(), out1.data_ptr(),
-                                        *(t.data_ptr() for t in streams), 4 * H, 8 * H, 1, 2,
-                                        B, T, H, stream)
-        _raise_on(rc, "bilstm2 resid scan kernel", lib, "bilstm2_resid_error_string")
+            scan = lib.bilstm2_serve_resid_scan if low else lib.bilstm2_resid_scan
+            rc = scan(plan.height, pre.data_ptr(), w_res.data_ptr(), _ptr(lens), out0.data_ptr(),
+                      out1.data_ptr(), *(t.data_ptr() for t in streams), 4 * H, 8 * H, 1, 2, B, T,
+                      H, stream)
+        which = "serve" if low else "resid"
+        _raise_on(rc, f"bilstm2 {which} resid scan kernel", lib, f"bilstm2_{which}_error_string")
         entry.launches += 1
     return (out0, out1), streams + (pre,)
 
@@ -810,10 +892,13 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
                      lens: Optional[torch.Tensor]):
     """The backward's launches (see the module docstring) on the current
     stream; one call adds one to ``entry.launches``. bf16 streams: the scan's
-    bf16 mode writes db's partial sums, which the column-sum kernel adds up;
-    dx is one product per direction, each rounded to bf16 before the two are
-    added in bf16 (as the TPU kernel's dx0 + dx1); x and hp are upcast,
-    exactly, for the products."""
+    bf16 mode (dpre @ W_hh^T on the tensor cores, W_hh^T in
+    :func:`bwd_weight_layout_bf16`'s order) writes dpre in bf16 and db's
+    partial sums, which the column-sum kernel adds up; every product reads
+    bf16 operands as they are (no fp32 copy of x, hp or dpre): dx is one
+    bf16-operand product per direction with a bf16 output, rounded once, the
+    two added in bf16 (as the TPU kernel's dx0 + dx1), dW_ih and dW_hh the
+    column-layout product's fixed partials."""
     x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
     B, T, F = x.shape
     H = w_hh2.shape[1]
@@ -839,14 +924,16 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     if M == 0:
         return (torch.zeros(B, T, F, dtype=x.dtype, device=x.device), torch.zeros_like(w_ih2),
                 torch.zeros_like(b2), torch.zeros_like(w_hh2))
-    dpre = torch.empty_like(pre)  # pre stays as saved: a second backward gives the same
-    # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
-    w_split = w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
+    # pre stays as saved: a second backward gives the same; bf16 dpre is bf16
+    dpre = torch.empty(B, T, 2, G, dtype=x.dtype, device=x.device)
+    if low:
+        w_split = bwd_weight_layout_bf16(w_hh2)
+    else:  # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
+        w_split = w_hh2.view(2, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
     w_ih_t = w_ih2.transpose(1, 2).reshape(2 * G, F).contiguous()  # [8H, F]
-    plan = _plan("bwd", B, H, x.device)
+    plan = _plan("bwd", B, H, x.device, dtype=x.dtype)
     # bf16: db's partial sums, one row per (tile, row group), both directions
     dbpart = torch.empty(plan.tiles * 8, 2 * G, device=x.device) if low else None
-    xf = x.float()
     products, lib = _library_products(), _library_bwd()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -856,21 +943,23 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
                                   w_split.data_ptr(), _ptr(lens), _ptr(dbpart), B, T, H, stream)
         _raise_on(rc, "bilstm2 backward scan kernel", lib, "bilstm2_bwd_error_string")
         if low:
-            dxs = torch.empty(2, M, F, dtype=torch.float32, device=x.device)
-            for d in (0, 1):
-                _gemm(products, stream, False, [(dpre, d * G, 2 * G, w_ih_t, d * G * F, F, G)],
-                      M, F, out=dxs, out_off=d * M * F, ldc=F)
-            dx = (dxs[0].to(x.dtype) + dxs[1].to(x.dtype)).view(B, T, F)
+            w_ih_t = w_ih_t.bfloat16()
+            dxs = torch.empty(2, M, F, dtype=x.dtype, device=x.device)
+            for d in (0, 1):  # dpre_d: 4H columns at d 4H of the 8H-wide rows
+                _gemm_bf16(products, stream, dpre, d * G, w_ih_t[d * G:(d + 1) * G], M, F, None,
+                           dxs, d * M * F, F, lda=2 * G)
+            dx = (dxs[0] + dxs[1]).view(B, T, F)
+            dw_ih = _gemm_bf16_col(products, stream, x, 0, F, dpre, 0, 2 * G, M, F, 2 * G)
+            dw_hh = [_gemm_bf16_col(products, stream, hp, 0, H, dpre, d * G, 2 * G, M, H, G)
+                     for d, hp in ((0, hp0), (1, hp1))]
+            db = _colsum(products, stream, dbpart, 0, 2 * G, dbpart.shape[0], 2 * G)
         else:
             dx = torch.empty(B, T, F, dtype=torch.float32, device=x.device)
             _gemm(products, stream, False, [(dpre, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F,
                   out=dx, ldc=F)
-        dw_ih = _gemm(products, stream, True, [(xf, 0, F, dpre, 0, 2 * G, M)], F, 2 * G)
-        dw_hh = [_gemm(products, stream, True, [(hp.float(), 0, H, dpre, d * G, 2 * G, M)], H, G)
-                 for d, hp in ((0, hp0), (1, hp1))]
-        if low:
-            db = _colsum(products, stream, dbpart, 0, 2 * G, dbpart.shape[0], 2 * G)
-        else:
+            dw_ih = _gemm(products, stream, True, [(x, 0, F, dpre, 0, 2 * G, M)], F, 2 * G)
+            dw_hh = [_gemm(products, stream, True, [(hp, 0, H, dpre, d * G, 2 * G, M)], H, G)
+                     for d, hp in ((0, hp0), (1, hp1))]
             db = _colsum(products, stream, dpre, 0, 2 * G, M, 2 * G)
     entry.launches += 1
     return (dx, dw_ih.reshape(F, 2, G).transpose(0, 1).contiguous(), db.reshape(2, G),
@@ -886,6 +975,8 @@ def _library_products() -> ctypes.CDLL:
     lib.products_gemm.restype = i
     lib.products_gemm_bf16.argtypes = [p, ll, p, ll, i, p, p, ll, i, i, i, p]
     lib.products_gemm_bf16.restype = i
+    lib.products_gemm_bf16_col.argtypes = [p, ll, p, ll, i, p, ll, i, i, i, i, p]
+    lib.products_gemm_bf16_col.restype = i
     lib.products_colsum.argtypes = [p, ll, i, i, p, i, i, p]
     lib.products_colsum.restype = i
     lib.products_error_string.argtypes = [i]
@@ -898,7 +989,7 @@ def _library_resid() -> ctypes.CDLL:
     """Build (at first use) and load the training forward's scan."""
     lib = _build.load_library("bilstm2_resid")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_resid_scan.argtypes = [i, i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.bilstm2_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.bilstm2_resid_scan.restype = i
     lib.bilstm2_resid_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_resid_max_clusters.restype = i
@@ -914,6 +1005,8 @@ def _library_serve() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bilstm2_serve_scan.argtypes = [i, i] + [p] * 5 + [ctypes.c_longlong] + [i] * 7 + [p]
     lib.bilstm2_serve_scan.restype = i
+    lib.bilstm2_serve_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.bilstm2_serve_resid_scan.restype = i
     lib.bilstm2_serve_max_clusters.argtypes = [i, i, i, p]
     lib.bilstm2_serve_max_clusters.restype = i
     lib.bilstm2_serve_error_string.argtypes = [i]
@@ -928,7 +1021,7 @@ def _library_bwd() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bilstm2_bwd_scan.argtypes = [i, i] + [p] * 11 + [i, i, i, p]
     lib.bilstm2_bwd_scan.restype = i
-    lib.bilstm2_bwd_max_clusters.argtypes = [i, i, p]
+    lib.bilstm2_bwd_max_clusters.argtypes = [i, i, i, p]
     lib.bilstm2_bwd_max_clusters.restype = i
     lib.bilstm2_bwd_error_string.argtypes = [i]
     lib.bilstm2_bwd_error_string.restype = ctypes.c_char_p
@@ -1043,7 +1136,8 @@ ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_dense_forward, bilst
            bilstm2_backward_masked)
 # the product and column-sum kernels, launched inside the entries (and
 # ops/lstm.py's); counted apart from the entries
-PRODUCTS = {"products_gemm": _gemm, "products_gemm_bf16": _gemm_bf16, "products_colsum": _colsum}
+PRODUCTS = {"products_gemm": _gemm, "products_gemm_bf16": _gemm_bf16,
+            "products_gemm_bf16_col": _gemm_bf16_col, "products_colsum": _colsum}
 for _entry in (*ENTRIES, *PRODUCTS.values()):
     _entry.launches = 0
 

@@ -7,7 +7,9 @@ Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its h-only
 and ``want_resid`` modes (fp32 and bf16 streams) with the input product of
 ``csrc/products.cu`` followed by the cluster scans of
 ``csrc/bilstm2_serve.cu`` and ``csrc/bilstm2_resid.cu`` (the fused
-bidirectional LSTM's, which take D stacked directions too), in its
+bidirectional LSTM's, which take D stacked directions too; bf16
+``want_resid`` runs the serving scan's bf16 training mode after the
+bf16-operand input product), in its
 ``reverse_dir1`` mode with the fused pair's serving route (its outputs side
 by side), in its ``want_cs`` mode (fp32 and bf16) with ``csrc/lstm.cu``,
 ``_lstm_manual_kernel`` (pallas_lstm.py:275) with the h-only route (its
@@ -55,7 +57,8 @@ row-step and direction forward and twice that backward. The h-only and
 residual forwards split the work by what is sequential, as the fused pair's do
 (``ops/bilstm2.py``): per direction one launch of the 3xTF32 product kernel
 computes the input half of every gate at once, P[d] = x[d] @ W_ih[d] + b[d]
-into a [D, R, T, 4H] fp32 buffer (bf16 x upcast, exactly), then one launch
+into a [D, R, T, 4H] fp32 buffer (bf16 h-only x upcast, exactly; the bf16
+residual mode's x through the bf16-operand product as it is), then one launch
 of a recurrent scan over all D directions (2-CTA clusters, each CTA holding
 half of W_hh[d] in shared memory for the whole scan, the tile height from
 :func:`plan_tiles`) adds h @ W_hh step by step: the serving scan (on the
@@ -68,7 +71,10 @@ W = [W_ih; W_hh] streamed from L2 every step. The backward splits the work in tw
 the saved pre-activations and the carried dh/dc into dpre, then the 3xTF32
 product and column-sum kernels of ``csrc/products.cu`` give dx (per
 direction) and the fixed partials of dW and db, summed here in a fixed
-order (no atomics: a run repeats itself bit for bit). The cluster scans take
+order (no atomics: a run repeats itself bit for bit); bf16 streams run the
+scan's bf16 mode (dpre @ W_hh^T in bf16 mma.sync, dpre stored bf16) and the
+bf16-operand products on x, hp and dpre as they are (dx with a bf16
+output, dW in the column layout). The cluster scans take
 D <= 2 on the card. As in ``ops/bilstm2.py``, the wrappers zero-pad F and H
 to multiples of 16 (``bilstm2.padded``, ``bilstm2.padded_backward``) and cut
 the pad off what they return.
@@ -93,6 +99,7 @@ from tss_dprnn_tpu_torch.ops import _build
 from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _DTYPE_CODES,
     _V2_CODE,
+    BWD_BF16_HEIGHTS,
     TILE_HEIGHTS,
     Grads,
     TilePlan,
@@ -101,6 +108,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _gates,
     _gemm,
     _gemm_bf16,
+    _gemm_bf16_col,
     _launch_serve,
     _library_products,
     _library_resid,
@@ -108,6 +116,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     _plan,
     _raise_on,
     _row_sum,
+    bwd_weight_layout_bf16,
     padded,
     padded_backward,
     plan_tiles,
@@ -368,16 +377,21 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
     into pre [D, R, T, 4H] fp32, then one launch of a cluster scan over the D
     directions, each in forward time: the serving scan (h only: it reads P
     and writes h) or the training forward's (it overwrites pre with the gate
-    pre-activations and writes h and the residual streams). bf16 streams run
-    the scans' bf16 modes after x is upcast, exactly, for the products. With
-    ``v2`` (h only) bf16 x goes as it is to the bf16-operand product kernel
-    and the serving scan rounds as the manual-DMA TPU kernel does; fp32 is
-    unchanged. One call adds one to ``entry.launches`` (and D to its product
-    kernel's). Returns (h, streams) as :func:`_launch`."""
+    pre-activations and writes h and the residual streams: fp32
+    csrc/bilstm2_resid.cu, bf16 the serving scan's training mode). bf16 h-only
+    streams run the serving scan's bf16 mode after x is upcast, exactly, for
+    the 3xTF32 products. With ``v2`` (h only) bf16 x goes as it is to the
+    bf16-operand product kernel and the serving scan rounds as the
+    manual-DMA TPU kernel does; the bf16 residual mode takes that product
+    too. fp32 is unchanged. One call adds one to ``entry.launches`` (and D to
+    its product kernel's). Returns (h, streams) as :func:`_launch`."""
     resid = mode == _MODE_RESID
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
     dt = x.dtype
-    v2 = v2 and dt != torch.float32
+    low = dt != torch.float32
+    bf16_product = low and (v2 or resid)
+    v2 = v2 and low
+    fp32_resid = resid and not low  # csrc/bilstm2_resid.cu; everything else the serving scan
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     G, M = 4 * H, R * T
@@ -388,7 +402,7 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
         return out, hcs + (pre,) if resid else ()
     if D > 2:
         raise ValueError(f"lstm cluster scans take D <= 2 directions, got {D}")
-    if not v2:
+    if not bf16_product:
         x = x.float()
     # a direction's slices are passed as pointers: each must be 16-byte aligned
     named = {"x": x, "w_ih": w_ih, "b": b, "pre": pre, "out": out,
@@ -398,19 +412,19 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
     def per_dir(t):  # direction 0's and 1's; with D = 1 the kernel reads only the first
         return [t[min(d, D - 1)].data_ptr() for d in range(2)]
 
-    which = "resid" if resid else "serve"
+    which = "resid" if fp32_resid else "serve_resid" if resid else "serve"
     plan = _plan(which, R, H, x.device, dirs=D, dtype=dt)
-    if resid:
+    if fp32_resid:
         w_res = resid_weight_layout(w_hh)
     else:
-        w_res = (serve_weight_layout if dt == torch.float32 else serve_weight_layout_bf16)(w_hh)
+        w_res = (serve_weight_layout_bf16 if low else serve_weight_layout)(w_hh)
     products = _library_products()
-    lib = _library_resid() if resid else _library_serve()
+    lib = _library_resid() if fp32_resid else _library_serve()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        w_bf16 = w_ih.bfloat16() if v2 else None
+        w_bf16 = w_ih.bfloat16() if bf16_product else None
         for d in range(D):
-            if v2:
+            if bf16_product:
                 _gemm_bf16(products, stream, x, d * M * F, w_bf16[d], M, G, b[d], pre, d * M * G,
                            G)
             else:
@@ -421,43 +435,53 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
         scan = (0, D, R, T, H, stream)  # no direction reversed, no lengths
         if resid:
             streams = [t[min(d, D - 1)].data_ptr() for d in range(2) for t in hcs]
-            rc = lib.bilstm2_resid_scan(plan.height, _DTYPE_CODES[dt], pre.data_ptr(),
-                                        w_res.data_ptr(), None, *per_dir(out), *streams,
-                                        *pre_layout, *scan)
+            run = lib.bilstm2_resid_scan if fp32_resid else lib.bilstm2_serve_resid_scan
+            rc = run(plan.height, pre.data_ptr(), w_res.data_ptr(), None, *per_dir(out), *streams,
+                     *pre_layout, *scan)
         else:  # outputs [D, R, T, H]: a row-step H on
             rc = lib.bilstm2_serve_scan(plan.height, _V2_CODE if v2 else _DTYPE_CODES[dt],
                                         pre.data_ptr(), w_res.data_ptr(), None, *per_dir(out),
                                         *pre_layout, H, *scan)
-    _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{which}_error_string")
+    name = "resid" if fp32_resid else "serve"
+    _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{name}_error_string")
     entry.launches += 1
     return out, hcs + (pre,) if resid else ()
 
 
 @functools.lru_cache(maxsize=None)
-def _max_clusters(H: int, device: int) -> int:
-    """How many clusters of the backward scan the card runs at once
-    (cudaOccupancyMaxActiveClusters; at H = 128 every tile height takes most
-    of an SM's shared memory, so the smallest height's answer serves all)."""
+def _max_clusters(H: int, device: int, height: int, dtype: torch.dtype) -> int:
+    """How many clusters of the backward scan at tile ``height`` in the
+    stream type ``dtype`` the card runs at once
+    (cudaOccupancyMaxActiveClusters)."""
     lib = _library_scan()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = lib.lstm_bwd_max_clusters(TILE_HEIGHTS[0], H, ctypes.byref(n))
+        rc = lib.lstm_bwd_max_clusters(height, _DTYPE_CODES[dtype], H, ctypes.byref(n))
     _raise_on(rc, "lstm backward scan occupancy query", lib, "lstm_bwd_error_string")
     return n.value
 
 
-def plan_backward(D: int, R: int, H: int, device: torch.device) -> TilePlan:
-    """The backward scan's row tiles on the card (:func:`plan_tiles`)."""
-    return plan_tiles(R, dict.fromkeys(TILE_HEIGHTS, _max_clusters(H, device.index)), dirs=D)
+def plan_backward(D: int, R: int, H: int, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> TilePlan:
+    """The backward scan's row tiles on the card (:func:`plan_tiles`): fp32
+    from the smallest height's occupancy (at H = 128 every height takes most
+    of an SM's shared memory, so one answer serves all), bf16 from each of
+    its heights' (a 16-row bf16 tile may fit two CTAs on an SM)."""
+    if dtype == torch.float32:
+        n = _max_clusters(H, device.index, TILE_HEIGHTS[0], dtype)
+        return plan_tiles(R, dict.fromkeys(TILE_HEIGHTS, n), dirs=D)
+    counts = {h: _max_clusters(H, device.index, h, dtype) for h in BWD_BF16_HEIGHTS}
+    return plan_tiles(R, counts, dirs=D, heights=BWD_BF16_HEIGHTS)
 
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
                      b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
     """The backward's launches (see the module docstring) on the current
     stream; one call adds one to ``entry.launches``. bf16 streams: the scan's
-    bf16 mode writes db's partial sums, which the column-sum kernel adds up,
-    x and hp are upcast, exactly, for the products, and dx is rounded to
-    bf16."""
+    bf16 mode (dpre @ W_hh^T on the tensor cores) writes dpre in bf16 and
+    db's partial sums, which the column-sum kernel adds up; the products read
+    x, hp and dpre as they are: dx through the bf16-operand product with a
+    bf16 output (rounded once), dW through the column-layout one."""
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
     D, R, T, F = x.shape
     H = w_hh.shape[1]
@@ -479,20 +503,22 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
                          f"{x.device}; got {tuple(pre.shape)} {pre.dtype} on {pre.device}")
     _check_aligned(**dict(zip(("hp", "cp", "tc", "g"), streams)), pre=pre)
     hp, cp, tc, g = streams
-    dx = torch.empty(D, R, T, F, dtype=torch.float32, device=x.device)
+    # fp32, or with bf16 streams dx rounded once from the product's fp32 sum
+    dx = torch.empty(D, R, T, F, dtype=x.dtype, device=x.device)
     if D * M == 0:
-        return (dx.to(x.dtype), torch.zeros_like(w_ih), torch.zeros_like(b),
-                torch.zeros_like(w_hh))
+        return dx.zero_(), torch.zeros_like(w_ih), torch.zeros_like(b), torch.zeros_like(w_hh)
     if D > 2:
         raise ValueError(f"lstm backward kernel takes D <= 2 directions, got {D}")
-    dpre = torch.empty_like(pre)  # pre stays as saved: a second backward gives the same
-    # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
-    w_split = w_hh.view(D, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
+    # pre stays as saved: a second backward gives the same; bf16 dpre is bf16
+    dpre = torch.empty(D, R, T, G, dtype=x.dtype, device=x.device)
+    if low:
+        w_split = bwd_weight_layout_bf16(w_hh)
+    else:  # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
+        w_split = w_hh.view(D, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
     w_ih_t = w_ih.transpose(1, 2).contiguous()  # [D, 4H, F]
-    tiles = plan_backward(D, R, H, x.device)
+    tiles = plan_backward(D, R, H, x.device, x.dtype)
     # bf16: db's partial sums, one row per (tile, row group), the D directions side by side
     dbpart = torch.empty(tiles.tiles * 8, D * G, device=x.device) if low else None
-    xf, hpf = x.float(), hp.float()
     products, lib = _library_products(), _library_scan()
     dw_ih, dw_hh, db = [], [], []
     with torch.cuda.device(x.device):
@@ -502,19 +528,27 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
                                w_split.data_ptr(), None if dbpart is None else dbpart.data_ptr(),
                                D, R, T, H, stream)
         _raise_on(rc, "lstm backward scan kernel", lib, "lstm_bwd_error_string")
+        if low:
+            w_ih_t = w_ih_t.bfloat16()
         for d in range(D):
-            _gemm(products, stream, False, [(dpre, d * M * G, G, w_ih_t, d * G * F, F, G)], M, F,
-                  out=dx, out_off=d * M * F, ldc=F)
-            dw_ih.append(_gemm(products, stream, True, [(xf, d * M * F, F, dpre, d * M * G, G, M)],
-                               F, G))
-            dw_hh.append(_gemm(products, stream, True,
-                               [(hpf, d * M * H, H, dpre, d * M * G, G, M)], H, G))
             if low:
+                _gemm_bf16(products, stream, dpre, d * M * G, w_ih_t[d], M, F, None, dx, d * M * F,
+                           F)
+                dw_ih.append(_gemm_bf16_col(products, stream, x, d * M * F, F, dpre, d * M * G, G,
+                                            M, F, G))
+                dw_hh.append(_gemm_bf16_col(products, stream, hp, d * M * H, H, dpre, d * M * G, G,
+                                            M, H, G))
                 db.append(_colsum(products, stream, dbpart, d * G, D * G, dbpart.shape[0], G))
             else:
+                _gemm(products, stream, False, [(dpre, d * M * G, G, w_ih_t, d * G * F, F, G)], M,
+                      F, out=dx, out_off=d * M * F, ldc=F)
+                dw_ih.append(_gemm(products, stream, True,
+                                   [(x, d * M * F, F, dpre, d * M * G, G, M)], F, G))
+                dw_hh.append(_gemm(products, stream, True,
+                                   [(hp, d * M * H, H, dpre, d * M * G, G, M)], H, G))
                 db.append(_colsum(products, stream, dpre, d * M * G, G, M, G))
     entry.launches += 1
-    return dx.to(x.dtype), torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
+    return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -537,7 +571,7 @@ def _library_scan() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_bwd_scan.argtypes = [i, i] + [p] * 7 + [i] * 4 + [p]
     lib.lstm_bwd_scan.restype = i
-    lib.lstm_bwd_max_clusters.argtypes = [i, i, p]
+    lib.lstm_bwd_max_clusters.argtypes = [i, i, i, p]
     lib.lstm_bwd_max_clusters.restype = i
     lib.lstm_bwd_error_string.argtypes = [i]
     lib.lstm_bwd_error_string.restype = ctypes.c_char_p
