@@ -7,8 +7,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
 1. set-up: the card's name and power limit, torch and CUDA versions, and
    the nvcc builds of the kernels from csrc/, started together (with
    ptxas's register and spill report, and a summary of every instantiation
-   of the serving scan, of the bf16-operand product (fp32 and bf16 C) and of
-   the cell-state scan);
+   of the serving scan, its cell-state mode named apart, and of the
+   bf16-operand product (fp32 and bf16 C));
 2. kernel vs plain: bilstm2_forward(_masked) against its plain PyTorch
    version on the card, unmasked at the intra-chunk shape and masked at the
    inter-chunk shape of a batch of 8 x 10 s, in fp32 and bf16 (the serving
@@ -51,8 +51,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
 
 7. stacked-direction kernels vs plain: lstm_forward (fp32 and bf16: per
    direction the input product of csrc/products.cu, then the serving cluster
-   scan of csrc/bilstm2_serve.cu), lstm_forward_with_cs (csrc/lstm.cu),
-   lstm_forward_resid (the input products, then the training
+   scan of csrc/bilstm2_serve.cu), lstm_forward_with_cs (the input
+   products, then the serving scan's cell-state mode: bit for bit on a second
+   call, its h bit for bit lstm_forward's), lstm_forward_resid (the input
+   products, then the training
    forward's cluster scan of csrc/bilstm2_resid.cu; its four streams, the
    saved gate pre-activations among them) and lstm_backward (the cluster scan
    of csrc/lstm_bwd.cu, which reads those pre-activations, then the
@@ -189,14 +191,15 @@ Phases, each of which fails the script (nonzero exit, no result line):
    their size); accum_steps=5 against 1 at 5 x 3 s (BSS: loss 1e-4, gradients
    40 dB; TSS: BatchNorm's running statistics those of the last micro-batch
    alone); lstm_save_every=10 against 1 on the largest bucket (12
-   lstm_forward_with_cs launches and no training pair; loss 1e-4, gradients
-   40 dB); schedule_masks on a 5 x 3 s step (value neutral within 1e-4, the
+   lstm_forward_with_cs launches, each after its two input products, and no
+   training pair; loss 1e-4, gradients 40 dB); schedule_masks on a 5 x 3 s step (value neutral within 1e-4, the
    unmasked pair's launches); each of these steps timed as a second step
    of its trainer, with the peak memory of both; and the masked
    residual forward and backward at the largest bucket's inter shape and the
    want_cs forward at D = 2 over its intra shape against their plain
-   versions (1e-4; dW and db DW_REL_TOL), timed beside them, the bound and
-   cuDNN.
+   versions (1e-4; dW and db DW_REL_TOL; want_cs bit for bit on a second
+   call, its h bit for bit lstm_forward's, its tile plan and waves printed),
+   timed beside them, the bound and cuDNN.
 
 17. the bf16 lane ([bf16], ``model.dtype: bfloat16``) at full flagship width:
    (a) the bf16 streams of the four training modes (the residual forward
@@ -231,14 +234,17 @@ Phases, each of which fails the script (nonzero exit, no result line):
    within BF16_STEP_LOSS_REL, gradients >= BF16_STEP_GRAD_SNR_DB); TSS,
    BatchNorm's running statistics those of the last micro-batch alone
    (within 1e-6); (h) lstm_save_every=10 in the bf16 lane: the bf16 want_cs
-   mode of csrc/lstm.cu against its plain version at D = 2 over the 5 x 3 s
+   mode (the bf16-operand input products, then the serving scan's
+   cell-state mode) against its plain version at D = 2 over the 5 x 3 s
    step's intra shape (h within BF16_ATOL at BF16_SNR_DB, the fp32 cell
    state within CS_FREE_RTOL of max(1, |ref|), and within CS_STEP_RTOL per
-   step from the kernel's own h and c), timed beside the plain version
+   step from the kernel's own h and c; bit for bit on a second call, its h
+   bit for bit bf16 lstm_forward_resid's), timed beside the plain version
    and the bound; a 5 x 3 s TSS step with lstm_save_every=10 in both lanes
-   (12 lstm_forward_with_cs launches and no other kernel; ms of the second
-   step and peak memory), and the bf16 step card vs CPU (loss within
-   BF16_STEP_LOSS_REL, gradients >= BF16_STEP_GRAD_SNR_DB).
+   (12 lstm_forward_with_cs launches, each after its two input products, and
+   no other kernel; ms of the second step and peak memory), and the bf16
+   step card vs CPU (loss within BF16_STEP_LOSS_REL, gradients >=
+   BF16_STEP_GRAD_SNR_DB).
 
 Every serving count includes the input products: each
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
@@ -429,6 +435,15 @@ BF16_TRAIN_PRODUCTS = {
                                 "products_colsum": 1},
     "lstm_backward": {"products_gemm_bf16": 1, "products_gemm_bf16_col": 2, "products_colsum": 1},
 }
+
+
+def save_every_launches(calls: int, bf16: bool = False):
+    """An lstm_save_every step's launches: ``calls`` lstm_forward_with_cs
+    launches over the TSS model's two-direction scans, each after one input
+    product per direction (3xTF32, or the bf16-operand product in the bf16
+    lane), and no other kernel."""
+    return {"lstm_forward_with_cs": calls,
+            "products_gemm_bf16" if bf16 else "products_gemm": 2 * calls}
 
 
 def with_products(per_step, bf16: bool = False):
@@ -979,11 +994,24 @@ def bound_stack(kind: str, D: int, R: int, T: int, F: int, H: int, itemsize: int
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def scan_plan(which: str, D: int, R: int, H: int, device, dtype):
+    """A stacked scan's tile plan on the card (ops/bilstm2._plan: ``which``
+    "serve" for the h-only and cell-state modes, "resid" or "serve_resid"
+    for the training forward), with the card's clusters at its height and
+    the waves its D directions' clusters take."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    plan = B2._plan(which, R, H, device, dirs=D, dtype=dtype)._asdict()
+    plan["max_clusters"] = B2._max_clusters(which, H, device.index, plan["height"], dtype)
+    plan["waves"] = -(-plan["tiles"] * D // plan["max_clusters"])
+    return plan
+
+
 def bss_shapes():
     """The unidirectional inter-chunk scan's (D, R, T) in BSS serving (8 x
     10 s) and training (5 x 3 s); a small two-direction case, R not a
     multiple of 8, T not a multiple of 5; and a wide one (the intra-chunk
-    shape of 8 x 10 s as two stacked directions), whose blocks outnumber the
+    shape of 8 x 10 s as two stacked directions), whose clusters outnumber the
     card's SMs several times."""
     K, hop = BSS["chunk_length"], BSS["hop_length"]
     S10 = (10 * SAMPLE_RATE - 1 + K) // hop + 1
@@ -994,7 +1022,6 @@ def bss_shapes():
 def phase_lstm_kernels(torch, dev):
     """Phase 7: the stacked-direction kernels against their plain versions,
     timed beside them and a unidirectional cuDNN LSTM."""
-    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
     from tss_dprnn_tpu_torch.ops import lstm as L
 
     F = H = 128
@@ -1008,27 +1035,31 @@ def phase_lstm_kernels(torch, dev):
         x = torch.randn(D, R, T, F, generator=g).to(dev)
         cot = torch.randn(D, R, T, H, generator=g).to(dev)
         xb = x.bfloat16()
-        blocks = D * -(-R // 16)  # csrc/lstm.cu: one per direction and 16-row tile
-        # the h-only and residual routes' cluster scans: one 2-CTA cluster per
-        # direction and row tile
-        plans = {}
-        for key, which, dt in (("serve", "serve", torch.float32),
-                               ("resid", "resid", torch.float32),
-                               ("serve_bf16", "serve", torch.bfloat16)):
-            plan = plans[key] = B2._plan(which, R, H, x.device, dirs=D, dtype=dt)._asdict()
-            plan["max_clusters"] = B2._max_clusters(which, H, x.device.index, plan["height"], dt)
-            plan["waves"] = -(-plan["tiles"] * D // plan["max_clusters"])
+        # the routes' cluster scans: one 2-CTA cluster per direction and row
+        # tile (the cell-state mode's plan is the h-only serving scan's)
+        plans = {key: scan_plan(which, D, R, H, x.device, dt)
+                 for key, which, dt in (("serve", "serve", torch.float32),
+                                        ("with_cs", "serve", torch.float32),
+                                        ("resid", "resid", torch.float32),
+                                        ("serve_bf16", "serve", torch.bfloat16))}
 
         # the three forward modes and the bf16 streams; the fp32 routes twice
         ref = L.lstm_reference(x, *w)
         got_h = L.lstm_forward(x, *w)
         err = {"forward": float((got_h - ref).abs().max())}
         repeat_fwd = bool(torch.equal(got_h, L.lstm_forward(x, *w)))
-        got_h, got_cs = L.lstm_forward_with_cs(x, *w)
+        # want_cs: the h-only route's product and arithmetic, so its h is
+        # lstm_forward's bit for bit
+        cs_h, got_cs = L.lstm_forward_with_cs(x, *w)
+        again_h, again_cs = L.lstm_forward_with_cs(x, *w)
+        torch.cuda.synchronize()
+        repeat_cs = bool(torch.equal(cs_h, again_h) and torch.equal(got_cs, again_cs))
+        cs_is_forward = bool(torch.equal(cs_h, got_h))
+        del again_h, again_cs
         ref_cs = L.lstm_cs_reference(x, *w)[1]
-        err["with_cs"] = max(float((got_h - ref).abs().max()),
+        err["with_cs"] = max(float((cs_h - ref).abs().max()),
                              float((got_cs - ref_cs).abs().max()))
-        del got_cs, ref_cs
+        del cs_h, got_cs, ref_cs
         got_h, resid = L.lstm_forward_resid(x, *w)
         ref_resid = L.lstm_resid_reference(x, *w)[1]
         err["resid"] = max(float((got_h - ref).abs().max()),
@@ -1063,10 +1094,12 @@ def phase_lstm_kernels(torch, dev):
         log(f"[lstm-kernels] {name} D={D} R={R} T={T}: fp32 forward = {D} input product(s) + "
             f"serving scan, tile plan {plans['serve']}; resid = {D} input product(s) + training "
             f"scan, tile plan {plans['resid']}; bf16 forward = the same with the serving "
-            f"scan's bf16 mode, tile plan {plans['serve_bf16']}; with_cs on csrc/lstm.cu "
-            f"({blocks} blocks); backward tile plan {backward_plan}")
+            f"scan's bf16 mode, tile plan {plans['serve_bf16']}; with_cs = {D} input "
+            f"product(s) + the serving scan's cell-state mode, tile plan {plans['with_cs']}; "
+            f"backward tile plan {backward_plan}")
         log(f"[lstm-kernels] {name}: max|err| forward {err['forward']:.3e} (repeats bit for bit: "
-            f"{repeat_fwd}), with_cs {err['with_cs']:.3e}, resid {err['resid']:.3e} (pre "
+            f"{repeat_fwd}), with_cs {err['with_cs']:.3e} (repeats bit for bit: {repeat_cs}; h "
+            f"bit for bit lstm_forward's: {cs_is_forward}), resid {err['resid']:.3e} (pre "
             f"{err['pre']:.3e}; repeats bit for bit: {repeat_resid}); bf16 SNR "
             f"{snr16:.2f} dB (vs bf16 plain max|err| {plain16_err:.3e}, SNR {plain16_snr:.2f} "
             f"dB; repeats bit for bit: {repeat_bf16}); backward from the resid route's streams "
@@ -1074,10 +1107,12 @@ def phase_lstm_kernels(torch, dev):
             f"{repeat}")
         if not max(err.values()) <= 1e-4:
             raise AssertionError(f"lstm {name} fp32 disagrees with its plain version: {err}")
-        if not (repeat_fwd and repeat_resid and repeat_bf16):
+        if not (repeat_fwd and repeat_cs and repeat_resid and repeat_bf16):
             raise AssertionError(f"lstm {name}: a second call differs from the first (fp32 "
-                                 f"forward {repeat_fwd}, resid {repeat_resid}, bf16 forward "
-                                 f"{repeat_bf16})")
+                                 f"forward {repeat_fwd}, with_cs {repeat_cs}, resid "
+                                 f"{repeat_resid}, bf16 forward {repeat_bf16})")
+        if not cs_is_forward:
+            raise AssertionError(f"lstm {name}: want_cs's h is not lstm_forward's bit for bit")
         if not (snr16 >= 40.0 and plain16_err <= BF16_ATOL and plain16_snr >= BF16_SNR_DB):
             raise AssertionError(f"lstm {name} bf16: SNR {snr16:.2f} dB vs fp32 (>= 40), "
                                  f"max|err| {plain16_err} (<= {BF16_ATOL}) and SNR "
@@ -1091,13 +1126,14 @@ def phase_lstm_kernels(torch, dev):
         lstms = {dt: cudnn_lstm(torch, w_ih, b, w_hh, dt) for dt in (torch.float32, torch.bfloat16)}
         lstm = lstms[torch.float32]
 
-        nums = {"D": D, "R": R, "T": T, "blocks": blocks, "tile_plan": plans,
+        nums = {"D": D, "R": R, "T": T, "tile_plan": plans,
                 "backward_tile_plan": backward_plan,
                 "max_abs_err": err, "bf16_snr_db": snr16, "bf16_plain_max_abs_err": plain16_err,
                 "bf16_plain_snr_db": plain16_snr, "dx_max_abs_err": dx_err,
                 "dw_max_abs_err": dw_err, "dw_rel_err": dw_rel, "bitwise_repeat": repeat,
                 "forward_bitwise_repeat": repeat_fwd, "resid_bitwise_repeat": repeat_resid,
-                "bf16_bitwise_repeat": repeat_bf16}
+                "bf16_bitwise_repeat": repeat_bf16, "with_cs_bitwise_repeat": repeat_cs,
+                "with_cs_h_is_forward": cs_is_forward}
         if D == 1:
             xr = x[0].detach().clone().requires_grad_()
             params = [xr, *lstm.parameters()]
@@ -1156,12 +1192,13 @@ def lstm_kernel_entries(results, launches):
                "bound_ms": r[f"{kind}_bound_ms"], "bound_by": r[f"{kind}_bound_by"],
                "library_ms": r.get(library),
                "shape": {"D": r["D"], "R": r["R"], "T": r["T"], "F": 128, "H": 128}}
-        if kind in ("forward", "resid", "bf16"):  # the cluster scans
+        if kind != "backward":  # the forward cluster scans
             out["tile_plan"] = r["tile_plan"][{"forward": "serve", "resid": "resid",
-                                               "bf16": "serve_bf16"}[kind]]
+                                               "bf16": "serve_bf16"}.get(kind, kind)]
             out["bitwise_repeat"] = r[f"{kind}_bitwise_repeat"]
-        elif kind != "backward":  # csrc/lstm.cu
-            out.update(blocks=r["blocks"], source="tss_dprnn_tpu_torch/csrc/lstm.cu")
+        if kind == "with_cs":
+            out.update(source="tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu (mode 4)",
+                       h_is_lstm_forward=r["with_cs_h_is_forward"])
         if kind == "backward":
             out.update(max_abs_err=max(r["dx_max_abs_err"], r["dw_max_abs_err"]),
                        dx_max_abs_err=r["dx_max_abs_err"], dw_rel_err=r["dw_rel_err"],
@@ -3455,13 +3492,22 @@ def _varlen_kernels(torch, dev, bucket_T, lengths):
     D, Rc = 2, len(lengths) * S
     xs = torch.randn(D, Rc, K, F, generator=g).to(dev)
     h, cs = L.lstm_forward_with_cs(xs, *w)
+    h2, cs2 = L.lstm_forward_with_cs(xs, *w)
+    torch.cuda.synchronize()
+    repeat = bool(torch.equal(h, h2) and torch.equal(cs, cs2))
+    is_forward = bool(torch.equal(h, L.lstm_forward(xs, *w)))  # the same product and arithmetic
+    del h2, cs2
     ph, pcs = L.lstm_cs_reference(xs, *w)
     cs_err = max(float((h - ph).abs().max()), float((cs - pcs).abs().max()))
-    if not cs_err <= 1e-4:
-        raise AssertionError(f"lstm_forward_with_cs at D=2 R={Rc} T={K}: {cs_err}")
+    if not (cs_err <= 1e-4 and repeat and is_forward):
+        raise AssertionError(f"lstm_forward_with_cs at D=2 R={Rc} T={K}: max|err| {cs_err}, "
+                             f"repeats bit for bit {repeat}, h bit for bit lstm_forward's "
+                             f"{is_forward}")
     with_cs = {"ms": time_ms(lambda: L.lstm_forward_with_cs(xs, *w), 5),
                "plain_ms": time_ms(lambda: L.lstm_cs_reference(xs, *w), 1),
-               "D": D, "R": Rc, "T": K, "max_abs_err": cs_err}
+               "D": D, "R": Rc, "T": K, "max_abs_err": cs_err, "bitwise_repeat": repeat,
+               "h_is_lstm_forward": is_forward,
+               "tile_plan": scan_plan("serve", D, Rc, H, xs.device, torch.float32)}
     with_cs["bound_ms"], with_cs["bound_by"] = bound_stack("with_cs", D, Rc, K, F, H)
     del xs, h, cs, ph, pcs
     torch.cuda.empty_cache()
@@ -3473,7 +3519,9 @@ def _varlen_kernels(torch, dev, bucket_T, lengths):
         f"{masked['bwd_bound_ms']:.3f}, cuDNN {masked['cudnn_bwd_ms']:.3f}; dx max|err| "
         f"{dx_err:.3e}, dW/db /max|ref| {dw_rel:.3e}); want_cs D=2 R={Rc} T={K} "
         f"{with_cs['ms']:.3f} ms (plain {with_cs['plain_ms']:.1f}, bound "
-        f"{with_cs['bound_ms']:.3f}; max|err| {cs_err:.3e})")
+        f"{with_cs['bound_ms']:.3f}; max|err| {cs_err:.3e}, repeats bit for bit, h bit for bit "
+        f"lstm_forward's; input products + the serving scan's cell-state mode, tile plan "
+        f"{with_cs['tile_plan']})")
     return {"masked": masked, "with_cs": with_cs}
 
 
@@ -3665,7 +3713,7 @@ def phase_varlen(torch, dev, smi):
         f"{rel:.3e}, gradients {gsnr:.2f} dB; {ten['ms']:.1f} ms / {ten['peak_gb']:.2f} GB "
         f"(launches {_numbers(ten)['launches']}) against {one['ms']:.1f} ms / "
         f"{one['peak_gb']:.2f} GB (launches {_numbers(one)['launches']})")
-    expect_launches(ten["launches"], {"lstm_forward_with_cs": 2 * n}, 1,
+    expect_launches(ten["launches"], save_every_launches(2 * n), 1,
                     f"a lstm_save_every={SAVE_EVERY} step")
     expect_launches(one["launches"], per_train, 1, "the largest bucket's step")
     if not (rel <= 1e-4 and gsnr >= 40):
@@ -3725,13 +3773,17 @@ def varlen_kernel_entries(results):
         dict(base, name="lstm_forward_with_cs",
              mode=f"want_cs, D=2 over the largest bucket's intra shape (lstm_save_every "
                   f"{SAVE_EVERY})",
-             source="tss_dprnn_tpu_torch/csrc/lstm.cu",
+             source="tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu (mode 4)",
+             **{"with": "tss_dprnn_tpu_torch/csrc/products.cu (the input product, one launch "
+                        "per direction)"},
              replaces="tss_dprnn_tpu/ops/pallas_lstm.py:57",
              launches=results["save_every"][f"save_every_{SAVE_EVERY}"]["launches"].get(
                  "lstm_forward_with_cs", 0),
              launches_are="per lstm_save_every step (0 in the cli.train runs)",
              max_abs_err=cs["max_abs_err"], ms=cs["ms"], plain_ms=cs["plain_ms"],
              bound_ms=cs["bound_ms"], bound_by=cs["bound_by"], library_ms=None,
+             tile_plan=cs["tile_plan"], bitwise_repeat=cs["bitwise_repeat"],
+             h_is_lstm_forward=cs["h_is_lstm_forward"],
              library="no single cuDNN call: two directions on their own inputs",
              shape={"D": cs["D"], "R": cs["R"], "T": cs["T"], "F": 128, "H": 128}),
     ]
@@ -4359,6 +4411,9 @@ def _bf16_save_every(torch, dev, smi, tss, fp32_row):
     h2, cs2 = L.lstm_forward_with_cs(x, *w)
     torch.cuda.synchronize()
     repeat = bool(torch.equal(h, h2) and torch.equal(cs, cs2))
+    # the bf16 want_resid route's product and arithmetic: the same h
+    is_resid = bool(torch.equal(h, L.lstm_forward_resid(x, *w)[0]))
+    del h2, cs2
     ph, pcs = L.lstm_cs_reference(x, *w)
     h_err, h_snr = _bf16_streams_close(torch, "h", h, ph)
 
@@ -4366,41 +4421,45 @@ def _bf16_save_every(torch, dev, smi, tss, fp32_row):
         return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
 
     cs_err, step_err = rel(cs, pcs), rel(cs, L.lstm_cs_step_reference(x, *w, h, cs))
-    if not (cs_err <= CS_FREE_RTOL and step_err <= CS_STEP_RTOL and repeat and h.dtype == bf
-            and cs.dtype == torch.float32):
+    if not (cs_err <= CS_FREE_RTOL and step_err <= CS_STEP_RTOL and repeat and is_resid
+            and h.dtype == bf and cs.dtype == torch.float32):
         raise AssertionError(f"bf16 want_cs at D={D} R={R} T={T}: cell state max|err| {cs_err} "
                              f"(<= {CS_FREE_RTOL} of max(1, |ref|)), per step {step_err} "
-                             f"(<= {CS_STEP_RTOL}), repeats bit for bit {repeat}, "
-                             f"types {h.dtype} {cs.dtype}")
-    del h, cs, h2, cs2, ph, pcs
+                             f"(<= {CS_STEP_RTOL}), repeats bit for bit {repeat}, h bit for bit "
+                             f"lstm_forward_resid's {is_resid}, types {h.dtype} {cs.dtype}")
+    del h, cs, ph, pcs
     kernel = {"D": D, "R": R, "T": T, "max_abs_err": h_err, "snr_db": h_snr,
               "cs_max_rel_err": cs_err, "cs_step_max_rel_err": step_err, "bitwise_repeat": repeat,
+              "h_is_lstm_forward_resid": is_resid,
+              "tile_plan": scan_plan("serve", D, R, H, x.device, bf),
               "ms": time_ms(lambda: L.lstm_forward_with_cs(x, *w), 5),
               "plain_ms": time_ms(lambda: L.lstm_cs_reference(x, *w), 1)}
     kernel["bound_ms"], kernel["bound_by"] = bound_stack("with_cs", D, R, T, F, H, 2, PEAK_BF16)
     del x
     torch.cuda.empty_cache()
-    log(f"[bf16] want_cs bf16 D={D} R={R} T={T} (csrc/lstm.cu): {kernel['ms']:.3f} ms (plain "
+    log(f"[bf16] want_cs bf16 D={D} R={R} T={T} ({D} bf16-operand input products + the serving "
+        f"scan's cell-state mode, tile plan {kernel['tile_plan']}): {kernel['ms']:.3f} ms (plain "
         f"{kernel['plain_ms']:.1f}, bound {kernel['bound_ms']:.3f} ({kernel['bound_by']})); h "
         f"max|err| {h_err:.3e} SNR {h_snr:.2f} dB, c max|err|/max(1,|ref|) {cs_err:.3e} "
-        f"(per step from its own state {step_err:.3e}); "
-        f"repeats bit for bit")
+        f"(per step from its own state {step_err:.3e}); repeats bit for bit, h bit for bit "
+        f"lstm_forward_resid's")
 
     spec, collate, crops, _ = tss
     start = init_weights_(spec["model"](), torch.Generator().manual_seed(SEED + 78)).state_dict()
     batch = collate(crops(SEED + 79, TRAIN_BATCH, TRAIN_SECONDS).items)
     config = dict(TRAIN_CONFIG, lstm_save_every=SAVE_EVERY)
-    per_step = {"lstm_forward_with_cs": 2 * FLAGSHIP["n_repeats"]}
+    calls = 2 * FLAGSHIP["n_repeats"]
     steps = {}
     for lane, kw in (("fp32", {}), ("bf16", {"dtype": bf})):
         run = _whole_step(torch, dev, functools.partial(spec["model"], **kw), start,
                           spec["trainer"], config, batch)
-        expect_launches(run["launches"], per_step, 1,
+        expect_launches(run["launches"], save_every_launches(calls, bf16=lane == "bf16"), 1,
                         f"a {lane} lstm_save_every={SAVE_EVERY} 5 x 3 s step")
         steps[lane] = _numbers(run)
     rel, gsnr, launches, _ = _step_card_vs_cpu(torch, dev, lambda: spec["model"](dtype=bf),
                                                start, spec["trainer"], config, batch)
-    expect_launches(launches, per_step, 1, "the bf16 lstm_save_every step card vs CPU")
+    expect_launches(launches, save_every_launches(calls, bf16=True), 1,
+                    "the bf16 lstm_save_every step card vs CPU")
     big = fp32_row[f"save_every_{SAVE_EVERY}"]
     log(f"[bf16] TSS {TRAIN_BATCH} x {TRAIN_SECONDS} s, lstm_save_every {SAVE_EVERY}: bf16 "
         f"{steps['bf16']['ms']:.1f} ms / {steps['bf16']['peak_gb']:.2f} GB against fp32 "
@@ -4451,7 +4510,10 @@ def bf16_kernel_entries(entries, bf16, launches):
     out.append({"name": "lstm_forward_with_cs",
                 "mode": f"bf16 streams, want_cs, D=2 over the 5 x 3 s step's intra shape "
                         f"(lstm_save_every {SAVE_EVERY})",
-                "dtype": "bfloat16", "route": "cuda", "source": "tss_dprnn_tpu_torch/csrc/lstm.cu",
+                "dtype": "bfloat16", "route": "cuda",
+                "source": "tss_dprnn_tpu_torch/csrc/bilstm2_serve.cu (mode 4)",
+                "with": "tss_dprnn_tpu_torch/csrc/products.cu (the bf16-operand input product, "
+                        "one launch per direction)",
                 "replaces": "tss_dprnn_tpu/ops/pallas_lstm.py:57",
                 "launches": launches["save_every"].get("lstm_forward_with_cs", 0),
                 "launches_are": "per bf16 lstm_save_every step (5 x 3 s TSS)",
@@ -4459,7 +4521,8 @@ def bf16_kernel_entries(entries, bf16, launches):
                 "library": "no single cuDNN call: two directions on their own inputs",
                 **{key: cs[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "max_abs_err", "snr_db", "cs_max_rel_err",
-                                            "bitwise_repeat")},
+                                            "bitwise_repeat", "h_is_lstm_forward_resid",
+                                            "tile_plan")},
                 "shape": {"D": cs["D"], "R": cs["R"], "T": cs["T"], "F": 128, "H": 128}})
     k = bf16["kernels"]
 
@@ -4535,6 +4598,21 @@ def ptxas_report(logs, kernels):
     return out
 
 
+def serve_scan_modes(ptxas):
+    """The serving scan's instantiations in ptxas's report, by stream type,
+    tile rows and mode (the template arguments S, MT and kMode of the
+    mangled name): {"fp32 16 rows mode 4": {registers, spills}, ...}."""
+    import re
+
+    out = {}
+    for entry, rep in ptxas.items():
+        m = re.search(r"serve_scan_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", entry)
+        if m:
+            dtype = "fp32" if m.group(1) == "f" else "bf16"
+            out[f"{dtype} {16 * int(m.group(2))} rows mode {m.group(3)}"] = rep
+    return dict(sorted(out.items()))
+
+
 def main() -> int:
     import torch
 
@@ -4556,7 +4634,7 @@ def main() -> int:
     log(f"[setup] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = ("bilstm2_serve", "bilstm2_resid", "bilstm2_bwd", "products", "lstm", "lstm_bwd")
+    libraries = ("bilstm2_serve", "bilstm2_resid", "bilstm2_bwd", "products", "lstm_bwd")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.load_library, libraries))
     log(f"[setup] {' and '.join(libraries)} built and loaded in "
@@ -4566,10 +4644,14 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
     ptxas = ptxas_report(_build.build_logs, ("serve_scan_kernel", "bf16_gemm_kernel",
-                                             "lstm_kernel", "bwd_scan_kernel"))
+                                             "bwd_scan_kernel"))
     for kernel, rep in ptxas.items():
         log(f"[setup] ptxas {kernel}: {rep['registers']} registers, {rep['spill_stores']} B spill "
             f"stores, {rep['spill_loads']} B spill loads")
+    for key, rep in serve_scan_modes(ptxas).items():
+        if key.endswith("mode 4"):  # the cell-state forward
+            log(f"[setup] ptxas serve_scan_kernel {key} (want_cs): {rep['registers']} registers, "
+                f"{rep['spill_stores']} B spill stores, {rep['spill_loads']} B spill loads")
 
     t0 = time.perf_counter()
     entries = phase_kernel(torch, dev)
@@ -4736,7 +4818,8 @@ def main() -> int:
         "varlen": bf16["varlen_cli"]["launches"],
         "save_every": bf16["save_every"]["steps_5x3s"]["bf16"]["launches"]})
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
-        json.dump({"card": smi, "ptxas": ptxas, "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
+        json.dump({"card": smi, "ptxas": ptxas, "serve_scan_modes": serve_scan_modes(ptxas),
+                   "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
                    "families": families, "ira_rawnet": ira_rawnet, "varlen": varlen,

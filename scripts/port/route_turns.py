@@ -2,14 +2,15 @@
 """Time one tree's serving-route and training kernels in a fresh process
 (card).
 
-    python3 scripts/port/route_turns.py [--tree DIR] [--out FILE] [--rows serve,train,step]
+    python3 scripts/port/route_turns.py [--tree DIR] [--out FILE]
+        [--rows serve,train,step,cs,save_every]
 
 Imports ``tss_dprnn_tpu_torch`` from DIR (default: this checkout; DIR may be
 another revision unpacked with ``git archive``), builds the kernels it
 needs, and prints one JSON object: the card's name and power limit,
-ptxas's registers and spills of every ``serve_scan_kernel`` and product
-kernel instantiation, and the mean device ms (CUDA events, 5 calls after a
-warm-up) at chip_smoke.py's shapes of 8 x 10 s of
+ptxas's registers and spills of every kernel instantiation of the tree's
+sources, and the mean device ms (CUDA events, 5 calls after a warm-up) at
+chip_smoke.py's shapes of 8 x 10 s of
 
 - the default serving rows: ``bilstm2_forward`` unmasked (R=5136 T=250) and
   ``bilstm2_forward_masked`` (R=2000 T=642, ragged lengths), fp32 and bf16,
@@ -30,7 +31,14 @@ warm-up) at chip_smoke.py's shapes of 8 x 10 s of
   trees whose fp32 training pair gives the same bits;
 - (``--rows step``) a 5 x 3 s flagship ``TrainerSpe`` step (host clock
   around a synchronised step, mean of 3 after two warm-up steps), fp32 and
-  ``model.dtype: bfloat16``, from one seeded initialisation.
+  ``model.dtype: bfloat16``, from one seeded initialisation;
+- (``--rows cs``) the cell-state forward ``lstm_forward_with_cs``, fp32 and
+  bf16, at D=1 R=2000 T=642 (the causal BSS inter scan of 8 x 10 s), D=2
+  R=1610 T=250 (chip_smoke.py phase 16's largest variable-length bucket,
+  intra) and D=2 R=970 T=250 (the 5 x 3 s step's intra scan), with a digest
+  of its fp32 outputs;
+- (``--rows save_every``) the ``step`` rows' 5 x 3 s step under
+  ``lstm_save_every: 10``, both lanes.
 
 Run it on two trees in turns in one call (parent, change, change, parent)
 to compare them on one card; each process starts with nothing loaded, and a
@@ -55,11 +63,11 @@ def main() -> int:
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--out", default=None)
     ap.add_argument("--rows", default="serve,train,step",
-                    help="comma-separated: serve, train, step")
+                    help="comma-separated: serve, train, step, cs, save_every")
     args = ap.parse_args()
     which = set(args.rows.split(","))
-    if not which <= {"serve", "train", "step"}:
-        ap.error(f"--rows takes serve, train, step; got {args.rows}")
+    if not which <= {"serve", "train", "step", "cs", "save_every"}:
+        ap.error(f"--rows takes serve, train, step, cs, save_every; got {args.rows}")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
@@ -78,14 +86,10 @@ def main() -> int:
     if not os.path.dirname(B.__file__).startswith(tree):
         raise RuntimeError(f"imported {B.__file__}, not from {tree}")
     csrc = os.path.join(tree, "tss_dprnn_tpu_torch", "csrc")
-    libs = [n for n in ("bilstm2_serve", "products", "bilstm2", "lstm", "bilstm2_resid",
-                        "bilstm2_bwd", "lstm_bwd")
-            if os.path.exists(os.path.join(csrc, f"{n}.cu"))]
+    libs = sorted(n[:-3] for n in os.listdir(csrc) if n.endswith(".cu"))  # the tree's own
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(_build.load_library, libs))
-    ptxas = cs.ptxas_report(_build.build_logs, ("serve_scan_kernel", "gemm_kernel",
-                                                "bilstm2_kernel", "lstm_kernel",
-                                                "resid_scan_kernel", "bwd_scan_kernel"))
+    ptxas = cs.ptxas_report(_build.build_logs, ("_kernel",))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
@@ -125,8 +129,12 @@ def main() -> int:
     digests = {}
     if "train" in which:
         rows.update(_training_rows(torch, cs, B, L, g, dev, (w_ih2, b2, w_hh2), lens, digests))
+    if "cs" in which:
+        rows.update(_cs_rows(torch, cs, L, g, dev, digests))
     if "step" in which:
         rows.update(_step_rows(torch, cs, dev))
+    if "save_every" in which:
+        rows.update(_step_rows(torch, cs, dev, save_every=10))
     out = {"tree": tree, "card": smi, "ptxas": ptxas, "ms": rows, "fp32_digests": digests,
            "shapes": {"unmasked": [Ru, Tu], "masked": [Rm, Tm]}}
     text = json.dumps(out)
@@ -206,8 +214,30 @@ def _training_rows(torch, cs, B, L, g, dev, w, masked_lens, digests):
     return rows
 
 
-def _step_rows(torch, cs, dev):
-    """A 5 x 3 s flagship TrainerSpe step's ms in both lanes."""
+def _cs_rows(torch, cs, L, g, dev, digests):
+    """lstm_forward_with_cs's ms at its three shapes, fp32 and bf16, and its
+    fp32 outputs' digests into ``digests``."""
+    F = H = 128
+    k = H ** -0.5
+    rows = {}
+    for D, R, T in ((1, 2000, 642), (2, 1610, 250), (2, *cs.train_shapes()["intra"])):
+        w = [(torch.rand(*s, generator=g) * 2 * k - k).to(dev)
+             for s in ((D, F, 4 * H), (D, 4 * H), (D, H, 4 * H))]
+        x = torch.randn(D, R, T, F, generator=g).to(dev)
+        name = f"lstm_forward_with_cs_D{D}_R{R}_T{T}"
+        digests[name] = _digest(torch, L.lstm_forward_with_cs(x, *w))
+        for dt, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            xd = x.to(dt)
+            rows[f"{name}_{tag}"] = cs.time_ms(lambda: L.lstm_forward_with_cs(xd, *w), 5)
+            del xd
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _step_rows(torch, cs, dev, save_every: int = 1):
+    """A 5 x 3 s flagship TrainerSpe step's ms in both lanes (under
+    ``lstm_save_every: save_every`` when it is above 1)."""
     import time
 
     from tss_dprnn_tpu_torch import training
@@ -224,6 +254,8 @@ def _step_rows(torch, cs, dev):
         model.load_state_dict(start, strict=True)
         config = dict(cs.TRAIN_CONFIG, new_checkpoints_path=os.path.join(
             cs.OUT_DIR, "route_turns_ckpt_unused"))
+        if save_every > 1:
+            config["lstm_save_every"] = save_every
         t = training.TrainerSpe(model, config, device=dev)
         t.model.train()
         for _ in range(2):
@@ -233,7 +265,8 @@ def _step_rows(torch, cs, dev):
         for _ in range(3):
             t.train_step(batch)
         torch.cuda.synchronize()
-        rows[f"tss_train_step_5x3s_{tag}"] = (time.perf_counter() - t0) * 1e3 / 3
+        suffix = f"_save_every{save_every}" if save_every > 1 else ""
+        rows[f"tss_train_step_5x3s{suffix}_{tag}"] = (time.perf_counter() - t0) * 1e3 / 3
         del t, model
         torch.cuda.empty_cache()
     return rows

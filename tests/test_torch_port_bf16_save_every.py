@@ -43,6 +43,7 @@ try:
 except ImportError:  # the card's machine has no JAX: only the cuda case runs there
     jax = jnp = None
 
+from tss_dprnn_tpu_torch.ops import bilstm2 as B
 from tss_dprnn_tpu_torch.ops import lstm as L
 from tss_dprnn_tpu_torch.ops import rnn
 
@@ -265,11 +266,13 @@ def test_train_step_bf16_save_every_matches_jax(interpret, tmp_path, monkeypatch
 @pytest.mark.parametrize("D,R,T,F,H", [(1, 2000, 21, 128, 128), (2, 37, 9, 128, 128),
                                        (2, 19, 11, 12, 10)])
 def test_want_cs_bf16_kernel_on_card(D, R, T, F, H):
-    """The bf16 want_cs mode of csrc/lstm.cu against its plain version on the
-    card: h at a bf16 ulp and 70 dB, the fp32 cell state within CS_FREE_RTOL
-    of max(1, |ref|) free-running and within CS_STEP_RTOL per step from the
-    kernel's own h and c; one launch per call; fp16 raises before any
-    launch."""
+    """The bf16 want_cs mode (the bf16-operand input product, then the
+    serving scan's cell-state mode) against its plain version on the card: h
+    at a bf16 ulp and 70 dB, the fp32 cell state within CS_FREE_RTOL of
+    max(1, |ref|) free-running and within CS_STEP_RTOL per step from the
+    kernel's own h and c; bit for bit on a second call; h bit for bit bf16
+    lstm_forward_resid's (the same product and arithmetic); one launch and D
+    bf16 products per call; fp16 raises before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     gen = torch.Generator().manual_seed(D + R)
@@ -277,10 +280,15 @@ def test_want_cs_bf16_kernel_on_card(D, R, T, F, H):
     x = torch.randn(D, R, T, F, generator=gen).bfloat16().cuda()
     w = [((torch.rand(*s, generator=gen) * 2 - 1) * k).cuda()
          for s in ((D, F, 4 * H), (D, 4 * H), (D, H, 4 * H))]
-    before = L.lstm_forward_with_cs.launches
+    before = L.lstm_forward_with_cs.launches, B.product_launch_counts()["products_gemm_bf16"]
     h, cs = L.lstm_forward_with_cs(x, *w)
-    assert L.lstm_forward_with_cs.launches == before + 1
+    assert (L.lstm_forward_with_cs.launches, B.product_launch_counts()["products_gemm_bf16"]) == (
+        before[0] + 1, before[1] + D)
     assert h.dtype == torch.bfloat16 and cs.dtype == torch.float32
+    h2, cs2 = L.lstm_forward_with_cs(x, *w)
+    assert torch.equal(h, h2) and torch.equal(cs, cs2)
+    assert torch.equal(h, L.lstm_forward_resid(x, *w)[0])
+    launches = L.lstm_forward_with_cs.launches
     ph, pcs = L.lstm_cs_reference(x.cpu(), *(t.cpu() for t in w))
     err = float((h.cpu().float() - ph.float()).abs().max())
     snr = _snr_db(h.cpu().float().numpy(), ph.float().numpy())
@@ -290,4 +298,4 @@ def test_want_cs_bf16_kernel_on_card(D, R, T, F, H):
     assert cs_err <= CS_FREE_RTOL and step_err <= CS_STEP_RTOL, (cs_err, step_err)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         L.lstm_forward_with_cs(x.half(), *w)
-    assert L.lstm_forward_with_cs.launches == before + 1
+    assert L.lstm_forward_with_cs.launches == launches

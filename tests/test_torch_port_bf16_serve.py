@@ -9,8 +9,8 @@ maps back to W_hh, and the fragments its lanes read give h @ W_hh in an
 emulation of ldmatrix and mma.m16n8k16 (float64, exact on bf16 values); the
 route on a stand-in card (``torch.Tensor.is_cuda`` patched true, the
 libraries replaced by recorders) reaches the product and the serving scan
-with the stream type's code and layout, never csrc/lstm.cu (which keeps only
-the cell-state mode), and fp16 raises before any launch.
+with the stream type's code and layout (the cell-state mode the scan's mode
+4 after the bf16-operand product), and fp16 raises before any launch.
 
 On the card (``cuda`` tests, run there with ``python -m pytest --noconftest
 -m cuda tests/test_torch_port_bf16_serve.py``) the route is held against the
@@ -128,20 +128,19 @@ class _Recorder:
 @pytest.fixture
 def stand_in_card(monkeypatch):
     """CPU tensors pass for CUDA ones and the libraries record their calls;
-    ops/bilstm2 loads no library of its own besides the product and scan
-    kernels' (csrc/bilstm2.cu, the dense mode's first design, is gone). The
-    card runs 132 clusters of 16-row bf16 tiles at once and 66 of
-    everything else."""
+    neither ops module loads a library of its own besides the product and
+    scan kernels' (csrc/bilstm2.cu, the dense mode's first design, and
+    csrc/lstm.cu, the cell-state mode's, are gone). The card runs 132
+    clusters of 16-row bf16 tiles at once and 66 of everything else."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=7))
-    libs = {name: _Recorder() for name in ("products", "serve", "lstm")}
+    libs = {name: _Recorder() for name in ("products", "serve")}
     for mod in (B, L):
         monkeypatch.setattr(mod, "_library_products", lambda: libs["products"])
         monkeypatch.setattr(mod, "_library_serve", lambda: libs["serve"])
-    monkeypatch.setattr(L, "_library", lambda: libs["lstm"])
-    assert not hasattr(B, "_library")
+        assert not hasattr(mod, "_library")
 
     def max_clusters(which, H, device, height, dtype):
         return 132 if (which, height, dtype) == ("serve", 16, torch.bfloat16) else 66
@@ -191,14 +190,14 @@ def test_pair_streams_reach_product_and_serving_scan(stand_in_card, dtype, maske
     assert args[0] == 16 and (args[4] is not None) == masked
     assert args[5:7] == (out0.data_ptr(), out1.data_ptr())
     assert args[7:] == (4 * H, 8 * H, H, 1, 2, R, T, H, 7)
-    assert not libs["lstm"].calls
 
 
 @pytest.mark.parametrize("D", [1, 2])
 def test_stack_streams_reach_product_and_serving_scan(stand_in_card, D):
     """bf16 lstm_forward: D input products and one serving scan over the D
-    stacked directions (none reversed); the want_cs mode stays on
-    csrc/lstm.cu, with the bf16 code."""
+    stacked directions (none reversed); the want_cs mode: D bf16-operand
+    products on x as it is, then one cell-state scan (mode 4) with the bf16
+    code and a cs pointer per direction, and no other scan."""
     libs, layouts = stand_in_card
     R, T, F, H = 20, 5, 16, 16
     x = torch.randn(D, R, T, F).bfloat16()
@@ -213,14 +212,25 @@ def test_stack_streams_reach_product_and_serving_scan(stand_in_card, D):
     assert layout == "serve_weight_layout_bf16" and args[3] == frag.data_ptr()
     assert args[:2] == (16, 1) and args[4] is None
     assert args[7:] == (R * T * 4 * H, 4 * H, H, 0, D, R, T, H, 7)
-    assert not libs["lstm"].calls
+    libs["products"].calls.clear()
+    libs["serve"].calls.clear()
+    layouts.clear()
     before = L.lstm_forward_with_cs.launches
     h, (cs,) = L._launch(L.lstm_forward_with_cs, L._MODE_CS, x, *w)
-    assert h.dtype == torch.bfloat16 and cs.dtype == torch.float32
+    assert h.dtype == torch.bfloat16 and cs.dtype == torch.float32 and cs.shape == h.shape
     assert L.lstm_forward_with_cs.launches == before + 1
-    (fn, args), = libs["lstm"].calls
-    assert fn == "lstm_forward" and args[:2] == (1, 1)  # bf16 streams, the cell-state mode
-    assert len(libs["serve"].calls) == 1
+    M, G = R * T, 4 * H
+    calls = libs["products"].calls
+    assert [c[0] for c in calls] == ["products_gemm_bf16"] * D
+    assert [a[0] for _, a in calls] == [x.data_ptr() + 2 * d * M * F for d in range(D)]
+    (scan, args), = libs["serve"].calls
+    (layout, frag), = layouts
+    assert scan == "bilstm2_serve_cs_scan" and layout == "serve_weight_layout_bf16"
+    # (height, dtype, pre, wfrag, out0, out1, cs0, cs1, pre_dir, pre_step, dirs, R, T, H)
+    assert args[:2] == (16, 1) and args[2] == calls[0][1][6] and args[3] == frag.data_ptr()
+    last = D - 1
+    assert args[4:8] == (h.data_ptr(), h[last].data_ptr(), cs.data_ptr(), cs[last].data_ptr())
+    assert args[8:] == (M * G, G, D, R, T, H, 7)
 
 
 def test_fp16_raises_before_any_launch(stand_in_card):

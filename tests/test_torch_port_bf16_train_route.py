@@ -12,7 +12,11 @@ is the backward scan's bf16 mode (dpre @ W_hh^T in bf16 mma.sync on W_hh^T in
 through the bf16-operand product with a bf16 output and dW_ih, dW_hh through
 the column-layout bf16 product (``products_gemm_bf16_col``, fixed split-K
 partials), and db through the column sum of the scan's unrounded partial
-sums. fp32 streams keep their launches.
+sums. fp32 streams keep their launches. The cell-state forward
+(``lstm_forward_with_cs``) is the input product (fp32: 3xTF32, bf16: the
+bf16-operand one on x as it is) and the serving scan's cell-state mode
+(``bilstm2_serve_cs_scan``). Every stacked scan takes two directions to a
+launch: D = 3 runs two launches of each scan, at the right offsets.
 
 On the CPU: the route's arguments on a stand-in card (``torch.Tensor.is_cuda``
 patched true, the libraries replaced by recorders), with no
@@ -83,7 +87,8 @@ def stand_in_card(monkeypatch):
     monkeypatch.setattr(B, "_max_clusters", lambda which, H, device, height, dtype: 66)
     monkeypatch.setattr(L, "_max_clusters", lambda H, device, height, dtype: 66)
     layouts = []
-    for name in ("resid_weight_layout", "serve_weight_layout_bf16", "bwd_weight_layout_bf16"):
+    for name in ("resid_weight_layout", "serve_weight_layout", "serve_weight_layout_bf16",
+                 "bwd_weight_layout_bf16"):
         real = getattr(B, name)
 
         def record(w, real=real, name=name):
@@ -279,6 +284,118 @@ def test_fp32_training_keeps_its_launches(stand_in_card):
     (scan, args), = libs["lstm_bwd"].calls
     assert args[1] == 0 and args[8] is None
     assert not libs["serve"].calls
+
+
+def test_fp32_want_cs_reaches_product_and_cs_scan(stand_in_card):
+    """fp32 lstm_forward_with_cs: per direction the 3xTF32 input product of
+    x into its slice of P, then one cell-state scan (mode 4, dtype 0) over
+    both directions reading P, on W_hh in the serving layout, with h and the
+    fp32 cell state of each direction; no other scan."""
+    libs, layouts, _ = stand_in_card
+    D, R, T, F, H = 2, 20, 5, 16, 16
+    G, M = 4 * H, R * T
+    x = torch.randn(D, R, T, F)
+    before, launches = _counts(), L.lstm_forward_with_cs.launches
+    h, (cs,) = L._launch(L.lstm_forward_with_cs, L._MODE_CS, x, *_weights(D, F, H))
+    assert L.lstm_forward_with_cs.launches == launches + 1
+    assert _delta(before) == {"products_gemm": D}
+    assert h.dtype == cs.dtype == torch.float32 and h.shape == cs.shape == (D, R, T, H)
+    # products_gemm (a_col, a, lda, b, ldb, K, ..., bias, c, ldc, M, N, ...)
+    prods = [a for _, a in libs["products"].calls]
+    assert [a[1] for a in prods] == [x.data_ptr() + 4 * d * M * F for d in range(D)]
+    pre = [a[12] for a in prods]
+    assert pre[1] - pre[0] == 4 * M * G and [a[13:16] for a in prods] == [(G, M, G)] * D
+    (scan, args), = libs["serve"].calls
+    (layout, frag), = layouts
+    assert scan == "bilstm2_serve_cs_scan" and layout == "serve_weight_layout"
+    assert args[:4] == (16, 0, pre[0], frag.data_ptr())
+    assert args[4:8] == (h.data_ptr(), h[1].data_ptr(), cs.data_ptr(), cs[1].data_ptr())
+    assert args[8:] == (M * G, G, D, R, T, H, 7)
+    assert not (libs["resid"].calls or libs["lstm_bwd"].calls)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_runs_directions_in_pairs(stand_in_card, dtype):
+    """D = 3: each forward mode runs 3 input products, then its scan twice,
+    directions (0, 1) and then 2 alone (dirs 2 and 1, every pointer of the
+    second launch at direction 2's slice, its second direction's pointers
+    repeating the first); the backward runs its scan twice the same way and
+    then each direction's products, db from its own pair's partial sums."""
+    libs, layouts, _ = stand_in_card
+    D, R, T, F, H = 3, 20, 5, 16, 16
+    G, M = 4 * H, R * T
+    low = dtype == torch.bfloat16
+    e = 2 if low else 4  # bytes per element of the streams
+    x = torch.randn(D, R, T, F).to(dtype)
+    w = _weights(D, F, H)
+    expected_scan = {L._MODE_H: "bilstm2_serve_scan", L._MODE_CS: "bilstm2_serve_cs_scan",
+                     L._MODE_RESID: "bilstm2_serve_resid_scan" if low else "bilstm2_resid_scan"}
+    for mode, scan_name in expected_scan.items():
+        for lib in libs.values():
+            lib.calls.clear()
+        layouts.clear()
+        h, streams = L._launch(L.lstm_forward, mode, x, *w)
+        prods = [a for _, a in libs["products"].calls]
+        assert len(prods) == D
+        pre = [a[6] if mode != L._MODE_H and low else a[12] for a in prods]
+        assert [p - pre[0] for p in pre] == [4 * d * M * G for d in range(D)]
+        scans = [c for lib in ("serve", "resid") for c in libs[lib].calls]
+        assert [c[0] for c in scans] == [scan_name] * 2
+        (_, frag), = layouts
+        step = frag[0].numel() * frag.element_size()  # one direction's W_hh fragments
+        (_, a0), (_, a1) = scans
+        if mode == L._MODE_RESID:
+            hp, cp, tc, pre_t = streams
+            assert pre_t.data_ptr() == pre[0]
+            # (height, pre, wfrag, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, pre_dir,
+            #  pre_step, reverse1, dirs, R, T, H, stream)
+            for a, d0, n in ((a0, 0, 2), (a1, 2, 1)):
+                dd = (d0, d0 + n - 1)
+                assert a[1:3] == (pre[d0], frag.data_ptr() + d0 * step)
+                assert a[4:12] == (h[dd[0]].data_ptr(), h[dd[1]].data_ptr(),
+                                   *(t[d].data_ptr() for d in dd for t in (hp, cp, tc)))
+                assert a[12:] == (M * G, G, 0, n, R, T, H, 7)
+        elif mode == L._MODE_CS:
+            (cs,) = streams
+            for a, d0, n in ((a0, 0, 2), (a1, 2, 1)):
+                dd = (d0, d0 + n - 1)
+                assert a[:4] == (16, int(low), pre[d0], frag.data_ptr() + d0 * step)
+                assert a[4:8] == (h[dd[0]].data_ptr(), h[dd[1]].data_ptr(),
+                                  cs[dd[0]].data_ptr(), cs[dd[1]].data_ptr())
+                assert a[8:] == (M * G, G, n, R, T, H, 7)
+        else:
+            for a, d0, n in ((a0, 0, 2), (a1, 2, 1)):
+                dd = (d0, d0 + n - 1)
+                assert a[:4] == (16, int(low), pre[d0], frag.data_ptr() + d0 * step)
+                assert a[5:7] == (h[dd[0]].data_ptr(), h[dd[1]].data_ptr())
+                assert a[7:] == (M * G, G, H, 0, n, R, T, H, 7)
+    for lib in libs.values():  # the backward reads the residual mode's streams (run last)
+        lib.calls.clear()
+    layouts.clear()
+    g = torch.randn(D, R, T, H).to(dtype)
+    before = _counts()
+    L._launch_backward(L.lstm_backward, x, (hp, cp, tc, pre_t), g, *w)
+    # (height, dtype, pre, dpre, cp, tc, g, wsplit, dbpart, D, R, T, H, stream)
+    (n0, a0), (n1, a1) = libs["lstm_bwd"].calls
+    assert n0 == n1 == "lstm_bwd_scan"
+    for a, d0, n in ((a0, 0, 2), (a1, 2, 1)):
+        assert a[2] == pre_t[d0].data_ptr() and a[4:7] == tuple(
+            t[d0].data_ptr() for t in (cp, tc, g))
+        assert a[9:] == (n, R, T, H, 7) and (a[8] is not None) == low
+    # dpre[2] and W_hh[2]^T (4H H elements a direction in either layout)
+    assert (a1[3] - a0[3], a1[7] - a0[7]) == (2 * M * G * e, 2 * G * H * e)
+    assert len(libs["products"].calls) == 4 * D  # dx, dW_ih, dW_hh, db
+    calls = libs["products"].calls
+    if low:
+        assert _delta(before) == {"products_gemm_bf16": D, "products_gemm_bf16_col": 2 * D,
+                                  "products_colsum": D}
+        # products_colsum (a, lda, K, N, partial, splits, kps, stream): pair 0's partial sums
+        # 2G wide, direction 1 at column G; direction 2's its own pair's, G wide
+        sums = [a for name, a in calls if name == "products_colsum"]
+        assert [(a[0], a[1], a[3]) for a in sums] == [
+            (a0[8], 2 * G, G), (a0[8] + 4 * G, 2 * G, G), (a1[8], G, G)]
+    else:
+        assert _delta(before) == {"products_gemm": 3 * D, "products_colsum": D}
 
 
 @pytest.mark.parametrize("K,M,N,kps", [(1000, 16, 64, 96), (4096, 128, 1024, None),

@@ -290,7 +290,7 @@ def _card_case(D, R=70, T=33, F=128, H=128, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3])
 def test_lstm_kernel_matches_reference_on_card(D, dtype):
     """On the card (the machine there has no JAX: run with
     ``python -m pytest --noconftest -m cuda tests/test_torch_port_lstm.py``).
@@ -314,7 +314,7 @@ def test_lstm_kernel_matches_reference_on_card(D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3])
 def test_lstm_training_forwards_match_reference_on_card(D):
     _needs_card()
     x, w, _ = _card_case(D)
@@ -322,6 +322,11 @@ def test_lstm_training_forwards_match_reference_on_card(D):
     h_cs, cs = port.lstm_forward_with_cs(x, *w)
     h, resid = port.lstm_forward_resid(x, *w)
     assert port.launch_count() == before + 2
+    # the cell-state route is the h-only one's product and arithmetic, bit for
+    # bit, and repeats itself
+    again = port.lstm_forward_with_cs(x, *w)
+    assert torch.equal(h_cs, port.lstm_forward(x, *w))
+    assert torch.equal(h_cs, again[0]) and torch.equal(cs, again[1])
     want_h, want_cs = port.lstm_cs_reference(x, *w)
     _, want_resid = port.lstm_resid_reference(x, *w)
     torch.testing.assert_close(h_cs, want_h, atol=1e-4, rtol=0)
@@ -332,7 +337,7 @@ def test_lstm_training_forwards_match_reference_on_card(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3])
 def test_lstm_backward_kernel_matches_reference_on_card(D):
     """dx within 1e-4; dW and db within 1e-3 of the plain version, as sums
     over R * T = 2,310 row-steps in another order, and bit for bit the same

@@ -259,28 +259,27 @@ def test_stacked_tile_plan(R, heights, want):
 
 
 def test_fp32_stacked_modes_take_the_cluster_route(monkeypatch):
-    """The kernel wrapper sends the h-only and residual modes, fp32 and bf16
-    streams alike, to the product + cluster scan route, and only the
-    cell-state mode to csrc/lstm.cu, whose checks refuse a tensor that is not
-    on the card."""
+    """The kernel wrapper sends every forward mode, h only, residual and cell
+    state, fp32 and bf16 streams alike, to the product + cluster scan route
+    (no other library is left: csrc/lstm.cu is gone), whose checks refuse a
+    tensor that is not on the card."""
+    assert not hasattr(L, "_library")
     calls = []
     monkeypatch.setattr(L, "_launch_scan", lambda *a: calls.append(a) or "scan")
     w = [torch.zeros(1, 16, 64), torch.zeros(1, 64), torch.zeros(1, 16, 64)]
     x = torch.zeros(1, 3, 5, 16)
     xb = x.bfloat16()
-    for entry, mode, xx in ((L.lstm_forward, L._MODE_H, x),
-                            (L.lstm_forward_resid, L._MODE_RESID, x),
-                            (L.lstm_scan, L._MODE_H, x),
-                            (L.lstm_forward_resid, L._MODE_RESID, xb),
-                            (L.lstm_forward, L._MODE_H, xb),
-                            (L.lstm_scan, L._MODE_H, xb)):
+    cases = [(entry, mode, xx) for xx in (x, xb)
+             for entry, mode in ((L.lstm_forward, L._MODE_H), (L.lstm_forward_resid, L._MODE_RESID),
+                                 (L.lstm_scan, L._MODE_H), (L.lstm_forward_with_cs, L._MODE_CS))]
+    for entry, mode, xx in cases:
         assert L._launch(entry, mode, xx, *w) == "scan"
         assert calls[-1][:3] == (entry, mode, xx)
-    assert len(calls) == 6
+    assert len(calls) == 8
+    monkeypatch.undo()
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
             L._launch(L.lstm_forward_with_cs, L._MODE_CS, x.to(dtype), *w)
-    assert len(calls) == 6
 
 
 def test_cluster_route_has_no_cpu_fallback():
@@ -288,7 +287,7 @@ def test_cluster_route_has_no_cpu_fallback():
     the plain version before they reach it)."""
     w = [torch.zeros(1, 16, 64), torch.zeros(1, 64), torch.zeros(1, 16, 64)]
     before = L.lstm_forward.launches
-    for mode in (L._MODE_H, L._MODE_RESID):
+    for mode in (L._MODE_H, L._MODE_RESID, L._MODE_CS):
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
             L._launch_scan(L.lstm_forward, mode, torch.zeros(1, 3, 5, 16), *w)
     assert L.lstm_forward.launches == before

@@ -16,9 +16,9 @@ hand-written kernels are built with nvcc at first use: the fused
 bidirectional LSTM scan, its serving scan, training forward and backward
 (``ops/bilstm2.py`` + ``csrc/bilstm2_serve.cu``, ``csrc/bilstm2_resid.cu``,
 ``csrc/bilstm2_bwd.cu``, with the products of ``csrc/products.cu``), the
-stacked-direction LSTM scan and its backward (``ops/lstm.py``: forwards on
-the same products and serving or training scans, the cell-state mode on
-``csrc/lstm.cu``, the backward ``csrc/lstm_bwd.cu``), and the opt-in and
+stacked-direction LSTM scan and its backward (``ops/lstm.py``: its three forwards,
+the cell-state one among them, on the same products and serving or training
+scans, the backward ``csrc/lstm_bwd.cu``), and the opt-in and
 test-only scans, all on the serving route: the dense mode (its SplitDense
 products on ``csrc/products.cu`` after the scan), the shared-input pair and
 the batch-major and manual-DMA kernels' entries (their bf16 streams through

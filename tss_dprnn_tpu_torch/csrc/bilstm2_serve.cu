@@ -1,7 +1,7 @@
 // The LSTM serving scan for Hopper (sm_90a), fp32 and bf16 streams: the
 // recurrence with W_hh resident in the shared memory of a 2-CTA cluster and
 // h @ W_hh on the tensor cores (fp32: 3xTF32; bf16: one bf16 mma). Its mode 3
-// is the bf16 training forward (below).
+// is the bf16 training forward, its mode 4 the cell-state forward (below).
 //
 // Replaces four TPU kernels in their inference modes, both stream types:
 // - `_bilstm2_kernel` (tss_dprnn_tpu/ops/pallas_lstm.py:698) unmasked and
@@ -14,7 +14,8 @@
 //   (`lstm_forward`): D stacked directions, each on its own input in forward
 //   time, the causal DPRNN's inter-chunk scan; and in its `reverse_dir1`
 //   mode (`bilstm_pallas_fused` :171): the pair on one shared x, direction 1
-//   reversed, the outputs side by side (out_step 2H);
+//   reversed, the outputs side by side (out_step 2H); and in its `want_cs`
+//   mode (`lstm_forward_with_cs`, mode 4 below);
 // - `_bilstm2_bm_kernel` (:1088, launched by bilstm2_forward_bm :1193): the
 //   pair's unmasked function in the batch-major layout, which the port uses
 //   throughout (ops/bilstm2.bilstm2_forward_bm); the TPU entry pads T to its
@@ -121,7 +122,14 @@
 // masked reversed direction store h = c = 0 and the tanh(c) and gates that
 // step computed (the backward skips them); steps past the tile's longest
 // row write zeros into every stream and P. Mode 3 takes mode 0's shared
-// memory and threads.
+// memory and threads. 4 (fp32 and bf16 streams, `bilstm2_serve_cs_scan`):
+// `_lstm_kernel`'s `want_cs` mode (pallas_lstm.py:113-114), the forward of
+// `lstm_save_every`'s segment-checkpointed recurrence: mode 0's arithmetic
+// and rounding, and besides the outputs the fp32 cell state after each step
+// (c after its update) into cs[d], [R, T, H], at the outputs' offsets. It
+// takes no lengths and reverses no direction. Mode 4 takes mode 0's shared
+// memory and threads (the occupancy query answers the smaller count of the
+// two).
 //
 // Accuracy: the 3xTF32 products keep about 22 mantissa bits (the product
 // kernel's error against float64 is 1.2e-7 to 5.1e-7 of max |ref|,
@@ -176,8 +184,8 @@ __device__ __forceinline__ void st2_cluster_bf16(unsigned addr, const float (&v)
 // at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j], unit
 // u of its output out[d][(gr * Tn + t) * out_step + u]. Direction 1 runs t =
 // T-1..0 when `reverse1`, else t = 0..T-1 as direction 0 does. S is the
-// stream type of W's fragments and the outputs. Mode 3's streams lie as the
-// outputs do (out_step H).
+// stream type of W's fragments and the outputs. Mode 3's streams and mode
+// 4's cell states lie as the outputs do (out_step H).
 template <typename S>
 struct ScanArgs {
   float* pre;  // P, read only; mode 3 overwrites it with the gate pre-activations
@@ -186,7 +194,12 @@ struct ScanArgs {
   const S* wfrag;
   const int* lens;  // [R] or null
   S* out[2];
-  S* hp[2];  // mode 3: h and c before each step, tanh(c) after it
+  // one slot for the two modes' first stream: a ScanArgs 16 bytes larger
+  // moved the other modes' registers (fp32 mode 0 121 -> 124)
+  union {
+    S* hp[2];      // mode 3: h and c before each step, tanh(c) after it
+    float* cs[2];  // mode 4: the cell state after each step, fp32
+  };
   S* cp[2];
   S* tc[2];
   long long pre_dir;
@@ -202,13 +215,14 @@ struct ScanArgs {
 // contiguous (see bilstm2_serve_scan).
 // kMode (see the header): 0 outputs H apart, 1 out_step apart, 2 out_step
 // apart with the manual-DMA TPU kernel's bf16 roundings, 3 mode 0 and the
-// training forward's residual streams.
+// training forward's residual streams, 4 mode 0 and the cell state.
 template <typename S, int MT, int kMode>
 __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a) {
   static_assert(kMode != 2 || kLowPrecision<S>, "fp32 streams round nowhere: no mode 2");
   static_assert(kMode != 3 || kLowPrecision<S>, "fp32 streams train on bilstm2_resid.cu");
   constexpr bool kV2 = kMode == 2;
   constexpr bool kResid = kMode == 3;
+  constexpr bool kCs = kMode == 4;
   constexpr int RT = 16 * MT;
   constexpr bool kLow = kLowPrecision<S>;
   constexpr int kP = kParts<S>;
@@ -255,13 +269,14 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
   S* __restrict__ out = d == 0 ? a.out[0] : a.out[1];
   using PreT = std::conditional_t<kResid, float, const float>;  // written in mode 3 only
   PreT* __restrict__ pre = a.pre + d * a.pre_dir + gu;
-  const int ostep = kMode == 0 || kResid ? H : a.out_step;
+  const int ostep = kMode == 0 || kResid || kCs ? H : a.out_step;
   auto out_at = [&](S* base, int gr, int t) {
     return base + static_cast<long long>(gr) * (Tn * ostep) + t * ostep + gu;
   };
   S* __restrict__ hpd = kResid ? (d == 0 ? a.hp[0] : a.hp[1]) : nullptr;
   S* __restrict__ cpd = kResid ? (d == 0 ? a.cp[0] : a.cp[1]) : nullptr;
   S* __restrict__ tcd = kResid ? (d == 0 ? a.tc[0] : a.tc[1]) : nullptr;
+  float* __restrict__ csd = kCs ? (d == 0 ? a.cs[0] : a.cs[1]) : nullptr;
   auto pre_at = [&](int gr, int t) {
     return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
   };
@@ -433,6 +448,9 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
         st2_cluster(remote + 4 * ((RT + row) * hpitch + gu), hsmall);
       }
       if (gr < R) st2(out_at(out, gr, t), hv);
+      if constexpr (kCs) {  // c after this step's update, at the output's offset
+        if (gr < R) st2(csd + static_cast<long long>(gr) * (Tn * H) + t * H + gu, cst[hh]);
+      }
       if constexpr (kResid) {
         if (gr < R) {
           float hold[2];  // the h this step read, bf16 already
@@ -486,6 +504,18 @@ int scan(int height, const ScanArgs<S>& a, int dirs, cudaStream_t s) {
     case 32: return launch<S, 2, kMode>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// mode 4 in the stream type S: the outputs H apart, no lengths, no reversed
+// direction, and the cell states
+template <typename S>
+int cs_scan(int height, const void* pre, const void* wfrag, void* out0, void* out1, void* cs0,
+            void* cs1, long long pre_dir, int pre_step, int dirs, int R, int Tn, int H,
+            cudaStream_t s) {
+  auto a = make_args<S>(pre, wfrag, nullptr, out0, out1, pre_dir, pre_step, H, 0, R, Tn, H);
+  a.cs[0] = static_cast<float*>(cs0);
+  a.cs[1] = static_cast<float*>(cs1);
+  return scan<S, 4>(height, a, dirs, s);
 }
 
 template <typename S, int kMode>
@@ -565,19 +595,50 @@ int bilstm2_serve_resid_scan(int height, void* pre, const void* wfrag, const voi
   return scan<__nv_bfloat16, 3>(height, a, dirs, static_cast<cudaStream_t>(stream));
 }
 
+// The cell-state forward (mode 4, see the header) over `dirs` (1 or 2)
+// directions, each in forward time: bilstm2_serve_scan's arguments at dtype 0
+// (fp32) or 1 (bf16) with the outputs H apart, no lengths and no reversed
+// direction, and cs_d: direction d's fp32 cell state after each step, [R, T,
+// H] (direction 1's unused with one direction). Returns a cudaError_t code
+// (0 = launched).
+int bilstm2_serve_cs_scan(int height, int dtype, const void* pre, const void* wfrag, void* out0,
+                          void* out1, void* cs0, void* cs1, long long pre_dir, int pre_step,
+                          int dirs, int R, int Tn, int H, void* stream) {
+  if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return cs_scan<float>(height, pre, wfrag, out0, out1, cs0, cs1, pre_dir, pre_step, dirs, R,
+                            Tn, H, s);
+    case 1:
+      return cs_scan<__nv_bfloat16>(height, pre, wfrag, out0, out1, cs0, cs1, pre_dir, pre_step,
+                                    dirs, R, Tn, H, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // How many clusters of the scan at this tile height and dtype (as above; 3:
-// the bf16 training forward) the card runs at once. dtype 1 answers the
-// smaller count of its two instantiations (outputs H apart, and side by
-// side), which take the same threads and shared memory: one tile plan serves
-// both.
+// the bf16 training forward) the card runs at once. dtype 0 answers the
+// smaller count of its outputs-only and cell-state instantiations (modes 0
+// and 4), dtype 1 of those and the outputs side by side (mode 1): they take
+// the same threads and shared memory, so one tile plan serves them all.
 int bilstm2_serve_max_clusters(int height, int dtype, int H, int* n) {
   switch (dtype) {
-    case 0: return clusters<float, 0>(height, H, n);
+    case 0: {
+      int apart = 0, cs = 0;
+      int rc = clusters<float, 0>(height, H, &apart);
+      if (rc == 0) rc = clusters<float, 4>(height, H, &cs);
+      *n = apart < cs ? apart : cs;
+      return rc;
+    }
     case 1: {
-      int apart = 0, side = 0;
+      int apart = 0, side = 0, cs = 0;
       int rc = clusters<__nv_bfloat16, 0>(height, H, &apart);
       if (rc == 0) rc = clusters<__nv_bfloat16, 1>(height, H, &side);
+      if (rc == 0) rc = clusters<__nv_bfloat16, 4>(height, H, &cs);
       *n = apart < side ? apart : side;
+      *n = *n < cs ? *n : cs;
       return rc;
     }
     case 2: return clusters<__nv_bfloat16, 2>(height, H, n);

@@ -5,7 +5,7 @@
 // Replaces the TPU kernel `_lstm_bwd_kernel`
 // (tss_dprnn_tpu/ops/pallas_lstm.py:498, launched by lstm_backward :632). Given,
 // per direction d, the gate pre-activations pre[d] [R, T, 4H] saved by the
-// forward (csrc/lstm.cu's residual mode; none is recomputed), its c_prev and
+// forward (ops/lstm.lstm_forward_resid; none is recomputed), its c_prev and
 // tanh(c) streams and the output cotangent g[d] [R, T, H], the scan of
 // csrc/cluster_scan.cuh (`bwd_scan_kernel`, whose header gives the arithmetic
 // and the design) turns them into dpre[d] [R, T, 4H], a separate buffer, so a

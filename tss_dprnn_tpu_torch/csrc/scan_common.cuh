@@ -1,9 +1,8 @@
 // Device helpers shared by the LSTM kernels (the cluster scans of
-// bilstm2_serve.cu, bilstm2_resid.cu, bilstm2_bwd.cu and lstm_bwd.cu, and
-// lstm.cu) and products.cu: stream-type conversion and rounding, the gate
-// sigmoid (and its bf16-rounded form), cp.async copies, bulk copies into
-// shared memory with their mbarriers, 16-byte loads and stores, and the
-// cell-state forward's chunk product (lstm.cu).
+// bilstm2_serve.cu, bilstm2_resid.cu, bilstm2_bwd.cu and lstm_bwd.cu) and
+// products.cu: stream-type conversion and rounding, the gate sigmoid (and its
+// bf16-rounded form), cp.async copies, bulk copies into shared memory with
+// their mbarriers, and 16-byte loads.
 // Everything is force-inlined, so each kernel keeps its own register budget.
 
 #pragma once
@@ -58,18 +57,6 @@ __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = packed;
-}
-
 // Bulk copies into shared memory (the TMA engine without a tensor map) and
 // the mbarriers that track them, for the resident weight slices of the
 // cluster scans (cluster_scan.cuh). Addresses of shared memory are 32-bit
@@ -111,30 +98,6 @@ __device__ __forceinline__ void bulk_g2s(void* smem, const void* gmem, unsigned 
           "r"(smem_addr(smem)),
       "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-// acc[gate][r][j] += A[row_r][k0 + kk] * W[k0 + kk][gate * H + u4 + j] for one
-// chunk of kKChunk k-rows. a_row0 points at A[rg][k0]; the thread's NR rows
-// are rg, rg + 8, ..., rg + 8 (NR - 1).
-template <int kKChunk, typename AT, int NR>
-__device__ __forceinline__ void mac_chunk(float (&acc)[4][NR][4], const AT* a_row0, int a_stride,
-                                          const float* wc, int G, int H, int u4) {
-#pragma unroll
-  for (int kk = 0; kk < kKChunk; ++kk) {
-    float a[NR];
-#pragma unroll
-    for (int r = 0; r < NR; ++r) a[r] = to_f(a_row0[8 * r * a_stride + kk]);
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float4 w = *reinterpret_cast<const float4*>(wc + kk * G + g * H + u4);
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        acc[g][r][0] = fmaf(a[r], w.x, acc[g][r][0]);
-        acc[g][r][1] = fmaf(a[r], w.y, acc[g][r][1]);
-        acc[g][r][2] = fmaf(a[r], w.z, acc[g][r][2]);
-        acc[g][r][3] = fmaf(a[r], w.w, acc[g][r][3]);
-      }
-    }
-  }
 }
 
 }  // namespace scan_common

@@ -1007,6 +1007,8 @@ def _library_serve() -> ctypes.CDLL:
     lib.bilstm2_serve_scan.restype = i
     lib.bilstm2_serve_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.bilstm2_serve_resid_scan.restype = i
+    lib.bilstm2_serve_cs_scan.argtypes = [i, i] + [p] * 6 + [ctypes.c_longlong] + [i] * 4 + [p]
+    lib.bilstm2_serve_cs_scan.restype = i
     lib.bilstm2_serve_max_clusters.argtypes = [i, i, i, p]
     lib.bilstm2_serve_max_clusters.restype = i
     lib.bilstm2_serve_error_string.argtypes = [i]

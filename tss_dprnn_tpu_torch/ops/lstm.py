@@ -3,23 +3,22 @@ wrappers and plain versions (counterpart of the ``_lstm_kernel``,
 ``_lstm_manual_kernel`` and ``_lstm_bwd_kernel`` sections of
 ``tss_dprnn_tpu/ops/pallas_lstm.py:57-465, 498-669``).
 
-Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its h-only
-and ``want_resid`` modes (fp32 and bf16 streams) with the input product of
-``csrc/products.cu`` followed by the cluster scans of
+Replaces the TPU kernel ``_lstm_kernel`` (pallas_lstm.py:57) in its h-only,
+``want_resid`` and ``want_cs`` modes (fp32 and bf16 streams) with the input
+product of ``csrc/products.cu`` followed by the cluster scans of
 ``csrc/bilstm2_serve.cu`` and ``csrc/bilstm2_resid.cu`` (the fused
-bidirectional LSTM's, which take D stacked directions too; bf16
-``want_resid`` runs the serving scan's bf16 training mode after the
-bf16-operand input product), in its
-``reverse_dir1`` mode with the fused pair's serving route (its outputs side
-by side), in its ``want_cs`` mode (fp32 and bf16) with ``csrc/lstm.cu``,
-``_lstm_manual_kernel`` (pallas_lstm.py:275) with the h-only route (its
-bf16 streams through the bf16-operand input product and the serving scan's
-rounding of that kernel), and ``_lstm_bwd_kernel`` (pallas_lstm.py:498,
-fp32 and bf16) with ``csrc/lstm_bwd.cu``, CUDA C++ for
-``sm_90a``. D directions run in one
-launch, each on its own input and each in forward time: a caller that wants
-a reversed direction flips its input, as the JAX entries' callers do. With
-D = 1 this is the unidirectional inter-chunk scan of a causal DPRNN
+bidirectional LSTM's, which take stacked directions too; bf16 ``want_resid``
+runs the serving scan's bf16 training mode, and ``want_cs`` in both stream
+types its cell-state mode), in its ``reverse_dir1`` mode with the fused
+pair's serving route (its outputs side by side), ``_lstm_manual_kernel``
+(pallas_lstm.py:275) with the h-only route (its bf16 streams through the
+bf16-operand input product and the serving scan's rounding of that kernel),
+and ``_lstm_bwd_kernel`` (pallas_lstm.py:498, fp32 and bf16) with
+``csrc/lstm_bwd.cu``, CUDA C++ for ``sm_90a``. Each direction runs on its
+own input and in forward time: a caller that wants a reversed direction
+flips its input, as the JAX entries' callers do. A scan launch takes two
+directions; D directions run in ceil(D / 2) launches of each scan. With D =
+1 this is the unidirectional inter-chunk scan of a causal DPRNN
 (``bidirectional: false``). Argument order is the JAX entries'; the layout
 is the port's own, batch-major with no time or row padding::
 
@@ -53,20 +52,20 @@ consumer masks them (the DPRNN block's masked norm does, and its zero
 cotangent there keeps the backward exact).
 
 What bounds the kernels on the H100: the arithmetic, 2 (F + H) 4H FLOP per
-row-step and direction forward and twice that backward. The h-only and
-residual forwards split the work by what is sequential, as the fused pair's do
+row-step and direction forward and twice that backward. The three forwards
+split the work by what is sequential, as the fused pair's do
 (``ops/bilstm2.py``): per direction one launch of the 3xTF32 product kernel
 computes the input half of every gate at once, P[d] = x[d] @ W_ih[d] + b[d]
 into a [D, R, T, 4H] fp32 buffer (bf16 h-only x upcast, exactly; the bf16
-residual mode's x through the bf16-operand product as it is), then one launch
-of a recurrent scan over all D directions (2-CTA clusters, each CTA holding
-half of W_hh[d] in shared memory for the whole scan, the tile height from
-:func:`plan_tiles`) adds h @ W_hh step by step: the serving scan (on the
-tensor cores, 3xTF32 or one bf16 product) reads P and writes only h; the
+residual and cell-state modes' x through the bf16-operand product as it is),
+then a recurrent scan over the directions, two to a launch (2-CTA clusters,
+each CTA holding half of W_hh[d] in shared memory for the whole scan, the
+tile height from :func:`plan_tiles`), adds h @ W_hh step by step: the
+serving scan (on the tensor cores, 3xTF32 or one bf16 product) reads P and
+writes h, and in its cell-state mode also the fp32 c after every step; the
 training forward's scan writes the full gate pre-activations back into the
 buffer, which is the saved ``pre``, and the other residual streams. The
-``want_cs`` mode keeps the first design (``csrc/lstm.cu``): 16-row tiles,
-W = [W_ih; W_hh] streamed from L2 every step. The backward splits the work in two: the scan of
+backward splits the work in two: the scan of
 ``csrc/lstm_bwd.cu`` (2-CTA clusters holding W_hh^T in shared memory) turns
 the saved pre-activations and the carried dh/dc into dpre, then the 3xTF32
 product and column-sum kernels of ``csrc/products.cu`` give dx (per
@@ -74,10 +73,10 @@ direction) and the fixed partials of dW and db, summed here in a fixed
 order (no atomics: a run repeats itself bit for bit); bf16 streams run the
 scan's bf16 mode (dpre @ W_hh^T in bf16 mma.sync, dpre stored bf16) and the
 bf16-operand products on x, hp and dpre as they are (dx with a bf16
-output, dW in the column layout). The cluster scans take
-D <= 2 on the card. As in ``ops/bilstm2.py``, the wrappers zero-pad F and H
-to multiples of 16 (``bilstm2.padded``, ``bilstm2.padded_backward``) and cut
-the pad off what they return.
+output, dW in the column layout); its scan too takes two directions to a
+launch. As in ``ops/bilstm2.py``, the wrappers zero-pad F and H to multiples
+of 16 (``bilstm2.padded``, ``bilstm2.padded_backward``) and cut the pad off
+what they return.
 
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`lstm_reference`, :func:`lstm_cs_reference`,
@@ -345,81 +344,63 @@ def _checked(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.T
 
 def _launch(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
             w_hh: torch.Tensor):
-    """Check what the kernel takes, allocate the outputs and launch on the
-    current stream; a launch adds one to ``entry.launches``. Returns
-    (h, streams). The h-only and residual modes run the product and cluster
-    scan (:func:`_launch_scan`), the cell-state mode ``csrc/lstm.cu``; each
-    takes fp32 and bf16 streams."""
-    if mode != _MODE_CS:
-        return _launch_scan(entry, mode, x, w_ih, b, w_hh)
-    x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
-    D, R, T, F = x.shape
-    H = w_hh.shape[1]
-    out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
-    streams = tuple(torch.empty(D, R, T, n * H, dtype=torch.float32, device=x.device)
-                    for n in _STREAM_WIDTHS[mode])
-    if D and R and T:
-        lib = _library()
-        with torch.cuda.device(x.device):
-            rc = lib.lstm_forward(
-                _DTYPE_CODES[x.dtype], mode, x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
-                b.data_ptr(), out.data_ptr(), streams[0].data_ptr() if streams else None,
-                D, R, T, F, H, torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(rc, "lstm kernel", lib, "lstm_error_string")
-        entry.launches += 1
-    return out, streams
+    """The kernels of a forward mode (h only, cell state or residual) on the
+    current stream: the input products and cluster scans of
+    :func:`_launch_scan`, fp32 and bf16 streams alike. Returns (h,
+    streams)."""
+    return _launch_scan(entry, mode, x, w_ih, b, w_hh)
 
 
 def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
                  w_hh: torch.Tensor, v2: bool = False):
-    """The h-only and the residual modes on the current stream: per
-    direction d one launch of the product kernel, P[d] = x[d] @ W_ih[d] + b[d]
-    into pre [D, R, T, 4H] fp32, then one launch of a cluster scan over the D
-    directions, each in forward time: the serving scan (h only: it reads P
-    and writes h) or the training forward's (it overwrites pre with the gate
-    pre-activations and writes h and the residual streams: fp32
-    csrc/bilstm2_resid.cu, bf16 the serving scan's training mode). bf16 h-only
-    streams run the serving scan's bf16 mode after x is upcast, exactly, for
-    the 3xTF32 products. With ``v2`` (h only) bf16 x goes as it is to the
-    bf16-operand product kernel and the serving scan rounds as the
-    manual-DMA TPU kernel does; the bf16 residual mode takes that product
-    too. fp32 is unchanged. One call adds one to ``entry.launches`` (and D to
-    its product kernel's). Returns (h, streams) as :func:`_launch`."""
-    resid = mode == _MODE_RESID
+    """A forward mode on the current stream: per direction d one launch of
+    the product kernel, P[d] = x[d] @ W_ih[d] + b[d] into pre [D, R, T, 4H]
+    fp32, then one launch of a cluster scan per pair of directions (the last
+    alone when D is odd), each direction in forward time: the serving scan
+    (h only: it reads P and writes h; the cell-state mode also writes the
+    fp32 c after every step) or the training forward's (it overwrites pre
+    with the gate pre-activations and writes h and the residual streams:
+    fp32 csrc/bilstm2_resid.cu, bf16 the serving scan's training mode).
+    bf16 h-only streams run the serving scan's bf16 mode after x is upcast,
+    exactly, for the 3xTF32 products; the bf16 residual and cell-state modes
+    take bf16 x as it is to the bf16-operand product kernel. With ``v2`` (h
+    only) bf16 x goes to that product too and the serving scan rounds as the
+    manual-DMA TPU kernel does. fp32 is unchanged. Raises on anything the
+    kernels do not take. One call adds one to ``entry.launches`` (and D to
+    its product kernel's). Returns (h, streams): () for h only, (cs,) for
+    the cell-state mode, (hp, cp, tc, pre) for the residual mode."""
+    resid, cs = mode == _MODE_RESID, mode == _MODE_CS
     x, w_ih, b, w_hh = _checked(x, w_ih, b, w_hh)
     dt = x.dtype
     low = dt != torch.float32
-    bf16_product = low and (v2 or resid)
+    bf16_product = low and (v2 or mode != _MODE_H)
     v2 = v2 and low
     fp32_resid = resid and not low  # csrc/bilstm2_resid.cu; everything else the serving scan
     D, R, T, F = x.shape
     H = w_hh.shape[1]
     G, M = 4 * H, R * T
     out = torch.empty(D, R, T, H, dtype=x.dtype, device=x.device)
-    hcs = tuple(torch.empty_like(out) for _ in range(3)) if resid else ()  # hp, cp, tc
+    # the residual streams hp, cp, tc in the stream type; the cell states fp32
+    hcs = (tuple(torch.empty_like(out) for _ in range(3)) if resid else
+           (torch.empty(D, R, T, H, dtype=torch.float32, device=x.device),) if cs else ())
     pre = torch.empty(D, R, T, G, dtype=torch.float32, device=x.device)
+    streams = hcs + (pre,) if resid else hcs
     if D * M == 0:
-        return out, hcs + (pre,) if resid else ()
-    if D > 2:
-        raise ValueError(f"lstm cluster scans take D <= 2 directions, got {D}")
+        return out, streams
     if not bf16_product:
         x = x.float()
     # a direction's slices are passed as pointers: each must be 16-byte aligned
     named = {"x": x, "w_ih": w_ih, "b": b, "pre": pre, "out": out,
-             **dict(zip(("hp", "cp", "tc"), hcs))}
+             **dict(zip(("hp", "cp", "tc") if resid else ("cs",), hcs))}
     _check_aligned(**{f"{n}[{d}]": t[d] for n, t in named.items() for d in range(D)})
-
-    def per_dir(t):  # direction 0's and 1's; with D = 1 the kernel reads only the first
-        return [t[min(d, D - 1)].data_ptr() for d in range(2)]
-
     which = "resid" if fp32_resid else "serve_resid" if resid else "serve"
-    plan = _plan(which, R, H, x.device, dirs=D, dtype=dt)
     if fp32_resid:
         w_res = resid_weight_layout(w_hh)
     else:
         w_res = (serve_weight_layout_bf16 if low else serve_weight_layout)(w_hh)
     products = _library_products()
     lib = _library_resid() if fp32_resid else _library_serve()
+    name = "resid" if fp32_resid else "serve"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         w_bf16 = w_ih.bfloat16() if bf16_product else None
@@ -430,22 +411,33 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
             else:
                 _gemm(products, stream, False, [(x, d * M * F, F, w_ih, d * F * G, G, F)], M, G,
                       out=pre, out_off=d * M * G, ldc=G, bias=b[d])
-        # [D, R, T, 4H]: a direction's gates R T 4H on, a row-step's 4H on
-        pre_layout = (M * G, G)
-        scan = (0, D, R, T, H, stream)  # no direction reversed, no lengths
-        if resid:
-            streams = [t[min(d, D - 1)].data_ptr() for d in range(2) for t in hcs]
-            run = lib.bilstm2_resid_scan if fp32_resid else lib.bilstm2_serve_resid_scan
-            rc = run(plan.height, pre.data_ptr(), w_res.data_ptr(), None, *per_dir(out), *streams,
-                     *pre_layout, *scan)
-        else:  # outputs [D, R, T, H]: a row-step H on
-            rc = lib.bilstm2_serve_scan(plan.height, _V2_CODE if v2 else _DTYPE_CODES[dt],
-                                        pre.data_ptr(), w_res.data_ptr(), None, *per_dir(out),
-                                        *pre_layout, H, *scan)
-    name = "resid" if fp32_resid else "serve"
-    _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{name}_error_string")
+        # [D, R, T, 4H]: a direction's gates R T 4H on, a row-step's 4H on; no
+        # direction reversed, no lengths
+        layout = (M * G, G)
+        for d0 in range(0, D, 2):  # the directions in pairs, one scan launch each
+            n = min(2, D - d0)
+
+            def per_dir(t):  # directions d0 and d0 + 1; alone, the kernel reads the first
+                return [t[d0 + min(d, n - 1)].data_ptr() for d in range(2)]
+
+            plan = _plan(which, R, H, x.device, dirs=n, dtype=dt)
+            scan = (n, R, T, H, stream)
+            if resid:
+                run = lib.bilstm2_resid_scan if fp32_resid else lib.bilstm2_serve_resid_scan
+                hcs_ptrs = [t[d0 + min(d, n - 1)].data_ptr() for d in range(2) for t in hcs]
+                rc = run(plan.height, pre[d0].data_ptr(), w_res[d0].data_ptr(), None,
+                         *per_dir(out), *hcs_ptrs, *layout, 0, *scan)
+            elif cs:
+                rc = lib.bilstm2_serve_cs_scan(plan.height, _DTYPE_CODES[dt], pre[d0].data_ptr(),
+                                               w_res[d0].data_ptr(), *per_dir(out),
+                                               *per_dir(hcs[0]), *layout, *scan)
+            else:  # outputs [D, R, T, H]: a row-step H on
+                rc = lib.bilstm2_serve_scan(plan.height, _V2_CODE if v2 else _DTYPE_CODES[dt],
+                                            pre[d0].data_ptr(), w_res[d0].data_ptr(), None,
+                                            *per_dir(out), *layout, H, 0, *scan)
+            _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{name}_error_string")
     entry.launches += 1
-    return out, hcs + (pre,) if resid else ()
+    return out, streams
 
 
 @functools.lru_cache(maxsize=None)
@@ -477,7 +469,9 @@ def plan_backward(D: int, R: int, H: int, device: torch.device,
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Tensor,
                      b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
     """The backward's launches (see the module docstring) on the current
-    stream; one call adds one to ``entry.launches``. bf16 streams: the scan's
+    stream: the scan once per pair of directions (the last alone when D is
+    odd), then each direction's products; one call adds one to
+    ``entry.launches``. bf16 streams: the scan's
     bf16 mode (dpre @ W_hh^T on the tensor cores) writes dpre in bf16 and
     db's partial sums, which the column-sum kernel adds up; the products read
     x, hp and dpre as they are: dx through the bf16-operand product with a
@@ -507,8 +501,6 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
     dx = torch.empty(D, R, T, F, dtype=x.dtype, device=x.device)
     if D * M == 0:
         return dx.zero_(), torch.zeros_like(w_ih), torch.zeros_like(b), torch.zeros_like(w_hh)
-    if D > 2:
-        raise ValueError(f"lstm backward kernel takes D <= 2 directions, got {D}")
     # pre stays as saved: a second backward gives the same; bf16 dpre is bf16
     dpre = torch.empty(D, R, T, G, dtype=x.dtype, device=x.device)
     if low:
@@ -516,18 +508,23 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
     else:  # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
         w_split = w_hh.view(D, H, 4, 2, H // 2).permute(0, 3, 2, 4, 1).contiguous()
     w_ih_t = w_ih.transpose(1, 2).contiguous()  # [D, 4H, F]
-    tiles = plan_backward(D, R, H, x.device, x.dtype)
-    # bf16: db's partial sums, one row per (tile, row group), the D directions side by side
-    dbpart = torch.empty(tiles.tiles * 8, D * G, device=x.device) if low else None
     products, lib = _library_products(), _library_scan()
+    dbparts = []  # bf16: per direction (db's partial sums of its pair, its column offset)
     dw_ih, dw_hh, db = [], [], []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lstm_bwd_scan(tiles.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
-                               dpre.data_ptr(), cp.data_ptr(), tc.data_ptr(), g.data_ptr(),
-                               w_split.data_ptr(), None if dbpart is None else dbpart.data_ptr(),
-                               D, R, T, H, stream)
-        _raise_on(rc, "lstm backward scan kernel", lib, "lstm_bwd_error_string")
+        for d0 in range(0, D, 2):  # the directions in pairs, one scan launch each
+            n = min(2, D - d0)
+            tiles = plan_backward(n, R, H, x.device, x.dtype)
+            # bf16: one row per (tile, row group), the pair's directions side by side
+            dbpart = torch.empty(tiles.tiles * 8, n * G, device=x.device) if low else None
+            dbparts += [(dbpart, d * G) for d in range(n)]
+            rc = lib.lstm_bwd_scan(tiles.height, _DTYPE_CODES[x.dtype], pre[d0].data_ptr(),
+                                   dpre[d0].data_ptr(), cp[d0].data_ptr(), tc[d0].data_ptr(),
+                                   g[d0].data_ptr(), w_split[d0].data_ptr(),
+                                   None if dbpart is None else dbpart.data_ptr(), n, R, T, H,
+                                   stream)
+            _raise_on(rc, "lstm backward scan kernel", lib, "lstm_bwd_error_string")
         if low:
             w_ih_t = w_ih_t.bfloat16()
         for d in range(D):
@@ -538,7 +535,8 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
                                             M, F, G))
                 dw_hh.append(_gemm_bf16_col(products, stream, hp, d * M * H, H, dpre, d * M * G, G,
                                             M, H, G))
-                db.append(_colsum(products, stream, dbpart, d * G, D * G, dbpart.shape[0], G))
+                part, col = dbparts[d]
+                db.append(_colsum(products, stream, part, col, part.shape[1], part.shape[0], G))
             else:
                 _gemm(products, stream, False, [(dpre, d * M * G, G, w_ih_t, d * G * F, F, G)], M,
                       F, out=dx, out_off=d * M * F, ldc=F)
@@ -549,19 +547,6 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih
                 db.append(_colsum(products, stream, dpre, d * M * G, G, M, G))
     entry.launches += 1
     return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the forward's library, with its C
-    signatures set once."""
-    lib = _build.load_library("lstm")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_forward.argtypes = [i, i] + [p] * 6 + [i] * 5 + [p]
-    lib.lstm_forward.restype = i
-    lib.lstm_error_string.argtypes = [i]
-    lib.lstm_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -660,7 +645,7 @@ def lstm_backward(x: torch.Tensor, resid: Resid, g: torch.Tensor, w_ih: torch.Te
                   b: torch.Tensor, w_hh: torch.Tensor) -> Grads:
     """Backward of :func:`lstm_forward_resid`: the cotangent g [D, R, T, H]
     of h, in x's type -> (dx [D, R, T, F] per direction in x's type, dw_ih
-    [D, F, 4H], db [D, 4H], dw_hh [D, H, 4H] fp32). D <= 2 on the card."""
+    [D, F, 4H], db [D, 4H], dw_hh [D, H, 4H] fp32)."""
     if x.device.type == "cpu":
         return lstm_backward_reference(x, resid, g, w_ih, b, w_hh)
     return padded_backward(functools.partial(_launch_backward, lstm_backward), x, resid, (g,),
