@@ -246,6 +246,36 @@ Phases, each of which fails the script (nonzero exit, no result line):
    step card vs CPU (loss within BF16_STEP_LOSS_REL, gradients >=
    BF16_STEP_GRAD_SNR_DB).
 
+18. the serving tools ([serve-tools]), fp32 at full width: first the scans
+   at the shapes below that phase 2 does not hold (60 s full length intra
+   R=3842 T=250 and inter R=250 T=3842, the windowed batch R=2568 T=250 and
+   R=1000 T=642, the batch-1 bucket R=642 T=250 and masked R=250 T=642),
+   each against its plain version at phase 2's bars in both lanes; (a) cli.separate
+   on a synthetic 60 s 8 kHz WAV from the seed, with the flagship (4 s
+   reference, phase 3's weights) and the BSS model of configs/test_bss.yaml
+   (bidirectional, as shipped; seeded weights), each full length (12
+   bilstm2_forward launches, each after its input product) and with
+   ``--window-secs 10 --batch 4`` (11 windows, 3 forwards: 36 + 36), and no
+   other kernel; the files' rate, length and finite values; wall s and
+   audio-s per s; an input of one window or less, windowed with a hop of a
+   window, bit for bit the forward on the zero-padded window; card vs CPU
+   through the CLI on 3 s with 1 s windows for bss, tss_spe and tss_rawnet
+   (an 8 kHz reference, resampled to 16 kHz), >= 50 dB; (b) cli.export_model
+   on the flagship at --secs 10 --batch 8 (buckets 1 and 8 x 10 s), bf16 (the
+   default) and fp32, each artifact loaded in a fresh process that imports
+   the export module alone (no model code) and called on 3 requests of 4-10
+   s and on 1 (the buckets picked: 8 and 1), each call 6 + 6 serving scans
+   and 12 input products and no other kernel, against the eager masked
+   forward on the same padding (fp32 >= 60 dB, its max |err| and whether it
+   is bit for bit; bf16 >= LANE_SNR_DB against fp32 eager); the export s per
+   bucket, the artifact's bytes; the call's wall ms beside the eager
+   forward's through the same host path (ServingModel.call's padding and
+   copies), the program's and the eager forward's device ms alone, and one
+   call of each under torch.profiler (the card's busy ms and idle share,
+   the host's launches, copies, synchronizations and value reads);
+   (c) cli.results_table over phase 13's final_metrics.json files, each row
+   as the file holds it.
+
 Every serving count includes the input products: each
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
 lstm_forward launch one per direction (one on every path: the causal inter
@@ -370,6 +400,60 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host wall time of ``fn`` over ``reps`` calls after one warm-up,
+    each run to its end on the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def call_profile(fn) -> dict:
+    """One warm call of ``fn`` under ``torch.profiler``: its wall ms there,
+    the card's busy ms (the device events' own time, summed; one stream, so
+    none overlap) and idle share, the device events, the host's kernel
+    launches and copies, its waits on the card (stream, device and event
+    synchronizations, the last one ours) and its reads of a device value
+    (``aten::_local_scalar_dense``). ``{"error": ...}`` where the profiler
+    fails, and busy ms None where it sees no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        events = list(prof.events())
+    except Exception as e:  # noqa: BLE001 - the profiler is untried on the card's machine
+        return {"error": f"{type(e).__name__}: {e}"}
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 if device else None
+
+    def count(*names):
+        return sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in names)
+
+    return {"wall_ms": wall, "busy_ms": busy,
+            "idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+            "device_events": len(device),
+            "launches": count("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                              "cuLaunchKernelEx"),
+            "copies": count("cudaMemcpyAsync", "cudaMemcpy"),
+            "syncs": count("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                           "cudaEventSynchronize"),
+            "host_reads": count("aten::_local_scalar_dense")}
 
 
 def snr_db(got, want) -> float:
@@ -4573,6 +4657,530 @@ def bf16_kernel_entries(entries, bf16, launches):
     return out
 
 
+# phase 18: the serving tools. A synthetic WAV of SEPARATE_SECONDS at 8 kHz
+# through cli.separate, full length and in windows of SEPARATE_WINDOW_S (hop
+# half a window) SEPARATE_BATCH to a forward; card vs CPU on CHECK_SECONDS
+# with windows of CHECK_WINDOW_S; the flagship's artifact at EXPORT_BATCH x
+# EXPORT_SECS (and batch 1) called on EXPORT_REQUESTS requests of 4-10 s.
+SEPARATE_SECONDS = 60
+SEPARATE_WINDOW_S = 10
+SEPARATE_BATCH = 4
+SEPARATE_REF_S = 4
+CHECK_SECONDS = 3
+CHECK_WINDOW_S = 1
+EXPORT_SECS = 10
+EXPORT_BATCH = 8
+EXPORT_REQUESTS = 3
+SEPARATE_CARD_VS_CPU_DB = 50.0
+ARTIFACT_FP32_SNR_DB = 60.0
+
+# calls of an artifact, and of the eager forward beside it, timed each
+CALL_REPS = 5
+
+# what a fresh process runs to call an artifact: it imports the export
+# module alone (no model code), calls the artifact on the requests in
+# argv[2], and writes the outputs, the picked buckets, the launches of each
+# call, and on the card its wall ms (call_ms: padding, copies and the
+# program), the program's device ms on the inputs call() gives it, and one
+# profiled call (call_profile), to argv[3]; argv[4] is CALL_REPS
+_ARTIFACT_CALLER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from tss_dprnn_tpu_torch.inference import export
+
+def counts():
+    out = {e.__name__: e.launches for e in (*export.bilstm2.ENTRIES, *export.lstm.ENTRIES)}
+    out.update(export.bilstm2.product_launch_counts())
+    return out
+
+def reset():
+    export.bilstm2.reset_launch_counts()
+    export.lstm.reset_launch_counts()
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+CALL_REPS = int(sys.argv[4])
+t0 = time.perf_counter()
+sep = export.load_artifact(sys.argv[1])
+load_s = time.perf_counter() - t0
+req = np.load(sys.argv[2])
+result, arrays = {"load_s": load_s, "calls": {}}, {}
+for tag, rows in (("many", slice(None)), ("one", slice(0, 1))):
+    args = (req["mix"][rows], req["aux"][rows], req["aux_len"][rows])
+    lengths = req["lengths"][rows]
+    bucket = sep._pick(*args[0].shape)
+    program, seen = sep._fns[bucket], []
+    sep._fns[bucket] = lambda *a: seen.append(a) or program(*a)  # the inputs call() gives it
+    reset()
+    out = sep.call(*args, lengths=lengths)
+    sync()
+    launches = counts()
+    sep._fns[bucket] = program
+    arrays[tag] = out
+    entry = {"bucket": list(bucket), "launches": launches, "shape": list(out.shape)}
+    if torch.cuda.is_available():
+        from chip_smoke import call_profile, time_ms, wall_ms
+
+        def run_program():
+            with torch.inference_mode():
+                return program(*seen[0])
+
+        entry.update(ms=wall_ms(lambda: sep.call(*args, lengths=lengths), CALL_REPS),
+                     program_ms=time_ms(run_program, CALL_REPS),
+                     profile=call_profile(lambda: sep.call(*args, lengths=lengths)))
+    result["calls"][tag] = entry
+result["model_code_imported"] = sorted(m for m in sys.modules
+                                       if m.startswith("tss_dprnn_tpu_torch.models"))
+result["device"] = str(sep.device)
+np.savez(sys.argv[3] + ".npz", **arrays)
+with open(sys.argv[3] + ".json", "w") as f:
+    json.dump(result, f)
+"""
+
+
+def _eager_serving(model, shapes, dev):
+    """A ServingModel whose buckets ``shapes`` run ``model``'s eager masked
+    forward: ServingModel.call's padding, copies and crop around it."""
+    from tss_dprnn_tpu_torch.inference.export import ServingModel
+
+    served = ServingModel({}, {"spe": True, "aux_factor": 1}, dev)
+    served.buckets = dict.fromkeys(shapes)
+    served._fns = dict.fromkeys(shapes, lambda *a: model(*a[:-1], lengths=a[-1])[0])
+    return served
+
+
+def _separate_run(torch, argv):
+    """One cli.separate run: (wall s, every wrapper's launches)."""
+    from tss_dprnn_tpu_torch.cli import separate as separate_cli
+
+    reset_launches()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    separate_cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(all_launches(), **product_launches())
+
+
+def _read_outputs(paths, n_samples):
+    """The written WAVs, checked for rate, length and finite values."""
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.data import wav
+
+    out = []
+    for p in paths:
+        data, rate = wav.read(p)
+        if rate != SAMPLE_RATE or data.shape != (n_samples,) or not np.isfinite(data).all():
+            raise AssertionError(f"{p}: rate {rate}, shape {data.shape}, expected "
+                                 f"({n_samples},) at {SAMPLE_RATE} Hz, finite")
+        out.append(data)
+    return np.stack(out)
+
+
+def _windows(n_samples: int, window: int, batch: int):
+    """The windowed separator's forwards for an input of n_samples."""
+    hop = window // 2
+    n_win = 1 if n_samples <= window else len(range(0, n_samples - window, hop)) + 1
+    return -(-n_win // batch)
+
+
+def _ms(v) -> str:
+    """A device time for the log, or "not measured" (a CPU rehearsal)."""
+    return "not measured" if v is None else f"{v:.2f} ms"
+
+
+def _hold_serve_tools_shapes(torch, dev):
+    """The scan shapes phase 18 brings that phase 2 does not hold (the 60 s
+    full-length forward, a windowed batch, the artifact's batch-1 bucket):
+    each entry on the card against its plain version on the same seeded
+    inputs, at phase 2's bars (fp32 max |err| <= 1e-4; bf16 >= 40 dB against
+    the fp32 plain version and within BF16_ATOL and BF16_SNR_DB of the bf16
+    one). out0 is compared on t < len only where there are lengths."""
+    from tss_dprnn_tpu_torch.ops.bilstm2 import (
+        bilstm2_forward, bilstm2_forward_masked, bilstm2_reference)
+
+    K, hop = FLAGSHIP["chunk_length"], FLAGSHIP["hop_length"]
+    F, H = FLAGSHIP["feature_size"], FLAGSHIP["hidden_size"]
+
+    def chunks(samples):  # encoder frames (samples - 1) -> chunks of K, hop apart
+        return (samples - 1 + K) // hop + 1
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 184)
+    k = H ** -0.5
+    w_ih2, w_hh2, b2 = ((torch.rand(*s, generator=g) * 2 * k - k).to(dev)
+                        for s in ((2, F, 4 * H), (2, H, 4 * H), (2, 4 * H)))
+    S60 = chunks(SEPARATE_SECONDS * SAMPLE_RATE)
+    Sw, Se = chunks(SEPARATE_WINDOW_S * SAMPLE_RATE), chunks(EXPORT_SECS * SAMPLE_RATE)
+    # one request of 4-10 s in the batch-1 bucket: its chunk count on each of K rows
+    utt = chunks(int((float(torch.rand(1, generator=g)) * 0.6 + 0.4) * EXPORT_SECS
+                     * SAMPLE_RATE))
+    shapes = [
+        ("separate full length intra", S60, K, None),
+        ("separate full length inter", K, S60, None),
+        ("separate windowed intra", SEPARATE_BATCH * Sw, K, None),
+        ("separate windowed inter", SEPARATE_BATCH * K, Sw, None),
+        ("artifact batch 1 intra", Se, K, None),
+        ("artifact batch 1 inter", K, Se, torch.full((K,), utt, dtype=torch.int32, device=dev)),
+    ]
+    held = []
+    for what, R, T, lens in shapes:
+        x = torch.randn(R, T, F, generator=g).to(dev)
+        valid = None if lens is None else torch.arange(T, device=dev)[None, :] < lens[:, None]
+
+        def run(xx, kernel=True):
+            if not kernel:
+                return bilstm2_reference(xx, w_ih2, b2, w_hh2, lens)
+            if lens is None:
+                return bilstm2_forward(xx, w_ih2, b2, w_hh2)
+            return bilstm2_forward_masked(xx, lens, w_ih2, b2, w_hh2)
+
+        def region(out):
+            o0, o1 = out
+            o0 = o0.float() if valid is None else o0.float()[valid]
+            return torch.cat([o0.flatten(), o1.float().flatten()])
+
+        ref32 = region(run(x, kernel=False))
+        err32 = float((region(run(x)) - ref32).abs().max())
+        xb = x.bfloat16()
+        got16 = region(run(xb))
+        ref16 = region(run(xb, kernel=False))
+        row = {"what": what, "entry": "bilstm2_forward" if lens is None
+               else "bilstm2_forward_masked", "R": R, "T": T, "max_abs_err": err32,
+               "bf16_snr_db": snr_db(got16, ref32),
+               "bf16_plain_max_abs_err": float((got16 - ref16).abs().max()),
+               "bf16_plain_snr_db": snr_db(got16, ref16)}
+        log(f"[serve-tools] {what} {row['entry']} R={R} T={T}: fp32 max|err|={err32:.3e}, "
+            f"bf16 SNR {row['bf16_snr_db']:.2f} dB (bf16 plain max|err|="
+            f"{row['bf16_plain_max_abs_err']:.3e}, {row['bf16_plain_snr_db']:.2f} dB)")
+        if not (err32 <= 1e-4 and row["bf16_snr_db"] >= 40.0
+                and row["bf16_plain_max_abs_err"] <= BF16_ATOL
+                and row["bf16_plain_snr_db"] >= BF16_SNR_DB):
+            raise AssertionError(f"{what}: the kernel disagrees with its plain version: {row}")
+        held.append(row)
+        del x, xb, ref32, got16, ref16
+        torch.cuda.empty_cache()
+    return held
+
+
+def phase_serve_tools(torch, dev, smi, ckpt):
+    """Phase 18: cli.separate, cli.export_model and cli.results_table, as the
+    module docstring says."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.cli import export_model, results_table
+    from tss_dprnn_tpu_torch.data import wav
+    from tss_dprnn_tpu_torch.inference import export
+    from tss_dprnn_tpu_torch.inference.long_audio import bss_windowed, spe_windowed
+    from tss_dprnn_tpu_torch.models import DPRNNRawNetTasNet, DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.models.registry import build_model
+    from tss_dprnn_tpu_torch.utils.checkpoint import load_model
+    from tss_dprnn_tpu_torch.utils.config import load_config, model_config
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    root = os.path.join(OUT_DIR, "serve_tools")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    device_args = [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
+    cfg_dir = os.path.join(HERE, "configs")
+    results = {"card": smi}
+    if torch.device(dev).type == "cuda":
+        results["kernels_at_new_shapes"] = _hold_serve_tools_shapes(torch, dev)
+
+    # -- (a) cli.separate
+    rng = np.random.default_rng(SEED + 180)
+    n = SEPARATE_SECONDS * SAMPLE_RATE
+    t = np.arange(n) / SAMPLE_RATE
+    # two amplitude-modulated noise voices, as a two-speaker mixture
+    voices = [0.1 * rng.standard_normal(n) * (0.6 + 0.4 * np.sin(2 * np.pi * f * t))
+              for f in (0.7, 1.3)]
+    mix = (voices[0] + voices[1]).astype(np.float32)
+    ref = (0.1 * rng.standard_normal(SEPARATE_REF_S * SAMPLE_RATE)).astype(np.float32)
+    mix_path, ref_path = os.path.join(root, "mix.wav"), os.path.join(root, "ref.wav")
+    wav.write(mix_path, mix, SAMPLE_RATE)
+    wav.write(ref_path, ref, SAMPLE_RATE)
+    mix = wav.read(mix_path)[0]  # as the CLI reads it back
+    bss_cfg = load_config(os.path.join(cfg_dir, "test_bss.yaml"))
+    ckpts = {"tss_spe": ckpt, "bss": os.path.join(root, "bss_random.pt"),
+             "tss_rawnet": os.path.join(root, "rawnet_random.pt")}
+    torch.save(init_weights_(build_model(model_config(bss_cfg)),
+                             torch.Generator().manual_seed(SEED + 181)).state_dict(), ckpts["bss"])
+    torch.save(init_weights_(DPRNNRawNetTasNet(**RAWNET),
+                             torch.Generator().manual_seed(SEED + 182)).state_dict(),
+               ckpts["tss_rawnet"])
+    cli_models = {
+        "tss_spe": ("test_tss.yaml", []),
+        "bss": ("test_bss.yaml", []),
+        "tss_rawnet": ("test_tss.yaml", ["model.target=dprnn_rawnet_tasnet",
+                                         "model.embeddings_size=256"]),
+    }
+
+    def argv(mode, src, out, extra=()):
+        cfg, sets = cli_models[mode]
+        a = ["--config", os.path.join(cfg_dir, cfg), "--mode", mode, "--mix", src, "--out", out,
+             "--set", f"checkpoint_path={ckpts[mode]}", *sets]
+        return a + (["--ref", ref_path] if mode != "bss" else []) + list(extra)
+
+    def outputs(mode, out):
+        base = os.path.splitext(out)[0]
+        return [f"{base}_s1.wav", f"{base}_s2.wav"] if mode == "bss" else [out]
+
+    sep = {}
+    blocks = FLAGSHIP["n_repeats"]
+    for mode in ("tss_spe", "bss"):
+        runs = {}
+        n_blocks = bss_cfg["model"]["n_repeats"] if mode == "bss" else blocks
+        for tag, extra in (("full", []), ("windowed", ["--window-secs", str(SEPARATE_WINDOW_S),
+                                                        "--batch", str(SEPARATE_BATCH)])):
+            out = os.path.join(root, f"{mode}_{tag}.wav")
+            # twice: the first run of a shape pays its one-time set-up
+            walls = []
+            for _ in range(2):
+                wall, launches = _separate_run(torch, argv(mode, mix_path, out,
+                                                           extra + device_args))
+                walls.append(wall)
+            forwards = 1 if tag == "full" else _windows(n, SEPARATE_WINDOW_S * SAMPLE_RATE,
+                                                        SEPARATE_BATCH)
+            # unmasked: every scan of a forward, intra and inter, is bilstm2_forward
+            expect_launches(launches, with_products({"bilstm2_forward": 2 * n_blocks}), forwards,
+                            f"cli.separate {mode} {tag}")
+            est = _read_outputs(outputs(mode, out), n)
+            runs[tag] = {"wall_s": wall, "first_wall_s": walls[0],
+                         "audio_s_per_s": SEPARATE_SECONDS / wall, "forwards": forwards,
+                         "launches": {k: v for k, v in launches.items() if v},
+                         "peak": float(np.abs(est).max())}
+            log(f"[serve-tools] cli.separate --mode {mode} {tag} ({SEPARATE_SECONDS} s): "
+                f"{wall:.3f} s wall ({walls[0]:.3f} s the first run), "
+                f"{SEPARATE_SECONDS / wall:.2f} audio-s/s, {forwards} forward(s), launches "
+                f"{runs[tag]['launches']} each run, on {smi}")
+        sep[mode] = runs
+
+    # an input of one window or less, windowed with a hop of one window
+    # (weight 1), is the forward on the zero-padded window, bit for bit
+    W = SEPARATE_WINDOW_S * SAMPLE_RATE
+    one = {}
+    for mode in ("tss_spe", "bss"):
+        model = (DPRNNSpeTasNet(**FLAGSHIP) if mode == "tss_spe"
+                 else build_model(model_config(bss_cfg)))
+        load_model(ckpts[mode], model)
+        for T in (W, W - W // 7):
+            if mode == "tss_spe":
+                got = spe_windowed(model, ref, window=W, hop=W, batch_size=1, device=dev)(mix[:T])
+            else:
+                got = bss_windowed(model, window=W, hop=W, batch_size=1, device=dev)(mix[:T])
+            x = torch.zeros(1, W, device=dev)
+            x[0, :T] = torch.from_numpy(mix[:T])
+            with torch.inference_mode():
+                if mode == "tss_spe":
+                    want = model(x, torch.from_numpy(ref)[None].to(dev),
+                                 torch.tensor([float(len(ref))], device=dev))[0]
+                else:
+                    want = model(x)[0]
+            want = np.atleast_2d(want.float().cpu().numpy())[:, :T]
+            same = bool(np.array_equal(got, want))
+            one[f"{mode}_{T}"] = {"bit_for_bit": same,
+                                  "max_abs_err": float(np.abs(got - want).max())}
+            if not same:
+                raise AssertionError(f"{mode}: an input of {T} samples in one window of {W} is "
+                                     f"not the forward on the padded window: {one}")
+        del model
+    log(f"[serve-tools] one window or less, windowed: bit for bit the forward on the padded "
+        f"window {one}")
+
+    # card vs CPU through the CLI, on CHECK_SECONDS of the mixture with an
+    # 8 kHz reference (resampled to 16 kHz for RawNet)
+    short = os.path.join(root, "mix_short.wav")
+    wav.write(short, mix[:CHECK_SECONDS * SAMPLE_RATE], SAMPLE_RATE)
+    check = {}
+    for mode in ("bss", "tss_spe", "tss_rawnet"):
+        got = {}
+        for where, extra in (("card", device_args), ("cpu", ["--device", "cpu"])):
+            out = os.path.join(root, f"check_{mode}_{where}.wav")
+            wall, _ = _separate_run(torch, argv(mode, short, out, [
+                "--window-secs", str(CHECK_WINDOW_S), *extra]))
+            got[where] = (_read_outputs(outputs(mode, out), CHECK_SECONDS * SAMPLE_RATE), wall)
+        db = snr_db(torch.from_numpy(got["card"][0]), torch.from_numpy(got["cpu"][0]))
+        check[mode] = {"snr_db": db, "card_wall_s": got["card"][1], "cpu_wall_s": got["cpu"][1]}
+        if not db >= SEPARATE_CARD_VS_CPU_DB:
+            raise AssertionError(f"cli.separate --mode {mode}: card vs CPU {db:.2f} dB < "
+                                 f"{SEPARATE_CARD_VS_CPU_DB}")
+    log(f"[serve-tools] cli.separate card vs CPU ({CHECK_SECONDS} s, {CHECK_WINDOW_S} s "
+        f"windows): " + ", ".join(f"{m} {c['snr_db']:.2f} dB" for m, c in check.items()))
+    results["separate"] = dict(sep, one_window=one, card_vs_cpu=check)
+
+    # -- (b) cli.export_model on the flagship: the artifact in a fresh process
+    req_rng = np.random.default_rng(SEED + 183)
+    lens = (req_rng.uniform(0.4, 1.0, EXPORT_REQUESTS) * EXPORT_SECS
+            * SAMPLE_RATE).astype(np.int32)
+    t_max = int(lens.max())
+    starts = req_rng.integers(0, n - t_max, EXPORT_REQUESTS)
+    req_mix = np.zeros((EXPORT_REQUESTS, t_max), np.float32)
+    for r, (s0, k) in enumerate(zip(starts, lens)):
+        req_mix[r, :k] = mix[s0:s0 + k]
+    req = {"mix": req_mix, "aux": np.stack([ref] * EXPORT_REQUESTS),
+           "aux_len": np.full(EXPORT_REQUESTS, float(len(ref)), np.float32), "lengths": lens}
+    req_path = os.path.join(root, "requests.npz")
+    np.savez(req_path, **req)
+    T = EXPORT_SECS * SAMPLE_RATE
+    on_card = torch.device(dev).type == "cuda"
+    eager = {}
+    for dtype in ("fp32", "bf16"):  # the eager forward on the padding ServingModel.call gives
+        model = DPRNNSpeTasNet(**FLAGSHIP, dtype=None if dtype == "fp32" else torch.bfloat16)
+        load_model(ckpt, model)
+        model.to(dev).eval()
+        # ServingModel.call's host path (padding, copies, crop) around the
+        # eager forward in place of an exported program
+        served = _eager_serving(model, [(EXPORT_BATCH, T), (1, T)], dev)
+        eager[dtype] = {}
+        for tag, b in (("many", EXPORT_REQUESTS), ("one", 1)):
+            args = (req["mix"][:b], req["aux"][:b], req["aux_len"][:b])
+            program = served._fns[served._pick(b, t_max)]
+            seen = []
+            served._fns[served._pick(b, t_max)] = lambda *a: seen.append(a) or program(*a)
+            out = served.call(*args, lengths=lens[:b])
+            served._fns[served._pick(b, t_max)] = program
+            timing = {}
+            if on_card:
+                def forward():
+                    with torch.inference_mode():
+                        return program(*seen[0])
+
+                timing = {"ms": time_ms(forward, CALL_REPS),
+                          "call_ms": wall_ms(lambda: served.call(*args, lengths=lens[:b]),
+                                             CALL_REPS),
+                          "call_profile": call_profile(
+                              lambda: served.call(*args, lengths=lens[:b]))}
+            eager[dtype][tag] = (out, timing)
+        del model, served
+    artifacts = {}
+    for dtype in ("bf16", "fp32"):
+        path = os.path.join(root, f"flagship_{dtype}.tssx")
+        timed = []
+        real = export.export_separation
+
+        def timed_export(*a, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            timed.append(time.perf_counter() - t0)
+            return out
+
+        export.export_separation = timed_export
+        try:
+            t0 = time.perf_counter()
+            export_model.main(["--config", os.path.join(cfg_dir, "test_tss.yaml"), "--mode",
+                               "tss_spe", "--set", f"checkpoint_path={ckpt}", "--out", path,
+                               "--secs", str(EXPORT_SECS), "--batch", str(EXPORT_BATCH),
+                               "--dtype", dtype, *device_args])
+            wall = time.perf_counter() - t0
+        finally:
+            export.export_separation = real
+        base = os.path.join(root, f"called_{dtype}")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", _ARTIFACT_CALLER, path, req_path, base,
+                        str(CALL_REPS)],
+                       check=True, cwd=HERE, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                                + os.environ.get("PYTHONPATH", "")))
+        proc_s = time.perf_counter() - t0
+        with open(base + ".json") as f:
+            called = json.load(f)
+        outs = np.load(base + ".npz")
+        if called["model_code_imported"]:
+            raise AssertionError(f"the artifact's process imported {called['model_code_imported']}")
+        info = {"export_s_per_bucket": timed, "export_cli_wall_s": wall,
+                "bytes": os.path.getsize(path), "process_s": proc_s, "load_s": called["load_s"],
+                "calls": {}}
+        for tag, b in (("many", EXPORT_REQUESTS), ("one", 1)):
+            c = called["calls"][tag]
+            want_bucket = [EXPORT_BATCH if b > 1 else 1, T]
+            if c["bucket"] != want_bucket:
+                raise AssertionError(f"{dtype} artifact, {b} request(s): bucket {c['bucket']}, "
+                                     f"expected {want_bucket}")
+            expect_launches(c["launches"], with_products({"bilstm2_forward": blocks,
+                                                          "bilstm2_forward_masked": blocks}), 1,
+                            f"{dtype} artifact call ({b} request(s))")
+            got = outs[tag]
+            ref_out = eager["fp32"][tag][0]
+            err = float(np.abs(got - eager[dtype][tag][0]).max())
+            db = _valid_snr(torch, torch.from_numpy(got), torch.from_numpy(ref_out),
+                            torch.from_numpy(lens[:b]))
+            timing = eager[dtype][tag][1]
+            entry = {"bucket": c["bucket"], "launches": {k: v for k, v in c["launches"].items()
+                                                         if v},
+                     "call_ms": c.get("ms"), "program_ms": c.get("program_ms"),
+                     "call_profile": c.get("profile"), "eager_ms": timing.get("ms"),
+                     "eager_call_ms": timing.get("call_ms"),
+                     "eager_call_profile": timing.get("call_profile"),
+                     "max_abs_err_vs_eager_same_lane": err,
+                     "bit_for_bit_vs_eager_same_lane": err == 0.0,
+                     "snr_db_vs_fp32_eager": db}
+            bar = ARTIFACT_FP32_SNR_DB if dtype == "fp32" else LANE_SNR_DB
+            if not db >= bar:
+                raise AssertionError(f"{dtype} artifact, {b} request(s): {db:.2f} dB against the "
+                                     f"fp32 eager forward < {bar}")
+            info["calls"][tag] = entry
+        artifacts[dtype] = info
+        log(f"[serve-tools] cli.export_model --dtype {dtype}: export "
+            f"{', '.join(f'{s:.2f}' for s in timed)} s per bucket, {info['bytes']} bytes; in a "
+            f"fresh process: load {called['load_s']:.2f} s, "
+            + "; ".join(f"{tag} request(s) bucket {e['bucket']} call {_ms(e['call_ms'])} "
+                        f"(eager through the same host path {_ms(e['eager_call_ms'])}), "
+                        f"program {_ms(e['program_ms'])} (eager forward {_ms(e['eager_ms'])}), "
+                        f"{e['snr_db_vs_fp32_eager']:.2f} dB vs fp32 eager, max |err| vs "
+                        f"eager {e['max_abs_err_vs_eager_same_lane']:.3g}; one call profiled: "
+                        f"artifact {e['call_profile']}, eager {e['eager_call_profile']}"
+                        for tag, e in info["calls"].items())
+            + f" on {smi}")
+        os.remove(path)
+    results["export"] = artifacts
+
+    # -- (c) cli.results_table over phase 13's final_metrics.json files
+    paths = sorted(glob.glob(os.path.join(OUT_DIR, "cli", "**", "final_metrics*.json"),
+                             recursive=True))
+    if not paths:
+        raise AssertionError("no final_metrics.json of phase 13 to render")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        results_table.main(paths)
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 2 + len(paths) or lines[0] != "| model | SI-SDR | SI-SDRi | PESQ | STOI |":
+        raise AssertionError(f"results_table: {lines}")
+    for p, line in zip(paths, lines[2:]):
+        with open(p) as f:
+            m = json.load(f)
+        want = "| " + results_table._label(p) + " | " + " | ".join(
+            "—" if m.get(c) is None else f"{m[c]:.2f}" if "stoi" not in c else f"{m[c]:.3f}"
+            for c in ("si_sdr", "si_sdr_imp", "pesq", "stoi")) + " |"
+        if line != want:
+            raise AssertionError(f"results_table row {line!r}, expected {want!r}")
+    log("[serve-tools] cli.results_table over phase 13's final_metrics.json:\n"
+        + "\n".join(lines))
+    results["results_table"] = lines
+    shutil.rmtree(root)  # WAVs, checkpoints and outputs: every number is in the results
+    return results
+
+
+def serve_tools_launches(serve):
+    """The serving kernels' launches in phase 18, for the kernels line."""
+    sep, exp = serve["separate"], serve["export"]
+    out = {}
+    for name in ("bilstm2_forward", "bilstm2_forward_masked", "products_gemm"):
+        out[name] = {f"cli_separate_{m}_{tag}_{SEPARATE_SECONDS}s": sep[m][tag]["launches"].get(
+                         name, 0) for m in ("tss_spe", "bss") for tag in ("full", "windowed")}
+        out[name].update({f"artifact_call_{d}_{tag}": exp[d]["calls"][tag]["launches"].get(
+                              name, 0) for d in exp for tag in ("many", "one")})
+    return out
+
+
 def ptxas_report(logs, kernels):
     """ptxas's registers and spills of each compiled entry whose mangled name
     holds one of ``kernels``, from nvcc's -Xptxas -v output by library."""
@@ -4817,13 +5425,27 @@ def main() -> int:
         "bss_causal": steps["bss_causal"]["bf16"]["launches"],
         "varlen": bf16["varlen_cli"]["launches"],
         "save_every": bf16["save_every"]["steps_5x3s"]["bf16"]["launches"]})
+    t0 = time.perf_counter()
+    serve = phase_serve_tools(torch, dev, smi, ckpt)
+    sep, art = serve["separate"], serve["export"]
+    log(f"[serve-tools] phase done in {time.perf_counter() - t0:.1f} s; cli.separate "
+        f"{SEPARATE_SECONDS} s flagship full length {sep['tss_spe']['full']['audio_s_per_s']:.2f}"
+        f", windowed {sep['tss_spe']['windowed']['audio_s_per_s']:.2f} audio-s/s; the fp32 "
+        f"artifact's call at {EXPORT_BATCH} x {EXPORT_SECS} s "
+        f"{art['fp32']['calls']['many']['call_ms']:.2f} ms (the eager forward through the same "
+        f"host path {art['fp32']['calls']['many']['eager_call_ms']:.2f}) on {smi}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    launches = serve_tools_launches(serve)
+    for e in entries:  # the first (fp32) row of each kernel the serving tools run
+        if e["name"] in launches and "launches_serve_tools" not in e:
+            e["launches_serve_tools"] = launches.pop(e["name"])
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "ptxas": ptxas, "serve_scan_modes": serve_scan_modes(ptxas),
                    "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
                    "families": families, "ira_rawnet": ira_rawnet, "varlen": varlen,
-                   "bf16": bf16}, f, indent=1)
+                   "bf16": bf16, "serve_tools": serve}, f, indent=1)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -81,8 +81,9 @@ def test_entries_take_the_serving_route(monkeypatch):
     """A tensor that is not on the CPU (here on the meta device) goes to the
     serving route: ``bilstm_fused`` as the pair with the bf16 product and its
     outputs side by side, no manual-DMA rounding; ``bilstm2_dense_forward``
-    to the dense route. A CPU tensor runs the plain version and launches
-    nothing."""
+    (its operator's body; through the operator a meta tensor gets the
+    shape-only version) to the dense route. A CPU tensor runs the plain
+    version and launches nothing."""
     calls = []
 
     def record(name):
@@ -96,7 +97,8 @@ def test_entries_take_the_serving_route(monkeypatch):
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.zeros(3, 5, 16, dtype=dtype, device="meta")
         L.bilstm_fused(x, w_ih, w_hh, b)
-        B.bilstm2_dense_forward(x, w_ih, b, w_hh, wo2)
+        B._dense_forward_impl(x, w_ih, b, w_hh, wo2)
+        assert [o.shape for o in B.bilstm2_dense_forward(x, w_ih, b, w_hh, wo2)] == [(3, 5, 6)] * 2
     assert [(c[0], c[1][0]) for c in calls] == [
         ("serve", L.bilstm_fused), ("dense", B.bilstm2_dense_forward)] * 2
     for c in calls[::2]:
@@ -132,7 +134,19 @@ class _Recorder:
 
 @pytest.fixture
 def stand_in_card(monkeypatch):
-    """CPU tensors pass for CUDA ones and the libraries record their calls."""
+    """CPU tensors pass for CUDA ones and the libraries record their calls.
+    Every buffer ``torch.empty`` gives stays alive until the test ends, so
+    no address recorded in a call is handed out again: two recorded
+    addresses are equal only where the route passed one buffer twice (the
+    CPU allocator would otherwise recycle a freed buffer, the input
+    product's among them, depending on what ran before)."""
+    kept, empty = [], torch.empty
+
+    def empty_kept(*args, **kwargs):
+        kept.append(empty(*args, **kwargs))
+        return kept[-1]
+
+    monkeypatch.setattr(torch, "empty", empty_kept)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",

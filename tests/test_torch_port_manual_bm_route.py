@@ -164,10 +164,11 @@ def test_route_order_matches_pallas(interpret, entry, dtype):
 
 def test_entries_take_the_serving_route(monkeypatch):
     """A tensor that is not on the CPU (here on the meta device) goes to the
-    serving route: the batch-major pair with the bf16 product, bilstm_v2 as
-    the pair with the bf16 product and the manual-DMA rounding side by side,
-    lstm_scan_v2 as the stack's h-only route with both; a CPU tensor runs
-    the plain version and launches nothing."""
+    serving route: the batch-major pair with the bf16 product (its
+    operator's body; through the operator a meta tensor gets the shape-only
+    version), bilstm_v2 as the pair with the bf16 product and the manual-DMA
+    rounding side by side, lstm_scan_v2 as the stack's h-only route with
+    both; a CPU tensor runs the plain version and launches nothing."""
     calls = []
 
     def record(name):
@@ -181,9 +182,10 @@ def test_entries_take_the_serving_route(monkeypatch):
     w2 = [torch.zeros(2, 16, 64), torch.zeros(2, 64), torch.zeros(2, 16, 64)]  # w_ih, b, w_hh
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.zeros(3, 5, 16, dtype=dtype, device="meta")
-        B.bilstm2_forward_bm(x, *w2)
+        B._forward_bm_impl(x, *w2)
         L.bilstm_v2(x, w2[0], w2[2], w2[1])
         L.lstm_scan_v2(x[None], *w1)
+        assert [o.shape for o in B.bilstm2_forward_bm(x, *w2)] == [(3, 5, 16)] * 2
     assert [(c[0], c[1][0], c[2]) for c in calls[:3]] == [
         ("serve", B.bilstm2_forward_bm, {"bf16_product": True}),
         ("serve", L.bilstm_v2, {"bf16_product": True, "side_by_side": True, "v2": True}),

@@ -158,10 +158,12 @@ def test_serve_fragments_give_h_at_w(H, MT):
 
 
 def test_fp32_streams_take_the_serving_route(monkeypatch):
-    """The entries send a tensor that is not on the CPU (here on the meta
-    device) to the serving route (input product + serving scan), fp32 and,
-    since bf16 serving left csrc/bilstm2.cu, bf16 streams alike; the route's
-    checks refuse a tensor that is not on the card."""
+    """The entries' operator bodies send a tensor that is not on the CPU
+    (here on the meta device) to the serving route (input product + serving
+    scan), fp32 and, since bf16 serving left csrc/bilstm2.cu, bf16 streams
+    alike; through the operators a meta tensor gets their shape-only
+    versions and reaches no route; the route's checks refuse a tensor that
+    is not on the card."""
     calls = []
     real = B._launch_serve
     monkeypatch.setattr(B, "_launch_serve", lambda *a: calls.append(a) or ("serve", "serve"))
@@ -169,10 +171,13 @@ def test_fp32_streams_take_the_serving_route(monkeypatch):
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.zeros(3, 5, 16, dtype=dtype, device="meta")
         lens = torch.zeros(3, dtype=torch.int32, device="meta")
-        assert B.bilstm2_forward(x, *w) == ("serve", "serve")
-        assert B.bilstm2_forward_masked(x, lens, *w) == ("serve", "serve")
+        assert B._forward_impl(x, *w) == ("serve", "serve")  # the operators' bodies
+        assert B._forward_masked_impl(x, lens, *w) == ("serve", "serve")
         assert [c[0] for c in calls[-2:]] == [B.bilstm2_forward, B.bilstm2_forward_masked]
         assert calls[-2][1] is x and calls[-2][5] is None and calls[-1][5] is lens
+        for out in (B.bilstm2_forward(x, *w), B.bilstm2_forward_masked(x, lens, *w)):
+            assert [(o.device.type, o.dtype, tuple(o.shape)) for o in out] == [
+                ("meta", dtype, (3, 5, 16))] * 2
     assert len(calls) == 4
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         real(B.bilstm2_forward, torch.zeros(3, 5, 16).bfloat16(), *w, None)

@@ -144,9 +144,13 @@ class RNNCore(nn.Module):
         reaches the parameters. Otherwise they are built once per set of
         parameter values: ``load_state_dict`` and an optimizer step write the
         parameters in place (their version moves) and ``.to()`` gives them
-        new storage, and either rebuilds it."""
+        new storage, and either rebuilds it. Under ``torch.export`` they are
+        stacked without the cache, whose checks read storage addresses that a
+        traced tensor does not have."""
         params = tuple(self.rnn.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return self.rnn.stacked(self.dtype)
+        if torch.compiler.is_exporting():
             return self.rnn.stacked(self.dtype)
         if self._stacked is None or any(
                 p.data_ptr() != v.data_ptr() or p._version != n

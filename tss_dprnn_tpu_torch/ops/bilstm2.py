@@ -94,7 +94,10 @@ On a CPU tensor each entry runs its plain PyTorch version
 :func:`bilstm2_dense_reference`, :func:`bilstm2_bm_reference`,
 :func:`bilstm2_backward_reference`) with the same contract. On a CUDA tensor
 it launches the kernel or raises. Each entry counts its launches in
-``.launches`` (one per call that launched its kernels).
+``.launches`` (one per call that launched its kernels). The four serving
+entries are torch operators (:func:`serving_op`, namespace
+``tss_dprnn_tpu_torch``) with shape-only versions, so ``torch.export``
+records them as single nodes; their bodies keep that device rule.
 """
 
 from __future__ import annotations
@@ -347,7 +350,7 @@ def _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid: bool):
         xp = xf @ w_ih[d]  # [B, T, 4H]: the per-step x_t @ W_ih, all steps at once
         h = xf.new_zeros(B, H)
         c = xf.new_zeros(B, H)
-        out = x.new_empty(B, T, H)
+        hs = []  # h in the stream type, in scan order
         # h, c, tanh(c) in the stream type: a bf16 store rounds c and tanh(c)
         streams = [x.new_empty(B, T, H) for _ in range(3)] if want_resid else None
         for t in (range(T) if d == 0 else range(T - 1, -1, -1)):
@@ -365,8 +368,8 @@ def _scan_reference(x, w_ih2, b2, w_hh2, lens, want_resid: bool):
                 h = torch.where(valid, h_new, h)
             else:
                 c, h = c_new, h_new
-            out[:, t] = h.to(dt)
-        outs.append(out)
+            hs.append(h.to(dt))
+        outs.append(torch.stack(hs if d == 0 else hs[::-1], dim=1) if T else x.new_empty(B, T, H))
         resid += streams or []
     return (outs[0], outs[1]), tuple(resid) + ((pre,) if want_resid else ())
 
@@ -1030,13 +1033,93 @@ def _library_bwd() -> ctypes.CDLL:
     return lib
 
 
-def bilstm2_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-                    w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference: x [B, T, F] -> (out0, out1), each [B, T, H], both in
-    forward time."""
+# the serving entries' operators; eager callers and ``torch.export``
+# (``inference/export.py``) go through the same ones
+OPS_NAMESPACE = "tss_dprnn_tpu_torch"
+# each operator's body (the plain version on a CPU tensor): what the
+# hermetic export decomposes the operators into
+PLAIN_BODIES: dict = {}
+
+
+def serving_op(name: str, body, fake):
+    """Register ``body`` as the operator ``OPS_NAMESPACE::name`` (no input
+    mutated, no output aliasing an input or another output) with ``fake`` as
+    its shape-only version, and return the operator."""
+    op = torch.library.custom_op(f"{OPS_NAMESPACE}::{name}", body, mutates_args=())
+    op.register_fake(fake)
+    PLAIN_BODIES[getattr(getattr(torch.ops, OPS_NAMESPACE), name).default] = body
+    return op
+
+
+def _forward_impl(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                  w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bilstm2_forward`'s operator body: the plain version on a CPU
+    tensor, else the serving route."""
     if x.device.type == "cpu":
         return bilstm2_reference(x, w_ih2, b2, w_hh2)
     return padded(functools.partial(_launch_serve, bilstm2_forward), x, w_ih2, b2, w_hh2, None)
+
+
+def _forward_masked_impl(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
+                         b2: torch.Tensor, w_hh2: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bilstm2_forward_masked`'s operator body."""
+    if x.device.type == "cpu":
+        return bilstm2_reference(x, w_ih2, b2, w_hh2, lens)
+    return padded(functools.partial(_launch_serve, bilstm2_forward_masked), x, w_ih2, b2, w_hh2,
+                  lens)
+
+
+def _dense_forward_impl(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                        w_hh2: torch.Tensor, wo2: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bilstm2_dense_forward`'s operator body."""
+    if x.device.type == "cpu":
+        return bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2)
+    return padded_dense(functools.partial(_launch_serve_dense, bilstm2_dense_forward), x, w_ih2,
+                        b2, w_hh2, wo2)
+
+
+def _forward_bm_impl(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                     w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bilstm2_forward_bm`'s operator body."""
+    if x.device.type == "cpu":
+        return bilstm2_bm_reference(x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_serve, bilstm2_forward_bm, bf16_product=True), x,
+                  w_ih2, b2, w_hh2, None)
+
+
+def _pair_fake(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out0, out1), each [B, T, H] in x's type."""
+    B, T = x.shape[:2]
+    H = w_hh2.shape[1]
+    return x.new_empty(B, T, H), x.new_empty(B, T, H)
+
+
+def _masked_fake(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                 w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _pair_fake(x, w_ih2, b2, w_hh2)
+
+
+def _dense_fake(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
+                wo2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y0, y1), each [B, T, Fo] in x's type."""
+    B, T = x.shape[:2]
+    return x.new_empty(B, T, wo2.shape[2]), x.new_empty(B, T, wo2.shape[2])
+
+
+_FORWARD_OP = serving_op("bilstm2_forward", _forward_impl, _pair_fake)
+_FORWARD_MASKED_OP = serving_op("bilstm2_forward_masked", _forward_masked_impl, _masked_fake)
+_DENSE_FORWARD_OP = serving_op("bilstm2_dense_forward", _dense_forward_impl, _dense_fake)
+_FORWARD_BM_OP = serving_op("bilstm2_forward_bm", _forward_bm_impl, _pair_fake)
+
+
+def bilstm2_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                    w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference: x [B, T, F] -> (out0, out1), each [B, T, H], both in
+    forward time. The operator ``tss_dprnn_tpu_torch::bilstm2_forward``."""
+    return _FORWARD_OP(x, w_ih2, b2, w_hh2)
 
 
 def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
@@ -1045,11 +1128,9 @@ def bilstm2_forward_masked(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Ten
     """Mask-aware inference: x [B, T, F], lens [B] -> (out0, out1), each
     [B, T, H], both in forward time. Direction 1 holds its zero state while
     t >= lens[row], so its first real step reads x[len - 1] and
-    out1[t >= len] = 0; out0[t >= len] is unspecified (finite)."""
-    if x.device.type == "cpu":
-        return bilstm2_reference(x, w_ih2, b2, w_hh2, lens)
-    return padded(functools.partial(_launch_serve, bilstm2_forward_masked), x, w_ih2, b2, w_hh2,
-                  lens)
+    out1[t >= len] = 0; out0[t >= len] is unspecified (finite). The operator
+    ``tss_dprnn_tpu_torch::bilstm2_forward_masked``."""
+    return _FORWARD_MASKED_OP(x, lens, w_ih2, b2, w_hh2)
 
 
 def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -1059,11 +1140,9 @@ def bilstm2_dense_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor
     (any Fo >= 1) -> (y0, y1), each [B, T, Fo] = h_d @ wo2[d] in x's type,
     both in forward time. Unmasked only, as the JAX core asserts
     (pallas_lstm.py:854). On the card the serving route with its outputs in
-    an H-wide scratch, then the two products (:func:`_launch_serve_dense`)."""
-    if x.device.type == "cpu":
-        return bilstm2_dense_reference(x, w_ih2, b2, w_hh2, wo2)
-    return padded_dense(functools.partial(_launch_serve_dense, bilstm2_dense_forward), x, w_ih2,
-                        b2, w_hh2, wo2)
+    an H-wide scratch, then the two products (:func:`_launch_serve_dense`).
+    The operator ``tss_dprnn_tpu_torch::bilstm2_dense_forward``."""
+    return _DENSE_FORWARD_OP(x, w_ih2, b2, w_hh2, wo2)
 
 
 def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -1072,11 +1151,9 @@ def bilstm2_forward_bm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     :func:`bilstm2_forward` (x [B, T, F] -> (out0, out1), each [B, T, H],
     both in forward time), on its route. fp32 streams run its launches as
     they are (the same outputs bit for bit); bf16 x goes to the
-    bf16-operand input product without an upcast."""
-    if x.device.type == "cpu":
-        return bilstm2_bm_reference(x, w_ih2, b2, w_hh2)
-    return padded(functools.partial(_launch_serve, bilstm2_forward_bm, bf16_product=True), x,
-                  w_ih2, b2, w_hh2, None)
+    bf16-operand input product without an upcast. The operator
+    ``tss_dprnn_tpu_torch::bilstm2_forward_bm``."""
+    return _FORWARD_BM_OP(x, w_ih2, b2, w_hh2)
 
 
 def bilstm2_forward_resid(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,

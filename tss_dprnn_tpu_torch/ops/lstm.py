@@ -122,6 +122,7 @@ from tss_dprnn_tpu_torch.ops.bilstm2 import (
     resid_weight_layout,
     serve_weight_layout,
     serve_weight_layout_bf16,
+    serving_op,
 )
 
 Resid = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -142,7 +143,7 @@ def _scan_reference(x, w_ih, b, w_hh, mode: int):
     xp = torch.einsum("drtf,dfg->drtg", xf, w_ih)  # x_t @ W_ih, all steps at once
     h = xf.new_zeros(D, R, H)
     c = xf.new_zeros(D, R, H)
-    out = x.new_empty(D, R, T, H)
+    hs = []  # h in the stream type
     # the residual mode's h, c and tanh(c) in the stream type (a bf16 store
     # rounds c and tanh(c)); the cell states of want_cs and pre fp32
     streams = [(x if mode == _MODE_RESID and n == 1 else xf).new_empty(D, R, T, n * H)
@@ -158,7 +159,8 @@ def _scan_reference(x, w_ih, b, w_hh, mode: int):
         elif mode == _MODE_CS:
             streams[0][:, :, t] = c_new
         c, h = c_new, (o * tc).to(dt).float()
-        out[:, :, t] = h.to(dt)
+        hs.append(h.to(dt))
+    out = torch.stack(hs, dim=2) if T else x.new_empty(D, R, T, H)
     return out, tuple(streams)
 
 
@@ -563,13 +565,30 @@ def _library_scan() -> ctypes.CDLL:
     return lib
 
 
-def lstm_forward(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
-                 w_hh: torch.Tensor) -> torch.Tensor:
-    """Inference: x [D, R, T, F] -> h [D, R, T, H], every direction in
-    forward time on its own input. float32 or bfloat16 streams."""
+def _forward_impl(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+                  w_hh: torch.Tensor) -> torch.Tensor:
+    """:func:`lstm_forward`'s operator body: the plain version on a CPU
+    tensor, else the input products and the serving scan."""
     if x.device.type == "cpu":
         return lstm_reference(x, w_ih, b, w_hh)
     return padded(functools.partial(_launch, lstm_forward, _MODE_H), x, w_ih, b, w_hh)[0]
+
+
+def _forward_fake(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+                  w_hh: torch.Tensor) -> torch.Tensor:
+    """h [D, R, T, H] in x's type."""
+    return x.new_empty(*x.shape[:3], w_hh.shape[1])
+
+
+_FORWARD_OP = serving_op("lstm_forward", _forward_impl, _forward_fake)
+
+
+def lstm_forward(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+                 w_hh: torch.Tensor) -> torch.Tensor:
+    """Inference: x [D, R, T, F] -> h [D, R, T, H], every direction in
+    forward time on its own input. float32 or bfloat16 streams. The operator
+    ``tss_dprnn_tpu_torch::lstm_forward`` (``bilstm2.serving_op``)."""
+    return _FORWARD_OP(x, w_ih, b, w_hh)
 
 
 def lstm_forward_with_cs(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
