@@ -276,6 +276,35 @@ Phases, each of which fails the script (nonzero exit, no result line):
    (c) cli.results_table over phase 13's final_metrics.json files, each row
    as the file holds it.
 
+19. the time-major lane ([time-major], ``TSS_TM``) at full flagship width:
+   (a) the five time-major entries (bilstm2_forward_tm, _masked_tm at the
+   serving shapes of phase 2; bilstm2_forward_resid_tm at the training
+   batch's intra and inter shapes, _resid_masked_tm at phase 2's inter
+   shape, and bilstm2_backward_tm at all three), fp32 and bf16, each
+   against its plain version at phase 2's / 5's bars (fp32) or phase 17's
+   (bf16), and against the batch-major route on the transposed input: the
+   outputs, the seven saved streams and dx bit for bit, dW and db within
+   DW_REL_TOL (the products sum the row-steps in the other order); timed
+   beside the batch-major route in turns, the plain version (the checking
+   call), the bound and cuDNN's LSTM on time-major input
+   (``batch_first=False``; training mode for the training entries);
+   (b) the flagship through InferencerSpe.run over 8 requests (one batch)
+   under TSS_TM=1 and 0 in both lanes (6 + 6 time-major serving scans per
+   batch, each after its input product, and no other kernel), one batch of 8
+   x 10 s in each: fp32 time-major against fp32 batch-major >=
+   TM_LAYOUT_SNR_DB, bf16 time-major against the fp32 lane >= LANE_SNR_DB,
+   bf16 time-major against bf16 batch-major reported; the forward's rate in
+   both layouts in turns, fp32 at batch 8 and bf16 at 8 and 32 (the bf16
+   default's decision, ops/rnn.SERVE_BF16_TIME_MAJOR); (c) a 5 x 3 s TSS
+   train step with lengths (the inter scans masked) under TSS_TM=1 against
+   TSS_TM=0, fp32 and bf16 (6 + 6 time-major residual forwards and 12
+   time-major backwards, with their products; loss within 1e-4 relative,
+   gradients >= TM_GRAD_SNR_DB); (d) one 8 x 10 s fp32 bucket exported
+   with TSS_TM=1 (6 + 6 time-major operator nodes), saved, loaded and called
+   on 3 requests, bit for bit the eager forward on the same padding.
+   Phase 1 reports the scans' registers by layout (the batch-major ones
+   against BATCH_MAJOR_REGISTERS) and fails on any spill.
+
 Every serving count includes the input products: each
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
 lstm_forward launch one per direction (one on every path: the causal inter
@@ -292,6 +321,7 @@ number).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -518,6 +548,11 @@ BF16_TRAIN_PRODUCTS = {
     "bilstm2_backward_masked": {"products_gemm_bf16": 2, "products_gemm_bf16_col": 3,
                                 "products_colsum": 1},
     "lstm_backward": {"products_gemm_bf16": 1, "products_gemm_bf16_col": 2, "products_colsum": 1},
+    # the time-major lane's (phase 19): the same launches
+    "bilstm2_forward_resid_tm": {"products_gemm_bf16": 1},
+    "bilstm2_forward_resid_masked_tm": {"products_gemm_bf16": 1},
+    "bilstm2_backward_tm": {"products_gemm_bf16": 2, "products_gemm_bf16_col": 3,
+                            "products_colsum": 1},
 }
 
 
@@ -540,7 +575,8 @@ def with_products(per_step, bf16: bool = False):
     training modes' products too (BF16_TRAIN_PRODUCTS); fp32 training
     products are given in ``per_step``."""
     n = sum(per_step.get(k, 0) for k in ("bilstm2_forward", "bilstm2_forward_masked",
-                                         "lstm_forward"))
+                                         "lstm_forward", "bilstm2_forward_tm",
+                                         "bilstm2_forward_masked_tm"))
     own = per_step.get("bilstm2_forward_bm", 0) + 3 * per_step.get("bilstm2_dense_forward", 0)
     out = dict(per_step, products_gemm=per_step.get("products_gemm", 0) + n + (0 if bf16 else own))
     if bf16 and own:
@@ -563,11 +599,12 @@ def bound(rows_steps: int, R: int, T: int, F: int, H: int, itemsize: int, peak: 
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def cudnn_lstm(torch, w_ih2, b2, w_hh2, dtype):
+def cudnn_lstm(torch, w_ih2, b2, w_hh2, dtype, batch_first=True):
     """torch.nn.LSTM (cuDNN) holding the kernel's weights: the library
-    yardstick, timed here and never called by the port."""
+    yardstick, timed here and never called by the port (``batch_first``
+    False: time-major input, cuDNN's own layout)."""
     D, F, H = w_ih2.shape[0], w_ih2.shape[1], w_hh2.shape[1]
-    lstm = torch.nn.LSTM(F, H, batch_first=True, bidirectional=D == 2).to(w_ih2.device)
+    lstm = torch.nn.LSTM(F, H, batch_first=batch_first, bidirectional=D == 2).to(w_ih2.device)
     with torch.no_grad():
         for d, sfx in zip(range(D), ("", "_reverse")):
             getattr(lstm, f"weight_ih_l0{sfx}").copy_(w_ih2[d].T)
@@ -5169,6 +5206,472 @@ def phase_serve_tools(torch, dev, smi, ckpt):
     return results
 
 
+# the time-major entries' routes (phase 19): (source, with), per stream type
+TM_ROUTES = {
+    "serve": {"float32": (SERVE_SOURCE, SERVE_WITH), "bfloat16": (SERVE_SOURCE, SERVE_WITH)},
+    "resid": {"float32": ("tss_dprnn_tpu_torch/csrc/bilstm2_resid.cu", SERVE_WITH),
+              "bfloat16": (SERVE_SOURCE + " (mode 3)", SERVE_WITH + " (bf16-operand)")},
+    "backward": {"float32": ("tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu", SERVE_WITH),
+                 "bfloat16": ("tss_dprnn_tpu_torch/csrc/bilstm2_bwd.cu (bf16 mode)",
+                              SERVE_WITH + " (bf16-operand, column layout)")},
+}
+# fp32 time-major against fp32 batch-major, end to end: the scans are the same
+# bit for bit; only the norms' sums run in the other order
+TM_LAYOUT_SNR_DB = 80.0
+# a train step under TSS_TM=1 against TSS_TM=0: the gradients' bar
+TM_GRAD_SNR_DB = 60.0
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """``with_env`` as a context."""
+    restore = with_env(name, value)
+    try:
+        yield
+    finally:
+        restore()
+
+
+def in_turns(fns, reps: int):
+    """Device ms of each of two callables, timed in turns A, B, B, A (each
+    ``reps`` calls after a warm-up) and averaged: {name: ms}."""
+    (a, fa), (b, fb) = fns.items()
+    out = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        out[name].append(time_ms(fn, reps))
+    return {k: sum(v) / len(v) for k, v in out.items()}
+
+
+def once_ms(torch, fn):
+    """fn() once, with the device ms it took (the plain versions are timed
+    by the call that checks the kernel against them)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _tm_kernels(torch, dev):
+    """Phase 19 (a): the five time-major entries against their plain
+    versions and, bit for bit, against the batch-major route on the
+    transposed input, at the flagship's shapes in both stream types; timed
+    beside the batch-major route (in turns), the plain version, the bound
+    and cuDNN's LSTM on time-major input (batch_first=False)."""
+    from tss_dprnn_tpu_torch.ops import bilstm2 as B2
+
+    F = H = 128
+    g = torch.Generator(device="cpu").manual_seed(SEED + 190)
+    k = H ** -0.5
+    w_ih2, w_hh2, b2 = ((torch.rand(*s, generator=g) * 2 * k - k).to(dev)
+                        for s in ((2, F, 4 * H), (2, H, 4 * H), (2, 4 * H)))
+    w = (w_ih2, b2, w_hh2)
+    serve = serving_shapes(torch, g, dev)
+    train = train_shapes()
+    cases = [("serve", "unmasked", *serve["unmasked"]), ("serve", "masked", *serve["masked"]),
+             ("train", "intra", *train["intra"], None), ("train", "inter", *train["inter"], None),
+             ("train", "masked", *serve["masked"])]
+    bm = lambda t: t.transpose(0, 1).contiguous()  # noqa: E731
+    lstms = {dt: cudnn_lstm(torch, w_ih2, b2, w_hh2, dt, batch_first=False)
+             for dt in (torch.float32, torch.bfloat16)}
+    pack = torch.nn.utils.rnn.pack_padded_sequence
+    unpack = torch.nn.utils.rnn.pad_packed_sequence
+    entries = []
+    for kind, mode, R, T, lens in cases:
+        masked = lens is not None
+        rows_steps = R * T if lens is None else int(lens.sum())
+        valid = (torch.ones(T, R, dtype=torch.bool, device=dev) if lens is None
+                 else torch.arange(T, device=dev)[:, None] < lens[None, :])  # [T, R]
+        x32 = torch.randn(T, R, F, generator=g).to(dev)
+        cot32 = [torch.randn(T, R, H, generator=g).to(dev) for _ in range(2)]
+        cot32[0] = cot32[0] * valid[..., None]  # out0 past a row's length is unspecified
+        lens_cpu = None if lens is None else lens.cpu()
+        rows = {}
+        for dt, size, peak in ((torch.float32, 4, PEAK_FP32), (torch.bfloat16, 2, PEAK_BF16)):
+            x, xb = x32.to(dt), bm(x32.to(dt))
+            g0, g1 = (c.to(dt) for c in cot32)
+            lstm = lstms[dt]
+            xr = x.detach().clone().requires_grad_()
+            params = [xr, *lstm.parameters()]
+
+            def library_fwd(xx=xr):
+                if lens is None:
+                    return lstm(xx)[0]
+                return unpack(lstm(pack(xx, lens_cpu, enforce_sorted=False))[0],
+                              total_length=T)[0]
+
+            if kind == "serve":
+                def tm(xx=x):
+                    return (B2.bilstm2_forward_masked_tm(xx, lens, *w) if masked
+                            else B2.bilstm2_forward_tm(xx, *w))
+
+                def bmr(xx=xb):
+                    return (B2.bilstm2_forward_masked(xx, lens, *w) if masked
+                            else B2.bilstm2_forward(xx, *w))
+
+                got, want_bm = tm(), bmr()
+                bitwise = all(torch.equal(bm(a), b) for a, b in zip(got, want_bm))
+                plain, plain_ms = once_ms(torch, lambda: B2.bilstm2_tm_reference(x, *w, lens))
+                pairs = [("out0", got[0], plain[0]), ("out1", got[1], plain[1])]
+                grads_pairs = []
+                del want_bm
+                with torch.no_grad():
+                    ms = in_turns({"tm": tm, "bm": bmr}, 5)
+                    library_ms = time_ms(lambda: library_fwd(x), 3)
+                bound_ms, bound_by = bound(rows_steps, R, T, F, H, size, peak)
+                names = ["bilstm2_forward_masked_tm" if masked else "bilstm2_forward_tm"]
+                nums = {names[0]: dict(ms=ms["tm"], batch_major_ms=ms["bm"], plain_ms=plain_ms,
+                                       library_ms=library_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)}
+            else:
+                def tm_fwd(xx=x):
+                    return (B2.bilstm2_forward_resid_masked_tm(xx, lens, *w) if masked
+                            else B2.bilstm2_forward_resid_tm(xx, *w))
+
+                def bm_fwd(xx=xb):
+                    return (B2.bilstm2_forward_resid_masked(xx, lens, *w) if masked
+                            else B2.bilstm2_forward_resid(xx, *w))
+
+                (o0, o1), resid = tm_fwd()
+                (p0, p1), presid = bm_fwd()
+                bitwise = all(torch.equal(bm(a), b)
+                              for a, b in zip((o0, o1, *resid), (p0, p1, *presid)))
+                del p0, p1
+
+                def tm_bwd():
+                    return B2.bilstm2_backward_tm(x, resid, g0, g1, *w, lens)
+
+                def bm_bwd():
+                    return (B2.bilstm2_backward_masked(xb, presid, bm(g0), bm(g1), *w, lens)
+                            if masked else B2.bilstm2_backward(xb, presid, bm(g0), bm(g1), *w))
+
+                grads, grads_bm = tm_bwd(), bm_bwd()
+                bitwise = bitwise and torch.equal(bm(grads[0]), grads_bm[0])
+                dw_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                             for a, b in zip(grads[1:], grads_bm[1:]))
+                del grads_bm
+                plain_f, plain_f_ms = once_ms(
+                    torch, lambda: B2.bilstm2_resid_tm_reference(x, *w, lens))
+                (q0, q1), qresid = plain_f
+                plain_b, plain_b_ms = once_ms(
+                    torch, lambda: B2.bilstm2_backward_tm_reference(x, resid, g0, g1, *w, lens))
+                pairs = [("out0", o0, q0), ("out1", o1, q1)] + [
+                    (n, a, b) for n, a, b in zip(("hp0", "cp0", "tc0", "hp1", "cp1", "tc1"),
+                                                  resid, qresid)]
+                if dt == torch.float32:
+                    pairs.append(("pre", resid[6], qresid[6]))
+                grads_pairs = list(zip(grads, plain_b))
+                del presid, qresid
+                with torch.no_grad():
+                    fwd_ms = in_turns({"tm": tm_fwd, "bm": bm_fwd}, 3)
+                    fwd_lib = time_ms(lambda: library_fwd(x), 3)
+                _, presid_t = bm_fwd()
+                bwd_ms = in_turns({"tm": tm_bwd, "bm": lambda: (
+                    B2.bilstm2_backward_masked(xb, presid_t, bm(g0), bm(g1), *w, lens) if masked
+                    else B2.bilstm2_backward(xb, presid_t, bm(g0), bm(g1), *w))}, 3)
+                del presid_t
+                out = library_fwd()
+                cot = torch.cat([g0, g1], dim=-1)
+                bwd_lib = time_ms(lambda: torch.autograd.grad(out, params, cot, retain_graph=True),
+                                  3)
+                del out
+                if dt == torch.float32:
+                    fb = bound_resid(rows_steps, R, T, F, H)
+                    bb = bound_backward(rows_steps, R, T, F, H)
+                else:
+                    fb = bound_bf16_training("forward", 2, rows_steps, R, T, F, H)
+                    bb = bound_bf16_training("backward", 2, rows_steps, R, T, F, H)
+                fname = ("bilstm2_forward_resid_masked_tm" if masked
+                         else "bilstm2_forward_resid_tm")
+                names = [fname, "bilstm2_backward_tm"]
+                nums = {fname: dict(ms=fwd_ms["tm"], batch_major_ms=fwd_ms["bm"],
+                                    plain_ms=plain_f_ms, library_ms=fwd_lib, bound_ms=fb[0],
+                                    bound_by=fb[1]),
+                        "bilstm2_backward_tm": dict(ms=bwd_ms["tm"], batch_major_ms=bwd_ms["bm"],
+                                                    plain_ms=plain_b_ms, library_ms=bwd_lib,
+                                                    bound_ms=bb[0], bound_by=bb[1],
+                                                    dw_db_rel_to_batch_major=dw_rel)}
+                if not dw_rel <= DW_REL_TOL:
+                    raise AssertionError(f"time-major backward {mode} {dt}: dW/db {dw_rel} of "
+                                         f"max from the batch-major route's")
+            # against the plain version, with phase 2's / 5's (fp32) or phase 17's (bf16) bars
+            errs = {}
+            for name, a, b in pairs:
+                live = valid if name != "out1" else slice(None)
+                if dt == torch.float32:
+                    errs[name] = float((a[live] - b[live]).abs().max())
+                    if not errs[name] <= 1e-4:
+                        raise AssertionError(f"time-major {kind} {mode} fp32 {name} disagrees "
+                                             f"with its plain version: {errs[name]}")
+                else:
+                    errs[name] = _bf16_streams_close(torch, name, a, b,
+                                                     None if name == "out1" else valid)[0]
+            if grads_pairs:
+                if dt == torch.float32:
+                    dx_err = float((grads_pairs[0][0] - grads_pairs[0][1]).abs().max())
+                    rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                              for a, b in grads_pairs[1:])
+                    if not (dx_err <= 1e-4 and rel <= DW_REL_TOL):
+                        raise AssertionError(f"time-major backward {mode} fp32 disagrees with "
+                                             f"its plain version: dx {dx_err}, dW/db {rel}")
+                    errs["dx"], errs["dw_db_rel"] = dx_err, rel
+                else:
+                    errs["dx"], errs["grad_snr_db"] = _bf16_grads_close(
+                        torch, [a for a, _ in grads_pairs], [b for _, b in grads_pairs])
+            if not bitwise:
+                raise AssertionError(f"time-major {kind} {mode} {dt}: not bit for bit the "
+                                     "batch-major route on the transposed input")
+            max_err = max(v for n, v in errs.items() if n not in ("grad_snr_db", "dw_db_rel"))
+            log(f"[time-major] {kind} {mode} R={R} T={T} {dt}: bit for bit the batch-major "
+                f"route (outputs, streams, dx): {bitwise}; vs plain {errs}; " + "; ".join(
+                    f"{n} {v['ms']:.3f} ms (batch-major {v['batch_major_ms']:.3f}, plain "
+                    f"{v['plain_ms']:.1f}, cuDNN {v['library_ms']:.3f}, bound "
+                    f"{v['bound_ms']:.3f} {v['bound_by']})" for n, v in nums.items()))
+            for name in names:
+                route = TM_ROUTES["serve" if kind == "serve" else
+                                  "backward" if name == "bilstm2_backward_tm" else "resid"]
+                src, with_ = route["float32" if dt == torch.float32 else "bfloat16"]
+                row = dict(nums[name], source=src, max_abs_err=max_err, bitwise_batch_major=bitwise,
+                           errors=errs)
+                if dt == torch.float32:
+                    replaces = ("tss_dprnn_tpu/ops/pallas_lstm.py:1224 (via :1366)"
+                                if name == "bilstm2_backward_tm" else
+                                "tss_dprnn_tpu/ops/pallas_lstm.py:698 (via "
+                                + {"bilstm2_forward_tm": ":1028",
+                                   "bilstm2_forward_masked_tm": ":1039",
+                                   "bilstm2_forward_resid_tm": ":1213",
+                                   "bilstm2_forward_resid_masked_tm": ":1056"}[name] + ")")
+                    rows[name] = dict(row, name=name, mode=mode, dtype="float32", route="cuda",
+                                      source=src, **{"with": with_}, replaces=replaces,
+                                      layout="time-major", shape={"R": R, "T": T, "F": F, "H": H})
+                else:
+                    rows[name]["bf16"] = dict(row, **{"with": with_})
+            del x, xb, g0, g1, xr, params
+            torch.cuda.empty_cache()
+        entries += rows.values()
+        del x32, cot32
+        torch.cuda.empty_cache()
+    del lstms
+    return entries
+
+
+def _tm_serving(torch, dev, smi, ckpt):
+    """Phase 19 (b): the flagship served through InferencerSpe.run in both
+    layouts and both lanes (TSS_TM=1 / 0), with the launches of each run;
+    the forward of one batch of 8 x 10 s in each, against the fp32
+    batch-major lane; the bf16 lane's rate at batch 8 and 32 in both
+    layouts, in turns."""
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.inference import InferencerSpe
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+
+    n = FLAGSHIP["n_repeats"]
+    config = {"checkpoint_path": ckpt, "metrics": ["si_sdr"], "data": {"sample_rate": SAMPLE_RATE},
+              "test_savedir": os.path.join(OUT_DIR, "time_major_metrics")}
+    ds = Requests(SEED + 191, 8)  # 7 requests of 2-6 s and one of 10 s: one batch
+    out, est, layouts = {}, {}, {"tm": "1", "bm": "0"}
+    for lane, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        inf = InferencerSpe(DPRNNSpeTasNet(**FLAGSHIP, dtype=dtype), config, device=dev)
+        batch, audio = _bf16_batch(torch, "dprnn_spe_tasnet", 8)
+        for tag, env in layouts.items():
+            with env_set("TSS_TM", env):
+                inf.run(ds, batch_size=8, n_buckets=1)  # warm
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inf.run(ds, batch_size=8, n_buckets=1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(all_launches(), **product_launches())
+                with torch.inference_mode():
+                    est[lane, tag] = inf.forward(batch).float().cpu()
+            per_batch = ({"bilstm2_forward_tm": n, "bilstm2_forward_masked_tm": n} if tag == "tm"
+                         else {"bilstm2_forward": n, "bilstm2_forward_masked": n})
+            expect_launches(launches, with_products(per_batch), 1,
+                            f"InferencerSpe.run {lane} {tag} (one batch)")
+            out[f"{lane}_{tag}"] = {"run_audio_s_per_s": sum(ds.lengths()) / SAMPLE_RATE / wall,
+                                    "launches": {k: v for k, v in launches.items() if v}}
+        # the forward's rate in both layouts, in turns: the bf16 lane at
+        # batch 8 and 32 (the default's decision), the fp32 lane at 8
+        for size in ((8, 32) if lane == "bf16" else (8,)):
+            b, a = (batch, audio) if size == 8 else _bf16_batch(torch, "dprnn_spe_tasnet", size)
+
+            def fwd(env, b=b):
+                def run():
+                    with env_set("TSS_TM", env), torch.inference_mode():
+                        inf.forward(b)
+                return run
+
+            ms = in_turns({tag: fwd(env) for tag, env in layouts.items()}, 3)
+            out[f"{lane}_batch{size}"] = dict(
+                {f"audio_s_per_s_{t}": a / (v / 1e3) for t, v in ms.items()}, audio_s=a, ms=ms)
+            log(f"[time-major] {lane} flagship batch of {size} ({a:.2f} audio-s) in turns: "
+                f"time-major {a / ms['tm'] * 1e3:.2f} against batch-major "
+                f"{a / ms['bm'] * 1e3:.2f} audio-s/s on {smi}")
+            del b
+        del inf
+        torch.cuda.empty_cache()
+    lengths = torch.from_numpy(batch["lengths"])
+    ref = est["fp32", "bm"]
+    snrs = {"fp32_tm_vs_fp32_bm": _valid_snr(torch, est["fp32", "tm"], ref, lengths),
+            "bf16_tm_vs_fp32_bm": _valid_snr(torch, est["bf16", "tm"], ref, lengths),
+            "bf16_bm_vs_fp32_bm": _valid_snr(torch, est["bf16", "bm"], ref, lengths),
+            "bf16_tm_vs_bf16_bm": _valid_snr(torch, est["bf16", "tm"], est["bf16", "bm"],
+                                             lengths)}
+    out["snr_db"] = snrs
+    log(f"[time-major] flagship 8 x 10 s: {snrs}; InferencerSpe.run audio-s/s "
+        f"{ {k: round(v['run_audio_s_per_s'], 2) for k, v in out.items() if 'run_audio_s_per_s' in v} }"
+        f" on {smi}")
+    if not (snrs["fp32_tm_vs_fp32_bm"] >= TM_LAYOUT_SNR_DB
+            and snrs["bf16_tm_vs_fp32_bm"] >= LANE_SNR_DB):
+        raise AssertionError(f"time-major serving: {snrs} (fp32 >= {TM_LAYOUT_SNR_DB} dB, bf16 "
+                             f">= {LANE_SNR_DB} dB against the fp32 batch-major lane)")
+    return out
+
+
+def _tm_steps(torch, dev):
+    """Phase 19 (c): one 5 x 3 s TSS train step under TSS_TM=1 against
+    TSS_TM=0, fp32 and bf16, on rows of 3 s and shorter (so the inter scans
+    run masked: every training entry of the lane): loss within 1e-4
+    relative, gradients >= TM_GRAD_SNR_DB, the time-major training entries'
+    launches, ms of a second step."""
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    n = FLAGSHIP["n_repeats"]
+    T = TRAIN_SECONDS * SAMPLE_RATE
+    batch = loader.make_collate_spe_eval(ref_pad_to=5 * SAMPLE_RATE)(
+        Crops(SEED + 192, TRAIN_BATCH, TRAIN_SECONDS).items, T)
+    batch["lengths"] = np.array([T, 21000, 17500, T, 12345], np.int32)
+    past = np.arange(T)[None, :] >= batch["lengths"][:, None]
+    for key in ("mix", "target"):
+        batch[key] = np.where(past, 0, batch[key]).astype(np.float32)
+    start = init_weights_(DPRNNSpeTasNet(**FLAGSHIP),
+                          torch.Generator().manual_seed(SEED + 193)).state_dict()
+    config = dict(TRAIN_CONFIG, **RAW_GRADS)
+    out = {}
+    for lane, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        steps = {}
+        for tag, env in (("bm", "0"), ("tm", "1")):
+            with env_set("TSS_TM", env):
+                steps[tag] = _whole_step(torch, dev, lambda: DPRNNSpeTasNet(**FLAGSHIP, dtype=dtype),
+                                         start, TrainerSpe, config, batch)
+        tm, bm_ = steps["tm"], steps["bm"]
+        rel = abs(tm["loss"] - bm_["loss"]) / abs(bm_["loss"])
+        gsnr = _grad_snr(torch, tm["grads"], bm_["grads"])
+        pair = {"bilstm2_forward_resid_tm": n, "bilstm2_forward_resid_masked_tm": n,
+                "bilstm2_backward_tm": 2 * n}
+        want = (with_products(pair, bf16=True) if dtype is not None
+                else dict(pair, products_gemm=2 * n * 5, products_colsum=2 * n))
+        expect_launches(tm["launches"], want, 1, f"a {lane} TSS step under TSS_TM=1")
+        log(f"[time-major] 5 x 3 s TSS step {lane}: TSS_TM=1 {tm['ms']:.1f} ms / "
+            f"{tm['peak_gb']:.2f} GB against TSS_TM=0 {bm_['ms']:.1f} ms / {bm_['peak_gb']:.2f} "
+            f"GB; loss rel {rel:.3e}, gradients {gsnr:.2f} dB")
+        if not (rel <= 1e-4 and gsnr >= TM_GRAD_SNR_DB):
+            raise AssertionError(f"time-major {lane} step against batch-major: loss rel {rel}, "
+                                 f"gradients {gsnr} dB (>= {TM_GRAD_SNR_DB})")
+        out[lane] = {"tm": _numbers(tm), "bm": _numbers(bm_), "loss_rel": rel, "grad_snr_db": gsnr}
+    return out
+
+
+def _tm_export(torch, dev, ckpt):
+    """Phase 19 (d): one bucket (8 x 10 s, fp32) exported with TSS_TM=1: 6 +
+    6 time-major operator nodes; saved, loaded and called on 3 requests,
+    bit for bit the eager time-major forward on the same padding."""
+    import numpy as np
+
+    from tss_dprnn_tpu_torch.inference import export
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.utils.checkpoint import load_model
+
+    n = FLAGSHIP["n_repeats"]
+    T = EXPORT_SECS * SAMPLE_RATE
+    model = DPRNNSpeTasNet(**FLAGSHIP)
+    load_model(ckpt, model)
+    model = model.to(dev).eval()
+    path = os.path.join(OUT_DIR, "time_major.tssx")
+    with env_set("TSS_TM", "1"):
+        t0 = time.perf_counter()
+        exp = export.export_separation(model, EXPORT_BATCH, T)
+        export_s = time.perf_counter() - t0
+        calls = [str(node.target) for node in exp.graph.nodes if node.op == "call_function"
+                 and "tss_dprnn_tpu_torch" in str(node.target)]
+        want_calls = ["tss_dprnn_tpu_torch.bilstm2_forward_tm.default",
+                      "tss_dprnn_tpu_torch.bilstm2_forward_masked_tm.default"] * n
+        if calls != want_calls:
+            raise AssertionError(f"the time-major export's operator nodes: {calls}")
+        export.save_artifact(path, [exp], {"spe": True, "aux_factor": 1,
+                                           "device": torch.device(dev).type,
+                                           "sample_rate": SAMPLE_RATE})
+        sep = export.load_artifact(path)
+        rng = np.random.default_rng(SEED + 194)
+        lengths = np.array([T, 61 * T // 80, T // 2 + 123], np.int32)
+        mix = (0.1 * rng.standard_normal((3, T))).astype(np.float32)
+        aux = (0.1 * rng.standard_normal((3, 3 * T // 8))).astype(np.float32)
+        aux_len = np.array([3 * T // 8, 3 * T // 10, T // 5], np.float32)
+        reset_launches()
+        got = sep.call(mix, aux, aux_len, lengths=lengths)
+        launches = dict(all_launches(), **product_launches())
+        expect_launches(launches, with_products({"bilstm2_forward_tm": n,
+                                                 "bilstm2_forward_masked_tm": n}), 1,
+                        "the time-major artifact's call")
+        pad = EXPORT_BATCH - 3
+        args = [np.pad(mix, ((0, pad), (0, 0))),
+                np.pad(aux, ((0, pad), (0, T - aux.shape[1]))),
+                np.append(aux_len, [float(T)] * pad).astype(np.float32),
+                np.append(lengths, [T] * pad).astype(np.int32)]
+        with torch.inference_mode():
+            t = [torch.from_numpy(a).to(dev) for a in args]
+            want = model(*t[:3], lengths=t[3])[0].float().cpu().numpy()[:3]
+    os.remove(path)
+    want = want[:, None] if got.ndim == 3 else want
+    bitwise = bool(np.array_equal(got, want[..., :got.shape[-1]]))
+    log(f"[time-major] fp32 artifact of one {EXPORT_BATCH} x {EXPORT_SECS} s bucket exported "
+        f"with TSS_TM=1 in {export_s:.2f} s: {len(calls)} time-major operator nodes; its call "
+        f"bit for bit the eager time-major forward: {bitwise}")
+    if not bitwise:
+        raise AssertionError("the time-major artifact's call differs from the eager forward")
+    return {"export_s": export_s, "nodes": len(calls), "bitwise_eager": bitwise,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def phase_time_major(torch, dev, smi, ckpt):
+    """Phase 19: the time-major lane, as the module docstring says."""
+    results = {"card": smi, "kernels": _tm_kernels(torch, dev)}
+    results["serving"] = _tm_serving(torch, dev, smi, ckpt)
+    results["steps"] = _tm_steps(torch, dev)
+    results["export"] = _tm_export(torch, dev, ckpt)
+    return results
+
+
+def time_major_entries(tm):
+    """The kernels line's rows of phase 19, with the launches of its
+    time-major runs: the serving entries' from InferencerSpe.run under
+    TSS_TM=1 (one batch, fp32 and bf16), the training entries' from the 5 x
+    3 s step under TSS_TM=1."""
+    serve, steps = tm["serving"], tm["steps"]
+    for e in tm["kernels"]:
+        name = e["name"]
+        if name in ("bilstm2_forward_tm", "bilstm2_forward_masked_tm"):
+            e["path"] = "InferencerSpe.run under TSS_TM=1, one batch of 8 (phase 19)"
+            e["launches"] = serve["fp32_tm"]["launches"].get(name, 0)
+            e["bf16"]["launches"] = serve["bf16_tm"]["launches"].get(name, 0)
+        else:
+            e["path"] = "a 5 x 3 s TSS train step under TSS_TM=1 (phase 19)"
+            e["launches"] = steps["fp32"]["tm"]["launches"].get(name, 0)
+            e["bf16"]["launches"] = steps["bf16"]["tm"]["launches"].get(name, 0)
+        if not (e["launches"] and e["bf16"]["launches"]):
+            raise AssertionError(f"{name} ({e['mode']}) was not launched on its path: "
+                                 f"{e['launches']}, bf16 {e['bf16']['launches']}")
+    return tm["kernels"]
+
+
 def serve_tools_launches(serve):
     """The serving kernels' launches in phase 18, for the kernels line."""
     sep, exp = serve["separate"], serve["export"]
@@ -5208,17 +5711,56 @@ def ptxas_report(logs, kernels):
 
 def serve_scan_modes(ptxas):
     """The serving scan's instantiations in ptxas's report, by stream type,
-    tile rows and mode (the template arguments S, MT and kMode of the
-    mangled name): {"fp32 16 rows mode 4": {registers, spills}, ...}."""
+    tile rows, mode and layout (the template arguments S, MT, kMode and kTM
+    of the mangled name): {"fp32 16 rows mode 4": {registers, spills}, ...,
+    "bf16 32 rows mode 3 time-major": ...}."""
     import re
 
     out = {}
     for entry, rep in ptxas.items():
-        m = re.search(r"serve_scan_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", entry)
+        m = re.search(r"serve_scan_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E", entry)
         if m:
             dtype = "fp32" if m.group(1) == "f" else "bf16"
-            out[f"{dtype} {16 * int(m.group(2))} rows mode {m.group(3)}"] = rep
+            tm = " time-major" if m.group(4) == "1" else ""
+            out[f"{dtype} {16 * int(m.group(2))} rows mode {m.group(3)}{tm}"] = rep
     return dict(sorted(out.items()))
+
+
+# the batch-major scans' registers before the layout parameter (ROADMAP.md
+# section 2): serve_scan_kernel by "dtype rows mode", the training scans'
+# ranges over their tile heights
+BATCH_MAJOR_REGISTERS = {
+    "serve": {"fp32 16 rows mode 0": 121, "fp32 32 rows mode 0": 121,
+              "bf16 16 rows mode 0": 83, "bf16 32 rows mode 0": 86,
+              "bf16 16 rows mode 3": 96, "bf16 32 rows mode 3": 96,
+              "fp32 16 rows mode 4": 124, "fp32 32 rows mode 4": 124,
+              "bf16 16 rows mode 4": 85, "bf16 32 rows mode 4": 88},
+    "bwd bf16": (115, 229), "bwd fp32": (117, 255), "resid": (80, 223)}
+
+
+def layout_registers(ptxas):
+    """The scans' registers by layout, and whether the batch-major ones are
+    BATCH_MAJOR_REGISTERS' (none spills): the layout parameter's hazard."""
+    import re
+
+    modes = serve_scan_modes(ptxas)
+    ranges = {}
+    for entry, rep in ptxas.items():
+        m = (re.search(r"bwd_scan_kernelILi\d+E(f|13__nv_bfloat16)Lb([01])E", entry)
+             or re.search(r"resid_scan_kernelILi\d+ELb([01])E", entry))
+        if not m:
+            continue
+        key = (("bwd fp32" if m.group(1) == "f" else "bwd bf16") if "bwd" in entry else "resid")
+        key += " time-major" if m.groups()[-1] == "1" else ""
+        lo, hi = ranges.get(key, (999, 0))
+        ranges[key] = (min(lo, rep["registers"]), max(hi, rep["registers"]))
+    want = BATCH_MAJOR_REGISTERS
+    same = (all(modes.get(k, {}).get("registers") == v for k, v in want["serve"].items())
+            and all(tuple(ranges.get(k, ())) == tuple(want[k]) for k in ("bwd bf16", "bwd fp32",
+                                                                          "resid")))
+    spills = [e for e, r in ptxas.items() if r["spill_stores"] or r["spill_loads"]]
+    return {"serve_scan": {k: v["registers"] for k, v in modes.items()},
+            "training_scans": ranges, "batch_major_unchanged": same, "spills": spills}
 
 
 def main() -> int:
@@ -5252,7 +5794,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
     ptxas = ptxas_report(_build.build_logs, ("serve_scan_kernel", "bf16_gemm_kernel",
-                                             "bwd_scan_kernel"))
+                                             "bwd_scan_kernel", "resid_scan_kernel"))
     for kernel, rep in ptxas.items():
         log(f"[setup] ptxas {kernel}: {rep['registers']} registers, {rep['spill_stores']} B spill "
             f"stores, {rep['spill_loads']} B spill loads")
@@ -5260,6 +5802,12 @@ def main() -> int:
         if key.endswith("mode 4"):  # the cell-state forward
             log(f"[setup] ptxas serve_scan_kernel {key} (want_cs): {rep['registers']} registers, "
                 f"{rep['spill_stores']} B spill stores, {rep['spill_loads']} B spill loads")
+    layouts = layout_registers(ptxas)
+    log(f"[setup] scans' registers by layout: serving {layouts['serve_scan']}; training "
+        f"{layouts['training_scans']}; the batch-major ones as before the layout parameter: "
+        f"{layouts['batch_major_unchanged']}; spills: {layouts['spills'] or 'none'}")
+    if layouts["spills"]:
+        raise AssertionError(f"ptxas reports spills: {layouts['spills']}")
 
     t0 = time.perf_counter()
     entries = phase_kernel(torch, dev)
@@ -5439,8 +5987,19 @@ def main() -> int:
     for e in entries:  # the first (fp32) row of each kernel the serving tools run
         if e["name"] in launches and "launches_serve_tools" not in e:
             e["launches_serve_tools"] = launches.pop(e["name"])
+    t0 = time.perf_counter()
+    tm = phase_time_major(torch, dev, smi, ckpt)
+    tms = tm["serving"]
+    log(f"[time-major] phase done in {time.perf_counter() - t0:.1f} s; bf16 flagship in turns: "
+        f"batch 8 time-major {tms['bf16_batch8']['audio_s_per_s_tm']:.2f} against batch-major "
+        f"{tms['bf16_batch8']['audio_s_per_s_bm']:.2f}, batch 32 "
+        f"{tms['bf16_batch32']['audio_s_per_s_tm']:.2f} against "
+        f"{tms['bf16_batch32']['audio_s_per_s_bm']:.2f} audio-s/s on {smi}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    entries += time_major_entries(tm)
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "ptxas": ptxas, "serve_scan_modes": serve_scan_modes(ptxas),
+                   "scan_layouts": layouts, "time_major": tm,
                    "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,

@@ -185,11 +185,11 @@ def test_pair_streams_reach_product_and_serving_scan(stand_in_card, dtype, maske
     assert layout == ("serve_weight_layout_bf16" if low else "serve_weight_layout")
     assert frag.dtype == dtype
     # (height, dtype code, pre, wfrag, lens, out0, out1, pre_dir, pre_step, out_step, reverse1,
-    #  dirs, R, T, H)
+    #  dirs, R, T, H, time_major, stream)
     assert scan == "bilstm2_serve_scan" and args[1] == int(low) and args[3] == frag.data_ptr()
     assert args[0] == 16 and (args[4] is not None) == masked
     assert args[5:7] == (out0.data_ptr(), out1.data_ptr())
-    assert args[7:] == (4 * H, 8 * H, H, 1, 2, R, T, H, 7)
+    assert args[7:] == (4 * H, 8 * H, H, 1, 2, R, T, H, 0, 7)
 
 
 @pytest.mark.parametrize("D", [1, 2])
@@ -211,7 +211,7 @@ def test_stack_streams_reach_product_and_serving_scan(stand_in_card, D):
     (layout, frag), = layouts
     assert layout == "serve_weight_layout_bf16" and args[3] == frag.data_ptr()
     assert args[:2] == (16, 1) and args[4] is None
-    assert args[7:] == (R * T * 4 * H, 4 * H, H, 0, D, R, T, H, 7)
+    assert args[7:] == (R * T * 4 * H, 4 * H, H, 0, D, R, T, H, 0, 7)
     libs["products"].calls.clear()
     libs["serve"].calls.clear()
     layouts.clear()

@@ -152,11 +152,11 @@ def test_pair_bf16_forward_reaches_bf16_product_and_training_scan(stand_in_card,
     (layout, frag), = layouts
     assert layout == "serve_weight_layout_bf16" and frag.dtype == torch.bfloat16
     # (height, pre, wfrag, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, pre_dir, pre_step,
-    #  reverse1, dirs, R, T, H, stream)
+    #  reverse1, dirs, R, T, H, time_major, stream)
     assert scan == "bilstm2_serve_resid_scan"
     assert args[:3] == (16, pre.data_ptr(), frag.data_ptr()) and (args[3] is not None) == masked
     assert args[4:12] == tuple(t.data_ptr() for t in (o0, o1, *resid[:6]))
-    assert args[12:] == (4 * H, 8 * H, 1, 2, R, T, H, 7)
+    assert args[12:] == (4 * H, 8 * H, 1, 2, R, T, H, 0, 7)
     assert not libs["resid"].calls and x.shape not in upcasts
 
 
@@ -184,7 +184,7 @@ def test_pair_bf16_backward_reaches_bf16_products(stand_in_card, masked):
     streams = (resid[1], resid[2], g0, resid[4], resid[5], g1)
     assert args[4:10] == tuple(t.data_ptr() for t in streams)
     assert args[10] == wt.data_ptr() and (args[11] is not None) == masked
-    assert args[12] is not None and args[13:] == (R, T, H, 7)
+    assert args[12] is not None and args[13:] == (R, T, H, 0, 7)
     dpre = args[3]
     calls = libs["products"].calls
     assert [c[0] for c in calls] == ["products_gemm_bf16"] * 2 + ["products_gemm_bf16_col"] * 3 + [
@@ -222,7 +222,7 @@ def test_stack_bf16_training_reaches_bf16_route(stand_in_card, D):
     (layout, frag), = layouts
     assert scan == "bilstm2_serve_resid_scan" and layout == "serve_weight_layout_bf16"
     assert args[:4] == (16, pre.data_ptr(), frag.data_ptr(), None)
-    assert args[12:] == (M * G, G, 0, D, R, T, H, 7)
+    assert args[12:] == (M * G, G, 0, D, R, T, H, 0, 7)
     assert not libs["resid"].calls and x.shape not in upcasts
     libs["products"].calls.clear()
     layouts.clear()
@@ -264,7 +264,7 @@ def test_fp32_training_keeps_its_launches(stand_in_card):
     (layout, ws), = layouts
     assert scan == "bilstm2_resid_scan" and layout == "resid_weight_layout"
     assert args[:3] == (16, resid[6].data_ptr(), ws.data_ptr()) and args[12:] == (
-        4 * H, 8 * H, 1, 2, R, T, H, 7)
+        4 * H, 8 * H, 1, 2, R, T, H, 0, 7)
     before = _counts()
     g = torch.randn(R, T, H)
     B._launch_backward(B.bilstm2_backward, x, resid, g, g, *w, None)
@@ -348,13 +348,13 @@ def test_stack_runs_directions_in_pairs(stand_in_card, dtype):
             hp, cp, tc, pre_t = streams
             assert pre_t.data_ptr() == pre[0]
             # (height, pre, wfrag, lens, out0, out1, hp0, cp0, tc0, hp1, cp1, tc1, pre_dir,
-            #  pre_step, reverse1, dirs, R, T, H, stream)
+            #  pre_step, reverse1, dirs, R, T, H, time_major, stream)
             for a, d0, n in ((a0, 0, 2), (a1, 2, 1)):
                 dd = (d0, d0 + n - 1)
                 assert a[1:3] == (pre[d0], frag.data_ptr() + d0 * step)
                 assert a[4:12] == (h[dd[0]].data_ptr(), h[dd[1]].data_ptr(),
                                    *(t[d].data_ptr() for d in dd for t in (hp, cp, tc)))
-                assert a[12:] == (M * G, G, 0, n, R, T, H, 7)
+                assert a[12:] == (M * G, G, 0, n, R, T, H, 0, 7)
         elif mode == L._MODE_CS:
             (cs,) = streams
             for a, d0, n in ((a0, 0, 2), (a1, 2, 1)):
@@ -368,7 +368,7 @@ def test_stack_runs_directions_in_pairs(stand_in_card, dtype):
                 dd = (d0, d0 + n - 1)
                 assert a[:4] == (16, int(low), pre[d0], frag.data_ptr() + d0 * step)
                 assert a[5:7] == (h[dd[0]].data_ptr(), h[dd[1]].data_ptr())
-                assert a[7:] == (M * G, G, H, 0, n, R, T, H, 7)
+                assert a[7:] == (M * G, G, H, 0, n, R, T, H, 0, 7)
     for lib in libs.values():  # the backward reads the residual mode's streams (run last)
         lib.calls.clear()
     layouts.clear()

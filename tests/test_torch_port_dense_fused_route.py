@@ -173,7 +173,7 @@ def _moved(before, after):
 
 
 # scan arguments: (height, dtype code, pre, wfrag, lens, out0, out1, pre_dir, pre_step,
-# out_step, reverse1, dirs, R, T, H, stream)
+# out_step, reverse1, dirs, R, T, H, time_major, stream)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_route_arguments(stand_in_card, dtype):
@@ -199,7 +199,7 @@ def test_fused_route_arguments(stand_in_card, dtype):
     assert scan == "bilstm2_serve_scan" and args[2] == gargs[6 if low else 12]
     assert args[1] == int(low) and args[4] is None
     assert args[5:7] == (out.data_ptr(), out.data_ptr() + H * out.element_size())
-    assert args[7:] == (4 * H, 8 * H, 2 * H, 1, 2, R, T, H, 7)
+    assert args[7:] == (4 * H, 8 * H, 2 * H, 1, 2, R, T, H, 0, 7)
 
 
 @pytest.mark.parametrize("Fo", [6, 32, 34])
@@ -227,7 +227,7 @@ def test_dense_route_arguments(stand_in_card, dtype, Fo):
                                                                  kind: 3}
     (scan, args), = libs["serve"].calls
     assert args[1] == int(low) and args[4] is None and args[6] - args[5] == H * x.element_size()
-    assert args[7:] == (4 * H, 8 * H, 2 * H, 1, 2, R, T, H, 7)
+    assert args[7:] == (4 * H, 8 * H, 2 * H, 1, 2, R, T, H, 0, 7)
     (g_in, a_in), *outs = libs["products"].calls
     assert g_in == kind and args[2] == a_in[6 if low else 12]  # the scan reads the input product
     assert [g for g, _ in outs] == [kind, kind]

@@ -148,18 +148,22 @@ FAMILIES = {
 }
 
 
-class _JitInit:
-    """A JAX model whose ``init`` runs as one compiled program: the eager
-    init of the JAX CLIs compiles each primitive apart (~14 s a model here),
-    and its values are replaced by the checkpoint's anyway."""
+class _KnownInit:
+    """A JAX model whose ``init`` gives the variables the ``models`` fixture
+    built once for its family: the JAX CLIs' eager init compiles each
+    primitive apart (~14 s a model here; jitted, 1-2 s each call) only to
+    make the tree the checkpoint's values are restored into, and the
+    fixture's tree has that structure."""
 
-    def __init__(self, model):
+    def __init__(self, model, variables):
         self._model = model
+        self._variables = variables
 
     def init(self, *args, **kwargs):
         import jax
+        import jax.numpy as jnp
 
-        return jax.jit(self._model.init)(*args, **kwargs)
+        return jax.tree_util.tree_map(jnp.asarray, self._variables)
 
     def __getattr__(self, name):
         return getattr(self._model, name)
@@ -290,13 +294,14 @@ def checkpoints(tmp_path_factory, models):
     ("tss_spe", ["--window-secs", "0.25", "--batch", "2"]),
     ("tss_rawnet", []),
 ])
-def test_cli_separate_equals_jax_cli(checkpoints, mode, extra, monkeypatch):
+def test_cli_separate_equals_jax_cli(models, checkpoints, mode, extra, monkeypatch):
     """BSS full length (two files), TSS windowed, RawNet with its reference
     resampled to 16 kHz: the same files, PCM within 1 LSB."""
     from tss_dprnn_tpu.cli import separate as jseparate
 
     build = jseparate.build_model
-    monkeypatch.setattr(jseparate, "build_model", lambda cfg: _JitInit(build(cfg)))
+    monkeypatch.setattr(jseparate, "build_model",
+                        lambda cfg: _KnownInit(build(cfg), models[mode][1]))
 
     tmp = checkpoints["tmp"]
     jcfg, pcfg = checkpoints[mode]

@@ -268,8 +268,8 @@ def test_pair_entries_route_arguments(stand_in_card, entry, dtype):
     else:
         assert all(o.shape == (R, T, H) and o.dtype == dtype for o in out)
         assert args[5:7] == (out[0].data_ptr(), out[1].data_ptr())
-    # (pre_dir, pre_step, out_step, reverse1, dirs, R, T, H, stream)
-    assert args[7:] == (4 * H, 8 * H, 2 * H if v2 else H, 1, 2, R, T, H, 7)
+    # (pre_dir, pre_step, out_step, reverse1, dirs, R, T, H, time_major, stream)
+    assert args[7:] == (4 * H, 8 * H, 2 * H if v2 else H, 1, 2, R, T, H, 0, 7)
     counts = B.product_launch_counts()
     kind = "products_gemm_bf16" if low else "products_gemm"
     assert fn.launches == before[0] + 1
@@ -303,7 +303,7 @@ def test_stack_entry_route_arguments(stand_in_card, dtype):
     (scan, args), = libs["serve"].calls
     assert args[1] == (2 if low else 0) and args[4] is None
     assert args[5:7] == (out[0].data_ptr(), out[1].data_ptr())
-    assert args[7:] == (M * G, G, H, 0, D, R, T, H, 7)
+    assert args[7:] == (M * G, G, H, 0, D, R, T, H, 0, 7)
 
 
 # ---------------------------------------------------------------- on the card

@@ -250,13 +250,25 @@ def _export_config(tmp_path, model_cfg, ckpt):
     return str(path)
 
 
-def test_export_cli_end_to_end(pair, tmp_path):
+@pytest.fixture(scope="module")
+def configs(pair, tmp_path_factory):
+    """Per family: the export CLI's config over the ``pair`` weights saved
+    once as a ``.pt`` checkpoint."""
+    out = {}
+    for name, cfg in (("bss", dict(SMALL, target="dprnn_tasnet")),
+                      ("spe", dict(SMALL_SPE, target="dprnn_spe_tasnet"))):
+        tmp = tmp_path_factory.mktemp(f"export_{name}")
+        ckpt = tmp / f"{name}.pt"
+        torch.save(pair[name][2].state_dict(), ckpt)
+        out[name] = _export_config(tmp, cfg, ckpt)
+    return out
+
+
+def test_export_cli_end_to_end(pair, configs, tmp_path):
     """Checkpoint on disk -> CLI -> artifact -> serving call; the version
     check and "no bucket fits"."""
     _, _, port = pair["spe"]
-    ckpt = tmp_path / "model.pt"
-    torch.save(port.state_dict(), ckpt)
-    cfg = _export_config(tmp_path, dict(SMALL_SPE, target="dprnn_spe_tasnet"), ckpt)
+    cfg = configs["spe"]
     out = str(tmp_path / "model.tssx")
     T = 400  # 0.05 s at 8 kHz
     export_model.main(["--config", cfg, "--mode", "tss_spe", "--out", out, "--batch", "2",
@@ -288,15 +300,13 @@ def test_export_cli_end_to_end(pair, tmp_path):
         export.load_artifact(other)
 
 
-def test_export_cli_xla_backend_is_hermetic(pair, tmp_path):
+def test_export_cli_xla_backend_is_hermetic(pair, configs, tmp_path):
     """--backend xla at the smallest shape (batch 1, 20 samples: every scan
     step is a node of the graph): the plain versions' PyTorch ops and no
     operator of the port, equal to the eager forward bit for bit; any other
     device is refused."""
     _, _, port = pair["bss"]
-    ckpt = tmp_path / "bss.pt"
-    torch.save(port.state_dict(), ckpt)
-    cfg = _export_config(tmp_path, dict(SMALL, target="dprnn_tasnet"), ckpt)
+    cfg = configs["bss"]
     out = str(tmp_path / "xla.tssx")
     export_model.main(["--config", cfg, "--mode", "bss", "--out", out, "--batch", "1",
                        "--secs", "0.0025", "--backend", "xla", "--dtype", "fp32",

@@ -4,7 +4,9 @@
 //
 // Replaces the TPU kernel `_bilstm2_bwd_kernel`
 // (tss_dprnn_tpu/ops/pallas_lstm.py:1224, launched by bilstm2_backward_tm :1429),
-// unmasked and masked. Given the forward's gate pre-activations pre
+// unmasked and masked, batch-major and time-major (the scan's layout
+// template parameter; dx, dW and db are products over all row-steps in
+// either order). Given the forward's gate pre-activations pre
 // [R, T, 2, 4H] (saved by csrc/bilstm2_resid.cu, not recomputed), its c_prev
 // and tanh(c) streams and the output cotangents g_d [R, T, H], the scan of
 // csrc/cluster_scan.cuh (`bwd_scan_kernel`, whose header gives the arithmetic
@@ -36,13 +38,15 @@ extern "C" {
 // type. cp_d, tc_d, g_d: [R, T, H] in the stream type; wsplit: fp32 W_hh^T
 // laid out [2, 2, 4, H / 2, H] (direction, half, gate, unit, k), bf16 in the
 // fragment order of ops/bilstm2.bwd_weight_layout_bf16; lens: [R] int32 or
-// null; dbpart: [tiles * 8, 2, 4H] fp32 out (bf16 only, else null). All
-// contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns a
-// cudaError_t code (0 = launched).
+// null; dbpart: [tiles * 8, 2, 4H] fp32 out (bf16 only, else null).
+// time_major: 1 for the time-major layout (pre and dpre [T, R, 2, 4H], the
+// streams [T, R, H]), 0 for the batch-major one. All contiguous, 16-byte
+// aligned; H a multiple of 16, at most 128. Returns a cudaError_t code (0 =
+// launched).
 int bilstm2_bwd_scan(int height, int dtype, const void* pre, void* dpre, const void* cp0,
                      const void* tc0, const void* g0, const void* cp1, const void* tc1,
                      const void* g1, const void* wsplit, const void* lens, void* dbpart, int R,
-                     int Tn, int H, void* stream) {
+                     int Tn, int H, int time_major, void* stream) {
   BwdScanArgs a = {};
   a.pre = static_cast<const float*>(pre);
   a.dpre = dpre;
@@ -55,13 +59,15 @@ int bilstm2_bwd_scan(int height, int dtype, const void* pre, void* dpre, const v
   a.wsplit = wsplit;
   a.lens = static_cast<const int*>(lens);
   a.dbpart = static_cast<float*>(dbpart);
-  a.pre_dir = 4 * H;   // [R, T, 2, 4H]: the two directions side by side
+  a.pre_dir = 4 * H;   // [R, T, 2, 4H] or [T, R, 2, 4H]: the two directions side by side
   a.pre_step = 8 * H;
   a.down1 = 0;         // direction 1 scanned backwards: its backward runs forwards
   a.R = R;
   a.Tn = Tn;
   a.H = H;
-  return bwd_scan(height, dtype, a, 2, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return time_major ? bwd_scan<true>(height, dtype, a, 2, s)
+                    : bwd_scan<false>(height, dtype, a, 2, s);
 }
 
 // How many clusters of the scan at this tile height and dtype (as above) the

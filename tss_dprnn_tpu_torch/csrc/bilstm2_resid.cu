@@ -44,6 +44,12 @@
 // then one cluster barrier ends the step; every read of that buffer happened
 // before the barrier that ended step t - 1. The step's P slice comes into a
 // per-thread staging area by cp.async a step ahead.
+//
+// Layout (kTM, a template parameter so that the batch-major instantiations
+// compile as before): batch-major, row-step (r, t) of pre, the outputs and the
+// streams at (r * T + t) times its step; time-major (the JAX package's
+// `bilstm2_forward_resid(_masked)_tm`, pallas_lstm.py:1056, :1213) at
+// (t * R + r): pre [T, R, 2, 4H], the outputs and streams [T, R, H].
 
 #include "cluster_scan.cuh"
 
@@ -66,7 +72,8 @@ constexpr size_t smem_bytes(int nr, int H) {
 // Where the scan finds a direction's row-steps: gate column j of direction d
 // at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j] (P
 // in, the gate pre-activations out), unit u of its output and streams
-// out[d][(gr * Tn + t) * H + u] (hp, cp, tc likewise). Direction 1 runs
+// out[d][(gr * Tn + t) * H + u] (hp, cp, tc likewise); time-major (t * R +
+// gr) in place of (gr * Tn + t). Direction 1 runs
 // t = T-1..0 when `reverse1`, else t = 0..T-1 as direction 0 does.
 struct ScanArgs {
   float* pre;
@@ -83,8 +90,8 @@ struct ScanArgs {
 };
 
 // Grid (2, tiles, dirs) in clusters of (2, 1, 1); 2H threads, each owning NR
-// rows x UW = 2 units x 4 gates.
-template <int NR>
+// rows x UW = 2 units x 4 gates. kTM: the time-major layout.
+template <int NR, bool kTM>
 __global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
   constexpr int RT = 8 * NR;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -129,10 +136,12 @@ __global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
   float* __restrict__ tcd = d == 0 ? a.tc[0] : a.tc[1];
   float* __restrict__ pre = a.pre + d * a.pre_dir + gu;
   auto at = [&](float* p, int gr, int t) {
-    return p + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
+    if constexpr (kTM) return p + (static_cast<long long>(t) * R + gr) * H + gu;
+    else return p + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
   };
   auto pre_at = [&](int gr, int t) {
-    return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
+    if constexpr (kTM) return pre + (static_cast<long long>(t) * R + gr) * a.pre_step;
+    else return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
   };
 
   float zeros[UW];
@@ -251,20 +260,21 @@ __global__ void __launch_bounds__(256, 1) resid_scan_kernel(const ScanArgs a) {
   cp_async_wait_all();
 }
 
-template <int NR>
+template <int NR, bool kTM>
 int launch(const ScanArgs& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(resid_scan_kernel<NR>, tiles, dirs, 4 * a.H / UW, smem_bytes(NR, a.H), s,
+  return launch_cluster(resid_scan_kernel<NR, kTM>, tiles, dirs, 4 * a.H / UW, smem_bytes(NR, a.H), s,
                         a);
 }
 
+template <bool kTM>
 int dispatch(int height, const ScanArgs& a, int dirs, cudaStream_t s) {
   switch (height) {
-    case 16: return launch<2>(a, dirs, s);
-    case 24: return launch<3>(a, dirs, s);
-    case 32: return launch<4>(a, dirs, s);
-    case 40: return launch<5>(a, dirs, s);
-    case 48: return launch<6>(a, dirs, s);
+    case 16: return launch<2, kTM>(a, dirs, s);
+    case 24: return launch<3, kTM>(a, dirs, s);
+    case 32: return launch<4, kTM>(a, dirs, s);
+    case 40: return launch<5, kTM>(a, dirs, s);
+    case 48: return launch<6, kTM>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -272,11 +282,11 @@ int dispatch(int height, const ScanArgs& a, int dirs, cudaStream_t s) {
 int occupancy(int height, int H, int* clusters) {
   const int threads = 4 * H / UW;
   switch (height) {
-    case 16: return max_clusters(resid_scan_kernel<2>, threads, smem_bytes(2, H), clusters);
-    case 24: return max_clusters(resid_scan_kernel<3>, threads, smem_bytes(3, H), clusters);
-    case 32: return max_clusters(resid_scan_kernel<4>, threads, smem_bytes(4, H), clusters);
-    case 40: return max_clusters(resid_scan_kernel<5>, threads, smem_bytes(5, H), clusters);
-    case 48: return max_clusters(resid_scan_kernel<6>, threads, smem_bytes(6, H), clusters);
+    case 16: return max_clusters(resid_scan_kernel<2, false>, threads, smem_bytes(2, H), clusters);
+    case 24: return max_clusters(resid_scan_kernel<3, false>, threads, smem_bytes(3, H), clusters);
+    case 32: return max_clusters(resid_scan_kernel<4, false>, threads, smem_bytes(4, H), clusters);
+    case 40: return max_clusters(resid_scan_kernel<5, false>, threads, smem_bytes(5, H), clusters);
+    case 48: return max_clusters(resid_scan_kernel<6, false>, threads, smem_bytes(6, H), clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -294,13 +304,15 @@ extern "C" {
 // the stack's [D, R, T, 4H]. wsplit: W_hh laid out [dirs, 2, H, 4, H / 2]
 // (direction, half, k, gate, unit). out_d, hp_d, cp_d, tc_d: direction d's
 // [R, T, H] (direction 1's unused with one direction). reverse1: direction 1
-// scans t = T-1..0. lens: [R] int32 or null (only with reverse1). All fp32,
+// scans t = T-1..0. lens: [R] int32 or null (only with reverse1).
+// time_major: 1 for the time-major layout (row-step (r, t) at (t * R + r) in
+// pre, the outputs and the streams), 0 for the batch-major one. All fp32,
 // contiguous, 16-byte aligned; H a multiple of 16, at most 128. Returns a
 // cudaError_t code (0 = launched).
 int bilstm2_resid_scan(int height, void* pre, const void* wsplit, const void* lens,
                        void* out0, void* out1, void* hp0, void* cp0, void* tc0, void* hp1,
                        void* cp1, void* tc1, long long pre_dir, int pre_step, int reverse1,
-                       int dirs, int R, int Tn, int H, void* stream) {
+                       int dirs, int R, int Tn, int H, int time_major, void* stream) {
   if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2 || (lens != nullptr && !reverse1))
     return static_cast<int>(cudaErrorInvalidValue);
   ScanArgs a = {};
@@ -317,7 +329,8 @@ int bilstm2_resid_scan(int height, void* pre, const void* wsplit, const void* le
   a.R = R;
   a.Tn = Tn;
   a.H = H;
-  return dispatch(height, a, dirs, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return time_major ? dispatch<true>(height, a, dirs, s) : dispatch<false>(height, a, dirs, s);
 }
 
 // How many clusters of the scan at this tile height the card runs at once.

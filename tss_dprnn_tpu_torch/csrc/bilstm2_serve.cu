@@ -131,6 +131,15 @@
 // memory and threads (the occupancy query answers the smaller count of the
 // two).
 //
+// Layout (kTM): batch-major, every mode: row-step (r, t) of P, of the outputs
+// and of the streams at (r * T + t) times its step; time-major (the JAX
+// package's `*_tm` entries, pallas_lstm.py:1028-1056, 1213), modes 0 and 3
+// only: at (t * R + r) times its step, so P is [T, R, 2, 4H] and the outputs
+// [T, R, H]. Only the scan addresses by row-step; the input product, and the
+// backward's products, run over all row-steps in either order. The layout is
+// a template parameter, so the batch-major instantiations compile as they did
+// (a larger ScanArgs moved their registers, see below).
+//
 // Accuracy: the 3xTF32 products keep about 22 mantissa bits (the product
 // kernel's error against float64 is 1.2e-7 to 5.1e-7 of max |ref|,
 // PERF.md), and the gate sums run in another order than the plain version's
@@ -182,7 +191,8 @@ __device__ __forceinline__ void st2_cluster_bf16(unsigned addr, const float (&v)
 
 // Where the scan finds a direction's row-steps: gate column j of direction d
 // at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j], unit
-// u of its output out[d][(gr * Tn + t) * out_step + u]. Direction 1 runs t =
+// u of its output out[d][(gr * Tn + t) * out_step + u]; time-major (kTM)
+// (t * R + gr) in place of (gr * Tn + t). Direction 1 runs t =
 // T-1..0 when `reverse1`, else t = 0..T-1 as direction 0 does. S is the
 // stream type of W's fragments and the outputs. Mode 3's streams and mode
 // 4's cell states lie as the outputs do (out_step H).
@@ -215,11 +225,13 @@ struct ScanArgs {
 // contiguous (see bilstm2_serve_scan).
 // kMode (see the header): 0 outputs H apart, 1 out_step apart, 2 out_step
 // apart with the manual-DMA TPU kernel's bf16 roundings, 3 mode 0 and the
-// training forward's residual streams, 4 mode 0 and the cell state.
-template <typename S, int MT, int kMode>
+// training forward's residual streams, 4 mode 0 and the cell state. kTM: the
+// time-major layout (modes 0 and 3).
+template <typename S, int MT, int kMode, bool kTM>
 __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a) {
   static_assert(kMode != 2 || kLowPrecision<S>, "fp32 streams round nowhere: no mode 2");
   static_assert(kMode != 3 || kLowPrecision<S>, "fp32 streams train on bilstm2_resid.cu");
+  static_assert(!kTM || kMode == 0 || kMode == 3, "time-major: modes 0 and 3 only");
   constexpr bool kV2 = kMode == 2;
   constexpr bool kResid = kMode == 3;
   constexpr bool kCs = kMode == 4;
@@ -271,14 +283,16 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
   PreT* __restrict__ pre = a.pre + d * a.pre_dir + gu;
   const int ostep = kMode == 0 || kResid || kCs ? H : a.out_step;
   auto out_at = [&](S* base, int gr, int t) {
-    return base + static_cast<long long>(gr) * (Tn * ostep) + t * ostep + gu;
+    if constexpr (kTM) return base + (static_cast<long long>(t) * R + gr) * ostep + gu;
+    else return base + static_cast<long long>(gr) * (Tn * ostep) + t * ostep + gu;
   };
   S* __restrict__ hpd = kResid ? (d == 0 ? a.hp[0] : a.hp[1]) : nullptr;
   S* __restrict__ cpd = kResid ? (d == 0 ? a.cp[0] : a.cp[1]) : nullptr;
   S* __restrict__ tcd = kResid ? (d == 0 ? a.tc[0] : a.tc[1]) : nullptr;
   float* __restrict__ csd = kCs ? (d == 0 ? a.cs[0] : a.cs[1]) : nullptr;
   auto pre_at = [&](int gr, int t) {
-    return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
+    if constexpr (kTM) return pre + (static_cast<long long>(t) * R + gr) * a.pre_step;
+    else return pre + (static_cast<long long>(gr) * Tn + t) * a.pre_step;
   };
 
   const float zeros[2] = {0.f, 0.f};
@@ -470,10 +484,10 @@ __global__ void __launch_bounds__(512, 1) serve_scan_kernel(const ScanArgs<S> a)
   cp_async_wait_all();
 }
 
-template <typename S, int MT, int kMode>
+template <typename S, int MT, int kMode, bool kTM>
 int launch(const ScanArgs<S>& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 16 * MT - 1) / (16 * MT);
-  return launch_cluster(serve_scan_kernel<S, MT, kMode>, tiles, dirs, 2 * a.H * MT,
+  return launch_cluster(serve_scan_kernel<S, MT, kMode, kTM>, tiles, dirs, 2 * a.H * MT,
                         smem_bytes<S>(MT, a.H), s, a);
 }
 
@@ -497,13 +511,20 @@ ScanArgs<S> make_args(const void* pre, const void* wfrag, const void* lens, void
   return a;
 }
 
-template <typename S, int kMode>
+template <typename S, int kMode, bool kTM = false>
 int scan(int height, const ScanArgs<S>& a, int dirs, cudaStream_t s) {
   switch (height) {
-    case 16: return launch<S, 1, kMode>(a, dirs, s);
-    case 32: return launch<S, 2, kMode>(a, dirs, s);
+    case 16: return launch<S, 1, kMode, kTM>(a, dirs, s);
+    case 32: return launch<S, 2, kMode, kTM>(a, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// modes 0 and 3 in either layout (time_major: 0 batch-major, 1 time-major)
+template <typename S, int kMode>
+int scan_in(int time_major, int height, const ScanArgs<S>& a, int dirs, cudaStream_t s) {
+  return time_major ? scan<S, kMode, true>(height, a, dirs, s)
+                    : scan<S, kMode, false>(height, a, dirs, s);
 }
 
 // mode 4 in the stream type S: the outputs H apart, no lengths, no reversed
@@ -521,8 +542,10 @@ int cs_scan(int height, const void* pre, const void* wfrag, void* out0, void* ou
 template <typename S, int kMode>
 int clusters(int height, int H, int* n) {
   switch (height) {
-    case 16: return max_clusters(serve_scan_kernel<S, 1, kMode>, 2 * H, smem_bytes<S>(1, H), n);
-    case 32: return max_clusters(serve_scan_kernel<S, 2, kMode>, 4 * H, smem_bytes<S>(2, H), n);
+    case 16:
+      return max_clusters(serve_scan_kernel<S, 1, kMode, false>, 2 * H, smem_bytes<S>(1, H), n);
+    case 32:
+      return max_clusters(serve_scan_kernel<S, 2, kMode, false>, 4 * H, smem_bytes<S>(2, H), n);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -547,14 +570,17 @@ extern "C" {
 // t) at (r * T + t) * out_step + u: out_step = H for [R, T, H] each, 2H for
 // the two side by side in one [R, T, 2H] (out1 = out0 + H; any dtype);
 // out1 unused with one direction. reverse1: direction 1 scans t = T-1..0.
-// lens: [R] int32 or null (only with reverse1). Every pointer 16-byte
-// aligned, out_step and H multiples of 16, H at most 128. Returns a
-// cudaError_t code (0 = launched).
+// lens: [R] int32 or null (only with reverse1). time_major: 1 for the
+// time-major layout (row-step (r, t) at (t * R + r) in P and the outputs;
+// dtype 0 or 1 with out_step H only), 0 for the batch-major one. Every
+// pointer 16-byte aligned, out_step and H multiples of 16, H at most 128.
+// Returns a cudaError_t code (0 = launched).
 int bilstm2_serve_scan(int height, int dtype, const void* pre, const void* wfrag,
                        const void* lens, void* out0, void* out1, long long pre_dir, int pre_step,
-                       int out_step, int reverse1, int dirs, int R, int Tn, int H, void* stream) {
+                       int out_step, int reverse1, int dirs, int R, int Tn, int H, int time_major,
+                       void* stream) {
   if (H % 16 || H > 128 || H <= 0 || out_step % 16 || out_step < H || dirs < 1 || dirs > 2 ||
-      (lens != nullptr && !reverse1))
+      (lens != nullptr && !reverse1) || (time_major && (out_step != H || dtype > 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto fp = make_args<float>(pre, wfrag, lens, out0, out1, pre_dir, pre_step, out_step,
@@ -562,9 +588,9 @@ int bilstm2_serve_scan(int height, int dtype, const void* pre, const void* wfrag
   const auto bf = make_args<__nv_bfloat16>(pre, wfrag, lens, out0, out1, pre_dir, pre_step,
                                            out_step, reverse1, R, Tn, H);
   switch (dtype) {
-    case 0: return out_step == H ? scan<float, 0>(height, fp, dirs, s)
+    case 0: return out_step == H ? scan_in<float, 0>(time_major, height, fp, dirs, s)
                                  : scan<float, 1>(height, fp, dirs, s);
-    case 1: return out_step == H ? scan<__nv_bfloat16, 0>(height, bf, dirs, s)
+    case 1: return out_step == H ? scan_in<__nv_bfloat16, 0>(time_major, height, bf, dirs, s)
                                  : scan<__nv_bfloat16, 1>(height, bf, dirs, s);
     case 2: return scan<__nv_bfloat16, 2>(height, bf, dirs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -577,11 +603,12 @@ int bilstm2_serve_scan(int height, int dtype, const void* pre, const void* wfrag
 // pre-activations (fp32, the same layout). hp_d, cp_d, tc_d: direction d's h
 // and c before each step and tanh(c) after it, [R, T, H] bf16 (direction 1's
 // unused with one direction). wfrag: bilstm2_serve_scan's bf16 fragment
-// order. Returns a cudaError_t code (0 = launched).
+// order. time_major: the layout, as bilstm2_serve_scan's (the streams lie as
+// the outputs). Returns a cudaError_t code (0 = launched).
 int bilstm2_serve_resid_scan(int height, void* pre, const void* wfrag, const void* lens,
                              void* out0, void* out1, void* hp0, void* cp0, void* tc0, void* hp1,
                              void* cp1, void* tc1, long long pre_dir, int pre_step, int reverse1,
-                             int dirs, int R, int Tn, int H, void* stream) {
+                             int dirs, int R, int Tn, int H, int time_major, void* stream) {
   if (H % 16 || H > 128 || H <= 0 || dirs < 1 || dirs > 2 || (lens != nullptr && !reverse1))
     return static_cast<int>(cudaErrorInvalidValue);
   auto a = make_args<__nv_bfloat16>(pre, wfrag, lens, out0, out1, pre_dir, pre_step, H, reverse1,
@@ -592,7 +619,7 @@ int bilstm2_serve_resid_scan(int height, void* pre, const void* wfrag, const voi
     a.cp[d] = static_cast<__nv_bfloat16*>(streams[1][d]);
     a.tc[d] = static_cast<__nv_bfloat16*>(streams[2][d]);
   }
-  return scan<__nv_bfloat16, 3>(height, a, dirs, static_cast<cudaStream_t>(stream));
+  return scan_in<__nv_bfloat16, 3>(time_major, height, a, dirs, static_cast<cudaStream_t>(stream));
 }
 
 // The cell-state forward (mode 4, see the header) over `dirs` (1 or 2)
@@ -622,7 +649,9 @@ int bilstm2_serve_cs_scan(int height, int dtype, const void* pre, const void* wf
 // the bf16 training forward) the card runs at once. dtype 0 answers the
 // smaller count of its outputs-only and cell-state instantiations (modes 0
 // and 4), dtype 1 of those and the outputs side by side (mode 1): they take
-// the same threads and shared memory, so one tile plan serves them all.
+// the same threads and shared memory, so one tile plan serves them all (and
+// the time-major instantiations, which the same shared memory and threads and
+// the 128-register cap of the launch bounds hold to the same occupancy).
 int bilstm2_serve_max_clusters(int height, int dtype, int H, int* n) {
   switch (dtype) {
     case 0: {

@@ -192,8 +192,10 @@ constexpr int kBwdUnits = 2;  // hidden units per thread (ld2, st2)
 // Where the scan finds a direction's row-steps: gate column j of direction d
 // at row-step (gr, t) is pre[d * pre_dir + (gr * Tn + t) * pre_step + j] (and
 // so in dpre); unit u of its H-wide streams is cp[d][(gr * Tn + t) * H + u]
-// (tc, g likewise). Direction 0 runs t = T-1..0; direction 1 the same when
-// `down1`, else t = 0..T-1 (the fused pair's reversed direction).
+// (tc, g likewise); in the time-major layout (kTM below: the fused pair's
+// `bilstm2_backward_tm`, pallas_lstm.py:1366) (t * R + gr) in place of (gr *
+// Tn + t). Direction 0 runs t = T-1..0; direction 1 the same when `down1`,
+// else t = 0..T-1 (the fused pair's reversed direction).
 struct BwdScanArgs {
   const float* pre;
   void* dpre;           // in the stream type
@@ -230,8 +232,10 @@ constexpr size_t bwd_smem_bytes(int nr, int H) {
 
 // Grid (2, tiles, dirs) in clusters of (2, 1, 1); 2H threads, each owning NR
 // rows x 2 units (x 4 gates for dpre; fp32: of both halves for the product).
-// bf16 16-row tiles may run two CTAs on an SM (128 registers).
-template <int NR, typename S>
+// bf16 16-row tiles may run two CTAs on an SM (128 registers). kTM: the
+// time-major layout, a template parameter so that the batch-major
+// instantiations compile as before.
+template <int NR, typename S, bool kTM>
 __global__ void __launch_bounds__(256, kLowPrecision<S> && NR == 2 ? 2 : 1)
     bwd_scan_kernel(const BwdScanArgs a) {
   constexpr int UW = kBwdUnits;
@@ -283,10 +287,12 @@ __global__ void __launch_bounds__(256, kLowPrecision<S> && NR == 2 ? 2 : 1)
   const S* tcd = static_cast<const S*>(d == 0 ? a.tc[0] : a.tc[1]);
   const S* gd = static_cast<const S*>(d == 0 ? a.g[0] : a.g[1]);
   auto at = [&](const S* p, int gr, int t) {
-    return p + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
+    if constexpr (kTM) return p + (static_cast<long long>(t) * R + gr) * H + gu;
+    else return p + static_cast<long long>(gr) * (Tn * H) + t * H + gu;
   };
   auto gate_off = [&](int gr, int t) {
-    return d * pre_dir + (static_cast<long long>(gr) * Tn + t) * pre_step + gu;
+    if constexpr (kTM) return d * pre_dir + (static_cast<long long>(t) * R + gr) * pre_step + gu;
+    else return d * pre_dir + (static_cast<long long>(gr) * Tn + t) * pre_step + gu;
   };
 
   float zeros[UW];
@@ -503,29 +509,31 @@ __global__ void __launch_bounds__(256, kLowPrecision<S> && NR == 2 ? 2 : 1)
 // The scan at a tile height of 16, 24, 32, 40 or 48 rows (bf16: 16, 32 or 48)
 // over `dirs` directions; H a multiple of 16, at most 128. Returns a
 // cudaError_t code.
-template <int NR, typename S>
+template <int NR, typename S, bool kTM>
 int launch_bwd_scan(const BwdScanArgs& a, int dirs, cudaStream_t s) {
   const int tiles = (a.R + 8 * NR - 1) / (8 * NR);
-  return launch_cluster(bwd_scan_kernel<NR, S>, tiles, dirs, 2 * a.H, bwd_smem_bytes<S>(NR, a.H),
+  return launch_cluster(bwd_scan_kernel<NR, S, kTM>, tiles, dirs, 2 * a.H, bwd_smem_bytes<S>(NR, a.H),
                         s, a);
 }
 
-// dtype: 0 = fp32 streams, 1 = bf16 streams (then dbpart is written).
-inline int bwd_scan(int height, int dtype, const BwdScanArgs& a, int dirs, cudaStream_t s) {
+// dtype: 0 = fp32 streams, 1 = bf16 streams (then dbpart is written). kTM:
+// the time-major layout (only the fused pair's backward instantiates it).
+template <bool kTM = false>
+int bwd_scan(int height, int dtype, const BwdScanArgs& a, int dirs, cudaStream_t s) {
   if (a.H % 16 || a.H > 128 || a.H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     switch (height) {
-      case 16: return launch_bwd_scan<2, float>(a, dirs, s);
-      case 24: return launch_bwd_scan<3, float>(a, dirs, s);
-      case 32: return launch_bwd_scan<4, float>(a, dirs, s);
-      case 40: return launch_bwd_scan<5, float>(a, dirs, s);
-      case 48: return launch_bwd_scan<6, float>(a, dirs, s);
+      case 16: return launch_bwd_scan<2, float, kTM>(a, dirs, s);
+      case 24: return launch_bwd_scan<3, float, kTM>(a, dirs, s);
+      case 32: return launch_bwd_scan<4, float, kTM>(a, dirs, s);
+      case 40: return launch_bwd_scan<5, float, kTM>(a, dirs, s);
+      case 48: return launch_bwd_scan<6, float, kTM>(a, dirs, s);
     }
   } else if (dtype == 1 && a.dbpart != nullptr) {
     switch (height) {
-      case 16: return launch_bwd_scan<2, __nv_bfloat16>(a, dirs, s);
-      case 32: return launch_bwd_scan<4, __nv_bfloat16>(a, dirs, s);
-      case 48: return launch_bwd_scan<6, __nv_bfloat16>(a, dirs, s);
+      case 16: return launch_bwd_scan<2, __nv_bfloat16, kTM>(a, dirs, s);
+      case 32: return launch_bwd_scan<4, __nv_bfloat16, kTM>(a, dirs, s);
+      case 48: return launch_bwd_scan<6, __nv_bfloat16, kTM>(a, dirs, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -535,7 +543,7 @@ inline int bwd_scan(int height, int dtype, const BwdScanArgs& a, int dirs, cudaS
 // at once.
 template <int NR, typename S>
 int bwd_clusters(int H, int* clusters) {
-  return max_clusters(bwd_scan_kernel<NR, S>, 2 * H, bwd_smem_bytes<S>(NR, H), clusters);
+  return max_clusters(bwd_scan_kernel<NR, S, false>, 2 * H, bwd_smem_bytes<S>(NR, H), clusters);
 }
 
 inline int bwd_scan_max_clusters(int height, int dtype, int H, int* clusters) {

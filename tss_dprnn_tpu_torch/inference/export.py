@@ -19,7 +19,9 @@ needs the port importable (this module imports its operators), as a JAX
 Pallas artifact needs the libtpu that built it. ``xla`` decomposes each of
 those calls into its plain version's PyTorch ops after the export
 (``ExportedProgram.run_decompositions``): a hermetic artifact, for the CPU
-only (on the card it would replace the kernels).
+only (on the card it would replace the kernels). The scans are recorded in
+the serving layout (``ops/rnn.serving_time_major``; under ``TSS_TM=1`` the
+time-major operators, ``bilstm2_forward_tm`` and ``_masked_tm``).
 
 The format is the port's own (``FORMAT``, ``FORMAT_VERSION``): a JAX
 package artifact (``jax.export`` StableHLO buckets) does not load here.
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from tss_dprnn_tpu_torch.ops import bilstm2, lstm  # noqa: F401  (registers the operators)
+from tss_dprnn_tpu_torch.ops.rnn import serving_time_major
 
 FORMAT = "tss_dprnn_tpu_torch.export"
 FORMAT_VERSION = 1
@@ -114,7 +117,7 @@ def export_separation(model: torch.nn.Module, batch_size: int, n_samples: int, *
     try:
         for p, _ in frozen:
             p.requires_grad_(False)
-        with torch.no_grad():
+        with torch.no_grad(), serving_time_major(model):  # the serving layout is recorded
             exported = torch.export.export(_Separation(model), args, strict=False)
     finally:
         for p, flag in frozen:

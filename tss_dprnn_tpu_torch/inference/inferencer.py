@@ -49,6 +49,7 @@ from tss_dprnn_tpu_torch.ops import metrics as metrics_mod
 from tss_dprnn_tpu_torch.ops.losses import masked_si_sdr, pit_sisdr_loss
 from tss_dprnn_tpu_torch.ops.masking import length_mask
 from tss_dprnn_tpu_torch.ops.pesq_device import pesq_batch
+from tss_dprnn_tpu_torch.ops.rnn import serving_time_major
 from tss_dprnn_tpu_torch.ops.stoi import stoi_batch
 from tss_dprnn_tpu_torch.utils.checkpoint import load_model
 
@@ -107,9 +108,11 @@ class Inferencer:
 
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """Masked forward of one bucketed batch -> estimates [B, n_src, T] on
-        the device, in the model's own source order."""
+        the device, in the model's own source order. The bf16 lane's scans
+        take the serving layout (``ops/rnn.serving_time_major``)."""
         t = self._to_device(batch, ("mix", "lengths"))
-        return self.model(t["mix"], lengths=t["lengths"])
+        with serving_time_major(self.model):
+            return self.model(t["mix"], lengths=t["lengths"])
 
     def _separate(self, batch: Dict[str, np.ndarray]):
         t = self._to_device(batch, ("mix", "sources", "lengths"))

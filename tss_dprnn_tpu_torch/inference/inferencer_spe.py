@@ -15,6 +15,7 @@ import torch
 
 from tss_dprnn_tpu_torch.data.loader import BucketedEvalLoader, make_collate_spe_eval
 from tss_dprnn_tpu_torch.inference.inferencer import Inferencer
+from tss_dprnn_tpu_torch.ops.rnn import serving_time_major
 
 
 class InferencerSpe(Inferencer):
@@ -29,7 +30,8 @@ class InferencerSpe(Inferencer):
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """Masked forward of one bucketed batch -> estimates [B, T] on the device."""
         t = self._to_device(batch, ("mix", "reference", "ref_len", "lengths"))
-        est, _ = self.model(t["mix"], t["reference"], t["ref_len"], lengths=t["lengths"])
+        with serving_time_major(self.model):
+            est, _ = self.model(t["mix"], t["reference"], t["ref_len"], lengths=t["lengths"])
         return est
 
     def _separate(self, batch: Dict[str, np.ndarray]):

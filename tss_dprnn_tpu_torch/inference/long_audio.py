@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from tss_dprnn_tpu_torch.device import resolve_device
+from tss_dprnn_tpu_torch.ops.rnn import serving_time_major
 
 
 def _crossfade_weight(window: int, overlap: int) -> np.ndarray:
@@ -163,7 +164,7 @@ def bss_windowed(model: torch.nn.Module, window: int, hop: Optional[int] = None,
     device = _on_device(model, device)
 
     def forward(mix_batch: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
+        with torch.inference_mode(), serving_time_major(model):
             est = model(torch.from_numpy(mix_batch).to(device))
             if not wire:
                 return est.float().cpu().numpy()
@@ -190,7 +191,7 @@ def spe_windowed(model: torch.nn.Module, reference: np.ndarray, ref_len: Optiona
     aux_len = torch.full((batch_size,), float(ref_len), dtype=torch.float32, device=device)
 
     def forward(mix_batch: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
+        with torch.inference_mode(), serving_time_major(model):
             wav, _ = model(torch.from_numpy(mix_batch).to(device), aux, aux_len)
             return wav.float().cpu().numpy()[:, None, :]
 

@@ -8,7 +8,12 @@ through the fused kernel (``ops/bilstm2.py``) together with its Dense
 unmasked for the intra-chunk scan and masked by chunk counts for the
 inter-chunk scan; with
 ``bidirectional=False`` the inter-chunk scan is one forward direction
-through the stacked-direction kernel (``ops/lstm.py``). Module and
+through the stacked-direction kernel (``ops/lstm.py``). Where
+``ops/rnn.lstm_time_major_available`` says so (``TSS_TM=1``, or the
+serving context), a bidirectional LSTM core runs its blocks time-major
+([K, B, S, N]: each scan reads and writes the time-major entries' [T, R,
+.]); only the layout differs, the parameters and the function are the
+same. Module and
 parameter names follow the reference's torch model, which keeps the
 dual-path stack directly on its separation module; :class:`DPRNNCore`
 therefore carries those names and the separation modules subclass it.
@@ -46,7 +51,9 @@ class DPRNNBlock(nn.Module):
     direction feeding a Dense(H -> N); it does not use the chunk counts, and
     the masked norm drops what it computes on padded chunks. A bidirectional
     LSTM scan contracts with its Dense per direction; a GRU or RNN, as in the
-    JAX block, returns the concatenation and its Dense takes that."""
+    JAX block, returns the concatenation and its Dense takes that. With
+    ``time_major`` (bidirectional LSTMs only) x is [K, B, S, N] (JAX
+    ``DPRNNBlock._tm_call``, ``models/dprnn.py:119-161``)."""
 
     def __init__(self, feature_size: int, hidden_size: int, norm_type: str = "gLN",
                  bidirectional: bool = True, rnn_type: str = "LSTM",
@@ -61,8 +68,10 @@ class DPRNNBlock(nn.Module):
                              else Dense(H, N, dtype=dtype))
         self.inter_norm = GlobalNorm(N, norm_type)
 
-    def forward(self, x: torch.Tensor, chunk_lengths: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, chunk_lengths: Optional[torch.Tensor] = None,
+                time_major: bool = False) -> torch.Tensor:
+        if time_major:
+            return self._tm_forward(x, chunk_lengths)
         B, S, K, N = x.shape
         chunk_mask = None
         inter_lengths = None
@@ -92,6 +101,41 @@ class DPRNNBlock(nn.Module):
         h = h.reshape(B, K, S, N).transpose(1, 2)
         return x + self.inter_norm(h, chunk_mask)
 
+    def _tm_forward(self, x: torch.Tensor, chunk_lengths: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+        """The time-major body: x [K, B, S, N] -> the same. The intra scan
+        runs over time K on B*S rows, the inter scan over time S on B*K rows
+        (masked by the chunk counts); the two K <-> S transposes are the
+        only relayouts. The chunk mask rides [1, B, S, 1] and the norms keep
+        per-example statistics on axis 1; each scan's pair contracts with its
+        Dense's halves. Bidirectional LSTMs only: the RNNCores raise on
+        anything else."""
+        K, B, S, N = x.shape
+        chunk_mask = None
+        inter_lengths = None
+        if chunk_lengths is not None:
+            s = torch.arange(S, device=x.device)
+            chunk_mask = (s[None, :] < chunk_lengths[:, None]).to(x.dtype)[None, :, :, None]
+            inter_lengths = chunk_lengths.repeat_interleave(K)
+
+        def dense(linear, pair):
+            wo2, bias = linear.halves()
+            return pair[0] @ wo2[0] + pair[1] @ wo2[1] + bias
+
+        # intra-chunk pass: time K, rows B*S, unmasked (as batch-major)
+        h = self.intra_rnn(x.reshape(K, B * S, N), time_major=True, return_pair=True)
+        h = dense(self.intra_linear, h).reshape(K, B, S, N)
+        x = x + self.intra_norm(h, chunk_mask, batch_axis=1)
+
+        # inter-chunk pass: time S, rows B*K
+        x = x.permute(2, 1, 0, 3)  # [S, B, K, N]
+        h = self.inter_rnn(x.reshape(S, B * K, N), inter_lengths, time_major=True,
+                           return_pair=True)
+        h = dense(self.inter_linear, h).reshape(S, B, K, N)
+        inter_mask = None if chunk_mask is None else chunk_mask.permute(2, 1, 0, 3)
+        x = x + self.inter_norm(h, inter_mask, batch_axis=1)
+        return x.permute(2, 1, 0, 3)  # back to [K, B, S, N]
+
 
 class DPRNNCore(nn.Module):
     """Segmentation -> n_repeats blocks -> mask head -> overlap-add.
@@ -111,6 +155,8 @@ class DPRNNCore(nn.Module):
         self.n_repeats = n_repeats
         self.activation_type = activation_type
         self.dtype = dtype
+        # the time-major lane takes bidirectional LSTM cores only
+        self.tm_capable = bidirectional and rnn_type == "LSTM"
         Fs = feature_size
         self.dprnn_blocks = nn.ModuleList(
             DPRNNBlock(Fs, hidden_size, norm_type, bidirectional, rnn_type, dtype)
@@ -136,13 +182,19 @@ class DPRNNCore(nn.Module):
         onto ``tap``, and only blocks k..n_repeats-1 run. Segmentation and
         masking are linear, so ``resume=(0, tap)`` is exactly the call on the
         tapped input plus the delta (``tss_dprnn_tpu/models/dprnn.py:204-212,
-        237-256``)."""
+        237-256``). The tap is in the blocks' working layout: [B, S, K, N],
+        or [K, B, S, N] when the blocks run time-major
+        (``rnn_ops.lstm_time_major_available``, decided at each call, as
+        JAX's ``use_tm``, :226-232)."""
         B, L, Fs = h.shape
         if time_mask is not None:
             h = h * time_mask  # the padded tail is exactly zero before segmentation
         if self.dtype is not None:
             h = h.to(self.dtype)  # before segmentation: the chunked tensor is in the lane's type
         h = chunking.segment_cl(h, self.chunk_length, self.hop_length)  # [B, S, K, F]
+        use_tm = self.tm_capable and rnn_ops.lstm_time_major_available(True, chunk_lengths)
+        if use_tm:
+            h = h.permute(2, 0, 1, 3)  # [K, B, S, F]
         start = 0
         if resume is not None:
             start, tap_in = resume
@@ -151,12 +203,14 @@ class DPRNNCore(nn.Module):
         for i in range(start, len(self.dprnn_blocks)):
             block = self.dprnn_blocks[i]
             if i < checkpoint_blocks and torch.is_grad_enabled():
-                h = torch.utils.checkpoint.checkpoint(block, h, chunk_lengths,
+                h = torch.utils.checkpoint.checkpoint(block, h, chunk_lengths, use_tm,
                                                       use_reentrant=False)
             else:
-                h = block(h, chunk_lengths)
+                h = block(h, chunk_lengths, use_tm)
             if tap_block is not None and i + 1 == tap_block:
                 tap = h
+        if use_tm:
+            h = h.permute(1, 2, 0, 3)  # back to [B, S, K, F]
         h = self.conv2d(self.prelu(h))  # [B, S, K, 2F]
         S, K = h.shape[1], h.shape[2]
         # channel c = j*F + f belongs to source j (torch's reshape(B*2, F, K, S))

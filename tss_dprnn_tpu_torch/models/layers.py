@@ -114,18 +114,24 @@ class _RNNParams(nn.Module):
 
 class RNNCore(nn.Module):
     """An RNN over [B, T, F], the reference SingleRNN (``rnn`` holds the
-    torch cell's tensors). With ``rnn_type`` 'LSTM' the port's kernels run.
-    Bidirectional: the pair (out_f, out_b), each [B, T, H], unconcatenated;
-    with ``dense_kernel`` (a :class:`SplitDense`'s halves, [2, H, Fo]) the
-    pair's product with it, [B, T, Fo], without the bias
+    torch cell's tensors; JAX ``models/layers.py:108-165``). With
+    ``rnn_type`` 'LSTM' the port's kernels run. Bidirectional: [B, T, 2H],
+    or with ``return_pair`` the pair (out_f, out_b), each [B, T, H],
+    unconcatenated; with ``dense_kernel`` (a :class:`SplitDense`'s halves,
+    [2, H, Fo]) the pair's product with it, [B, T, Fo], without the bias
     (``rnn_ops.lstm_split_dense``). With ``lengths`` the backward direction
-    reads each row reversed within its length. Unidirectional: [B, T, H];
-    ``lengths`` are not used (steps past a row's length are unspecified and
-    masked by the consumer). 'GRU' and 'RNN' run ``rnn_ops.gru`` /
-    ``rnn_ops.vanilla_rnn`` (plain PyTorch, no kernel) and return the
-    directions concatenated, [B, T, H * ndir]. With ``dtype`` x and each
-    parameter are cast to it first (the LSTM's bias sum then rounds in it),
-    so the kernels stream that type."""
+    reads each row reversed within its length. ``time_major`` (bidirectional,
+    no ``dense_kernel``): x [T, R, F] through ``rnn_ops.lstm_pair_tm`` (the
+    pair [T, R, H], with ``lengths`` [R] the masked scan) or, without
+    ``return_pair`` and ``lengths``, ``rnn_ops.lstm_tm`` ([T, R, 2H]); the
+    caller gates on ``rnn_ops.lstm_time_major_available``. Unidirectional:
+    [B, T, H]; ``lengths`` are not used (steps past a row's length are
+    unspecified and masked by the consumer). 'GRU' and 'RNN' run
+    ``rnn_ops.gru`` / ``rnn_ops.vanilla_rnn`` (plain PyTorch, no kernel)
+    and return the directions concatenated, [B, T, H * ndir]. With ``dtype``
+    x and each parameter are cast to it first (the LSTM's bias sum then
+    rounds in it), so the kernels stream that type. The JAX module's
+    asserts raise ValueError here."""
 
     def __init__(self, input_size: int, hidden_size: int, bidirectional: bool = True,
                  rnn_type: str = "LSTM", dtype: Optional[torch.dtype] = None):
@@ -163,22 +169,33 @@ class RNNCore(nn.Module):
         return self._stacked[1]
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                dense_kernel: Optional[torch.Tensor] = None
+                dense_kernel: Optional[torch.Tensor] = None, time_major: bool = False,
+                return_pair: bool = False
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         if self.dtype is not None:
             x = x.to(self.dtype)
         if self.rnn_type != "LSTM":
-            if dense_kernel is not None:
-                raise ValueError("dense_kernel needs an LSTM")
+            if dense_kernel is not None or time_major or return_pair:
+                raise ValueError("dense_kernel, time_major and return_pair need an LSTM")
             cells = [self.rnn.cell(sfx, self.dtype) for sfx in self.rnn.suffixes]
             fn = rnn_ops.gru if self.rnn_type == "GRU" else rnn_ops.vanilla_rnn
             return fn(x, cells[0], cells[1] if self.bidirectional else None, lengths)
+        if (dense_kernel is not None or time_major or return_pair) and not self.bidirectional:
+            raise ValueError("dense_kernel, time_major and return_pair need a bidirectional "
+                             "RNNCore")
         if dense_kernel is not None:
-            if not self.bidirectional:
-                raise ValueError("dense_kernel needs a bidirectional RNNCore")
+            if time_major or return_pair:
+                raise ValueError("dense_kernel excludes time_major and return_pair")
             return rnn_ops.lstm_split_dense(x, self.stacked_weights(), dense_kernel, lengths)
+        if time_major:
+            if return_pair:
+                return rnn_ops.lstm_pair_tm(x, self.stacked_weights(), lengths)
+            if lengths is not None:
+                raise ValueError("time-major without return_pair takes no lengths")
+            return rnn_ops.lstm_tm(x, self.stacked_weights())
         if self.bidirectional:
-            return rnn_ops.lstm_pair(x, self.stacked_weights(), lengths)
+            pair = rnn_ops.lstm_pair(x, self.stacked_weights(), lengths)
+            return pair if return_pair else torch.cat(pair, dim=-1)
         return rnn_ops.lstm_stack(x[None], self.stacked_weights())[0]
 
 
@@ -197,9 +214,12 @@ class GlobalNorm(nn.Module):
         self.register_parameter(self._names[0], nn.Parameter(torch.empty(channels)))
         self.register_parameter(self._names[1], nn.Parameter(torch.empty(channels)))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                batch_axis: int = 0) -> torch.Tensor:
+        """Statistics per index of ``batch_axis`` (1 for the time-major
+        block's [T, B, ..., C])."""
         gamma, beta = (getattr(self, n) for n in self._names)
-        return norms_ops.global_channel_norm_cl(x, gamma, beta, self.eps, mask)
+        return norms_ops.global_channel_norm_cl(x, gamma, beta, self.eps, mask, batch_axis)
 
 
 class PReLU(nn.Module):

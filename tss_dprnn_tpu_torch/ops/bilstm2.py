@@ -89,6 +89,17 @@ padded unit's pre-activations are 0, so its c stays 0.5 * 0 + 0.5 * tanh(0)
 the backward its dpre is 0. The pad is sliced off the outputs, the residual
 streams and the gradients, so callers see their own widths.
 
+The five time-major entries (``*_tm``, the JAX package's real hosts of
+these kernels, ``pallas_lstm.py:1028-1056, 1213, 1366``) take and give
+every row-step tensor as [T, R, ...] in place of [R, T, ...]: x [T, R, F],
+the outputs and the six H-wide streams [T, R, H], pre [T, R, 2, 4H]. Their
+launches are the batch-major ones with the scans' time-major layout (a
+template parameter of each scan; the products run over all T R row-steps
+in either order), so on transposed inputs the outputs, the streams, pre and
+dx equal the batch-major route's bit for bit, while dW and db sum the
+row-steps in the other order. Their plain versions are the batch-major
+ones on transposed views.
+
 On a CPU tensor each entry runs its plain PyTorch version
 (:func:`bilstm2_reference`, :func:`bilstm2_resid_reference`,
 :func:`bilstm2_dense_reference`, :func:`bilstm2_bm_reference`,
@@ -474,18 +485,59 @@ def bilstm2_backward_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
     return dx, torch.stack(dw_ih), torch.stack(db), torch.stack(dw_hh)
 
 
+def bilstm2_tm_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                         w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the time-major serving entries: x [T, R, F] ->
+    (out0, out1) [T, R, H], :func:`bilstm2_reference` on the transposed
+    view."""
+    return _time_major(bilstm2_reference(x.transpose(0, 1), w_ih2, b2, w_hh2, lens))
+
+
+def bilstm2_resid_tm_reference(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                               w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None
+                               ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
+    """Plain version of the time-major training forwards: the outputs and
+    the seven streams of :func:`bilstm2_resid_reference`, each [T, R, ...]."""
+    outs, resid = bilstm2_resid_reference(x.transpose(0, 1), w_ih2, b2, w_hh2, lens)
+    return _time_major(outs), _time_major(resid)
+
+
+def bilstm2_backward_tm_reference(x: torch.Tensor, resid: Resid, g0: torch.Tensor,
+                                  g1: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                                  w_hh2: torch.Tensor, lens: Optional[torch.Tensor] = None
+                                  ) -> Grads:
+    """Plain version of the time-major backward: x [T, R, F], the streams
+    and cotangents [T, R, ...] -> (dx [T, R, F], dw_ih2, db2, dw_hh2),
+    :func:`bilstm2_backward_reference` on the transposed views."""
+    def bm(t):
+        return t.transpose(0, 1)
+
+    dx, *rest = bilstm2_backward_reference(bm(x), tuple(map(bm, resid)), bm(g0), bm(g1), w_ih2,
+                                           b2, w_hh2, lens)
+    return (bm(dx).contiguous(), *rest)
+
+
+def _time_major(out):
+    """Row-step tensors (nested tuples) [R, T, ...] -> contiguous [T, R, ...]."""
+    if isinstance(out, tuple):
+        return tuple(_time_major(o) for o in out)
+    return out.transpose(0, 1).contiguous()
+
+
 def _checked(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
-             lens: Optional[torch.Tensor]):
+             lens: Optional[torch.Tensor], time_major: bool = False):
     """What every bilstm2 kernel takes: raises on anything else, and returns
     (x, w_ih2, b2, w_hh2, lens) contiguous, the weights fp32 holding values
-    of x's type, lens int32."""
+    of x's type, lens int32. x is [B, T, F], or [T, B, F] ``time_major``."""
     if not x.is_cuda:
         raise ValueError(f"bilstm2 kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"bilstm2 kernel streams float32 or bfloat16, got {x.dtype}")
     if x.ndim != 3:
-        raise ValueError(f"x must be [B, T, F], got {tuple(x.shape)}")
-    B, T, F = x.shape
+        raise ValueError(f"x must be {'[T, B, F]' if time_major else '[B, T, F]'}, got "
+                         f"{tuple(x.shape)}")
+    B, T, F = _rows_steps(x, time_major) + (x.shape[2],)
     H = w_hh2.shape[1]
     if w_ih2.shape != (2, F, 4 * H) or w_hh2.shape != (2, H, 4 * H) or b2.shape != (2, 4 * H):
         raise ValueError(
@@ -510,6 +562,12 @@ def _checked(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torc
         lens = lens.to(torch.int32).contiguous()
     _check_aligned(x=x, w_ih2=w_ih2, w_hh2=w_hh2, b2=b2)
     return x, w_ih2, b2, w_hh2, lens
+
+
+def _rows_steps(x: torch.Tensor, time_major: bool) -> Tuple[int, int]:
+    """(rows, steps) of a row-step tensor: [R, T, ...], or [T, R, ...]
+    ``time_major``."""
+    return (x.shape[1], x.shape[0]) if time_major else (x.shape[0], x.shape[1])
 
 
 def _check_aligned(**tensors: torch.Tensor) -> None:
@@ -764,7 +822,7 @@ def _input_product(products, stream: int, x: torch.Tensor, w_ih2: torch.Tensor,
 
 
 def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
-                  w_hh2: torch.Tensor, lens: Optional[torch.Tensor]):
+                  w_hh2: torch.Tensor, lens: Optional[torch.Tensor], time_major: bool = False):
     """The training forward's launches on the current stream: the input
     product P = x @ [W_ih[0] | W_ih[1]] + b into ``pre``, then the recurrent
     scan, which overwrites ``pre`` with the full gate pre-activations; one
@@ -773,15 +831,17 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     x's type. fp32: the 3xTF32 product and csrc/bilstm2_resid.cu's scan.
     bf16: x as it is through the bf16-operand product, then the serving
     scan's bf16 training mode (csrc/bilstm2_serve.cu, mode 3: h @ W_hh in
-    bf16 mma.sync on W_hh in :func:`serve_weight_layout_bf16`'s order)."""
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
-    B, T, F = x.shape
+    bf16 mma.sync on W_hh in :func:`serve_weight_layout_bf16`'s order).
+    ``time_major``: x [T, B, F] and every row-step tensor [T, B, ...], the
+    scan's time-major instantiation."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, time_major)
+    B, T = _rows_steps(x, time_major)
     H = w_hh2.shape[1]
     low = x.dtype != torch.float32
-    out0 = torch.empty(B, T, H, dtype=x.dtype, device=x.device)
+    out0 = torch.empty(*x.shape[:2], H, dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0)
     streams = tuple(torch.empty_like(out0) for _ in range(6))
-    pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
+    pre = torch.empty(*x.shape[:2], 2, 4 * H, dtype=torch.float32, device=x.device)
     if B and T:
         w_res = (serve_weight_layout_bf16 if low else resid_weight_layout)(w_hh2)
         plan = _plan("serve_resid" if low else "resid", B, H, x.device, dtype=x.dtype)
@@ -789,12 +849,12 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _input_product(products, stream, x if low else x.float(), w_ih2, b2, pre, bf16=low)
-            # [B, T, 2, 4H]: a direction's gates 4H on, a row-step's 8H on;
-            # direction 1 reversed
+            # [B, T, 2, 4H] (or [T, B, 2, 4H]): a direction's gates 4H on, a
+            # row-step's 8H on; direction 1 reversed
             scan = lib.bilstm2_serve_resid_scan if low else lib.bilstm2_resid_scan
             rc = scan(plan.height, pre.data_ptr(), w_res.data_ptr(), _ptr(lens), out0.data_ptr(),
                       out1.data_ptr(), *(t.data_ptr() for t in streams), 4 * H, 8 * H, 1, 2, B, T,
-                      H, stream)
+                      H, int(time_major), stream)
         which = "serve" if low else "resid"
         _raise_on(rc, f"bilstm2 {which} resid scan kernel", lib, f"bilstm2_{which}_error_string")
         entry.launches += 1
@@ -803,7 +863,7 @@ def _launch_resid(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
 
 def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                   w_hh2: torch.Tensor, lens: Optional[torch.Tensor], bf16_product: bool = False,
-                  side_by_side: bool = False, v2: bool = False):
+                  side_by_side: bool = False, v2: bool = False, time_major: bool = False):
     """The serving route (unmasked and masked, fp32 or bf16 streams) on the
     current stream: the input product P into a [B, T, 2, 4H] fp32 buffer
     (bf16 x upcast, exactly, for the 3xTF32 kernel; with ``bf16_product``
@@ -814,22 +874,27 @@ def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
     (unmasked only). With ``v2`` the bf16 scan rounds as the manual-DMA TPU
     kernel does (fp32 rounds nowhere: the same scan). Raises on anything the
     kernels do not take. Returns (out0, out1), or with ``side_by_side`` the
-    [B, T, 2H]."""
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
-    B, T, F = x.shape
+    [B, T, 2H]. ``time_major`` (not with ``side_by_side`` or ``v2``): x [T,
+    B, F], P and the outputs [T, B, ...], the scan's time-major
+    instantiation."""
+    if time_major and (side_by_side or v2):
+        raise ValueError("the time-major serving scan writes the outputs apart, rounded as h")
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, time_major)
+    B, T = _rows_steps(x, time_major)
     H = w_hh2.shape[1]
     low = x.dtype != torch.float32
     if side_by_side:  # direction 1's units H elements on, a row-step 2H on
         out = torch.empty(B, T, 2 * H, dtype=x.dtype, device=x.device)
         ptrs = (out.data_ptr(), out.data_ptr() + H * out.element_size())
     else:
-        out = tuple(torch.empty(B, T, H, dtype=x.dtype, device=x.device) for _ in range(2))
+        out = tuple(torch.empty(*x.shape[:2], H, dtype=x.dtype, device=x.device)
+                    for _ in range(2))
         ptrs = tuple(o.data_ptr() for o in out)
     if B and T:
         w_frag = (serve_weight_layout_bf16 if low else serve_weight_layout)(w_hh2)
         plan = _plan("serve", B, H, x.device, dtype=x.dtype)
         products, lib = _library_products(), _library_serve()
-        pre = torch.empty(B, T, 2, 4 * H, dtype=torch.float32, device=x.device)
+        pre = torch.empty(*x.shape[:2], 2, 4 * H, dtype=torch.float32, device=x.device)
         code = _V2_CODE if v2 and low else _DTYPE_CODES[x.dtype]
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -839,7 +904,8 @@ def _launch_serve(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                 _input_product(products, stream, x.float(), w_ih2, b2, pre)
             rc = lib.bilstm2_serve_scan(plan.height, code, pre.data_ptr(), w_frag.data_ptr(),
                                         _ptr(lens), *ptrs, 4 * H, 8 * H,
-                                        2 * H if side_by_side else H, 1, 2, B, T, H, stream)
+                                        2 * H if side_by_side else H, 1, 2, B, T, H,
+                                        int(time_major), stream)
         _raise_on(rc, "bilstm2 serving scan kernel", lib, "bilstm2_serve_error_string")
         entry.launches += 1
     return out
@@ -892,7 +958,7 @@ def _launch_serve_dense(entry, x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.T
 
 def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
                      w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
-                     lens: Optional[torch.Tensor]):
+                     lens: Optional[torch.Tensor], time_major: bool = False):
     """The backward's launches (see the module docstring) on the current
     stream; one call adds one to ``entry.launches``. bf16 streams: the scan's
     bf16 mode (dpre @ W_hh^T on the tensor cores, W_hh^T in
@@ -901,9 +967,13 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     bf16 operands as they are (no fp32 copy of x, hp or dpre): dx is one
     bf16-operand product per direction with a bf16 output, rounded once, the
     two added in bf16 (as the TPU kernel's dx0 + dx1), dW_ih and dW_hh the
-    column-layout product's fixed partials."""
-    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens)
-    B, T, F = x.shape
+    column-layout product's fixed partials. ``time_major``: x, the streams,
+    the cotangents and dx [T, B, ...], the scan's time-major instantiation
+    (the products then sum the row-steps in time-major order)."""
+    x, w_ih2, b2, w_hh2, lens = _checked(x, w_ih2, b2, w_hh2, lens, time_major)
+    B, T = _rows_steps(x, time_major)
+    F = x.shape[2]
+    rs = x.shape[:2]  # a row-step tensor's leading dimensions
     H = w_hh2.shape[1]
     G = 4 * H
     M = B * T
@@ -914,21 +984,21 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
     pre = resid[6].contiguous()
     streams = [t.contiguous() for t in (*resid[:6], g0, g1)]
     for t in streams:
-        if t.shape != (B, T, H) or t.dtype != x.dtype or t.device != x.device:
+        if t.shape != (*rs, H) or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"bilstm2 backward: residual streams and cotangents must be "
-                             f"[{B}, {T}, {H}] {x.dtype} on {x.device}; got {tuple(t.shape)} "
+                             f"{[*rs, H]} {x.dtype} on {x.device}; got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
-    if pre.shape != (B, T, 2, G) or pre.dtype != torch.float32 or pre.device != x.device:
-        raise ValueError(f"bilstm2 backward: pre must be [{B}, {T}, 2, {G}] float32 on "
+    if pre.shape != (*rs, 2, G) or pre.dtype != torch.float32 or pre.device != x.device:
+        raise ValueError(f"bilstm2 backward: pre must be {[*rs, 2, G]} float32 on "
                          f"{x.device}; got {tuple(pre.shape)} {pre.dtype} on {pre.device}")
     _check_aligned(**dict(zip(("hp0", "cp0", "tc0", "hp1", "cp1", "tc1", "g0", "g1"), streams)),
                    pre=pre)
     hp0, cp0, tc0, hp1, cp1, tc1, g0, g1 = streams
     if M == 0:
-        return (torch.zeros(B, T, F, dtype=x.dtype, device=x.device), torch.zeros_like(w_ih2),
+        return (torch.zeros(*rs, F, dtype=x.dtype, device=x.device), torch.zeros_like(w_ih2),
                 torch.zeros_like(b2), torch.zeros_like(w_hh2))
     # pre stays as saved: a second backward gives the same; bf16 dpre is bf16
-    dpre = torch.empty(B, T, 2, G, dtype=x.dtype, device=x.device)
+    dpre = torch.empty(*rs, 2, G, dtype=x.dtype, device=x.device)
     if low:
         w_split = bwd_weight_layout_bf16(w_hh2)
     else:  # CTA (d, c)'s rows of W_hh[d]^T: [4 gates, H/2 units of half c, H k]
@@ -943,7 +1013,8 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
         rc = lib.bilstm2_bwd_scan(plan.height, _DTYPE_CODES[x.dtype], pre.data_ptr(),
                                   dpre.data_ptr(), cp0.data_ptr(), tc0.data_ptr(), g0.data_ptr(),
                                   cp1.data_ptr(), tc1.data_ptr(), g1.data_ptr(),
-                                  w_split.data_ptr(), _ptr(lens), _ptr(dbpart), B, T, H, stream)
+                                  w_split.data_ptr(), _ptr(lens), _ptr(dbpart), B, T, H,
+                                  int(time_major), stream)
         _raise_on(rc, "bilstm2 backward scan kernel", lib, "bilstm2_bwd_error_string")
         if low:
             w_ih_t = w_ih_t.bfloat16()
@@ -951,13 +1022,13 @@ def _launch_backward(entry, x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
             for d in (0, 1):  # dpre_d: 4H columns at d 4H of the 8H-wide rows
                 _gemm_bf16(products, stream, dpre, d * G, w_ih_t[d * G:(d + 1) * G], M, F, None,
                            dxs, d * M * F, F, lda=2 * G)
-            dx = (dxs[0] + dxs[1]).view(B, T, F)
+            dx = (dxs[0] + dxs[1]).view(*rs, F)
             dw_ih = _gemm_bf16_col(products, stream, x, 0, F, dpre, 0, 2 * G, M, F, 2 * G)
             dw_hh = [_gemm_bf16_col(products, stream, hp, 0, H, dpre, d * G, 2 * G, M, H, G)
                      for d, hp in ((0, hp0), (1, hp1))]
             db = _colsum(products, stream, dbpart, 0, 2 * G, dbpart.shape[0], 2 * G)
         else:
-            dx = torch.empty(B, T, F, dtype=torch.float32, device=x.device)
+            dx = torch.empty(*rs, F, dtype=torch.float32, device=x.device)
             _gemm(products, stream, False, [(dpre, 0, 2 * G, w_ih_t, 0, F, 2 * G)], M, F,
                   out=dx, ldc=F)
             dw_ih = _gemm(products, stream, True, [(x, 0, F, dpre, 0, 2 * G, M)], F, 2 * G)
@@ -992,7 +1063,7 @@ def _library_resid() -> ctypes.CDLL:
     """Build (at first use) and load the training forward's scan."""
     lib = _build.load_library("bilstm2_resid")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.bilstm2_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 7 + [p]
     lib.bilstm2_resid_scan.restype = i
     lib.bilstm2_resid_max_clusters.argtypes = [i, i, p]
     lib.bilstm2_resid_max_clusters.restype = i
@@ -1006,9 +1077,9 @@ def _library_serve() -> ctypes.CDLL:
     """Build (at first use) and load the serving scan."""
     lib = _build.load_library("bilstm2_serve")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_serve_scan.argtypes = [i, i] + [p] * 5 + [ctypes.c_longlong] + [i] * 7 + [p]
+    lib.bilstm2_serve_scan.argtypes = [i, i] + [p] * 5 + [ctypes.c_longlong] + [i] * 8 + [p]
     lib.bilstm2_serve_scan.restype = i
-    lib.bilstm2_serve_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.bilstm2_serve_resid_scan.argtypes = [i] + [p] * 11 + [ctypes.c_longlong] + [i] * 7 + [p]
     lib.bilstm2_serve_resid_scan.restype = i
     lib.bilstm2_serve_cs_scan.argtypes = [i, i] + [p] * 6 + [ctypes.c_longlong] + [i] * 4 + [p]
     lib.bilstm2_serve_cs_scan.restype = i
@@ -1024,7 +1095,7 @@ def _library_bwd() -> ctypes.CDLL:
     """Build (at first use) and load the backward's scan."""
     lib = _build.load_library("bilstm2_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm2_bwd_scan.argtypes = [i, i] + [p] * 11 + [i, i, i, p]
+    lib.bilstm2_bwd_scan.argtypes = [i, i] + [p] * 11 + [i, i, i, i, p]
     lib.bilstm2_bwd_scan.restype = i
     lib.bilstm2_bwd_max_clusters.argtypes = [i, i, i, p]
     lib.bilstm2_bwd_max_clusters.restype = i
@@ -1089,9 +1160,28 @@ def _forward_bm_impl(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
                   w_ih2, b2, w_hh2, None)
 
 
+def _forward_tm_impl(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                     w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bilstm2_forward_tm`'s operator body."""
+    if x.device.type == "cpu":
+        return bilstm2_tm_reference(x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_serve, bilstm2_forward_tm, time_major=True), x,
+                  w_ih2, b2, w_hh2, None)
+
+
+def _forward_masked_tm_impl(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
+                            b2: torch.Tensor, w_hh2: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bilstm2_forward_masked_tm`'s operator body."""
+    if x.device.type == "cpu":
+        return bilstm2_tm_reference(x, w_ih2, b2, w_hh2, lens)
+    return padded(functools.partial(_launch_serve, bilstm2_forward_masked_tm, time_major=True),
+                  x, w_ih2, b2, w_hh2, lens)
+
+
 def _pair_fake(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out0, out1), each [B, T, H] in x's type."""
+    """(out0, out1), each [B, T, H] (time-major [T, R, H]) in x's type."""
     B, T = x.shape[:2]
     H = w_hh2.shape[1]
     return x.new_empty(B, T, H), x.new_empty(B, T, H)
@@ -1113,6 +1203,9 @@ _FORWARD_OP = serving_op("bilstm2_forward", _forward_impl, _pair_fake)
 _FORWARD_MASKED_OP = serving_op("bilstm2_forward_masked", _forward_masked_impl, _masked_fake)
 _DENSE_FORWARD_OP = serving_op("bilstm2_dense_forward", _dense_forward_impl, _dense_fake)
 _FORWARD_BM_OP = serving_op("bilstm2_forward_bm", _forward_bm_impl, _pair_fake)
+_FORWARD_TM_OP = serving_op("bilstm2_forward_tm", _forward_tm_impl, _pair_fake)
+_FORWARD_MASKED_TM_OP = serving_op("bilstm2_forward_masked_tm", _forward_masked_tm_impl,
+                                   _masked_fake)
 
 
 def bilstm2_forward(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
@@ -1210,9 +1303,67 @@ def bilstm2_backward_masked(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1:
                            (g0, g1), w_ih2, b2, w_hh2, lens)
 
 
+def bilstm2_forward_tm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                       w_hh2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference, time-major: x [T, R, F] -> (out0, out1), each [T, R, H],
+    both in forward time (pallas_lstm.py:1028). The operator
+    ``tss_dprnn_tpu_torch::bilstm2_forward_tm``."""
+    return _FORWARD_TM_OP(x, w_ih2, b2, w_hh2)
+
+
+def bilstm2_forward_masked_tm(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
+                              b2: torch.Tensor, w_hh2: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask-aware inference, time-major: x [T, R, F], lens [R] -> (out0,
+    out1), each [T, R, H], the contract of :func:`bilstm2_forward_masked`
+    (pallas_lstm.py:1039). The operator
+    ``tss_dprnn_tpu_torch::bilstm2_forward_masked_tm``."""
+    return _FORWARD_MASKED_TM_OP(x, lens, w_ih2, b2, w_hh2)
+
+
+def bilstm2_forward_resid_tm(x: torch.Tensor, w_ih2: torch.Tensor, b2: torch.Tensor,
+                             w_hh2: torch.Tensor
+                             ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
+    """Training forward, time-major (pallas_lstm.py:1213): x [T, R, F] ->
+    ((out0, out1), resid), :func:`bilstm2_forward_resid`'s outputs and
+    streams with every row-step tensor [T, R, ...] (pre [T, R, 2, 4H])."""
+    if x.device.type == "cpu":
+        return bilstm2_resid_tm_reference(x, w_ih2, b2, w_hh2)
+    return padded(functools.partial(_launch_resid, bilstm2_forward_resid_tm, time_major=True), x,
+                  w_ih2, b2, w_hh2, None)
+
+
+def bilstm2_forward_resid_masked_tm(x: torch.Tensor, lens: torch.Tensor, w_ih2: torch.Tensor,
+                                    b2: torch.Tensor, w_hh2: torch.Tensor
+                                    ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Resid]:
+    """Mask-aware training forward, time-major (pallas_lstm.py:1056): the
+    contract of :func:`bilstm2_forward_resid_masked` with every row-step
+    tensor [T, R, ...]."""
+    if x.device.type == "cpu":
+        return bilstm2_resid_tm_reference(x, w_ih2, b2, w_hh2, lens)
+    return padded(functools.partial(_launch_resid, bilstm2_forward_resid_masked_tm,
+                                    time_major=True), x, w_ih2, b2, w_hh2, lens)
+
+
+def bilstm2_backward_tm(x: torch.Tensor, resid: Resid, g0: torch.Tensor, g1: torch.Tensor,
+                        w_ih2: torch.Tensor, b2: torch.Tensor, w_hh2: torch.Tensor,
+                        lens: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of the time-major training forwards (pallas_lstm.py:1366):
+    x [T, R, F], their streams, the cotangents g0, g1 [T, R, H] -> (dx [T, R,
+    F], dw_ih2, db2, dw_hh2); with ``lens`` [R] the masked backward's
+    contract (:func:`bilstm2_backward_masked`)."""
+    if x.device.type == "cpu":
+        return bilstm2_backward_tm_reference(x, resid, g0, g1, w_ih2, b2, w_hh2, lens)
+    return padded_backward(functools.partial(_launch_backward, bilstm2_backward_tm,
+                                             time_major=True), x, resid, (g0, g1), w_ih2, b2,
+                           w_hh2, lens)
+
+
 ENTRIES = (bilstm2_forward, bilstm2_forward_masked, bilstm2_dense_forward, bilstm2_forward_bm,
            bilstm2_forward_resid, bilstm2_forward_resid_masked, bilstm2_backward,
-           bilstm2_backward_masked)
+           bilstm2_backward_masked, bilstm2_forward_tm, bilstm2_forward_masked_tm,
+           bilstm2_forward_resid_tm, bilstm2_forward_resid_masked_tm, bilstm2_backward_tm)
 # the product and column-sum kernels, launched inside the entries (and
 # ops/lstm.py's); counted apart from the entries
 PRODUCTS = {"products_gemm": _gemm, "products_gemm_bf16": _gemm_bf16,

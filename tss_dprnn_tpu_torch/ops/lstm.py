@@ -423,20 +423,20 @@ def _launch_scan(entry, mode: int, x: torch.Tensor, w_ih: torch.Tensor, b: torch
                 return [t[d0 + min(d, n - 1)].data_ptr() for d in range(2)]
 
             plan = _plan(which, R, H, x.device, dirs=n, dtype=dt)
-            scan = (n, R, T, H, stream)
+            scan = (n, R, T, H)  # then the batch-major layout (0), where a scan takes one
             if resid:
                 run = lib.bilstm2_resid_scan if fp32_resid else lib.bilstm2_serve_resid_scan
                 hcs_ptrs = [t[d0 + min(d, n - 1)].data_ptr() for d in range(2) for t in hcs]
                 rc = run(plan.height, pre[d0].data_ptr(), w_res[d0].data_ptr(), None,
-                         *per_dir(out), *hcs_ptrs, *layout, 0, *scan)
+                         *per_dir(out), *hcs_ptrs, *layout, 0, *scan, 0, stream)
             elif cs:
                 rc = lib.bilstm2_serve_cs_scan(plan.height, _DTYPE_CODES[dt], pre[d0].data_ptr(),
                                                w_res[d0].data_ptr(), *per_dir(out),
-                                               *per_dir(hcs[0]), *layout, *scan)
+                                               *per_dir(hcs[0]), *layout, *scan, stream)
             else:  # outputs [D, R, T, H]: a row-step H on
                 rc = lib.bilstm2_serve_scan(plan.height, _V2_CODE if v2 else _DTYPE_CODES[dt],
                                             pre[d0].data_ptr(), w_res[d0].data_ptr(), None,
-                                            *per_dir(out), *layout, H, 0, *scan)
+                                            *per_dir(out), *layout, H, 0, *scan, 0, stream)
             _raise_on(rc, f"lstm {which} scan kernel", lib, f"bilstm2_{name}_error_string")
     entry.launches += 1
     return out, streams

@@ -12,6 +12,7 @@ plain ops, which no family calls.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -69,8 +70,11 @@ def chan_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def global_channel_norm_cl(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                           eps: float, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           eps: float, mask: Optional[torch.Tensor] = None,
+                           batch_axis: int = 0) -> torch.Tensor:
     """x [B, *spatial, C]; mask broadcastable to x ({0,1}) or None.
+    ``batch_axis``: the axis of the examples, whose statistics are apart (1
+    for a time-major [T, B, *, C]; ``tss_dprnn_tpu/ops/norms.py:113``).
 
     Statistics are computed in fp32 whatever x's type; the result has x's
     type. Masked positions come out exactly zero. A bf16 x takes the JAX
@@ -80,7 +84,7 @@ def global_channel_norm_cl(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Ten
     per-example fp32 scale and shift, both rounded to bf16, and
     ``x * scale + shift`` in bf16.
     """
-    dims = tuple(range(1, x.ndim))
+    dims = tuple(i for i in range(x.ndim) if i != batch_axis)
     if x.dtype == torch.bfloat16:
         return _channel_norm_bf16(x, gamma, beta, eps, mask, dims)
     xf = x.float()
@@ -101,7 +105,7 @@ def _channel_norm_bf16(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                        mask: Optional[torch.Tensor], dims) -> torch.Tensor:
     m = None if mask is None else torch.broadcast_to(mask, x.shape)
     xm = x if m is None else x * m.to(x.dtype)
-    n = (float(x[0].numel()) if m is None
+    n = (float(math.prod(x.shape[d] for d in dims)) if m is None
          else m.float().sum(dim=dims, keepdim=True).clamp_min(1.0))
     xf = xm.float()
     mean = xf.sum(dim=dims, keepdim=True) / n

@@ -1,6 +1,6 @@
 """Recurrent op layer
-(counterpart of ``tss_dprnn_tpu/ops/rnn.py:112-122, 140-303, 374-481,
-574-652, 693-764, 782-838``).
+(counterpart of ``tss_dprnn_tpu/ops/rnn.py:93-122, 140-303, 374-560,
+574-838``).
 
 A bidirectional DPRNN scan feeds a Dense(2H -> N), so :func:`lstm_pair`
 returns the per-direction pair and leaves the concatenation out. Without
@@ -26,6 +26,17 @@ goes through :func:`lstm_stack`, the counterpart of ``_recurrence`` at
 without gradients, :class:`LSTMStack` over its residual mode and backward
 kernel with them. :func:`lstm` is the JAX package's functional entry over
 both.
+
+The time-major lane (JAX ``ops/rnn.py:93-109, 485-560, 655-690,
+767-779``): :func:`lstm_pair_tm` and :func:`lstm_tm` take x [T, R, F] and
+give [T, R, H] (the pair) or [T, R, 2H], through the time-major entries of
+``ops/bilstm2.py`` (with gradients :class:`BiLSTM2TM` /
+:class:`BiLSTM2MaskedTM`); ``TSS_FUSED_DENSE`` and ``TSS_BM`` do not apply
+there, as in JAX. The DPRNN core takes it where
+:func:`lstm_time_major_available` says so: a bidirectional scan without
+``lstm_save_every``, and the ``lstm_time_major(on)`` context on, or
+``TSS_TM=1`` (``TSS_TM=0`` turns it off whatever the context says). The
+serving entry points set the context by :func:`serving_time_major`.
 
 Two context variables of the JAX package (``ops/rnn.py:33-86``), which the
 trainer sets around its own steps:
@@ -54,12 +65,17 @@ import torch
 from tss_dprnn_tpu_torch.ops.bilstm2 import (
     bilstm2_backward,
     bilstm2_backward_masked,
+    bilstm2_backward_tm,
     bilstm2_dense_forward,
     bilstm2_forward,
     bilstm2_forward_bm,
     bilstm2_forward_masked,
+    bilstm2_forward_masked_tm,
     bilstm2_forward_resid,
     bilstm2_forward_resid_masked,
+    bilstm2_forward_resid_masked_tm,
+    bilstm2_forward_resid_tm,
+    bilstm2_forward_tm,
 )
 from tss_dprnn_tpu_torch.ops.lstm import (
     lstm_backward,
@@ -72,6 +88,14 @@ from tss_dprnn_tpu_torch.ops.masking import masked_flip
 _LSTM_SAVE_EVERY: contextvars.ContextVar = contextvars.ContextVar("lstm_save_every", default=1)
 _LSTM_IGNORE_LENGTHS: contextvars.ContextVar = contextvars.ContextVar(
     "lstm_ignore_lengths", default=False)
+_LSTM_TM: contextvars.ContextVar = contextvars.ContextVar("lstm_tm", default=False)
+# The serving entry points' layout for the bf16 lane. The JAX Inferencer
+# serves its bf16 lane time-major (a win on the TPU, whose batch-major entry
+# paid a swapaxes around every scan). The port's scans are batch-major
+# natively, and on an H100 the time-major lane served the flagship 2 % slower
+# at batch 8 and at 32 (chip_smoke.py phase 19, PERF.md), so it stays opt-in
+# there (TSS_TM=1).
+SERVE_BF16_TIME_MAJOR = False
 
 
 @contextlib.contextmanager
@@ -92,6 +116,38 @@ def lstm_ignore_lengths(on: bool = True):
         yield
     finally:
         _LSTM_IGNORE_LENGTHS.reset(token)
+
+
+@contextlib.contextmanager
+def lstm_time_major(on: bool = True):
+    """The time-major lane for the DPRNN scans within (see
+    :func:`lstm_time_major_available`)."""
+    token = _LSTM_TM.set(bool(on))
+    try:
+        yield
+    finally:
+        _LSTM_TM.reset(token)
+
+
+def lstm_time_major_available(bidirectional: bool, lengths: Optional[torch.Tensor] = None
+                              ) -> bool:
+    """Whether a scan takes the time-major lane: bidirectional, without
+    segment checkpointing (``lstm_save_every(q > 1)``), and wanted:
+    ``TSS_TM=1`` or ``TSS_TM=0`` in the environment, read at each call, or
+    else the :func:`lstm_time_major` context. Masked scans qualify too
+    (``lengths`` does not decide). JAX's gate also asks for its Pallas
+    backend; the port has one."""
+    env = os.environ.get("TSS_TM", "")
+    want = _LSTM_TM.get() if env == "" else env == "1"
+    return bidirectional and _LSTM_SAVE_EVERY.get() <= 1 and want
+
+
+def serving_time_major(model: torch.nn.Module):
+    """The serving entry points' context: :func:`lstm_time_major` on for a
+    model that computes in bf16 when :data:`SERVE_BF16_TIME_MAJOR` says so
+    (the JAX Inferencer's default, ``inference/inferencer.py:98-104``)."""
+    bf16 = any(getattr(m, "dtype", None) == torch.bfloat16 for m in model.modules())
+    return lstm_time_major(SERVE_BF16_TIME_MAJOR and bf16)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -205,6 +261,71 @@ class BiLSTM2Dense(torch.autograd.Function):
         grads = bilstm2_backward(x, tuple(resid), gy0 @ wo2[0].T, gy1 @ wo2[1].T, w_ih2, b2,
                                  w_hh2)
         return (*_as_inputs(grads, x, w_ih2, b2, w_hh2), dwo2)
+
+
+class BiLSTM2TM(torch.autograd.Function):
+    """Time-major :class:`BiLSTM2`: (x [T, R, F], w_ih2, b2, w_hh2) ->
+    (out_f, out_b) [T, R, H], the counterpart of ``_recurrence3_tm``'s VJP
+    (JAX ``ops/rnn.py:485-519``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih2, b2, w_hh2):
+        outs, resid = bilstm2_forward_resid_tm(x, w_ih2, b2, w_hh2)
+        ctx.save_for_backward(x, w_ih2, b2, w_hh2, *resid)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g0, g1):
+        x, w_ih2, b2, w_hh2, *resid = ctx.saved_tensors
+        return _as_inputs(bilstm2_backward_tm(x, tuple(resid), g0, g1, w_ih2, b2, w_hh2),
+                          x, w_ih2, b2, w_hh2)
+
+
+class BiLSTM2MaskedTM(torch.autograd.Function):
+    """Time-major :class:`BiLSTM2Masked`: (x [T, R, F], lens [R], w_ih2, b2,
+    w_hh2) -> (out_f, out_b) [T, R, H], the counterpart of
+    ``_recurrence3_masked_tm``'s VJP (JAX ``ops/rnn.py:523-560``); lens gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, lens, w_ih2, b2, w_hh2):
+        outs, resid = bilstm2_forward_resid_masked_tm(x, lens, w_ih2, b2, w_hh2)
+        ctx.save_for_backward(x, lens, w_ih2, b2, w_hh2, *resid)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g0, g1):
+        x, lens, w_ih2, b2, w_hh2, *resid = ctx.saved_tensors
+        dx, dw_ih2, db2, dw_hh2 = _as_inputs(
+            bilstm2_backward_tm(x, tuple(resid), g0, g1, w_ih2, b2, w_hh2, lens),
+            x, w_ih2, b2, w_hh2)
+        return dx, None, dw_ih2, db2, dw_hh2
+
+
+def lstm_pair_tm(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                 lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Time-major :func:`lstm_pair`: x [T, R, F] -> (out_f, out_b), each [T,
+    R, H]; ``lengths`` [R] as there (``lstm_ignore_lengths`` drops them).
+    For callers that :func:`lstm_time_major_available` admits: when
+    autograd records the time-major training entries run
+    (:class:`BiLSTM2TM`, :class:`BiLSTM2MaskedTM`), otherwise the inference
+    ones."""
+    lengths = _read_lengths(lengths)
+    w_ih2, b2, w_hh2 = stacked
+    if _records_grad(x, w_ih2, b2, w_hh2):
+        if lengths is None:
+            return BiLSTM2TM.apply(x, w_ih2, b2, w_hh2)
+        return BiLSTM2MaskedTM.apply(x, lengths, w_ih2, b2, w_hh2)
+    if lengths is None:
+        return bilstm2_forward_tm(x, w_ih2, b2, w_hh2)
+    return bilstm2_forward_masked_tm(x, lengths, w_ih2, b2, w_hh2)
+
+
+def lstm_tm(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+            ) -> torch.Tensor:
+    """Bidirectional LSTM over time-major [T, R, F] -> [T, R, 2H], full
+    length (JAX ``lstm_tm``): :func:`lstm_pair_tm` concatenated."""
+    return torch.cat(lstm_pair_tm(x, stacked), dim=-1)
 
 
 def lstm_pair(x: torch.Tensor, stacked: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
