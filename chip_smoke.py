@@ -304,6 +304,28 @@ Phases, each of which fails the script (nonzero exit, no result line):
    on 3 requests, bit for bit the eager forward on the same padding.
    Phase 1 reports the scans' registers by layout (the batch-major ones
    against BATCH_MAJOR_REGISTERS) and fails on any spill.
+20. data parallelism ([scaling], ``parallel``) on phase 13's corpus, each
+   run under ``python -m torch.distributed.run --standalone`` over this
+   script's ``--ddp-child`` (which runs the CLI and writes its launches,
+   counted from 0 in that process): (a) cli.train on configs/train_tss.yaml
+   as phase 13 runs it, at world size 1 on NCCL, so through
+   DistributedDataParallel: its launches equal phase 13's, its checkpoint's
+   parameter moves against phase 13's >= DDP_MOVE_SNR_DB (not bit for bit:
+   cuDNN's convolution weight gradients vary from run to run), its ms/step
+   printed beside phase 13's; in the same process a 5 x 3 s step through DDP
+   and without, in turns, its gradients through DDP bit for bit the model's
+   own under cudnn.deterministic, and the gradients two passes differ in
+   under cuDNN's defaults; (b) cli.test --data-parallel 1 under the launcher
+   (phase 13's si_sdr run: 12 serving scans per batch with their products),
+   its rows against phase 13's; (c) two processes on the one card through
+   gloo (NCCL takes one process per card): DDP_STEPS flagship TSS steps at
+   global batch DDP_BATCH (each process 12 + 12 training kernels a step),
+   both processes' parameters bit for bit equal, against one process over
+   the same batches (losses within DDP_LOSS_REL, first-step gradients >=
+   DDP_GRAD_SNR_DB, parameter moves >= DDP_MOVE_SNR_DB), then cli.test
+   --data-parallel 2: proc0/ and proc1/ partition the utterances, the merged
+   rows against phase 13's. Phase 17 leaves phase 13's corpus and best
+   checkpoint for it; it removes them.
 
 Every serving count includes the input products: each
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
@@ -2629,8 +2651,8 @@ def phase_cli(torch, dev):
         del v["rows"]
     results["test_bss"] = dict(bss, device_pesq_vs_host=lane)
     # the checkpoints (~90 MB): checked, then removed so that chiprun_out/
-    # stays small, but the best one, which phase 17 serves in both lanes;
-    # phases 15 and 17 read the corpus, and phase 17 removes it
+    # stays small, but the best one, which phases 17 and 20 read;
+    # phases 15, 17 and 20 read the corpus, and phase 20 removes it
     kept = os.path.join(root, "phase13_best", os.path.basename(best))
     os.makedirs(os.path.dirname(kept), exist_ok=True)
     shutil.move(best, kept)
@@ -3452,8 +3474,8 @@ def phase_ira_rawnet(torch, dev, smi, manifests):
     else:
         raise AssertionError("cli.test loaded a share_blocks=3 checkpoint under share_blocks=0")
     results["cli"] = cli
-    # the rest: checked, then removed so that chiprun_out/ stays small (phase
-    # 17 reads the corpus and removes it)
+    # the rest: checked, then removed so that chiprun_out/ stays small (phases
+    # 17 and 20 read the corpus, and phase 20 removes it)
     for path in (os.path.dirname(share3),
                  os.path.join(OUT_DIR, "ira_rawnet_ckpt_unused"),
                  os.path.join(OUT_DIR, "families_ckpt_unused")):
@@ -4446,9 +4468,8 @@ def phase_bf16(torch, dev, smi, cli_state, varlen_state):
                                           for lane, v in lanes.items()},
                       "si_sdr_mean_gap_db": mean_gap, "si_sdr_worst_row_gap_db":
                           max(map(abs, gap))}
-    # phase 13's corpus and checkpoint were kept for this phase
-    for path in (ckpt_dir, os.path.join(root, "corpus"), os.path.dirname(fp32_ckpt)):
-        shutil.rmtree(path, ignore_errors=True)
+    # phase 13's corpus and checkpoint stay for phase 20, which removes them
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # -- (f): variable-length bf16 training through cli.train on phase 16's
     # corpus: the masked bf16 training modes' path
@@ -5650,6 +5671,408 @@ def phase_time_major(torch, dev, smi, ckpt):
     return results
 
 
+# data parallelism (phase 20): torch.distributed.run over the CLIs and the
+# trainer. NCCL takes one process per card, so on one card world size 1 runs
+# on NCCL and two processes share the card through gloo (CUDA tensors)
+DDP_CHILD = os.path.abspath(__file__)  # the script torch.distributed.run starts
+DDP_STEPS = 3
+DDP_BATCH = 4  # (c)'s global batch: 2 crops of 3 s per process
+# (c): two processes against one over the same global batches. The losses
+# (the processes' mean) within this of one process's; the first step's
+# gradients (averaged by DDP, clipped) at DDP_GRAD_SNR_DB of one process's:
+# fp32 sums over halves of the batch and the all-reduce's order; the
+# parameters' moves over DDP_STEPS Adam steps at DDP_MOVE_SNR_DB (Adam moves
+# an element by ~lr whatever its gradient's size, so an element whose
+# gradient is rounding noise around 0 may move the other way)
+DDP_LOSS_REL = 1e-5
+DDP_GRAD_SNR_DB = 60.0
+DDP_MOVE_SNR_DB = 30.0
+DDP_TIMEOUT = 600
+
+
+def _torchrun(nproc: int, jobs, out: str, argvs, gloo: bool = False):
+    """``python -m torch.distributed.run --standalone --nproc_per_node nproc``
+    over this script's ``--ddp-child``, which runs ``jobs`` in turn, each on
+    its arguments in ``argvs``; its output to ``out``. Returns each
+    process's results by job and the wall seconds. Raises with the output's
+    tail when it fails; on a timeout stops the launcher, which stops its
+    processes."""
+    import signal
+
+    tag = "+".join(jobs)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), DDP_CHILD, "--ddp-child", tag, out] + (["--gloo"] if gloo else []) + \
+        [a for argv in argvs for a in ("--", *argv)]
+    path = os.path.join(out, f"{tag}_{nproc}.log")
+    # every process is on this host: gloo on the loopback device (the address
+    # the host name resolves to may not carry gloo's pairs)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=HERE, env=env,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DDP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.terminate()  # the launcher passes SIGTERM on to its processes
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(path) as f:
+            raise AssertionError(f"torch.distributed.run ({nproc} x {tag}) exited {rc}:\n"
+                                 f"{f.read()[-6000:]}")
+    results = []
+    for rank in range(nproc):
+        with open(os.path.join(out, f"{tag}_rank{rank}of{nproc}.json")) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def _ddp_steps(torch, dev, out):
+    """DDP_STEPS flagship TSS train steps over global batches of DDP_BATCH
+    crops (this process's rows of each, in a process group): the state after
+    them and the first step's gradients to ``out``; each step's ms and loss."""
+    from tss_dprnn_tpu_torch import parallel
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    model = init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(SEED + 60))
+    trainer = TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=os.path.join(
+        out, "unused_chkpts")), device=dev)
+    batches = loader.TrainLoader(Crops(SEED + 61, DDP_BATCH * DDP_STEPS), DDP_BATCH,
+                                 loader.collate_spe, seed=SEED, prefetch=0)
+    ms, losses, grads = [], [], None
+    for _, batch in zip(range(DDP_STEPS), batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+        if grads is None:
+            grads = {k: p.grad.detach().cpu().clone() for k, p in
+                     trainer.model.named_parameters()}
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    path = os.path.join(out, f"steps_rank{parallel.process_index()}of"
+                             f"{parallel.process_count()}.pt")
+    torch.save({"state": state, "grads": grads}, path)
+    return {"ms": ms, "losses": losses, "path": path,
+            "ddp": trainer.ddp is not None}
+
+
+def _ddp_exact(torch):
+    """In a process group of one (NCCL): a flagship 5 x 3 s train step
+    through DDP and through the model alone, in turns (ms each); one
+    forward and backward through each with cuDNN deterministic (are the
+    gradients equal bit for bit?); and two through the model alone with
+    cuDNN's defaults (the gradients that differ, and by how much)."""
+    from tss_dprnn_tpu_torch import parallel
+    from tss_dprnn_tpu_torch.data import loader
+    from tss_dprnn_tpu_torch.device import resolve_device
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.training import TrainerSpe
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    parallel.initialize_distributed()
+    model = init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(SEED + 62))
+    trainer = TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=os.path.join(
+        OUT_DIR, "scaling", "unused_chkpts")), device=resolve_device())
+    ddp = trainer.ddp
+    crops = Crops(SEED + 63, TRAIN_BATCH)
+    batch = loader.collate_spe([crops[i] for i in range(TRAIN_BATCH)])
+
+    def step(through):
+        trainer.ddp = ddp if through else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def grads(through):
+        trainer.ddp = ddp if through else None
+        trainer.model.train()
+        trainer.optimizer.zero_grad()
+        with trainer._scans(train=True):
+            loss, _ = trainer._forward_loss(trainer._to_device(batch), train=True)
+            loss.backward()
+        return {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+
+    for through in (True, False, True, False):  # warm-up
+        step(through)
+    ms = {True: [], False: []}
+    for _ in range(2):
+        for through in (True, False, False, True):
+            ms[through].append(step(through))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        via_ddp, alone = grads(True), grads(False)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    first, second = grads(False), grads(False)
+    trainer.ddp = ddp
+    parallel.leave_group()
+    return {"ms_ddp": ms[True], "ms_plain": ms[False],
+            "grads_bitwise": all(torch.equal(via_ddp[k], v) for k, v in alone.items()),
+            "repeat_differing": {k: float((first[k] - v).abs().max())
+                                 for k, v in second.items() if not torch.equal(first[k], v)},
+            "n_grads": len(first)}
+
+
+def ddp_child(argv) -> int:
+    """One process that phase 20's torch.distributed.run starts: ``JOBS OUT
+    [--gloo] -- ARGS [-- ARGS ...]``, one ARGS per job of the comma-separated
+    JOBS. With ``--gloo`` it joins the group through gloo on the card first
+    (two processes on one card); then, in turn, ``train`` runs cli.train
+    ARGS, ``test`` cli.test ARGS, ``exact`` the checks of :func:`_ddp_exact`
+    (no ARGS), ``steps`` the flagship steps of (c) on the device ARGS names.
+    Each job's launches, counted from 0 at its start, and
+    what it saw go to OUT/JOBS_rank<r>of<W>.json."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from tss_dprnn_tpu_torch import parallel
+
+    tag, out, rest = argv[0], argv[1], argv[2:]
+    gloo = rest[:1] == ["--gloo"]
+    groups = []
+    for a in rest[int(gloo):]:
+        if a == "--":
+            groups.append([])
+        else:
+            groups[-1].append(a)
+    jobs = tag.split("+")
+    if len(groups) != len(jobs):
+        raise ValueError(f"{len(jobs)} jobs, {len(groups)} argument lists")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if gloo:
+        parallel.initialize_distributed(backend="gloo", device="cuda")
+    results = {}
+    for job, args in zip(jobs, groups):
+        reset_launches()
+        t0 = time.perf_counter()
+        if job == "train":
+            from tss_dprnn_tpu_torch.cli import train as train_cli
+
+            with recorded_training(torch) as rec:
+                train_cli.main(args)
+            ddp = [m for m in rec.lines.messages if m.startswith("DistributedDataParallel over")]
+            result = {"step_ms": rec.step_ms, "epochs": rec.epochs,
+                      "eval_steps": rec.eval_steps, "mixture_passes": rec.mixture_passes,
+                      "ddp": bool(ddp), "ddp_line": ddp}
+        elif job == "test":
+            from tss_dprnn_tpu_torch.cli import test as test_cli
+
+            result = {"final": test_cli.main(args)}
+        elif job == "steps":
+            result = _ddp_steps(torch, args[0], out)
+        elif job == "exact":
+            result = _ddp_exact(torch)
+        else:
+            raise ValueError(f"unknown job {job!r}")
+        torch.cuda.synchronize()
+        results[job] = dict(result, wall_s=time.perf_counter() - t0,
+                            launches=dict(all_launches(), **product_launches()))
+    with open(os.path.join(out, f"{tag}_rank{rank}of{world}.json"), "w") as f:
+        json.dump(dict(results, rank=rank, world=world), f)
+    if gloo:
+        parallel.leave_group()
+    return 0
+
+
+def _move_snr_db(torch, got, want, start):
+    """The SNR of one run's parameter moves (after - ``start``) against
+    another's, over every float tensor."""
+    keys = [k for k, v in want.items() if v.is_floating_point()]
+    moved = torch.cat([(want[k] - start[k]).flatten().double() for k in keys])
+    err = torch.cat([(got[k] - want[k]).flatten().double() for k in keys])
+    return float(10 * math.log10(moved.pow(2).sum() / err.pow(2).sum().clamp_min(1e-300)))
+
+
+def phase_scaling(torch, dev, smi, cli_state):
+    """Phase 20: data parallelism, as the module docstring says."""
+    import shutil
+
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.models.registry import build_model
+    from tss_dprnn_tpu_torch.utils.config import load_config, model_config
+    from tss_dprnn_tpu_torch.utils.weights import init_weights_
+
+    root = os.path.join(OUT_DIR, "scaling")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cli_root = os.path.join(OUT_DIR, "cli")
+    manifests, best = cli_state["manifests"], cli_state["best_checkpoint"]
+    device_args = [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
+    card = ["--device", "cuda:0"] if torch.device(dev).type == "cuda" else device_args
+    results = {"card": smi}
+    torch.cuda.empty_cache()
+
+    def train_argv(ckpt_dir):  # phase 13's cli.train
+        return ["--config", os.path.join(HERE, "configs", "train_tss.yaml"), "--mode",
+                "tss_spe", "--set", f"data.use_generated_train={manifests['train']}",
+                f"data.use_generated_eval={manifests['eval']}", "epochs=2",
+                f"logs.metadata.ids=[{', '.join(map(str, CLI_IDS))}]",
+                f"new_checkpoints_path={ckpt_dir}", *device_args]
+
+    def test_argv(savedir, world, extra):  # phase 13's si_sdr cli.test
+        return ["--config", os.path.join(HERE, "configs", "test_tss.yaml"), "--mode",
+                "tss_spe", "--batch-size", "4", "--n-buckets", "2", "--data-parallel",
+                str(world), "--set", f"data.use_generated_test={manifests['test']}",
+                f"checkpoint_path={best}", f"test_savedir={savedir}", "metrics=[si_sdr]",
+                *extra]
+
+    # -- (a) and (b): cli.train, then cli.test --data-parallel 1, under the
+    # launcher at world size 1 (NCCL), then the checks of _ddp_exact
+    name, plain = os.path.basename(best), cli_state["train"]
+    ckpt_dir = os.path.join(root, "chkpts")
+    (one,), wall = _torchrun(1, ["train", "test", "exact"], root,
+                             [train_argv(ckpt_dir),
+                              test_argv(os.path.join(root, "eval_1"), 1, device_args), []])
+    ddp, exact = one["train"], one["exact"]
+    expect_launches(ddp["launches"], plain["launches"], 1, "cli.train with phase 13's launches")
+    if not ddp["ddp"] or len(ddp["epochs"]) != 4 or \
+            not all(math.isfinite(v) for _, v in ddp["epochs"]):
+        raise AssertionError(f"cli.train: DDP {ddp['ddp']}, epochs {ddp['epochs']}")
+    if name not in os.listdir(ckpt_dir):
+        raise AssertionError(f"cli.train wrote {sorted(os.listdir(ckpt_dir))}, phase 13 kept "
+                             f"{name}")
+    steady = sorted(ddp["step_ms"][1:])
+    ms_step = steady[len(steady) // 2]
+    got = torch.load(os.path.join(ckpt_dir, name), map_location="cpu", weights_only=True)["model"]
+    want = torch.load(best, map_location="cpu", weights_only=True)["model"]
+    shutil.rmtree(ckpt_dir)
+    train_cfg = load_config(train_argv("")[1])  # cli.train's weights, from the config's seed
+    start = init_weights_(build_model(model_config(train_cfg)), torch.Generator().manual_seed(
+        int(train_cfg.get("seed", 0)))).state_dict()
+    held = {"bitwise": all(torch.equal(got[k], v) for k, v in want.items()),
+            "max_diff": max(float((got[k].double() - v.double()).abs().max())
+                            for k, v in want.items()),
+            "move_snr_db": _move_snr_db(torch, got, want, start)}
+    med = {k: sorted(exact[k])[len(exact[k]) // 2] for k in ("ms_ddp", "ms_plain")}
+    log(f"[scaling] (a) cli.train under torch.distributed.run --nproc_per_node 1 "
+        f"({ddp['ddp_line']}; {ddp['wall_s']:.1f} s in the process): train steps "
+        f"{[round(v, 2) for v in ddp['step_ms']]} ms, median after the first {ms_step:.2f} ms "
+        f"against phase 13's {plain['ms_per_step']:.2f} on {smi}; epoch losses "
+        f"{ddp['epochs']} (phase 13: {plain['epochs']}); its {name} against phase 13's: "
+        f"{held}; launches as phase 13's "
+        f"{ {k: v for k, v in ddp['launches'].items() if v} }")
+    log(f"[scaling] (a) in the same process: a 5 x 3 s train step through DDP "
+        f"{[round(v, 2) for v in exact['ms_ddp']]} ms (median {med['ms_ddp']:.2f}) against the "
+        f"model alone {[round(v, 2) for v in exact['ms_plain']]} (median {med['ms_plain']:.2f}) "
+        f"in turns on {smi}; its gradients through DDP with cuDNN deterministic "
+        f"{'bit for bit' if exact['grads_bitwise'] else 'NOT equal to'} the model's own; with "
+        f"cuDNN's defaults two passes from the same weights differ in "
+        f"{len(exact['repeat_differing'])} of {exact['n_grads']} gradients "
+        f"{exact['repeat_differing']} (so two training runs differ, as the checkpoints do)")
+    if not exact["grads_bitwise"] or held["move_snr_db"] < DDP_MOVE_SNR_DB:
+        raise AssertionError(f"world size 1 against one process: gradients through DDP equal "
+                             f"{exact['grads_bitwise']}, checkpoint {held}")
+    results["train_world1"] = {
+        "launch_wall_s": wall, "wall_s": ddp["wall_s"], "step_ms": ddp["step_ms"],
+        "ms_per_step": ms_step, "plain_ms_per_step": plain["ms_per_step"],
+        "ddp_line": ddp["ddp_line"], "epochs": ddp["epochs"], "checkpoint": name,
+        "held": held, "launches": ddp["launches"], "in_turns": dict(exact, medians=med)}
+
+    n = FLAGSHIP["n_repeats"]
+    per_batch = with_products({"bilstm2_forward": n, "bilstm2_forward_masked": n})
+    n_batches = cli_state["test_tss"]["n_batches"]
+    want_rows = _csv_rows(os.path.join(cli_root, "metrics_si_sdr", "all_metrics.csv"))
+    ev = one["test"]
+    expect_launches(ev["launches"], per_batch, n_batches, "cli.test --data-parallel 1")
+    rows = _csv_rows(os.path.join(root, "eval_1", "all_metrics.csv"))
+    worst = _rows_within(rows, want_rows, {"si_sdr": CLI_ROW_TOL["si_sdr"]},
+                         "cli.test --data-parallel 1 against phase 13")
+    log(f"[scaling] (b) cli.test --data-parallel 1 under the launcher ({ev['wall_s']:.2f} s in "
+        f"the process; the launch of (a) and (b) {wall:.1f} s): {len(rows)} rows, against "
+        f"phase 13's {'bit for bit' if rows == want_rows else f'worst {worst}'}; final "
+        f"{ev['final']}; launches { {k: v for k, v in ev['launches'].items() if v} }")
+    results["test_world1"] = {"wall_s": ev["wall_s"], "final": ev["final"],
+                              "rows_bitwise": rows == want_rows, "worst": worst,
+                              "launches": ev["launches"]}
+
+    # -- (c) two processes on the one card through gloo (NCCL takes one process
+    # per card): flagship steps against one process, then cli.test --data-parallel 2
+    savedir = os.path.join(root, "eval_2")
+    pair, wall = _torchrun(2, ["steps", "test"], root,
+                           [[card[1]], test_argv(savedir, 2, card)], gloo=True)
+    steps = [p["steps"] for p in pair]
+    parts = [torch.load(r["path"], weights_only=True) for r in steps]
+    same = all(torch.equal(parts[0]["state"][k], parts[1]["state"][k])
+               for k in parts[0]["state"])
+    if not (same and all(r["ddp"] for r in steps)):
+        raise AssertionError(f"two processes on one card: parameters equal {same}, DDP "
+                             f"{[r['ddp'] for r in steps]}")
+    alone = _ddp_steps(torch, dev, root)
+    ref = torch.load(alone["path"], weights_only=True)
+    start = init_weights_(DPRNNSpeTasNet(**FLAGSHIP),
+                          torch.Generator().manual_seed(SEED + 60)).state_dict()
+    losses = [(a + b) / 2 for a, b in zip(steps[0]["losses"], steps[1]["losses"])]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, alone["losses"]))
+    grad_snr = snr_db(torch.cat([parts[0]["grads"][k].flatten() for k in ref["grads"]]),
+                      torch.cat([g.flatten() for g in ref["grads"].values()]))
+    move_snr = _move_snr_db(torch, parts[0]["state"], ref["state"], start)
+    max_diff = max(float((parts[0]["state"][k].double() - v.double()).abs().max())
+                   for k, v in ref["state"].items() if v.is_floating_point())
+    fam = training_family("tss")
+    per_step = dict(fam["per_train_step"], **fam["products_per_train_step"])
+    for r in steps:  # each process runs the whole model on its rows
+        expect_launches(r["launches"], per_step, DDP_STEPS, "flagship steps of one process")
+    launches = [{k: v for k, v in r["launches"].items() if v} for r in steps]
+    log(f"[scaling] (c) {DDP_STEPS} flagship TSS steps at global batch {DDP_BATCH}, two "
+        f"processes on one card (gloo; the launch, with cli.test below, {wall:.1f} s): ms per "
+        f"step (process 0) {[round(v, 1) for v in steps[0]['ms']]} against one process's "
+        f"{[round(v, 1) for v in alone['ms']]} on {smi}; the processes' parameters bit for "
+        f"bit equal; against one process: losses {losses} / {alone['losses']} (max rel "
+        f"{loss_rel:.2e}), first-step gradients {grad_snr:.2f} dB, parameter moves "
+        f"{move_snr:.2f} dB, max |param diff| {max_diff:.3e}; launches by process {launches}")
+    if not (loss_rel <= DDP_LOSS_REL and grad_snr >= DDP_GRAD_SNR_DB
+            and move_snr >= DDP_MOVE_SNR_DB):
+        raise AssertionError(f"two processes against one: loss rel {loss_rel}, gradients "
+                             f"{grad_snr:.2f} dB, moves {move_snr:.2f} dB")
+    results["steps_two_processes"] = {
+        "launch_wall_s": wall, "ms": [r["ms"] for r in steps], "ms_one_process": alone["ms"],
+        "losses": losses, "losses_one_process": alone["losses"], "loss_rel": loss_rel,
+        "grad_snr_db": grad_snr, "move_snr_db": move_snr, "max_param_diff": max_diff,
+        "launches": launches}
+    for path in [r["path"] for r in steps] + [alone["path"]]:
+        os.remove(path)
+
+    evs = [p["test"] for p in pair]
+    launches = {k: evs[0]["launches"][k] + evs[1]["launches"][k] for k in evs[0]["launches"]}
+    expect_launches(launches, per_batch, n_batches, "cli.test --data-parallel 2 (both)")
+    rows = _csv_rows(os.path.join(savedir, "all_metrics.csv"))
+    split = [sorted(int(r["index"]) for r in
+                    _csv_rows(os.path.join(savedir, f"proc{i}", "all_metrics.csv")))
+             for i in range(2)]
+    if sorted(split[0] + split[1]) != [int(r["index"]) for r in want_rows] or \
+            set(split[0]) & set(split[1]) or evs[0]["final"] != evs[1]["final"]:
+        raise AssertionError(f"cli.test --data-parallel 2: proc0 {split[0]}, proc1 {split[1]}, "
+                             f"finals {evs[0]['final']} / {evs[1]['final']}")
+    worst = _rows_within(rows, want_rows, {"si_sdr": CLI_ROW_TOL["si_sdr"]},
+                         "cli.test --data-parallel 2 against phase 13")
+    log(f"[scaling] (c) cli.test --data-parallel 2, two processes on one card (gloo; "
+        f"{max(e['wall_s'] for e in evs):.2f} s in the processes): proc0 {len(split[0])} rows, "
+        f"proc1 {len(split[1])}; merged against phase 13's "
+        f"{'bit for bit' if rows == want_rows else f'worst {worst}'}; final {evs[0]['final']}; "
+        f"launches by process {[{k: v for k, v in e['launches'].items() if v} for e in evs]}")
+    results["test_two_processes"] = {"wall_s": [e["wall_s"] for e in evs],
+                                     "rows": [len(s) for s in split],
+                                     "rows_bitwise": rows == want_rows, "worst": worst,
+                                     "final": evs[0]["final"], "launches": launches}
+    # phase 13's corpus and checkpoint were kept for this phase
+    for path in (root, os.path.join(cli_root, "corpus"), os.path.dirname(best)):
+        shutil.rmtree(path, ignore_errors=True)
+    return results
+
 def time_major_entries(tm):
     """The kernels line's rows of phase 19, with the launches of its
     time-major runs: the serving entries' from InferencerSpe.run under
@@ -5997,9 +6420,24 @@ def main() -> int:
         f"{tms['bf16_batch32']['audio_s_per_s_bm']:.2f} audio-s/s on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     entries += time_major_entries(tm)
+    t0 = time.perf_counter()
+    scaling = phase_scaling(torch, dev, smi, cli)
+    one, two = scaling["train_world1"], scaling["steps_two_processes"]
+    turns = one["in_turns"]["medians"]
+    log(f"[scaling] phase done in {time.perf_counter() - t0:.1f} s; a train step through "
+        f"DistributedDataParallel at world size 1 (NCCL) {turns['ms_ddp']:.2f} ms against "
+        f"{turns['ms_plain']:.2f} without (in turns), checkpoint against phase 13's "
+        f"{one['held']}; two "
+        f"processes on one card (gloo) against one: parameter moves {two['move_snr_db']:.2f} "
+        f"dB on {smi}; total {time.perf_counter() - t_start:.1f} s")
+    for e in entries:  # the kernels cli.train and cli.test ran under the launcher
+        got = {f"cli_{tag}_world1": run["launches"].get(e["name"], 0)
+               for tag, run in (("train", one), ("test", scaling["test_world1"]))}
+        if any(got.values()):
+            e["launches_scaling"] = got
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, "ptxas": ptxas, "serve_scan_modes": serve_scan_modes(ptxas),
-                   "scan_layouts": layouts, "time_major": tm,
+                   "scan_layouts": layouts, "time_major": tm, "scaling": scaling,
                    "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
@@ -6015,4 +6453,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-child"]:  # a process of phase 20's torch.distributed.run
+        sys.exit(ddp_child(sys.argv[2:]))
     sys.exit(main())

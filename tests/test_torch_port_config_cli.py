@@ -325,7 +325,10 @@ def test_cli_test_refuses_what_is_not_ported(flow, case):
         argv += ["--set", "checkpoint_path=null"]
         err, match = ValueError, "checkpoint_path is required"
     elif case == "data_parallel":
+        # refused until data-parallel eval was ported; in one process a
+        # world of 2 is refused, naming both
         argv += ["--data-parallel", "2"]
+        err, match = ValueError, "--data-parallel 2 but the process group has world size 1"
     with pytest.raises(err, match=match):
         test_cli.main(argv)
 

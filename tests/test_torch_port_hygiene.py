@@ -1,7 +1,8 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
 package, nor a package the card's machine lacks (pandas, yaml, wandb,
-orbax), and no port source (nor chip_smoke.py, chip_profile.py or the port's
-bench script) has such an import."""
+orbax), and no port source (nor chip_smoke.py, chip_profile.py, the port's
+bench script or the data-parallel tests' worker process) has such an
+import."""
 
 import ast
 import pathlib
@@ -17,7 +18,8 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "tss_dprnn_tpu", "orbax", "pandas", 
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
-                                         ROOT / "scripts" / "port" / "bench_serve.py"]
+                                         ROOT / "scripts" / "port" / "bench_serve.py",
+                                         ROOT / "tests" / "torch_port_ddp_worker.py"]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -27,6 +29,7 @@ def test_importing_the_port_loads_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'tss_dprnn_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke, chip_profile\n"
+        "sys.path.insert(0, 'tests'); import torch_port_ddp_worker\n"
         f"roots = {FORBIDDEN_ROOTS!r}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "print(len(names), bad)\n"

@@ -34,6 +34,9 @@ the card; ``cli.separate`` separates one WAV, full length or in windows
 (``inference/long_audio.py``); ``cli.export_model`` writes a serving
 artifact that ``inference.export.load_artifact`` runs without the model
 code; ``cli.results_table`` renders ``final_metrics.json`` files.
+``cli.train`` and ``cli.test`` scale over cards under ``torch.distributed.run``,
+one process per card (``parallel``: DistributedDataParallel training with
+BatchNorm on the global batch, evaluation in whole batches per process).
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,16 @@ utterances in length buckets with their true ``lengths``. Evaluation:
 utterances are grouped into a few length buckets; each batch is zero-padded
 to its bucket size and carries the true ``lengths``, and the masked model
 forward then equals per-utterance exact evaluation on the valid region.
-Batches are dicts of numpy arrays; one process.
+Batches are dicts of numpy arrays.
+
+Data parallelism (``parallel``): ``process_index`` / ``process_count``
+default to this process's place in the process group, (0, 1) without one,
+as the JAX loaders default to ``jax.process_index()`` /
+``jax.process_count()`` (``data/loader.py:120-131``). Every process walks
+the same ``(seed, epoch)`` plan, so ``len()`` is the same on each; the
+training loaders give each process its share of every global batch
+(:func:`process_rows`), the bucketed eval loader whole batches,
+``plan[i::n]``.
 
 Dataset protocol: ``ds[i] -> (mix, target, reference, spk_idx)`` for target
 speech separation and ``ds[i] -> (mix, sources [n_src, T])`` for blind source
@@ -27,6 +36,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from tss_dprnn_tpu_torch import parallel
 from tss_dprnn_tpu_torch.data.resample import resample
 
 Batch = Dict[str, np.ndarray]
@@ -129,17 +139,69 @@ def _prefetch_iter(make_items: Callable[[], Iterator[Batch]], prefetch: int) -> 
         cancel.set()
 
 
+def _resolve_process(process_index: Optional[int],
+                     process_count: Optional[int]) -> Tuple[int, int]:
+    """This process's place in the data axis: the given one, else the
+    process group's (JAX ``data/loader.py:120-131``)."""
+    if process_count is None:
+        process_index, process_count = parallel.process_index(), parallel.process_count()
+    return int(process_index or 0), int(process_count)
+
+
+def _process_share(batch_size: int, process_index: Optional[int],
+                   process_count: Optional[int], accum_steps: int):
+    """(process_index, process_count, this process's rows of a global batch)
+    for a training loader; raises when the shares would be unequal."""
+    index, count = _resolve_process(process_index, process_count)
+    if batch_size % count:
+        raise ValueError(
+            f"global batch_size {batch_size} must divide by process_count "
+            f"{count} (per-host rows must be equal)")
+    if count > 1 and accum_steps > 1 and batch_size % (accum_steps * count):
+        raise ValueError(
+            f"global batch_size {batch_size} must divide by accum_steps {accum_steps} x "
+            f"process_count {count} (each process's share of every micro-batch "
+            "must be equal)")
+    return index, count, process_rows(batch_size, index, count, accum_steps)
+
+
+def process_rows(batch_size: int, process_index: int, process_count: int,
+                 accum_steps: int = 1) -> np.ndarray:
+    """The positions in a global batch of ``batch_size`` rows that process
+    ``process_index`` of ``process_count`` holds.
+
+    With ``accum_steps`` 1 the JAX loaders' contiguous slice
+    ``[i B/n, (i+1) B/n)``. Under gradient accumulation the JAX trainer's
+    micro-batch k is the global rows ``[k m, (k+1) m)``, m = B / accum_steps
+    (``training/trainer.py:285-287``), and its BatchNorm takes each
+    micro-batch's statistics; so process i holds ``[k m + i m/n,
+    k m + (i+1) m/n)`` of every k, in k order. Its k-th local micro-batch
+    (the trainer splits the local rows into ``accum_steps`` equal slices) is
+    then its share of global micro-batch k, and each global micro-batch
+    holds the rows it holds in JAX. Needs B % (accum_steps n) == 0."""
+    if process_count == 1:
+        return np.arange(batch_size)
+    m = batch_size // accum_steps
+    share = m // process_count
+    return np.concatenate([np.arange(k * m + process_index * share,
+                                     k * m + (process_index + 1) * share)
+                           for k in range(accum_steps)])
+
+
 class TrainLoader:
     """Shuffled fixed-shape batches, with an optional prefetch thread.
 
     The shuffle is keyed on ``(seed, epoch)``, so a resumed run replays the
     batch order of the uninterrupted one; the trainer calls ``set_epoch``,
     and plain iteration without it advances an internal epoch counter.
-    ``collate_fn(items) -> batch``."""
+    ``collate_fn(items) -> batch``. ``batch_size`` is the global batch: each
+    process gets its rows of it (:func:`process_rows`, with the trainer's
+    ``accum_steps``)."""
 
     def __init__(self, dataset, batch_size: int, collate_fn: Callable[[list], Batch],
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                 prefetch: int = 2):
+                 prefetch: int = 2, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None, accum_steps: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -147,6 +209,8 @@ class TrainLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
+        self.process_index, self.process_count, self._rows = _process_share(
+            batch_size, process_index, process_count, accum_steps)
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -157,11 +221,15 @@ class TrainLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _index_batches(self) -> List[np.ndarray]:
-        """This epoch's dataset indices, batch by batch."""
+        """This epoch's dataset indices, batch by batch: this process's rows
+        of each global batch."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self._epoch)).shuffle(idx)
-        return [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+        batches = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+        if self.process_count == 1:
+            return batches
+        return [b[self._rows[self._rows < len(b)]] for b in batches]
 
     def peek(self) -> Batch:
         """This epoch's first batch, without advancing the epoch or starting
@@ -194,13 +262,14 @@ class VarLenTrainLoader:
     dropped, and the batch order is shuffled across buckets.
     ``collate_fn(items, bucket_T) -> batch`` (:func:`collate_bss_eval`,
     :func:`make_collate_spe_eval`); an item longer than its bucket is cut
-    to it by the collate. One process: the JAX loader's per-process row
-    slicing (``process_index`` / ``process_count``) is not ported."""
+    to it by the collate. As in :class:`TrainLoader`, every process builds
+    the same global plan and materialises its rows of each batch."""
 
     def __init__(self, dataset, batch_size: int, collate_fn: Callable[[list, int], Batch],
                  lengths: Sequence[int], shuffle: bool = True, seed: int = 0,
                  n_buckets: int = 4, multiple: int = 2000, max_len: Optional[int] = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None, accum_steps: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -212,6 +281,8 @@ class VarLenTrainLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
+        self.process_index, self.process_count, self._rows = _process_share(
+            batch_size, process_index, process_count, accum_steps)
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -221,7 +292,7 @@ class VarLenTrainLoader:
         return next((b for b in self.bounds if length <= b), self.bounds[-1])
 
     def batch_plan(self) -> List[Tuple[int, np.ndarray]]:
-        """This epoch's [(bucket_T, dataset indices)]."""
+        """This epoch's [(bucket_T, dataset indices)] of the global batches."""
         idx = np.arange(len(self.dataset))
         rng = np.random.default_rng((self.seed, self._epoch))
         if self.shuffle:
@@ -240,6 +311,7 @@ class VarLenTrainLoader:
         return len(self.batch_plan())
 
     def _materialize(self, bucket_T: int, chunk: np.ndarray) -> Batch:
+        chunk = chunk[self._rows]
         batch = self.collate_fn(_get_items(self.dataset, chunk), bucket_T)
         batch["lengths"] = np.minimum(self.lengths[chunk], bucket_T).astype(np.int32)
         return batch
@@ -314,15 +386,23 @@ def make_collate_spe_eval(resample_ref_to: Optional[int] = None, sample_rate: in
 
 class BucketedEvalLoader:
     """Iterates bucketed, padded batches with true ``lengths`` and the
-    dataset ``indices`` of their rows. ``collate_fn(items, bucket_T)``."""
+    dataset ``indices`` of their rows. ``collate_fn(items, bucket_T)``.
+
+    With more than one process each takes whole batches, ``plan[i::n]``
+    (JAX ``data/loader.py:409-410``): processes may run different numbers of
+    batches, and no batch is split over them, so the JAX loader's
+    ``pad_to_batch`` (padding a tail batch to a multiple of the mesh) has no
+    use here and is not ported."""
 
     def __init__(self, dataset, batch_size: int, collate_fn: Callable[[list, int], Batch],
-                 lengths: Sequence[int], n_buckets: int = 8, multiple: int = 2000):
+                 lengths: Sequence[int], n_buckets: int = 8, multiple: int = 2000,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
         self.lengths = np.asarray(lengths)
         self.bounds = bucket_boundaries(lengths, n_buckets, multiple)
+        self.process_index, self.process_count = _resolve_process(process_index, process_count)
 
     def _bucket_of(self, length: int) -> int:
         for b in self.bounds:
@@ -331,13 +411,14 @@ class BucketedEvalLoader:
         return self.bounds[-1]
 
     def batch_plan(self) -> List[Tuple[int, List[int]]]:
-        """[(bucket_T, dataset indices)] in bucket order."""
+        """This process's [(bucket_T, dataset indices)], in bucket order."""
         groups: Dict[int, List[int]] = {}
         for i, length in enumerate(self.lengths):
             groups.setdefault(self._bucket_of(int(length)), []).append(i)
-        return [(bucket_T, idxs[i0 : i0 + self.batch_size])
+        plan = [(bucket_T, idxs[i0 : i0 + self.batch_size])
                 for bucket_T, idxs in sorted(groups.items())
                 for i0 in range(0, len(idxs), self.batch_size)]
+        return plan[self.process_index :: self.process_count]
 
     def __len__(self) -> int:
         return len(self.batch_plan())

@@ -27,6 +27,15 @@ The estimate crosses to the host only for a host metric, and the pool starts
 only then: with ``device_pesq`` neither happens (``host_counts`` counts
 both). An optional reporter (``reporters.Reporter``) gets each TSS row's
 'test' record in batch order.
+
+Data parallelism (JAX ``inference/inferencer.py:82-116``, ``cli/test.py:
+66-92``): in a process group of W processes each runs the whole batches
+``plan[i::W]`` of the bucketed loader on its own card and writes its rows
+to ``test_savedir/proc<i>/``, the JAX package's multi-host layout; the
+rows are then gathered, and process 0 writes ``all_metrics.csv`` and
+``final_metrics.json`` of every row into ``test_savedir``, the files one
+process writes. No batch is split over cards, so the JAX Inferencer's
+padded tail rows (``pad_to_batch``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from tss_dprnn_tpu_torch import parallel
 from tss_dprnn_tpu_torch.data.loader import BucketedEvalLoader, collate_bss_eval
 from tss_dprnn_tpu_torch.device import resolve_device
 from tss_dprnn_tpu_torch.ops import metrics as metrics_mod
@@ -214,17 +224,36 @@ class Inferencer:
                 for batch in loader:
                     consume(batch, self._host_rows(batch, *self._batch_rows(batch)))
         self.logger.info("Finished *** <Total time:%.3f min>.", (time.time() - start) / 60)
-        return self._save_result(rows)
+        if parallel.process_count() == 1:
+            return self._save_result(rows)
+        rank = parallel.process_index()
+        self._save_result(rows, os.path.join(self.test_savedir, f"proc{rank}"))
+        merged = sorted((r for part in parallel.gather_objects(rows) for r in part),
+                        key=lambda r: r["index"])
+        final = self._save_result(merged) if rank == 0 else self._final_metrics(merged)
+        parallel.barrier()
+        return final
 
-    def _save_result(self, rows: List[Dict[str, Any]]) -> Dict[str, Optional[float]]:
-        os.makedirs(self.test_savedir, exist_ok=True)
+    def _save_result(self, rows: List[Dict[str, Any]],
+                     savedir: Optional[str] = None) -> Dict[str, Optional[float]]:
+        """The rows in index order and their means, written to ``savedir``
+        (default ``test_savedir``); returns the means."""
+        savedir = savedir or self.test_savedir
+        os.makedirs(savedir, exist_ok=True)
         rows = sorted(rows, key=lambda r: r["index"])
+        final = self._final_metrics(rows)
         columns = [c for c in rows[0] if c != "index"] if rows else []
-        with open(os.path.join(self.test_savedir, "all_metrics.csv"), "w", newline="") as f:
+        with open(os.path.join(savedir, "all_metrics.csv"), "w", newline="") as f:
             writer = csv.writer(f)
             writer.writerow(["index"] + columns)
             for r in rows:
                 writer.writerow([r["index"]] + [r[c] for c in columns])
+        self.logger.info("Overall metrics: %s", final)
+        with open(os.path.join(savedir, "final_metrics.json"), "w") as f:
+            json.dump(final, f, indent=0)
+        return final
+
+    def _final_metrics(self, rows: List[Dict[str, Any]]) -> Dict[str, Optional[float]]:
         final: Dict[str, Optional[float]] = {}
         for name in self.metrics:
             # a metric a row could not score (None; STOI's NaN on too short
@@ -238,7 +267,4 @@ class Inferencer:
             final[name] = float(np.nanmean(vals))
             imp = vals - inputs
             final[name + "_imp"] = None if np.isnan(imp).all() else float(np.nanmean(imp))
-        self.logger.info("Overall metrics: %s", final)
-        with open(os.path.join(self.test_savedir, "final_metrics.json"), "w") as f:
-            json.dump(final, f, indent=0)
         return final

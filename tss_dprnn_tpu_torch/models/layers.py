@@ -22,6 +22,7 @@ from torch import nn
 
 from tss_dprnn_tpu_torch.ops import norms as norms_ops
 from tss_dprnn_tpu_torch.ops import rnn as rnn_ops
+from tss_dprnn_tpu_torch.parallel import differentiable_sum, process_count
 
 # BatchNorm's running-statistics momentum, torch's default
 # (tss_dprnn_tpu/models/layers.py:224)
@@ -239,7 +240,14 @@ class BatchNorm(nn.Module):
     (``module.train()``) it normalises with the batch statistics over every
     axis but the channel (padded frames count, as in the JAX package) and
     moves the running mean and the running unbiased variance by
-    ``_MOMENTUM`` (``tss_dprnn_tpu/models/layers.py:214-247``)."""
+    ``_MOMENTUM`` (``tss_dprnn_tpu/models/layers.py:214-247``).
+
+    Under a process group of more than one process the batch is the global
+    one, as in the JAX package's data-parallel step: the channel sums and
+    frame counts are summed over the processes, then the squared deviations,
+    each through ``parallel.differentiable_sum``, whose backward sums the
+    gradients over the processes too. One process, and eval mode, take no
+    collective."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -253,16 +261,31 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             mean, var = self.running_mean, self.running_var
+        elif process_count() > 1:
+            mean, var, n = self._global_statistics(x)
         else:
             axes = tuple(range(x.ndim - 1))
             mean = x.mean(dim=axes)
             var = (x - mean).square().mean(dim=axes)
             n = x.numel() // x.shape[-1]
+        if self.training:
             with torch.no_grad():
                 m = _MOMENTUM
-                unbiased = var * (n / max(n - 1, 1))
+                unbiased = var * (n / (n - 1).clamp_min(1) if torch.is_tensor(n)
+                                  else n / max(n - 1, 1))
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
                 self.num_batches_tracked += 1
         inv = torch.rsqrt(var + self.eps)
         return (x - mean) * inv * self.weight + self.bias
+
+    @staticmethod
+    def _global_statistics(x: torch.Tensor):
+        """(mean, biased variance, frame count) over every process's batch."""
+        axes = tuple(range(x.ndim - 1))
+        count = x.new_tensor([x.numel() // x.shape[-1]])
+        sums = differentiable_sum(torch.cat([x.sum(dim=axes), count]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        var = differentiable_sum((x - mean).square().sum(dim=axes)) / n
+        return mean, var, n.detach()

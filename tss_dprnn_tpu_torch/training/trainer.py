@@ -44,6 +44,21 @@ The JAX trainer's knobs (``training/trainer.py:70-97,132-178,258-320``):
   estimates and raises IndexError at the first row past them.
 
 ``lstm_backend`` is accepted and ignored: the port always runs its kernels.
+
+Data parallelism (JAX ``training/trainer.py:179-187, 330-368``): in a
+process group (``parallel``, one process per card) the model is wrapped in
+``DistributedDataParallel``, each process trains on its rows of every
+global batch (``data.loader.process_rows``), and the step is the global
+batch's: DDP averages the gradients (the local losses are means over equal
+shares), BatchNorm takes the global statistics, TSS references are padded
+to the global batch's longest, the clip sees the averaged gradients, and
+under ``accum_steps`` the first n - 1 micro-batches skip DDP's all-reduce
+(``no_sync``). Epoch losses are averaged and ``is_metrics``' sums and counts
+summed over the processes, so logs, best tracking, the scheduler and early
+stop agree on every process. Only process 0 writes checkpoints (the inner
+module's ``state_dict``, no ``module.`` prefix), reports and separates the
+eval mixtures; a barrier follows each checkpoint. One process takes none of
+this: no wrapper, no collective.
 """
 
 from __future__ import annotations
@@ -55,7 +70,9 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
+from tss_dprnn_tpu_torch import parallel
 from tss_dprnn_tpu_torch.device import resolve_device
 from tss_dprnn_tpu_torch.models.layers import BatchNorm
 from tss_dprnn_tpu_torch.ops import losses
@@ -73,6 +90,11 @@ class Trainer:
     the batch's ``sources`` on fixed crops. Subclasses override
     ``_forward_loss(batch, train) -> (loss, aux)``, with ``batch`` a dict of
     tensors on the device."""
+
+    # whether a train step leaves a parameter without a gradient, which DDP
+    # must then look for after each forward: no for the DPRNN families (the
+    # IRA passes share the core, and every parameter reaches the loss)
+    unused_parameters = False
 
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None,
@@ -124,6 +146,19 @@ class Trainer:
             self._resume(checkpoint_path)
         else:
             self.logger.info("Starting new training run.")
+        self.rank, self.world = parallel.process_index(), parallel.process_count()
+        self.ddp: Optional[DistributedDataParallel] = None
+        if parallel.is_distributed():
+            self.ddp = DistributedDataParallel(
+                self.model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                broadcast_buffers=False, find_unused_parameters=self.unused_parameters)
+            self.logger.info("DistributedDataParallel over %d processes (rank %d, %s)",
+                             self.world, self.rank, torch.distributed.get_backend())
+
+    def _net(self, train: bool) -> torch.nn.Module:
+        """The module a step calls: the DDP wrapper in a train step of a
+        process group, else the model itself."""
+        return self.ddp if train and self.ddp is not None else self.model
 
     def _resume(self, path: str) -> None:
         self.logger.info("Continue training from checkpoint: %s.", path)
@@ -156,7 +191,7 @@ class Trainer:
 
     def _forward_loss(self, batch: Dict[str, torch.Tensor], train: bool):
         model_lengths, loss_lengths = self._lengths_for(batch)
-        out = self.model(batch["mix"], model_lengths)
+        out = self._net(train)(batch["mix"], model_lengths)
         if self.is_metrics:
             loss, est = losses.pit_sisdr_loss(out, batch["sources"], return_est=True,
                                               lengths=loss_lengths)
@@ -213,8 +248,12 @@ class Trainer:
             for buf, old in zip(stats, before):
                 buf.copy_(old)
             micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
-            loss, aux = self._forward_loss(micro, train=True)
-            (loss / n).backward()
+            # DDP all-reduces the summed gradients after the last micro-batch only
+            skip = self.ddp.no_sync() if self.ddp is not None and k < n - 1 \
+                else contextlib.nullcontext()
+            with skip:
+                loss, aux = self._forward_loss(micro, train=True)
+                (loss / n).backward()
             total = loss.detach() if total is None else total + loss.detach()
         return total / n, aux
 
@@ -255,8 +294,10 @@ class Trainer:
             if self.is_metrics:
                 self._accumulate_metrics(batch, aux)
             if step % self.print_freq == 0:
-                self._log_step(step, float(loss_sum), aux)
-        total = float(loss_sum) if loss_sum is not None else 0.0
+                self._log_step(step, self._global_loss(loss_sum), aux)
+        total = self._global_loss(loss_sum)
+        if self.is_metrics:
+            self._sum_metrics_over_processes()
         return self._log_epoch(total, max(len(dataloader), 1), start, "train")
 
     def eval(self, dataloader) -> float:
@@ -267,9 +308,14 @@ class Trainer:
             loss = self.eval_step(batch)
             loss_sum = loss if loss_sum is None else loss_sum + loss
             if step % self.print_freq == 0:
-                self._log_step(step, float(loss_sum), {})
-        total = float(loss_sum) if loss_sum is not None else 0.0
-        return self._log_epoch(total, max(len(dataloader), 1), start, "eval")
+                self._log_step(step, self._global_loss(loss_sum), {})
+        return self._log_epoch(self._global_loss(loss_sum), max(len(dataloader), 1), start,
+                               "eval")
+
+    @staticmethod
+    def _global_loss(loss_sum: Optional[torch.Tensor]) -> float:
+        """A sum of step losses on the host, averaged over the processes."""
+        return float(parallel.mean_over_processes(loss_sum)) if loss_sum is not None else 0.0
 
     def run(self, train_loader, eval_loader, n_epochs: int, early_stop: int) -> None:
         best_loss = float(self._run_counters["best_loss"])
@@ -322,13 +368,24 @@ class Trainer:
                     self._metric_sums[k] = self._metric_sums.get(k, 0.0) + md[k]
             self._metric_cnt += 1
 
+    def _sum_metrics_over_processes(self) -> None:
+        """The epoch's metric sums and row count over every process's rows."""
+        if self.world == 1:
+            return
+        flat = [v for k in self.metrics for v in (self._metric_sums.get(k, 0.0),
+                                                   float(k in self._metric_sums))]
+        *flat, count = parallel.sum_numbers_over_processes(flat + [self._metric_cnt])
+        self._metric_sums = {k: flat[2 * i] for i, k in enumerate(self.metrics)
+                             if flat[2 * i + 1] > 0}
+        self._metric_cnt = int(count)
+
     def _log_epoch(self, total_loss: float, num_steps: int, start: float, mode: str) -> float:
         total_loss /= num_steps
         # as in JAX, an eval epoch reports the metrics of the train epoch before it
         metric_dict = None
         if self.is_metrics and self._metric_cnt > 0:
             metric_dict = {k: v / self._metric_cnt for k, v in self._metric_sums.items()}
-        if self.reporter is not None:
+        if self.reporter is not None and self.rank == 0:
             self.reporter.add_and_report(
                 logs={"step": self.cur_epoch, "loss": -total_loss, "metrics": metric_dict},
                 mode=mode)
@@ -339,8 +396,9 @@ class Trainer:
     @torch.no_grad()
     def _mixtures_inference(self) -> None:
         """The eval mixtures through the model in eval mode, their estimates
-        stored on each mixture and the lot handed to the reporter."""
-        if not self.eval_mixtures:
+        stored on each mixture and the lot handed to the reporter; process 0
+        only."""
+        if not self.eval_mixtures or self.rank != 0:
             return
         self.model.eval()
         for item in self.eval_mixtures.values():
@@ -352,14 +410,19 @@ class Trainer:
 
     # ---------------------------------------------------------- checkpoints
 
-    def _save_checkpoint(self, best: bool = False) -> str:
-        payload = {"epoch": self.cur_epoch, "model": self.model.state_dict()}
-        if share_blocks_of(self.model) is not None:
-            payload["share_blocks"] = share_blocks_of(self.model)
-        if self.save_optimizer:
-            payload.update(optimizer=self.optimizer.state_dict(), step=self.step,
-                           scheduler=self.lr_scheduler.state_dict(),
-                           run=dict(self._run_counters))
-        path = self.ckpt.save(self.cur_epoch, payload, best=best)
-        self.logger.info("Saved checkpoint: %s", path)
+    def _save_checkpoint(self, best: bool = False) -> Optional[str]:
+        """Process 0 writes the checkpoint and returns its path; every
+        process waits for it."""
+        path = None
+        if self.rank == 0:
+            payload = {"epoch": self.cur_epoch, "model": self.model.state_dict()}
+            if share_blocks_of(self.model) is not None:
+                payload["share_blocks"] = share_blocks_of(self.model)
+            if self.save_optimizer:
+                payload.update(optimizer=self.optimizer.state_dict(), step=self.step,
+                               scheduler=self.lr_scheduler.state_dict(),
+                               run=dict(self._run_counters))
+            path = self.ckpt.save(self.cur_epoch, payload, best=best)
+            self.logger.info("Saved checkpoint: %s", path)
+        parallel.barrier()
         return path

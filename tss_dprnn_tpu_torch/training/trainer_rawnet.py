@@ -24,6 +24,10 @@ REF_RATE = 16000  # the embedder's rate
 
 
 class TrainerRawNet(TrainerSpe):
+    # RawNet3 keeps the reference's ``spk_encoder.bn1`` for its state_dict,
+    # but its forward never reads it
+    unused_parameters = True
+
     def _estimate_mixture(self, item: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         rate = int((self.config.get("data") or {}).get("sample_rate", 8000))
         ref = resample(np.asarray(item["reference"], np.float32), rate, REF_RATE)

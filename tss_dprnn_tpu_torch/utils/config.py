@@ -276,17 +276,38 @@ def _block_mapping(lines, i: int, indent: int) -> Tuple[dict, int]:
 
 
 def load_config(path: str, overrides: Optional[List[str]] = None) -> Dict[str, Any]:
-    """A config file plus ``key.path=value`` overrides. The JAX package's
-    ``jax:`` section (compilation cache, platforms, multi-host set-up) has no
-    counterpart: it is logged and ignored."""
+    """A config file plus ``key.path=value`` overrides. Of the JAX package's
+    ``jax:`` section only the multi-host keys have a counterpart
+    (:func:`distributed_args`); the rest (compilation cache, platforms) is
+    logged and ignored."""
     with open(path) as f:
         config = parse_yaml(f.read(), path) or {}
     for item in overrides or []:
         key, _, raw = item.partition("=")
         set_by_path(config, key.strip(), _parse_override(raw))
     if config.get("jax") is not None:
-        logger.info("config section 'jax' %s is for the JAX package; ignored", config["jax"])
+        logger.info("config section 'jax' %s: its distributed keys start the process group, "
+                    "the rest is for the JAX package and ignored", config["jax"])
     return config
+
+
+def distributed_args(config: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The arguments of ``parallel.initialize_distributed`` that the config's
+    ``jax:`` section asks for (JAX ``utils/config.py:79-95``), or None
+    without ``distributed: true``::
+
+        jax:
+          distributed: true               # alone: torchrun's environment
+          coordinator_address: host:port  # explicit, with the next two
+          num_processes: 4
+          process_id: 0
+    """
+    section = config.get("jax") or {}
+    if not section.get("distributed"):
+        return None
+    return {"coordinator_address": section.get("coordinator_address"),
+            "num_processes": section.get("num_processes"),
+            "process_id": section.get("process_id")}
 
 
 _SCI_FLOAT = re.compile(r"^[+-]?(\d+(\.\d*)?|\.\d+)[eE][+-]?\d+$")
