@@ -324,8 +324,15 @@ Phases, each of which fails the script (nonzero exit, no result line):
    the same batches (losses within DDP_LOSS_REL, first-step gradients >=
    DDP_GRAD_SNR_DB, parameter moves >= DDP_MOVE_SNR_DB), then cli.test
    --data-parallel 2: proc0/ and proc1/ partition the utterances, the merged
-   rows against phase 13's. Phase 17 leaves phase 13's corpus and best
-   checkpoint for it; it removes them.
+   rows against phase 13's; (d) in the same launch, the two processes as a
+   1 x 2 data x model mesh (``parallel.make_mesh(model=2)``): DDP_STEPS
+   flagship TSS steps at global batch DDP_BATCH, each process holding its
+   slice of the 111 sharded parameters and stepping the whole batch on the
+   gathered weights (12 + 12 training kernels a step each), the whole
+   states bit for bit equal, against (c)'s one process (losses within
+   DDP_LOSS_REL, first-step gradients >= DDP_GRAD_SNR_DB, moves >=
+   DDP_MOVE_SNR_DB). Phase 17 leaves phase 13's corpus and best checkpoint
+   for it; it removes them.
 
 Every serving count includes the input products: each
 bilstm2_forward(_masked) launch runs one products_gemm launch first, and each
@@ -334,6 +341,10 @@ scan has D = 1), each bilstm2_forward_bm launch one and each
 bilstm2_dense_forward launch three (its input product and two output
 products), in both lanes (``with_products``), and the phases check those
 counts too.
+
+The script adopts the processes its children leave behind (a subreaper);
+after each phase it names any process still running below it, and at its
+end, also after a failure, it stops every one of them ([cleanup]).
 
 The line before the last is {"kernels": [...]} with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Files go to
@@ -437,6 +448,92 @@ DW_REL_TOL = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def become_subreaper() -> None:
+    """Adopt this process's orphaned descendants (``prctl``'s
+    PR_SET_CHILD_SUBREAPER on this process alone): a process that a child
+    leaves behind, even in a session of its own (torch.distributed.run starts
+    its launcher and workers so), stays below this one, where
+    :func:`stop_descendants` finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
+
+
+def _descendants() -> dict:
+    """pid -> (state, command line) of every process below this one, read
+    from /proc."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:  # it ended meanwhile
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        children.setdefault(int(ppid), []).append((int(name), state))
+    found, todo = {}, [os.getpid()]
+    while todo:
+        for pid, state in children.get(todo.pop(), []):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            except OSError:
+                cmd = ""
+            found[pid] = (state, cmd)
+            todo.append(pid)
+    return found
+
+
+def note_running(tag: str) -> None:
+    """Name, under the phase ``tag``, each process still running below this
+    one when the phase is done (:func:`stop_descendants` stops them at the
+    end)."""
+    for pid, (state, cmd) in sorted(_descendants().items()):
+        if state != "Z":
+            log(f"[{tag}] still running after the phase: {pid} {cmd}")
+
+
+def _reap() -> None:
+    """Collect every ended child of this process."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(grace_s: float = 10.0) -> list:
+    """Stop every process still running below this one: SIGTERM, then
+    SIGKILL after ``grace_s``; collect them. Returns "pid command line" of
+    each one found running."""
+    import signal
+
+    _reap()
+    live = {pid: cmd for pid, (state, cmd) in _descendants().items() if state != "Z"}
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in _descendants():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + (grace_s if sig == signal.SIGTERM else 30.0)
+        while time.monotonic() < deadline:
+            _reap()
+            if not _descendants():
+                break
+            time.sleep(0.05)
+        if not _descendants():
+            break
+    left = _descendants()
+    if left:
+        raise RuntimeError(f"processes below this one outlived SIGKILL: {left}")
+    return [f"{pid} {cmd}" for pid, cmd in sorted(live.items())]
 
 
 def time_ms(fn, reps: int) -> float:
@@ -5733,21 +5830,27 @@ def _torchrun(nproc: int, jobs, out: str, argvs, gloo: bool = False):
     return results, wall
 
 
-def _ddp_steps(torch, dev, out):
+def _ddp_steps(torch, dev, out, model_axis: int = 1):
     """DDP_STEPS flagship TSS train steps over global batches of DDP_BATCH
-    crops (this process's rows of each, in a process group): the state after
-    them and the first step's gradients to ``out``; each step's ms and loss."""
+    crops (this process's rows of each, in a process group; with
+    ``model_axis`` > 1 under ``make_mesh(model=model_axis)``, each process
+    on its data index's rows): the state after them and the first step's
+    gradients, whole, to ``out``; each step's ms and loss, and under the
+    mesh the elements this process holds of the sharded parameters."""
     from tss_dprnn_tpu_torch import parallel
     from tss_dprnn_tpu_torch.data import loader
     from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
     from tss_dprnn_tpu_torch.training import TrainerSpe
     from tss_dprnn_tpu_torch.utils.weights import init_weights_
 
+    mesh = parallel.make_mesh(model=model_axis) if model_axis > 1 else None
+    shares = {} if mesh is None else dict(process_index=mesh.data_index,
+                                          process_count=mesh.data)
     model = init_weights_(DPRNNSpeTasNet(**FLAGSHIP), torch.Generator().manual_seed(SEED + 60))
     trainer = TrainerSpe(model, dict(TRAIN_CONFIG, new_checkpoints_path=os.path.join(
-        out, "unused_chkpts")), device=dev)
+        out, "unused_chkpts")), device=dev, mesh=mesh)
     batches = loader.TrainLoader(Crops(SEED + 61, DDP_BATCH * DDP_STEPS), DDP_BATCH,
-                                 loader.collate_spe, seed=SEED, prefetch=0)
+                                 loader.collate_spe, seed=SEED, prefetch=0, **shares)
     ms, losses, grads = [], [], None
     for _, batch in zip(range(DDP_STEPS), batches):
         torch.cuda.synchronize()
@@ -5757,14 +5860,21 @@ def _ddp_steps(torch, dev, out):
         ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(loss))
         if grads is None:
-            grads = {k: p.grad.detach().cpu().clone() for k, p in
-                     trainer.model.named_parameters()}
-    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    path = os.path.join(out, f"steps_rank{parallel.process_index()}of"
-                             f"{parallel.process_count()}.pt")
+            grads = {k: p.grad for k, p in trainer.model.named_parameters()}
+            if trainer.shards is not None:
+                grads.update(trainer.shards.gather(grads))
+            grads = {k: g.detach().cpu().clone() for k, g in grads.items()}
+    state = {k: v.detach().cpu() for k, v in trainer.full_state_dict().items()}
+    path = os.path.join(out, f"{'mesh' if mesh else 'steps'}_rank{parallel.process_index()}"
+                             f"of{parallel.process_count()}.pt")
     torch.save({"state": state, "grads": grads}, path)
-    return {"ms": ms, "losses": losses, "path": path,
-            "ddp": trainer.ddp is not None}
+    result = {"ms": ms, "losses": losses, "path": path, "ddp": trainer.ddp is not None}
+    if trainer.shards is not None:
+        held, whole = trainer.shards.sharded_numel
+        result["sharded"] = {"mesh": mesh.shape, "tensors": len(trainer.shards.slots),
+                             "held": held, "whole": whole,
+                             "parameters": sum(p.numel() for p in trainer.model.parameters())}
+    return result
 
 
 def _ddp_exact(torch):
@@ -5833,7 +5943,8 @@ def ddp_child(argv) -> int:
     JOBS. With ``--gloo`` it joins the group through gloo on the card first
     (two processes on one card); then, in turn, ``train`` runs cli.train
     ARGS, ``test`` cli.test ARGS, ``exact`` the checks of :func:`_ddp_exact`
-    (no ARGS), ``steps`` the flagship steps of (c) on the device ARGS names.
+    (no ARGS), ``steps`` the flagship steps of (c) on the device ARGS names,
+    ``mesh`` those steps under a mesh of the processes as one model group.
     Each job's launches, counted from 0 at its start, and
     what it saw go to OUT/JOBS_rank<r>of<W>.json."""
     import torch
@@ -5874,6 +5985,8 @@ def ddp_child(argv) -> int:
             result = {"final": test_cli.main(args)}
         elif job == "steps":
             result = _ddp_steps(torch, args[0], out)
+        elif job == "mesh":
+            result = _ddp_steps(torch, args[0], out, model_axis=world)
         elif job == "exact":
             result = _ddp_exact(torch)
         else:
@@ -5895,6 +6008,49 @@ def _move_snr_db(torch, got, want, start):
     moved = torch.cat([(want[k] - start[k]).flatten().double() for k in keys])
     err = torch.cat([(got[k] - want[k]).flatten().double() for k in keys])
     return float(10 * math.log10(moved.pow(2).sum() / err.pow(2).sum().clamp_min(1e-300)))
+
+
+def _mesh_steps(torch, smi, runs, alone, ref, start, per_step):
+    """Phase 20 (d): the two processes' steps as a 1 x 2 mesh against (c)'s
+    one process (``alone``, its state and gradients ``ref``, the weights
+    before ``start``): each process's launches one process's, its slices of
+    the sharded parameters, the whole states bit for bit equal, the losses,
+    first-step gradients and moves at (c)'s bars."""
+    parts = [torch.load(r["path"], weights_only=True) for r in runs]
+    same = all(torch.equal(parts[0]["state"][k], parts[1]["state"][k])
+               for k in parts[0]["state"])
+    if not same or any(r["ddp"] for r in runs):
+        raise AssertionError(f"1 x 2 mesh: whole states equal {same}, DDP "
+                             f"{[r['ddp'] for r in runs]}")
+    for r in runs:
+        expect_launches(r["launches"], per_step, DDP_STEPS, "flagship steps under a 1 x 2 mesh")
+    sharded = [r["sharded"] for r in runs]
+    losses = runs[0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, alone["losses"]))
+    grad_snr = snr_db(torch.cat([parts[0]["grads"][k].flatten() for k in ref["grads"]]),
+                      torch.cat([g.flatten() for g in ref["grads"].values()]))
+    move_snr = _move_snr_db(torch, parts[0]["state"], ref["state"], start)
+    launches = [{k: v for k, v in r["launches"].items() if v} for r in runs]
+    log(f"[scaling] (d) {DDP_STEPS} flagship TSS steps at global batch {DDP_BATCH} under a "
+        f"1 x 2 data x model mesh, two processes on one card (gloo; {runs[0]['wall_s']:.1f} s "
+        f"in process 0, trainer and weights included): each process holds "
+        f"{[s['held'] for s in sharded]} of the {sharded[0]['whole']} elements of "
+        f"{sharded[0]['tensors']} sharded parameters ({sharded[0]['parameters']} elements held "
+        f"in all by process 0); ms per step (process 0) {[round(v, 1) for v in runs[0]['ms']]} "
+        f"against one process's {[round(v, 1) for v in alone['ms']]} on {smi}; the whole "
+        f"states bit for bit equal; against one process: losses {losses} / {alone['losses']} "
+        f"(max rel {loss_rel:.2e}), first-step gradients {grad_snr:.2f} dB, parameter moves "
+        f"{move_snr:.2f} dB; launches by process {launches}")
+    if not (loss_rel <= DDP_LOSS_REL and grad_snr >= DDP_GRAD_SNR_DB
+            and move_snr >= DDP_MOVE_SNR_DB):
+        raise AssertionError(f"1 x 2 mesh against one process: loss rel {loss_rel}, gradients "
+                             f"{grad_snr:.2f} dB, moves {move_snr:.2f} dB")
+    for r in runs:
+        os.remove(r["path"])
+    return {"wall_s": [r["wall_s"] for r in runs], "ms": [r["ms"] for r in runs],
+            "ms_one_process": alone["ms"], "sharded": sharded, "losses": losses,
+            "losses_one_process": alone["losses"], "loss_rel": loss_rel,
+            "grad_snr_db": grad_snr, "move_snr_db": move_snr, "launches": launches}
 
 
 def phase_scaling(torch, dev, smi, cli_state):
@@ -6000,10 +6156,11 @@ def phase_scaling(torch, dev, smi, cli_state):
                               "launches": ev["launches"]}
 
     # -- (c) two processes on the one card through gloo (NCCL takes one process
-    # per card): flagship steps against one process, then cli.test --data-parallel 2
+    # per card): flagship steps against one process, then cli.test --data-parallel 2;
+    # (d) the same steps with the two processes as a 1 x 2 mesh
     savedir = os.path.join(root, "eval_2")
-    pair, wall = _torchrun(2, ["steps", "test"], root,
-                           [[card[1]], test_argv(savedir, 2, card)], gloo=True)
+    pair, wall = _torchrun(2, ["steps", "test", "mesh"], root,
+                           [[card[1]], test_argv(savedir, 2, card), [card[1]]], gloo=True)
     steps = [p["steps"] for p in pair]
     parts = [torch.load(r["path"], weights_only=True) for r in steps]
     same = all(torch.equal(parts[0]["state"][k], parts[1]["state"][k])
@@ -6043,6 +6200,8 @@ def phase_scaling(torch, dev, smi, cli_state):
         "losses": losses, "losses_one_process": alone["losses"], "loss_rel": loss_rel,
         "grad_snr_db": grad_snr, "move_snr_db": move_snr, "max_param_diff": max_diff,
         "launches": launches}
+    results["steps_mesh"] = _mesh_steps(torch, smi, [p["mesh"] for p in pair], alone, ref,
+                                        start, per_step)
     for path in [r["path"] for r in steps] + [alone["path"]]:
         os.remove(path)
 
@@ -6235,6 +6394,7 @@ def main() -> int:
     t0 = time.perf_counter()
     entries = phase_kernel(torch, dev)
     log(f"[kernel] phase done in {time.perf_counter() - t0:.1f} s")
+    note_running("kernel")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     ckpt = os.path.join(OUT_DIR, "flagship_random.pt")
@@ -6244,23 +6404,27 @@ def main() -> int:
     inf, launches, rate = phase_main_path(torch, dev, ckpt)
     log(f"[main] phase done in {time.perf_counter() - t0:.1f} s; "
         f"{rate:.2f} audio-s/s on {smi}")
+    note_running("main")
     for e in entries:
         e["launches"] = launches[e["mode"]]
 
     t0 = time.perf_counter()
     phase_card_vs_cpu(torch, inf, ckpt)
     log(f"[check] phase done in {time.perf_counter() - t0:.1f} s")
+    note_running("check")
     del inf
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     train_kernels = phase_backward_kernels(torch, dev)
     log(f"[train-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    note_running("train-kernels")
 
     t0 = time.perf_counter()
     train = phase_training(torch, dev, training_family("tss"))
     log(f"[train] phase done in {time.perf_counter() - t0:.1f} s; "
         f"{train['ms_per_step']:.2f} ms/step on {smi}")
+    note_running("train")
     entries[0]["launches_per_training_run"] = train["launches"]["bilstm2_forward"]  # eval steps
     entries += train_kernel_entries(train_kernels, train["launches"])
     for e in entries:  # the fp32 serving scans' input products, on the main path
@@ -6270,6 +6434,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lstm_kernels = phase_lstm_kernels(torch, dev)
     log(f"[lstm-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    note_running("lstm-kernels")
 
     t0 = time.perf_counter()
     n = BSS["n_repeats"]
@@ -6279,11 +6444,13 @@ def main() -> int:
                                      {"bilstm2_forward": 2, "bilstm2_forward_masked": 2})
     log(f"[bss] phase done in {time.perf_counter() - t0:.1f} s; "
         f"{bss_serve['audio_s_per_s']:.2f} audio-s/s on {smi}")
+    note_running("bss")
 
     t0 = time.perf_counter()
     bss_train = phase_training(torch, dev, training_family("bss"))
     log(f"[bss-train] phase done in {time.perf_counter() - t0:.1f} s; "
         f"{bss_train['ms_per_step']:.2f} ms/step on {smi}")
+    note_running("bss-train")
     entries += lstm_kernel_entries(lstm_kernels, {**bss_train["launches"],
                                                   "lstm_forward": bss_serve["launches"]["lstm_forward"]})
     for e in entries:  # the BSS paths launch the fused bidirectional kernels too
@@ -6295,10 +6462,12 @@ def main() -> int:
     t0 = time.perf_counter()
     optin_kernels, bf16_product = phase_optin_kernels(torch, dev)
     log(f"[optin-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    note_running("optin-kernels")
     t0 = time.perf_counter()
     optin = phase_optin_paths(torch, dev, ckpt)
     log(f"[optin] phase done in {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("optin")
     paths = {"bilstm2_dense_forward": ("TSS_FUSED_DENSE=1 serving (6 intra scans per batch)",
                                        optin["TSS_FUSED_DENSE"]["launches"]),
              "bilstm2_forward_bm": ("TSS_BM=1 serving (6 intra scans per batch)",
@@ -6326,6 +6495,7 @@ def main() -> int:
     tiny = phase_tiny_widths(torch, dev)
     log(f"[tiny] phase done in {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("tiny")
     for e in entries:  # the dense Function's training steps run the residual and backward kernels
         if e["name"] in ("bilstm2_forward_resid", "bilstm2_backward"):
             e["launches_tss_fused_dense_training"] = optin["training"]["launches"][e["name"]]
@@ -6335,12 +6505,14 @@ def main() -> int:
         f"{cli['train']['ms_per_step']:.2f} ms/step, test CLI "
         f"{cli['test_tss']['walls_s']['triple_pool']:.3f} s on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("cli")
     t0 = time.perf_counter()
     families = phase_families(torch, dev)
     log(f"[families] phase done in {time.perf_counter() - t0:.1f} s; device metric lane "
         f"STOI {families['metric_lane']['stoi']['ms']:.2f} ms, PESQ "
         f"{families['metric_lane']['pesq']['ms']:.2f} ms per batch on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("families")
     t0 = time.perf_counter()
     ira_rawnet = phase_ira_rawnet(torch, dev, smi, cli["manifests"])
     log(f"[ira-rawnet] phase done in {time.perf_counter() - t0:.1f} s; serving at batch 8: "
@@ -6349,6 +6521,7 @@ def main() -> int:
         f"{ira_rawnet['ira_share3']['audio_s_per_s_batch8']:.2f}, RawNet "
         f"{ira_rawnet['rawnet']['audio_s_per_s_batch8']:.2f} audio-s/s on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("ira-rawnet")
     for e in entries:  # the two families run the serving and the training pair
         name = e["name"]
         if name in ("bilstm2_forward", "bilstm2_forward_masked", "bilstm2_forward_resid",
@@ -6369,6 +6542,7 @@ def main() -> int:
         f"{varlen['save_every']['save_every_1']['ms']:.1f} ms / "
         f"{varlen['save_every']['save_every_1']['peak_gb']:.2f} GB on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("varlen")
     new_entries = varlen_kernel_entries(varlen)
     by_name = {e["name"]: e for e in new_entries}
     for e in entries:  # the nested rows of these modes are now on a path too
@@ -6389,6 +6563,7 @@ def main() -> int:
         f"{steps['tss']['bf16']['peak_gb']:.2f} GB against fp32 {steps['tss']['fp32']['ms']:.1f} "
         f"ms / {steps['tss']['fp32']['peak_gb']:.2f} GB on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("bf16")
     entries += bf16_kernel_entries(entries, bf16, {
         "serve": flag["launches_bf16_batch8"],
         "bss_serve": bf16["serving"]["bss_causal"]["launches_bf16_batch8"],
@@ -6406,6 +6581,7 @@ def main() -> int:
         f"{art['fp32']['calls']['many']['call_ms']:.2f} ms (the eager forward through the same "
         f"host path {art['fp32']['calls']['many']['eager_call_ms']:.2f}) on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("serve-tools")
     launches = serve_tools_launches(serve)
     for e in entries:  # the first (fp32) row of each kernel the serving tools run
         if e["name"] in launches and "launches_serve_tools" not in e:
@@ -6419,25 +6595,34 @@ def main() -> int:
         f"{tms['bf16_batch32']['audio_s_per_s_tm']:.2f} against "
         f"{tms['bf16_batch32']['audio_s_per_s_bm']:.2f} audio-s/s on {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    note_running("time-major")
     entries += time_major_entries(tm)
     t0 = time.perf_counter()
     scaling = phase_scaling(torch, dev, smi, cli)
     one, two = scaling["train_world1"], scaling["steps_two_processes"]
+    mesh = scaling["steps_mesh"]
     turns = one["in_turns"]["medians"]
     log(f"[scaling] phase done in {time.perf_counter() - t0:.1f} s; a train step through "
         f"DistributedDataParallel at world size 1 (NCCL) {turns['ms_ddp']:.2f} ms against "
         f"{turns['ms_plain']:.2f} without (in turns), checkpoint against phase 13's "
         f"{one['held']}; two "
         f"processes on one card (gloo) against one: parameter moves {two['move_snr_db']:.2f} "
+        f"dB; as a 1 x 2 mesh ({max(mesh['wall_s']):.1f} s): moves {mesh['move_snr_db']:.2f} "
         f"dB on {smi}; total {time.perf_counter() - t_start:.1f} s")
+    note_running("scaling")
     for e in entries:  # the kernels cli.train and cli.test ran under the launcher
         got = {f"cli_{tag}_world1": run["launches"].get(e["name"], 0)
                for tag, run in (("train", one), ("test", scaling["test_world1"]))}
         if any(got.values()):
             e["launches_scaling"] = got
+    # nothing this script started may outlive it; a process still running
+    # here is named, then stopped
+    stopped = stop_descendants()
+    log(f"[cleanup] processes still running below this one at its end: {len(stopped)}"
+        + "".join(f"\n[cleanup] stopped {p}" for p in stopped))
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
-        json.dump({"card": smi, "ptxas": ptxas, "serve_scan_modes": serve_scan_modes(ptxas),
-                   "scan_layouts": layouts, "time_major": tm, "scaling": scaling,
+        json.dump({"card": smi, "stopped_at_end": stopped, "ptxas": ptxas,
+                   "serve_scan_modes": serve_scan_modes(ptxas), "scan_layouts": layouts, "time_major": tm, "scaling": scaling,
                    "kernels": entries, "training": train, "lstm_kernels": lstm_kernels,
                    "bss_serving": bss_serve, "bss_serving_bidirectional": bss_serve_bi,
                    "bss_training": bss_train, "optin": optin, "tiny_widths": tiny, "cli": cli,
@@ -6455,4 +6640,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-child"]:  # a process of phase 20's torch.distributed.run
         sys.exit(ddp_child(sys.argv[2:]))
-    sys.exit(main())
+    become_subreaper()
+    try:
+        rc = main()
+    finally:  # after a failure too: stop what a phase left running
+        for p in stop_descendants():
+            print(f"chip_smoke: stopped {p}", file=sys.stderr)
+    sys.exit(rc)

@@ -52,3 +52,25 @@ def test_no_jax_import_statements(path):
             continue
         for mod in mods:
             assert mod.split(".")[0] not in FORBIDDEN_ROOTS, f"{path}:{node.lineno} imports {mod}"
+
+
+def test_chip_smoke_stops_what_its_children_leave_behind():
+    # a child in a session of its own (as torch.distributed.run starts its
+    # launcher) leaves two processes behind, one of which ignores SIGTERM
+    code = (
+        "import os, subprocess, sys, time\n"
+        "import chip_smoke as cs\n"
+        "cs.become_subreaper()\n"
+        "subprocess.run([sys.executable, '-c', \"import subprocess; "
+        "subprocess.Popen(['sleep', '300'], start_new_session=True); "
+        "subprocess.Popen(['sh', '-c', 'trap \\\"\\\" TERM; sleep 300'])\"], "
+        "start_new_session=True, check=True)\n"
+        "time.sleep(0.5)\n"
+        "stopped = cs.stop_descendants(grace_s=1.0)\n"
+        "print(stopped, cs._descendants())\n"
+        "sys.exit(0 if len(stopped) == 3 and not cs._descendants() else 1)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=60, env={"PATH": "/usr/bin:/bin",
+                                                      "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr

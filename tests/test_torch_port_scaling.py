@@ -1,6 +1,6 @@
-"""Data parallelism of the port (``tss_dprnn_tpu_torch.parallel``): two
-and four processes under gloo against one process and the JAX package, on
-the CPU.
+"""Data and model parallelism of the port (``tss_dprnn_tpu_torch.parallel``):
+two and four processes under gloo against one process and the JAX package,
+on the CPU.
 
 The processes are ``tests/torch_port_ddp_worker.py``, started at once with
 the environment ``torch.distributed.run`` gives its processes (RANK,
@@ -28,11 +28,22 @@ jobs. They run while this process takes the JAX trainer's eager step.
   the group left and joined again.
 - ``jax.distributed`` config keys, and ``resolve_device`` under
   ``LOCAL_RANK``.
+- The model axis (``make_mesh(data, model)``): the rule table marks the
+  leaves and dimensions that JAX's ``param_shardings`` marks; TrainerSpe
+  steps under a 1 x 2 mesh (the two processes of the group) and a 2 x 2 one
+  (the four) against one process and the JAX trainer's first step, each
+  process holding only its slices; a step of each other family and a bf16
+  step at 1 x 2; a 1 x 2 checkpoint (with Adam's moments) loaded into one
+  process and resumed under the mesh; ``InferencerSpe.run`` at 2 x 2
+  against one process; ``make_mesh`` refusing layouts off the world size.
 
 The ``cuda`` cases run BatchNorm and the TrainerSpe steps with both
 processes on one card (gloo with CUDA tensors: NCCL takes one process per
-card) and, on a host with four cards, the four-process step, ``cli.test
---data-parallel 4`` and the re-join under NCCL, one process per card.
+card), also at 1 x 2, and, on a host with four cards, the four-process
+step, ``cli.test --data-parallel 4`` and the re-join under NCCL, one
+process per card, then a 2 x 2 TrainerSpe step and ``InferencerSpe.run``
+with ``device_metrics`` and ``device_pesq`` under that mesh, as
+``dryrun_multichip(4)`` runs them.
 """
 
 import csv
@@ -205,9 +216,11 @@ def launched(tmp_path_factory):
     """Two processes in a gloo group and one alone, started together."""
     root = tmp_path_factory.mktemp("scaling")
     config = _cli_inputs(root)
-    procs = (_start(root, ["bn", "steps", "families", "run", "cli"], cli_config=config)
-             + _start(root, ["steps", "families", "run"], world=None)
-             + _start(root, ["step", "cli", "rejoin"], world=4, cli_config=config))
+    procs = (_start(root, ["bn", "steps", "families", "run", "cli", "mesh_steps",
+                           "mesh_families", "mesh_bf16", "mesh_checkpoint"], cli_config=config)
+             + _start(root, ["steps", "families", "run", "bf16"], world=None)
+             + _start(root, ["step", "cli", "rejoin", "mesh_steps", "mesh_eval"], world=4,
+                      cli_config=config))
     yield {"root": root, "procs": procs, "config": config}
     for p in procs:
         if p.poll() is None:
@@ -273,10 +286,11 @@ def results(launched, jax_first_step):
         return torch.load(root / f"{job}_{tag}.pt", weights_only=False)
 
     out = {job: {"2": [load(job, f"rank{r}of2") for r in range(2)]}
-           for job in ("bn", "steps", "families", "run", "cli")}
-    for job in ("steps", "families", "run"):
-        out[job]["1"] = load(job, "rank0of1")
-    for job in ("step", "cli", "rejoin"):
+           for job in ("bn", "steps", "families", "run", "cli", "mesh_steps", "mesh_families",
+                       "mesh_bf16", "mesh_checkpoint")}
+    for job in ("steps", "families", "run", "bf16"):
+        out.setdefault(job, {})["1"] = load(job, "rank0of1")
+    for job in ("step", "cli", "rejoin", "mesh_steps", "mesh_eval"):
         out.setdefault(job, {})["4"] = [load(job, f"rank{r}of4") for r in range(4)]
     return dict(out, root=root, config=launched["config"])
 
@@ -592,6 +606,236 @@ def test_group_joined_again_after_leaving(results):
     assert results["rejoin"]["4"] == [6.0] * 4
 
 
+# --------------------------------------------------------------- model axis
+
+def _jax_variables(family):
+    """The JAX model of ``family`` at the worker's widths, its variables'
+    shapes (no values: ``jax.eval_shape`` of its init)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tss_dprnn_tpu.models import (DPRNNRawNetTasNet, DPRNNSpeIRATasNet, DPRNNSpeTasNet,
+                                      DPRNNTasNet)
+
+    T, ref = 240, (1200 if family == "rawnet" else 200)
+    if family == "bss":
+        model = DPRNNTasNet(**worker.BSS_TINY)
+        args = (jnp.zeros((2, T)),)
+    else:
+        cls = {"tss": DPRNNSpeTasNet, "ira": DPRNNSpeIRATasNet,
+               "rawnet": DPRNNRawNetTasNet}[family]
+        model = cls(**worker.TINY, **(worker.RAW if family == "rawnet" else {}))
+        args = (jnp.zeros((2, T)), jnp.zeros((2, ref)), jnp.full((2,), float(ref)))
+    return jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), *args))
+
+
+@pytest.mark.parametrize("family", ["bss", "tss", "ira", "rawnet"])
+def test_tp_rules_mark_the_leaves_jax_param_shardings_marks(family):
+    """DEFAULT_TP_RULES against JAX's param_shardings on make_mesh(data=4,
+    model=2): each JAX leaf is given the index along its sharded axis (zeros
+    when replicated) and converted by state_dict_from_jax; the port's
+    placements mark exactly the parameters whose converted values vary, on
+    the dimension they vary along (the transposes included), and nothing
+    else."""
+    import jax
+
+    from tss_dprnn_tpu.parallel import make_mesh as jax_make_mesh
+    from tss_dprnn_tpu.parallel import param_shardings
+    from tss_dprnn_tpu_torch import parallel
+    from tss_dprnn_tpu_torch.utils.weights import state_dict_from_jax
+
+    shapes = _jax_variables(family)
+    specs = param_shardings(shapes["params"], jax_make_mesh(data=4, model=2))
+
+    def indicator(leaf, sharding):
+        spec = list(sharding.spec)
+        axes = [leaf.ndim - len(spec) + i for i, a in enumerate(spec) if a == "model"]
+        if not axes:
+            return np.zeros(leaf.shape, np.float32)
+        shape = [1] * leaf.ndim
+        shape[axes[0]] = leaf.shape[axes[0]]
+        index = np.arange(1, leaf.shape[axes[0]] + 1, dtype=np.float32).reshape(shape)
+        return np.broadcast_to(index, leaf.shape).copy()
+
+    marked = {"params": jax.tree_util.tree_map(indicator, shapes["params"], specs),
+              "batch_stats": jax.tree_util.tree_map(
+                  lambda leaf: np.zeros(leaf.shape, np.float32), shapes.get("batch_stats", {}))}
+    sd = state_dict_from_jax(marked, "ln", 2, "att")
+    model = worker.FAMILIES[family][0]()
+    got = parallel.param_placements(model, parallel.Mesh(4, 2, rank=0))
+    want = {}
+    for name, _ in model.named_parameters():
+        t = sd[name]
+        varies = [d for d in range(t.ndim) if t.shape[d] > 1 and
+                  not torch.equal(t, t.narrow(d, 0, 1).expand_as(t))]
+        assert len(varies) <= 1, name
+        want[name] = varies[0] if varies else None
+    assert got == want
+    # the flagship's count at n_repeats 1: 16 LSTM tensors and 2 Denses a
+    # block, and the three heads
+    assert sum(d is not None for d in got.values()) == 21
+    assert all(d is None for d in parallel.param_placements(
+        model, parallel.Mesh(8, 1, rank=0)).values())
+
+
+@pytest.mark.parametrize("n,parts", [(64, 2), (7, 2), (10, 4), (3, 4)])
+def test_shard_bounds_cover_each_dimension_once(n, parts):
+    """The parts tile [0, n) in order, as torch.tensor_split cuts it."""
+    from tss_dprnn_tpu_torch.parallel import shard_bounds
+
+    bounds = [shard_bounds(n, parts, i) for i in range(parts)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert [hi - lo for lo, hi in bounds] == [len(t) for t in torch.tensor_split(
+        torch.arange(n), parts)]
+
+
+def test_make_mesh_refuses_layouts_off_the_world_size(results):
+    """data * model must equal the world size: one process alone, and a
+    group of four asked for 3 x 2 or a model axis of 3."""
+    from tss_dprnn_tpu_torch import parallel
+
+    for kw in (dict(model=2), dict(data=2), dict(data=1, model=2)):
+        with pytest.raises(ValueError, match="data \\* model must equal the world size"):
+            parallel.make_mesh(**kw)
+    assert parallel.make_mesh().shape == {"data": 1, "model": 1}
+    for rank in results["mesh_steps"]["4"]:
+        assert len(rank["refused"]) == 2
+        assert all("the process group has 4" in m for m in rank["refused"])
+
+
+def _mesh_runs(results, layout):
+    world = {"1x2": "2", "2x2": "4"}[layout]
+    return results["mesh_steps"][world]
+
+
+def _check_mesh_steps(runs, alone, accum):
+    """Every process's whole state bit for bit equal (the replicated
+    parameters unsliced, the sliced ones gathered), within PARAM_ATOL of one
+    process over the same global batches, the gradients at GRAD_RTOL; the
+    data groups' mean loss the global batch's (process r holds data index
+    r // 2's rows)."""
+    for r in runs[1:]:
+        for s, s0 in zip(r[accum]["states"], runs[0][accum]["states"]):
+            assert _equal(s, s0), "the processes' parameters differ"
+    for s, want in zip(runs[0][accum]["states"], alone["states"]):
+        _close(s, want, PARAM_ATOL, f"{len(runs)} processes, accum_steps {accum}")
+    _grads_close(runs[0][accum]["grads"][0], alone["grads"][0], "gradients")
+    first = np.mean([runs[2 * d][accum]["losses"][0] for d in range(len(runs) // 2)])
+    np.testing.assert_allclose(first, alone["losses"][0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["1x2", "2x2"])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_mesh_steps_match_one_process_and_jax(results, jax_first_step, layout, accum):
+    """Three TrainerSpe steps at global batch 4 under the mesh against one
+    process (``_check_mesh_steps``); the first step within 1e-6 of the JAX
+    trainer's eager step."""
+    runs = _mesh_runs(results, layout)
+    _check_mesh_steps(runs, results["steps"]["1"][accum], accum)
+    if accum == 1:
+        _close(runs[0][1]["states"][0], jax_first_step, 1e-6, "the first step against JAX",
+               counters=False)
+
+
+@pytest.mark.parametrize("layout", ["1x2", "2x2"])
+def test_mesh_processes_hold_only_their_slices(results, layout):
+    """Each process's sharded parameters and their Adam moments are its
+    slice of the whole (half of the gate rows, of the Denses' input
+    columns, of the heads' output rows); every other tensor whole."""
+    runs = _mesh_runs(results, layout)
+    whole = {k: tuple(v.shape) for k, v in runs[0][1]["states"][-1].items()}
+    for rank, r in enumerate(runs):
+        run = r[1]
+        for name, dim in run["placements"].items():
+            want = list(whole[name])
+            if dim is not None:
+                want[dim] //= 2
+            assert run["held"][name] == run["moments"][name] == tuple(want), (rank, name)
+        assert sum(d is not None for d in run["placements"].values()) == 21
+
+
+@pytest.mark.parametrize("family", ["bss", "ira", "rawnet"])
+def test_mesh_step_of_each_family(results, family):
+    """Two steps of each other family at 1 x 2 against one process's: the
+    processes bit for bit equal, the first loss and gradients one
+    process's, the parameters within PARAM_ATOL (RawNet's as in
+    test_ddp_step_of_each_family)."""
+    (r0, r1), alone = results["mesh_families"]["2"], results["families"]["1"]
+    for s0, s1 in zip(r0[family]["states"], r1[family]["states"]):
+        assert _equal(s0, s1)
+    np.testing.assert_allclose(r0[family]["losses"][0], alone[family]["losses"][0], rtol=1e-5)
+    _grads_close(r0[family]["grads"][0], alone[family]["grads"][0], family)
+    if family != "rawnet":
+        for s0, s in zip(r0[family]["states"], alone[family]["states"]):
+            _close(s0, s, PARAM_ATOL, family)
+
+
+def test_mesh_bf16_step_matches_one_process(results):
+    """A bf16 TrainerSpe step at 1 x 2 against one process's bf16 step."""
+    (r0, r1), alone = results["mesh_bf16"]["2"], results["bf16"]["1"]
+    assert _equal(r0["states"][0], r1["states"][0])
+    np.testing.assert_allclose(r0["losses"][0], alone["losses"][0], rtol=1e-5)
+    _grads_close(r0["grads"][0], alone["grads"][0], "bf16 gradients")
+    _close(r0["states"][0], alone["states"][0], PARAM_ATOL, "bf16 against one process")
+
+
+def test_mesh_checkpoint_is_whole_and_loads_across_layouts(results, tmp_path):
+    """Trainer.run at 1 x 2 with save_optimizer: process 0's checkpoint holds
+    whole tensors that load into one process's model and trainer; its Adam
+    moments, cut as each process holds them, equal that process's bit for
+    bit; a trainer resumed from it under the mesh holds what the run held;
+    the demo mixture was separated."""
+    from tss_dprnn_tpu_torch.models import DPRNNSpeTasNet
+    from tss_dprnn_tpu_torch.parallel import shard_bounds
+    from tss_dprnn_tpu_torch.training import TrainerSpe
+
+    runs = results["mesh_checkpoint"]["2"]
+    path = str(results["root"] / "mesh_run_2" / "1_last")
+    trainer = TrainerSpe(DPRNNSpeTasNet(**worker.TINY), dict(
+        worker.run_config(str(tmp_path)), checkpoint_path=path), device="cpu")
+    ckpt = torch.load(path, weights_only=False)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    state = ckpt["optimizer"]["state"]
+    for rank, r in enumerate(runs):
+        assert r["resumed_equal"]
+        for i, name in enumerate(names):
+            dim = r["placements"][name]
+            for key in ("exp_avg", "exp_avg_sq"):
+                whole = state[i][key]
+                if dim is not None:
+                    lo, hi = shard_bounds(whole.shape[dim], 2, rank)
+                    whole = whole.narrow(dim, lo, hi - lo)
+                assert torch.equal(whole, r["moments"][name][key]), (rank, name, key)
+            want = ckpt["model"][name]
+            if dim is not None:
+                lo, hi = shard_bounds(want.shape[dim], 2, rank)
+                want = want.narrow(dim, lo, hi - lo)
+            assert torch.equal(r["params"][name], want), (rank, name)
+    assert _equal(dict(trainer.model.state_dict()), ckpt["model"])
+    est = runs[0]["estimated"]
+    assert est is not None and np.isfinite(est).all() and runs[1]["estimated"] is None
+
+
+def test_mesh_inferencer_rows_equal_one_process(results, tmp_path):
+    """InferencerSpe.run under 2 x 2: the merged rows and means are one
+    process's at the same batches, model index 0 of each data group wrote
+    its proc<d>/ (process 0 also the merged files), model index 1 nothing."""
+    runs = results["mesh_eval"]["4"]
+    _check_mesh_eval(runs, results["root"] / "mesh_eval_4", results["config"], "cpu", tmp_path)
+
+
+def _check_mesh_eval(runs, savedir, config, device, tmp_path, **extra):
+    one = worker.mesh_eval(config, device, str(tmp_path / "one"), **extra)
+    assert [r["written"] for r in runs] == [["proc0", "."], [], ["proc1"], []]
+    assert (savedir / "all_metrics.csv").read_text() == \
+        (tmp_path / "one" / "all_metrics.csv").read_text()
+    assert all(r["final"] == one["final"] for r in runs)
+    parts = [{r["index"] for r in _csv(savedir / f"proc{i}" / "all_metrics.csv")}
+             for i in range(2)]
+    assert all(parts) and not parts[0] & parts[1]
+
+
 # ---------------------------------------------------------- set-up, devices
 
 def test_jax_distributed_keys_map_to_the_group_arguments():
@@ -632,7 +876,7 @@ def card_results(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     root = tmp_path_factory.mktemp("scaling_card")
-    procs = (_start(root, ["bn", "steps"], device="cuda:0")
+    procs = (_start(root, ["bn", "steps", "mesh_steps"], device="cuda:0")
              + _start(root, ["steps"], device="cuda:0", world=None))
     _wait(procs)
 
@@ -641,6 +885,7 @@ def card_results(tmp_path_factory):
 
     return {"bn": [load("bn", f"rank{r}of2") for r in range(2)],
             "steps": [load("steps", f"rank{r}of2") for r in range(2)],
+            "mesh_steps": [load("mesh_steps", f"rank{r}of2") for r in range(2)],
             "alone": load("steps", "rank0of1")}
 
 
@@ -659,6 +904,15 @@ def test_card_trainer_spe_ddp_steps_match_one_process(card_results, accum):
     _check_steps(card_results["steps"], card_results["alone"], accum)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [1, 2])
+def test_card_mesh_steps_match_one_process(card_results, accum):
+    """The TrainerSpe steps with both processes on one card as a 1 x 2 mesh
+    (gloo: the weights gathered by all-reduce of CUDA tensors), through the
+    kernels, against one process on the card."""
+    _check_mesh_steps(card_results["mesh_steps"], card_results["alone"][accum], accum)
+
+
 @pytest.fixture(scope="module")
 def cards_results(tmp_path_factory):
     """Four processes on four cards under NCCL (the deployment: one process
@@ -667,8 +921,8 @@ def cards_results(tmp_path_factory):
         pytest.skip("needs four CUDA cards")
     root = tmp_path_factory.mktemp("scaling_cards")
     config = _cli_inputs(root)
-    procs = (_start(root, ["step", "cli", "rejoin"], device="cuda:{rank}", world=4,
-                    cli_config=config, backend="nccl")
+    procs = (_start(root, ["step", "cli", "rejoin", "mesh_steps", "mesh_eval_device"],
+                    device="cuda:{rank}", world=4, cli_config=config, backend="nccl")
              + _start(root, ["steps"], device="cuda:0", world=None))
     _wait(procs)
 
@@ -679,6 +933,8 @@ def cards_results(tmp_path_factory):
             "steps": {"1": load("steps", "rank0of1")},
             "cli": {"4": [load("cli", f"rank{r}of4") for r in range(4)]},
             "rejoin": {"4": [load("rejoin", f"rank{r}of4") for r in range(4)]},
+            "mesh_steps": {"4": [load("mesh_steps", f"rank{r}of4") for r in range(4)]},
+            "mesh_eval": {"4": [load("mesh_eval_device", f"rank{r}of4") for r in range(4)]},
             "root": root, "config": config}
 
 
@@ -700,3 +956,23 @@ def test_cards_cli_test_data_parallel_at_four_processes(cards_results):
 @pytest.mark.cuda
 def test_cards_group_joined_again_after_leaving(cards_results):
     test_group_joined_again_after_leaving(cards_results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [1, 2])
+def test_cards_mesh_steps_at_two_by_two(cards_results, accum):
+    """A 2 x 2 mesh on four cards (NCCL: the model groups' gathers and the
+    data groups' means on the cards, host values through the gloo group
+    beside them) against one process on a card, as dryrun_multichip(4)
+    lays its mesh out."""
+    _check_mesh_steps(cards_results["mesh_steps"]["4"], cards_results["steps"]["1"][accum],
+                      accum)
+
+
+@pytest.mark.cuda
+def test_cards_mesh_inferencer_with_device_metrics(cards_results, tmp_path):
+    """InferencerSpe.run under the 2 x 2 mesh with device_metrics and
+    device_pesq against one process on a card (``_check_mesh_eval``)."""
+    _check_mesh_eval(cards_results["mesh_eval"]["4"], cards_results["root"] /
+                     "mesh_eval_device_4", cards_results["config"], "cuda:0", tmp_path,
+                     **worker.DEVICE_LANE)

@@ -1,4 +1,4 @@
-"""One process of the port's data-parallel tests
+"""One process of the port's data- and model-parallel tests
 (``tests/test_torch_port_scaling.py``); pytest does not collect it.
 
     RANK=r WORLD_SIZE=W LOCAL_RANK=r MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
@@ -10,7 +10,9 @@ through gloo (on the CPU, and for two processes sharing one card) or, with
 ``--backend nccl``, NCCL (one card per process); without
 it, it is the one-process run the group is held against. It runs the named
 jobs in order, pinned to one torch thread, and writes what each ended with
-to ``DIR/<job>_rank<r>of<W>.pt``. The models, data and configs of the jobs
+to ``DIR/<job>_rank<r>of<W>.pt``. The ``mesh_*`` jobs lay the group out as
+a data x model mesh (``parallel.make_mesh``): 1 x 2 in a group of two, 2 x 2
+in a group of four. The models, data and configs of the jobs
 are defined here, so that the test builds its references from the same
 ones. It imports nothing of JAX.
 """
@@ -49,6 +51,9 @@ STEPS = 3
 BN_SHAPES = ((6, 7, 5), (6, 5))
 EPOCHS = 2
 REJOIN_DELAY_S = 2.0
+# the metric lane of dryrun_multichip's eval (__graft_entry__.py:270-273)
+DEVICE_LANE = {"metrics": ["si_sdr", "stoi", "pesq"], "device_metrics": True,
+               "device_pesq": True}
 
 
 class Crops:
@@ -77,10 +82,11 @@ class Crops:
 FAMILIES = {
     # name: (model, trainer, collate, the data's keywords); RawNet3's
     # convolutions want references of 1000 samples or more at 16 kHz
-    "bss": (lambda: DPRNNTasNet(**BSS_TINY), Trainer, loader.collate_bss, {"bss": True}),
-    "tss": (lambda: DPRNNSpeTasNet(**TINY), TrainerSpe, loader.collate_spe, {}),
-    "ira": (lambda: DPRNNSpeIRATasNet(**TINY), TrainerSpe, loader.collate_spe, {}),
-    "rawnet": (lambda: DPRNNRawNetTasNet(**TINY, **RAW), TrainerRawNet,
+    "bss": (lambda **kw: DPRNNTasNet(**BSS_TINY, **kw), Trainer, loader.collate_bss,
+            {"bss": True}),
+    "tss": (lambda **kw: DPRNNSpeTasNet(**TINY, **kw), TrainerSpe, loader.collate_spe, {}),
+    "ira": (lambda **kw: DPRNNSpeIRATasNet(**TINY, **kw), TrainerSpe, loader.collate_spe, {}),
+    "rawnet": (lambda **kw: DPRNNRawNetTasNet(**TINY, **RAW, **kw), TrainerRawNet,
                lambda items: loader.collate_spe(items, resample_ref_to=16000),
                {"ref_range": (900, 1300)}),
 }
@@ -90,28 +96,51 @@ def _state(model: torch.nn.Module):
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
+def _cpu(tensors):
+    return {k: v.detach().cpu().clone() for k, v in tensors.items()}
+
+
+def _shares(mesh):
+    """A loader's place on the data axis: the mesh's, else the group's."""
+    return {} if mesh is None else dict(process_index=mesh.data_index, process_count=mesh.data)
+
+
 def train_steps(family: str, device, ckpt_dir: str, accum_steps: int = 1,
-                steps: int = STEPS, seed: int = 0, batches: int = None):
+                steps: int = STEPS, seed: int = 0, batches: int = None, mesh=None,
+                dtype=None):
     """``steps`` train steps of ``family`` over the same global batches of
-    GLOBAL_BATCH rows on every process, each process on its rows (the data
-    holds ``batches`` global batches, ``steps`` by default: its size keys
-    the shuffle); returns the model's state after each step, each step's
-    gradients (averaged over the processes, clipped) and each step's loss
-    as this process computed it."""
+    GLOBAL_BATCH rows on every process, each process on its rows of the
+    data axis (the data holds ``batches`` global batches, ``steps`` by
+    default: its size keys the shuffle); returns the model's state after
+    each step (whole tensors under a model axis), each step's gradients
+    (averaged over the processes, clipped; whole) and each step's loss as
+    this process computed it. Under a model axis also what this process
+    holds: its parameters' and Adam moments' shapes after the last step."""
     make, trainer_cls, collate, data = FAMILIES[family]
-    model = init_weights_(make(), torch.Generator().manual_seed(seed))
+    model = init_weights_(make(**({} if dtype is None else {"dtype": dtype})),
+                          torch.Generator().manual_seed(seed))
     trainer = trainer_cls(model, dict(STEP_CONFIG, accum_steps=accum_steps,
-                                      new_checkpoints_path=ckpt_dir), device=device)
+                                      new_checkpoints_path=ckpt_dir), device=device, mesh=mesh)
     data = Crops(2, GLOBAL_BATCH * (batches or steps), **data)
     states, grads, losses = [], [], []
     for _, batch in zip(range(steps), loader.TrainLoader(data, GLOBAL_BATCH, collate, seed=3,
-                                                         prefetch=0, accum_steps=accum_steps)):
+                                                         prefetch=0, accum_steps=accum_steps,
+                                                         **_shares(mesh))):
         loss, _ = trainer.train_step(batch)
-        states.append(_state(trainer.model))
-        grads.append({k: p.grad.detach().cpu().clone() for k, p in
-                      trainer.model.named_parameters() if p.grad is not None})
+        states.append(_cpu(trainer.full_state_dict()))
+        grad = {k: p.grad for k, p in trainer.model.named_parameters() if p.grad is not None}
+        if trainer.shards is not None:
+            grad.update(trainer.shards.gather(grad))
+        grads.append(_cpu(grad))
         losses.append(float(loss))
-    return {"states": states, "grads": grads, "losses": losses}
+    out = {"states": states, "grads": grads, "losses": losses}
+    if trainer.shards is not None:
+        moments = trainer.optimizer.adam.state
+        out["held"] = {k: tuple(p.shape) for k, p in trainer.model.named_parameters()}
+        out["moments"] = {k: tuple(moments[p]["exp_avg"].shape)
+                          for k, p in trainer.model.named_parameters() if moments[p]}
+        out["placements"] = trainer.shards.placements
+    return out
 
 
 def run_config(ckpt_dir: str):
@@ -212,12 +241,88 @@ def rejoin(device: str, rank: int, world: int):
     return float(t)
 
 
+def mesh_refusals():
+    """What ``make_mesh`` says to layouts that do not cover the group."""
+    out = []
+    for kw in (dict(data=3, model=2), dict(model=3)):
+        try:
+            parallel.make_mesh(**kw)
+        except ValueError as exc:
+            out.append(str(exc))
+        else:
+            raise AssertionError(f"make_mesh({kw}) covered a world of {parallel.process_count()}")
+    return out
+
+
+def mesh_checkpoint(device, out: str, mesh):
+    """``TrainerSpe.run`` for one epoch (one step) under the mesh with
+    ``save_optimizer`` and a demo mixture, then a trainer of other weights
+    resumed from its last checkpoint under the same mesh: what this process
+    held after the run (parameters and Adam moments by name), whether the
+    resumed trainer holds them bit for bit, and the mixture's estimate."""
+    def trainer(seed, **extra):
+        model = init_weights_(DPRNNSpeTasNet(**TINY), torch.Generator().manual_seed(seed))
+        return TrainerSpe(model, dict(run_config(out), **extra), device=device, mesh=mesh,
+                          eval_mixtures=mixtures)
+
+    item = Crops(4, 1)[0]
+    mixtures = {"0": {"mix": item[0], "reference": item[2]}}
+    first = trainer(1)
+    first.run(loader.TrainLoader(Crops(0, GLOBAL_BATCH), GLOBAL_BATCH, loader.collate_spe,
+                                 seed=3, prefetch=0, **_shares(mesh)),
+              loader.TrainLoader(Crops(9, GLOBAL_BATCH), GLOBAL_BATCH, loader.collate_spe,
+                                 shuffle=False, prefetch=0, **_shares(mesh)),
+              1, early_stop=10)
+
+    def held(t):
+        state = t.optimizer.adam.state
+        return ({k: p.detach().cpu().clone() for k, p in t.model.named_parameters()},
+                {k: {m: state[p][m].cpu().clone() for m in ("exp_avg", "exp_avg_sq")}
+                 for k, p in t.model.named_parameters()})
+
+    params, moments = held(first)
+    again = held(trainer(5, checkpoint_path=os.path.join(out, "1_last")))
+    return {"params": params, "moments": moments, "placements": first.shards.placements,
+            "resumed_equal": _same(again[0], params) and
+            all(_same(again[1][k], v) for k, v in moments.items()),
+            "estimated": mixtures["0"].get("estimated")}
+
+
+def _same(a, b):
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def mesh_eval(config: str, device, savedir: str, mesh=None, **extra):
+    """``InferencerSpe.run`` of the cli config's test split and checkpoint
+    under ``mesh`` (batches of 2, 2 buckets) into ``savedir``: its final
+    metrics and, by this process, the directories it wrote files into
+    (relative to ``savedir``)."""
+    from tss_dprnn_tpu_torch.cli.common import dataset_for
+    from tss_dprnn_tpu_torch.inference import InferencerSpe
+    from tss_dprnn_tpu_torch.models.registry import build_model
+    from tss_dprnn_tpu_torch.utils.config import load_config, model_config
+
+    cfg = dict(load_config(config), test_savedir=savedir, **extra)
+    inf = InferencerSpe(build_model(model_config(cfg)), cfg, device=device, mesh=mesh)
+    written, save = [], inf._save_result
+
+    def recorded(rows, where=None):
+        written.append(os.path.relpath(where or savedir, savedir))
+        return save(rows, where)
+
+    inf._save_result = recorded
+    final = inf.run(dataset_for(cfg, "test", True), batch_size=2, n_buckets=2)
+    return {"final": final, "written": written}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--jobs", required=True, help="comma-separated: bn, steps, step, families, "
-                                                  "run, cli, rejoin")
+                                                  "bf16, run, cli, rejoin, mesh_steps, "
+                                                  "mesh_families, mesh_bf16, mesh_checkpoint, "
+                                                  "mesh_eval, mesh_eval_device")
     ap.add_argument("--cli-config", default=None)
     ap.add_argument("--backend", default="gloo", help="gloo, or nccl with one card per process")
     args = ap.parse_args()
@@ -227,7 +332,11 @@ def main() -> int:
     rank, world = parallel.process_index(), parallel.process_count()
     tag = f"rank{rank}of{world}"
     ckpts = os.path.join(args.out, f"ckpt_{world}")
+    mesh = None
     for job in args.jobs.split(","):
+        if job.startswith("mesh_") and mesh is None:
+            # made at the first mesh job: after a rejoin, in the new group
+            mesh = parallel.make_mesh(model=2)
         if job == "bn":
             out = [batchnorm_step(s, args.device, rank, world) for s in BN_SHAPES]
         elif job == "steps":
@@ -244,6 +353,25 @@ def main() -> int:
                            os.path.join(args.out, f"eval_{world}"))
         elif job == "rejoin":
             out = rejoin(args.device, rank, world)
+        elif job == "bf16":
+            out = train_steps("tss", args.device, ckpts, steps=1, batches=STEPS,
+                              dtype=torch.bfloat16)
+        elif job == "mesh_steps":
+            out = {n: train_steps("tss", args.device, ckpts, accum_steps=n, mesh=mesh)
+                   for n in (1, 2)}
+            out["refused"] = mesh_refusals()
+        elif job == "mesh_families":
+            out = {f: train_steps(f, args.device, ckpts, steps=2, mesh=mesh)
+                   for f in ("bss", "ira", "rawnet")}
+        elif job == "mesh_bf16":
+            out = train_steps("tss", args.device, ckpts, steps=1, batches=STEPS,
+                              dtype=torch.bfloat16, mesh=mesh)
+        elif job == "mesh_checkpoint":
+            out = mesh_checkpoint(args.device, os.path.join(args.out, f"mesh_run_{world}"), mesh)
+        elif job in ("mesh_eval", "mesh_eval_device"):
+            extra = {} if job == "mesh_eval" else DEVICE_LANE
+            out = mesh_eval(args.cli_config, args.device,
+                            os.path.join(args.out, f"{job}_{world}"), mesh, **extra)
         else:
             raise ValueError(f"unknown job {job!r}")
         torch.save(out, os.path.join(args.out, f"{job}_{tag}.pt"))

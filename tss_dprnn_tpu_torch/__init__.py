@@ -36,7 +36,10 @@ artifact that ``inference.export.load_artifact`` runs without the model
 code; ``cli.results_table`` renders ``final_metrics.json`` files.
 ``cli.train`` and ``cli.test`` scale over cards under ``torch.distributed.run``,
 one process per card (``parallel``: DistributedDataParallel training with
-BatchNorm on the global batch, evaluation in whole batches per process).
+BatchNorm on the global batch, evaluation in whole batches per process);
+``parallel.make_mesh(data, model)`` adds the mesh's model axis to
+``Trainer`` and ``Inferencer`` (each process holds its slices of the
+matched weights and of Adam's moments).
 """
 
 __version__ = "0.1.0"

@@ -36,10 +36,19 @@ rows are then gathered, and process 0 writes ``all_metrics.csv`` and
 ``final_metrics.json`` of every row into ``test_savedir``, the files one
 process writes. No batch is split over cards, so the JAX Inferencer's
 padded tail rows (``pad_to_batch``) have no counterpart.
+
+Under a mesh (``mesh=parallel.make_mesh(data, model)``, JAX
+``inferencer.py:84-91``) the data axis takes the part of the processes
+above: each data group runs the whole batches ``plan[d::data]``; with a
+``model`` axis of 2 or more each process keeps its slices of the matched
+weights (``parallel.ShardedParameters``), gathered whole once for the run.
+Model index 0 of each data group writes ``proc<d>/``, and process 0 the
+merged files.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import logging
@@ -82,7 +91,8 @@ class Inferencer:
     rows to the reporter."""
 
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
-                 device: Optional[Union[str, torch.device]] = None, reporter=None):
+                 device: Optional[Union[str, torch.device]] = None, reporter=None,
+                 mesh: Optional[parallel.Mesh] = None):
         self.device = resolve_device(device)
         self.logger = logging.getLogger(__name__)
         self.reporter = reporter
@@ -108,13 +118,19 @@ class Inferencer:
         self.logger.info("Testing for pretrained: %s.", checkpoint_path)
         load_model(checkpoint_path, model)  # a bare state_dict or a trainer's checkpoint
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        # each loader's place on the data axis (the process group's without a mesh)
+        self._share = {} if mesh is None else dict(process_index=mesh.data_index,
+                                                   process_count=mesh.data)
+        self.shards = parallel.ShardedParameters(self.model, mesh) \
+            if mesh is not None and mesh.model > 1 else None
 
     def _to_device(self, batch: Dict[str, np.ndarray], keys) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(batch[k]).to(self.device) for k in keys}
 
     def _make_loader(self, test_set, batch_size: int, n_buckets: int, multiple: int):
         return BucketedEvalLoader(test_set, batch_size, collate_bss_eval, test_set.lengths(),
-                                  n_buckets=n_buckets, multiple=multiple)
+                                  n_buckets=n_buckets, multiple=multiple, **self._share)
 
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """Masked forward of one bucketed batch -> estimates [B, n_src, T] on
@@ -205,7 +221,10 @@ class Inferencer:
             self._emit_rows(batch, batch_rows)
             rows.extend(batch_rows)
 
-        with torch.inference_mode():
+        # the whole weights are gathered outside inference mode: the scans'
+        # weight cache reads their version counters
+        whole = self.shards.full() if self.shards is not None else contextlib.nullcontext()
+        with torch.no_grad(), whole, torch.inference_mode():
             if self.host_metrics and overlap_metrics:
                 workers = metrics_workers or min(4, os.cpu_count() or 1)
                 host_counts["pools"] += 1
@@ -227,8 +246,12 @@ class Inferencer:
         if parallel.process_count() == 1:
             return self._save_result(rows)
         rank = parallel.process_index()
-        self._save_result(rows, os.path.join(self.test_savedir, f"proc{rank}"))
-        merged = sorted((r for part in parallel.gather_objects(rows) for r in part),
+        if self.mesh is None:
+            self._save_result(rows, os.path.join(self.test_savedir, f"proc{rank}"))
+        elif self.mesh.model_index == 0:
+            self._save_result(rows, os.path.join(self.test_savedir,
+                                                 f"proc{self.mesh.data_index}"))
+        merged = sorted((r for part in parallel.gather_objects(rows, self.mesh) for r in part),
                         key=lambda r: r["index"])
         final = self._save_result(merged) if rank == 0 else self._final_metrics(merged)
         parallel.barrier()

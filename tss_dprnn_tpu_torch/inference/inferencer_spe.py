@@ -25,7 +25,7 @@ class InferencerSpe(Inferencer):
     def _make_loader(self, test_set, batch_size: int, n_buckets: int, multiple: int):
         collate = make_collate_spe_eval(self.resample_ref_to, self.sample_rate)
         return BucketedEvalLoader(test_set, batch_size, collate, test_set.lengths(),
-                                  n_buckets=n_buckets, multiple=multiple)
+                                  n_buckets=n_buckets, multiple=multiple, **self._share)
 
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """Masked forward of one bucketed batch -> estimates [B, T] on the device."""

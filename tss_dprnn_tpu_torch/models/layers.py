@@ -22,7 +22,7 @@ from torch import nn
 
 from tss_dprnn_tpu_torch.ops import norms as norms_ops
 from tss_dprnn_tpu_torch.ops import rnn as rnn_ops
-from tss_dprnn_tpu_torch.parallel import differentiable_sum, process_count
+from tss_dprnn_tpu_torch.parallel import data_count, differentiable_sum
 
 # BatchNorm's running-statistics momentum, torch's default
 # (tss_dprnn_tpu/models/layers.py:224)
@@ -244,10 +244,11 @@ class BatchNorm(nn.Module):
 
     Under a process group of more than one process the batch is the global
     one, as in the JAX package's data-parallel step: the channel sums and
-    frame counts are summed over the processes, then the squared deviations,
-    each through ``parallel.differentiable_sum``, whose backward sums the
-    gradients over the processes too. One process, and eval mode, take no
-    collective."""
+    frame counts are summed over the data axis (the whole group, or the data
+    group of the mesh whose sharded model runs), then the squared
+    deviations, each through ``parallel.differentiable_sum``, whose backward
+    sums the gradients over it too. A data axis of one process, and eval
+    mode, take no collective."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -261,7 +262,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             mean, var = self.running_mean, self.running_var
-        elif process_count() > 1:
+        elif data_count() > 1:
             mean, var, n = self._global_statistics(x)
         else:
             axes = tuple(range(x.ndim - 1))

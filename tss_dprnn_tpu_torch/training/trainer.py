@@ -59,6 +59,27 @@ stop agree on every process. Only process 0 writes checkpoints (the inner
 module's ``state_dict``, no ``module.`` prefix), reports and separates the
 eval mixtures; a barrier follows each checkpoint. One process takes none of
 this: no wrapper, no collective.
+
+Model axis (JAX ``TrainerSpe(model, config, mesh=make_mesh(data, model))``,
+``trainer.py:248-255``): given a mesh whose ``model`` axis is 2 or more,
+the trainer keeps on each process its slice of every parameter that
+``parallel.DEFAULT_TP_RULES`` match (``parallel.ShardedParameters``, made
+before the optimizer, so Adam's moments are slices too) and runs no DDP.
+Each step gathers the whole weights over the model group once, runs the
+forwards and backwards on them (the same kernels as one process), averages
+the slices' gradients over the data group and the replicated ones over
+every process, clips by the norm of the whole arrays and steps. Everything
+the data axis reduces (the loss mean, metric sums, BatchNorm's statistics,
+the references' longest) runs over the data group; the loaders are to be
+given ``process_index = mesh.data_index`` and ``process_count =
+mesh.data``. Process 0 writes checkpoints with the whole tensors under the
+model's own names (and, with ``save_optimizer``, whole Adam moments), so a
+checkpoint loads into one process or any mesh. A mesh with ``model`` 1 is
+the data axis above.
+
+``profile_dir`` (JAX ``trainer.py:323-341``): epoch 1's train loop runs
+under ``utils.profiling.trace``, a ``torch.profiler`` Chrome trace per
+process in that directory.
 """
 
 from __future__ import annotations
@@ -81,6 +102,7 @@ from tss_dprnn_tpu_torch.ops import rnn as rnn_ops
 from tss_dprnn_tpu_torch.training.schedulers import ExponentialDecay, ReduceLROnPlateau
 from tss_dprnn_tpu_torch.training.train_state import Optimizer
 from tss_dprnn_tpu_torch.utils.checkpoint import CheckpointManager, load_model, share_blocks_of
+from tss_dprnn_tpu_torch.utils.profiling import trace
 
 BEST_LOSS_SENTINEL = 100500.0  # the reference's starting best loss
 
@@ -99,7 +121,8 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None,
                  logger: Optional[logging.Logger] = None, reporter=None,
-                 eval_mixtures: Optional[Dict] = None):
+                 eval_mixtures: Optional[Dict] = None,
+                 mesh: Optional[parallel.Mesh] = None):
         self.accum_steps = int(config.get("accum_steps", 1))
         self.lstm_save_every = int(config.get("lstm_save_every", 1))
         self.schedule_masks = bool(config.get("schedule_masks", False))
@@ -120,12 +143,23 @@ class Trainer:
         self.eval_mixtures = eval_mixtures or {}
         self.cur_epoch = int(config.get("cur_epoch") or 0)
         self.print_freq = int(config.get("print_freq", 5))
+        self.rank, self.world = parallel.process_index(), parallel.process_count()
+        self.mesh = mesh
+        # the model axis: this process's slices, before the optimizer sees them
+        self.shards: Optional[parallel.ShardedParameters] = None
+        if mesh is not None and mesh.model > 1:
+            self.shards = parallel.ShardedParameters(self.model, mesh)
+            held, whole = self.shards.sharded_numel
+            self.logger.info("model axis: mesh %s, this process holds %d of the %d elements of "
+                             "%d sharded parameters", mesh.shape, held, whole,
+                             len(self.shards.slots))
 
         opt_cfg = config.get("optimizer", {})
         self.base_lr = float(opt_cfg.get("lr", 1e-3))
         self.optimizer = Optimizer(self.model.parameters(), self.base_lr,
                                    float(opt_cfg.get("weight_decay", 0.0)),
-                                   float(config.get("clip_norm") or 0.0) or None)
+                                   float(config.get("clip_norm") or 0.0) or None,
+                                   self.shards.grad_norm if self.shards is not None else None)
         sched = config.get("lr_scheduler", {}) or {}
         if sched.get("decay_rate") is not None:
             self.lr_scheduler = ExponentialDecay(self.base_lr, float(sched["decay_rate"]))
@@ -146,9 +180,8 @@ class Trainer:
             self._resume(checkpoint_path)
         else:
             self.logger.info("Starting new training run.")
-        self.rank, self.world = parallel.process_index(), parallel.process_count()
         self.ddp: Optional[DistributedDataParallel] = None
-        if parallel.is_distributed():
+        if parallel.is_distributed() and self.shards is None:
             self.ddp = DistributedDataParallel(
                 self.model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
                 broadcast_buffers=False, find_unused_parameters=self.unused_parameters)
@@ -160,13 +193,22 @@ class Trainer:
         process group, else the model itself."""
         return self.ddp if train and self.ddp is not None else self.model
 
+    def _whole_weights(self):
+        """The context the model runs in: under a model axis, with the whole
+        weights gathered (``ShardedParameters.full``)."""
+        return self.shards.full() if self.shards is not None else contextlib.nullcontext()
+
     def _resume(self, path: str) -> None:
         self.logger.info("Continue training from checkpoint: %s.", path)
-        ckpt = load_model(path, self.model)
+        ckpt = load_model(path, self.model,
+                          self.shards.load_state_dict if self.shards is not None else None)
         if not self.config.get("cur_epoch"):
             self.cur_epoch = int(ckpt.get("epoch", 0))
         if self.save_optimizer and "optimizer" in ckpt:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+            state = ckpt["optimizer"]
+            if self.shards is not None:
+                state = self.shards.load_optimizer_state(state)
+            self.optimizer.load_state_dict(state)
             self.step = int(ckpt.get("step", 0))
             if ckpt.get("scheduler"):
                 self.lr_scheduler.load_state_dict(ckpt["scheduler"])
@@ -262,12 +304,14 @@ class Trainer:
         self.model.train()
         batch = self._to_device(batch)
         self.optimizer.zero_grad()
-        with self._scans(train=True):
+        with self._whole_weights(), self._scans(train=True):
             if self.accum_steps > 1:
                 loss, aux = self._accumulated(batch)
             else:
                 loss, aux = self._forward_loss(batch, train=True)
                 loss.backward()
+        if self.shards is not None:
+            self.shards.reduce_gradients()
         self.optimizer.step()
         self.step += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
@@ -276,7 +320,7 @@ class Trainer:
     def eval_step(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         self.model.eval()
         batch = self._to_device(batch)
-        with self._scans(train=False):
+        with self._whole_weights(), self._scans(train=False):
             return self._forward_loss(batch, train=False)[0]
 
     # --------------------------------------------------------------- epochs
@@ -288,13 +332,15 @@ class Trainer:
         start = time.time()
         self._metric_sums, self._metric_cnt = {}, 0
         loss_sum = None
-        for step, batch in enumerate(dataloader):
-            loss, aux = self.train_step(batch)
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-            if self.is_metrics:
-                self._accumulate_metrics(batch, aux)
-            if step % self.print_freq == 0:
-                self._log_step(step, self._global_loss(loss_sum), aux)
+        with trace(self.config.get("profile_dir") if self.cur_epoch == 1 else None):
+            for step, batch in enumerate(dataloader):
+                with torch.profiler.record_function("train_step"):
+                    loss, aux = self.train_step(batch)
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+                if self.is_metrics:
+                    self._accumulate_metrics(batch, aux)
+                if step % self.print_freq == 0:
+                    self._log_step(step, self._global_loss(loss_sum), aux)
         total = self._global_loss(loss_sum)
         if self.is_metrics:
             self._sum_metrics_over_processes()
@@ -312,10 +358,11 @@ class Trainer:
         return self._log_epoch(self._global_loss(loss_sum), max(len(dataloader), 1), start,
                                "eval")
 
-    @staticmethod
-    def _global_loss(loss_sum: Optional[torch.Tensor]) -> float:
-        """A sum of step losses on the host, averaged over the processes."""
-        return float(parallel.mean_over_processes(loss_sum)) if loss_sum is not None else 0.0
+    def _global_loss(self, loss_sum: Optional[torch.Tensor]) -> float:
+        """A sum of step losses on the host, averaged over the data axis."""
+        if loss_sum is None:
+            return 0.0
+        return float(parallel.mean_over_processes(loss_sum, self.mesh))
 
     def run(self, train_loader, eval_loader, n_epochs: int, early_stop: int) -> None:
         best_loss = float(self._run_counters["best_loss"])
@@ -369,12 +416,12 @@ class Trainer:
             self._metric_cnt += 1
 
     def _sum_metrics_over_processes(self) -> None:
-        """The epoch's metric sums and row count over every process's rows."""
-        if self.world == 1:
+        """The epoch's metric sums and row count over the data axis's rows."""
+        if parallel.data_count(self.mesh) == 1:
             return
         flat = [v for k in self.metrics for v in (self._metric_sums.get(k, 0.0),
                                                    float(k in self._metric_sums))]
-        *flat, count = parallel.sum_numbers_over_processes(flat + [self._metric_cnt])
+        *flat, count = parallel.sum_numbers_over_processes(flat + [self._metric_cnt], self.mesh)
         self._metric_sums = {k: flat[2 * i] for i, k in enumerate(self.metrics)
                              if flat[2 * i + 1] > 0}
         self._metric_cnt = int(count)
@@ -397,12 +444,15 @@ class Trainer:
     def _mixtures_inference(self) -> None:
         """The eval mixtures through the model in eval mode, their estimates
         stored on each mixture and the lot handed to the reporter; process 0
-        only."""
-        if not self.eval_mixtures or self.rank != 0:
+        only (under a model axis every process joins the weights' gather)."""
+        if not self.eval_mixtures or (self.rank != 0 and self.shards is None):
             return
         self.model.eval()
-        for item in self.eval_mixtures.values():
-            item.update(self._estimate_mixture(item))
+        with self._whole_weights():
+            if self.rank != 0:
+                return
+            for item in self.eval_mixtures.values():
+                item.update(self._estimate_mixture(item))
         if self.reporter is not None:
             self.reporter.add_and_report(
                 logs={"step": self.cur_epoch, "mixtures": self.eval_mixtures},
@@ -410,16 +460,29 @@ class Trainer:
 
     # ---------------------------------------------------------- checkpoints
 
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state_dict with whole tensors (under a model axis a
+        collective: every process calls it)."""
+        if self.shards is not None:
+            return self.shards.state_dict()
+        return self.model.state_dict()
+
     def _save_checkpoint(self, best: bool = False) -> Optional[str]:
         """Process 0 writes the checkpoint and returns its path; every
-        process waits for it."""
+        process waits for it (and under a model axis first joins the gather
+        of the whole tensors)."""
         path = None
+        model_state, optimizer_state = self.full_state_dict(), None
+        if self.save_optimizer:
+            optimizer_state = self.optimizer.state_dict()
+            if self.shards is not None:
+                optimizer_state = self.shards.optimizer_state(optimizer_state)
         if self.rank == 0:
-            payload = {"epoch": self.cur_epoch, "model": self.model.state_dict()}
+            payload = {"epoch": self.cur_epoch, "model": model_state}
             if share_blocks_of(self.model) is not None:
                 payload["share_blocks"] = share_blocks_of(self.model)
             if self.save_optimizer:
-                payload.update(optimizer=self.optimizer.state_dict(), step=self.step,
+                payload.update(optimizer=optimizer_state, step=self.step,
                                scheduler=self.lr_scheduler.state_dict(),
                                run=dict(self._run_counters))
             path = self.ckpt.save(self.cur_epoch, payload, best=best)

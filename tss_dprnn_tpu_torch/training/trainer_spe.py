@@ -39,10 +39,11 @@ class TrainerSpe(Trainer):
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The batch on the device; in a process group the references padded
-        on the host to the global batch's longest, as one process collates
-        them (the speaker encoder's BatchNorm counts the padded frames)."""
+        on the host to the global batch's longest (over the data axis), as
+        one process collates them (the speaker encoder's BatchNorm counts
+        the padded frames)."""
         ref = np.asarray(batch["reference"])
-        extra = parallel.longest_over_processes(ref.shape[1]) - ref.shape[1]
+        extra = parallel.longest_over_processes(ref.shape[1], self.mesh) - ref.shape[1]
         if extra:
             batch = dict(batch, reference=np.pad(ref, ((0, 0), (0, extra))))
         return super()._to_device(batch)

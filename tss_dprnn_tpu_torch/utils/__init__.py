@@ -1,1 +1,2 @@
-"""Utilities of the port: weight conversion from the JAX package's variables and checkpoints."""
+"""Utilities of the port: weight conversion from the JAX package's
+variables, checkpoints, configs and profiling."""

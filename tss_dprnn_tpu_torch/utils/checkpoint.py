@@ -16,7 +16,7 @@ from __future__ import annotations
 import logging
 import os
 from collections import deque
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -47,11 +47,15 @@ class CheckpointManager:
         return path
 
 
-def load_model(path: str, model: torch.nn.Module) -> Dict[str, Any]:
+def load_model(path: str, model: torch.nn.Module,
+               load_state_dict: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None
+               ) -> Dict[str, Any]:
     """Load a checkpoint's weights into ``model`` (strict: a mismatch
     raises) and return the whole checkpoint as ``{"model": state_dict,
     ...}``: the trainer's layout as it is, a bare state_dict wrapped. A
-    directory (the JAX package's orbax checkpoints) raises."""
+    directory (the JAX package's orbax checkpoints) raises.
+    ``load_state_dict`` loads the weights in place of ``model``'s own (a
+    model whose parameters are sharded: ``parallel.ShardedParameters``)."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX package?): the port loads "
@@ -69,5 +73,8 @@ def load_model(path: str, model: torch.nn.Module) -> Dict[str, Any]:
             raise ValueError(f"{path} was trained with share_blocks={int(ckpt['share_blocks'])}"
                              f", the model has share_blocks={k}: set model.share_blocks to "
                              "the recorded value")
-    model.load_state_dict(ckpt["model"], strict=True)
+    if load_state_dict is None:
+        model.load_state_dict(ckpt["model"], strict=True)
+    else:
+        load_state_dict(ckpt["model"])
     return ckpt
